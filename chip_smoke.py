@@ -7,18 +7,31 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
 Phases (each prints its own lines; any failure raises and exits nonzero):
 
-1. card and build: the card's name and power limit (nvidia-smi), then the
-   three kernel libraries built from ``pmce_tpu_torch/csrc`` with nvcc;
+1. card and build: the card's name and power limit (nvidia-smi), then every
+   kernel library built from ``pmce_tpu_torch/csrc`` with nvcc;
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes of the full-width B=256 serving forward, with its tolerance,
-   and both timed with CUDA events (median after warm-up);
+   the shapes of the main paths (the serving forward at B=256, the Stage-1
+   training step at batch 64, the SMPL forward at B=256), with its
+   tolerance; both timed with CUDA events (median after warm-up), beside
+   the bound of the same work on this card;
 3. serving forward: ``create_pmce(num_joint=19, dtype=bfloat16, fused=True,
    device="cuda")`` at full width, random weights from a seed, B=256. The
    launch counters are zeroed just before it and read just after: every
    kernel of the path must have launched. Its outputs must be finite, of
    the expected shapes, and agree with the same model run through the plain
    versions; a small f32 input must agree with the same model on the CPU.
-   Then its throughput in mid-frames/s.
+   Then its throughput in mid-frames/s;
+4. Stage-1 training (``configs/train_pose_h36m.yml``, set in code, under
+   the bf16 + fused policy): sequences synthesised with the SMPL forward on
+   the card, then the port's ``Trainer`` fits the full-width lifter for two
+   short epochs with evaluation. The counters are zeroed just before and
+   read just after: block forward and backward 6 each per step, the trunk
+   in evaluation, the skinning kernel in the synthesis. Losses finite and
+   falling; the first step's loss and gradients on the kernel path agree
+   with the plain path; then the step's time and clips/s.
+
+``--profile`` adds a torch.profiler breakdown of the train step's device
+time by kernel.
 
 The second-to-last line is one JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -37,6 +50,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 B, T, J, C = 256, 16, 19, 256
+# Stage-1 training: batch, H36M joints, steps per epoch of the smoke fit.
+BT, JT, TRAIN_STEPS = 64, 17, 25
 
 # The TPU kernel each wrapper replaces (file:line of the Pallas body).
 REPLACES = {
@@ -44,25 +59,48 @@ REPLACES = {
     "gru_layer": "pmce_tpu/ops/fused_attention.py:2279",
     "gru_layer_rev": "pmce_tpu/ops/fused_attention.py:2279",
     "coevo_chain": "pmce_tpu/ops/fused_coevo_chain.py:118",
+    "block_fwd": "pmce_tpu/ops/fused_attention.py:464",
+    "block_bwd": "pmce_tpu/ops/fused_attention.py:1108",
+    "skinning": "pmce_tpu/smpl/kernels.py:31",
 }
 SOURCES = {
     "lifter_trunk": "pmce_tpu_torch/csrc/lifter_trunk.cu",
     "gru_layer": "pmce_tpu_torch/csrc/gru_scan.cu",
     "gru_layer_rev": "pmce_tpu_torch/csrc/gru_scan.cu",
     "coevo_chain": "pmce_tpu_torch/csrc/coevo_chain.cu",
+    "block_fwd": "pmce_tpu_torch/csrc/block.cu",
+    "block_bwd": "pmce_tpu_torch/csrc/block.cu",
+    "skinning": "pmce_tpu_torch/csrc/skinning.cu",
 }
+SERVING = ("lifter_trunk", "gru_layer", "gru_layer_rev", "coevo_chain")
+TRAINING = ("block_fwd", "block_bwd", "lifter_trunk", "skinning")
 # Kernel vs plain version on identical inputs, as max|kernel - plain| over
-# max|plain|. Both compute f32 sums of the same bf16 operands with the same
-# cast points; they differ in summation order and in exp/erf/tanh, so now
-# and then an intermediate rounds to the neighbouring bf16 value and the
-# difference propagates. First measured on an H100 (700 W): trunk 0.0625
-# absolute (LayerNorm-scaled outputs), GRU 0.0039 (one bf16 ulp of |h| < 1),
-# chain 0.11 on vertices up to ~17 (0.7 %).
+# max|plain| (for the block backward: per gradient). Both compute f32 sums
+# of the same bf16 operands with the same cast points; they differ in
+# summation order and in exp/erf/tanh, so now and then an intermediate
+# rounds to the neighbouring bf16 value and the difference propagates.
+# First measured on an H100 (700 W): trunk 0.0625 absolute (LayerNorm-scaled
+# outputs), GRU 0.0039 (one bf16 ulp of |h| < 1), chain 0.11 on vertices up
+# to ~17 (0.7 %), block forward 0.5 %, block gradients up to 0.56 %.
 TOL = {"lifter_trunk": 0.03, "gru_layer": 0.01, "gru_layer_rev": 0.01,
-       "coevo_chain": 0.02}
+       "coevo_chain": 0.02, "block_fwd": 0.02, "block_bwd": 0.02}
+# Skinning is full f32 on both sides: an absolute bound in meters
+# (first measured: 2.4e-7).
+SKIN_TOL_M = 1e-6
 # Serving outputs, kernel path vs plain path, relative to each output's
 # largest magnitude (first measured: 0.5 %, 0.3 %, 0.7 %).
 SERVE_REL_TOL = 0.02
+# First train step, kernel path vs plain path on the same weights, batch
+# and masks: the loss, and each parameter's gradient relative to its
+# largest magnitude. Six bf16 blocks forward and backward in a row; each
+# block alone stays within 0.6 % (phase 2). First measured: loss 4.7e-7,
+# gradients 1.5 % (spatial_pos_embed).
+STEP_LOSS_REL_TOL = 0.01
+STEP_GRAD_REL_TOL = 0.03
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 on
+# the tensor cores, f32 on the CUDA cores, and the HBM rate.
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def card_line() -> str:
@@ -92,7 +130,66 @@ def median_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of every distinct tensor in (nested tuples / lists / dicts of)
+    ``objs``, each counted once."""
+    import torch
+
+    seen, total = set(), 0
+
+    def walk(o):
+        nonlocal total
+        if isinstance(o, torch.Tensor):
+            if id(o) not in seen:
+                seen.add(id(o))
+                total += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            for v in o.values():
+                walk(v)
+        elif isinstance(o, (tuple, list)):
+            for v in o:
+                walk(v)
+
+    for o in objs:
+        walk(o)
+    return total
+
+
+def count_flops(fn) -> int:
+    """Matrix-product FLOPs of one call of ``fn`` (PyTorch's flop counter,
+    forward and any backward it runs)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops()
+
+
+def bound(flops: int, nbytes: int, peak: str) -> tuple[float, str]:
+    """The least time the card could take for the work: the larger of the
+    products at the published ``peak`` rate and the bytes each input read
+    once and each output written once take at the HBM rate."""
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def record(rows, name, err, ms, plain_ms, flops, nbytes, peak) -> None:
+    """Keep the first case's numbers of a kernel (the largest error over
+    all its cases) for the kernels line."""
+    bound_ms, by = bound(flops, nbytes, peak)
+    print(f"[kernels] {name}: bound {bound_ms:.4f} ms by {by} "
+          f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
+          f"{bound_ms / ms:.1%} of it", flush=True)
+    row = rows.setdefault(name, {"max_abs_err": 0.0})
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                 ("bound_by", by), ("library_ms", None)):
+        row.setdefault(k, v)
 
 
 class Inputs:
@@ -203,10 +300,10 @@ def check_kernels(device) -> dict:
             raise RuntimeError(f"{name} {label}: kernel disagrees with its "
                                f"plain version ({err} > {TOL[name]} x "
                                f"{scale})")
-        row = rows.setdefault(name, {"max_abs_err": 0.0})
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row.setdefault("ms", ms)
-        row.setdefault("plain_ms", plain_ms)
+        with torch.no_grad():
+            flops = count_flops(lambda: plain(*args))
+        record(rows, name, err, ms, plain_ms, flops,
+               tensor_bytes(args, outs_k), "bf16")
 
     compare("lifter_trunk", fa.lifter_trunk, fa.lifter_trunk_plain,
             trunk_case(r, B), f"B={B} T*J={T * J} C={C}")
@@ -219,7 +316,146 @@ def check_kernels(device) -> dict:
                 gru_case(r, steps, B), f"T={steps} B={B} H=1024")
     compare("coevo_chain", fc.coevo_chain, fc.coevo_chain_plain,
             chain_case(r, B), f"B={B} J={J} V=431 C=64")
+    check_blocks(device, rows)
+    check_skinning(device, rows)
     return rows
+
+
+def block_case(rng, device, clips: int, N: int, rate: float):
+    """One lifter block at the training shapes, made with numpy from a
+    seed: bf16 tokens, f32 weights, the shared post-norm, the output's
+    cotangent and, at a nonzero drop-path rate, per-clip branch masks."""
+    import torch
+
+    def r(*shape, scale=1.0, offset=0.0, dtype=torch.float32):
+        a = rng.normal(size=shape) * scale + offset
+        return torch.from_numpy(a.astype("float32")).to(
+            device, dtype).requires_grad_(True)
+
+    hid = 2 * C
+    params = (r(C, scale=0.1, offset=1.0), r(C, scale=0.1),
+              r(C, 3 * C, scale=C ** -0.5), r(3 * C, scale=0.02),
+              r(C, C, scale=C ** -0.5), r(C, scale=0.02),
+              r(C, scale=0.1, offset=1.0), r(C, scale=0.1),
+              r(C, hid, scale=C ** -0.5), r(hid, scale=0.02),
+              r(hid, C, scale=hid ** -0.5), r(C, scale=0.02),
+              r(C, scale=0.1, offset=1.0), r(C, scale=0.1))
+    masks = None
+    if rate:
+        keep = 1.0 - rate
+        masks = tuple(
+            torch.from_numpy(((rng.random((clips, 1, 1)) < keep) / keep)
+                             .astype("float32")).to(device)
+            for _ in range(2))
+    x = r(clips, N, C, dtype=torch.bfloat16)
+    g = r(clips, N, C, dtype=torch.bfloat16).detach()
+    return x, params, masks, g
+
+
+def check_blocks(device, rows) -> None:
+    """B6 / B7 at the training step's shapes (batch 64): block 0's spatial
+    half (64·16 clips of 17 joints, no masks) and block 2's temporal half
+    (64·17 clips of 16 frames, drop-path rate 0.2), each with its post-norm.
+    Forward against the plain version; backward against the plain
+    version's autograd (dx, 14 parameter gradients)."""
+    import numpy as np
+    import torch
+
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    rng = np.random.default_rng(2)
+    for label, clips, N, rate in (
+            ("block 0 spatial", BT * T, JT, 0.0),
+            ("block 2 temporal", BT * JT, T, 0.2)):
+        x, params, masks, g = block_case(rng, device, clips, N, rate)
+        leaves = [x, *params]
+
+        def fwd(fn):
+            return fn(x, params, 8, 1e-6, 1e-6, masks)
+
+        def bwd(y):
+            return torch.autograd.grad(y, leaves, g, retain_graph=True)
+
+        yk, yp = fwd(fa.transformer_block), fwd(fa.transformer_block_plain)
+        gk, gp = bwd(yk), bwd(yp)
+        torch.cuda.synchronize()
+        where = f"{label} [{clips}, {N}, {C}]" + (
+            f" masks rate {rate}" if masks else "")
+        for name, outs_k, outs_p, peak_fn, pbytes in (
+                ("block_fwd", (yk,), (yp,),
+                 lambda: fwd(fa.transformer_block_plain),
+                 tensor_bytes(x, params, masks, yk)),
+                ("block_bwd", gk, gp, lambda: bwd(yp),
+                 tensor_bytes(g, x, params, masks, gk))):
+            err = rel = 0.0
+            for a, b in zip(outs_k, outs_p):
+                if not bool(torch.isfinite(a).all()):
+                    raise RuntimeError(f"{name} {where}: non-finite output")
+                e = max_err(a, b)
+                err = max(err, e)
+                rel = max(rel, e / float(b.float().abs().max()))
+            if name == "block_fwd":
+                ms = median_ms(lambda: fwd(fa.transformer_block))
+                plain_ms = median_ms(
+                    lambda: fwd(fa.transformer_block_plain), iters=5)
+            else:
+                ms = median_ms(lambda: bwd(yk))
+                plain_ms = median_ms(lambda: bwd(yp), iters=5)
+            ok = rel <= TOL[name]
+            print(f"[kernels] {name} {where}: max_abs_err={err:.6g} "
+                  f"max relative to max|plain| {rel:.4g} (tol {TOL[name]}) "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                  f"{'' if ok else '  FAIL'}", flush=True)
+            if not ok:
+                raise RuntimeError(f"{name} {where}: kernel disagrees with "
+                                   f"its plain version ({rel})")
+            record(rows, name, err, ms, plain_ms, count_flops(peak_fn),
+                   pbytes, "bf16")
+        repeat = bwd(yk)
+        if not all(torch.equal(a, b) for a, b in zip(gk, repeat)):
+            raise RuntimeError(f"block_bwd {where}: two runs differ")
+        print(f"[kernels] block_bwd {where}: a second run gives the same "
+              f"gradients bit for bit", flush=True)
+        del yk, yp, gk, gp, repeat
+
+
+def check_skinning(device, rows) -> None:
+    """#15 at the SMPL forward's shapes: B=256 posed bodies of the 6890-
+    vertex stand-in, full f32, against the plain skinning."""
+    import numpy as np
+    import torch
+
+    from pmce_tpu_torch.smpl import kernels as sk
+    from pmce_tpu_torch.smpl.artifacts import ensure_cached_artifacts
+    from pmce_tpu_torch.smpl.layer import (
+        SMPLModel,
+        apply_skinning,
+        skinning_transforms,
+    )
+
+    model = SMPLModel.from_artifacts(ensure_cached_artifacts(), device=device)
+    rng = np.random.default_rng(3)
+    pose = torch.from_numpy(rng.normal(scale=0.4, size=(B, 72)).astype(
+        np.float32)).to(device)
+    betas = torch.from_numpy(rng.normal(size=(B, 10)).astype(
+        np.float32)).to(device)
+    args = skinning_transforms(model, pose, betas)[:2] + (model.lbs_weights,)
+    got = sk.fused_skinning(*args)
+    want = apply_skinning(*args)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    ms = median_ms(lambda: sk.fused_skinning(*args))
+    plain_ms = median_ms(lambda: apply_skinning(*args), iters=5)
+    ok = bool(torch.isfinite(got).all()) and err <= SKIN_TOL_M
+    print(f"[kernels] skinning B={B} V={args[0].shape[1]} J=24: "
+          f"max_abs_err={err:.3g} m (tol {SKIN_TOL_M} m) kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms{'' if ok else '  FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError("skinning: kernel disagrees with its plain "
+                           f"version ({err} m)")
+    record(rows, "skinning", err, ms, plain_ms,
+           count_flops(lambda: apply_skinning(*args)),
+           tensor_bytes(args, got), "f32")
 
 
 def serve(device) -> tuple[float, dict]:
@@ -258,9 +494,10 @@ def serve(device) -> tuple[float, dict]:
         torch.cuda.synchronize()
         counts = _cuda.launch_counts()
     print(f"[serve] launches on the serving forward: {counts}", flush=True)
-    missing = [k for k, n in counts.items() if n == 0]
+    missing = [k for k in SERVING if counts[k] == 0]
     if missing:
-        raise RuntimeError(f"kernels not launched on the main path: {missing}")
+        raise RuntimeError(f"kernels not launched on the serving path: "
+                           f"{missing}")
 
     expect = {"mesh": (B, art.num_verts, 3), "evo_pose": (B, J, 3),
               "pose3d": (B, J, 3)}
@@ -336,6 +573,221 @@ def check_f32_small(model, device) -> None:
             raise RuntimeError(f"f32 {name}: card and CPU disagree")
 
 
+def pose_h36m_config():
+    """``configs/train_pose_h36m.yml`` (the reference's Stage-1 recipe), its
+    values set here so that no YAML package is needed, under the bf16 +
+    fused policy, then cut to two short epochs. The learning rate is raised
+    from 5e-5 to 1e-3 so that two short epochs show the loss fall, as
+    ``tests/test_trainer.py::test_lift_training`` does."""
+    from pmce_tpu_torch.core.config import Config
+
+    cfg = Config()
+    d, m, t, e = cfg.DATASET, cfg.MODEL, cfg.TRAIN, cfg.TEST
+    d.train_list, d.test_list = ["Human36M"], ["Human36M"]
+    d.input_joint_set = d.target_joint_set = "human36"
+    d.use_gt_input, d.seqlen, d.stride, d.synthetic = False, T, 1, True
+    m.name, m.hpe_dim, m.hpe_dep = "PoseEst", 256, 3
+    m.compute_dtype, m.fused_attn = "bfloat16", True
+    t.batch_size, t.shuffle, t.begin_epoch, t.end_epoch = BT, True, 1, 60
+    t.scheduler, t.lr, t.lr_step, t.lr_factor = "step", 5e-5, [10, 30, 50], 0.8
+    t.optimizer = "adam"
+    e.batch_size, e.shuffle = BT, False
+    t.end_epoch, t.steps_per_epoch, t.lr = 2, TRAIN_STEPS, 1e-3
+    return cfg
+
+
+def standin_h36m_regressor(num_verts: int, seed: int = 7):
+    """A sparse row-stochastic [17, V] H36M regressor: the JAX package's
+    synthetic stand-in recipe (``synthetic_regressors``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    jr = np.zeros((JT, num_verts), dtype=np.float32)
+    for j in range(JT):
+        idx = rng.choice(num_verts, size=max(4, num_verts // (4 * JT)),
+                         replace=False)
+        w = rng.random(len(idx))
+        jr[j, idx] = (w / w.sum()).astype(np.float32)
+    return jr
+
+
+def train(device, profile: bool) -> tuple[dict, float]:
+    """Phase 4: Stage-1 lifter training on the kernel path."""
+    import contextlib
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pmce_tpu_torch.core.losses import coord_l1
+    from pmce_tpu_torch.core.trainer import Trainer
+    from pmce_tpu_torch.data.clip_dataset import ClipDataset, MultiDataset
+    from pmce_tpu_torch.data.synthetic import generate_sequences
+    from pmce_tpu_torch.models.pmce import resolve_compute_dtype
+    from pmce_tpu_torch.models.pose_lifter import create_pose_lifter
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+    from pmce_tpu_torch.smpl.artifacts import ensure_cached_artifacts
+
+    cfg = pose_h36m_config()
+    art = ensure_cached_artifacts()
+    jr = standin_h36m_regressor(art.num_verts)
+    ckpt_dir = REPO / "pmce_tpu_torch" / "_build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def lifter():
+        return create_pose_lifter(
+            num_joints=JT, num_frames=cfg.DATASET.seqlen,
+            embed_dim=cfg.MODEL.hpe_dim, depth=cfg.MODEL.hpe_dep,
+            drop_path_rate=0.2,
+            dtype=resolve_compute_dtype(cfg.MODEL.compute_dtype),
+            fused=cfg.MODEL.fused_attn, device=device, seed=cfg.TRAIN.seed)
+
+    def trainer_for(model, ckpt=""):
+        return Trainer(cfg=cfg, model=model,
+                       train_data=MultiDataset([train_ds], seed=0),
+                       test_data=test_ds, ckpt_dir=ckpt, device=device,
+                       log_fn=lambda s: print(f"[train] {s}", flush=True))
+
+    # The main path: synthesis on the card, then the fit, counted.
+    t0 = time.time()
+    _cuda.reset_launch_counts()
+    # A synthetic H36M split as the JAX dataset factory sizes it: 2 videos
+    # of max(2·seqlen, 256 // 2) = 128 frames.
+    seqs = [generate_sequences(art, jr, num_videos=2, frames_per_video=128,
+                               seed=s, device=device) for s in (0, 100)]
+    train_ds = ClipDataset(seqs[0], seqlen=T, stride=1, chunk_mode="pose")
+    test_ds = ClipDataset(seqs[1], seqlen=T, stride=1, chunk_mode="pose")
+    trainer = trainer_for(lifter(), str(ckpt_dir))
+    state = trainer.fit()
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    print(f"[train] launches on the training path: {counts} "
+          f"({time.time() - t0:.1f} s: synthesis of {len(seqs[0]) * 2} "
+          f"frames at {art.num_verts} vertices, {2 * TRAIN_STEPS} steps, "
+          f"2 evaluations of {len(test_ds)} clips)", flush=True)
+    steps = 2 * TRAIN_STEPS
+    evals = 2 * -(-len(test_ds) // BT)
+    expect = {"block_fwd": 6 * steps, "block_bwd": 6 * steps,
+              "lifter_trunk": evals, "skinning": 4}
+    for name in TRAINING:
+        if counts[name] == 0 or counts[name] != expect[name]:
+            raise RuntimeError(f"training path: {name} launched "
+                               f"{counts[name]} times, expected "
+                               f"{expect[name]}")
+    losses, errs = trainer.loss_history, trainer.error_history["joint"]
+    if not all(np.isfinite(losses + errs)):
+        raise RuntimeError(f"non-finite losses {losses} or errors {errs}")
+    if not losses[1] < losses[0]:
+        raise RuntimeError(f"the loss did not fall: {losses}")
+    files = sorted(f.name for f in ckpt_dir.iterdir())
+    if files != ["best.ckpt", "checkpoint1.ckpt", "final.ckpt"]:
+        raise RuntimeError(f"checkpoints: {files}")
+    fresh = trainer_for(create_pose_lifter(
+        num_joints=JT, embed_dim=256, depth=3, device=device, seed=99))
+    restored, epoch = fresh.restore(str(ckpt_dir))
+    same = all(torch.equal(a, b) for a, b in zip(
+        trainer.model.state_dict().values(),
+        fresh.model.state_dict().values()))
+    if epoch != 2 or restored.step != steps or not same:
+        raise RuntimeError("restore did not give back the final state")
+    print(f"[train] epoch losses {losses}, MPJPE {errs} mm; checkpoints "
+          f"{files}; restore gives back epoch {epoch}, step {steps} and "
+          f"every parameter", flush=True)
+
+    # First step: kernel path vs plain path, same weights, batch, masks.
+    batch = trainer._wire_cast(train_ds.get_batch(np.arange(BT)))
+
+    def first_step(plain: bool):
+        model = lifter().train()
+        ctx = (mock.patch.object(fa, "transformer_block",
+                                 fa.transformer_block_plain)
+               if plain else contextlib.nullcontext())
+        with ctx:
+            pred = model(batch["pose2d"], batch["img_feature"],
+                         generator=torch.Generator(device).manual_seed(7))
+            loss = coord_l1(pred, batch["lift_pose3d"],
+                            batch["lift_pose3d_valid"])
+            loss.backward()
+        return float(loss), {n: p.grad for n, p in model.named_parameters()}
+
+    loss_k, grads_k = first_step(False)
+    loss_p, grads_p = first_step(True)
+    worst = max((max_err(grads_k[n], g) / max(max_err(g, 0 * g), 1e-30), n)
+                for n, g in grads_p.items())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"[train] first step, kernel vs plain path: loss {loss_k:.6g} vs "
+          f"{loss_p:.6g} (relative {loss_rel:.3g}, tol {STEP_LOSS_REL_TOL});"
+          f" largest gradient difference {worst[0]:.4g} of max|grad| in "
+          f"{worst[1]} (tol {STEP_GRAD_REL_TOL})", flush=True)
+    if loss_rel > STEP_LOSS_REL_TOL or worst[0] > STEP_GRAD_REL_TOL:
+        raise RuntimeError("first train step: kernel and plain paths "
+                           "disagree")
+
+    # Step time: host clock around one step ending in a synchronize.
+    gen = torch.Generator(device).manual_seed(1)
+
+    def step_ms(iters: int, warmup: int = 3) -> float:
+        times = []
+        for i in range(warmup + iters):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trainer.train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            if i >= warmup:
+                times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = step_ms(10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with mock.patch.object(fa, "transformer_block",
+                           fa.transformer_block_plain):
+        plain = step_ms(5, warmup=2)
+    print(f"[train] bf16 fused train step, batch {BT}: {ms:.3f} ms "
+          f"(median of 10), {BT / ms * 1e3:.1f} clips/s; plain path "
+          f"{plain:.3f} ms; peak device memory {peak:.2f} GiB; on "
+          f"{card_line()}", flush=True)
+    if profile:
+        profile_step(lambda: trainer.train_step(state, batch, gen))
+    return counts, ms
+
+
+def profile_step(step, n: int = 5) -> None:
+    """Device time of ``n`` train steps by kernel (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    by_name: dict = {}
+    for e in prof.events():
+        # Kernels only: user annotations (``Optimizer.step#...``) also sit
+        # on the device's track.
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            k = by_name.setdefault(e.name, [0.0, 0])
+            k[0] += e.time_range.elapsed_us() / 1e3 / n
+            k[1] += 1
+    busy = sum(v[0] for v in by_name.values())
+    print(f"[profile] train step: {busy:.3f} ms of kernel time per step in "
+          f"{wall:.3f} ms of wall time (busy {busy / wall:.1%})", flush=True)
+    for name, (t, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :25]:
+        print(f"[profile] {t:8.3f} ms {cnt // n:5d}x  {name[:110]}",
+              flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -359,8 +811,8 @@ def main() -> int:
           f", CUDA {torch.version.cuda}", flush=True)
     t0 = time.time()
     _cuda.build_all()
-    print(f"[build] 3 kernel libraries built and loaded in "
-          f"{time.time() - t0:.1f} s", flush=True)
+    print(f"[build] {len(_cuda.LIBRARIES)} kernel libraries built and loaded"
+          f" in {time.time() - t0:.1f} s", flush=True)
     for lib in _cuda.LIBRARIES:
         log = lib.path.with_suffix(".log")
         if log.is_file():
@@ -369,14 +821,20 @@ def main() -> int:
                     print(f"[build] {lib.source}: {line.strip()}", flush=True)
 
     rows = check_kernels(device)
-    fps, counts = serve(device)
+    fps, serve_counts = serve(device)
+    train_counts, step_ms = train(device, "--profile" in sys.argv[1:])
+    counts = {**{k: serve_counts[k] for k in SERVING},
+              **{k: train_counts[k] for k in TRAINING
+                 if k not in SERVING}}
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],
-                "max_abs_err": rows[name]["max_abs_err"],
-                "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"]}
+                **{k: rows[name][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
                for name in REPLACES]
-    print(f"[card] {card}; serving {fps:.1f} mid-frames/s", flush=True)
+    print(f"[card] {card}; serving {fps:.1f} mid-frames/s; train step "
+          f"{step_ms:.3f} ms = {BT / step_ms * 1e3:.1f} clips/s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

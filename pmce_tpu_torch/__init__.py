@@ -1,16 +1,24 @@
-"""pmce-tpu in PyTorch and CUDA: the PMCE serving forward for NVIDIA Hopper.
+"""pmce-tpu in PyTorch and CUDA for NVIDIA Hopper: the PMCE serving forward
+and Stage-1 lifter training.
 
 A port of the JAX package ``pmce_tpu`` (which stays the reference). It
 imports torch and numpy, never jax. Sub-packages:
 
-- ``pmce_tpu_torch.smpl``    SMPL artifacts and mesh coarsening assets;
+- ``pmce_tpu_torch.smpl``    SMPL artifacts, mesh coarsening, the SMPL layer
+                             and its skinning kernel;
 - ``pmce_tpu_torch.models``  pose lifter, co-evolution decoder, PMCE;
-- ``pmce_tpu_torch.ops``     the serving path's kernels: each a plain
-                             PyTorch version plus a hand-written CUDA
-                             kernel (``csrc/``), picked by tensor device;
+- ``pmce_tpu_torch.ops``     geometry and the kernels: each a plain PyTorch
+                             version plus a hand-written CUDA kernel
+                             (``csrc/``), picked by tensor device;
+- ``pmce_tpu_torch.core``    config, optimizer, loss, checkpoints and the
+                             Stage-1 ``Trainer``;
+- ``pmce_tpu_torch.data``    clip windowing, synthetic sequences, batches;
+- ``pmce_tpu_torch.utils``   metric logging;
 - ``pmce_tpu_torch.convert`` JAX parameter tree → reference state_dict.
 
-Start with ``pmce_tpu_torch.models.pmce.create_pmce(..., device=...)``.
+Start with ``pmce_tpu_torch.models.pmce.create_pmce(...)`` or
+``core.trainer.Trainer``; both run on the card unless given
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

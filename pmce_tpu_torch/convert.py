@@ -3,7 +3,9 @@
 :func:`state_dict_from_jax` turns a JAX PMCE parameter tree (nested dicts of
 arrays, as ``PMCE.init`` or a checkpoint gives them) into the port's
 reference-named state_dict. It is the inverse of
-``tools/import_torch_checkpoint.import_pmce``. Layout rules:
+``tools/import_torch_checkpoint.import_pmce``.
+:func:`lifter_state_dict_from_jax` does the same for a bare Stage-1
+``PoseLifter``. Layout rules:
 
 - a torch ``Linear.weight`` is [out, in], a flax ``Dense.kernel`` [in, out];
 - the upsample ``Conv1d.weight`` is [out, in, k] in torch, [k, in, out] in
@@ -141,3 +143,13 @@ def state_dict_from_jax(params, vj_relation=None) -> dict:
         out["pose_mesh_coevo.vj_relation"] = torch.as_tensor(
             np.asarray(vj_relation), dtype=torch.long)
     return out
+
+
+def lifter_state_dict_from_jax(params) -> dict:
+    """JAX ``PoseLifter`` params (a bare lifter, as Stage-1 training holds
+    it) → the state_dict of the port's ``PoseLifter``."""
+    if "params" in params:
+        params = params["params"]
+    out: dict = {}
+    _pose_lifter(params, "lifter", out)
+    return {k[len("lifter."):]: v for k, v in out.items()}

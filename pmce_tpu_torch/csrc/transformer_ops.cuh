@@ -1,0 +1,342 @@
+// Device pieces shared by the lifter trunk (lifter_trunk.cu) and the
+// training block (block.cu): row LayerNorm, the WMMA GEMM with fused
+// epilogues, and grouped self-attention over short token groups.
+//
+// All three run over every row of a [M, C = 256] token matrix whose rows
+// are grouped into clips by index arithmetic; nothing here pads rows or
+// builds masks.
+#pragma once
+
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace pmce {
+
+using namespace nvcuda;
+
+// ---------------------------------------------------------------------------
+// Row LayerNorm: one warp per row of C = 256 (8 values a lane), f32 stats.
+// out = bf16(LN(x)); with tpe: out = bf16(f32(bf16(LN(x))) + tpe[t]),
+// t = (row % R) / J -- the cast points of the JAX trunk.
+// ---------------------------------------------------------------------------
+constexpr int LN_C = 256;
+
+template <typename Tin>
+__global__ void ln_rows_kernel(const Tin* x, bf16* out, const float* g,
+                               const float* b, const float* tpe, int M,
+                               int R, int J, float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const Tin* xr = x + (size_t)row * LN_C;
+  float v[LN_C / 32];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_C / 32; ++i) {
+    v[i] = ldf(xr + lane + 32 * i);
+    s += v[i];
+  }
+  const float mean = warp_sum(s) * (1.0f / LN_C);
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_C / 32; ++i) {
+    v[i] -= mean;
+    q += v[i] * v[i];
+  }
+  const float var = fmaxf(warp_sum(q) * (1.0f / LN_C), 0.f);
+  const float inv = rsqrtf(var + eps);
+  const float* tp = tpe ? tpe + (size_t)((row % R) / J) * LN_C : nullptr;
+  bf16* orow = out + (size_t)row * LN_C;
+#pragma unroll
+  for (int i = 0; i < LN_C / 32; ++i) {
+    const int c = lane + 32 * i;
+    float y = v[i] * inv * g[c] + b[c];
+    if (tp) y = rbf(y) + tp[c];
+    orow[c] = f2bf(y);
+  }
+}
+
+static inline int launch_ln_rows(const void* x, int x_is_f32, void* out,
+                                 const float* g, const float* b,
+                                 const float* tpe, int M, int R, int J,
+                                 float eps, cudaStream_t s) {
+  const int threads = 256, rows_per_block = threads / 32;
+  const dim3 grid((M + rows_per_block - 1) / rows_per_block);
+  if (x_is_f32)
+    ln_rows_kernel<float><<<grid, threads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<bf16*>(out), g, b, tpe, M,
+        R, J, eps);
+  else
+    ln_rows_kernel<bf16><<<grid, threads, 0, s>>>(
+        static_cast<const bf16*>(x), static_cast<bf16*>(out), g, b, tpe, M,
+        R, J, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// out[M, N] = epilogue(A[M, K] @ W[K, N] (+ bias)), bf16 operands, f32 sums.
+// ---------------------------------------------------------------------------
+enum {
+  EPI_QKV = 0,    // columns < qcols scaled by qscale in f32, then stored
+  EPI_RES = 1,    // out = res + s_row * v  (s_row = rowscale[r / rps] or 1)
+  EPI_GELU = 2,   // out = gelu(v)
+  EPI_DGELU = 3,  // out = v * gelu'(aux)
+  EPI_STORE = 4,  // out = v
+};
+
+// Parameters of the fused epilogue; v = acc (+ bias) is the product's value.
+struct GemmEpi {
+  const float* bias = nullptr;      // [N] or null
+  const void* res = nullptr;        // EPI_RES residual [M, N] or null
+  int res_f32 = 0;                  // residual stored as f32 (else bf16)
+  const float* rowscale = nullptr;  // EPI_RES per-clip branch scale or null
+  int rows_per_scale = 1;
+  int qcols = 0;                    // EPI_QKV
+  float qscale = 1.f;
+  float* save = nullptr;            // f32 copy of v (EPI_RES, EPI_GELU) or null
+  const float* aux = nullptr;       // EPI_DGELU: gelu's input [M, N]
+};
+
+__device__ __forceinline__ void st(bf16* p, float v) { *p = f2bf(v); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+
+// d gelu(h) / dh of the exact (erf) GELU.
+__device__ __forceinline__ float gelu_erf_grad(float h) {
+  const float cdf = 0.5f * (1.0f + erff(h * 0.70710678118654752f));
+  const float pdf = expf(-0.5f * h * h) * 0.39894228040143268f;
+  return cdf + h * pdf;
+}
+
+constexpr int BM = 128, BN = 128, BK = 32, PAD = 8, GEMM_THREADS = 256;
+
+// 16-byte global -> shared copy that does not hold up the thread (cp.async);
+// with pred false it writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// 128 x 128 tiles, 8 warps of 32 x 64, two k-tiles in flight: tile kt+1 is
+// copied (cp.async) while the tensor cores work on tile kt.
+template <int EPI, typename Tout>
+__global__ void __launch_bounds__(GEMM_THREADS)
+    gemm_kernel(const bf16* A, const bf16* W, int M, int N, int K,
+                GemmEpi e, Tout* out) {
+  __shared__ __align__(32) bf16 As[2][BM][BK + PAD];
+  __shared__ __align__(32) bf16 Bs[2][BK][BN + PAD];
+  __shared__ __align__(32) float stage[GEMM_THREADS / 32][16 * 16];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  auto load_tile = [&](int buf, int k0) {
+    for (int c = tid; c < BM * (BK / 8); c += GEMM_THREADS) {
+      const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
+      const int gr = min(m0 + r, M - 1);
+      cp_async16(&As[buf][r][cc], A + (size_t)gr * K + k0 + cc, m0 + r < M);
+    }
+    for (int c = tid; c < BK * (BN / 8); c += GEMM_THREADS) {
+      const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
+      cp_async16(&Bs[buf][r][cc], W + (size_t)(k0 + r) * N + n0 + cc, true);
+    }
+  };
+
+  const int KT = K / BK;
+  load_tile(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt + 1 < KT) load_tile((kt + 1) & 1, (kt + 1) * BK);
+    cp_async_commit();
+    cp_async_wait_one();  // tile kt has landed; tile kt+1 may be in flight
+    __syncthreads();
+    const int buf = kt & 1;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(af[i], &As[buf][wm * 32 + i * 16][kk],
+                               BK + PAD);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(bfr[j], &Bs[buf][kk][wn * 64 + j * 16],
+                               BN + PAD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+    }
+    __syncthreads();  // the next iteration's copy overwrites this buffer
+  }
+
+  float* stg = stage[warp];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(stg, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int el = lane; el < 256; el += 32) {
+        const int gr = m0 + wm * 32 + i * 16 + el / 16;
+        const int gc = n0 + wn * 64 + j * 16 + el % 16;
+        if (gr < M) {
+          const size_t o = (size_t)gr * N + gc;
+          float v = stg[el] + (e.bias ? e.bias[gc] : 0.f);
+          if (EPI == EPI_QKV) {
+            if (gc < e.qcols) v *= e.qscale;
+            st(out + o, v);
+          } else if (EPI == EPI_RES) {
+            if (e.save) e.save[o] = v;
+            const float s = e.rowscale ? e.rowscale[gr / e.rows_per_scale]
+                                       : 1.f;
+            float r = 0.f;
+            if (e.res)
+              r = e.res_f32 ? static_cast<const float*>(e.res)[o]
+                            : bf2f(static_cast<const bf16*>(e.res)[o]);
+            st(out + o, r + s * v);
+          } else if (EPI == EPI_GELU) {
+            if (e.save) e.save[o] = v;
+            st(out + o, gelu_erf(v));
+          } else if (EPI == EPI_DGELU) {
+            st(out + o, v * gelu_erf_grad(e.aux[o]));
+          } else {
+            st(out + o, v);
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Launch one GEMM; N must be a multiple of 128 and K of 32.
+static inline int launch_gemm(int epi, int out_f32, const bf16* A,
+                              const bf16* W, int M, int N, int K,
+                              const GemmEpi& e, void* out, cudaStream_t s) {
+  if (N % BN || K % BK || M <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(N / BN, (M + BM - 1) / BM);
+#define PMCE_GEMM(E)                                                      \
+  if (out_f32)                                                            \
+    gemm_kernel<E, float><<<grid, GEMM_THREADS, 0, s>>>(                  \
+        A, W, M, N, K, e, static_cast<float*>(out));                      \
+  else                                                                    \
+    gemm_kernel<E, bf16><<<grid, GEMM_THREADS, 0, s>>>(                   \
+        A, W, M, N, K, e, static_cast<bf16*>(out));
+  switch (epi) {
+    case EPI_QKV: PMCE_GEMM(EPI_QKV) break;
+    case EPI_RES: PMCE_GEMM(EPI_RES) break;
+    case EPI_GELU: PMCE_GEMM(EPI_GELU) break;
+    case EPI_DGELU: PMCE_GEMM(EPI_DGELU) break;
+    case EPI_STORE: PMCE_GEMM(EPI_STORE) break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PMCE_GEMM
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The C interface's GEMM (pmce_trunk_gemm, pmce_block_gemm): null pointers
+// switch the optional epilogue inputs off.
+static inline int gemm_entry(const void* A, const void* W, int M, int N,
+                             int K, int epi, int out_f32, const float* bias,
+                             const void* res, int res_f32,
+                             const float* rowscale, int rps, int qcols,
+                             float qscale, float* save, const float* aux,
+                             void* out, void* stream) {
+  GemmEpi e;
+  e.bias = bias;
+  e.res = res;
+  e.res_f32 = res_f32;
+  e.rowscale = rowscale;
+  e.rows_per_scale = rps;
+  e.qcols = qcols;
+  e.qscale = qscale;
+  e.save = save;
+  e.aux = aux;
+  return launch_gemm(epi, out_f32, static_cast<const bf16*>(A),
+                     static_cast<const bf16*>(W), M, N, K, e, out,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// ---------------------------------------------------------------------------
+// Grouped self-attention over qkv [B*T*J, 3C] (q pre-scaled) -> out [.., C].
+// Grid (B * groups, heads), one warp each; lane i is query i of the group.
+// A spatial group is the J rows of one frame, a temporal group the T rows
+// of one joint. Contiguous clips of N rows are the spatial case T = 1,
+// J = N.
+// ---------------------------------------------------------------------------
+constexpr int DH = 32;
+
+__global__ void group_attn_kernel(const bf16* qkv, bf16* out, int T, int J,
+                                  int C, int temporal) {
+  const int G = temporal ? J : T;   // groups per clip
+  const int n = temporal ? T : J;   // tokens per group
+  const int b = blockIdx.x / G, g = blockIdx.x % G, h = blockIdx.y;
+  const int lane = threadIdx.x;
+  if (lane >= n) return;
+  const size_t base = (size_t)b * T * J;
+  const int ld = 3 * C;
+  // Row of group member i: frame g's joints, or joint g's frames.
+#define PMCE_ROW(i) (base + (temporal ? (size_t)(g + (i) * J) \
+                                      : (size_t)(g * J + (i))))
+  float q[DH], o[DH];
+  const bf16* qp = qkv + PMCE_ROW(lane) * ld + h * DH;
+#pragma unroll
+  for (int d = 0; d < DH; d += 8) load8(qp + d, q + d);
+#pragma unroll
+  for (int d = 0; d < DH; ++d) o[d] = 0.f;
+  float m = -INFINITY, l = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const bf16* kp = qkv + PMCE_ROW(j) * ld + C + h * DH;
+    float kv[DH];
+#pragma unroll
+    for (int d = 0; d < DH; d += 8) load8(kp + d, kv + d);
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) s += q[d] * kv[d];
+    const float mn = fmaxf(m, s);
+    const float corr = expf(m - mn), p = expf(s - mn);
+    l = l * corr + p;
+#pragma unroll
+    for (int d = 0; d < DH; d += 8) load8(kp + C + d, kv + d);
+#pragma unroll
+    for (int d = 0; d < DH; ++d) o[d] = o[d] * corr + p * kv[d];
+    m = mn;
+  }
+  const float inv = 1.0f / l;
+  bf16* op = out + PMCE_ROW(lane) * C + h * DH;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) op[d] = f2bf(o[d] * inv);
+#undef PMCE_ROW
+}
+
+static inline int launch_group_attn(const bf16* qkv, bf16* out, int B,
+                                    int T, int J, int C, int heads,
+                                    int temporal, cudaStream_t s) {
+  if (C != heads * DH) return static_cast<int>(cudaErrorInvalidValue);
+  if ((temporal ? T : J) > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(B * (temporal ? J : T), heads);
+  group_attn_kernel<<<grid, 32, 0, s>>>(qkv, out, T, J, C, temporal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace pmce

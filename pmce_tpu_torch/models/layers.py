@@ -1,4 +1,4 @@
-"""Transformer building blocks of the lifter and the decoder (inference).
+"""Transformer building blocks of the lifter and the decoder.
 
 Port of ``pmce_tpu/models/layers.py``. Parameters carry the reference
 state_dict names (timm ``Mlp`` / ``Attention``, ``AdaLayerNorm.mlp_gamma``,
@@ -8,8 +8,15 @@ with ``load_state_dict(strict=True)``.
 Every forward takes the compute dtype ``dt``: ``None`` runs in f32; a
 16-bit dtype runs each dense layer as flax's ``nn.Dense(dtype=dt)`` does
 (operands cast to ``dt``, product and bias add rounded to ``dt``), with
-LayerNorm statistics in f32. GELU is the exact (erf) variant. Dropout and
-stochastic depth are identities: this module serves inference.
+LayerNorm statistics in f32. GELU is the exact (erf) variant.
+
+Training: stochastic depth (:class:`DropPath`) draws per-clip branch masks
+from an explicit ``torch.Generator`` while the module is in training mode
+and is the identity in eval mode. A :class:`Block` with ``fused`` runs as
+one :func:`~pmce_tpu_torch.ops.fused_attention.transformer_block` call
+(kernels forward and backward on the card), the masks entering as branch
+scales. Element dropout is not ported: the lifter and decoder are built
+with rate 0, as the JAX package's training CLI builds them.
 """
 
 from __future__ import annotations
@@ -43,14 +50,28 @@ def linear_t(lin: nn.Linear):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth: the identity at inference (all this port runs)."""
+    """Per-sample stochastic depth of one residual branch.
+
+    In training mode with a nonzero rate, :meth:`mask` draws a [B, 1, 1]
+    scale per sample of the leading dimension: 1/keep with probability
+    keep, else 0, drawn on ``device`` from ``generator`` (a generator on
+    that device, or None for the device's default one). In eval mode or at
+    rate 0 there is no mask."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        return x
+    def mask(self, batch: int, device, generator=None):
+        if not self.training or self.rate == 0.0:
+            return None
+        keep = 1.0 - self.rate
+        u = torch.rand(batch, 1, 1, device=device, generator=generator)
+        return (u < keep).float() / keep
+
+    def forward(self, x, generator=None):
+        m = self.mask(x.shape[0], x.device, generator)
+        return x if m is None else x * m.to(x.dtype)
 
 
 class Mlp(nn.Module):
@@ -97,26 +118,49 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block (LN → MHA → +res → LN → MLP → +res).
-
-    The shared post-norm of the lifter (``norm_s`` / ``norm_t``) is applied
-    by the caller, as in the reference."""
+    """Pre-norm transformer block (LN → MHA → +res → LN → MLP → +res),
+    optionally followed by a caller's shared post-norm (the lifter's
+    ``norm_s`` / ``norm_t``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  drop_path: float = 0.0, norm_eps: float = 1e-6):
         super().__init__()
+        self.num_heads = num_heads
+        self.norm_eps = norm_eps
         self.norm1 = nn.LayerNorm(dim, eps=norm_eps)
         self.attn = Attention(dim, num_heads)
         self.drop_path = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=norm_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, dt=None):
-        x = x + self.drop_path(self.attn(layer_norm(x, self.norm1, dt), dt))
-        return x + self.drop_path(self.mlp(layer_norm(x, self.norm2, dt), dt))
+    def forward(self, x, dt=None, post_norm: nn.LayerNorm | None = None,
+                fused: bool = False, generator=None):
+        """x [B, N, C] → [B, N, C] in x's dtype.
+
+        Two independent stochastic-depth draws (attention, then MLP branch)
+        come from ``generator`` in training mode. ``fused``: the whole block
+        and the post-norm are one ``transformer_block`` call on x cast to
+        the compute dtype, its output cast back (``layers.py:286-288`` of
+        the JAX package); otherwise the modules run one by one."""
+        B = x.shape[0]
+        m1 = self.drop_path.mask(B, x.device, generator)
+        m2 = self.drop_path.mask(B, x.device, generator)
+        if fused:
+            post = ((post_norm.weight, post_norm.bias)
+                    if post_norm is not None else (None, None))
+            masks = None if m1 is None else (m1, m2)
+            y = fa.transformer_block(x.to(dt or x.dtype),
+                                     self.params() + post, self.num_heads,
+                                     self.norm_eps, self.norm_eps, masks)
+            return y.to(x.dtype)
+        h = self.attn(layer_norm(x, self.norm1, dt), dt)
+        x = x + (h if m1 is None else h * m1.to(h.dtype))
+        h = self.mlp(layer_norm(x, self.norm2, dt), dt)
+        x = x + (h if m2 is None else h * m2.to(h.dtype))
+        return x if post_norm is None else layer_norm(x, post_norm, dt)
 
     def params(self) -> tuple:
-        """The 12-tuple the trunk kernel takes (weights as [in, out])."""
+        """The 12-tuple the kernels take (weights as [in, out])."""
         return (self.norm1.weight, self.norm1.bias, *self.attn.params(),
                 self.norm2.weight, self.norm2.bias, *self.mlp.params())
 

@@ -145,10 +145,11 @@ def create_pmce(num_joint: int, art: SMPLArtifacts,
                 coarsening: MeshCoarsening,
                 joint_regressor_h36m: np.ndarray | None = None,
                 embed_dim: int = 256, depth: int = 3, seqlen: int = 16,
-                dtype=None, fused: bool = False, device="cpu",
+                dtype=None, fused: bool = False, device="cuda",
                 seed: int = 0) -> tuple[PMCE, PMCEAssets]:
-    """Build an inference-mode PMCE on ``device`` with random weights drawn
-    from ``seed`` (load a checkpoint over them with ``load_state_dict``)."""
+    """Build an eval-mode PMCE on ``device`` (the card unless asked
+    otherwise) with random weights drawn from ``seed`` (load a checkpoint
+    over them with ``load_state_dict``)."""
     assets = default_assets(art, coarsening, joint_regressor_h36m)
     with torch.device("meta"):
         model = PMCE(num_joint=num_joint, embed_dim=embed_dim, depth=depth,

@@ -11,9 +11,21 @@ every block (reference quirks). The head is LayerNorm(1e-5) + Linear(C → 3)
 in f32 and a learned weighted sum over the T frames; output is the
 mid-frame pose in millimeters.
 
-With ``fused`` and bf16 compute the whole trunk is one call of
-:func:`~pmce_tpu_torch.ops.fused_attention.lifter_trunk` (a kernel on the
-card); otherwise the blocks run as modules, as the JAX package does.
+Three paths, as in ``pose_lifter.py:123-189`` of the JAX package:
+
+- eval mode, ``fused`` and bf16 compute: the whole trunk is one call of
+  :func:`~pmce_tpu_torch.ops.fused_attention.lifter_trunk` (a kernel
+  sequence on the card);
+- otherwise with ``fused`` (training, or f32): every block is one
+  :func:`~pmce_tpu_torch.ops.fused_attention.transformer_block` call with
+  the shared norm as its post-norm, kernels forward and backward on the
+  card, stochastic depth as per-clip branch masks;
+- without ``fused``: the blocks run as modules.
+
+In training mode the stochastic-depth masks come from the ``generator``
+given to :meth:`PoseLifter.forward`, a generator on the input's device
+(rates ``linspace(0, 0.2, depth)``, so the first pair of blocks draws
+none).
 """
 
 from __future__ import annotations
@@ -23,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pmce_tpu_torch.models.layers import Block, dense, layer_norm
+from pmce_tpu_torch.models.layers import Block, dense
 from pmce_tpu_torch.ops import fused_attention as fa
 
 
@@ -56,7 +68,7 @@ class PoseLifter(nn.Module):
         # Conv2d(T → 1, 1×1): a learned weighted sum over the T frames.
         self.fusion = nn.Conv2d(num_frames, 1, kernel_size=1)
 
-    def forward(self, pose2d, img_feat):
+    def forward(self, pose2d, img_feat, generator=None):
         """pose2d [B, T, J, 2], img_feat [B, T, 2048] → [B, J, 3] (mm)."""
         B, T, J, _ = pose2d.shape
         C = self.joint_embed.out_features
@@ -67,7 +79,7 @@ class PoseLifter(nn.Module):
         # The f32 pos-embed promotes x to f32.
         x = x + self.spatial_pos_embed[None]
 
-        if self.fused and dt == torch.bfloat16:
+        if self.fused and dt == torch.bfloat16 and not self.training:
             blocks = []
             for s, t in zip(self.SpatialBlocks, self.TemporalBlocks):
                 blocks += [s.params(), t.params()]
@@ -84,11 +96,13 @@ class PoseLifter(nn.Module):
                 if i:
                     x = x.reshape(B, J, T, C).transpose(1, 2).reshape(
                         B * T, J, C)
-                x = layer_norm(self.SpatialBlocks[i](x, dt), self.norm_s, dt)
+                x = self.SpatialBlocks[i](x, dt, self.norm_s, self.fused,
+                                          generator)
                 x = x.reshape(B, T, J, C).transpose(1, 2).reshape(B * J, T, C)
                 if i == 0:
                     x = x + self.temporal_pos_embed
-                x = layer_norm(self.TemporalBlocks[i](x, dt), self.norm_t, dt)
+                x = self.TemporalBlocks[i](x, dt, self.norm_t, self.fused,
+                                           generator)
             x = x.reshape(B, J, T, C).transpose(1, 2)             # [B,T,J,C]
 
         # f32 head: millimeter-scale outputs, where bf16 quantizes at ~4 mm.
@@ -97,3 +111,40 @@ class PoseLifter(nn.Module):
         h = F.linear(h, self.regression[1].weight, self.regression[1].bias)
         out = torch.einsum("t,btjc->bjc", self.fusion.weight.reshape(T), h)
         return out + self.fusion.bias[0]
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The JAX package's initial values, drawn from ``generator`` (a CPU
+        generator): products N(0, 1/fan_in), biases and pos-embeds 0,
+        LayerNorm scales 1, the frame fusion U(±1/√T)."""
+        for name, p in self.named_parameters():
+            shape = tuple(p.shape)
+            if name == "fusion.weight":
+                bound = shape[1] ** -0.5
+                v = (torch.rand(shape, generator=generator) * 2 - 1) * bound
+            elif p.ndim == 1 and name.endswith("weight"):  # LayerNorm scale
+                v = torch.ones(shape)
+            elif p.ndim == 1 or name.endswith("_embed"):
+                v = torch.zeros(shape)
+            else:
+                fan_in = int(np.prod(shape[1:]))
+                v = torch.randn(shape, generator=generator) * fan_in ** -0.5
+            p.copy_(v)
+
+
+def create_pose_lifter(num_joints: int = 17, num_frames: int = 16,
+                       embed_dim: int = 256, depth: int = 3,
+                       drop_path_rate: float = 0.2, dtype=None,
+                       fused: bool = False, device="cuda",
+                       seed: int = 0) -> PoseLifter:
+    """A Stage-1 lifter on ``device`` (the card unless asked otherwise)
+    with the JAX package's initial values drawn from ``seed``; in eval
+    mode (call ``.train()`` to train)."""
+    with torch.device("meta"):
+        model = PoseLifter(num_joints=num_joints, num_frames=num_frames,
+                           embed_dim=embed_dim, depth=depth,
+                           drop_path_rate=drop_path_rate, dtype=dtype,
+                           fused=fused)
+    model = model.to_empty(device=device)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.eval()

@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L = ctypes.c_longlong
 
 
 class KernelError(RuntimeError):
@@ -159,9 +160,13 @@ def _build(libs: list[CudaLibrary]) -> None:
         raise KernelError("nvcc failed\n" + "\n".join(failures))
 
 
+# gemm_entry (csrc/transformer_ops.cuh): A, W, M, N, K, epi, out_f32, bias,
+# res, res_f32, rowscale, rows_per_scale, qcols, qscale, save, aux, out,
+# stream.
+GEMM_ARGS = (P, P, I, I, I, I, I, P, P, I, P, I, I, F, P, P, P, P)
 TRUNK = CudaLibrary("lifter_trunk", "pmce_trunk_error_string", {
     "pmce_trunk_ln": (I, (P, I, P, P, P, P, I, I, I, F, P)),
-    "pmce_trunk_gemm": (I, (P, P, P, P, P, I, I, I, I, I, F, P)),
+    "pmce_trunk_gemm": (I, GEMM_ARGS),
     "pmce_trunk_attn": (I, (P, P, I, I, I, I, I, I, P)),
 })
 GRU = CudaLibrary("gru_scan", "pmce_gru_error_string", {
@@ -172,7 +177,21 @@ CHAIN = CudaLibrary("coevo_chain", "pmce_chain_error_string", {
     "pmce_chain_smem_bytes": (ctypes.c_longlong, (I,)),
     "pmce_coevo_chain": (I, (P, P, P, P, P, P, P, I, I, I, I, F, F, F, P)),
 })
-LIBRARIES = (TRUNK, GRU, CHAIN)
+BLOCK = CudaLibrary("block", "pmce_block_error_string", {
+    "pmce_block_ln": (I, (P, I, P, P, P, I, F, P)),
+    "pmce_block_gemm": (I, GEMM_ARGS),
+    "pmce_block_attn": (I, (P, P, I, I, I, I, P)),
+    "pmce_block_gemm_tn": (I, (P, P, I, I, I, I, P, L, L, P)),
+    "pmce_block_ln_bwd": (I, (P, I, P, I, P, F, P, P, I, P, P, P, P, P, L,
+                              I, I, I, I, P)),
+    "pmce_block_colsum": (I, (P, I, I, P, L, I, P)),
+    "pmce_block_reduce": (I, (P, I, L, P, P)),
+    "pmce_block_attn_bwd": (I, (P, P, P, I, I, I, I, F, P)),
+})
+SKIN = CudaLibrary("skinning", "pmce_skin_error_string", {
+    "pmce_skinning": (I, (P, P, P, P, I, I, I, P)),
+})
+LIBRARIES = (TRUNK, GRU, CHAIN, BLOCK, SKIN)
 
 
 def build_all() -> None:

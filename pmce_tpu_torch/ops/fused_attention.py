@@ -1,9 +1,12 @@
-"""The lifter trunk and the GRU scan of the serving path, in PyTorch and CUDA.
+"""The lifter's attention kernels and the GRU scan, in PyTorch and CUDA.
 
-Port of the two ``pmce_tpu/ops/fused_attention.py`` Pallas kernels that the
-bf16 serving forward runs: ``fused_lifter_trunk`` (the whole Stage-1 trunk)
-and ``fused_gru_layer`` / ``fused_gru_layer_rev`` (one GRU direction over
-T). Each comes as
+Port of the ``pmce_tpu/ops/fused_attention.py`` Pallas kernels that the
+bf16 serving forward and the Stage-1 lifter's training step run:
+``fused_lifter_trunk`` (the whole Stage-1 trunk), ``fused_gru_layer`` /
+``fused_gru_layer_rev`` (one GRU direction over T) and
+``fused_transformer_block`` with its backward (one lifter block in
+training, with stochastic-depth branch masks and the shared post-norm).
+Each comes as
 
 - a plain PyTorch version (``*_plain``) with the math of the JAX kernel;
 - a wrapper that picks by the device of its input: a CPU tensor goes to the
@@ -30,6 +33,8 @@ from pmce_tpu_torch.ops import _cuda
 TRUNK_LAUNCHES = _cuda.launch_counter("lifter_trunk")
 GRU_LAUNCHES = _cuda.launch_counter("gru_layer")
 GRU_REV_LAUNCHES = _cuda.launch_counter("gru_layer_rev")
+BLOCK_FWD_LAUNCHES = _cuda.launch_counter("block_fwd")
+BLOCK_BWD_LAUNCHES = _cuda.launch_counter("block_bwd")
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +103,9 @@ def _grouped_attention(q, k, v, T: int, J: int, num_heads: int,
     return o.permute(*inv).reshape(B, R, C)
 
 
-def _trunk_block_plain(x, w, T, J, num_heads, eps, temporal):
+def _block_f32(x, w, T, J, num_heads, eps, temporal, m1=None, m2=None):
+    """One pre-norm block on [B, T·J, C] tokens; f32 result before any
+    post-norm. ``m1`` / ``m2``: per-clip [B, 1, 1] branch scales or None."""
     (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2) = w
     dt = x.dtype
     C = x.shape[-1]
@@ -106,10 +113,16 @@ def _trunk_block_plain(x, w, T, J, num_heads, eps, temporal):
     h1 = ln_f32(xf, g1, b1, eps).to(dt)
     q, k, v = split_scaled_qkv(mm(h1, wqkv.to(dt)) + bqkv, C, num_heads, dt)
     o = _grouped_attention(q, k, v, T, J, num_heads, temporal).to(dt)
-    x1 = xf + (mm(o, wproj.to(dt)) + bproj)
+    a = mm(o, wproj.to(dt)) + bproj
+    x1 = xf + (a if m1 is None else a * m1)
     h2 = ln_f32(x1, g2, b2, eps).to(dt)
     hh = F.gelu(mm(h2, w1.to(dt)) + bb1).to(dt)
-    return (x1 + (mm(hh, w2.to(dt)) + bb2)).to(dt)
+    mo = mm(hh, w2.to(dt)) + bb2
+    return x1 + (mo if m2 is None else mo * m2)
+
+
+def _trunk_block_plain(x, w, T, J, num_heads, eps, temporal):
+    return _block_f32(x, w, T, J, num_heads, eps, temporal).to(x.dtype)
 
 
 def lifter_trunk_plain(x, params, norm_s, norm_t, tpe, T: int, J: int,
@@ -135,8 +148,25 @@ def lifter_trunk_plain(x, params, norm_s, norm_t, tpe, T: int, J: int,
     return x
 
 
-# Epilogue codes of pmce_trunk_gemm (csrc/lifter_trunk.cu).
-_EPI_QKV, _EPI_RES_BF16, _EPI_GELU, _EPI_RES_F32 = 0, 1, 2, 3
+# Epilogue codes of the kernels' GEMM (csrc/transformer_ops.cuh).
+_EPI_QKV, _EPI_RES, _EPI_GELU, _EPI_DGELU, _EPI_STORE = range(5)
+
+
+def _gemm(lib, fn, A, W, M, N, K, epi, out, bias=None, res=None,
+          rowscale=None, rps=1, qcols=0, qscale=1.0, save=None, aux=None,
+          stream=None):
+    """One launch of the GEMM with its fused epilogue (``gemm_entry``);
+    the output's and the residual's dtypes pick their f32 or bf16 forms."""
+    p, null = _cuda.ptr, _cuda.P(None)
+
+    def opt(t):
+        return p(t) if t is not None else null
+
+    lib.call(fn, p(A), p(W), M, N, K, epi, int(out.dtype == torch.float32),
+             opt(bias), opt(res),
+             int(res is not None and res.dtype == torch.float32),
+             opt(rowscale), rps, qcols, qscale, opt(save), opt(aux), p(out),
+             stream)
 
 
 def _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
@@ -183,9 +213,8 @@ def _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
                  p(tpe_c) if with_tpe else null, M, R, J, eps, stream)
 
     def gemm(a, w, bias, res, out, n, k, epi):
-        lib.call("pmce_trunk_gemm", p(a), p(w), p(bias),
-                 p(res) if res is not None else null, p(out), M, n, k, epi,
-                 C, qscale, stream)
+        _gemm(lib, "pmce_trunk_gemm", a, w, M, n, k, epi, out, bias=bias,
+              res=res, qcols=C, qscale=qscale, stream=stream)
 
     cur = x
     for i, w in enumerate(params):
@@ -201,10 +230,10 @@ def _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
         gemm(h, wqkv, bqkv, None, qkv, 3 * C, C, _EPI_QKV)
         lib.call("pmce_trunk_attn", p(qkv), p(o), B, T, J, C, num_heads,
                  int(temporal), stream)
-        gemm(o, wproj, bproj, cur, x1, C, C, _EPI_RES_BF16)
+        gemm(o, wproj, bproj, cur, x1, C, C, _EPI_RES)
         ln(x1, True, h, g2, b2, False)
         gemm(h, w1, bb1, None, hh, hid, C, _EPI_GELU)
-        gemm(hh, w2, bb2, x1, y, C, hid, _EPI_RES_F32)
+        gemm(hh, w2, bb2, x1, y, C, hid, _EPI_RES)
         nxt = outs[i % 2]
         ln(y, False, nxt, *post[int(temporal)], i == 0)
         cur = nxt
@@ -225,6 +254,308 @@ def lifter_trunk(x, params, norm_s, norm_t, tpe, T: int, J: int,
         raise ValueError(f"lifter_trunk: unsupported device {x.device}")
     return _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
                               num_heads, eps)
+
+
+# ---------------------------------------------------------------------------
+# Transformer block with its backward (replaces _block_kernel /
+# fused_transformer_block and _block_bwd_kernel / _fused_block_bwd)
+# ---------------------------------------------------------------------------
+
+
+def transformer_block_plain(x, params, num_heads: int, eps: float = 1e-6,
+                            post_eps: float = 1e-6, branch_masks=None):
+    """Plain version of the block (math of ``block_reference``); its
+    gradient is PyTorch's autograd of this function.
+
+    x: [B, N, C] tokens of B clips, compute dtype; params: the 14-tuple
+    (ln1_s, ln1_b, wqkv [C,3C], bqkv, wproj [C,C], bproj, ln2_s, ln2_b,
+    w_fc1 [C,hid], b_fc1, w_fc2 [hid,C], b_fc2, post_s | None, post_b);
+    branch_masks: None or (m1, m2), per-clip [B, 1, 1] scales of the
+    attention and MLP branches (stochastic depth). Returns [B, N, C] in x's
+    dtype."""
+    B, N, _ = x.shape
+    m1 = m2 = None
+    if branch_masks is not None:
+        m1, m2 = (m.float().reshape(B, 1, 1) for m in branch_masks)
+    y = _block_f32(x, params[:12], 1, N, num_heads, eps, False, m1, m2)
+    gp, bp = params[12:]
+    if gp is not None:
+        y = ln_f32(y, gp, bp, post_eps)
+    return y.to(x.dtype)
+
+
+# The kernel's row limit: one warp per (clip, head), a lane per token.
+BLOCK_MAX_TOKENS = 32
+# Splits of the weight-gradient products' K = B·N rows (blocks that write
+# partial tiles, added in order by one more launch).
+_TN_SPLITS = 16
+_LNB_ROWS = 64
+_BLOCK_GEMM = "pmce_block_gemm"
+
+
+def _block_checks(x, params, num_heads):
+    B, N, C = x.shape
+    if x.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "the block kernels take bf16 tokens; the f32 variant is queued "
+            "in ROADMAP (B6/B7 f32)")
+    hid = params[8].shape[1]
+    if (C != 256 or C != 32 * num_heads or N > BLOCK_MAX_TOKENS
+            or hid % 128):
+        raise ValueError(f"block kernel shapes: C={C} heads={num_heads} "
+                         f"N={N} (at most {BLOCK_MAX_TOKENS}) hid={hid}")
+    _cuda.check_cuda(x, "x", torch.bfloat16, (B, N, C))
+    return B, N, C, hid
+
+
+def _mask_rows(m, B, dev):
+    return None if m is None else _cuda.to_kernel(
+        m.reshape(B), dev, torch.float32, (B,), "branch mask")
+
+
+class _BlockWeights:
+    """A block's parameters as the kernels take them (f32 vectors, bf16
+    [in, out] matrices)."""
+
+    def __init__(self, params, C, hid, dev):
+        f32, bf16 = torch.float32, torch.bfloat16
+
+        def vec(a, n, name):
+            return _cuda.to_kernel(a, dev, f32, (n,), name)
+
+        def mat(a, rows, cols, name):
+            return _cuda.to_kernel(a, dev, bf16, (rows, cols), name)
+
+        (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2,
+         gp, bp) = params
+        self.g1, self.b1 = vec(g1, C, "ln1 scale"), vec(b1, C, "ln1 bias")
+        self.wqkv, self.bqkv = mat(wqkv, C, 3 * C, "wqkv"), vec(
+            bqkv, 3 * C, "bqkv")
+        self.wproj, self.bproj = mat(wproj, C, C, "wproj"), vec(
+            bproj, C, "bproj")
+        self.g2, self.b2 = vec(g2, C, "ln2 scale"), vec(b2, C, "ln2 bias")
+        self.w1, self.bb1 = mat(w1, C, hid, "w_fc1"), vec(bb1, hid, "b_fc1")
+        self.w2, self.bb2 = mat(w2, hid, C, "w_fc2"), vec(bb2, C, "b_fc2")
+        self.post = gp is not None
+        if self.post:
+            self.gp = vec(gp, C, "post-norm scale")
+            self.bp = vec(bp, C, "post-norm bias")
+
+
+def _block_fwd_cuda(x, params, m1, m2, num_heads, eps, post_eps,
+                    for_grad: bool, keep_branches: bool):
+    """Forward launches; returns (out, saved) where ``saved`` holds what
+    the backward reads (None entries where not needed)."""
+    B, N, C, hid = _block_checks(x, params, num_heads)
+    bf16, f32 = torch.bfloat16, torch.float32
+    dev = x.device
+    M = B * N
+    stream = _cuda.stream_ptr(dev)
+    lib = _cuda.BLOCK
+    p = _cuda.ptr
+    w = _BlockWeights(params, C, hid, dev)
+    rows1, rows2 = _mask_rows(m1, B, dev), _mask_rows(m2, B, dev)
+
+    def buf(cols, dt):
+        return torch.empty(M, cols, device=dev, dtype=dt)
+
+    h1, qkv, o, x1, h2, ge = (buf(C, bf16), buf(3 * C, bf16), buf(C, bf16),
+                              buf(C, f32), buf(C, bf16), buf(hid, bf16))
+    hh = buf(hid, f32) if for_grad else None
+    a = buf(C, f32) if keep_branches else None
+    mo = buf(C, f32) if keep_branches else None
+    out = torch.empty_like(x)
+    y = buf(C, f32) if w.post else out
+
+    lib.call("pmce_block_ln", p(x), 0, p(h1), p(w.g1), p(w.b1), M, eps,
+             stream)
+    _gemm(lib, _BLOCK_GEMM, h1, w.wqkv, M, 3 * C, C, _EPI_QKV, qkv,
+          bias=w.bqkv, qcols=C, qscale=1.0 / math.sqrt(C // num_heads),
+          stream=stream)
+    lib.call("pmce_block_attn", p(qkv), p(o), B, N, C, num_heads, stream)
+    _gemm(lib, _BLOCK_GEMM, o, w.wproj, M, C, C, _EPI_RES, x1,
+          bias=w.bproj, res=x, rowscale=rows1, rps=N, save=a, stream=stream)
+    lib.call("pmce_block_ln", p(x1), 1, p(h2), p(w.g2), p(w.b2), M, eps,
+             stream)
+    _gemm(lib, _BLOCK_GEMM, h2, w.w1, M, hid, C, _EPI_GELU, ge,
+          bias=w.bb1, save=hh, stream=stream)
+    _gemm(lib, _BLOCK_GEMM, ge, w.w2, M, C, hid, _EPI_RES, y, bias=w.bb2,
+          res=x1, rowscale=rows2, rps=N, save=mo, stream=stream)
+    if w.post:
+        lib.call("pmce_block_ln", p(y), 1, p(out), p(w.gp), p(w.bp), M,
+                 post_eps, stream)
+    BLOCK_FWD_LAUNCHES.count += 1
+    saved = (h1, qkv, o, x1, h2, hh, ge, y if w.post else None, a, mo)
+    return out, saved
+
+
+def _block_bwd_cuda(gout, x, params, m1, m2, saved, num_heads, eps,
+                    post_eps, need_masks: bool):
+    """Backward launches: dx and the 14 parameter gradients (f32), plus the
+    per-clip mask gradients when ``need_masks``."""
+    B, N, C, hid = _block_checks(x, params, num_heads)
+    bf16, f32 = torch.bfloat16, torch.float32
+    dev = x.device
+    M = B * N
+    stream = _cuda.stream_ptr(dev)
+    lib = _cuda.BLOCK
+    p, null = _cuda.ptr, _cuda.P(None)
+    w = _BlockWeights(params, C, hid, dev)
+    rows1, rows2 = _mask_rows(m1, B, dev), _mask_rows(m2, B, dev)
+    h1, qkv, o, x1, h2, hh, ge, y, a, mo = saved
+    gout = gout.to(bf16).contiguous()
+    _cuda.check_cuda(gout, "grad of the block output", bf16, (B, N, C))
+
+    def wt(t, rows, cols, name):       # W [in, out] -> bf16 Wᵀ [out, in]
+        return _cuda.to_kernel(t.t(), dev, bf16, (rows, cols), name)
+
+    wqkv_t = wt(w.wqkv, 3 * C, C, "wqkvᵀ")
+    wproj_t = wt(w.wproj, C, C, "wprojᵀ")
+    w1_t = wt(w.w1, hid, C, "w_fc1ᵀ")
+    w2_t = wt(w.w2, C, hid, "w_fc2ᵀ")
+
+    # Vector gradients: per-64-row-block partials, one buffer, one reduce.
+    vec_names = (("g1", C), ("b1", C), ("bqkv", 3 * C), ("bproj", C),
+                 ("g2", C), ("b2", C), ("bb1", hid), ("bb2", C), ("gp", C),
+                 ("bp", C))
+    voff, L = {}, 0
+    for name, n in vec_names:
+        voff[name], L = L, L + n
+    S = -(-M // _LNB_ROWS)
+    part_vec = torch.empty(S, L, device=dev, dtype=f32)
+    # Matrix gradients: _TN_SPLITS partial tiles each, one buffer.
+    mat_shapes = (("wqkv", C, 3 * C), ("wproj", C, C), ("w1", C, hid),
+                  ("w2", hid, C))
+    moff, Lm = {}, 0
+    for name, r, c in mat_shapes:
+        moff[name], Lm = Lm, Lm + r * c
+    part_mat = torch.empty(_TN_SPLITS, Lm, device=dev, dtype=f32)
+
+    def opt(t):
+        return p(t) if t is not None else null
+
+    def ln_bwd(dy, xs, g, e, res, rowscale, dx, dxs, dot, rowdot, og, ob,
+               os_):
+        lib.call("pmce_block_ln_bwd", p(dy), int(dy.dtype == f32), opt(xs),
+                 int(xs is None or xs.dtype == f32), opt(g), e, opt(res),
+                 opt(rowscale), N, opt(dx), opt(dxs), opt(dot), opt(rowdot),
+                 p(part_vec), L, og, ob, os_, M, stream)
+
+    def tn(A, G, mo_rows, n, name):
+        lib.call("pmce_block_gemm_tn", p(A), p(G), M, mo_rows, n, _TN_SPLITS,
+                 p(part_mat), Lm, moff[name], stream)
+
+    def buf(cols, dt):
+        return torch.empty(M, cols, device=dev, dtype=dt)
+
+    dm1r = torch.empty(M, device=dev, dtype=f32) if need_masks else None
+    dm2r = torch.empty(M, device=dev, dtype=f32) if need_masks else None
+
+    # Post-norm (or identity): gy, m2·gy in bf16, dgp, dbp, dbb2, dm2.
+    gy, m2g = buf(C, f32), buf(C, bf16)
+    ln_bwd(gout, y, w.gp if w.post else None, post_eps, None, rows2, gy,
+           m2g, mo, dm2r, voff["gp"] if w.post else -1,
+           voff["bp"] if w.post else -1, voff["bb2"])
+    # MLP branch.
+    tn(ge, m2g, hid, C, "w2")
+    dhh = buf(hid, bf16)
+    _gemm(lib, _BLOCK_GEMM, m2g, w2_t, M, hid, C, _EPI_DGELU, dhh, aux=hh,
+          stream=stream)
+    lib.call("pmce_block_colsum", p(dhh), M, hid, p(part_vec), L,
+             voff["bb1"], stream)
+    tn(h2, dhh, C, hid, "w1")
+    dh2 = buf(C, f32)
+    _gemm(lib, _BLOCK_GEMM, dhh, w1_t, M, C, hid, _EPI_STORE, dh2,
+          stream=stream)
+    dx1, da = buf(C, f32), buf(C, bf16)
+    ln_bwd(dh2, x1, w.g2, eps, gy, rows1, dx1, da, a, dm1r, voff["g2"],
+           voff["b2"], voff["bproj"])
+    # Attention branch.
+    tn(o, da, C, C, "wproj")
+    do = buf(C, bf16)
+    _gemm(lib, _BLOCK_GEMM, da, wproj_t, M, C, C, _EPI_STORE, do,
+          stream=stream)
+    dqkv = buf(3 * C, bf16)
+    lib.call("pmce_block_attn_bwd", p(qkv), p(do), p(dqkv), B, N, C,
+             num_heads, 1.0 / math.sqrt(C // num_heads), stream)
+    lib.call("pmce_block_colsum", p(dqkv), M, 3 * C, p(part_vec), L,
+             voff["bqkv"], stream)
+    tn(h1, dqkv, C, 3 * C, "wqkv")
+    dh1 = buf(C, f32)
+    _gemm(lib, _BLOCK_GEMM, dqkv, wqkv_t, M, C, 3 * C, _EPI_STORE, dh1,
+          stream=stream)
+    dx = torch.empty_like(x)
+    ln_bwd(dh1, x, w.g1, eps, dx1, None, None, dx, None, None, voff["g1"],
+           voff["b1"], -1)
+    # Add the partials in a fixed order.
+    vec = torch.empty(L, device=dev, dtype=f32)
+    lib.call("pmce_block_reduce", p(part_vec), S, L, p(vec), stream)
+    mat = torch.empty(Lm, device=dev, dtype=f32)
+    lib.call("pmce_block_reduce", p(part_mat), _TN_SPLITS, Lm, p(mat),
+             stream)
+    BLOCK_BWD_LAUNCHES.count += 1
+
+    def v(name, n):
+        return vec[voff[name]:voff[name] + n]
+
+    def m(name, r, c):
+        return mat[moff[name]:moff[name] + r * c].view(r, c)
+
+    grads = (v("g1", C), v("b1", C), m("wqkv", C, 3 * C), v("bqkv", 3 * C),
+             m("wproj", C, C), v("bproj", C), v("g2", C), v("b2", C),
+             m("w1", C, hid), v("bb1", hid), m("w2", hid, C), v("bb2", C),
+             v("gp", C) if w.post else None, v("bp", C) if w.post else None)
+    dms = (None, None)
+    if need_masks:
+        dms = tuple(r.view(B, N).sum(1) for r in (dm1r, dm2r))
+    return dx, grads, dms
+
+
+class _BlockKernel(torch.autograd.Function):
+    """The block on the card: forward and backward are the launches of
+    ``csrc/block.cu``."""
+
+    @staticmethod
+    def forward(ctx, x, m1, m2, num_heads, eps, post_eps, *params):
+        for_grad = any(ctx.needs_input_grad)
+        keep = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        out, saved = _block_fwd_cuda(x, params, m1, m2, num_heads, eps,
+                                     post_eps, for_grad, keep)
+        ctx.cfg = (num_heads, eps, post_eps, len(params))
+        ctx.save_for_backward(x, m1, m2, *params, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        num_heads, eps, post_eps, n_params = ctx.cfg
+        x, m1, m2, *rest = ctx.saved_tensors
+        params, saved = rest[:n_params], rest[n_params:]
+        need_masks = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dx, grads, dms = _block_bwd_cuda(gout, x, params, m1, m2, saved,
+                                         num_heads, eps, post_eps,
+                                         need_masks)
+        dm1 = dms[0].reshape(m1.shape) if need_masks else None
+        dm2 = dms[1].reshape(m2.shape) if need_masks else None
+        grads = tuple(None if g is None else g.reshape(t.shape)
+                      for g, t in zip(grads, params))
+        return (dx, dm1, dm2, None, None, None, *grads)
+
+
+def transformer_block(x, params, num_heads: int, eps: float = 1e-6,
+                      post_eps: float = 1e-6, branch_masks=None):
+    """The block with its gradient (see :func:`transformer_block_plain`).
+
+    CPU tensors run the plain version. CUDA tensors run the kernels of
+    ``csrc/block.cu`` forward and backward (bf16, N ≤ 32 tokens a clip);
+    for N > 64 the JAX package itself runs plain XLA, and so does this
+    entry."""
+    if x.device.type == "cpu" or x.shape[1] > 64:
+        return transformer_block_plain(x, params, num_heads, eps, post_eps,
+                                       branch_masks)
+    if x.device.type != "cuda":
+        raise ValueError(f"transformer_block: unsupported device {x.device}")
+    m1, m2 = branch_masks if branch_masks is not None else (None, None)
+    return _BlockKernel.apply(x, m1, m2, num_heads, eps, post_eps, *params)
 
 
 # ---------------------------------------------------------------------------

@@ -113,6 +113,19 @@ class SMPLArtifacts:
         return art
 
 
+def kintree_levels(parents: np.ndarray) -> list[np.ndarray]:
+    """Group joints by depth in the kinematic tree.
+
+    Level 0 is the root; every joint's parent lies in an earlier level, so
+    the global transforms compose level by level with the reference's
+    parent-before-child order (``smpl_layer.py:109-119``)."""
+    depth = np.zeros(len(parents), dtype=np.int64)
+    for i in range(1, len(parents)):
+        depth[i] = depth[parents[i]] + 1
+    return [np.nonzero(depth == d)[0].astype(np.int32)
+            for d in range(int(depth.max()) + 1)]
+
+
 def synthetic_artifacts(seed: int = 0, num_verts: int = NUM_VERTS,
                         num_faces: int = NUM_FACES) -> SMPLArtifacts:
     """Deterministic stand-in SMPL model with real shapes and invariants.
