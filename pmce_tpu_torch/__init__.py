@@ -1,5 +1,5 @@
-"""pmce-tpu in PyTorch and CUDA for NVIDIA Hopper: the PMCE serving forward
-and Stage-1 lifter training.
+"""pmce-tpu in PyTorch and CUDA for NVIDIA Hopper: the PMCE serving forward,
+Stage-1 lifter training and Stage-2 mesh training.
 
 A port of the JAX package ``pmce_tpu`` (which stays the reference). It
 imports torch and numpy, never jax. Sub-packages:
@@ -10,8 +10,8 @@ imports torch and numpy, never jax. Sub-packages:
 - ``pmce_tpu_torch.ops``     geometry and the kernels: each a plain PyTorch
                              version plus a hand-written CUDA kernel
                              (``csrc/``), picked by tensor device;
-- ``pmce_tpu_torch.core``    config, optimizer, loss, checkpoints and the
-                             Stage-1 ``Trainer``;
+- ``pmce_tpu_torch.core``    config, optimizer, losses, checkpoints and the
+                             ``Trainer`` of both stages;
 - ``pmce_tpu_torch.data``    clip windowing, synthetic sequences, batches;
 - ``pmce_tpu_torch.utils``   metric logging;
 - ``pmce_tpu_torch.convert`` JAX parameter tree → reference state_dict.

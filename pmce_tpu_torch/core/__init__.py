@@ -1,2 +1,2 @@
 """Training runtime of the port: config, optimizer, losses, checkpoints,
-the Stage-1 lifter's train and eval steps and the epoch loop."""
+the train and eval steps of both stages and the epoch loop."""

@@ -1,23 +1,27 @@
-"""Training and evaluation of the Stage-1 lifter: steps, epoch loop,
-checkpoints.
+"""Training and evaluation of both stages: steps, epoch loop, checkpoints.
 
-Port of ``pmce_tpu/core/trainer.py`` for ``MODEL.name = "PoseEst"`` (the
-reference's LiftTrainer / LiftTester, ``lib/core/base.py:266-388``):
+Port of ``pmce_tpu/core/trainer.py``: Stage-2 PMCE mesh training
+(``MODEL.name = "PMCE"``, the reference's Trainer / Tester,
+``lib/core/base.py:94-263``) and Stage-1 lifter training (``"PoseEst"``,
+LiftTrainer / LiftTester, ``base.py:266-388``):
 
-- :func:`make_lift_train_step`: forward in training mode (stochastic depth
-  from an explicit generator), the masked CoordLoss on the mid-frame pose,
-  backward, one optimizer step and one schedule step;
-- :func:`make_lift_eval_step`: root-aligned MPJPE sums over a batch;
+- :func:`make_pmce_train_step` / :func:`make_lift_train_step`: forward in
+  training mode (stochastic depth from an explicit generator), the loss
+  (the six-term mesh loss with its per-epoch edge gate; the masked
+  CoordLoss on the mid-frame pose), backward, one optimizer step and one
+  schedule step;
+- :func:`make_pmce_eval_step` / :func:`make_lift_eval_step`: root-aligned
+  MPJPE (and, for PMCE, MPVPE) sums over a batch;
 - :class:`Trainer`: the epoch loop with the loss summed on the device and
   read once per epoch, evaluation with one read at its end, best / final /
   per-epoch checkpoints and :meth:`Trainer.restore`.
 
 Parameters stay f32; under the bf16 policy the model's products run in
-bf16 (``PoseLifter(dtype=torch.bfloat16)``), and with ``fused`` every
-block of the training step is one ``transformer_block`` call: the block
-kernels forward and backward on the card. Evaluation in eval mode runs
-the lifter trunk kernel. PMCE mesh training, several devices and sharded
-parameters are not ported yet.
+bf16. On that policy the BiGRU's recurrences run the GRU kernels forward
+and backward on the card; with ``fused`` the lifter's blocks run the block
+kernels (Stage 1), and evaluation in eval mode runs the trunk and chain
+kernels. Fused Stage-2 training (the attention-block kernels), several
+devices and sharded parameters are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,18 +35,16 @@ import torch
 
 from pmce_tpu_torch.core import checkpoint as ckpt_lib
 from pmce_tpu_torch.core.config import Config
-from pmce_tpu_torch.core.losses import coord_l1
+from pmce_tpu_torch.core.losses import (
+    build_face_losses,
+    contract_vertices,
+    coord_l1,
+    pmce_total_loss,
+)
 from pmce_tpu_torch.core.optim import build_optimizer
 
 # H36M protocol eval joints (reference data/Human36M/dataset.py:62).
 H36M_EVAL_JOINTS = (1, 2, 3, 4, 5, 6, 8, 10, 11, 12, 13, 14, 15, 16)
-
-# What PMCE mesh training runs that the port does not have yet.
-_PMCE_PENDING = ("fused_mhsa and its backward (B4, B5)",
-                 "fused_ada_block and its backward (B8, B9)",
-                 "fused_ca_block and its backward (B10, B11)",
-                 "the training GRU forward and backward (B12)",
-                 "the mesh losses")
 
 
 @dataclasses.dataclass
@@ -53,6 +55,89 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     scheduler: Any
     step: int = 0
+
+
+def pmce_loss(model, batch: dict, faces, J_reg_target, weights: tuple,
+              edge_gate: float, face_loss_fn=None, generator=None):
+    """The PMCE forward and its six-term loss on one batch, in the model's
+    current mode: (total, terms). ``weights`` = (normal, edge, joint)."""
+    mesh, evo, pose3d = model(batch["pose2d"], batch["img_feature"],
+                              generator=generator)
+    return pmce_total_loss(
+        mesh, evo, pose3d, batch["mesh"], batch["lift_pose3d"],
+        batch["reg_pose3d"], batch["mesh_valid"],
+        batch["lift_pose3d_valid"], batch["reg_pose3d_valid"], faces,
+        J_reg_target, *weights, edge_gate, face_loss_fn=face_loss_fn)
+
+
+def make_pmce_train_step(model, faces, J_reg_target, normal_weight: float,
+                         edge_weight: float, joint_weight: float
+                         ) -> Callable:
+    """Stage-2 step: ``step_fn(state, batch, generator, edge_gate) ->
+    (loss, terms)``, ``edge_gate`` 1.0 from the epoch after
+    ``TRAIN.edge_loss_start`` on (0.0 before). ``faces`` [F, 3] and
+    ``J_reg_target`` [17, V] (the target joint set's regressor) are numpy
+    arrays or tensors; they go to the model's device once. The loss and
+    the terms come back as 0-d device tensors (no host sync)."""
+    dev = next(model.parameters()).device
+    J_reg = torch.as_tensor(np.asarray(J_reg_target), dtype=torch.float32,
+                            device=dev)
+    # The vertex count from the regressor, not max(faces) + 1.
+    face_loss_fn = build_face_losses(np.asarray(faces), J_reg.shape[1], dev)
+    faces_t = torch.as_tensor(np.asarray(faces), dtype=torch.long,
+                              device=dev)
+    weights = (normal_weight, edge_weight, joint_weight)
+
+    def step_fn(state: TrainState, batch: dict, generator=None,
+                edge_gate: float = 0.0):
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, terms = pmce_loss(model, batch, faces_t, J_reg, weights,
+                                edge_gate, face_loss_fn, generator)
+        loss.backward()
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        return loss.detach(), {k: v.detach() for k, v in terms.items()}
+
+    return step_fn
+
+
+def make_pmce_eval_step(model, J_reg_target,
+                        eval_joints: tuple = H36M_EVAL_JOINTS) -> Callable:
+    """The reference's batch metrics (``compute_both_err``,
+    ``Human36M/dataset.py:611-623``): mesh and joints root-aligned by the
+    predicted / ground-truth joint 0, the joint error over the 14 H36M eval
+    joints, the mesh error over every vertex, in millimeters.
+    ``eval_fn(batch)`` returns the predictions and the weighted error sums
+    and count as device tensors."""
+    dev = next(model.parameters()).device
+    J_reg = torch.as_tensor(np.asarray(J_reg_target), dtype=torch.float32,
+                            device=dev)
+    idx = list(eval_joints)
+
+    @torch.no_grad()
+    def eval_fn(batch: dict) -> dict:
+        model.eval()
+        mesh, _, pose3d = model(batch["pose2d"], batch["img_feature"])
+        pred_mesh = mesh * 1000.0
+        gt_mesh = batch["mesh"] * 1000.0
+        pred_joint = contract_vertices(J_reg, pred_mesh)
+        gt_joint = batch["reg_pose3d"]
+        pm = pred_mesh - pred_joint[:, :1]
+        gm = gt_mesh - gt_joint[:, :1]
+        pj = (pred_joint - pred_joint[:, :1])[:, idx]
+        gj = (gt_joint - gt_joint[:, :1])[:, idx]
+        w = batch.get("_weight")
+        if w is None:
+            w = torch.ones(pred_mesh.shape[0], device=pred_mesh.device)
+        mesh_per = (pm - gm).square().sum(-1).sqrt().mean(-1)
+        joint_per = (pj - gj).square().sum(-1).sqrt().mean(-1)
+        return {"pred_mesh": pred_mesh, "pred_joint": pred_joint,
+                "pose3d": pose3d, "mesh_err_sum": (mesh_per * w).sum(),
+                "joint_err_sum": (joint_per * w).sum(), "n": w.sum()}
+
+    return eval_fn
 
 
 def make_lift_train_step(model) -> Callable:
@@ -107,12 +192,17 @@ def make_lift_eval_step(model, root_idx: int = 0,
 
 @dataclasses.dataclass
 class Trainer:
-    """Epoch loop of Stage-1 (``PoseEst``) training on one device."""
+    """Epoch loop of PMCE (mesh) or PoseEst (lift) training on one device.
+
+    PMCE needs ``faces`` [F, 3] and ``J_reg_target`` [17, V], the target
+    joint set's regressor (numpy)."""
 
     cfg: Config
     model: Any
     train_data: Any               # has sample_batch(batch_size) and len()
     test_data: Any | None         # a ClipDataset, or None
+    faces: Any = None
+    J_reg_target: Any = None
     ckpt_dir: str = ""
     device: Any = "cuda"
     log_fn: Callable = print
@@ -121,12 +211,10 @@ class Trainer:
     metric_logger: Any = None     # optional utils.logging.MetricLogger
 
     def __post_init__(self):
-        if self.cfg.MODEL.name == "PMCE":
-            raise NotImplementedError(
-                "PMCE mesh training waits for " + "; ".join(_PMCE_PENDING))
-        if self.cfg.MODEL.name != "PoseEst":
+        if self.cfg.MODEL.name not in ("PMCE", "PoseEst"):
             raise ValueError(f"unknown MODEL.name {self.cfg.MODEL.name!r}")
-        tcfg = self.cfg.TRAIN
+        self.is_mesh_model = self.cfg.MODEL.name == "PMCE"
+        tcfg, mcfg = self.cfg.TRAIN, self.cfg.MODEL
         self.device = torch.device(self.device)
         self.model.to(self.device)
         self.steps_per_epoch = (
@@ -134,9 +222,20 @@ class Trainer:
             or max(1, len(self.train_data) // tcfg.batch_size))
         self.loss_history: list = []
         self.error_history: dict = {"surface": [], "joint": []}
-        self.train_step = make_lift_train_step(self.model)
-        self.eval_step = make_lift_eval_step(
-            self.model, self.eval_root_idx, self.eval_joints)
+        if self.is_mesh_model:
+            if self.faces is None or self.J_reg_target is None:
+                raise ValueError("PMCE training needs faces and J_reg_target")
+            self.train_step = make_pmce_train_step(
+                self.model, self.faces, self.J_reg_target,
+                mcfg.normal_loss_weight, mcfg.edge_loss_weight,
+                mcfg.joint_loss_weight)
+            self.eval_step = make_pmce_eval_step(
+                self.model, self.J_reg_target,
+                self.eval_joints or H36M_EVAL_JOINTS)
+        else:
+            self.train_step = make_lift_train_step(self.model)
+            self.eval_step = make_lift_eval_step(
+                self.model, self.eval_root_idx, self.eval_joints)
 
     # ---------------------------------------------------------------- init
     def init_state(self) -> TrainState:
@@ -175,19 +274,26 @@ class Trainer:
             tcfg.seed * 100_003 + epoch)
         # The loss is summed on the device; reading it is a host sync, so
         # that happens at the logging cadence and once at the epoch's end.
+        edge_gate = 1.0 if epoch > tcfg.edge_loss_start else 0.0
         running = None
         n = 0
         t0 = time.time()
         for _ in range(self.steps_per_epoch):
             batch = self._wire_cast(
                 self.train_data.sample_batch(tcfg.batch_size))
-            loss = self.train_step(state, batch, gen)
+            terms = {}
+            if self.is_mesh_model:
+                loss, terms = self.train_step(state, batch, gen, edge_gate)
+            else:
+                loss = self.train_step(state, batch, gen)
             running = loss if running is None else running + loss
             n += 1
             if (self.metric_logger is not None
                     and n % max(tcfg.print_freq, 1) == 0):
-                self.metric_logger.log({"train/loss": float(loss)},
-                                       step=state.step)
+                rec = {"train/loss": float(loss)}
+                rec.update({f"train/{k}_loss": float(v)
+                            for k, v in terms.items()})
+                self.metric_logger.log(rec, step=state.step)
         avg = float(running) / n if n else 0.0   # the one sync, timed
         dt = time.time() - t0
         self.loss_history.append(avg)
@@ -199,34 +305,48 @@ class Trainer:
     def evaluate(self, collect: bool = False):
         """Weighted error sums accumulate on the device and are read once
         at the end; the wrap-padded samples of a ragged final batch weigh
-        0. Returns (joint_err, surface_err = 0, per-sample results if
-        ``collect``)."""
+        0. Returns (joint_err, surface_err, per-sample results if
+        ``collect``); surface_err (MPVPE) is 0 for the lifter."""
         from pmce_tpu_torch.data.clip_dataset import epoch_iterator
 
-        js = cnt = None
+        sums = None
         results = []
+        keys = ("joint_err_sum", "n") + (
+            ("mesh_err_sum",) if self.is_mesh_model else ())
         for batch in epoch_iterator(self.test_data, self.cfg.TEST.batch_size,
                                     shuffle=False, seed=0, drop_last=False):
             out = self.eval_step(self._wire_cast(batch))
-            if js is None:
-                js, cnt = out["joint_err_sum"], out["n"]
-            else:
-                js, cnt = js + out["joint_err_sum"], cnt + out["n"]
+            sums = ({k: out[k] for k in keys} if sums is None
+                    else {k: sums[k] + out[k] for k in keys})
             if collect:
                 pred = out["pred_joint"].float().cpu().numpy()
+                mesh = (out["pred_mesh"].float().cpu().numpy()
+                        if self.is_mesh_model else None)
                 for j in range(len(pred)):
-                    results.append({"joint_coord": pred[j],
-                                    "joint_coord_target":
-                                        batch["lift_pose3d"][j]})
-        denom = max(float(cnt) if cnt is not None else 0.0, 1.0)
-        joint_err = float(js) / denom if js is not None else 0.0
+                    if self.is_mesh_model:
+                        results.append({
+                            "joint_coord": pred[j], "mesh_coord": mesh[j],
+                            "mesh_coord_target": batch["mesh"][j] * 1000.0,
+                            "joint_coord_target": batch["reg_pose3d"][j]})
+                    else:
+                        results.append({"joint_coord": pred[j],
+                                        "joint_coord_target":
+                                            batch["lift_pose3d"][j]})
+        # The one host read of the evaluation.
+        sums = (dict(zip(keys, torch.stack([sums[k] for k in keys]).tolist()))
+                if sums is not None else {})
+        denom = max(sums.get("n", 0.0), 1.0)
+        joint_err = sums.get("joint_err_sum", 0.0) / denom
+        surface_err = sums.get("mesh_err_sum", 0.0) / denom
         self.error_history["joint"].append(joint_err)
-        self.error_history["surface"].append(0.0)
+        self.error_history["surface"].append(surface_err)
         if self.metric_logger is not None:
             self.metric_logger.log({"error/MPJPE": joint_err,
-                                    "error/MPVPE": 0.0})
-        self.log_fn(f"Eval: MPJPE {joint_err:.2f} mm")
-        return joint_err, 0.0, results
+                                    "error/MPVPE": surface_err})
+        self.log_fn(f"Eval: MPJPE {joint_err:.2f} mm"
+                    + (f", MPVPE {surface_err:.2f} mm"
+                       if self.is_mesh_model else ""))
+        return joint_err, surface_err, results
 
     # ------------------------------------------------------------- restore
     def restore(self, path: str) -> tuple[TrainState, int]:

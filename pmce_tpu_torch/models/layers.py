@@ -15,8 +15,10 @@ from an explicit ``torch.Generator`` while the module is in training mode
 and is the identity in eval mode. A :class:`Block` with ``fused`` runs as
 one :func:`~pmce_tpu_torch.ops.fused_attention.transformer_block` call
 (kernels forward and backward on the card), the masks entering as branch
-scales. Element dropout is not ported: the lifter and decoder are built
-with rate 0, as the JAX package's training CLI builds them.
+scales; :class:`AdaBlock` and :class:`CrossAttentionBlock` draw theirs from
+the caller's generator too. Element dropout is not ported: the lifter and
+decoder are built with rate 0, as the JAX package's training CLI builds
+them.
 """
 
 from __future__ import annotations
@@ -231,9 +233,13 @@ class AdaBlock(nn.Module):
         self.norm2 = AdaLayerNorm(dim, cond_dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, cond, dt=None):
-        x = x + self.drop_path(self.attn(self.norm1(x, cond, dt), dt))
-        return x + self.drop_path(self.mlp(self.norm2(x, cond, dt), dt))
+    def forward(self, x, cond, dt=None, generator=None):
+        """Both stochastic-depth draws (attention, then MLP branch) come
+        from ``generator`` in training mode."""
+        x = x + self.drop_path(self.attn(self.norm1(x, cond, dt), dt),
+                               generator)
+        return x + self.drop_path(self.mlp(self.norm2(x, cond, dt), dt),
+                                  generator)
 
     def adaln(self):
         return (self.norm1, self.norm2)
@@ -257,11 +263,14 @@ class CrossAttentionBlock(nn.Module):
         self.norm2 = AdaLayerNorm(q_dim, cond_dim)
         self.mlp = Mlp(q_dim, int(q_dim * mlp_ratio))
 
-    def forward(self, xq, xk, xv, cond, dt=None):
+    def forward(self, xq, xk, xv, cond, dt=None, generator=None):
+        """Both stochastic-depth draws (attention, then MLP branch) come
+        from ``generator`` in training mode."""
         h = self.attn(self.normq(xq, cond, dt), self.normk(xk, cond, dt),
                       self.normv(xv, cond, dt), dt)
-        xq = xq + self.drop_path(h)
-        return xq + self.drop_path(self.mlp(self.norm2(xq, cond, dt), dt))
+        xq = xq + self.drop_path(h, generator)
+        return xq + self.drop_path(self.mlp(self.norm2(xq, cond, dt), dt),
+                                   generator)
 
     def adaln(self):
         return (self.normq, self.normk, self.normv, self.norm2)
@@ -276,9 +285,11 @@ class BiGRU(nn.Module):
     torch's gate math and ``nn.GRU`` parameter names and layouts
     (``weight_ih_l{k}[_reverse]`` [3H, in] ...). The recurrence of each
     direction is :func:`~pmce_tpu_torch.ops.fused_attention.gru_layer` (the
-    kernel path) under ``fused`` with bf16 compute, and the same math as a
-    plain loop otherwise; the input projections are one dense product over
-    all steps."""
+    kernels, forward and backward) under bf16 compute, whatever ``fused``
+    says, as the JAX package gates its GRU kernel on the dtype alone
+    (``layers.py:734``; its ``B % 8`` part is a VMEM rule, and the kernels
+    here pad to 16 rows); the same math as a plain loop in f32. The input
+    projections are one dense product over all steps."""
 
     def __init__(self, input_dim: int, hidden_dim: int, num_layers: int = 2):
         super().__init__()
@@ -307,13 +318,12 @@ class BiGRU(nn.Module):
         g = lambda n: getattr(self, f"{n}_l{layer}{sfx}")  # noqa: E731
         return (g("weight_ih"), g("bias_ih"), g("weight_hh"), g("bias_hh"))
 
-    def forward(self, x, mid_index: int | None = None, dt=None,
-                fused: bool = False):
+    def forward(self, x, mid_index: int | None = None, dt=None):
         """x: [T, B, C] → [T, B, 2H]; with ``mid_index``, only the final
         layer's step-``mid_index`` output [B, 2H]: that layer then scans
         steps 0..mid forward and T−1..mid backward (the only steps that
         output depends on)."""
-        kernel = fused and dt == torch.bfloat16
+        kernel = dt == torch.bfloat16
         fwd_scan = fa.gru_layer if kernel else fa.gru_layer_plain
         rev_scan = fa.gru_layer_rev if kernel else (
             lambda gi, w, b: fa.gru_layer_plain(gi, w, b, reverse=True))

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from pmce_tpu_torch.core import checkpoint as ckpt_lib
 from pmce_tpu_torch.models.coevo import CoevolutionDecoder
 from pmce_tpu_torch.models.pose_lifter import PoseLifter
 from pmce_tpu_torch.smpl.artifacts import SMPLArtifacts
@@ -50,6 +51,7 @@ class PMCE(nn.Module):
                  gru_hidden: int = 1024, dtype=None, fused: bool = False):
         super().__init__()
         self.num_joint = num_joint
+        self.dtype = dtype
         self.pose_lifter = PoseLifter(
             num_joints=num_joint, num_frames=seqlen, embed_dim=embed_dim,
             depth=depth, dtype=dtype, fused=fused)
@@ -59,11 +61,14 @@ class PMCE(nn.Module):
             vertx_dim=vertx_dim, gru_hidden=gru_hidden, seqlen=seqlen,
             dtype=dtype, fused=fused)
 
-    def forward(self, pose2d, img_feat):
+    def forward(self, pose2d, img_feat, generator=None):
         """pose2d [B, T, J, 2], img_feat [B, T, 2048] → (mesh, evo_pose,
-        pose3d)."""
-        pose3d = self.pose_lifter(pose2d, img_feat)
-        evo_pose, mesh = self.pose_mesh_coevo(pose3d / 1000.0, img_feat)
+        pose3d). In training mode the lifter and the decoder draw their
+        stochastic depth from ``generator`` (a generator on the inputs'
+        device)."""
+        pose3d = self.pose_lifter(pose2d, img_feat, generator)
+        evo_pose, mesh = self.pose_mesh_coevo(pose3d / 1000.0, img_feat,
+                                              generator)
         return mesh, evo_pose, pose3d
 
     @torch.no_grad()
@@ -91,6 +96,16 @@ class PMCE(nn.Module):
                 fan_in = int(np.prod(shape[1:]))
                 v = torch.randn(shape, generator=generator) * fan_in ** -0.5
             p.copy_(v)
+
+
+def load_lifter_checkpoint(model: PMCE, path: str) -> None:
+    """The Stage-2 warm start (``main/train.py:147-168`` of the JAX
+    package): a Stage-1 checkpoint's ``params`` (a ``PoseLifter``
+    state_dict, as the port's Trainer writes it) load strictly into
+    ``model.pose_lifter``. ``path`` is a checkpoint file or a directory
+    (best, then final, then the latest epoch)."""
+    params = ckpt_lib.load_checkpoint(path)["params"]
+    model.pose_lifter.load_state_dict(params, strict=True)
 
 
 def build_vj_relation(mean_vertices: np.ndarray,

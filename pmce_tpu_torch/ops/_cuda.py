@@ -171,6 +171,9 @@ TRUNK = CudaLibrary("lifter_trunk", "pmce_trunk_error_string", {
 })
 GRU = CudaLibrary("gru_scan", "pmce_gru_error_string", {
     "pmce_gru_step": (I, (P, P, P, P, P, P, P, P, I, I, I, P)),
+    "pmce_gru_step_save": (I, (P,) * 13 + (I, I, I, P)),
+    "pmce_gru_bwd_first": (I, (P,) * 10 + (I, I, P)),
+    "pmce_gru_bwd_step": (I, (P,) * 13 + (I, I, I, P)),
 })
 CHAIN = CudaLibrary("coevo_chain", "pmce_chain_error_string", {
     "pmce_chain_workspace_bytes": (ctypes.c_longlong, (I,)),

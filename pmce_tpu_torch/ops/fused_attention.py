@@ -1,12 +1,13 @@
 """The lifter's attention kernels and the GRU scan, in PyTorch and CUDA.
 
 Port of the ``pmce_tpu/ops/fused_attention.py`` Pallas kernels that the
-bf16 serving forward and the Stage-1 lifter's training step run:
-``fused_lifter_trunk`` (the whole Stage-1 trunk), ``fused_gru_layer`` /
-``fused_gru_layer_rev`` (one GRU direction over T) and
-``fused_transformer_block`` with its backward (one lifter block in
-training, with stochastic-depth branch masks and the shared post-norm).
-Each comes as
+bf16 serving forward, the Stage-1 lifter's training step and the Stage-2
+mesh training step run: ``fused_lifter_trunk`` (the whole Stage-1 trunk),
+``fused_gru_layer`` / ``fused_gru_layer_rev`` (one GRU direction over T)
+with their training pair (the saving forward and the reverse-time backward
+of their custom VJP) and ``fused_transformer_block`` with its backward (one
+lifter block in training, with stochastic-depth branch masks and the shared
+post-norm). Each comes as
 
 - a plain PyTorch version (``*_plain``) with the math of the JAX kernel;
 - a wrapper that picks by the device of its input: a CPU tensor goes to the
@@ -33,6 +34,8 @@ from pmce_tpu_torch.ops import _cuda
 TRUNK_LAUNCHES = _cuda.launch_counter("lifter_trunk")
 GRU_LAUNCHES = _cuda.launch_counter("gru_layer")
 GRU_REV_LAUNCHES = _cuda.launch_counter("gru_layer_rev")
+GRU_SAVE_LAUNCHES = _cuda.launch_counter("gru_layer_save")
+GRU_BWD_LAUNCHES = _cuda.launch_counter("gru_layer_bwd")
 BLOCK_FWD_LAUNCHES = _cuda.launch_counter("block_fwd")
 BLOCK_BWD_LAUNCHES = _cuda.launch_counter("block_bwd")
 
@@ -79,6 +82,22 @@ def split_scaled_qkv(qkv: torch.Tensor, dim: int, num_heads: int, dt):
     scale = 1.0 / math.sqrt(dim // num_heads)
     return ((qkv[..., :dim] * scale).to(dt), qkv[..., dim:2 * dim].to(dt),
             qkv[..., 2 * dim:].to(dt))
+
+
+def _tensors(tree):
+    """The tensors of nested tuples / lists, depth first (None skipped)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for item in tree for t in _tensors(item)]
+    return []
+
+
+def _on_card(x, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if x.device.type in ("cpu", "cuda"):
+        return x.device.type == "cuda"
+    raise ValueError(f"{name}: unsupported device {x.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -246,12 +265,20 @@ def lifter_trunk(x, params, norm_s, norm_t, tpe, T: int, J: int,
     """The whole lifter trunk (see :func:`lifter_trunk_plain` for args).
 
     CPU tensors run the plain version; CUDA tensors the kernel sequence of
-    ``csrc/lifter_trunk.cu`` (bf16 only)."""
-    if x.device.type == "cpu":
+    ``csrc/lifter_trunk.cu`` (bf16 only), which has no backward: a call on
+    the card that owes a gradient raises rather than return a result
+    detached from it."""
+    if not _on_card(x, "lifter_trunk"):
         return lifter_trunk_plain(x, params, norm_s, norm_t, tpe, T, J,
                                   depth, num_heads, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"lifter_trunk: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in _tensors((x, params, norm_s, norm_t,
+                                               tpe))):
+        raise NotImplementedError(
+            "lifter_trunk on CUDA has no backward yet: the JAX package "
+            "recomputes it through fused_mhsa and its backward (kernel "
+            "table rows 4/5, ROADMAP B4, B5), which are not ported; train "
+            "the lifter through transformer_block (eval mode runs the trunk)")
     return _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
                               num_heads, eps)
 
@@ -559,8 +586,28 @@ def transformer_block(x, params, num_heads: int, eps: float = 1e-6,
 
 
 # ---------------------------------------------------------------------------
-# GRU scan (replaces _gru_scan_kernel / fused_gru_layer[_rev])
+# GRU scan (replaces _gru_scan_kernel / fused_gru_layer[_rev]) and its
+# training pair (_gru_scan_save_kernel and _gru_bwd_kernel, the custom VJP
+# of fused_gru_layer[_rev])
 # ---------------------------------------------------------------------------
+
+
+def _gru_step(h, gi_t, w, b, dt):
+    """One step of torch's gate math from the f32 carry ``h``: returns
+    (h_next, r, z, n, h_n), all f32, h_n = bf16(h) @ Whh_n + b_n before the
+    reset product."""
+    gh = mm(h.to(dt), w) + b
+    i_r, i_z, i_n = gi_t.float().chunk(3, dim=-1)
+    h_r, h_z, h_n = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1.0 - z) * n + z * h, r, z, n, h_n
+
+
+def _gru_rows(T: int, reverse: bool):
+    """The rows a direction visits, in its scan order."""
+    return range(T - 1, -1, -1) if reverse else range(T)
 
 
 def gru_layer_plain(gi, whh, bhh, reverse: bool = False) -> torch.Tensor:
@@ -575,28 +622,76 @@ def gru_layer_plain(gi, whh, bhh, reverse: bool = False) -> torch.Tensor:
     [T−1−t]``. Returns [T, B, H] in gi's dtype."""
     T, B, H3 = gi.shape
     dt = gi.dtype
-    w = whh.to(dt)
-    b = bhh.float()
+    w, b = whh.to(dt), bhh.float()
     h = torch.zeros(B, H3 // 3, dtype=torch.float32, device=gi.device)
     ys = torch.empty(T, B, H3 // 3, dtype=dt, device=gi.device)
-    for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        gh = mm(h.to(dt), w) + b
-        i_r, i_z, i_n = gi[t].float().chunk(3, dim=-1)
-        h_r, h_z, h_n = gh.chunk(3, dim=-1)
-        r = torch.sigmoid(i_r + h_r)
-        z = torch.sigmoid(i_z + h_z)
-        n = torch.tanh(i_n + r * h_n)
-        h = (1.0 - z) * n + z * h
+    for t in _gru_rows(T, reverse):
+        h = _gru_step(h, gi[t], w, b, dt)[0]
         ys[t] = h.to(dt)
     return ys
 
 
-def _gru_layer_cuda(gi, whh, bhh, reverse: bool) -> torch.Tensor:
+def gru_layer_save_plain(gi, whh, bhh, reverse: bool = False):
+    """Plain version of the saving forward (``_gru_scan_save_kernel``): the
+    scan of :func:`gru_layer_plain`, plus what the backward reads.
+
+    Returns (ys [T, B, H] in gi's dtype, saved [5, T, B, H] f32) with saved =
+    (h_prev, r, z, n, h_n) of every step at its own row: the f32 state the
+    step started from, the gates, and h_n before the reset product."""
+    T, B, H3 = gi.shape
+    H = H3 // 3
+    dt = gi.dtype
+    w, b = whh.to(dt), bhh.float()
+    h = torch.zeros(B, H, dtype=torch.float32, device=gi.device)
+    ys = torch.empty(T, B, H, dtype=dt, device=gi.device)
+    saved = torch.empty(5, T, B, H, dtype=torch.float32, device=gi.device)
+    for t in _gru_rows(T, reverse):
+        saved[0, t] = h
+        h, *gates = _gru_step(h, gi[t], w, b, dt)
+        for i, v in enumerate(gates, 1):
+            saved[i, t] = v
+        ys[t] = h.to(dt)
+    return ys, saved
+
+
+def gru_layer_bwd_plain(g, saved, whh, reverse: bool = False):
+    """Plain version of the backward scan (``_gru_bwd_kernel``).
+
+    g: [T, B, H] gradient of ys, in the compute dtype; saved: the forward's
+    [5, T, B, H] state; whh [H, 3H]. Visits the rows in the reverse of the
+    forward's order with an f32 carry: dh = g[t] + carry, the gate gradients
+    dgi = [dr, dz, dn] and dgh = [dr, dz, dn·r], then carry = dh·z +
+    bf16(dgh) @ Whhᵀ (f32 sums), not formed after the last row. Returns
+    (dgi, dgh), f32 [T, B, 3H]."""
+    T, B, H = g.shape
+    dt = g.dtype
+    wt = whh.t().to(dt)
+    hprev, r, z, n, hn = saved
+    dgi = torch.empty(T, B, 3 * H, dtype=torch.float32, device=g.device)
+    dgh = torch.empty_like(dgi)
+    carry = torch.zeros(B, H, dtype=torch.float32, device=g.device)
+    rows = list(_gru_rows(T, not reverse))
+    for i, t in enumerate(rows):
+        dh = g[t].float() + carry
+        dz = dh * (hprev[t] - n[t])
+        dn = (dh * (1.0 - z[t])) * (1.0 - n[t] * n[t])
+        dr = (dn * hn[t]) * (r[t] * (1.0 - r[t]))
+        dzp = dz * (z[t] * (1.0 - z[t]))
+        dgi[t] = torch.cat([dr, dzp, dn], dim=-1)
+        dgh[t] = torch.cat([dr, dzp, dn * r[t]], dim=-1)
+        if i < T - 1:
+            carry = dh * z[t] + mm(dgh[t].to(dt), wt)
+    return dgi, dgh
+
+
+def _gru_layer_cuda(gi, whh, bhh, reverse: bool, save: bool = False):
+    """The forward launches; with ``save`` the saving step (returns (ys,
+    saved) as :func:`gru_layer_save_plain`), else the serving step."""
     T, B, H3 = gi.shape
     H = H3 // 3
     bf16, f32 = torch.bfloat16, torch.float32
     if gi.dtype != bf16:
-        raise NotImplementedError("the GRU kernel takes bf16 projections")
+        raise NotImplementedError("the GRU kernels take bf16 projections")
     if H % 64:
         raise ValueError(f"GRU kernel: H={H} must be a multiple of 64")
     _cuda.check_cuda(gi, "gi", bf16, (T, B, 3 * H))
@@ -609,29 +704,126 @@ def _gru_layer_cuda(gi, whh, bhh, reverse: bool) -> torch.Tensor:
     h32 = torch.zeros(2, B, H, device=dev, dtype=f32)
     hb = torch.zeros(2, Bp, H, device=dev, dtype=bf16)
     ys = torch.empty(T, B, H, device=dev, dtype=bf16)
+    saved = torch.empty(5, T, B, H, device=dev, dtype=f32) if save else None
     stream = _cuda.stream_ptr(dev)
     p = _cuda.ptr
-    for step in range(T):
-        t = T - 1 - step if reverse else step
+    for step, t in enumerate(_gru_rows(T, reverse)):
         src, dst = step % 2, (step + 1) % 2
-        _cuda.GRU.call("pmce_gru_step", p(gi[t]), p(w), p(b), p(h32[src]),
-                       p(hb[src]), p(h32[dst]), p(hb[dst]), p(ys[t]), B, Bp,
-                       H, stream)
-    return ys
+        args = (p(gi[t]), p(w), p(b), p(h32[src]), p(hb[src]), p(h32[dst]),
+                p(hb[dst]), p(ys[t]))
+        if save:
+            _cuda.GRU.call("pmce_gru_step_save", *args,
+                           *(p(saved[i, t]) for i in range(5)), B, Bp, H,
+                           stream)
+        else:
+            _cuda.GRU.call("pmce_gru_step", *args, B, Bp, H, stream)
+    return (ys, saved) if save else ys
+
+
+def _gru_bwd_cuda(g, saved, whh, reverse: bool):
+    T, B, H = g.shape
+    bf16, f32 = torch.bfloat16, torch.float32
+    if g.dtype != bf16:
+        raise NotImplementedError("the GRU kernels take bf16 gradients")
+    if H % 64:
+        raise ValueError(f"GRU kernel: H={H} must be a multiple of 64")
+    _cuda.check_cuda(g, "g", bf16, (T, B, H))
+    _cuda.check_cuda(saved, "saved", f32, (5, T, B, H))
+    dev = g.device
+    w = _cuda.to_kernel(whh, dev, bf16, (H, 3 * H), "whh")
+    Bp = -(-B // 16) * 16
+    dgi = torch.empty(T, B, 3 * H, device=dev, dtype=f32)
+    dgh = torch.empty_like(dgi)
+    # bf16(dgh) of the step just done (ping-pong, zero rows past B) and
+    # dL/dh of the step in hand.
+    dghb = torch.zeros(2, Bp, 3 * H, device=dev, dtype=bf16)
+    dh = torch.empty(B, H, device=dev, dtype=f32)
+    stream = _cuda.stream_ptr(dev)
+    p = _cuda.ptr
+
+    def state(t):
+        return (p(g[t]), *(p(saved[i, t]) for i in range(5)))
+
+    def grads(t, slot):
+        return (p(dgi[t]), p(dgh[t]), p(dghb[slot]))
+
+    rows = list(_gru_rows(T, not reverse))
+    _cuda.GRU.call("pmce_gru_bwd_first", *state(rows[0]), *grads(rows[0], 0),
+                   p(dh), B, H, stream)
+    for i in range(1, T):
+        t, tn = rows[i - 1], rows[i]
+        _cuda.GRU.call("pmce_gru_bwd_step", p(dghb[(i - 1) % 2]), p(w),
+                       p(saved[2, t]), p(dh), *state(tn),
+                       *grads(tn, i % 2), B, Bp, H, stream)
+    return dgi, dgh
+
+
+def gru_layer_save(gi, whh, bhh, reverse: bool = False):
+    """The saving forward (see :func:`gru_layer_save_plain`): CPU tensors
+    run the plain version, CUDA tensors the saving step of
+    ``csrc/gru_scan.cu`` (bf16)."""
+    if not _on_card(gi, "gru_layer_save"):
+        return gru_layer_save_plain(gi, whh, bhh, reverse)
+    out = _gru_layer_cuda(gi, whh, bhh, reverse, save=True)
+    GRU_SAVE_LAUNCHES.count += 1
+    return out
+
+
+def gru_layer_bwd(g, saved, whh, reverse: bool = False):
+    """The backward scan (see :func:`gru_layer_bwd_plain`): CPU tensors run
+    the plain version, CUDA tensors the backward steps of
+    ``csrc/gru_scan.cu`` (bf16 g)."""
+    if not _on_card(g, "gru_layer_bwd"):
+        return gru_layer_bwd_plain(g, saved, whh, reverse)
+    out = _gru_bwd_cuda(g, saved, whh, reverse)
+    GRU_BWD_LAUNCHES.count += 1
+    return out
+
+
+class _GRULayer(torch.autograd.Function):
+    """One GRU direction with its gradient, as ``fused_gru_layer``'s custom
+    VJP: the saving forward, then the backward scan and the weight
+    gradients as one time-batched product and sum over all T·B rows
+    (``fused_attention.py:2538-2546`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, gi, whh, bhh, reverse):
+        ys, saved = gru_layer_save(gi, whh, bhh, reverse)
+        ctx.reverse = reverse
+        ctx.gi_dtype = gi.dtype
+        ctx.save_for_backward(whh, saved)
+        return ys
+
+    @staticmethod
+    def backward(ctx, g):
+        whh, saved = ctx.saved_tensors
+        dgi, dgh = gru_layer_bwd(g.contiguous(), saved, whh, ctx.reverse)
+        T, B, H = g.shape
+        dt = g.dtype
+        dgh_rows = dgh.reshape(T * B, 3 * H)
+        # Operands in the compute dtype, as the forward cast them; f32 sums.
+        dwhh = mm(saved[0].reshape(T * B, H).to(dt).t(), dgh_rows.to(dt))
+        return (dgi.to(ctx.gi_dtype), dwhh.to(whh.dtype), dgh_rows.sum(0),
+                None)
 
 
 def _gru_dispatch(gi, whh, bhh, reverse: bool, counter) -> torch.Tensor:
-    if gi.device.type == "cpu":
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (gi, whh, bhh)):
+        return _GRULayer.apply(gi, whh, bhh, reverse)
+    if not _on_card(gi, "gru_layer"):
         return gru_layer_plain(gi, whh, bhh, reverse)
-    if gi.device.type != "cuda":
-        raise ValueError(f"gru_layer: unsupported device {gi.device}")
     ys = _gru_layer_cuda(gi, whh, bhh, reverse)
     counter.count += 1
     return ys
 
 
 def gru_layer(gi, whh, bhh) -> torch.Tensor:
-    """One forward GRU direction over T (see :func:`gru_layer_plain`)."""
+    """One forward GRU direction over T (see :func:`gru_layer_plain`).
+
+    Without a gradient to keep: the serving scan (K2) on CUDA tensors, the
+    plain version on CPU ones. With one: :class:`_GRULayer` (the saving
+    forward and the backward scan, kernels on the card)."""
     return _gru_dispatch(gi, whh, bhh, False, GRU_LAUNCHES)
 
 

@@ -11,7 +11,8 @@ AdaLN'd SA+FFN per stream; f32 C → 3 heads plus residuals.
 ``coevo_block_reference`` it calls, with the kernel's cast points (f32 sums
 of bf16 products, one rounding each, f32 streams between the residual adds).
 :func:`coevo_chain` runs it for CPU tensors and the kernel of
-``csrc/coevo_chain.cu`` for CUDA tensors; that kernel takes bf16 compute.
+``csrc/coevo_chain.cu`` for CUDA tensors; that kernel takes bf16 compute,
+and its gradient is the plain version's autograd on the saved inputs.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import torch.nn.functional as F
 
 from pmce_tpu_torch.ops import _cuda
 from pmce_tpu_torch.ops.fused_attention import (
+    _on_card,
+    _tensors,
     adaln_f32,
     attend,
     mm,
@@ -203,14 +206,50 @@ def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
     return jout, vout
 
 
+def _unflatten(tree, flat):
+    """``tree`` with its tensors replaced, depth first, from ``flat``."""
+    if isinstance(tree, torch.Tensor):
+        return next(flat)
+    if isinstance(tree, (tuple, list)):
+        return tuple(_unflatten(t, flat) for t in tree)
+    return tree
+
+
+class _ChainKernel(torch.autograd.Function):
+    """The chain on the card. The forward is the kernel; the backward is
+    autograd of :func:`coevo_chain_plain` on the saved inputs, as the JAX
+    package's ``_chain_bwd`` recomputes through ``coevo_chain_reference``
+    in XLA (``fused_coevo_chain.py:415-431``): a recompute, not a kernel."""
+
+    @staticmethod
+    def forward(ctx, tree, heads, eps, *flat):
+        ctx.tree, ctx.heads, ctx.eps = tree, heads, eps
+        ctx.save_for_backward(*flat)
+        return _coevo_chain_cuda(*_unflatten(tree, iter(flat)), *heads, eps)
+
+    @staticmethod
+    def backward(ctx, g_joints, g_vertx):
+        need = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            outs = coevo_chain_plain(*_unflatten(ctx.tree, iter(leaves)),
+                                     *ctx.heads, ctx.eps)
+            grads = iter(torch.autograd.grad(
+                outs, [t for t, n in zip(leaves, need) if n],
+                (g_joints, g_vertx), allow_unused=True))
+        return (None, None, None, *(next(grads) if n else None for n in need))
+
+
 def coevo_chain(joints, vertx, gammas, betas, blocks, num_heads_j: int = 8,
                 num_heads_v: int = 2, eps: float = 1e-6):
     """All CoevoBlocks + coordinate heads (args as
-    :func:`coevo_chain_plain`)."""
-    if joints.device.type == "cpu":
+    :func:`coevo_chain_plain`). CPU tensors run the plain version; CUDA
+    tensors the kernel, with the plain version's recompute as its
+    backward."""
+    if not _on_card(joints, "coevo_chain"):
         return coevo_chain_plain(joints, vertx, gammas, betas, blocks,
                                  num_heads_j, num_heads_v, eps)
-    if joints.device.type != "cuda":
-        raise ValueError(f"coevo_chain: unsupported device {joints.device}")
-    return _coevo_chain_cuda(joints, vertx, gammas, betas, blocks,
-                             num_heads_j, num_heads_v, eps)
+    tree = (joints, vertx, gammas, betas, blocks)
+    return _ChainKernel.apply(tree, (num_heads_j, num_heads_v), eps,
+                              *_tensors(tree))

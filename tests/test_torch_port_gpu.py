@@ -10,7 +10,9 @@ runs on the GPU machine, which has none):
 tests.) Shapes are small but within what each kernel takes (trunk and
 block C=256, GRU H a multiple of 64, chain C=64 with 2 and 8 heads,
 skinning at 6890 vertices); ``chip_smoke.py`` holds the same kernels at
-the full serving and training shapes. Bounds are
+the full serving and training shapes. The wrappers that have no backward
+kernel either recompute through their plain version (the chain) or refuse
+a gradient (the trunk). Bounds are
 max|kernel - plain| / max|plain|, as in chip_smoke.py.
 """
 
@@ -83,6 +85,114 @@ def test_gru_kernels_match_plain(B):
         got = kern(*args)
         assert got.dtype == torch.bfloat16 and got.shape == (steps, B, H)
         assert _rel(fa.gru_layer_plain(*args, reverse=rev), got) < 0.01
+
+
+@pytest.mark.parametrize("B", [8, 13])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_gru_training_kernels_match_plain(B, reverse):
+    """The saving forward and the backward scan against their plain
+    versions on the same inputs (including a batch that is not a multiple
+    of the 16-row tile), then the whole gradient against autograd of the
+    plain serving scan. Bounds as max|kernel - plain| / max|plain|: the
+    saved state 0.01 (the GRU's one bf16 ulp), the backward 0.02 (its bf16
+    dgh rounds now and then to the neighbouring value and the carry
+    passes that on)."""
+    dev = _card()
+    rng = np.random.default_rng(B + 2 * reverse)
+    H, steps = 64, 9
+    gi = _rand(rng, dev, steps, B, 3 * H, dtype=torch.bfloat16)
+    whh = _rand(rng, dev, H, 3 * H, scale=0.2)
+    bhh = _rand(rng, dev, 3 * H, scale=0.2)
+    g = _rand(rng, dev, steps, B, H, dtype=torch.bfloat16)
+    _cuda.reset_launch_counts()
+    ys, saved = fa.gru_layer_save(gi, whh, bhh, reverse)
+    ys_p, saved_p = fa.gru_layer_save_plain(gi, whh, bhh, reverse)
+    assert ys.dtype == torch.bfloat16 and saved.shape == (5, steps, B, H)
+    assert _rel(ys_p, ys) < 0.01
+    for i in range(5):
+        assert _rel(saved_p[i], saved[i]) < 0.01, i
+    dgi, dgh = fa.gru_layer_bwd(g, saved, whh, reverse)
+    for a, b in zip((dgi, dgh), fa.gru_layer_bwd_plain(g, saved, whh,
+                                                        reverse)):
+        assert a.dtype == torch.float32 and a.shape == (steps, B, 3 * H)
+        assert _rel(b, a) < 0.02
+    counts = _cuda.launch_counts()
+    assert counts["gru_layer_save"] == counts["gru_layer_bwd"] == 1
+
+    leaves = [t.clone().requires_grad_(True) for t in (gi, whh, bhh)]
+    got = torch.autograd.grad(
+        (fa.gru_layer_rev if reverse else fa.gru_layer)(*leaves), leaves, g)
+    want = torch.autograd.grad(fa.gru_layer_plain(*leaves, reverse=reverse),
+                               leaves, g)
+    for a, b in zip(got, want):
+        assert _rel(b, a) < 0.02
+    counts = _cuda.launch_counts()
+    assert counts["gru_layer_save"] == counts["gru_layer_bwd"] == 2
+    assert counts["gru_layer"] == counts["gru_layer_rev"] == 0
+
+
+def test_trunk_kernel_refuses_a_gradient():
+    """The trunk kernel has no backward (its JAX backward recomputes
+    through rows 4/5): it raises rather than return a detached result."""
+    dev = _card()
+    rng = np.random.default_rng(4)
+    C, hid = 256, 512
+    w = tuple(_rand(rng, dev, *s, scale=0.05) for s in (
+        (C,), (C,), (C, 3 * C), (3 * C,), (C, C), (C,), (C,), (C,),
+        (C, hid), (hid,), (hid, C), (C,)))
+    norm = (_rand(rng, dev, C), _rand(rng, dev, C))
+    args = (_rand(rng, dev, 1, 16 * 17, C, dtype=torch.bfloat16),
+            (w, w), norm, norm, _rand(rng, dev, 16, C), 16, 17, 1, 8)
+    with torch.no_grad():
+        assert fa.lifter_trunk(*args).shape == (1, 16 * 17, C)
+    w[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="B4, B5"):
+        fa.lifter_trunk(*args)
+
+
+def _chain_args(rng, dev, B, grad=False):
+    J, V, C, NB = 19, 61, 64, 2
+    bf = torch.bfloat16
+
+    def t(*s, scale=0.05, dtype=torch.float32):
+        return _rand(rng, dev, *s, scale=scale, dtype=dtype) \
+            .requires_grad_(grad)
+
+    def ca():
+        return (t(C, C), t(C), t(C, C), t(C), t(C, C), t(C), t(C, C), t(C),
+                t(C, 4 * C), t(4 * C), t(4 * C, C), t(C))
+
+    def sa():
+        return (t(C, 3 * C), t(3 * C), t(C, C), t(C), t(C, 4 * C), t(4 * C),
+                t(4 * C, C), t(C))
+
+    blocks = tuple(
+        (t(3, C, dtype=bf), t(C), t(3, C, dtype=bf), t(C),
+         (t(J, C), t(V, C), t(J, C), t(V, C), t(V, C), t(J, C),
+          t(C, C), t(C), t(C, C), t(C), ca(), ca(), sa(), sa()),
+         t(C, 3), t(3), t(C, 3), t(3))
+        for _ in range(NB))
+    return (t(B, J, 3, scale=0.3), t(B, V, 3, scale=0.3),
+            t(B, NB, 12, C, scale=0.1), t(B, NB, 12, C, scale=0.1), blocks)
+
+
+def test_chain_backward_is_the_plain_recompute():
+    """The chain kernel's gradient is autograd of the plain version on the
+    saved inputs (the JAX package's XLA recompute): the same numbers as
+    the plain path's own gradient, to f32 rounding."""
+    dev = _card()
+    args = _chain_args(np.random.default_rng(6), dev, 3, grad=True)
+    leaves = fa._tensors(args)
+    outs_k = fc.coevo_chain(*args, 8, 2)
+    outs_p = fc.coevo_chain_plain(*args, 8, 2)
+    cot = tuple(torch.randn_like(o) for o in outs_p)
+    gk = torch.autograd.grad(outs_k, leaves, cot, allow_unused=True)
+    gp = torch.autograd.grad(outs_p, leaves, cot, allow_unused=True)
+    assert sum(g is not None for g in gk) == sum(g is not None for g in gp)
+    for a, b in zip(gk, gp):
+        if b is not None:
+            assert torch.allclose(a.float(), b.float(), rtol=1e-5,
+                                  atol=1e-6)
 
 
 def test_chain_kernel_matches_plain():

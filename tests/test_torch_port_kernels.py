@@ -198,7 +198,8 @@ def test_wrappers_run_plain_versions_on_cpu_without_counting():
     assert torch.equal(fa.gru_layer_rev(*args),
                        fa.gru_layer_plain(*args, reverse=True))
     assert set(_cuda.launch_counts()) >= {
-        "lifter_trunk", "gru_layer", "gru_layer_rev", "coevo_chain"}
+        "lifter_trunk", "gru_layer", "gru_layer_rev", "gru_layer_save",
+        "gru_layer_bwd", "coevo_chain"}
     assert all(n == 0 for n in _cuda.launch_counts().values())
 
 

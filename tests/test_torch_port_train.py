@@ -73,7 +73,7 @@ from pmce_tpu_torch.data.clip_dataset import (
     epoch_iterator,
 )
 from pmce_tpu_torch.data.synthetic import generate_sequences
-from pmce_tpu_torch.models.pmce import create_pmce
+from pmce_tpu_torch.models.pmce import PMCE, create_pmce
 from pmce_tpu_torch.models.pose_lifter import PoseLifter, create_pose_lifter
 from pmce_tpu_torch.smpl.artifacts import synthetic_artifacts
 from pmce_tpu_torch.smpl.layer import SMPLModel
@@ -416,12 +416,22 @@ def test_metric_logger_writes_jsonl(tmp_path):
     assert all("time" in r for r in recs)
 
 
-def test_pmce_training_names_the_kernels_it_waits_for(datasets):
-    cfg = Config()
-    with pytest.raises(NotImplementedError, match="B4, B5"):
-        Trainer(cfg=cfg, model=torch.nn.Linear(1, 1),
-                train_data=MultiDataset([datasets[0]]), test_data=None,
-                device="cpu")
+def test_pmce_training_names_the_kernels_it_waits_for():
+    """Fused PMCE training would run the attention-block kernels (B4, B5,
+    B8-B11), which are not ported: the decoder refuses training mode under
+    ``fused`` instead of running their plain math in their place."""
+    model = PMCE(num_joint=J, vj_relation=(0,) * 8, embed_dim=32, depth=1,
+                 num_vertx=8, num_verts_full=20, gru_hidden=32,
+                 fused=True).train()
+    rng = np.random.default_rng(0)
+    with pytest.raises(NotImplementedError) as err:
+        model(torch.from_numpy(rng.normal(size=(2, T, J, 2)).astype(
+                  np.float32)),
+              torch.from_numpy(rng.normal(size=(2, T, 2048)).astype(
+                  np.float32)),
+              generator=torch.Generator().manual_seed(0))
+    for kernels in ("B4, B5", "B8, B9", "B10, B11"):
+        assert kernels in str(err.value)
 
 
 def test_entry_points_default_to_the_card():
