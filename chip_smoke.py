@@ -11,7 +11,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    kernel library built from ``pmce_tpu_torch/csrc`` with nvcc;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the main paths (the serving forward at B=256, the Stage-1
-   training step at batch 64, the SMPL forward at B=256), with its
+   training step at batch 64, the Stage-2 step at batch 32, the SMPL
+   forward at B=256), with its
    tolerance; both timed with CUDA events (median after warm-up), beside
    the bound of the same work on this card;
 3. serving forward: ``create_pmce(num_joint=19, dtype=bfloat16, fused=True,
@@ -36,11 +37,20 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    2, with evaluation (MPJPE and MPVPE). The counters are zeroed just
    before the fit and read just after: the training GRU's saving forward
    and backward 4 each per step, the serving GRU scan in evaluation, and
-   the trunk, chain and block kernels not at all (the configuration
-   without ``fused_attn``). Losses finite, the loss of a fixed batch
+   the trunk, chain, block and decoder attention-block kernels not at all
+   (the configuration without ``fused_attn``). Losses finite, the loss of a fixed batch
    falling; the first step's loss and gradients on the kernel path agree
    with the plain path; then the step's time, the plain path's and the
-   peak device memory.
+   peak device memory;
+6. fused Stage-2 training (``configs/train_mesh_h36m_bf16.yml`` as written,
+   ``MODEL.fused_attn: true``): phase 5's cuts, data and warm start, with
+   the decoder's attention blocks on their kernels forward and backward
+   (``fused_mhsa``, ``ada_block``, ``ca_block``) and the lifter's blocks on
+   theirs. The counters must equal the path's launches exactly; the fixed
+   batch's loss must fall; the first step's loss and gradients agree with
+   the plain path, the attention blocks' own parameters more tightly (with
+   only those six kernels on the card); then the step's time and peak
+   memory beside phase 5's.
 
 ``--profile`` adds a torch.profiler breakdown of each train step's device
 time by kernel.
@@ -78,6 +88,12 @@ REPLACES = {
     "skinning": "pmce_tpu/smpl/kernels.py:31",
     "gru_layer_save": "pmce_tpu/ops/fused_attention.py:2403",
     "gru_layer_bwd": "pmce_tpu/ops/fused_attention.py:2438",
+    "mhsa_fwd": "pmce_tpu/ops/fused_attention.py:369",
+    "mhsa_bwd": "pmce_tpu/ops/fused_attention.py:800",
+    "ada_block_fwd": "pmce_tpu/ops/fused_attention.py:1366",
+    "ada_block_bwd": "pmce_tpu/ops/fused_attention.py:1534",
+    "ca_block_fwd": "pmce_tpu/ops/fused_attention.py:1823",
+    "ca_block_bwd": "pmce_tpu/ops/fused_attention.py:1853",
 }
 SOURCES = {
     "lifter_trunk": "pmce_tpu_torch/csrc/lifter_trunk.cu",
@@ -89,6 +105,12 @@ SOURCES = {
     "skinning": "pmce_tpu_torch/csrc/skinning.cu",
     "gru_layer_save": "pmce_tpu_torch/csrc/gru_scan.cu",
     "gru_layer_bwd": "pmce_tpu_torch/csrc/gru_scan.cu",
+    "mhsa_fwd": "pmce_tpu_torch/csrc/mhsa.cu",
+    "mhsa_bwd": "pmce_tpu_torch/csrc/mhsa.cu",
+    "ada_block_fwd": "pmce_tpu_torch/csrc/ada_block.cu",
+    "ada_block_bwd": "pmce_tpu_torch/csrc/ada_block.cu",
+    "ca_block_fwd": "pmce_tpu_torch/csrc/ca_block.cu",
+    "ca_block_bwd": "pmce_tpu_torch/csrc/ca_block.cu",
 }
 SERVING = ("lifter_trunk", "gru_layer", "gru_layer_rev", "coevo_chain")
 TRAINING = ("block_fwd", "block_bwd", "lifter_trunk", "skinning")
@@ -97,8 +119,11 @@ TRAINING = ("block_fwd", "block_bwd", "lifter_trunk", "skinning")
 # phase 4).
 MESH_TRAINING = ("gru_layer_save", "gru_layer_bwd", "gru_layer",
                  "gru_layer_rev")
+# The decoder's attention blocks (phase 6; idle in phase 5).
+DECODER = ("mhsa_fwd", "mhsa_bwd", "ada_block_fwd", "ada_block_bwd",
+           "ca_block_fwd", "ca_block_bwd")
 MESH_IDLE = ("lifter_trunk", "coevo_chain", "block_fwd", "block_bwd",
-             "skinning")
+             "skinning", *DECODER)
 # Kernel vs plain version on identical inputs, as max|kernel - plain| over
 # max|plain| (for the block backward: per gradient). Both compute f32 sums
 # of the same bf16 operands with the same cast points; they differ in
@@ -112,9 +137,13 @@ MESH_IDLE = ("lifter_trunk", "coevo_chain", "block_fwd", "block_bwd",
 # backward twice that, since its bf16 dgh, the carry product's operand, can
 # round to the neighbouring value and the carry passes it on (first
 # measured 0.00013 of max 0.48).
+# The decoder's attention blocks (mhsa, ada_block, ca_block) compute the
+# plain versions' cast points with f32 sums in another order; per output
+# and per gradient, as the block's.
 TOL = {"lifter_trunk": 0.03, "gru_layer": 0.01, "gru_layer_rev": 0.01,
        "coevo_chain": 0.02, "block_fwd": 0.02, "block_bwd": 0.02,
-       "gru_layer_save": 0.01, "gru_layer_bwd": 0.02}
+       "gru_layer_save": 0.01, "gru_layer_bwd": 0.02,
+       **{name: 0.02 for name in DECODER}}
 # Skinning is full f32 on both sides: an absolute bound in meters
 # (first measured: 2.4e-7).
 SKIN_TOL_M = 1e-6
@@ -140,6 +169,10 @@ STEP_GRAD_REL_TOL = 0.03
 # with the backward kernel alone); two runs of the same kernel path differ
 # by 0.76 % (PyTorch's scatter-adds with atomics in the backward).
 MESH_GRAD_REL_TOL = 0.1
+# Phase 6: the decoder attention blocks' own parameters (but the last
+# block's joint stream, see mesh_train), with only those six kernels on the
+# card (everything else plain) against the plain path.
+DECODER_GRAD_REL_TOL = 0.03
 # Decoder parameters whose gradient is zero analytically (see mesh_train).
 KEY_BIASES = ("wk.bias", "normk.mlp_beta.weight", "normk.mlp_beta.bias")
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 on
@@ -375,6 +408,7 @@ def check_kernels(device) -> dict:
         compare("gru_layer_bwd", fa.gru_layer_bwd, fa.gru_layer_bwd_plain,
                 (g, saved, whh, rev), label)
     check_blocks(device, rows)
+    check_decoder_blocks(device, rows)
     check_skinning(device, rows)
     return rows
 
@@ -475,6 +509,166 @@ def check_blocks(device, rows) -> None:
         print(f"[kernels] block_bwd {where}: a second run gives the same "
               f"gradients bit for bit", flush=True)
         del yk, yp, gk, gp, repeat
+
+
+def decoder_case(rng, device, kind: str, clips: int, N: int, c: int,
+                 heads: int, Nk: int = 0, rate: float = 0.2):
+    """One decoder attention block at the training shapes, made with numpy
+    from a seed: bf16 tokens and AdaLN vectors (the dense layers' dtype),
+    f32 weights, per-clip branch masks at drop-path ``rate``, the output's
+    cotangent. Returns (leaves, call(fn, *leaves), (kernel, plain))."""
+    import torch
+
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    def r(*shape, scale=0.2, offset=0.0, dtype=torch.float32):
+        a = rng.normal(size=shape) * scale + offset
+        return torch.from_numpy(a.astype("float32")).to(
+            device, dtype).requires_grad_(True)
+
+    bf = torch.bfloat16
+    hid = 4 * c
+    keep = 1.0 - rate
+    masks = tuple(torch.from_numpy(((rng.random((clips, 1, 1)) < keep) / keep)
+                                   .astype("float32")).to(device)
+                  for _ in range(2))
+
+    def w(i, o):
+        return r(i, o, scale=i ** -0.5)
+
+    mlp = [w(c, hid), r(hid, scale=0.02), w(hid, c), r(c, scale=0.02)]
+    conds = [r(clips, c, scale=0.1, offset=1.0 - i % 2, dtype=bf)
+             for i in range(8)]
+    if kind == "mhsa":
+        leaves = [r(clips, N, c, scale=1.0, dtype=bf), w(c, 3 * c),
+                  r(3 * c, scale=0.02), w(c, c), r(c, scale=0.02)]
+        return leaves, (lambda fn, x, *p: fn(x, *p, heads)), (
+            fa.fused_mhsa, fa.mhsa_plain)
+    if kind == "ada":
+        leaves = [r(clips, N, c, scale=1.0, dtype=bf), *conds[:4],
+                  w(c, 3 * c), r(3 * c, scale=0.02), w(c, c),
+                  r(c, scale=0.02), *mlp]
+        return leaves, (lambda fn, x, g1, b1, g2, b2, *p: fn(
+            x, g1, b1, g2, b2, p, heads, 1e-6, masks)), (
+            fa.ada_block, fa.ada_block_plain)
+    proj = [t for _ in range(4) for t in (w(c, c), r(c, scale=0.02))]
+    leaves = [r(clips, N, c, scale=1.0, dtype=bf),
+              r(clips, Nk, c, scale=1.0, dtype=bf),
+              r(clips, Nk, c, scale=1.0, dtype=bf), *conds, *proj, *mlp]
+    return leaves, (lambda fn, xq, xk, xv, *rest: fn(
+        xq, xk, xv, rest[0:8:2], rest[1:8:2], rest[8:], heads, 1e-6,
+        masks)), (fa.ca_block, fa.ca_block_plain)
+
+
+def mha_library_ms(leaves, heads: int) -> tuple[float, float]:
+    """The yardstick of rows 4 / 5: one PyTorch call computing the same
+    function, ``F.multi_head_attention_forward`` in bf16 on the same
+    tokens and weights, and its autograd backward (timed here only; the
+    port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    x, wqkv, bqkv, wproj, bproj = (t.detach() for t in leaves)
+    bf = torch.bfloat16
+    args = [x.transpose(0, 1).contiguous(), wqkv.t().to(bf).contiguous(),
+            bqkv.to(bf), wproj.t().to(bf).contiguous(), bproj.to(bf)]
+    args = [a.requires_grad_(True) for a in args]
+    C = x.shape[-1]
+
+    def fwd():
+        q, w_in, b_in, w_out, b_out = args
+        return F.multi_head_attention_forward(
+            q, q, q, C, heads, w_in, b_in, None, None, False, 0.0, w_out,
+            b_out, training=True, need_weights=False)[0]
+
+    y = fwd()
+    g = torch.randn_like(y)
+    return (median_ms(fwd), median_ms(lambda: torch.autograd.grad(
+        y, args, g, retain_graph=True)))
+
+
+def check_decoder_blocks(device, rows) -> None:
+    """Rows 4, 5, 8-11 at the Stage-2 step's shapes (batch 32, C = 64,
+    drop-path masks at rate 0.2): the joint stream's self-attention
+    [32, 17, 64] with 8 heads, the vertex stream's AdaLN block [32, 431, 64]
+    with 2 heads, both cross-attentions (17 joints over 431 vertices, 8
+    heads; 431 over 17, 2 heads), and row 4 at the trunk backward's spatial
+    shape [32 * 16, 17, 256]. Forward against the plain version; backward
+    against the plain version's autograd, each gradient relative to its
+    largest magnitude (the keys' bias and AdaLN β, zero analytically,
+    relative to the largest gradient); a second backward must give the
+    same gradients bit for bit."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(5)
+    cases = (("mhsa", "joint self-attention", BM, JT, 64, 8, 0),
+             ("ada_block", "vertex AdaLN block", BM, 431, 64, 2, 0),
+             ("ca_block", "joint cross-attention", BM, JT, 64, 8, 431),
+             ("ca_block", "vertex cross-attention", BM, 431, 64, 2, JT),
+             ("mhsa", "trunk backward, spatial", BM * T, JT, C, 8, 0))
+    for name, label, clips, N, c, heads, Nk in cases:
+        kind = {"mhsa": "mhsa", "ada_block": "ada", "ca_block": "ca"}[name]
+        leaves, call, (kernel, plain) = decoder_case(
+            rng, device, kind, clips, N, c, heads, Nk)
+        g = torch.from_numpy(rng.normal(size=tuple(leaves[0].shape)).astype(
+            "float32")).to(device, torch.bfloat16)
+        zero = (6, 14) if kind == "ca" else ()
+
+        def bwd(y):
+            return torch.autograd.grad(y, leaves, g, retain_graph=True)
+
+        yk, yp = call(kernel, *leaves), call(plain, *leaves)
+        gk, gp = bwd(yk), bwd(yp)
+        torch.cuda.synchronize()
+        largest = max(float(t.float().abs().max()) for t in gp)
+        where = (f"{label} [{clips}, {N}, {c}]" + (f" over {Nk} keys"
+                                                    if Nk else "")
+                 + f", {heads} heads")
+        for stage, outs_k, outs_p, flop_fn, nbytes in (
+                ("fwd", (yk,), (yp,), lambda: call(plain, *leaves),
+                 tensor_bytes(leaves, yk)),
+                ("bwd", gk, gp, lambda: bwd(yp),
+                 tensor_bytes(g, leaves, gk))):
+            err = rel = 0.0
+            for i, (a, b) in enumerate(zip(outs_k, outs_p)):
+                if not bool(torch.isfinite(a).all()):
+                    raise RuntimeError(f"{name}_{stage} {where}: non-finite")
+                e = max_err(a, b)
+                err = max(err, e)
+                scale = largest if (stage == "bwd" and i in zero) else float(
+                    b.float().abs().max())
+                rel = max(rel, e / scale)
+            if stage == "fwd":
+                ms = median_ms(lambda: call(kernel, *leaves))
+                plain_ms = median_ms(lambda: call(plain, *leaves), iters=5)
+            else:
+                ms = median_ms(lambda: bwd(yk))
+                plain_ms = median_ms(lambda: bwd(yp), iters=5)
+            key = f"{'mhsa' if kind == 'mhsa' else name}_{stage}"
+            ok = rel <= TOL[key]
+            print(f"[kernels] {key} {where}: max_abs_err={err:.6g} max "
+                  f"relative {rel:.4g} (tol {TOL[key]}) kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms{'' if ok else '  FAIL'}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"{key} {where}: kernel disagrees with "
+                                   f"its plain version ({rel})")
+            record(rows, key, err, ms, plain_ms, count_flops(flop_fn),
+                   nbytes, "bf16")
+        repeat = bwd(yk)
+        if not all(torch.equal(a, b) for a, b in zip(gk, repeat)):
+            raise RuntimeError(f"{name}_bwd {where}: two runs differ")
+        print(f"[kernels] {name}_bwd {where}: a second run gives the same "
+              f"gradients bit for bit", flush=True)
+        if kind == "mhsa" and rows["mhsa_fwd"]["library_ms"] is None:
+            lib_f, lib_b = mha_library_ms(leaves, heads)
+            rows["mhsa_fwd"]["library_ms"] = lib_f
+            rows["mhsa_bwd"]["library_ms"] = lib_b
+            print(f"[kernels] library: F.multi_head_attention_forward "
+                  f"{where}, bf16: forward {lib_f:.4f} ms, autograd "
+                  f"backward {lib_b:.4f} ms", flush=True)
+        del yk, yp, gk, gp, repeat, leaves
 
 
 def check_skinning(device, rows) -> None:
@@ -811,16 +1005,15 @@ def train(device, profile: bool) -> tuple[dict, float, dict]:
                         "ckpt": ckpt_dir / "best.ckpt"}
 
 
-def mesh_h36m_config(posenet_path: str):
+def mesh_h36m_config(posenet_path: str, fused: bool = True):
     """``configs/train_mesh_h36m_bf16.yml`` (the Stage-2 recipe under the
-    bf16 policy), its values set here so that no YAML package is needed,
-    with one override: ``MODEL.fused_attn: false`` (the file says true;
-    fused Stage-2 training needs the attention-block kernels, kernel table
-    rows 4, 5 and 8-11, not ported yet). Then cut: 2 epochs × 25 steps (not
-    30 epochs of the whole split), lr 1e-3 (not 1e-4) so that two short
-    epochs show the loss fall, ``edge_loss_start`` 1 (not 10) so that epoch
-    2 trains with the edge term. The lifter warm-starts from
-    ``posenet_path`` (the file sets ``posenet_pretrained``)."""
+    bf16 policy, ``MODEL.fused_attn: true``), its values set here so that
+    no YAML package is needed; ``fused=False`` overrides ``fused_attn`` to
+    false (phase 5). Then cut: 2 epochs × 25 steps (not 30 epochs of the
+    whole split), lr 1e-3 (not 1e-4) so that two short epochs show the loss
+    fall, ``edge_loss_start`` 1 (not 10) so that epoch 2 trains with the
+    edge term. The lifter warm-starts from ``posenet_path`` (the file sets
+    ``posenet_pretrained``)."""
     from pmce_tpu_torch.core.config import Config
 
     cfg = Config()
@@ -833,7 +1026,7 @@ def mesh_h36m_config(posenet_path: str):
     m.normal_loss_weight, m.edge_loss_weight, m.joint_loss_weight = (
         0.1, 20.0, 0.001)
     m.posenet_pretrained, m.compute_dtype = True, "bfloat16"
-    m.fused_attn = False                       # the override
+    m.fused_attn = fused
     t.batch_size, t.shuffle, t.begin_epoch, t.end_epoch = BM, True, 1, 30
     t.edge_loss_start, t.scheduler, t.lr = 10, "step", 1e-4
     t.lr_step, t.lr_factor, t.optimizer = [10, 20], 0.9, "adam"
@@ -844,8 +1037,11 @@ def mesh_h36m_config(posenet_path: str):
     return cfg
 
 
-def mesh_train(device, stage1: dict, profile: bool) -> tuple[dict, float]:
-    """Phase 5: Stage-2 mesh training of the full-width PMCE."""
+def mesh_train(device, stage1: dict, profile: bool, fused: bool,
+               unfused_ms: float | None = None) -> tuple[dict, float]:
+    """Stage-2 mesh training of the full-width PMCE: phase 5 without
+    ``fused_attn``, phase 6 with it (``unfused_ms``: phase 5's step, printed
+    beside phase 6's)."""
     import contextlib
     from unittest import mock
 
@@ -864,7 +1060,8 @@ def mesh_train(device, stage1: dict, profile: bool) -> tuple[dict, float]:
     from pmce_tpu_torch.ops import fused_attention as fa
     from pmce_tpu_torch.smpl.mesh import ensure_cached_coarsening
 
-    cfg = mesh_h36m_config(str(stage1["ckpt"]))
+    tag = "[fused]" if fused else "[mesh]"
+    cfg = mesh_h36m_config(str(stage1["ckpt"]), fused)
     art, jr = stage1["art"], stage1["jr"]
     coarse = ensure_cached_coarsening()
 
@@ -886,9 +1083,10 @@ def mesh_train(device, stage1: dict, profile: bool) -> tuple[dict, float]:
                       train_data=MultiDataset([train_ds], seed=0),
                       test_data=test_ds, faces=art.faces, J_reg_target=jr,
                       device=device,
-                      log_fn=lambda s: print(f"[mesh] {s}", flush=True))
+                      log_fn=lambda s: print(f"{tag} {s}", flush=True))
     nparams = sum(p.numel() for p in trainer.model.parameters())
-    print(f"[mesh] PMCE {nparams / 1e6:.1f} M params, lifter from "
+    print(f"{tag} PMCE {nparams / 1e6:.1f} M params, fused_attn "
+          f"{cfg.MODEL.fused_attn}, lifter from "
           f"{Path(cfg.MODEL.posenet_path).name}; {len(train_ds)} train / "
           f"{len(test_ds)} test clips", flush=True)
 
@@ -917,20 +1115,44 @@ def mesh_train(device, stage1: dict, profile: bool) -> tuple[dict, float]:
     counts = _cuda.launch_counts()
     steps = 2 * TRAIN_STEPS
     evals = 2 * -(-len(test_ds) // cfg.TEST.batch_size)
-    print(f"[mesh] launches on the Stage-2 training path: {counts} "
+    print(f"{tag} launches on the Stage-2 training path: {counts} "
           f"({time.time() - t0:.1f} s: {steps} steps, 2 evaluations of "
           f"{len(test_ds)} clips)", flush=True)
     expect = {"gru_layer_save": 4 * steps, "gru_layer_bwd": 4 * steps,
               "gru_layer": 2 * evals, "gru_layer_rev": 2 * evals}
-    for name in MESH_TRAINING:
-        if counts[name] == 0 or counts[name] != expect[name]:
-            raise RuntimeError(f"mesh training path: {name} launched "
-                               f"{counts[name]} times, expected "
-                               f"{expect[name]}")
-    for name in MESH_IDLE:
-        if counts[name]:
-            raise RuntimeError(f"mesh training path: {name} launched "
-                               f"{counts[name]} times (fused_attn is off)")
+    if fused:
+        # Per step: the lifter's 6 blocks forward and backward; per
+        # CoevoBlock (3) forward, the joint stream's fused_mhsa, the vertex
+        # stream's ada_block and two ca_block. Backward only where a
+        # gradient is owed: every block re-reads the lifted joints, so the
+        # joint streams of blocks 1 and 2 (their joint CA and fused_mhsa)
+        # reach no output and autograd skips them, as JAX's VJP computes
+        # nothing for them: 1 mhsa, 3 AdaLN and 4 CA backwards a step. Per
+        # evaluation batch the trunk and the chain; skinning belongs to
+        # phase 4's synthesis.
+        expect.update({"block_fwd": 6 * steps, "block_bwd": 6 * steps,
+                       "mhsa_fwd": 3 * steps, "mhsa_bwd": steps,
+                       "ada_block_fwd": 3 * steps,
+                       "ada_block_bwd": 3 * steps,
+                       "ca_block_fwd": 6 * steps, "ca_block_bwd": 4 * steps,
+                       "lifter_trunk": evals, "coevo_chain": evals,
+                       "skinning": 0})
+        wrong = {k: (v, counts[k]) for k, v in expect.items()
+                 if counts[k] != v}
+        if wrong or any(counts[k] == 0 for k in DECODER):
+            raise RuntimeError(f"fused Stage-2 path: launches (expected, "
+                               f"counted) {wrong}")
+    else:
+        for name in MESH_TRAINING:
+            if counts[name] == 0 or counts[name] != expect[name]:
+                raise RuntimeError(f"mesh training path: {name} launched "
+                                   f"{counts[name]} times, expected "
+                                   f"{expect[name]}")
+        for name in MESH_IDLE:
+            if counts[name]:
+                raise RuntimeError(f"mesh training path: {name} launched "
+                                   f"{counts[name]} times (fused_attn is "
+                                   f"off)")
     after = fixed_loss(trainer.model)
     losses = trainer.loss_history
     errs = trainer.error_history
@@ -939,15 +1161,17 @@ def mesh_train(device, stage1: dict, profile: bool) -> tuple[dict, float]:
     if not after < before:
         raise RuntimeError(f"the fixed batch's loss did not fall: {before} "
                            f"-> {after}")
-    print(f"[mesh] epoch losses {losses} (edge term on in epoch 2); fixed "
+    print(f"{tag} epoch losses {losses} (edge term on in epoch 2); fixed "
           f"batch loss, edge term on, {before:.6g} -> {after:.6g}; MPJPE "
           f"{errs['joint']} mm, MPVPE {errs['surface']} mm; state step "
           f"{state.step}", flush=True)
 
     # First step on the same weights, batch and masks: the kernel path;
-    # the plain path (both GRU recurrences through the plain scan and
-    # PyTorch's autograd of it); and the kernel forward with the plain
-    # backward scan, which isolates row 13.
+    # the plain path (every kernel's plain version; the GRU recurrences
+    # through the plain scan and PyTorch's autograd of it); and one path
+    # that isolates this phase's kernels (phase 5: the plain GRU forward
+    # with the backward kernel; phase 6: the decoder's attention blocks on
+    # their kernels, everything else plain).
     def first_step(ctx):
         model = pmce().train()
         with ctx:
@@ -958,10 +1182,15 @@ def mesh_train(device, stage1: dict, profile: bool) -> tuple[dict, float]:
                              if p.grad is not None}
 
     loss_k, grads_k = first_step(contextlib.nullcontext())
-    loss_p, grads_p = first_step(plain_gru(fa))
-    _, grads_b = first_step(mock.patch.object(
-        fa, "gru_layer_bwd", fa.gru_layer_bwd_plain))
-    if not set(grads_k) == set(grads_p) == set(grads_b):
+    loss_p, grads_p = first_step(plain_path(fa, fused))
+    if fused:
+        iso = plain_gru(fa)
+        iso.enter_context(mock.patch.object(fa, "transformer_block",
+                                            fa.transformer_block_plain))
+    else:
+        iso = mock.patch.object(fa, "gru_layer_bwd", fa.gru_layer_bwd_plain)
+    loss_i, grads_i = first_step(iso)
+    if not set(grads_k) == set(grads_p) == set(grads_i):
         raise RuntimeError("first Stage-2 step: the paths reach different "
                            "parameters")
     # The key biases add one vector to every key, which the softmax
@@ -969,27 +1198,56 @@ def mesh_train(device, stage1: dict, profile: bool) -> tuple[dict, float]:
     # they are held to the model's largest gradient instead of their own.
     largest = max(max_err(g, 0 * g) for g in grads_p.values())
 
-    def worst(ref, names):
-        return max((max_err(grads_k[n], ref[n]) / (
+    def rel(got, ref, n):
+        return max_err(got[n], ref[n]) / (
             largest if n.endswith(KEY_BIASES)
-            else max(max_err(ref[n], 0 * ref[n]), 1e-30)), n) for n in names)
+            else max(max_err(ref[n], 0 * ref[n]), 1e-30))
+
+    def worst(got, ref, names):
+        return max((rel(got, ref, n), n) for n in names)
 
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    every, gru = worst(grads_p, grads_p), worst(
-        grads_p, [n for n in grads_p if ".gru_cur." in n])
-    bwd = worst(grads_b, grads_b)
-    print(f"[mesh] first step, kernel vs plain path: loss {loss_k:.6g} vs "
+    every = worst(grads_k, grads_p, grads_p)
+    own = [n for n in grads_p if ".gru_cur." in n]
+    if fused:
+        # The attention blocks' own parameters, but for the last block's
+        # joint stream: only the x1e-3 joint loss reaches those, through
+        # the 431-key softmax of its cross-attention, and one bf16 ulp
+        # upstream moves them by several per cent (phase 5: 4.1 % from the
+        # GRU alone); they stay in the whole model's band.
+        last = f"coevoblock{len(trainer.model.pose_mesh_coevo.blocks())}."
+        own = [n for n in grads_p if "_FFN." in n
+               and not (last in n and ".joint_" in n)]
+        iso_ = worst(grads_i, grads_p, own)
+        ranked = sorted(((rel(grads_i, grads_p, n), n)
+                         for n in grads_p if "_FFN." in n), reverse=True)[:5]
+        print(f"{tag} the six kernels alone, largest gradient differences "
+              f"of the attention blocks: " + ", ".join(
+                  f"{n.split('pose_mesh_coevo.')[-1]} {e:.4g}"
+                  for e, n in ranked), flush=True)
+        iso_what = ("the attention blocks' own but the last block's joint "
+                    "stream, their six kernels alone")
+        tol_iso = DECODER_GRAD_REL_TOL
+    else:
+        iso_ = worst(grads_k, grads_i, grads_i)
+        iso_what = "the backward kernel alone (same forward)"
+        tol_iso = STEP_GRAD_REL_TOL
+    own_w = worst(grads_k, grads_p, own)
+    loss_i_rel = abs(loss_i - loss_p) / abs(loss_p)
+    owner = "the attention blocks'" if fused else "the GRU's"
+    print(f"{tag} first step, kernel vs plain path: loss {loss_k:.6g} vs "
           f"{loss_p:.6g} (relative {loss_rel:.3g}, tol {STEP_LOSS_REL_TOL});"
           f" largest gradient difference {every[0]:.4g} of max|grad| in "
-          f"{every[1]} (tol {MESH_GRAD_REL_TOL}), {gru[0]:.4g} in the GRU's "
-          f"own {gru[1]} (tol {STEP_GRAD_REL_TOL}); the backward kernel "
-          f"alone (same forward) {bwd[0]:.4g} in {bwd[1]} (tol "
-          f"{STEP_GRAD_REL_TOL})", flush=True)
+          f"{every[1]} (tol {MESH_GRAD_REL_TOL}), {own_w[0]:.4g} in "
+          f"{owner} own "
+          f"{own_w[1]}; {iso_what}: {iso_[0]:.4g} in {iso_[1]} (tol "
+          f"{tol_iso}), loss relative {loss_i_rel:.3g}", flush=True)
     if (loss_rel > STEP_LOSS_REL_TOL or every[0] > MESH_GRAD_REL_TOL
-            or max(gru[0], bwd[0]) > STEP_GRAD_REL_TOL):
+            or iso_[0] > tol_iso
+            or (not fused and own_w[0] > STEP_GRAD_REL_TOL)):
         raise RuntimeError("first Stage-2 step: kernel and plain paths "
                            "disagree")
-    del grads_k, grads_p, grads_b
+    del grads_k, grads_p, grads_i
 
     gen = torch.Generator(dev).manual_seed(1)
 
@@ -1007,15 +1265,35 @@ def mesh_train(device, stage1: dict, profile: bool) -> tuple[dict, float]:
     torch.cuda.reset_peak_memory_stats()
     ms = step_ms(10)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    with plain_gru(fa):
+    with plain_path(fa, fused):
         plain = step_ms(5, warmup=2)
-    print(f"[mesh] bf16 Stage-2 train step (fused_attn off), batch {BM}: "
+    beside = (f"; phase 5's step (fused_attn off) {unfused_ms:.3f} ms"
+              if unfused_ms is not None else "")
+    print(f"{tag} bf16 Stage-2 train step (fused_attn {fused}), batch {BM}: "
           f"{ms:.3f} ms (median of 10), {BM / ms * 1e3:.1f} clips/s; plain "
-          f"GRU path {plain:.3f} ms; peak device memory {peak:.2f} GiB; on "
-          f"{card_line()}", flush=True)
+          f"path {plain:.3f} ms; peak device memory {peak:.2f} GiB{beside}; "
+          f"on {card_line()}", flush=True)
     if profile:
         profile_step(lambda: trainer.train_step(state, batch, gen, 1.0))
+    del trainer, state
+    torch.cuda.empty_cache()
     return counts, ms
+
+
+def plain_path(fa, fused: bool):
+    """Every kernel of the Stage-2 path through its plain version (the
+    comparisons only): both GRU directions through the plain scan, and with
+    ``fused`` the lifter's blocks and the decoder's attention blocks."""
+    from unittest import mock
+
+    stack = plain_gru(fa)
+    if fused:
+        for name, plain in (("transformer_block", fa.transformer_block_plain),
+                            ("fused_mhsa", fa.mhsa_plain),
+                            ("ada_block", fa.ada_block_plain),
+                            ("ca_block", fa.ca_block_plain)):
+            stack.enter_context(mock.patch.object(fa, name, plain))
+    return stack
 
 
 def plain_gru(fa):
@@ -1104,9 +1382,12 @@ def main() -> int:
     rows = check_kernels(device)
     fps, serve_counts = serve(device)
     train_counts, step_ms, stage1 = train(device, profile)
-    mesh_counts, mesh_ms = mesh_train(device, stage1, profile)
+    mesh_counts, mesh_ms = mesh_train(device, stage1, profile, False)
+    fused_counts, fused_ms = mesh_train(device, stage1, profile, True,
+                                        mesh_ms)
     # Each kernel's launches on the path it belongs to.
     counts = {**{k: mesh_counts[k] for k in REPLACES},
+              **{k: fused_counts[k] for k in DECODER},
               **{k: train_counts[k] for k in TRAINING},
               **{k: serve_counts[k] for k in SERVING}}
 
@@ -1119,7 +1400,9 @@ def main() -> int:
     print(f"[card] {card}; serving {fps:.1f} mid-frames/s; Stage-1 train "
           f"step {step_ms:.3f} ms = {BT / step_ms * 1e3:.1f} clips/s; "
           f"Stage-2 train step {mesh_ms:.3f} ms = "
-          f"{BM / mesh_ms * 1e3:.1f} clips/s", flush=True)
+          f"{BM / mesh_ms * 1e3:.1f} clips/s (fused_attn off), "
+          f"{fused_ms:.3f} ms = {BM / fused_ms * 1e3:.1f} clips/s "
+          f"(fused_attn on)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,87 +44,6 @@ using namespace pmce;
 namespace {
 
 // ---------------------------------------------------------------------------
-// Weight gradient: part[z][m][n] = sum over rows k of split z of
-// A[k, m] * G[k, n], A [Kr, Mo] and G [Kr, N] bf16, f32 sums.
-// Grid (N / 128, Mo / 128, splits); rows past Kr read as zeros.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(GEMM_THREADS)
-    gemm_tn_kernel(const bf16* A, const bf16* G, int Kr, int Mo, int N,
-                   int kt_per_split, float* part, long long ld,
-                   long long off) {
-  __shared__ __align__(32) bf16 As[2][BK][BM + PAD];
-  __shared__ __align__(32) bf16 Bs[2][BK][BN + PAD];
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kt_total = (Kr + BK - 1) / BK;
-  const int kt0 = blockIdx.z * kt_per_split;
-  const int kt1 = min(kt0 + kt_per_split, kt_total);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  auto load_tile = [&](int buf, int k0) {
-    for (int c = tid; c < BK * (BM / 8); c += GEMM_THREADS) {
-      const int r = c / (BM / 8), cc = (c % (BM / 8)) * 8;
-      const int gr = min(k0 + r, Kr - 1);
-      cp_async16(&As[buf][r][cc], A + (size_t)gr * Mo + m0 + cc,
-                 k0 + r < Kr);
-    }
-    for (int c = tid; c < BK * (BN / 8); c += GEMM_THREADS) {
-      const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
-      const int gr = min(k0 + r, Kr - 1);
-      cp_async16(&Bs[buf][r][cc], G + (size_t)gr * N + n0 + cc, k0 + r < Kr);
-    }
-  };
-
-  if (kt0 < kt1) {
-    load_tile(0, kt0 * BK);
-    cp_async_commit();
-  }
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int buf = (kt - kt0) & 1;
-    if (kt + 1 < kt1) load_tile(buf ^ 1, (kt + 1) * BK);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // Aᵀ tile: element (m, k) sits at As[k][m], a column-major operand.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], &As[buf][kk][wm * 32 + i * 16],
-                               BM + PAD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(bfr[j], &Bs[buf][kk][wn * 64 + j * 16],
-                               BN + PAD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* dst = part + (size_t)blockIdx.z * ld + off;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(
-          dst + (size_t)(m0 + wm * 32 + i * 16) * N + n0 + wn * 64 + j * 16,
-          acc[i][j], N, wmma::mem_row_major);
-}
-
-// ---------------------------------------------------------------------------
 // LayerNorm backward (or the identity when g is null), one warp per row of
 // C = 256, 64 rows a block:
 //   dx = rstd * (dy*g - mean(dy*g) - xhat * mean(dy*g*xhat)) [+ res]
@@ -132,7 +51,8 @@ __global__ void __launch_bounds__(GEMM_THREADS)
 // dx (f32), dxs = bf16(dx * s_row), rowdot = sum_c dx * dot, and per-block
 // column partials of dy*xhat (dγ), dy (dβ) and dx * s_row (a bias grad).
 // ---------------------------------------------------------------------------
-constexpr int LNB_ROWS = 64, LNB_THREADS = 256;
+// Row blocks shared with colsum_kernel: both write one partial buffer.
+constexpr int LNB_ROWS = COLSUM_ROWS, LNB_THREADS = 256;
 
 template <typename Tdy, typename Tx>
 __global__ void __launch_bounds__(LNB_THREADS)
@@ -219,28 +139,6 @@ __global__ void __launch_bounds__(LNB_THREADS)
     part[(size_t)blockIdx.x * ld + offs[k] + threadIdx.x] = s;
     __syncthreads();
   }
-}
-
-// Per-block column sums of a bf16 [M, N] matrix over 64-row blocks (the
-// same row blocks as ln_bwd_kernel, so both share one partial buffer).
-__global__ void colsum_kernel(const bf16* a, int M, int N, float* part,
-                              long long ld, int off) {
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= N) return;
-  const int r0 = blockIdx.x * LNB_ROWS, r1 = min(r0 + LNB_ROWS, M);
-  float s = 0.f;
-  for (int r = r0; r < r1; ++r) s += bf2f(a[(size_t)r * N + c]);
-  part[(size_t)blockIdx.x * ld + off + c] = s;
-}
-
-// out[i] = sum_s part[s * size + i], s in order.
-__global__ void reduce_kernel(const float* part, int S, long long size,
-                              float* out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= size) return;
-  float s = 0.f;
-  for (int k = 0; k < S; ++k) s += part[(size_t)k * size + i];
-  out[i] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -382,16 +280,9 @@ extern "C" int pmce_block_attn(const void* qkv, void* out, int clips, int N,
 extern "C" int pmce_block_gemm_tn(const void* A, const void* G, int Kr,
                                   int Mo, int N, int splits, float* part,
                                   long long ld, long long off, void* stream) {
-  if (Mo % BM || N % BN || splits <= 0 || Kr <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int kt_total = (Kr + BK - 1) / BK;
-  const int per = (kt_total + splits - 1) / splits;
-  const dim3 grid(N / BN, Mo / BM, splits);
-  gemm_tn_kernel<<<grid, GEMM_THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(A), static_cast<const bf16*>(G), Kr, Mo, N,
-      per, part, ld, off);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gemm_tn(static_cast<const bf16*>(A),
+                        static_cast<const bf16*>(G), Kr, Mo, N, splits, part,
+                        ld, off, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pmce_block_ln_bwd(const void* dy, int dy_f32, const void* x,
@@ -418,19 +309,13 @@ extern "C" int pmce_block_ln_bwd(const void* dy, int dy_f32, const void* x,
 
 extern "C" int pmce_block_colsum(const void* a, int M, int N, float* part,
                                  long long ld, int off, void* stream) {
-  const dim3 grid((M + LNB_ROWS - 1) / LNB_ROWS, (N + 255) / 256);
-  colsum_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), M, N, part, ld, off);
-  return static_cast<int>(cudaGetLastError());
+  return launch_colsum(static_cast<const bf16*>(a), M, N, part, ld, off,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pmce_block_reduce(const float* part, int S, long long size,
                                  float* out, void* stream) {
-  const int threads = 256;
-  const dim3 grid((unsigned)((size + threads - 1) / threads));
-  reduce_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      part, S, size, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_reduce(part, S, size, out, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pmce_block_attn_bwd(const void* qkv, const void* dout,

@@ -1,10 +1,12 @@
-// Device pieces shared by the lifter trunk (lifter_trunk.cu) and the
-// training block (block.cu): row LayerNorm, the WMMA GEMM with fused
-// epilogues, and grouped self-attention over short token groups.
+// Device pieces shared by the lifter trunk (lifter_trunk.cu), the training
+// block (block.cu) and the decoder's attention blocks (attention_ops.cuh):
+// row LayerNorm, the WMMA GEMM with fused epilogues, the split-K weight
+// gradient product with its fixed-order reduce, column sums, and grouped
+// self-attention over short token groups.
 //
-// All three run over every row of a [M, C = 256] token matrix whose rows
-// are grouped into clips by index arithmetic; nothing here pads rows or
-// builds masks.
+// All of them run over every row of a [M, C] token matrix whose rows are
+// grouped into clips by index arithmetic; nothing here pads rows or builds
+// masks.
 #pragma once
 
 #include <mma.h>
@@ -108,7 +110,7 @@ __device__ __forceinline__ float gelu_erf_grad(float h) {
   return cdf + h * pdf;
 }
 
-constexpr int BM = 128, BN = 128, BK = 32, PAD = 8, GEMM_THREADS = 256;
+constexpr int BM = 128, BK = 32, PAD = 8, GEMM_THREADS = 256;
 
 // 16-byte global -> shared copy that does not hold up the thread (cp.async);
 // with pred false it writes zeros and reads nothing.
@@ -126,25 +128,27 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// 128 x 128 tiles, 8 warps of 32 x 64, two k-tiles in flight: tile kt+1 is
-// copied (cp.async) while the tensor cores work on tile kt.
-template <int EPI, typename Tout>
+// 128 x BN_ tiles (BN_ = 128 or 64), 8 warps of 32 x BN_/2, two k-tiles in
+// flight: tile kt+1 is copied (cp.async) while the tensor cores work on
+// tile kt.
+template <int EPI, typename Tout, int BN_>
 __global__ void __launch_bounds__(GEMM_THREADS)
     gemm_kernel(const bf16* A, const bf16* W, int M, int N, int K,
                 GemmEpi e, Tout* out) {
+  constexpr int NJ = BN_ / 32;  // 16-column fragments per warp
   __shared__ __align__(32) bf16 As[2][BM][BK + PAD];
-  __shared__ __align__(32) bf16 Bs[2][BK][BN + PAD];
+  __shared__ __align__(32) bf16 Bs[2][BK][BN_ + PAD];
   __shared__ __align__(32) float stage[GEMM_THREADS / 32][16 * 16];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN_;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NJ];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   auto load_tile = [&](int buf, int k0) {
     for (int c = tid; c < BM * (BK / 8); c += GEMM_THREADS) {
@@ -152,8 +156,8 @@ __global__ void __launch_bounds__(GEMM_THREADS)
       const int gr = min(m0 + r, M - 1);
       cp_async16(&As[buf][r][cc], A + (size_t)gr * K + k0 + cc, m0 + r < M);
     }
-    for (int c = tid; c < BK * (BN / 8); c += GEMM_THREADS) {
-      const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
+    for (int c = tid; c < BK * (BN_ / 8); c += GEMM_THREADS) {
+      const int r = c / (BN_ / 8), cc = (c % (BN_ / 8)) * 8;
       cp_async16(&Bs[buf][r][cc], W + (size_t)(k0 + r) * N + n0 + cc, true);
     }
   };
@@ -170,19 +174,19 @@ __global__ void __launch_bounds__(GEMM_THREADS)
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[NJ];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         wmma::load_matrix_sync(af[i], &As[buf][wm * 32 + i * 16][kk],
                                BK + PAD);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(bfr[j], &Bs[buf][kk][wn * 64 + j * 16],
-                               BN + PAD);
+      for (int j = 0; j < NJ; ++j)
+        wmma::load_matrix_sync(bfr[j], &Bs[buf][kk][wn * (BN_ / 2) + j * 16],
+                               BN_ + PAD);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < NJ; ++j)
           wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
     }
     __syncthreads();  // the next iteration's copy overwrites this buffer
@@ -192,12 +196,12 @@ __global__ void __launch_bounds__(GEMM_THREADS)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       wmma::store_matrix_sync(stg, acc[i][j], 16, wmma::mem_row_major);
       __syncwarp();
       for (int el = lane; el < 256; el += 32) {
         const int gr = m0 + wm * 32 + i * 16 + el / 16;
-        const int gc = n0 + wn * 64 + j * 16 + el % 16;
+        const int gc = n0 + wn * (BN_ / 2) + j * 16 + el % 16;
         if (gr < M) {
           const size_t o = (size_t)gr * N + gc;
           float v = stg[el] + (e.bias ? e.bias[gc] : 0.f);
@@ -228,20 +232,28 @@ __global__ void __launch_bounds__(GEMM_THREADS)
   }
 }
 
-// Launch one GEMM; N must be a multiple of 128 and K of 32.
+// Launch one GEMM; N must be a multiple of 64 (128-column tiles where N
+// allows) and K of 32.
 static inline int launch_gemm(int epi, int out_f32, const bf16* A,
                               const bf16* W, int M, int N, int K,
                               const GemmEpi& e, void* out, cudaStream_t s) {
-  if (N % BN || K % BK || M <= 0)
+  if (N % 64 || K % BK || M <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
-#define PMCE_GEMM(E)                                                      \
+  const bool wide = N % 128 == 0;
+  const dim3 grid(N / (wide ? 128 : 64), (M + BM - 1) / BM);
+#define PMCE_GEMM_BN(E, BNV)                                              \
   if (out_f32)                                                            \
-    gemm_kernel<E, float><<<grid, GEMM_THREADS, 0, s>>>(                  \
+    gemm_kernel<E, float, BNV><<<grid, GEMM_THREADS, 0, s>>>(             \
         A, W, M, N, K, e, static_cast<float*>(out));                      \
   else                                                                    \
-    gemm_kernel<E, bf16><<<grid, GEMM_THREADS, 0, s>>>(                   \
+    gemm_kernel<E, bf16, BNV><<<grid, GEMM_THREADS, 0, s>>>(              \
         A, W, M, N, K, e, static_cast<bf16*>(out));
+#define PMCE_GEMM(E)              \
+  if (wide) {                     \
+    PMCE_GEMM_BN(E, 128)          \
+  } else {                        \
+    PMCE_GEMM_BN(E, 64)           \
+  }
   switch (epi) {
     case EPI_QKV: PMCE_GEMM(EPI_QKV) break;
     case EPI_RES: PMCE_GEMM(EPI_RES) break;
@@ -251,6 +263,155 @@ static inline int launch_gemm(int epi, int out_f32, const bf16* A,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PMCE_GEMM
+#undef PMCE_GEMM_BN
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Weight gradient: part[z][m][n] = sum over rows k of split z of
+// A[k, m] * G[k, n], A [Kr, Mo] and G [Kr, N] bf16, f32 sums.
+// Grid (N / BN_, Mo / BM_, splits); rows past Kr read as zeros. Tiles of
+// BM_ x BN_ (each 128 or 64), 8 warps of BM_/4 x BN_/2.
+// ---------------------------------------------------------------------------
+template <int BM_, int BN_>
+__global__ void __launch_bounds__(GEMM_THREADS)
+    gemm_tn_kernel(const bf16* A, const bf16* G, int Kr, int Mo, int N,
+                   int kt_per_split, float* part, long long ld,
+                   long long off) {
+  constexpr int FI = BM_ / 64, FJ = BN_ / 32;
+  __shared__ __align__(32) bf16 As[2][BK][BM_ + PAD];
+  __shared__ __align__(32) bf16 Bs[2][BK][BN_ + PAD];
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int m0 = blockIdx.y * BM_, n0 = blockIdx.x * BN_;
+  const int kt_total = (Kr + BK - 1) / BK;
+  const int kt0 = blockIdx.z * kt_per_split;
+  const int kt1 = min(kt0 + kt_per_split, kt_total);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FI][FJ];
+#pragma unroll
+  for (int i = 0; i < FI; ++i)
+#pragma unroll
+    for (int j = 0; j < FJ; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  auto load_tile = [&](int buf, int k0) {
+    for (int c = tid; c < BK * (BM_ / 8); c += GEMM_THREADS) {
+      const int r = c / (BM_ / 8), cc = (c % (BM_ / 8)) * 8;
+      const int gr = min(k0 + r, Kr - 1);
+      cp_async16(&As[buf][r][cc], A + (size_t)gr * Mo + m0 + cc,
+                 k0 + r < Kr);
+    }
+    for (int c = tid; c < BK * (BN_ / 8); c += GEMM_THREADS) {
+      const int r = c / (BN_ / 8), cc = (c % (BN_ / 8)) * 8;
+      const int gr = min(k0 + r, Kr - 1);
+      cp_async16(&Bs[buf][r][cc], G + (size_t)gr * N + n0 + cc, k0 + r < Kr);
+    }
+  };
+
+  if (kt0 < kt1) {
+    load_tile(0, kt0 * BK);
+    cp_async_commit();
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int buf = (kt - kt0) & 1;
+    if (kt + 1 < kt1) load_tile(buf ^ 1, (kt + 1) * BK);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      // Aᵀ tile: element (m, k) sits at As[k][m], a column-major operand.
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[FI];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[FJ];
+#pragma unroll
+      for (int i = 0; i < FI; ++i)
+        wmma::load_matrix_sync(af[i], &As[buf][kk][wm * (BM_ / 4) + i * 16],
+                               BM_ + PAD);
+#pragma unroll
+      for (int j = 0; j < FJ; ++j)
+        wmma::load_matrix_sync(bfr[j], &Bs[buf][kk][wn * (BN_ / 2) + j * 16],
+                               BN_ + PAD);
+#pragma unroll
+      for (int i = 0; i < FI; ++i)
+#pragma unroll
+        for (int j = 0; j < FJ; ++j)
+          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* dst = part + (size_t)blockIdx.z * ld + off;
+#pragma unroll
+  for (int i = 0; i < FI; ++i)
+#pragma unroll
+    for (int j = 0; j < FJ; ++j)
+      wmma::store_matrix_sync(
+          dst + (size_t)(m0 + wm * (BM_ / 4) + i * 16) * N + n0 +
+              wn * (BN_ / 2) + j * 16,
+          acc[i][j], N, wmma::mem_row_major);
+}
+
+// Launch the weight-gradient product over `splits` row ranges; Mo and N
+// must be multiples of 64.
+static inline int launch_gemm_tn(const bf16* A, const bf16* G, int Kr, int Mo,
+                                 int N, int splits, float* part,
+                                 long long ld, long long off,
+                                 cudaStream_t s) {
+  if (Mo % 64 || N % 64 || splits <= 0 || Kr <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kt_total = (Kr + BK - 1) / BK;
+  const int per = (kt_total + splits - 1) / splits;
+  const bool wm = Mo % 128 == 0, wn = N % 128 == 0;
+  const dim3 grid(N / (wn ? 128 : 64), Mo / (wm ? 128 : 64), splits);
+#define PMCE_TN(BMV, BNV)                                                  \
+  gemm_tn_kernel<BMV, BNV><<<grid, GEMM_THREADS, 0, s>>>(A, G, Kr, Mo, N,  \
+                                                         per, part, ld, off)
+  if (wm && wn) PMCE_TN(128, 128);
+  else if (wm) PMCE_TN(128, 64);
+  else if (wn) PMCE_TN(64, 128);
+  else PMCE_TN(64, 64);
+#undef PMCE_TN
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Per-block column sums of a bf16 [M, N] matrix over blocks of
+// COLSUM_ROWS rows: part[block][off + c].
+constexpr int COLSUM_ROWS = 64;
+
+__global__ void colsum_kernel(const bf16* a, int M, int N, float* part,
+                              long long ld, int off) {
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  if (c >= N) return;
+  const int r0 = blockIdx.x * COLSUM_ROWS, r1 = min(r0 + COLSUM_ROWS, M);
+  float s = 0.f;
+  for (int r = r0; r < r1; ++r) s += bf2f(a[(size_t)r * N + c]);
+  part[(size_t)blockIdx.x * ld + off + c] = s;
+}
+
+static inline int launch_colsum(const bf16* a, int M, int N, float* part,
+                                long long ld, int off, cudaStream_t s) {
+  const dim3 grid((M + COLSUM_ROWS - 1) / COLSUM_ROWS, (N + 255) / 256);
+  colsum_kernel<<<grid, 256, 0, s>>>(a, M, N, part, ld, off);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[i] = sum_s part[s * size + i], s in order: the fixed-order second
+// pass of every split sum, so that two runs agree bit for bit.
+__global__ void reduce_kernel(const float* part, int S, long long size,
+                              float* out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= size) return;
+  float s = 0.f;
+  for (int k = 0; k < S; ++k) s += part[(size_t)k * size + i];
+  out[i] = s;
+}
+
+static inline int launch_reduce(const float* part, int S, long long size,
+                                float* out, cudaStream_t s) {
+  const int threads = 256;
+  const dim3 grid((unsigned)((size + threads - 1) / threads));
+  reduce_kernel<<<grid, threads, 0, s>>>(part, S, size, out);
   return static_cast<int>(cudaGetLastError());
 }
 

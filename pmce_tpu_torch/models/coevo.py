@@ -17,9 +17,10 @@ With ``fused`` in eval mode (the JAX package's ``deterministic``) the three
 blocks and their heads are one call of
 :func:`~pmce_tpu_torch.ops.fused_coevo_chain.coevo_chain` (a kernel on the
 card), fed the per-clip AdaLN γ/β computed here with dense products. In
-training mode the blocks run as modules with stochastic depth; ``fused``
-training would need the attention-block kernels (B4, B5, B8-B11), and the
-decoder refuses it until they are ported.
+training mode the blocks run one by one with stochastic depth; under
+``fused`` each attention block takes its kernel gate (``ada_block``,
+``ca_block``, ``fused_mhsa``: kernels forward and backward on the card), as
+``pmce_tpu/models/coevo.py:304-307`` does.
 """
 
 from __future__ import annotations
@@ -74,22 +75,24 @@ class CoevoBlock(nn.Module):
         self.proj_joint_feat2coor = nn.Linear(joint_dim, 3)
         self.proj_vertx_feat2coor = nn.Linear(vertx_dim, 3)
 
-    def forward(self, joint, vertx, cond, dt=None, generator=None):
+    def forward(self, joint, vertx, cond, dt=None, generator=None,
+                fused: bool = False):
         """joint [B, J, 3], vertx [B, V, 3], cond [B, 2H] → both updated.
         In training mode the four blocks draw their stochastic depth from
-        ``generator`` (a generator on the inputs' device)."""
+        ``generator`` (a generator on the inputs' device); ``fused`` goes to
+        each of them."""
         joint_feat = dense(joint, self.joint_proj, dt) + self.joint_pos_embed
         vertx_feat = dense(vertx, self.vertx_proj, dt) + self.vertx_pos_embed
         v_as_j = dense(vertx_feat, self.proj_v2j_dim, dt)
         j_as_v = dense(joint_feat, self.proj_j2v_dim, dt)
         joint_new = self.joint_CA_FFN(joint_feat + self.j_Q_embed,
                                       v_as_j + self.v2j_K_embed, vertx_feat,
-                                      cond, dt, generator)
+                                      cond, dt, generator, fused)
         vertx_new = self.vertx_CA_FFN(vertx_feat + self.v_Q_embed,
                                       j_as_v + self.j2v_K_embed, joint_feat,
-                                      cond, dt, generator)
-        joint_new = self.joint_SA_FFN(joint_new, cond, dt, generator)
-        vertx_new = self.vertx_SA_FFN(vertx_new, cond, dt, generator)
+                                      cond, dt, generator, fused)
+        joint_new = self.joint_SA_FFN(joint_new, cond, dt, generator, fused)
+        vertx_new = self.vertx_SA_FFN(vertx_new, cond, dt, generator, fused)
         # f32 coordinate heads: meter-scale outputs.
         joint_out = (F.linear(joint_new.float(),
                               self.proj_joint_feat2coor.weight,
@@ -165,16 +168,7 @@ class CoevolutionDecoder(nn.Module):
                             mid_index=self.seqlen // 2, dt=dt)   # [B, 2H]
         vertx = joints[:, self.vj_relation, :3]
         blocks = self.blocks()
-        if self.fused and self.training:
-            # The JAX package's fused training path runs the blocks' own
-            # kernels, forward and backward; their plain math is not run on
-            # the card in their place.
-            raise NotImplementedError(
-                "fused decoder training waits for fused_mhsa and its "
-                "backward (B4, B5), fused_ada_block and its backward "
-                "(B8, B9) and fused_ca_block and its backward (B10, B11); "
-                "train with fused=False (MODEL.fused_attn: false)")
-        if (self.fused
+        if (self.fused and not self.training
                 and blocks[0].joint_proj.out_features
                 == blocks[0].vertx_proj.out_features):
             packs = [blk.chain_pack(cond, dt) for blk in blocks]
@@ -187,7 +181,8 @@ class CoevolutionDecoder(nn.Module):
         else:
             evo_pose = joints
             for blk in blocks:
-                evo_pose, vertx = blk(joints, vertx, cond, dt, generator)
+                evo_pose, vertx = blk(joints, vertx, cond, dt, generator,
+                                      self.fused)
 
         # Conv1d(V → 6890, k=3, pad 1) over the xyz axis as one f32 GEMM:
         # out[i] = Σ_k x_pad[i + k] · W[k], x_pad = (0, x, y, z, 0).

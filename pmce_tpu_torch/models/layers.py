@@ -12,13 +12,16 @@ LayerNorm statistics in f32. GELU is the exact (erf) variant.
 
 Training: stochastic depth (:class:`DropPath`) draws per-clip branch masks
 from an explicit ``torch.Generator`` while the module is in training mode
-and is the identity in eval mode. A :class:`Block` with ``fused`` runs as
-one :func:`~pmce_tpu_torch.ops.fused_attention.transformer_block` call
-(kernels forward and backward on the card), the masks entering as branch
-scales; :class:`AdaBlock` and :class:`CrossAttentionBlock` draw theirs from
-the caller's generator too. Element dropout is not ported: the lifter and
-decoder are built with rate 0, as the JAX package's training CLI builds
-them.
+and is the identity in eval mode. ``fused`` takes the JAX package's kernel
+gates (kernels forward and backward on the card, the masks entering as
+branch scales): a :class:`Block` is one
+:func:`~pmce_tpu_torch.ops.fused_attention.transformer_block` call; an
+:class:`AdaBlock` over more than 64 tokens one ``ada_block`` call, over
+fewer its AdaLNs and MLP as modules around ``fused_mhsa``; a
+:class:`CrossAttentionBlock` with more than 64 queries or keys one
+``ca_block`` call. Element dropout is not ported: the lifter and decoder
+are built with rate 0, as the JAX package's training CLI builds them, so
+the JAX gates' "no active dropout" clause always holds.
 """
 
 from __future__ import annotations
@@ -107,9 +110,13 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, dt=None):
+    def forward(self, x, dt=None, fused: bool = False):
+        """``fused``: one ``fused_mhsa`` call on x cast to the compute dtype
+        (``layers.py:200-208`` of the JAX package), output in that dtype."""
         B, N, C = x.shape
         H = self.num_heads
+        if fused:
+            return fa.fused_mhsa(x.to(dt or x.dtype), *self.params(), H)
         qkv = dense(x, self.qkv, dt).reshape(B, N, 3, H, C // H)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
         out = _softmax_attention(q, k, v)
@@ -233,10 +240,23 @@ class AdaBlock(nn.Module):
         self.norm2 = AdaLayerNorm(dim, cond_dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, cond, dt=None, generator=None):
+    def forward(self, x, cond, dt=None, generator=None, fused: bool = False):
         """Both stochastic-depth draws (attention, then MLP branch) come
-        from ``generator`` in training mode."""
-        x = x + self.drop_path(self.attn(self.norm1(x, cond, dt), dt),
+        from ``generator`` in training mode. ``fused`` with more than 64
+        tokens: the whole block is one ``ada_block`` call on x cast to the
+        compute dtype, its output cast back; with fewer, the attention alone
+        is ``fused_mhsa`` (``layers.py:557-597`` of the JAX package)."""
+        B, N = x.shape[:2]
+        if fused and N > 64:
+            m1 = self.drop_path.mask(B, x.device, generator)
+            m2 = self.drop_path.mask(B, x.device, generator)
+            y = fa.ada_block(x.to(dt or x.dtype),
+                             *self.norm1.gamma_beta(cond, dt),
+                             *self.norm2.gamma_beta(cond, dt), self.params(),
+                             self.attn.num_heads, self.norm1.eps,
+                             None if m1 is None else (m1, m2))
+            return y.to(x.dtype)
+        x = x + self.drop_path(self.attn(self.norm1(x, cond, dt), dt, fused),
                                generator)
         return x + self.drop_path(self.mlp(self.norm2(x, cond, dt), dt),
                                   generator)
@@ -263,9 +283,24 @@ class CrossAttentionBlock(nn.Module):
         self.norm2 = AdaLayerNorm(q_dim, cond_dim)
         self.mlp = Mlp(q_dim, int(q_dim * mlp_ratio))
 
-    def forward(self, xq, xk, xv, cond, dt=None, generator=None):
+    def forward(self, xq, xk, xv, cond, dt=None, generator=None,
+                fused: bool = False):
         """Both stochastic-depth draws (attention, then MLP branch) come
-        from ``generator`` in training mode."""
+        from ``generator`` in training mode. ``fused`` with more than 64
+        queries or keys: the whole block is one ``ca_block`` call on the
+        streams cast to the compute dtype, its output cast back
+        (``layers.py:623-662`` of the JAX package)."""
+        if fused and max(xq.shape[1], xk.shape[1]) > 64:
+            B = xq.shape[0]
+            m1 = self.drop_path.mask(B, xq.device, generator)
+            m2 = self.drop_path.mask(B, xq.device, generator)
+            gb = [n.gamma_beta(cond, dt) for n in self.adaln()]
+            cd = dt or xq.dtype
+            y = fa.ca_block(xq.to(cd), xk.to(cd), xv.to(cd),
+                            tuple(g for g, _ in gb), tuple(b for _, b in gb),
+                            self.params(), self.attn.num_heads,
+                            self.normq.eps, None if m1 is None else (m1, m2))
+            return y.to(xq.dtype)
         h = self.attn(self.normq(xq, cond, dt), self.normk(xk, cond, dt),
                       self.normv(xv, cond, dt), dt)
         xq = xq + self.drop_path(h, generator)

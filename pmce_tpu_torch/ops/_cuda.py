@@ -194,7 +194,25 @@ BLOCK = CudaLibrary("block", "pmce_block_error_string", {
 SKIN = CudaLibrary("skinning", "pmce_skin_error_string", {
     "pmce_skinning": (I, (P, P, P, P, I, I, I, P)),
 })
-LIBRARIES = (TRUNK, GRU, CHAIN, BLOCK, SKIN)
+# The decoder's attention blocks: one call runs a direction's whole launch
+# sequence from a table of pointers (:func:`ptr_table`); the backward's
+# scratch is one workspace of the size the *_workspace helper gives.
+MHSA = CudaLibrary("mhsa", "pmce_mhsa_error_string", {
+    "pmce_mhsa_workspace": (L, (I, I, I, I)),
+    "pmce_mhsa_fwd": (I, (P, I, I, I, I, P)),
+    "pmce_mhsa_bwd": (I, (P, I, I, I, I, P)),
+})
+ADA = CudaLibrary("ada_block", "pmce_ada_block_error_string", {
+    "pmce_ada_block_workspace": (L, (I, I, I, I, I)),
+    "pmce_ada_block_fwd": (I, (P, I, I, I, I, I, F, P)),
+    "pmce_ada_block_bwd": (I, (P, I, I, I, I, I, F, P)),
+})
+CA = CudaLibrary("ca_block", "pmce_ca_block_error_string", {
+    "pmce_ca_block_workspace": (L, (I, I, I, I, I, I)),
+    "pmce_ca_block_fwd": (I, (P, I, I, I, I, I, I, F, P)),
+    "pmce_ca_block_bwd": (I, (P, I, I, I, I, I, I, F, P)),
+})
+LIBRARIES = (TRUNK, GRU, CHAIN, BLOCK, SKIN, MHSA, ADA, CA)
 
 
 def build_all() -> None:
@@ -212,6 +230,15 @@ def stream_ptr(device) -> P:
 
 def ptr(t) -> P:
     return P(t.data_ptr())
+
+
+def ptr_table(*tensors) -> P:
+    """A host array of the tensors' device pointers (None: a null pointer),
+    as the ``void* const*`` table the block entry points read (the cast
+    keeps the array alive with the pointer)."""
+    arr = (P * len(tensors))(*[None if t is None else t.data_ptr()
+                              for t in tensors])
+    return ctypes.cast(arr, P)
 
 
 def to_kernel(a, device, dtype, shape: tuple, name: str):

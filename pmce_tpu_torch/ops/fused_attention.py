@@ -1,13 +1,15 @@
-"""The lifter's attention kernels and the GRU scan, in PyTorch and CUDA.
+"""The attention kernels and the GRU scan, in PyTorch and CUDA.
 
-Port of the ``pmce_tpu/ops/fused_attention.py`` Pallas kernels that the
+Port of every ``pmce_tpu/ops/fused_attention.py`` Pallas kernel that the
 bf16 serving forward, the Stage-1 lifter's training step and the Stage-2
-mesh training step run: ``fused_lifter_trunk`` (the whole Stage-1 trunk),
-``fused_gru_layer`` / ``fused_gru_layer_rev`` (one GRU direction over T)
-with their training pair (the saving forward and the reverse-time backward
-of their custom VJP) and ``fused_transformer_block`` with its backward (one
-lifter block in training, with stochastic-depth branch masks and the shared
-post-norm). Each comes as
+mesh training step run: ``fused_lifter_trunk`` (the whole Stage-1 trunk,
+with JAX's recompute for its gradient), ``fused_gru_layer`` /
+``fused_gru_layer_rev`` (one GRU direction over T) with their training pair
+(the saving forward and the reverse-time backward of their custom VJP),
+``fused_transformer_block`` with its backward (one lifter block in
+training, with stochastic-depth branch masks and the shared post-norm), and
+the decoder's attention blocks with their backwards: ``fused_mhsa``,
+``fused_ada_block`` and ``fused_ca_block``. Each comes as
 
 - a plain PyTorch version (``*_plain``) with the math of the JAX kernel;
 - a wrapper that picks by the device of its input: a CPU tensor goes to the
@@ -260,25 +262,86 @@ def _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
     return cur
 
 
+def trunk_recompute(x, params, norm_s, norm_t, tpe, T: int, J: int,
+                    depth: int, num_heads: int, eps: float = 1e-6):
+    """The trunk as the JAX package recomputes it for its gradient
+    (``_fused_trunk_bwd``: ``lifter_trunk_reference`` with the attention
+    of every block through ``fused_mhsa``), differentiable. Args as
+    :func:`lifter_trunk_plain`."""
+    B, R, C = x.shape
+    dt = x.dtype
+
+    def block(x3, w):
+        (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2) = w
+        h = ln_f32(x3, g1, b1, eps).to(dt)
+        x1 = x3.float() + fused_mhsa(h, wqkv, bqkv, wproj, bproj,
+                                     num_heads).float()
+        h2 = ln_f32(x1, g2, b2, eps).to(dt)
+        hh = F.gelu(mm(h2, w1.to(dt)) + bb1).to(dt)
+        return (x1 + mm(hh, w2.to(dt)) + bb2).to(dt)
+
+    x = x.reshape(B, T, J, C)
+    for i in range(depth):
+        xs = block(x.reshape(B * T, J, C), params[2 * i])
+        x = ln_f32(xs, *norm_s, eps).to(dt).reshape(B, T, J, C)
+        if i == 0:
+            x = (x.float() + tpe.float()[None, :, None, :]).to(dt)
+        xt = block(x.transpose(1, 2).reshape(B * J, T, C), params[2 * i + 1])
+        xt = ln_f32(xt, *norm_t, eps).to(dt)
+        x = xt.reshape(B, J, T, C).transpose(1, 2)
+    return x.reshape(B, R, C)
+
+
+class _TrunkKernel(torch.autograd.Function):
+    """The trunk kernel with JAX's gradient: the forward is
+    ``csrc/lifter_trunk.cu``; the backward is autograd of
+    :func:`trunk_recompute`, whose attention runs ``csrc/mhsa.cu`` forward
+    and backward (``fused_attention.py:3165-3175`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, x, cfg, *flat):
+        T, J, depth, num_heads, eps = cfg
+        n = 24 * depth
+        params = tuple(tuple(flat[12 * i:12 * i + 12]) for i in range(2 * depth))
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, *flat)
+        return _lifter_trunk_cuda(x, params, flat[n:n + 2], flat[n + 2:n + 4],
+                                  flat[n + 4], T, J, depth, num_heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        T, J, depth, num_heads, eps = ctx.cfg
+        n = 24 * depth
+        leaves = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, (ctx.needs_input_grad[0],
+                                          *ctx.needs_input_grad[2:]))]
+        x, *flat = leaves
+        params = tuple(tuple(flat[12 * i:12 * i + 12]) for i in range(2 * depth))
+        with torch.enable_grad():
+            out = trunk_recompute(x, params, flat[n:n + 2], flat[n + 2:n + 4],
+                                  flat[n + 4], T, J, depth, num_heads, eps)
+            wanted = [t for t in leaves if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, g))
+        grads = [next(got) if t.requires_grad else None for t in leaves]
+        return (grads[0], None, *grads[1:])
+
+
 def lifter_trunk(x, params, norm_s, norm_t, tpe, T: int, J: int,
                  depth: int, num_heads: int, eps: float = 1e-6):
     """The whole lifter trunk (see :func:`lifter_trunk_plain` for args).
 
     CPU tensors run the plain version; CUDA tensors the kernel sequence of
-    ``csrc/lifter_trunk.cu`` (bf16 only), which has no backward: a call on
-    the card that owes a gradient raises rather than return a result
-    detached from it."""
+    ``csrc/lifter_trunk.cu`` (bf16 only). A call on the card that owes a
+    gradient gets JAX's: :class:`_TrunkKernel` recomputes the trunk with
+    its attention through :func:`fused_mhsa` (kernels forward and backward)
+    and differentiates that."""
     if not _on_card(x, "lifter_trunk"):
         return lifter_trunk_plain(x, params, norm_s, norm_t, tpe, T, J,
                                   depth, num_heads, eps)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in _tensors((x, params, norm_s, norm_t,
-                                               tpe))):
-        raise NotImplementedError(
-            "lifter_trunk on CUDA has no backward yet: the JAX package "
-            "recomputes it through fused_mhsa and its backward (kernel "
-            "table rows 4/5, ROADMAP B4, B5), which are not ported; train "
-            "the lifter through transformer_block (eval mode runs the trunk)")
+    flat = (*(t for w in params for t in w), *norm_s, *norm_t, tpe)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, *flat)):
+        return _TrunkKernel.apply(x, (T, J, depth, num_heads, eps), *flat)
     return _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
                               num_heads, eps)
 
@@ -830,3 +893,459 @@ def gru_layer(gi, whh, bhh) -> torch.Tensor:
 def gru_layer_rev(gi, whh, bhh) -> torch.Tensor:
     """The backward direction, output in forward time order, no copies."""
     return _gru_dispatch(gi, whh, bhh, True, GRU_REV_LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# The decoder's attention blocks, forward and backward: multi-head
+# self-attention (replaces _mhsa_kernel / fused_mhsa and _mhsa_bwd_kernel),
+# the AdaLayerNorm self-attention block (_ada_block_kernel /
+# fused_ada_block, _ada_block_bwd_kernel) and the cross-attention block
+# (_ca_block_kernel / fused_ca_block, _ca_block_bwd_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _attention_heads(q, k, v, num_heads: int, dt) -> torch.Tensor:
+    """Per-head softmax(q kᵀ) v of [B, Nq, C] queries (pre-scaled) over
+    [B, Nk, C] keys and values, all in ``dt``: f32 scores and softmax, the
+    probabilities rounded to ``dt`` before P·V (f32 sums). [B, Nq, C] in
+    ``dt``."""
+    B, Nq, C = q.shape
+    Nk = k.shape[1]
+    dh = C // num_heads
+
+    def heads(a, n):
+        return a.reshape(B, n, num_heads, dh).transpose(1, 2).float()
+
+    p = torch.softmax(heads(q, Nq) @ heads(k, Nk).transpose(-1, -2), dim=-1)
+    o = p.to(dt).float() @ heads(v, Nk)
+    return o.transpose(1, 2).reshape(B, Nq, C).to(dt)
+
+
+def _mhsa_f32(x, wqkv, bqkv, wproj, bproj, num_heads: int):
+    dt = x.dtype
+    q, k, v = split_scaled_qkv(mm(x, wqkv.to(dt)) + bqkv, x.shape[-1],
+                               num_heads, dt)
+    return mm(_attention_heads(q, k, v, num_heads, dt), wproj.to(dt)) + bproj
+
+
+def mhsa_plain(x, wqkv, bqkv, wproj, bproj, num_heads: int):
+    """Plain version of the fused MHSA (math of ``mhsa_reference``, with
+    the kernel's cast points); its gradient is PyTorch's autograd of it.
+
+    x: [B, N, C] tokens, any N, compute dtype; wqkv [C, 3C], bqkv [3C],
+    wproj [C, C], bproj [C]. q is scaled by 1/sqrt(dh) in f32 before its
+    one rounding. Returns [B, N, C] in x's dtype."""
+    return _mhsa_f32(x, wqkv, bqkv, wproj, bproj, num_heads).to(x.dtype)
+
+
+def _branch_scales(branch_masks, B: int):
+    if branch_masks is None:
+        return None, None
+    return tuple(m.float().reshape(B, 1, 1) for m in branch_masks)
+
+
+def _ada_mlp_f32(x1, gamma2, beta2, w1, bb1, w2, bb2, m2, eps: float, dt):
+    """x1 + m2·MLP(AdaLN(x1)) in f32: the MLP half of both decoder
+    blocks."""
+    h2 = adaln_f32(x1, gamma2.float()[:, None], beta2.float()[:, None],
+                   eps).to(dt)
+    hh = F.gelu(mm(h2, w1.to(dt)) + bb1).to(dt)
+    mo = mm(hh, w2.to(dt)) + bb2
+    return x1 + (mo if m2 is None else mo * m2)
+
+
+def ada_block_plain(x, gamma1, beta1, gamma2, beta2, params, num_heads: int,
+                    eps: float = 1e-6, branch_masks=None):
+    """Plain version of the fused AdaLN block (math of
+    ``ada_block_reference``); its gradient is PyTorch's autograd of it.
+
+    x: [B, N, C] tokens, compute dtype; gamma*/beta*: [B, C] per-clip AdaLN
+    vectors; params: (wqkv, bqkv, wproj, bproj, w_fc1, b_fc1, w_fc2, b_fc2),
+    weights [in, out]; branch_masks: None or per-clip [B, 1, 1] scales of
+    the attention and MLP branches. Returns [B, N, C] in x's dtype."""
+    wqkv, bqkv, wproj, bproj, w1, bb1, w2, bb2 = params
+    dt = x.dtype
+    m1, m2 = _branch_scales(branch_masks, x.shape[0])
+    xf = x.float()
+    h1 = adaln_f32(xf, gamma1.float()[:, None], beta1.float()[:, None],
+                   eps).to(dt)
+    a = _mhsa_f32(h1, wqkv, bqkv, wproj, bproj, num_heads)
+    x1 = xf + (a if m1 is None else a * m1)
+    return _ada_mlp_f32(x1, gamma2, beta2, w1, bb1, w2, bb2, m2, eps,
+                        dt).to(dt)
+
+
+def ca_block_plain(xq, xk, xv, gammas, betas, params, num_heads: int,
+                   eps: float = 1e-6, branch_masks=None):
+    """Plain version of the fused cross-attention block (math of
+    ``ca_block_reference``); its gradient is PyTorch's autograd of it.
+
+    xq: [B, Nq, C] queries; xk, xv: [B, Nk, C] keys and values, compute
+    dtype; gammas / betas: 4-tuples of [B, C] (normq, normk, normv, norm2);
+    params: (wq, bq, wk, bk, wv, bv, wproj, bproj, w_fc1, b_fc1, w_fc2,
+    b_fc2). Returns [B, Nq, C] in xq's dtype."""
+    (wq, bq, wk, bk, wv, bv, wproj, bproj, w1, bb1, w2, bb2) = params
+    dt = xq.dtype
+    C = xq.shape[-1]
+    m1, m2 = _branch_scales(branch_masks, xq.shape[0])
+
+    def norm(x, i):
+        return adaln_f32(x.float(), gammas[i].float()[:, None],
+                         betas[i].float()[:, None], eps).to(dt)
+
+    scale = 1.0 / math.sqrt(C // num_heads)
+    q = ((mm(norm(xq, 0), wq.to(dt)) + bq) * scale).to(dt)
+    k = (mm(norm(xk, 1), wk.to(dt)) + bk).to(dt)
+    v = (mm(norm(xv, 2), wv.to(dt)) + bv).to(dt)
+    a = mm(_attention_heads(q, k, v, num_heads, dt), wproj.to(dt)) + bproj
+    x1 = xq.float() + (a if m1 is None else a * m1)
+    return _ada_mlp_f32(x1, gammas[3], betas[3], w1, bb1, w2, bb2, m2, eps,
+                        dt).to(dt)
+
+
+MHSA_FWD_LAUNCHES = _cuda.launch_counter("mhsa_fwd")
+MHSA_BWD_LAUNCHES = _cuda.launch_counter("mhsa_bwd")
+ADA_FWD_LAUNCHES = _cuda.launch_counter("ada_block_fwd")
+ADA_BWD_LAUNCHES = _cuda.launch_counter("ada_block_bwd")
+CA_FWD_LAUNCHES = _cuda.launch_counter("ca_block_fwd")
+CA_BWD_LAUNCHES = _cuda.launch_counter("ca_block_bwd")
+
+# Head widths the attention kernel is built for (attention_ops.cuh).
+_HEAD_DIMS = (8, 16, 32)
+_WORKSPACE: dict = {}
+
+
+def _attn_checks(name, x, C: int, num_heads: int, hid: int = 64):
+    if x.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the {name} kernels take bf16 tokens; the f32 variant is queued "
+            "in ROADMAP (f32 fused=True on CUDA)")
+    if C % 64 or C % num_heads or C // num_heads not in _HEAD_DIMS \
+            or hid % 64:
+        raise ValueError(f"{name} kernel shapes: C={C} heads={num_heads} "
+                         f"hid={hid} (C and hid multiples of 64, head width "
+                         f"in {_HEAD_DIMS})")
+
+
+def _workspace(lib, fn, dev, *shape):
+    key = (fn, *shape)
+    if key not in _WORKSPACE:
+        _WORKSPACE[key] = int(lib.query(fn, *shape))
+    return torch.empty(_WORKSPACE[key], device=dev, dtype=torch.uint8)
+
+
+def _bf16_mat(a, dev, rows, cols, name):
+    return _cuda.to_kernel(a, dev, torch.bfloat16, (rows, cols), name)
+
+
+def _bf16_mat_t(a, dev, rows, cols, name):
+    """W [in, out] → bf16 Wᵀ [out, in] (the backward's NN products)."""
+    return _cuda.to_kernel(a.t(), dev, torch.bfloat16, (rows, cols), name)
+
+
+def _f32_vec(a, dev, n, name):
+    return _cuda.to_kernel(a, dev, torch.float32, (n,), name)
+
+
+def _f32_rows(a, dev, B, C, name):
+    return _cuda.to_kernel(a, dev, torch.float32, (B, C), name)
+
+
+def _split_grads(flat, like):
+    """Views of one flat f32 gradient buffer shaped and typed as ``like``."""
+    out, off = [], 0
+    for t in like:
+        n = t.numel()
+        out.append(flat[off:off + n].view(t.shape).to(t.dtype))
+        off += n
+    return tuple(out)
+
+
+def _mhsa_fwd_cuda(x, wqkv, bqkv, wproj, bproj, num_heads):
+    clips, N, C = x.shape
+    _attn_checks("fused_mhsa", x, C, num_heads)
+    _cuda.check_cuda(x, "x", torch.bfloat16, (clips, N, C))
+    dev, M = x.device, clips * N
+    bf16, f32 = torch.bfloat16, torch.float32
+    qkv = torch.empty(M, 3 * C, device=dev, dtype=bf16)
+    o = torch.empty(M, C, device=dev, dtype=bf16)
+    stats = torch.empty(2, clips * num_heads * N, device=dev, dtype=f32)
+    out = torch.empty_like(x)
+    _cuda.MHSA.call("pmce_mhsa_fwd", _cuda.ptr_table(
+        x, _bf16_mat(wqkv, dev, C, 3 * C, "wqkv"),
+        _f32_vec(bqkv, dev, 3 * C, "bqkv"),
+        _bf16_mat(wproj, dev, C, C, "wproj"),
+        _f32_vec(bproj, dev, C, "bproj"), qkv, o, stats[0], stats[1], out),
+        clips, N, C, num_heads, _cuda.stream_ptr(dev))
+    MHSA_FWD_LAUNCHES.count += 1
+    return out, (qkv, o, stats)
+
+
+def _mhsa_bwd_cuda(g, x, wqkv, wproj, saved, num_heads):
+    clips, N, C = x.shape
+    dev = x.device
+    g = g.to(torch.bfloat16).contiguous()
+    _cuda.check_cuda(g, "grad of the attention output", torch.bfloat16,
+                     (clips, N, C))
+    qkv, o, stats = saved
+    dx = torch.empty_like(x)
+    grads = torch.empty(4 * C * C + 4 * C, device=dev, dtype=torch.float32)
+    ws = _workspace(_cuda.MHSA, "pmce_mhsa_workspace", dev, clips, N, C,
+                    num_heads)
+    _cuda.MHSA.call("pmce_mhsa_bwd", _cuda.ptr_table(
+        x, g, _bf16_mat_t(wqkv, dev, 3 * C, C, "wqkvᵀ"),
+        _bf16_mat_t(wproj, dev, C, C, "wprojᵀ"), qkv, o, stats[0], stats[1],
+        dx, grads, ws), clips, N, C, num_heads, _cuda.stream_ptr(dev))
+    MHSA_BWD_LAUNCHES.count += 1
+    return dx, grads
+
+
+class _MhsaKernel(torch.autograd.Function):
+    """fused_mhsa on the card: forward and backward are ``csrc/mhsa.cu``."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, num_heads):
+        out, saved = _mhsa_fwd_cuda(x, wqkv, bqkv, wproj, bproj, num_heads)
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wqkv, bqkv, wproj, bproj, *saved = ctx.saved_tensors
+        dx, flat = _mhsa_bwd_cuda(g, x, wqkv, wproj, saved, ctx.num_heads)
+        return (dx, *_split_grads(flat, (wqkv, bqkv, wproj, bproj)), None)
+
+
+def fused_mhsa(x, wqkv, bqkv, wproj, bproj, num_heads: int):
+    """Multi-head self-attention with its projections (see
+    :func:`mhsa_plain`), with its gradient. CPU tensors run the plain
+    version; CUDA tensors the kernels of ``csrc/mhsa.cu`` forward and
+    backward (bf16, any token count)."""
+    if not _on_card(x, "fused_mhsa"):
+        return mhsa_plain(x, wqkv, bqkv, wproj, bproj, num_heads)
+    return _MhsaKernel.apply(x.contiguous(), wqkv, bqkv, wproj, bproj,
+                             num_heads)
+
+
+def _ada_fwd_cuda(x, gb, masks, params, num_heads, eps):
+    B, N, C = x.shape
+    wqkv, bqkv, wproj, bproj, w1, bb1, w2, bb2 = params
+    hid = w1.shape[1]
+    _attn_checks("ada_block", x, C, num_heads, hid)
+    _cuda.check_cuda(x, "x", torch.bfloat16, (B, N, C))
+    dev, M = x.device, B * N
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def buf(cols, dt):
+        return torch.empty(M, cols, device=dev, dtype=dt)
+
+    h1, qkv, o, x1, h2 = (buf(C, bf16), buf(3 * C, bf16), buf(C, bf16),
+                          buf(C, f32), buf(C, bf16))
+    hh, ge = buf(hid, f32), buf(hid, bf16)
+    stats = torch.empty(2, B * num_heads * N, device=dev, dtype=f32)
+    out = torch.empty_like(x)
+    rows = [_f32_rows(t, dev, B, C, n)
+            for t, n in zip(gb, ("gamma1", "beta1", "gamma2", "beta2"))]
+    m1, m2 = (_mask_rows(m, B, dev) for m in masks)
+    _cuda.ADA.call("pmce_ada_block_fwd", _cuda.ptr_table(
+        x, *rows, m1, m2, _bf16_mat(wqkv, dev, C, 3 * C, "wqkv"),
+        _f32_vec(bqkv, dev, 3 * C, "bqkv"),
+        _bf16_mat(wproj, dev, C, C, "wproj"),
+        _f32_vec(bproj, dev, C, "bproj"), _bf16_mat(w1, dev, C, hid, "w_fc1"),
+        _f32_vec(bb1, dev, hid, "b_fc1"), _bf16_mat(w2, dev, hid, C, "w_fc2"),
+        _f32_vec(bb2, dev, C, "b_fc2"), h1, qkv, o, stats[0], stats[1], x1,
+        h2, hh, ge, out), B, N, C, hid, num_heads, eps,
+        _cuda.stream_ptr(dev))
+    ADA_FWD_LAUNCHES.count += 1
+    return out, (rows[0], rows[2], m1, m2, h1, qkv, o, stats, x1, h2, hh, ge)
+
+
+def _ada_bwd_cuda(g, x, params, saved, num_heads, eps):
+    B, N, C = x.shape
+    wqkv, bqkv, wproj, bproj, w1, bb1, w2, bb2 = params
+    hid = w1.shape[1]
+    dev = x.device
+    g = g.to(torch.bfloat16).contiguous()
+    _cuda.check_cuda(g, "grad of the block output", torch.bfloat16,
+                     (B, N, C))
+    g1, g2, m1, m2, h1, qkv, o, stats, x1, h2, hh, ge = saved
+    dx = torch.empty_like(x)
+    dgb = torch.empty(4, B, C, device=dev, dtype=torch.float32)
+    grads = torch.empty(sum(t.numel() for t in params), device=dev,
+                        dtype=torch.float32)
+    ws = _workspace(_cuda.ADA, "pmce_ada_block_workspace", dev, B, N, C, hid,
+                    num_heads)
+    _cuda.ADA.call("pmce_ada_block_bwd", _cuda.ptr_table(
+        x, g, g1, g2, m1, m2, _bf16_mat_t(wqkv, dev, 3 * C, C, "wqkvᵀ"),
+        _bf16_mat_t(wproj, dev, C, C, "wprojᵀ"),
+        _bf16_mat_t(w1, dev, hid, C, "w_fc1ᵀ"),
+        _bf16_mat_t(w2, dev, C, hid, "w_fc2ᵀ"), h1, qkv, o, stats[0],
+        stats[1], x1, h2, hh, ge, dx, dgb, grads, ws), B, N, C, hid,
+        num_heads, eps, _cuda.stream_ptr(dev))
+    ADA_BWD_LAUNCHES.count += 1
+    return dx, dgb, grads
+
+
+class _AdaBlockKernel(torch.autograd.Function):
+    """ada_block on the card: forward and backward are
+    ``csrc/ada_block.cu``. The branch masks are drawn, not learned: they
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, gamma1, beta1, gamma2, beta2, m1, m2, num_heads,
+                eps, *params):
+        out, saved = _ada_fwd_cuda(x, (gamma1, beta1, gamma2, beta2),
+                                   (m1, m2), params, num_heads, eps)
+        ctx.cfg = (num_heads, eps, len(params))
+        ctx.gb = tuple((t.shape, t.dtype)
+                       for t in (gamma1, beta1, gamma2, beta2))
+        ctx.save_for_backward(x, *params, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        num_heads, eps, n = ctx.cfg
+        x, *rest = ctx.saved_tensors
+        params, saved = rest[:n], rest[n:]
+        dx, dgb, flat = _ada_bwd_cuda(gout, x, params, saved, num_heads, eps)
+        dgb = tuple(d.reshape(s).to(t) for d, (s, t) in zip(dgb, ctx.gb))
+        return (dx, *dgb, None, None, None, None,
+                *_split_grads(flat, params))
+
+
+def ada_block(x, gamma1, beta1, gamma2, beta2, params, num_heads: int,
+              eps: float = 1e-6, branch_masks=None):
+    """The AdaLN self-attention block with its gradient (see
+    :func:`ada_block_plain`). CPU tensors run the plain version; CUDA
+    tensors the kernels of ``csrc/ada_block.cu`` forward and backward
+    (bf16, any token count)."""
+    if not _on_card(x, "ada_block"):
+        return ada_block_plain(x, gamma1, beta1, gamma2, beta2, params,
+                               num_heads, eps, branch_masks)
+    m1, m2 = branch_masks if branch_masks is not None else (None, None)
+    return _AdaBlockKernel.apply(x.contiguous(), gamma1, beta1, gamma2,
+                                 beta2, m1, m2, num_heads, eps, *params)
+
+
+def _ca_fwd_cuda(xs, gammas, betas, masks, params, num_heads, eps):
+    xq, xk, xv = xs
+    B, Nq, C = xq.shape
+    Nk = xk.shape[1]
+    (wq, bq, wk, bk, wv, bv, wproj, bproj, w1, bb1, w2, bb2) = params
+    hid = w1.shape[1]
+    _attn_checks("ca_block", xq, C, num_heads, hid)
+    _cuda.check_cuda(xq, "xq", torch.bfloat16, (B, Nq, C))
+    _cuda.check_cuda(xk, "xk", torch.bfloat16, (B, Nk, C))
+    _cuda.check_cuda(xv, "xv", torch.bfloat16, (B, Nk, C))
+    dev = xq.device
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def buf(rows, cols, dt):
+        return torch.empty(rows, cols, device=dev, dtype=dt)
+
+    Mq, Mk = B * Nq, B * Nk
+    nq, nk, nv = buf(Mq, C, bf16), buf(Mk, C, bf16), buf(Mk, C, bf16)
+    q, k, v = buf(Mq, C, bf16), buf(Mk, C, bf16), buf(Mk, C, bf16)
+    o, x1, h2 = buf(Mq, C, bf16), buf(Mq, C, f32), buf(Mq, C, bf16)
+    hh, ge = buf(Mq, hid, f32), buf(Mq, hid, bf16)
+    stats = torch.empty(2, B * num_heads * Nq, device=dev, dtype=f32)
+    out = torch.empty_like(xq)
+    conds = []
+    for i, name in enumerate(("q", "k", "v", "2")):
+        conds += [_f32_rows(gammas[i], dev, B, C, f"gamma {name}"),
+                  _f32_rows(betas[i], dev, B, C, f"beta {name}")]
+    m1, m2 = (_mask_rows(m, B, dev) for m in masks)
+    mats = [_bf16_mat(w, dev, C, C, n)
+            for w, n in ((wq, "wq"), (wk, "wk"), (wv, "wv"),
+                         (wproj, "wproj"))]
+    vecs = [_f32_vec(b, dev, C, n)
+            for b, n in ((bq, "bq"), (bk, "bk"), (bv, "bv"),
+                         (bproj, "bproj"))]
+    _cuda.CA.call("pmce_ca_block_fwd", _cuda.ptr_table(
+        xq, xk, xv, *conds, m1, m2,
+        *(t for pair in zip(mats, vecs) for t in pair),
+        _bf16_mat(w1, dev, C, hid, "w_fc1"), _f32_vec(bb1, dev, hid, "b_fc1"),
+        _bf16_mat(w2, dev, hid, C, "w_fc2"), _f32_vec(bb2, dev, C, "b_fc2"),
+        nq, nk, nv, q, k, v, o, stats[0], stats[1], x1, h2, hh, ge, out),
+        B, Nq, Nk, C, hid, num_heads, eps, _cuda.stream_ptr(dev))
+    CA_FWD_LAUNCHES.count += 1
+    return out, (*conds[0::2], m1, m2, nq, nk, nv, q, k, v, o, stats, x1,
+                 h2, hh, ge)
+
+
+def _ca_bwd_cuda(gout, xs, params, saved, num_heads, eps):
+    xq, xk, xv = xs
+    B, Nq, C = xq.shape
+    Nk = xk.shape[1]
+    (wq, bq, wk, bk, wv, bv, wproj, bproj, w1, bb1, w2, bb2) = params
+    hid = w1.shape[1]
+    dev = xq.device
+    g = gout.to(torch.bfloat16).contiguous()
+    _cuda.check_cuda(g, "grad of the block output", torch.bfloat16,
+                     (B, Nq, C))
+    dxq, dxk, dxv = (torch.empty_like(t) for t in xs)
+    dgb = torch.empty(8, B, C, device=dev, dtype=torch.float32)
+    grads = torch.empty(sum(t.numel() for t in params), device=dev,
+                        dtype=torch.float32)
+    ws = _workspace(_cuda.CA, "pmce_ca_block_workspace", dev, B, Nq, Nk, C,
+                    hid, num_heads)
+    gq, gk, gv, g2, m1, m2, *acts = saved
+    stats = acts[7]
+    _cuda.CA.call("pmce_ca_block_bwd", _cuda.ptr_table(
+        xq, xk, xv, g, gq, gk, gv, g2, m1, m2,
+        *(_bf16_mat_t(w, dev, C, C, n + "ᵀ")
+          for w, n in ((wq, "wq"), (wk, "wk"), (wv, "wv"),
+                       (wproj, "wproj"))),
+        _bf16_mat_t(w1, dev, hid, C, "w_fc1ᵀ"),
+        _bf16_mat_t(w2, dev, C, hid, "w_fc2ᵀ"), *acts[:7], stats[0],
+        stats[1], *acts[8:], dxq, dxk, dxv, dgb, grads, ws),
+        B, Nq, Nk, C, hid, num_heads, eps, _cuda.stream_ptr(dev))
+    CA_BWD_LAUNCHES.count += 1
+    return (dxq, dxk, dxv), dgb, grads
+
+
+class _CaBlockKernel(torch.autograd.Function):
+    """ca_block on the card: forward and backward are ``csrc/ca_block.cu``.
+    The branch masks get no gradient (drawn, not learned)."""
+
+    @staticmethod
+    def forward(ctx, xq, xk, xv, m1, m2, num_heads, eps, *rest):
+        gammas, betas, params = rest[:4], rest[4:8], rest[8:]
+        out, saved = _ca_fwd_cuda((xq, xk, xv), gammas, betas, (m1, m2),
+                                  params, num_heads, eps)
+        ctx.cfg = (num_heads, eps)
+        # Per-clip vectors' gradients come back in the order gq, bq, gk,
+        # bk, gv, bv, g2, b2.
+        ctx.gb = tuple((t.shape, t.dtype) for pair in zip(gammas, betas)
+                       for t in pair)
+        ctx.save_for_backward(xq, xk, xv, *params, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        num_heads, eps = ctx.cfg
+        xq, xk, xv, *rest = ctx.saved_tensors
+        params, saved = rest[:12], rest[12:]
+        dxs, dgb, flat = _ca_bwd_cuda(gout, (xq, xk, xv), params, saved,
+                                      num_heads, eps)
+        d = [dgb[i].reshape(s).to(t) for i, (s, t) in enumerate(ctx.gb)]
+        # Back to the inputs' order: gammas (q, k, v, 2), then betas.
+        dconds = tuple(d[0::2]) + tuple(d[1::2])
+        return (*dxs, None, None, None, None, *dconds,
+                *_split_grads(flat, params))
+
+
+def ca_block(xq, xk, xv, gammas, betas, params, num_heads: int,
+             eps: float = 1e-6, branch_masks=None):
+    """The AdaLN cross-attention block with its gradient (see
+    :func:`ca_block_plain`). CPU tensors run the plain version; CUDA
+    tensors the kernels of ``csrc/ca_block.cu`` forward and backward (bf16,
+    any Nq and Nk)."""
+    if not _on_card(xq, "ca_block"):
+        return ca_block_plain(xq, xk, xv, gammas, betas, params, num_heads,
+                              eps, branch_masks)
+    m1, m2 = branch_masks if branch_masks is not None else (None, None)
+    return _CaBlockKernel.apply(xq.contiguous(), xk.contiguous(),
+                                xv.contiguous(), m1, m2, num_heads, eps,
+                                *gammas, *betas, *params)

@@ -11,8 +11,8 @@ tests.) Shapes are small but within what each kernel takes (trunk and
 block C=256, GRU H a multiple of 64, chain C=64 with 2 and 8 heads,
 skinning at 6890 vertices); ``chip_smoke.py`` holds the same kernels at
 the full serving and training shapes. The wrappers that have no backward
-kernel either recompute through their plain version (the chain) or refuse
-a gradient (the trunk). Bounds are
+kernel recompute their gradient: the chain through its plain version, the
+trunk as JAX does, through the mhsa kernels. Bounds are
 max|kernel - plain| / max|plain|, as in chip_smoke.py.
 """
 
@@ -131,23 +131,36 @@ def test_gru_training_kernels_match_plain(B, reverse):
     assert counts["gru_layer"] == counts["gru_layer_rev"] == 0
 
 
-def test_trunk_kernel_refuses_a_gradient():
-    """The trunk kernel has no backward (its JAX backward recomputes
-    through rows 4/5): it raises rather than return a detached result."""
+def test_trunk_kernel_gradient_matches_plain():
+    """A gradient through the trunk on the card (the kernel forward, then
+    JAX's recompute with attention through the mhsa kernels) against the
+    plain trunk's autograd. The two differ in where bf16 rounds (the
+    recompute rounds each attention output and its probabilities, as
+    ``lifter_trunk_reference`` with ``fused_mhsa`` does), hence 3 %."""
     dev = _card()
     rng = np.random.default_rng(4)
-    C, hid = 256, 512
-    w = tuple(_rand(rng, dev, *s, scale=0.05) for s in (
-        (C,), (C,), (C, 3 * C), (3 * C,), (C, C), (C,), (C,), (C,),
-        (C, hid), (hid,), (hid, C), (C,)))
-    norm = (_rand(rng, dev, C), _rand(rng, dev, C))
-    args = (_rand(rng, dev, 1, 16 * 17, C, dtype=torch.bfloat16),
-            (w, w), norm, norm, _rand(rng, dev, 16, C), 16, 17, 1, 8)
-    with torch.no_grad():
-        assert fa.lifter_trunk(*args).shape == (1, 16 * 17, C)
-    w[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="B4, B5"):
-        fa.lifter_trunk(*args)
+    C, hid, T, J = 256, 512, 16, 17
+    w = tuple(_rand(rng, dev, *s, scale=0.05, offset=o).requires_grad_(True)
+              for s, o in (((C,), 1.0), ((C,), 0.0), ((C, 3 * C), 0.0),
+                           ((3 * C,), 0.0), ((C, C), 0.0), ((C,), 0.0),
+                           ((C,), 1.0), ((C,), 0.0), ((C, hid), 0.0),
+                           ((hid,), 0.0), ((hid, C), 0.0), ((C,), 0.0)))
+    w2 = tuple(t.detach().clone().requires_grad_(True) for t in w)
+    norm = (_rand(rng, dev, C, offset=1.0), _rand(rng, dev, C))
+    x = _rand(rng, dev, 2, T * J, C, dtype=torch.bfloat16)
+    tpe = _rand(rng, dev, T, C, scale=0.1)
+    g = _rand(rng, dev, 2, T * J, C, dtype=torch.bfloat16)
+    _cuda.reset_launch_counts()
+    y = fa.lifter_trunk(x, (w, w2), norm, norm, tpe, T, J, 1, 8)
+    y.backward(g)
+    counts = _cuda.launch_counts()
+    assert counts["lifter_trunk"] == 1
+    assert counts["mhsa_fwd"] == counts["mhsa_bwd"] == 2
+    yp = fa.lifter_trunk_plain(x, (w, w2), norm, norm, tpe, T, J, 1, 8)
+    want = torch.autograd.grad(yp, w + w2, g)
+    assert _rel(yp, y) <= 0.03
+    for a, b in zip(want, [t.grad for t in w + w2]):
+        assert _rel(a, b) <= 0.03
 
 
 def _chain_args(rng, dev, B, grad=False):
@@ -315,3 +328,85 @@ def test_skinning_kernel_matches_plain(B):
     assert _cuda.launch_counts()["skinning"] == 1
     want = apply_skinning(v_posed, A, w)
     assert float((got - want).abs().max()) < 1e-6
+
+
+# ----------------------------------------------- decoder attention blocks
+def _dec_case(rng, dev, kind, shape):
+    """Leaves (tensors that get gradients), the call on them, and the
+    plain version's call, for one of the decoder's attention blocks."""
+    def r(*s, scale=0.2, offset=0.0, dtype=torch.float32):
+        return _rand(rng, dev, *s, scale=scale, offset=offset,
+                     dtype=dtype).requires_grad_(True)
+
+    B, N, C, H = shape[:4]
+    hid = 4 * C
+    bf = torch.bfloat16
+    masks = tuple(torch.from_numpy(((rng.random((B, 1, 1)) < 0.8) / 0.8)
+                                   .astype(np.float32)).to(dev)
+                  for _ in range(2))
+    if kind == "mhsa":
+        leaves = [r(B, N, C, scale=1.0, dtype=bf), r(C, 3 * C, scale=C ** -0.5),
+                  r(3 * C, scale=0.05), r(C, C, scale=C ** -0.5),
+                  r(C, scale=0.05)]
+        return leaves, (lambda fn, x, *p: fn(x, *p, H)), \
+            (fa.fused_mhsa, fa.mhsa_plain)
+    mlp = [r(C, hid, scale=C ** -0.5), r(hid, scale=0.05),
+           r(hid, C, scale=hid ** -0.5), r(C, scale=0.05)]
+    if kind == "ada":
+        leaves = [r(B, N, C, scale=1.0, dtype=bf),
+                  *(r(B, C, offset=1.0 - i % 2, dtype=bf) for i in range(4)),
+                  r(C, 3 * C, scale=C ** -0.5), r(3 * C, scale=0.05),
+                  r(C, C, scale=C ** -0.5), r(C, scale=0.05), *mlp]
+        return leaves, (lambda fn, x, g1, b1, g2, b2, *p: fn(
+            x, g1, b1, g2, b2, p, H, 1e-6, masks)), \
+            (fa.ada_block, fa.ada_block_plain)
+    Nk = shape[4]
+    proj = []
+    for _ in range(4):
+        proj += [r(C, C, scale=C ** -0.5), r(C, scale=0.05)]
+    leaves = [r(B, N, C, scale=1.0, dtype=bf), r(B, Nk, C, scale=1.0, dtype=bf),
+              r(B, Nk, C, scale=1.0, dtype=bf),
+              *(r(B, C, offset=1.0 - i % 2, dtype=bf) for i in range(8)),
+              *proj, *mlp]
+    return leaves, (lambda fn, xq, xk, xv, *rest: fn(
+        xq, xk, xv, rest[0:8:2], rest[1:8:2], rest[8:], H, 1e-6, masks)), \
+        (fa.ca_block, fa.ca_block_plain)
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("mhsa", (32, 17, 64, 8)), ("mhsa", (24, 17, 256, 8)),
+    ("mhsa", (4, 100, 64, 2)), ("ada", (4, 431, 64, 2)),
+    ("ada", (5, 17, 64, 8)), ("ca", (4, 17, 64, 8, 431)),
+    ("ca", (4, 431, 64, 2, 17))], ids=str)
+def test_decoder_attention_kernels_match_plain(kind, shape):
+    """Each block kernel, forward and backward, against its plain version
+    and the plain version's autograd (bf16 tokens and AdaLN vectors, f32
+    weights, per-clip branch masks), within 2 % of each output's and each
+    gradient's largest magnitude (the keys' bias and AdaLN β, zero
+    analytically, within 2 % of the largest gradient); a second backward
+    gives the same gradients bit for bit."""
+    dev = _card()
+    rng = np.random.default_rng([len(kind), *shape])
+    leaves, call, (kernel, plain) = _dec_case(rng, dev, kind, shape)
+    g = _rand(rng, dev, *leaves[0].shape, dtype=torch.bfloat16)
+    y = call(kernel, *leaves)
+    gk = torch.autograd.grad(y, leaves, g, retain_graph=True)
+    again = torch.autograd.grad(y, leaves, g)
+    yp = call(plain, *leaves)
+    gp = torch.autograd.grad(yp, leaves, g)
+    assert bool(torch.isfinite(y).all())
+    assert _rel(yp, y) <= 0.02
+    largest = max(float(t.abs().max()) for t in gp)
+    zero = {"ca": (6, 14)}.get(kind, ())
+    for i, (a, b) in enumerate(zip(gp, gk)):
+        scale = largest if i in zero else float(a.abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 0.02 * scale, i
+    assert all(torch.equal(a, b) for a, b in zip(gk, again))
+
+
+def test_decoder_attention_kernels_refuse_f32_on_card():
+    dev = _card()
+    rng = np.random.default_rng(9)
+    leaves, call, (kernel, _) = _dec_case(rng, dev, "ada", (2, 72, 64, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call(kernel, leaves[0].float(), *leaves[1:])

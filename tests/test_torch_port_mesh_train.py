@@ -435,20 +435,26 @@ def test_bigru_takes_the_gru_kernel_path_under_bf16_unfused():
 
 
 def test_fused_decoder_runs_its_chain_in_eval_mode_only():
+    """Under ``fused`` the decoder runs its whole-chain kernel in eval mode
+    only; in training mode its blocks run one by one through their own
+    attention-block wrappers, and the chain is not called."""
     _, _, model, batch = _pmce_case(24)
     model.pose_lifter.fused = model.pose_mesh_coevo.fused = True
     args = (_t(batch["pose2d"]), _t(batch["img_feature"]))
     with mock.patch.object(fc, "coevo_chain",
-                           wraps=fc.coevo_chain) as chain:
+                           wraps=fc.coevo_chain) as chain, \
+            mock.patch.object(fa, "fused_mhsa",
+                              wraps=fa.fused_mhsa) as mhsa:
         with torch.no_grad():
             model.eval()(*args)
-        assert chain.call_count == 1
+        assert chain.call_count == 1 and mhsa.call_count == 0
         model.train()
-        with pytest.raises(NotImplementedError) as err:
-            model(*args, generator=torch.Generator().manual_seed(0))
+        outs = model(*args, generator=torch.Generator().manual_seed(0))
         assert chain.call_count == 1
-    for kernels in ("B4, B5", "B8, B9", "B10, B11"):
-        assert kernels in str(err.value)
+        # 17 joints and 40 coarse vertices, both ≤ 64: each block's two
+        # self-attentions are fused_mhsa (its cross-attentions modular).
+        assert mhsa.call_count == 2 * model.pose_mesh_coevo.num_blocks
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
 
 
 # ------------------------------------------------------------- trainer

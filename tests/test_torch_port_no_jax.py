@@ -1,7 +1,9 @@
 """The port runs where jax is not installed (the GPU machine has none).
 
 A fresh interpreter with ``jax`` and ``flax`` made unimportable imports
-every module of ``pmce_tpu_torch`` and runs a tiny f32 forward on the CPU.
+every module of ``pmce_tpu_torch``, runs a tiny f32 forward on the CPU, and
+runs the decoder's attention-block wrappers (``fused_mhsa``, ``ada_block``,
+``ca_block``) forward and backward.
 """
 
 from __future__ import annotations
@@ -40,6 +42,24 @@ SCRIPT = textwrap.dedent("""
     assert mesh.shape == (2, 600, 3) and evo.shape == (2, 17, 3)
     assert pose3d.shape == (2, 17, 3)
     assert all(bool(torch.isfinite(t).all()) for t in (mesh, evo, pose3d))
+    from pmce_tpu_torch.ops import fused_attention as fa
+    g = torch.Generator().manual_seed(0)
+
+    def r(*s):
+        return torch.randn(*s, generator=g).requires_grad_(True)
+
+    C, H = 32, 2
+    mlp = (r(C, 64), r(64), r(64, C), r(C))
+    attn = (r(C, 3 * C), r(3 * C), r(C, C), r(C))
+    proj = tuple(t for _ in range(4) for t in (r(C, C), r(C)))
+    outs = (fa.fused_mhsa(r(2, 5, C), *attn, H),
+            fa.ada_block(r(2, 70, C), r(2, C), r(2, C), r(2, C), r(2, C),
+                         attn + mlp, H),
+            fa.ca_block(r(2, 70, C), r(2, 5, C), r(2, 5, C),
+                        tuple(r(2, C) for _ in range(4)),
+                        tuple(r(2, C) for _ in range(4)), proj + mlp, H))
+    sum(o.sum() for o in outs).backward()
+    assert all(t.grad is not None for t in attn + mlp + proj)
     assert not any(k == "pmce_tpu" or k.startswith("pmce_tpu.")
                    for k in sys.modules)
     print("OK")

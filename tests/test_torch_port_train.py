@@ -417,21 +417,38 @@ def test_metric_logger_writes_jsonl(tmp_path):
 
 
 def test_pmce_training_names_the_kernels_it_waits_for():
-    """Fused PMCE training would run the attention-block kernels (B4, B5,
-    B8-B11), which are not ported: the decoder refuses training mode under
-    ``fused`` instead of running their plain math in their place."""
-    model = PMCE(num_joint=J, vj_relation=(0,) * 8, embed_dim=32, depth=1,
-                 num_vertx=8, num_verts_full=20, gru_hidden=32,
+    """Fused PMCE training runs the attention-block wrappers whose kernels
+    (table rows 4, 5 and 8-11) it waited for: per CoevoBlock one
+    ``fused_mhsa`` (the 17-joint stream), one ``ada_block`` (72 coarse
+    vertices, > 64) and two ``ca_block``; the lifter's blocks through
+    ``transformer_block``; and the gradient reaches every parameter of the
+    blocks the output depends on (every block's vertex stream and the last
+    block's joint stream: each block re-reads the lifted joints)."""
+    from unittest import mock
+
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    model = PMCE(num_joint=J, vj_relation=(0,) * 72, embed_dim=32, depth=1,
+                 num_vertx=72, num_verts_full=100, gru_hidden=32,
                  fused=True).train()
     rng = np.random.default_rng(0)
-    with pytest.raises(NotImplementedError) as err:
-        model(torch.from_numpy(rng.normal(size=(2, T, J, 2)).astype(
-                  np.float32)),
-              torch.from_numpy(rng.normal(size=(2, T, 2048)).astype(
-                  np.float32)),
-              generator=torch.Generator().manual_seed(0))
-    for kernels in ("B4, B5", "B8, B9", "B10, B11"):
-        assert kernels in str(err.value)
+    names = ("fused_mhsa", "ada_block", "ca_block", "transformer_block")
+    with mock.patch.multiple(fa, **{n: mock.MagicMock(wraps=getattr(fa, n))
+                                    for n in names}):
+        m = {n: getattr(fa, n) for n in names}
+        outs = model(torch.from_numpy(rng.normal(size=(2, T, J, 2)).astype(
+                         np.float32)),
+                     torch.from_numpy(rng.normal(size=(2, T, 2048)).astype(
+                         np.float32)),
+                     generator=torch.Generator().manual_seed(0))
+        sum(o.sum() for o in outs).backward()
+        counts = tuple(m[n].call_count for n in names)
+    assert counts == (3, 3, 6, 2)
+    for name, p in model.pose_mesh_coevo.named_parameters():
+        if "_FFN." in name and ("vertx_" in name
+                                or name.startswith("coevoblock3.")):
+            assert p.grad is not None and bool(p.grad.abs().sum() > 0) \
+                or name.endswith(("wk.bias", "normk.mlp_beta.bias")), name
 
 
 def test_entry_points_default_to_the_card():
