@@ -21,7 +21,16 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    kernel of the path must have launched. Its outputs must be finite, of
    the expected shapes, and agree with the same model run through the plain
    versions; a small f32 input must agree with the same model on the CPU.
-   Then its throughput in mid-frames/s;
+   Then its throughput in mid-frames/s. The weights are perturbed off JAX's
+   initial values (nonzero biases, LayerNorm scales off 1), so that the
+   comparison reaches every bias path of the model's kernels;
+3b. whole-block serving: the same forward, weights and inputs through
+   ``create_pmce(..., whole_block_kernel=True)`` (one whole-block kernel per
+   CoevoBlock in place of the chain, as ``tools/profile_device.py
+   --whole-block`` runs the JAX package). The counters must show exactly 3
+   whole-block launches and no chain; the outputs must be finite and agree
+   with the plain path and with phase 3's chain path; its throughput beside
+   phase 3's;
 4. Stage-1 training (``configs/train_pose_h36m.yml``, set in code, under
    the bf16 + fused policy): sequences synthesised with the SMPL forward on
    the card, then the port's ``Trainer`` fits the full-width lifter for two
@@ -39,9 +48,11 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    and backward 4 each per step, the serving GRU scan in evaluation, and
    the trunk, chain, block and decoder attention-block kernels not at all
    (the configuration without ``fused_attn``). Losses finite, the loss of a fixed batch
-   falling; the first step's loss and gradients on the kernel path agree
-   with the plain path; then the step's time, the plain path's and the
-   peak device memory;
+   falling; two first steps on the kernel path give the same gradients bit
+   for bit (the per-parameter difference is printed); the first step's
+   loss and gradients on the kernel path agree with the plain path; then
+   the step's time, the plain path's and the peak device memory. Phases 5
+   and 6 start from JAX's initial values;
 6. fused Stage-2 training (``configs/train_mesh_h36m_bf16.yml`` as written,
    ``MODEL.fused_attn: true``): phase 5's cuts, data and warm start, with
    the decoder's attention blocks on their kernels forward and backward
@@ -52,8 +63,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    only those six kernels on the card); then the step's time and peak
    memory beside phase 5's.
 
-``--profile`` adds a torch.profiler breakdown of each train step's device
-time by kernel.
+``--profile`` adds a torch.profiler breakdown of each serving forward's and
+each train step's device time by kernel.
 
 The second-to-last line is one JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -94,6 +105,7 @@ REPLACES = {
     "ada_block_bwd": "pmce_tpu/ops/fused_attention.py:1534",
     "ca_block_fwd": "pmce_tpu/ops/fused_attention.py:1823",
     "ca_block_bwd": "pmce_tpu/ops/fused_attention.py:1853",
+    "coevo_block": "pmce_tpu/ops/fused_attention.py:2714",
 }
 SOURCES = {
     "lifter_trunk": "pmce_tpu_torch/csrc/lifter_trunk.cu",
@@ -111,8 +123,11 @@ SOURCES = {
     "ada_block_bwd": "pmce_tpu_torch/csrc/ada_block.cu",
     "ca_block_fwd": "pmce_tpu_torch/csrc/ca_block.cu",
     "ca_block_bwd": "pmce_tpu_torch/csrc/ca_block.cu",
+    "coevo_block": "pmce_tpu_torch/csrc/coevo_block.cu",
 }
 SERVING = ("lifter_trunk", "gru_layer", "gru_layer_rev", "coevo_chain")
+# Phase 3b: the whole-block kernel once per CoevoBlock, and no chain.
+WHOLE_BLOCK = ("lifter_trunk", "gru_layer", "gru_layer_rev", "coevo_block")
 TRAINING = ("block_fwd", "block_bwd", "lifter_trunk", "skinning")
 # Phase 5: the kernels its path must launch, and those it must not (the
 # fused-attention configuration's, and the synthesis' skinning, done in
@@ -123,7 +138,7 @@ MESH_TRAINING = ("gru_layer_save", "gru_layer_bwd", "gru_layer",
 DECODER = ("mhsa_fwd", "mhsa_bwd", "ada_block_fwd", "ada_block_bwd",
            "ca_block_fwd", "ca_block_bwd")
 MESH_IDLE = ("lifter_trunk", "coevo_chain", "block_fwd", "block_bwd",
-             "skinning", *DECODER)
+             "skinning", "coevo_block", *DECODER)
 # Kernel vs plain version on identical inputs, as max|kernel - plain| over
 # max|plain| (for the block backward: per gradient). Both compute f32 sums
 # of the same bf16 operands with the same cast points; they differ in
@@ -139,9 +154,11 @@ MESH_IDLE = ("lifter_trunk", "coevo_chain", "block_fwd", "block_bwd",
 # measured 0.00013 of max 0.48).
 # The decoder's attention blocks (mhsa, ada_block, ca_block) compute the
 # plain versions' cast points with f32 sums in another order; per output
-# and per gradient, as the block's.
+# and per gradient, as the block's. The whole-block kernel runs the chain's
+# block program (csrc/coevo_ops.cuh) on bf16 features: the chain's band.
 TOL = {"lifter_trunk": 0.03, "gru_layer": 0.01, "gru_layer_rev": 0.01,
-       "coevo_chain": 0.02, "block_fwd": 0.02, "block_bwd": 0.02,
+       "coevo_chain": 0.02, "coevo_block": 0.02, "block_fwd": 0.02,
+       "block_bwd": 0.02,
        "gru_layer_save": 0.01, "gru_layer_bwd": 0.02,
        **{name: 0.02 for name in DECODER}}
 # Skinning is full f32 on both sides: an absolute bound in meters
@@ -311,11 +328,9 @@ def gru_case(r, steps: int, batch: int, H: int = 1024):
             r(H, 3 * H, scale=H ** -0.5), r(3 * H, scale=0.1))
 
 
-def chain_case(r, batch: int, V: int = 431, NB: int = 3, c: int = 64):
-    import torch
-
-    bf = torch.bfloat16
-
+def coevo_params(r, V: int = 431, c: int = 64) -> tuple:
+    """One CoevoBlock's 14-tuple (embeds, projections across, both CA and
+    both SA weight sets), f32, nonzero biases."""
     def w(i, o):
         return r(i, o, scale=i ** -0.5)
 
@@ -330,17 +345,36 @@ def chain_case(r, batch: int, V: int = 431, NB: int = 3, c: int = 64):
                 w(c, 4 * c), r(4 * c, scale=0.02), w(4 * c, c),
                 r(c, scale=0.02))
 
+    return (r(J, c), r(V, c), r(J, c), r(V, c), r(V, c), r(J, c),
+            w(c, c), r(c, scale=0.02), w(c, c), r(c, scale=0.02),
+            ca(), ca(), sa(), sa())
+
+
+def chain_case(r, batch: int, V: int = 431, NB: int = 3, c: int = 64):
+    import torch
+
+    bf = torch.bfloat16
     blocks = []
     for _ in range(NB):
-        kp = (r(J, c), r(V, c), r(J, c), r(V, c), r(V, c), r(J, c),
-              w(c, c), r(c, scale=0.02), w(c, c), r(c, scale=0.02),
-              ca(), ca(), sa(), sa())
-        blocks.append((w(3, c).to(bf), r(c, scale=0.02), w(3, c).to(bf),
-                       r(c, scale=0.02), kp, w(c, 3), r(3, scale=0.02),
-                       w(c, 3), r(3, scale=0.02)))
+        kp = coevo_params(r, V, c)
+        blocks.append((r(3, c, scale=3 ** -0.5).to(bf), r(c, scale=0.02),
+                       r(3, c, scale=3 ** -0.5).to(bf), r(c, scale=0.02), kp,
+                       r(c, 3, scale=c ** -0.5), r(3, scale=0.02),
+                       r(c, 3, scale=c ** -0.5), r(3, scale=0.02)))
     return (r(batch, J, 3, scale=0.3), r(batch, V, 3, scale=0.3),
             r(batch, NB, 12, c, scale=0.1, offset=1.0),
             r(batch, NB, 12, c, scale=0.1), tuple(blocks), 8, 2)
+
+
+def coevo_block_case(r, batch: int, V: int = 431, c: int = 64):
+    """The whole-block kernel at the whole-block serving forward's shapes:
+    bf16 projected features, f32 AdaLN stacks and one block's weights."""
+    import torch
+
+    bf = torch.bfloat16
+    return (r(batch, J, c, dtype=bf), r(batch, V, c, dtype=bf),
+            r(batch, 12, c, scale=0.1, offset=1.0),
+            r(batch, 12, c, scale=0.1), coevo_params(r, V, c), 8, 2)
 
 
 def check_kernels(device) -> dict:
@@ -394,6 +428,15 @@ def check_kernels(device) -> dict:
                 gru_case(r, steps, B), f"T={steps} B={B} H=1024")
     compare("coevo_chain", fc.coevo_chain, fc.coevo_chain_plain,
             chain_case(r, B), f"B={B} J={J} V=431 C=64")
+    args = coevo_block_case(r, B)
+    compare("coevo_block", fc.coevo_block, fc.coevo_block_plain, args,
+            f"B={B} J={J} V=431 C=64")
+    with torch.no_grad():
+        first, again = fc.coevo_block(*args), fc.coevo_block(*args)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise RuntimeError("coevo_block: two runs differ")
+    print("[kernels] coevo_block: a second run gives the same features bit "
+          "for bit", flush=True)
     # The training GRU at the Stage-2 step's shapes: both layers' T = 16
     # directions and the mid-frame final layer's 9 forward and 8 reverse
     # steps, batch 32.
@@ -710,8 +753,28 @@ def check_skinning(device, rows) -> None:
            tensor_bytes(args, got), "f32")
 
 
-def serve(device) -> tuple[float, dict]:
-    """Phase 3: the full-width bf16 serving forward on the kernel path."""
+def serve_rate(model, pose2d, img_feat,
+               iters: int = 10) -> tuple[float, float]:
+    """(ms per batch, mid-frames/s): host clock around ``iters`` forwards
+    ending in a synchronize, after 2 warm-up forwards."""
+    import torch
+
+    with torch.no_grad():
+        for _ in range(2):
+            model(pose2d, img_feat)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model(pose2d, img_feat)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return dt / iters * 1e3, pose2d.shape[0] * iters / dt
+
+
+def serve(device, profile: bool) -> tuple[float, dict, float, dict]:
+    """Phase 3: the full-width bf16 serving forward on the kernel path;
+    phase 3b: the same with ``whole_block_kernel``. Returns both rates and
+    both launch counts."""
     from unittest import mock
 
     import numpy as np
@@ -723,6 +786,7 @@ def serve(device) -> tuple[float, dict]:
     from pmce_tpu_torch.ops import fused_coevo_chain as fc
     from pmce_tpu_torch.smpl.artifacts import ensure_cached_artifacts
     from pmce_tpu_torch.smpl.mesh import ensure_cached_coarsening
+    from torch_port_init import perturbed_init
 
     t0 = time.time()
     art = ensure_cached_artifacts()
@@ -730,66 +794,97 @@ def serve(device) -> tuple[float, dict]:
     model, _ = create_pmce(num_joint=J, art=art, coarsening=coarse,
                            dtype=torch.bfloat16, fused=True, device=device,
                            seed=0)
+    # JAX's initial values have zero biases and unit LayerNorm scales; the
+    # parity tests' perturbation (tests/torch_port_init.py) makes every bias
+    # path of the kernel-vs-plain comparison count.
+    perturbed_init(model, torch.Generator().manual_seed(0))
     nparams = sum(p.numel() for p in model.parameters())
     print(f"[serve] model ready: {nparams / 1e6:.1f} M params, "
-          f"{time.time() - t0:.1f} s (artifacts, assets, weights)", flush=True)
+          f"{time.time() - t0:.1f} s (artifacts, assets, weights perturbed "
+          f"off JAX's initial values from seed 0)", flush=True)
 
     rng = np.random.default_rng(0)
     pose2d = torch.from_numpy(
         rng.standard_normal((B, T, J, 2), dtype=np.float32)).to(device)
     img_feat = torch.from_numpy(
         rng.standard_normal((B, T, 2048), dtype=np.float32)).to(device)
-
-    with torch.no_grad():
-        _cuda.reset_launch_counts()
-        mesh, evo, pose3d = model(pose2d, img_feat)
-        torch.cuda.synchronize()
-        counts = _cuda.launch_counts()
-    print(f"[serve] launches on the serving forward: {counts}", flush=True)
-    missing = [k for k in SERVING if counts[k] == 0]
-    if missing:
-        raise RuntimeError(f"kernels not launched on the serving path: "
-                           f"{missing}")
-
+    names = ("mesh", "evo_pose", "pose3d")
     expect = {"mesh": (B, art.num_verts, 3), "evo_pose": (B, J, 3),
               "pose3d": (B, J, 3)}
-    outs = {"mesh": mesh, "evo_pose": evo, "pose3d": pose3d}
-    for name, t in outs.items():
-        if tuple(t.shape) != expect[name] or t.dtype != torch.float32:
-            raise RuntimeError(f"{name}: {tuple(t.shape)} {t.dtype}")
-        if not bool(torch.isfinite(t).all()):
-            raise RuntimeError(f"{name}: non-finite values")
 
-    # The same model through the plain versions (this comparison only).
-    with torch.no_grad(), plain_gru(fa), \
-            mock.patch.object(fa, "lifter_trunk", fa.lifter_trunk_plain), \
-            mock.patch.object(fc, "coevo_chain", fc.coevo_chain_plain):
-        plain = dict(zip(("mesh", "evo_pose", "pose3d"),
-                         model(pose2d, img_feat)))
-    for name, t in outs.items():
-        scale = float(plain[name].abs().max())
-        err = max_err(t, plain[name])
-        print(f"[serve] {name} kernel vs plain path: max_abs_err={err:.6g} "
-              f"(max |x| {scale:.4g}, tol {SERVE_REL_TOL} x max)", flush=True)
-        if err > SERVE_REL_TOL * scale:
-            raise RuntimeError(f"{name}: kernel path disagrees with plain")
+    def counted_forward(m, tag, must):
+        with torch.no_grad():
+            _cuda.reset_launch_counts()
+            outs = dict(zip(names, m(pose2d, img_feat)))
+            torch.cuda.synchronize()
+            counts = _cuda.launch_counts()
+        print(f"{tag} launches on the serving forward: {counts}", flush=True)
+        missing = [k for k in must if counts[k] == 0]
+        if missing:
+            raise RuntimeError(f"kernels not launched on the serving path: "
+                               f"{missing}")
+        for name, t in outs.items():
+            if tuple(t.shape) != expect[name] or t.dtype != torch.float32:
+                raise RuntimeError(f"{name}: {tuple(t.shape)} {t.dtype}")
+            if not bool(torch.isfinite(t).all()):
+                raise RuntimeError(f"{name}: non-finite values")
+        return outs, counts
 
+    def agree(tag, outs, ref, what):
+        for name, t in outs.items():
+            scale = float(ref[name].abs().max())
+            err = max_err(t, ref[name])
+            print(f"{tag} {name} vs {what}: max_abs_err={err:.6g} (max |x| "
+                  f"{scale:.4g}, tol {SERVE_REL_TOL} x max)", flush=True)
+            if err > SERVE_REL_TOL * scale:
+                raise RuntimeError(f"{tag} {name}: disagrees with {what}")
+
+    def forward(m):
+        with torch.no_grad():
+            return m(pose2d, img_feat)
+
+    def plain_forward(m):
+        # The same model through the plain versions (comparisons only).
+        with torch.no_grad(), plain_gru(fa), \
+                mock.patch.object(fa, "lifter_trunk", fa.lifter_trunk_plain), \
+                mock.patch.object(fc, "coevo_chain", fc.coevo_chain_plain), \
+                mock.patch.object(fc, "coevo_block", fc.coevo_block_plain):
+            return dict(zip(names, m(pose2d, img_feat)))
+
+    outs, counts = counted_forward(model, "[serve]", SERVING)
+    agree("[serve]", outs, plain_forward(model), "the plain path")
     check_f32_small(model, device)
+    ms, fps = serve_rate(model, pose2d, img_feat)
+    print(f"[serve] bf16 fused forward, B={B}: {ms:.3f} ms per batch, "
+          f"{fps:.1f} mid-frames/s on {card_line()}", flush=True)
+    if profile:
+        profile_step(lambda: forward(model), "serving forward")
 
-    iters = 10
-    with torch.no_grad():
-        for _ in range(2):
-            model(pose2d, img_feat)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            model(pose2d, img_feat)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    fps = B * iters / dt
-    print(f"[serve] bf16 fused forward, B={B}: {dt / iters * 1e3:.3f} ms per "
-          f"batch, {fps:.1f} mid-frames/s on {card_line()}", flush=True)
-    return fps, counts
+    # Phase 3b: whole_block_kernel on the same weights and inputs.
+    whole, _ = create_pmce(num_joint=J, art=art, coarsening=coarse,
+                           dtype=torch.bfloat16, fused=True,
+                           whole_block_kernel=True, device=device, seed=0)
+    whole.load_state_dict(model.state_dict())
+    wouts, wcounts = counted_forward(whole, "[serve-wb]", WHOLE_BLOCK)
+    nb = whole.pose_mesh_coevo.num_blocks
+    want = {**{k: counts[k] for k in ("lifter_trunk", "gru_layer",
+                                      "gru_layer_rev")},
+            "coevo_block": nb, "coevo_chain": 0}
+    wrong = {k: (v, wcounts[k]) for k, v in want.items() if wcounts[k] != v}
+    if wrong:
+        raise RuntimeError(f"whole-block serving: launches (expected, "
+                           f"counted) {wrong}")
+    agree("[serve-wb]", wouts, plain_forward(whole), "the plain path")
+    agree("[serve-wb]", wouts, outs, "phase 3's chain path")
+    wms, wfps = serve_rate(whole, pose2d, img_feat)
+    print(f"[serve-wb] bf16 whole-block forward, B={B}: {wms:.3f} ms per "
+          f"batch, {wfps:.1f} mid-frames/s ({wfps / fps:.3f}x phase 3's "
+          f"{fps:.1f} in this run) on {card_line()}", flush=True)
+    if profile:
+        profile_step(lambda: forward(whole), "whole-block serving forward")
+    del model, whole
+    torch.cuda.empty_cache()
+    return fps, counts, wfps, wcounts
 
 
 def check_f32_small(model, device) -> None:
@@ -1182,6 +1277,17 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
                              if p.grad is not None}
 
     loss_k, grads_k = first_step(contextlib.nullcontext())
+    # Two runs of the kernel path: the same gradients bit for bit.
+    loss_k2, grads_k2 = first_step(contextlib.nullcontext())
+    differ = {n.split("pose_mesh_coevo.")[-1]: max_err(g, grads_k2[n])
+              for n, g in grads_k.items() if not torch.equal(g, grads_k2[n])}
+    print(f"{tag} first step twice on the kernel path: losses {loss_k!r} and "
+          f"{loss_k2!r}; {len(differ)} of {len(grads_k)} gradients differ"
+          + (f", largest difference per parameter: {differ}" if differ
+             else " (bit-identical)"), flush=True)
+    if differ or loss_k != loss_k2:
+        raise RuntimeError("first Stage-2 step: two runs differ")
+    del grads_k2
     loss_p, grads_p = first_step(plain_path(fa, fused))
     if fused:
         iso = plain_gru(fa)
@@ -1312,8 +1418,9 @@ def plain_gru(fa):
     return stack
 
 
-def profile_step(step, n: int = 5) -> None:
-    """Device time of ``n`` train steps by kernel (torch.profiler)."""
+def profile_step(step, what: str = "train step", n: int = 5) -> None:
+    """Device time of ``n`` calls of ``step`` (a ``what``) by kernel
+    (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1338,7 +1445,7 @@ def profile_step(step, n: int = 5) -> None:
             k[0] += e.time_range.elapsed_us() / 1e3 / n
             k[1] += 1
     busy = sum(v[0] for v in by_name.values())
-    print(f"[profile] train step: {busy:.3f} ms of kernel time per step in "
+    print(f"[profile] {what}: {busy:.3f} ms of kernel time per call in "
           f"{wall:.3f} ms of wall time (busy {busy / wall:.1%})", flush=True)
     for name, (t, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :25]:
@@ -1360,6 +1467,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    sys.path.insert(1, str(REPO / "tests"))
     from pmce_tpu_torch.ops import _cuda
 
     device = torch.device("cuda", 0)
@@ -1380,7 +1488,7 @@ def main() -> int:
 
     profile = "--profile" in sys.argv[1:]
     rows = check_kernels(device)
-    fps, serve_counts = serve(device)
+    fps, serve_counts, wb_fps, wb_counts = serve(device, profile)
     train_counts, step_ms, stage1 = train(device, profile)
     mesh_counts, mesh_ms = mesh_train(device, stage1, profile, False)
     fused_counts, fused_ms = mesh_train(device, stage1, profile, True,
@@ -1389,7 +1497,8 @@ def main() -> int:
     counts = {**{k: mesh_counts[k] for k in REPLACES},
               **{k: fused_counts[k] for k in DECODER},
               **{k: train_counts[k] for k in TRAINING},
-              **{k: serve_counts[k] for k in SERVING}}
+              **{k: serve_counts[k] for k in SERVING},
+              "coevo_block": wb_counts["coevo_block"]}
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],
@@ -1397,7 +1506,8 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
                for name in REPLACES]
-    print(f"[card] {card}; serving {fps:.1f} mid-frames/s; Stage-1 train "
+    print(f"[card] {card}; serving {fps:.1f} mid-frames/s (whole-block "
+          f"{wb_fps:.1f}); Stage-1 train "
           f"step {step_ms:.3f} ms = {BT / step_ms * 1e3:.1f} clips/s; "
           f"Stage-2 train step {mesh_ms:.3f} ms = "
           f"{BM / mesh_ms * 1e3:.1f} clips/s (fused_attn off), "

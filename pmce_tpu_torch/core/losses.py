@@ -5,7 +5,7 @@ Port of ``pmce_tpu/core/losses.py`` (the reference's ``lib/core/loss.py``
 and the loss of ``lib/core/base.py:132-148``). :func:`build_face_losses` is
 the training path's normal + edge loss: one gather of the triangles for
 both losses, and a backward that sums the per-corner gradients into the
-vertices over the pre-sorted face-corner order.
+vertices in a fixed order (a padded vertex → face-corner table).
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import contextlib
 
 import numpy as np
 import torch
+
+from pmce_tpu_torch.ops.segments import segment_sum, segment_table
 
 
 def coord_l1(pred: torch.Tensor, target: torch.Tensor,
@@ -116,31 +118,27 @@ def laplacian_loss(laplacian: torch.Tensor, verts: torch.Tensor):
 
 class _FaceLosses(torch.autograd.Function):
     """Both face losses from one gather. The backward takes the gradient
-    of the gathered triangles and sums it into the vertices with one
-    ``index_add_`` over the face corners in sorted vertex order (the JAX
-    package's sorted ``segment_sum``); the ground truth gets a zero
-    gradient."""
+    of the gathered triangles and sums it into the vertices over a padded
+    vertex → face-corner table in a fixed order
+    (:func:`~pmce_tpu_torch.ops.segments.segment_sum`; the JAX package's
+    sorted ``segment_sum``), the same bits on every run; the ground truth
+    gets a zero gradient."""
 
     @staticmethod
-    def forward(ctx, pred, gt, faces, order, sorted_ids):
+    def forward(ctx, pred, gt, faces, corners):
         P, Pg = pred[:, faces], gt[:, faces]
-        ctx.save_for_backward(P, Pg, order, sorted_ids)
-        ctx.num_verts = pred.shape[1]
+        ctx.save_for_backward(P, Pg, corners)
         return _face_losses(P, Pg)
 
     @staticmethod
     def backward(ctx, g_ln, g_le):
-        P, Pg, order, sorted_ids = ctx.saved_tensors
+        P, Pg, corners = ctx.saved_tensors
         with torch.enable_grad():
             Pv = P.detach().requires_grad_(True)
             (dP,) = torch.autograd.grad(_face_losses(Pv, Pg), Pv,
                                         (g_ln, g_le))
-        B = dP.shape[0]
-        dP_sorted = dP.reshape(B, -1, 3)[:, order]
-        dm = torch.zeros(B, ctx.num_verts, 3, dtype=dP.dtype,
-                         device=dP.device)
-        dm.index_add_(1, sorted_ids, dP_sorted)
-        return dm, torch.zeros_like(dm), None, None, None
+        dm = segment_sum(dP.reshape(dP.shape[0], -1, 3), corners)
+        return dm, torch.zeros_like(dm), None, None
 
 
 def build_face_losses(faces: np.ndarray, num_verts: int, device="cuda"):
@@ -148,18 +146,17 @@ def build_face_losses(faces: np.ndarray, num_verts: int, device="cuda"):
     ``fn(pred [B, V, 3], gt [B, V, 3]) -> (normal_loss, edge_loss)``, its
     gradient through :class:`_FaceLosses`. ``num_verts`` is V, the mesh's
     vertex count (not max(faces) + 1: an unreferenced last vertex would
-    shrink the gradient)."""
+    shrink the gradient). The vertex → face-corner table is built here,
+    once."""
     faces = np.asarray(faces)
-    flat = faces.reshape(-1)
-    order = np.argsort(flat, kind="stable")
-    tensors = [torch.as_tensor(a, dtype=torch.long, device=device)
-               for a in (faces, order, flat[order])]
-    if int(flat.max()) >= num_verts:
-        raise ValueError(f"faces index vertex {int(flat.max())} of "
+    if int(faces.max()) >= num_verts:
+        raise ValueError(f"faces index vertex {int(faces.max())} of "
                          f"{num_verts}")
+    faces_t = torch.as_tensor(faces, dtype=torch.long, device=device)
+    corners = segment_table(faces.reshape(-1), num_verts).to(device)
 
     def face_losses(pred, gt):
-        return _FaceLosses.apply(pred, gt, *tensors)
+        return _FaceLosses.apply(pred, gt, faces_t, corners)
 
     return face_losses
 

@@ -19,8 +19,8 @@ LiftTrainer / LiftTester, ``base.py:266-388``):
 Parameters stay f32; under the bf16 policy the model's products run in
 bf16. On that policy the BiGRU's recurrences run the GRU kernels forward
 and backward on the card; with ``fused`` the lifter's blocks run the block
-kernels (Stage 1), and evaluation in eval mode runs the trunk and chain
-kernels. Fused Stage-2 training (the attention-block kernels), several
+kernels (Stages 1 and 2), the decoder's attention blocks theirs (Stage 2),
+and evaluation in eval mode runs the trunk and chain kernels. Several
 devices and sharded parameters are not ported yet.
 """
 

@@ -6,7 +6,7 @@
 //
 //   x1 = x + m1 * MHSA(LN1(x));  y = x1 + m2 * MLP(LN2(x1));  [PostLN(y)]
 //
-// over contiguous clips of N <= 32 rows, with per-clip branch scales m1, m2
+// over contiguous clips of N <= 64 rows, with per-clip branch scales m1, m2
 // (stochastic depth) and the lifter's shared post-norm.
 //
 // What bounds it on this card: at batch 64 a lifter block is 1,088 or
@@ -33,9 +33,10 @@
 //   gradient per block of 64 rows; those partials, and the column sums of
 //   the other bias gradients, are added the same way. No float atomics: two
 //   runs give the same gradients bit for bit.
-// - attention backward: one warp per (clip, head). Lane i recomputes row i
+// - attention backward: one block of 32 threads (N <= 32) or 64 (N <= 64,
+//   the JAX kernel's own limit) per (clip, head). Thread i recomputes row i
 //   of the scores and the softmax, keeps P and dS in shared memory, and
-//   forms dq; then lane j forms dk and dv from column j.
+//   forms dq; then thread j forms dk and dv from column j.
 
 #include "transformer_ops.cuh"
 
@@ -142,18 +143,25 @@ __global__ void __launch_bounds__(LNB_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// Attention backward over contiguous clips of N <= 32 rows, one warp per
-// (clip, head). qkv [M, 3C] holds q pre-scaled by qscale (then rounded);
-// dout [M, C] is dL/d(head outputs). Writes dqkv [M, 3C] in qkv's layout,
-// the q part in unscaled terms (dq' * qscale).
+// Attention backward over contiguous clips of N <= NMAX rows (NMAX = 32 or
+// 64), one block of NMAX threads per (clip, head). qkv [M, 3C] holds q
+// pre-scaled by qscale (then rounded); dout [M, C] is dL/d(head outputs).
+// Writes dqkv [M, 3C] in qkv's layout, the q part in unscaled terms
+// (dq' * qscale).
 // ---------------------------------------------------------------------------
-constexpr int AB_N = 32;
+constexpr int AB_N = 64;
 
-__global__ void __launch_bounds__(32)
+template <int NMAX>
+__device__ __forceinline__ void ab_sync() {
+  if constexpr (NMAX <= 32) __syncwarp(); else __syncthreads();
+}
+
+template <int NMAX>
+__global__ void __launch_bounds__(NMAX)
     attn_bwd_kernel(const bf16* qkv, const bf16* dout, bf16* dqkv, int N,
                     int C, float qscale) {
-  __shared__ float P[AB_N][AB_N + 1];
-  __shared__ float DS[AB_N][AB_N + 1];
+  __shared__ float P[NMAX][NMAX + 1];
+  __shared__ float DS[NMAX][NMAX + 1];
   const int b = blockIdx.x, h = blockIdx.y, lane = threadIdx.x;
   const bool active = lane < N;
   const int i = active ? lane : N - 1;
@@ -188,14 +196,14 @@ __global__ void __launch_bounds__(32)
     }
     mx = fmaxf(mx, s);
   }
-  __syncwarp();
+  ab_sync<NMAX>();
   // Softmax of the row, then dS = P * (dP - sum_j P dP).
   float l = 0.f;
   for (int j = 0; j < N; ++j) l += expf(P[i][j] - mx);
   const float inv = 1.0f / l;
   float D = 0.f;
   for (int j = 0; j < N; ++j) D += expf(P[i][j] - mx) * inv * DS[i][j];
-  __syncwarp();
+  ab_sync<NMAX>();
   if (active) {
     for (int j = 0; j < N; ++j) {
       const float p = expf(P[i][j] - mx) * inv;
@@ -203,7 +211,7 @@ __global__ void __launch_bounds__(32)
       P[i][j] = p;
     }
   }
-  __syncwarp();
+  ab_sync<NMAX>();
   // dq'_i = sum_j dS_ij k_j.
 #pragma unroll
   for (int d = 0; d < DH; ++d) acc[d] = 0.f;
@@ -324,9 +332,14 @@ extern "C" int pmce_block_attn_bwd(const void* qkv, const void* dout,
   if (C != heads * DH || N > AB_N || N <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(clips, heads);
-  attn_bwd_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dqkv), N, C, qscale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PMCE_AB(NMAX)                                                    \
+  attn_bwd_kernel<NMAX><<<grid, NMAX, 0, s>>>(                           \
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),     \
+      static_cast<bf16*>(dqkv), N, C, qscale)
+  if (N <= 32) PMCE_AB(32);
+  else PMCE_AB(64);
+#undef PMCE_AB
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -440,10 +440,12 @@ static inline int gemm_entry(const void* A, const void* W, int M, int N,
 
 // ---------------------------------------------------------------------------
 // Grouped self-attention over qkv [B*T*J, 3C] (q pre-scaled) -> out [.., C].
-// Grid (B * groups, heads), one warp each; lane i is query i of the group.
-// A spatial group is the J rows of one frame, a temporal group the T rows
-// of one joint. Contiguous clips of N rows are the spatial case T = 1,
-// J = N.
+// Grid (B * groups, heads), one block each of 32 threads per 32 tokens
+// (at most 256); thread t owns queries t, t + blockDim, ... of the group, so
+// a group of any size runs (a group of at most 32 tokens is one warp, a
+// lane per query). A spatial group is the J rows of one frame, a temporal
+// group the T rows of one joint. Contiguous clips of N rows are the
+// spatial case T = 1, J = N.
 // ---------------------------------------------------------------------------
 constexpr int DH = 32;
 
@@ -452,41 +454,41 @@ __global__ void group_attn_kernel(const bf16* qkv, bf16* out, int T, int J,
   const int G = temporal ? J : T;   // groups per clip
   const int n = temporal ? T : J;   // tokens per group
   const int b = blockIdx.x / G, g = blockIdx.x % G, h = blockIdx.y;
-  const int lane = threadIdx.x;
-  if (lane >= n) return;
   const size_t base = (size_t)b * T * J;
   const int ld = 3 * C;
   // Row of group member i: frame g's joints, or joint g's frames.
 #define PMCE_ROW(i) (base + (temporal ? (size_t)(g + (i) * J) \
                                       : (size_t)(g * J + (i))))
-  float q[DH], o[DH];
-  const bf16* qp = qkv + PMCE_ROW(lane) * ld + h * DH;
+  for (int qi = threadIdx.x; qi < n; qi += blockDim.x) {
+    float q[DH], o[DH];
+    const bf16* qp = qkv + PMCE_ROW(qi) * ld + h * DH;
 #pragma unroll
-  for (int d = 0; d < DH; d += 8) load8(qp + d, q + d);
+    for (int d = 0; d < DH; d += 8) load8(qp + d, q + d);
 #pragma unroll
-  for (int d = 0; d < DH; ++d) o[d] = 0.f;
-  float m = -INFINITY, l = 0.f;
-  for (int j = 0; j < n; ++j) {
-    const bf16* kp = qkv + PMCE_ROW(j) * ld + C + h * DH;
-    float kv[DH];
+    for (int d = 0; d < DH; ++d) o[d] = 0.f;
+    float m = -INFINITY, l = 0.f;
+    for (int j = 0; j < n; ++j) {
+      const bf16* kp = qkv + PMCE_ROW(j) * ld + C + h * DH;
+      float kv[DH];
 #pragma unroll
-    for (int d = 0; d < DH; d += 8) load8(kp + d, kv + d);
-    float s = 0.f;
+      for (int d = 0; d < DH; d += 8) load8(kp + d, kv + d);
+      float s = 0.f;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) s += q[d] * kv[d];
-    const float mn = fmaxf(m, s);
-    const float corr = expf(m - mn), p = expf(s - mn);
-    l = l * corr + p;
+      for (int d = 0; d < DH; ++d) s += q[d] * kv[d];
+      const float mn = fmaxf(m, s);
+      const float corr = expf(m - mn), p = expf(s - mn);
+      l = l * corr + p;
 #pragma unroll
-    for (int d = 0; d < DH; d += 8) load8(kp + C + d, kv + d);
+      for (int d = 0; d < DH; d += 8) load8(kp + C + d, kv + d);
 #pragma unroll
-    for (int d = 0; d < DH; ++d) o[d] = o[d] * corr + p * kv[d];
-    m = mn;
+      for (int d = 0; d < DH; ++d) o[d] = o[d] * corr + p * kv[d];
+      m = mn;
+    }
+    const float inv = 1.0f / l;
+    bf16* op = out + PMCE_ROW(qi) * C + h * DH;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) op[d] = f2bf(o[d] * inv);
   }
-  const float inv = 1.0f / l;
-  bf16* op = out + PMCE_ROW(lane) * C + h * DH;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) op[d] = f2bf(o[d] * inv);
 #undef PMCE_ROW
 }
 
@@ -494,9 +496,11 @@ static inline int launch_group_attn(const bf16* qkv, bf16* out, int B,
                                     int T, int J, int C, int heads,
                                     int temporal, cudaStream_t s) {
   if (C != heads * DH) return static_cast<int>(cudaErrorInvalidValue);
-  if ((temporal ? T : J) > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = temporal ? T : J;
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 32 * (((n < 256 ? n : 256) + 31) / 32);
   const dim3 grid(B * (temporal ? J : T), heads);
-  group_attn_kernel<<<grid, 32, 0, s>>>(qkv, out, T, J, C, temporal);
+  group_attn_kernel<<<grid, threads, 0, s>>>(qkv, out, T, J, C, temporal);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,6 +54,31 @@ def linear_t(lin: nn.Linear):
     return lin.weight.t(), lin.bias
 
 
+# The std of a standard normal truncated to [-2, 2] (flax's
+# ``variance_scaling`` divides by it, so that the truncated draw keeps the
+# variance asked for).
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_like_jax(p: torch.Tensor, name: str, generator) -> None:
+    """Fill ``p`` (parameter ``name``, not an embed) with what the JAX
+    package's ``model.init`` draws for it (``pmce_tpu/models/layers.py:96-141``
+    and flax's defaults), from ``generator`` (a CPU generator): a
+    LayerNorm's scale 1, every bias (LayerNorm, dense, GRU) 0, and every
+    product weight (dense, GRU, convolution; torch layout [out, in, ...])
+    flax's lecun-normal: a normal truncated at ±2σ and rescaled so that its
+    std is 1/√fan_in."""
+    if p.ndim == 1:
+        p.fill_(1.0 if name.rsplit(".", 1)[-1] == "weight" else 0.0)
+        return
+    fan_in = math.prod(p.shape[1:])
+    std = fan_in ** -0.5 / _TRUNCATED_STD
+    v = torch.empty(p.shape)
+    nn.init.trunc_normal_(v, 0.0, std, -2 * std, 2 * std, generator=generator)
+    p.copy_(v)
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth of one residual branch.
 

@@ -7,7 +7,11 @@ them. Two switches, as in the JAX package: ``dtype`` (None = f32, or
 ``torch.bfloat16``: params stay f32, products and activations run in bf16,
 coordinate heads stay f32) and ``fused`` (the kernel path: the lifter trunk,
 the GRU scan and the decoder chain; ``fused=False`` is the plain modular
-path on any device).
+path on any device); with ``fused``, ``whole_block_kernel`` runs the decoder
+as one whole-block kernel per CoevoBlock instead of the chain, as
+``create_pmce(..., whole_block_kernel=True)`` does in JAX (a serving
+variant; the parameters are the same). Fresh weights are the JAX package's
+initial values (:meth:`PMCE.reset_parameters`).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch.nn as nn
 from pmce_tpu_torch.core import checkpoint as ckpt_lib
 from pmce_tpu_torch.models.coevo import CoevolutionDecoder
 from pmce_tpu_torch.models.pose_lifter import PoseLifter
+from pmce_tpu_torch.ops.segments import segment_table
 from pmce_tpu_torch.smpl.artifacts import SMPLArtifacts
 from pmce_tpu_torch.smpl.mesh import (
     MeshCoarsening,
@@ -48,7 +53,8 @@ class PMCE(nn.Module):
                  depth: int = 3, vj_relation: tuple = (),
                  num_vertx: int = 431, num_verts_full: int = 6890,
                  seqlen: int = 16, joint_dim: int = 64, vertx_dim: int = 64,
-                 gru_hidden: int = 1024, dtype=None, fused: bool = False):
+                 gru_hidden: int = 1024, dtype=None, fused: bool = False,
+                 whole_block_kernel: bool = False):
         super().__init__()
         self.num_joint = num_joint
         self.dtype = dtype
@@ -59,7 +65,7 @@ class PMCE(nn.Module):
             num_joint, vj_relation, num_vertx=num_vertx,
             num_verts_full=num_verts_full, joint_dim=joint_dim,
             vertx_dim=vertx_dim, gru_hidden=gru_hidden, seqlen=seqlen,
-            dtype=dtype, fused=fused)
+            dtype=dtype, fused=fused, whole_block_kernel=whole_block_kernel)
 
     def forward(self, pose2d, img_feat, generator=None):
         """pose2d [B, T, J, 2], img_feat [B, T, 2048] → (mesh, evo_pose,
@@ -73,29 +79,12 @@ class PMCE(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Fill every parameter from ``generator`` (a CPU generator).
-
-        Products get N(0, 1/fan_in) weights; the decoder's pos/Q/K embeds
-        N(0, 1) as the JAX package initialises them; LayerNorm scales
-        1 + N(0, 0.02²); biases and the lifter's pos-embeds N(0, 0.02²), so
-        no bias path hides behind a zero; the frame fusion U(±1/√T)."""
-        for name, p in self.named_parameters():
-            shape = tuple(p.shape)
-            leaf = name.rsplit(".", 1)[-1]
-            if name == "pose_lifter.fusion.weight":
-                bound = shape[1] ** -0.5
-                v = (torch.rand(shape, generator=generator) * 2 - 1) * bound
-            elif leaf.endswith("_embed"):
-                std = 1.0 if name.startswith("pose_mesh_coevo") else 0.02
-                v = torch.randn(shape, generator=generator) * std
-            elif p.ndim == 1 and leaf == "weight":         # LayerNorm scale
-                v = 1.0 + torch.randn(shape, generator=generator) * 0.02
-            elif p.ndim == 1:                              # biases
-                v = torch.randn(shape, generator=generator) * 0.02
-            else:                              # [out, in(, k)] products
-                fan_in = int(np.prod(shape[1:]))
-                v = torch.randn(shape, generator=generator) * fan_in ** -0.5
-            p.copy_(v)
+        """The JAX package's initial values (its ``model.init``), drawn from
+        ``generator`` (a CPU generator): products truncated lecun-normal,
+        biases 0, LayerNorms 1 and 0, the lifter's pos-embeds 0, the
+        decoder's pos, Q and K embeds N(0, 1), the frame fusion U(±1/√T)."""
+        self.pose_lifter.reset_parameters(generator)
+        self.pose_mesh_coevo.reset_parameters(generator)
 
 
 def load_lifter_checkpoint(model: PMCE, path: str) -> None:
@@ -160,20 +149,24 @@ def create_pmce(num_joint: int, art: SMPLArtifacts,
                 coarsening: MeshCoarsening,
                 joint_regressor_h36m: np.ndarray | None = None,
                 embed_dim: int = 256, depth: int = 3, seqlen: int = 16,
-                dtype=None, fused: bool = False, device="cuda",
+                dtype=None, fused: bool = False,
+                whole_block_kernel: bool = False, device="cuda",
                 seed: int = 0) -> tuple[PMCE, PMCEAssets]:
     """Build an eval-mode PMCE on ``device`` (the card unless asked
-    otherwise) with random weights drawn from ``seed`` (load a checkpoint
-    over them with ``load_state_dict``)."""
+    otherwise) with the JAX package's initial values drawn from ``seed``
+    (load a checkpoint over them with ``load_state_dict``)."""
     assets = default_assets(art, coarsening, joint_regressor_h36m)
     with torch.device("meta"):
         model = PMCE(num_joint=num_joint, embed_dim=embed_dim, depth=depth,
                      vj_relation=assets.vj_relation,
                      num_vertx=coarsening.sizes[-1],
                      num_verts_full=art.num_verts, seqlen=seqlen,
-                     dtype=dtype, fused=fused)
+                     dtype=dtype, fused=fused,
+                     whole_block_kernel=whole_block_kernel)
     model = model.to_empty(device=device)
-    model.pose_mesh_coevo.vj_relation.copy_(
+    decoder = model.pose_mesh_coevo
+    decoder.vj_relation.copy_(
         torch.as_tensor(assets.vj_relation, dtype=torch.long))
+    decoder.vj_table.copy_(segment_table(assets.vj_relation, num_joint))
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.eval(), assets

@@ -35,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pmce_tpu_torch.models.layers import Block, dense
+from pmce_tpu_torch.models.layers import Block, dense, init_like_jax
 from pmce_tpu_torch.ops import fused_attention as fa
 
 
@@ -115,21 +115,17 @@ class PoseLifter(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX package's initial values, drawn from ``generator`` (a CPU
-        generator): products N(0, 1/fan_in), biases and pos-embeds 0,
-        LayerNorm scales 1, the frame fusion U(±1/√T)."""
+        generator): the pos-embeds 0, the frame fusion U(±1/√T), the rest
+        as :func:`~pmce_tpu_torch.models.layers.init_like_jax`."""
         for name, p in self.named_parameters():
-            shape = tuple(p.shape)
             if name == "fusion.weight":
-                bound = shape[1] ** -0.5
-                v = (torch.rand(shape, generator=generator) * 2 - 1) * bound
-            elif p.ndim == 1 and name.endswith("weight"):  # LayerNorm scale
-                v = torch.ones(shape)
-            elif p.ndim == 1 or name.endswith("_embed"):
-                v = torch.zeros(shape)
+                bound = p.shape[1] ** -0.5
+                p.copy_((torch.rand(tuple(p.shape), generator=generator) * 2
+                         - 1) * bound)
+            elif name.endswith("_embed"):
+                p.zero_()
             else:
-                fan_in = int(np.prod(shape[1:]))
-                v = torch.randn(shape, generator=generator) * fan_in ** -0.5
-            p.copy_(v)
+                init_like_jax(p, name, generator)
 
 
 def create_pose_lifter(num_joints: int = 17, num_frames: int = 16,

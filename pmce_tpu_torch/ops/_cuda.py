@@ -180,6 +180,11 @@ CHAIN = CudaLibrary("coevo_chain", "pmce_chain_error_string", {
     "pmce_chain_smem_bytes": (ctypes.c_longlong, (I,)),
     "pmce_coevo_chain": (I, (P, P, P, P, P, P, P, I, I, I, I, F, F, F, P)),
 })
+COEVO_BLOCK = CudaLibrary("coevo_block", "pmce_coevo_block_error_string", {
+    "pmce_coevo_block_workspace_bytes": (ctypes.c_longlong, (I,)),
+    "pmce_coevo_block_smem_bytes": (ctypes.c_longlong, (I,)),
+    "pmce_coevo_block": (I, (P,) * 8 + (I, I, I, F, F, F, P)),
+})
 BLOCK = CudaLibrary("block", "pmce_block_error_string", {
     "pmce_block_ln": (I, (P, I, P, P, P, I, F, P)),
     "pmce_block_gemm": (I, GEMM_ARGS),
@@ -212,7 +217,7 @@ CA = CudaLibrary("ca_block", "pmce_ca_block_error_string", {
     "pmce_ca_block_fwd": (I, (P, I, I, I, I, I, I, F, P)),
     "pmce_ca_block_bwd": (I, (P, I, I, I, I, I, I, F, P)),
 })
-LIBRARIES = (TRUNK, GRU, CHAIN, BLOCK, SKIN, MHSA, ADA, CA)
+LIBRARIES = (TRUNK, GRU, CHAIN, COEVO_BLOCK, BLOCK, SKIN, MHSA, ADA, CA)
 
 
 def build_all() -> None:

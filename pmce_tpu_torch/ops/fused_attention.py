@@ -12,9 +12,15 @@ the decoder's attention blocks with their backwards: ``fused_mhsa``,
 ``fused_ada_block`` and ``fused_ca_block``. Each comes as
 
 - a plain PyTorch version (``*_plain``) with the math of the JAX kernel;
-- a wrapper that picks by the device of its input: a CPU tensor goes to the
-  plain version, a CUDA tensor to the hand-written kernel in
-  ``pmce_tpu_torch/csrc`` (or an exception; nothing falls back).
+- a wrapper that picks by the device of its input: a CPU tensor goes to
+  the plain version, a CUDA tensor to the hand-written kernel in
+  ``pmce_tpu_torch/csrc``. On the card the one route to a plain version
+  is the JAX package's own static test, the block over 64 tokens
+  (``pmce_tpu/ops/fused_attention.py:984-989`` sends it to its oracle); a
+  shape that JAX's kernel takes but this kernel is not built for
+  (``*_kernel_fits`` is false) raises ``NotImplementedError`` naming the
+  widening queued in ROADMAP.md, as f32 compute does. Nothing is caught,
+  nothing falls back.
 
 The numerics follow the JAX oracles rather than the TPU kernels' bf16
 workarounds, and are shared with ``ops/fused_coevo_chain.py``: f32 LayerNorm
@@ -100,6 +106,17 @@ def _on_card(x, name: str) -> bool:
     if x.device.type in ("cpu", "cuda"):
         return x.device.type == "cuda"
     raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def require_kernel(fits: bool, name: str, shape: str) -> None:
+    """On the card, a shape the JAX package runs through its kernel but
+    this port's kernel is not built for raises: the widening is queued in
+    ROADMAP.md, section B."""
+    if not fits:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel is not built for {shape} (the JAX "
+            "kernel takes it); widening it is queued in ROADMAP.md, "
+            "section B")
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +207,12 @@ def _gemm(lib, fn, A, W, M, N, K, epi, out, bias=None, res=None,
              stream)
 
 
+def trunk_kernel_fits(C: int, num_heads: int, hid: int) -> bool:
+    """The static shape test of the trunk kernel: C = 256 in heads of 32
+    and hid a multiple of 128; any T and J."""
+    return C == 256 and C == 32 * num_heads and hid % 128 == 0
+
+
 def _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
                        num_heads, eps):
     B, R, C = x.shape
@@ -199,10 +222,9 @@ def _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
             "the trunk kernel takes bf16 tokens; the f32 model runs the "
             "modular path")
     hid = params[0][8].shape[1]
-    if (C != 256 or C != 32 * num_heads or R != T * J or max(T, J) > 32
-            or hid % 128 or len(params) != 2 * depth):
-        raise ValueError(f"trunk kernel shapes: C={C} heads={num_heads} "
-                         f"T={T} J={J} R={R} hid={hid}")
+    if R != T * J or len(params) != 2 * depth:
+        raise ValueError(f"trunk: R={R} tokens for T={T} x J={J}, "
+                         f"{len(params)} blocks for depth {depth}")
     _cuda.check_cuda(x, "x", bf16, (B, R, C))
     dev = x.device
     M = B * R
@@ -331,13 +353,17 @@ def lifter_trunk(x, params, norm_s, norm_t, tpe, T: int, J: int,
     """The whole lifter trunk (see :func:`lifter_trunk_plain` for args).
 
     CPU tensors run the plain version; CUDA tensors the kernel sequence of
-    ``csrc/lifter_trunk.cu`` (bf16 only). A call on the card that owes a
-    gradient gets JAX's: :class:`_TrunkKernel` recomputes the trunk with
-    its attention through :func:`fused_mhsa` (kernels forward and backward)
-    and differentiates that."""
+    ``csrc/lifter_trunk.cu`` (bf16 only; widths :func:`trunk_kernel_fits`
+    refuses raise, see :func:`require_kernel`). A call on the card that
+    owes a gradient gets JAX's: :class:`_TrunkKernel` recomputes the trunk
+    with its attention through :func:`fused_mhsa` (kernels forward and
+    backward) and differentiates that."""
     if not _on_card(x, "lifter_trunk"):
         return lifter_trunk_plain(x, params, norm_s, norm_t, tpe, T, J,
                                   depth, num_heads, eps)
+    C, hid = x.shape[-1], params[0][8].shape[1]
+    require_kernel(trunk_kernel_fits(C, num_heads, hid),
+                   "lifter_trunk", f"C={C}, {num_heads} heads, hid={hid}")
     flat = (*(t for w in params for t in w), *norm_s, *norm_t, tpe)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, *flat)):
@@ -374,13 +400,20 @@ def transformer_block_plain(x, params, num_heads: int, eps: float = 1e-6,
     return y.to(x.dtype)
 
 
-# The kernel's row limit: one warp per (clip, head), a lane per token.
-BLOCK_MAX_TOKENS = 32
+# The JAX package's own gate (``_fused_block_impl``): longer clips run its
+# oracle, so here the plain version; the kernels take up to this many.
+BLOCK_MAX_TOKENS = 64
 # Splits of the weight-gradient products' K = B·N rows (blocks that write
 # partial tiles, added in order by one more launch).
 _TN_SPLITS = 16
 _LNB_ROWS = 64
 _BLOCK_GEMM = "pmce_block_gemm"
+
+
+def block_kernel_fits(C: int, num_heads: int, hid: int) -> bool:
+    """The static shape test of the block kernels: C = 256 in heads of 32
+    and hid a multiple of 128, for N up to :data:`BLOCK_MAX_TOKENS`."""
+    return C == 256 and C == 32 * num_heads and hid % 128 == 0
 
 
 def _block_checks(x, params, num_heads):
@@ -390,10 +423,6 @@ def _block_checks(x, params, num_heads):
             "the block kernels take bf16 tokens; the f32 variant is queued "
             "in ROADMAP (B6/B7 f32)")
     hid = params[8].shape[1]
-    if (C != 256 or C != 32 * num_heads or N > BLOCK_MAX_TOKENS
-            or hid % 128):
-        raise ValueError(f"block kernel shapes: C={C} heads={num_heads} "
-                         f"N={N} (at most {BLOCK_MAX_TOKENS}) hid={hid}")
     _cuda.check_cuda(x, "x", torch.bfloat16, (B, N, C))
     return B, N, C, hid
 
@@ -635,15 +664,16 @@ def transformer_block(x, params, num_heads: int, eps: float = 1e-6,
                       post_eps: float = 1e-6, branch_masks=None):
     """The block with its gradient (see :func:`transformer_block_plain`).
 
-    CPU tensors run the plain version. CUDA tensors run the kernels of
-    ``csrc/block.cu`` forward and backward (bf16, N ≤ 32 tokens a clip);
-    for N > 64 the JAX package itself runs plain XLA, and so does this
-    entry."""
-    if x.device.type == "cpu" or x.shape[1] > 64:
+    CPU tensors, and clips of more than :data:`BLOCK_MAX_TOKENS` tokens
+    (where the JAX package runs its oracle), run the plain version. CUDA
+    tensors run the kernels of ``csrc/block.cu`` forward and backward
+    (bf16; widths :func:`block_kernel_fits` refuses raise)."""
+    if not _on_card(x, "transformer_block") or x.shape[1] > BLOCK_MAX_TOKENS:
         return transformer_block_plain(x, params, num_heads, eps, post_eps,
                                        branch_masks)
-    if x.device.type != "cuda":
-        raise ValueError(f"transformer_block: unsupported device {x.device}")
+    C, hid = x.shape[-1], params[8].shape[1]
+    require_kernel(block_kernel_fits(C, num_heads, hid),
+                   "transformer_block", f"C={C}, {num_heads} heads, hid={hid}")
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
     return _BlockKernel.apply(x, m1, m2, num_heads, eps, post_eps, *params)
 
@@ -747,6 +777,11 @@ def gru_layer_bwd_plain(g, saved, whh, reverse: bool = False):
     return dgi, dgh
 
 
+def gru_kernel_fits(H: int) -> bool:
+    """The static shape test of the GRU kernels: H a multiple of 64."""
+    return H % 64 == 0
+
+
 def _gru_layer_cuda(gi, whh, bhh, reverse: bool, save: bool = False):
     """The forward launches; with ``save`` the saving step (returns (ys,
     saved) as :func:`gru_layer_save_plain`), else the serving step."""
@@ -755,8 +790,6 @@ def _gru_layer_cuda(gi, whh, bhh, reverse: bool, save: bool = False):
     bf16, f32 = torch.bfloat16, torch.float32
     if gi.dtype != bf16:
         raise NotImplementedError("the GRU kernels take bf16 projections")
-    if H % 64:
-        raise ValueError(f"GRU kernel: H={H} must be a multiple of 64")
     _cuda.check_cuda(gi, "gi", bf16, (T, B, 3 * H))
     dev = gi.device
     w = _cuda.to_kernel(whh, dev, bf16, (H, 3 * H), "whh")
@@ -788,8 +821,6 @@ def _gru_bwd_cuda(g, saved, whh, reverse: bool):
     bf16, f32 = torch.bfloat16, torch.float32
     if g.dtype != bf16:
         raise NotImplementedError("the GRU kernels take bf16 gradients")
-    if H % 64:
-        raise ValueError(f"GRU kernel: H={H} must be a multiple of 64")
     _cuda.check_cuda(g, "g", bf16, (T, B, H))
     _cuda.check_cuda(saved, "saved", f32, (5, T, B, H))
     dev = g.device
@@ -821,23 +852,31 @@ def _gru_bwd_cuda(g, saved, whh, reverse: bool):
     return dgi, dgh
 
 
+def _gru_require(H: int) -> None:
+    require_kernel(gru_kernel_fits(H), "gru_layer", f"H={H}")
+
+
 def gru_layer_save(gi, whh, bhh, reverse: bool = False):
     """The saving forward (see :func:`gru_layer_save_plain`): CPU tensors
-    run the plain version, CUDA tensors the saving step of
-    ``csrc/gru_scan.cu`` (bf16)."""
+    run the plain version; CUDA tensors the saving step of
+    ``csrc/gru_scan.cu`` (bf16; H that :func:`gru_kernel_fits` refuses
+    raises)."""
     if not _on_card(gi, "gru_layer_save"):
         return gru_layer_save_plain(gi, whh, bhh, reverse)
+    _gru_require(whh.shape[0])
     out = _gru_layer_cuda(gi, whh, bhh, reverse, save=True)
     GRU_SAVE_LAUNCHES.count += 1
     return out
 
 
 def gru_layer_bwd(g, saved, whh, reverse: bool = False):
-    """The backward scan (see :func:`gru_layer_bwd_plain`): CPU tensors run
-    the plain version, CUDA tensors the backward steps of
-    ``csrc/gru_scan.cu`` (bf16 g)."""
+    """The backward scan (see :func:`gru_layer_bwd_plain`): CPU tensors
+    run the plain version; CUDA tensors the backward steps of
+    ``csrc/gru_scan.cu`` (bf16 g; H that :func:`gru_kernel_fits` refuses
+    raises)."""
     if not _on_card(g, "gru_layer_bwd"):
         return gru_layer_bwd_plain(g, saved, whh, reverse)
+    _gru_require(g.shape[-1])
     out = _gru_bwd_cuda(g, saved, whh, reverse)
     GRU_BWD_LAUNCHES.count += 1
     return out
@@ -876,6 +915,7 @@ def _gru_dispatch(gi, whh, bhh, reverse: bool, counter) -> torch.Tensor:
         return _GRULayer.apply(gi, whh, bhh, reverse)
     if not _on_card(gi, "gru_layer"):
         return gru_layer_plain(gi, whh, bhh, reverse)
+    _gru_require(whh.shape[0])
     ys = _gru_layer_cuda(gi, whh, bhh, reverse)
     counter.count += 1
     return ys
@@ -1015,16 +1055,24 @@ _HEAD_DIMS = (8, 16, 32)
 _WORKSPACE: dict = {}
 
 
-def _attn_checks(name, x, C: int, num_heads: int, hid: int = 64):
+def attention_kernel_fits(C: int, num_heads: int, hid: int = 64) -> bool:
+    """The static shape test of the decoder attention kernels (mhsa,
+    AdaLN block, CA block): C and hid multiples of 64, head width in
+    :data:`_HEAD_DIMS`; any token count."""
+    return (C % 64 == 0 and C % num_heads == 0
+            and C // num_heads in _HEAD_DIMS and hid % 64 == 0)
+
+
+def _attention_require(name: str, C: int, num_heads: int, hid: int = 64):
+    require_kernel(attention_kernel_fits(C, num_heads, hid), name,
+                   f"C={C}, {num_heads} heads, hid={hid}")
+
+
+def _attn_checks(name, x):
     if x.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the {name} kernels take bf16 tokens; the f32 variant is queued "
             "in ROADMAP (f32 fused=True on CUDA)")
-    if C % 64 or C % num_heads or C // num_heads not in _HEAD_DIMS \
-            or hid % 64:
-        raise ValueError(f"{name} kernel shapes: C={C} heads={num_heads} "
-                         f"hid={hid} (C and hid multiples of 64, head width "
-                         f"in {_HEAD_DIMS})")
 
 
 def _workspace(lib, fn, dev, *shape):
@@ -1063,7 +1111,7 @@ def _split_grads(flat, like):
 
 def _mhsa_fwd_cuda(x, wqkv, bqkv, wproj, bproj, num_heads):
     clips, N, C = x.shape
-    _attn_checks("fused_mhsa", x, C, num_heads)
+    _attn_checks("fused_mhsa", x)
     _cuda.check_cuda(x, "x", torch.bfloat16, (clips, N, C))
     dev, M = x.device, clips * N
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1121,9 +1169,11 @@ def fused_mhsa(x, wqkv, bqkv, wproj, bproj, num_heads: int):
     """Multi-head self-attention with its projections (see
     :func:`mhsa_plain`), with its gradient. CPU tensors run the plain
     version; CUDA tensors the kernels of ``csrc/mhsa.cu`` forward and
-    backward (bf16, any token count)."""
+    backward (bf16, any token count; widths
+    :func:`attention_kernel_fits` refuses raise)."""
     if not _on_card(x, "fused_mhsa"):
         return mhsa_plain(x, wqkv, bqkv, wproj, bproj, num_heads)
+    _attention_require("fused_mhsa", x.shape[-1], num_heads)
     return _MhsaKernel.apply(x.contiguous(), wqkv, bqkv, wproj, bproj,
                              num_heads)
 
@@ -1132,7 +1182,7 @@ def _ada_fwd_cuda(x, gb, masks, params, num_heads, eps):
     B, N, C = x.shape
     wqkv, bqkv, wproj, bproj, w1, bb1, w2, bb2 = params
     hid = w1.shape[1]
-    _attn_checks("ada_block", x, C, num_heads, hid)
+    _attn_checks("ada_block", x)
     _cuda.check_cuda(x, "x", torch.bfloat16, (B, N, C))
     dev, M = x.device, B * N
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1219,10 +1269,13 @@ def ada_block(x, gamma1, beta1, gamma2, beta2, params, num_heads: int,
     """The AdaLN self-attention block with its gradient (see
     :func:`ada_block_plain`). CPU tensors run the plain version; CUDA
     tensors the kernels of ``csrc/ada_block.cu`` forward and backward
-    (bf16, any token count)."""
+    (bf16, any token count; widths :func:`attention_kernel_fits` refuses
+    raise)."""
     if not _on_card(x, "ada_block"):
         return ada_block_plain(x, gamma1, beta1, gamma2, beta2, params,
                                num_heads, eps, branch_masks)
+    _attention_require("ada_block", x.shape[-1], num_heads,
+                       params[4].shape[1])
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
     return _AdaBlockKernel.apply(x.contiguous(), gamma1, beta1, gamma2,
                                  beta2, m1, m2, num_heads, eps, *params)
@@ -1234,7 +1287,7 @@ def _ca_fwd_cuda(xs, gammas, betas, masks, params, num_heads, eps):
     Nk = xk.shape[1]
     (wq, bq, wk, bk, wv, bv, wproj, bproj, w1, bb1, w2, bb2) = params
     hid = w1.shape[1]
-    _attn_checks("ca_block", xq, C, num_heads, hid)
+    _attn_checks("ca_block", xq)
     _cuda.check_cuda(xq, "xq", torch.bfloat16, (B, Nq, C))
     _cuda.check_cuda(xk, "xk", torch.bfloat16, (B, Nk, C))
     _cuda.check_cuda(xv, "xv", torch.bfloat16, (B, Nk, C))
@@ -1341,10 +1394,12 @@ def ca_block(xq, xk, xv, gammas, betas, params, num_heads: int,
     """The AdaLN cross-attention block with its gradient (see
     :func:`ca_block_plain`). CPU tensors run the plain version; CUDA
     tensors the kernels of ``csrc/ca_block.cu`` forward and backward (bf16,
-    any Nq and Nk)."""
+    any Nq and Nk; widths :func:`attention_kernel_fits` refuses raise)."""
     if not _on_card(xq, "ca_block"):
         return ca_block_plain(xq, xk, xv, gammas, betas, params, num_heads,
                               eps, branch_masks)
+    _attention_require("ca_block", xq.shape[-1], num_heads,
+                       params[8].shape[1])
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
     return _CaBlockKernel.apply(xq.contiguous(), xk.contiguous(),
                                 xv.contiguous(), m1, m2, num_heads, eps,

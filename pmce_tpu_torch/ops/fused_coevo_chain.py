@@ -1,18 +1,30 @@
-"""The decoder's whole co-evolution chain, in PyTorch and CUDA.
+"""The decoder's co-evolution blocks, in PyTorch and CUDA: one block, or
+the whole chain.
 
-Port of ``pmce_tpu/ops/fused_coevo_chain.py`` (``fused_coevo_chain``): all
-CoevoBlocks plus their f32 coordinate heads. Per block, with the reference
-quirks kept: 3 → C projections of the ORIGINAL joints (every block re-reads
-them) and of the current vertices; pos, Q and K embeds; the v→j and j→v
-projections; joint CA+FFN and vertex CA+FFN, both on the PRE-update streams;
-AdaLN'd SA+FFN per stream; f32 C → 3 heads plus residuals.
+Port of ``pmce_tpu/ops/fused_coevo_chain.py`` (``fused_coevo_chain``: all
+CoevoBlocks plus their f32 coordinate heads) and of
+``fused_coevo_block`` in ``pmce_tpu/ops/fused_attention.py`` (one
+CoevoBlock's token program, features in and out, the heads outside). Per
+block, with the reference quirks kept: 3 → C projections of the ORIGINAL
+joints (every block re-reads them) and of the current vertices; pos, Q and
+K embeds; the v→j and j→v projections; joint CA+FFN and vertex CA+FFN, both
+on the PRE-update streams; AdaLN'd SA+FFN per stream; f32 C → 3 heads plus
+residuals.
 
-:func:`coevo_chain_plain` has the math of ``coevo_chain_reference`` and the
-``coevo_block_reference`` it calls, with the kernel's cast points (f32 sums
-of bf16 products, one rounding each, f32 streams between the residual adds).
-:func:`coevo_chain` runs it for CPU tensors and the kernel of
-``csrc/coevo_chain.cu`` for CUDA tensors; that kernel takes bf16 compute,
-and its gradient is the plain version's autograd on the saved inputs.
+:func:`coevo_block_plain` has the math of ``coevo_block_reference``, and
+:func:`coevo_chain_plain` that of ``coevo_chain_reference`` (its embeds, one
+block each, its heads), with the kernels' cast points: f32 sums of bf16
+products, one rounding each, f32 streams between the residual adds (the
+chain's heads read the f32 streams). :func:`coevo_block` and
+:func:`coevo_chain` run them for CPU tensors and, for bf16 CUDA tensors,
+the kernels of ``csrc/coevo_block.cu`` and ``csrc/coevo_chain.cu`` (both
+over ``csrc/coevo_ops.cuh``); on the card a shape those kernels are not
+built for (:func:`coevo_kernel_fits`, or a vertex stream over shared
+memory) raises, as JAX's kernels take every shape. The gradient of either
+kernel is the plain version's autograd on the saved inputs, as JAX
+recomputes through its oracles. The decoder
+calls :func:`coevo_block` per block under ``whole_block_kernel`` in eval
+mode, :func:`coevo_chain` otherwise in eval mode under ``fused``.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from pmce_tpu_torch.ops import _cuda
 from pmce_tpu_torch.ops.fused_attention import (
     _on_card,
     _tensors,
+    require_kernel,
     adaln_f32,
     attend,
     mm,
@@ -33,6 +46,7 @@ from pmce_tpu_torch.ops.fused_attention import (
 )
 
 CHAIN_LAUNCHES = _cuda.launch_counter("coevo_chain")
+BLOCK_LAUNCHES = _cuda.launch_counter("coevo_block")
 
 # Order of the per-block AdaLN γ/β slots ([B, NB, 12, C]), as the JAX
 # package's ``_COEVO_SLOTS``.
@@ -89,6 +103,48 @@ def _sa_ffn(x, g, b, w, num_heads, eps, dt):
     return x1 + (mm(hh, w2.to(dt)) + bb2)
 
 
+def _coevo_block_f32(jf0, vf0, g, b, params, num_heads_j, num_heads_v,
+                     eps):
+    """One block from its projected features to its two post-SA streams,
+    f32 (the chain's heads read these; :func:`coevo_block_plain` rounds
+    them)."""
+    dt = jf0.dtype
+    (jpos, vpos, jQ, vQ, v2jK, j2vK, wv2j, bv2j, wj2v, bj2v,
+     ca_j, ca_v, sa_j, sa_v) = params
+    jf = (jf0.float() + jpos).to(dt)
+    vf = (vf0.float() + vpos).to(dt)
+    v_as_j = (mm(vf, wv2j.to(dt)) + bv2j + v2jK).to(dt)
+    j_as_v = (mm(jf, wj2v.to(dt)) + bj2v + j2vK).to(dt)
+    jq = (jf.float() + jQ).to(dt)
+    vq = (vf.float() + vQ).to(dt)
+    joint1 = _ca_ffn(jq, v_as_j, vf, g[:, 0:4], b[:, 0:4], ca_j,
+                     num_heads_j, eps, dt)
+    vertx1 = _ca_ffn(vq, j_as_v, jf, g[:, 4:8], b[:, 4:8], ca_v,
+                     num_heads_v, eps, dt)
+    joint2 = _sa_ffn(joint1.to(dt), g[:, 8:10], b[:, 8:10], sa_j,
+                     num_heads_j, eps, dt)
+    vertx2 = _sa_ffn(vertx1.to(dt), g[:, 10:12], b[:, 10:12], sa_v,
+                     num_heads_v, eps, dt)
+    return joint2, vertx2
+
+
+def coevo_block_plain(jf0, vf0, gammas, betas, params,
+                      num_heads_j: int = 8, num_heads_v: int = 2,
+                      eps: float = 1e-6):
+    """Plain version of one whole CoevoBlock (``coevo_block_reference``).
+
+    jf0 / vf0: [B, J, C] / [B, V, C] projected features in the compute
+    dtype; gammas / betas: [B, 12, C] f32 AdaLN stacks in
+    :data:`COEVO_SLOTS` order; ``params``: (joint_pos [J,C], vertx_pos
+    [V,C], j_Q, v_Q, v2j_K [V,C], j2v_K [J,C], wv2j, bv2j, wj2v, bj2v, ca_j
+    12-tuple, ca_v 12-tuple, sa_j 8-tuple, sa_v 8-tuple) as the JAX package
+    packs them. Returns the post-SA (joint_feat, vertx_feat) in jf0's
+    dtype."""
+    joint2, vertx2 = _coevo_block_f32(jf0, vf0, gammas, betas, params,
+                                      num_heads_j, num_heads_v, eps)
+    return joint2.to(jf0.dtype), vertx2.to(jf0.dtype)
+
+
 def coevo_chain_plain(joints, vertx, gammas, betas, blocks,
                       num_heads_j: int = 8, num_heads_v: int = 2,
                       eps: float = 1e-6):
@@ -97,100 +153,131 @@ def coevo_chain_plain(joints, vertx, gammas, betas, blocks,
     joints / vertx: [B, J, 3] / [B, V, 3] f32 coordinates (meters);
     gammas / betas: [B, NB, 12, C] f32 AdaLN stacks in :data:`COEVO_SLOTS`
     order; ``blocks``: per block (wjp, bjp, wvp, bvp, kparams, whj, bhj,
-    whv, bhv), kparams = (joint_pos [J,C], vertx_pos [V,C], j_Q, v_Q,
-    v2j_K [V,C], j2v_K [J,C], wv2j, bv2j, wj2v, bj2v, ca_j 12-tuple, ca_v
-    12-tuple, sa_j 8-tuple, sa_v 8-tuple) as the JAX package packs them.
-    The compute dtype is wjp's. Returns (evo_pose, vertx), f32."""
+    whv, bhv), kparams the 14-tuple of :func:`coevo_block_plain`. The
+    compute dtype is wjp's. Returns (evo_pose, vertx), f32."""
     evo, vx = joints, vertx
     for blk, (wjp, bjp, wvp, bvp, kp, whj, bhj, whv, bhv) in enumerate(blocks):
         dt = wjp.dtype
-        (jpos, vpos, jQ, vQ, v2jK, j2vK, wv2j, bv2j, wj2v, bj2v,
-         ca_j, ca_v, sa_j, sa_v) = kp
-        g, b = gammas[:, blk], betas[:, blk]
-        jf = ((mm(joints.to(dt), wjp) + bjp).to(dt).float() + jpos).to(dt)
-        vf = ((mm(vx.to(dt), wvp) + bvp).to(dt).float() + vpos).to(dt)
-        v_as_j = (mm(vf, wv2j.to(dt)) + bv2j + v2jK).to(dt)
-        j_as_v = (mm(jf, wj2v.to(dt)) + bj2v + j2vK).to(dt)
-        jq = (jf.float() + jQ).to(dt)
-        vq = (vf.float() + vQ).to(dt)
-        joint1 = _ca_ffn(jq, v_as_j, vf, g[:, 0:4], b[:, 0:4], ca_j,
-                         num_heads_j, eps, dt)
-        vertx1 = _ca_ffn(vq, j_as_v, jf, g[:, 4:8], b[:, 4:8], ca_v,
-                         num_heads_v, eps, dt)
-        joint2 = _sa_ffn(joint1.to(dt), g[:, 8:10], b[:, 8:10], sa_j,
-                         num_heads_j, eps, dt)
-        vertx2 = _sa_ffn(vertx1.to(dt), g[:, 10:12], b[:, 10:12], sa_v,
-                         num_heads_v, eps, dt)
+        jf0 = (mm(joints.to(dt), wjp) + bjp).to(dt)
+        vf0 = (mm(vx.to(dt), wvp) + bvp).to(dt)
+        joint2, vertx2 = _coevo_block_f32(jf0, vf0, gammas[:, blk],
+                                          betas[:, blk], kp, num_heads_j,
+                                          num_heads_v, eps)
         evo = (joint2 @ whj.float() + bhj) + joints
         vx = (vertx2 @ whv.float() + bhv) + vx
     return evo, vx
 
 
-# Per-block pointer table of pmce_coevo_chain (csrc/coevo_chain.cu, P_*).
-_TABLE_LEN = 58
+# Pointer tables: one block's (csrc/coevo_ops.cuh, K_*), and the chain's
+# per block (csrc/coevo_chain.cu, P_*): the 3 → C projections, the block's
+# table, the coordinate heads.
+_BLOCK_TABLE_LEN = 50
+_CHAIN_TABLE_LEN = 4 + _BLOCK_TABLE_LEN + 4
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+
+
+def coevo_kernel_fits(C: int, hid: int, num_heads_j: int, num_heads_v: int,
+                      V: int) -> bool:
+    """The static shape test of both kernels (whole block, whole chain):
+    the widths csrc/coevo_ops.cuh is built for (C = 64, hid = 4C, joint
+    heads of width 8 and vertex heads of width 32) and at least 48 vertices
+    (MLP tiles of 16 rows or more). The launch also asks the library
+    whether the vertex stream fits in shared memory."""
+    return (C == 64 and hid == 4 * C and num_heads_j * 8 == C
+            and num_heads_v * 32 == C and V >= 48)
+
+
+def _require_fits(name, C, hid, num_heads_j, num_heads_v, V, lib, smem_fn):
+    require_kernel(coevo_kernel_fits(C, hid, num_heads_j, num_heads_v, V),
+                   name, f"C={C}, hid={hid}, heads {num_heads_j}/"
+                   f"{num_heads_v}, V={V}")
+    smem = int(lib.query(smem_fn, V))
+    require_kernel(smem <= _SMEM_LIMIT, name,
+                   f"V={V} ({smem} bytes of shared memory)")
+
+
+def _require_bf16(dt, name):
+    if dt != torch.bfloat16:
+        raise NotImplementedError(
+            f"{name} on CUDA takes bf16 compute; f32 with fused=True on the "
+            "card is queued in ROADMAP.md (section B, f32 coevo kernels)")
+
+
+class _Table:
+    """Device copies of a kernel's weights and the list of their pointers
+    (the tensors stay referenced until the launch is enqueued)."""
+
+    def __init__(self, dev, C: int, hid: int):
+        self.dev, self.C, self.hid = dev, C, hid
+        self.keep, self.ptrs = [], []
+
+    def put(self, a, dtype, shape):
+        t = _cuda.to_kernel(a, self.dev, dtype, shape, "coevo weight")
+        self.keep.append(t)
+        self.ptrs.append(t.data_ptr())
+
+    def mat(self, a, rows, cols):
+        self.put(a, torch.bfloat16, (rows, cols))
+
+    def vec(self, a, *shape):
+        self.put(a, torch.float32, shape)
+
+    def pairs(self, *layers):
+        """(weight [rows, cols], bias [cols], rows, cols) of dense layers,
+        in order."""
+        for w, b, rows, cols in layers:
+            self.mat(w, rows, cols)
+            self.vec(b, cols)
+
+    def block(self, kp, J, V):
+        """One block's K_* entries from its 14-tuple."""
+        C, hid = self.C, self.hid
+        (jpos, vpos, jQ, vQ, v2jK, j2vK, wv2j, bv2j, wj2v, bj2v,
+         ca_j, ca_v, sa_j, sa_v) = kp
+        start = len(self.ptrs)
+        for a, n in ((jpos, J), (vpos, V), (jQ, J), (vQ, V), (v2jK, V),
+                     (j2vK, J)):
+            self.vec(a, n, C)
+        self.pairs((wv2j, bv2j, C, C), (wj2v, bj2v, C, C))
+        for (wq, bq, wk, bk, wv, bv, wproj, bproj, w1, bb1, w2,
+             bb2) in (ca_j, ca_v):
+            self.pairs((wq, bq, C, C), (wk, bk, C, C), (wv, bv, C, C),
+                       (wproj, bproj, C, C), (w1, bb1, C, hid),
+                       (w2, bb2, hid, C))
+        for (wqkv, bqkv, wproj, bproj, w1, bb1, w2, bb2) in (sa_j, sa_v):
+            self.pairs((wqkv, bqkv, C, 3 * C), (wproj, bproj, C, C),
+                       (w1, bb1, C, hid), (w2, bb2, hid, C))
+        assert len(self.ptrs) - start == _BLOCK_TABLE_LEN
+
+    def device(self):
+        return torch.tensor(self.ptrs, dtype=torch.int64, device=self.dev)
 
 
 def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
                       num_heads_v, eps):
-    bf16, f32 = torch.bfloat16, torch.float32
-    if blocks[0][0].dtype != bf16:
-        raise NotImplementedError(
-            "coevo_chain on CUDA takes bf16 compute; f32 with fused=True on "
-            "the card is queued in ROADMAP.md (section B, f32 chain kernel)")
+    f32 = torch.float32
+    _require_bf16(blocks[0][0].dtype, "coevo_chain")
     B, J, _ = joints.shape
     V = vertx.shape[1]
     NB = len(blocks)
     C = gammas.shape[-1]
     hid = blocks[0][4][10][8].shape[1]
-    smem = _cuda.CHAIN.query("pmce_chain_smem_bytes", V)
-    if (C != 64 or hid != 4 * C or C // num_heads_j != 8
-            or C // num_heads_v != 32 or smem > _SMEM_LIMIT or V < 48):
-        raise ValueError(f"chain kernel shapes: C={C} hid={hid} "
-                         f"heads=({num_heads_j}, {num_heads_v}) V={V}")
+    _require_fits("coevo_chain", C, hid, num_heads_j, num_heads_v, V,
+                  _cuda.CHAIN, "pmce_chain_smem_bytes")
     _cuda.check_cuda(joints, "joints", f32, (B, J, 3))
     _cuda.check_cuda(vertx, "vertx", f32, (B, V, 3))
     _cuda.check_cuda(gammas, "gammas", f32, (B, NB, 12, C))
     _cuda.check_cuda(betas, "betas", f32, (B, NB, 12, C))
     dev = joints.device
-    keep = []  # the tensors the pointer table points into
-
-    def put(a, dtype, shape):
-        t = _cuda.to_kernel(a, dev, dtype, shape, "chain weight")
-        keep.append(t)
-        return t.data_ptr()
-
-    def mat(a, rows, cols):
-        return put(a, bf16, (rows, cols))
-
-    def vec(a, *shape):
-        return put(a, f32, shape)
-
-    def ca(w):
-        (wq, bq, wk, bk, wv, bv, wproj, bproj, w1, bb1, w2, bb2) = w
-        return [mat(wq, C, C), vec(bq, C), mat(wk, C, C), vec(bk, C),
-                mat(wv, C, C), vec(bv, C), mat(wproj, C, C), vec(bproj, C),
-                mat(w1, C, hid), vec(bb1, hid), mat(w2, hid, C), vec(bb2, C)]
-
-    def sa(w):
-        (wqkv, bqkv, wproj, bproj, w1, bb1, w2, bb2) = w
-        return [mat(wqkv, C, 3 * C), vec(bqkv, 3 * C), mat(wproj, C, C),
-                vec(bproj, C), mat(w1, C, hid), vec(bb1, hid),
-                mat(w2, hid, C), vec(bb2, C)]
-
-    table = []
+    tab = _Table(dev, C, hid)
     for (wjp, bjp, wvp, bvp, kp, whj, bhj, whv, bhv) in blocks:
-        (jpos, vpos, jQ, vQ, v2jK, j2vK, wv2j, bv2j, wj2v, bj2v,
-         ca_j, ca_v, sa_j, sa_v) = kp
-        row = [mat(wjp, 3, C), vec(bjp, C), mat(wvp, 3, C), vec(bvp, C),
-               vec(jpos, J, C), vec(vpos, V, C), vec(jQ, J, C),
-               vec(vQ, V, C), vec(v2jK, V, C), vec(j2vK, J, C),
-               mat(wv2j, C, C), vec(bv2j, C), mat(wj2v, C, C), vec(bj2v, C)]
-        row += ca(ca_j) + ca(ca_v) + sa(sa_j) + sa(sa_v)
-        row += [vec(whj, C, 3), vec(bhj, 3), vec(whv, C, 3), vec(bhv, 3)]
-        assert len(row) == _TABLE_LEN
-        table += row
-    ptrs = torch.tensor(table, dtype=torch.int64, device=dev)
+        tab.pairs((wjp, bjp, 3, C), (wvp, bvp, 3, C))
+        tab.block(kp, J, V)
+        for w, b in ((whj, bhj), (whv, bhv)):
+            tab.vec(w, C, 3)
+            tab.vec(b, 3)
+    assert len(tab.ptrs) == NB * _CHAIN_TABLE_LEN
+    ptrs = tab.device()
 
     jout = torch.empty(B, J, 3, device=dev, dtype=f32)
     vout = vertx.clone()  # the kernel moves the vertices in place
@@ -206,6 +293,38 @@ def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
     return jout, vout
 
 
+def _coevo_block_cuda(jf0, vf0, gammas, betas, params, num_heads_j,
+                      num_heads_v, eps):
+    bf16, f32 = torch.bfloat16, torch.float32
+    _require_bf16(jf0.dtype, "coevo_block")
+    B, J, C = jf0.shape
+    V = vf0.shape[1]
+    hid = params[10][8].shape[1]
+    _require_fits("coevo_block", C, hid, num_heads_j, num_heads_v, V,
+                  _cuda.COEVO_BLOCK, "pmce_coevo_block_smem_bytes")
+    _cuda.check_cuda(jf0, "jf0", bf16, (B, J, C))
+    _cuda.check_cuda(vf0, "vf0", bf16, (B, V, C))
+    _cuda.check_cuda(gammas, "gammas", f32, (B, 12, C))
+    _cuda.check_cuda(betas, "betas", f32, (B, 12, C))
+    dev = jf0.device
+    tab = _Table(dev, C, hid)
+    tab.block(params, J, V)
+    ptrs = tab.device()
+
+    jout = torch.empty_like(jf0)
+    vout = torch.empty_like(vf0)
+    ws_bytes = _cuda.COEVO_BLOCK.query("pmce_coevo_block_workspace_bytes", J)
+    ws = torch.empty(B * ws_bytes, device=dev, dtype=torch.uint8)
+    p = _cuda.ptr
+    _cuda.COEVO_BLOCK.call(
+        "pmce_coevo_block", p(jf0), p(vf0), p(jout), p(vout), p(gammas),
+        p(betas), p(ptrs), p(ws), B, J, V, eps,
+        1.0 / math.sqrt(C // num_heads_j), 1.0 / math.sqrt(C // num_heads_v),
+        _cuda.stream_ptr(dev))
+    BLOCK_LAUNCHES.count += 1
+    return jout, vout
+
+
 def _unflatten(tree, flat):
     """``tree`` with its tensors replaced, depth first, from ``flat``."""
     if isinstance(tree, torch.Tensor):
@@ -215,41 +334,61 @@ def _unflatten(tree, flat):
     return tree
 
 
-class _ChainKernel(torch.autograd.Function):
-    """The chain on the card. The forward is the kernel; the backward is
-    autograd of :func:`coevo_chain_plain` on the saved inputs, as the JAX
-    package's ``_chain_bwd`` recomputes through ``coevo_chain_reference``
-    in XLA (``fused_coevo_chain.py:415-431``): a recompute, not a kernel."""
+class _RecomputedKernel(torch.autograd.Function):
+    """A kernel on the card whose backward is autograd of its plain version
+    on the saved inputs, as the JAX package's custom VJPs recompute through
+    their XLA oracles (``_chain_bwd``, ``fused_coevo_chain.py:415-431``;
+    ``_fused_coevo_bwd``, ``fused_attention.py:2947``): a recompute, not a
+    kernel. ``fns`` = (kernel, plain)."""
 
     @staticmethod
-    def forward(ctx, tree, heads, eps, *flat):
-        ctx.tree, ctx.heads, ctx.eps = tree, heads, eps
+    def forward(ctx, fns, tree, heads, eps, *flat):
+        ctx.plain, ctx.tree, ctx.heads, ctx.eps = fns[1], tree, heads, eps
         ctx.save_for_backward(*flat)
-        return _coevo_chain_cuda(*_unflatten(tree, iter(flat)), *heads, eps)
+        return fns[0](*_unflatten(tree, iter(flat)), *heads, eps)
 
     @staticmethod
-    def backward(ctx, g_joints, g_vertx):
-        need = ctx.needs_input_grad[3:]
+    def backward(ctx, *gouts):
+        need = ctx.needs_input_grad[4:]
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(n)
                       for t, n in zip(ctx.saved_tensors, need)]
-            outs = coevo_chain_plain(*_unflatten(ctx.tree, iter(leaves)),
-                                     *ctx.heads, ctx.eps)
+            outs = ctx.plain(*_unflatten(ctx.tree, iter(leaves)), *ctx.heads,
+                             ctx.eps)
             grads = iter(torch.autograd.grad(
-                outs, [t for t, n in zip(leaves, need) if n],
-                (g_joints, g_vertx), allow_unused=True))
-        return (None, None, None, *(next(grads) if n else None for n in need))
+                outs, [t for t, n in zip(leaves, need) if n], gouts,
+                allow_unused=True))
+        return (None, None, None, None,
+                *(next(grads) if n else None for n in need))
 
 
 def coevo_chain(joints, vertx, gammas, betas, blocks, num_heads_j: int = 8,
                 num_heads_v: int = 2, eps: float = 1e-6):
     """All CoevoBlocks + coordinate heads (args as
     :func:`coevo_chain_plain`). CPU tensors run the plain version; CUDA
-    tensors the kernel, with the plain version's recompute as its
-    backward."""
+    tensors the kernel, with the plain version's recompute as its backward
+    (f32 compute, and shapes the kernel is not built for, raise on the
+    card: queued)."""
     if not _on_card(joints, "coevo_chain"):
         return coevo_chain_plain(joints, vertx, gammas, betas, blocks,
                                  num_heads_j, num_heads_v, eps)
     tree = (joints, vertx, gammas, betas, blocks)
-    return _ChainKernel.apply(tree, (num_heads_j, num_heads_v), eps,
-                              *_tensors(tree))
+    return _RecomputedKernel.apply((_coevo_chain_cuda, coevo_chain_plain),
+                                   tree, (num_heads_j, num_heads_v), eps,
+                                   *_tensors(tree))
+
+
+def coevo_block(jf0, vf0, gammas, betas, params, num_heads_j: int = 8,
+                num_heads_v: int = 2, eps: float = 1e-6):
+    """One whole CoevoBlock (args as :func:`coevo_block_plain`). CPU
+    tensors run the plain version; CUDA tensors the kernel of
+    ``csrc/coevo_block.cu``, with the plain version's recompute as its
+    backward (f32 compute, and shapes the kernel is not built for, raise on
+    the card: queued)."""
+    if not _on_card(jf0, "coevo_block"):
+        return coevo_block_plain(jf0, vf0, gammas, betas, params,
+                                 num_heads_j, num_heads_v, eps)
+    tree = (jf0, vf0, gammas, betas, params)
+    return _RecomputedKernel.apply((_coevo_block_cuda, coevo_block_plain),
+                                   tree, (num_heads_j, num_heads_v), eps,
+                                   *_tensors(tree))

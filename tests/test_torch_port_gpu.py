@@ -72,6 +72,36 @@ def test_trunk_kernel_matches_plain():
     assert _rel(fa.lifter_trunk_plain(*args), got) < 0.03
 
 
+@pytest.mark.parametrize("T,J", [(48, 17), (81, 17), (4, 40)])
+def test_trunk_kernel_takes_groups_over_32_tokens(T, J):
+    """Temporal groups of 48 and 81 frames and spatial groups of 40 joints
+    (a thread per query, several queries a thread past 256): the kernel
+    runs, agrees with the plain version within the 3 % of the T = 16 case,
+    and a rerun is bit-identical."""
+    dev = _card()
+    rng = np.random.default_rng(T + J)
+    B, C, hid = 2, 256, 512
+
+    def r(*s, **k):
+        return _rand(rng, dev, *s, **k)
+
+    params = ((r(C, scale=0.1, offset=1.0), r(C, scale=0.1),
+               r(C, 3 * C, scale=C ** -0.5), r(3 * C, scale=0.02),
+               r(C, C, scale=C ** -0.5), r(C, scale=0.02),
+               r(C, scale=0.1, offset=1.0), r(C, scale=0.1),
+               r(C, hid, scale=C ** -0.5), r(hid, scale=0.02),
+               r(hid, C, scale=hid ** -0.5), r(C, scale=0.02)),) * 2
+    args = (r(B, T * J, C, dtype=torch.bfloat16), params,
+            (r(C, scale=0.1, offset=1.0), r(C, scale=0.1)),
+            (r(C, scale=0.1, offset=1.0), r(C, scale=0.1)),
+            r(T, C, scale=0.1), T, J, 1, 8)
+    _cuda.reset_launch_counts()
+    got = fa.lifter_trunk(*args)
+    assert torch.equal(got, fa.lifter_trunk(*args))
+    assert _cuda.launch_counts()["lifter_trunk"] == 2
+    assert _rel(fa.lifter_trunk_plain(*args), got) < 0.03
+
+
 @pytest.mark.parametrize("B", [8, 13])
 def test_gru_kernels_match_plain(B):
     """Includes a batch that is not a multiple of the 16-row tile."""
@@ -265,7 +295,8 @@ def _block_params(rng, dev, post: bool, C=256, hid=512):
 
 
 @pytest.mark.parametrize("N,post,masks", [(16, True, False), (17, True, True),
-                                          (17, False, True)])
+                                          (17, False, True), (48, True, True),
+                                          (64, False, False)])
 def test_block_kernels_match_plain(N, post, masks):
     """Forward and backward (dx, the 14 parameter gradients, the per-clip
     mask gradients) of the block kernels against the plain version's
@@ -410,3 +441,214 @@ def test_decoder_attention_kernels_refuse_f32_on_card():
     leaves, call, (kernel, _) = _dec_case(rng, dev, "ada", (2, 72, 64, 2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(kernel, leaves[0].float(), *leaves[1:])
+
+
+# ------------------------------------------------- the whole-block kernel
+def _coevo_block_args(rng, dev, B, J=19, V=431, C=64, grad=False):
+    """bf16 features, f32 AdaLN stacks and one block's 14-tuple."""
+    def t(*s, scale=0.05, offset=0.0, dtype=torch.float32):
+        return _rand(rng, dev, *s, scale=scale, offset=offset,
+                     dtype=dtype).requires_grad_(grad)
+
+    def w(i, o):
+        return t(i, o, scale=i ** -0.5)
+
+    def ca():
+        return (w(C, C), t(C), w(C, C), t(C), w(C, C), t(C), w(C, C), t(C),
+                w(C, 4 * C), t(4 * C), w(4 * C, C), t(C))
+
+    def sa():
+        return (w(C, 3 * C), t(3 * C), w(C, C), t(C), w(C, 4 * C),
+                t(4 * C), w(4 * C, C), t(C))
+
+    params = (t(J, C, scale=1.0), t(V, C, scale=1.0), t(J, C, scale=1.0),
+              t(V, C, scale=1.0), t(V, C, scale=1.0), t(J, C, scale=1.0),
+              w(C, C), t(C), w(C, C), t(C), ca(), ca(), sa(), sa())
+    bf = torch.bfloat16
+    return (t(B, J, C, scale=1.0, dtype=bf), t(B, V, C, scale=1.0, dtype=bf),
+            t(B, 12, C, scale=0.1, offset=1.0), t(B, 12, C, scale=0.1),
+            params)
+
+
+@pytest.mark.parametrize("V", [431, 61])
+def test_coevo_block_kernel_matches_plain(V):
+    """The whole-block kernel against its plain version within 2 % of each
+    output's largest magnitude (the chain's band: the same block program),
+    one launch a call, and a rerun bit for bit."""
+    dev = _card()
+    args = _coevo_block_args(np.random.default_rng(V), dev, 5, V=V)
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = fc.coevo_block(*args, 8, 2)
+        again = fc.coevo_block(*args, 8, 2)
+        want = fc.coevo_block_plain(*args, 8, 2)
+    assert _cuda.launch_counts()["coevo_block"] == 2
+    for a, a2, b in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, a2)
+        assert _rel(b, a) < 0.02
+
+
+def test_coevo_block_runs_its_kernel_not_the_plain_version():
+    """With the plain version made to raise, a bf16 forward on the card
+    still succeeds: the kernel computes it."""
+    from unittest import mock
+
+    dev = _card()
+    args = _coevo_block_args(np.random.default_rng(2), dev, 3)
+    with mock.patch.object(fc, "coevo_block_plain",
+                           side_effect=AssertionError("plain version ran")), \
+            torch.no_grad():
+        jout, vout = fc.coevo_block(*args, 8, 2)
+    assert jout.shape == (3, 19, 64) and vout.shape == (3, 431, 64)
+
+
+def test_coevo_block_backward_is_the_plain_recompute():
+    """The whole-block kernel's gradient is autograd of the plain version on
+    the saved inputs (JAX's ``_fused_coevo_bwd``): the plain path's own
+    gradient, to f32 rounding."""
+    dev = _card()
+    args = _coevo_block_args(np.random.default_rng(3), dev, 3, grad=True)
+    leaves = fa._tensors(args)
+    outs_k = fc.coevo_block(*args, 8, 2)
+    outs_p = fc.coevo_block_plain(*args, 8, 2)
+    cot = tuple(torch.randn_like(o) for o in outs_p)
+    gk = torch.autograd.grad(outs_k, leaves, cot)
+    gp = torch.autograd.grad(outs_p, leaves, cot)
+    for a, b in zip(gk, gp):
+        assert torch.allclose(a.float(), b.float(), rtol=1e-5, atol=1e-6)
+
+
+def test_coevo_block_kernel_refuses_f32_on_card():
+    dev = _card()
+    jf0, vf0, g, b, params = _coevo_block_args(np.random.default_rng(4),
+                                               dev, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fc.coevo_block(jf0.float(), vf0.float(), g, b, params, 8, 2)
+
+
+def test_coevo_kernels_refuse_a_vertex_stream_over_shared_memory():
+    """Both coevo libraries plan the same shared memory; 460 vertices are
+    over sm_90's limit, and the whole block raises naming ROADMAP (JAX's
+    kernel takes them) instead of running its plain version."""
+    dev = _card()
+    for V in (48, 431, 460):
+        assert _cuda.COEVO_BLOCK.query("pmce_coevo_block_smem_bytes", V) \
+            == _cuda.CHAIN.query("pmce_chain_smem_bytes", V)
+    jf0, vf0, g, b, params = _coevo_block_args(np.random.default_rng(5),
+                                               dev, 1, V=460)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        fc.coevo_block(jf0, vf0, g, b, params, 8, 2)
+
+
+# ------------------------------------- reproducible Stage-2 gradients (C2)
+def _stage2_case(dev, fused: bool):
+    """A PMCE at the kernels' widths (lifter 256, decoder 64, 431 coarse
+    vertices), depth 1, GRU 64, over a 2000-vertex stand-in mesh, bf16, its
+    weights and a batch of 8 from seeds."""
+    from pmce_tpu_torch.core.losses import build_face_losses
+    from pmce_tpu_torch.models.pmce import PMCE
+    from pmce_tpu_torch.smpl.artifacts import synthetic_artifacts
+
+    Jm, Bm, NV, V = 17, 8, 431, 2000
+    rng = np.random.default_rng(11)
+    art = synthetic_artifacts(seed=0, num_verts=V, num_faces=3000)
+    vj = tuple(int(i) for i in rng.integers(0, Jm, size=NV))
+    model = PMCE(num_joint=Jm, vj_relation=vj, embed_dim=256, depth=1,
+                 num_vertx=NV, num_verts_full=V, gru_hidden=64,
+                 dtype=torch.bfloat16, fused=fused)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(dev).train()
+
+    def r(*s, scale=1.0):
+        return torch.from_numpy((rng.normal(size=s) * scale).astype(
+            np.float32)).to(dev)
+
+    def mask(*s):
+        return torch.from_numpy((rng.random(s) > 0.2).astype(
+            np.float32)).to(dev)
+
+    batch = {"pose2d": r(Bm, 16, Jm, 2), "img_feature": r(Bm, 16, 2048),
+             "mesh": r(Bm, V, 3, scale=0.3),
+             "lift_pose3d": r(Bm, Jm, 3, scale=300),
+             "reg_pose3d": r(Bm, 17, 3, scale=300),
+             "mesh_valid": mask(Bm, 1, 1),
+             "lift_pose3d_valid": mask(Bm, Jm, 1),
+             "reg_pose3d_valid": mask(Bm, 17, 1)}
+    jr = torch.from_numpy(art.J_regressor[:17].astype(np.float32)).to(dev)
+    faces = torch.as_tensor(art.faces, dtype=torch.long, device=dev)
+    return model, batch, jr, faces, build_face_losses(art.faces, V, dev)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_stage2_first_step_gradients_are_reproducible(fused):
+    """Two first Stage-2 steps (same weights, batch and drop-path masks) give
+    the same gradients bit for bit. On failure the message lists each
+    parameter's largest difference."""
+    from pmce_tpu_torch.core.trainer import pmce_loss
+
+    dev = _card()
+    model, batch, jr, faces, face_fn = _stage2_case(dev, fused)
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        loss, _ = pmce_loss(model, batch, faces, jr, (0.1, 20.0, 1e-3), 1.0,
+                            face_fn, torch.Generator(dev).manual_seed(7))
+        loss.backward()
+        runs.append((loss.detach().clone(),
+                     {n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None}))
+    (l1, g1), (l2, g2) = runs
+    differ = {n: float((g1[n].float() - g2[n].float()).abs().max())
+              for n in g1 if not torch.equal(g1[n], g2[n])}
+    print(f"fused={fused}: {len(differ)} of {len(g1)} gradients differ "
+          f"between two runs: {differ}")
+    assert torch.equal(l1, l2)
+    assert not differ, differ
+
+
+# ----------------------------------------------------- shape gates (C3)
+def test_fused_lifter_at_seqlen_48_runs_and_agrees_with_plain():
+    """At T = 48, where the JAX package runs its kernels too, the fused
+    bf16 lifter runs on the card's kernels: the trunk in eval mode, every
+    block forward and backward (17 and 48 tokens) in training mode; both
+    agree with the all-plain path (training: every gradient within 3 %, as
+    chip_smoke.py's first-step band)."""
+    import contextlib
+    from unittest import mock
+
+    from pmce_tpu_torch.models.pose_lifter import create_pose_lifter
+
+    dev = _card()
+    rng = np.random.default_rng(12)
+    pose2d = torch.from_numpy(rng.standard_normal(
+        (4, 48, 17, 2), dtype=np.float32)).to(dev)
+    feat = torch.from_numpy(rng.standard_normal(
+        (4, 48, 2048), dtype=np.float32)).to(dev)
+    model = create_pose_lifter(num_frames=48, embed_dim=256, depth=2,
+                               dtype=torch.bfloat16, fused=True, device=dev)
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        out = model(pose2d, feat)
+        with mock.patch.object(fa, "lifter_trunk", fa.lifter_trunk_plain):
+            want = model(pose2d, feat)
+    assert _cuda.launch_counts()["lifter_trunk"] == 1
+    assert bool(torch.isfinite(out).all()) and _rel(want, out) < 0.03
+
+    model.train()
+    grads = []
+    for patch in (None, fa.transformer_block_plain):
+        model.zero_grad(set_to_none=True)
+        ctx = (mock.patch.object(fa, "transformer_block", patch) if patch
+               else contextlib.nullcontext())
+        _cuda.reset_launch_counts()
+        with ctx:
+            y = model(pose2d, feat, torch.Generator(dev).manual_seed(3))
+            y.square().mean().backward()
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+        if patch is None:
+            counts = _cuda.launch_counts()
+            assert counts["block_fwd"] == counts["block_bwd"] == 4
+    for n, g in grads[1].items():
+        assert _rel(g, grads[0][n]) < 0.03, n

@@ -57,7 +57,12 @@ from pmce_tpu_torch.ops import fused_attention as fa
 from pmce_tpu_torch.ops import fused_coevo_chain as fc
 from pmce_tpu_torch.smpl.artifacts import synthetic_artifacts
 
-from torch_port_common import init_shapes, numpy_params, rel_max_err
+from torch_port_common import (
+    init_shapes,
+    numpy_params,
+    perturbed_init,
+    rel_max_err,
+)
 
 T, J, B, V, NV = 16, 17, 8, 600, 40
 CFG = dict(embed_dim=32, depth=1, num_vertx=NV, num_verts_full=V,
@@ -476,7 +481,7 @@ def _pmce_trainer(body, mesh_datasets, ckpt_dir, seed=0):
     cfg.TRAIN.end_epoch, cfg.TRAIN.steps_per_epoch = 2, 3
     cfg.TRAIN.edge_loss_start = 1
     model = PMCE(num_joint=J, vj_relation=VJ, **CFG)
-    model.reset_parameters(torch.Generator().manual_seed(seed))
+    perturbed_init(model, torch.Generator().manual_seed(seed))
     train_ds, test_ds = mesh_datasets
     log = []
     trainer = Trainer(cfg=cfg, model=model,
@@ -528,7 +533,7 @@ def test_lifter_warm_start_loads_stage1_weights(tmp_path):
     ckpt_lib.save_checkpoint(str(tmp_path), 1, 1,
                              {"params": lifter.state_dict()}, is_best=True)
     model = PMCE(num_joint=J, vj_relation=VJ, **CFG)
-    model.reset_parameters(torch.Generator().manual_seed(0))
+    perturbed_init(model, torch.Generator().manual_seed(0))
     decoder = {k: v.clone() for k, v in
                model.pose_mesh_coevo.state_dict().items()}
     load_lifter_checkpoint(model, str(tmp_path))

@@ -13,10 +13,13 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 TESTS = Path(__file__).resolve().parent
 sys.path.insert(0, str(TESTS.parent / "tools"))
 sys.path.insert(0, str(TESTS))
+
+from torch_port_init import perturbed_init  # noqa: E402,F401  (re-exported)
 
 
 def numpy_params(shapes, seed: int):
