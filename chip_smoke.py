@@ -14,7 +14,10 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    training step at batch 64, the Stage-2 step at batch 32, the SMPL
    forward at B=256), with its
    tolerance; both timed with CUDA events (median after warm-up), beside
-   the bound of the same work on this card;
+   the bound of the same work on this card; the trunk and the whole block
+   rerun bit for bit, and the trunk's long-group route (groups over its
+   block kernel's 128-row tile) against its plain version under its own
+   counter;
 3. serving forward: ``create_pmce(num_joint=19, dtype=bfloat16, fused=True,
    device="cuda")`` at full width, random weights from a seed, B=256. The
    launch counters are zeroed just before it and read just after: every
@@ -64,7 +67,10 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    memory beside phase 5's.
 
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
-each train step's device time by kernel.
+each train step's device time by kernel and, before phase 2, the stage
+split of the trunk (K1), the decoder chain (K3) and the whole block (row
+14): one call of each kernel's clock64()-stamped instantiation (not
+counted as a launch) books every tile's or clip's cycles to its stages.
 
 The second-to-last line is one JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -137,7 +143,7 @@ MESH_TRAINING = ("gru_layer_save", "gru_layer_bwd", "gru_layer",
 # The decoder's attention blocks (phase 6; idle in phase 5).
 DECODER = ("mhsa_fwd", "mhsa_bwd", "ada_block_fwd", "ada_block_bwd",
            "ca_block_fwd", "ca_block_bwd")
-MESH_IDLE = ("lifter_trunk", "coevo_chain", "block_fwd", "block_bwd",
+MESH_IDLE = ("lifter_trunk", "lifter_trunk_long", "coevo_chain", "block_fwd", "block_bwd",
              "skinning", "coevo_block", *DECODER)
 # Kernel vs plain version on identical inputs, as max|kernel - plain| over
 # max|plain| (for the block backward: per gradient). Both compute f32 sums
@@ -156,7 +162,8 @@ MESH_IDLE = ("lifter_trunk", "coevo_chain", "block_fwd", "block_bwd",
 # plain versions' cast points with f32 sums in another order; per output
 # and per gradient, as the block's. The whole-block kernel runs the chain's
 # block program (csrc/coevo_ops.cuh) on bf16 features: the chain's band.
-TOL = {"lifter_trunk": 0.03, "gru_layer": 0.01, "gru_layer_rev": 0.01,
+TOL = {"lifter_trunk": 0.03, "lifter_trunk_long": 0.03,
+       "gru_layer": 0.01, "gru_layer_rev": 0.01,
        "coevo_chain": 0.02, "coevo_block": 0.02, "block_fwd": 0.02,
        "block_bwd": 0.02,
        "gru_layer_save": 0.01, "gru_layer_bwd": 0.02,
@@ -321,6 +328,16 @@ def trunk_case(r, batch: int, depth: int = 3, hid: int = 512):
     return (x, params, norm_s, norm_t, r(T, C, scale=0.1), T, J, depth, 8)
 
 
+def long_trunk_case(r, batch: int = 2, T_: int = 130, J_: int = 3):
+    """One spatial + temporal block at T = 130 (temporal groups over the
+    block kernel's tile), the long route's shapes."""
+    import torch
+
+    x, params, norm_s, norm_t, _, _, _, _, heads = trunk_case(r, 1, depth=1)
+    return (r(batch, T_ * J_, C, dtype=torch.bfloat16), params, norm_s,
+            norm_t, r(T_, C, scale=0.1), T_, J_, 1, heads)
+
+
 def gru_case(r, steps: int, batch: int, H: int = 1024):
     import torch
 
@@ -381,6 +398,7 @@ def check_kernels(device) -> dict:
     """Phase 2: every kernel against its plain version at main-path shapes."""
     import torch
 
+    from pmce_tpu_torch.ops import _cuda
     from pmce_tpu_torch.ops import fused_attention as fa
     from pmce_tpu_torch.ops import fused_coevo_chain as fc
 
@@ -417,8 +435,16 @@ def check_kernels(device) -> dict:
         record(rows, name, err, ms, plain_ms, flops,
                tensor_bytes(args, outs_k), "bf16")
 
-    compare("lifter_trunk", fa.lifter_trunk, fa.lifter_trunk_plain,
-            trunk_case(r, B), f"B={B} T*J={T * J} C={C}")
+    args = trunk_case(r, B)
+    compare("lifter_trunk", fa.lifter_trunk, fa.lifter_trunk_plain, args,
+            f"B={B} T*J={T * J} C={C}")
+    with torch.no_grad():
+        first, again = fa.lifter_trunk(*args), fa.lifter_trunk(*args)
+    if not torch.equal(first, again):
+        raise RuntimeError("lifter_trunk: two runs differ")
+    print("[kernels] lifter_trunk: a second run gives the same tokens bit "
+          "for bit", flush=True)
+    del args, first, again
     for steps in (16, 9):
         compare("gru_layer", fa.gru_layer, fa.gru_layer_plain,
                 gru_case(r, steps, B), f"T={steps} B={B} H=1024")
@@ -453,6 +479,14 @@ def check_kernels(device) -> dict:
     check_blocks(device, rows)
     check_decoder_blocks(device, rows)
     check_skinning(device, rows)
+    # The trunk's long-group route (temporal groups of 130 frames, over the
+    # block kernel's 128-row tile): its own kernels and counter, not on a
+    # main path, so not in the kernels line.
+    _cuda.reset_launch_counts()
+    compare("lifter_trunk_long", fa.lifter_trunk, fa.lifter_trunk_plain,
+            long_trunk_case(r), "B=2 T=130 J=3 depth 1")
+    if _cuda.launch_counts()["lifter_trunk"]:
+        raise RuntimeError("T=130: the block route ran a 130-token group")
     return rows
 
 
@@ -704,10 +738,13 @@ def check_decoder_blocks(device, rows) -> None:
             raise RuntimeError(f"{name}_bwd {where}: two runs differ")
         print(f"[kernels] {name}_bwd {where}: a second run gives the same "
               f"gradients bit for bit", flush=True)
-        if kind == "mhsa" and rows["mhsa_fwd"]["library_ms"] is None:
+        if kind == "mhsa":
+            # Every mhsa case gets its yardstick; the kernels line keeps
+            # the first case's, beside that case's kernel time.
             lib_f, lib_b = mha_library_ms(leaves, heads)
-            rows["mhsa_fwd"]["library_ms"] = lib_f
-            rows["mhsa_bwd"]["library_ms"] = lib_b
+            if rows["mhsa_fwd"]["library_ms"] is None:
+                rows["mhsa_fwd"]["library_ms"] = lib_f
+                rows["mhsa_bwd"]["library_ms"] = lib_b
             print(f"[kernels] library: F.multi_head_attention_forward "
                   f"{where}, bf16: forward {lib_f:.4f} ms, autograd "
                   f"backward {lib_b:.4f} ms", flush=True)
@@ -823,6 +860,8 @@ def serve(device, profile: bool) -> tuple[float, dict, float, dict]:
         if missing:
             raise RuntimeError(f"kernels not launched on the serving path: "
                                f"{missing}")
+        if counts["lifter_trunk_long"]:
+            raise RuntimeError("the serving trunk took the long-group route")
         for name, t in outs.items():
             if tuple(t.shape) != expect[name] or t.dtype != torch.float32:
                 raise RuntimeError(f"{name}: {tuple(t.shape)} {t.dtype}")
@@ -1016,6 +1055,8 @@ def train(device, profile: bool) -> tuple[dict, float, dict]:
     evals = 2 * -(-len(test_ds) // BT)
     expect = {"block_fwd": 6 * steps, "block_bwd": 6 * steps,
               "lifter_trunk": evals, "skinning": 4}
+    if counts["lifter_trunk_long"]:
+        raise RuntimeError("the evaluation trunk took the long-group route")
     for name in TRAINING:
         if counts[name] == 0 or counts[name] != expect[name]:
             raise RuntimeError(f"training path: {name} launched "
@@ -1230,8 +1271,8 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
                        "ada_block_fwd": 3 * steps,
                        "ada_block_bwd": 3 * steps,
                        "ca_block_fwd": 6 * steps, "ca_block_bwd": 4 * steps,
-                       "lifter_trunk": evals, "coevo_chain": evals,
-                       "skinning": 0})
+                       "lifter_trunk": evals, "lifter_trunk_long": 0,
+                       "coevo_chain": evals, "skinning": 0})
         wrong = {k: (v, counts[k]) for k, v in expect.items()
                  if counts[k] != v}
         if wrong or any(counts[k] == 0 for k in DECODER):
@@ -1453,6 +1494,47 @@ def profile_step(step, what: str = "train step", n: int = 5) -> None:
               flush=True)
 
 
+def print_split(tag: str, split: dict) -> None:
+    """Shares of a stamped launch's cycles by stage and by kind."""
+    total = sum(split.values())
+    for axis, label in ((0, "stage"), (1, "kind")):
+        agg: dict = {}
+        for key, v in split.items():
+            agg[key[axis]] = agg.get(key[axis], 0) + v
+        print(f"[split] {tag} by {label}: " + ", ".join(
+            f"{k} {v / total:.1%}" for k, v in sorted(
+                agg.items(), key=lambda kv: -kv[1])), flush=True)
+    print(f"[split] {tag} by stage and kind: " + ", ".join(
+        f"{s}/{k} {v / total:.1%}" for (s, k), v in sorted(
+            split.items(), key=lambda kv: -kv[1])), flush=True)
+
+
+def stage_split(device) -> None:
+    """--profile: where one launch's time goes inside the trunk (K1) and the
+    decoder chain (K3) and whole block (row 14), at the serving shapes:
+    each kernel's clock64()-stamped instantiation (one call, not counted
+    on any path) gives every tile's or clip's cycles per stage; the shares
+    are of their sum over the tiles or clips."""
+    import torch
+
+    from pmce_tpu_torch.ops import fused_attention as fa
+    from pmce_tpu_torch.ops import fused_coevo_chain as fc
+
+    r = Inputs(1, device)
+    trunk = trunk_case(r, B)
+    split = fa.trunk_stage_split(*trunk)
+    total = sum(split.values())
+    print("[split] lifter_trunk (K1) by stage: " + ", ".join(
+        f"{k} {v / total:.1%}" for k, v in split.items()), flush=True)
+    chain = chain_case(r, B)
+    print_split("coevo_chain (K3)", fc.coevo_stage_split("chain", *chain[:5]))
+    block = coevo_block_case(r, B)
+    print_split("coevo_block (row 14)",
+                fc.coevo_stage_split("block", *block[:5]))
+    del trunk, chain, block
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -1487,6 +1569,8 @@ def main() -> int:
                     print(f"[build] {lib.source}: {line.strip()}", flush=True)
 
     profile = "--profile" in sys.argv[1:]
+    if profile:
+        stage_split(device)
     rows = check_kernels(device)
     fps, serve_counts, wb_fps, wb_counts = serve(device, profile)
     train_counts, step_ms, stage1 = train(device, profile)

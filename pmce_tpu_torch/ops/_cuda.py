@@ -168,6 +168,9 @@ TRUNK = CudaLibrary("lifter_trunk", "pmce_trunk_error_string", {
     "pmce_trunk_ln": (I, (P, I, P, P, P, P, I, I, I, F, P)),
     "pmce_trunk_gemm": (I, GEMM_ARGS),
     "pmce_trunk_attn": (I, (P, P, I, I, I, I, I, I, P)),
+    "pmce_trunk_block": (I, (P,) * 17 + (I, I, I, I, I, F, F, P, P)),
+    "pmce_trunk_tile_rows": (I, ()),
+    "pmce_trunk_stamps": (I, ()),
 })
 GRU = CudaLibrary("gru_scan", "pmce_gru_error_string", {
     "pmce_gru_step": (I, (P, P, P, P, P, P, P, P, I, I, I, P)),
@@ -179,11 +182,15 @@ CHAIN = CudaLibrary("coevo_chain", "pmce_chain_error_string", {
     "pmce_chain_workspace_bytes": (ctypes.c_longlong, (I,)),
     "pmce_chain_smem_bytes": (ctypes.c_longlong, (I,)),
     "pmce_coevo_chain": (I, (P, P, P, P, P, P, P, I, I, I, I, F, F, F, P)),
+    "pmce_coevo_chain_prof": (I, (P, P, P, P, P, P, P, I, I, I, I, F, F, F,
+                                  P, P)),
+    "pmce_max_stamps": (I, ()),
 })
 COEVO_BLOCK = CudaLibrary("coevo_block", "pmce_coevo_block_error_string", {
     "pmce_coevo_block_workspace_bytes": (ctypes.c_longlong, (I,)),
     "pmce_coevo_block_smem_bytes": (ctypes.c_longlong, (I,)),
     "pmce_coevo_block": (I, (P,) * 8 + (I, I, I, F, F, F, P)),
+    "pmce_coevo_block_prof": (I, (P,) * 8 + (I, I, I, F, F, F, P, P)),
 })
 BLOCK = CudaLibrary("block", "pmce_block_error_string", {
     "pmce_block_ln": (I, (P, I, P, P, P, I, F, P)),

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from pmce_tpu_torch.ops import _cuda
 
 TRUNK_LAUNCHES = _cuda.launch_counter("lifter_trunk")
+TRUNK_LONG_LAUNCHES = _cuda.launch_counter("lifter_trunk_long")
 GRU_LAUNCHES = _cuda.launch_counter("gru_layer")
 GRU_REV_LAUNCHES = _cuda.launch_counter("gru_layer_rev")
 GRU_SAVE_LAUNCHES = _cuda.launch_counter("gru_layer_save")
@@ -213,23 +214,24 @@ def trunk_kernel_fits(C: int, num_heads: int, hid: int) -> bool:
     return C == 256 and C == 32 * num_heads and hid % 128 == 0
 
 
-def _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
-                       num_heads, eps):
-    B, R, C = x.shape
+# The block kernel's tile holds whole attention groups of up to this many
+# tokens (csrc/lifter_trunk.cu, tb::TM); longer groups take the long route.
+TRUNK_TILE_ROWS = 128
+
+
+def trunk_route(T: int, J: int) -> str:
+    """Which hand-written route the trunk takes on the card: "block" (one
+    launch per transformer block, tiles of whole groups) when every
+    spatial group (J tokens) and temporal group (T tokens) fits in a tile,
+    else "long" (8 launches per block, any group size)."""
+    return "block" if max(T, J) <= TRUNK_TILE_ROWS else "long"
+
+
+def _trunk_weights(params, norm_s, norm_t, tpe, C, hid, T, dev):
+    """The kernels' copies of the trunk's weights: per block (g1, b1, wqkv,
+    bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2) with products in bf16 and
+    vectors in f32, the two post-norms and tpe."""
     bf16, f32 = torch.bfloat16, torch.float32
-    if x.dtype != bf16:
-        raise NotImplementedError(
-            "the trunk kernel takes bf16 tokens; the f32 model runs the "
-            "modular path")
-    hid = params[0][8].shape[1]
-    if R != T * J or len(params) != 2 * depth:
-        raise ValueError(f"trunk: R={R} tokens for T={T} x J={J}, "
-                         f"{len(params)} blocks for depth {depth}")
-    _cuda.check_cuda(x, "x", bf16, (B, R, C))
-    dev = x.device
-    M = B * R
-    stream = _cuda.stream_ptr(dev)
-    lib = _cuda.TRUNK
 
     def vec(a, n, name):
         return _cuda.to_kernel(a, dev, f32, (n,), name)
@@ -237,6 +239,88 @@ def _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
     def mat(a, rows, cols, name):
         return _cuda.to_kernel(a, dev, bf16, (rows, cols), name)
 
+    blocks = []
+    for w in params:
+        (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2) = w
+        blocks.append((vec(g1, C, "ln1 scale"), vec(b1, C, "ln1 bias"),
+                       mat(wqkv, C, 3 * C, "wqkv"), vec(bqkv, 3 * C, "bqkv"),
+                       mat(wproj, C, C, "wproj"), vec(bproj, C, "bproj"),
+                       vec(g2, C, "ln2 scale"), vec(b2, C, "ln2 bias"),
+                       mat(w1, C, hid, "w_fc1"), vec(bb1, hid, "b_fc1"),
+                       mat(w2, hid, C, "w_fc2"), vec(bb2, C, "b_fc2")))
+    post = tuple((vec(g, C, "post-norm scale"), vec(b, C, "post-norm bias"))
+                 for g, b in (norm_s, norm_t))
+    return blocks, post, _cuda.to_kernel(tpe, dev, f32, (T, C), "tpe")
+
+
+def _trunk_checks(x, params, T, J, depth):
+    B, R, C = x.shape
+    if x.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "the trunk kernel takes bf16 tokens; the f32 model runs the "
+            "modular path")
+    if R != T * J or len(params) != 2 * depth:
+        raise ValueError(f"trunk: R={R} tokens for T={T} x J={J}, "
+                         f"{len(params)} blocks for depth {depth}")
+    _cuda.check_cuda(x, "x", torch.bfloat16, (B, R, C))
+
+
+def _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
+                       num_heads, eps=1e-6, stamps=None):
+    """The block route: one ``pmce_trunk_block`` launch per transformer
+    block. ``stamps`` (the profile's stage split): a list that receives,
+    per block, the stamped instantiation's [tiles, 8] cycle counts; such a
+    call is not counted as a launch of the path."""
+    _trunk_checks(x, params, T, J, depth)
+    B, R, C = x.shape
+    hid = params[0][8].shape[1]
+    dev = x.device
+    blocks, post, tpe_c = _trunk_weights(params, norm_s, norm_t, tpe, C, hid,
+                                         T, dev)
+    stream = _cuda.stream_ptr(dev)
+    p, null = _cuda.ptr, _cuda.P(None)
+    qscale = 1.0 / math.sqrt(C // num_heads)
+    tile = int(_cuda.TRUNK.query("pmce_trunk_tile_rows"))
+    nstamp = int(_cuda.TRUNK.query("pmce_trunk_stamps"))
+    outs = (torch.empty_like(x), torch.empty_like(x))
+    cur = x
+    for i, w in enumerate(blocks):
+        temporal = i % 2 == 1
+        n, groups = (T, B * J) if temporal else (J, B * T)
+        st = None
+        if stamps is not None:
+            tiles = -(-groups // (tile // n))
+            st = torch.zeros(tiles, nstamp, dtype=torch.int64, device=dev)
+            stamps.append(st)
+        nxt = outs[i % 2]
+        (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2) = w
+        _cuda.TRUNK.call(
+            "pmce_trunk_block", p(cur), p(nxt), p(wqkv), p(wproj), p(w1),
+            p(w2), p(g1), p(b1), p(bqkv), p(bproj), p(g2), p(b2), p(bb1),
+            p(bb2), *map(p, post[int(temporal)]),
+            p(tpe_c) if i == 0 else null, B, T, J, int(temporal), hid, eps,
+            qscale, p(st) if st is not None else null, stream)
+        cur = nxt
+    if stamps is None:
+        TRUNK_LAUNCHES.count += 1
+    return cur
+
+
+def _lifter_trunk_long(x, params, norm_s, norm_t, tpe, T, J, depth,
+                       num_heads, eps=1e-6):
+    """The long-group route (a group over :data:`TRUNK_TILE_ROWS` tokens):
+    8 launches per block over all B·T·J rows (row LayerNorm, the WMMA GEMM
+    with fused epilogues, grouped attention of any group size)."""
+    _trunk_checks(x, params, T, J, depth)
+    B, R, C = x.shape
+    bf16, f32 = torch.bfloat16, torch.float32
+    hid = params[0][8].shape[1]
+    dev = x.device
+    M = B * R
+    stream = _cuda.stream_ptr(dev)
+    lib = _cuda.TRUNK
+    blocks, post, tpe_c = _trunk_weights(params, norm_s, norm_t, tpe, C, hid,
+                                         T, dev)
     h = torch.empty(M, C, device=dev, dtype=bf16)
     qkv = torch.empty(M, 3 * C, device=dev, dtype=bf16)
     o = torch.empty(M, C, device=dev, dtype=bf16)
@@ -244,9 +328,6 @@ def _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
     hh = torch.empty(M, hid, device=dev, dtype=bf16)
     y = torch.empty(M, C, device=dev, dtype=bf16)
     outs = (torch.empty_like(x), torch.empty_like(x))
-    tpe_c = _cuda.to_kernel(tpe, dev, f32, (T, C), "tpe")
-    post = tuple((vec(g, C, "post-norm scale"), vec(b, C, "post-norm bias"))
-                 for g, b in (norm_s, norm_t))
     p = _cuda.ptr
     null = _cuda.P(None)
     qscale = 1.0 / math.sqrt(C // num_heads)
@@ -260,14 +341,8 @@ def _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
               res=res, qcols=C, qscale=qscale, stream=stream)
 
     cur = x
-    for i, w in enumerate(params):
+    for i, w in enumerate(blocks):
         (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2) = w
-        g1, b1 = vec(g1, C, "ln1 scale"), vec(b1, C, "ln1 bias")
-        g2, b2 = vec(g2, C, "ln2 scale"), vec(b2, C, "ln2 bias")
-        wqkv, bqkv = mat(wqkv, C, 3 * C, "wqkv"), vec(bqkv, 3 * C, "bqkv")
-        wproj, bproj = mat(wproj, C, C, "wproj"), vec(bproj, C, "bproj")
-        w1, bb1 = mat(w1, C, hid, "w_fc1"), vec(bb1, hid, "b_fc1")
-        w2, bb2 = mat(w2, hid, C, "w_fc2"), vec(bb2, C, "b_fc2")
         temporal = i % 2 == 1
         ln(cur, False, h, g1, b1, False)
         gemm(h, wqkv, bqkv, None, qkv, 3 * C, C, _EPI_QKV)
@@ -280,8 +355,33 @@ def _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
         nxt = outs[i % 2]
         ln(y, False, nxt, *post[int(temporal)], i == 0)
         cur = nxt
-    TRUNK_LAUNCHES.count += 1
+    TRUNK_LONG_LAUNCHES.count += 1
     return cur
+
+
+def _trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth, num_heads,
+                eps):
+    route = (_lifter_trunk_cuda if trunk_route(T, J) == "block"
+             else _lifter_trunk_long)
+    return route(x, params, norm_s, norm_t, tpe, T, J, depth, num_heads, eps)
+
+
+TRUNK_STAGES = ("LN1", "QKV", "attention", "proj", "LN2", "fc1", "fc2",
+                "post-norm + store")
+
+
+def trunk_stage_split(x, params, norm_s, norm_t, tpe, T: int, J: int,
+                      depth: int, num_heads: int, eps: float = 1e-6) -> dict:
+    """One forward of the block route's stamped instantiation on the card:
+    {stage: cycles summed over every tile of every block} (the stage names
+    of :data:`TRUNK_STAGES`). Not counted as a launch of the path."""
+    stamps: list = []
+    with torch.no_grad():
+        _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
+                           num_heads, eps, stamps=stamps)
+    torch.cuda.synchronize()
+    total = sum(st.sum(0) for st in stamps).cpu().tolist()
+    return dict(zip(TRUNK_STAGES, total))
 
 
 def trunk_recompute(x, params, norm_s, norm_t, tpe, T: int, J: int,
@@ -327,8 +427,8 @@ class _TrunkKernel(torch.autograd.Function):
         params = tuple(tuple(flat[12 * i:12 * i + 12]) for i in range(2 * depth))
         ctx.cfg = cfg
         ctx.save_for_backward(x, *flat)
-        return _lifter_trunk_cuda(x, params, flat[n:n + 2], flat[n + 2:n + 4],
-                                  flat[n + 4], T, J, depth, num_heads, eps)
+        return _trunk_cuda(x, params, flat[n:n + 2], flat[n + 2:n + 4],
+                           flat[n + 4], T, J, depth, num_heads, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -352,9 +452,10 @@ def lifter_trunk(x, params, norm_s, norm_t, tpe, T: int, J: int,
                  depth: int, num_heads: int, eps: float = 1e-6):
     """The whole lifter trunk (see :func:`lifter_trunk_plain` for args).
 
-    CPU tensors run the plain version; CUDA tensors the kernel sequence of
-    ``csrc/lifter_trunk.cu`` (bf16 only; widths :func:`trunk_kernel_fits`
-    refuses raise, see :func:`require_kernel`). A call on the card that
+    CPU tensors run the plain version; CUDA tensors ``csrc/lifter_trunk.cu``
+    (bf16 only; widths :func:`trunk_kernel_fits` refuses raise, see
+    :func:`require_kernel`): one launch per transformer block, or for groups
+    over a tile the long route (:func:`trunk_route`). A call on the card that
     owes a gradient gets JAX's: :class:`_TrunkKernel` recomputes the trunk
     with its attention through :func:`fused_mhsa` (kernels forward and
     backward) and differentiates that."""
@@ -368,8 +469,8 @@ def lifter_trunk(x, params, norm_s, norm_t, tpe, T: int, J: int,
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, *flat)):
         return _TrunkKernel.apply(x, (T, J, depth, num_heads, eps), *flat)
-    return _lifter_trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
-                              num_heads, eps)
+    return _trunk_cuda(x, params, norm_s, norm_t, tpe, T, J, depth,
+                       num_heads, eps)
 
 
 # ---------------------------------------------------------------------------

@@ -217,7 +217,9 @@ class _Table:
         self.ptrs.append(t.data_ptr())
 
     def mat(self, a, rows, cols):
-        self.put(a, torch.bfloat16, (rows, cols))
+        """A product [rows, cols], stored transposed: W^T [cols, rows] is
+        the layout of the kernels' B fragments (csrc/coevo_ops.cuh)."""
+        self.put(a.detach().t(), torch.bfloat16, (cols, rows))
 
     def vec(self, a, *shape):
         self.put(a, torch.float32, shape)
@@ -228,6 +230,12 @@ class _Table:
         for w, b, rows, cols in layers:
             self.mat(w, rows, cols)
             self.vec(b, cols)
+
+    def embed(self, w, b, cols):
+        """A 3 -> cols projection, as given (the chain's embed3 reads it
+        [3, cols]), and its bias."""
+        self.put(w, torch.bfloat16, (3, cols))
+        self.vec(b, cols)
 
     def block(self, kp, J, V):
         """One block's K_* entries from its 14-tuple."""
@@ -250,11 +258,16 @@ class _Table:
         assert len(self.ptrs) - start == _BLOCK_TABLE_LEN
 
     def device(self):
-        return torch.tensor(self.ptrs, dtype=torch.int64, device=self.dev)
+        """The pointer table on the card, copied from pinned memory without
+        waiting: a copy from pageable memory makes the host wait for every
+        launch queued before it, and the card then idles while the host
+        prepares the rest of the forward."""
+        host = torch.tensor(self.ptrs, dtype=torch.int64).pin_memory()
+        return host.to(self.dev, non_blocking=True)
 
 
 def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
-                      num_heads_v, eps):
+                      num_heads_v, eps, stamps=None):
     f32 = torch.float32
     _require_bf16(blocks[0][0].dtype, "coevo_chain")
     B, J, _ = joints.shape
@@ -271,7 +284,8 @@ def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
     dev = joints.device
     tab = _Table(dev, C, hid)
     for (wjp, bjp, wvp, bvp, kp, whj, bhj, whv, bhv) in blocks:
-        tab.pairs((wjp, bjp, 3, C), (wvp, bvp, 3, C))
+        tab.embed(wjp, bjp, C)
+        tab.embed(wvp, bvp, C)
         tab.block(kp, J, V)
         for w, b in ((whj, bhj), (whv, bhv)):
             tab.vec(w, C, 3)
@@ -284,17 +298,20 @@ def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
     ws_bytes = _cuda.CHAIN.query("pmce_chain_workspace_bytes", J)
     ws = torch.empty(B * ws_bytes, device=dev, dtype=torch.uint8)
     p = _cuda.ptr
-    _cuda.CHAIN.call(
-        "pmce_coevo_chain", p(joints), p(jout), p(vout), p(gammas), p(betas),
-        p(ptrs), p(ws), B, J, V, NB, eps,
-        1.0 / math.sqrt(C // num_heads_j), 1.0 / math.sqrt(C // num_heads_v),
-        _cuda.stream_ptr(dev))
+    args = (p(joints), p(jout), p(vout), p(gammas), p(betas), p(ptrs), p(ws),
+            B, J, V, NB, eps, 1.0 / math.sqrt(C // num_heads_j),
+            1.0 / math.sqrt(C // num_heads_v))
+    if stamps is not None:
+        _cuda.CHAIN.call("pmce_coevo_chain_prof", *args, p(stamps),
+                         _cuda.stream_ptr(dev))
+        return jout, vout
+    _cuda.CHAIN.call("pmce_coevo_chain", *args, _cuda.stream_ptr(dev))
     CHAIN_LAUNCHES.count += 1
     return jout, vout
 
 
 def _coevo_block_cuda(jf0, vf0, gammas, betas, params, num_heads_j,
-                      num_heads_v, eps):
+                      num_heads_v, eps, stamps=None):
     bf16, f32 = torch.bfloat16, torch.float32
     _require_bf16(jf0.dtype, "coevo_block")
     B, J, C = jf0.shape
@@ -316,11 +333,14 @@ def _coevo_block_cuda(jf0, vf0, gammas, betas, params, num_heads_j,
     ws_bytes = _cuda.COEVO_BLOCK.query("pmce_coevo_block_workspace_bytes", J)
     ws = torch.empty(B * ws_bytes, device=dev, dtype=torch.uint8)
     p = _cuda.ptr
-    _cuda.COEVO_BLOCK.call(
-        "pmce_coevo_block", p(jf0), p(vf0), p(jout), p(vout), p(gammas),
-        p(betas), p(ptrs), p(ws), B, J, V, eps,
-        1.0 / math.sqrt(C // num_heads_j), 1.0 / math.sqrt(C // num_heads_v),
-        _cuda.stream_ptr(dev))
+    args = (p(jf0), p(vf0), p(jout), p(vout), p(gammas), p(betas), p(ptrs),
+            p(ws), B, J, V, eps, 1.0 / math.sqrt(C // num_heads_j),
+            1.0 / math.sqrt(C // num_heads_v))
+    if stamps is not None:
+        _cuda.COEVO_BLOCK.call("pmce_coevo_block_prof", *args, p(stamps),
+                               _cuda.stream_ptr(dev))
+        return jout, vout
+    _cuda.COEVO_BLOCK.call("pmce_coevo_block", *args, _cuda.stream_ptr(dev))
     BLOCK_LAUNCHES.count += 1
     return jout, vout
 
@@ -392,3 +412,42 @@ def coevo_block(jf0, vf0, gammas, betas, params, num_heads_j: int = 8,
     return _RecomputedKernel.apply((_coevo_block_cuda, coevo_block_plain),
                                    tree, (num_heads_j, num_heads_v), eps,
                                    *_tensors(tree))
+
+
+# Stage codes of the stamped instantiation (csrc/coevo_ops.cuh, ST_* and
+# KD_*): code = stage * 8 + kind.
+STAMP_STAGES = ("io", "stage 1", "joint CA", "vertex CA", "joint SA",
+                "vertex SA")
+STAMP_KINDS = ("other", "gemm", "adaln", "attention", "mlp fc1 + gelu",
+               "mlp fc2")
+
+
+def stamp_split(stamps: torch.Tensor) -> dict:
+    """Cycles by (stage, kind) summed over the clips of a stamped launch:
+    ``stamps`` is the kernel's [B, MAX_STAMPS, 2] (code, clock64) buffer,
+    each interval booked to the code stamped at its end."""
+    a = stamps.cpu().numpy()
+    split: dict = {}
+    for row in a:
+        n = int((row[:, 1] != 0).sum())
+        for i in range(1, n):
+            code, dt = int(row[i, 0]), int(row[i, 1] - row[i - 1, 1])
+            key = (STAMP_STAGES[code // 8], STAMP_KINDS[code % 8])
+            split[key] = split.get(key, 0) + dt
+    return split
+
+
+def coevo_stage_split(kind: str, *args, num_heads_j: int = 8,
+                      num_heads_v: int = 2, eps: float = 1e-6) -> dict:
+    """One launch of the stamped instantiation of the chain (``kind`` =
+    "chain", args as :func:`coevo_chain_plain`) or of the whole block
+    ("block", args as :func:`coevo_block_plain`) on the card; returns
+    :func:`stamp_split`. Not counted as a launch of the path."""
+    fn = _coevo_chain_cuda if kind == "chain" else _coevo_block_cuda
+    B = args[0].shape[0]
+    n = int(_cuda.CHAIN.query("pmce_max_stamps"))
+    stamps = torch.zeros(B, n, 2, dtype=torch.int64, device=args[0].device)
+    with torch.no_grad():
+        fn(*args, num_heads_j, num_heads_v, eps, stamps=stamps)
+    torch.cuda.synchronize()
+    return stamp_split(stamps)

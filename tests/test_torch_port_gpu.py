@@ -652,3 +652,152 @@ def test_fused_lifter_at_seqlen_48_runs_and_agrees_with_plain():
             assert counts["block_fwd"] == counts["block_bwd"] == 4
     for n, g in grads[1].items():
         assert _rel(g, grads[0][n]) < 0.03, n
+
+
+# ------------------------- the redesigned trunk (K1) and block program (K3)
+def _trunk_args(rng, dev, B, T, J, depth, C=256, hid=512):
+    def r(*s, **k):
+        return _rand(rng, dev, *s, **k)
+
+    params = tuple(
+        (r(C, scale=0.1, offset=1.0), r(C, scale=0.1),
+         r(C, 3 * C, scale=C ** -0.5), r(3 * C, scale=0.02),
+         r(C, C, scale=C ** -0.5), r(C, scale=0.02),
+         r(C, scale=0.1, offset=1.0), r(C, scale=0.1),
+         r(C, hid, scale=C ** -0.5), r(hid, scale=0.02),
+         r(hid, C, scale=hid ** -0.5), r(C, scale=0.02))
+        for _ in range(2 * depth))
+    return (r(B, T * J, C, dtype=torch.bfloat16), params,
+            (r(C, scale=0.1, offset=1.0), r(C, scale=0.1)),
+            (r(C, scale=0.1, offset=1.0), r(C, scale=0.1)),
+            r(T, C, scale=0.1), T, J, depth, 8)
+
+
+@pytest.mark.parametrize("B,T,J,depth", [(256, 16, 19, 3), (5, 16, 19, 1),
+                                         (7, 16, 17, 1)],
+                         ids=["serving", "ragged-19", "ragged-17"])
+def test_trunk_block_route_matches_plain(B, T, J, depth):
+    """The one-launch-per-block trunk (tiles of whole groups) within 3 % of
+    the plain version, one launch of its counter and none of the long
+    route, and a rerun bit for bit: at the serving batch and at batches
+    whose last spatial and temporal tiles are ragged (5 x 16 frames in
+    tiles of 6, 5 x 19 joint columns in tiles of 8; 7 x 17 columns). The
+    widened group sizes are test_trunk_kernel_takes_groups_over_32_tokens's."""
+    dev = _card()
+    args = _trunk_args(np.random.default_rng(B * 1000 + T + J), dev, B, T, J,
+                       depth)
+    assert fa.trunk_route(T, J) == "block"
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = fa.lifter_trunk(*args)
+        again = fa.lifter_trunk(*args)
+        want = fa.lifter_trunk_plain(*args)
+    counts = _cuda.launch_counts()
+    assert counts["lifter_trunk"] == 2 and counts["lifter_trunk_long"] == 0
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    assert _rel(want, got) < 0.03
+
+
+def test_trunk_long_route_takes_groups_over_the_tile():
+    """Temporal groups of 130 frames (over the block kernel's 128-row tile)
+    take the long route: its own counter, within 3 % of plain, a rerun bit
+    for bit."""
+    dev = _card()
+    args = _trunk_args(np.random.default_rng(130), dev, 2, 130, 3, 1)
+    assert fa.trunk_route(130, 3) == "long"
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = fa.lifter_trunk(*args)
+        again = fa.lifter_trunk(*args)
+        want = fa.lifter_trunk_plain(*args)
+    counts = _cuda.launch_counts()
+    assert counts["lifter_trunk_long"] == 2 and counts["lifter_trunk"] == 0
+    assert torch.equal(got, again)
+    assert _rel(want, got) < 0.03
+
+
+def test_serving_trunk_takes_the_block_route():
+    """The bf16 fused lifter at the serving shapes (T = 16, J = 19) launches
+    the block route once per forward and never the long route."""
+    from pmce_tpu_torch.models.pose_lifter import create_pose_lifter
+
+    dev = _card()
+    rng = np.random.default_rng(16)
+    pose2d = torch.from_numpy(rng.standard_normal(
+        (4, 16, 19, 2), dtype=np.float32)).to(dev)
+    feat = torch.from_numpy(rng.standard_normal(
+        (4, 16, 2048), dtype=np.float32)).to(dev)
+    model = create_pose_lifter(num_joints=19, embed_dim=256, depth=3,
+                               dtype=torch.bfloat16, fused=True, device=dev)
+    model.eval()
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        model(pose2d, feat)
+    counts = _cuda.launch_counts()
+    assert counts["lifter_trunk"] == 1 and counts["lifter_trunk_long"] == 0
+
+
+def test_trunk_stage_split_covers_every_stage():
+    """The stamped instantiation books cycles to all eight stages and is
+    not counted as a launch of the path."""
+    dev = _card()
+    args = _trunk_args(np.random.default_rng(8), dev, 3, 16, 19, 1)
+    _cuda.reset_launch_counts()
+    split = fa.trunk_stage_split(*args)
+    assert _cuda.launch_counts()["lifter_trunk"] == 0
+    assert tuple(split) == fa.TRUNK_STAGES
+    assert all(v > 0 for v in split.values())
+
+
+@pytest.mark.parametrize("V,J", [(48, 19), (61, 17), (61, 19), (431, 17),
+                                 (431, 19), (450, 19)])
+def test_coevo_block_and_chain_match_plain_across_widths(V, J):
+    """Row 14 and K3 (its per-block program on the tensor cores, the
+    chain skipping the joint stages whose outputs the next block
+    overwrites) within 2 % of their plain versions at the vertex counts the
+    gate takes (48 to 450) and 17 or 19 joints, each rerun bit for bit."""
+    dev = _card()
+    rng = np.random.default_rng(V * 100 + J)
+    bargs = _coevo_block_args(rng, dev, 3, J=J, V=V)
+    kp = bargs[4]
+    bf = torch.bfloat16
+
+    def t(*s, scale=0.05, dtype=torch.float32):
+        return _rand(rng, dev, *s, scale=scale, dtype=dtype)
+
+    blocks = tuple((t(3, 64, dtype=bf), t(64), t(3, 64, dtype=bf), t(64), kp,
+                    t(64, 3), t(3), t(64, 3), t(3)) for _ in range(3))
+    cargs = (t(3, J, 3, scale=0.3), t(3, V, 3, scale=0.3),
+             t(3, 3, 12, 64, scale=0.1), t(3, 3, 12, 64, scale=0.1), blocks)
+    with torch.no_grad():
+        for kernel, plain, args in ((fc.coevo_block, fc.coevo_block_plain,
+                                     bargs),
+                                    (fc.coevo_chain, fc.coevo_chain_plain,
+                                     cargs)):
+            got, again = kernel(*args, 8, 2), kernel(*args, 8, 2)
+            want = plain(*args, 8, 2)
+            for a, a2, b in zip(got, again, want):
+                assert a.dtype == b.dtype and a.shape == b.shape
+                assert bool(torch.isfinite(a).all())
+                assert torch.equal(a, a2)
+                assert _rel(b, a) < 0.02
+
+
+def test_coevo_stage_split_books_every_stage():
+    """The stamped instantiations of K3 and row 14 book cycles to each
+    stream's stages (the chain's joint CA and SA only in its last block)
+    and are not counted as launches of the path."""
+    dev = _card()
+    bargs = _coevo_block_args(np.random.default_rng(21), dev, 2)
+    cargs = _chain_args(np.random.default_rng(22), dev, 2)
+    _cuda.reset_launch_counts()
+    block = fc.coevo_stage_split("block", *bargs)
+    chain = fc.coevo_stage_split("chain", *cargs)
+    counts = _cuda.launch_counts()
+    assert counts["coevo_block"] == counts["coevo_chain"] == 0
+    for split in (block, chain):
+        stages = {stage for stage, _ in split}
+        assert {"joint CA", "vertex CA", "joint SA", "vertex SA"} <= stages
+        assert all(v > 0 for v in split.values())
