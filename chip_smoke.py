@@ -14,14 +14,18 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    training step at batch 64, the Stage-2 step at batch 32, the SMPL
    forward at B=256), with its
    tolerance; both timed with CUDA events (median after warm-up), beside
-   the bound of the same work on this card; the trunk and the whole block
-   rerun bit for bit, and the trunk's long-group route (groups over its
-   block kernel's 128-row tile) against its plain version under its own
-   counter;
+   the bound of the same work on this card; the trunk, the GRU scan (both
+   directions of a BiGRU layer in one launch) and the whole block rerun
+   bit for bit, and the trunk's long-group route (groups over its block
+   kernel's 128-row tile) against its plain version under its own
+   counter. Library yardsticks, timed only: ``nn.GRU`` in bf16 for the
+   GRU rows (with the backend that ran), ``F.multi_head_attention_forward``
+   for rows 4 / 5;
 3. serving forward: ``create_pmce(num_joint=19, dtype=bfloat16, fused=True,
    device="cuda")`` at full width, random weights from a seed, B=256. The
    launch counters are zeroed just before it and read just after: every
-   kernel of the path must have launched. Its outputs must be finite, of
+   kernel of the path must have launched, the GRU scan exactly twice (one
+   launch per BiGRU layer). Its outputs must be finite, of
    the expected shapes, and agree with the same model run through the plain
    versions; a small f32 input must agree with the same model on the CPU.
    Then its throughput in mid-frames/s. The weights are perturbed off JAX's
@@ -68,9 +72,10 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
 each train step's device time by kernel and, before phase 2, the stage
-split of the trunk (K1), the decoder chain (K3) and the whole block (row
-14): one call of each kernel's clock64()-stamped instantiation (not
-counted as a launch) books every tile's or clip's cycles to its stages.
+split of the trunk (K1), the GRU scan (K2), the decoder chain (K3) and the
+whole block (row 14): one call of each kernel's clock64()-stamped
+instantiation (not counted as a launch) books every tile's, CTA's or
+clip's cycles to its stages.
 
 The second-to-last line is one JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -91,14 +96,16 @@ REPO = Path(__file__).resolve().parent
 B, T, J, C = 256, 16, 19, 256
 # Stage-1 training: batch, H36M joints, steps per epoch of the smoke fit.
 BT, JT, TRAIN_STEPS = 64, 17, 25
-# Stage-2 training: batch (train_mesh_h36m_bf16.yml) and GRU width.
-BM, GRU_H = 32, 1024
+# Stage-2 training: batch (train_mesh_h36m_bf16.yml) and GRU width; the
+# BiGRU's input width (both layers: the image features, then 2H).
+BM, GRU_H, GRU_IN = 32, 1024, 2048
 
 # The TPU kernel each wrapper replaces (file:line of the Pallas body).
 REPLACES = {
     "lifter_trunk": "pmce_tpu/ops/fused_attention.py:3011",
     "gru_layer": "pmce_tpu/ops/fused_attention.py:2279",
     "gru_layer_rev": "pmce_tpu/ops/fused_attention.py:2279",
+    "gru_scan": "pmce_tpu/ops/fused_attention.py:2279",
     "coevo_chain": "pmce_tpu/ops/fused_coevo_chain.py:118",
     "block_fwd": "pmce_tpu/ops/fused_attention.py:464",
     "block_bwd": "pmce_tpu/ops/fused_attention.py:1108",
@@ -117,6 +124,7 @@ SOURCES = {
     "lifter_trunk": "pmce_tpu_torch/csrc/lifter_trunk.cu",
     "gru_layer": "pmce_tpu_torch/csrc/gru_scan.cu",
     "gru_layer_rev": "pmce_tpu_torch/csrc/gru_scan.cu",
+    "gru_scan": "pmce_tpu_torch/csrc/gru_scan.cu",
     "coevo_chain": "pmce_tpu_torch/csrc/coevo_chain.cu",
     "block_fwd": "pmce_tpu_torch/csrc/block.cu",
     "block_bwd": "pmce_tpu_torch/csrc/block.cu",
@@ -131,15 +139,21 @@ SOURCES = {
     "ca_block_bwd": "pmce_tpu_torch/csrc/ca_block.cu",
     "coevo_block": "pmce_tpu_torch/csrc/coevo_block.cu",
 }
-SERVING = ("lifter_trunk", "gru_layer", "gru_layer_rev", "coevo_chain")
+# gru_layer / gru_layer_rev count direction scans, gru_scan launches of the
+# scan kernel: one runs both directions of a BiGRU layer.
+SERVING = ("lifter_trunk", "gru_layer", "gru_layer_rev", "gru_scan",
+           "coevo_chain")
+# The scan kernel's launches on a serving forward: one per BiGRU layer.
+SERVING_GRU_SCANS = 2
 # Phase 3b: the whole-block kernel once per CoevoBlock, and no chain.
-WHOLE_BLOCK = ("lifter_trunk", "gru_layer", "gru_layer_rev", "coevo_block")
+WHOLE_BLOCK = ("lifter_trunk", "gru_layer", "gru_layer_rev", "gru_scan",
+               "coevo_block")
 TRAINING = ("block_fwd", "block_bwd", "lifter_trunk", "skinning")
 # Phase 5: the kernels its path must launch, and those it must not (the
 # fused-attention configuration's, and the synthesis' skinning, done in
 # phase 4).
 MESH_TRAINING = ("gru_layer_save", "gru_layer_bwd", "gru_layer",
-                 "gru_layer_rev")
+                 "gru_layer_rev", "gru_scan")
 # The decoder's attention blocks (phase 6; idle in phase 5).
 DECODER = ("mhsa_fwd", "mhsa_bwd", "ada_block_fwd", "ada_block_bwd",
            "ca_block_fwd", "ca_block_bwd")
@@ -163,7 +177,7 @@ MESH_IDLE = ("lifter_trunk", "lifter_trunk_long", "coevo_chain", "block_fwd", "b
 # and per gradient, as the block's. The whole-block kernel runs the chain's
 # block program (csrc/coevo_ops.cuh) on bf16 features: the chain's band.
 TOL = {"lifter_trunk": 0.03, "lifter_trunk_long": 0.03,
-       "gru_layer": 0.01, "gru_layer_rev": 0.01,
+       "gru_layer": 0.01, "gru_layer_rev": 0.01, "gru_scan": 0.01,
        "coevo_chain": 0.02, "coevo_block": 0.02, "block_fwd": 0.02,
        "block_bwd": 0.02,
        "gru_layer_save": 0.01, "gru_layer_bwd": 0.02,
@@ -339,10 +353,13 @@ def long_trunk_case(r, batch: int = 2, T_: int = 130, J_: int = 3):
 
 
 def gru_case(r, steps: int, batch: int, H: int = 1024):
+    """One GRU direction as the BiGRU hands it over: bf16 projections, the
+    f32 ``weight_hh`` parameter [3H, H] as its [H, 3H] ``.t()`` view (the
+    kernel reads it in place), the f32 bias."""
     import torch
 
     return (r(steps, batch, 3 * H, dtype=torch.bfloat16),
-            r(H, 3 * H, scale=H ** -0.5), r(3 * H, scale=0.1))
+            r(3 * H, H, scale=H ** -0.5).t(), r(3 * H, scale=0.1))
 
 
 def coevo_params(r, V: int = 431, c: int = 64) -> tuple:
@@ -394,6 +411,77 @@ def coevo_block_case(r, batch: int, V: int = 431, c: int = 64):
             r(batch, 12, c, scale=0.1), coevo_params(r, V, c), 8, 2)
 
 
+def gru_library(r, steps: int, batch: int, bidirectional: bool = False,
+                train: bool = False) -> dict:
+    """The GRU rows' yardstick: one ``nn.GRU(GRU_IN, GRU_H)`` call (one
+    ``torch._VF.gru``) in bf16 at the same shapes, timed only (the port
+    never calls it), beside the port's projection GEMM plus scan on the
+    same weights: ``nn.GRU`` includes the input projection. ``train``:
+    both forwards keep a gradient (row 12's saving scan) and both autograd
+    backwards are timed too (row 13; the library's also forms the weight
+    gradients, as the port's does). The library's backend is read from
+    the profiler's kernel names."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    bf = torch.bfloat16
+    gru = torch.nn.GRU(GRU_IN, GRU_H, bidirectional=bidirectional).to(
+        device=r.device, dtype=bf)
+    with torch.no_grad():
+        for p in gru.parameters():
+            p.copy_(r(*p.shape, scale=GRU_H ** -0.5))
+    params = list(gru.parameters())
+    x = r(steps, batch, GRU_IN, dtype=bf)
+    ws = [[getattr(gru, f"{n}_l0{sfx}") for n in (
+        "weight_ih", "bias_ih", "weight_hh", "bias_hh")]
+        for sfx in (("", "_reverse") if bidirectional else ("",))]
+
+    def port():
+        gis = [x @ w_ih.t() + b_ih for w_ih, b_ih, _, _ in ws]
+        if bidirectional:
+            return torch.cat(fa.gru_bidir(gis[0], gis[1], ws[0][2].t(),
+                                          ws[0][3], ws[1][2].t(), ws[1][3]),
+                             dim=-1)
+        return fa.gru_layer(gis[0], ws[0][2].t(), ws[0][3])
+
+    def library():
+        return gru(x)[0]
+
+    grad = torch.enable_grad if train else torch.no_grad
+    with grad():
+        out = {"lib_ms": median_ms(library), "port_ms": median_ms(port)}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            library()
+            torch.cuda.synchronize()
+        if train:
+            y_lib, y_port = library(), port()
+            g = r(*y_lib.shape, scale=0.1, dtype=bf)
+            out["lib_bwd_ms"] = median_ms(lambda: torch.autograd.grad(
+                y_lib, params, g, retain_graph=True))
+            out["port_bwd_ms"] = median_ms(lambda: torch.autograd.grad(
+                y_port, params, g, retain_graph=True))
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == DeviceType.CUDA})
+    cudnn = [n for n in names if "cudnn" in n.lower() or "RNN" in n]
+    backend = "cuDNN" if cudnn else "PyTorch's own (not cuDNN)"
+    what = (f"nn.GRU({GRU_IN}, {GRU_H}{', bidirectional' if bidirectional else ''})"
+            f" T={steps} B={batch} bf16{', training' if train else ''}")
+    print(f"[kernels] library: {what}: {out['lib_ms']:.4f} ms forward"
+          + (f", {out['lib_bwd_ms']:.4f} ms autograd backward (with the "
+             f"weight gradients)" if train else "")
+          + f"; the port's projection GEMM + scan {out['port_ms']:.4f} ms"
+          + (f", its autograd backward {out['port_bwd_ms']:.4f} ms"
+             if train else "")
+          + f". Backend: {backend}; kernels: "
+          + "; ".join(n[:60] for n in (cudnn or names)[:6]), flush=True)
+    del gru, x
+    return out
+
+
 def check_kernels(device) -> dict:
     """Phase 2: every kernel against its plain version at main-path shapes."""
     import torch
@@ -435,34 +523,69 @@ def check_kernels(device) -> dict:
         record(rows, name, err, ms, plain_ms, flops,
                tensor_bytes(args, outs_k), "bf16")
 
+    def rerun(name, kernel, args, what="outputs"):
+        """Two runs give the same bits; returns the first's outputs."""
+        with torch.no_grad():
+            first, again = kernel(*args), kernel(*args)
+        if not isinstance(first, tuple):
+            first, again = (first,), (again,)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise RuntimeError(f"{name}: two runs differ")
+        print(f"[kernels] {name}: a second run gives the same {what} bit "
+              "for bit", flush=True)
+        return first
+
     args = trunk_case(r, B)
     compare("lifter_trunk", fa.lifter_trunk, fa.lifter_trunk_plain, args,
             f"B={B} T*J={T * J} C={C}")
-    with torch.no_grad():
-        first, again = fa.lifter_trunk(*args), fa.lifter_trunk(*args)
-    if not torch.equal(first, again):
-        raise RuntimeError("lifter_trunk: two runs differ")
-    print("[kernels] lifter_trunk: a second run gives the same tokens bit "
-          "for bit", flush=True)
-    del args, first, again
+    rerun("lifter_trunk", fa.lifter_trunk, args, "tokens")
+    del args
+    # Row 2 on the serving path: one launch of the scan kernel runs both
+    # directions of a BiGRU layer, layer 0's 16 + 16 steps and layer 1's 9
+    # forward and 8 reverse (the mid-frame cut).
+    for tf, tb in ((16, 16), (9, 8)):
+        gi_f, whh_f, bhh_f = gru_case(r, tf, B)
+        gi_b, whh_b, bhh_b = gru_case(r, tb, B)
+        args = (gi_f, gi_b, whh_f, bhh_f, whh_b, bhh_b)
+        compare("gru_scan", fa.gru_bidir, fa.gru_bidir_plain, args,
+                f"T={tf}+{tb} B={B} H={GRU_H}, both directions")
+        first = rerun(f"gru_scan T={tf}+{tb}", fa.gru_bidir, args)
+        with torch.no_grad():
+            # f32 weight_hh is rounded at load: the bits of a bf16 cast.
+            cast = fa.gru_bidir(gi_f, gi_b, whh_f.to(torch.bfloat16), bhh_f,
+                                whh_b.to(torch.bfloat16), bhh_b)
+        if not all(torch.equal(a, b) for a, b in zip(first, cast)):
+            raise RuntimeError("gru_scan: f32 weight_hh and its bf16 cast "
+                               "give different outputs")
+        print(f"[kernels] gru_scan T={tf}+{tb}: weight_hh cast to bf16 "
+              "gives the same outputs bit for bit", flush=True)
+    del args, first, cast
+    # Each direction alone (one launch spreads it over the card), as the
+    # per-direction calls of earlier kernels ran.
     for steps in (16, 9):
-        compare("gru_layer", fa.gru_layer, fa.gru_layer_plain,
-                gru_case(r, steps, B), f"T={steps} B={B} H=1024")
+        args = gru_case(r, steps, B)
+        compare("gru_layer", fa.gru_layer, fa.gru_layer_plain, args,
+                f"T={steps} B={B} H=1024")
+    rerun("gru_layer", fa.gru_layer, args)
     for steps in (16, 8):
+        args = gru_case(r, steps, B)
         compare("gru_layer_rev", fa.gru_layer_rev,
                 lambda gi, w, b: fa.gru_layer_plain(gi, w, b, reverse=True),
-                gru_case(r, steps, B), f"T={steps} B={B} H=1024")
+                args, f"T={steps} B={B} H=1024")
+    rerun("gru_layer_rev", fa.gru_layer_rev, args)
+    lib1 = gru_library(r, 16, B)
+    lib2 = gru_library(r, 16, B, bidirectional=True)
+    rows["gru_scan"]["library_ms"] = lib2["lib_ms"]
+    # nn.GRU has no reverse direction alone: the forward one does the same
+    # work.
+    for name in ("gru_layer", "gru_layer_rev"):
+        rows[name]["library_ms"] = lib1["lib_ms"]
     compare("coevo_chain", fc.coevo_chain, fc.coevo_chain_plain,
             chain_case(r, B), f"B={B} J={J} V=431 C=64")
     args = coevo_block_case(r, B)
     compare("coevo_block", fc.coevo_block, fc.coevo_block_plain, args,
             f"B={B} J={J} V=431 C=64")
-    with torch.no_grad():
-        first, again = fc.coevo_block(*args), fc.coevo_block(*args)
-    if not all(torch.equal(a, b) for a, b in zip(first, again)):
-        raise RuntimeError("coevo_block: two runs differ")
-    print("[kernels] coevo_block: a second run gives the same features bit "
-          "for bit", flush=True)
+    rerun("coevo_block", fc.coevo_block, args, "features")
     # The training GRU at the Stage-2 step's shapes: both layers' T = 16
     # directions and the mid-frame final layer's 9 forward and 8 reverse
     # steps, batch 32.
@@ -471,11 +594,19 @@ def check_kernels(device) -> dict:
         label = f"T={steps} B={BM} H={GRU_H}{' reverse' if rev else ''}"
         compare("gru_layer_save", fa.gru_layer_save, fa.gru_layer_save_plain,
                 (gi, whh, bhh, rev), label)
+        rerun(f"gru_layer_save {label}", fa.gru_layer_save,
+              (gi, whh, bhh, rev), "outputs and saved state")
         with torch.no_grad():
             _, saved = fa.gru_layer_save_plain(gi, whh, bhh, rev)
+        # The backward kernel reads Whh as the bf16 [3H, H] rounding that
+        # the saving forward writes.
+        wb = whh.t().to(torch.bfloat16).t()
         g = r(steps, BM, GRU_H, scale=0.1, dtype=torch.bfloat16)
         compare("gru_layer_bwd", fa.gru_layer_bwd, fa.gru_layer_bwd_plain,
-                (g, saved, whh, rev), label)
+                (g, saved, wb, rev), label)
+    lib = gru_library(r, 16, BM, train=True)
+    rows["gru_layer_save"]["library_ms"] = lib["lib_ms"]
+    rows["gru_layer_bwd"]["library_ms"] = lib["lib_bwd_ms"]
     check_blocks(device, rows)
     check_decoder_blocks(device, rows)
     check_skinning(device, rows)
@@ -748,6 +879,15 @@ def check_decoder_blocks(device, rows) -> None:
             print(f"[kernels] library: F.multi_head_attention_forward "
                   f"{where}, bf16: forward {lib_f:.4f} ms, autograd "
                   f"backward {lib_b:.4f} ms", flush=True)
+            if clips > BM:
+                # Row 4 against its library call at the trunk backward's
+                # shape, three more times in turn: whether it loses.
+                for rep in range(3):
+                    k_ms = median_ms(lambda: call(kernel, *leaves))
+                    l_ms = mha_library_ms(leaves, heads)[0]
+                    print(f"[kernels] mhsa_fwd {where}, repetition "
+                          f"{rep + 1}: kernel {k_ms:.4f} ms, library "
+                          f"{l_ms:.4f} ms ({k_ms / l_ms:.2f}x)", flush=True)
         del yk, yp, gk, gp, repeat, leaves
 
 
@@ -891,6 +1031,10 @@ def serve(device, profile: bool) -> tuple[float, dict, float, dict]:
             return dict(zip(names, m(pose2d, img_feat)))
 
     outs, counts = counted_forward(model, "[serve]", SERVING)
+    if counts["gru_scan"] != SERVING_GRU_SCANS:
+        raise RuntimeError(f"the serving forward launched the GRU scan "
+                           f"{counts['gru_scan']} times, expected "
+                           f"{SERVING_GRU_SCANS} (one per BiGRU layer)")
     agree("[serve]", outs, plain_forward(model), "the plain path")
     check_f32_small(model, device)
     ms, fps = serve_rate(model, pose2d, img_feat)
@@ -907,7 +1051,7 @@ def serve(device, profile: bool) -> tuple[float, dict, float, dict]:
     wouts, wcounts = counted_forward(whole, "[serve-wb]", WHOLE_BLOCK)
     nb = whole.pose_mesh_coevo.num_blocks
     want = {**{k: counts[k] for k in ("lifter_trunk", "gru_layer",
-                                      "gru_layer_rev")},
+                                      "gru_layer_rev", "gru_scan")},
             "coevo_block": nb, "coevo_chain": 0}
     wrong = {k: (v, wcounts[k]) for k, v in want.items() if wcounts[k] != v}
     if wrong:
@@ -1255,7 +1399,8 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
           f"({time.time() - t0:.1f} s: {steps} steps, 2 evaluations of "
           f"{len(test_ds)} clips)", flush=True)
     expect = {"gru_layer_save": 4 * steps, "gru_layer_bwd": 4 * steps,
-              "gru_layer": 2 * evals, "gru_layer_rev": 2 * evals}
+              "gru_layer": 2 * evals, "gru_layer_rev": 2 * evals,
+              "gru_scan": 2 * evals}
     if fused:
         # Per step: the lifter's 6 blocks forward and backward; per
         # CoevoBlock (3) forward, the joint stream's fused_mhsa, the vertex
@@ -1445,8 +1590,9 @@ def plain_path(fa, fused: bool):
 
 def plain_gru(fa):
     """Both GRU directions through the plain scan, whose gradient is
-    PyTorch's autograd of the loop (the comparisons only; the patches are
-    in place from this call on, and the returned stack lifts them)."""
+    PyTorch's autograd of the loop, per direction and for a BiGRU layer
+    (the comparisons only; the patches are in place from this call on,
+    and the returned stack lifts them)."""
     import contextlib
     from unittest import mock
 
@@ -1456,6 +1602,8 @@ def plain_gru(fa):
     stack.enter_context(mock.patch.object(
         fa, "gru_layer_rev",
         lambda gi, w, b: fa.gru_layer_plain(gi, w, b, reverse=True)))
+    stack.enter_context(mock.patch.object(fa, "gru_bidir",
+                                          fa.gru_bidir_plain))
     return stack
 
 
@@ -1510,11 +1658,12 @@ def print_split(tag: str, split: dict) -> None:
 
 
 def stage_split(device) -> None:
-    """--profile: where one launch's time goes inside the trunk (K1) and the
-    decoder chain (K3) and whole block (row 14), at the serving shapes:
-    each kernel's clock64()-stamped instantiation (one call, not counted
-    on any path) gives every tile's or clip's cycles per stage; the shares
-    are of their sum over the tiles or clips."""
+    """--profile: where one launch's time goes inside the trunk (K1), the
+    GRU scan (K2, layer 0's two directions), the decoder chain (K3) and
+    whole block (row 14), at the serving shapes: each kernel's
+    clock64()-stamped instantiation or launch (one call, not counted on
+    any path) gives every tile's, CTA's or clip's cycles per stage; the
+    shares are of their sum over the tiles, CTAs or clips."""
     import torch
 
     from pmce_tpu_torch.ops import fused_attention as fa
@@ -1526,12 +1675,21 @@ def stage_split(device) -> None:
     total = sum(split.values())
     print("[split] lifter_trunk (K1) by stage: " + ", ".join(
         f"{k} {v / total:.1%}" for k, v in split.items()), flush=True)
+    gru = gru_case(r, T, B), gru_case(r, T, B)
+    split = fa.gru_stage_split(gru[0][0], gru[1][0], *gru[0][1:],
+                               *gru[1][1:])
+    total = sum(split[k] for k in fa.GRU_STAGES)
+    print(f"[split] gru_scan (K2) T={T}+{T} B={B}, {split['ctas']} CTAs, "
+          f"{total / split['ctas'] / split['steps']:.0f} cycles a step a "
+          "CTA, by stage: " + ", ".join(
+              f"{k} {split[k] / total:.1%}" for k in fa.GRU_STAGES),
+          flush=True)
     chain = chain_case(r, B)
     print_split("coevo_chain (K3)", fc.coevo_stage_split("chain", *chain[:5]))
     block = coevo_block_case(r, B)
     print_split("coevo_block (row 14)",
                 fc.coevo_stage_split("block", *block[:5]))
-    del trunk, chain, block
+    del trunk, gru, chain, block
     torch.cuda.empty_cache()
 
 

@@ -344,12 +344,14 @@ class BiGRU(nn.Module):
 
     torch's gate math and ``nn.GRU`` parameter names and layouts
     (``weight_ih_l{k}[_reverse]`` [3H, in] ...). The recurrence of each
-    direction is :func:`~pmce_tpu_torch.ops.fused_attention.gru_layer` (the
-    kernels, forward and backward) under bf16 compute, whatever ``fused``
-    says, as the JAX package gates its GRU kernel on the dtype alone
-    (``layers.py:734``; its ``B % 8`` part is a VMEM rule, and the kernels
-    here pad to 16 rows); the same math as a plain loop in f32. The input
-    projections are one dense product over all steps."""
+    layer is :func:`~pmce_tpu_torch.ops.fused_attention.gru_bidir` under
+    bf16 compute, whatever ``fused`` says, as the JAX package gates its GRU
+    kernel on the dtype alone (``layers.py:734``; its ``B % 8`` part is a
+    VMEM rule, and the kernels here take any B): on the card one launch of
+    the scan kernel runs both directions, reading ``weight_hh`` in place;
+    with a gradient to keep, each direction runs the training kernels.
+    The same math as a plain loop in f32. The input projections are one
+    dense product over all steps."""
 
     def __init__(self, input_dim: int, hidden_dim: int, num_layers: int = 2):
         super().__init__()
@@ -383,10 +385,7 @@ class BiGRU(nn.Module):
         layer's step-``mid_index`` output [B, 2H]: that layer then scans
         steps 0..mid forward and T−1..mid backward (the only steps that
         output depends on)."""
-        kernel = dt == torch.bfloat16
-        fwd_scan = fa.gru_layer if kernel else fa.gru_layer_plain
-        rev_scan = fa.gru_layer_rev if kernel else (
-            lambda gi, w, b: fa.gru_layer_plain(gi, w, b, reverse=True))
+        scan = fa.gru_bidir if dt == torch.bfloat16 else fa.gru_bidir_plain
 
         def proj(xs, w_ih, b_ih):
             if dt is None:
@@ -397,11 +396,11 @@ class BiGRU(nn.Module):
             wf, bf, hf_w, hf_b = self._direction(layer, False)
             wb, bb, hb_w, hb_b = self._direction(layer, True)
             if mid_index is not None and layer == self.num_layers - 1:
-                hf = fwd_scan(proj(x[:mid_index + 1], wf, bf), hf_w.t(),
-                              hf_b)[-1]
-                hb = rev_scan(proj(x[mid_index:], wb, bb), hb_w.t(), hb_b)[0]
-                return torch.cat([hf, hb], dim=-1)
-            ys_f = fwd_scan(proj(x, wf, bf), hf_w.t(), hf_b)
-            ys_b = rev_scan(proj(x, wb, bb), hb_w.t(), hb_b)
+                ys_f, ys_b = scan(proj(x[:mid_index + 1], wf, bf),
+                                  proj(x[mid_index:], wb, bb), hf_w.t(),
+                                  hf_b, hb_w.t(), hb_b)
+                return torch.cat([ys_f[-1], ys_b[0]], dim=-1)
+            ys_f, ys_b = scan(proj(x, wf, bf), proj(x, wb, bb), hf_w.t(),
+                              hf_b, hb_w.t(), hb_b)
             x = torch.cat([ys_f, ys_b], dim=-1)
         return x

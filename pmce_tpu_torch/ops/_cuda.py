@@ -172,9 +172,14 @@ TRUNK = CudaLibrary("lifter_trunk", "pmce_trunk_error_string", {
     "pmce_trunk_tile_rows": (I, ()),
     "pmce_trunk_stamps": (I, ()),
 })
+# The scan: a table of per-direction pointers, per-direction integers
+# (int64), dirs, B, H, the plan's units, wm, wk, save, shared memory, the
+# barrier counter, the stamps (or null), stream.
 GRU = CudaLibrary("gru_scan", "pmce_gru_error_string", {
-    "pmce_gru_step": (I, (P, P, P, P, P, P, P, P, I, I, I, P)),
-    "pmce_gru_step_save": (I, (P,) * 13 + (I, I, I, P)),
+    "pmce_gru_scan": (I, (P, ctypes.POINTER(L), I, I, I, I, I, I, I, L, P, P,
+                          P)),
+    "pmce_gru_device_limits": (I, (I, ctypes.POINTER(I),
+                                   ctypes.POINTER(I))),
     "pmce_gru_bwd_first": (I, (P,) * 10 + (I, I, P)),
     "pmce_gru_bwd_step": (I, (P,) * 13 + (I, I, I, P)),
 })

@@ -32,7 +32,9 @@ rounding (``fused_attention.py:195-206`` of the JAX package).
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +47,9 @@ GRU_LAUNCHES = _cuda.launch_counter("gru_layer")
 GRU_REV_LAUNCHES = _cuda.launch_counter("gru_layer_rev")
 GRU_SAVE_LAUNCHES = _cuda.launch_counter("gru_layer_save")
 GRU_BWD_LAUNCHES = _cuda.launch_counter("gru_layer_bwd")
+# Launches of the scan kernel (K2) itself: one runs both directions of a
+# BiGRU layer, which gru_layer and gru_layer_rev count once each.
+GRU_SCAN_LAUNCHES = _cuda.launch_counter("gru_scan")
 BLOCK_FWD_LAUNCHES = _cuda.launch_counter("block_fwd")
 BLOCK_BWD_LAUNCHES = _cuda.launch_counter("block_bwd")
 
@@ -878,54 +883,173 @@ def gru_layer_bwd_plain(g, saved, whh, reverse: bool = False):
     return dgi, dgh
 
 
+def gru_bidir_plain(gi_f, gi_b, whh_f, bhh_f, whh_b, bhh_b):
+    """Plain version of one BiGRU layer's two scans: the forward direction
+    over ``gi_f`` and the reverse one over ``gi_b`` (each with its own T),
+    as :func:`gru_layer_plain`. Returns (ys_f, ys_b)."""
+    return (gru_layer_plain(gi_f, whh_f, bhh_f),
+            gru_layer_plain(gi_b, whh_b, bhh_b, reverse=True))
+
+
 def gru_kernel_fits(H: int) -> bool:
     """The static shape test of the GRU kernels: H a multiple of 64."""
     return H % 64 == 0
 
 
-def _gru_layer_cuda(gi, whh, bhh, reverse: bool, save: bool = False):
-    """The forward launches; with ``save`` the saving step (returns (ys,
-    saved) as :func:`gru_layer_save_plain`), else the serving step."""
-    T, B, H3 = gi.shape
-    H = H3 // 3
+# The scan kernel's CTA: 8 warps, each over 32-row pairs of the batch.
+GRU_SCAN_WARPS = 8
+# Units of one direction a CTA may own (csrc/gru_scan.cu instantiates
+# 8, 16 and 24: one, two or three n8 tiles per gate).
+GRU_SCAN_UNITS = (8, 16, 24)
+# Stages of the stamped launch (``gru_scan_kernel``'s clock64() stamps).
+GRU_STAGES = ("weights", "barrier", "h load", "product", "epilogue")
+
+
+class GruPlan(NamedTuple):
+    """One launch of the scan kernel on the card: ``units`` hidden units of
+    one direction per CTA (``groups`` CTAs a direction, ``grid`` in all, at
+    most one an SM), its warps as ``wm`` over 32-row pairs times ``wk``
+    over K, and the CTA's dynamic shared memory in bytes."""
+
+    units: int
+    groups: int
+    grid: int
+    wm: int
+    wk: int
+    smem: int
+
+
+def gru_smem_bytes(B: int, H: int, units: int, wm: int, wk: int) -> int:
+    """Shared memory of one scan CTA, as ``scan_smem_bytes`` in
+    csrc/gru_scan.cu (the launch refuses any other): the bf16 weight slice
+    [3U, H], the f32 carry of its units for every 32-row pair, and the
+    partial sums of the warps past the first when they split K."""
+    pairs = -(-B // 32)
+    return (H * 3 * units * 2 + pairs * 32 * units * 4
+            + (wk - 1) * wm * (3 * units // 8) * 2 * 4 * 32 * 4)
+
+
+def gru_plan(B: int, H: int, directions: int, sm_count: int,
+             smem_limit: int) -> GruPlan:
+    """Spread a scan of ``directions`` directions over the card: the
+    fewest units per CTA whose grid has at most one CTA an SM (every CTA
+    resident, as the grid barrier needs) and whose shared memory fits.
+    The warps cover the 32-row pairs first and split K with the rest.
+    Raises ``NotImplementedError`` where no plan is co-resident: the scan
+    is never cut into more launches."""
+    if not gru_kernel_fits(H) or B < 1 or directions not in (1, 2):
+        raise ValueError(f"gru_plan: B={B}, H={H}, {directions} directions")
+    pairs = -(-B // 32)
+    wm = 1 << (min(pairs, GRU_SCAN_WARPS).bit_length() - 1)
+    wk = GRU_SCAN_WARPS // wm
+    while (H // 64) % wk:
+        wk //= 2
+    for units in GRU_SCAN_UNITS:
+        groups = -(-H // units)
+        smem = gru_smem_bytes(B, H, units, wm, wk)
+        if directions * groups <= sm_count and smem <= smem_limit:
+            return GruPlan(units, groups, directions * groups, wm, wk, smem)
+    raise NotImplementedError(
+        f"gru_layer: no co-resident plan for B={B}, H={H}, {directions} "
+        f"directions on {sm_count} SMs with {smem_limit} B of shared memory "
+        "a block; widening the scan kernel is queued in ROADMAP.md, "
+        "section B")
+
+
+_GRU_LIMITS: dict = {}
+
+
+def _card_plan(B: int, H: int, directions: int, device) -> GruPlan:
+    """:func:`gru_plan` with the card's own SM count and opt-in shared
+    memory (asked once per device)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _GRU_LIMITS:
+        sm, smem = ctypes.c_int(), ctypes.c_int()
+        _cuda.GRU.call("pmce_gru_device_limits", index, ctypes.byref(sm),
+                       ctypes.byref(smem))
+        _GRU_LIMITS[index] = (sm.value, smem.value)
+    return gru_plan(B, H, directions, *_GRU_LIMITS[index])
+
+
+def _scan_weight(whh, H: int, device):
+    """Check ``whh`` ([H, 3H], f32 or bf16, on the card; any strides) and
+    return its strides as the kernel indexes the [3H, H] parameter
+    (row j, column k at ``j * srow + k * scol``): no copy is made. The
+    parameter's own ``.t()`` view gives srow = H, scol = 1."""
+    if whh.device != device:
+        raise ValueError(f"whh: expected a tensor on {device}, got "
+                         f"{whh.device}")
+    if whh.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"whh: expected float32 or bfloat16, got "
+                         f"{whh.dtype}")
+    if tuple(whh.shape) != (H, 3 * H):
+        raise ValueError(f"whh: expected shape {(H, 3 * H)}, got "
+                         f"{tuple(whh.shape)}")
+    return whh.stride(1), whh.stride(0)
+
+
+def _gru_scan_cuda(dirs, save: bool, stamps=None):
+    """One launch of the persistent scan kernel over ``dirs``, a list of
+    one or two (gi, whh, bhh, reverse) of the same B and H. Returns a list
+    with, per direction, ys or, with ``save``, (ys, saved, wb): the saving
+    forward's state (as :func:`gru_layer_save_plain`) and the bf16
+    rounding of whh as the [H, 3H] view of a [3H, H] tensor, which the
+    backward kernel reads. ``stamps`` (int64 [grid, 5] on the card) takes
+    the stamped launch's cycles instead of counting one."""
     bf16, f32 = torch.bfloat16, torch.float32
-    if gi.dtype != bf16:
-        raise NotImplementedError("the GRU kernels take bf16 projections")
-    _cuda.check_cuda(gi, "gi", bf16, (T, B, 3 * H))
-    dev = gi.device
-    w = _cuda.to_kernel(whh, dev, bf16, (H, 3 * H), "whh")
-    b = _cuda.to_kernel(bhh, dev, f32, (3 * H,), "bhh")
-    Bp = -(-B // 16) * 16
-    # Ping-pong carries: f32 h and its bf16 rounding (the next step's
-    # matrix operand, padded to whole 16-row tiles with zero rows).
-    h32 = torch.zeros(2, B, H, device=dev, dtype=f32)
-    hb = torch.zeros(2, Bp, H, device=dev, dtype=bf16)
-    ys = torch.empty(T, B, H, device=dev, dtype=bf16)
-    saved = torch.empty(5, T, B, H, device=dev, dtype=f32) if save else None
-    stream = _cuda.stream_ptr(dev)
-    p = _cuda.ptr
-    for step, t in enumerate(_gru_rows(T, reverse)):
-        src, dst = step % 2, (step + 1) % 2
-        args = (p(gi[t]), p(w), p(b), p(h32[src]), p(hb[src]), p(h32[dst]),
-                p(hb[dst]), p(ys[t]))
-        if save:
-            _cuda.GRU.call("pmce_gru_step_save", *args,
-                           *(p(saved[i, t]) for i in range(5)), B, Bp, H,
-                           stream)
-        else:
-            _cuda.GRU.call("pmce_gru_step", *args, B, Bp, H, stream)
-    return (ys, saved) if save else ys
+    B, H = dirs[0][0].shape[1], dirs[0][0].shape[2] // 3
+    dev = dirs[0][0].device
+    ptrs, ints, outs = [], [], []
+    for gi, whh, bhh, reverse in dirs:
+        if gi.dtype != bf16:
+            raise NotImplementedError("the GRU kernels take bf16 projections")
+        T = gi.shape[0]
+        _cuda.check_cuda(gi, "gi", bf16, (T, B, 3 * H))
+        srow, scol = _scan_weight(whh, H, dev)
+        b = _cuda.to_kernel(bhh, dev, f32, (3 * H,), "bhh")
+        ys = torch.empty(T, B, H, device=dev, dtype=bf16)
+        # bf16(h) ping-pong: the next step's matrix operand.
+        hb = torch.empty(2, B, H, device=dev, dtype=bf16)
+        saved = torch.empty(5, T, B, H, device=dev, dtype=f32) if save \
+            else None
+        wb = torch.empty(3 * H, H, device=dev, dtype=bf16) if save else None
+        ptrs += [gi, whh, b, ys, hb,
+                 *(saved.unbind(0) if save else (None,) * 5), wb]
+        ints += [T, int(reverse), int(whh.dtype == f32), srow, scol]
+        outs.append((ys, saved, wb.t()) if save else ys)
+    plan = _card_plan(B, H, len(dirs), dev)
+    bar = torch.empty(1, device=dev, dtype=torch.int32)
+    _cuda.GRU.call("pmce_gru_scan", _cuda.ptr_table(*ptrs),
+                   (ctypes.c_longlong * len(ints))(*ints), len(dirs), B, H,
+                   plan.units, plan.wm, plan.wk, int(save), plan.smem,
+                   _cuda.ptr(bar), None if stamps is None else
+                   _cuda.ptr(stamps), _cuda.stream_ptr(dev))
+    if stamps is None and not save:
+        GRU_SCAN_LAUNCHES.count += 1
+    return outs
 
 
-def _gru_bwd_cuda(g, saved, whh, reverse: bool):
+def _gru_layer_cuda(gi, whh, bhh, reverse: bool, save: bool = False):
+    """One direction through the scan kernel: ys, or with ``save`` the
+    saving variant's (ys, saved, wb) (see :func:`_gru_scan_cuda`)."""
+    return _gru_scan_cuda([(gi, whh, bhh, reverse)], save)[0]
+
+
+def _gru_bwd_cuda(g, saved, wb, reverse: bool):
     T, B, H = g.shape
     bf16, f32 = torch.bfloat16, torch.float32
     if g.dtype != bf16:
         raise NotImplementedError("the GRU kernels take bf16 gradients")
     _cuda.check_cuda(g, "g", bf16, (T, B, H))
     _cuda.check_cuda(saved, "saved", f32, (5, T, B, H))
+    if wb.dtype != bf16 or tuple(wb.shape) != (H, 3 * H):
+        raise ValueError("whh: the backward kernel reads Whh as bf16 "
+                         "[H, 3H] (the saving forward's rounding)")
+    # Whh^T as a row-major [3H, H] matrix: the view of the parameter's own
+    # layout, which the saving forward writes; no copy.
+    _cuda.check_cuda(wb.t(), "whh.t()", bf16, (3 * H, H))
     dev = g.device
-    w = _cuda.to_kernel(whh, dev, bf16, (H, 3 * H), "whh")
     Bp = -(-B // 16) * 16
     dgi = torch.empty(T, B, 3 * H, device=dev, dtype=f32)
     dgh = torch.empty_like(dgi)
@@ -947,7 +1071,7 @@ def _gru_bwd_cuda(g, saved, whh, reverse: bool):
                    p(dh), B, H, stream)
     for i in range(1, T):
         t, tn = rows[i - 1], rows[i]
-        _cuda.GRU.call("pmce_gru_bwd_step", p(dghb[(i - 1) % 2]), p(w),
+        _cuda.GRU.call("pmce_gru_bwd_step", p(dghb[(i - 1) % 2]), p(wb),
                        p(saved[2, t]), p(dh), *state(tn),
                        *grads(tn, i % 2), B, Bp, H, stream)
     return dgi, dgh
@@ -957,24 +1081,31 @@ def _gru_require(H: int) -> None:
     require_kernel(gru_kernel_fits(H), "gru_layer", f"H={H}")
 
 
-def gru_layer_save(gi, whh, bhh, reverse: bool = False):
-    """The saving forward (see :func:`gru_layer_save_plain`): CPU tensors
-    run the plain version; CUDA tensors the saving step of
-    ``csrc/gru_scan.cu`` (bf16; H that :func:`gru_kernel_fits` refuses
-    raises)."""
+def _gru_save(gi, whh, bhh, reverse: bool):
+    """:func:`gru_layer_save` with the weight the backward reads: on the
+    card the kernel's bf16 rounding of whh, on the CPU whh itself."""
     if not _on_card(gi, "gru_layer_save"):
-        return gru_layer_save_plain(gi, whh, bhh, reverse)
+        return (*gru_layer_save_plain(gi, whh, bhh, reverse), whh)
     _gru_require(whh.shape[0])
     out = _gru_layer_cuda(gi, whh, bhh, reverse, save=True)
     GRU_SAVE_LAUNCHES.count += 1
     return out
 
 
+def gru_layer_save(gi, whh, bhh, reverse: bool = False):
+    """The saving forward (see :func:`gru_layer_save_plain`): CPU tensors
+    run the plain version; CUDA tensors the saving variant of the scan
+    kernel of ``csrc/gru_scan.cu`` (bf16 gi; f32 or bf16 whh, read in
+    place; H that :func:`gru_kernel_fits` refuses raises)."""
+    return _gru_save(gi, whh, bhh, reverse)[:2]
+
+
 def gru_layer_bwd(g, saved, whh, reverse: bool = False):
     """The backward scan (see :func:`gru_layer_bwd_plain`): CPU tensors
     run the plain version; CUDA tensors the backward steps of
-    ``csrc/gru_scan.cu`` (bf16 g; H that :func:`gru_kernel_fits` refuses
-    raises)."""
+    ``csrc/gru_scan.cu`` (bf16 g; whh the bf16 [H, 3H] view of a [3H, H]
+    tensor, as the saving forward writes it on the card; H that
+    :func:`gru_kernel_fits` refuses raises)."""
     if not _on_card(g, "gru_layer_bwd"):
         return gru_layer_bwd_plain(g, saved, whh, reverse)
     _gru_require(g.shape[-1])
@@ -991,28 +1122,32 @@ class _GRULayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, gi, whh, bhh, reverse):
-        ys, saved = gru_layer_save(gi, whh, bhh, reverse)
+        ys, saved, wb = _gru_save(gi, whh, bhh, reverse)
         ctx.reverse = reverse
         ctx.gi_dtype = gi.dtype
-        ctx.save_for_backward(whh, saved)
+        ctx.w_dtype = whh.dtype
+        ctx.save_for_backward(wb, saved)
         return ys
 
     @staticmethod
     def backward(ctx, g):
-        whh, saved = ctx.saved_tensors
-        dgi, dgh = gru_layer_bwd(g.contiguous(), saved, whh, ctx.reverse)
+        wb, saved = ctx.saved_tensors
+        dgi, dgh = gru_layer_bwd(g.contiguous(), saved, wb, ctx.reverse)
         T, B, H = g.shape
         dt = g.dtype
         dgh_rows = dgh.reshape(T * B, 3 * H)
         # Operands in the compute dtype, as the forward cast them; f32 sums.
         dwhh = mm(saved[0].reshape(T * B, H).to(dt).t(), dgh_rows.to(dt))
-        return (dgi.to(ctx.gi_dtype), dwhh.to(whh.dtype), dgh_rows.sum(0),
+        return (dgi.to(ctx.gi_dtype), dwhh.to(ctx.w_dtype), dgh_rows.sum(0),
                 None)
 
 
+def _gru_needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _gru_dispatch(gi, whh, bhh, reverse: bool, counter) -> torch.Tensor:
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (gi, whh, bhh)):
+    if _gru_needs_grad(gi, whh, bhh):
         return _GRULayer.apply(gi, whh, bhh, reverse)
     if not _on_card(gi, "gru_layer"):
         return gru_layer_plain(gi, whh, bhh, reverse)
@@ -1025,7 +1160,7 @@ def _gru_dispatch(gi, whh, bhh, reverse: bool, counter) -> torch.Tensor:
 def gru_layer(gi, whh, bhh) -> torch.Tensor:
     """One forward GRU direction over T (see :func:`gru_layer_plain`).
 
-    Without a gradient to keep: the serving scan (K2) on CUDA tensors, the
+    Without a gradient to keep: the scan kernel (K2) on CUDA tensors, the
     plain version on CPU ones. With one: :class:`_GRULayer` (the saving
     forward and the backward scan, kernels on the card)."""
     return _gru_dispatch(gi, whh, bhh, False, GRU_LAUNCHES)
@@ -1034,6 +1169,43 @@ def gru_layer(gi, whh, bhh) -> torch.Tensor:
 def gru_layer_rev(gi, whh, bhh) -> torch.Tensor:
     """The backward direction, output in forward time order, no copies."""
     return _gru_dispatch(gi, whh, bhh, True, GRU_REV_LAUNCHES)
+
+
+def gru_bidir(gi_f, gi_b, whh_f, bhh_f, whh_b, bhh_b):
+    """Both directions of a BiGRU layer (see :func:`gru_bidir_plain`).
+
+    Without a gradient to keep: on CUDA tensors one launch of the scan
+    kernel runs both directions (counted once by ``gru_scan`` and once by
+    each direction's counter, ``gru_layer`` and ``gru_layer_rev``), on CPU
+    tensors the plain version. With one: :func:`gru_layer` and
+    :func:`gru_layer_rev`, a :class:`_GRULayer` each."""
+    if _gru_needs_grad(gi_f, gi_b, whh_f, bhh_f, whh_b, bhh_b):
+        return gru_layer(gi_f, whh_f, bhh_f), gru_layer_rev(gi_b, whh_b,
+                                                            bhh_b)
+    if not _on_card(gi_f, "gru_bidir"):
+        return gru_bidir_plain(gi_f, gi_b, whh_f, bhh_f, whh_b, bhh_b)
+    _gru_require(whh_f.shape[0])
+    ys_f, ys_b = _gru_scan_cuda([(gi_f, whh_f, bhh_f, False),
+                                 (gi_b, whh_b, bhh_b, True)], False)
+    GRU_LAUNCHES.count += 1
+    GRU_REV_LAUNCHES.count += 1
+    return ys_f, ys_b
+
+
+def gru_stage_split(gi_f, gi_b, whh_f, bhh_f, whh_b, bhh_b) -> dict:
+    """One stamped launch of the two-direction scan on the card (not
+    counted): {stage: cycles summed over the CTAs} for the stages of
+    :data:`GRU_STAGES`, and ``"steps"``: the launch's sequential steps."""
+    H = whh_f.shape[0]
+    plan = _card_plan(gi_f.shape[1], H, 2, gi_f.device)
+    stamps = torch.zeros(plan.grid, len(GRU_STAGES), dtype=torch.int64,
+                         device=gi_f.device)
+    with torch.no_grad():
+        _gru_scan_cuda([(gi_f, whh_f, bhh_f, False),
+                        (gi_b, whh_b, bhh_b, True)], False, stamps=stamps)
+    total = stamps.sum(0).cpu().tolist()
+    return {**dict(zip(GRU_STAGES, total)), "ctas": plan.grid,
+            "steps": max(gi_f.shape[0], gi_b.shape[0])}
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,8 @@ max|kernel - plain| / max|plain|, as in chip_smoke.py.
 
 from __future__ import annotations
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -41,8 +43,11 @@ def _rand(rng, dev, *shape, scale=1.0, offset=0.0, dtype=torch.float32):
 
 
 def _rel(want, got) -> float:
+    """max|got - want| / max|want|; a reference of zeros (h_prev and the
+    Whh gradient of a one-step scan) must be met exactly."""
     want, got = want.detach().float().cpu(), got.detach().float().cpu()
-    return float((got - want).abs().max() / want.abs().max())
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    return err / scale if scale else (0.0 if err == 0 else float("inf"))
 
 
 def test_trunk_kernel_matches_plain():
@@ -102,37 +107,65 @@ def test_trunk_kernel_takes_groups_over_32_tokens(T, J):
     assert _rel(fa.lifter_trunk_plain(*args), got) < 0.03
 
 
-@pytest.mark.parametrize("B", [8, 13])
-def test_gru_kernels_match_plain(B):
-    """Includes a batch that is not a multiple of the 16-row tile."""
-    dev = _card()
-    rng = np.random.default_rng(B)
-    H, steps = 64, 9
-    args = (_rand(rng, dev, steps, B, 3 * H, dtype=torch.bfloat16),
-            _rand(rng, dev, H, 3 * H, scale=0.2),
+def _gru_dir(rng, dev, steps, B, H):
+    """One direction as the BiGRU hands it over: bf16 projections, the f32
+    ``weight_hh`` [3H, H] as its ``.t()`` view, the bias."""
+    return (_rand(rng, dev, steps, B, 3 * H, dtype=torch.bfloat16),
+            _rand(rng, dev, 3 * H, H, scale=H ** -0.5).t(),
             _rand(rng, dev, 3 * H, scale=0.2))
-    for kern, rev in ((fa.gru_layer, False), (fa.gru_layer_rev, True)):
-        got = kern(*args)
-        assert got.dtype == torch.bfloat16 and got.shape == (steps, B, H)
-        assert _rel(fa.gru_layer_plain(*args, reverse=rev), got) < 0.01
 
 
-@pytest.mark.parametrize("B", [8, 13])
+@pytest.mark.parametrize("B", [5, 32, 256])
+@pytest.mark.parametrize("steps", [(1, 1), (16, 16), (9, 8)],
+                         ids=["T1", "T16", "T9-8"])
+@pytest.mark.parametrize("H", [64, 1024])
+def test_gru_kernels_match_plain(B, steps, H):
+    """The scan kernel over both directions of a BiGRU layer (each with its
+    own T) and over each direction alone, against the plain version
+    (batches that are not a multiple of the 32-row pair included): one
+    launch each, reruns bit-identical, and an f32 weight_hh gives the bits
+    of its bf16 cast (the kernel rounds at load) and of its contiguous
+    copy."""
+    dev = _card()
+    rng = np.random.default_rng(B + H + steps[1])
+    gi_f, whh_f, bhh_f = _gru_dir(rng, dev, steps[0], B, H)
+    gi_b, whh_b, bhh_b = _gru_dir(rng, dev, steps[1], B, H)
+    args = (gi_f, gi_b, whh_f, bhh_f, whh_b, bhh_b)
+    _cuda.reset_launch_counts()
+    got = fa.gru_bidir(*args)
+    counts = _cuda.launch_counts()
+    assert counts["gru_scan"] == counts["gru_layer"] == 1
+    assert counts["gru_layer_rev"] == 1
+    for a, b in zip(got, fa.gru_bidir_plain(*args)):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert _rel(b, a) < 0.01
+    assert all(torch.equal(a, b) for a, b in zip(got, fa.gru_bidir(*args)))
+    cast = fa.gru_bidir(gi_f, gi_b, whh_f.to(torch.bfloat16), bhh_f,
+                        whh_b.to(torch.bfloat16), bhh_b)
+    assert all(torch.equal(a, b) for a, b in zip(got, cast))
+    assert torch.equal(fa.gru_layer(gi_f, whh_f, bhh_f), got[0])
+    assert torch.equal(fa.gru_layer_rev(gi_b, whh_b, bhh_b), got[1])
+    # A contiguous [H, 3H] weight: the kernel reads it through its strides.
+    assert torch.equal(fa.gru_layer(gi_f, whh_f.contiguous(), bhh_f), got[0])
+
+
+@pytest.mark.parametrize("B", [5, 32, 256])
+@pytest.mark.parametrize("steps", [1, 16])
+@pytest.mark.parametrize("H", [64, 1024])
 @pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
-def test_gru_training_kernels_match_plain(B, reverse):
+def test_gru_training_kernels_match_plain(B, steps, H, reverse):
     """The saving forward and the backward scan against their plain
-    versions on the same inputs (including a batch that is not a multiple
-    of the 16-row tile), then the whole gradient against autograd of the
+    versions on the same inputs (batches that are not a multiple of the
+    16-row tile included), then the whole gradient against autograd of the
     plain serving scan. Bounds as max|kernel - plain| / max|plain|: the
     saved state 0.01 (the GRU's one bf16 ulp), the backward 0.02 (its bf16
     dgh rounds now and then to the neighbouring value and the carry
-    passes that on)."""
+    passes that on). A rerun gives the same bits, and the saving forward
+    also writes the bf16 rounding of Whh that the backward reads: the bits
+    of a cast."""
     dev = _card()
-    rng = np.random.default_rng(B + 2 * reverse)
-    H, steps = 64, 9
-    gi = _rand(rng, dev, steps, B, 3 * H, dtype=torch.bfloat16)
-    whh = _rand(rng, dev, H, 3 * H, scale=0.2)
-    bhh = _rand(rng, dev, 3 * H, scale=0.2)
+    rng = np.random.default_rng(B + H + steps + 2 * reverse)
+    gi, whh, bhh = _gru_dir(rng, dev, steps, B, H)
     g = _rand(rng, dev, steps, B, H, dtype=torch.bfloat16)
     _cuda.reset_launch_counts()
     ys, saved = fa.gru_layer_save(gi, whh, bhh, reverse)
@@ -141,13 +174,16 @@ def test_gru_training_kernels_match_plain(B, reverse):
     assert _rel(ys_p, ys) < 0.01
     for i in range(5):
         assert _rel(saved_p[i], saved[i]) < 0.01, i
-    dgi, dgh = fa.gru_layer_bwd(g, saved, whh, reverse)
+    ys2, saved2, wb = fa._gru_save(gi, whh, bhh, reverse)
+    assert torch.equal(ys2, ys) and torch.equal(saved2, saved)
+    assert torch.equal(wb, whh.to(torch.bfloat16))
+    dgi, dgh = fa.gru_layer_bwd(g, saved, wb, reverse)
     for a, b in zip((dgi, dgh), fa.gru_layer_bwd_plain(g, saved, whh,
                                                         reverse)):
         assert a.dtype == torch.float32 and a.shape == (steps, B, 3 * H)
         assert _rel(b, a) < 0.02
     counts = _cuda.launch_counts()
-    assert counts["gru_layer_save"] == counts["gru_layer_bwd"] == 1
+    assert counts["gru_layer_save"] == 2 and counts["gru_layer_bwd"] == 1
 
     leaves = [t.clone().requires_grad_(True) for t in (gi, whh, bhh)]
     got = torch.autograd.grad(
@@ -157,8 +193,45 @@ def test_gru_training_kernels_match_plain(B, reverse):
     for a, b in zip(got, want):
         assert _rel(b, a) < 0.02
     counts = _cuda.launch_counts()
-    assert counts["gru_layer_save"] == counts["gru_layer_bwd"] == 2
+    assert counts["gru_layer_save"] == 3 and counts["gru_layer_bwd"] == 2
     assert counts["gru_layer"] == counts["gru_layer_rev"] == 0
+    assert counts["gru_scan"] == 0
+
+
+def test_serving_bigru_launches_the_scan_twice():
+    """The decoder's BiGRU at full width, cut at the mid frame, under bf16
+    without gradients: one scan launch per layer, against the plain
+    path within the kernel's band."""
+    from pmce_tpu_torch.models.layers import BiGRU
+
+    dev = _card()
+    torch.manual_seed(0)
+    gru = BiGRU(2048, 1024, num_layers=2).to(dev)
+    x = torch.randn(16, 32, 2048, device=dev)
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = gru(x, mid_index=8, dt=torch.bfloat16)
+        counts = _cuda.launch_counts()
+        with mock.patch.object(fa, "gru_bidir", fa.gru_bidir_plain):
+            want = gru(x, mid_index=8, dt=torch.bfloat16)
+    assert counts["gru_scan"] == 2
+    assert counts["gru_layer"] == counts["gru_layer_rev"] == 2
+    assert _rel(want, got) < 0.02
+
+
+def test_gru_scan_refuses_a_grid_that_cannot_be_resident():
+    """A plan claiming more SMs than the card has: the cooperative launch
+    refuses it and the wrapper raises (no CTA waits for another that never
+    runs)."""
+    dev = _card()
+    rng = np.random.default_rng(0)
+    H = 4096
+    gi, whh, bhh = _gru_dir(rng, dev, 2, 8, H)
+    big = fa.gru_plan(8, H, 2, 100_000, 232_448)
+    with mock.patch.object(fa, "_card_plan", lambda *a: big), \
+            pytest.raises(_cuda.KernelError, match="cooperative|too large"):
+        fa.gru_bidir(gi, gi, whh, bhh, whh, bhh)
+        torch.cuda.synchronize()
 
 
 def test_trunk_kernel_gradient_matches_plain():
@@ -493,8 +566,6 @@ def test_coevo_block_kernel_matches_plain(V):
 def test_coevo_block_runs_its_kernel_not_the_plain_version():
     """With the plain version made to raise, a bf16 forward on the card
     still succeeds: the kernel computes it."""
-    from unittest import mock
-
     dev = _card()
     args = _coevo_block_args(np.random.default_rng(2), dev, 3)
     with mock.patch.object(fc, "coevo_block_plain",
@@ -616,7 +687,6 @@ def test_fused_lifter_at_seqlen_48_runs_and_agrees_with_plain():
     agree with the all-plain path (training: every gradient within 3 %, as
     chip_smoke.py's first-step band)."""
     import contextlib
-    from unittest import mock
 
     from pmce_tpu_torch.models.pose_lifter import create_pose_lifter
 
