@@ -59,7 +59,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    for bit (the per-parameter difference is printed); the first step's
    loss and gradients on the kernel path agree with the plain path; then
    the step's time, the plain path's and the peak device memory. Phases 5
-   and 6 start from JAX's initial values;
+   and 6 start from JAX's initial values; the GRU's backward is one launch
+   of its persistent scan a direction (``gru_bwd_scan``, 4 a step);
 6. fused Stage-2 training (``configs/train_mesh_h36m_bf16.yml`` as written,
    ``MODEL.fused_attn: true``): phase 5's cuts, data and warm start, with
    the decoder's attention blocks on their kernels forward and backward
@@ -72,8 +73,9 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
 each train step's device time by kernel and, before phase 2, the stage
-split of the trunk (K1), the GRU scan (K2), the decoder chain (K3) and the
-whole block (row 14): one call of each kernel's clock64()-stamped
+split of the trunk (K1), the GRU scan (K2), the decoder chain (K3), the
+whole block (row 14), the GRU's backward scan (row 13) and the block
+backward's tile program (row 7): one call of each kernel's clock64()-stamped
 instantiation (not counted as a launch) books every tile's, CTA's or
 clip's cycles to its stages.
 
@@ -152,8 +154,8 @@ TRAINING = ("block_fwd", "block_bwd", "lifter_trunk", "skinning")
 # Phase 5: the kernels its path must launch, and those it must not (the
 # fused-attention configuration's, and the synthesis' skinning, done in
 # phase 4).
-MESH_TRAINING = ("gru_layer_save", "gru_layer_bwd", "gru_layer",
-                 "gru_layer_rev", "gru_scan")
+MESH_TRAINING = ("gru_layer_save", "gru_layer_bwd", "gru_bwd_scan",
+                 "gru_layer", "gru_layer_rev", "gru_scan")
 # The decoder's attention blocks (phase 6; idle in phase 5).
 DECODER = ("mhsa_fwd", "mhsa_bwd", "ada_block_fwd", "ada_block_bwd",
            "ca_block_fwd", "ca_block_bwd")
@@ -1398,9 +1400,10 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
     print(f"{tag} launches on the Stage-2 training path: {counts} "
           f"({time.time() - t0:.1f} s: {steps} steps, 2 evaluations of "
           f"{len(test_ds)} clips)", flush=True)
+    # The backward scan: one launch a direction, four a step.
     expect = {"gru_layer_save": 4 * steps, "gru_layer_bwd": 4 * steps,
-              "gru_layer": 2 * evals, "gru_layer_rev": 2 * evals,
-              "gru_scan": 2 * evals}
+              "gru_bwd_scan": 4 * steps, "gru_layer": 2 * evals,
+              "gru_layer_rev": 2 * evals, "gru_scan": 2 * evals}
     if fused:
         # Per step: the lifter's 6 blocks forward and backward; per
         # CoevoBlock (3) forward, the joint stream's fused_mhsa, the vertex
@@ -1480,7 +1483,7 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
         iso.enter_context(mock.patch.object(fa, "transformer_block",
                                             fa.transformer_block_plain))
     else:
-        iso = mock.patch.object(fa, "gru_layer_bwd", fa.gru_layer_bwd_plain)
+        iso = mock.patch.object(fa, "_gru_bwd", fa._gru_bwd_plain)
     loss_i, grads_i = first_step(iso)
     if not set(grads_k) == set(grads_p) == set(grads_i):
         raise RuntimeError("first Stage-2 step: the paths reach different "
@@ -1660,7 +1663,9 @@ def print_split(tag: str, split: dict) -> None:
 def stage_split(device) -> None:
     """--profile: where one launch's time goes inside the trunk (K1), the
     GRU scan (K2, layer 0's two directions), the decoder chain (K3) and
-    whole block (row 14), at the serving shapes: each kernel's
+    whole block (row 14), at the serving shapes, and inside the GRU's
+    backward scan (row 13) and the block backward's tile program (row 7)
+    at the training shapes: each kernel's
     clock64()-stamped instantiation or launch (one call, not counted on
     any path) gives every tile's, CTA's or clip's cycles per stage; the
     shares are of their sum over the tiles, CTAs or clips."""
@@ -1684,6 +1689,33 @@ def stage_split(device) -> None:
           "CTA, by stage: " + ", ".join(
               f"{k} {split[k] / total:.1%}" for k in fa.GRU_STAGES),
           flush=True)
+    # Row 13 at the Stage-2 step's shape: one direction, T = 16, B = 32.
+    gi, whh, bhh = gru_case(r, T, BM)
+    with torch.no_grad():
+        _, saved, wb = fa._gru_save(gi, whh, bhh, False)
+    g = r(T, BM, GRU_H, scale=0.1, dtype=torch.bfloat16)
+    split = fa.gru_bwd_stage_split(g, saved, wb)
+    total = sum(split[k] for k in fa.GRU_BWD_STAGES)
+    print(f"[split] gru_layer_bwd (row 13) T={T} B={BM}, {split['ctas']} "
+          f"CTAs, {total / split['ctas'] / split['steps']:.0f} cycles a "
+          "step a CTA, by stage: " + ", ".join(
+              f"{k} {split[k] / total:.1%}" for k in fa.GRU_BWD_STAGES),
+          flush=True)
+    del gi, whh, bhh, saved, wb, g
+    # Row 7's tile program at the Stage-1 step's two shapes.
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    for label, clips, N, rate in (("spatial", BT * T, JT, 0.0),
+                                  ("temporal", BT * JT, T, 0.2)):
+        x, params, masks, _ = block_case(rng, device, clips, N, rate)
+        split = fa.block_bwd_stage_split(x, params, 8, masks)
+        total = sum(split[k] for k in fa.BLOCK_BWD_STAGES)
+        print(f"[split] block_bwd (row 7) tile program, {label} [{clips}, "
+              f"{N}, {C}], {split['tiles']} tiles, by stage: " + ", ".join(
+                  f"{k} {split[k] / total:.1%}" for k in fa.BLOCK_BWD_STAGES),
+              flush=True)
+        del x, params, masks
     chain = chain_case(r, B)
     print_split("coevo_chain (K3)", fc.coevo_stage_split("chain", *chain[:5]))
     block = coevo_block_case(r, B)

@@ -1,6 +1,7 @@
-// The GRU recurrence for Hopper (sm_90a): a persistent, weight-stationary
-// scan of one or two directions in one launch (serving and the saving
-// forward of training), and the per-step launches of its backward.
+// The GRU recurrence for Hopper (sm_90a): persistent, weight-stationary
+// scans, one launch for all T steps: the forward of one or two directions
+// (serving and the saving forward of training) and the backward of one
+// direction.
 //
 // Replaces, in pmce_tpu/ops/fused_attention.py:
 // - `_gru_scan_kernel` (entries `fused_gru_layer` and `fused_gru_layer_rev`),
@@ -13,16 +14,17 @@
 // - `_gru_bwd_kernel` (`_fused_gru_layer_bwd`), the reverse-time scan of the
 //   backward: dh = g[t] + carry, the gate gradients dgi = [dr, dz, dn] and
 //   dgh = [dr, dz, dn*r] in f32, then carry = dh*z + bf16(dgh) @ Whh^T with
-//   f32 sums (`gru_bwd_first_kernel`, `gru_bwd_step_kernel`).
+//   f32 sums (`gru_bwd_kernel`).
 //
-// What bounds the forward on this card: the steps are sequential and each
-// needs the whole previous state of its direction. Whh in bf16 is 6 MB a
+// What bounds both on this card: the steps are sequential and each needs
+// the whole previous state of its direction. Whh in bf16 is 6 MB a
 // direction at H = 1024, too big for one SM but not for the card's shared
 // memory. A step at B = 256 is a [256, 1024] x [1024, 3072] product
 // (1.6 GFLOP): 16 steps of both directions bound the scan at 0.052 ms of
 // tensor-core time, far below a launch per step. What the design pays
-// instead is the read of every step's h (512 KB at B = 256) by every CTA
-// from L2, one grid barrier a step, and the one-time weight load.
+// instead is the read of every step's operand by every CTA from L2 (bf16 h,
+// 512 KB at B = 256, forward; bf16 dgh, 192 KB at B = 32, backward), one
+// grid barrier a step, and the one-time weight load.
 //
 // Design of the forward (`gru_scan_kernel`): one cooperative launch runs
 // every step of both directions. The host's plan (`gru_plan` in
@@ -57,18 +59,28 @@
 // bit-identical. The saving variant also writes the bf16 rounding of its
 // weight slice ([3H, H]) for the backward, which then needs no cast.
 //
-// The backward stays one launch per step: each block owns 16 batch rows and
-// 16 hidden units and runs column u of bf16(dgh_t) @ Whh^T over K = 3H on
-// the tensor cores (WMMA, Whh^T read from the bf16 [3H, H] rounding the
-// saving forward wrote), the carry, and then the gate gradients of the step
-// the backward visits next for the same units; one gate-only launch starts
-// it.
-
-#include <mma.h>
+// Design of the backward (`gru_bwd_kernel`), the same machinery over the
+// transposed product: one cooperative launch runs all T steps of one
+// direction (the host's `gru_bwd_plan`: U units a CTA, at most one CTA an
+// SM). At kernel start a CTA loads the columns of its units, Whh[:, units]
+// (3H x U bf16, 48 KB at U = 8), from the bf16 [3H, H] rounding the saving
+// scan wrote, into the fragment order. It keeps dh * z of its units (the
+// carry's first term, f32) in shared memory. Each step it prefetches the
+// saved f32 h_prev, r, z, n, h_n and g[t] of its units into registers,
+// waits at the grid barrier, reads the whole bf16(dgh) [B, 3H] of the step
+// just done from L2 (`ld.global.cg`, K permuted as the forward's) and
+// forms carry[:, units] on the tensor cores (K = 3H split over the warps at
+// small B, partial sums added in a fixed order). The epilogue, in
+// registers, computes dh = g + carry and the gate gradients of its units
+// and writes dgi (f32, or bf16 for the gradient of bf16 projections: the
+// bits of the cast), dgh (f32, for the bias gradient's sum) and bf16(dgh)
+// for every step: the next step's operand and the weight gradient's, no
+// ping-pong and no cast. The backward visits the forward's rows in reverse,
+// by row index, no copies; reruns are bit-identical. The earlier backward,
+// a launch (and a host call) per step that re-streamed all of Whh^T from L2
+// every step, is gone from every path.
 
 #include "common.cuh"
-
-using namespace nvcuda;
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -452,100 +464,310 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The backward: one launch per step
+// The persistent backward scan
 // ---------------------------------------------------------------------------
 
-constexpr int KSPLIT = 4;  // warps per backward block, each one quarter of K
+// clock64() stamps of the profiled backward launch, per CTA: weight load,
+// saved-state prefetch, barrier wait, exposed bf16(dgh) load, product (+
+// the K-split reduction), epilogue.
+constexpr int BWD_STAGES = 6;
 
-// What the backward reads at one step: g = dL/dys[t] (bf16 [B, H]) and the
-// forward's saved state of that step.
-struct StepState {
+// One direction: g = dL/dys [T, B, H] bf16; the saving scan's f32 state
+// [T, B, H] (h_prev, r, z, n, h_n); w the bf16 [3H, H] rounding of the
+// parameter (row j, column k at w[j * H + k]); dgi [T, B, 3H] (f32, or
+// bf16 where dgi_bf16), dgh [T, B, 3H] f32 and dghb = bf16(dgh), which is
+// also the next step's matrix operand. `reverse` is the forward scan's.
+struct BwdParams {
   const bf16* g;
   const float *hprev, *r, *z, *n, *hn;
-};
-
-// What it writes at one step: dgi and dgh (f32 [B, 3H]) and dgh rounded to
-// bf16 (the next launch's matrix operand, [Bp, 3H], rows >= B zero).
-struct StepGrads {
-  float *dgi, *dgh;
+  const bf16* w;
+  void* dgi;
+  float* dgh;
   bf16* dghb;
+  int T, reverse, dgi_bf16;
+  int B, H, wm, wk, pairs;
+  unsigned* bar;      // grid-barrier counter, zero at launch
+  long long* stamps;  // [grid, BWD_STAGES] or null
 };
 
-// The gate gradients at (row, u) given dh = dL/dh_t, in the order of
-// operations of `_gru_bwd_kernel` (fused_attention.py:2462-2467).
-__device__ __forceinline__ void gate_grads(float dh, int row, int u, int H,
-                                           const StepState& s,
-                                           const StepGrads& d) {
-  const size_t o = (size_t)row * H + u;
-  const float hp = s.hprev[o], r = s.r[o], z = s.z[o], n = s.n[o];
-  const float hn = s.hn[o];
-  const float dz = dh * (hp - n);
-  const float dn = (dh * (1.0f - z)) * (1.0f - n * n);
-  const float dr = (dn * hn) * (r * (1.0f - r));
-  const float dzp = dz * (z * (1.0f - z));
-  const float dnr = dn * r;
-  const size_t o3 = (size_t)row * 3 * H + u;
-  d.dgi[o3] = dr;
-  d.dgi[o3 + H] = dzp;
-  d.dgi[o3 + 2 * H] = dn;
-  d.dgh[o3] = dr;
-  d.dgh[o3 + H] = dzp;
-  d.dgh[o3 + 2 * H] = dnr;
-  d.dghb[o3] = f2bf(dr);
-  d.dghb[o3 + H] = f2bf(dzp);
-  d.dghb[o3 + 2 * H] = f2bf(dnr);
+// Shared memory of one backward CTA: the weight slice Whh[:, units] (3H x U
+// bf16), dh * z of its units for every 32-row pair (f32: the carry's first
+// term) and the K split's partial sums ((wk - 1) * wm pairs of U/8 tiles).
+static long long bwd_smem_bytes(int B, int H, int units, int wm, int wk) {
+  const long long pairs = (B + 31) / 32;
+  return (long long)3 * H * units * 2 + pairs * 32 * units * 4 +
+         (long long)(wk - 1) * wm * (units / 8) * SCAN_MT * 4 * 32 * 4;
 }
 
-// The first step of the backward (the forward's last): no carry yet, so
-// dh = g; writes dh [B, H] f32 for the next launch.
-__global__ void gru_bwd_first_kernel(StepState s, StepGrads d, float* dh,
-                                     int B, int H) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * H) return;
-  const float v = bf2f(s.g[i]);
-  dh[i] = v;
-  gate_grads(v, i / H, i % H, H, s, d);
-}
+template <int NTU>
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+    gru_bwd_kernel(const BwdParams p) {
+  constexpr int U = 8 * NTU;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = p.H, B = p.B, H3 = 3 * H, NK = H3 / 32;
+  const int u0 = blockIdx.x * U;
+  // wf[kc][s][nt][lane]: for K chunk kc (32 rows j of Whh), its k16 step s
+  // and unit tile nt, lane (g, c) holds the 4 bf16 Whh[j, u0 + 8 nt + g],
+  // j = 32 kc + 8 c + 4 s .. + 3: the B operand, permuted in K as the
+  // forward's (one 16-byte load of a bf16(dgh) row covers a chunk).
+  uint2* wf = reinterpret_cast<uint2*>(smem);
+  float* cz = reinterpret_cast<float*>(smem + (size_t)H3 * U * 2);
+  float* part = cz + (size_t)p.pairs * 32 * U;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int wm = warp % p.wm, wk = warp / p.wm;
+  const bool busy = wk < p.wk;
+  const int kspan = NK / p.wk, kb = wk * kspan, ke = kb + kspan;
+  const bool prof = p.stamps != nullptr && threadIdx.x == 0;
+  long long acc_t[BWD_STAGES] = {0, 0, 0, 0, 0, 0};
+  long long t0 = clock64();
 
-// One later step. In: dghb_t = bf16(dgh) of the step just done (all units),
-// wb the bf16 [3H, H] Whh (Whh^T as a row-major [K = 3H, N = H] matrix), z_t
-// its saved z, dh its dL/dh. The block's 16 x 16 tile of carry = dh * z +
-// dghb_t @ Whh^T becomes dL/dh of the step visited next (dh = g + carry, in
-// place), whose gate gradients `nx` / `dnx` it writes.
-__global__ void __launch_bounds__(KSPLIT * 32)
-    gru_bwd_step_kernel(const bf16* dghb_t, const bf16* wb,
-                        const float* z_t, float* dh, StepState nx,
-                        StepGrads dnx, int B, int H) {
-  __shared__ __align__(32) float part[KSPLIT][16 * 16];
-  const int warp = threadIdx.x >> 5;
-  const int u0 = blockIdx.x * 16, r0 = blockIdx.y * 16;
-  const int H3 = 3 * H;
-  const int kspan = H3 / KSPLIT, k_begin = warp * kspan;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll 4
-  for (int k = k_begin; k < k_begin + kspan; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, dghb_t + (size_t)r0 * H3 + k, H3);
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> w;
-    wmma::load_matrix_sync(w, wb + (size_t)k * H + u0, H);
-    wmma::mma_sync(acc, a, w, acc);
-  }
-  wmma::store_matrix_sync(part[warp], acc, 16, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < 256; e += KSPLIT * 32) {
-    const int r = r0 + e / 16, u = u0 + e % 16;
-    if (r >= B) continue;
-    float sum = 0.f;
+  // The slice: row j of Whh over the tile's 8 units is one 16-byte load,
+  // scattered into the fragment order (one time; SCAN_WLOAD in flight).
+  const int items = H3 * NTU;
+  for (int it0 = threadIdx.x; it0 < items; it0 += SCAN_WLOAD * SCAN_THREADS) {
+    uint4 v[SCAN_WLOAD];
 #pragma unroll
-    for (int w = 0; w < KSPLIT; ++w) sum += part[w][e];
-    const size_t o = (size_t)r * H + u;
-    const float carry = dh[o] * z_t[o] + sum;
-    const float dhn = bf2f(nx.g[o]) + carry;
-    dh[o] = dhn;
-    gate_grads(dhn, r, u, H, nx, dnx);
+    for (int q = 0; q < SCAN_WLOAD; ++q) {
+      const int it = it0 + q * SCAN_THREADS;
+      const int j = it / NTU, ub = u0 + (it % NTU) * 8;
+      v[q] = it < items && ub < H
+                 ? __ldg(reinterpret_cast<const uint4*>(p.w + (size_t)j * H +
+                                                        ub))
+                 : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int q = 0; q < SCAN_WLOAD; ++q) {
+      const int it = it0 + q * SCAN_THREADS;
+      if (it >= items) break;
+      const int j = it / NTU, nt = it % NTU;
+      const int kc = j >> 5, kr = j & 31;
+      const int cc = kr >> 3, s16 = (kr >> 2) & 1, e = kr & 3;
+      const unsigned short* vals =
+          reinterpret_cast<const unsigned short*>(&v[q]);
+      unsigned short* dst = reinterpret_cast<unsigned short*>(
+          wf + ((size_t)(kc * 2 + s16) * NTU + nt) * 32);
+#pragma unroll
+      for (int gg = 0; gg < 8; ++gg) dst[(gg * 4 + cc) * 4 + e] = vals[gg];
+    }
+  }
+  for (int i = threadIdx.x; i < p.pairs * 32 * U; i += SCAN_THREADS)
+    cz[i] = 0.f;
+  __syncthreads();
+  if (prof) acc_t[0] += clock64() - t0;
+
+  const size_t plane = (size_t)B * H, plane3 = (size_t)B * H3;
+  const int rounds = (p.pairs + p.wm - 1) / p.wm;
+  for (int s = 0; s < p.T; ++s) {
+    // The backward visits the forward's rows in reverse order.
+    const int t = p.reverse ? s : p.T - 1 - s;
+    const int tprev = p.reverse ? s - 1 : p.T - s;
+    for (int rd = 0; rd < rounds; ++rd) {
+      if (prof) t0 = clock64();
+      const int pair = rd * p.wm + wm;
+      const bool mine = busy && pair < p.pairs;
+      const bool lead = mine && wk == 0;
+      const int row0 = pair * 32;
+      // This thread's saved state at row t, loaded before the barrier:
+      // g, h_prev, r, z, n, h_n of its two rows of each tile and its two
+      // units of each unit tile.
+      unsigned sg[SCAN_MT][2][NTU];
+      float2 sv[5][SCAN_MT][2][NTU];
+#pragma unroll
+      for (int mt = 0; mt < SCAN_MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = row0 + mt * 16 + hh * 8 + g;
+#pragma unroll
+          for (int jj = 0; jj < NTU; ++jj) {
+            const int u = u0 + jj * 8 + 2 * c;
+            const bool ok = lead && row < B && u < H;
+            const size_t o = (size_t)t * plane + (size_t)row * H + u;
+            sg[mt][hh][jj] =
+                ok ? __ldg(reinterpret_cast<const unsigned*>(p.g + o)) : 0u;
+            const float* src[5] = {p.hprev, p.r, p.z, p.n, p.hn};
+#pragma unroll
+            for (int k = 0; k < 5; ++k)
+              sv[k][mt][hh][jj] =
+                  ok ? __ldg(reinterpret_cast<const float2*>(src[k] + o))
+                     : make_float2(0.f, 0.f);
+          }
+        }
+      if (prof) {
+        const long long t1 = clock64();
+        acc_t[1] += t1 - t0;
+        t0 = t1;
+      }
+      if (rd == 0 && s > 0) {
+        grid_barrier(p.bar, gridDim.x * (unsigned)s);
+        if (prof) {
+          const long long t1 = clock64();
+          acc_t[2] += t1 - t0;
+          t0 = t1;
+        }
+      }
+      float acc[SCAN_MT][NTU][4];
+#pragma unroll
+      for (int mt = 0; mt < SCAN_MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NTU; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+      // The first step has no carry: its product is not formed.
+      if (mine && s > 0) {
+        const bf16* a_t = p.dghb + (size_t)tprev * plane3;
+        const uint4* ap[SCAN_MT][2];
+        bool ok[SCAN_MT][2];
+#pragma unroll
+        for (int mt = 0; mt < SCAN_MT; ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = row0 + mt * 16 + hh * 8 + g;
+            ok[mt][hh] = row < B;
+            ap[mt][hh] = reinterpret_cast<const uint4*>(
+                a_t + (size_t)(ok[mt][hh] ? row : 0) * H3 + 8 * c);
+          }
+        uint4 a[SCAN_KDEPTH][SCAN_MT][2];
+        auto load = [&](int st, int kc) {
+#pragma unroll
+          for (int mt = 0; mt < SCAN_MT; ++mt)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              a[st][mt][hh] = ok[mt][hh] ? __ldcg(ap[mt][hh] + kc * 4)
+                                         : make_uint4(0, 0, 0, 0);
+        };
+#pragma unroll
+        for (int st = 0; st < SCAN_KDEPTH; ++st)
+          if (kb + st < ke) load(st, kb + st);
+        if (prof) {
+          const long long t1 = stamp_after(a[0][0][0].x ^ a[0][1][1].w);
+          acc_t[3] += t1 - t0;
+          t0 = t1;
+        }
+        for (int kc = kb; kc < ke; kc += SCAN_KDEPTH) {
+#pragma unroll
+          for (int st = 0; st < SCAN_KDEPTH; ++st) {
+            if (kc + st >= ke) break;
+#pragma unroll
+            for (int s16 = 0; s16 < 2; ++s16) {
+              const uint2* wrow =
+                  wf + (size_t)((kc + st) * 2 + s16) * NTU * 32 + lane;
+#pragma unroll
+              for (int nt = 0; nt < NTU; ++nt) {
+                const uint2 b = wrow[nt * 32];
+#pragma unroll
+                for (int mt = 0; mt < SCAN_MT; ++mt) {
+                  const uint4 lo = a[st][mt][0], hi = a[st][mt][1];
+                  const unsigned af[4] = {s16 ? lo.z : lo.x, s16 ? hi.z : hi.x,
+                                          s16 ? lo.w : lo.y,
+                                          s16 ? hi.w : hi.y};
+                  mma_bf16(acc[mt][nt], af, b.x, b.y);
+                }
+              }
+            }
+            if (kc + st + SCAN_KDEPTH < ke) load(st, kc + st + SCAN_KDEPTH);
+          }
+        }
+      }
+      if (p.wk > 1) {
+        // The K split's partial sums meet in a fixed order.
+        float* mypart =
+            part + (size_t)((wk - 1) * p.wm + wm) * SCAN_MT * NTU * 4 * 32;
+        if (mine && wk > 0 && s > 0) {
+#pragma unroll
+          for (int mt = 0; mt < SCAN_MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NTU; ++nt)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                mypart[((mt * NTU + nt) * 4 + q) * 32 + lane] = acc[mt][nt][q];
+        }
+        __syncthreads();
+        if (lead && s > 0) {
+          for (int w = 1; w < p.wk; ++w) {
+            const float* src =
+                part + (size_t)((w - 1) * p.wm + wm) * SCAN_MT * NTU * 4 * 32;
+#pragma unroll
+            for (int mt = 0; mt < SCAN_MT; ++mt)
+#pragma unroll
+              for (int nt = 0; nt < NTU; ++nt)
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                  acc[mt][nt][q] += src[((mt * NTU + nt) * 4 + q) * 32 + lane];
+          }
+        }
+      }
+      if (prof) {
+        const long long t1 = clock64();
+        acc_t[4] += t1 - t0;
+        t0 = t1;
+      }
+      if (lead) {
+        // dh = g + carry, carry = dh' * z' + bf16(dgh') @ Whh^T of the step
+        // just done; then the gate gradients in the order of operations of
+        // `_gru_bwd_kernel` (fused_attention.py:2462-2467).
+#pragma unroll
+        for (int mt = 0; mt < SCAN_MT; ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int lrow = mt * 16 + hh * 8 + g, row = row0 + lrow;
+            if (row >= B) continue;
+#pragma unroll
+            for (int jj = 0; jj < NTU; ++jj) {
+              const int i = jj * 8 + 2 * c, u = u0 + i;
+              if (u >= H) continue;
+              float* czp = cz + (size_t)(pair * 32 + lrow) * U + i;
+              const unsigned gb = sg[mt][hh][jj];
+              const float gv[2] = {__uint_as_float(gb << 16),
+                                   __uint_as_float(gb & 0xffff0000u)};
+              const float2 hp2 = sv[0][mt][hh][jj], r2 = sv[1][mt][hh][jj];
+              const float2 z2 = sv[2][mt][hh][jj], n2 = sv[3][mt][hh][jj];
+              const float2 hn2 = sv[4][mt][hh][jj];
+              const float hp[2] = {hp2.x, hp2.y}, rg[2] = {r2.x, r2.y};
+              const float zg[2] = {z2.x, z2.y}, ng[2] = {n2.x, n2.y};
+              const float hn[2] = {hn2.x, hn2.y};
+              float dr[2], dzp[2], dn[2], dnr[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float carry =
+                    s > 0 ? czp[e] + acc[mt][jj][hh * 2 + e] : 0.f;
+                const float dh = gv[e] + carry;
+                const float dz = dh * (hp[e] - ng[e]);
+                dn[e] = (dh * (1.0f - zg[e])) * (1.0f - ng[e] * ng[e]);
+                dr[e] = (dn[e] * hn[e]) * (rg[e] * (1.0f - rg[e]));
+                dzp[e] = dz * (zg[e] * (1.0f - zg[e]));
+                dnr[e] = dn[e] * rg[e];
+                czp[e] = dh * zg[e];
+              }
+              const size_t o3 = (size_t)t * plane3 + (size_t)row * H3 + u;
+              const float q0[3][2] = {{dr[0], dr[1]}, {dzp[0], dzp[1]},
+                                      {dn[0], dn[1]}};
+              const float q1[3][2] = {{dr[0], dr[1]}, {dzp[0], dzp[1]},
+                                      {dnr[0], dnr[1]}};
+#pragma unroll
+              for (int q = 0; q < 3; ++q) {
+                const size_t o = o3 + (size_t)q * H;
+                if (p.dgi_bf16)
+                  *reinterpret_cast<unsigned*>(static_cast<bf16*>(p.dgi) + o) =
+                      pack_bf2(q0[q][0], q0[q][1]);
+                else
+                  *reinterpret_cast<float2*>(static_cast<float*>(p.dgi) + o) =
+                      make_float2(q0[q][0], q0[q][1]);
+                *reinterpret_cast<float2*>(p.dgh + o) =
+                    make_float2(q1[q][0], q1[q][1]);
+                *reinterpret_cast<unsigned*>(p.dghb + o) =
+                    pack_bf2(q1[q][0], q1[q][1]);
+              }
+            }
+          }
+      }
+      if (p.wk > 1) __syncthreads();
+      if (prof) acc_t[5] += clock64() - t0;
+    }
+  }
+  if (prof) {
+    for (int i = 0; i < BWD_STAGES; ++i)
+      p.stamps[(size_t)blockIdx.x * BWD_STAGES + i] = acc_t[i];
   }
 }
 
@@ -632,37 +854,65 @@ extern "C" int pmce_gru_scan(void* const* ptrs, const long long* ints,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int pmce_gru_bwd_first(const void* g, const float* hprev,
-                                  const float* r, const float* z,
-                                  const float* n, const float* hn,
-                                  float* dgi, float* dgh, void* dghb,
-                                  float* dh, int B, int H, void* stream) {
-  if (B <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256, blocks = (B * H + threads - 1) / threads;
-  gru_bwd_first_kernel<<<blocks, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      StepState{static_cast<const bf16*>(g), hprev, r, z, n, hn},
-      StepGrads{dgi, dgh, static_cast<bf16*>(dghb)}, dh, B, H);
-  return static_cast<int>(cudaGetLastError());
+template <int NTU>
+static cudaError_t launch_bwd(const BwdParams& p, int grid, long long smem,
+                              cudaStream_t stream) {
+  auto kernel = gru_bwd_kernel<NTU>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  void* args[] = {const_cast<BwdParams*>(&p)};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3(grid), dim3(SCAN_THREADS), args,
+                                     static_cast<size_t>(smem), stream);
 }
 
-extern "C" int pmce_gru_bwd_step(const void* dghb_t, const void* wb,
-                                 const float* z_t, float* dh, const void* g,
-                                 const float* hprev, const float* r,
-                                 const float* z, const float* n,
-                                 const float* hn, float* dgi, float* dgh,
-                                 void* dghb_next, int B, int Bp, int H,
-                                 void* stream) {
-  // K = 3H splits into KSPLIT spans of whole 16-wide steps; the grid tiles
-  // H and Bp by 16.
-  if (H % (16 * KSPLIT) != 0 || Bp % 16 != 0 || Bp < B || B <= 0)
+// The whole backward scan of one direction in one cooperative launch.
+// ptrs: g, h_prev, r, z, n, h_n, w (bf16 [3H, H]), dgi, dgh, dghb. The plan
+// (units, wm, wk, smem) comes from the host's `gru_bwd_plan`; the launch
+// refuses a plan whose shared memory is not this file's layout, and a grid
+// that cannot be co-resident fails with cudaErrorCooperativeLaunchTooLarge.
+extern "C" int pmce_gru_bwd_scan(void* const* ptrs, int T, int reverse,
+                                 int dgi_bf16, int B, int H, int units,
+                                 int wm, int wk, long long smem, void* bar,
+                                 void* stamps, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || H % 64 != 0 ||
+      (units != 8 && units != 16 && units != 24) || wm < 1 || wk < 1 ||
+      wm * wk > SCAN_WARPS || (3 * H / 32) % wk != 0 ||
+      smem != bwd_smem_bytes(B, H, units, wm, wk))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(H / 16, Bp / 16);
-  gru_bwd_step_kernel<<<grid, KSPLIT * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(dghb_t), static_cast<const bf16*>(wb), z_t,
-      dh, StepState{static_cast<const bf16*>(g), hprev, r, z, n, hn},
-      StepGrads{dgi, dgh, static_cast<bf16*>(dghb_next)}, B, H);
+  BwdParams p{};
+  p.g = static_cast<const bf16*>(ptrs[0]);
+  p.hprev = static_cast<const float*>(ptrs[1]);
+  p.r = static_cast<const float*>(ptrs[2]);
+  p.z = static_cast<const float*>(ptrs[3]);
+  p.n = static_cast<const float*>(ptrs[4]);
+  p.hn = static_cast<const float*>(ptrs[5]);
+  p.w = static_cast<const bf16*>(ptrs[6]);
+  p.dgi = ptrs[7];
+  p.dgh = static_cast<float*>(ptrs[8]);
+  p.dghb = static_cast<bf16*>(ptrs[9]);
+  p.T = T;
+  p.reverse = reverse;
+  p.dgi_bf16 = dgi_bf16;
+  p.B = B;
+  p.H = H;
+  p.wm = wm;
+  p.wk = wk;
+  p.pairs = (B + 31) / 32;
+  p.bar = static_cast<unsigned*>(bar);
+  p.stamps = static_cast<long long*>(stamps);
+  const int grid = (H + units - 1) / units;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(bar, 0, sizeof(unsigned), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  switch (units) {
+    case 8: e = launch_bwd<1>(p, grid, smem, s); break;
+    case 16: e = launch_bwd<2>(p, grid, smem, s); break;
+    default: e = launch_bwd<3>(p, grid, smem, s); break;
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -174,14 +174,15 @@ TRUNK = CudaLibrary("lifter_trunk", "pmce_trunk_error_string", {
 })
 # The scan: a table of per-direction pointers, per-direction integers
 # (int64), dirs, B, H, the plan's units, wm, wk, save, shared memory, the
-# barrier counter, the stamps (or null), stream.
+# barrier counter, the stamps (or null), stream. The backward scan: a table
+# of its ten pointers, T, reverse, dgi in bf16, B, H, the plan's units, wm,
+# wk, shared memory, the barrier counter, the stamps (or null), stream.
 GRU = CudaLibrary("gru_scan", "pmce_gru_error_string", {
     "pmce_gru_scan": (I, (P, ctypes.POINTER(L), I, I, I, I, I, I, I, L, P, P,
                           P)),
     "pmce_gru_device_limits": (I, (I, ctypes.POINTER(I),
                                    ctypes.POINTER(I))),
-    "pmce_gru_bwd_first": (I, (P,) * 10 + (I, I, P)),
-    "pmce_gru_bwd_step": (I, (P,) * 13 + (I, I, I, P)),
+    "pmce_gru_bwd_scan": (I, (P, I, I, I, I, I, I, I, I, L, P, P, P)),
 })
 CHAIN = CudaLibrary("coevo_chain", "pmce_chain_error_string", {
     "pmce_chain_workspace_bytes": (ctypes.c_longlong, (I,)),
@@ -197,16 +198,17 @@ COEVO_BLOCK = CudaLibrary("coevo_block", "pmce_coevo_block_error_string", {
     "pmce_coevo_block": (I, (P,) * 8 + (I, I, I, F, F, F, P)),
     "pmce_coevo_block_prof": (I, (P,) * 8 + (I, I, I, F, F, F, P, P)),
 })
+# The block: the forward's launches (LayerNorm, the GEMM with its fused
+# epilogues, grouped attention); the backward's tile program (a table of
+# its 27 pointers, clips, N, hid, eps, post_eps, qscale, stream) and its
+# weight-gradient launch (a table of 13 pointers, M, hid, splits, the tile
+# program's tile count, stream).
 BLOCK = CudaLibrary("block", "pmce_block_error_string", {
     "pmce_block_ln": (I, (P, I, P, P, P, I, F, P)),
     "pmce_block_gemm": (I, GEMM_ARGS),
     "pmce_block_attn": (I, (P, P, I, I, I, I, P)),
-    "pmce_block_gemm_tn": (I, (P, P, I, I, I, I, P, L, L, P)),
-    "pmce_block_ln_bwd": (I, (P, I, P, I, P, F, P, P, I, P, P, P, P, P, L,
-                              I, I, I, I, P)),
-    "pmce_block_colsum": (I, (P, I, I, P, L, I, P)),
-    "pmce_block_reduce": (I, (P, I, L, P, P)),
-    "pmce_block_attn_bwd": (I, (P, P, P, I, I, I, I, F, P)),
+    "pmce_block_bwd_tile": (I, (P, I, I, I, F, F, F, P)),
+    "pmce_block_wgrad": (I, (P, I, I, I, I, P)),
 })
 SKIN = CudaLibrary("skinning", "pmce_skin_error_string", {
     "pmce_skinning": (I, (P, P, P, P, I, I, I, P)),

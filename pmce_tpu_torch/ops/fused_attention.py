@@ -50,6 +50,9 @@ GRU_BWD_LAUNCHES = _cuda.launch_counter("gru_layer_bwd")
 # Launches of the scan kernel (K2) itself: one runs both directions of a
 # BiGRU layer, which gru_layer and gru_layer_rev count once each.
 GRU_SCAN_LAUNCHES = _cuda.launch_counter("gru_scan")
+# Launches of the persistent backward scan (row 13): one a direction, one
+# per gru_layer_bwd call.
+GRU_BWD_SCAN_LAUNCHES = _cuda.launch_counter("gru_bwd_scan")
 BLOCK_FWD_LAUNCHES = _cuda.launch_counter("block_fwd")
 BLOCK_BWD_LAUNCHES = _cuda.launch_counter("block_bwd")
 
@@ -509,11 +512,15 @@ def transformer_block_plain(x, params, num_heads: int, eps: float = 1e-6,
 # The JAX package's own gate (``_fused_block_impl``): longer clips run its
 # oracle, so here the plain version; the kernels take up to this many.
 BLOCK_MAX_TOKENS = 64
-# Splits of the weight-gradient products' K = B·N rows (blocks that write
-# partial tiles, added in order by one more launch).
-_TN_SPLITS = 16
-_LNB_ROWS = 64
+# The backward's tile program: tiles of whole clips up to this many rows
+# (csrc/block.cu, bb::TM), and the fixed splits of the weight products'
+# K = B·N rows (bb::block_wgrad_kernel adds them in order).
+_BLOCK_TILE_ROWS = 128
+_WGRAD_SPLITS = 4
 _BLOCK_GEMM = "pmce_block_gemm"
+# Stages of the tile program's stamped instantiation.
+BLOCK_BWD_STAGES = ("post-norm", "fc2ᵀ", "fc1ᵀ", "LN2", "projᵀ",
+                    "attention", "qkvᵀ", "LN1")
 
 
 def block_kernel_fits(C: int, num_heads: int, hid: int) -> bool:
@@ -568,9 +575,10 @@ class _BlockWeights:
 
 
 def _block_fwd_cuda(x, params, m1, m2, num_heads, eps, post_eps,
-                    for_grad: bool, keep_branches: bool):
+                    for_grad: bool, keep_branches: bool, w=None):
     """Forward launches; returns (out, saved) where ``saved`` holds what
-    the backward reads (None entries where not needed)."""
+    the backward reads (None entries where not needed). ``w``: the
+    parameters as :class:`_BlockWeights` already made, or None."""
     B, N, C, hid = _block_checks(x, params, num_heads)
     bf16, f32 = torch.bfloat16, torch.float32
     dev = x.device
@@ -578,7 +586,7 @@ def _block_fwd_cuda(x, params, m1, m2, num_heads, eps, post_eps,
     stream = _cuda.stream_ptr(dev)
     lib = _cuda.BLOCK
     p = _cuda.ptr
-    w = _BlockWeights(params, C, hid, dev)
+    w = w or _BlockWeights(params, C, hid, dev)
     rows1, rows2 = _mask_rows(m1, B, dev), _mask_rows(m2, B, dev)
 
     def buf(cols, dt):
@@ -614,110 +622,76 @@ def _block_fwd_cuda(x, params, m1, m2, num_heads, eps, post_eps,
     return out, saved
 
 
+def _block_vec_layout(C: int, hid: int) -> tuple[dict, int]:
+    """Offsets of the vector gradients in the tile program's per-tile
+    partials (``bb::vec_len``): g1, b1, bqkv, bproj, g2, b2, bb1, bb2, gp,
+    bp; and their total length."""
+    off, n = {}, 0
+    for name, size in (("g1", C), ("b1", C), ("bqkv", 3 * C), ("bproj", C),
+                       ("g2", C), ("b2", C), ("bb1", hid), ("bb2", C),
+                       ("gp", C), ("bp", C)):
+        off[name], n = n, n + size
+    return off, n
+
+
 def _block_bwd_cuda(gout, x, params, m1, m2, saved, num_heads, eps,
-                    post_eps, need_masks: bool):
-    """Backward launches: dx and the 14 parameter gradients (f32), plus the
-    per-clip mask gradients when ``need_masks``."""
+                    post_eps, need_masks: bool, stamps=None, w=None):
+    """The backward in two launches of ``csrc/block.cu``: the tile program
+    (the activation-gradient chain over tiles of whole clips: dx, the
+    weight products' bf16 operands, per-tile partials of the vector
+    gradients, the per-clip mask gradients when ``need_masks``), then the
+    four weight gradients and the vector gradients' fixed-order sums in one
+    launch. The weights are read in their [in, out] layout: no transposed
+    copies. Returns dx, the 14 parameter gradients (f32) and the mask
+    gradients. ``stamps`` (int64 [tiles, 8] on the card): run only the
+    stamped tile program (not counted) and return None. ``w``: the
+    forward's :class:`_BlockWeights` (their casts are not made again), or
+    None."""
     B, N, C, hid = _block_checks(x, params, num_heads)
     bf16, f32 = torch.bfloat16, torch.float32
     dev = x.device
     M = B * N
     stream = _cuda.stream_ptr(dev)
     lib = _cuda.BLOCK
-    p, null = _cuda.ptr, _cuda.P(None)
-    w = _BlockWeights(params, C, hid, dev)
+    w = w or _BlockWeights(params, C, hid, dev)
     rows1, rows2 = _mask_rows(m1, B, dev), _mask_rows(m2, B, dev)
     h1, qkv, o, x1, h2, hh, ge, y, a, mo = saved
     gout = gout.to(bf16).contiguous()
     _cuda.check_cuda(gout, "grad of the block output", bf16, (B, N, C))
+    voff, L = _block_vec_layout(C, hid)
+    tiles = -(-B // (_BLOCK_TILE_ROWS // N))
 
-    def wt(t, rows, cols, name):       # W [in, out] -> bf16 Wᵀ [out, in]
-        return _cuda.to_kernel(t.t(), dev, bf16, (rows, cols), name)
+    def buf(cols, dt):
+        return torch.empty(M, cols, device=dev, dtype=dt)
 
-    wqkv_t = wt(w.wqkv, 3 * C, C, "wqkvᵀ")
-    wproj_t = wt(w.wproj, C, C, "wprojᵀ")
-    w1_t = wt(w.w1, hid, C, "w_fc1ᵀ")
-    w2_t = wt(w.w2, C, hid, "w_fc2ᵀ")
-
-    # Vector gradients: per-64-row-block partials, one buffer, one reduce.
-    vec_names = (("g1", C), ("b1", C), ("bqkv", 3 * C), ("bproj", C),
-                 ("g2", C), ("b2", C), ("bb1", hid), ("bb2", C), ("gp", C),
-                 ("bp", C))
-    voff, L = {}, 0
-    for name, n in vec_names:
-        voff[name], L = L, L + n
-    S = -(-M // _LNB_ROWS)
-    part_vec = torch.empty(S, L, device=dev, dtype=f32)
-    # Matrix gradients: _TN_SPLITS partial tiles each, one buffer.
+    part = torch.empty(tiles, L, device=dev, dtype=f32)
+    gbuf, m2g, dhh, da, dqkv = (buf(C, f32), buf(C, bf16), buf(hid, bf16),
+                                buf(C, bf16), buf(3 * C, bf16))
+    dx = torch.empty_like(x)
+    dm1, dm2 = ((torch.empty(B, device=dev, dtype=f32) for _ in range(2))
+                if need_masks else (None, None))
+    lib.call("pmce_block_bwd_tile", _cuda.ptr_table(
+        gout, x, y if w.post else None, x1, hh, qkv,
+        a if need_masks else None, mo if need_masks else None, w.wqkv,
+        w.wproj, w.w1, w.w2, w.g1, w.g2, w.gp if w.post else None, rows1,
+        rows2, gbuf, m2g, dhh, da, dqkv, dx, part, dm1, dm2, stamps),
+        B, N, hid, eps, post_eps, 1.0 / math.sqrt(C // num_heads), stream)
+    if stamps is not None:
+        return None
     mat_shapes = (("wqkv", C, 3 * C), ("wproj", C, C), ("w1", C, hid),
                   ("w2", hid, C))
     moff, Lm = {}, 0
     for name, r, c in mat_shapes:
         moff[name], Lm = Lm, Lm + r * c
-    part_mat = torch.empty(_TN_SPLITS, Lm, device=dev, dtype=f32)
-
-    def opt(t):
-        return p(t) if t is not None else null
-
-    def ln_bwd(dy, xs, g, e, res, rowscale, dx, dxs, dot, rowdot, og, ob,
-               os_):
-        lib.call("pmce_block_ln_bwd", p(dy), int(dy.dtype == f32), opt(xs),
-                 int(xs is None or xs.dtype == f32), opt(g), e, opt(res),
-                 opt(rowscale), N, opt(dx), opt(dxs), opt(dot), opt(rowdot),
-                 p(part_vec), L, og, ob, os_, M, stream)
-
-    def tn(A, G, mo_rows, n, name):
-        lib.call("pmce_block_gemm_tn", p(A), p(G), M, mo_rows, n, _TN_SPLITS,
-                 p(part_mat), Lm, moff[name], stream)
-
-    def buf(cols, dt):
-        return torch.empty(M, cols, device=dev, dtype=dt)
-
-    dm1r = torch.empty(M, device=dev, dtype=f32) if need_masks else None
-    dm2r = torch.empty(M, device=dev, dtype=f32) if need_masks else None
-
-    # Post-norm (or identity): gy, m2·gy in bf16, dgp, dbp, dbb2, dm2.
-    gy, m2g = buf(C, f32), buf(C, bf16)
-    ln_bwd(gout, y, w.gp if w.post else None, post_eps, None, rows2, gy,
-           m2g, mo, dm2r, voff["gp"] if w.post else -1,
-           voff["bp"] if w.post else -1, voff["bb2"])
-    # MLP branch.
-    tn(ge, m2g, hid, C, "w2")
-    dhh = buf(hid, bf16)
-    _gemm(lib, _BLOCK_GEMM, m2g, w2_t, M, hid, C, _EPI_DGELU, dhh, aux=hh,
-          stream=stream)
-    lib.call("pmce_block_colsum", p(dhh), M, hid, p(part_vec), L,
-             voff["bb1"], stream)
-    tn(h2, dhh, C, hid, "w1")
-    dh2 = buf(C, f32)
-    _gemm(lib, _BLOCK_GEMM, dhh, w1_t, M, C, hid, _EPI_STORE, dh2,
-          stream=stream)
-    dx1, da = buf(C, f32), buf(C, bf16)
-    ln_bwd(dh2, x1, w.g2, eps, gy, rows1, dx1, da, a, dm1r, voff["g2"],
-           voff["b2"], voff["bproj"])
-    # Attention branch.
-    tn(o, da, C, C, "wproj")
-    do = buf(C, bf16)
-    _gemm(lib, _BLOCK_GEMM, da, wproj_t, M, C, C, _EPI_STORE, do,
-          stream=stream)
-    dqkv = buf(3 * C, bf16)
-    lib.call("pmce_block_attn_bwd", p(qkv), p(do), p(dqkv), B, N, C,
-             num_heads, 1.0 / math.sqrt(C // num_heads), stream)
-    lib.call("pmce_block_colsum", p(dqkv), M, 3 * C, p(part_vec), L,
-             voff["bqkv"], stream)
-    tn(h1, dqkv, C, 3 * C, "wqkv")
-    dh1 = buf(C, f32)
-    _gemm(lib, _BLOCK_GEMM, dqkv, wqkv_t, M, C, 3 * C, _EPI_STORE, dh1,
-          stream=stream)
-    dx = torch.empty_like(x)
-    ln_bwd(dh1, x, w.g1, eps, dx1, None, None, dx, None, None, voff["g1"],
-           voff["b1"], -1)
-    # Add the partials in a fixed order.
-    vec = torch.empty(L, device=dev, dtype=f32)
-    lib.call("pmce_block_reduce", p(part_vec), S, L, p(vec), stream)
+    mtiles = sum(r // 128 * (c // 128) for _, r, c in mat_shapes)
+    partial = torch.empty(mtiles * _WGRAD_SPLITS, 128 * 128, device=dev,
+                          dtype=f32)
+    counters = torch.zeros(mtiles, device=dev, dtype=torch.int32)
     mat = torch.empty(Lm, device=dev, dtype=f32)
-    lib.call("pmce_block_reduce", p(part_mat), _TN_SPLITS, Lm, p(mat),
-             stream)
+    vec = torch.empty(L, device=dev, dtype=f32)
+    lib.call("pmce_block_wgrad", _cuda.ptr_table(
+        h1, o, h2, ge, dqkv, da, dhh, m2g, partial, counters, mat, part,
+        vec), M, hid, _WGRAD_SPLITS, tiles, stream)
     BLOCK_BWD_LAUNCHES.count += 1
 
     def v(name, n):
@@ -730,22 +704,43 @@ def _block_bwd_cuda(gout, x, params, m1, m2, saved, num_heads, eps,
              m("wproj", C, C), v("bproj", C), v("g2", C), v("b2", C),
              m("w1", C, hid), v("bb1", hid), m("w2", hid, C), v("bb2", C),
              v("gp", C) if w.post else None, v("bp", C) if w.post else None)
-    dms = (None, None)
-    if need_masks:
-        dms = tuple(r.view(B, N).sum(1) for r in (dm1r, dm2r))
-    return dx, grads, dms
+    return dx, grads, (dm1, dm2)
+
+
+def block_bwd_stage_split(x, params, num_heads: int, branch_masks=None,
+                          eps: float = 1e-6, post_eps: float = 1e-6) -> dict:
+    """One stamped launch of the backward's tile program on the card (not
+    counted), after the forward, with a gradient of ones: {stage: cycles
+    summed over the tiles} for the stages of :data:`BLOCK_BWD_STAGES`, and
+    ``"tiles"``."""
+    m1, m2 = branch_masks if branch_masks is not None else (None, None)
+    with torch.no_grad():
+        _, saved = _block_fwd_cuda(x, params, m1, m2, num_heads, eps,
+                                   post_eps, True, False)
+        B, N, _ = x.shape
+        tiles = -(-B // (_BLOCK_TILE_ROWS // N))
+        stamps = torch.zeros(tiles, len(BLOCK_BWD_STAGES), dtype=torch.int64,
+                             device=x.device)
+        _block_bwd_cuda(torch.ones_like(x), x, params, m1, m2, saved,
+                        num_heads, eps, post_eps, False, stamps)
+    total = stamps.sum(0).cpu().tolist()
+    return {**dict(zip(BLOCK_BWD_STAGES, total)), "tiles": tiles}
 
 
 class _BlockKernel(torch.autograd.Function):
     """The block on the card: forward and backward are the launches of
-    ``csrc/block.cu``."""
+    ``csrc/block.cu`` (the backward: its tile program and its weight-
+    gradient launch, :func:`_block_bwd_cuda`)."""
 
     @staticmethod
     def forward(ctx, x, m1, m2, num_heads, eps, post_eps, *params):
         for_grad = any(ctx.needs_input_grad)
         keep = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        # The kernels' casts of the parameters, kept for the backward.
+        w = _BlockWeights(params, x.shape[-1], params[8].shape[1], x.device)
         out, saved = _block_fwd_cuda(x, params, m1, m2, num_heads, eps,
-                                     post_eps, for_grad, keep)
+                                     post_eps, for_grad, keep, w)
+        ctx.weights = w if for_grad else None
         ctx.cfg = (num_heads, eps, post_eps, len(params))
         ctx.save_for_backward(x, m1, m2, *params, *saved)
         return out
@@ -758,7 +753,7 @@ class _BlockKernel(torch.autograd.Function):
         need_masks = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
         dx, grads, dms = _block_bwd_cuda(gout, x, params, m1, m2, saved,
                                          num_heads, eps, post_eps,
-                                         need_masks)
+                                         need_masks, w=ctx.weights)
         dm1 = dms[0].reshape(m1.shape) if need_masks else None
         dm2 = dms[1].reshape(m2.shape) if need_masks else None
         grads = tuple(None if g is None else g.reshape(t.shape)
@@ -903,6 +898,9 @@ GRU_SCAN_WARPS = 8
 GRU_SCAN_UNITS = (8, 16, 24)
 # Stages of the stamped launch (``gru_scan_kernel``'s clock64() stamps).
 GRU_STAGES = ("weights", "barrier", "h load", "product", "epilogue")
+# Stages of the stamped backward launch (``gru_bwd_kernel``'s).
+GRU_BWD_STAGES = ("weights", "state", "barrier", "dgh load", "product",
+                  "epilogue")
 
 
 class GruPlan(NamedTuple):
@@ -956,12 +954,47 @@ def gru_plan(B: int, H: int, directions: int, sm_count: int,
         "section B")
 
 
+def gru_bwd_smem_bytes(B: int, H: int, units: int, wm: int, wk: int) -> int:
+    """Shared memory of one backward-scan CTA, as ``bwd_smem_bytes`` in
+    csrc/gru_scan.cu (the launch refuses any other): the bf16 columns
+    Whh[:, units] [3H, U], dh·z of its units for every 32-row pair (f32),
+    and the partial sums of the warps past the first when they split K."""
+    pairs = -(-B // 32)
+    return (3 * H * units * 2 + pairs * 32 * units * 4
+            + (wk - 1) * wm * (units // 8) * 2 * 4 * 32 * 4)
+
+
+def gru_bwd_plan(B: int, H: int, sm_count: int, smem_limit: int) -> GruPlan:
+    """Spread the backward scan of one direction over the card, as
+    :func:`gru_plan` does the forward: the fewest units per CTA whose grid
+    has at most one CTA an SM and whose shared memory fits; the warps cover
+    the 32-row pairs first and split K = 3H with the rest, in whole 32-wide
+    chunks. Raises ``NotImplementedError`` where no plan is co-resident:
+    the backward is never cut into more launches."""
+    if not gru_kernel_fits(H) or B < 1:
+        raise ValueError(f"gru_bwd_plan: B={B}, H={H}")
+    pairs = -(-B // 32)
+    wm = 1 << (min(pairs, GRU_SCAN_WARPS).bit_length() - 1)
+    wk = GRU_SCAN_WARPS // wm
+    while (3 * H // 32) % wk:
+        wk //= 2
+    for units in GRU_SCAN_UNITS:
+        groups = -(-H // units)
+        smem = gru_bwd_smem_bytes(B, H, units, wm, wk)
+        if groups <= sm_count and smem <= smem_limit:
+            return GruPlan(units, groups, groups, wm, wk, smem)
+    raise NotImplementedError(
+        f"gru_layer_bwd: no co-resident plan for B={B}, H={H} on "
+        f"{sm_count} SMs with {smem_limit} B of shared memory a block; "
+        "widening the backward scan is queued in ROADMAP.md, section B")
+
+
 _GRU_LIMITS: dict = {}
 
 
-def _card_plan(B: int, H: int, directions: int, device) -> GruPlan:
-    """:func:`gru_plan` with the card's own SM count and opt-in shared
-    memory (asked once per device)."""
+def _card_limits(device) -> tuple[int, int]:
+    """The card's SM count and opt-in shared memory a block (asked once
+    per device)."""
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     if index not in _GRU_LIMITS:
@@ -969,7 +1002,17 @@ def _card_plan(B: int, H: int, directions: int, device) -> GruPlan:
         _cuda.GRU.call("pmce_gru_device_limits", index, ctypes.byref(sm),
                        ctypes.byref(smem))
         _GRU_LIMITS[index] = (sm.value, smem.value)
-    return gru_plan(B, H, directions, *_GRU_LIMITS[index])
+    return _GRU_LIMITS[index]
+
+
+def _card_plan(B: int, H: int, directions: int, device) -> GruPlan:
+    """:func:`gru_plan` with the card's own limits."""
+    return gru_plan(B, H, directions, *_card_limits(device))
+
+
+def _card_bwd_plan(B: int, H: int, device) -> GruPlan:
+    """:func:`gru_bwd_plan` with the card's own limits."""
+    return gru_bwd_plan(B, H, *_card_limits(device))
 
 
 def _scan_weight(whh, H: int, device):
@@ -1036,7 +1079,14 @@ def _gru_layer_cuda(gi, whh, bhh, reverse: bool, save: bool = False):
     return _gru_scan_cuda([(gi, whh, bhh, reverse)], save)[0]
 
 
-def _gru_bwd_cuda(g, saved, wb, reverse: bool):
+def _gru_bwd_cuda(g, saved, wb, reverse: bool, dgi_dtype=torch.float32,
+                  stamps=None):
+    """One launch of the persistent backward scan (row 13) over all T steps
+    of one direction. ``wb``: Whh as the bf16 [H, 3H] view of a [3H, H]
+    tensor (the saving forward's rounding), read in place. Returns (dgi in
+    ``dgi_dtype`` (f32 or bf16, the bits of the f32 values' cast), dgh f32,
+    bf16(dgh)), each [T, B, 3H]. ``stamps`` (int64 [grid, 6] on the card)
+    takes the stamped launch's cycles instead of counting one."""
     T, B, H = g.shape
     bf16, f32 = torch.bfloat16, torch.float32
     if g.dtype != bf16:
@@ -1049,32 +1099,24 @@ def _gru_bwd_cuda(g, saved, wb, reverse: bool):
     # Whh^T as a row-major [3H, H] matrix: the view of the parameter's own
     # layout, which the saving forward writes; no copy.
     _cuda.check_cuda(wb.t(), "whh.t()", bf16, (3 * H, H))
+    if dgi_dtype not in (f32, bf16):
+        raise ValueError(f"dgi: float32 or bfloat16, not {dgi_dtype}")
     dev = g.device
-    Bp = -(-B // 16) * 16
-    dgi = torch.empty(T, B, 3 * H, device=dev, dtype=f32)
-    dgh = torch.empty_like(dgi)
-    # bf16(dgh) of the step just done (ping-pong, zero rows past B) and
-    # dL/dh of the step in hand.
-    dghb = torch.zeros(2, Bp, 3 * H, device=dev, dtype=bf16)
-    dh = torch.empty(B, H, device=dev, dtype=f32)
-    stream = _cuda.stream_ptr(dev)
-    p = _cuda.ptr
-
-    def state(t):
-        return (p(g[t]), *(p(saved[i, t]) for i in range(5)))
-
-    def grads(t, slot):
-        return (p(dgi[t]), p(dgh[t]), p(dghb[slot]))
-
-    rows = list(_gru_rows(T, not reverse))
-    _cuda.GRU.call("pmce_gru_bwd_first", *state(rows[0]), *grads(rows[0], 0),
-                   p(dh), B, H, stream)
-    for i in range(1, T):
-        t, tn = rows[i - 1], rows[i]
-        _cuda.GRU.call("pmce_gru_bwd_step", p(dghb[(i - 1) % 2]), p(wb),
-                       p(saved[2, t]), p(dh), *state(tn),
-                       *grads(tn, i % 2), B, Bp, H, stream)
-    return dgi, dgh
+    dgi = torch.empty(T, B, 3 * H, device=dev, dtype=dgi_dtype)
+    dgh = torch.empty(T, B, 3 * H, device=dev, dtype=f32)
+    dghb = torch.empty(T, B, 3 * H, device=dev, dtype=bf16)
+    plan = _card_bwd_plan(B, H, dev)
+    bar = torch.empty(1, device=dev, dtype=torch.int32)
+    _cuda.GRU.call("pmce_gru_bwd_scan",
+                   _cuda.ptr_table(g, *saved.unbind(0), wb.t(), dgi, dgh,
+                                   dghb),
+                   T, int(reverse), int(dgi_dtype == bf16), B, H, plan.units,
+                   plan.wm, plan.wk, plan.smem, _cuda.ptr(bar),
+                   None if stamps is None else _cuda.ptr(stamps),
+                   _cuda.stream_ptr(dev))
+    if stamps is None:
+        GRU_BWD_SCAN_LAUNCHES.count += 1
+    return dgi, dgh, dghb
 
 
 def _gru_require(H: int) -> None:
@@ -1100,25 +1142,39 @@ def gru_layer_save(gi, whh, bhh, reverse: bool = False):
     return _gru_save(gi, whh, bhh, reverse)[:2]
 
 
-def gru_layer_bwd(g, saved, whh, reverse: bool = False):
-    """The backward scan (see :func:`gru_layer_bwd_plain`): CPU tensors
-    run the plain version; CUDA tensors the backward steps of
-    ``csrc/gru_scan.cu`` (bf16 g; whh the bf16 [H, 3H] view of a [3H, H]
-    tensor, as the saving forward writes it on the card; H that
-    :func:`gru_kernel_fits` refuses raises)."""
+def _gru_bwd_plain(g, saved, whh, reverse: bool, dgi_dtype):
+    """:func:`gru_layer_bwd_plain` with the casts :func:`_gru_bwd` returns."""
+    dgi, dgh = gru_layer_bwd_plain(g, saved, whh, reverse)
+    return dgi.to(dgi_dtype), dgh, dgh.to(g.dtype)
+
+
+def _gru_bwd(g, saved, whh, reverse: bool, dgi_dtype):
+    """:func:`gru_layer_bwd` with dgi in ``dgi_dtype`` and bf16(dgh) too:
+    (dgi, dgh f32, dgh in g's dtype), as the weight gradient reads them."""
     if not _on_card(g, "gru_layer_bwd"):
-        return gru_layer_bwd_plain(g, saved, whh, reverse)
+        return _gru_bwd_plain(g, saved, whh, reverse, dgi_dtype)
     _gru_require(g.shape[-1])
-    out = _gru_bwd_cuda(g, saved, whh, reverse)
+    out = _gru_bwd_cuda(g, saved, whh, reverse, dgi_dtype)
     GRU_BWD_LAUNCHES.count += 1
     return out
 
 
+def gru_layer_bwd(g, saved, whh, reverse: bool = False):
+    """The backward scan (see :func:`gru_layer_bwd_plain`): CPU tensors
+    run the plain version; CUDA tensors one launch of the persistent
+    backward scan of ``csrc/gru_scan.cu`` (bf16 g; whh the bf16 [H, 3H]
+    view of a [3H, H] tensor, as the saving forward writes it on the card;
+    H that :func:`gru_kernel_fits` refuses raises)."""
+    return _gru_bwd(g, saved, whh, reverse, torch.float32)[:2]
+
+
 class _GRULayer(torch.autograd.Function):
     """One GRU direction with its gradient, as ``fused_gru_layer``'s custom
-    VJP: the saving forward, then the backward scan and the weight
-    gradients as one time-batched product and sum over all T·B rows
-    (``fused_attention.py:2538-2546`` of the JAX package)."""
+    VJP: the saving forward (one launch), then the backward scan (one
+    launch of the persistent backward kernel on the card, which also
+    writes dgi in gi's dtype and bf16(dgh), so nothing is cast after it)
+    and the weight gradients as one time-batched product and sum over all
+    T·B rows (``fused_attention.py:2538-2546`` of the JAX package)."""
 
     @staticmethod
     def forward(ctx, gi, whh, bhh, reverse):
@@ -1132,13 +1188,14 @@ class _GRULayer(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         wb, saved = ctx.saved_tensors
-        dgi, dgh = gru_layer_bwd(g.contiguous(), saved, wb, ctx.reverse)
+        dgi, dgh, dghb = _gru_bwd(g.contiguous(), saved, wb, ctx.reverse,
+                                  ctx.gi_dtype)
         T, B, H = g.shape
         dt = g.dtype
-        dgh_rows = dgh.reshape(T * B, 3 * H)
         # Operands in the compute dtype, as the forward cast them; f32 sums.
-        dwhh = mm(saved[0].reshape(T * B, H).to(dt).t(), dgh_rows.to(dt))
-        return (dgi.to(ctx.gi_dtype), dwhh.to(ctx.w_dtype), dgh_rows.sum(0),
+        dwhh = mm(saved[0].reshape(T * B, H).to(dt).t(),
+                  dghb.reshape(T * B, 3 * H))
+        return (dgi, dwhh.to(ctx.w_dtype), dgh.reshape(T * B, 3 * H).sum(0),
                 None)
 
 
@@ -1206,6 +1263,21 @@ def gru_stage_split(gi_f, gi_b, whh_f, bhh_f, whh_b, bhh_b) -> dict:
     total = stamps.sum(0).cpu().tolist()
     return {**dict(zip(GRU_STAGES, total)), "ctas": plan.grid,
             "steps": max(gi_f.shape[0], gi_b.shape[0])}
+
+
+def gru_bwd_stage_split(g, saved, wb, reverse: bool = False) -> dict:
+    """One stamped launch of the backward scan on the card (not counted):
+    {stage: cycles summed over the CTAs} for the stages of
+    :data:`GRU_BWD_STAGES`, ``"ctas"`` and ``"steps"``."""
+    T, B, H = g.shape
+    plan = _card_bwd_plan(B, H, g.device)
+    stamps = torch.zeros(plan.grid, len(GRU_BWD_STAGES), dtype=torch.int64,
+                         device=g.device)
+    with torch.no_grad():
+        _gru_bwd_cuda(g, saved, wb, reverse, stamps=stamps)
+    total = stamps.sum(0).cpu().tolist()
+    return {**dict(zip(GRU_BWD_STAGES, total)), "ctas": plan.grid,
+            "steps": T}
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,14 @@ launches after 5 warm-ups) of both directions at B = 256 (layer 0's 16 +
 16 steps, layer 1's 9 + 8), at B = 32 and 5, and of the saving variant at
 the Stage-2 step's shape (one direction, T = 16, B = 32); then each
 build's stage split at B = 256, 16 + 16 steps.
+
+The backward scan (row 13) the same way at the Stage-2 step's shapes (one
+direction, B = 32: T = 16 forward and reverse, T = 9 and 8), after a check
+that both builds agree within 0.02 of the largest gradient (their sums run
+in different orders, so their bits may differ). A variant without
+``pmce_gru_bwd_scan`` (a build from before the persistent backward) is
+driven through its per-step entry points, ``pmce_gru_bwd_first`` and
+``pmce_gru_bwd_step``, one host call a step, as its wrapper did.
 """
 
 from __future__ import annotations
@@ -33,13 +41,37 @@ from pmce_tpu_torch.ops import fused_attention as fa  # noqa: E402
 H = 1024
 
 
+# The per-step backward's entry points of builds from before the
+# persistent backward scan.
+LEGACY_BWD = {
+    "pmce_gru_bwd_first": (_cuda.I, (_cuda.P,) * 10 + (_cuda.I, _cuda.I,
+                                                       _cuda.P)),
+    "pmce_gru_bwd_step": (_cuda.I, (_cuda.P,) * 13 + (_cuda.I, _cuda.I,
+                                                      _cuda.I, _cuda.P)),
+}
+
+
 class VariantLibrary(_cuda.CudaLibrary):
-    """A gru_scan source outside ``csrc/``, built beside the tree's own."""
+    """A gru_scan source outside ``csrc/``, built beside the tree's own;
+    it binds the entry points it exports of the tree's and the legacy
+    backward's."""
 
     def __init__(self, src: Path):
         super().__init__("gru_scan", "pmce_gru_error_string",
-                         _cuda.GRU.signatures)
+                         {**_cuda.GRU.signatures, **LEGACY_BWD})
         self.src = src
+
+    def load(self):
+        if self._lib is None:
+            import ctypes
+
+            lib = ctypes.CDLL(str(self.path))
+            self.signatures = {k: v for k, v in self.signatures.items()
+                               if hasattr(lib, k)}
+        return super().load()
+
+    def exports(self, name: str) -> bool:
+        return name in self.signatures
 
     @property
     def path(self) -> Path:
@@ -65,6 +97,46 @@ def launch_ms(fn, n: int = 50) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def legacy_bwd(lib, g, saved, wb, reverse):
+    """The per-step backward of earlier builds: a gate-only launch, then one
+    launch a step (its wrapper, as it drove them)."""
+    T, B, H = g.shape
+    f32, bf16 = torch.float32, torch.bfloat16
+    dev = g.device
+    Bp = -(-B // 16) * 16
+    dgi = torch.empty(T, B, 3 * H, device=dev, dtype=f32)
+    dgh = torch.empty_like(dgi)
+    dghb = torch.zeros(2, Bp, 3 * H, device=dev, dtype=bf16)
+    dh = torch.empty(B, H, device=dev, dtype=f32)
+    stream = _cuda.stream_ptr(dev)
+    p = _cuda.ptr
+
+    def state(t):
+        return (p(g[t]), *(p(saved[i, t]) for i in range(5)))
+
+    def grads(t, slot):
+        return (p(dgi[t]), p(dgh[t]), p(dghb[slot]))
+
+    rows = list(range(T)) if reverse else list(range(T - 1, -1, -1))
+    lib.call("pmce_gru_bwd_first", *state(rows[0]), *grads(rows[0], 0),
+             p(dh), B, H, stream)
+    for i in range(1, T):
+        t, tn = rows[i - 1], rows[i]
+        lib.call("pmce_gru_bwd_step", p(dghb[(i - 1) % 2]), p(wb),
+                 p(saved[2, t]), p(dh), *state(tn), *grads(tn, i % 2), B, Bp,
+                 H, stream)
+    return dgi, dgh
+
+
+def backward(lib, g, saved, wb, reverse):
+    """One backward scan of a direction on ``lib``: (dgi, dgh) f32."""
+    if isinstance(lib, VariantLibrary) and not lib.exports(
+            "pmce_gru_bwd_scan"):
+        return legacy_bwd(lib, g, saved, wb, reverse)
+    _cuda.GRU = lib
+    return fa._gru_bwd_cuda(g, saved, wb, reverse)[:2]
 
 
 def split_line(args) -> str:
@@ -129,6 +201,38 @@ def main() -> int:
             _cuda.GRU = lib
             print(f"{name} split: "
                   + split_line(cases["T=16+16 B=256"]), flush=True)
+        # The backward scan at the Stage-2 step's shapes, from one saving
+        # forward each (the tree's build).
+        _cuda.GRU = tree
+        bwd_cases = {}
+        for steps, rev in ((16, False), (16, True), (9, False), (8, True)):
+            gi, w, b = direction(steps, 32)
+            _, saved, wb = fa._gru_save(gi, w, b, rev)
+            g = rnd(steps, 32, H, scale=0.1, dtype=torch.bfloat16)
+            bwd_cases[f"bwd T={steps}{' rev' if rev else ''} B=32"] = (
+                g, saved, wb, rev)
+        for label, args in bwd_cases.items():
+            (a1, a2), (b1, b2) = (backward(lib, *args) for _, lib in builds)
+            rel = max(float((x - y).abs().max() / y.abs().max())
+                      for x, y in ((a1, b1), (a2, b2)))
+            print(f"{label}: variant vs tree, max|diff| / max|tree| "
+                  f"{rel:.3g}", flush=True)
+            if rel > 0.02:
+                return 1
+        for rep in range(3):
+            for name, lib in (*builds, *builds[::-1]):
+                times = {label: launch_ms(
+                    lambda a=args, lb=lib: backward(lb, *a))
+                    for label, args in bwd_cases.items()}
+                print(f"rep {rep} {name}: " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in times.items()), flush=True)
+        _cuda.GRU = tree
+        split = fa.gru_bwd_stage_split(*bwd_cases["bwd T=16 B=32"])
+        total = sum(split[k] for k in fa.GRU_BWD_STAGES)
+        print("tree bwd split: " + ", ".join(
+            f"{k} {split[k] / total:.1%}" for k in fa.GRU_BWD_STAGES)
+            + f"; {total / split['ctas'] / split['steps']:.0f} cycles a step "
+            "a CTA", flush=True)
     _cuda.GRU = tree
     return 0
 

@@ -198,6 +198,55 @@ def test_gru_training_kernels_match_plain(B, steps, H, reverse):
     assert counts["gru_scan"] == 0
 
 
+@pytest.mark.parametrize("B", [5, 32, 256])
+@pytest.mark.parametrize("steps", [16, 9, 8])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_gru_backward_scan_is_one_launch_a_direction(B, steps, reverse):
+    """Row 13 at the Stage-2 widths (H = 1024; the final layer's 9 and 8
+    steps): one launch of the persistent backward scan runs every step of a
+    direction, within 0.02 of the plain backward (the band of
+    test_gru_training_kernels_match_plain), the same bits on a rerun; its
+    bf16 dgi and bf16(dgh) are the bits of the f32 outputs' casts."""
+    dev = _card()
+    H = 1024
+    rng = np.random.default_rng(7 * B + steps + reverse)
+    gi, whh, bhh = _gru_dir(rng, dev, steps, B, H)
+    g = _rand(rng, dev, steps, B, H, dtype=torch.bfloat16)
+    _, saved, wb = fa._gru_save(gi, whh, bhh, reverse)
+    _cuda.reset_launch_counts()
+    dgi, dgh = fa.gru_layer_bwd(g, saved, wb, reverse)
+    counts = _cuda.launch_counts()
+    assert counts["gru_bwd_scan"] == counts["gru_layer_bwd"] == 1
+    for a, b in zip((dgi, dgh), fa.gru_layer_bwd_plain(g, saved, whh,
+                                                        reverse)):
+        assert a.dtype == torch.float32 and a.shape == (steps, B, 3 * H)
+        assert _rel(b, a) < 0.02
+    again = fa.gru_layer_bwd(g, saved, wb, reverse)
+    assert torch.equal(again[0], dgi) and torch.equal(again[1], dgh)
+    dgi_b, dgh_2, dghb = fa._gru_bwd_cuda(g, saved, wb, reverse,
+                                          torch.bfloat16)
+    assert torch.equal(dgh_2, dgh)
+    assert torch.equal(dgi_b, dgi.to(torch.bfloat16))
+    assert torch.equal(dghb, dgh.to(torch.bfloat16))
+
+
+def test_gru_backward_scan_refuses_a_grid_that_cannot_be_resident():
+    """A backward plan claiming more SMs than the card has: the
+    cooperative launch refuses it and the wrapper raises."""
+    dev = _card()
+    rng = np.random.default_rng(1)
+    H = 4096
+    gi, whh, bhh = _gru_dir(rng, dev, 2, 8, H)
+    _, saved = fa.gru_layer_save_plain(gi, whh, bhh)
+    wb = whh.t().to(torch.bfloat16).t()
+    g = _rand(rng, dev, 2, 8, H, dtype=torch.bfloat16)
+    big = fa.gru_bwd_plan(8, H, 100_000, 232_448)
+    with mock.patch.object(fa, "_card_bwd_plan", lambda *a: big), \
+            pytest.raises(_cuda.KernelError, match="cooperative|too large"):
+        fa.gru_layer_bwd(g, saved, wb)
+        torch.cuda.synchronize()
+
+
 def test_serving_bigru_launches_the_scan_twice():
     """The decoder's BiGRU at full width, cut at the mid frame, under bf16
     without gradients: one scan launch per layer, against the plain
@@ -404,6 +453,41 @@ def test_block_kernels_match_plain(N, post, masks):
     for a, a2, b in zip(gk, gk2, gp):
         assert torch.equal(a, a2)
         assert _rel(b, a) < 0.02
+
+
+@pytest.mark.parametrize("clips,N,hid", [(1024, 17, 512), (1088, 16, 512),
+                                         (80, 48, 512), (64, 64, 512),
+                                         (96, 17, 384)])
+def test_block_backward_tile_program_at_the_training_shapes(clips, N, hid):
+    """Row 7 at the Stage-1 step's shapes (batch 64: block 0's spatial and
+    block 2's temporal half), at the seqlen-48 lifter's and the gate's 64
+    tokens, and at a hidden width that is not a multiple of 256 (the fc2ᵀ
+    stage's last block half full), with the post-norm and mask gradients:
+    the tile program and the weight-gradient launch against the plain
+    version's autograd, within 0.02 of each gradient's largest magnitude
+    (chip_smoke.py's band), one counted backward, and the same bits on a
+    rerun."""
+    dev = _card()
+    rng = np.random.default_rng(clips + N)
+    params = _block_params(rng, dev, True, hid=hid)
+    x = _rand(rng, dev, clips, N, 256, dtype=torch.bfloat16)
+    x.requires_grad_(True)
+    u = rng.random((2, clips, 1, 1))
+    bm = tuple(torch.from_numpy(((u[i] < 0.8) / 0.8).astype(np.float32))
+               .to(dev).requires_grad_(True) for i in range(2))
+    g = _rand(rng, dev, clips, N, 256, dtype=torch.bfloat16)
+    leaves = [x] + params + list(bm)
+    yk = fa.transformer_block(x, tuple(params), 8, 1e-6, 1e-6, bm)
+    yp = fa.transformer_block_plain(x, tuple(params), 8, 1e-6, 1e-6, bm)
+    _cuda.reset_launch_counts()
+    gk = torch.autograd.grad(yk, leaves, g, retain_graph=True)
+    assert _cuda.launch_counts()["block_bwd"] == 1
+    gk2 = torch.autograd.grad(yk, leaves, g, retain_graph=True)
+    gp = torch.autograd.grad(yp, leaves, g)
+    for i, (a, a2, b) in enumerate(zip(gk, gk2, gp)):
+        assert torch.equal(a, a2), i
+        assert bool(torch.isfinite(a).all()), i
+        assert _rel(b, a) < 0.02, (i, _rel(b, a))
 
 
 def test_block_kernel_refuses_f32_on_card():
