@@ -18,9 +18,13 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    directions of a BiGRU layer in one launch) and the whole block rerun
    bit for bit, and the trunk's long-group route (groups over its block
    kernel's 128-row tile) against its plain version under its own
-   counter. Library yardsticks, timed only: ``nn.GRU`` in bf16 for the
+   counter; the decoder's CA block backward also with branch masks that
+   require grad (their gradients against the plain version's, rerun bit
+   for bit). Library yardsticks, timed only: ``nn.GRU`` in bf16 for the
    GRU rows (with the backend that ran), ``F.multi_head_attention_forward``
-   for rows 4 / 5;
+   for rows 4 / 5, ``nn.TransformerEncoder`` (pre-norm, erf GELU, the
+   post-norm as its ``norm``) for row 6, with grad and on its no-grad fast
+   path;
 3. serving forward: ``create_pmce(num_joint=19, dtype=bfloat16, fused=True,
    device="cuda")`` at full width, random weights from a seed, B=256. The
    launch counters are zeroed just before it and read just after: every
@@ -74,10 +78,11 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
 each train step's device time by kernel and, before phase 2, the stage
 split of the trunk (K1), the GRU scan (K2), the decoder chain (K3), the
-whole block (row 14), the GRU's backward scan (row 13) and the block
-backward's tile program (row 7): one call of each kernel's clock64()-stamped
-instantiation (not counted as a launch) books every tile's, CTA's or
-clip's cycles to its stages.
+whole block (row 14), the GRU's backward scan (row 13), the block
+forward's and backward's tile programs (rows 6, 7) and the CA block
+backward's tile program (row 11): one call of each kernel's
+clock64()-stamped instantiation (not counted as a launch) books every
+tile's, CTA's or clip's cycles to its stages.
 
 The second-to-last line is one JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -654,6 +659,74 @@ def block_case(rng, device, clips: int, N: int, rate: float):
     return x, params, masks, g
 
 
+def block_library_ms(x, params, y_plain, masks) -> tuple:
+    """Row 6's yardstick: one PyTorch call computing the same block,
+    ``nn.TransformerEncoder`` of one pre-norm ``TransformerEncoderLayer``
+    (exact-erf GELU, eps 1e-6) with the post-norm as its ``norm``, in bf16 on
+    the same weights (timed only; the port never calls it): the forward
+    with grad (training mode, as the kernel's saving forward runs) and the
+    no-grad fast path (eval mode). No branch masks (it has none): where the
+    case has masks, its error against the plain version is not printed
+    (NaN). Returns (ms with grad, ms no-grad, max|library - plain|)."""
+    import torch
+    from torch import nn
+
+    C_ = x.shape[-1]
+    hid = params[8].shape[1]
+    layer = nn.TransformerEncoderLayer(
+        C_, 8, hid, dropout=0.0, activation="gelu", layer_norm_eps=1e-6,
+        batch_first=True, norm_first=True)
+    enc = nn.TransformerEncoder(layer, 1, norm=nn.LayerNorm(C_, eps=1e-6),
+                                enable_nested_tensor=False)
+    (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2, gp,
+     bp) = (t.detach() for t in params)
+    lay = enc.layers[0]
+    with torch.no_grad():
+        for dst, src in ((lay.norm1.weight, g1), (lay.norm1.bias, b1),
+                         (lay.self_attn.in_proj_weight, wqkv.t()),
+                         (lay.self_attn.in_proj_bias, bqkv),
+                         (lay.self_attn.out_proj.weight, wproj.t()),
+                         (lay.self_attn.out_proj.bias, bproj),
+                         (lay.norm2.weight, g2), (lay.norm2.bias, b2),
+                         (lay.linear1.weight, w1.t()), (lay.linear1.bias, bb1),
+                         (lay.linear2.weight, w2.t()), (lay.linear2.bias, bb2),
+                         (enc.norm.weight, gp), (enc.norm.bias, bp)):
+            dst.copy_(src)
+    enc = enc.to(x.device, torch.bfloat16)
+    xin = x.detach().requires_grad_(True)
+    enc.train()
+    with torch.enable_grad():
+        grad_ms = median_ms(lambda: enc(xin))
+        y = enc(xin)
+    enc.eval()
+    with torch.no_grad():
+        fast_ms = median_ms(lambda: enc(xin))
+    err = float("nan") if masks else max_err(y, y_plain)
+    return grad_ms, fast_ms, err
+
+
+def block_saving_floor(x, params, masks, y, fwd) -> None:
+    """Row 6's saving floor, printed beside its bound and not as it: the
+    function (JAX's ``_block_kernel``) writes only its output, while the
+    port's saving forward also writes what row 7 reads (h1, qkv, o, x1 f32,
+    h2, hh f32, ge, y f32 before the post-norm); hh and y (3 KB a row at
+    hid 512) could be recomputed by row 7 instead."""
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    rows_, C_ = x.shape[0] * x.shape[1], x.shape[-1]
+    hid = params[8].shape[1]
+    saved = rows_ * (C_ * (2 + 3 * 2 + 2 + 4 + 2 + 4) + hid * (4 + 2))
+    recomputable = rows_ * (C_ * 4 + hid * 4)
+    flops = count_flops(lambda: fwd(fa.transformer_block_plain))
+    base = tensor_bytes(x, params, masks, y)
+    floor_ms, by = bound(flops, base + saved, "bf16")
+    lean_ms, lean_by = bound(flops, base + saved - recomputable, "bf16")
+    print(f"[kernels] block_fwd saving floor (not its bound): "
+          f"{floor_ms:.4f} ms by {by} with the saved state ({saved / 1e6:.2f}"
+          f" MB); {lean_ms:.4f} ms by {lean_by} without hh and y "
+          f"(recomputable, {recomputable / 1e6:.2f} MB)", flush=True)
+
+
 def check_blocks(device, rows) -> None:
     """B6 / B7 at the training step's shapes (batch 64): block 0's spatial
     half (64·16 clips of 17 joints, no masks) and block 2's temporal half
@@ -697,7 +770,7 @@ def check_blocks(device, rows) -> None:
                 err = max(err, e)
                 rel = max(rel, e / float(b.float().abs().max()))
             if name == "block_fwd":
-                ms = median_ms(lambda: fwd(fa.transformer_block))
+                ms = fwd_ms = median_ms(lambda: fwd(fa.transformer_block))
                 plain_ms = median_ms(
                     lambda: fwd(fa.transformer_block_plain), iters=5)
             else:
@@ -713,11 +786,24 @@ def check_blocks(device, rows) -> None:
                                    f"its plain version ({rel})")
             record(rows, name, err, ms, plain_ms, count_flops(peak_fn),
                    pbytes, "bf16")
+        block_saving_floor(x, params, masks, yk, fwd)
+        if not torch.equal(yk, fwd(fa.transformer_block)):
+            raise RuntimeError(f"block_fwd {where}: two runs differ")
+        print(f"[kernels] block_fwd {where}: a second run gives the same "
+              f"outputs bit for bit", flush=True)
         repeat = bwd(yk)
         if not all(torch.equal(a, b) for a, b in zip(gk, repeat)):
             raise RuntimeError(f"block_bwd {where}: two runs differ")
         print(f"[kernels] block_bwd {where}: a second run gives the same "
               f"gradients bit for bit", flush=True)
+        lib_grad, lib_fast, lib_err = block_library_ms(x, params, yp, masks)
+        if rows["block_fwd"]["library_ms"] is None:
+            rows["block_fwd"]["library_ms"] = lib_grad
+        print(f"[kernels] library: nn.TransformerEncoder (pre-norm, erf "
+              f"GELU, post-norm) {where}, bf16, no masks: {lib_grad:.4f} ms "
+              f"with grad, {lib_fast:.4f} ms no-grad fast path (kernel "
+              f"{fwd_ms:.4f} ms); max|library - plain| {lib_err:.4g}",
+              flush=True)
         del yk, yp, gk, gp, repeat
 
 
@@ -725,8 +811,10 @@ def decoder_case(rng, device, kind: str, clips: int, N: int, c: int,
                  heads: int, Nk: int = 0, rate: float = 0.2):
     """One decoder attention block at the training shapes, made with numpy
     from a seed: bf16 tokens and AdaLN vectors (the dense layers' dtype),
-    f32 weights, per-clip branch masks at drop-path ``rate``, the output's
-    cotangent. Returns (leaves, call(fn, *leaves), (kernel, plain))."""
+    f32 weights, per-clip branch masks at drop-path ``rate`` (the CA block's
+    also on ``call.masks``, so that a case can ask for their gradients), the
+    output's cotangent. Returns (leaves, call(fn, *leaves), (kernel,
+    plain))."""
     import torch
 
     from pmce_tpu_torch.ops import fused_attention as fa
@@ -765,9 +853,50 @@ def decoder_case(rng, device, kind: str, clips: int, N: int, c: int,
     leaves = [r(clips, N, c, scale=1.0, dtype=bf),
               r(clips, Nk, c, scale=1.0, dtype=bf),
               r(clips, Nk, c, scale=1.0, dtype=bf), *conds, *proj, *mlp]
-    return leaves, (lambda fn, xq, xk, xv, *rest: fn(
-        xq, xk, xv, rest[0:8:2], rest[1:8:2], rest[8:], heads, 1e-6,
-        masks)), (fa.ca_block, fa.ca_block_plain)
+    def call(fn, xq, xk, xv, *rest):
+        return fn(xq, xk, xv, rest[0:8:2], rest[1:8:2], rest[8:], heads, 1e-6,
+                  call.masks)
+
+    call.masks = masks
+    return leaves, call, (fa.ca_block, fa.ca_block_plain)
+
+
+def ca_mask_gradients(leaves, call, kernel, plain, g, where) -> None:
+    """Row 11 with branch masks that require grad (JAX's kernel returns
+    their gradients): every gradient, dm1 and dm2 included, against the
+    plain version's autograd within the block's band, and a rerun bit for
+    bit."""
+    import torch
+
+    masks = call.masks
+    call.masks = tuple(m.detach().requires_grad_(True) for m in masks)
+    every = [*leaves, *call.masks]
+    try:
+        yk, yp = call(kernel, *leaves), call(plain, *leaves)
+        gk = torch.autograd.grad(yk, every, g, retain_graph=True)
+        again = torch.autograd.grad(yk, every, g)
+        gp = torch.autograd.grad(yp, every, g)
+    finally:
+        call.masks = masks
+    largest = max(float(t.float().abs().max()) for t in gp)
+    rel = 0.0
+    for i, (a, b) in enumerate(zip(gk, gp)):
+        scale = largest if i in (6, 14) else float(b.float().abs().max())
+        rel = max(rel, max_err(a, b) / scale)
+    dm = [max_err(a, b) / float(b.abs().max()) for a, b in zip(gk[-2:],
+                                                               gp[-2:])]
+    ok = rel <= TOL["ca_block_bwd"]
+    print(f"[kernels] ca_block_bwd {where}, mask gradients: max relative "
+          f"{rel:.4g} (dm1 {dm[0]:.3g}, dm2 {dm[1]:.3g}; tol "
+          f"{TOL['ca_block_bwd']}){'' if ok else '  FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"ca_block_bwd {where}: mask gradients disagree "
+                           f"with the plain version's ({rel})")
+    if not all(torch.equal(a, b) for a, b in zip(gk, again)):
+        raise RuntimeError(f"ca_block_bwd {where}: two runs with mask "
+                           "gradients differ")
+    print(f"[kernels] ca_block_bwd {where}, mask gradients: a second run "
+          "gives the same gradients bit for bit", flush=True)
 
 
 def mha_library_ms(leaves, heads: int) -> tuple[float, float]:
@@ -871,6 +1000,8 @@ def check_decoder_blocks(device, rows) -> None:
             raise RuntimeError(f"{name}_bwd {where}: two runs differ")
         print(f"[kernels] {name}_bwd {where}: a second run gives the same "
               f"gradients bit for bit", flush=True)
+        if kind == "ca":
+            ca_mask_gradients(leaves, call, kernel, plain, g, where)
         if kind == "mhsa":
             # Every mhsa case gets its yardstick; the kernels line keeps
             # the first case's, beside that case's kernel time.
@@ -1668,7 +1799,10 @@ def stage_split(device) -> None:
     at the training shapes: each kernel's
     clock64()-stamped instantiation or launch (one call, not counted on
     any path) gives every tile's, CTA's or clip's cycles per stage; the
-    shares are of their sum over the tiles, CTAs or clips."""
+    shares are of their sum over the tiles, CTAs or clips. The same for
+    the block forward's saving tile program (row 6) at the Stage-1 shapes
+    and the CA block backward's tile program (row 11) at the Stage-2
+    step's two orientations."""
     import torch
 
     from pmce_tpu_torch.ops import fused_attention as fa
@@ -1715,7 +1849,32 @@ def stage_split(device) -> None:
               f"{N}, {C}], {split['tiles']} tiles, by stage: " + ", ".join(
                   f"{k} {split[k] / total:.1%}" for k in fa.BLOCK_BWD_STAGES),
               flush=True)
+        split = fa.block_fwd_stage_split(x, params, 8, masks)
+        total = sum(split[k] for k in fa.TRUNK_STAGES)
+        print(f"[split] block_fwd (row 6) tile program, saving, {label} "
+              f"[{clips}, {N}, {C}], {split['tiles']} tiles, "
+              f"{total / split['tiles']:.0f} cycles a tile, by stage: "
+              + ", ".join(f"{k} {split[k] / total:.1%}"
+                          for k in fa.TRUNK_STAGES), flush=True)
         del x, params, masks
+    # Row 11's tile program at the Stage-2 step's two orientations.
+    for label, Nq, c, heads, Nk in (("joints over vertices", JT, 64, 8, 431),
+                                    ("vertices over joints", 431, 64, 2, JT)):
+        leaves, call, _ = decoder_case(rng, device, "ca", BM, Nq, c, heads,
+                                       Nk)
+        xs, rest = leaves[:3], leaves[3:]
+        with torch.no_grad():
+            _, saved = fa._ca_fwd_cuda(xs, rest[0:8:2], rest[1:8:2],
+                                       call.masks, rest[8:], heads, 1e-6)
+            g = torch.ones_like(xs[0])
+            split = fa.ca_bwd_stage_split(g, xs, rest[8:], saved, heads)
+        total = sum(split[k] for k in fa.CA_BWD_STAGES)
+        print(f"[split] ca_block_bwd (row 11) tile program, {label} [{BM}, "
+              f"{Nq}, {c}] over {Nk} keys, {split['ctas']} CTAs, "
+              f"{total / split['ctas']:.0f} cycles a CTA, by stage: "
+              + ", ".join(f"{k} {split[k] / total:.1%}"
+                          for k in fa.CA_BWD_STAGES), flush=True)
+        del leaves, saved, xs, rest
     chain = chain_case(r, B)
     print_split("coevo_chain (K3)", fc.coevo_stage_split("chain", *chain[:5]))
     block = coevo_block_case(r, B)

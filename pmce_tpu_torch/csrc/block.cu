@@ -18,12 +18,15 @@
 // about equally, so the backward keeps its row gradients on the SM and
 // runs in two launches.
 //
-// Forward (simple first): the trunk's launches (transformer_ops.cuh) over
-// all M rows: LayerNorm, WMMA GEMMs with fused epilogues (bias, q scale,
-// exact GELU, masked f32 residuals), grouped attention with a clip's rows
-// found by index arithmetic. The intermediates the backward reads stay in
-// device memory (h1, qkv, o, x1, h2, hh, ge, y: ~150 MB a block at batch
-// 64) instead of being recomputed as the TPU kernel does in VMEM.
+// Forward, one launch (row 6): the tile program of tile_block.cuh, shared
+// with the lifter trunk (K1), on tiles of up to 128 rows of whole clips
+// (B = 1, T = clips, J = N in its group addressing, so the tiles are the
+// backward's), with its saving program: per-clip branch scales m1, m2, and
+// epilogues that write what the backward reads (h1, qkv, o, x1 f32, h2, hh
+// f32, ge, y f32 and, where the mask gradients are owed, the branches a and
+// mo) where each is made, ~9.2 KB a row at hid 512 (~160 MB a block at
+// batch 64, ~48 us at the HBM rate: the saving forward is bound by bytes).
+// Without a gradient and without masks it writes only the output.
 //
 // Backward, two launches:
 // - the tile program (bb::block_bwd_tile_kernel): a thread block of 8
@@ -53,15 +56,16 @@
 //   clip lies in one tile). What holds it above its bound: mma.sync issue
 //   and latency with 8 warps an SM, a barrier per ring slice, and two
 //   waves of tiles at the Stage-1 shapes (147 / 136 tiles on 132 SMs).
-// - the weight gradients (bb::block_wgrad_kernel): the four X^T dY products
-//   over K = M rows in one launch over a list of 128 x 128 output tiles,
-//   each cut into 4 fixed K ranges; the CTA that finishes a tile's last
-//   range (an integer counter) adds the ranges' partials in range order,
-//   and the CTAs past the tiles add the tile program's vector partials in
-//   tile order. No float atomics: two runs give the same gradients bit for
+// - the weight gradients (wgrad.cuh, shared with ca_block.cu): the four
+//   X^T dY products over K = M rows in one launch over a list of 128 x 128
+//   output tiles, each cut into 4 fixed K ranges; the CTA that finishes a
+//   tile's last range (an integer counter) adds the ranges' partials in
+//   range order, and the CTAs past the tiles add the tile program's vector
+//   partials in tile order. No float atomics: two runs give the same gradients bit for
 //   bit.
 
-#include "transformer_ops.cuh"
+#include "tile_block.cuh"
+#include "wgrad.cuh"
 
 using namespace pmce;
 
@@ -970,178 +974,44 @@ __global__ void __launch_bounds__(NTH, 1)
   clk.write(a.stamps + (size_t)blockIdx.x * NSTAMP);
 }
 
-// ---------------------------------------------------------------------------
-// The four weight gradients in one launch (block_wgrad_kernel): dW = X^T dY
-// over K = M rows for (ge, m2g) -> W2, (h2, dhh) -> W1, (o, da) -> Wproj and
-// (h1, dqkv) -> Wqkv. A work list of 128 x 128 output tiles, each split into
-// `splits` fixed K ranges; a CTA computes one (tile, range) with mma.sync
-// (ldmatrix.trans of both [k, *] operands, a 3-stage cp.async ring of
-// 32-row K steps) and writes its f32 partial tile; the CTA that finishes a
-// tile's last range (an integer counter, no float atomics) adds the ranges'
-// partials in range order. The CTAs past the tiles add the tiles' vector
-// partials in tile order. Reruns are bit-identical.
-// ---------------------------------------------------------------------------
-constexpr int WG_BK = 32, WG_LD = 128 + 8, WG_STAGES = 3;
-constexpr int WG_SMEM = WG_STAGES * 2 * WG_BK * WG_LD * 2;
-
-struct WgradArgs {
-  const bf16* X[4];    // [M, mo_p]
-  const bf16* G[4];    // [M, n_p]
-  int mo[4], n[4];
-  long long off[4];    // output offsets into mat
-  int tile0[5];        // first tile of each product (tile0[4]: total)
-  int M, splits, kchunk;
-  float* partial;      // [tiles * splits, 128 * 128]
-  int* counters;       // [tiles], zero at launch
-  float* mat;          // the four gradients, concatenated
-  const float* vpart;  // [vtiles, L]
-  int vtiles, L;
-  float* vec;          // [L]
-};
-
-__global__ void __launch_bounds__(NTH, 1)
-    block_wgrad_kernel(const WgradArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int last;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int items = a.tile0[4] * a.splits;
-  if ((int)blockIdx.x >= items) {
-    // Vector partials, a column a thread, tiles added in order.
-    const int c = (blockIdx.x - items) * NTH + tid;
-    if (c < a.L) {
-      float s = 0.f;
-      for (int t = 0; t < a.vtiles; ++t) s += a.vpart[(size_t)t * a.L + c];
-      a.vec[c] = s;
-    }
-    return;
-  }
-  const int tile = blockIdx.x / a.splits, z = blockIdx.x % a.splits;
-  int p = 0;
-  while (tile >= a.tile0[p + 1]) ++p;
-  const int nt_n = a.n[p] / 128;
-  const int tt = tile - a.tile0[p];
-  const int m0 = tt / nt_n * 128, n0 = tt % nt_n * 128;
-  const int mo = a.mo[p], nn = a.n[p];
-  const bf16* X = a.X[p];
-  const bf16* G = a.G[p];
-  const int k_beg = z * a.kchunk, k_end = min(a.M, k_beg + a.kchunk);
-  const int steps = (max(k_end - k_beg, 0) + WG_BK - 1) / WG_BK;
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* gs = xs + WG_STAGES * WG_BK * WG_LD;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile 64 x 32
-
-  auto issue = [&](int st) {
-    if (st < steps) {
-      const int k0 = k_beg + st * WG_BK;
-      bf16* xd = xs + (st % WG_STAGES) * WG_BK * WG_LD;
-      bf16* gd = gs + (st % WG_STAGES) * WG_BK * WG_LD;
-      for (int c = tid; c < WG_BK * 16; c += NTH) {
-        const int r = c / 16, cc = c % 16 * 8;
-        const bool ok = k0 + r < k_end;
-        const size_t row = ok ? k0 + r : k_beg;
-        cp_async16(xd + r * WG_LD + cc, X + row * mo + m0 + cc, ok);
-        cp_async16(gd + r * WG_LD + cc, G + row * nn + n0 + cc, ok);
-      }
-    }
-    cp_async_commit();
-  };
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  issue(0);
-  issue(1);
-  for (int st = 0; st < steps; ++st) {
-    cp_async_wait_one();
-    __syncthreads();
-    issue(st + 2);
-    const bf16* xb = xs + (st % WG_STAGES) * WG_BK * WG_LD;
-    const bf16* gb = gs + (st % WG_STAGES) * WG_BK * WG_LD;
-#pragma unroll
-    for (int kk = 0; kk < WG_BK; kk += 16) {
-      unsigned af[4][4], bf[2][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldsm_x4_t(af[i], xb + (kk + (lane & 7) + ((lane >> 4) << 3)) * WG_LD +
-                             wm * 64 + i * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int jb = 0; jb < 2; ++jb)
-        ldsm_x4_t(bf[jb], gb + (kk + (lane & 15)) * WG_LD + wn * 32 +
-                              jb * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jb = 0; jb < 2; ++jb) {
-          mma_bf16(acc[i][2 * jb], af[i], bf[jb][0], bf[jb][1]);
-          mma_bf16(acc[i][2 * jb + 1], af[i], bf[jb][2], bf[jb][3]);
-        }
-    }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  // This range's partial tile, row-major 128 x 128.
-  float* mine = a.partial + (size_t)blockIdx.x * 128 * 128;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = wm * 64 + i * 16 + g + 8 * hf, c = wn * 32 + j * 8 + 2 * tq;
-        *reinterpret_cast<float2*>(mine + r * 128 + c) =
-            make_float2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
-      }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(a.counters + tile, 1) == a.splits - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const float* base = a.partial + (size_t)tile * a.splits * 128 * 128;
-  for (int e = tid; e < 128 * 128 / 4; e += NTH) {
-    float4 s = __ldcg(reinterpret_cast<const float4*>(base) + e);
-    for (int k = 1; k < a.splits; ++k) {
-      const float4 q =
-          __ldcg(reinterpret_cast<const float4*>(base + (size_t)k * 128 * 128) +
-                 e);
-      s.x += q.x, s.y += q.y, s.z += q.z, s.w += q.w;
-    }
-    const int r = e * 4 / 128, c = e * 4 % 128;
-    *reinterpret_cast<float4*>(a.mat + a.off[p] + (size_t)(m0 + r) * nn + n0 +
-                               c) = s;
-  }
-}
-
 }  // namespace bb
 
 // ---------------------------------------------------------------------------
 // C interface (ctypes). Every function returns cudaGetLastError().
 // ---------------------------------------------------------------------------
-extern "C" int pmce_block_ln(const void* x, int x_is_f32, void* out,
-                             const float* g, const float* b, int M, float eps,
-                             void* stream) {
-  return launch_ln_rows(x, x_is_f32, out, g, b, nullptr, M, 1, 1, eps,
-                        static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int pmce_block_gemm(const void* A, const void* W, int M, int N,
-                               int K, int epi, int out_f32,
-                               const float* bias, const void* res,
-                               int res_f32, const float* rowscale, int rps,
-                               int qcols, float qscale, float* save,
-                               const float* aux, void* out, void* stream) {
-  return gemm_entry(A, W, M, N, K, epi, out_f32, bias, res, res_f32,
-                    rowscale, rps, qcols, qscale, save, aux, out, stream);
-}
-
-extern "C" int pmce_block_attn(const void* qkv, void* out, int clips, int N,
-                               int C, int heads, void* stream) {
-  return launch_group_attn(static_cast<const bf16*>(qkv),
-                           static_cast<bf16*>(out), clips, 1, N, C, heads, 0,
-                           static_cast<cudaStream_t>(stream));
+// The forward over [clips, N, 256] tokens: one launch of the tile
+// program. ptrs: x, out, wqkv, wproj, w1, w2, g1, b1, bqkv, bproj, g2, b2,
+// bb1, bb2, gp, bp, m1, m2, h1, qkv, o, x1, h2, hh, ge, y, a, mo, stamps
+// (gp, bp null without a post-norm; m1, m2 null without masks; x1 null: the
+// trunk's program, only the output written; else the saving program, which
+// writes each of h1 .. mo whose pointer is set; stamps null, or
+// [tiles, 8] int64 for the stamped instantiation).
+extern "C" int pmce_block_fwd_tile(void* const* ptrs, int clips, int N,
+                                   int hid, float eps, float post_eps,
+                                   float qscale, void* stream) {
+  if (clips <= 0 || N <= 0 || N > tb::TM || hid <= 0 || hid % 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  tb::BlockArgs a;
+  auto cb = [&](int i) { return static_cast<const bf16*>(ptrs[i]); };
+  auto cf = [&](int i) { return static_cast<const float*>(ptrs[i]); };
+  auto b = [&](int i) { return static_cast<bf16*>(ptrs[i]); };
+  auto f = [&](int i) { return static_cast<float*>(ptrs[i]); };
+  a.x = cb(0); a.out = b(1);
+  a.wqkv = cb(2); a.wproj = cb(3); a.w1 = cb(4); a.w2 = cb(5);
+  a.g1 = cf(6); a.b1 = cf(7); a.bqkv = cf(8); a.bproj = cf(9);
+  a.g2 = cf(10); a.b2 = cf(11); a.bb1 = cf(12); a.bb2 = cf(13);
+  a.pg = cf(14); a.pb = cf(15); a.tpe = nullptr;
+  a.m1 = cf(16); a.m2 = cf(17);
+  a.h1 = b(18); a.qkv = b(19); a.o = b(20); a.x1 = f(21); a.h2 = b(22);
+  a.hh = f(23); a.ge = b(24); a.y = f(25); a.a = f(26); a.mo = f(27);
+  a.stamps = static_cast<long long*>(ptrs[28]);
+  a.B = 1; a.T = clips; a.J = N; a.temporal = 0; a.hid = hid;
+  a.eps = eps; a.post_eps = post_eps; a.qscale = qscale; a.round_y = 0;
+  if ((a.pg == nullptr) != (a.pb == nullptr) ||
+      (a.x1 == nullptr && (a.m1 || a.m2 || a.h1 || a.qkv || a.o || a.h2 ||
+                           a.hh || a.ge || a.y || a.a || a.mo)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tb::launch_tile_block(a, static_cast<cudaStream_t>(stream));
 }
 
 // The backward's tile program over [clips, N, 256] tokens. ptrs: gout, x,
@@ -1197,38 +1067,23 @@ extern "C" int pmce_block_wgrad(void* const* ptrs, int M, int hid, int splits,
   constexpr int C = bb::CW;
   if (M <= 0 || hid <= 0 || hid % 128 || splits <= 0 || vtiles <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  bb::WgradArgs a;
-  const int mo[4] = {C, C, C, hid}, n[4] = {3 * C, C, hid, C};
-  long long off = 0;
-  a.tile0[0] = 0;
+  wg::Args<4> a;
   for (int p = 0; p < 4; ++p) {
     a.X[p] = static_cast<const bf16*>(ptrs[p]);
     a.G[p] = static_cast<const bf16*>(ptrs[4 + p]);
-    a.mo[p] = mo[p];
-    a.n[p] = n[p];
-    a.off[p] = off;
-    off += (long long)mo[p] * n[p];
-    a.tile0[p + 1] = a.tile0[p] + (mo[p] / 128) * (n[p] / 128);
   }
-  a.M = M;
-  a.splits = splits;
-  a.kchunk = ((M + splits - 1) / splits + bb::WG_BK - 1) / bb::WG_BK *
-             bb::WG_BK;
   a.partial = static_cast<float*>(ptrs[8]);
   a.counters = static_cast<int*>(ptrs[9]);
   a.mat = static_cast<float*>(ptrs[10]);
+  a.vpartial = nullptr;
   a.vpart = static_cast<const float*>(ptrs[11]);
   a.vtiles = vtiles;
   a.L = bb::vec_len(hid);
   a.vec = static_cast<float*>(ptrs[12]);
-  const int grid = a.tile0[4] * splits + (a.L + bb::NTH - 1) / bb::NTH;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      bb::block_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bb::WG_SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  bb::block_wgrad_kernel<<<grid, bb::NTH, bb::WG_SMEM, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return wg::launch_wgrad<128>(a, {M, M, M, M}, {C, C, C, hid},
+                               {3 * C, C, hid, C}, splits,
+                               (a.L + wg::NTH - 1) / wg::NTH,
+                               static_cast<cudaStream_t>(stream));
 }
 
 PMCE_EXPORT_ERROR_STRING(pmce_block_error_string)

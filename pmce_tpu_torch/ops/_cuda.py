@@ -198,15 +198,13 @@ COEVO_BLOCK = CudaLibrary("coevo_block", "pmce_coevo_block_error_string", {
     "pmce_coevo_block": (I, (P,) * 8 + (I, I, I, F, F, F, P)),
     "pmce_coevo_block_prof": (I, (P,) * 8 + (I, I, I, F, F, F, P, P)),
 })
-# The block: the forward's launches (LayerNorm, the GEMM with its fused
-# epilogues, grouped attention); the backward's tile program (a table of
-# its 27 pointers, clips, N, hid, eps, post_eps, qscale, stream) and its
+# The block: the forward's tile program (a table of its 29 pointers, clips,
+# N, hid, eps, post_eps, qscale, stream); the backward's tile program (a
+# table of its 27 pointers, the same integers and floats, stream) and its
 # weight-gradient launch (a table of 13 pointers, M, hid, splits, the tile
 # program's tile count, stream).
 BLOCK = CudaLibrary("block", "pmce_block_error_string", {
-    "pmce_block_ln": (I, (P, I, P, P, P, I, F, P)),
-    "pmce_block_gemm": (I, GEMM_ARGS),
-    "pmce_block_attn": (I, (P, P, I, I, I, I, P)),
+    "pmce_block_fwd_tile": (I, (P, I, I, I, F, F, F, P)),
     "pmce_block_bwd_tile": (I, (P, I, I, I, F, F, F, P)),
     "pmce_block_wgrad": (I, (P, I, I, I, I, P)),
 })
@@ -226,10 +224,13 @@ ADA = CudaLibrary("ada_block", "pmce_ada_block_error_string", {
     "pmce_ada_block_fwd": (I, (P, I, I, I, I, I, F, P)),
     "pmce_ada_block_bwd": (I, (P, I, I, I, I, I, F, P)),
 })
+# The CA block's backward: its tile program (a table of its 40 pointers,
+# clips, Nq, Nk, hid, heads, eps, stream) and its weight-gradient launch (a
+# table of 16 pointers, clips, Nq, Nk, hid, splits, stream).
 CA = CudaLibrary("ca_block", "pmce_ca_block_error_string", {
-    "pmce_ca_block_workspace": (L, (I, I, I, I, I, I)),
     "pmce_ca_block_fwd": (I, (P, I, I, I, I, I, I, F, P)),
-    "pmce_ca_block_bwd": (I, (P, I, I, I, I, I, I, F, P)),
+    "pmce_ca_bwd_tile": (I, (P, I, I, I, I, I, F, P)),
+    "pmce_ca_wgrad": (I, (P, I, I, I, I, I, P)),
 })
 LIBRARIES = (TRUNK, GRU, CHAIN, COEVO_BLOCK, BLOCK, SKIN, MHSA, ADA, CA)
 

@@ -517,10 +517,14 @@ BLOCK_MAX_TOKENS = 64
 # K = B·N rows (bb::block_wgrad_kernel adds them in order).
 _BLOCK_TILE_ROWS = 128
 _WGRAD_SPLITS = 4
-_BLOCK_GEMM = "pmce_block_gemm"
 # Stages of the tile program's stamped instantiation.
 BLOCK_BWD_STAGES = ("post-norm", "fc2ᵀ", "fc1ᵀ", "LN2", "projᵀ",
                     "attention", "qkvᵀ", "LN1")
+
+
+def _block_tiles(clips: int, N: int) -> int:
+    """The tiles of both tile programs: whole clips, up to 128 rows."""
+    return -(-clips // (_BLOCK_TILE_ROWS // N))
 
 
 def block_kernel_fits(C: int, num_heads: int, hid: int) -> bool:
@@ -575,51 +579,64 @@ class _BlockWeights:
 
 
 def _block_fwd_cuda(x, params, m1, m2, num_heads, eps, post_eps,
-                    for_grad: bool, keep_branches: bool, w=None):
-    """Forward launches; returns (out, saved) where ``saved`` holds what
-    the backward reads (None entries where not needed). ``w``: the
-    parameters as :class:`_BlockWeights` already made, or None."""
+                    for_grad: bool, keep_branches: bool, w=None,
+                    stamps=None):
+    """The forward in one launch of ``csrc/block.cu``'s tile program;
+    returns (out, saved) where ``saved`` holds what the backward reads (None
+    entries where not needed). With ``for_grad`` or masks the saving
+    program runs (x1 goes to device memory), its epilogues writing the
+    saved state with ``for_grad`` and the branches a, mo with
+    ``keep_branches``; otherwise only the output is written. ``w``: the
+    parameters as :class:`_BlockWeights` already made, or None. ``stamps``
+    (int64 [tiles, 8] on the card): the stamped instantiation, not
+    counted."""
     B, N, C, hid = _block_checks(x, params, num_heads)
     bf16, f32 = torch.bfloat16, torch.float32
     dev = x.device
     M = B * N
-    stream = _cuda.stream_ptr(dev)
-    lib = _cuda.BLOCK
-    p = _cuda.ptr
     w = w or _BlockWeights(params, C, hid, dev)
     rows1, rows2 = _mask_rows(m1, B, dev), _mask_rows(m2, B, dev)
 
-    def buf(cols, dt):
-        return torch.empty(M, cols, device=dev, dtype=dt)
+    def buf(cols, dt, wanted=True):
+        return torch.empty(M, cols, device=dev, dtype=dt) if wanted else None
 
-    h1, qkv, o, x1, h2, ge = (buf(C, bf16), buf(3 * C, bf16), buf(C, bf16),
-                              buf(C, f32), buf(C, bf16), buf(hid, bf16))
-    hh = buf(hid, f32) if for_grad else None
-    a = buf(C, f32) if keep_branches else None
-    mo = buf(C, f32) if keep_branches else None
+    saving = for_grad or rows1 is not None or rows2 is not None
+    h1, qkv, o, h2 = (buf(C, bf16, for_grad), buf(3 * C, bf16, for_grad),
+                      buf(C, bf16, for_grad), buf(C, bf16, for_grad))
+    hh, ge = buf(hid, f32, for_grad), buf(hid, bf16, for_grad)
+    x1 = buf(C, f32, saving)
+    y = buf(C, f32, for_grad and w.post)
+    a = buf(C, f32, keep_branches)
+    mo = buf(C, f32, keep_branches)
     out = torch.empty_like(x)
-    y = buf(C, f32) if w.post else out
-
-    lib.call("pmce_block_ln", p(x), 0, p(h1), p(w.g1), p(w.b1), M, eps,
-             stream)
-    _gemm(lib, _BLOCK_GEMM, h1, w.wqkv, M, 3 * C, C, _EPI_QKV, qkv,
-          bias=w.bqkv, qcols=C, qscale=1.0 / math.sqrt(C // num_heads),
-          stream=stream)
-    lib.call("pmce_block_attn", p(qkv), p(o), B, N, C, num_heads, stream)
-    _gemm(lib, _BLOCK_GEMM, o, w.wproj, M, C, C, _EPI_RES, x1,
-          bias=w.bproj, res=x, rowscale=rows1, rps=N, save=a, stream=stream)
-    lib.call("pmce_block_ln", p(x1), 1, p(h2), p(w.g2), p(w.b2), M, eps,
-             stream)
-    _gemm(lib, _BLOCK_GEMM, h2, w.w1, M, hid, C, _EPI_GELU, ge,
-          bias=w.bb1, save=hh, stream=stream)
-    _gemm(lib, _BLOCK_GEMM, ge, w.w2, M, C, hid, _EPI_RES, y, bias=w.bb2,
-          res=x1, rowscale=rows2, rps=N, save=mo, stream=stream)
-    if w.post:
-        lib.call("pmce_block_ln", p(y), 1, p(out), p(w.gp), p(w.bp), M,
-                 post_eps, stream)
-    BLOCK_FWD_LAUNCHES.count += 1
-    saved = (h1, qkv, o, x1, h2, hh, ge, y if w.post else None, a, mo)
+    _cuda.BLOCK.call("pmce_block_fwd_tile", _cuda.ptr_table(
+        x, out, w.wqkv, w.wproj, w.w1, w.w2, w.g1, w.b1, w.bqkv, w.bproj,
+        w.g2, w.b2, w.bb1, w.bb2, w.gp if w.post else None,
+        w.bp if w.post else None, rows1, rows2, h1, qkv, o, x1, h2, hh, ge,
+        y, a, mo, stamps), B, N, hid, eps, post_eps,
+        1.0 / math.sqrt(C // num_heads), _cuda.stream_ptr(dev))
+    if stamps is None:
+        BLOCK_FWD_LAUNCHES.count += 1
+    saved = (h1, qkv, o, x1, h2, hh, ge, y, a, mo)
     return out, saved
+
+
+def block_fwd_stage_split(x, params, num_heads: int, branch_masks=None,
+                          eps: float = 1e-6, post_eps: float = 1e-6) -> dict:
+    """One stamped launch of the forward's tile program on the card (not
+    counted), saving as for a gradient: {stage: cycles summed over the
+    tiles} for the stages of :data:`TRUNK_STAGES` (the program is the
+    trunk's), and ``"tiles"``."""
+    m1, m2 = branch_masks if branch_masks is not None else (None, None)
+    B, N, _ = x.shape
+    tiles = _block_tiles(B, N)
+    stamps = torch.zeros(tiles, len(TRUNK_STAGES), dtype=torch.int64,
+                         device=x.device)
+    with torch.no_grad():
+        _block_fwd_cuda(x, params, m1, m2, num_heads, eps, post_eps, True,
+                        False, stamps=stamps)
+    total = stamps.sum(0).cpu().tolist()
+    return {**dict(zip(TRUNK_STAGES, total)), "tiles": tiles}
 
 
 def _block_vec_layout(C: int, hid: int) -> tuple[dict, int]:
@@ -659,7 +676,7 @@ def _block_bwd_cuda(gout, x, params, m1, m2, saved, num_heads, eps,
     gout = gout.to(bf16).contiguous()
     _cuda.check_cuda(gout, "grad of the block output", bf16, (B, N, C))
     voff, L = _block_vec_layout(C, hid)
-    tiles = -(-B // (_BLOCK_TILE_ROWS // N))
+    tiles = _block_tiles(B, N)
 
     def buf(cols, dt):
         return torch.empty(M, cols, device=dev, dtype=dt)
@@ -718,7 +735,7 @@ def block_bwd_stage_split(x, params, num_heads: int, branch_masks=None,
         _, saved = _block_fwd_cuda(x, params, m1, m2, num_heads, eps,
                                    post_eps, True, False)
         B, N, _ = x.shape
-        tiles = -(-B // (_BLOCK_TILE_ROWS // N))
+        tiles = _block_tiles(B, N)
         stamps = torch.zeros(tiles, len(BLOCK_BWD_STAGES), dtype=torch.int64,
                              device=x.device)
         _block_bwd_cuda(torch.ones_like(x), x, params, m1, m2, saved,
@@ -727,15 +744,25 @@ def block_bwd_stage_split(x, params, num_heads: int, branch_masks=None,
     return {**dict(zip(BLOCK_BWD_STAGES, total)), "tiles": tiles}
 
 
+def _owed(ctx, grad_enabled: bool, *inputs: int) -> bool:
+    """Whether autograd will ask a kernel Function for the gradient of its
+    inputs ``inputs`` (of any input where none is named). Autograd runs
+    forward with grad off: the caller's grad mode comes in as
+    ``grad_enabled``."""
+    need = ctx.needs_input_grad
+    return grad_enabled and any(need[i] for i in inputs or range(len(need)))
+
+
 class _BlockKernel(torch.autograd.Function):
     """The block on the card: forward and backward are the launches of
     ``csrc/block.cu`` (the backward: its tile program and its weight-
     gradient launch, :func:`_block_bwd_cuda`)."""
 
     @staticmethod
-    def forward(ctx, x, m1, m2, num_heads, eps, post_eps, *params):
-        for_grad = any(ctx.needs_input_grad)
-        keep = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+    def forward(ctx, x, m1, m2, num_heads, eps, post_eps, grad_enabled,
+                *params):
+        for_grad = _owed(ctx, grad_enabled)
+        keep = _owed(ctx, grad_enabled, 1, 2)
         # The kernels' casts of the parameters, kept for the backward.
         w = _BlockWeights(params, x.shape[-1], params[8].shape[1], x.device)
         out, saved = _block_fwd_cuda(x, params, m1, m2, num_heads, eps,
@@ -758,7 +785,7 @@ class _BlockKernel(torch.autograd.Function):
         dm2 = dms[1].reshape(m2.shape) if need_masks else None
         grads = tuple(None if g is None else g.reshape(t.shape)
                       for g, t in zip(grads, params))
-        return (dx, dm1, dm2, None, None, None, *grads)
+        return (dx, dm1, dm2, None, None, None, None, *grads)
 
 
 def transformer_block(x, params, num_heads: int, eps: float = 1e-6,
@@ -776,7 +803,8 @@ def transformer_block(x, params, num_heads: int, eps: float = 1e-6,
     require_kernel(block_kernel_fits(C, num_heads, hid),
                    "transformer_block", f"C={C}, {num_heads} heads, hid={hid}")
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
-    return _BlockKernel.apply(x, m1, m2, num_heads, eps, post_eps, *params)
+    return _BlockKernel.apply(x, m1, m2, num_heads, eps, post_eps,
+                              torch.is_grad_enabled(), *params)
 
 
 # ---------------------------------------------------------------------------
@@ -1584,8 +1612,8 @@ def _ada_bwd_cuda(g, x, params, saved, num_heads, eps):
 
 class _AdaBlockKernel(torch.autograd.Function):
     """ada_block on the card: forward and backward are
-    ``csrc/ada_block.cu``. The branch masks are drawn, not learned: they
-    get no gradient."""
+    ``csrc/ada_block.cu``. The branch masks are drawn, not learned: a mask
+    that requires grad is refused before this runs (:func:`ada_block`)."""
 
     @staticmethod
     def forward(ctx, x, gamma1, beta1, gamma2, beta2, m1, m2, num_heads,
@@ -1622,11 +1650,44 @@ def ada_block(x, gamma1, beta1, gamma2, beta2, params, num_heads: int,
     _attention_require("ada_block", x.shape[-1], num_heads,
                        params[4].shape[1])
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
+    if torch.is_grad_enabled() and any(m is not None and m.requires_grad
+                                       for m in (m1, m2)):
+        raise NotImplementedError(
+            "ada_block: the CUDA backward does not give the branch masks' "
+            "gradients (JAX's kernel does); they come with the redesign of "
+            "row 9 queued in ROADMAP.md, section B")
     return _AdaBlockKernel.apply(x.contiguous(), gamma1, beta1, gamma2,
                                  beta2, m1, m2, num_heads, eps, *params)
 
 
-def _ca_fwd_cuda(xs, gammas, betas, masks, params, num_heads, eps):
+class _CaWeights(NamedTuple):
+    """The CA block's matrices as its kernels take them: bf16 [in, out] on
+    the parameters' own storage where they are bf16 already."""
+    wq: torch.Tensor
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wproj: torch.Tensor
+    w1: torch.Tensor
+    w2: torch.Tensor
+
+
+def _ca_weights(params, dev) -> _CaWeights:
+    (wq, _, wk, _, wv, _, wproj, _, w1, _, w2, _) = params
+    C, hid = wq.shape[0], w1.shape[1]
+    return _CaWeights(
+        *(_bf16_mat(w, dev, C, C, n) for w, n in ((wq, "wq"), (wk, "wk"),
+                                                    (wv, "wv"),
+                                                    (wproj, "wproj"))),
+        _bf16_mat(w1, dev, C, hid, "w_fc1"), _bf16_mat(w2, dev, hid, C,
+                                                       "w_fc2"))
+
+
+def _ca_fwd_cuda(xs, gammas, betas, masks, params, num_heads, eps,
+                 keep_branches: bool = False, w=None):
+    """The forward's launch sequence; returns (out, saved). ``saved`` ends
+    with the branches a and mo (f32) when ``keep_branches`` (the mask
+    gradients read them), else None twice. ``w``: the :class:`_CaWeights`
+    already made, or None."""
     xq, xk, xv = xs
     B, Nq, C = xq.shape
     Nk = xk.shape[1]
@@ -1638,6 +1699,7 @@ def _ca_fwd_cuda(xs, gammas, betas, masks, params, num_heads, eps):
     _cuda.check_cuda(xv, "xv", torch.bfloat16, (B, Nk, C))
     dev = xq.device
     bf16, f32 = torch.bfloat16, torch.float32
+    w = w or _ca_weights(params, dev)
 
     def buf(rows, cols, dt):
         return torch.empty(rows, cols, device=dev, dtype=dt)
@@ -1647,6 +1709,8 @@ def _ca_fwd_cuda(xs, gammas, betas, masks, params, num_heads, eps):
     q, k, v = buf(Mq, C, bf16), buf(Mk, C, bf16), buf(Mk, C, bf16)
     o, x1, h2 = buf(Mq, C, bf16), buf(Mq, C, f32), buf(Mq, C, bf16)
     hh, ge = buf(Mq, hid, f32), buf(Mq, hid, bf16)
+    a, mo = ((buf(Mq, C, f32), buf(Mq, C, f32)) if keep_branches
+             else (None, None))
     stats = torch.empty(2, B * num_heads * Nq, device=dev, dtype=f32)
     out = torch.empty_like(xq)
     conds = []
@@ -1654,69 +1718,140 @@ def _ca_fwd_cuda(xs, gammas, betas, masks, params, num_heads, eps):
         conds += [_f32_rows(gammas[i], dev, B, C, f"gamma {name}"),
                   _f32_rows(betas[i], dev, B, C, f"beta {name}")]
     m1, m2 = (_mask_rows(m, B, dev) for m in masks)
-    mats = [_bf16_mat(w, dev, C, C, n)
-            for w, n in ((wq, "wq"), (wk, "wk"), (wv, "wv"),
-                         (wproj, "wproj"))]
     vecs = [_f32_vec(b, dev, C, n)
             for b, n in ((bq, "bq"), (bk, "bk"), (bv, "bv"),
                          (bproj, "bproj"))]
+    mats = (w.wq, w.wk, w.wv, w.wproj)
     _cuda.CA.call("pmce_ca_block_fwd", _cuda.ptr_table(
         xq, xk, xv, *conds, m1, m2,
         *(t for pair in zip(mats, vecs) for t in pair),
-        _bf16_mat(w1, dev, C, hid, "w_fc1"), _f32_vec(bb1, dev, hid, "b_fc1"),
-        _bf16_mat(w2, dev, hid, C, "w_fc2"), _f32_vec(bb2, dev, C, "b_fc2"),
-        nq, nk, nv, q, k, v, o, stats[0], stats[1], x1, h2, hh, ge, out),
+        w.w1, _f32_vec(bb1, dev, hid, "b_fc1"), w.w2,
+        _f32_vec(bb2, dev, C, "b_fc2"), nq, nk, nv, q, k, v, o, stats[0],
+        stats[1], x1, h2, hh, ge, out, a, mo),
         B, Nq, Nk, C, hid, num_heads, eps, _cuda.stream_ptr(dev))
     CA_FWD_LAUNCHES.count += 1
     return out, (*conds[0::2], m1, m2, nq, nk, nv, q, k, v, o, stats, x1,
-                 h2, hh, ge)
+                 h2, hh, ge, a, mo)
 
 
-def _ca_bwd_cuda(gout, xs, params, saved, num_heads, eps):
+# The backward's tile program (csrc/ca_block.cu): a cluster of 4 CTAs a
+# clip, the long side split in quarters of at most 128 rows, the short side
+# whole in each (at most 64 rows), hid up to 256; the weight launch's K
+# splits, and the tile program's stamped stages.
+CA_BWD_CLUSTER = 4
+_CA_BWD_SHORT, _CA_BWD_LONG, _CA_BWD_HID = 64, 4 * 128, 256
+_CA_WGRAD_SPLITS = 8
+CA_BWD_STAGES = ("loads", "MLPᵀ", "norm2", "projᵀ", "attention dq",
+                 "attention dk dv", "q/k/v projᵀ + norms", "cluster sums")
+
+
+def ca_bwd_kernel_fits(Nq: int, Nk: int, C: int, hid: int) -> bool:
+    """The static shape test of the CA block's backward tile program, on
+    top of :func:`attention_kernel_fits`: C = 64, hid up to 256, the short
+    side (the smaller of Nq, Nk) up to 64 rows and the long side up to 512
+    (four CTAs of 128 rows)."""
+    return (C == 64 and hid <= _CA_BWD_HID
+            and min(Nq, Nk) <= _CA_BWD_SHORT and max(Nq, Nk) <= _CA_BWD_LONG)
+
+
+def _ca_bwd_cuda(gout, xs, params, saved, num_heads, eps,
+                 need_masks: bool = False, stamps=None, w=None):
+    """The backward in two launches of ``csrc/ca_block.cu``: the tile
+    program (a cluster of 4 CTAs a clip: the activation-gradient chain, dxq,
+    dxk, dxv, the per-clip AdaLN vectors' gradients, the mask gradients when
+    ``need_masks``, and the weight products' bf16 operands), then the six
+    weight gradients and the six bias gradients in one launch. The weights
+    are read in their [in, out] layout: no transposed copies. Returns (dxq,
+    dxk, dxv), dgb [8, B, C], the flat parameter gradients and (dm1, dm2)
+    (None without ``need_masks``). ``stamps`` (int64 [B * 4, 8] on the
+    card): run only the stamped tile program (not counted) and return None.
+    ``w``: the forward's :class:`_CaWeights` (not cast again), or None."""
     xq, xk, xv = xs
     B, Nq, C = xq.shape
     Nk = xk.shape[1]
-    (wq, bq, wk, bk, wv, bv, wproj, bproj, w1, bb1, w2, bb2) = params
-    hid = w1.shape[1]
+    hid = params[8].shape[1]
     dev = xq.device
-    g = gout.to(torch.bfloat16).contiguous()
-    _cuda.check_cuda(g, "grad of the block output", torch.bfloat16,
-                     (B, Nq, C))
+    bf16, f32 = torch.bfloat16, torch.float32
+    w = w or _ca_weights(params, dev)
+    g = gout.to(bf16).contiguous()
+    _cuda.check_cuda(g, "grad of the block output", bf16, (B, Nq, C))
+    (gq, gk, gv, g2, m1, m2, nq, nk, nv, q, k, v, o, stats, x1, h2, hh, ge,
+     a, mo) = saved
+    if need_masks and (a is None or mo is None):
+        raise ValueError("ca_block backward: the mask gradients need the "
+                         "forward's branches (keep_branches)")
+    Mq, Mk = B * Nq, B * Nk
+
+    def buf(rows, cols):
+        return torch.empty(rows, cols, device=dev, dtype=bf16)
+
     dxq, dxk, dxv = (torch.empty_like(t) for t in xs)
-    dgb = torch.empty(8, B, C, device=dev, dtype=torch.float32)
+    m2g, dhh, da, dq = buf(Mq, C), buf(Mq, hid), buf(Mq, C), buf(Mq, C)
+    dk, dv = buf(Mk, C), buf(Mk, C)
+    dgb = torch.empty(8, B, C, device=dev, dtype=f32)
+    dm1, dm2 = ((torch.empty(B, device=dev, dtype=f32) for _ in range(2))
+                if need_masks else (None, None))
+    tiles = 4 + 2 * (hid // 64)   # cab::wgrad_tiles: 64 x 64 output tiles
+    counters = torch.empty(tiles, device=dev, dtype=torch.int32)
+    stream = _cuda.stream_ptr(dev)
+    _cuda.CA.call("pmce_ca_bwd_tile", _cuda.ptr_table(
+        xq, xk, xv, g, gq, gk, gv, g2, m1, m2, w.wq, w.wk, w.wv, w.wproj,
+        w.w1, w.w2, q, k, v, o, stats[0], stats[1], x1, hh,
+        a if need_masks else None, mo if need_masks else None, dxq, dxk, dxv,
+        m2g, dhh, da, dq, dk, dv, dgb, dm1, dm2, counters, stamps),
+        B, Nq, Nk, hid, num_heads, eps, stream)
+    if stamps is not None:
+        return None
     grads = torch.empty(sum(t.numel() for t in params), device=dev,
-                        dtype=torch.float32)
-    ws = _workspace(_cuda.CA, "pmce_ca_block_workspace", dev, B, Nq, Nk, C,
-                    hid, num_heads)
-    gq, gk, gv, g2, m1, m2, *acts = saved
-    stats = acts[7]
-    _cuda.CA.call("pmce_ca_block_bwd", _cuda.ptr_table(
-        xq, xk, xv, g, gq, gk, gv, g2, m1, m2,
-        *(_bf16_mat_t(w, dev, C, C, n + "ᵀ")
-          for w, n in ((wq, "wq"), (wk, "wk"), (wv, "wv"),
-                       (wproj, "wproj"))),
-        _bf16_mat_t(w1, dev, hid, C, "w_fc1ᵀ"),
-        _bf16_mat_t(w2, dev, C, hid, "w_fc2ᵀ"), *acts[:7], stats[0],
-        stats[1], *acts[8:], dxq, dxk, dxv, dgb, grads, ws),
-        B, Nq, Nk, C, hid, num_heads, eps, _cuda.stream_ptr(dev))
+                        dtype=f32)
+    partial = torch.empty(tiles * _CA_WGRAD_SPLITS, 64 * 64, device=dev,
+                          dtype=f32)
+    vpartial = torch.empty(tiles * _CA_WGRAD_SPLITS, 64, device=dev,
+                           dtype=f32)
+    _cuda.CA.call("pmce_ca_wgrad", _cuda.ptr_table(
+        nq, nk, nv, o, h2, ge, dq, dk, dv, da, dhh, m2g, partial, vpartial,
+        counters, grads), B, Nq, Nk, hid, _CA_WGRAD_SPLITS, stream)
     CA_BWD_LAUNCHES.count += 1
-    return (dxq, dxk, dxv), dgb, grads
+    return (dxq, dxk, dxv), dgb, grads, (dm1, dm2)
+
+
+def ca_bwd_stage_split(gout, xs, params, saved, num_heads: int,
+                       eps: float = 1e-6) -> dict:
+    """One stamped launch of the backward's tile program on the card (not
+    counted), from a forward's ``saved``: {stage: cycles summed over the
+    CTAs} for the stages of :data:`CA_BWD_STAGES`, and ``"ctas"``."""
+    ctas = xs[0].shape[0] * CA_BWD_CLUSTER
+    stamps = torch.zeros(ctas, len(CA_BWD_STAGES), dtype=torch.int64,
+                         device=xs[0].device)
+    with torch.no_grad():
+        _ca_bwd_cuda(gout, xs, params, saved, num_heads, eps,
+                     stamps=stamps)
+    total = stamps.sum(0).cpu().tolist()
+    return {**dict(zip(CA_BWD_STAGES, total)), "ctas": ctas}
 
 
 class _CaBlockKernel(torch.autograd.Function):
-    """ca_block on the card: forward and backward are ``csrc/ca_block.cu``.
-    The branch masks get no gradient (drawn, not learned)."""
+    """ca_block on the card: forward and backward are ``csrc/ca_block.cu``
+    (the backward: its tile program and its weight-gradient launch). The
+    branch masks get JAX's gradients (per-clip sums) where autograd asks
+    for them; the forward then keeps the branches they need."""
 
     @staticmethod
-    def forward(ctx, xq, xk, xv, m1, m2, num_heads, eps, *rest):
+    def forward(ctx, xq, xk, xv, m1, m2, num_heads, eps, grad_enabled,
+                *rest):
         gammas, betas, params = rest[:4], rest[4:8], rest[8:]
+        keep = _owed(ctx, grad_enabled, 3, 4)
+        w = _ca_weights(params, xq.device)
         out, saved = _ca_fwd_cuda((xq, xk, xv), gammas, betas, (m1, m2),
-                                  params, num_heads, eps)
+                                  params, num_heads, eps, keep, w)
         ctx.cfg = (num_heads, eps)
+        ctx.weights = w
         # Per-clip vectors' gradients come back in the order gq, bq, gk,
         # bk, gv, bv, g2, b2.
         ctx.gb = tuple((t.shape, t.dtype) for pair in zip(gammas, betas)
                        for t in pair)
+        ctx.masks = tuple(None if m is None else (m.shape, m.dtype)
+                          for m in (m1, m2))
         ctx.save_for_backward(xq, xk, xv, *params, *saved)
         return out
 
@@ -1725,12 +1860,16 @@ class _CaBlockKernel(torch.autograd.Function):
         num_heads, eps = ctx.cfg
         xq, xk, xv, *rest = ctx.saved_tensors
         params, saved = rest[:12], rest[12:]
-        dxs, dgb, flat = _ca_bwd_cuda(gout, (xq, xk, xv), params, saved,
-                                      num_heads, eps)
+        need_masks = ctx.needs_input_grad[3] or ctx.needs_input_grad[4]
+        dxs, dgb, flat, dms = _ca_bwd_cuda(gout, (xq, xk, xv), params, saved,
+                                           num_heads, eps, need_masks,
+                                           w=ctx.weights)
         d = [dgb[i].reshape(s).to(t) for i, (s, t) in enumerate(ctx.gb)]
+        dm = [None if m is None or not need_masks else
+              dms[i].reshape(m[0]).to(m[1]) for i, m in enumerate(ctx.masks)]
         # Back to the inputs' order: gammas (q, k, v, 2), then betas.
         dconds = tuple(d[0::2]) + tuple(d[1::2])
-        return (*dxs, None, None, None, None, *dconds,
+        return (*dxs, *dm, None, None, None, *dconds,
                 *_split_grads(flat, params))
 
 
@@ -1743,9 +1882,17 @@ def ca_block(xq, xk, xv, gammas, betas, params, num_heads: int,
     if not _on_card(xq, "ca_block"):
         return ca_block_plain(xq, xk, xv, gammas, betas, params, num_heads,
                               eps, branch_masks)
-    _attention_require("ca_block", xq.shape[-1], num_heads,
-                       params[8].shape[1])
+    C, hid = xq.shape[-1], params[8].shape[1]
+    _attention_require("ca_block", C, num_heads, hid)
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (xq, xk, xv, m1, m2, *gammas, *betas, *params)):
+        require_kernel(ca_bwd_kernel_fits(xq.shape[1], xk.shape[1], C, hid),
+                       "ca_block backward",
+                       f"Nq={xq.shape[1]}, Nk={xk.shape[1]}, C={C}, "
+                       f"hid={hid}")
     return _CaBlockKernel.apply(xq.contiguous(), xk.contiguous(),
                                 xv.contiguous(), m1, m2, num_heads, eps,
-                                *gammas, *betas, *params)
+                                torch.is_grad_enabled(), *gammas, *betas,
+                                *params)

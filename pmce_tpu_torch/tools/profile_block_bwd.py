@@ -1,6 +1,8 @@
-"""Where the lifter block's backward (row 7) spends its time on the card.
+"""Where the lifter block (rows 6 and 7) and the decoder's cross-attention
+block backward (row 11) spend their time on the card.
 
     python3 pmce_tpu_torch/tools/profile_block_bwd.py [--root DIR] [--tag T]
+        [--rows block,ca]
 
 Imports ``pmce_tpu_torch`` from ``DIR`` (default: the tree this script is
 in; an unpacked earlier commit, say) and builds its block library. At the
@@ -25,6 +27,13 @@ the tree has the backward's tile program, its clock64() stage split
 the tiles, and the cycles a tile). Every
 line starts with ``[TAG]`` and the card's name and power limit are printed
 first, so that two trees' runs in one call can be told apart.
+
+``--rows ca`` adds the cross-attention block's backward wrapper
+``_ca_bwd_cuda`` (row 11) at the Stage-2 step's two orientations, batch 32,
+C = 64, hid = 256, drop-path masks at rate 0.2: joints over vertices
+(17 queries, 431 keys, 8 heads) and vertices over joints (431 over 17, 2
+heads), with the same four readings; where the tree has the backward's
+tile program, its stage split (``ca_bwd_stage_split``).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="tree")
+    ap.add_argument("--rows", default="block,ca")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import numpy as np
@@ -106,6 +116,23 @@ def main() -> int:
                 rows.append((t / n / 1e3, e.count // n, e.key))
         return sorted(rows, reverse=True)
 
+    def report(where, name, fn):
+        ms = events_ms(fn)
+        hms = host_ms(fn)
+        rows = kernels(fn)
+        busy = sum(t for t, _, _ in rows)
+        print(f"{where} {name}: wrapper {ms:.4f} ms, host {hms:.4f} ms, "
+              f"kernels {busy:.4f} ms in {sum(c for _, c, _ in rows)} "
+              "launches", flush=True)
+        for t, cnt, key in rows:
+            print(f"{where} {name}:   {t:8.4f} ms {cnt:3d}x {key[:100]}",
+                  flush=True)
+
+    rows_wanted = args.rows.split(",")
+    if "ca" in rows_wanted:
+        profile_ca(tag, dev, rng, report)
+    if "block" not in rows_wanted:
+        return 0
     for label, clips, N, rate in (("spatial", 1024, 17, 0.0),
                                   ("temporal", 1088, 16, 0.2)):
         params = (r(C, scale=0.1, offset=1.0), r(C, scale=0.1),
@@ -136,16 +163,15 @@ def main() -> int:
                                           1e-6, 1e-6, False)
 
             for name, fn in (("bwd", bwd), ("fwd", fwd)):
-                ms = events_ms(fn)
-                hms = host_ms(fn)
-                rows = kernels(fn)
-                busy = sum(t for t, _, _ in rows)
-                print(f"{where} {name}: wrapper {ms:.4f} ms, host "
-                      f"{hms:.4f} ms, kernels {busy:.4f} ms in "
-                      f"{sum(c for _, c, _ in rows)} launches", flush=True)
-                for t, cnt, key in rows:
-                    print(f"{where} {name}:   {t:8.4f} ms {cnt:3d}x "
-                          f"{key[:100]}", flush=True)
+                report(where, name, fn)
+            if hasattr(fa, "block_fwd_stage_split"):
+                split = fa.block_fwd_stage_split(
+                    x, params, 8, None if m1 is None else (m1, m2))
+                total = sum(split[k] for k in fa.TRUNK_STAGES)
+                print(f"{where} forward tile program: {split['tiles']} "
+                      f"tiles, {total / split['tiles']:.0f} cycles a tile; "
+                      + ", ".join(f"{k} {split[k] / total:.1%}"
+                                  for k in fa.TRUNK_STAGES), flush=True)
             if hasattr(fa, "block_bwd_stage_split"):
                 split = fa.block_bwd_stage_split(
                     x, params, 8, None if m1 is None else (m1, m2))
@@ -157,6 +183,51 @@ def main() -> int:
         del saved, x, g, params
         torch.cuda.empty_cache()
     return 0
+
+
+def profile_ca(tag, dev, rng, report) -> None:
+    """Row 11 at the Stage-2 step's two orientations (see the module
+    docstring)."""
+    import torch
+
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    B, c, hid = 32, 64, 256
+
+    def r(*shape, scale=0.2, offset=0.0, dtype=torch.float32):
+        a = rng.normal(size=shape) * scale + offset
+        return torch.from_numpy(a.astype("float32")).to(dev, dtype)
+
+    for label, Nq, Nk, heads in (("joints over vertices", 17, 431, 8),
+                                 ("vertices over joints", 431, 17, 2)):
+        keep = 0.8
+        masks = tuple(torch.from_numpy(((rng.random((B, 1, 1)) < keep)
+                                        / keep).astype("float32")).to(dev)
+                      for _ in range(2))
+        xs = (r(B, Nq, c, scale=1.0, dtype=torch.bfloat16),
+              r(B, Nk, c, scale=1.0, dtype=torch.bfloat16),
+              r(B, Nk, c, scale=1.0, dtype=torch.bfloat16))
+        conds = [r(B, c, scale=0.1, offset=1.0 - i % 2) for i in range(8)]
+        params = []
+        for i, o in ((c, c),) * 4 + ((c, hid), (hid, c)):
+            params += [r(i, o, scale=i ** -0.5), r(o, scale=0.02)]
+        g = r(B, Nq, c, scale=1.0, dtype=torch.bfloat16)
+        where = f"{tag} ca {label} [{B}, {Nq}, {c}] over {Nk}, {heads} heads"
+        with torch.no_grad():
+            _, saved = fa._ca_fwd_cuda(xs, conds[0::2], conds[1::2], masks,
+                                       params, heads, 1e-6)
+            report(where, "bwd", lambda: fa._ca_bwd_cuda(
+                g, xs, params, saved, heads, 1e-6))
+            if hasattr(fa, "ca_bwd_stage_split"):
+                split = fa.ca_bwd_stage_split(g, xs, params, saved, heads,
+                                              1e-6)
+                total = sum(split[k] for k in fa.CA_BWD_STAGES)
+                print(f"{where} tile program: {split['ctas']} CTAs, "
+                      f"{total / split['ctas']:.0f} cycles a CTA; "
+                      + ", ".join(f"{k} {split[k] / total:.1%}"
+                                  for k in fa.CA_BWD_STAGES), flush=True)
+        del saved, xs, g, params
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

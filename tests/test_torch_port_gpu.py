@@ -18,6 +18,7 @@ max|kernel - plain| / max|plain|, as in chip_smoke.py.
 
 from __future__ import annotations
 
+import math
 from unittest import mock
 
 import numpy as np
@@ -490,6 +491,83 @@ def test_block_backward_tile_program_at_the_training_shapes(clips, N, hid):
         assert _rel(b, a) < 0.02, (i, _rel(b, a))
 
 
+@pytest.mark.parametrize("clips,N,masks,post", [
+    (1024, 17, False, True), (1088, 16, True, True), (512, 17, True, False),
+    (544, 16, False, False)], ids=str)
+@pytest.mark.parametrize("grad", [True, False], ids=["grad", "no-grad"])
+def test_block_forward_tile_program_at_the_training_shapes(clips, N, masks,
+                                                           post, grad):
+    """Row 6 at the Stage-1 step's shapes (batch 64: [1024, 17], [1088, 16])
+    and the Stage-2 step's (batch 32: [512, 17], [544, 16]), with and
+    without masks and the post-norm, saving (a gradient owed) and not:
+    one launch, within 0.02 of the plain version's largest magnitude
+    (chip_smoke.py's band), the same bits on a rerun."""
+    dev = _card()
+    rng = np.random.default_rng([clips, N, masks, post])
+    params = _block_params(rng, dev, post)
+    x = _rand(rng, dev, clips, N, 256, dtype=torch.bfloat16)
+    x.requires_grad_(grad)
+    bm = None
+    if masks:
+        u = rng.random((2, clips, 1, 1))
+        bm = tuple(torch.from_numpy(((u[i] < 0.8) / 0.8).astype(np.float32))
+                   .to(dev) for i in range(2))
+    with torch.set_grad_enabled(grad):
+        _cuda.reset_launch_counts()
+        y = fa.transformer_block(x, tuple(params), 8, 1e-6, 1e-6, bm)
+        assert _cuda.launch_counts()["block_fwd"] == 1
+        y2 = fa.transformer_block(x, tuple(params), 8, 1e-6, 1e-6, bm)
+    with torch.no_grad():
+        yp = fa.transformer_block_plain(x, tuple(params), 8, 1e-6, 1e-6, bm)
+    assert bool(torch.isfinite(y).all())
+    assert torch.equal(y, y2)
+    assert _rel(yp, y) < 0.02
+
+
+def test_block_forward_saves_what_the_backward_reads():
+    """The saving epilogues of row 6's tile program: h1, qkv (q pre-scaled),
+    o, x1, h2, hh, ge, y and the branches a, mo against the plain version's
+    intermediates on the same inputs, each within 0.02 of its largest
+    magnitude (the dtypes and layouts row 7 reads)."""
+    dev = _card()
+    rng = np.random.default_rng(61)
+    clips, N, C = 96, 17, 256
+    params = [p.detach() if p is not None else None
+              for p in _block_params(rng, dev, True)]
+    x = _rand(rng, dev, clips, N, C, dtype=torch.bfloat16)
+    u = rng.random((2, clips, 1, 1))
+    m1, m2 = (torch.from_numpy(((u[i] < 0.8) / 0.8).astype(np.float32))
+              .to(dev) for i in range(2))
+    with torch.no_grad():
+        _, saved = fa._block_fwd_cuda(x, params, m1, m2, 8, 1e-6, 1e-6,
+                                      True, True)
+        (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2, gp,
+         bpp) = params
+        bf = torch.bfloat16
+        xf = x.float().reshape(-1, C)
+        h1 = fa.ln_f32(xf, g1, b1, 1e-6).to(bf)
+        qkv = fa.mm(h1, wqkv.to(bf)) + bqkv
+        qkv[:, :C] *= 1.0 / math.sqrt(32)
+        q, k, v = (qkv[:, i * C:(i + 1) * C].to(bf).reshape(clips, N, C)
+                   for i in range(3))
+        o = fa._grouped_attention(q, k, v, 1, N, 8, False).to(bf)
+        o = o.reshape(-1, C)
+        a = fa.mm(o, wproj.to(bf)) + bproj
+        rows1, rows2 = (m.reshape(clips, 1).repeat_interleave(N, 0)
+                        for m in (m1, m2))
+        x1 = xf + a * rows1
+        h2 = fa.ln_f32(x1, g2, b2, 1e-6).to(bf)
+        hh = fa.mm(h2, w1.to(bf)) + bb1
+        ge = torch.nn.functional.gelu(hh).to(bf)
+        mo = fa.mm(ge, w2.to(bf)) + bb2
+        y = x1 + mo * rows2
+    want = (h1, qkv.to(bf), o, x1, h2, hh, ge, y, a, mo)
+    names = ("h1", "qkv", "o", "x1", "h2", "hh", "ge", "y", "a", "mo")
+    for name, got, ref in zip(names, saved, want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        assert _rel(ref, got) < 0.02, (name, _rel(ref, got))
+
+
 def test_block_kernel_refuses_f32_on_card():
     dev = _card()
     params = _block_params(np.random.default_rng(0), dev, True)
@@ -590,6 +668,47 @@ def test_decoder_attention_kernels_match_plain(kind, shape):
         scale = largest if i in zero else float(a.abs().max())
         assert float((a.float() - b.float()).abs().max()) <= 0.02 * scale, i
     assert all(torch.equal(a, b) for a, b in zip(gk, again))
+
+
+@pytest.mark.parametrize("shape", [(32, 17, 64, 8, 431),
+                                   (32, 431, 64, 2, 17), (3, 40, 64, 4, 9)],
+                         ids=str)
+def test_ca_block_backward_with_mask_gradients(shape):
+    """Row 11 at the Stage-2 step's two orientations (and head width 16),
+    with branch masks that require grad: the tile program and the
+    weight-gradient launch (one counted backward) against the plain
+    version's autograd, dm1 and dm2 included, within 2 % of each gradient's
+    largest magnitude (the keys' bias and AdaLN β, zero analytically, of
+    the largest gradient); a rerun gives the same bits."""
+    dev = _card()
+    rng = np.random.default_rng(list(shape))
+    leaves, call, (kernel, plain) = _dec_case(rng, dev, "ca", shape)
+    B = shape[0]
+    u = rng.random((2, B, 1, 1))
+    u[0, 0] = u[1, 1] = 1.0
+    masks = tuple(torch.from_numpy(((u[i] < 0.8) / 0.8).astype(np.float32))
+                  .to(dev).requires_grad_(True) for i in range(2))
+    H = shape[3]
+
+    def run(fn):
+        xq, xk, xv, *rest = leaves
+        return fn(xq, xk, xv, rest[0:8:2], rest[1:8:2], rest[8:], H, 1e-6,
+                  masks)
+
+    g = _rand(rng, dev, *leaves[0].shape, dtype=torch.bfloat16)
+    every = [*leaves, *masks]
+    y = run(kernel)
+    _cuda.reset_launch_counts()
+    gk = torch.autograd.grad(y, every, g, retain_graph=True)
+    assert _cuda.launch_counts()["ca_block_bwd"] == 1
+    again = torch.autograd.grad(y, every, g)
+    gp = torch.autograd.grad(run(plain), every, g)
+    largest = max(float(t.abs().max()) for t in gp)
+    for i, (a, a2, b) in enumerate(zip(gk, again, gp)):
+        assert torch.equal(a, a2), i
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        scale = largest if i in (6, 14) else float(b.abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 0.02 * scale, i
 
 
 def test_decoder_attention_kernels_refuse_f32_on_card():
