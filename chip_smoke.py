@@ -18,9 +18,9 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    directions of a BiGRU layer in one launch) and the whole block rerun
    bit for bit, and the trunk's long-group route (groups over its block
    kernel's 128-row tile) against its plain version under its own
-   counter; the decoder's CA block backward also with branch masks that
-   require grad (their gradients against the plain version's, rerun bit
-   for bit). Library yardsticks, timed only: ``nn.GRU`` in bf16 for the
+   counter; the decoder's AdaLN and CA block backwards also with branch
+   masks that require grad (their gradients against the plain version's,
+   rerun bit for bit). Library yardsticks, timed only: ``nn.GRU`` in bf16 for the
    GRU rows (with the backend that ran), ``F.multi_head_attention_forward``
    for rows 4 / 5, ``nn.TransformerEncoder`` (pre-norm, erf GELU, the
    post-norm as its ``norm``) for row 6, with grad and on its no-grad fast
@@ -69,7 +69,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    ``MODEL.fused_attn: true``): phase 5's cuts, data and warm start, with
    the decoder's attention blocks on their kernels forward and backward
    (``fused_mhsa``, ``ada_block``, ``ca_block``) and the lifter's blocks on
-   theirs. The counters must equal the path's launches exactly; the fixed
+   theirs. The counters must equal the path's launches exactly (rows 9 and
+   10's launch sequences, outside their tile programs' gates, none); the fixed
    batch's loss must fall; the first step's loss and gradients agree with
    the plain path, the attention blocks' own parameters more tightly (with
    only those six kernels on the card); then the step's time and peak
@@ -79,8 +80,9 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 each train step's device time by kernel and, before phase 2, the stage
 split of the trunk (K1), the GRU scan (K2), the decoder chain (K3), the
 whole block (row 14), the GRU's backward scan (row 13), the block
-forward's and backward's tile programs (rows 6, 7) and the CA block
-backward's tile program (row 11): one call of each kernel's
+forward's and backward's tile programs (rows 6, 7), the CA block's
+forward and backward tile programs (rows 10, 11) and the AdaLN block
+backward's (row 9): one call of each kernel's
 clock64()-stamped instantiation (not counted as a launch) books every
 tile's, CTA's or clip's cycles to its stages.
 
@@ -164,8 +166,11 @@ MESH_TRAINING = ("gru_layer_save", "gru_layer_bwd", "gru_bwd_scan",
 # The decoder's attention blocks (phase 6; idle in phase 5).
 DECODER = ("mhsa_fwd", "mhsa_bwd", "ada_block_fwd", "ada_block_bwd",
            "ca_block_fwd", "ca_block_bwd")
+# The launch sequences of rows 9 and 10 outside their tile programs' gates:
+# no shape of the Stage-2 step reaches them.
+DECODER_SEQ = ("ada_block_bwd_seq", "ca_block_fwd_seq")
 MESH_IDLE = ("lifter_trunk", "lifter_trunk_long", "coevo_chain", "block_fwd", "block_bwd",
-             "skinning", "coevo_block", *DECODER)
+             "skinning", "coevo_block", *DECODER, *DECODER_SEQ)
 # Kernel vs plain version on identical inputs, as max|kernel - plain| over
 # max|plain| (for the block backward: per gradient). Both compute f32 sums
 # of the same bf16 operands with the same cast points; they differ in
@@ -811,10 +816,10 @@ def decoder_case(rng, device, kind: str, clips: int, N: int, c: int,
                  heads: int, Nk: int = 0, rate: float = 0.2):
     """One decoder attention block at the training shapes, made with numpy
     from a seed: bf16 tokens and AdaLN vectors (the dense layers' dtype),
-    f32 weights, per-clip branch masks at drop-path ``rate`` (the CA block's
-    also on ``call.masks``, so that a case can ask for their gradients), the
-    output's cotangent. Returns (leaves, call(fn, *leaves), (kernel,
-    plain))."""
+    f32 weights, per-clip branch masks at drop-path ``rate`` (the AdaLN and
+    CA blocks' on ``call.masks``, so that a case can ask for their
+    gradients), the output's cotangent. Returns (leaves, call(fn, *leaves),
+    (kernel, plain))."""
     import torch
 
     from pmce_tpu_torch.ops import fused_attention as fa
@@ -846,9 +851,11 @@ def decoder_case(rng, device, kind: str, clips: int, N: int, c: int,
         leaves = [r(clips, N, c, scale=1.0, dtype=bf), *conds[:4],
                   w(c, 3 * c), r(3 * c, scale=0.02), w(c, c),
                   r(c, scale=0.02), *mlp]
-        return leaves, (lambda fn, x, g1, b1, g2, b2, *p: fn(
-            x, g1, b1, g2, b2, p, heads, 1e-6, masks)), (
-            fa.ada_block, fa.ada_block_plain)
+        def ada(fn, x, g1, b1, g2, b2, *p):
+            return fn(x, g1, b1, g2, b2, p, heads, 1e-6, ada.masks)
+
+        ada.masks = masks
+        return leaves, ada, (fa.ada_block, fa.ada_block_plain)
     proj = [t for _ in range(4) for t in (w(c, c), r(c, scale=0.02))]
     leaves = [r(clips, N, c, scale=1.0, dtype=bf),
               r(clips, Nk, c, scale=1.0, dtype=bf),
@@ -861,11 +868,13 @@ def decoder_case(rng, device, kind: str, clips: int, N: int, c: int,
     return leaves, call, (fa.ca_block, fa.ca_block_plain)
 
 
-def ca_mask_gradients(leaves, call, kernel, plain, g, where) -> None:
-    """Row 11 with branch masks that require grad (JAX's kernel returns
-    their gradients): every gradient, dm1 and dm2 included, against the
-    plain version's autograd within the block's band, and a rerun bit for
-    bit."""
+def mask_gradients(key, zero, leaves, call, kernel, plain, g,
+                   where) -> None:
+    """A decoder block's backward with branch masks that require grad
+    (JAX's kernels return their gradients): every gradient, dm1 and dm2
+    included, against the plain version's autograd within the block's band
+    (the gradients at ``zero``, analytically zero, relative to the largest
+    gradient), and a rerun bit for bit."""
     import torch
 
     masks = call.masks
@@ -881,22 +890,33 @@ def ca_mask_gradients(leaves, call, kernel, plain, g, where) -> None:
     largest = max(float(t.float().abs().max()) for t in gp)
     rel = 0.0
     for i, (a, b) in enumerate(zip(gk, gp)):
-        scale = largest if i in (6, 14) else float(b.float().abs().max())
+        scale = largest if i in zero else float(b.float().abs().max())
         rel = max(rel, max_err(a, b) / scale)
     dm = [max_err(a, b) / float(b.abs().max()) for a, b in zip(gk[-2:],
                                                                gp[-2:])]
-    ok = rel <= TOL["ca_block_bwd"]
-    print(f"[kernels] ca_block_bwd {where}, mask gradients: max relative "
+    ok = rel <= TOL[key]
+    print(f"[kernels] {key} {where}, mask gradients: max relative "
           f"{rel:.4g} (dm1 {dm[0]:.3g}, dm2 {dm[1]:.3g}; tol "
-          f"{TOL['ca_block_bwd']}){'' if ok else '  FAIL'}", flush=True)
+          f"{TOL[key]}){'' if ok else '  FAIL'}", flush=True)
     if not ok:
-        raise RuntimeError(f"ca_block_bwd {where}: mask gradients disagree "
-                           f"with the plain version's ({rel})")
+        raise RuntimeError(f"{key} {where}: mask gradients disagree with "
+                           f"the plain version's ({rel})")
     if not all(torch.equal(a, b) for a, b in zip(gk, again)):
-        raise RuntimeError(f"ca_block_bwd {where}: two runs with mask "
-                           "gradients differ")
-    print(f"[kernels] ca_block_bwd {where}, mask gradients: a second run "
-          "gives the same gradients bit for bit", flush=True)
+        raise RuntimeError(f"{key} {where}: two runs with mask gradients "
+                           "differ")
+    print(f"[kernels] {key} {where}, mask gradients: a second run gives "
+          "the same gradients bit for bit", flush=True)
+
+
+def ca_mask_gradients(*args) -> None:
+    """Row 11 with branch masks that require grad (:func:`mask_gradients`;
+    the keys' bias and AdaLN beta are zero analytically)."""
+    mask_gradients("ca_block_bwd", (6, 14), *args)
+
+
+def ada_mask_gradients(*args) -> None:
+    """Row 9 with branch masks that require grad (:func:`mask_gradients`)."""
+    mask_gradients("ada_block_bwd", (), *args)
 
 
 def mha_library_ms(leaves, heads: int) -> tuple[float, float]:
@@ -940,6 +960,15 @@ def check_decoder_blocks(device, rows) -> None:
     import numpy as np
     import torch
 
+    from pmce_tpu_torch.ops import _cuda
+
+    if device.type == "cuda":
+        held = {"ca_block_fwd": _cuda.CA.query("pmce_ca_tile_clusters", 1),
+                "ca_block_bwd": _cuda.CA.query("pmce_ca_tile_clusters", 0),
+                "ada_block_bwd": _cuda.ADA.query("pmce_ada_tile_clusters")}
+        print(f"[kernels] clusters of 4 CTAs the card holds at once, by tile "
+              f"program: {held}; a batch of {BM} clips takes "
+              f"{-(-BM // min(held.values()))} wave(s)", flush=True)
     rng = np.random.default_rng(5)
     cases = (("mhsa", "joint self-attention", BM, JT, 64, 8, 0),
              ("ada_block", "vertex AdaLN block", BM, 431, 64, 2, 0),
@@ -1002,6 +1031,8 @@ def check_decoder_blocks(device, rows) -> None:
               f"gradients bit for bit", flush=True)
         if kind == "ca":
             ca_mask_gradients(leaves, call, kernel, plain, g, where)
+        if kind == "ada":
+            ada_mask_gradients(leaves, call, kernel, plain, g, where)
         if kind == "mhsa":
             # Every mhsa case gets its yardstick; the kernels line keeps
             # the first case's, beside that case's kernel time.
@@ -1550,6 +1581,7 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
                        "ada_block_fwd": 3 * steps,
                        "ada_block_bwd": 3 * steps,
                        "ca_block_fwd": 6 * steps, "ca_block_bwd": 4 * steps,
+                       "ada_block_bwd_seq": 0, "ca_block_fwd_seq": 0,
                        "lifter_trunk": evals, "lifter_trunk_long": 0,
                        "coevo_chain": evals, "skinning": 0})
         wrong = {k: (v, counts[k]) for k, v in expect.items()
@@ -1801,8 +1833,9 @@ def stage_split(device) -> None:
     any path) gives every tile's, CTA's or clip's cycles per stage; the
     shares are of their sum over the tiles, CTAs or clips. The same for
     the block forward's saving tile program (row 6) at the Stage-1 shapes
-    and the CA block backward's tile program (row 11) at the Stage-2
-    step's two orientations."""
+    and the CA block's forward and backward tile programs (rows 10, 11) at
+    the Stage-2 step's two orientations, the AdaLN block backward's (row 9)
+    at its vertex stream."""
     import torch
 
     from pmce_tpu_torch.ops import fused_attention as fa
@@ -1857,24 +1890,44 @@ def stage_split(device) -> None:
               + ", ".join(f"{k} {split[k] / total:.1%}"
                           for k in fa.TRUNK_STAGES), flush=True)
         del x, params, masks
-    # Row 11's tile program at the Stage-2 step's two orientations.
+    # Rows 10 and 11's tile programs at the Stage-2 step's two
+    # orientations, row 9's at its vertex stream.
+    def cta_split(tag, split, stages):
+        total = sum(split[k] for k in stages)
+        print(f"[split] {tag}, {split['ctas']} CTAs, "
+              f"{total / split['ctas']:.0f} cycles a CTA, by stage: "
+              + ", ".join(f"{k} {split[k] / total:.1%}" for k in stages),
+              flush=True)
+
     for label, Nq, c, heads, Nk in (("joints over vertices", JT, 64, 8, 431),
                                     ("vertices over joints", 431, 64, 2, JT)):
         leaves, call, _ = decoder_case(rng, device, "ca", BM, Nq, c, heads,
                                        Nk)
         xs, rest = leaves[:3], leaves[3:]
         with torch.no_grad():
+            cta_split(f"ca_block_fwd (row 10) tile program, {label} [{BM}, "
+                      f"{Nq}, {c}] over {Nk} keys",
+                      fa.ca_fwd_stage_split(xs, rest[0:8:2], rest[1:8:2],
+                                            rest[8:], heads, 1e-6,
+                                            call.masks), fa.CA_FWD_STAGES)
             _, saved = fa._ca_fwd_cuda(xs, rest[0:8:2], rest[1:8:2],
                                        call.masks, rest[8:], heads, 1e-6)
             g = torch.ones_like(xs[0])
-            split = fa.ca_bwd_stage_split(g, xs, rest[8:], saved, heads)
-        total = sum(split[k] for k in fa.CA_BWD_STAGES)
-        print(f"[split] ca_block_bwd (row 11) tile program, {label} [{BM}, "
-              f"{Nq}, {c}] over {Nk} keys, {split['ctas']} CTAs, "
-              f"{total / split['ctas']:.0f} cycles a CTA, by stage: "
-              + ", ".join(f"{k} {split[k] / total:.1%}"
-                          for k in fa.CA_BWD_STAGES), flush=True)
+            cta_split(f"ca_block_bwd (row 11) tile program, {label} [{BM}, "
+                      f"{Nq}, {c}] over {Nk} keys",
+                      fa.ca_bwd_stage_split(g, xs, rest[8:], saved, heads),
+                      fa.CA_BWD_STAGES)
         del leaves, saved, xs, rest
+    leaves, call, _ = decoder_case(rng, device, "ada", BM, 431, 64, 2)
+    x, rest = leaves[0], leaves[1:]
+    with torch.no_grad():
+        _, saved = fa._ada_fwd_cuda(x, rest[:4], call.masks, rest[4:], 2,
+                                    1e-6)
+        cta_split(f"ada_block_bwd (row 9) tile program [{BM}, 431, 64], 2 "
+                  "heads", fa.ada_bwd_stage_split(torch.ones_like(x), x,
+                                                  rest[4:], saved, 2),
+                  fa.ADA_BWD_STAGES)
+    del leaves, saved, x, rest
     chain = chain_case(r, B)
     print_split("coevo_chain (K3)", fc.coevo_stage_split("chain", *chain[:5]))
     block = coevo_block_case(r, B)

@@ -1,0 +1,485 @@
+// Device pieces of the decoder's clustered AdaLN tile programs: the CA
+// block's forward (row 10) and backward (row 11) in ca_block.cu, the AdaLN
+// self-attention block's backward (row 9) in ada_block.cu.
+//
+// A cluster of CL = 4 CTAs a clip, 8 warps a CTA, C = 64 channels. A warp
+// owns 16 rows and keeps them in the mma.sync m16n8k16 accumulator layout
+// ([8][4] floats a lane: n8 tile j, rows g = lane / 4 (e < 2) and g + 8,
+// columns 8 j + 2 (lane % 4) + (e & 1)) from one product to the next; the
+// AdaLN statistics of a row are quad sums of that layout. Products read W
+// from its own [in, out] rows: ldmatrix without .trans gives W^T's B
+// fragments (gemm16x64), with .trans W's own (mma_aw, mma_sw): no
+// transposed copy is ever made.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "transformer_ops.cuh"
+
+namespace tile {
+
+using namespace pmce;
+namespace cg = cooperative_groups;
+
+constexpr int CL = 4;          // CTAs of a clip's cluster
+constexpr int NTH = 256;       // 8 warps
+constexpr int NW = NTH / 32;
+constexpr int CW = 64;         // C
+constexpr int LD = CW + 8;     // bf16 row stride of the [rows, 64] tiles
+constexpr int RT = 128;        // long-side rows of a CTA (a warp's 16 each)
+constexpr int ST = 64;         // short-side rows
+constexpr int MAX_HID = 256;
+constexpr int MAXH = 8;        // heads (head width 8)
+
+// Rows [l0, l1) of a clip's n rows that cluster rank `rank` owns: quarters
+// of whole 16-row blocks.
+__host__ __device__ inline int rank_rows(int n) {
+  return ((n + CL - 1) / CL + 15) / 16 * 16;
+}
+
+// clock64() stamps of a program's N stages, summed over its visits; one
+// row of N int64 a CTA (ON = false compiles to nothing).
+template <bool ON, int N>
+struct StageClock {
+  long long acc[N];
+  long long last;
+  __device__ __forceinline__ void start() {
+    if constexpr (ON) {
+      for (int i = 0; i < N; ++i) acc[i] = 0;
+      last = clock64();
+    }
+  }
+  __device__ __forceinline__ void operator()(int kind) {
+    if constexpr (ON) {
+      __syncthreads();
+      const long long t = clock64();
+      acc[kind] += t - last;
+      last = t;
+    }
+  }
+  __device__ __forceinline__ void write(long long* out) {
+    if constexpr (ON) {
+      if (threadIdx.x == 0)
+        for (int i = 0; i < N; ++i) out[(size_t)blockIdx.x * N + i] = acc[i];
+    }
+  }
+};
+
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+// d += a (16 x 8, row) * b (8 x 8, col): the head width 8's products.
+__device__ __forceinline__ void mma_k8(float (&d)[4], const unsigned (&a)[2],
+                                       unsigned b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// acc[16, 64] += A[16, 64] @ W^T for W a [64 (n), 64 (k)] block at row
+// stride ldw: W^T's B fragments read from W's own rows (no .trans).
+__device__ __forceinline__ void gemm16x64(float (&acc)[8][4], const bf16* A,
+                                          int lda, const bf16* W, int ldw) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < CW; kk += 16) {
+    unsigned af[4];
+    ldsm_x4(af, A + (lane & 15) * lda + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      unsigned bf[4];
+      ldsm_x4(bf, W + (nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldw +
+                      kk + ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * nb], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * nb + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[16, 64] += A @ W for A's fragments over k = 64 (af[kk / 16]) and W a
+// [64 (k), 64 (n)] block at row stride ldw (ldmatrix .trans: W's own rows).
+__device__ __forceinline__ void mma_aw(float (&acc)[8][4],
+                                       const unsigned (&af)[4][4],
+                                       const bf16* W, int ldw) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      unsigned bf[4];
+      ldsm_x4_t(bf, W + (kb * 16 + (lane & 15)) * ldw + nb * 16 +
+                        (lane >> 4) * 8);
+      mma_bf16(acc[2 * nb], af[kb], bf[0], bf[1]);
+      mma_bf16(acc[2 * nb + 1], af[kb], bf[2], bf[3]);
+    }
+}
+
+// The same with A's 16 rows in shared memory at row stride lda.
+__device__ __forceinline__ void mma_sw(float (&acc)[8][4], const bf16* A,
+                                       int lda, const bf16* W, int ldw) {
+  const int lane = threadIdx.x & 31;
+  unsigned af[4][4];
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+    ldsm_x4(af[kb], A + (lane & 15) * lda + kb * 16 + (lane >> 4) * 8);
+  mma_aw(acc, af, W, ldw);
+}
+
+__device__ __forceinline__ void zero(float (&v)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[j][e] = 0.f;
+}
+
+// acc[t] (keys or queries n0 + 8t ..) += A[16, D] . B[16, D]^T: A and B rows
+// of a head's D columns at row strides lda, ldb.
+template <int D>
+__device__ __forceinline__ void dot_nt(float (&acc)[2][4], const bf16* A,
+                                       int lda, const bf16* B, int ldb) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (D == 8) {
+    unsigned af[2], bf[2];
+    ldsm_x2(af, A + (lane & 15) * lda);
+    ldsm_x2(bf, B + (lane & 15) * ldb);
+    mma_k8(acc[0], af, bf[0]);
+    mma_k8(acc[1], af, bf[1]);
+  } else {
+#pragma unroll
+    for (int s = 0; s < D; s += 16) {
+      unsigned af[4], bf[4];
+      ldsm_x4(af, A + (lane & 15) * lda + s + (lane >> 4) * 8);
+      ldsm_x4(bf, B + ((lane & 7) + ((lane >> 4) << 3)) * ldb + s +
+                      ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[0], af, bf[0], bf[1]);
+      mma_bf16(acc[1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[base .. base + D / 8) (a [16, D] block of a [16, 64] accumulator) +=
+// P (the A fragments of a 16 x 16 block) @ B[16, D], B rows at row stride
+// ldb ([k, n] order: ldmatrix .trans).
+template <int D, int N>
+__device__ __forceinline__ void dot_pn(float (&acc)[N][4], int base,
+                                       const unsigned (&pa)[4], const bf16* B,
+                                       int ldb) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (D == 8) {
+    unsigned bf[2];
+    ldsm_x2_t(bf, B + (lane & 15) * ldb);
+    mma_bf16(acc[base], pa, bf[0], bf[1]);
+  } else {
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      unsigned bf[4];
+      ldsm_x4_t(bf, B + (lane & 15) * ldb + dp * 16 + (lane >> 4) * 8);
+      mma_bf16(acc[base + 2 * dp], pa, bf[0], bf[1]);
+      mma_bf16(acc[base + 2 * dp + 1], pa, bf[2], bf[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void pack_a(unsigned (&pa)[4],
+                                       const float (&v)[2][4]) {
+  pa[0] = pack_bf2(v[0][0], v[0][1]);
+  pa[1] = pack_bf2(v[0][2], v[0][3]);
+  pa[2] = pack_bf2(v[1][0], v[1][1]);
+  pa[3] = pack_bf2(v[1][2], v[1][3]);
+}
+
+// The A fragments (k = 64) of a warp's [16, 64] accumulator rounded to bf16.
+__device__ __forceinline__ void frag_a(unsigned (&af)[4][4],
+                                       const float (&v)[8][4]) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) {
+    af[kb][0] = pack_bf2(v[2 * kb][0], v[2 * kb][1]);
+    af[kb][1] = pack_bf2(v[2 * kb][2], v[2 * kb][3]);
+    af[kb][2] = pack_bf2(v[2 * kb + 1][0], v[2 * kb + 1][1]);
+    af[kb][3] = pack_bf2(v[2 * kb + 1][2], v[2 * kb + 1][3]);
+  }
+}
+
+// v[j][e] += p[column] for a vector p of 64 columns (a bias or a clip's
+// row).
+__device__ __forceinline__ void add_cols(float (&v)[8][4], const float* p) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(p + j * 8 + 2 * tq);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      v[j][2 * hf] += b.x;
+      v[j][2 * hf + 1] += b.y;
+    }
+  }
+}
+
+// AdaLN forward of a warp's 16 rows in accumulator layout, in place (the
+// plain version's adaln_f32: unbiased sigma, eps outside the sqrt, f32):
+// x = gamma * (x - mean) / (sigma + eps) + beta with the clip's gamma,
+// beta rows.
+__device__ __forceinline__ void adaln_fwd_frag(float (&x)[8][4],
+                                               const float* gam,
+                                               const float* bet, float eps) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += x[j][2 * hf] + x[j][2 * hf + 1];
+    const float mean = quad_sum(s) * (1.0f / CW);
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float u = x[j][2 * hf + e] - mean;
+        x[j][2 * hf + e] = u;
+        q += u * u;
+      }
+    const float den = sqrtf(quad_sum(q) * (1.0f / (CW - 1))) + eps;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = j * 8 + 2 * tq + e;
+        x[j][2 * hf + e] = gam[c] * (x[j][2 * hf + e] / den) + bet[c];
+      }
+  }
+}
+
+// AdaLN backward (attention_ops.cuh's adaln_bwd_kernel) of a warp's 16
+// rows held in accumulator layout: x (f32, overwritten by x - mean), dy (the
+// gradient of the norm's output, overwritten by dx without a residual), gm
+// the clip's gamma at the lane's columns; the lane's dgamma (dy * xhat) and
+// dbeta (dy) terms of its valid rows added to cg, cb.
+__device__ __forceinline__ void adaln_bwd_frag(float (&dy)[8][4],
+                                               float (&x)[8][4],
+                                               const float (&gm)[8][2],
+                                               float eps, bool v0, bool v1,
+                                               float (&cg)[8][2],
+                                               float (&cb)[8][2]) {
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const bool valid = hf ? v1 : v0;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += x[j][2 * hf] + x[j][2 * hf + 1];
+    const float mean = quad_sum(s) * (1.0f / CW);
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float u = x[j][2 * hf + e] - mean;
+        x[j][2 * hf + e] = u;
+        q += u * u;
+      }
+    const float sigma = sqrtf(quad_sum(q) * (1.0f / (CW - 1)));
+    const float inv = 1.0f / (sigma + eps);
+    float sp = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        sp += dy[j][2 * hf + e] * gm[j][e] * x[j][2 * hf + e];
+    const float coef = inv * inv * quad_sum(sp) * (1.0f / (CW - 1)) /
+                       fmaxf(sigma, 1e-20f);
+    float sd = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float d = dy[j][2 * hf + e], u = x[j][2 * hf + e];
+        if (valid) {
+          cg[j][e] += d * (u * inv);
+          cb[j][e] += d;
+        }
+        const float du = d * gm[j][e] * inv - u * coef;
+        dy[j][2 * hf + e] = du;
+        sd += du;
+      }
+    const float mdu = quad_sum(sd) * (1.0f / CW);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      dy[j][2 * hf] -= mdu;
+      dy[j][2 * hf + 1] -= mdu;
+    }
+  }
+}
+
+// Column sums of the lane's per-column terms over the warp's rows, into
+// dst[64] (lanes 0-3 write).
+__device__ __forceinline__ void warp_cols(const float (&v)[8][2], float* dst) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = v[j][e];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (lane < 4) dst[j * 8 + 2 * lane + e] = s;
+    }
+}
+
+// The warps' column partials (wpt [warp][2][64]) added in warp order into
+// vp[idx], vp[idx + 1] (64 each); the warps' scalar partials (wpm
+// [warp][2]) into vp[mslot], vp[mslot + 1] when `masks`.
+__device__ __forceinline__ void fold(float* vp, const float* wpt,
+                                     const float* wpm, int idx, bool masks,
+                                     int mslot) {
+  __syncthreads();
+  const int tid = threadIdx.x;
+  if (tid < 2 * CW) {
+    float s = 0.f;
+    for (int w = 0; w < NW; ++w) s += wpt[(w * 2 + tid / CW) * CW + tid % CW];
+    vp[idx * CW + tid] += s;
+  } else if (masks && tid < 2 * CW + 2) {
+    const int i = tid - 2 * CW;
+    float s = 0.f;
+    for (int w = 0; w < NW; ++w) s += wpm[w * 2 + i];
+    vp[mslot + i] += s;
+  }
+  __syncthreads();
+}
+
+// Values of an [rows, ld] matrix's 64 columns from col0 at the accumulator
+// positions of a warp's 16 rows from row0 (zeros past `valid` rows): f32
+// or bf16 sources.
+__device__ __forceinline__ void load_frag(float (&v)[8][4], const float* p,
+                                          size_t row0, bool v0, bool v1,
+                                          int ld = CW, int col0 = 0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const bool ok = hf ? v1 : v0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float2 x = make_float2(0.f, 0.f);
+      if (ok)
+        x = *reinterpret_cast<const float2*>(
+            p + (row0 + g + 8 * hf) * ld + col0 + j * 8 + 2 * tq);
+      v[j][2 * hf] = x.x;
+      v[j][2 * hf + 1] = x.y;
+    }
+  }
+}
+__device__ __forceinline__ void load_frag(float (&v)[8][4], const bf16* p,
+                                          size_t row0, bool v0, bool v1,
+                                          int ld = CW, int col0 = 0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const bool ok = hf ? v1 : v0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float2 x = make_float2(0.f, 0.f);
+      if (ok)
+        x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            p + (row0 + g + 8 * hf) * ld + col0 + j * 8 + 2 * tq));
+      v[j][2 * hf] = x.x;
+      v[j][2 * hf + 1] = x.y;
+    }
+  }
+}
+
+// A clip's gamma at the lane's columns.
+__device__ __forceinline__ void load_gamma(float (&gm)[8][2], const float* p) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    gm[j][0] = p[j * 8 + 2 * tq];
+    gm[j][1] = p[j * 8 + 2 * tq + 1];
+  }
+}
+
+// The bf16 rounding of a warp's accumulator rows into the tile `t` (row
+// stride LD) and, for valid rows, into dst's rows row0 .. (null: none).
+__device__ __forceinline__ void store_bf(const float (&v)[8][4], bf16* t,
+                                         bf16* dst, size_t row0, bool v0,
+                                         bool v1, int ld = CW, int col0 = 0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = j * 8 + 2 * tq;
+      const unsigned pk = pack_bf2(v[j][2 * hf], v[j][2 * hf + 1]);
+      if (t) *reinterpret_cast<unsigned*>(t + (g + 8 * hf) * LD + c) = pk;
+      if (dst && (hf ? v1 : v0))
+        *reinterpret_cast<unsigned*>(dst + (row0 + g + 8 * hf) * ld + col0 +
+                                     c) = pk;
+    }
+}
+
+// A warp's accumulator rows, f32, into dst's valid rows row0 .. (row
+// stride ld, columns col0 ..).
+__device__ __forceinline__ void store_f32(const float (&v)[8][4], float* dst,
+                                          size_t row0, bool v0, bool v1,
+                                          int ld = CW, int col0 = 0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (!(hf ? v1 : v0)) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(dst + (row0 + g + 8 * hf) * ld + col0 +
+                                 j * 8 + 2 * tq) =
+          make_float2(v[j][2 * hf], v[j][2 * hf + 1]);
+  }
+}
+
+// Rows [0, n) of an [*, ld] bf16 matrix's 64 columns from col0, from row
+// r0, into a tile (row stride LD) by cp.async, zeros up to the next
+// multiple of 16; threads [t0, t0 + nt) issue.
+__device__ __forceinline__ void load_rows(bf16* t, const bf16* src, size_t r0,
+                                          int n, int ld = CW, int col0 = 0,
+                                          int t0 = 0, int nt = NTH) {
+  const int n16 = (n + 15) / 16 * 16;
+  for (int c = threadIdx.x - t0; c < n16 * 8; c += nt) {
+    const int r = c / 8, cc = c % 8 * 8;
+    cp_async16(t + r * LD + cc,
+               src + (r0 + (r < n ? r : 0)) * ld + col0 + cc, r < n);
+  }
+}
+
+// Clusters of CL CTAs of `kernel` (NTH threads, `smem` bytes each) the card
+// holds at once (cudaOccupancyMaxActiveClusters), or minus the error code.
+template <typename K>
+inline int max_active_clusters(K kernel, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(32 * CL);
+  cfg.blockDim = dim3(NTH);
+  cfg.dynamicSmemBytes = smem;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(
+      &n, reinterpret_cast<const void*>(kernel), &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+}  // namespace tile

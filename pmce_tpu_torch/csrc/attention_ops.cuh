@@ -559,19 +559,21 @@ static inline int self_attn_bwd(const bf16* h, const bf16* ga, int clips,
 
 // The AdaLN'd MLP half of both decoder blocks, forward:
 // h2 = bf16(AdaLN(x1; gamma2, beta2)), hh = h2 @ W1 + b1 (kept f32),
-// ge = bf16(gelu(hh)), out = bf16(x1 + m2[clip] * (ge @ W2 + b2)).
+// ge = bf16(gelu(hh)), out = bf16(x1 + m2[clip] * mo), mo = ge @ W2 + b2
+// (kept f32 in `mo` when set: the mask's gradient reads it).
 static inline int ada_mlp_fwd(const float* x1, int clips, int N, int C,
                               int hid, const float* gamma2,
                               const float* beta2, float eps, const bf16* w1,
                               const float* bb1, const bf16* w2,
                               const float* bb2, const float* m2, bf16* h2,
                               float* hh, bf16* ge, bf16* out,
-                              cudaStream_t s) {
+                              cudaStream_t s, float* mo = nullptr) {
   const int M = clips * N;
   PMCE_TRY(launch_adaln(x1, h2, gamma2, beta2, M, N, C, eps, s));
   PMCE_TRY(gemm(EPI_GELU, h2, w1, M, hid, C, ge, 0, bb1, s, nullptr, 0,
                 nullptr, 1, 0, 1.f, hh));
-  return gemm(EPI_RES, ge, w2, M, C, hid, out, 0, bb2, s, x1, 1, m2, N);
+  return gemm(EPI_RES, ge, w2, M, C, hid, out, 0, bb2, s, x1, 1, m2, N, 0,
+              1.f, mo);
 }
 
 // Its backward from g = dL/d(out) (bf16): dW2, db2, dW1, db1, the clip's

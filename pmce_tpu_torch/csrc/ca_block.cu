@@ -18,18 +18,30 @@
 // tensor-core peak or the HBM rate. Launches, host work and latency bound
 // it.
 //
-// Forward (simple first), as ada_block.cu: one launch per stage over all
-// rows; three AdaLNs, the q / k / v projections as WMMA GEMMs (q scaled in
-// f32 before its bf16 rounding), attention_ops.cuh's attention with each
-// clip's keys its own Nk rows (no padding, so no key mask: the TPU kernel
-// pads 17 keys to a tile and masks them), the projection with its masked
-// residual, the AdaLN'd MLP; the branches a and mo saved where the mask
-// gradients are owed.
+// Forward, one launch where the tile programs' gate holds (C = 64, hid up
+// to 256, the short side up to 64 rows, the long side up to 512): the tile
+// program (caf::ca_fwd_tile_kernel), a cluster of CL = 4 CTAs a clip, the
+// long side split in quarters of at most 128 rows, the short side whole in
+// every CTA (computed by each, stored by rank 0 alone). The six weights are
+// read into shared memory from their [in, out] rows by cp.async; a warp's
+// 16 rows go through AdaLN, the projections (q scaled in f32 before its
+// bf16 rounding), the attention (scores and P on the tensor cores, P
+// rounded to bf16 after normalising: the plain version's cast point), the
+// projection with its masked residual, AdaLN2, fc1 + exact GELU and fc2
+// with its masked residual, all in the accumulator's registers. With the
+// keys split, each CTA's partial softmax max and sum over its keys are
+// merged by every CTA in rank order through distributed shared memory,
+// then each CTA's P.V over its keys is added by rank 0 in rank order: the
+// saved max and sum are the whole key range's, which the backward's P
+// reads. It writes the state the backward reads only when a gradient is
+// owed (the branches a, mo only for the mask gradients). Other shapes: the
+// launch sequence, one launch per stage over all rows (three AdaLNs, WMMA
+// projections, attention_ops.cuh's CUDA-core attention, the residual
+// projection, the AdaLN'd MLP).
 //
 // Backward, two launches:
 // - the tile program (cab::ca_bwd_tile_kernel): a cluster of CL = 4 CTAs a
-//   clip (128 CTAs at batch 32, one wave on 132 SMs; one CTA a clip would
-//   leave 100 SMs idle). The CTAs split the long side (the vertices' 431
+//   clip (128 CTAs at batch 32; one CTA a clip would leave 100 SMs idle). The CTAs split the long side (the vertices' 431
 //   rows: queries in one orientation, keys in the other) into quarters of
 //   at most 128 rows; every CTA holds the short side (at most 64 rows)
 //   whole. A CTA runs, a warp per 16 query rows: m2 * g; the MLP's
@@ -56,13 +68,11 @@
 //   program) adds the ranges' partials and column sums (the six bias
 //   gradients) in range order.
 
-#include <cooperative_groups.h>
-
+#include "adaln_tile.cuh"
 #include "attention_ops.cuh"
 #include "wgrad.cuh"
 
 using namespace pmce;
-namespace cg = cooperative_groups;
 
 // P: xq [Mq,C], xk, xv [Mk,C] bf16; gq, bq, gk, bk, gv, bv, g2, b2 [clips,C]
 // f32; m1, m2 [clips] or null; wq, bq, wk, bk, wv, bv, wproj, bproj, w1,
@@ -97,17 +107,455 @@ extern "C" int pmce_ca_block_fwd(void* const* P, int clips, int Nq, int Nk,
               1, f(12), Nq, 0, 1.f, f(40));
 }
 
+// ---------------------------------------------------------------------------
+// The forward's tile program (row 10): a cluster of CL = 4 CTAs a clip.
+// ---------------------------------------------------------------------------
+namespace caf {
+
+using namespace tile;
+
+constexpr int NSTAMP = 6;  // loads, k/v norms + proj, q norm + proj,
+                           // attention, cluster merge, proj + norm2 + MLP
+
+// Shared-memory plan, bytes: the six weights, the CTA's q, k, v and o
+// tiles, and (keys split) the partial softmax of its keys.
+constexpr int TILE = RT * LD * 2;                     // [128, 72] bf16
+constexpr int WSQ = CW * LD * 2;                      // [64, 72] bf16
+constexpr int OFF_WQ = 0, OFF_WK = WSQ, OFF_WV = 2 * WSQ, OFF_WP = 3 * WSQ;
+constexpr int OFF_W2 = 4 * WSQ;                       // [hid, 72]
+constexpr int OFF_W1 = OFF_W2 + MAX_HID * LD * 2;     // [64, hid + 8]
+constexpr int OFF_QT = OFF_W1 + CW * (MAX_HID + 8) * 2;
+constexpr int OFF_KT = OFF_QT + TILE;
+constexpr int OFF_VT = OFF_KT + TILE;
+constexpr int OFF_OT = OFF_VT + TILE;
+constexpr int OFF_PM = OFF_OT + TILE;                 // [64, 8] f32 max
+constexpr int OFF_PL = OFF_PM + ST * MAXH * 4;        // [64, 8] f32 sum
+constexpr int OFF_PO = OFF_PL + ST * MAXH * 4;        // [64, 64] f32 P.V
+constexpr int SMEM = OFF_PO + ST * CW * 4;
+static_assert(SMEM <= 232448, "over the opt-in shared memory");
+
+struct Args {
+  const bf16 *xq, *xk, *xv;             // [Mq | Mk, 64]
+  const float* cond[8];                 // gq, bq, gk, bk, gv, bv, g2, b2
+  const float *m1, *m2;                 // [clips] or null
+  const bf16 *wq, *wk, *wv, *wproj, *w1, *w2;  // [in, out]
+  const float *bq, *bk, *bv, *bproj, *bb1, *bb2;
+  bf16* out;
+  bf16 *nq, *nk, *nv, *q, *k, *v, *o;   // the saved state, or all null
+  float *sm, *sl;                       // [clips, H, Nq] softmax max, sum
+  float* x1;                            // [Mq, 64]
+  bf16* h2;
+  float* hh;                            // [Mq, hid]
+  bf16* ge;
+  float *a, *mo;                        // [Mq, 64] or null
+  int clips, Nq, Nk, hid;
+  float eps, qscale;
+  long long* stamps;                    // [clips * CL, NSTAMP] or null
+};
+
+// One input's side of the attention, a warp's 16 rows: the clip's AdaLN of
+// x's rows, rounded to bf16 (into nsave's rows when set), then (@ W + bias)
+// times scale, rounded to bf16 into the tile t (row stride LD) and psave's
+// rows when set.
+__device__ __forceinline__ void norm_proj(const bf16* x, size_t row0,
+                                          bool v0, bool v1, const float* gam,
+                                          const float* bet, float eps,
+                                          const bf16* W, const float* bias,
+                                          float scale, bf16* t, bf16* nsave,
+                                          bf16* psave) {
+  float v[8][4];
+  load_frag(v, x, row0, v0, v1);
+  adaln_fwd_frag(v, gam, bet, eps);
+  unsigned af[4][4];
+  frag_a(af, v);
+  if (nsave) store_bf(v, nullptr, nsave, row0, v0, v1);
+  float acc[8][4];
+  zero(acc);
+  mma_aw(acc, af, W, LD);
+  add_cols(acc, bias);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= scale;
+  store_bf(acc, t, psave, row0, v0, v1);
+}
+
+// The row max m and sum l of exp(s - m) of a warp's 16 query rows q (a
+// head's columns, row stride LD) over keys [0, nk) of k, quad-reduced: rows
+// g (index 0) and g + 8. No keys: -inf and 0.
+template <int D>
+__device__ __forceinline__ void softmax_stats(const bf16* q, const bf16* k,
+                                              int nk, float (&m)[2],
+                                              float (&l)[2]) {
+  const int tq = threadIdx.x & 3;
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+  for (int kb = 0; kb < nk; kb += 16) {
+    float sc[2][4] = {};
+    dot_nt<D>(sc, q, LD, k + kb * LD, LD);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (kb + t * 8 + 2 * tq + (e & 1) < nk)
+          m[e >> 1] = fmaxf(m[e >> 1], sc[t][e]);
+  }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+  for (int kb = 0; kb < nk; kb += 16) {
+    float sc[2][4] = {};
+    dot_nt<D>(sc, q, LD, k + kb * LD, LD);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (kb + t * 8 + 2 * tq + (e & 1) < nk)
+          l[e >> 1] += expf(sc[t][e] - m[e >> 1]);
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+}
+
+// o[16, D] += P @ v over keys [0, nk), P = bf16(exp(s - m) * li): the
+// plain version's cast point (probabilities rounded, f32 sums).
+template <int D>
+__device__ __forceinline__ void attend_pv(const bf16* q, const bf16* k,
+                                          const bf16* v, int nk,
+                                          const float (&m)[2],
+                                          const float (&li)[2],
+                                          float (&o)[D / 8][4]) {
+  const int tq = threadIdx.x & 3;
+  for (int kb = 0; kb < nk; kb += 16) {
+    float sc[2][4] = {};
+    dot_nt<D>(sc, q, LD, k + kb * LD, LD);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[t][e] = kb + t * 8 + 2 * tq + (e & 1) < nk
+                       ? expf(sc[t][e] - m[e >> 1]) * li[e >> 1]
+                       : 0.f;
+    unsigned pa[4];
+    pack_a(pa, sc);
+    dot_pn<D>(o, 0, pa, v + kb * LD, LD);
+  }
+}
+
+template <bool PROF, int D>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
+    ca_fwd_tile_kernel(const Args a) {
+  constexpr int H = CW / D;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / CL;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  bf16* Wq = reinterpret_cast<bf16*>(smem + OFF_WQ);
+  bf16* Wk = reinterpret_cast<bf16*>(smem + OFF_WK);
+  bf16* Wv = reinterpret_cast<bf16*>(smem + OFF_WV);
+  bf16* Wp = reinterpret_cast<bf16*>(smem + OFF_WP);
+  bf16* W2 = reinterpret_cast<bf16*>(smem + OFF_W2);
+  bf16* W1 = reinterpret_cast<bf16*>(smem + OFF_W1);
+  bf16* Qt = reinterpret_cast<bf16*>(smem + OFF_QT);
+  bf16* Kt = reinterpret_cast<bf16*>(smem + OFF_KT);
+  bf16* Vt = reinterpret_cast<bf16*>(smem + OFF_VT);
+  bf16* Ot = reinterpret_cast<bf16*>(smem + OFF_OT);
+  float* PM = reinterpret_cast<float*>(smem + OFF_PM);
+  float* PL = reinterpret_cast<float*>(smem + OFF_PL);
+  float* PO = reinterpret_cast<float*>(smem + OFF_PO);
+  StageClock<PROF, NSTAMP> clk;
+  clk.start();
+
+  // The long side (the larger of Nq, Nk) in quarters of whole 16-row
+  // blocks; the short side whole in every CTA, stored by rank 0 alone.
+  const bool split_q = a.Nq >= a.Nk;
+  const int nlong = split_q ? a.Nq : a.Nk;
+  const int l0 = min(nlong, rank * rank_rows(nlong));
+  const int l1 = min(nlong, l0 + rank_rows(nlong));
+  const int q0 = split_q ? l0 : 0, nq = split_q ? l1 - l0 : a.Nq;
+  const int k0 = split_q ? 0 : l0, nk = split_q ? a.Nk : l1 - l0;
+  const int nq16 = (nq + 15) / 16 * 16, nk16 = (nk + 15) / 16 * 16;
+  const bool save = a.q != nullptr;
+  const bool store_q = save && (split_q || rank == 0);
+  const bool store_k = save && (!split_q || rank == 0);
+  const size_t qrow0 = (size_t)b * a.Nq + q0, krow0 = (size_t)b * a.Nk + k0;
+  const size_t cb = (size_t)b * CW;
+  const int hid = a.hid, ldw1 = hid + 8;
+
+  // ---- loads: the six weights -------------------------------------------
+  {
+    const bf16* src[4] = {a.wq, a.wk, a.wv, a.wproj};
+    bf16* dst[4] = {Wq, Wk, Wv, Wp};
+    for (int c = tid; c < 4 * CW * 8; c += NTH) {
+      const int m = c / (CW * 8), r = c % (CW * 8) / 8, cc = c % 8 * 8;
+      cp_async16(dst[m] + r * LD + cc, src[m] + r * CW + cc, true);
+    }
+    for (int c = tid; c < hid * 8; c += NTH) {
+      const int r = c / 8, cc = c % 8 * 8;
+      cp_async16(W2 + r * LD + cc, a.w2 + (size_t)r * CW + cc, true);
+    }
+    for (int c = tid; c < CW * (hid / 8); c += NTH) {
+      const int r = c / (hid / 8), cc = c % (hid / 8) * 8;
+      cp_async16(W1 + r * ldw1 + cc, a.w1 + (size_t)r * hid + cc, true);
+    }
+    cp_async_commit();
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+  }
+  clk(0);
+
+  // ---- the keys' side, a warp per 16 rows: AdaLN, then k and v ----------
+  for (int kr = warp * 16; kr < nk16; kr += NW * 16) {
+    const bool v0 = kr + g < nk, v1 = kr + g + 8 < nk;
+    norm_proj(a.xk, krow0 + kr, v0, v1, a.cond[2] + cb, a.cond[3] + cb,
+              a.eps, Wk, a.bk, 1.f, Kt + kr * LD, store_k ? a.nk : nullptr,
+              store_k ? a.k : nullptr);
+    norm_proj(a.xv, krow0 + kr, v0, v1, a.cond[4] + cb, a.cond[5] + cb,
+              a.eps, Wv, a.bv, 1.f, Vt + kr * LD, store_k ? a.nv : nullptr,
+              store_k ? a.v : nullptr);
+  }
+  clk(1);
+  // ---- the queries' side: AdaLN, then q (scaled in f32 before its bf16
+  // rounding) ----------------------------------------------------------------
+  for (int qr = warp * 16; qr < nq16; qr += NW * 16) {
+    const bool v0 = qr + g < nq, v1 = qr + g + 8 < nq;
+    norm_proj(a.xq, qrow0 + qr, v0, v1, a.cond[0] + cb, a.cond[1] + cb,
+              a.eps, Wq, a.bq, a.qscale, Qt + qr * LD,
+              store_q ? a.nq : nullptr, store_q ? a.q : nullptr);
+  }
+  __syncthreads();
+  clk(2);
+
+  // ---- attention, items (query block, head) over the CTA's keys: the
+  // whole softmax when every key is here, else its partial max and sum ----
+  for (int it = warp; it < nq16 / 16 * H; it += NW) {
+    const int qb = it / H * 16, h = it % H;
+    const bf16* qh = Qt + qb * LD + h * D;
+    float m[2], l[2];
+    softmax_stats<D>(qh, Kt + h * D, nk, m, l);
+    if (split_q) {
+      const float li[2] = {1.0f / l[0], 1.0f / l[1]};
+      float o[D / 8][4] = {};
+      attend_pv<D>(qh, Kt + h * D, Vt + h * D, nk, m, li, o);
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = qb + g + 8 * hf, c = h * D + d * 8 + 2 * tq;
+          const unsigned pk = pack_bf2(o[d][2 * hf], o[d][2 * hf + 1]);
+          *reinterpret_cast<unsigned*>(Ot + r * LD + c) = pk;
+          if (store_q && r < nq)
+            *reinterpret_cast<unsigned*>(a.o + (qrow0 + r) * CW + c) = pk;
+        }
+      if (store_q && tq == 0)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = qb + g + 8 * hf;
+          if (r < nq) {
+            const size_t si = ((size_t)b * H + h) * a.Nq + q0 + r;
+            a.sm[si] = m[hf];
+            a.sl[si] = l[hf];
+          }
+        }
+    } else if (tq == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        PM[(qb + g + 8 * hf) * MAXH + h] = m[hf];
+        PL[(qb + g + 8 * hf) * MAXH + h] = l[hf];
+      }
+    }
+  }
+  clk(3);
+
+  // ---- keys split: the clip's softmax from the four partials (every CTA,
+  // in rank order), each CTA's P.V over its keys, their sum by rank 0 in
+  // rank order --------------------------------------------------------------
+  if (!split_q) {
+    cluster.sync();
+    const float* rpm[CL];
+    const float* rpl[CL];
+    for (int r = 0; r < CL; ++r) {
+      rpm[r] = cluster.map_shared_rank(PM, r);
+      rpl[r] = cluster.map_shared_rank(PL, r);
+    }
+    for (int it = warp; it < nq16 / 16 * H; it += NW) {
+      const int qb = it / H * 16, h = it % H;
+      float m[2], l[2], li[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = (qb + g + 8 * hf) * MAXH + h;
+        float mg = -INFINITY;
+        for (int r = 0; r < CL; ++r) mg = fmaxf(mg, rpm[r][i]);
+        float lg = 0.f;
+        for (int r = 0; r < CL; ++r) lg += rpl[r][i] * expf(rpm[r][i] - mg);
+        m[hf] = mg;
+        l[hf] = lg;
+        li[hf] = 1.0f / lg;
+      }
+      float o[D / 8][4] = {};
+      attend_pv<D>(Qt + qb * LD + h * D, Kt + h * D, Vt + h * D, nk, m, li,
+                   o);
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<float2*>(PO + (qb + g + 8 * hf) * CW + h * D +
+                                     d * 8 + 2 * tq) =
+              make_float2(o[d][2 * hf], o[d][2 * hf + 1]);
+      if (store_q && tq == 0)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = qb + g + 8 * hf;
+          if (r < nq) {
+            const size_t si = ((size_t)b * H + h) * a.Nq + r;
+            a.sm[si] = m[hf];
+            a.sl[si] = l[hf];
+          }
+        }
+    }
+    cluster.sync();
+    if (rank == 0) {
+      const float* rpo[CL];
+      for (int r = 0; r < CL; ++r) rpo[r] = cluster.map_shared_rank(PO, r);
+      for (int e = tid; e < nq16 * CW; e += NTH) {
+        float s = 0.f;
+#pragma unroll
+        for (int r = 0; r < CL; ++r) s += rpo[r][e];
+        const int row = e / CW, c = e % CW;
+        const bf16 v = f2bf(s);
+        Ot[row * LD + c] = v;
+        if (store_q && row < nq) a.o[(qrow0 + row) * CW + c] = v;
+      }
+    }
+    cluster.sync();  // rank 0 has read the partials: the others may leave
+  }
+  __syncthreads();
+  clk(4);
+
+  // ---- the projection with its masked residual, AdaLN2 and the MLP with
+  // its masked residual, a warp per 16 query rows, all in registers ---------
+  if (split_q || rank == 0) {
+    const float s1 = a.m1 ? a.m1[b] : 1.f, s2 = a.m2 ? a.m2[b] : 1.f;
+    for (int qr = warp * 16; qr < nq16; qr += NW * 16) {
+      const bool v0 = qr + g < nq, v1 = qr + g + 8 < nq;
+      const size_t r0 = qrow0 + qr;
+      float x1[8][4], br[8][4];
+      zero(br);
+      mma_sw(br, Ot + qr * LD, LD, Wp, LD);
+      add_cols(br, a.bproj);
+      if (a.a) store_f32(br, a.a, r0, v0, v1);
+      load_frag(x1, a.xq, r0, v0, v1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x1[j][e] += s1 * br[j][e];
+          br[j][e] = x1[j][e];
+        }
+      if (save) store_f32(x1, a.x1, r0, v0, v1);
+      unsigned af[4][4];
+      adaln_fwd_frag(br, a.cond[6] + cb, a.cond[7] + cb, a.eps);
+      frag_a(af, br);
+      if (save) store_bf(br, nullptr, a.h2, r0, v0, v1);
+      float mo[8][4];
+      zero(mo);
+      for (int blk = 0; blk < hid / CW; ++blk) {
+        float hv[8][4];
+        zero(hv);
+        mma_aw(hv, af, W1 + blk * CW, ldw1);
+        add_cols(hv, a.bb1 + blk * CW);
+        if (save) store_f32(hv, a.hh, r0, v0, v1, hid, blk * CW);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hv[j][e] = gelu_erf(hv[j][e]);
+        unsigned gf[4][4];
+        frag_a(gf, hv);
+        if (save) store_bf(hv, nullptr, a.ge, r0, v0, v1, hid, blk * CW);
+        mma_aw(mo, gf, W2 + blk * CW * LD, LD);
+      }
+      add_cols(mo, a.bb2);
+      if (a.mo) store_f32(mo, a.mo, r0, v0, v1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mo[j][e] = x1[j][e] + s2 * mo[j][e];
+      store_bf(mo, nullptr, a.out, r0, v0, v1);
+    }
+  }
+  clk(5);
+  clk.write(a.stamps);
+}
+
+}  // namespace caf
+
+// The forward's tile program, a cluster of 4 CTAs a clip. ptrs: xq, xk, xv
+// (bf16), gq, bq, gk, bk, gv, bv, g2, b2 ([clips, 64] f32), m1, m2 (or
+// null), wq, wk, wv, wproj, w1, w2 (bf16 [in, out]), bq, bk, bv, bproj,
+// bb1, bb2 (f32), out; the saved nq, nk, nv, q, k, v, o, stat_m, stat_l,
+// x1, h2, hh, ge (all null: not saving, only out is written); a, mo (f32
+// [Mq, 64] or null); stamps (null, or [clips * 4, 6] int64 for the stamped
+// instantiation).
+extern "C" int pmce_ca_fwd_tile(void* const* ptrs, int clips, int Nq, int Nk,
+                                int hid, int H, float eps, void* stream) {
+  using namespace caf;
+  if (clips <= 0 || Nq <= 0 || Nk <= 0 || std::min(Nq, Nk) > ST ||
+      std::max(Nq, Nk) > CL * RT || hid <= 0 || hid % CW || hid > MAX_HID ||
+      (H != 2 && H != 4 && H != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  auto cb = [&](int i) { return static_cast<const bf16*>(ptrs[i]); };
+  auto cf = [&](int i) { return static_cast<const float*>(ptrs[i]); };
+  auto b = [&](int i) { return static_cast<bf16*>(ptrs[i]); };
+  auto f = [&](int i) { return static_cast<float*>(ptrs[i]); };
+  a.xq = cb(0); a.xk = cb(1); a.xv = cb(2);
+  for (int i = 0; i < 8; ++i) a.cond[i] = cf(3 + i);
+  a.m1 = cf(11); a.m2 = cf(12);
+  a.wq = cb(13); a.wk = cb(14); a.wv = cb(15); a.wproj = cb(16);
+  a.w1 = cb(17); a.w2 = cb(18);
+  a.bq = cf(19); a.bk = cf(20); a.bv = cf(21); a.bproj = cf(22);
+  a.bb1 = cf(23); a.bb2 = cf(24);
+  a.out = b(25);
+  a.nq = b(26); a.nk = b(27); a.nv = b(28); a.q = b(29); a.k = b(30);
+  a.v = b(31); a.o = b(32); a.sm = f(33); a.sl = f(34); a.x1 = f(35);
+  a.h2 = b(36); a.hh = f(37); a.ge = b(38);
+  a.a = f(39); a.mo = f(40);
+  a.stamps = static_cast<long long*>(ptrs[41]);
+  a.clips = clips; a.Nq = Nq; a.Nk = Nk; a.hid = hid;
+  a.eps = eps;
+  a.qscale = 1.0f / sqrtf(static_cast<float>(CW / H));
+  // The saved state is written whole or not at all.
+  int saved = 0;
+  for (int i = 26; i <= 38; ++i) saved += ptrs[i] != nullptr;
+  if ((saved != 0 && saved != 13) || (a.a == nullptr) != (a.mo == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PMCE_CA_FWD(PROF, D)                                                \
+  {                                                                         \
+    const auto kernel = ca_fwd_tile_kernel<PROF, D>;                        \
+    cudaError_t e = cudaFuncSetAttribute(                                   \
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);         \
+    if (e != cudaSuccess) return static_cast<int>(e);                       \
+    kernel<<<clips * CL, NTH, SMEM, s>>>(a);                                \
+    return static_cast<int>(cudaGetLastError());                            \
+  }
+  const int D = CW / H;
+  if (a.stamps) {
+    if (D == 8) PMCE_CA_FWD(true, 8)
+    if (D == 16) PMCE_CA_FWD(true, 16)
+    PMCE_CA_FWD(true, 32)
+  }
+  if (D == 8) PMCE_CA_FWD(false, 8)
+  if (D == 16) PMCE_CA_FWD(false, 16)
+  PMCE_CA_FWD(false, 32)
+#undef PMCE_CA_FWD
+}
+
 namespace cab {
 
-constexpr int CL = 4;          // CTAs of a clip's cluster
-constexpr int NTH = 256;       // 8 warps
-constexpr int NW = NTH / 32;
-constexpr int CW = 64;         // C
-constexpr int LD = CW + 8;     // bf16 row stride of the [rows, 64] tiles
-constexpr int RT = 128;        // long-side rows of a CTA (a warp's 16 each)
-constexpr int ST = 64;         // short-side rows
-constexpr int MAX_HID = 256;
-constexpr int MAXH = 8;        // heads (head width 8)
+using namespace tile;
+
 constexpr int NSTAMP = 8;      // loads, MLP^T, norm2, proj^T, dq, dk dv,
                                // q/k/v^T + norms, cluster sums
 
@@ -165,303 +613,6 @@ struct Args {
   long long* stamps;                    // [clips * CL, NSTAMP] or null
 };
 
-template <bool ON>
-struct StageClock {
-  long long acc[NSTAMP];
-  long long last;
-  __device__ __forceinline__ void start() {
-    if constexpr (ON) {
-      for (int i = 0; i < NSTAMP; ++i) acc[i] = 0;
-      last = clock64();
-    }
-  }
-  __device__ __forceinline__ void operator()(int kind) {
-    if constexpr (ON) {
-      __syncthreads();
-      const long long t = clock64();
-      acc[kind] += t - last;
-      last = t;
-    }
-  }
-  __device__ __forceinline__ void write(long long* out) {
-    if constexpr (ON) {
-      if (threadIdx.x == 0)
-        for (int i = 0; i < NSTAMP; ++i) out[i] = acc[i];
-    }
-  }
-};
-
-__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
-// d += a (16 x 8, row) * b (8 x 8, col): the head width 8's products.
-__device__ __forceinline__ void mma_k8(float (&d)[4], const unsigned (&a)[2],
-                                       unsigned b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b0));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// acc[16, 64] += A[16, 64] @ W^T for W a [64 (n), 64 (k)] block at row
-// stride ldw: W^T's B fragments read from W's own rows (no .trans).
-// Accumulator layout: acc[j][e], n8 tile j, rows g (e < 2) and g + 8,
-// columns j * 8 + 2 tq + (e & 1).
-__device__ __forceinline__ void gemm16x64(float (&acc)[8][4], const bf16* A,
-                                          int lda, const bf16* W, int ldw) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < CW; kk += 16) {
-    unsigned af[4];
-    ldsm_x4(af, A + (lane & 15) * lda + kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      unsigned bf[4];
-      ldsm_x4(bf, W + (nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldw +
-                      kk + ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * nb], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * nb + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&v)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[j][e] = 0.f;
-}
-
-// acc[t] (keys or queries n0 + 8t ..) += A[16, D] . B[16, D]^T: A and B rows
-// of a head's D columns at row strides lda, ldb.
-template <int D>
-__device__ __forceinline__ void dot_nt(float (&acc)[2][4], const bf16* A,
-                                       int lda, const bf16* B, int ldb) {
-  const int lane = threadIdx.x & 31;
-  if constexpr (D == 8) {
-    unsigned af[2], bf[2];
-    ldsm_x2(af, A + (lane & 15) * lda);
-    ldsm_x2(bf, B + (lane & 15) * ldb);
-    mma_k8(acc[0], af, bf[0]);
-    mma_k8(acc[1], af, bf[1]);
-  } else {
-#pragma unroll
-    for (int s = 0; s < D; s += 16) {
-      unsigned af[4], bf[4];
-      ldsm_x4(af, A + (lane & 15) * lda + s + (lane >> 4) * 8);
-      ldsm_x4(bf, B + ((lane & 7) + ((lane >> 4) << 3)) * ldb + s +
-                      ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[0], af, bf[0], bf[1]);
-      mma_bf16(acc[1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[16, D] += P (the A fragments of a 16 x 16 block) @ B[16, D], B rows
-// at row stride ldb ([k, n] order: ldmatrix .trans).
-template <int D>
-__device__ __forceinline__ void dot_pn(float (&acc)[D / 8][4],
-                                       const unsigned (&pa)[4], const bf16* B,
-                                       int ldb) {
-  const int lane = threadIdx.x & 31;
-  if constexpr (D == 8) {
-    unsigned bf[2];
-    ldsm_x2_t(bf, B + (lane & 15) * ldb);
-    mma_bf16(acc[0], pa, bf[0], bf[1]);
-  } else {
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      unsigned bf[4];
-      ldsm_x4_t(bf, B + (lane & 15) * ldb + dp * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * dp], pa, bf[0], bf[1]);
-      mma_bf16(acc[2 * dp + 1], pa, bf[2], bf[3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void pack_a(unsigned (&pa)[4],
-                                       const float (&v)[2][4]) {
-  pa[0] = pack_bf2(v[0][0], v[0][1]);
-  pa[1] = pack_bf2(v[0][2], v[0][3]);
-  pa[2] = pack_bf2(v[1][0], v[1][1]);
-  pa[3] = pack_bf2(v[1][2], v[1][3]);
-}
-
-// AdaLN backward (attention_ops.cuh's adaln_bwd_kernel) of a warp's 16
-// rows held in accumulator layout: x (f32, overwritten by x - mean), dy (the
-// gradient of the norm's output, overwritten by dx without a residual), gm
-// the clip's gamma at the lane's columns; the lane's dgamma (dy * xhat) and
-// dbeta (dy) terms of its valid rows added to cg, cb.
-__device__ __forceinline__ void adaln_bwd_frag(float (&dy)[8][4],
-                                               float (&x)[8][4],
-                                               const float (&gm)[8][2],
-                                               float eps, bool v0, bool v1,
-                                               float (&cg)[8][2],
-                                               float (&cb)[8][2]) {
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const bool valid = hf ? v1 : v0;
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s += x[j][2 * hf] + x[j][2 * hf + 1];
-    const float mean = quad_sum(s) * (1.0f / CW);
-    float q = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float u = x[j][2 * hf + e] - mean;
-        x[j][2 * hf + e] = u;
-        q += u * u;
-      }
-    const float sigma = sqrtf(quad_sum(q) * (1.0f / (CW - 1)));
-    const float inv = 1.0f / (sigma + eps);
-    float sp = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        sp += dy[j][2 * hf + e] * gm[j][e] * x[j][2 * hf + e];
-    const float coef = inv * inv * quad_sum(sp) * (1.0f / (CW - 1)) /
-                       fmaxf(sigma, 1e-20f);
-    float sd = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float d = dy[j][2 * hf + e], u = x[j][2 * hf + e];
-        if (valid) {
-          cg[j][e] += d * (u * inv);
-          cb[j][e] += d;
-        }
-        const float du = d * gm[j][e] * inv - u * coef;
-        dy[j][2 * hf + e] = du;
-        sd += du;
-      }
-    const float mdu = quad_sum(sd) * (1.0f / CW);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      dy[j][2 * hf] -= mdu;
-      dy[j][2 * hf + 1] -= mdu;
-    }
-  }
-}
-
-// Column sums of the lane's per-column terms over the warp's rows, into
-// dst[64] (lanes 0-3 write).
-__device__ __forceinline__ void warp_cols(const float (&v)[8][2], float* dst) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float s = v[j][e];
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      if (lane < 4) dst[j * 8 + 2 * lane + e] = s;
-    }
-}
-
-// The warps' column partials (wpt [warp][2][64]) added in warp order into
-// vp[idx], vp[idx + 1]; the warps' scalar partials (wpm [warp][2]) into the
-// mask gradients' slots when `masks`.
-__device__ __forceinline__ void fold(float* vp, const float* wpt,
-                                     const float* wpm, int idx, bool masks) {
-  __syncthreads();
-  const int tid = threadIdx.x;
-  if (tid < 2 * CW) {
-    float s = 0.f;
-    for (int w = 0; w < NW; ++w) s += wpt[(w * 2 + tid / CW) * CW + tid % CW];
-    vp[idx * CW + tid] += s;
-  } else if (masks && tid < 2 * CW + 2) {
-    const int i = tid - 2 * CW;
-    float s = 0.f;
-    for (int w = 0; w < NW; ++w) s += wpm[w * 2 + i];
-    vp[8 * CW + i] += s;
-  }
-  __syncthreads();
-}
-
-// Values of an [rows, 64] matrix at the accumulator positions of a warp's
-// 16 rows (zeros past `valid` rows): f32 or bf16 sources.
-__device__ __forceinline__ void load_frag(float (&v)[8][4], const float* p,
-                                          size_t row0, bool v0, bool v1) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const bool ok = hf ? v1 : v0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float2 x = make_float2(0.f, 0.f);
-      if (ok)
-        x = *reinterpret_cast<const float2*>(
-            p + (row0 + g + 8 * hf) * CW + j * 8 + 2 * tq);
-      v[j][2 * hf] = x.x;
-      v[j][2 * hf + 1] = x.y;
-    }
-  }
-}
-__device__ __forceinline__ void load_frag(float (&v)[8][4], const bf16* p,
-                                          size_t row0, bool v0, bool v1) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const bool ok = hf ? v1 : v0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float2 x = make_float2(0.f, 0.f);
-      if (ok)
-        x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            p + (row0 + g + 8 * hf) * CW + j * 8 + 2 * tq));
-      v[j][2 * hf] = x.x;
-      v[j][2 * hf + 1] = x.y;
-    }
-  }
-}
-
-// A clip's gamma at the lane's columns.
-__device__ __forceinline__ void load_gamma(float (&gm)[8][2], const float* p) {
-  const int tq = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    gm[j][0] = p[j * 8 + 2 * tq];
-    gm[j][1] = p[j * 8 + 2 * tq + 1];
-  }
-}
-
-// The bf16 rounding of a warp's accumulator rows into the tile `t` (row
-// stride LD) and, for valid rows, into dst's rows row0 .. (null: none).
-__device__ __forceinline__ void store_bf(const float (&v)[8][4], bf16* t,
-                                         bf16* dst, size_t row0, bool v0,
-                                         bool v1) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = j * 8 + 2 * tq;
-      const unsigned pk = pack_bf2(v[j][2 * hf], v[j][2 * hf + 1]);
-      *reinterpret_cast<unsigned*>(t + (g + 8 * hf) * LD + c) = pk;
-      if (dst && (hf ? v1 : v0))
-        *reinterpret_cast<unsigned*>(dst + (row0 + g + 8 * hf) * CW + c) = pk;
-    }
-}
-
 // One input's side of the attention's projections: dn = dX @ W^T from the
 // warp's 16 bf16 rows of dX in `t`, the AdaLN backward against the input
 // rows x (bf16) and gamma, plus the residual res (f32 rows at row stride
@@ -502,18 +653,6 @@ __device__ __forceinline__ void proj_norm_bwd(const bf16* t, const bf16* W,
   warp_cols(cb, wdst + CW);
 }
 
-// Rows [0, n) of an [*, 64] bf16 matrix from row r0 into a tile (row
-// stride LD), zeros up to the next multiple of 16.
-__device__ __forceinline__ void load_rows(bf16* t, const bf16* src, size_t r0,
-                                          int n) {
-  const int n16 = (n + 15) / 16 * 16;
-  for (int c = threadIdx.x; c < n16 * 8; c += NTH) {
-    const int r = c / 8, cc = c % 8 * 8;
-    cp_async16(t + r * LD + cc, src + (r0 + (r < n ? r : 0)) * CW + cc,
-               r < n);
-  }
-}
-
 template <bool PROF, int D>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
     ca_bwd_tile_kernel(const Args a) {
@@ -542,7 +681,7 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
   float* vp = reinterpret_cast<float*>(smem + OFF_VP);
   float* wpt = reinterpret_cast<float*>(smem + OFF_WPT);
   float* wpm = reinterpret_cast<float*>(smem + OFF_WPM);
-  StageClock<PROF> clk;
+  StageClock<PROF, NSTAMP> clk;
   clk.start();
 
   // The long side (the larger of Nq, Nk) in quarters of whole 16-row
@@ -706,7 +845,7 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
       wpm[warp * 2] = dm1w;
       wpm[warp * 2 + 1] = dm2w;
     }
-    fold(vp, wpt, wpm, V_2, masks);
+    fold(vp, wpt, wpm, V_2, masks, 8 * CW);
   }
   clk(2);
   if (wq_on) {
@@ -785,7 +924,7 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
         }
       unsigned pa[4];
       pack_a(pa, ds);
-      dot_pn<D>(dq, pa, Ks + kb * LD + h * D, LD);
+      dot_pn<D>(dq, 0, pa, Ks + kb * LD + h * D, LD);
     }
 #pragma unroll
     for (int d = 0; d < D / 8; ++d)
@@ -836,8 +975,8 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
       unsigned pa[4], pb[4];
       pack_a(pa, pt);
       pack_a(pb, dst);
-      dot_pn<D>(dv, pa, DOs + qb * LD + h * D, LD);
-      dot_pn<D>(dk, pb, Qs + qb * LD + h * D, LD);
+      dot_pn<D>(dv, 0, pa, DOs + qb * LD + h * D, LD);
+      dot_pn<D>(dk, 0, pb, Qs + qb * LD + h * D, LD);
     }
 #pragma unroll
     for (int d = 0; d < D / 8; ++d)
@@ -874,7 +1013,7 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
                     wpt + warp * 2 * CW);
     else
       for (int i = lane; i < 2 * CW; i += 32) wpt[warp * 2 * CW + i] = 0.f;
-    fold(vp, wpt, wpm, V_Q, false);
+    fold(vp, wpt, wpm, V_Q, false, 0);
   } else {
     // The keys: dk @ Wk^T, normk's backward; dv @ Wv^T, normv's.
     const int kr = warp * 16;
@@ -888,7 +1027,7 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
                       wpt + warp * 2 * CW);
       else
         for (int i = lane; i < 2 * CW; i += 32) wpt[warp * 2 * CW + i] = 0.f;
-      fold(vp, wpt, wpm, t ? V_V : V_K, false);
+      fold(vp, wpt, wpm, t ? V_V : V_K, false, 0);
     }
   }
   clk(6);
@@ -926,7 +1065,7 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
         else
           for (int i = lane; i < 2 * CW; i += 32)
             wpt[warp * 2 * CW + i] = 0.f;
-        fold(vp, wpt, wpm, t ? V_V : V_K, false);
+        fold(vp, wpt, wpm, t ? V_V : V_K, false, 0);
       }
     } else {
       // dq of the queries (the short side) over the four CTAs' keys: x
@@ -950,7 +1089,7 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
                       wpt + warp * 2 * CW);
       else
         for (int i = lane; i < 2 * CW; i += 32) wpt[warp * 2 * CW + i] = 0.f;
-      fold(vp, wpt, wpm, V_Q, false);
+      fold(vp, wpt, wpm, V_Q, false, 0);
     }
     // The per-clip vectors over the cluster, in rank order.
     const size_t bc = (size_t)a.clips * CW;
@@ -968,7 +1107,7 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
   }
   cluster.sync();  // the other CTAs' shared memory stays until rank 0 is done
   clk(7);
-  clk.write(a.stamps + (size_t)blockIdx.x * NSTAMP);
+  clk.write(a.stamps);
 }
 
 constexpr int WG = 64;  // the weight launch's output tiles, WG x WG
@@ -1072,6 +1211,15 @@ extern "C" int pmce_ca_wgrad(void* const* ptrs, int clips, int Nq, int Nk,
   return wg::launch_wgrad<WG>(a, {Mq, Mk, Mk, Mq, Mq, Mq},
                               {C, C, C, C, C, hid}, {C, C, C, C, hid, C},
                               splits, 0, static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of the forward's (fwd != 0) or the backward's tile program the
+// card holds at once (a clip each), or minus a CUDA error code.
+extern "C" int pmce_ca_tile_clusters(int fwd) {
+  return fwd ? tile::max_active_clusters(caf::ca_fwd_tile_kernel<false, 32>,
+                                         caf::SMEM)
+             : tile::max_active_clusters(cab::ca_bwd_tile_kernel<false, 32>,
+                                         cab::SMEM);
 }
 
 PMCE_EXPORT_ERROR_STRING(pmce_ca_block_error_string)

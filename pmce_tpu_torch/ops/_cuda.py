@@ -219,15 +219,25 @@ MHSA = CudaLibrary("mhsa", "pmce_mhsa_error_string", {
     "pmce_mhsa_fwd": (I, (P, I, I, I, I, P)),
     "pmce_mhsa_bwd": (I, (P, I, I, I, I, P)),
 })
+# The AdaLN block's backward tile program: a table of its 30 pointers,
+# clips, N, hid, heads, eps, stream; its weight-gradient launch: a table of
+# 12 pointers, M, hid, splits, stream.
 ADA = CudaLibrary("ada_block", "pmce_ada_block_error_string", {
     "pmce_ada_block_workspace": (L, (I, I, I, I, I)),
     "pmce_ada_block_fwd": (I, (P, I, I, I, I, I, F, P)),
     "pmce_ada_block_bwd": (I, (P, I, I, I, I, I, F, P)),
+    "pmce_ada_bwd_tile": (I, (P, I, I, I, I, F, P)),
+    "pmce_ada_wgrad": (I, (P, I, I, I, P)),
+    "pmce_ada_tile_clusters": (I, ()),
 })
-# The CA block's backward: its tile program (a table of its 40 pointers,
-# clips, Nq, Nk, hid, heads, eps, stream) and its weight-gradient launch (a
-# table of 16 pointers, clips, Nq, Nk, hid, splits, stream).
+# The CA block: the forward's tile program (a table of its 42 pointers,
+# clips, Nq, Nk, hid, heads, eps, stream) and the launch sequence of the
+# shapes outside its gate; the backward's tile program (a table of its 40
+# pointers, clips, Nq, Nk, hid, heads, eps, stream) and its weight-gradient
+# launch (a table of 16 pointers, clips, Nq, Nk, hid, splits, stream).
 CA = CudaLibrary("ca_block", "pmce_ca_block_error_string", {
+    "pmce_ca_fwd_tile": (I, (P, I, I, I, I, I, F, P)),
+    "pmce_ca_tile_clusters": (I, (I,)),
     "pmce_ca_block_fwd": (I, (P, I, I, I, I, I, I, F, P)),
     "pmce_ca_bwd_tile": (I, (P, I, I, I, I, I, F, P)),
     "pmce_ca_wgrad": (I, (P, I, I, I, I, I, P)),

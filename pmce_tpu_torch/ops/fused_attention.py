@@ -1422,6 +1422,11 @@ ADA_FWD_LAUNCHES = _cuda.launch_counter("ada_block_fwd")
 ADA_BWD_LAUNCHES = _cuda.launch_counter("ada_block_bwd")
 CA_FWD_LAUNCHES = _cuda.launch_counter("ca_block_fwd")
 CA_BWD_LAUNCHES = _cuda.launch_counter("ca_block_bwd")
+# The launch sequences of the shapes outside rows 9 and 10's tile programs'
+# gates (:func:`ada_bwd_kernel_fits`, :func:`ca_bwd_kernel_fits`), counted
+# apart from the programs.
+ADA_BWD_SEQ_LAUNCHES = _cuda.launch_counter("ada_block_bwd_seq")
+CA_FWD_SEQ_LAUNCHES = _cuda.launch_counter("ca_block_fwd_seq")
 
 # Head widths the attention kernel is built for (attention_ops.cuh).
 _HEAD_DIMS = (8, 16, 32)
@@ -1551,7 +1556,30 @@ def fused_mhsa(x, wqkv, bqkv, wproj, bproj, num_heads: int):
                              num_heads)
 
 
-def _ada_fwd_cuda(x, gb, masks, params, num_heads, eps):
+class _AdaWeights(NamedTuple):
+    """The AdaLN block's matrices as its kernels take them: bf16 [in, out]
+    on the parameters' own storage where they are bf16 already."""
+    wqkv: torch.Tensor
+    wproj: torch.Tensor
+    w1: torch.Tensor
+    w2: torch.Tensor
+
+
+def _ada_weights(params, dev) -> _AdaWeights:
+    wqkv, _, wproj, _, w1, _, w2, _ = params
+    C, hid = wqkv.shape[0], w1.shape[1]
+    return _AdaWeights(_bf16_mat(wqkv, dev, C, 3 * C, "wqkv"),
+                       _bf16_mat(wproj, dev, C, C, "wproj"),
+                       _bf16_mat(w1, dev, C, hid, "w_fc1"),
+                       _bf16_mat(w2, dev, hid, C, "w_fc2"))
+
+
+def _ada_fwd_cuda(x, gb, masks, params, num_heads, eps,
+                  keep_branches: bool = False, w=None):
+    """The forward's launch sequence (``csrc/ada_block.cu``); returns (out,
+    saved). ``saved`` ends with the branches a and mo (f32) when
+    ``keep_branches`` (the mask gradients read them), else None twice.
+    ``w``: the :class:`_AdaWeights` already made, or None."""
     B, N, C = x.shape
     wqkv, bqkv, wproj, bproj, w1, bb1, w2, bb2 = params
     hid = w1.shape[1]
@@ -1559,6 +1587,7 @@ def _ada_fwd_cuda(x, gb, masks, params, num_heads, eps):
     _cuda.check_cuda(x, "x", torch.bfloat16, (B, N, C))
     dev, M = x.device, B * N
     bf16, f32 = torch.bfloat16, torch.float32
+    w = w or _ada_weights(params, dev)
 
     def buf(cols, dt):
         return torch.empty(M, cols, device=dev, dtype=dt)
@@ -1566,35 +1595,57 @@ def _ada_fwd_cuda(x, gb, masks, params, num_heads, eps):
     h1, qkv, o, x1, h2 = (buf(C, bf16), buf(3 * C, bf16), buf(C, bf16),
                           buf(C, f32), buf(C, bf16))
     hh, ge = buf(hid, f32), buf(hid, bf16)
+    a, mo = (buf(C, f32), buf(C, f32)) if keep_branches else (None, None)
     stats = torch.empty(2, B * num_heads * N, device=dev, dtype=f32)
     out = torch.empty_like(x)
     rows = [_f32_rows(t, dev, B, C, n)
             for t, n in zip(gb, ("gamma1", "beta1", "gamma2", "beta2"))]
     m1, m2 = (_mask_rows(m, B, dev) for m in masks)
     _cuda.ADA.call("pmce_ada_block_fwd", _cuda.ptr_table(
-        x, *rows, m1, m2, _bf16_mat(wqkv, dev, C, 3 * C, "wqkv"),
-        _f32_vec(bqkv, dev, 3 * C, "bqkv"),
-        _bf16_mat(wproj, dev, C, C, "wproj"),
-        _f32_vec(bproj, dev, C, "bproj"), _bf16_mat(w1, dev, C, hid, "w_fc1"),
-        _f32_vec(bb1, dev, hid, "b_fc1"), _bf16_mat(w2, dev, hid, C, "w_fc2"),
+        x, *rows, m1, m2, w.wqkv, _f32_vec(bqkv, dev, 3 * C, "bqkv"),
+        w.wproj, _f32_vec(bproj, dev, C, "bproj"), w.w1,
+        _f32_vec(bb1, dev, hid, "b_fc1"), w.w2,
         _f32_vec(bb2, dev, C, "b_fc2"), h1, qkv, o, stats[0], stats[1], x1,
-        h2, hh, ge, out), B, N, C, hid, num_heads, eps,
+        h2, hh, ge, out, a, mo), B, N, C, hid, num_heads, eps,
         _cuda.stream_ptr(dev))
     ADA_FWD_LAUNCHES.count += 1
-    return out, (rows[0], rows[2], m1, m2, h1, qkv, o, stats, x1, h2, hh, ge)
+    return out, (rows[0], rows[2], m1, m2, h1, qkv, o, stats, x1, h2, hh, ge,
+                 a, mo)
 
 
-def _ada_bwd_cuda(g, x, params, saved, num_heads, eps):
+# The backward's tile program (csrc/ada_block.cu): a cluster of 4 CTAs a
+# clip, each owning a quarter of its rows (at most 128), hid up to 256; the
+# weight launch's K splits, and the tile program's stamped stages.
+ADA_BWD_CLUSTER = 4
+_ADA_BWD_ROWS, _ADA_BWD_HID = 4 * 128, 256
+_ADA_WGRAD_SPLITS = 8
+ADA_BWD_STAGES = ("loads", "MLPᵀ", "norm2", "projᵀ + D", "attention dq",
+                  "cluster barrier", "attention dk dv", "qkvᵀ + norm1",
+                  "cluster sums")
+
+
+def ada_bwd_kernel_fits(N: int, C: int, hid: int) -> bool:
+    """The static shape test of the AdaLN block's backward tile program, on
+    top of :func:`attention_kernel_fits`: C = 64, hid up to 256, up to 512
+    tokens (four CTAs of 128 rows). Other shapes take the launch sequence
+    (``pmce_ada_block_bwd``)."""
+    return C == 64 and hid <= _ADA_BWD_HID and N <= _ADA_BWD_ROWS
+
+
+def _ada_bwd_seq(g, x, params, saved, num_heads, eps, need_masks):
+    """The backward's launch sequence (the shapes outside the tile
+    program's gate): transposed weight copies, the MLP half, the mask
+    gradients (a block per clip), the attention and AdaLN backwards, split-K
+    weight partials."""
     B, N, C = x.shape
-    wqkv, bqkv, wproj, bproj, w1, bb1, w2, bb2 = params
+    wqkv, _, wproj, _, w1, _, w2, _ = params
     hid = w1.shape[1]
     dev = x.device
-    g = g.to(torch.bfloat16).contiguous()
-    _cuda.check_cuda(g, "grad of the block output", torch.bfloat16,
-                     (B, N, C))
-    g1, g2, m1, m2, h1, qkv, o, stats, x1, h2, hh, ge = saved
+    g1, g2, m1, m2, h1, qkv, o, stats, x1, h2, hh, ge, a, mo = saved
     dx = torch.empty_like(x)
     dgb = torch.empty(4, B, C, device=dev, dtype=torch.float32)
+    dm1, dm2 = ((torch.empty(B, device=dev, dtype=torch.float32)
+                 for _ in range(2)) if need_masks else (None, None))
     grads = torch.empty(sum(t.numel() for t in params), device=dev,
                         dtype=torch.float32)
     ws = _workspace(_cuda.ADA, "pmce_ada_block_workspace", dev, B, N, C, hid,
@@ -1604,25 +1655,109 @@ def _ada_bwd_cuda(g, x, params, saved, num_heads, eps):
         _bf16_mat_t(wproj, dev, C, C, "wprojᵀ"),
         _bf16_mat_t(w1, dev, hid, C, "w_fc1ᵀ"),
         _bf16_mat_t(w2, dev, C, hid, "w_fc2ᵀ"), h1, qkv, o, stats[0],
-        stats[1], x1, h2, hh, ge, dx, dgb, grads, ws), B, N, C, hid,
-        num_heads, eps, _cuda.stream_ptr(dev))
+        stats[1], x1, h2, hh, ge, dx, dgb, grads, ws,
+        a if need_masks else None, mo if need_masks else None, dm1, dm2),
+        B, N, C, hid, num_heads, eps, _cuda.stream_ptr(dev))
+    ADA_BWD_SEQ_LAUNCHES.count += 1
+    return dx, dgb, grads, (dm1, dm2)
+
+
+def _ada_bwd_cuda(gout, x, params, saved, num_heads, eps,
+                  need_masks: bool = False, stamps=None, w=None):
+    """The backward of ``csrc/ada_block.cu``. Inside
+    :func:`ada_bwd_kernel_fits`, two launches: the tile program (a cluster
+    of 4 CTAs a clip: the activation-gradient chain, dx, the per-clip AdaLN
+    vectors' gradients, the mask gradients when ``need_masks``, and the
+    weight products' bf16 operands), then the four weight gradients and
+    the four bias gradients in one launch; the weights are read in their
+    [in, out] layout (no transposed copies). Outside it, the launch
+    sequence (:func:`_ada_bwd_seq`). Returns dx, dgb [4, B, C], the flat
+    parameter gradients and (dm1, dm2) (None without ``need_masks``).
+    ``stamps`` (int64 [B * 4, 9] on the card): run only the stamped tile
+    program (not counted) and return None. ``w``: the forward's
+    :class:`_AdaWeights` (not cast again), or None."""
+    B, N, C = x.shape
+    hid = params[4].shape[1]
+    dev = x.device
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = gout.to(bf16).contiguous()
+    _cuda.check_cuda(g, "grad of the block output", bf16, (B, N, C))
+    g1, g2, m1, m2, h1, qkv, o, stats, x1, h2, hh, ge, a, mo = saved
+    if need_masks and (a is None or mo is None):
+        raise ValueError("ada_block backward: the mask gradients need the "
+                         "forward's branches (keep_branches)")
+    if not ada_bwd_kernel_fits(N, C, hid):
+        return _ada_bwd_seq(g, x, params, saved, num_heads, eps, need_masks)
+    w = w or _ada_weights(params, dev)
+    M = B * N
+
+    def buf(cols, dt=bf16):
+        return torch.empty(M, cols, device=dev, dtype=dt)
+
+    dx = torch.empty_like(x)
+    m2g, dhh, da, dqkv, dout = (buf(C), buf(hid), buf(C), buf(3 * C),
+                                buf(C))
+    dsum = torch.empty(B * num_heads * N, device=dev, dtype=f32)
+    dgb = torch.empty(4, B, C, device=dev, dtype=f32)
+    dm1, dm2 = ((torch.empty(B, device=dev, dtype=f32) for _ in range(2))
+                if need_masks else (None, None))
+    tiles = 4 + 2 * (hid // 64)   # the weight launch's 64 x 64 tiles
+    counters = torch.empty(tiles, device=dev, dtype=torch.int32)
+    stream = _cuda.stream_ptr(dev)
+    _cuda.ADA.call("pmce_ada_bwd_tile", _cuda.ptr_table(
+        x, g, g1, g2, m1, m2, w.wqkv, w.wproj, w.w1, w.w2, qkv, o, stats[0],
+        stats[1], x1, hh, a if need_masks else None,
+        mo if need_masks else None, dx, m2g, dhh, da, dqkv, dout, dsum, dgb,
+        dm1, dm2, counters, stamps), B, N, hid, num_heads, eps, stream)
+    if stamps is not None:
+        return None
+    grads = torch.empty(sum(t.numel() for t in params), device=dev,
+                        dtype=f32)
+    partial = torch.empty(tiles * _ADA_WGRAD_SPLITS, 64 * 64, device=dev,
+                          dtype=f32)
+    vpartial = torch.empty(tiles * _ADA_WGRAD_SPLITS, 64, device=dev,
+                           dtype=f32)
+    _cuda.ADA.call("pmce_ada_wgrad", _cuda.ptr_table(
+        h1, o, h2, ge, dqkv, da, dhh, m2g, partial, vpartial, counters,
+        grads), M, hid, _ADA_WGRAD_SPLITS, stream)
     ADA_BWD_LAUNCHES.count += 1
-    return dx, dgb, grads
+    return dx, dgb, grads, (dm1, dm2)
+
+
+def ada_bwd_stage_split(gout, x, params, saved, num_heads: int,
+                        eps: float = 1e-6) -> dict:
+    """One stamped launch of the backward's tile program on the card (not
+    counted), from a forward's ``saved``: {stage: cycles summed over the
+    CTAs} for the stages of :data:`ADA_BWD_STAGES`, and ``"ctas"``."""
+    ctas = x.shape[0] * ADA_BWD_CLUSTER
+    stamps = torch.zeros(ctas, len(ADA_BWD_STAGES), dtype=torch.int64,
+                         device=x.device)
+    with torch.no_grad():
+        _ada_bwd_cuda(gout, x, params, saved, num_heads, eps, stamps=stamps)
+    total = stamps.sum(0).cpu().tolist()
+    return {**dict(zip(ADA_BWD_STAGES, total)), "ctas": ctas}
 
 
 class _AdaBlockKernel(torch.autograd.Function):
     """ada_block on the card: forward and backward are
-    ``csrc/ada_block.cu``. The branch masks are drawn, not learned: a mask
-    that requires grad is refused before this runs (:func:`ada_block`)."""
+    ``csrc/ada_block.cu`` (the backward: its tile program and its weight-
+    gradient launch, or the launch sequence outside the program's gate).
+    The branch masks get JAX's gradients (per-clip sums) where autograd
+    asks for them; the forward then keeps the branches they need."""
 
     @staticmethod
     def forward(ctx, x, gamma1, beta1, gamma2, beta2, m1, m2, num_heads,
-                eps, *params):
+                eps, grad_enabled, *params):
+        keep = _owed(ctx, grad_enabled, 5, 6)
+        w = _ada_weights(params, x.device)
         out, saved = _ada_fwd_cuda(x, (gamma1, beta1, gamma2, beta2),
-                                   (m1, m2), params, num_heads, eps)
+                                   (m1, m2), params, num_heads, eps, keep, w)
         ctx.cfg = (num_heads, eps, len(params))
+        ctx.weights = w
         ctx.gb = tuple((t.shape, t.dtype)
                        for t in (gamma1, beta1, gamma2, beta2))
+        ctx.masks = tuple(None if m is None else (m.shape, m.dtype)
+                          for m in (m1, m2))
         ctx.save_for_backward(x, *params, *saved)
         return out
 
@@ -1631,9 +1766,13 @@ class _AdaBlockKernel(torch.autograd.Function):
         num_heads, eps, n = ctx.cfg
         x, *rest = ctx.saved_tensors
         params, saved = rest[:n], rest[n:]
-        dx, dgb, flat = _ada_bwd_cuda(gout, x, params, saved, num_heads, eps)
+        need_masks = ctx.needs_input_grad[5] or ctx.needs_input_grad[6]
+        dx, dgb, flat, dms = _ada_bwd_cuda(gout, x, params, saved, num_heads,
+                                           eps, need_masks, w=ctx.weights)
         dgb = tuple(d.reshape(s).to(t) for d, (s, t) in zip(dgb, ctx.gb))
-        return (dx, *dgb, None, None, None, None,
+        dm = [None if m is None or not need_masks else
+              dms[i].reshape(m[0]).to(m[1]) for i, m in enumerate(ctx.masks)]
+        return (dx, *dgb, *dm, None, None, None,
                 *_split_grads(flat, params))
 
 
@@ -1642,22 +1781,19 @@ def ada_block(x, gamma1, beta1, gamma2, beta2, params, num_heads: int,
     """The AdaLN self-attention block with its gradient (see
     :func:`ada_block_plain`). CPU tensors run the plain version; CUDA
     tensors the kernels of ``csrc/ada_block.cu`` forward and backward
-    (bf16, any token count; widths :func:`attention_kernel_fits` refuses
-    raise)."""
+    (bf16, any token count: the backward's tile program inside
+    :func:`ada_bwd_kernel_fits`, its launch sequence outside; widths
+    :func:`attention_kernel_fits` refuses raise). Branch masks that require
+    grad get their gradients."""
     if not _on_card(x, "ada_block"):
         return ada_block_plain(x, gamma1, beta1, gamma2, beta2, params,
                                num_heads, eps, branch_masks)
     _attention_require("ada_block", x.shape[-1], num_heads,
                        params[4].shape[1])
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
-    if torch.is_grad_enabled() and any(m is not None and m.requires_grad
-                                       for m in (m1, m2)):
-        raise NotImplementedError(
-            "ada_block: the CUDA backward does not give the branch masks' "
-            "gradients (JAX's kernel does); they come with the redesign of "
-            "row 9 queued in ROADMAP.md, section B")
     return _AdaBlockKernel.apply(x.contiguous(), gamma1, beta1, gamma2,
-                                 beta2, m1, m2, num_heads, eps, *params)
+                                 beta2, m1, m2, num_heads, eps,
+                                 torch.is_grad_enabled(), *params)
 
 
 class _CaWeights(NamedTuple):
@@ -1682,12 +1818,30 @@ def _ca_weights(params, dev) -> _CaWeights:
                                                        "w_fc2"))
 
 
+# The CA block's tile programs (csrc/ca_block.cu), forward and backward: a
+# cluster of 4 CTAs a clip, the long side split in quarters of at most 128
+# rows, the short side whole in each (at most 64 rows), hid up to 256; the
+# backward's weight launch's K splits, and the programs' stamped stages.
+CA_BWD_CLUSTER = 4
+_CA_BWD_SHORT, _CA_BWD_LONG, _CA_BWD_HID = 64, 4 * 128, 256
+_CA_WGRAD_SPLITS = 8
+CA_BWD_STAGES = ("loads", "MLPᵀ", "norm2", "projᵀ", "attention dq",
+                 "attention dk dv", "q/k/v projᵀ + norms", "cluster sums")
+CA_FWD_STAGES = ("loads", "k/v norms + proj", "q norm + proj", "attention",
+                 "cluster merge", "proj, norm2, MLP")
+
+
 def _ca_fwd_cuda(xs, gammas, betas, masks, params, num_heads, eps,
-                 keep_branches: bool = False, w=None):
-    """The forward's launch sequence; returns (out, saved). ``saved`` ends
-    with the branches a and mo (f32) when ``keep_branches`` (the mask
-    gradients read them), else None twice. ``w``: the :class:`_CaWeights`
-    already made, or None."""
+                 keep_branches: bool = False, w=None, for_grad: bool = True,
+                 stamps=None):
+    """The forward; returns (out, saved). Inside :func:`ca_bwd_kernel_fits`
+    one launch of the tile program (``pmce_ca_fwd_tile``), which writes the
+    state the backward reads only with ``for_grad`` (else ``saved`` holds
+    None there); outside it the launch sequence (``pmce_ca_block_fwd``),
+    which writes it always. ``saved`` ends with the branches a and mo (f32)
+    when ``keep_branches`` (the mask gradients read them), else None twice.
+    ``w``: the :class:`_CaWeights` already made, or None. ``stamps`` (int64
+    [B * 4, 6] on the card): the stamped tile program, not counted."""
     xq, xk, xv = xs
     B, Nq, C = xq.shape
     Nk = xk.shape[1]
@@ -1700,56 +1854,76 @@ def _ca_fwd_cuda(xs, gammas, betas, masks, params, num_heads, eps,
     dev = xq.device
     bf16, f32 = torch.bfloat16, torch.float32
     w = w or _ca_weights(params, dev)
+    tile = ca_bwd_kernel_fits(Nq, Nk, C, hid)
+    save = for_grad or not tile
 
-    def buf(rows, cols, dt):
-        return torch.empty(rows, cols, device=dev, dtype=dt)
+    def buf(rows, cols, dt, wanted=True):
+        return torch.empty(rows, cols, device=dev, dtype=dt) if wanted \
+            else None
 
     Mq, Mk = B * Nq, B * Nk
-    nq, nk, nv = buf(Mq, C, bf16), buf(Mk, C, bf16), buf(Mk, C, bf16)
-    q, k, v = buf(Mq, C, bf16), buf(Mk, C, bf16), buf(Mk, C, bf16)
-    o, x1, h2 = buf(Mq, C, bf16), buf(Mq, C, f32), buf(Mq, C, bf16)
-    hh, ge = buf(Mq, hid, f32), buf(Mq, hid, bf16)
-    a, mo = ((buf(Mq, C, f32), buf(Mq, C, f32)) if keep_branches
-             else (None, None))
-    stats = torch.empty(2, B * num_heads * Nq, device=dev, dtype=f32)
+    nq, nk, nv = (buf(Mq, C, bf16, save), buf(Mk, C, bf16, save),
+                  buf(Mk, C, bf16, save))
+    q, k, v = (buf(Mq, C, bf16, save), buf(Mk, C, bf16, save),
+               buf(Mk, C, bf16, save))
+    o, x1, h2 = (buf(Mq, C, bf16, save), buf(Mq, C, f32, save),
+                 buf(Mq, C, bf16, save))
+    hh, ge = buf(Mq, hid, f32, save), buf(Mq, hid, bf16, save)
+    a, mo = buf(Mq, C, f32, keep_branches), buf(Mq, C, f32, keep_branches)
+    stats = buf(2, B * num_heads * Nq, f32, save)
+    sm, sl = (stats[0], stats[1]) if save else (None, None)
     out = torch.empty_like(xq)
     conds = []
     for i, name in enumerate(("q", "k", "v", "2")):
         conds += [_f32_rows(gammas[i], dev, B, C, f"gamma {name}"),
                   _f32_rows(betas[i], dev, B, C, f"beta {name}")]
     m1, m2 = (_mask_rows(m, B, dev) for m in masks)
-    vecs = [_f32_vec(b, dev, C, n)
-            for b, n in ((bq, "bq"), (bk, "bk"), (bv, "bv"),
-                         (bproj, "bproj"))]
-    mats = (w.wq, w.wk, w.wv, w.wproj)
-    _cuda.CA.call("pmce_ca_block_fwd", _cuda.ptr_table(
-        xq, xk, xv, *conds, m1, m2,
-        *(t for pair in zip(mats, vecs) for t in pair),
-        w.w1, _f32_vec(bb1, dev, hid, "b_fc1"), w.w2,
-        _f32_vec(bb2, dev, C, "b_fc2"), nq, nk, nv, q, k, v, o, stats[0],
-        stats[1], x1, h2, hh, ge, out, a, mo),
-        B, Nq, Nk, C, hid, num_heads, eps, _cuda.stream_ptr(dev))
-    CA_FWD_LAUNCHES.count += 1
+    vecs = [_f32_vec(b, dev, n, name)
+            for b, n, name in ((bq, C, "bq"), (bk, C, "bk"), (bv, C, "bv"),
+                               (bproj, C, "bproj"), (bb1, hid, "b_fc1"),
+                               (bb2, C, "b_fc2"))]
+    stream = _cuda.stream_ptr(dev)
+    if tile:
+        _cuda.CA.call("pmce_ca_fwd_tile", _cuda.ptr_table(
+            xq, xk, xv, *conds, m1, m2, *w, *vecs, out, nq, nk, nv, q, k, v,
+            o, sm, sl, x1, h2, hh, ge, a, mo, stamps),
+            B, Nq, Nk, hid, num_heads, eps, stream)
+        if stamps is None:
+            CA_FWD_LAUNCHES.count += 1
+    else:
+        mats = (w.wq, w.wk, w.wv, w.wproj)
+        _cuda.CA.call("pmce_ca_block_fwd", _cuda.ptr_table(
+            xq, xk, xv, *conds, m1, m2,
+            *(t for pair in zip(mats, vecs) for t in pair), w.w1, vecs[4],
+            w.w2, vecs[5], nq, nk, nv, q, k, v, o, sm, sl, x1, h2, hh, ge,
+            out, a, mo), B, Nq, Nk, C, hid, num_heads, eps, stream)
+        CA_FWD_SEQ_LAUNCHES.count += 1
     return out, (*conds[0::2], m1, m2, nq, nk, nv, q, k, v, o, stats, x1,
                  h2, hh, ge, a, mo)
 
 
-# The backward's tile program (csrc/ca_block.cu): a cluster of 4 CTAs a
-# clip, the long side split in quarters of at most 128 rows, the short side
-# whole in each (at most 64 rows), hid up to 256; the weight launch's K
-# splits, and the tile program's stamped stages.
-CA_BWD_CLUSTER = 4
-_CA_BWD_SHORT, _CA_BWD_LONG, _CA_BWD_HID = 64, 4 * 128, 256
-_CA_WGRAD_SPLITS = 8
-CA_BWD_STAGES = ("loads", "MLPᵀ", "norm2", "projᵀ", "attention dq",
-                 "attention dk dv", "q/k/v projᵀ + norms", "cluster sums")
+def ca_fwd_stage_split(xs, gammas, betas, params, num_heads: int,
+                       eps: float = 1e-6, branch_masks=None) -> dict:
+    """One stamped launch of the forward's tile program on the card (not
+    counted), saving as for a gradient: {stage: cycles summed over the
+    CTAs} for the stages of :data:`CA_FWD_STAGES`, and ``"ctas"``."""
+    masks = branch_masks if branch_masks is not None else (None, None)
+    ctas = xs[0].shape[0] * CA_BWD_CLUSTER
+    stamps = torch.zeros(ctas, len(CA_FWD_STAGES), dtype=torch.int64,
+                         device=xs[0].device)
+    with torch.no_grad():
+        _ca_fwd_cuda(xs, gammas, betas, masks, params, num_heads, eps,
+                     stamps=stamps)
+    total = stamps.sum(0).cpu().tolist()
+    return {**dict(zip(CA_FWD_STAGES, total)), "ctas": ctas}
 
 
 def ca_bwd_kernel_fits(Nq: int, Nk: int, C: int, hid: int) -> bool:
-    """The static shape test of the CA block's backward tile program, on
-    top of :func:`attention_kernel_fits`: C = 64, hid up to 256, the short
-    side (the smaller of Nq, Nk) up to 64 rows and the long side up to 512
-    (four CTAs of 128 rows)."""
+    """The static shape test of the CA block's tile programs, forward and
+    backward, on top of :func:`attention_kernel_fits`: C = 64, hid up to
+    256, the short side (the smaller of Nq, Nk) up to 64 rows and the long
+    side up to 512 (four CTAs of 128 rows). The forward takes other shapes
+    through its launch sequence; the backward refuses them."""
     return (C == 64 and hid <= _CA_BWD_HID
             and min(Nq, Nk) <= _CA_BWD_SHORT and max(Nq, Nk) <= _CA_BWD_LONG)
 
@@ -1843,7 +2017,8 @@ class _CaBlockKernel(torch.autograd.Function):
         keep = _owed(ctx, grad_enabled, 3, 4)
         w = _ca_weights(params, xq.device)
         out, saved = _ca_fwd_cuda((xq, xk, xv), gammas, betas, (m1, m2),
-                                  params, num_heads, eps, keep, w)
+                                  params, num_heads, eps, keep, w,
+                                  _owed(ctx, grad_enabled))
         ctx.cfg = (num_heads, eps)
         ctx.weights = w
         # Per-clip vectors' gradients come back in the order gq, bq, gk,
@@ -1877,8 +2052,11 @@ def ca_block(xq, xk, xv, gammas, betas, params, num_heads: int,
              eps: float = 1e-6, branch_masks=None):
     """The AdaLN cross-attention block with its gradient (see
     :func:`ca_block_plain`). CPU tensors run the plain version; CUDA
-    tensors the kernels of ``csrc/ca_block.cu`` forward and backward (bf16,
-    any Nq and Nk; widths :func:`attention_kernel_fits` refuses raise)."""
+    tensors the kernels of ``csrc/ca_block.cu`` (bf16; widths
+    :func:`attention_kernel_fits` refuses raise): the forward's tile
+    program inside :func:`ca_bwd_kernel_fits`, its launch sequence for any
+    other Nq and Nk; the backward's tile program, whose gate a gradient
+    must meet."""
     if not _on_card(xq, "ca_block"):
         return ca_block_plain(xq, xk, xv, gammas, betas, params, num_heads,
                               eps, branch_masks)

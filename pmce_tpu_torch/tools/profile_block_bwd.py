@@ -1,11 +1,11 @@
-"""Where the lifter block (rows 6 and 7) and the decoder's cross-attention
-block backward (row 11) spend their time on the card.
+"""Where the lifter block (rows 6 and 7) and the decoder's AdaLN and
+cross-attention blocks (rows 8-11) spend their time on the card.
 
     python3 pmce_tpu_torch/tools/profile_block_bwd.py [--root DIR] [--tag T]
-        [--rows block,ca]
+        [--rows block,ca,ada]
 
 Imports ``pmce_tpu_torch`` from ``DIR`` (default: the tree this script is
-in; an unpacked earlier commit, say) and builds its block library. At the
+in; an unpacked earlier commit, say) and builds its libraries. At the
 Stage-1 training step's two shapes, with the shared post-norm and f32
 weights as ``chip_smoke.py``'s ``block_case`` makes them:
 ``[1024, 17, 256]`` (block 0's spatial half, no masks) and
@@ -28,12 +28,22 @@ the tiles, and the cycles a tile). Every
 line starts with ``[TAG]`` and the card's name and power limit are printed
 first, so that two trees' runs in one call can be told apart.
 
-``--rows ca`` adds the cross-attention block's backward wrapper
-``_ca_bwd_cuda`` (row 11) at the Stage-2 step's two orientations, batch 32,
-C = 64, hid = 256, drop-path masks at rate 0.2: joints over vertices
-(17 queries, 431 keys, 8 heads) and vertices over joints (431 over 17, 2
-heads), with the same four readings; where the tree has the backward's
-tile program, its stage split (``ca_bwd_stage_split``).
+``--rows ca`` adds the cross-attention block (rows 10 and 11) at the
+Stage-2 step's two orientations, batch 32, C = 64, hid = 256, drop-path
+masks at rate 0.2: joints over vertices (17 queries, 431 keys, 8 heads)
+and vertices over joints (431 over 17, 2 heads): the forward wrapper
+``_ca_fwd_cuda`` (saving, as for a gradient) and the backward wrapper
+``_ca_bwd_cuda`` with the same four readings, and ``autograd ms``: CUDA
+events around 20 calls of what the training step runs, ``ca_block`` with
+grad (``fwd``) or ``torch.autograd.grad`` through it (``bwd``); where the
+tree has them, the tile programs' stage splits (``ca_fwd_stage_split``,
+``ca_bwd_stage_split``). ``--rows ada`` the same for the AdaLN block (rows
+8 and 9) at the vertex stream's ``[32, 431, 64]``, 2 heads
+(``_ada_fwd_cuda``, ``_ada_bwd_cuda``, ``ada_block``,
+``ada_bwd_stage_split``). Where the tree has the tile programs, each one's
+device time at 24 clips and at 32 beside the clusters of 4 CTAs the card
+holds at once (``pmce_ca_tile_clusters``, ``pmce_ada_tile_clusters``):
+whether the batch runs in one wave.
 """
 
 from __future__ import annotations
@@ -50,7 +60,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="tree")
-    ap.add_argument("--rows", default="block,ca")
+    ap.add_argument("--rows", default="block,ca,ada")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import numpy as np
@@ -68,7 +78,6 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"{tag} {card}; pmce_tpu_torch from {fa.__file__}", flush=True)
-    _cuda.BLOCK.load()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2)
     C, hid = 256, 512
@@ -116,23 +125,34 @@ def main() -> int:
                 rows.append((t / n / 1e3, e.count // n, e.key))
         return sorted(rows, reverse=True)
 
-    def report(where, name, fn):
+    def report(where, name, fn, autograd=None):
         ms = events_ms(fn)
         hms = host_ms(fn)
         rows = kernels(fn)
         busy = sum(t for t, _, _ in rows)
+        with torch.enable_grad():
+            agm = (f", autograd {events_ms(autograd):.4f} ms"
+                   if autograd else "")
         print(f"{where} {name}: wrapper {ms:.4f} ms, host {hms:.4f} ms, "
               f"kernels {busy:.4f} ms in {sum(c for _, c, _ in rows)} "
-              "launches", flush=True)
+              f"launches{agm}", flush=True)
         for t, cnt, key in rows:
             print(f"{where} {name}:   {t:8.4f} ms {cnt:3d}x {key[:100]}",
                   flush=True)
 
     rows_wanted = args.rows.split(",")
+    def tile_ms(fn, name):
+        return sum(t for t, _, key in kernels(fn) if name in key)
+
     if "ca" in rows_wanted:
-        profile_ca(tag, dev, rng, report)
+        _cuda.CA.load()
+        profile_ca(tag, dev, rng, report, tile_ms)
+    if "ada" in rows_wanted:
+        _cuda.ADA.load()
+        profile_ada(tag, dev, rng, report, tile_ms)
     if "block" not in rows_wanted:
         return 0
+    _cuda.BLOCK.load()
     for label, clips, N, rate in (("spatial", 1024, 17, 0.0),
                                   ("temporal", 1088, 16, 0.2)):
         params = (r(C, scale=0.1, offset=1.0), r(C, scale=0.1),
@@ -185,11 +205,41 @@ def main() -> int:
     return 0
 
 
-def profile_ca(tag, dev, rng, report) -> None:
-    """Row 11 at the Stage-2 step's two orientations (see the module
-    docstring)."""
+# A batch within the clusters of 4 CTAs an H100 SXM holds at once (30, as
+# `pmce_ca_tile_clusters` reads it): one wave of the tile programs.
+WAVE_CLIPS = 24
+
+
+def _waves(where, clusters, what, n, t_n, B, t_B) -> None:
+    """The tile program's device time at n clips (one wave) and at B."""
+    print(f"{where} {what} tile program: {clusters} clusters of 4 CTAs "
+          f"co-resident; {n} clips {t_n:.4f} ms ({-(-n // clusters)} "
+          f"wave), {B} clips {t_B:.4f} ms ({-(-B // clusters)} waves)",
+          flush=True)
+
+
+def _split_line(where, what, split, stages) -> None:
+    total = sum(split[k] for k in stages)
+    print(f"{where} {what}: {split['ctas']} CTAs, "
+          f"{total / split['ctas']:.0f} cycles a CTA; "
+          + ", ".join(f"{k} {split[k] / total:.1%}" for k in stages),
+          flush=True)
+
+
+def _masks(rng, dev, B):
     import torch
 
+    return tuple(torch.from_numpy(((rng.random((B, 1, 1)) < 0.8) / 0.8)
+                                  .astype("float32")).to(dev)
+                 for _ in range(2))
+
+
+def profile_ca(tag, dev, rng, report, tile_ms) -> None:
+    """Rows 10 and 11 at the Stage-2 step's two orientations (see the
+    module docstring)."""
+    import torch
+
+    from pmce_tpu_torch.ops import _cuda
     from pmce_tpu_torch.ops import fused_attention as fa
 
     B, c, hid = 32, 64, 256
@@ -200,10 +250,7 @@ def profile_ca(tag, dev, rng, report) -> None:
 
     for label, Nq, Nk, heads in (("joints over vertices", 17, 431, 8),
                                  ("vertices over joints", 431, 17, 2)):
-        keep = 0.8
-        masks = tuple(torch.from_numpy(((rng.random((B, 1, 1)) < keep)
-                                        / keep).astype("float32")).to(dev)
-                      for _ in range(2))
+        masks = _masks(rng, dev, B)
         xs = (r(B, Nq, c, scale=1.0, dtype=torch.bfloat16),
               r(B, Nk, c, scale=1.0, dtype=torch.bfloat16),
               r(B, Nk, c, scale=1.0, dtype=torch.bfloat16))
@@ -213,21 +260,114 @@ def profile_ca(tag, dev, rng, report) -> None:
             params += [r(i, o, scale=i ** -0.5), r(o, scale=0.02)]
         g = r(B, Nq, c, scale=1.0, dtype=torch.bfloat16)
         where = f"{tag} ca {label} [{B}, {Nq}, {c}] over {Nk}, {heads} heads"
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (*xs, *conds, *params)]
+
+        def call():
+            return fa.ca_block(*leaves[:3], leaves[3:11:2], leaves[4:11:2],
+                               leaves[11:], heads, 1e-6, masks)
+
+        with torch.enable_grad():
+            y = call()
         with torch.no_grad():
-            _, saved = fa._ca_fwd_cuda(xs, conds[0::2], conds[1::2], masks,
+            def fwd():
+                return fa._ca_fwd_cuda(xs, conds[0::2], conds[1::2], masks,
                                        params, heads, 1e-6)
+
+            _, saved = fwd()
+            report(where, "fwd", fwd, call)
             report(where, "bwd", lambda: fa._ca_bwd_cuda(
-                g, xs, params, saved, heads, 1e-6))
+                g, xs, params, saved, heads, 1e-6),
+                lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
+            if hasattr(fa, "ca_fwd_stage_split"):
+                _split_line(where, "forward tile program",
+                            fa.ca_fwd_stage_split(xs, conds[0::2],
+                                                  conds[1::2], params, heads,
+                                                  1e-6, masks),
+                            fa.CA_FWD_STAGES)
             if hasattr(fa, "ca_bwd_stage_split"):
-                split = fa.ca_bwd_stage_split(g, xs, params, saved, heads,
-                                              1e-6)
-                total = sum(split[k] for k in fa.CA_BWD_STAGES)
-                print(f"{where} tile program: {split['ctas']} CTAs, "
-                      f"{total / split['ctas']:.0f} cycles a CTA; "
-                      + ", ".join(f"{k} {split[k] / total:.1%}"
-                                  for k in fa.CA_BWD_STAGES), flush=True)
-        del saved, xs, g, params
+                _split_line(where, "tile program",
+                            fa.ca_bwd_stage_split(g, xs, params, saved,
+                                                  heads, 1e-6),
+                            fa.CA_BWD_STAGES)
+            if hasattr(fa, "ca_fwd_stage_split"):
+                n = WAVE_CLIPS
+                m24 = tuple(m[:n] for m in masks)
+                x24 = tuple(t[:n] for t in xs)
+                c24 = [t[:n] for t in conds]
+                _, s24 = fa._ca_fwd_cuda(x24, c24[0::2], c24[1::2], m24,
+                                         params, heads, 1e-6)
+                _waves(where, _cuda.CA.query("pmce_ca_tile_clusters", 1),
+                       "forward", n, tile_ms(lambda: fa._ca_fwd_cuda(
+                           x24, c24[0::2], c24[1::2], m24, params, heads,
+                           1e-6), "ca_fwd_tile"), B, tile_ms(fwd,
+                                                             "ca_fwd_tile"))
+                _waves(where, _cuda.CA.query("pmce_ca_tile_clusters", 0),
+                       "backward", n, tile_ms(lambda: fa._ca_bwd_cuda(
+                           g[:n], x24, params, s24, heads, 1e-6),
+                           "ca_bwd_tile"), B, tile_ms(lambda: fa._ca_bwd_cuda(
+                               g, xs, params, saved, heads, 1e-6),
+                               "ca_bwd_tile"))
+        del saved, xs, g, params, leaves, y
         torch.cuda.empty_cache()
+
+
+def profile_ada(tag, dev, rng, report, tile_ms) -> None:
+    """Rows 8 and 9 at the vertex stream's [32, 431, 64], 2 heads (see the
+    module docstring)."""
+    import torch
+
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    B, N, c, hid, heads = 32, 431, 64, 256, 2
+
+    def r(*shape, scale=0.2, offset=0.0, dtype=torch.float32):
+        a = rng.normal(size=shape) * scale + offset
+        return torch.from_numpy(a.astype("float32")).to(dev, dtype)
+
+    masks = _masks(rng, dev, B)
+    x = r(B, N, c, scale=1.0, dtype=torch.bfloat16)
+    conds = [r(B, c, scale=0.1, offset=1.0 - i % 2) for i in range(4)]
+    params = [r(c, 3 * c, scale=c ** -0.5), r(3 * c, scale=0.02),
+              r(c, c, scale=c ** -0.5), r(c, scale=0.02),
+              r(c, hid, scale=c ** -0.5), r(hid, scale=0.02),
+              r(hid, c, scale=hid ** -0.5), r(c, scale=0.02)]
+    g = r(B, N, c, scale=1.0, dtype=torch.bfloat16)
+    where = f"{tag} ada [{B}, {N}, {c}], {heads} heads"
+    leaves = [t.clone().requires_grad_(True) for t in (x, *conds, *params)]
+
+    def call():
+        return fa.ada_block(leaves[0], *leaves[1:5], leaves[5:], heads, 1e-6,
+                            masks)
+
+    with torch.enable_grad():
+        y = call()
+    with torch.no_grad():
+        def fwd():
+            return fa._ada_fwd_cuda(x, conds, masks, params, heads, 1e-6)
+
+        _, saved = fwd()
+        report(where, "fwd", fwd, call)
+        report(where, "bwd", lambda: fa._ada_bwd_cuda(
+            g, x, params, saved, heads, 1e-6),
+            lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
+        if hasattr(fa, "ada_bwd_stage_split"):
+            _split_line(where, "tile program",
+                        fa.ada_bwd_stage_split(g, x, params, saved, heads,
+                                               1e-6), fa.ADA_BWD_STAGES)
+            n = WAVE_CLIPS
+            m24 = tuple(m[:n] for m in masks)
+            c24 = [t[:n] for t in conds]
+            _, s24 = fa._ada_fwd_cuda(x[:n], c24, m24, params, heads, 1e-6)
+            _waves(where, _cuda.ADA.query("pmce_ada_tile_clusters"),
+                   "backward", n, tile_ms(lambda: fa._ada_bwd_cuda(
+                       g[:n], x[:n], params, s24, heads, 1e-6),
+                       "ada_bwd_tile"), B, tile_ms(lambda: fa._ada_bwd_cuda(
+                           g, x, params, saved, heads, 1e-6),
+                           "ada_bwd_tile"))
+    del saved, x, g, params, leaves, y
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -11,10 +11,10 @@ backward (row 11), and the branch masks' gradients, on the CPU.
   backward is the tile program then the weight-gradient launch, the six
   weights on the parameters' own pointers (no transposed copies), the mask
   gradients' pointers only where they are owed.
-- The CA block's mask gradients (``ca_block_plain``'s autograd) against
-  JAX's interpreted ``fused_ca_block`` VJP, f32 at 1e-4 of their largest
-  magnitude; ``ada_block`` on the card refuses a mask that requires grad
-  (its backward kernel does not give that gradient yet).
+- Both decoder blocks' mask gradients (``ca_block_plain``'s and
+  ``ada_block_plain``'s autograd) against JAX's interpreted
+  ``fused_ca_block`` and ``fused_ada_block`` VJPs, f32 at 1e-4 of their
+  largest magnitude.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from pmce_tpu.ops.fused_attention import fused_ca_block
+from pmce_tpu.ops.fused_attention import fused_ada_block, fused_ca_block
 from pmce_tpu_torch.ops import _cuda
 from pmce_tpu_torch.ops import fused_attention as fa
 from tests.test_torch_port_bwd_redesign import _bf16_block, _enter, _stubs
@@ -131,8 +131,8 @@ def test_block_forward_tiles_are_the_backward_tiles(N):
 
 
 # ---------------------------------------------------- row 11 on the card
-_CA_PTRS = {"pmce_ca_block_fwd": 41, "pmce_ca_bwd_tile": 40,
-            "pmce_ca_wgrad": 16}
+_CA_PTRS = {"pmce_ca_fwd_tile": 42, "pmce_ca_block_fwd": 41,
+            "pmce_ca_bwd_tile": 40, "pmce_ca_wgrad": 16}
 
 
 def _bf16_ca(B, Nq, Nk, H, C=64, hid=256, mask_grad=False):
@@ -160,9 +160,10 @@ def _bf16_ca(B, Nq, Nk, H, C=64, hid=256, mask_grad=False):
 def test_ca_backward_is_the_tile_program_and_one_weight_launch(Nq, Nk, H,
                                                                mask_grad):
     """The CA block's backward on the card: exactly the tile program, then
-    the weight-gradient launch, after the forward's one call; both read the
-    six bf16 weights on the parameters' own pointers (no transposed copy is
-    made: ``_bf16_mat_t`` is never called); the forward saves the branches
+    the weight-gradient launch, after the forward's one tile launch; both
+    read the six bf16 weights on the parameters' own pointers (no
+    transposed copy is made: ``_bf16_mat_t`` is never called); the forward
+    saves the branches
     a, mo and the tile program gets them and the dm1, dm2 outputs only when
     a mask needs its gradient; the weight launch's counters are the ones
     the tile program zeroes; counted once by ``ca_block_bwd``."""
@@ -176,14 +177,16 @@ def test_ca_backward_is_the_tile_program_and_one_weight_launch(Nq, Nk, H,
         y = fa.ca_block(*xs, tuple(conds[0::2]), tuple(conds[1::2]),
                         tuple(params), H, 1e-6, masks)
         y.backward(torch.zeros_like(y))
-    assert launches.names == ["pmce_ca_block_fwd", "pmce_ca_bwd_tile",
+    assert launches.names == ["pmce_ca_fwd_tile", "pmce_ca_bwd_tile",
                               "pmce_ca_wgrad"]
     (_, fwd, _), (_, tile, ints), (_, wg, wints) = launches.calls
     weights = [params[i].data_ptr() for i in (0, 2, 4, 6, 8, 10)]
     assert tile[10:16] == weights
-    assert [fwd[i] for i in (13, 15, 17, 19, 21, 23)] == weights
+    assert fwd[13:19] == weights
     assert bool(fwd[39]) == bool(fwd[40]) == mask_grad       # a, mo saved
     assert tile[24:26] == fwd[39:41]                          # read as saved
+    assert tile[16:20] == fwd[29:33]                          # q, k, v, o
+    assert fwd[41] == 0                                       # not stamped
     assert bool(tile[36]) == bool(tile[37]) == mask_grad     # dm1, dm2
     assert tile[39] == 0                                      # not stamped
     assert tile[38] == wg[14] != 0                            # counters
@@ -227,32 +230,6 @@ def test_ca_backward_refuses_what_its_tile_program_is_not_built_for():
     assert not fa.ca_bwd_kernel_fits(17, 431, 64, 320)
 
 
-def test_ada_block_refuses_a_mask_that_requires_grad_on_the_card():
-    """ada_block on the card: a branch mask that requires grad raises
-    (naming ROADMAP) instead of returning no gradient; masks that do not
-    still run the kernels."""
-    B, N, C, hid = 2, 17, 64, 256
-    rng = np.random.default_rng(3)
-
-    def r(*s, dtype=torch.float32):
-        return torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
-            dtype).requires_grad_(True)
-
-    x = r(B, N, C, dtype=torch.bfloat16)
-    gb = [r(B, C) for _ in range(4)]
-    params = (r(C, 3 * C), r(3 * C), r(C, C), r(C), r(C, hid), r(hid),
-              r(hid, C), r(C))
-    masks = tuple(torch.ones(B, 1, 1).requires_grad_(True) for _ in range(2))
-    launches = _Launches({})
-    with _enter(_stubs(launches, _cuda.ADA)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fa.ada_block(x, *gb, params, 2, 1e-6, masks)
-        assert launches.names == []
-        fa.ada_block(x, *gb, params, 2, 1e-6,
-                     tuple(m.detach() for m in masks))
-    assert launches.names == ["pmce_ada_block_fwd"]
-
-
 # ------------------------------------------ the mask gradients vs JAX
 @pytest.mark.parametrize("Nq,Nk,H", [(5, 72, 4), (72, 5, 2)],
                          ids=["joints-query", "vertices-query"])
@@ -293,6 +270,48 @@ def test_ca_block_mask_gradients_match_jax(Nq, Nk, H):
     t = [torch.from_numpy(a) for a in (*xs, *conds, *params)]
     y = fa.ca_block_plain(t[0], t[1], t[2], tuple(t[3:11:2]),
                           tuple(t[4:11:2]), tuple(t[11:]), H, 1e-6, tuple(tm))
+    y.backward(torch.from_numpy(g))
+    for want_m, m in zip(want, tm):
+        got = m.grad.numpy()
+        assert got.shape == want_m.shape
+        scale = np.abs(want_m).max()
+        assert scale > 0
+        assert np.abs(got - want_m).max() <= 1e-4 * scale
+
+
+def test_ada_block_mask_gradients_match_jax():
+    """dm1 = sum(dx1 * a) and dm2 = sum(g * mo) per clip for the AdaLN
+    block: the plain version's autograd (what both backward routes are held
+    to on the card) against the gradients JAX's ``_ada_block_bwd_kernel``
+    returns for the branch masks (interpreted), f32, within 1e-4 of their
+    largest magnitude."""
+    B, N, C, H, hid = 3, 20, 32, 2, 64
+    rng = np.random.default_rng(11)
+
+    def w(*shape, scale=0.2, offset=0.0):
+        return (rng.normal(size=shape) * scale + offset).astype(np.float32)
+
+    x = w(B, N, C, scale=1.0)
+    conds = [w(B, C, offset=1.0 - (i % 2)) for i in range(4)]
+    params = [w(C, 3 * C, scale=C ** -0.5), w(3 * C, scale=0.05),
+              w(C, C, scale=C ** -0.5), w(C, scale=0.05),
+              w(C, hid, scale=C ** -0.5), w(hid, scale=0.05),
+              w(hid, C, scale=hid ** -0.5), w(C, scale=0.05)]
+    # Both mask values in play: clip 0 drops the attention branch.
+    masks = [np.array([0.0, 1.25, 1.25], np.float32).reshape(B, 1, 1),
+             np.array([1.25, 0.0, 1.25], np.float32).reshape(B, 1, 1)]
+    g = w(B, N, C, scale=1.0)
+
+    def jax_fn(m1, m2):
+        j = [jnp.asarray(a) for a in (x, *conds, *params)]
+        return fused_ada_block(j[0], *j[1:5], tuple(j[5:]), H, 1e-6,
+                               (m1, m2))
+
+    _, vjp = jax.vjp(jax_fn, *(jnp.asarray(m) for m in masks))
+    want = [np.asarray(d) for d in vjp(jnp.asarray(g))]
+    tm = [torch.from_numpy(m).requires_grad_(True) for m in masks]
+    t = [torch.from_numpy(a) for a in (x, *conds, *params)]
+    y = fa.ada_block_plain(t[0], *t[1:5], tuple(t[5:]), H, 1e-6, tuple(tm))
     y.backward(torch.from_numpy(g))
     for want_m, m in zip(want, tm):
         got = m.grad.numpy()

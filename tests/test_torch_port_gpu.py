@@ -711,6 +711,91 @@ def test_ca_block_backward_with_mask_gradients(shape):
         assert float((a.float() - b.float()).abs().max()) <= 0.02 * scale, i
 
 
+@pytest.mark.parametrize("shape", [(32, 17, 64, 8, 431),
+                                   (32, 431, 64, 2, 17), (3, 40, 64, 4, 9),
+                                   (3, 5, 64, 8, 72)], ids=str)
+def test_ca_forward_tile_program_matches_plain_and_the_sequence(shape):
+    """Row 10's tile program (one counted launch) against the plain version
+    within 2 % and bit for bit on a rerun, at the Stage-2 step's two
+    orientations, head width 16, and keys split so that one CTA holds none;
+    every tensor it saves for row 11 (nq, nk, nv, q, k, v, o, the softmax
+    max and sum, x1, h2, hh, ge, a, mo) against what the launch sequence
+    saves on the same inputs, within 2 % of its largest magnitude."""
+    dev = _card()
+    rng = np.random.default_rng([7, *shape])
+    leaves, _, _ = _dec_case(rng, dev, "ca", shape)
+    H = shape[3]
+    xs = [t.detach() for t in leaves[:3]]
+    rest = [t.detach() for t in leaves[3:]]
+    masks = tuple(torch.from_numpy(((rng.random((shape[0], 1, 1)) < 0.8)
+                                    / 0.8).astype(np.float32)).to(dev)
+                  for _ in range(2))
+
+    def fwd():
+        return fa._ca_fwd_cuda(xs, rest[0:8:2], rest[1:8:2], masks,
+                               rest[8:], H, 1e-6, keep_branches=True)
+
+    _cuda.reset_launch_counts()
+    y, saved = fwd()
+    assert _cuda.launch_counts()["ca_block_fwd"] == 1
+    assert _cuda.launch_counts()["ca_block_fwd_seq"] == 0
+    y2, saved2 = fwd()
+    assert torch.equal(y, y2)
+    assert all(torch.equal(a, b) for a, b in zip(saved[6:], saved2[6:]))
+    yp = fa.ca_block_plain(*xs, rest[0:8:2], rest[1:8:2], rest[8:], H,
+                           1e-6, masks)
+    assert bool(torch.isfinite(y).all())
+    assert _rel(yp, y) <= 0.02
+    with mock.patch.object(fa, "ca_bwd_kernel_fits", lambda *a: False):
+        ys, seq = fwd()
+    assert _cuda.launch_counts()["ca_block_fwd_seq"] == 1
+    assert _rel(ys, y) <= 0.02
+    names = ("nq", "nk", "nv", "q", "k", "v", "o", "stats", "x1", "h2", "hh",
+             "ge", "a", "mo")
+    for name, a, b in zip(names, seq[6:], saved[6:]):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel(a, b) <= 0.02, name
+
+
+@pytest.mark.parametrize("shape", [(32, 431, 64, 2), (3, 45, 64, 4),
+                                   (2, 17, 64, 8), (2, 520, 64, 2)], ids=str)
+def test_ada_block_backward_with_mask_gradients(shape):
+    """Row 9 with branch masks that require grad: the tile program and the
+    weight-gradient launch (one counted backward) at the Stage-2 step's
+    [32, 431, 64] and two small shapes, the launch sequence over 512 tokens,
+    against the plain version's autograd, dm1 and dm2 included, within 2 %
+    of each gradient's largest magnitude; a rerun gives the same bits."""
+    dev = _card()
+    rng = np.random.default_rng(list(shape))
+    leaves, _, (kernel, plain) = _dec_case(rng, dev, "ada", shape)
+    B, N, _, H = shape
+    u = rng.random((2, B, 1, 1))
+    u[0, 0] = u[1, 1] = 1.0
+    masks = tuple(torch.from_numpy(((u[i] < 0.8) / 0.8).astype(np.float32))
+                  .to(dev).requires_grad_(True) for i in range(2))
+
+    def run(fn):
+        x, g1, b1, g2, b2, *p = leaves
+        return fn(x, g1, b1, g2, b2, p, H, 1e-6, masks)
+
+    g = _rand(rng, dev, *leaves[0].shape, dtype=torch.bfloat16)
+    every = [*leaves, *masks]
+    y = run(kernel)
+    _cuda.reset_launch_counts()
+    gk = torch.autograd.grad(y, every, g, retain_graph=True)
+    tile = fa.ada_bwd_kernel_fits(N, 64, 256)
+    counts = _cuda.launch_counts()
+    assert counts["ada_block_bwd"] == int(tile)
+    assert counts["ada_block_bwd_seq"] == int(not tile)
+    again = torch.autograd.grad(y, every, g)
+    gp = torch.autograd.grad(run(plain), every, g)
+    for i, (a, a2, b) in enumerate(zip(gk, again, gp)):
+        assert torch.equal(a, a2), i
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        assert float((a.float() - b.float()).abs().max()) <= \
+            0.02 * float(b.abs().max()), i
+
+
 def test_decoder_attention_kernels_refuse_f32_on_card():
     dev = _card()
     rng = np.random.default_rng(9)
