@@ -20,11 +20,13 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    kernel's 128-row tile) against its plain version under its own
    counter; the decoder's AdaLN and CA block backwards also with branch
    masks that require grad (their gradients against the plain version's,
-   rerun bit for bit). Library yardsticks, timed only: ``nn.GRU`` in bf16 for the
-   GRU rows (with the backend that ran), ``F.multi_head_attention_forward``
-   for rows 4 / 5, ``nn.TransformerEncoder`` (pre-norm, erf GELU, the
-   post-norm as its ``norm``) for row 6, with grad and on its no-grad fast
-   path;
+   rerun bit for bit); the CTAs of row 8's forward the card holds at once
+   and the waves a batch of 32 takes. Library yardsticks, timed only:
+   ``nn.GRU`` in bf16 for the GRU rows (with the backend that ran),
+   ``F.multi_head_attention_forward`` for rows 4 / 5 (row 4 against it
+   three more times in turn at both of its shapes), ``nn.TransformerEncoder``
+   (pre-norm, erf GELU, the post-norm as its ``norm``) for row 6, with grad
+   and on its no-grad fast path;
 3. serving forward: ``create_pmce(num_joint=19, dtype=bfloat16, fused=True,
    device="cuda")`` at full width, random weights from a seed, B=256. The
    launch counters are zeroed just before it and read just after: every
@@ -69,8 +71,10 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    ``MODEL.fused_attn: true``): phase 5's cuts, data and warm start, with
    the decoder's attention blocks on their kernels forward and backward
    (``fused_mhsa``, ``ada_block``, ``ca_block``) and the lifter's blocks on
-   theirs. The counters must equal the path's launches exactly (rows 9 and
-   10's launch sequences, outside their tile programs' gates, none); the fixed
+   theirs. The counters must equal the path's launches exactly (the launch
+   sequences of rows 4, 8, 9 and 10, outside their tile programs' gates,
+   none), and row 8's forward must fill the card in one wave (on a card of
+   128 SMs or more); the fixed
    batch's loss must fall; the first step's loss and gradients agree with
    the plain path, the attention blocks' own parameters more tightly (with
    only those six kernels on the card); then the step's time and peak
@@ -81,8 +85,10 @@ each train step's device time by kernel and, before phase 2, the stage
 split of the trunk (K1), the GRU scan (K2), the decoder chain (K3), the
 whole block (row 14), the GRU's backward scan (row 13), the block
 forward's and backward's tile programs (rows 6, 7), the CA block's
-forward and backward tile programs (rows 10, 11) and the AdaLN block
-backward's (row 9): one call of each kernel's
+forward and backward tile programs (rows 10, 11), the AdaLN block's
+forward (row 8, both launches) and backward (row 9) and the
+self-attention forward's (row 4, at both of its shapes): one call of each
+kernel's
 clock64()-stamped instantiation (not counted as a launch) books every
 tile's, CTA's or clip's cycles to its stages.
 
@@ -166,9 +172,10 @@ MESH_TRAINING = ("gru_layer_save", "gru_layer_bwd", "gru_bwd_scan",
 # The decoder's attention blocks (phase 6; idle in phase 5).
 DECODER = ("mhsa_fwd", "mhsa_bwd", "ada_block_fwd", "ada_block_bwd",
            "ca_block_fwd", "ca_block_bwd")
-# The launch sequences of rows 9 and 10 outside their tile programs' gates:
-# no shape of the Stage-2 step reaches them.
-DECODER_SEQ = ("ada_block_bwd_seq", "ca_block_fwd_seq")
+# The launch sequences of rows 4, 8, 9 and 10 outside their tile programs'
+# gates: no shape of the Stage-2 step reaches them.
+DECODER_SEQ = ("mhsa_fwd_seq", "ada_block_fwd_seq", "ada_block_bwd_seq",
+               "ca_block_fwd_seq")
 MESH_IDLE = ("lifter_trunk", "lifter_trunk_long", "coevo_chain", "block_fwd", "block_bwd",
              "skinning", "coevo_block", *DECODER, *DECODER_SEQ)
 # Kernel vs plain version on identical inputs, as max|kernel - plain| over
@@ -946,6 +953,21 @@ def mha_library_ms(leaves, heads: int) -> tuple[float, float]:
         y, args, g, retain_graph=True)))
 
 
+def ada_fwd_waves(device, tag: str) -> int:
+    """Print the CTAs of row 8's forward (launch B, 4 a clip) the card holds
+    at once and the waves a batch of BM clips takes; return the waves."""
+    import torch
+
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    resident, waves = fa.ada_fwd_waves(BM)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print(f"{tag} row 8's forward (ada_block_fwd): {resident} CTAs co-resident "
+          f"on {sms} SMs; a batch of {BM} clips is {BM * fa.ADA_FWD_CTAS} "
+          f"CTAs: {waves} wave(s)", flush=True)
+    return waves
+
+
 def check_decoder_blocks(device, rows) -> None:
     """Rows 4, 5, 8-11 at the Stage-2 step's shapes (batch 32, C = 64,
     drop-path masks at rate 0.2): the joint stream's self-attention
@@ -969,6 +991,7 @@ def check_decoder_blocks(device, rows) -> None:
         print(f"[kernels] clusters of 4 CTAs the card holds at once, by tile "
               f"program: {held}; a batch of {BM} clips takes "
               f"{-(-BM // min(held.values()))} wave(s)", flush=True)
+        ada_fwd_waves(device, "[kernels]")
     rng = np.random.default_rng(5)
     cases = (("mhsa", "joint self-attention", BM, JT, 64, 8, 0),
              ("ada_block", "vertex AdaLN block", BM, 431, 64, 2, 0),
@@ -1043,15 +1066,14 @@ def check_decoder_blocks(device, rows) -> None:
             print(f"[kernels] library: F.multi_head_attention_forward "
                   f"{where}, bf16: forward {lib_f:.4f} ms, autograd "
                   f"backward {lib_b:.4f} ms", flush=True)
-            if clips > BM:
-                # Row 4 against its library call at the trunk backward's
-                # shape, three more times in turn: whether it loses.
-                for rep in range(3):
-                    k_ms = median_ms(lambda: call(kernel, *leaves))
-                    l_ms = mha_library_ms(leaves, heads)[0]
-                    print(f"[kernels] mhsa_fwd {where}, repetition "
-                          f"{rep + 1}: kernel {k_ms:.4f} ms, library "
-                          f"{l_ms:.4f} ms ({k_ms / l_ms:.2f}x)", flush=True)
+            # Row 4 against its library call, three more times in turn at
+            # both shapes: whether it loses.
+            for rep in range(3):
+                k_ms = median_ms(lambda: call(kernel, *leaves))
+                l_ms = mha_library_ms(leaves, heads)[0]
+                print(f"[kernels] mhsa_fwd {where}, repetition "
+                      f"{rep + 1}: kernel {k_ms:.4f} ms, library "
+                      f"{l_ms:.4f} ms ({k_ms / l_ms:.2f}x)", flush=True)
         del yk, yp, gk, gp, repeat, leaves
 
 
@@ -1551,6 +1573,11 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
             return float(pmce_loss(model.eval(), batch, faces, J_reg,
                                    weights, 1.0, face_fn)[0])
 
+    if fused and torch.device(device).type == "cuda":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        if ada_fwd_waves(device, tag) > 1 and sms >= 128:
+            raise RuntimeError(f"row 8's forward takes more than one wave "
+                               f"at batch {BM} on {sms} SMs")
     before = fixed_loss(trainer.model)
     t0 = time.time()
     _cuda.reset_launch_counts()
@@ -1581,7 +1608,7 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
                        "ada_block_fwd": 3 * steps,
                        "ada_block_bwd": 3 * steps,
                        "ca_block_fwd": 6 * steps, "ca_block_bwd": 4 * steps,
-                       "ada_block_bwd_seq": 0, "ca_block_fwd_seq": 0,
+                       **{name: 0 for name in DECODER_SEQ},
                        "lifter_trunk": evals, "lifter_trunk_long": 0,
                        "coevo_chain": evals, "skinning": 0})
         wrong = {k: (v, counts[k]) for k, v in expect.items()
@@ -1834,8 +1861,10 @@ def stage_split(device) -> None:
     shares are of their sum over the tiles, CTAs or clips. The same for
     the block forward's saving tile program (row 6) at the Stage-1 shapes
     and the CA block's forward and backward tile programs (rows 10, 11) at
-    the Stage-2 step's two orientations, the AdaLN block backward's (row 9)
-    at its vertex stream."""
+    the Stage-2 step's two orientations, the AdaLN block's forward (row 8,
+    launches A and B) and backward (row 9) at its vertex stream, and the
+    self-attention forward's (row 4) at the joint stream and the trunk
+    backward's shape (the plan's clips a CTA, and 7)."""
     import torch
 
     from pmce_tpu_torch.ops import fused_attention as fa
@@ -1921,6 +1950,10 @@ def stage_split(device) -> None:
     leaves, call, _ = decoder_case(rng, device, "ada", BM, 431, 64, 2)
     x, rest = leaves[0], leaves[1:]
     with torch.no_grad():
+        cta_split(f"ada_block_fwd (row 8) tile programs A and B [{BM}, 431, "
+                  "64], 2 heads", fa.ada_fwd_stage_split(
+                      x, rest[:4], rest[4:], 2, 1e-6, call.masks),
+                  fa.ADA_FWD_STAGES)
         _, saved = fa._ada_fwd_cuda(x, rest[:4], call.masks, rest[4:], 2,
                                     1e-6)
         cta_split(f"ada_block_bwd (row 9) tile program [{BM}, 431, 64], 2 "
@@ -1928,6 +1961,18 @@ def stage_split(device) -> None:
                                                   rest[4:], saved, 2),
                   fa.ADA_BWD_STAGES)
     del leaves, saved, x, rest
+    # Row 4's tile program at the decoder's joint stream and the trunk
+    # backward's spatial shape (the plan's clips a CTA, and 7).
+    for label, clips, N, c, cpc in (("joint", BM, JT, 64, None),
+                                    ("trunk", BM * T, JT, C, None),
+                                    ("trunk", BM * T, JT, C, 7)):
+        leaves, _, _ = decoder_case(rng, device, "mhsa", clips, N, c, 8)
+        with torch.no_grad():
+            split = fa.mhsa_fwd_stage_split(*leaves, 8, clips_per_cta=cpc)
+        cta_split(f"mhsa_fwd (row 4) tile program, {label} [{clips}, {N}, "
+                  f"{c}], 8 heads, {split['clips_per_cta']} clips a CTA",
+                  split, fa.MHSA_FWD_STAGES)
+        del leaves
     chain = chain_case(r, B)
     print_split("coevo_chain (K3)", fc.coevo_stage_split("chain", *chain[:5]))
     block = coevo_block_case(r, B)

@@ -16,15 +16,43 @@
 // tokens, C = 64, 2 heads of 32, hidden 256) the products are ~2.2 GFLOP
 // forward, 1.5 of them the 431 x 431 attention, and twice that backward;
 // the activations are ~3.5 MB. Hopper's tensor cores would take ~2 us and
-// its memory ~1 us: the bound is far below what launches cost.
+// its memory ~1 us: the bound is far below what launches and latency cost,
+// so the forward is two launches that fill the card in one wave.
 //
-// Forward (simple first): one launch per stage over all rows: AdaLN (a warp
-// per row), WMMA GEMMs with fused epilogues (q scale, exact GELU keeping its
-// input, masked residual adds keeping the branches a and mo where the mask
-// gradients are owed), and attention_ops.cuh's attention on the CUDA cores,
-// whose keys stream through shared memory in tiles of 64. It keeps what the
-// backward reads (qkv, head outputs, softmax statistics, x1, the MLP's
-// input and pre-activation), ~15 MB a block.
+// Forward, two launches where the tile programs' gate holds (C = 64, hid up
+// to 256, N up to 512), four ordinary CTAs a clip (a quarter of its rows,
+// at most 128, a warp's 16 each: 128 CTAs at batch 32, one an SM, one wave
+// on 132 SMs; no cluster, no cooperative launch, no spin: the kernel
+// boundary is the only barrier):
+// - launch A (adf::ada_fwd_rows_kernel), row-local: AdaLN1 (f32 statistics,
+//   unbiased sigma, eps outside the sqrt) from the accumulator layout, then
+//   h1 @ Wqkv + bqkv on the tensor cores (mma.sync m16n8k16, W's own [in,
+//   out] rows by ldmatrix .trans), q scaled in f32 before its one bf16
+//   rounding. It writes qkv (the clip's keys and values for launch B, 5.3
+//   MB at batch 32: L2-resident) and h1 when a gradient is owed.
+// - launch B (adf::ada_fwd_attn_kernel), a CTA's query rows: the clip's K
+//   (then K and V) stream from qkv through a two-stage cp.async ring of
+//   64-row chunks, as row 9's program streams them. Pass 1: each row's max
+//   and sum of exp(q k^T - max) over all N keys (per lane, merged over the
+//   quad); pass 2: S again, P = bf16(exp(s - m) / l) (the plain version's
+//   cast point after normalising), O += P V. Then the projection, x1 = x +
+//   m1 * a, AdaLN2, fc1 + exact GELU and fc2 in hidden blocks of 64 with
+//   their sums in f32 registers, y = x1 + m2 * mo (adaln_tile.cuh's
+//   ada_tail, shared with row 10). The weights are read in their [in, out]
+//   layout: no transposed copies.
+//   Shared memory at hid 256: Wproj [64, 72], W1 [64, 264], W2 [256, 72]
+//   bf16 (80 KB), the q tile [128, 72] (18 KB), the ring 2 x (K | V) [64,
+//   72] (36 KB): 132 KB; O, x1 and the hidden block stay in registers.
+// Both write the state the backward reads (h1, qkv, o, the softmax max and
+// sum [clips, H, N], x1 f32, h2, hh f32, ge; the branches a, mo f32 only for
+// the mask gradients) in the launch sequence's layout, only when a
+// gradient is owed, evict-first (only the backward reads it).
+// Outside the gate, the launch sequence (simple first): one launch per stage
+// over all rows: AdaLN (a warp per row), WMMA GEMMs with fused epilogues (q
+// scale, exact GELU keeping its input, masked residual adds keeping the
+// branches a and mo where the mask gradients are owed), and
+// attention_ops.cuh's attention on the CUDA cores, whose keys stream through
+// shared memory in tiles of 64; it always keeps what the backward reads.
 //
 // Backward, two launches where the tile program's gate holds (C = 64, hid
 // up to 256, N up to 512):
@@ -146,6 +174,357 @@ extern "C" int pmce_ada_block_fwd(void* const* P, int clips, int N, int C,
   return ada_mlp_fwd(f(20), clips, N, C, hid, f(3), f(4), eps, b(11), f(12),
                      b(13), f(14), f(6), b(21), f(22), b(23), b(24), s,
                      f(26));
+}
+
+// ---------------------------------------------------------------------------
+// The forward's tile programs (row 8): launches A and B, 4 CTAs a clip.
+// ---------------------------------------------------------------------------
+namespace adf {
+
+using namespace tile;
+
+constexpr int NSTAMP_A = 2;  // loads + norm1, qkv
+constexpr int NSTAMP_B = 4;  // loads, attention max + sum, attention P.V,
+                             // proj + norm2 + MLP
+constexpr int CH = 64;       // rows of a streamed chunk
+constexpr int L3 = 3 * CW;   // qkv's row stride
+constexpr int LDQKV = L3 + 8;
+constexpr int SMEM_A = CW * LDQKV * 2;                // Wqkv [64, 200]
+// Launch B's shared-memory plan, bytes.
+constexpr int CTILE = CH * LD * 2;                    // [64, 72] bf16
+constexpr int OFF_WP = 0;                             // [64, 72]
+constexpr int OFF_W1 = OFF_WP + CW * LD * 2;          // [64, hid + 8]
+constexpr int OFF_W2 = OFF_W1 + CW * (MAX_HID + 8) * 2;  // [hid, 72]
+constexpr int OFF_QT = OFF_W2 + MAX_HID * LD * 2;     // [128, 72]
+constexpr int OFF_RING = OFF_QT + RT * LD * 2;        // 2 x (K | V) chunks
+constexpr int SMEM_B = OFF_RING + 2 * 2 * CTILE;
+static_assert(SMEM_B <= 232448, "over the opt-in shared memory");
+
+struct Args {
+  const bf16* x;                        // [M, 64]
+  const float *g1, *b1, *g2, *b2;       // AdaLN vectors [clips, 64]
+  const float *m1, *m2;                 // [clips] or null
+  const bf16 *wqkv, *wproj, *w1, *w2;   // [in, out]
+  const float *bqkv, *bproj, *bb1, *bb2;
+  bf16* out;
+  bf16* qkv;                            // [M, 192], q pre-scaled: A writes,
+                                        // B reads (saved when owed)
+  bf16 *h1, *o, *h2, *ge;               // the saved state, or all null
+  float *sm, *sl;                       // [clips, H, N] softmax max, sum
+  float *x1, *hh;                       // [M, 64], [M, hid]
+  float *a, *mo;                        // [M, 64] or null
+  int clips, N, hid;
+  float eps, qscale;
+  long long* stamps;                    // A's [clips * CL, NSTAMP_A], then
+                                        // B's [clips * CL, NSTAMP_B]; or null
+};
+
+// A CTA's quarter of its clip's rows (whole 16-row blocks, as row 9's).
+struct Rows {
+  int b, r0, nr;
+  size_t row0;
+  __device__ Rows(int N) {
+    b = blockIdx.x / CL;
+    const int rank = blockIdx.x % CL;
+    r0 = min(N, rank * rank_rows(N));
+    nr = min(N, r0 + rank_rows(N)) - r0;
+    row0 = (size_t)b * N + r0;
+  }
+};
+
+// Launch A: AdaLN1 and the qkv product of a warp's 16 rows.
+template <bool PROF>
+__global__ void __launch_bounds__(NTH) ada_fwd_rows_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Wqkv = reinterpret_cast<bf16*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2;
+  StageClock<PROF, NSTAMP_A> clk;
+  clk.start();
+  for (int c = tid; c < CW * (L3 / 8); c += NTH) {
+    const int r = c / (L3 / 8), cc = c % (L3 / 8) * 8;
+    cp_async16(Wqkv + r * LDQKV + cc, a.wqkv + r * L3 + cc, true);
+  }
+  cp_async_commit();
+  // The warp's rows and their AdaLN while the weights are in flight.
+  const Rows rw(a.N);
+  const int qr = warp * 16;
+  const bool on = qr < rw.nr;
+  const bool v0 = qr + g < rw.nr, v1 = qr + g + 8 < rw.nr;
+  const size_t r0 = rw.row0 + qr, cb = (size_t)rw.b * CW;
+  unsigned af[4][4];
+  if (on) {
+    float h[8][4];
+    load_frag(h, a.x, r0, v0, v1);
+    adaln_fwd_frag(h, a.g1 + cb, a.b1 + cb, a.eps);
+    if (a.h1) store_bf<true>(h, nullptr, a.h1, r0, v0, v1);
+    frag_a(af, h);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  clk(0);
+  if (on) {
+#pragma unroll 1
+    for (int j = 0; j < 3; ++j) {
+      float acc[8][4];
+      zero(acc);
+      mma_aw(acc, af, Wqkv + j * CW, LDQKV);
+      add_cols(acc, a.bqkv + j * CW);
+      if (j == 0) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[jj][e] *= a.qscale;
+      }
+      // Launch B reads qkv from L2: written normally, not evict-first.
+      store_bf(acc, nullptr, a.qkv, r0, v0, v1, L3, j * CW);
+    }
+  }
+  clk(1);
+  clk.write(a.stamps);
+}
+
+// Launch B: the attention of a CTA's query rows over the clip's keys, then
+// the block's tail.
+template <bool PROF, int D>
+__global__ void __launch_bounds__(NTH, 1) ada_fwd_attn_kernel(const Args a) {
+  constexpr int H = CW / D;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Wp = reinterpret_cast<bf16*>(smem + OFF_WP);
+  bf16* W1 = reinterpret_cast<bf16*>(smem + OFF_W1);
+  bf16* W2 = reinterpret_cast<bf16*>(smem + OFF_W2);
+  bf16* Qt = reinterpret_cast<bf16*>(smem + OFF_QT);
+  unsigned char* ring = smem + OFF_RING;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  StageClock<PROF, NSTAMP_B> clk;
+  clk.start();
+  const Rows rw(a.N);
+  const int N = a.N, hid = a.hid, ldw1 = hid + 8;
+  const size_t crow0 = (size_t)rw.b * N;  // the clip's first row
+  const size_t cb = (size_t)rw.b * CW;
+
+  // ---- loads: the three weights and the CTA's q rows; the first K chunk --
+  for (int c = tid; c < CW * 8; c += NTH) {
+    const int r = c / 8, cc = c % 8 * 8;
+    cp_async16(Wp + r * LD + cc, a.wproj + r * CW + cc, true);
+  }
+  for (int c = tid; c < CW * (hid / 8); c += NTH) {
+    const int r = c / (hid / 8), cc = c % (hid / 8) * 8;
+    cp_async16(W1 + r * ldw1 + cc, a.w1 + (size_t)r * hid + cc, true);
+  }
+  for (int c = tid; c < hid * 8; c += NTH) {
+    const int r = c / 8, cc = c % 8 * 8;
+    cp_async16(W2 + r * LD + cc, a.w2 + (size_t)r * CW + cc, true);
+  }
+  load_rows(Qt, a.qkv, rw.row0, rw.nr, L3, 0);
+  cp_async_commit();
+  const int nch = (N + CH - 1) / CH;
+  auto stage_of = [&](int c) {
+    return reinterpret_cast<bf16*>(ring + (c & 1) * 2 * CTILE);
+  };
+  // Chunk c of the clip's keys (and values) into its ring stage; a group is
+  // committed either way, so that waiting for all but one stays exact.
+  auto issue = [&](int c, bool values) {
+    if (c < nch) {
+      const int n = min(CH, N - c * CH);
+      load_rows(stage_of(c), a.qkv, crow0 + c * CH, n, L3, CW);
+      if (values)
+        load_rows(stage_of(c) + CH * LD, a.qkv, crow0 + c * CH, n, L3,
+                  2 * CW);
+    }
+    cp_async_commit();
+  };
+  issue(0, false);
+  asm volatile("cp.async.wait_group 1;\n" ::);
+  __syncthreads();
+  clk(0);
+
+  const int qr = warp * 16;
+  const bool on = qr < rw.nr;
+  // The warp's q fragments of every head, kept for both passes.
+  QFrag<D> qf[H];
+  if (on) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) load_q(qf[h], Qt + qr * LD + h * D, LD);
+  }
+
+  // ---- pass 1: each row's max and sum over the clip's keys ----------------
+  float m[H][2], l[H][2];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    m[h][0] = m[h][1] = -INFINITY;
+    l[h][0] = l[h][1] = 0.f;
+  }
+  for (int c = 0; c < nch; ++c) {
+    issue(c + 1, false);
+    cp_async_wait_one();
+    __syncthreads();
+    if (on) {
+      const bf16* Kc = stage_of(c);
+      const int n = min(CH, N - c * CH);
+      // The chunk's key blocks unrolled: their products are independent.
+#pragma unroll
+      for (int kb = 0; kb < CH; kb += 16) {
+        if (kb >= n) break;
+        const auto in = [&](int, int col) { return kb + col < n; };
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          float sc[2][4] = {};
+          dot_q<D>(sc, qf[h], Kc + kb * LD + h * D, LD);
+          softmax_fold(sc, in, m[h], l[h]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float li[H][2];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    softmax_merge(m[h], l[h]);
+    li[h][0] = 1.0f / l[h][0];
+    li[h][1] = 1.0f / l[h][1];
+  }
+  clk(1);
+
+  // ---- pass 2: O = P V, P = bf16(exp(s - m) / l) --------------------------
+  float o[8][4];
+  zero(o);
+  issue(0, true);
+  for (int c = 0; c < nch; ++c) {
+    issue(c + 1, true);
+    cp_async_wait_one();
+    __syncthreads();
+    if (on) {
+      const bf16* Kc = stage_of(c);
+      const bf16* Vc = Kc + CH * LD;
+      const int n = min(CH, N - c * CH);
+#pragma unroll
+      for (int kb = 0; kb < CH; kb += 16) {
+        if (kb >= n) break;
+        const auto in = [&](int, int col) { return kb + col < n; };
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          float sc[2][4] = {};
+          dot_q<D>(sc, qf[h], Kc + kb * LD + h * D, LD);
+          softmax_probs(sc, in, m[h], li[h]);
+          unsigned pa[4];
+          pack_a(pa, sc);
+          dot_pn<D>(o, h * (D / 8), pa, Vc + kb * LD + h * D, LD);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  clk(2);
+
+  // ---- the saved o and statistics, then the tail in registers --------------
+  if (on) {
+    const bool v0 = qr + g < rw.nr, v1 = qr + g + 8 < rw.nr;
+    const size_t r0 = rw.row0 + qr;
+    if (a.o) store_bf<true>(o, nullptr, a.o, r0, v0, v1);
+    if (a.sm && tq == 0) {
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          if (hf ? v1 : v0) {
+            const size_t si =
+                ((size_t)rw.b * H + h) * N + rw.r0 + qr + g + 8 * hf;
+            __stcs(a.sm + si, m[h][hf]);
+            __stcs(a.sl + si, l[h][hf]);
+          }
+    }
+    unsigned of[4][4];
+    frag_a(of, o);
+    const Tail t{a.x, a.out, Wp, W1, W2, a.bproj, a.bb1, a.bb2,
+                 a.g2 + cb, a.b2 + cb, a.a, a.x1, a.hh, a.mo, a.h2, a.ge,
+                 hid, a.eps};
+    ada_tail(t, of, r0, v0, v1, a.m1 ? a.m1[rw.b] : 1.f,
+             a.m2 ? a.m2[rw.b] : 1.f);
+  }
+  clk(3);
+  clk.write(a.stamps ? a.stamps + (size_t)gridDim.x * NSTAMP_A : nullptr);
+}
+
+template <bool PROF, int D>
+int launch(const Args& a, cudaStream_t s) {
+  const auto ka = ada_fwd_rows_kernel<PROF>;
+  const auto kb = ada_fwd_attn_kernel<PROF, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kb, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_B);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ka<<<a.clips * CL, NTH, SMEM_A, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kb<<<a.clips * CL, NTH, SMEM_B, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace adf
+
+// The forward's tile programs, two launches of 4 CTAs a clip. ptrs: x, g1,
+// b1, g2, b2 ([clips, 64] f32), m1, m2 (or null), wqkv, wproj, w1, w2 (bf16
+// [in, out]), bqkv, bproj, bb1, bb2 (f32), out, qkv (always: launch B reads
+// it); the saved h1, o, stat_m, stat_l, x1, h2, hh, ge (all null: not
+// saving); a, mo (f32 [M, 64] or null); stamps (null, or int64 [clips * 4,
+// 2] then [clips * 4, 4] for the stamped instantiations).
+extern "C" int pmce_ada_fwd_tile(void* const* ptrs, int clips, int N, int hid,
+                                 int H, float eps, void* stream) {
+  using namespace adf;
+  if (clips <= 0 || N <= 0 || N > CL * RT || hid <= 0 || hid % CW ||
+      hid > MAX_HID || (H != 2 && H != 4 && H != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  auto cb = [&](int i) { return static_cast<const bf16*>(ptrs[i]); };
+  auto cf = [&](int i) { return static_cast<const float*>(ptrs[i]); };
+  auto b = [&](int i) { return static_cast<bf16*>(ptrs[i]); };
+  auto f = [&](int i) { return static_cast<float*>(ptrs[i]); };
+  a.x = cb(0); a.g1 = cf(1); a.b1 = cf(2); a.g2 = cf(3); a.b2 = cf(4);
+  a.m1 = cf(5); a.m2 = cf(6);
+  a.wqkv = cb(7); a.wproj = cb(8); a.w1 = cb(9); a.w2 = cb(10);
+  a.bqkv = cf(11); a.bproj = cf(12); a.bb1 = cf(13); a.bb2 = cf(14);
+  a.out = b(15); a.qkv = b(16);
+  a.h1 = b(17); a.o = b(18); a.sm = f(19); a.sl = f(20); a.x1 = f(21);
+  a.h2 = b(22); a.hh = f(23); a.ge = b(24);
+  a.a = f(25); a.mo = f(26);
+  a.stamps = static_cast<long long*>(ptrs[27]);
+  a.clips = clips; a.N = N; a.hid = hid;
+  a.eps = eps;
+  a.qscale = 1.0f / sqrtf(static_cast<float>(CW / H));
+  // The saved state is written whole or not at all.
+  int saved = 0;
+  for (int i = 17; i <= 24; ++i) saved += ptrs[i] != nullptr;
+  if (a.qkv == nullptr || (saved != 0 && saved != 8) ||
+      (a.a == nullptr) != (a.mo == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int D = CW / H;
+  if (a.stamps) {
+    if (D == 8) return launch<true, 8>(a, s);
+    if (D == 16) return launch<true, 16>(a, s);
+    return launch<true, 32>(a, s);
+  }
+  if (D == 8) return launch<false, 8>(a, s);
+  if (D == 16) return launch<false, 16>(a, s);
+  return launch<false, 32>(a, s);
+}
+
+// CTAs of the forward's launch B the card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), or minus a CUDA
+// error code: a batch of clips runs in one wave while 4 x clips is at most
+// this.
+extern "C" int pmce_ada_fwd_resident() {
+  const auto kernel = adf::ada_fwd_attn_kernel<false, 32>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, adf::SMEM_B);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    tile::NTH, adf::SMEM_B);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return e == cudaSuccess ? per_sm * sms : -static_cast<int>(e);
 }
 
 // The sequence route (outside the tile program's gate). P: x, g (dL/d

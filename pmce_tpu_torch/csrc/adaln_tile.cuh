@@ -1,8 +1,11 @@
-// Device pieces of the decoder's clustered AdaLN tile programs: the CA
-// block's forward (row 10) and backward (row 11) in ca_block.cu, the AdaLN
-// self-attention block's backward (row 9) in ada_block.cu.
+// Device pieces of the decoder's AdaLN tile programs: the CA block's
+// forward (row 10) and backward (row 11) in ca_block.cu, the AdaLN
+// self-attention block's forward (row 8) and backward (row 9) in
+// ada_block.cu; and of the self-attention forward's tile programs (row 4)
+// in mhsa.cu (the two-pass attention of a tile of whole clips).
 //
-// A cluster of CL = 4 CTAs a clip, 8 warps a CTA, C = 64 channels. A warp
+// Clusters of CL = 4 CTAs a clip (rows 9-11), or 4 ordinary CTAs a clip
+// (row 8); 8 warps a CTA, C = 64 channels. A warp
 // owns 16 rows and keeps them in the mma.sync m16n8k16 accumulator layout
 // ([8][4] floats a lane: n8 tile j, rows g = lane / 4 (e < 2) and g + 8,
 // columns 8 j + 2 (lane % 4) + (e & 1)) from one product to the next; the
@@ -133,14 +136,20 @@ __device__ __forceinline__ void mma_aw(float (&acc)[8][4],
     }
 }
 
-// The same with A's 16 rows in shared memory at row stride lda.
-__device__ __forceinline__ void mma_sw(float (&acc)[8][4], const bf16* A,
-                                       int lda, const bf16* W, int ldw) {
+// The A fragments (k = 64) of 16 rows in shared memory at row stride lda.
+__device__ __forceinline__ void load_a(unsigned (&af)[4][4], const bf16* A,
+                                       int lda) {
   const int lane = threadIdx.x & 31;
-  unsigned af[4][4];
 #pragma unroll
   for (int kb = 0; kb < 4; ++kb)
     ldsm_x4(af[kb], A + (lane & 15) * lda + kb * 16 + (lane >> 4) * 8);
+}
+
+// The same as mma_aw with A's 16 rows in shared memory at row stride lda.
+__device__ __forceinline__ void mma_sw(float (&acc)[8][4], const bf16* A,
+                                       int lda, const bf16* W, int ldw) {
+  unsigned af[4][4];
+  load_a(af, A, lda);
   mma_aw(acc, af, W, ldw);
 }
 
@@ -151,29 +160,61 @@ __device__ __forceinline__ void zero(float (&v)[8][4]) {
     for (int e = 0; e < 4; ++e) v[j][e] = 0.f;
 }
 
+// The A fragments of a warp's 16 rows of a head's D columns (row stride
+// lda), kept in registers across the key blocks they meet (head width 8:
+// the m16n8k8 fragment in r[0][0..1]).
+template <int D>
+struct QFrag {
+  unsigned r[D == 8 ? 1 : D / 16][4];
+};
+
+template <int D>
+__device__ __forceinline__ void load_q(QFrag<D>& q, const bf16* A, int lda) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (D == 8) {
+    unsigned t[2];
+    ldsm_x2(t, A + (lane & 15) * lda);
+    q.r[0][0] = t[0];
+    q.r[0][1] = t[1];
+  } else {
+#pragma unroll
+    for (int s = 0; s < D; s += 16)
+      ldsm_x4(q.r[s / 16], A + (lane & 15) * lda + s + (lane >> 4) * 8);
+  }
+}
+
+// acc[t] (keys or queries n0 + 8t ..) += q . B[16, D]^T: B rows of a
+// head's D columns at row stride ldb.
+template <int D>
+__device__ __forceinline__ void dot_q(float (&acc)[2][4], const QFrag<D>& q,
+                                      const bf16* B, int ldb) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (D == 8) {
+    unsigned bf[2];
+    ldsm_x2(bf, B + (lane & 15) * ldb);
+    const unsigned a[2] = {q.r[0][0], q.r[0][1]};
+    mma_k8(acc[0], a, bf[0]);
+    mma_k8(acc[1], a, bf[1]);
+  } else {
+#pragma unroll
+    for (int s = 0; s < D; s += 16) {
+      unsigned bf[4];
+      ldsm_x4(bf, B + ((lane & 7) + ((lane >> 4) << 3)) * ldb + s +
+                      ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[0], q.r[s / 16], bf[0], bf[1]);
+      mma_bf16(acc[1], q.r[s / 16], bf[2], bf[3]);
+    }
+  }
+}
+
 // acc[t] (keys or queries n0 + 8t ..) += A[16, D] . B[16, D]^T: A and B rows
 // of a head's D columns at row strides lda, ldb.
 template <int D>
 __device__ __forceinline__ void dot_nt(float (&acc)[2][4], const bf16* A,
                                        int lda, const bf16* B, int ldb) {
-  const int lane = threadIdx.x & 31;
-  if constexpr (D == 8) {
-    unsigned af[2], bf[2];
-    ldsm_x2(af, A + (lane & 15) * lda);
-    ldsm_x2(bf, B + (lane & 15) * ldb);
-    mma_k8(acc[0], af, bf[0]);
-    mma_k8(acc[1], af, bf[1]);
-  } else {
-#pragma unroll
-    for (int s = 0; s < D; s += 16) {
-      unsigned af[4], bf[4];
-      ldsm_x4(af, A + (lane & 15) * lda + s + (lane >> 4) * 8);
-      ldsm_x4(bf, B + ((lane & 7) + ((lane >> 4) << 3)) * ldb + s +
-                      ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[0], af, bf[0], bf[1]);
-      mma_bf16(acc[1], af, bf[2], bf[3]);
-    }
-  }
+  QFrag<D> q;
+  load_q(q, A, lda);
+  dot_q(acc, q, B, ldb);
 }
 
 // acc[base .. base + D / 8) (a [16, D] block of a [16, 64] accumulator) +=
@@ -417,6 +458,9 @@ __device__ __forceinline__ void load_gamma(float (&gm)[8][2], const float* p) {
 
 // The bf16 rounding of a warp's accumulator rows into the tile `t` (row
 // stride LD) and, for valid rows, into dst's rows row0 .. (null: none).
+// EF: dst written evict-first (st.global.cs): state only a backward reads,
+// which would otherwise push what the program reads again out of L2.
+template <bool EF = false>
 __device__ __forceinline__ void store_bf(const float (&v)[8][4], bf16* t,
                                          bf16* dst, size_t row0, bool v0,
                                          bool v1, int ld = CW, int col0 = 0) {
@@ -428,14 +472,20 @@ __device__ __forceinline__ void store_bf(const float (&v)[8][4], bf16* t,
       const int c = j * 8 + 2 * tq;
       const unsigned pk = pack_bf2(v[j][2 * hf], v[j][2 * hf + 1]);
       if (t) *reinterpret_cast<unsigned*>(t + (g + 8 * hf) * LD + c) = pk;
-      if (dst && (hf ? v1 : v0))
-        *reinterpret_cast<unsigned*>(dst + (row0 + g + 8 * hf) * ld + col0 +
-                                     c) = pk;
+      if (dst && (hf ? v1 : v0)) {
+        unsigned* p = reinterpret_cast<unsigned*>(
+            dst + (row0 + g + 8 * hf) * ld + col0 + c);
+        if constexpr (EF)
+          __stcs(p, pk);
+        else
+          *p = pk;
+      }
     }
 }
 
 // A warp's accumulator rows, f32, into dst's valid rows row0 .. (row
-// stride ld, columns col0 ..).
+// stride ld, columns col0 ..); EF as store_bf's.
+template <bool EF = false>
 __device__ __forceinline__ void store_f32(const float (&v)[8][4], float* dst,
                                           size_t row0, bool v0, bool v1,
                                           int ld = CW, int col0 = 0) {
@@ -444,11 +494,212 @@ __device__ __forceinline__ void store_f32(const float (&v)[8][4], float* dst,
   for (int hf = 0; hf < 2; ++hf) {
     if (!(hf ? v1 : v0)) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float2*>(dst + (row0 + g + 8 * hf) * ld + col0 +
-                                 j * 8 + 2 * tq) =
-          make_float2(v[j][2 * hf], v[j][2 * hf + 1]);
+    for (int j = 0; j < 8; ++j) {
+      float2* p = reinterpret_cast<float2*>(dst + (row0 + g + 8 * hf) * ld +
+                                            col0 + j * 8 + 2 * tq);
+      const float2 x = make_float2(v[j][2 * hf], v[j][2 * hf + 1]);
+      if constexpr (EF)
+        __stcs(p, x);
+      else
+        *p = x;
+    }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The softmax of the plain version (f32 scores, P rounded to bf16 after
+// normalising) in two passes over the keys: the row max and sum, then P.V.
+// Scores come in 16 x 16 blocks of mma accumulators (rows g: index 0 of m,
+// l; g + 8: index 1; key column t * 8 + 2 * (lane % 4) + (e & 1) of block
+// sc[t][e]); in(hf, column) says which keys a row attends to.
+// ---------------------------------------------------------------------------
+
+// exp(x) as one ex2 of x log2(e) (x = s - m <= 0; within a few f32 ulps of
+// expf, far below the bf16 rounding of P).
+__device__ __forceinline__ float exp_s(float x) {
+  return exp2f(x * 1.4426950408889634f);
+}
+
+// Folds a score block into the lane's running max m and sum l of exp(s -
+// m) over the keys it holds (softmax_merge combines the quad's lanes).
+template <typename In>
+__device__ __forceinline__ void softmax_fold(const float (&sc)[2][4], In in,
+                                             float (&m)[2], float (&l)[2]) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float bm = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (in(hf, t * 8 + 2 * tq + e)) bm = fmaxf(bm, sc[t][2 * hf + e]);
+    const float mn = fmaxf(m[hf], bm);
+    if (mn == -INFINITY) continue;  // no key of the row yet
+    float s = 0.f;
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (in(hf, t * 8 + 2 * tq + e)) s += exp_s(sc[t][2 * hf + e] - mn);
+    l[hf] = l[hf] * (m[hf] == mn ? 1.f : exp_s(m[hf] - mn)) + s;
+    m[hf] = mn;
+  }
+}
+
+// The rows' max and sum over the quad's lanes (a row without keys keeps
+// -inf and 0).
+__device__ __forceinline__ void softmax_merge(float (&m)[2], float (&l)[2]) {
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const float mx = quad_max(m[hf]);
+    l[hf] = quad_sum(m[hf] == -INFINITY ? 0.f : l[hf] * exp_s(m[hf] - mx));
+    m[hf] = mx;
+  }
+}
+
+// A score block into probabilities exp(s - m) * li (0 for keys not
+// attended to), ready for pack_a: the bf16 rounding after normalising.
+template <typename In>
+__device__ __forceinline__ void softmax_probs(float (&sc)[2][4], In in,
+                                              const float (&m)[2],
+                                              const float (&li)[2]) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hf = e >> 1;
+      sc[t][e] = in(hf, t * 8 + 2 * tq + (e & 1))
+                     ? exp_s(sc[t][e] - m[hf]) * li[hf]
+                     : 0.f;
+    }
+}
+
+// One head's attention for a warp's 16 query rows q0 .. of a tile of whole
+// clips of n rows (nrows of them valid, q0 < nrows), each query over its
+// own clip's keys: q, k, v the head's D columns of the tile's rows (row
+// stride ld, rows up to nrows rounded to 16 finite). Two passes over the
+// key blocks its clips span: the max m and sum l of each row (kept for the
+// backward), then o += P V with P = bf16(exp(s - m) / l). UNROLL key blocks
+// at a time give the products' independent work to the scheduler.
+template <int D, int UNROLL = 4>
+__device__ __forceinline__ void clip_attention(const bf16* q, const bf16* k,
+                                               const bf16* v, int ld, int q0,
+                                               int n, int nrows,
+                                               float (&o)[D / 8][4],
+                                               float (&m)[2], float (&l)[2]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int last = min(q0 + 15, nrows - 1);
+  const int k_beg = q0 / n * n / 16 * 16, k_end = (last / n + 1) * n;
+  int lo[2], hi[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = q0 + g + 8 * hf;
+    lo[hf] = r < nrows ? r / n * n : 0;
+    hi[hf] = r < nrows ? lo[hf] + n : 0;
+  }
+  QFrag<D> qf;
+  load_q(qf, q + q0 * ld, ld);
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+#pragma unroll UNROLL
+  for (int kb = k_beg; kb < k_end; kb += 16) {
+    const auto in = [&](int hf, int c) {
+      return kb + c >= lo[hf] && kb + c < hi[hf];
+    };
+    float sc[2][4] = {};
+    dot_q<D>(sc, qf, k + kb * ld, ld);
+    softmax_fold(sc, in, m, l);
+  }
+  softmax_merge(m, l);
+  const float li[2] = {l[0] > 0.f ? 1.0f / l[0] : 0.f,
+                       l[1] > 0.f ? 1.0f / l[1] : 0.f};
+#pragma unroll UNROLL
+  for (int kb = k_beg; kb < k_end; kb += 16) {
+    const auto in = [&](int hf, int c) {
+      return kb + c >= lo[hf] && kb + c < hi[hf];
+    };
+    float sc[2][4] = {};
+    dot_q<D>(sc, qf, k + kb * ld, ld);
+    softmax_probs(sc, in, m, li);
+    unsigned pa[4];
+    pack_a(pa, sc);
+    dot_pn<D>(o, 0, pa, v + kb * ld, ld);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The AdaLN blocks' tail after their attention (rows 8 and 10), a warp's 16
+// rows from row r0 (rows g, g + 8 valid as v0, v1), all in registers:
+//   a  = bf16(O) @ Wproj + bproj,  x1 = x + s1 * a,
+//   h2 = bf16(AdaLN(x1; gamma2, beta2)),
+//   per block of 64 hidden units: hh = h2 @ W1 + b1, ge = bf16(gelu(hh)),
+//     mo += ge @ W2,
+//   out = bf16(x1 + s2 * (mo + b2)).
+// a, x1, h2, hh, ge and mo are stored where their pointers are set,
+// evict-first: only the backward reads them.
+// ---------------------------------------------------------------------------
+struct Tail {
+  const bf16* x;                        // [M, 64] the block's input
+  bf16* out;
+  const bf16 *wp, *w1, *w2;             // shared: [64, LD], [64, hid + 8],
+                                        // [hid, LD]
+  const float *bproj, *bb1, *bb2;
+  const float *gamma2, *beta2;          // the clip's rows
+  float *a, *x1, *hh, *mo;              // or null
+  bf16 *h2, *ge;                        // or null
+  int hid;
+  float eps;
+};
+
+__device__ __forceinline__ void ada_tail(const Tail& t,
+                                         const unsigned (&of)[4][4],
+                                         size_t r0, bool v0, bool v1,
+                                         float s1, float s2) {
+  const int ldw1 = t.hid + 8;
+  float x1[8][4], br[8][4];
+  zero(br);
+  mma_aw(br, of, t.wp, LD);
+  add_cols(br, t.bproj);
+  if (t.a) store_f32<true>(br, t.a, r0, v0, v1);
+  load_frag(x1, t.x, r0, v0, v1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x1[j][e] += s1 * br[j][e];
+      br[j][e] = x1[j][e];
+    }
+  if (t.x1) store_f32<true>(x1, t.x1, r0, v0, v1);
+  unsigned af[4][4];
+  adaln_fwd_frag(br, t.gamma2, t.beta2, t.eps);
+  frag_a(af, br);
+  if (t.h2) store_bf<true>(br, nullptr, t.h2, r0, v0, v1);
+  float mo[8][4];
+  zero(mo);
+  for (int blk = 0; blk < t.hid / CW; ++blk) {
+    float hv[8][4];
+    zero(hv);
+    mma_aw(hv, af, t.w1 + blk * CW, ldw1);
+    add_cols(hv, t.bb1 + blk * CW);
+    if (t.hh) store_f32<true>(hv, t.hh, r0, v0, v1, t.hid, blk * CW);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hv[j][e] = gelu_erf(hv[j][e]);
+    unsigned gf[4][4];
+    frag_a(gf, hv);
+    if (t.ge) store_bf<true>(hv, nullptr, t.ge, r0, v0, v1, t.hid, blk * CW);
+    mma_aw(mo, gf, t.w2 + blk * CW * LD, LD);
+  }
+  add_cols(mo, t.bb2);
+  if (t.mo) store_f32<true>(mo, t.mo, r0, v0, v1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mo[j][e] = x1[j][e] + s2 * mo[j][e];
+  store_bf(mo, nullptr, t.out, r0, v0, v1);
 }
 
 // Rows [0, n) of an [*, ld] bf16 matrix's 64 columns from col0, from row

@@ -437,51 +437,13 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
   // its masked residual, a warp per 16 query rows, all in registers ---------
   if (split_q || rank == 0) {
     const float s1 = a.m1 ? a.m1[b] : 1.f, s2 = a.m2 ? a.m2[b] : 1.f;
+    const Tail t{a.xq, a.out, Wp, W1, W2, a.bproj, a.bb1, a.bb2,
+                 a.cond[6] + cb, a.cond[7] + cb, a.a, a.x1, a.hh, a.mo,
+                 a.h2, a.ge, hid, a.eps};
     for (int qr = warp * 16; qr < nq16; qr += NW * 16) {
-      const bool v0 = qr + g < nq, v1 = qr + g + 8 < nq;
-      const size_t r0 = qrow0 + qr;
-      float x1[8][4], br[8][4];
-      zero(br);
-      mma_sw(br, Ot + qr * LD, LD, Wp, LD);
-      add_cols(br, a.bproj);
-      if (a.a) store_f32(br, a.a, r0, v0, v1);
-      load_frag(x1, a.xq, r0, v0, v1);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          x1[j][e] += s1 * br[j][e];
-          br[j][e] = x1[j][e];
-        }
-      if (save) store_f32(x1, a.x1, r0, v0, v1);
-      unsigned af[4][4];
-      adaln_fwd_frag(br, a.cond[6] + cb, a.cond[7] + cb, a.eps);
-      frag_a(af, br);
-      if (save) store_bf(br, nullptr, a.h2, r0, v0, v1);
-      float mo[8][4];
-      zero(mo);
-      for (int blk = 0; blk < hid / CW; ++blk) {
-        float hv[8][4];
-        zero(hv);
-        mma_aw(hv, af, W1 + blk * CW, ldw1);
-        add_cols(hv, a.bb1 + blk * CW);
-        if (save) store_f32(hv, a.hh, r0, v0, v1, hid, blk * CW);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) hv[j][e] = gelu_erf(hv[j][e]);
-        unsigned gf[4][4];
-        frag_a(gf, hv);
-        if (save) store_bf(hv, nullptr, a.ge, r0, v0, v1, hid, blk * CW);
-        mma_aw(mo, gf, W2 + blk * CW * LD, LD);
-      }
-      add_cols(mo, a.bb2);
-      if (a.mo) store_f32(mo, a.mo, r0, v0, v1);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mo[j][e] = x1[j][e] + s2 * mo[j][e];
-      store_bf(mo, nullptr, a.out, r0, v0, v1);
+      unsigned of[4][4];
+      load_a(of, Ot + qr * LD, LD);
+      ada_tail(t, of, qrow0 + qr, qr + g < nq, qr + g + 8 < nq, s1, s2);
     }
   }
   clk(5);

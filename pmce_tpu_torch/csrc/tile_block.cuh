@@ -189,6 +189,86 @@ struct StageClock {
   }
 };
 
+// acc (a warp's 32 rows hm * 32 .. by 48 columns hn * 48 .. of a head's
+// q | k | v) += the tile h (row stride LDH) x Wqkv slice j (w: [KQ, 96] at
+// row stride LDW_Q, rows j * KQ ..).
+__device__ __forceinline__ void qkv_slice(float (&acc)[2][6][4],
+                                          const bf16* hs, const bf16* w,
+                                          int j, int hm, int hn) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 4
+  for (int kk = 0; kk < KQ; kk += 16) {
+    unsigned af[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldsm_x4(af[mi], hs + (hm * 32 + mi * 16 + (lane & 15)) * LDH +
+                          j * KQ + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int nb = 0; nb < 3; ++nb) {
+      unsigned bf[4];
+      ldsm_x4_t(bf, w + (kk + (lane & 15)) * LDW_Q + hn * 48 + nb * 16 +
+                        (lane >> 4) * 8);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma_bf16(acc[mi][2 * nb], af[mi], bf[0], bf[1]);
+        mma_bf16(acc[mi][2 * nb + 1], af[mi], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// Head h's q | k | v block of a warp into the tile qkv (row stride LDQ):
+// + bqkv, q scaled in f32 before its one bf16 rounding.
+__device__ __forceinline__ void qkv_epilogue(const float (&acc)[2][6][4],
+                                             bf16* qkv, const float* bqkv,
+                                             int h, float qscale, int hm,
+                                             int hn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int nj = 0; nj < 6; ++nj) {
+    const int lc = hn * 48 + nj * 8 + 2 * tq;
+    const int gc = lc / DHD * CW + h * DHD + lc % DHD;
+    const float sc = lc < DHD ? qscale : 1.f;
+    const float bz0 = bqkv[gc], bz1 = bqkv[gc + 1];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = hm * 32 + mi * 16 + g + 8 * hf;
+        *reinterpret_cast<unsigned*>(qkv + r * LDQ + lc) =
+            pack_bf2((acc[mi][nj][2 * hf] + bz0) * sc,
+                     (acc[mi][nj][2 * hf + 1] + bz1) * sc);
+      }
+  }
+}
+
+// x1 (a warp's 64 x 64 block: rows wm * 64 .., columns wn * 64 ..) += O_h
+// (oh, row stride LDO) x Wproj's head rows (w: [32, 256] at LDW_N).
+__device__ __forceinline__ void proj_slice(float (&x1)[4][8][4],
+                                           const bf16* oh, const bf16* w,
+                                           int wm, int wn) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < DHD; kk += 16) {
+    unsigned af[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      ldsm_x4(af[i], oh + (wm * 64 + i * 16 + (lane & 15)) * LDO + kk +
+                         (lane >> 4) * 8);
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      unsigned bf[4];
+      ldsm_x4_t(bf, w + (kk + (lane & 15)) * LDW_N + wn * 64 + nb * 16 +
+                        (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        mma_bf16(x1[i][2 * nb], af[i], bf[0], bf[1]);
+        mma_bf16(x1[i][2 * nb + 1], af[i], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
 // Per-row mean and 1/sqrt(var + eps) of the f32 [128, 256] values held in
 // accumulator layout (warp (wm, wn) owns rows wm*64.., columns wn*64..):
 // quad sums, then the four column warps' partials added in a fixed order.
@@ -483,44 +563,9 @@ __global__ void __launch_bounds__(NTH, 1) tile_block_kernel(const BlockArgs a) {
       for (int nj = 0; nj < 6; ++nj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-    for (int j = 0; j < CW / KQ; ++j) {
-      const bf16* w = ring_next(a, s, total, ring);
-#pragma unroll 4
-      for (int kk = 0; kk < KQ; kk += 16) {
-        unsigned af[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldsm_x4(af[mi], hs + (hm * 32 + mi * 16 + (lane & 15)) * LDH +
-                              j * KQ + kk + (lane >> 4) * 8);
-#pragma unroll
-        for (int nb = 0; nb < 3; ++nb) {
-          unsigned bf[4];
-          ldsm_x4_t(bf, w + (kk + (lane & 15)) * LDW_Q + hn * 48 + nb * 16 +
-                            (lane >> 4) * 8);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_bf16(acc[mi][2 * nb], af[mi], bf[0], bf[1]);
-            mma_bf16(acc[mi][2 * nb + 1], af[mi], bf[2], bf[3]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int nj = 0; nj < 6; ++nj) {
-      const int lc = hn * 48 + nj * 8 + 2 * tq;
-      const int gc = lc / DHD * CW + h * DHD + lc % DHD;
-      const float sc = lc < DHD ? a.qscale : 1.f;
-      const float bz0 = a.bqkv[gc], bz1 = a.bqkv[gc + 1];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int r = hm * 32 + mi * 16 + g + 8 * hf;
-          *reinterpret_cast<unsigned*>(qkv + r * LDQ + lc) =
-              pack_bf2((acc[mi][nj][2 * hf] + bz0) * sc,
-                       (acc[mi][nj][2 * hf + 1] + bz1) * sc);
-        }
-    }
+    for (int j = 0; j < CW / KQ; ++j)
+      qkv_slice(acc, hs, ring_next(a, s, total, ring), j, hm, hn);
+    qkv_epilogue(acc, qkv, a.bqkv, h, a.qscale, hm, hn);
     __syncthreads();
     if constexpr (SAVE) {
       // The head's q | k | v columns of the saved [M, 3C] qkv.
@@ -550,26 +595,7 @@ __global__ void __launch_bounds__(NTH, 1) tile_block_kernel(const BlockArgs a) {
     }
     clk(2);
     // x1 += O_h @ Wproj[head rows]: K = 32.
-    const bf16* w = ring_next(a, s, total, ring);
-#pragma unroll
-    for (int kk = 0; kk < DHD; kk += 16) {
-      unsigned af[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldsm_x4(af[i], oh + (wm * 64 + i * 16 + (lane & 15)) * LDO + kk +
-                           (lane >> 4) * 8);
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        unsigned bf[4];
-        ldsm_x4_t(bf, w + (kk + (lane & 15)) * LDW_N + wn * 64 + nb * 16 +
-                          (lane >> 4) * 8);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          mma_bf16(x1[i][2 * nb], af[i], bf[0], bf[1]);
-          mma_bf16(x1[i][2 * nb + 1], af[i], bf[2], bf[3]);
-        }
-      }
-    }
+    proj_slice(x1, oh, ring_next(a, s, total, ring), wm, wn);
     clk(3);
   }
 

@@ -214,16 +214,23 @@ SKIN = CudaLibrary("skinning", "pmce_skin_error_string", {
 # The decoder's attention blocks: one call runs a direction's whole launch
 # sequence from a table of pointers (:func:`ptr_table`); the backward's
 # scratch is one workspace of the size the *_workspace helper gives.
+# The self-attention forward's tile program: a table of its 11 pointers,
+# clips, N, C, heads, clips a CTA, stream.
 MHSA = CudaLibrary("mhsa", "pmce_mhsa_error_string", {
     "pmce_mhsa_workspace": (L, (I, I, I, I)),
+    "pmce_mhsa_fwd_tile": (I, (P, I, I, I, I, I, P)),
     "pmce_mhsa_fwd": (I, (P, I, I, I, I, P)),
     "pmce_mhsa_bwd": (I, (P, I, I, I, I, P)),
 })
-# The AdaLN block's backward tile program: a table of its 30 pointers,
+# The AdaLN block's forward tile programs (a table of their 28 pointers,
+# clips, N, hid, heads, eps, stream) and the CTAs of launch B the card
+# holds at once; the backward's tile program: a table of its 30 pointers,
 # clips, N, hid, heads, eps, stream; its weight-gradient launch: a table of
 # 12 pointers, M, hid, splits, stream.
 ADA = CudaLibrary("ada_block", "pmce_ada_block_error_string", {
     "pmce_ada_block_workspace": (L, (I, I, I, I, I)),
+    "pmce_ada_fwd_tile": (I, (P, I, I, I, I, F, P)),
+    "pmce_ada_fwd_resident": (I, ()),
     "pmce_ada_block_fwd": (I, (P, I, I, I, I, I, F, P)),
     "pmce_ada_block_bwd": (I, (P, I, I, I, I, I, F, P)),
     "pmce_ada_bwd_tile": (I, (P, I, I, I, I, F, P)),

@@ -1422,9 +1422,12 @@ ADA_FWD_LAUNCHES = _cuda.launch_counter("ada_block_fwd")
 ADA_BWD_LAUNCHES = _cuda.launch_counter("ada_block_bwd")
 CA_FWD_LAUNCHES = _cuda.launch_counter("ca_block_fwd")
 CA_BWD_LAUNCHES = _cuda.launch_counter("ca_block_bwd")
-# The launch sequences of the shapes outside rows 9 and 10's tile programs'
-# gates (:func:`ada_bwd_kernel_fits`, :func:`ca_bwd_kernel_fits`), counted
-# apart from the programs.
+# The launch sequences of the shapes outside rows 4, 8, 9 and 10's tile
+# programs' gates (:func:`mhsa_fwd_kernel_fits`, :func:`ada_fwd_kernel_fits`,
+# :func:`ada_bwd_kernel_fits`, :func:`ca_bwd_kernel_fits`), counted apart
+# from the programs.
+MHSA_FWD_SEQ_LAUNCHES = _cuda.launch_counter("mhsa_fwd_seq")
+ADA_FWD_SEQ_LAUNCHES = _cuda.launch_counter("ada_block_fwd_seq")
 ADA_BWD_SEQ_LAUNCHES = _cuda.launch_counter("ada_block_bwd_seq")
 CA_FWD_SEQ_LAUNCHES = _cuda.launch_counter("ca_block_fwd_seq")
 
@@ -1487,24 +1490,97 @@ def _split_grads(flat, like):
     return tuple(out)
 
 
-def _mhsa_fwd_cuda(x, wqkv, bqkv, wproj, bproj, num_heads):
+# The self-attention forward's tile program (csrc/mhsa.cu): whole clips of
+# up to 64 tokens a CTA, at most 128 rows, at the widths it is built for
+# ((C, head width)); its stamped stages.
+_MHSA_TILE_ROWS, _MHSA_MAX_TOKENS = 128, 64
+_MHSA_WIDTHS = ((64, 8), (64, 16), (64, 32), (256, 32))
+MHSA_FWD_STAGES = ("loads", "qkv", "attention", "proj + store")
+
+
+def mhsa_fwd_kernel_fits(N: int, C: int, num_heads: int) -> bool:
+    """The static shape test of the self-attention forward's tile program,
+    on top of :func:`attention_kernel_fits`: up to 64 tokens (JAX's grouped
+    route, ``pmce_tpu/ops/fused_attention.py:557-563``) and C = 64 with
+    heads of 8, 16 or 32, or C = 256 with heads of 32. Other shapes take
+    the launch sequence (``pmce_mhsa_fwd``)."""
+    return (N <= _MHSA_MAX_TOKENS and C % num_heads == 0
+            and (C, C // num_heads) in _MHSA_WIDTHS)
+
+
+def mhsa_fwd_plan(clips: int, N: int, C: int, sm_count: int) -> int:
+    """Clips a CTA of the tile program takes: the fewest that put every
+    CTA on the card at once (one wave: the C = 256 program holds one CTA
+    an SM, the C = 64 program two), within the tile's 128 rows. So one
+    clip a CTA while the clips fit (the decoder's 32: 32 CTAs, the
+    shortest critical path); the trunk's 512 clips of 17 at C = 256: 4 a
+    CTA, 128 CTAs on 132 SMs."""
+    resident = sm_count * (1 if C == 256 else 2)
+    return max(1, min(_MHSA_TILE_ROWS // N, -(-clips // resident)))
+
+
+def _mhsa_fwd_cuda(x, wqkv, bqkv, wproj, bproj, num_heads,
+                   for_grad: bool = True, stamps=None, clips_per_cta=None):
+    """The forward; returns (out, saved). Inside
+    :func:`mhsa_fwd_kernel_fits` one launch of the tile program
+    (``pmce_mhsa_fwd_tile``, ``clips_per_cta`` clips a CTA, by default
+    :func:`mhsa_fwd_plan`'s), which writes the state the backward reads
+    (qkv, o, the softmax statistics) only with ``for_grad`` (else ``saved``
+    is None three times); outside it the launch sequence
+    (``pmce_mhsa_fwd``), which writes it always. ``stamps`` (int64 [grid,
+    4] on the card): the stamped tile program, not counted."""
     clips, N, C = x.shape
     _attn_checks("fused_mhsa", x)
     _cuda.check_cuda(x, "x", torch.bfloat16, (clips, N, C))
     dev, M = x.device, clips * N
     bf16, f32 = torch.bfloat16, torch.float32
-    qkv = torch.empty(M, 3 * C, device=dev, dtype=bf16)
-    o = torch.empty(M, C, device=dev, dtype=bf16)
-    stats = torch.empty(2, clips * num_heads * N, device=dev, dtype=f32)
+    tile = mhsa_fwd_kernel_fits(N, C, num_heads)
+    save = for_grad or not tile
+    qkv, o, stats = ((torch.empty(M, 3 * C, device=dev, dtype=bf16),
+                      torch.empty(M, C, device=dev, dtype=bf16),
+                      torch.empty(2, clips * num_heads * N, device=dev,
+                                  dtype=f32))
+                     if save else (None, None, None))
+    sm, sl = (stats[0], stats[1]) if save else (None, None)
     out = torch.empty_like(x)
-    _cuda.MHSA.call("pmce_mhsa_fwd", _cuda.ptr_table(
-        x, _bf16_mat(wqkv, dev, C, 3 * C, "wqkv"),
-        _f32_vec(bqkv, dev, 3 * C, "bqkv"),
-        _bf16_mat(wproj, dev, C, C, "wproj"),
-        _f32_vec(bproj, dev, C, "bproj"), qkv, o, stats[0], stats[1], out),
-        clips, N, C, num_heads, _cuda.stream_ptr(dev))
-    MHSA_FWD_LAUNCHES.count += 1
+    w = (_bf16_mat(wqkv, dev, C, 3 * C, "wqkv"),
+         _f32_vec(bqkv, dev, 3 * C, "bqkv"),
+         _bf16_mat(wproj, dev, C, C, "wproj"),
+         _f32_vec(bproj, dev, C, "bproj"))
+    stream = _cuda.stream_ptr(dev)
+    if tile:
+        cpc = clips_per_cta or mhsa_fwd_plan(clips, N, C,
+                                             _card_limits(dev)[0])
+        _cuda.MHSA.call("pmce_mhsa_fwd_tile", _cuda.ptr_table(
+            x, *w, out, qkv, o, sm, sl, stamps), clips, N, C, num_heads,
+            cpc, stream)
+        if stamps is None:
+            MHSA_FWD_LAUNCHES.count += 1
+    else:
+        _cuda.MHSA.call("pmce_mhsa_fwd", _cuda.ptr_table(
+            x, *w, qkv, o, sm, sl, out), clips, N, C, num_heads, stream)
+        MHSA_FWD_SEQ_LAUNCHES.count += 1
     return out, (qkv, o, stats)
+
+
+def mhsa_fwd_stage_split(x, wqkv, bqkv, wproj, bproj, num_heads: int,
+                         clips_per_cta=None) -> dict:
+    """One stamped launch of the forward's tile program on the card (not
+    counted), saving as for a gradient: {stage: cycles summed over the
+    CTAs} for the stages of :data:`MHSA_FWD_STAGES`, ``"ctas"`` and
+    ``"clips_per_cta"``."""
+    clips, N, C = x.shape
+    cpc = clips_per_cta or mhsa_fwd_plan(clips, N, C,
+                                         _card_limits(x.device)[0])
+    ctas = -(-clips // cpc)
+    stamps = torch.zeros(ctas, len(MHSA_FWD_STAGES), dtype=torch.int64,
+                         device=x.device)
+    with torch.no_grad():
+        _mhsa_fwd_cuda(x, wqkv, bqkv, wproj, bproj, num_heads, stamps=stamps,
+                       clips_per_cta=cpc)
+    total = stamps.sum(0).cpu().tolist()
+    return {**dict(zip(MHSA_FWD_STAGES, total)), "ctas": ctas,
+            "clips_per_cta": cpc}
 
 
 def _mhsa_bwd_cuda(g, x, wqkv, wproj, saved, num_heads):
@@ -1527,11 +1603,13 @@ def _mhsa_bwd_cuda(g, x, wqkv, wproj, saved, num_heads):
 
 
 class _MhsaKernel(torch.autograd.Function):
-    """fused_mhsa on the card: forward and backward are ``csrc/mhsa.cu``."""
+    """fused_mhsa on the card: forward and backward are ``csrc/mhsa.cu``
+    (the forward saves what the backward reads only when it is owed)."""
 
     @staticmethod
-    def forward(ctx, x, wqkv, bqkv, wproj, bproj, num_heads):
-        out, saved = _mhsa_fwd_cuda(x, wqkv, bqkv, wproj, bproj, num_heads)
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, num_heads, grad_enabled):
+        out, saved = _mhsa_fwd_cuda(x, wqkv, bqkv, wproj, bproj, num_heads,
+                                    _owed(ctx, grad_enabled))
         ctx.num_heads = num_heads
         ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, *saved)
         return out
@@ -1540,20 +1618,22 @@ class _MhsaKernel(torch.autograd.Function):
     def backward(ctx, g):
         x, wqkv, bqkv, wproj, bproj, *saved = ctx.saved_tensors
         dx, flat = _mhsa_bwd_cuda(g, x, wqkv, wproj, saved, ctx.num_heads)
-        return (dx, *_split_grads(flat, (wqkv, bqkv, wproj, bproj)), None)
+        return (dx, *_split_grads(flat, (wqkv, bqkv, wproj, bproj)), None,
+                None)
 
 
 def fused_mhsa(x, wqkv, bqkv, wproj, bproj, num_heads: int):
     """Multi-head self-attention with its projections (see
     :func:`mhsa_plain`), with its gradient. CPU tensors run the plain
     version; CUDA tensors the kernels of ``csrc/mhsa.cu`` forward and
-    backward (bf16, any token count; widths
+    backward (bf16, any token count: the forward's tile program inside
+    :func:`mhsa_fwd_kernel_fits`, its launch sequence outside; widths
     :func:`attention_kernel_fits` refuses raise)."""
     if not _on_card(x, "fused_mhsa"):
         return mhsa_plain(x, wqkv, bqkv, wproj, bproj, num_heads)
     _attention_require("fused_mhsa", x.shape[-1], num_heads)
     return _MhsaKernel.apply(x.contiguous(), wqkv, bqkv, wproj, bproj,
-                             num_heads)
+                             num_heads, torch.is_grad_enabled())
 
 
 class _AdaWeights(NamedTuple):
@@ -1574,12 +1654,37 @@ def _ada_weights(params, dev) -> _AdaWeights:
                        _bf16_mat(w2, dev, hid, C, "w_fc2"))
 
 
+# The forward's tile programs (csrc/ada_block.cu): launch A (AdaLN1, qkv)
+# and launch B (attention and the block's tail), 4 ordinary CTAs a clip;
+# their stamped stages.
+ADA_FWD_CTAS = 4
+ADA_FWD_STAGES = ("A loads + norm1", "A qkv", "B loads",
+                  "B attention max, sum", "B attention P·V",
+                  "B proj, norm2, MLP")
+_ADA_FWD_A_STAGES = 2
+
+
+def ada_fwd_kernel_fits(N: int, C: int, hid: int) -> bool:
+    """The static shape test of the AdaLN block's forward tile programs, on
+    top of :func:`attention_kernel_fits`: the backward's
+    (:func:`ada_bwd_kernel_fits`: C = 64, hid up to 256, up to 512 tokens,
+    four CTAs of at most 128 rows a clip). Other shapes take the launch
+    sequence (``pmce_ada_block_fwd``)."""
+    return ada_bwd_kernel_fits(N, C, hid)
+
+
 def _ada_fwd_cuda(x, gb, masks, params, num_heads, eps,
-                  keep_branches: bool = False, w=None):
-    """The forward's launch sequence (``csrc/ada_block.cu``); returns (out,
-    saved). ``saved`` ends with the branches a and mo (f32) when
+                  keep_branches: bool = False, w=None, for_grad: bool = True,
+                  stamps=None):
+    """The forward; returns (out, saved). Inside :func:`ada_fwd_kernel_fits`
+    two launches (``pmce_ada_fwd_tile``: A, then B), which write the state
+    the backward reads only with ``for_grad`` (else ``saved`` holds None
+    there); outside it the launch sequence (``pmce_ada_block_fwd``), which
+    writes it always. ``saved`` ends with the branches a and mo (f32) when
     ``keep_branches`` (the mask gradients read them), else None twice.
-    ``w``: the :class:`_AdaWeights` already made, or None."""
+    ``w``: the :class:`_AdaWeights` already made, or None. ``stamps``
+    (int64, ``B * 4 * 6`` values on the card): the stamped programs, not
+    counted."""
     B, N, C = x.shape
     wqkv, bqkv, wproj, bproj, w1, bb1, w2, bb2 = params
     hid = w1.shape[1]
@@ -1588,29 +1693,71 @@ def _ada_fwd_cuda(x, gb, masks, params, num_heads, eps,
     dev, M = x.device, B * N
     bf16, f32 = torch.bfloat16, torch.float32
     w = w or _ada_weights(params, dev)
+    tile = ada_fwd_kernel_fits(N, C, hid)
+    save = for_grad or not tile
 
-    def buf(cols, dt):
-        return torch.empty(M, cols, device=dev, dtype=dt)
+    def buf(cols, dt, wanted=True):
+        return torch.empty(M, cols, device=dev, dtype=dt) if wanted else None
 
-    h1, qkv, o, x1, h2 = (buf(C, bf16), buf(3 * C, bf16), buf(C, bf16),
-                          buf(C, f32), buf(C, bf16))
-    hh, ge = buf(hid, f32), buf(hid, bf16)
-    a, mo = (buf(C, f32), buf(C, f32)) if keep_branches else (None, None)
-    stats = torch.empty(2, B * num_heads * N, device=dev, dtype=f32)
+    # qkv: launch B's keys and values whether saved or not.
+    qkv = buf(3 * C, bf16)
+    h1, o, x1, h2 = (buf(C, bf16, save), buf(C, bf16, save),
+                     buf(C, f32, save), buf(C, bf16, save))
+    hh, ge = buf(hid, f32, save), buf(hid, bf16, save)
+    a, mo = buf(C, f32, keep_branches), buf(C, f32, keep_branches)
+    stats = (torch.empty(2, B * num_heads * N, device=dev, dtype=f32)
+             if save else None)
+    sm, sl = (stats[0], stats[1]) if save else (None, None)
     out = torch.empty_like(x)
     rows = [_f32_rows(t, dev, B, C, n)
             for t, n in zip(gb, ("gamma1", "beta1", "gamma2", "beta2"))]
     m1, m2 = (_mask_rows(m, B, dev) for m in masks)
-    _cuda.ADA.call("pmce_ada_block_fwd", _cuda.ptr_table(
-        x, *rows, m1, m2, w.wqkv, _f32_vec(bqkv, dev, 3 * C, "bqkv"),
-        w.wproj, _f32_vec(bproj, dev, C, "bproj"), w.w1,
-        _f32_vec(bb1, dev, hid, "b_fc1"), w.w2,
-        _f32_vec(bb2, dev, C, "b_fc2"), h1, qkv, o, stats[0], stats[1], x1,
-        h2, hh, ge, out, a, mo), B, N, C, hid, num_heads, eps,
-        _cuda.stream_ptr(dev))
-    ADA_FWD_LAUNCHES.count += 1
-    return out, (rows[0], rows[2], m1, m2, h1, qkv, o, stats, x1, h2, hh, ge,
-                 a, mo)
+    vecs = (_f32_vec(bqkv, dev, 3 * C, "bqkv"),
+            _f32_vec(bproj, dev, C, "bproj"),
+            _f32_vec(bb1, dev, hid, "b_fc1"), _f32_vec(bb2, dev, C, "b_fc2"))
+    stream = _cuda.stream_ptr(dev)
+    if tile:
+        _cuda.ADA.call("pmce_ada_fwd_tile", _cuda.ptr_table(
+            x, *rows, m1, m2, *w, *vecs, out, qkv, h1, o, sm, sl, x1, h2, hh,
+            ge, a, mo, stamps), B, N, hid, num_heads, eps, stream)
+        if stamps is None:
+            ADA_FWD_LAUNCHES.count += 1
+    else:
+        _cuda.ADA.call("pmce_ada_block_fwd", _cuda.ptr_table(
+            x, *rows, m1, m2, w.wqkv, vecs[0], w.wproj, vecs[1], w.w1,
+            vecs[2], w.w2, vecs[3], h1, qkv, o, sm, sl, x1, h2, hh, ge, out,
+            a, mo), B, N, C, hid, num_heads, eps, stream)
+        ADA_FWD_SEQ_LAUNCHES.count += 1
+    return out, (rows[0], rows[2], m1, m2, h1, qkv if save else None, o,
+                 stats, x1, h2, hh, ge, a, mo)
+
+
+def ada_fwd_stage_split(x, gb, params, num_heads: int, eps: float = 1e-6,
+                        branch_masks=None) -> dict:
+    """One stamped run of the forward's two tile programs on the card (not
+    counted), saving as for a gradient: {stage: cycles summed over the
+    CTAs} for the stages of :data:`ADA_FWD_STAGES` (launch A's, then
+    B's), and ``"ctas"`` (of each launch)."""
+    masks = branch_masks if branch_masks is not None else (None, None)
+    ctas = x.shape[0] * ADA_FWD_CTAS
+    stamps = torch.zeros(ctas * len(ADA_FWD_STAGES), dtype=torch.int64,
+                         device=x.device)
+    with torch.no_grad():
+        _ada_fwd_cuda(x, gb, masks, params, num_heads, eps, stamps=stamps)
+    na = ctas * _ADA_FWD_A_STAGES
+    total = (stamps[:na].view(ctas, -1).sum(0).cpu().tolist()
+             + stamps[na:].view(ctas, -1).sum(0).cpu().tolist())
+    return {**dict(zip(ADA_FWD_STAGES, total)), "ctas": ctas}
+
+
+def ada_fwd_waves(B: int) -> tuple[int, int]:
+    """The CTAs of the forward's launch B the card holds at once and the
+    waves a batch of ``B`` clips (4 CTAs each) takes."""
+    resident = int(_cuda.ADA.query("pmce_ada_fwd_resident"))
+    if resident <= 0:
+        raise _cuda.KernelError(f"pmce_ada_fwd_resident: CUDA error "
+                                f"{-resident}")
+    return resident, -(-B * ADA_FWD_CTAS // resident)
 
 
 # The backward's tile program (csrc/ada_block.cu): a cluster of 4 CTAs a
@@ -1740,8 +1887,9 @@ def ada_bwd_stage_split(gout, x, params, saved, num_heads: int,
 
 class _AdaBlockKernel(torch.autograd.Function):
     """ada_block on the card: forward and backward are
-    ``csrc/ada_block.cu`` (the backward: its tile program and its weight-
-    gradient launch, or the launch sequence outside the program's gate).
+    ``csrc/ada_block.cu`` (the forward: its two tile programs, saving only
+    when a gradient is owed; the backward: its tile program and its weight-
+    gradient launch; each the launch sequence outside its program's gate).
     The branch masks get JAX's gradients (per-clip sums) where autograd
     asks for them; the forward then keeps the branches they need."""
 
@@ -1751,7 +1899,8 @@ class _AdaBlockKernel(torch.autograd.Function):
         keep = _owed(ctx, grad_enabled, 5, 6)
         w = _ada_weights(params, x.device)
         out, saved = _ada_fwd_cuda(x, (gamma1, beta1, gamma2, beta2),
-                                   (m1, m2), params, num_heads, eps, keep, w)
+                                   (m1, m2), params, num_heads, eps, keep, w,
+                                   _owed(ctx, grad_enabled))
         ctx.cfg = (num_heads, eps, len(params))
         ctx.weights = w
         ctx.gb = tuple((t.shape, t.dtype)
@@ -1781,8 +1930,9 @@ def ada_block(x, gamma1, beta1, gamma2, beta2, params, num_heads: int,
     """The AdaLN self-attention block with its gradient (see
     :func:`ada_block_plain`). CPU tensors run the plain version; CUDA
     tensors the kernels of ``csrc/ada_block.cu`` forward and backward
-    (bf16, any token count: the backward's tile program inside
-    :func:`ada_bwd_kernel_fits`, its launch sequence outside; widths
+    (bf16, any token count: the forward's two tile programs and the
+    backward's tile program inside :func:`ada_fwd_kernel_fits` /
+    :func:`ada_bwd_kernel_fits`, their launch sequences outside; widths
     :func:`attention_kernel_fits` refuses raise). Branch masks that require
     grad get their gradients."""
     if not _on_card(x, "ada_block"):

@@ -1,8 +1,9 @@
-"""Where the lifter block (rows 6 and 7) and the decoder's AdaLN and
-cross-attention blocks (rows 8-11) spend their time on the card.
+"""Where the lifter block (rows 6 and 7), the decoder's AdaLN and
+cross-attention blocks (rows 8-11) and the self-attention forward (row 4)
+spend their time on the card.
 
     python3 pmce_tpu_torch/tools/profile_block_bwd.py [--root DIR] [--tag T]
-        [--rows block,ca,ada]
+        [--rows block,ca,ada,mhsa]
 
 Imports ``pmce_tpu_torch`` from ``DIR`` (default: the tree this script is
 in; an unpacked earlier commit, say) and builds its libraries. At the
@@ -40,15 +41,26 @@ tree has them, the tile programs' stage splits (``ca_fwd_stage_split``,
 ``ca_bwd_stage_split``). ``--rows ada`` the same for the AdaLN block (rows
 8 and 9) at the vertex stream's ``[32, 431, 64]``, 2 heads
 (``_ada_fwd_cuda``, ``_ada_bwd_cuda``, ``ada_block``,
-``ada_bwd_stage_split``). Where the tree has the tile programs, each one's
-device time at 24 clips and at 32 beside the clusters of 4 CTAs the card
-holds at once (``pmce_ca_tile_clusters``, ``pmce_ada_tile_clusters``):
-whether the batch runs in one wave.
+``ada_bwd_stage_split``; where the tree has them, the forward's two tile
+programs' stage split, ``ada_fwd_stage_split``, and the CTAs of its launch
+B the card holds at once). Where the tree has the tile programs, each
+one's device time at 24 clips and at 32 beside the clusters of 4 CTAs the
+card holds at once (``pmce_ca_tile_clusters``, ``pmce_ada_tile_clusters``):
+whether the batch runs in one wave. ``--rows mhsa``: row 4's forward
+wrapper ``_mhsa_fwd_cuda`` (saving, as for a gradient) with the same
+readings and ``fused_mhsa`` under autograd, at the decoder's joint stream
+``[32, 17, 64]`` (8 heads of 8) and the trunk backward's ``[512, 17,
+256]`` (8 heads of 32), beside one PyTorch call of the same function
+(``F.multi_head_attention_forward`` in bf16 with grad, timed only); where
+the tree has the tile program, its stage split
+(``mhsa_fwd_stage_split``) and its device time at each shape's plan and
+at other clips a CTA (1, 4 and 7 at the trunk's shape).
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import statistics
 import subprocess
 import sys
@@ -60,7 +72,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="tree")
-    ap.add_argument("--rows", default="block,ca,ada")
+    ap.add_argument("--rows", default="block,ca,ada,mhsa")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import numpy as np
@@ -150,6 +162,9 @@ def main() -> int:
     if "ada" in rows_wanted:
         _cuda.ADA.load()
         profile_ada(tag, dev, rng, report, tile_ms)
+    if "mhsa" in rows_wanted:
+        _cuda.MHSA.load()
+        profile_mhsa(tag, dev, rng, report, events_ms, kernels)
     if "block" not in rows_wanted:
         return 0
     _cuda.BLOCK.load()
@@ -349,9 +364,20 @@ def profile_ada(tag, dev, rng, report, tile_ms) -> None:
 
         _, saved = fwd()
         report(where, "fwd", fwd, call)
+        if "for_grad" in inspect.signature(fa._ada_fwd_cuda).parameters:
+            report(where, "fwd, no gradient owed", lambda: fa._ada_fwd_cuda(
+                x, conds, masks, params, heads, 1e-6, for_grad=False))
         report(where, "bwd", lambda: fa._ada_bwd_cuda(
             g, x, params, saved, heads, 1e-6),
             lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
+        if hasattr(fa, "ada_fwd_stage_split"):
+            _split_line(where, "forward tile programs A and B",
+                        fa.ada_fwd_stage_split(x, conds, params, heads, 1e-6,
+                                               masks), fa.ADA_FWD_STAGES)
+            resident, waves = fa.ada_fwd_waves(B)
+            print(f"{where} forward launch B: {resident} CTAs co-resident, "
+                  f"{B} clips {B * fa.ADA_FWD_CTAS} CTAs: {waves} wave(s)",
+                  flush=True)
         if hasattr(fa, "ada_bwd_stage_split"):
             _split_line(where, "tile program",
                         fa.ada_bwd_stage_split(g, x, params, saved, heads,
@@ -368,6 +394,64 @@ def profile_ada(tag, dev, rng, report, tile_ms) -> None:
                            "ada_bwd_tile"))
     del saved, x, g, params, leaves, y
     torch.cuda.empty_cache()
+
+
+def profile_mhsa(tag, dev, rng, report, events_ms, kernels) -> None:
+    """Row 4's forward at the decoder's joint stream and the trunk
+    backward's spatial shape (see the module docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    def r(*shape, scale=0.2, dtype=torch.float32):
+        a = rng.normal(size=shape) * scale
+        return torch.from_numpy(a.astype("float32")).to(dev, dtype)
+
+    bf = torch.bfloat16
+    for label, clips, N, c, cpcs in (("joint", 32, 17, 64, (1, 2)),
+                                     ("trunk", 512, 17, 256, (1, 4, 7))):
+        heads = 8
+        x = r(clips, N, c, scale=1.0, dtype=bf)
+        w = [r(c, 3 * c, scale=c ** -0.5), r(3 * c, scale=0.02),
+             r(c, c, scale=c ** -0.5), r(c, scale=0.02)]
+        where = f"{tag} mhsa {label} [{clips}, {N}, {c}], {heads} heads"
+        leaves = [t.clone().requires_grad_(True) for t in (x, *w)]
+        lib = [x.transpose(0, 1).contiguous(), w[0].t().to(bf).contiguous(),
+               w[1].to(bf), w[2].t().to(bf).contiguous(), w[3].to(bf)]
+        lib = [t.requires_grad_(True) for t in lib]
+
+        def library():
+            q, w_in, b_in, w_out, b_out = lib
+            return F.multi_head_attention_forward(
+                q, q, q, c, heads, w_in, b_in, None, None, False, 0.0, w_out,
+                b_out, training=True, need_weights=False)[0]
+
+        with torch.no_grad():
+            report(where, "fwd", lambda: fa._mhsa_fwd_cuda(x, *w, heads),
+                   lambda: fa.fused_mhsa(*leaves, heads))
+            if "for_grad" in inspect.signature(fa._mhsa_fwd_cuda).parameters:
+                report(where, "fwd, no gradient owed",
+                       lambda: fa._mhsa_fwd_cuda(x, *w, heads,
+                                                 for_grad=False))
+        with torch.enable_grad():
+            print(f"{where} library F.multi_head_attention_forward, bf16, "
+                  f"with grad: {events_ms(library):.4f} ms", flush=True)
+        if not hasattr(fa, "mhsa_fwd_stage_split"):
+            continue
+        with torch.no_grad():
+            _split_line(where, "tile program",
+                        fa.mhsa_fwd_stage_split(x, *w, heads),
+                        fa.MHSA_FWD_STAGES)
+            for cpc in cpcs:
+                ms = sum(t for t, _, key in kernels(
+                    lambda: fa._mhsa_fwd_cuda(x, *w, heads,
+                                              clips_per_cta=cpc))
+                    if "mhf" in key)
+                print(f"{where} tile program at {cpc} clips a CTA "
+                      f"({-(-clips // cpc)} CTAs): {ms:.4f} ms on the card",
+                      flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -14,7 +14,9 @@ and the pointer tables it hands them:
   forward's bf16 weights (no transposed copy), with dm1, dm2 only when
   owed; shapes outside ``ada_bwd_kernel_fits`` take the launch sequence
   ``pmce_ada_block_bwd``, which gives the mask gradients too;
-- row 8 saves a, mo only when a mask's gradient is owed under grad mode.
+- row 8 (its two tile programs, ``pmce_ada_fwd_tile``, inside the gate;
+  the launch sequence ``pmce_ada_block_fwd`` over 512 tokens) saves a, mo
+  only when a mask's gradient is owed under grad mode.
 """
 
 from __future__ import annotations
@@ -34,12 +36,16 @@ from tests.test_torch_port_fwd_redesign import _CA_PTRS, _Launches, _bf16_ca
 # w1, w2, bq, bk, bv, bproj, bb1, bb2, out, nq, nk, nv, q, k, v, o, stat_m,
 # stat_l, x1, h2, hh, ge, a, mo, stamps.
 _CA_SAVED = range(26, 39)
-# pmce_ada_block_fwd's: x, 4 conds, m1, m2, wqkv, bqkv, wproj, bproj, w1,
-# bb1, w2, bb2, h1, qkv, o, stat_m, stat_l, x1, h2, hh, ge, out, a, mo.
+# pmce_ada_fwd_tile's (row 8 inside its gate): x, 4 conds, m1, m2, wqkv,
+# wproj, w1, w2, bqkv, bproj, bb1, bb2, out, qkv, h1, o, stat_m, stat_l,
+# x1, h2, hh, ge, a, mo, stamps. pmce_ada_block_fwd's (the sequence over
+# 512 tokens): x, 4 conds, m1, m2, wqkv, bqkv, wproj, bproj, w1, bb1, w2,
+# bb2, h1, qkv, o, stat_m, stat_l, x1, h2, hh, ge, out, a, mo.
 # pmce_ada_bwd_tile's: x, g, g1, g2, m1, m2, wqkv, wproj, w1, w2, qkv, o,
 # stat_m, stat_l, x1, hh, a, mo, dx, m2g, dhh, da, dqkv, dout, dsum, dgb,
 # dm1, dm2, counters, stamps.
-_ADA_PTRS = {"pmce_ada_block_fwd": 27, "pmce_ada_bwd_tile": 30,
+_ADA_PTRS = {"pmce_ada_fwd_tile": 28, "pmce_ada_block_fwd": 27,
+             "pmce_ada_bwd_tile": 30,
              "pmce_ada_wgrad": 12, "pmce_ada_block_bwd": 27}
 _ORIENT = pytest.mark.parametrize("Nq,Nk,H", [(17, 431, 8), (431, 17, 2)],
                                   ids=["joints-query", "vertices-query"])
@@ -146,8 +152,9 @@ def test_ca_forward_stage_split_is_one_stamped_launch(Nq, Nk, H):
 def test_ada_backward_is_the_tile_program_and_one_weight_launch(N, H,
                                                                 mask_grad):
     """The AdaLN block's backward on the card: exactly the tile program,
-    then the weight-gradient launch, after the forward's one call; both
-    read the forward's bf16 weights on the parameters' own pointers
+    then the weight-gradient launch, after the forward's one call (its two
+    tile programs, ``pmce_ada_fwd_tile``); all read the forward's bf16
+    weights on the parameters' own pointers
     (``_bf16_mat_t`` is never called); the forward saves a, mo and the tile
     program gets them and the dm1, dm2 outputs only when a mask needs its
     gradient; the weight launch's counters are the ones the tile program
@@ -162,19 +169,19 @@ def test_ada_backward_is_the_tile_program_and_one_weight_launch(N, H,
                               side_effect=AssertionError("a transpose")):
         y = fa.ada_block(x, *gb, params, H, 1e-6, masks)
         y.backward(torch.zeros_like(y))
-    assert launches.names == ["pmce_ada_block_fwd", "pmce_ada_bwd_tile",
+    assert launches.names == ["pmce_ada_fwd_tile", "pmce_ada_bwd_tile",
                               "pmce_ada_wgrad"]
     (_, fwd, _), (_, tile, ints), (_, wg, wints) = launches.calls
     weights = [params[i].data_ptr() for i in (0, 2, 4, 6)]
-    assert [fwd[i] for i in (7, 9, 11, 13)] == weights
+    assert fwd[7:11] == weights
     assert tile[6:10] == weights
-    assert tile[10:12] == fwd[16:18]                          # qkv, o
+    assert tile[10:12] == [fwd[16], fwd[18]]                  # qkv, o
     assert bool(fwd[25]) == bool(fwd[26]) == mask_grad       # a, mo saved
     assert tile[16:18] == fwd[25:27]                          # read as saved
     assert bool(tile[26]) == bool(tile[27]) == mask_grad     # dm1, dm2
     assert tile[28] == wg[10] != 0                            # counters
     assert tile[29] == 0                                      # not stamped
-    assert wg[0] == fwd[15] and wg[4] == tile[22]             # h1, dqkv
+    assert wg[0] == fwd[17] and wg[4] == tile[22]             # h1, dqkv
     assert tuple(ints[:4]) == (B, N, 256, H)
     assert tuple(wints[:3]) == (B * N, 256, fa._ADA_WGRAD_SPLITS)
     counts = _cuda.launch_counts()
@@ -190,19 +197,25 @@ def test_ada_backward_is_the_tile_program_and_one_weight_launch(N, H,
     (False, False), (True, False), (True, True), (False, True)],
     ids=["no-grad", "grad", "grad-mask-grads", "no-grad-mask-grads"])
 def test_ada_forward_saves_branches_only_when_owed(grad, mask_grad):
-    """Row 8 keeps its launch sequence (one ``pmce_ada_block_fwd`` call,
-    counted once) and writes the branches a, mo only when a mask's gradient
-    is owed under grad mode: never under ``no_grad``."""
+    """Row 8 is one call of its two tile programs (``pmce_ada_fwd_tile``,
+    counted once by ``ada_block_fwd``; the sequence's counter stays 0): out
+    and qkv always, the rest of the saved state only under grad, and the
+    branches a, mo only when a mask's gradient is owed under grad mode:
+    never under ``no_grad``."""
     x, gb, params, masks = _bf16_ada(2, 17, 8, mask_grad=mask_grad)
     launches = _Launches(_ADA_PTRS)
     _cuda.reset_launch_counts()
     with _enter(_stubs(launches, _cuda.ADA)), torch.set_grad_enabled(grad):
         fa.ada_block(x, *gb, params, 8, 1e-6, masks)
-    assert launches.names == ["pmce_ada_block_fwd"]
-    (_, fwd, _), = launches.calls
+    assert launches.names == ["pmce_ada_fwd_tile"]
+    (_, fwd, ints), = launches.calls
+    assert tuple(ints[:4]) == (2, 17, 256, 8)
     assert bool(fwd[25]) == bool(fwd[26]) == (grad and mask_grad)
-    assert all(fwd[15:25])                                    # saved, out
-    assert _cuda.launch_counts()["ada_block_fwd"] == 1
+    assert fwd[15] and fwd[16]                                # out, qkv
+    assert [bool(fwd[i]) for i in range(17, 25)] == [grad] * 8  # saved
+    assert fwd[27] == 0                                       # not stamped
+    counts = _cuda.launch_counts()
+    assert counts["ada_block_fwd"] == 1 and counts["ada_block_fwd_seq"] == 0
 
 
 @pytest.mark.parametrize("mask_grad", [False, True],
@@ -244,7 +257,7 @@ def test_ada_backward_stage_split_is_one_stamped_launch():
         _, saved = fa._ada_fwd_cuda(x, gb, masks, params, H, 1e-6)
         split = fa.ada_bwd_stage_split(torch.ones_like(x), x, params, saved,
                                        H)
-    assert launches.names == ["pmce_ada_block_fwd", "pmce_ada_bwd_tile"]
+    assert launches.names == ["pmce_ada_fwd_tile", "pmce_ada_bwd_tile"]
     assert launches.calls[1][1][29] != 0
     assert set(split) == {*fa.ADA_BWD_STAGES, "ctas"}
     assert split["ctas"] == B * fa.ADA_BWD_CLUSTER

@@ -641,7 +641,9 @@ def _dec_case(rng, dev, kind, shape):
 
 @pytest.mark.parametrize("kind,shape", [
     ("mhsa", (32, 17, 64, 8)), ("mhsa", (24, 17, 256, 8)),
+    ("mhsa", (512, 17, 256, 8)),
     ("mhsa", (4, 100, 64, 2)), ("ada", (4, 431, 64, 2)),
+    ("ada", (32, 431, 64, 2)),
     ("ada", (5, 17, 64, 8)), ("ca", (4, 17, 64, 8, 431)),
     ("ca", (4, 431, 64, 2, 17))], ids=str)
 def test_decoder_attention_kernels_match_plain(kind, shape):
@@ -794,6 +796,117 @@ def test_ada_block_backward_with_mask_gradients(shape):
         assert a.shape == b.shape and a.dtype == b.dtype, i
         assert float((a.float() - b.float()).abs().max()) <= \
             0.02 * float(b.abs().max()), i
+
+
+@pytest.mark.parametrize("shape,cpc", [
+    ((32, 17, 64, 8), None), ((512, 17, 256, 8), None),
+    ((512, 17, 256, 8), 7), ((544, 16, 256, 8), None), ((6, 16, 64, 2), 3),
+    ((5, 64, 64, 4), None), ((9, 40, 256, 8), 2)], ids=str)
+def test_mhsa_forward_tile_program_matches_plain_and_the_sequence(shape,
+                                                                  cpc):
+    """Row 4's tile program (one counted launch, the sequence's counter 0)
+    at the decoder's [32, 17, 64] (8 heads of 8), the trunk backward's
+    [512, 17, 256] and [544, 16, 256] (8 heads of 32; the plan's clips a
+    CTA and 7), heads of 32 and 16 at C = 64, 64 tokens, and clips split
+    over tiles: within 2 % of the plain version, also at one clip a CTA
+    (the key blocks then start elsewhere); bit for bit on a rerun; every
+    tensor it saves for row 5 (qkv, o, the softmax max and sum) against
+    the launch sequence's within 2 % of its largest magnitude; without a
+    gradient owed, the same output bits."""
+    dev = _card()
+    rng = np.random.default_rng([11, *shape])
+    leaves, _, _ = _dec_case(rng, dev, "mhsa", shape)
+    x, *w = (t.detach() for t in leaves)
+    H = shape[3]
+
+    def fwd(**kw):
+        return fa._mhsa_fwd_cuda(x, *w, H, clips_per_cta=cpc, **kw)
+
+    _cuda.reset_launch_counts()
+    y, saved = fwd()
+    counts = _cuda.launch_counts()
+    assert counts["mhsa_fwd"] == 1 and counts["mhsa_fwd_seq"] == 0
+    y2, saved2 = fwd()
+    assert torch.equal(y, y2)
+    assert all(torch.equal(a, b) for a, b in zip(saved, saved2))
+    y1, _ = fa._mhsa_fwd_cuda(x, *w, H, clips_per_cta=1)
+    assert _rel(y1, y) <= 0.02
+    yn, none = fwd(for_grad=False)
+    assert torch.equal(y, yn) and none == (None, None, None)
+    assert bool(torch.isfinite(y).all())
+    assert _rel(fa.mhsa_plain(x, *w, H), y) <= 0.02
+    with mock.patch.object(fa, "mhsa_fwd_kernel_fits", lambda *a: False):
+        ys, seq = fwd()
+    assert _cuda.launch_counts()["mhsa_fwd_seq"] == 1
+    assert _rel(ys, y) <= 0.02
+    for name, a, b in zip(("qkv", "o", "stats"), seq, saved):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel(a, b) <= 0.02, name
+
+
+@pytest.mark.parametrize("shape,masks", [
+    ((32, 431, 64, 2), True), ((32, 431, 64, 2), False),
+    ((3, 45, 64, 4), True), ((2, 17, 64, 8), True), ((2, 512, 64, 2), True)],
+    ids=str)
+def test_ada_forward_tile_programs_match_plain_and_the_sequence(shape,
+                                                                masks):
+    """Row 8's two tile programs (one counted call, the sequence's counter
+    0) at the vertex stream's [32, 431, 64] with and without branch masks,
+    head widths 16 and 8 and 512 tokens: within 2 % of the plain version;
+    bit for bit on a rerun; every tensor it saves for row 9 (h1, qkv, o,
+    the softmax max and sum, x1, h2, hh, ge, a, mo) against what the launch
+    sequence saves on the same inputs within 2 % of its largest magnitude;
+    without a gradient owed, the same output bits and nothing saved."""
+    dev = _card()
+    rng = np.random.default_rng([13, *shape])
+    leaves, _, _ = _dec_case(rng, dev, "ada", shape)
+    x, *rest = (t.detach() for t in leaves)
+    B, H = shape[0], shape[3]
+    m = (tuple(torch.from_numpy(((rng.random((B, 1, 1)) < 0.8) / 0.8)
+                                .astype(np.float32)).to(dev)
+               for _ in range(2)) if masks else (None, None))
+
+    def fwd(**kw):
+        return fa._ada_fwd_cuda(x, rest[:4], m, rest[4:], H, 1e-6,
+                                keep_branches=masks, **kw)
+
+    _cuda.reset_launch_counts()
+    y, saved = fwd()
+    counts = _cuda.launch_counts()
+    assert counts["ada_block_fwd"] == 1 and counts["ada_block_fwd_seq"] == 0
+    y2, saved2 = fwd()
+    assert torch.equal(y, y2)
+    assert all(a is b is None or torch.equal(a, b)
+               for a, b in zip(saved[4:], saved2[4:]))
+    yn, nosave = fwd(for_grad=False)
+    assert torch.equal(y, yn) and all(t is None for t in nosave[4:12])
+    yp = fa.ada_block_plain(x, *rest[:4], tuple(rest[4:]), H, 1e-6,
+                            m if masks else None)
+    assert bool(torch.isfinite(y).all())
+    assert _rel(yp, y) <= 0.02
+    with mock.patch.object(fa, "ada_fwd_kernel_fits", lambda *a: False):
+        ys, seq = fwd()
+    assert _cuda.launch_counts()["ada_block_fwd_seq"] == 1
+    assert _rel(ys, y) <= 0.02
+    names = ("h1", "qkv", "o", "stats", "x1", "h2", "hh", "ge", "a", "mo")
+    for name, a, b in zip(names, seq[4:], saved[4:]):
+        if a is None:
+            assert b is None and not masks, name
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel(a, b) <= 0.02, name
+
+
+def test_ada_forward_grid_fits_the_card_in_one_wave():
+    """Row 8's launch B at batch 32 (4 CTAs a clip: 128) is no larger than
+    the CTAs the card holds at once (cudaOccupancyMaxActiveBlocksPerMulti-
+    processor x SMs) on a card of 128 SMs or more: one wave."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident, waves = fa.ada_fwd_waves(32)
+    assert resident % sms == 0 and resident >= sms
+    if sms >= 128:
+        assert waves == 1 and 32 * fa.ADA_FWD_CTAS <= resident
 
 
 def test_decoder_attention_kernels_refuse_f32_on_card():
