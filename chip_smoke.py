@@ -21,12 +21,16 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    counter; the decoder's AdaLN and CA block backwards also with branch
    masks that require grad (their gradients against the plain version's,
    rerun bit for bit); the CTAs of row 8's forward the card holds at once
-   and the waves a batch of 32 takes. Library yardsticks, timed only:
+   and the waves a batch of 32 takes; row 5's backward in exactly its two
+   launches (the tile program and the weight launch, no transposed weight
+   copy). Library yardsticks, timed only:
    ``nn.GRU`` in bf16 for the GRU rows (with the backend that ran),
    ``F.multi_head_attention_forward`` for rows 4 / 5 (row 4 against it
    three more times in turn at both of its shapes), ``nn.TransformerEncoder``
    (pre-norm, erf GELU, the post-norm as its ``norm``) for row 6, with grad
-   and on its no-grad fast path;
+   and on its no-grad fast path, and its autograd backward for row 7; one
+   ``torch.einsum`` of the weights, transforms and homogeneous vertices for
+   row 15 (skinning, with its share of its bound);
 3. serving forward: ``create_pmce(num_joint=19, dtype=bfloat16, fused=True,
    device="cuda")`` at full width, random weights from a seed, B=256. The
    launch counters are zeroed just before it and read just after: every
@@ -72,8 +76,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    the decoder's attention blocks on their kernels forward and backward
    (``fused_mhsa``, ``ada_block``, ``ca_block``) and the lifter's blocks on
    theirs. The counters must equal the path's launches exactly (the launch
-   sequences of rows 4, 8, 9 and 10, outside their tile programs' gates,
-   none), and row 8's forward must fill the card in one wave (on a card of
+   sequences of rows 4, 5, 8, 9 and 10, outside their tile programs'
+   gates, none), and row 8's forward must fill the card in one wave (on a card of
    128 SMs or more); the fixed
    batch's loss must fall; the first step's loss and gradients agree with
    the plain path, the attention blocks' own parameters more tightly (with
@@ -87,7 +91,8 @@ whole block (row 14), the GRU's backward scan (row 13), the block
 forward's and backward's tile programs (rows 6, 7), the CA block's
 forward and backward tile programs (rows 10, 11), the AdaLN block's
 forward (row 8, both launches) and backward (row 9) and the
-self-attention forward's (row 4, at both of its shapes): one call of each
+self-attention forward's and backward's (rows 4 and 5, at both of their
+shapes): one call of each
 kernel's
 clock64()-stamped instantiation (not counted as a launch) books every
 tile's, CTA's or clip's cycles to its stages.
@@ -172,10 +177,10 @@ MESH_TRAINING = ("gru_layer_save", "gru_layer_bwd", "gru_bwd_scan",
 # The decoder's attention blocks (phase 6; idle in phase 5).
 DECODER = ("mhsa_fwd", "mhsa_bwd", "ada_block_fwd", "ada_block_bwd",
            "ca_block_fwd", "ca_block_bwd")
-# The launch sequences of rows 4, 8, 9 and 10 outside their tile programs'
-# gates: no shape of the Stage-2 step reaches them.
-DECODER_SEQ = ("mhsa_fwd_seq", "ada_block_fwd_seq", "ada_block_bwd_seq",
-               "ca_block_fwd_seq")
+# The launch sequences of rows 4, 5, 8, 9 and 10 outside their tile
+# programs' gates: no shape of the Stage-2 step reaches them.
+DECODER_SEQ = ("mhsa_fwd_seq", "mhsa_bwd_seq", "ada_block_fwd_seq",
+               "ada_block_bwd_seq", "ca_block_fwd_seq")
 MESH_IDLE = ("lifter_trunk", "lifter_trunk_long", "coevo_chain", "block_fwd", "block_bwd",
              "skinning", "coevo_block", *DECODER, *DECODER_SEQ)
 # Kernel vs plain version on identical inputs, as max|kernel - plain| over
@@ -671,15 +676,18 @@ def block_case(rng, device, clips: int, N: int, rate: float):
     return x, params, masks, g
 
 
-def block_library_ms(x, params, y_plain, masks) -> tuple:
-    """Row 6's yardstick: one PyTorch call computing the same block,
-    ``nn.TransformerEncoder`` of one pre-norm ``TransformerEncoderLayer``
-    (exact-erf GELU, eps 1e-6) with the post-norm as its ``norm``, in bf16 on
-    the same weights (timed only; the port never calls it): the forward
-    with grad (training mode, as the kernel's saving forward runs) and the
-    no-grad fast path (eval mode). No branch masks (it has none): where the
-    case has masks, its error against the plain version is not printed
-    (NaN). Returns (ms with grad, ms no-grad, max|library - plain|)."""
+def block_library_ms(x, params, y_plain, masks, g) -> tuple:
+    """Rows 6 and 7's yardstick: one PyTorch call computing the same
+    block, ``nn.TransformerEncoder`` of one pre-norm
+    ``TransformerEncoderLayer`` (exact-erf GELU, eps 1e-6) with the
+    post-norm as its ``norm``, in bf16 on the same weights (timed only; the
+    port never calls it): the forward with grad (training mode, as the
+    kernel's saving forward runs), the no-grad fast path (eval mode) and
+    the autograd backward of the forward with grad for the cotangent g (the
+    gradients of the tokens and every parameter). No branch masks (it has
+    none): where the case has masks, its error against the plain version
+    is not printed (NaN). Returns (ms with grad, ms no-grad, max|library -
+    plain|, backward ms)."""
     import torch
     from torch import nn
 
@@ -710,11 +718,14 @@ def block_library_ms(x, params, y_plain, masks) -> tuple:
     with torch.enable_grad():
         grad_ms = median_ms(lambda: enc(xin))
         y = enc(xin)
+        leaves = [xin, *enc.parameters()]
+        bwd_ms = median_ms(lambda: torch.autograd.grad(y, leaves, g,
+                                                       retain_graph=True))
     enc.eval()
     with torch.no_grad():
         fast_ms = median_ms(lambda: enc(xin))
     err = float("nan") if masks else max_err(y, y_plain)
-    return grad_ms, fast_ms, err
+    return grad_ms, fast_ms, err, bwd_ms
 
 
 def block_saving_floor(x, params, masks, y, fwd) -> None:
@@ -786,7 +797,7 @@ def check_blocks(device, rows) -> None:
                 plain_ms = median_ms(
                     lambda: fwd(fa.transformer_block_plain), iters=5)
             else:
-                ms = median_ms(lambda: bwd(yk))
+                ms = bwd_ms = median_ms(lambda: bwd(yk))
                 plain_ms = median_ms(lambda: bwd(yp), iters=5)
             ok = rel <= TOL[name]
             print(f"[kernels] {name} {where}: max_abs_err={err:.6g} "
@@ -808,14 +819,17 @@ def check_blocks(device, rows) -> None:
             raise RuntimeError(f"block_bwd {where}: two runs differ")
         print(f"[kernels] block_bwd {where}: a second run gives the same "
               f"gradients bit for bit", flush=True)
-        lib_grad, lib_fast, lib_err = block_library_ms(x, params, yp, masks)
+        lib_grad, lib_fast, lib_err, lib_bwd = block_library_ms(
+            x, params, yp, masks, g)
         if rows["block_fwd"]["library_ms"] is None:
             rows["block_fwd"]["library_ms"] = lib_grad
+            rows["block_bwd"]["library_ms"] = lib_bwd
         print(f"[kernels] library: nn.TransformerEncoder (pre-norm, erf "
               f"GELU, post-norm) {where}, bf16, no masks: {lib_grad:.4f} ms "
               f"with grad, {lib_fast:.4f} ms no-grad fast path (kernel "
-              f"{fwd_ms:.4f} ms); max|library - plain| {lib_err:.4g}",
-              flush=True)
+              f"{fwd_ms:.4f} ms); autograd backward {lib_bwd:.4f} ms "
+              f"(kernel {bwd_ms:.4f} ms); max|library - plain| "
+              f"{lib_err:.4g}", flush=True)
         del yk, yp, gk, gp, repeat
 
 
@@ -953,6 +967,38 @@ def mha_library_ms(leaves, heads: int) -> tuple[float, float]:
         y, args, g, retain_graph=True)))
 
 
+def mhsa_backward_launches(bwd, y, where: str):
+    """Row 5's backward under autograd with the entry points of its
+    library recorded and any transposed weight copy refused: exactly the
+    tile program, then the weight launch. Returns the gradients."""
+    from unittest import mock
+
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    names = []
+    real = _cuda.MHSA.call
+
+    def spy(name, *args):
+        names.append(name)
+        return real(name, *args)
+
+    def no_copy(*args, **kwargs):
+        raise RuntimeError(f"mhsa_bwd {where}: a transposed weight copy")
+
+    with mock.patch.object(_cuda.MHSA, "call", spy), \
+            mock.patch.object(fa, "_bf16_mat_t", no_copy):
+        grads = bwd(y)
+    if not y.is_cuda:  # a rehearsal on the CPU: the plain version
+        return grads
+    if names != ["pmce_mhsa_bwd_tile", "pmce_mhsa_wgrad"]:
+        raise RuntimeError(f"mhsa_bwd {where}: launches {names}, expected "
+                           "the tile program and the weight launch")
+    print(f"[kernels] mhsa_bwd {where}: the backward is exactly "
+          f"{' then '.join(names)}, no transposed weight copy", flush=True)
+    return grads
+
+
 def ada_fwd_waves(device, tag: str) -> int:
     """Print the CTAs of row 8's forward (launch B, 4 a clip) the card holds
     at once and the waves a batch of BM clips takes; return the waves."""
@@ -1010,12 +1056,14 @@ def check_decoder_blocks(device, rows) -> None:
             return torch.autograd.grad(y, leaves, g, retain_graph=True)
 
         yk, yp = call(kernel, *leaves), call(plain, *leaves)
-        gk, gp = bwd(yk), bwd(yp)
-        torch.cuda.synchronize()
-        largest = max(float(t.float().abs().max()) for t in gp)
         where = (f"{label} [{clips}, {N}, {c}]" + (f" over {Nk} keys"
                                                     if Nk else "")
                  + f", {heads} heads")
+        gk = (mhsa_backward_launches(bwd, yk, where) if kind == "mhsa"
+              else bwd(yk))
+        gp = bwd(yp)
+        torch.cuda.synchronize()
+        largest = max(float(t.float().abs().max()) for t in gp)
         for stage, outs_k, outs_p, flop_fn, nbytes in (
                 ("fwd", (yk,), (yp,), lambda: call(plain, *leaves),
                  tensor_bytes(leaves, yk)),
@@ -1111,9 +1159,28 @@ def check_skinning(device, rows) -> None:
     if not ok:
         raise RuntimeError("skinning: kernel disagrees with its plain "
                            f"version ({err} m)")
-    record(rows, "skinning", err, ms, plain_ms,
-           count_flops(lambda: apply_skinning(*args)),
+    flops = count_flops(lambda: apply_skinning(*args))
+    record(rows, "skinning", err, ms, plain_ms, flops,
            tensor_bytes(args, got), "f32")
+    # The yardstick: one einsum of the weights, the transforms' rows 0-2 and
+    # the homogeneous vertices, made beforehand (f32, TF32 off: PyTorch's
+    # default for matrix products, stated here).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    v, A, w = args
+    vh = torch.cat([v, torch.ones_like(v[..., :1])], -1)
+    A3 = A[:, :, :3, :].contiguous()
+
+    def library():
+        return torch.einsum("vj,bjmk,bvk->bvm", w, A3, vh)
+
+    lib_ms = median_ms(library)
+    rows["skinning"]["library_ms"] = lib_ms
+    row = rows["skinning"]
+    print(f"[kernels] skinning B={B}: kernel {ms:.4f} ms at "
+          f"{row['bound_ms'] / ms:.1%} of its bound {row['bound_ms']:.4f} ms "
+          f"(by {row['bound_by']}); library torch.einsum {lib_ms:.4f} ms "
+          f"(max|library - plain| {max_err(library(), want):.3g} m)",
+          flush=True)
 
 
 def serve_rate(model, pose2d, img_feat,
@@ -1863,8 +1930,9 @@ def stage_split(device) -> None:
     and the CA block's forward and backward tile programs (rows 10, 11) at
     the Stage-2 step's two orientations, the AdaLN block's forward (row 8,
     launches A and B) and backward (row 9) at its vertex stream, and the
-    self-attention forward's (row 4) at the joint stream and the trunk
-    backward's shape (the plan's clips a CTA, and 7)."""
+    self-attention forward's and backward's (rows 4 and 5) at the joint
+    stream and the trunk backward's shape (the plan's clips a CTA, and
+    7)."""
     import torch
 
     from pmce_tpu_torch.ops import fused_attention as fa
@@ -1967,12 +2035,22 @@ def stage_split(device) -> None:
                                     ("trunk", BM * T, JT, C, None),
                                     ("trunk", BM * T, JT, C, 7)):
         leaves, _, _ = decoder_case(rng, device, "mhsa", clips, N, c, 8)
+        x, wqkv, bqkv, wproj, bproj = (t.detach() for t in leaves)
         with torch.no_grad():
-            split = fa.mhsa_fwd_stage_split(*leaves, 8, clips_per_cta=cpc)
+            split = fa.mhsa_fwd_stage_split(x, wqkv, bqkv, wproj, bproj, 8,
+                                            clips_per_cta=cpc)
+            _, saved = fa._mhsa_fwd_cuda(x, wqkv, bqkv, wproj, bproj, 8,
+                                         clips_per_cta=cpc)
+            bsplit = fa.mhsa_bwd_stage_split(torch.ones_like(x), x, wqkv,
+                                             wproj, saved, 8,
+                                             clips_per_cta=cpc)
         cta_split(f"mhsa_fwd (row 4) tile program, {label} [{clips}, {N}, "
                   f"{c}], 8 heads, {split['clips_per_cta']} clips a CTA",
                   split, fa.MHSA_FWD_STAGES)
-        del leaves
+        cta_split(f"mhsa_bwd (row 5) tile program, {label} [{clips}, {N}, "
+                  f"{c}], 8 heads, {bsplit['clips_per_cta']} clips a CTA",
+                  bsplit, fa.MHSA_BWD_STAGES)
+        del leaves, saved, x
     chain = chain_case(r, B)
     print_split("coevo_chain (K3)", fc.coevo_stage_split("chain", *chain[:5]))
     block = coevo_block_case(r, B)

@@ -66,7 +66,9 @@
 //   head. Then the attention backward over the whole clip, P recomputed
 //   from the forward's saved max and sum: dq of the CTA's query rows over
 //   every key, then (after a cluster barrier) dk and dv of its key rows
-//   over every query. The clip's keys, values, queries and dO stream
+//   over every query (adaln_tile.cuh's attn_bwd_dq / attn_bwd_dkdv, shared
+//   with the self-attention backward, mhsa.cu). The clip's keys, values,
+//   queries and dO stream
 //   through a two-stage cp.async ring in chunks of 64 rows from device
 //   memory: q, k, v from the forward's saved qkv, dO and D from scratch that
 //   each CTA writes for its own rows before the barrier (55 KB of dO a
@@ -891,29 +893,17 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
       const bf16* Vc = Kc + CH * LD;
       const int n = min(CH, N - c * CH);
       if (on) {
+        const auto in = [&](int, int key) { return key < n; };
 #pragma unroll
         for (int h = 0; h < H; ++h) {
           const int ra = (qr + g) * MAXH + h, rb = ra + 8 * MAXH;
           const float m[2] = {Ms[ra], Ms[rb]}, li[2] = {Ls[ra], Ls[rb]};
           const float Dq[2] = {Ds[ra], Ds[rb]};
-          for (int kb = 0; kb < n; kb += 16) {
-            float sc[2][4] = {}, dp[2][4] = {}, ds[2][4];
-            dot_nt<D>(sc, RC + qr * LD + h * D, LD, Kc + kb * LD + h * D, LD);
-            dot_nt<D>(dp, T2w + h * D, LD, Vc + kb * LD + h * D, LD);
-#pragma unroll
-            for (int t = 0; t < 2; ++t)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int hf = e >> 1;
-                const float p = kb + t * 8 + 2 * tq + (e & 1) < n
-                                    ? expf(sc[t][e] - m[hf]) * li[hf]
-                                    : 0.f;
-                ds[t][e] = p * (dp[t][e] - Dq[hf]);
-              }
-            unsigned pa[4];
-            pack_a(pa, ds);
-            dot_pn<D>(dq, h * (D / 8), pa, Kc + kb * LD + h * D, LD);
-          }
+          QFrag<D> qf, df;
+          load_q(qf, RC + qr * LD + h * D, LD);
+          load_q(df, T2w + h * D, LD);
+          attn_bwd_dq<D>(dq, h * (D / 8), qf, df, Kc + h * D, Vc + h * D, LD,
+                         0, n, in, m, li, Dq);
         }
       }
       __syncthreads();
@@ -972,29 +962,16 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
       const float* srd = srl + CH * MAXH;
       const int n = min(CH, N - c * CH);
       if (on) {
+        // A query past the chunk's n rows has the statistics 0, 0: P = 0.
+        const auto in = [&](int hf, int) { return hf ? v1 : v0; };
 #pragma unroll
         for (int h = 0; h < H; ++h) {
-          for (int qb = 0; qb < n; qb += 16) {
-            float st[2][4] = {}, dpt[2][4] = {}, pt[2][4], dst[2][4];
-            dot_nt<D>(st, RD + qr * LD + h * D, LD, Qc + qb * LD + h * D, LD);
-            dot_nt<D>(dpt, RC + qr * LD + h * D, LD, DOc + qb * LD + h * D,
-                      LD);
-#pragma unroll
-            for (int t = 0; t < 2; ++t)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int q = (qb + t * 8 + 2 * tq + (e & 1)) * MAXH + h;
-                const bool in = (e >> 1) ? v1 : v0;
-                const float p = in ? expf(st[t][e] - srm[q]) * srl[q] : 0.f;
-                pt[t][e] = p;
-                dst[t][e] = p * (dpt[t][e] - srd[q]);
-              }
-            unsigned pa[4], pb[4];
-            pack_a(pa, pt);
-            pack_a(pb, dst);
-            dot_pn<D>(dv, h * (D / 8), pa, DOc + qb * LD + h * D, LD);
-            dot_pn<D>(dk, h * (D / 8), pb, Qc + qb * LD + h * D, LD);
-          }
+          QFrag<D> kf, vf;
+          load_q(kf, RD + qr * LD + h * D, LD);
+          load_q(vf, RC + qr * LD + h * D, LD);
+          attn_bwd_dkdv<D>(dk, dv, h * (D / 8), kf, vf, Qc + h * D, LD,
+                           DOc + h * D, LD, 0, n, in, srm + h, srl + h,
+                           srd + h, MAXH);
         }
       }
       __syncthreads();

@@ -1,8 +1,9 @@
 // Device pieces of the decoder's AdaLN tile programs: the CA block's
 // forward (row 10) and backward (row 11) in ca_block.cu, the AdaLN
 // self-attention block's forward (row 8) and backward (row 9) in
-// ada_block.cu; and of the self-attention forward's tile programs (row 4)
-// in mhsa.cu (the two-pass attention of a tile of whole clips).
+// ada_block.cu; and of the self-attention forward's and backward's tile
+// programs (rows 4 and 5) in mhsa.cu (the two-pass attention of a tile of
+// whole clips, and its backward, which row 9 shares).
 //
 // Clusters of CL = 4 CTAs a clip (rows 9-11), or 4 ordinary CTAs a clip
 // (row 8); 8 warps a CTA, C = 64 channels. A warp
@@ -576,6 +577,28 @@ __device__ __forceinline__ void softmax_probs(float (&sc)[2][4], In in,
     }
 }
 
+// The key (or query) blocks that a warp's 16 rows r0 .. of a tile of whole
+// clips of n rows (nrows of them valid, r0 < nrows) meet: the 16-row blocks
+// [beg, end) their clips span, and the clip [lo, hi) of each of the lane's
+// two rows (empty past nrows).
+struct ClipSpan {
+  int beg, end, lo[2], hi[2];
+  __device__ __forceinline__ ClipSpan(int r0, int n, int nrows) {
+    const int g = (threadIdx.x & 31) >> 2;
+    beg = r0 / n * n / 16 * 16;
+    end = (min(r0 + 15, nrows - 1) / n + 1) * n;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = r0 + g + 8 * hf;
+      lo[hf] = r < nrows ? r / n * n : 0;
+      hi[hf] = r < nrows ? lo[hf] + n : 0;
+    }
+  }
+  __device__ __forceinline__ bool operator()(int hf, int i) const {
+    return i >= lo[hf] && i < hi[hf];
+  }
+};
+
 // One head's attention for a warp's 16 query rows q0 .. of a tile of whole
 // clips of n rows (nrows of them valid, q0 < nrows), each query over its
 // own clip's keys: q, k, v the head's D columns of the tile's rows (row
@@ -589,25 +612,14 @@ __device__ __forceinline__ void clip_attention(const bf16* q, const bf16* k,
                                                int n, int nrows,
                                                float (&o)[D / 8][4],
                                                float (&m)[2], float (&l)[2]) {
-  const int g = (threadIdx.x & 31) >> 2;
-  const int last = min(q0 + 15, nrows - 1);
-  const int k_beg = q0 / n * n / 16 * 16, k_end = (last / n + 1) * n;
-  int lo[2], hi[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int r = q0 + g + 8 * hf;
-    lo[hf] = r < nrows ? r / n * n : 0;
-    hi[hf] = r < nrows ? lo[hf] + n : 0;
-  }
+  const ClipSpan sp(q0, n, nrows);
   QFrag<D> qf;
   load_q(qf, q + q0 * ld, ld);
   m[0] = m[1] = -INFINITY;
   l[0] = l[1] = 0.f;
 #pragma unroll UNROLL
-  for (int kb = k_beg; kb < k_end; kb += 16) {
-    const auto in = [&](int hf, int c) {
-      return kb + c >= lo[hf] && kb + c < hi[hf];
-    };
+  for (int kb = sp.beg; kb < sp.end; kb += 16) {
+    const auto in = [&](int hf, int c) { return sp(hf, kb + c); };
     float sc[2][4] = {};
     dot_q<D>(sc, qf, k + kb * ld, ld);
     softmax_fold(sc, in, m, l);
@@ -616,16 +628,88 @@ __device__ __forceinline__ void clip_attention(const bf16* q, const bf16* k,
   const float li[2] = {l[0] > 0.f ? 1.0f / l[0] : 0.f,
                        l[1] > 0.f ? 1.0f / l[1] : 0.f};
 #pragma unroll UNROLL
-  for (int kb = k_beg; kb < k_end; kb += 16) {
-    const auto in = [&](int hf, int c) {
-      return kb + c >= lo[hf] && kb + c < hi[hf];
-    };
+  for (int kb = sp.beg; kb < sp.end; kb += 16) {
+    const auto in = [&](int hf, int c) { return sp(hf, kb + c); };
     float sc[2][4] = {};
     dot_q<D>(sc, qf, k + kb * ld, ld);
     softmax_probs(sc, in, m, li);
     unsigned pa[4];
     pack_a(pa, sc);
     dot_pn<D>(o, 0, pa, v + kb * ld, ld);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The attention backward at the plain version's cast points, shared by the
+// self-attention backward (row 5, mhsa.cu) and the AdaLN block's (row 9,
+// ada_block.cu): P recomputed from the forward's saved max m and sum (li =
+// 1 / l) as clip_attention forms it, dP = dO V^T, dS = P (dP - D) with D =
+// dO . O over the head's columns (the caller's), dS and P rounded to bf16
+// before their products, f32 sums. A row's statistics: index 0 of m, li,
+// Dq for row g, 1 for g + 8.
+// ---------------------------------------------------------------------------
+
+// dq += dS K (a [16, D] block of a [16, 8 NA] accumulator from n8 tile
+// base; not scaled) of a warp's 16 query rows, whose q and dO A fragments
+// are qf, df, over the key blocks [k_beg, k_end) of K and V (a head's D
+// columns at row stride ld); in(hf, key): the keys a row attends to.
+template <int D, int NA, typename In>
+__device__ __forceinline__ void attn_bwd_dq(
+    float (&dq)[NA][4], int base, const QFrag<D>& qf, const QFrag<D>& df,
+    const bf16* K, const bf16* V, int ld, int k_beg, int k_end, In in,
+    const float (&m)[2], const float (&li)[2], const float (&Dq)[2]) {
+  const int tq = threadIdx.x & 3;
+  for (int kb = k_beg; kb < k_end; kb += 16) {
+    float sc[2][4] = {}, dp[2][4] = {};
+    dot_q<D>(sc, qf, K + kb * ld, ld);
+    dot_q<D>(dp, df, V + kb * ld, ld);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        const float p = in(hf, kb + t * 8 + 2 * tq + (e & 1))
+                            ? exp_s(sc[t][e] - m[hf]) * li[hf]
+                            : 0.f;
+        sc[t][e] = p * (dp[t][e] - Dq[hf]);
+      }
+    unsigned pa[4];
+    pack_a(pa, sc);
+    dot_pn<D>(dq, base, pa, K + kb * ld, ld);
+  }
+}
+
+// dv += P^T dO and dk += dS^T Q (blocks of [16, 8 NA] accumulators from n8
+// tile base) of a warp's 16 key rows, whose k and v A fragments are kf, vf,
+// over the query blocks [q_beg, q_end) of Q and DO (a head's D columns at
+// row strides ldq, ldd), query q's statistics at sm[q * ss], sl[q * ss],
+// sd[q * ss] (read only where in(hf, q): query q attends key row hf).
+template <int D, int NA, typename In>
+__device__ __forceinline__ void attn_bwd_dkdv(
+    float (&dk)[NA][4], float (&dv)[NA][4], int base, const QFrag<D>& kf,
+    const QFrag<D>& vf, const bf16* Q, int ldq, const bf16* DO, int ldd,
+    int q_beg, int q_end, In in, const float* sm, const float* sl,
+    const float* sd, int ss) {
+  const int tq = threadIdx.x & 3;
+  for (int qb = q_beg; qb < q_end; qb += 16) {
+    float st[2][4] = {}, dpt[2][4] = {}, ds[2][4];
+    dot_q<D>(st, kf, Q + qb * ldq, ldq);
+    dot_q<D>(dpt, vf, DO + qb * ldd, ldd);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = qb + t * 8 + 2 * tq + (e & 1);
+        const bool ok = in(e >> 1, q);
+        const float p = ok ? exp_s(st[t][e] - sm[q * ss]) * sl[q * ss] : 0.f;
+        ds[t][e] = ok ? p * (dpt[t][e] - sd[q * ss]) : 0.f;
+        st[t][e] = p;
+      }
+    unsigned pa[4], pb[4];
+    pack_a(pa, st);
+    pack_a(pb, ds);
+    dot_pn<D>(dv, base, pa, DO + qb * ldd, ldd);
+    dot_pn<D>(dk, base, pb, Q + qb * ldq, ldq);
   }
 }
 

@@ -258,40 +258,9 @@ struct StageClock {
   }
 };
 
-// The B fragments of two n8 tiles (n0, n0 + 8) for k16 at k0 from a slice in
-// [n, k] order: b[0], b[1] tile n0; b[2], b[3] tile n0 + 8.
-__device__ __forceinline__ void ldsm_b_nk(unsigned (&b)[4], const bf16* w,
-                                          int ld, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(b, w + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
-                 ((lane >> 3) & 1) * 8);
-}
-
-// acc[128, 256] += A[:, col0 .. col0 + 32] @ W^T, W a [256, 32] slice in
-// [n, k] order; warp (wm, wn) owns rows wm*64.., columns wn*64.. .
-__device__ __forceinline__ void gemm_wide(const bf16* A, int lda, int col0,
-                                          const bf16* w, int wm, int wn,
-                                          float (&acc)[4][8][4]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < 32; kk += 16) {
-    unsigned af[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      ldsm_x4(af[i], A + (wm * 64 + i * 16 + (lane & 15)) * lda + col0 + kk +
-                         (lane >> 4) * 8);
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      unsigned bf[4];
-      ldsm_b_nk(bf, w, LDW_C, wn * 64 + nb * 16, kk);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        mma_bf16(acc[i][2 * nb], af[i], bf[0], bf[1]);
-        mma_bf16(acc[i][2 * nb + 1], af[i], bf[2], bf[3]);
-      }
-    }
-  }
-}
+// W^T products over [256, 32] column blocks: tile_block.cuh's (shared with
+// the self-attention backward's tile program, mhsa.cu).
+using tb::gemm_wide;
 
 // The tile's column sums of a quantity that each lane holds for its 8
 // columns (lane * 8 ..) over its warp's rows: the warps' partials added in

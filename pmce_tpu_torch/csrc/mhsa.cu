@@ -44,16 +44,48 @@
 // around attention_ops.cuh's thread-per-query kernel, which streams keys
 // through shared memory and keeps each query's softmax max and sum.
 //
-// Backward (simple first): the saved qkv, head outputs and statistics; the
-// attention pass runs twice, query-major for dq and key-major for dk / dv,
-// so that every gradient element is summed by one thread; the parameter
-// gradients are split-K partial tiles added in a fixed order (no float
-// atomics: reruns agree bit for bit). One C call runs each direction's
-// whole sequence.
+// Backward, two launches inside the forward's gate, on the state the
+// forward saved (qkv with q pre-scaled, o, the softmax max and sum):
+// - the tile program (mhb::): a CTA owns the forward's whole clips, so
+//   every dk and dv row is summed inside the CTA that owns it (no cluster,
+//   no device barrier, no float atomic: reruns are bit-identical). Per
+//   head, dO = g @ Wproj^T (W^T's B fragments from W's own rows), D = dO .
+//   O (the row sums of the softmax backward in the form row 9 uses: D =
+//   sum_j P_ij dP_ij with O = P V, from the saved bf16 o and the bf16 dO),
+//   P recomputed from the saved q, k, max and sum as clip_attention forms
+//   it, dS = P (dP - D), dq = dS K qscale, dk = dS^T Q, dv = P^T dO (P and
+//   dS rounded to bf16 before their products, f32 sums: adaln_tile.cuh's
+//   attn_bwd_dq / attn_bwd_dkdv, shared with row 9), all on mma.sync
+//   (m16n8k8 for heads of 8); it writes dqkv (the weight launch's operand)
+//   and dx = dqkv @ Wqkv^T, and zeroes the weight launch's counters.
+//   C = 64 (mhb::narrow_kernel): both weights whole in shared memory, the
+//   tile's q, k, v, dO (over g), dq, dk, dv as [128, 72] tiles: dO by
+//   16-row blocks, the attention by (16-row block, head) items (every warp
+//   busy at one clip a CTA), dx by 16-row blocks: 172 KB of shared memory
+//   (one CTA an SM), 106-115 registers (stamped 110-117), no spills.
+//   C = 256 (mhb::wide_kernel): per head, its q | k | v columns and
+//   Wproj's 32 head rows double-buffered by cp.async, dO_h and the
+//   attention of a warp's 16 rows; dqkv's head columns go to device
+//   memory, and dx is a second phase over K = 3C (Wqkv^T's [256, 32]
+//   column blocks with the tile's own dqkv columns, read back from L2,
+//   through a 3-stage ring over the spent tiles): a [128, 256] f32
+//   accumulator beside the per-head attention state would spill. 163 KB of
+//   shared memory, 213 registers (stamped 224), no spills.
+// The weight launch takes 96 registers at C = 64 (64 x 64 tiles), 153 at
+// C = 256 (128 x 128). (ptxas -v for sm_90a; chip_smoke.py prints the
+// libraries' [build] lines.)
+// - the weight launch (wgrad.cuh, shared with rows 7, 9 and 11): dWqkv =
+//   x^T dqkv and dWproj = o^T g with dbqkv and dbproj by their column sums,
+//   fixed K ranges added in range order. No transposed weight copy.
+// Outside the gate the backward is the launch sequence (counter mhsa_bwd_seq):
+// transposed weight copies, the attention pass twice on the CUDA cores
+// (query-major for dq, key-major for dk / dv), split-K weight partials
+// added in a fixed order; one C call runs it.
 
 #include "adaln_tile.cuh"
 #include "attention_ops.cuh"
 #include "tile_block.cuh"
+#include "wgrad.cuh"
 
 using namespace pmce;
 
@@ -75,6 +107,39 @@ MhsaWs mhsa_ws(Carve& c, int clips, int N, int C, int H) {
   w.tnpart = c.take<float>(std::max(tn_part_elems(M, C, 3 * C),
                                     tn_part_elems(M, C, C)));
   return w;
+}
+
+// A [128, 256] f32 accumulator (warp (wm, wn): rows wm * 64 .., columns
+// wn * 64 ..) rounded to bf16 into the tile's valid rows of dst (row0 ..).
+__device__ __forceinline__ void store_wide(const float (&acc)[4][8][4],
+                                           bf16* dst, size_t row0, int nrows,
+                                           int wm, int wn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = wm * 64 + i * 16 + g + 8 * hf;
+      if (r >= nrows) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<unsigned*>(dst + (row0 + r) * tb::CW + wn * 64 +
+                                     j * 8 + 2 * tq) =
+            pack_bf2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
+    }
+}
+
+// One launch of a tile program (tile::NTH threads a CTA, `smem` bytes of
+// dynamic shared memory, opted in first) on its argument struct.
+template <typename K, typename A>
+int launch_tile(K kernel, int grid, int smem, const A& a, cudaStream_t s) {
+  const void* k = reinterpret_cast<const void*>(kernel);
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  void* args[] = {const_cast<A*>(&a)};
+  e = cudaLaunchKernel(k, dim3(grid), dim3(tile::NTH), args, smem, s);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
@@ -101,11 +166,13 @@ struct Args {
   tb::BlockArgs ring;                   // the wide program's weight ring
 };
 
-// The tile of whole clips a CTA owns: rows [rows0, rows0 + nrows).
+// The tile of whole clips a CTA owns: rows [rows0, rows0 + nrows) (the
+// backward's CTAs own the forward's).
 struct Tile {
   size_t rows0;
   int nrows;
-  __device__ explicit Tile(const Args& a) {
+  template <typename A>
+  __device__ explicit Tile(const A& a) {
     rows0 = (size_t)blockIdx.x * a.cpc * a.N;
     nrows = min(a.cpc, a.clips - (int)blockIdx.x * a.cpc) * a.N;
   }
@@ -360,45 +427,22 @@ __global__ void __launch_bounds__(tb::NTH, 1) wide_kernel(const Args a) {
     clk(3);
   }
 
-  // ---- the output rows ---------------------------------------------------
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = wm * 64 + i * 16 + g + 8 * hf;
-      if (r >= tl.nrows) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<unsigned*>(a.out + (tl.rows0 + r) * C + wn * 64 +
-                                     j * 8 + 2 * tq) =
-            pack_bf2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
-    }
+  store_wide(acc, a.out, tl.rows0, tl.nrows, wm, wn);
   clk.write(a.stamps);
 }
 
 template <bool PROF>
 int launch(const Args& a, int C, int D, cudaStream_t s) {
   const int grid = (a.clips + a.cpc - 1) / a.cpc;
-  int smem = SMEM_NARROW;
-  const void* k = nullptr;
-  if (C == tb::CW && D == tb::DHD) {
-    k = reinterpret_cast<const void*>(wide_kernel<PROF>);
-    smem = SMEM_WIDE;
-  } else if (C == CW && D == 8) {
-    k = reinterpret_cast<const void*>(narrow_kernel<PROF, 8>);
-  } else if (C == CW && D == 16) {
-    k = reinterpret_cast<const void*>(narrow_kernel<PROF, 16>);
-  } else if (C == CW && D == 32) {
-    k = reinterpret_cast<const void*>(narrow_kernel<PROF, 32>);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t e = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  void* args[] = {const_cast<Args*>(&a)};
-  e = cudaLaunchKernel(k, dim3(grid), dim3(NTH), args, smem, s);
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  if (C == tb::CW && D == tb::DHD)
+    return launch_tile(wide_kernel<PROF>, grid, SMEM_WIDE, a, s);
+  if (C == CW && D == 8)
+    return launch_tile(narrow_kernel<PROF, 8>, grid, SMEM_NARROW, a, s);
+  if (C == CW && D == 16)
+    return launch_tile(narrow_kernel<PROF, 16>, grid, SMEM_NARROW, a, s);
+  if (C == CW && D == 32)
+    return launch_tile(narrow_kernel<PROF, 32>, grid, SMEM_NARROW, a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace mhf
@@ -436,6 +480,503 @@ extern "C" int pmce_mhsa_fwd_tile(void* const* ptrs, int clips, int N, int C,
   if (saved != 0 && saved != 4) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return a.stamps ? launch<true>(a, C, C / H, s) : launch<false>(a, C, C / H, s);
+}
+
+// ---------------------------------------------------------------------------
+// The backward's tile programs (row 5).
+// ---------------------------------------------------------------------------
+namespace mhb {
+
+using namespace tile;
+using mhf::Tile;
+
+constexpr int NSTAMP = 5;  // loads, dO + D, attention dq, attention dk dv,
+                           // dx + store
+
+struct Args {
+  const bf16* g;                        // [M, C] dL/d out
+  const bf16 *wqkv, *wproj;             // [C, 3C], [C, C]
+  const bf16 *qkv, *o;                  // the forward's, q pre-scaled
+  const float *sm, *sl;                 // [clips, H, N] softmax max, sum
+  bf16 *dx, *dqkv;                      // [M, C], [M, 3C]
+  int* counters;                        // the weight launch's, zeroed here
+  int ncounters, clips, N, cpc;
+  float qscale;
+  long long* stamps;                    // [grid, NSTAMP] or null
+};
+
+// A warp's [16, D] accumulator block (n8 tiles 0 .. D / 8) rounded to bf16
+// into the tile t (row stride ldt; null: none) and into dst's valid rows
+// row0 .. (row stride ld, columns col0 ..).
+template <int D>
+__device__ __forceinline__ void store_head(const float (&v)[D / 8][4],
+                                           bf16* t, int ldt, bf16* dst,
+                                           size_t row0, bool v0, bool v1,
+                                           int ld, int col0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+      const int c = d * 8 + 2 * tq;
+      const unsigned pk = pack_bf2(v[d][2 * hf], v[d][2 * hf + 1]);
+      if (t) *reinterpret_cast<unsigned*>(t + (g + 8 * hf) * ldt + c) = pk;
+      if (hf ? v1 : v0)
+        *reinterpret_cast<unsigned*>(dst + (row0 + g + 8 * hf) * ld + col0 +
+                                     c) = pk;
+    }
+}
+
+// The saved softmax max and 1/sum of a tile row r and head h (0, 0 past
+// the tile's rows: no key is attended).
+__device__ __forceinline__ void load_stats(const Args& a, const Tile& tl,
+                                           int r, int h, int H, float& m,
+                                           float& li) {
+  m = li = 0.f;
+  if (r < tl.nrows) {
+    const size_t row = tl.rows0 + r;
+    const size_t si = (row / a.N * H + h) * a.N + row % a.N;
+    m = a.sm[si];
+    li = 1.0f / a.sl[si];
+  }
+}
+
+// C = 64: shared-memory plan, bytes. Both weights; seven [128, 72] bf16
+// tiles (q, k, v, dO over g, dq, dk, dv); the rows' softmax max, 1/sum and
+// D a head.
+constexpr int L3 = 3 * CW, LDQKV = L3 + 8;
+constexpr int TILE = RT * LD * 2;
+constexpr int OFF_WQKV = 0;                           // [64, 200]
+constexpr int OFF_WP = OFF_WQKV + CW * LDQKV * 2;     // [64, 72]
+constexpr int OFF_T = OFF_WP + CW * LD * 2;
+constexpr int OFF_ST = OFF_T + 7 * TILE;
+constexpr int SMEM_NARROW = OFF_ST + 3 * RT * MAXH * 4;
+static_assert(SMEM_NARROW <= 232448, "over the opt-in shared memory");
+
+template <bool PROF, int D>
+__global__ void __launch_bounds__(NTH, 1) narrow_kernel(const Args a) {
+  constexpr int H = CW / D;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Wqkv = reinterpret_cast<bf16*>(smem + OFF_WQKV);
+  bf16* Wp = reinterpret_cast<bf16*>(smem + OFF_WP);
+  const auto T = [&](int i) {
+    return reinterpret_cast<bf16*>(smem + OFF_T + i * TILE);
+  };
+  float* Ms = reinterpret_cast<float*>(smem + OFF_ST);
+  float* Ls = Ms + RT * MAXH;
+  float* Ds = Ls + RT * MAXH;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  StageClock<PROF, NSTAMP> clk;
+  clk.start();
+  if (blockIdx.x == 0 && tid < a.ncounters) a.counters[tid] = 0;
+  const Tile tl(a);
+  const int nb = (tl.nrows + 15) / 16;
+
+  // ---- loads: both weights, the tile's q, k, v and g rows (zeros up to
+  // the next 16), the rows' softmax statistics -----------------------------
+  for (int c = tid; c < CW * (L3 / 8); c += NTH) {
+    const int r = c / (L3 / 8), cc = c % (L3 / 8) * 8;
+    cp_async16(Wqkv + r * LDQKV + cc, a.wqkv + r * L3 + cc, true);
+  }
+  for (int c = tid; c < CW * 8; c += NTH) {
+    const int r = c / 8, cc = c % 8 * 8;
+    cp_async16(Wp + r * LD + cc, a.wproj + r * CW + cc, true);
+  }
+  for (int j = 0; j < 3; ++j)
+    load_rows(T(j), a.qkv, tl.rows0, tl.nrows, L3, j * CW);
+  load_rows(T(3), a.g, tl.rows0, tl.nrows);
+  cp_async_commit();
+  for (int e = tid; e < nb * 16 * H; e += NTH) {
+    const int r = e / H, h = e % H;
+    load_stats(a, tl, r, h, H, Ms[r * MAXH + h], Ls[r * MAXH + h]);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  clk(0);
+
+  // ---- dO = g @ Wproj^T of each 16-row block, rounded to bf16 in place of
+  // g; D = dO . O of each head ----------------------------------------------
+  for (int it = warp; it < nb; it += NW) {
+    const int qr = it * 16;
+    const bool v0 = qr + g < tl.nrows, v1 = qr + g + 8 < tl.nrows;
+    bf16* t = T(3) + qr * LD;
+    float acc[8][4], ov[8][4];
+    zero(acc);
+    gemm16x64(acc, t, LD, Wp, LD);
+    load_frag(ov, a.o, tl.rows0 + qr, v0, v1);
+    __syncwarp();
+    float dpart[2][H] = {};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const unsigned pk = pack_bf2(acc[j][2 * hf], acc[j][2 * hf + 1]);
+        *reinterpret_cast<unsigned*>(t + (g + 8 * hf) * LD + j * 8 +
+                                     2 * tq) = pk;
+        const float2 d2 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&pk));
+        dpart[hf][j * 8 / D] +=
+            d2.x * ov[j][2 * hf] + d2.y * ov[j][2 * hf + 1];
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const float d = quad_sum(dpart[hf][h]);
+        if (tq == 0) Ds[(qr + g + 8 * hf) * MAXH + h] = d;
+      }
+  }
+  __syncthreads();
+  clk(1);
+
+  // ---- attention dq by (16-row block, head) items: dS K over the keys of
+  // the rows' clips, times qscale, into tile 4 and dqkv's q columns ---------
+  for (int it = warp; it < nb * H; it += NW) {
+    const int qr = it / H * 16, h = it % H;
+    const ClipSpan sp(qr, a.N, tl.nrows);
+    const int ra = (qr + g) * MAXH + h, rb = ra + 8 * MAXH;
+    const float m[2] = {Ms[ra], Ms[rb]}, li[2] = {Ls[ra], Ls[rb]};
+    const float Dq[2] = {Ds[ra], Ds[rb]};
+    QFrag<D> qf, df;
+    load_q(qf, T(0) + qr * LD + h * D, LD);
+    load_q(df, T(3) + qr * LD + h * D, LD);
+    float dq[D / 8][4] = {};
+    attn_bwd_dq<D>(dq, 0, qf, df, T(1) + h * D, T(2) + h * D, LD, sp.beg,
+                   sp.end, sp, m, li, Dq);
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[d][e] *= a.qscale;
+    store_head<D>(dq, T(4) + qr * LD + h * D, LD, a.dqkv, tl.rows0 + qr,
+                  qr + g < tl.nrows, qr + g + 8 < tl.nrows, L3, h * D);
+  }
+  clk(2);
+
+  // ---- attention dk, dv by (16-row block, head) items: the block's keys
+  // over the queries of their clips, into tiles 5, 6 and dqkv's k, v
+  // columns ---------------------------------------------------------------
+  for (int it = warp; it < nb * H; it += NW) {
+    const int kr = it / H * 16, h = it % H;
+    const ClipSpan sp(kr, a.N, tl.nrows);
+    QFrag<D> kf, vf;
+    load_q(kf, T(1) + kr * LD + h * D, LD);
+    load_q(vf, T(2) + kr * LD + h * D, LD);
+    float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+    attn_bwd_dkdv<D>(dk, dv, 0, kf, vf, T(0) + h * D, LD, T(3) + h * D, LD,
+                     sp.beg, sp.end, sp, Ms + h, Ls + h, Ds + h, MAXH);
+    const bool v0 = kr + g < tl.nrows, v1 = kr + g + 8 < tl.nrows;
+    store_head<D>(dk, T(5) + kr * LD + h * D, LD, a.dqkv, tl.rows0 + kr, v0,
+                  v1, L3, CW + h * D);
+    store_head<D>(dv, T(6) + kr * LD + h * D, LD, a.dqkv, tl.rows0 + kr, v0,
+                  v1, L3, 2 * CW + h * D);
+  }
+  __syncthreads();
+  clk(3);
+
+  // ---- dx = dq Wq^T + dk Wk^T + dv Wv^T of each 16-row block, Wqkv^T's B
+  // fragments from Wqkv's own rows ------------------------------------------
+  for (int qr = warp * 16; qr < nb * 16; qr += NW * 16) {
+    float acc[8][4];
+    zero(acc);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      gemm16x64(acc, T(4 + j) + qr * LD, LD, Wqkv + j * CW, LDQKV);
+    store_bf(acc, nullptr, a.dx, tl.rows0 + qr, qr + g < tl.nrows,
+             qr + g + 8 < tl.nrows);
+  }
+  clk(4);
+  clk.write(a.stamps);
+}
+
+// C = 256, heads of 32: shared-memory plan, bytes. g's tile [128, 264];
+// two head buffers (the head's q | k | v [128, 104] and Wproj's 32 head
+// rows [32, 264]: the next head's load while one is worked on); the
+// head's dO [128, 40]; its rows' softmax max, 1/sum and D. dx's weight
+// ring (3 stages of Wqkv^T's [256, 32] column blocks with the tile's own
+// [128, 32] dqkv columns) lies over g's tile and the head buffers, spent
+// by then.
+constexpr int HB = tb::TM * tb::LDQ * 2 + tb::DHD * tb::LDW_N * 2;
+constexpr int OFF_GS = 0;
+constexpr int OFF_HB = OFF_GS + tb::TM * tb::LDH * 2;
+constexpr int OFF_DO = OFF_HB + 2 * HB;
+constexpr int OFF_WST = OFF_DO + tb::TM * tb::LDO * 2;
+constexpr int SMEM_WIDE = OFF_WST + 3 * tb::TM * 4;
+constexpr int RING_STAGE = (tb::CW + tb::TM) * tb::LDW_C;  // elements
+constexpr int DX_SLICES = 3 * tb::HEADS;
+static_assert(3 * RING_STAGE * 2 <= OFF_DO, "dx's ring over spent tiles");
+static_assert(SMEM_WIDE <= 232448, "over the opt-in shared memory");
+
+template <bool PROF>
+__global__ void __launch_bounds__(tb::NTH, 1) wide_kernel(const Args a) {
+  using tb::DHD;
+  using tb::LDH;
+  using tb::LDO;
+  using tb::LDQ;
+  using tb::LDW_C;
+  using tb::LDW_N;
+  constexpr int C = tb::CW, H = tb::HEADS, L3W = 3 * C;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* gs = reinterpret_cast<bf16*>(smem + OFF_GS);
+  bf16* dos = reinterpret_cast<bf16*>(smem + OFF_DO);
+  float* Mst = reinterpret_cast<float*>(smem + OFF_WST);
+  float* Lst = Mst + tb::TM;
+  float* Dst = Lst + tb::TM;
+  const auto hbuf = [&](int h) {
+    return reinterpret_cast<bf16*>(smem + OFF_HB + (h & 1) * HB);
+  };
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  StageClock<PROF, NSTAMP> clk;
+  clk.start();
+  if (blockIdx.x == 0 && tid < a.ncounters) a.counters[tid] = 0;
+  const Tile tl(a);
+  const int nrows = tl.nrows;
+  // Head h's q | k | v columns of the tile's rows and Wproj's 32 head rows
+  // into its buffer (rows past the tile's: zeros).
+  const auto issue_head = [&](int h) {
+    bf16* qkv = hbuf(h);
+    bf16* wp = qkv + tb::TM * LDQ;
+    for (int c = tid; c < tb::TM * 12; c += NTH) {
+      const int r = c / 12, seg = c % 12 / 4, cc = c % 4 * 8;
+      const bool ok = r < nrows;
+      cp_async16(qkv + r * LDQ + seg * DHD + cc,
+                 a.qkv + (tl.rows0 + (ok ? r : 0)) * L3W + seg * C +
+                     h * DHD + cc,
+                 ok);
+    }
+    for (int c = tid; c < DHD * (C / 8); c += NTH) {
+      const int r = c / (C / 8), cc = c % (C / 8) * 8;
+      cp_async16(wp + r * LDW_N + cc, a.wproj + (size_t)(h * DHD + r) * C + cc,
+                 true);
+    }
+  };
+  for (int c = tid; c < tb::TM * (C / 8); c += NTH) {
+    const int r = c / (C / 8), cc = c % (C / 8) * 8;
+    const bool ok = r < nrows;
+    cp_async16(gs + r * LDH + cc, a.g + (tl.rows0 + (ok ? r : 0)) * C + cc,
+               ok);
+  }
+  issue_head(0);
+  cp_async_commit();
+
+  // A warp's 16 rows: its queries for dq, its keys for dk and dv.
+  const int q0 = warp * 16;
+  const bool on = q0 < nrows;
+  const bool v0 = q0 + g < nrows, v1 = q0 + g + 8 < nrows;
+  for (int h = 0; h < H; ++h) {
+    if (h + 1 < H) issue_head(h + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    clk(0);
+    const bf16* qkv = hbuf(h);
+    const bf16* wp = qkv + tb::TM * LDQ;
+
+    // ---- dO_h = g @ Wproj[head rows]^T (bf16) and D = dO . O of the
+    // warp's rows, their softmax statistics -------------------------------
+    if (on) {
+      float acc[4][4] = {};
+#pragma unroll 4
+      for (int kk = 0; kk < C; kk += 16) {
+        unsigned af[4];
+        ldsm_x4(af, gs + (q0 + (lane & 15)) * LDH + kk + (lane >> 4) * 8);
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          unsigned bf[4];
+          tb::ldsm_b_nk(bf, wp, LDW_N, nb * 16, kk);
+          mma_bf16(acc[2 * nb], af, bf[0], bf[1]);
+          mma_bf16(acc[2 * nb + 1], af, bf[2], bf[3]);
+        }
+      }
+      float dpart[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = q0 + g + 8 * hf, c = j * 8 + 2 * tq;
+          const unsigned pk = pack_bf2(acc[j][2 * hf], acc[j][2 * hf + 1]);
+          *reinterpret_cast<unsigned*>(dos + r * LDO + c) = pk;
+          if (hf ? v1 : v0) {
+            const float2 d2 = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&pk));
+            const float2 o2 = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(
+                    a.o + (tl.rows0 + r) * C + h * DHD + c));
+            dpart[hf] += d2.x * o2.x + d2.y * o2.y;
+          }
+        }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float d = quad_sum(dpart[hf]);
+        if (tq == 0) Dst[q0 + g + 8 * hf] = d;
+      }
+      if (lane < 16) load_stats(a, tl, q0 + lane, h, H, Mst[q0 + lane],
+                                Lst[q0 + lane]);
+    }
+    __syncthreads();
+    clk(1);
+
+    // ---- the head's attention: dq of the warp's query rows --------------
+    if (on) {
+      const ClipSpan sp(q0, a.N, nrows);
+      const float m[2] = {Mst[q0 + g], Mst[q0 + g + 8]};
+      const float li[2] = {Lst[q0 + g], Lst[q0 + g + 8]};
+      const float Dq[2] = {Dst[q0 + g], Dst[q0 + g + 8]};
+      QFrag<DHD> qf, df;
+      load_q(qf, qkv + q0 * LDQ, LDQ);
+      load_q(df, dos + q0 * LDO, LDO);
+      float dq[DHD / 8][4] = {};
+      attn_bwd_dq<DHD>(dq, 0, qf, df, qkv + DHD, qkv + 2 * DHD, LDQ, sp.beg,
+                       sp.end, sp, m, li, Dq);
+#pragma unroll
+      for (int d = 0; d < DHD / 8; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[d][e] *= a.qscale;
+      store_head<DHD>(dq, nullptr, 0, a.dqkv, tl.rows0 + q0, v0, v1, L3W,
+                      h * DHD);
+    }
+    clk(2);
+
+    // ---- dk and dv of the warp's key rows over their clips' queries -----
+    if (on) {
+      const ClipSpan sp(q0, a.N, nrows);
+      QFrag<DHD> kf, vf;
+      load_q(kf, qkv + q0 * LDQ + DHD, LDQ);
+      load_q(vf, qkv + q0 * LDQ + 2 * DHD, LDQ);
+      float dk[DHD / 8][4] = {}, dv[DHD / 8][4] = {};
+      attn_bwd_dkdv<DHD>(dk, dv, 0, kf, vf, qkv, LDQ, dos, LDO, sp.beg,
+                         sp.end, sp, Mst, Lst, Dst, 1);
+      store_head<DHD>(dk, nullptr, 0, a.dqkv, tl.rows0 + q0, v0, v1, L3W,
+                      C + h * DHD);
+      store_head<DHD>(dv, nullptr, 0, a.dqkv, tl.rows0 + q0, v0, v1, L3W,
+                      2 * C + h * DHD);
+    }
+    __syncthreads();  // every warp is past the head's buffer, dO, D
+    clk(3);
+  }
+
+  // ---- dx = dqkv @ Wqkv^T over K = 3C: per (segment, head) Wqkv's 32
+  // columns (W^T's [256, 32] block, read from W's own rows) with the tile's
+  // own dqkv columns, written above (device memory, read back from L2) ----
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const auto issue_dx = [&](int k) {
+    if (k < DX_SLICES) {
+      bf16* dst = ring + (k % 3) * RING_STAGE;
+      const int off = k % 3 * C + k / 3 * DHD;
+      for (int c = tid; c < C * 4; c += NTH) {
+        const int r = c / 4, cc = c % 4 * 8;
+        cp_async16(dst + r * LDW_C + cc, a.wqkv + (size_t)r * L3W + off + cc,
+                   true);
+      }
+      bf16* adst = dst + C * LDW_C;
+      for (int c = tid; c < tb::TM * 4; c += NTH) {
+        const int r = c / 4, cc = c % 4 * 8;
+        const bool ok = r < nrows;
+        cp_async16(adst + r * LDW_C + cc,
+                   a.dqkv + (tl.rows0 + (ok ? r : 0)) * L3W + off + cc, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  __threadfence_block();
+  __syncthreads();
+  issue_dx(0);
+  issue_dx(1);
+  const int wm = warp >> 2, wn = warp & 3;  // dx: 64 x 64 a warp
+  float acc[4][8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int k = 0; k < DX_SLICES; ++k) {
+    cp_async_wait_one();
+    __syncthreads();
+    issue_dx(k + 2);
+    const bf16* w = ring + (k % 3) * RING_STAGE;
+    if (wm * 64 < nrows) tb::gemm_wide(w + C * LDW_C, LDW_C, 0, w, wm, wn, acc);
+  }
+  store_wide(acc, a.dx, tl.rows0, nrows, wm, wn);
+  clk(4);
+  clk.write(a.stamps);
+}
+
+template <bool PROF>
+int launch(const Args& a, int C, int D, cudaStream_t s) {
+  const int grid = (a.clips + a.cpc - 1) / a.cpc;
+  if (C == tb::CW && D == tb::DHD)
+    return launch_tile(wide_kernel<PROF>, grid, SMEM_WIDE, a, s);
+  if (C == CW && D == 8)
+    return launch_tile(narrow_kernel<PROF, 8>, grid, SMEM_NARROW, a, s);
+  if (C == CW && D == 16)
+    return launch_tile(narrow_kernel<PROF, 16>, grid, SMEM_NARROW, a, s);
+  if (C == CW && D == 32)
+    return launch_tile(narrow_kernel<PROF, 32>, grid, SMEM_NARROW, a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace mhb
+
+// The backward's tile program (row 5): one launch of ceil(clips / cpc) CTAs
+// of the forward's cpc whole clips each. ptrs: g (dL/d out) [M, C] bf16,
+// wqkv [C, 3C], wproj [C, C] (bf16 [in, out]); the forward's saved qkv [M,
+// 3C], o [M, C], stat_m, stat_l [clips, H, N]; dx [M, C]; dqkv [M, 3C] (the
+// weight launch's operand); the weight launch's counters (ncounters int32,
+// zeroed here); stamps (null, or int64 [grid, 5] for the stamped
+// instantiation).
+extern "C" int pmce_mhsa_bwd_tile(void* const* ptrs, int clips, int N, int C,
+                                  int H, int cpc, int ncounters,
+                                  void* stream) {
+  using namespace mhb;
+  if (clips <= 0 || N <= 0 || H <= 0 || C % H || cpc <= 0 ||
+      cpc * N > RT || ncounters < 0 || ncounters > NTH)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.g = static_cast<const bf16*>(ptrs[0]);
+  a.wqkv = static_cast<const bf16*>(ptrs[1]);
+  a.wproj = static_cast<const bf16*>(ptrs[2]);
+  a.qkv = static_cast<const bf16*>(ptrs[3]);
+  a.o = static_cast<const bf16*>(ptrs[4]);
+  a.sm = static_cast<const float*>(ptrs[5]);
+  a.sl = static_cast<const float*>(ptrs[6]);
+  a.dx = static_cast<bf16*>(ptrs[7]);
+  a.dqkv = static_cast<bf16*>(ptrs[8]);
+  a.counters = static_cast<int*>(ptrs[9]);
+  a.stamps = static_cast<long long*>(ptrs[10]);
+  a.ncounters = ncounters;
+  a.clips = clips; a.N = N; a.cpc = cpc;
+  a.qscale = 1.0f / sqrtf(static_cast<float>(C / H));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a.stamps ? launch<true>(a, C, C / H, s) : launch<false>(a, C, C / H, s);
+}
+
+// Row 5's weight and bias gradients in one launch after its tile program
+// (wgrad.cuh, the launch rows 7, 9 and 11 share): dWqkv = x^T dqkv and
+// dWproj = o^T g over K = M rows, dbqkv and dbproj by their column sums
+// (the vpartial route); 64 x 64 output tiles at C = 64, 128 x 128 at C =
+// 256. ptrs: x, o (the products' X), dqkv, g (their dY), partial ([tiles *
+// splits, WT * WT] f32), vpartial ([tiles * splits, WT] f32), counters
+// ([tiles] int32, zeroed by the tile program), out (the gradients of wqkv,
+// bqkv, wproj, bproj concatenated, f32).
+extern "C" int pmce_mhsa_wgrad(void* const* ptrs, int M, int C, int splits,
+                               void* stream) {
+  if (M <= 0 || splits <= 0 || (C != 64 && C != 256))
+    return static_cast<int>(cudaErrorInvalidValue);
+  wg::Args<2> a{};
+  a.X[0] = static_cast<const bf16*>(ptrs[0]);
+  a.X[1] = static_cast<const bf16*>(ptrs[1]);
+  a.G[0] = static_cast<const bf16*>(ptrs[2]);
+  a.G[1] = static_cast<const bf16*>(ptrs[3]);
+  a.partial = static_cast<float*>(ptrs[4]);
+  a.vpartial = static_cast<float*>(ptrs[5]);
+  a.counters = static_cast<int*>(ptrs[6]);
+  a.mat = static_cast<float*>(ptrs[7]);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 64)
+    return wg::launch_wgrad<64>(a, {M, M}, {C, C}, {3 * C, C}, splits, 0, s);
+  return wg::launch_wgrad<128>(a, {M, M}, {C, C}, {3 * C, C}, splits, 0, s);
 }
 
 extern "C" long long pmce_mhsa_workspace(int clips, int N, int C, int H) {

@@ -208,17 +208,22 @@ BLOCK = CudaLibrary("block", "pmce_block_error_string", {
     "pmce_block_bwd_tile": (I, (P, I, I, I, F, F, F, P)),
     "pmce_block_wgrad": (I, (P, I, I, I, I, P)),
 })
+# Skinning: v_posed, A, W, out, B, V, J, bodies a block, stream.
 SKIN = CudaLibrary("skinning", "pmce_skin_error_string", {
-    "pmce_skinning": (I, (P, P, P, P, I, I, I, P)),
+    "pmce_skinning": (I, (P, P, P, P, I, I, I, I, P)),
 })
 # The decoder's attention blocks: one call runs a direction's whole launch
 # sequence from a table of pointers (:func:`ptr_table`); the backward's
 # scratch is one workspace of the size the *_workspace helper gives.
 # The self-attention forward's tile program: a table of its 11 pointers,
-# clips, N, C, heads, clips a CTA, stream.
+# clips, N, C, heads, clips a CTA, stream; the backward's: a table of its
+# 11 pointers, the same integers, the weight launch's tile count, stream;
+# its weight launch: a table of 8 pointers, M, C, splits, stream.
 MHSA = CudaLibrary("mhsa", "pmce_mhsa_error_string", {
     "pmce_mhsa_workspace": (L, (I, I, I, I)),
     "pmce_mhsa_fwd_tile": (I, (P, I, I, I, I, I, P)),
+    "pmce_mhsa_bwd_tile": (I, (P, I, I, I, I, I, I, P)),
+    "pmce_mhsa_wgrad": (I, (P, I, I, I, P)),
     "pmce_mhsa_fwd": (I, (P, I, I, I, I, P)),
     "pmce_mhsa_bwd": (I, (P, I, I, I, I, P)),
 })

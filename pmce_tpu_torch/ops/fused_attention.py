@@ -1422,11 +1422,12 @@ ADA_FWD_LAUNCHES = _cuda.launch_counter("ada_block_fwd")
 ADA_BWD_LAUNCHES = _cuda.launch_counter("ada_block_bwd")
 CA_FWD_LAUNCHES = _cuda.launch_counter("ca_block_fwd")
 CA_BWD_LAUNCHES = _cuda.launch_counter("ca_block_bwd")
-# The launch sequences of the shapes outside rows 4, 8, 9 and 10's tile
-# programs' gates (:func:`mhsa_fwd_kernel_fits`, :func:`ada_fwd_kernel_fits`,
-# :func:`ada_bwd_kernel_fits`, :func:`ca_bwd_kernel_fits`), counted apart
-# from the programs.
+# The launch sequences of the shapes outside rows 4, 5, 8, 9 and 10's tile
+# programs' gates (:func:`mhsa_fwd_kernel_fits` for rows 4 and 5,
+# :func:`ada_fwd_kernel_fits`, :func:`ada_bwd_kernel_fits`,
+# :func:`ca_bwd_kernel_fits`), counted apart from the programs.
 MHSA_FWD_SEQ_LAUNCHES = _cuda.launch_counter("mhsa_fwd_seq")
+MHSA_BWD_SEQ_LAUNCHES = _cuda.launch_counter("mhsa_bwd_seq")
 ADA_FWD_SEQ_LAUNCHES = _cuda.launch_counter("ada_block_fwd_seq")
 ADA_BWD_SEQ_LAUNCHES = _cuda.launch_counter("ada_block_bwd_seq")
 CA_FWD_SEQ_LAUNCHES = _cuda.launch_counter("ca_block_fwd_seq")
@@ -1583,12 +1584,29 @@ def mhsa_fwd_stage_split(x, wqkv, bqkv, wproj, bproj, num_heads: int,
             "clips_per_cta": cpc}
 
 
-def _mhsa_bwd_cuda(g, x, wqkv, wproj, saved, num_heads):
+# The backward's tile program (csrc/mhsa.cu): the forward's whole clips a
+# CTA, inside the forward's gate; its weight launch's K splits; its stamped
+# stages.
+_MHSA_WGRAD_SPLITS = 8
+MHSA_BWD_STAGES = ("loads", "dO + D", "attention dq", "attention dk dv",
+                   "dx + store")
+
+
+def mhsa_wgrad_tiles(C: int) -> tuple[int, int]:
+    """The weight launch's output tile (64 at C = 64, 128 at C = 256) and
+    its number of tiles over dWqkv [C, 3C] and dWproj [C, C]."""
+    wt = 64 if C == 64 else 128
+    n = C // wt
+    return wt, 3 * n * n + n * n
+
+
+def _mhsa_bwd_seq(g, x, wqkv, wproj, saved, num_heads):
+    """The backward's launch sequence (the shapes outside
+    :func:`mhsa_fwd_kernel_fits`): transposed bf16 weight copies, dO's
+    product, the CUDA-core attention backward's two passes, split-K weight
+    partials."""
     clips, N, C = x.shape
     dev = x.device
-    g = g.to(torch.bfloat16).contiguous()
-    _cuda.check_cuda(g, "grad of the attention output", torch.bfloat16,
-                     (clips, N, C))
     qkv, o, stats = saved
     dx = torch.empty_like(x)
     grads = torch.empty(4 * C * C + 4 * C, device=dev, dtype=torch.float32)
@@ -1598,8 +1616,72 @@ def _mhsa_bwd_cuda(g, x, wqkv, wproj, saved, num_heads):
         x, g, _bf16_mat_t(wqkv, dev, 3 * C, C, "wqkvᵀ"),
         _bf16_mat_t(wproj, dev, C, C, "wprojᵀ"), qkv, o, stats[0], stats[1],
         dx, grads, ws), clips, N, C, num_heads, _cuda.stream_ptr(dev))
+    MHSA_BWD_SEQ_LAUNCHES.count += 1
+    return dx, grads
+
+
+def _mhsa_bwd_cuda(g, x, wqkv, wproj, saved, num_heads, stamps=None,
+                   clips_per_cta=None):
+    """The backward of ``csrc/mhsa.cu``; returns (dx, the flat parameter
+    gradients). Inside :func:`mhsa_fwd_kernel_fits`, two launches: the
+    tile program (``pmce_mhsa_bwd_tile``, the forward's clips a CTA: dO, the
+    attention backward on the tensor cores, dx, and dqkv, the weight
+    products' operand) and the weight launch (``pmce_mhsa_wgrad``: dWqkv =
+    xᵀ dqkv, dWproj = oᵀ g and both bias gradients); the weights are read
+    in their [in, out] layout (no transposed copies). Outside it, the launch
+    sequence (:func:`_mhsa_bwd_seq`). ``stamps`` (int64 [ctas, 5] on the
+    card): run only the stamped tile program (not counted) and return
+    None."""
+    clips, N, C = x.shape
+    dev = x.device
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = g.to(bf16).contiguous()
+    _cuda.check_cuda(g, "grad of the attention output", bf16, (clips, N, C))
+    if not mhsa_fwd_kernel_fits(N, C, num_heads):
+        return _mhsa_bwd_seq(g, x, wqkv, wproj, saved, num_heads)
+    qkv, o, stats = saved
+    M = clips * N
+    cpc = clips_per_cta or mhsa_fwd_plan(clips, N, C, _card_limits(dev)[0])
+    wt, tiles = mhsa_wgrad_tiles(C)
+    dx = torch.empty_like(x)
+    dqkv = torch.empty(M, 3 * C, device=dev, dtype=bf16)
+    counters = torch.empty(tiles, device=dev, dtype=torch.int32)
+    stream = _cuda.stream_ptr(dev)
+    _cuda.MHSA.call("pmce_mhsa_bwd_tile", _cuda.ptr_table(
+        g, _bf16_mat(wqkv, dev, C, 3 * C, "wqkv"),
+        _bf16_mat(wproj, dev, C, C, "wproj"), qkv, o, stats[0], stats[1], dx,
+        dqkv, counters, stamps), clips, N, C, num_heads, cpc, tiles, stream)
+    if stamps is not None:
+        return None
+    grads = torch.empty(4 * C * C + 4 * C, device=dev, dtype=f32)
+    splits = _MHSA_WGRAD_SPLITS
+    partial = torch.empty(tiles * splits, wt * wt, device=dev, dtype=f32)
+    vpartial = torch.empty(tiles * splits, wt, device=dev, dtype=f32)
+    _cuda.MHSA.call("pmce_mhsa_wgrad", _cuda.ptr_table(
+        x, o, dqkv, g, partial, vpartial, counters, grads), M, C, splits,
+        stream)
     MHSA_BWD_LAUNCHES.count += 1
     return dx, grads
+
+
+def mhsa_bwd_stage_split(g, x, wqkv, wproj, saved, num_heads: int,
+                         clips_per_cta=None) -> dict:
+    """One stamped launch of the backward's tile program on the card (not
+    counted), from a saving forward's ``saved``: {stage: cycles summed over
+    the CTAs} for the stages of :data:`MHSA_BWD_STAGES`, ``"ctas"`` and
+    ``"clips_per_cta"``."""
+    clips, N, C = x.shape
+    cpc = clips_per_cta or mhsa_fwd_plan(clips, N, C,
+                                         _card_limits(x.device)[0])
+    ctas = -(-clips // cpc)
+    stamps = torch.zeros(ctas, len(MHSA_BWD_STAGES), dtype=torch.int64,
+                         device=x.device)
+    with torch.no_grad():
+        _mhsa_bwd_cuda(g, x, wqkv, wproj, saved, num_heads, stamps=stamps,
+                       clips_per_cta=cpc)
+    total = stamps.sum(0).cpu().tolist()
+    return {**dict(zip(MHSA_BWD_STAGES, total)), "ctas": ctas,
+            "clips_per_cta": cpc}
 
 
 class _MhsaKernel(torch.autograd.Function):
@@ -1626,9 +1708,9 @@ def fused_mhsa(x, wqkv, bqkv, wproj, bproj, num_heads: int):
     """Multi-head self-attention with its projections (see
     :func:`mhsa_plain`), with its gradient. CPU tensors run the plain
     version; CUDA tensors the kernels of ``csrc/mhsa.cu`` forward and
-    backward (bf16, any token count: the forward's tile program inside
-    :func:`mhsa_fwd_kernel_fits`, its launch sequence outside; widths
-    :func:`attention_kernel_fits` refuses raise)."""
+    backward (bf16, any token count: the forward's and the backward's tile
+    programs inside :func:`mhsa_fwd_kernel_fits`, their launch sequences
+    outside; widths :func:`attention_kernel_fits` refuses raise)."""
     if not _on_card(x, "fused_mhsa"):
         return mhsa_plain(x, wqkv, bqkv, wproj, bproj, num_heads)
     _attention_require("fused_mhsa", x.shape[-1], num_heads)

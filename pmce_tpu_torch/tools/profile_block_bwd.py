@@ -1,9 +1,9 @@
 """Where the lifter block (rows 6 and 7), the decoder's AdaLN and
-cross-attention blocks (rows 8-11) and the self-attention forward (row 4)
-spend their time on the card.
+cross-attention blocks (rows 8-11), the self-attention forward and
+backward (rows 4 and 5) and skinning (row 15) spend their time on the card.
 
     python3 pmce_tpu_torch/tools/profile_block_bwd.py [--root DIR] [--tag T]
-        [--rows block,ca,ada,mhsa]
+        [--rows block,ca,ada,mhsa,skin]
 
 Imports ``pmce_tpu_torch`` from ``DIR`` (default: the tree this script is
 in; an unpacked earlier commit, say) and builds its libraries. At the
@@ -54,7 +54,18 @@ readings and ``fused_mhsa`` under autograd, at the decoder's joint stream
 (``F.multi_head_attention_forward`` in bf16 with grad, timed only); where
 the tree has the tile program, its stage split
 (``mhsa_fwd_stage_split``) and its device time at each shape's plan and
-at other clips a CTA (1, 4 and 7 at the trunk's shape).
+at other clips a CTA (1, 4 and 7 at the trunk's shape). Then row 5, the
+backward wrapper ``_mhsa_bwd_cuda`` on that forward's saved state, with
+the same four readings (``autograd``: ``torch.autograd.grad`` through
+``fused_mhsa``); where the tree has the backward's tile program, its
+stage split (``mhsa_bwd_stage_split``) and its two launches against the
+launch sequence it replaced (``_mhsa_bwd_seq``, kept for the shapes
+outside the gate) on the same inputs: CUDA events around 20 calls of
+each, and each one's kernels' device time, in turns (program, sequence,
+sequence, program). ``--rows skin``: ``fused_skinning`` at B = 256
+bodies of V = 6890 vertices, 24 joints (f32, random transforms, softmax
+weights), CUDA events around 20 calls and the kernel's device time,
+beside one ``torch.einsum`` of the same function (TF32 off).
 """
 
 from __future__ import annotations
@@ -72,7 +83,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="tree")
-    ap.add_argument("--rows", default="block,ca,ada,mhsa")
+    ap.add_argument("--rows", default="block,ca,ada,mhsa,skin")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import numpy as np
@@ -165,6 +176,9 @@ def main() -> int:
     if "mhsa" in rows_wanted:
         _cuda.MHSA.load()
         profile_mhsa(tag, dev, rng, report, events_ms, kernels)
+    if "skin" in rows_wanted:
+        _cuda.SKIN.load()
+        profile_skinning(tag, dev, rng, events_ms, kernels)
     if "block" not in rows_wanted:
         return 0
     _cuda.BLOCK.load()
@@ -437,21 +451,87 @@ def profile_mhsa(tag, dev, rng, report, events_ms, kernels) -> None:
         with torch.enable_grad():
             print(f"{where} library F.multi_head_attention_forward, bf16, "
                   f"with grad: {events_ms(library):.4f} ms", flush=True)
-        if not hasattr(fa, "mhsa_fwd_stage_split"):
-            continue
-        with torch.no_grad():
-            _split_line(where, "tile program",
-                        fa.mhsa_fwd_stage_split(x, *w, heads),
-                        fa.MHSA_FWD_STAGES)
-            for cpc in cpcs:
-                ms = sum(t for t, _, key in kernels(
-                    lambda: fa._mhsa_fwd_cuda(x, *w, heads,
-                                              clips_per_cta=cpc))
-                    if "mhf" in key)
-                print(f"{where} tile program at {cpc} clips a CTA "
-                      f"({-(-clips // cpc)} CTAs): {ms:.4f} ms on the card",
-                      flush=True)
+        if hasattr(fa, "mhsa_fwd_stage_split"):
+            with torch.no_grad():
+                _split_line(where, "tile program",
+                            fa.mhsa_fwd_stage_split(x, *w, heads),
+                            fa.MHSA_FWD_STAGES)
+                for cpc in cpcs:
+                    ms = sum(t for t, _, key in kernels(
+                        lambda: fa._mhsa_fwd_cuda(x, *w, heads,
+                                                  clips_per_cta=cpc))
+                        if "mhf" in key)
+                    print(f"{where} tile program at {cpc} clips a CTA "
+                          f"({-(-clips // cpc)} CTAs): {ms:.4f} ms on the "
+                          "card", flush=True)
+        profile_mhsa_bwd(where, x, w, leaves, heads, r, report, events_ms,
+                         kernels)
         torch.cuda.empty_cache()
+
+
+def profile_mhsa_bwd(where, x, w, leaves, heads, r, report, events_ms,
+                     kernels) -> None:
+    """Row 5 on a saving forward's state (see the module docstring)."""
+    import torch
+
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    g = r(*x.shape, scale=1.0, dtype=torch.bfloat16)
+    with torch.no_grad():
+        _, saved = fa._mhsa_fwd_cuda(x, *w, heads)
+    with torch.enable_grad():
+        y = fa.fused_mhsa(*leaves, heads)
+
+    def program():
+        return fa._mhsa_bwd_cuda(g, x, w[0], w[2], saved, heads)
+
+    with torch.no_grad():
+        report(where, "bwd", program, lambda: torch.autograd.grad(
+            y, leaves, g, retain_graph=True))
+    if not hasattr(fa, "mhsa_bwd_stage_split"):
+        return
+    with torch.no_grad():
+        _split_line(where, "backward tile program", fa.mhsa_bwd_stage_split(
+            g, x, w[0], w[2], saved, heads), fa.MHSA_BWD_STAGES)
+
+        def sequence():
+            return fa._mhsa_bwd_seq(g, x, w[0], w[2], saved, heads)
+
+        for name, fn in (("program", program), ("sequence", sequence),
+                         ("sequence", sequence), ("program", program)):
+            ms = events_ms(fn)
+            rows = kernels(fn)
+            print(f"{where} bwd {name}: {ms:.4f} ms a call, kernels "
+                  f"{sum(t for t, _, _ in rows):.4f} ms in "
+                  f"{sum(c for _, c, _ in rows)} launches", flush=True)
+
+
+def profile_skinning(tag, dev, rng, events_ms, kernels) -> None:
+    """Row 15 at the synthesis' shape (see the module docstring)."""
+    import torch
+
+    from pmce_tpu_torch.smpl import kernels as sk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, V, J = 256, 6890, 24
+
+    def r(*shape, scale):
+        a = rng.normal(size=shape) * scale
+        return torch.from_numpy(a.astype("float32")).to(dev)
+
+    v, A = r(B, V, 3, scale=0.3), r(B, J, 4, 4, scale=0.5)
+    w = torch.softmax(r(V, J, scale=3.0), -1)
+    vh = torch.cat([v, torch.ones_like(v[..., :1])], -1)
+    A3 = A[:, :, :3, :].contiguous()
+    where = f"{tag} skinning B={B} V={V} J={J}"
+    for name, fn in (("kernel", lambda: sk.fused_skinning(v, A, w)),
+                     ("library torch.einsum",
+                      lambda: torch.einsum("vj,bjmk,bvk->bvm", w, A3, vh))):
+        ms = events_ms(fn)
+        rows = kernels(fn)
+        print(f"{where} {name}: {ms:.4f} ms a call, kernels "
+              f"{sum(t for t, _, _ in rows):.4f} ms in "
+              f"{sum(c for _, c, _ in rows)} launches", flush=True)
 
 
 if __name__ == "__main__":

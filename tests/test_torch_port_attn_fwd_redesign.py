@@ -43,9 +43,12 @@ _ADA_PTRS = {"pmce_ada_fwd_tile": 28, "pmce_ada_block_fwd": 27,
 _ADA_SAVED = range(17, 25)
 # pmce_mhsa_fwd_tile's: x, wqkv, bqkv, wproj, bproj, out, qkv, o, stat_m,
 # stat_l, stamps. pmce_mhsa_fwd's: x, wqkv, bqkv, wproj, bproj, qkv, o,
-# stat_m, stat_l, out. pmce_mhsa_bwd's: x, g, wqkvᵀ, wprojᵀ, qkv, o, stat_m,
-# stat_l, dx, grads, ws.
+# stat_m, stat_l, out. pmce_mhsa_bwd_tile's: g, wqkv, wproj, qkv, o, stat_m,
+# stat_l, dx, dqkv, counters, stamps. pmce_mhsa_wgrad's: x, o, dqkv, g,
+# partial, vpartial, counters, grads. pmce_mhsa_bwd's (the sequence): x, g,
+# wqkvᵀ, wprojᵀ, qkv, o, stat_m, stat_l, dx, grads, ws.
 _MHSA_PTRS = {"pmce_mhsa_fwd_tile": 11, "pmce_mhsa_fwd": 10,
+              "pmce_mhsa_bwd_tile": 11, "pmce_mhsa_wgrad": 8,
               "pmce_mhsa_bwd": 11}
 _NO_WORKSPACE = mock.patch.object(
     fa, "_workspace", lambda *a: torch.empty(0, dtype=torch.uint8))
@@ -308,7 +311,8 @@ def test_mhsa_forward_outside_the_gate_takes_the_launch_sequence(clips, N, C,
 def test_mhsa_saved_state_reaches_row_5_in_its_layout(clips, N, C, H):
     """Under grad the tile program's saved qkv [M, 3C] and o [M, C] (bf16)
     and the softmax max and sum ([2, clips * H * N] f32) are what the
-    backward's launch reads, on the forward's own pointers; the gradients
+    backward's tile program reads, on the forward's own pointers, and o is
+    the weight launch's X beside the tile program's dqkv; the gradients
     come back in the parameters' shapes."""
     x, *w = _mhsa(clips, N, C, H, grad=True)
     launches = _Launches(_MHSA_PTRS)
@@ -330,11 +334,13 @@ def test_mhsa_saved_state_reaches_row_5_in_its_layout(clips, N, C, H):
     assert tuple(o.shape) == (M, C) and o.dtype == torch.bfloat16
     assert tuple(stats.shape) == (2, clips * H * N)
     assert stats.dtype == torch.float32
-    assert launches.names == ["pmce_mhsa_fwd_tile", "pmce_mhsa_bwd"]
-    (_, fwd, _), (_, bwd, _) = launches.calls
-    assert fwd[6:10] == bwd[4:8] == [qkv.data_ptr(), o.data_ptr(),
+    assert launches.names == ["pmce_mhsa_fwd_tile", "pmce_mhsa_bwd_tile",
+                              "pmce_mhsa_wgrad"]
+    (_, fwd, _), (_, bwd, _), (_, wg, _) = launches.calls
+    assert fwd[6:10] == bwd[3:7] == [qkv.data_ptr(), o.data_ptr(),
                                      stats[0].data_ptr(),
                                      stats[1].data_ptr()]
+    assert wg[1] == o.data_ptr() and wg[2] == bwd[8]       # o, dqkv
     assert all(t.grad is not None and t.grad.shape == t.shape
                for t in (x, *w))
 

@@ -576,16 +576,19 @@ def test_block_kernel_refuses_f32_on_card():
                              tuple(params), 8)
 
 
-@pytest.mark.parametrize("B", [1, 9])
-def test_skinning_kernel_matches_plain(B):
+@pytest.mark.parametrize("V", [6890, 6889])
+@pytest.mark.parametrize("B", [1, 9, 256])
+def test_skinning_kernel_matches_plain(B, V):
     """Full f32 on both sides: within 1e-6 m (measured 2.4e-7 on an H100
-    at B = 256)."""
+    at B = 256), at the SMPL mesh's 6890 vertices (odd bodies' rows start
+    8-byte aligned) and at 6889 (not a multiple of 4: a ragged last thread
+    and rows at every alignment)."""
     from pmce_tpu_torch.smpl import kernels as sk
     from pmce_tpu_torch.smpl.layer import apply_skinning
 
     dev = _card()
-    rng = np.random.default_rng(B)
-    V, J = 6890, 24
+    rng = np.random.default_rng([B, V])
+    J = 24
     v_posed = _rand(rng, dev, B, V, 3, scale=0.3)
     A = _rand(rng, dev, B, J, 4, 4, scale=0.5)
     w = torch.softmax(_rand(rng, dev, V, J, scale=3.0), -1)
@@ -842,6 +845,66 @@ def test_mhsa_forward_tile_program_matches_plain_and_the_sequence(shape,
     for name, a, b in zip(("qkv", "o", "stats"), seq, saved):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert _rel(a, b) <= 0.02, name
+
+
+@pytest.mark.parametrize("shape", [(32, 17, 64, 8), (40, 17, 256, 8),
+                                   (3, 16, 64, 4), (3, 16, 64, 2)], ids=str)
+def test_mhsa_backward_tile_program_matches_plain(shape):
+    """Row 5's tile program and weight launch (one counted backward, the
+    sequence's counter 0) at the decoder's [32, 17, 64] (8 heads of 8),
+    [40, 17, 256] (8 heads of 32, the trunk backward's width) and heads of
+    16 and 32 at C = 64: every gradient within 2 % of its largest magnitude
+    of the plain version's autograd, bit for bit on a rerun."""
+    dev = _card()
+    rng = np.random.default_rng([13, *shape])
+    leaves, call, (kernel, plain) = _dec_case(rng, dev, "mhsa", shape)
+    g = _rand(rng, dev, *leaves[0].shape, dtype=torch.bfloat16)
+    y = call(kernel, *leaves)
+    _cuda.reset_launch_counts()
+    gk = torch.autograd.grad(y, leaves, g, retain_graph=True)
+    counts = _cuda.launch_counts()
+    assert counts["mhsa_bwd"] == 1 and counts["mhsa_bwd_seq"] == 0
+    again = torch.autograd.grad(y, leaves, g)
+    gp = torch.autograd.grad(call(plain, *leaves), leaves, g)
+    for i, (a, b) in enumerate(zip(gp, gk)):
+        assert bool(torch.isfinite(b).all()), i
+        assert _rel(a, b) <= 0.02, i
+    assert all(torch.equal(a, b) for a, b in zip(gk, again))
+
+
+def test_mhsa_backward_outside_the_gate_takes_the_sequence():
+    """At 72 tokens (over the tile programs' 64) the backward is the launch
+    sequence, counted by ``mhsa_bwd_seq`` alone, within 2 % of the plain
+    version's autograd."""
+    dev = _card()
+    rng = np.random.default_rng(72)
+    leaves, call, (kernel, plain) = _dec_case(rng, dev, "mhsa",
+                                              (3, 72, 64, 4))
+    g = _rand(rng, dev, *leaves[0].shape, dtype=torch.bfloat16)
+    y = call(kernel, *leaves)
+    _cuda.reset_launch_counts()
+    gk = torch.autograd.grad(y, leaves, g)
+    counts = _cuda.launch_counts()
+    assert counts["mhsa_bwd_seq"] == 1 and counts["mhsa_bwd"] == 0
+    gp = torch.autograd.grad(call(plain, *leaves), leaves, g)
+    for i, (a, b) in enumerate(zip(gp, gk)):
+        assert _rel(a, b) <= 0.02, i
+
+
+def test_mhsa_backward_stage_split_books_every_stage():
+    """``mhsa_bwd_stage_split`` at [32, 17, 64] and [512, 17, 256]: one
+    stamped launch, not counted, every stage booked."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    for shape in ((32, 17, 64, 8), (512, 17, 256, 8)):
+        leaves, _, _ = _dec_case(rng, dev, "mhsa", shape)
+        x, wqkv, bqkv, wproj, bproj = (t.detach() for t in leaves)
+        _, saved = fa._mhsa_fwd_cuda(x, wqkv, bqkv, wproj, bproj, shape[3])
+        _cuda.reset_launch_counts()
+        split = fa.mhsa_bwd_stage_split(torch.ones_like(x), x, wqkv, wproj,
+                                        saved, shape[3])
+        assert all(split[k] > 0 for k in fa.MHSA_BWD_STAGES), split
+        assert _cuda.launch_counts()["mhsa_bwd"] == 0
 
 
 @pytest.mark.parametrize("shape,masks", [
