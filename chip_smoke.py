@@ -84,6 +84,23 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    only those six kernels on the card); then the step's time and peak
    memory beside phase 5's.
 
+7. the entry points, as a user calls them: (a) ``bench_torch.py``'s
+   measurement with ``bench.py``'s sizes (its JSON line printed on an
+   earlier line, its median and spread beside phase 3's reading); (b)
+   ``pmce_tpu_torch.main.train`` on ``configs/train_mesh_h36m_bf16.yml``
+   with ``--smoke`` (2 epochs × 4 steps at batch 8, 64 synthetic samples,
+   writing under ``experiment/chip_smoke_cli``), on the card by default.
+   The counters are zeroed just before it and read just after: per step
+   the launches of phase 6, in its evaluations the trunk, the GRU scans
+   and the chain, the skinning kernel in its synthesis, no launch sequence
+   of rows 4, 5, 8, 9 and 10; its protocol summary printed with finite
+   metrics; (c) ``pmce_tpu_torch.main.test`` on (b)'s ``best.ckpt``, once
+   on the kernels (the trunk, the GRU scans, the chain and the skinning
+   launch, nothing else) and once with every kernel through its plain
+   version (nothing launches): MPJPE, PA-MPJPE, MPVPE and ACCEL agree
+   within 2 %. Both readings, the CLIs' wall times and the phase's
+   seconds are printed.
+
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
 each train step's device time by kernel and, before phase 2, the stage
 split of the trunk (K1), the GRU scan (K2), the decoder chain (K3), the
@@ -119,6 +136,9 @@ BT, JT, TRAIN_STEPS = 64, 17, 25
 # Stage-2 training: batch (train_mesh_h36m_bf16.yml) and GRU width; the
 # BiGRU's input width (both layers: the image features, then 2H).
 BM, GRU_H, GRU_IN = 32, 1024, 2048
+# Phase 7: the config the entry points run (the shipped config that runs
+# the fused kernels).
+CLI_CFG = REPO / "configs" / "train_mesh_h36m_bf16.yml"
 
 # The TPU kernel each wrapper replaces (file:line of the Pallas body).
 REPLACES = {
@@ -1867,6 +1887,158 @@ def plain_gru(fa):
     return stack
 
 
+def plain_everything(fa, fc):
+    """Every kernel of the entry points' paths through its plain version
+    (the comparisons only): ``plain_path``'s, the trunk, the chain, the
+    whole block and the synthesis' skinning."""
+    from unittest import mock
+
+    from pmce_tpu_torch.smpl import kernels
+    from pmce_tpu_torch.smpl.layer import apply_skinning
+
+    stack = plain_path(fa, True)
+    for mod, name, plain in ((fa, "lifter_trunk", fa.lifter_trunk_plain),
+                             (fc, "coevo_chain", fc.coevo_chain_plain),
+                             (fc, "coevo_block", fc.coevo_block_plain),
+                             (kernels, "fused_skinning", apply_skinning)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
+
+
+class Tee:
+    """Standard output that is also kept, to read what a CLI printed."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s: str) -> int:
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+
+def entry_points(device, serve_fps: float) -> dict:
+    """Phase 7: the port's entry points as a user calls them. 7a
+    ``bench_torch`` with ``bench.py``'s sizes; 7b the train CLI on
+    ``CLI_CFG`` with ``--smoke``, counted; 7c the test CLI on 7b's
+    ``best.ckpt``, on the kernels and on the plain versions. Returns the
+    numbers the summary line prints."""
+    import contextlib
+    import math
+    import shutil
+
+    import torch
+
+    import bench_torch
+    from pmce_tpu_torch.main import test as test_cli
+    from pmce_tpu_torch.main import train as train_cli
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+    from pmce_tpu_torch.ops import fused_coevo_chain as fc
+
+    t_phase = time.time()
+    card = card_line()
+    res = bench_torch.serving_rate(device)
+    rates = res["rates"]
+    line = bench_torch.result_line(res, card)
+    print(f"[bench] bench_torch: {len(rates)} runs of {res['iters']} "
+          f"forwards at batch {res['batch']}: " + ", ".join(
+              f"{r:.1f}" for r in rates) + f" mid-frames/s (median "
+          f"{res['median']:.1f}, spread {min(rates):.1f}-{max(rates):.1f}; "
+          f"phase 3's reading {serve_fps:.1f}); device time of one forward "
+          f"{res['device_ms']:.3f} ms; on {card}", flush=True)
+    print(json.dumps(line), flush=True)
+    if not (math.isfinite(line["value"]) and line["value"] > 0):
+        raise RuntimeError(f"bench_torch: rate {line['value']}")
+
+    # 7b: the train CLI, counted from the synthesis to the protocol
+    # evaluation.
+    tag = "chip_smoke_cli"
+    out_dir = Path("experiment") / tag
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.time()
+    tee = Tee(sys.stdout)
+    _cuda.reset_launch_counts()
+    with contextlib.redirect_stdout(tee):
+        trained = train_cli.main(["--cfg", str(CLI_CFG), "--smoke",
+                                  "--tag", tag])
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    train_s = time.time() - t0
+    print(f"[cli] train CLI --smoke: {train_s:.1f} s; launches {counts}",
+          flush=True)
+    steps = 2 * 4
+    # Per step as phase 6 (batch 8 here); per evaluation batch the trunk,
+    # the chain and one GRU scan a BiGRU layer (3 evaluations: two epochs
+    # and the protocol's); the synthesis skins 2 videos a split.
+    expect = {"block_fwd": 6 * steps, "block_bwd": 6 * steps,
+              "mhsa_fwd": 3 * steps, "mhsa_bwd": steps,
+              "ada_block_fwd": 3 * steps, "ada_block_bwd": 3 * steps,
+              "ca_block_fwd": 6 * steps, "ca_block_bwd": 4 * steps,
+              "gru_layer_save": 4 * steps, "gru_layer_bwd": 4 * steps,
+              "gru_bwd_scan": 4 * steps, "skinning": 4,
+              "lifter_trunk_long": 0, "coevo_block": 0,
+              **{name: 0 for name in DECODER_SEQ}}
+    evals = counts["lifter_trunk"]
+    expect.update({"coevo_chain": evals, "gru_scan": 2 * evals,
+                   "gru_layer": 2 * evals, "gru_layer_rev": 2 * evals})
+    wrong = {k: (v, counts[k]) for k, v in expect.items() if counts[k] != v}
+    if wrong or evals == 0 or evals % 3:
+        raise RuntimeError(f"train CLI: launches (expected, counted) {wrong},"
+                           f" {evals} evaluation batches")
+    summary = "Human36M PA-MPJPE (mm)  >> tot:"
+    metrics = ("mpjpe", "pa_mpjpe", "mpvpe", "accel")
+    if summary not in tee.text() or not all(
+            math.isfinite(getattr(trained, k)) for k in metrics):
+        raise RuntimeError(f"train CLI: no finite protocol summary "
+                           f"({trained})")
+
+    # 7c: the test CLI on 7b's best checkpoint, on the kernels and on the
+    # plain versions.
+    ckpt = out_dir / "checkpoint" / "best.ckpt"
+    argv = ["--cfg", str(CLI_CFG), "--weights", str(ckpt)]
+    readings = {}
+    for path in ("kernels", "plain"):
+        ctx = (plain_everything(fa, fc) if path == "plain"
+               else contextlib.nullcontext())
+        t0 = time.time()
+        _cuda.reset_launch_counts()
+        with ctx:
+            got = test_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = _cuda.launch_counts()
+        launched = {k: v for k, v in counts.items() if v}
+        want = (set() if path == "plain" else
+                {"lifter_trunk", "gru_layer", "gru_layer_rev", "gru_scan",
+                 "coevo_chain", "skinning"})
+        if set(launched) != want:
+            raise RuntimeError(f"test CLI on the {path} path launched "
+                               f"{launched}")
+        readings[path] = (got, wall)
+        print(f"[cli] test CLI ({path}): {wall:.1f} s; " + ", ".join(
+            f"{k} {getattr(got, k):.4f}" for k in metrics)
+            + f"; launches {launched}", flush=True)
+    (got, test_s), (want, _) = readings["kernels"], readings["plain"]
+    for k in metrics:
+        a, b = getattr(got, k), getattr(want, k)
+        if not (math.isfinite(a) and abs(a - b) <= SERVE_REL_TOL * abs(b)):
+            raise RuntimeError(f"test CLI {k}: kernels {a} vs plain {b} "
+                               f"(tol {SERVE_REL_TOL} relative)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    phase_s = time.time() - t_phase
+    print(f"[cli] test CLI metrics, kernels vs plain within "
+          f"{SERVE_REL_TOL:.0%}; phase 7 took {phase_s:.1f} s on {card}",
+          flush=True)
+    return {"bench": res["median"], "train_s": train_s, "test_s": test_s,
+            "phase_s": phase_s}
+
+
 def profile_step(step, what: str = "train step", n: int = 5) -> None:
     """Device time of ``n`` calls of ``step`` (a ``what``) by kernel
     (torch.profiler)."""
@@ -2102,6 +2274,7 @@ def main() -> int:
     mesh_counts, mesh_ms = mesh_train(device, stage1, profile, False)
     fused_counts, fused_ms = mesh_train(device, stage1, profile, True,
                                         mesh_ms)
+    cli = entry_points(device, fps)
     # Each kernel's launches on the path it belongs to.
     counts = {**{k: mesh_counts[k] for k in REPLACES},
               **{k: fused_counts[k] for k in DECODER},
@@ -2121,7 +2294,10 @@ def main() -> int:
           f"Stage-2 train step {mesh_ms:.3f} ms = "
           f"{BM / mesh_ms * 1e3:.1f} clips/s (fused_attn off), "
           f"{fused_ms:.3f} ms = {BM / fused_ms * 1e3:.1f} clips/s "
-          f"(fused_attn on)", flush=True)
+          f"(fused_attn on); bench_torch {cli['bench']:.1f} mid-frames/s; "
+          f"train CLI --smoke {cli['train_s']:.1f} s, test CLI "
+          f"{cli['test_s']:.1f} s, phase 7 {cli['phase_s']:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """pmce-tpu in PyTorch and CUDA for NVIDIA Hopper: the PMCE serving forward,
-Stage-1 lifter training and Stage-2 mesh training.
+Stage-1 lifter training, Stage-2 mesh training and the protocol
+evaluation, with their command-line entry points.
 
 A port of the JAX package ``pmce_tpu`` (which stays the reference). It
 imports torch and numpy, never jax. Sub-packages:
@@ -7,13 +8,18 @@ imports torch and numpy, never jax. Sub-packages:
 - ``pmce_tpu_torch.smpl``    SMPL artifacts, mesh coarsening, the SMPL layer
                              and its skinning kernel;
 - ``pmce_tpu_torch.models``  pose lifter, co-evolution decoder, PMCE;
-- ``pmce_tpu_torch.ops``     geometry and the kernels: each a plain PyTorch
-                             version plus a hand-written CUDA kernel
-                             (``csrc/``), picked by tensor device;
+- ``pmce_tpu_torch.ops``     geometry, Procrustes, metrics, coordinates and
+                             the kernels: each a plain PyTorch version plus
+                             a hand-written CUDA kernel (``csrc/``), picked
+                             by tensor device;
 - ``pmce_tpu_torch.core``    config, optimizer, losses, checkpoints and the
                              ``Trainer`` of both stages;
-- ``pmce_tpu_torch.data``    clip windowing, synthetic sequences, batches;
-- ``pmce_tpu_torch.utils``   metric logging;
+- ``pmce_tpu_torch.data``    clip windowing, synthetic sequences, batches,
+                             the five dataset classes, packed npz files,
+                             the dataset factory and the evaluation
+                             protocols;
+- ``pmce_tpu_torch.main``    the train and test CLIs (``python -m``);
+- ``pmce_tpu_torch.utils``   metric logging, OBJ meshes;
 - ``pmce_tpu_torch.convert`` JAX parameter tree → reference state_dict.
 
 Start with ``pmce_tpu_torch.models.pmce.create_pmce(...)`` or

@@ -10,12 +10,11 @@ vertices in a fixed order (a padded vertex → face-corner table).
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from pmce_tpu_torch.ops.segments import segment_sum, segment_table
+from pmce_tpu_torch.smpl.layer import full_f32
 
 
 def coord_l1(pred: torch.Tensor, target: torch.Tensor,
@@ -76,18 +75,6 @@ def build_laplacian(faces: np.ndarray, num_verts: int) -> np.ndarray:
     return L
 
 
-@contextlib.contextmanager
-def _full_f32():
-    """Full-f32 matrix products on the card (no TF32), as the JAX package
-    pins ``precision=HIGHEST`` on its geometry contractions."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 class _Contract(torch.autograd.Function):
     """``einsum("jv,bvk->bjk", M, x)`` for a constant [J, V] matrix M, in
     full f32 forward and backward."""
@@ -95,13 +82,13 @@ class _Contract(torch.autograd.Function):
     @staticmethod
     def forward(ctx, M, x):
         ctx.save_for_backward(M)
-        with _full_f32():
+        with full_f32():
             return torch.einsum("jv,bvk->bjk", M, x)
 
     @staticmethod
     def backward(ctx, g):
         (M,) = ctx.saved_tensors
-        with _full_f32():
+        with full_f32():
             return None, torch.einsum("jv,bjk->bvk", M, g)
 
 

@@ -13,8 +13,9 @@ LiftTrainer / LiftTester, ``base.py:266-388``):
 - :func:`make_pmce_eval_step` / :func:`make_lift_eval_step`: root-aligned
   MPJPE (and, for PMCE, MPVPE) sums over a batch;
 - :class:`Trainer`: the epoch loop with the loss summed on the device and
-  read once per epoch, evaluation with one read at its end, best / final /
-  per-epoch checkpoints and :meth:`Trainer.restore`.
+  read once per epoch, evaluation with one read at its end, the test
+  dataset's protocol evaluation (:meth:`Trainer.full_evaluate`), best /
+  final / per-epoch checkpoints and :meth:`Trainer.restore`.
 
 Parameters stay f32; under the bf16 policy the model's products run in
 bf16. On that policy the BiGRU's recurrences run the GRU kernels forward
@@ -27,6 +28,7 @@ devices and sharded parameters are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable
 
@@ -42,6 +44,7 @@ from pmce_tpu_torch.core.losses import (
     pmce_total_loss,
 )
 from pmce_tpu_torch.core.optim import build_optimizer
+from pmce_tpu_torch.utils.obj_io import save_obj
 
 # H36M protocol eval joints (reference data/Human36M/dataset.py:62).
 H36M_EVAL_JOINTS = (1, 2, 3, 4, 5, 6, 8, 10, 11, 12, 13, 14, 15, 16)
@@ -347,6 +350,26 @@ class Trainer:
                     + (f", MPVPE {surface_err:.2f} mm"
                        if self.is_mesh_model else ""))
         return joint_err, surface_err, results
+
+    def full_evaluate(self, verbose: bool = True, vis_dir: str = "",
+                      vis_every: int = 500):
+        """The test dataset's own protocol evaluation (the reference's
+        final ``dataset.evaluate(result)``, ``base.py:262-263``) over one
+        collecting pass: the mesh protocol for PMCE, the joint protocol for
+        the lifter. With ``vis_dir`` (the reference's ``cfg.TEST.vis``),
+        every ``vis_every``-th predicted mesh is written there as an OBJ
+        (reference ``Human36M/dataset.py:818-822``). As :meth:`evaluate`,
+        it reads the parameters from the model, so it takes no state."""
+        _, _, results = self.evaluate(collect=True)
+        results = results[:len(self.test_data)]
+        if vis_dir and self.is_mesh_model:
+            os.makedirs(vis_dir, exist_ok=True)
+            for i in range(0, len(results), max(vis_every, 1)):
+                save_obj(results[i]["mesh_coord"] / 1000.0, self.faces,
+                         os.path.join(vis_dir, f"pred_{i:06d}.obj"))
+        if self.is_mesh_model:
+            return self.test_data.evaluate(results, verbose=verbose)
+        return self.test_data.evaluate_joint(results, verbose=verbose)
 
     # ------------------------------------------------------------- restore
     def restore(self, path: str) -> tuple[TrainState, int]:

@@ -19,6 +19,7 @@ max|kernel - plain| / max|plain|, as in chip_smoke.py.
 from __future__ import annotations
 
 import math
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -1335,3 +1336,92 @@ def test_coevo_stage_split_books_every_stage():
         stages = {stage for stage, _ in split}
         assert {"joint CA", "vertex CA", "joint SA", "vertex SA"} <= stages
         assert all(v > 0 for v in split.values())
+
+
+def test_rigid_align_on_the_card_matches_the_cpu():
+    """Batched Procrustes on the card (cuSOLVER's SVD) against the CPU's
+    (LAPACK) on the same inputs, both held to the f64 answer: per half of
+    the batch, the card no further from it than twice the CPU's f32
+    distance plus one 2^-20 step of the largest coordinate, and PA-MPJPE
+    within 1e-4 mm. The reflected half takes the det(R) < 0 branch, whose
+    rotation hangs on the smallest singular vectors: f32 moves it by up to
+    0.04 mm there (the CPU's own, measured), 0.001 mm on the proper half.
+    With TF32 allowed by the caller the result is the same bit for bit and
+    the caller's flag comes back."""
+    from pmce_tpu_torch.ops.procrustes import rigid_align
+
+    dev = _card()
+    rng = np.random.default_rng(40)
+    A = rng.normal(scale=300.0, size=(4096, 14, 3))
+    B = 1.1 * A + rng.normal(scale=10.0, size=A.shape) + 50.0
+    B[::2, :, 0] *= -1
+    A = torch.from_numpy(A.astype(np.float32))
+    B = torch.from_numpy(B.astype(np.float32))
+    exact = rigid_align(A.double(), B.double())
+    cpu = rigid_align(A, B)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = rigid_align(A.to(dev), B.to(dev))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        again = rigid_align(A.to(dev), B.to(dev))
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert torch.equal(card, again)
+    card = card.cpu().double()
+    step = 2.0 ** -20 * float(B.abs().max())
+    for half in (slice(0, None, 2), slice(1, None, 2)):
+        d_card = float((card[half] - exact[half]).abs().max())
+        d_cpu = float((cpu[half].double() - exact[half]).abs().max())
+        assert d_card <= 2 * d_cpu + step, (half, d_card, d_cpu)
+
+    def pa(x):
+        return float((x - B.double()).norm(dim=-1).mean())
+
+    assert abs(pa(card) - pa(exact)) <= 1e-4
+
+
+def _plain_kernels():
+    """Every kernel of the evaluation path through its plain version: the
+    trunk, both GRU directions, the chain and the synthesis' skinning."""
+    import contextlib
+
+    from pmce_tpu_torch.smpl import kernels
+    from pmce_tpu_torch.smpl.layer import apply_skinning
+
+    stack = contextlib.ExitStack()
+    for mod, name, plain in (
+            (fa, "lifter_trunk", fa.lifter_trunk_plain),
+            (fa, "gru_layer", fa.gru_layer_plain),
+            (fa, "gru_layer_rev",
+             lambda gi, w, b: fa.gru_layer_plain(gi, w, b, reverse=True)),
+            (fa, "gru_bidir", fa.gru_bidir_plain),
+            (fc, "coevo_chain", fc.coevo_chain_plain),
+            (kernels, "fused_skinning", apply_skinning)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
+
+
+def test_test_cli_on_the_card_agrees_with_its_plain_path():
+    """``python -m pmce_tpu_torch.main.test`` on the bf16 fused config,
+    on the card by default: the kernels of its path launch, and its four
+    protocol metrics agree within 2 % (the serving band) with the same run
+    through every kernel's plain version, which launches none."""
+    from pmce_tpu_torch.main import test as test_cli
+
+    _card()
+    cfg = str(Path(__file__).resolve().parent.parent / "configs"
+              / "train_mesh_h36m_bf16.yml")
+    _cuda.reset_launch_counts()
+    got = test_cli.main(["--cfg", cfg])
+    counts = _cuda.launch_counts()
+    assert all(counts[k] > 0 for k in ("lifter_trunk", "gru_scan",
+                                       "coevo_chain", "skinning")), counts
+    _cuda.reset_launch_counts()
+    with _plain_kernels():
+        want = test_cli.main(["--cfg", cfg])
+    assert not any(_cuda.launch_counts().values())
+    for k in ("mpjpe", "pa_mpjpe", "mpvpe", "accel"):
+        a, b = getattr(got, k), getattr(want, k)
+        assert math.isfinite(a) and abs(a - b) <= 0.02 * abs(b), (k, a, b)

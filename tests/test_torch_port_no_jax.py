@@ -1,9 +1,10 @@
 """The port runs where jax is not installed (the GPU machine has none).
 
 A fresh interpreter with ``jax`` and ``flax`` made unimportable imports
-every module of ``pmce_tpu_torch``, runs a tiny f32 forward on the CPU, and
-runs the decoder's attention-block wrappers (``fused_mhsa``, ``ada_block``,
-``ca_block``) forward and backward.
+every module of ``pmce_tpu_torch`` (the CLIs of ``pmce_tpu_torch.main``
+among them, whose import runs nothing) and ``bench_torch.py``, runs a tiny
+f32 forward on the CPU, and runs the decoder's attention-block wrappers
+(``fused_mhsa``, ``ada_block``, ``ca_block``) forward and backward.
 """
 
 from __future__ import annotations
@@ -25,6 +26,10 @@ SCRIPT = textwrap.dedent("""
     import pmce_tpu_torch
     for m in pkgutil.walk_packages(pmce_tpu_torch.__path__, "pmce_tpu_torch."):
         importlib.import_module(m.name)
+    import bench_torch
+    from pmce_tpu_torch.main import test, train
+    assert callable(train.main) and callable(test.main)
+    assert callable(bench_torch.serving_rate)
     from pmce_tpu_torch.models.pmce import create_pmce
     from pmce_tpu_torch.smpl.artifacts import synthetic_artifacts
     from pmce_tpu_torch.smpl.mesh import synthetic_coarsening
@@ -74,12 +79,14 @@ def test_port_imports_and_runs_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    """No module of the package, nor chip_smoke.py, imports jax, flax or
-    the JAX package (checked on the import statements themselves). The
-    git-ignored build directory holds no source of the package."""
+    """No module of the package, nor chip_smoke.py or bench_torch.py,
+    imports jax, flax or the JAX package (checked on the import statements
+    themselves). The git-ignored build directory holds no source of the
+    package."""
     files = [p for p in (REPO / "pmce_tpu_torch").rglob("*.py")
              if "_build" not in p.relative_to(REPO).parts]
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
+    assert REPO / "pmce_tpu_torch" / "main" / "train.py" in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
