@@ -101,6 +101,23 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    within 2 %. Both readings, the CLIs' wall times and the phase's
    seconds are printed.
 
+8. the video demo, ``python -m pmce_tpu_torch.main.run_demo --synthetic
+   --full-stack --vitpose huge --frames 48`` at full width (ViTPose-Huge,
+   ResNet-50, PMCE in bf16 on its kernels), run in this process: the
+   first-party detector is trained at first use (timed apart), then (a)
+   the CLI on the kernels, the counters zeroed just before and read just
+   after: the trunk and the chain exactly once per window batch of 32 and
+   the GRU scan twice (two passes: the warm-up and the measured one),
+   nothing else (no launch sequence, no skinning); one person tracked over
+   at least ``min_track_frames`` frames, every tracked box overlapping the
+   rendered body's (IoU at least ``DEMO_MIN_IOU``), meshes and cameras
+   finite; its frames/s and stage table printed; (b) the same under
+   ``plain_everything`` (nothing launches): meshes and cameras within
+   ``DEMO_REL_TOL`` of (a); (c) ResNet-50 features and ViTPose-Huge
+   heatmaps at full width in f32 (TF32 off) on the card against the CPU
+   within ``BACKBONE_REL_TOL``, and the heatmaps decoded equally on both
+   (equal maxima included).
+
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
 each train step's device time by kernel and, before phase 2, the stage
 split of the trunk (K1), the GRU scan (K2), the decoder chain (K3), the
@@ -257,6 +274,21 @@ MESH_GRAD_REL_TOL = 0.1
 DECODER_GRAD_REL_TOL = 0.03
 # Decoder parameters whose gradient is zero analytically (see mesh_train).
 KEY_BIASES = ("wk.bias", "normk.mlp_beta.weight", "normk.mlp_beta.bias")
+# Phase 8: the demo as ``python -m pmce_tpu_torch.main.run_demo`` runs it
+# at full width (ViTPose-Huge, ResNet-50, PMCE bf16 on its kernels).
+DEMO_ARGV = ["--synthetic", "--full-stack", "--vitpose", "huge",
+             "--frames", "48"]
+# Kernels vs plain (phase 8b), relative to each output's largest
+# magnitude: the meshes in phase 3's serving band; the cameras are fitted
+# in closed form to the meshes' joints. First measured on an H100 (700 W):
+# meshes 0.80 %, cameras 0.019 %.
+DEMO_REL_TOL = {"mesh": SERVE_REL_TOL, "cam": SERVE_REL_TOL}
+# Every tracked box must overlap the rendered body's tight box this much.
+DEMO_MIN_IOU = 0.3
+# Phase 8c: f32 with TF32 off on the card vs the CPU, relative to the
+# output's largest magnitude (the orders of the sums differ). First
+# measured: ResNet-50 1.85e-7, ViTPose-Huge 1.32e-6.
+BACKBONE_REL_TOL = 1e-4
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 on
 # the tensor cores, f32 on the CUDA cores, and the HBM rate.
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -2039,6 +2071,183 @@ def entry_points(device, serve_fps: float) -> dict:
             "phase_s": phase_s}
 
 
+def demo_launches(counts: dict, expect: dict, tag: str) -> None:
+    """Every counter equals ``expect`` (0 where it is not named)."""
+    wrong = {k: (expect.get(k, 0), v) for k, v in counts.items()
+             if v != expect.get(k, 0)}
+    if wrong:
+        raise RuntimeError(f"{tag}: launches (expected, counted) {wrong}")
+
+
+def demo_iou(a, b) -> float:
+    """IoU of two xywh boxes."""
+    ix = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    return inter / (a[2] * a[3] + b[2] * b[3] - inter)
+
+
+def backbones_card_vs_cpu(device) -> dict:
+    """Phase 8c: ResNet-50 features and ViTPose-Huge heatmaps at full width
+    in f32 (TF32 off), on the card and on the CPU, on weights drawn from a
+    seed with BatchNorm statistics off 0 and 1; and the heatmaps decoded on
+    both."""
+    import torch
+
+    from pmce_tpu_torch.models.spin import ResNet50
+    from pmce_tpu_torch.models.vitpose import (
+        ViTPose,
+        ViTPoseConfig,
+        decode_heatmaps,
+    )
+    from pmce_tpu_torch.smpl.layer import full_f32
+
+    g = torch.Generator().manual_seed(8)
+    errs = {}
+    for name, model, x in (
+            ("resnet50", ResNet50(), torch.randn(4, 3, 224, 224, generator=g)),
+            ("vitpose_huge", ViTPose(ViTPoseConfig.huge()),
+             torch.randn(2, 3, 256, 192, generator=g))):
+        model.reset_parameters(g)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.normal_(0.0, 0.5, generator=g)
+                    m.running_var.uniform_(0.5, 2.0, generator=g)
+        model.eval()
+        t0 = time.time()
+        with torch.no_grad(), full_f32():
+            want = model(x)
+            got = model.to(device)(x.to(device)).cpu()
+        err = max_err(got, want) / float(want.abs().max())
+        print(f"[demo] {name} f32 card vs CPU: max_abs_err / max|x| = "
+              f"{err:.3g} (tol {BACKBONE_REL_TOL}, TF32 off; {tuple(got.shape)};"
+              f" {time.time() - t0:.1f} s)", flush=True)
+        if not err <= BACKBONE_REL_TOL:
+            raise RuntimeError(f"{name}: card and CPU disagree")
+        errs[name] = err
+        del model
+    # The card's heatmaps decoded on the card and on the CPU, and equal
+    # maxima: the first in row-major order on both.
+    hm = got.clone()
+    hm[:, 0] = 0.0
+    hm[:, 1, 10:12, 20] = 5.0
+    k_card, s_card = decode_heatmaps(hm.to(device))
+    k_cpu, s_cpu = decode_heatmaps(hm)
+    if not (torch.equal(k_card.cpu(), k_cpu)
+            and torch.equal(s_card.cpu(), s_cpu)):
+        raise RuntimeError("decode_heatmaps: card and CPU disagree")
+    print(f"[demo] decode_heatmaps on the card = on the CPU for "
+          f"{k_cpu.shape[0] * k_cpu.shape[1]} keypoints (ties included: "
+          f"{k_cpu[0, 0].tolist()}, {k_cpu[0, 1].tolist()})", flush=True)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def demo(device) -> dict:
+    """Phase 8: the port's video demo, ``python -m
+    pmce_tpu_torch.main.run_demo`` with ``DEMO_ARGV``, in this process so
+    that the launch counters can be read. (a) on the kernels, (b) under
+    ``plain_everything``, (c) the backbones at full width on the card
+    against the CPU. Returns the numbers the summary line prints."""
+    import contextlib
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pmce_tpu_torch.demo import detector as det
+    from pmce_tpu_torch.demo.pipeline import DemoConfig
+    from pmce_tpu_torch.main import run_demo
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+    from pmce_tpu_torch.ops import fused_coevo_chain as fc
+    from pmce_tpu_torch.smpl.artifacts import ensure_cached_artifacts
+
+    t_phase = time.time()
+    card = card_line()
+    build = REPO / "pmce_tpu_torch" / "_build"
+    det.CACHE_DIR = build / "chip_smoke_detector"
+    shutil.rmtree(det.CACHE_DIR, ignore_errors=True)
+    t0 = time.time()
+    det.ensure_cached_detector(ensure_cached_artifacts(), device=device)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    print(f"[demo] detector trained at first use (512 renders, 600 Adam "
+          f"steps of 32) in {train_s:.1f} s on {card}", flush=True)
+
+    out_dir = build / "chip_smoke_demo"
+    argv = DEMO_ARGV + ["--output", str(out_dir)]
+    runs = {}
+    for path in ("kernels", "plain"):
+        ctx = (plain_everything(fa, fc) if path == "plain"
+               else contextlib.nullcontext())
+        t0 = time.time()
+        _cuda.reset_launch_counts()
+        with ctx:
+            out = run_demo.main(argv)
+        torch.cuda.synchronize()
+        counts = _cuda.launch_counts()
+        wall = time.time() - t0
+        runs[path] = out
+        results = out["results"]
+        if len(results) != 1:
+            raise RuntimeError(f"demo ({path}): {len(results)} tracks")
+        (res,) = results.values()
+        n = len(res["frames"])
+        # Two passes (the warm-up and the measured one), each of
+        # ceil(n / window_batch) window batches.
+        wb = 2 * math.ceil(n / DemoConfig.window_batch)
+        expect = ({} if path == "plain" else
+                  {"lifter_trunk": wb, "coevo_chain": wb, "gru_scan": 2 * wb,
+                   "gru_layer": 2 * wb, "gru_layer_rev": 2 * wb})
+        demo_launches(counts, expect, f"demo ({path})")
+        print(f"[demo] {path}: {wall:.1f} s; {out['fps']:.1f} frames/s end "
+              f"to end; launches {({k: v for k, v in counts.items() if v})}"
+              f" ({wb} window batches of {DemoConfig.window_batch}) on {card}",
+              flush=True)
+        if n < DemoConfig.min_track_frames:
+            raise RuntimeError(f"demo ({path}): the track holds {n} frames")
+        for k in ("mesh", "cam", "orig_cam"):
+            if not np.isfinite(res[k]).all():
+                raise RuntimeError(f"demo ({path}) {k}: non-finite values")
+        gt = out["gt_boxes"]
+        ious = [demo_iou(b, gt[f]) for b, f in zip(res["bboxes"],
+                                                   res["frames"])]
+        print(f"[demo] {path}: {n} of {len(gt)} frames tracked; IoU of the "
+              f"tracked boxes with the rendered body's: min {min(ious):.3f},"
+              f" median {statistics.median(ious):.3f}", flush=True)
+        if min(ious) < DEMO_MIN_IOU:
+            raise RuntimeError(f"demo ({path}): a tracked box misses the "
+                               f"body (IoU {min(ious):.3f})")
+    (a,), (b,) = (r["results"].values() for r in runs.values())
+    if not np.array_equal(a["frames"], b["frames"]):
+        raise RuntimeError("demo: the plain pass tracked other frames")
+    bands = {}
+    for k in ("mesh", "cam"):
+        scale = float(np.abs(b[k]).max())
+        err = float(np.abs(a[k] - b[k]).max())
+        bands[k] = err / scale
+        print(f"[demo] {k}, kernels vs plain: max_abs_err={err:.6g} (max |x| "
+              f"{scale:.4g}, tol {DEMO_REL_TOL[k]} x max)", flush=True)
+        if err > DEMO_REL_TOL[k] * scale:
+            raise RuntimeError(f"demo {k}: kernels and plain disagree")
+    stages = runs["kernels"]["stages"]
+    print("[demo] stage split (kernels, measured pass): " + ", ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in sorted(
+            stages["stage_seconds"].items(), key=lambda kv: -kv[1]))
+        + f"; total {stages['total_seconds'] * 1e3:.2f} ms = "
+        f"{stages['fps_measured']:.1f} frames/s on {card}", flush=True)
+    errs = backbones_card_vs_cpu(device)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    phase_s = time.time() - t_phase
+    print(f"[demo] phase 8 took {phase_s:.1f} s on {card}", flush=True)
+    return {"fps": runs["kernels"]["fps"],
+            "stage_fps": stages["fps_measured"], "train_s": train_s,
+            "phase_s": phase_s, "bands": bands, **errs}
+
+
 def profile_step(step, what: str = "train step", n: int = 5) -> None:
     """Device time of ``n`` calls of ``step`` (a ``what``) by kernel
     (torch.profiler)."""
@@ -2275,6 +2484,7 @@ def main() -> int:
     fused_counts, fused_ms = mesh_train(device, stage1, profile, True,
                                         mesh_ms)
     cli = entry_points(device, fps)
+    dm = demo(device)
     # Each kernel's launches on the path it belongs to.
     counts = {**{k: mesh_counts[k] for k in REPLACES},
               **{k: fused_counts[k] for k in DECODER},
@@ -2296,8 +2506,10 @@ def main() -> int:
           f"{fused_ms:.3f} ms = {BM / fused_ms * 1e3:.1f} clips/s "
           f"(fused_attn on); bench_torch {cli['bench']:.1f} mid-frames/s; "
           f"train CLI --smoke {cli['train_s']:.1f} s, test CLI "
-          f"{cli['test_s']:.1f} s, phase 7 {cli['phase_s']:.1f} s",
-          flush=True)
+          f"{cli['test_s']:.1f} s, phase 7 {cli['phase_s']:.1f} s; demo "
+          f"{dm['fps']:.1f} frames/s end to end (stage table "
+          f"{dm['stage_fps']:.1f}), detector training {dm['train_s']:.1f} s,"
+          f" phase 8 {dm['phase_s']:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

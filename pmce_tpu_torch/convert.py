@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's PMCE into the port.
+"""Carry weights from the JAX package's models into the port.
 
 :func:`state_dict_from_jax` turns a JAX PMCE parameter tree (nested dicts of
 arrays, as ``PMCE.init`` or a checkpoint gives them) into the port's
@@ -14,6 +14,20 @@ reference-named state_dict. It is the inverse of
   ``fusion_weight`` [T];
 - LayerNorm ``weight`` is flax's ``scale``; GRU ``weight_ih_l{k}[_reverse]``
   is the transposed ``l{k}_{fwd,bwd}.ih.kernel``.
+
+The demo's models (:func:`resnet50_state_dict_from_jax`,
+:func:`hmr_state_dict_from_jax`, :func:`vitpose_state_dict_from_jax`,
+:func:`detector_state_dict_from_jax`) invert
+``tools/import_backbones.py``'s ``_conv``, ``_deconv`` and ``_bn``:
+
+- a flax ``Conv`` kernel [kh, kw, in, out] is a torch ``Conv2d.weight``
+  [out, in, kh, kw]; a ``ConvTranspose(transpose_kernel=True)`` kernel
+  [kh, kw, out, in] a ``ConvTranspose2d.weight`` [in, out, kh, kw]: both
+  the same axis permutation;
+- ``BatchNorm`` scale / bias → weight / bias, the batch statistics'
+  mean / var → running_mean / running_var;
+- mmpose's ``pos_embed`` keeps a leading cls slot that the JAX model drops:
+  it comes back as zeros.
 """
 
 from __future__ import annotations
@@ -153,3 +167,88 @@ def lifter_state_dict_from_jax(params) -> dict:
     out: dict = {}
     _pose_lifter(params, "lifter", out)
     return {k[len("lifter."):]: v for k, v in out.items()}
+
+
+# ------------------------------------------------------- the demo's models
+def _conv(p, name, out):
+    out[f"{name}.weight"] = _arr(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        out[f"{name}.bias"] = _arr(p["bias"])
+
+
+def _bn(p, stats, name, out):
+    _ln(p, name, out)
+    out[f"{name}.running_mean"] = _arr(stats["mean"])
+    out[f"{name}.running_var"] = _arr(stats["var"])
+    out[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _resnet(p, s, out):
+    _conv(p["conv1"], "conv1", out)
+    _bn(p["bn1"], s["bn1"], "bn1", out)
+    for key in sorted(k for k in p if k.startswith("layer")):
+        stage, b = key[len("layer"):].split("_")
+        dst = f"layer{stage}.{b}"
+        for i in (1, 2, 3):
+            _conv(p[key][f"conv{i}"], f"{dst}.conv{i}", out)
+            _bn(p[key][f"bn{i}"], s[key][f"bn{i}"], f"{dst}.bn{i}", out)
+        if "down_conv" in p[key]:
+            _conv(p[key]["down_conv"], f"{dst}.downsample.0", out)
+            _bn(p[key]["down_bn"], s[key]["down_bn"], f"{dst}.downsample.1",
+                out)
+
+
+def resnet50_state_dict_from_jax(variables) -> dict:
+    """JAX ``ResNet50`` variables ({"params", "batch_stats"}) → the
+    port's ``ResNet50`` state_dict (torchvision names)."""
+    out: dict = {}
+    _resnet(variables["params"], variables["batch_stats"], out)
+    return out
+
+
+def hmr_state_dict_from_jax(variables) -> dict:
+    """JAX ``HMR`` variables → the port's ``HMR`` state_dict (SPIN names:
+    the regressor's layers beside the trunk's)."""
+    out: dict = {}
+    p = variables["params"]
+    _resnet(p["backbone"], variables["batch_stats"]["backbone"], out)
+    for name in ("fc1", "fc2", "decpose", "decshape", "deccam"):
+        _dense(p["regressor"][name], name, out)
+    return out
+
+
+def vitpose_state_dict_from_jax(variables) -> dict:
+    """JAX ``ViTPose`` variables → the port's ``ViTPose`` state_dict
+    (mmpose names)."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: dict = {}
+    _conv(p["patch_embed"], "backbone.patch_embed.proj", out)
+    pos = np.asarray(p["pos_embed"])
+    out["backbone.pos_embed"] = _arr(np.concatenate(
+        [np.zeros_like(pos[:, :1]), pos], axis=1))
+    depth = sum(1 for k in p if k.startswith("block"))
+    for i in range(depth):
+        _block(p[f"block{i}"], f"backbone.blocks.{i}", out)
+    _ln(p["norm"], "backbone.last_norm", out)
+    for j, idx in enumerate((0, 3)):
+        _conv(p[f"deconv{j}"], f"keypoint_head.deconv_layers.{idx}", out)
+        _bn(p[f"deconv_bn{j}"], s[f"deconv_bn{j}"],
+            f"keypoint_head.deconv_layers.{idx + 1}", out)
+    _conv(p["final"], "keypoint_head.final_layer", out)
+    return out
+
+
+def detector_state_dict_from_jax(params) -> dict:
+    """JAX ``PersonDetector`` params → the port's ``PersonDetector``
+    state_dict."""
+    if "params" in params:
+        params = params["params"]
+    out: dict = {}
+    n_blocks = sum(1 for k in params if k.startswith("ConvBlock_"))
+    for i in range(n_blocks):
+        blk = params[f"ConvBlock_{i}"]
+        _conv(blk["Conv_0"], f"blocks.{i}.conv", out)
+        _ln(blk["GroupNorm_0"], f"blocks.{i}.norm", out)
+    for name in ("head_heat", "head_size", "head_off"):
+        _conv(params[name], name, out)
+    return out

@@ -26,16 +26,20 @@ from pmce_tpu_torch.smpl.artifacts import SMPLArtifacts, kintree_levels
 
 @contextlib.contextmanager
 def full_f32():
-    """f32 products in full f32 (no TF32) on the card for the duration of
-    the block, the caller's setting restored after. Through the per-backend
-    flag: since torch 2.9 ``get_float32_matmul_precision`` raises once a
-    caller has also set that flag."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    """f32 products and convolutions in full f32 (no TF32) on the card for
+    the duration of the block, the caller's settings restored after.
+    Through the per-backend flags: since torch 2.9
+    ``get_float32_matmul_precision`` raises once a caller has also set
+    them."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 @dataclasses.dataclass(frozen=True)

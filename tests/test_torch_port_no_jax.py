@@ -4,7 +4,9 @@ A fresh interpreter with ``jax`` and ``flax`` made unimportable imports
 every module of ``pmce_tpu_torch`` (the CLIs of ``pmce_tpu_torch.main``
 among them, whose import runs nothing) and ``bench_torch.py``, runs a tiny
 f32 forward on the CPU, and runs the decoder's attention-block wrappers
-(``fused_mhsa``, ``ada_block``, ``ca_block``) forward and backward.
+(``fused_mhsa``, ``ada_block``, ``ca_block``) forward and backward, and
+runs the demo's pieces: the native renderer and tracker (built with g++),
+the crop, a small ResNet and ViTPose.
 """
 
 from __future__ import annotations
@@ -65,6 +67,27 @@ SCRIPT = textwrap.dedent("""
                         tuple(r(2, C) for _ in range(4)), proj + mlp, H))
     sum(o.sum() for o in outs).backward()
     assert all(t.grad is not None for t in attn + mlp + proj)
+    from pmce_tpu_torch.demo.preprocess import crop_resize_normalize
+    from pmce_tpu_torch.demo.renderer import Renderer
+    from pmce_tpu_torch.demo.tracker import track_video
+    from pmce_tpu_torch.main import run_demo
+    from pmce_tpu_torch.models.spin import ResNet50
+    from pmce_tpu_torch.models.vitpose import ViTPose, ViTPoseConfig
+    assert callable(run_demo.main)
+    frames = np.full((2, 48, 64, 3), 30, np.uint8)
+    img = Renderer(art.faces, (64, 48)).render(
+        frames[0], art.v_template, np.array([0.8, 0.8, 0.0, 0.0]))
+    assert (img != 30).any()
+    tracks = track_video([np.array([[5.0, 5, 20, 30]])] * 3, min_frames=2)
+    assert len(tracks) == 1
+    crops = crop_resize_normalize(torch.from_numpy(frames),
+                                  torch.tensor([[0.0, 0, 48, 48]] * 2), 64)
+    with torch.no_grad():
+        assert ResNet50(layers=(1, 1, 1, 1), width=8).eval()(
+            crops).shape == (2, 256)
+        vp = ViTPose(ViTPoseConfig(img_size=(64, 48), embed_dim=32, depth=1,
+                                   num_heads=2, deconv_channels=8)).eval()
+        assert vp(crops[:, :, :, :48]).shape == (2, 17, 16, 12)
     assert not any(k == "pmce_tpu" or k.startswith("pmce_tpu.")
                    for k in sys.modules)
     print("OK")
@@ -81,8 +104,9 @@ def test_port_imports_and_runs_without_jax():
 def test_port_sources_never_import_jax():
     """No module of the package, nor chip_smoke.py or bench_torch.py,
     imports jax, flax or the JAX package (checked on the import statements
-    themselves). The git-ignored build directory holds no source of the
-    package."""
+    themselves), and no C++ or CUDA source of the package includes a file
+    of the JAX package. The git-ignored build directory holds no source of
+    the package."""
     files = [p for p in (REPO / "pmce_tpu_torch").rglob("*.py")
              if "_build" not in p.relative_to(REPO).parts]
     files += [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
@@ -98,3 +122,9 @@ def test_port_sources_never_import_jax():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in ("jax", "flax", "pmce_tpu"), (path, name)
+    for path in (REPO / "pmce_tpu_torch").rglob("*"):
+        if path.suffix in (".cc", ".cu", ".cuh", ".h") and \
+                "_build" not in path.relative_to(REPO).parts:
+            for line in path.read_text().splitlines():
+                if line.lstrip().startswith("#include"):
+                    assert "pmce_tpu/" not in line, (path, line)

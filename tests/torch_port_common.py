@@ -49,6 +49,35 @@ def numpy_params(shapes, seed: int):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def numpy_variables(model, x, seed: int) -> dict:
+    """Seeded numpy values for every leaf of ``model``'s variables:
+    products N(0, 1/fan_in), scales 1 + N(0, 0.1²), biases N(0, 0.1²),
+    position embeddings N(0, 0.5²), batch means N(0, 0.5²) and variances
+    U(0.5, 2)."""
+    shapes = jax.eval_shape(
+        lambda a: model.init(jax.random.PRNGKey(0), a), jnp.asarray(x))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = str(getattr(path[-1], "key", path[-1]))
+        shape = leaf.shape
+        if name == "kernel":
+            v = rng.normal(size=shape, scale=np.prod(shape[:-1]) ** -0.5)
+        elif name == "scale":
+            v = 1.0 + rng.normal(size=shape, scale=0.1)
+        elif name == "mean":
+            v = rng.normal(size=shape, scale=0.5)
+        elif name == "var":
+            v = rng.uniform(0.5, 2.0, size=shape)
+        elif name.endswith("_embed"):
+            v = rng.normal(size=shape, scale=0.5)
+        else:
+            v = rng.normal(size=shape, scale=0.1)
+        return np.asarray(v, np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, dict(shapes))
+
+
 def init_shapes(model, *args):
     """Parameter shapes of a flax model, without running its init."""
     return jax.eval_shape(
