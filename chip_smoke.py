@@ -118,6 +118,21 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    within ``BACKBONE_REL_TOL``, and the heatmaps decoded equally on both
    (equal maxima included).
 
+9. data parallelism on the card, in this process: a one-process NCCL
+   world that ``pmce_tpu_torch.parallel.initialize`` joins from torchrun's
+   variables (set here: rank 0, world size 1). Phase 6's config, cuts,
+   data and warm start; the fused Stage-2 step three ways from the same
+   weights, seed and batches: (a) the plain ``Trainer``, (b) under
+   ``replicate`` (DDP), (c) under ``shard_fsdp`` (FSDP2). For (b) and (c)
+   the counters, zeroed before and read after, equal phase 6's for a first
+   step and for an epoch of ``TRAIN_STEPS`` steps with its evaluation (no
+   launch sequence of rows 4, 5, 8, 9 and 10); the first step's loss and
+   every gradient after the reduction equal (a)'s (bit for bit, or the
+   largest difference printed within ``DP_GRAD_REL_TOL`` of the largest
+   gradient); the fixed batch's loss falls; a checkpoint (c) writes loads
+   into a plain ``Trainer`` whose next loss is (a)'s and (c)'s. Each way's
+   step time and peak memory beside phase 6's step.
+
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
 each train step's device time by kernel and, before phase 2, the stage
 split of the trunk (K1), the GRU scan (K2), the decoder chain (K3), the
@@ -273,6 +288,9 @@ MESH_GRAD_REL_TOL = 0.1
 # card (everything else plain) against the plain path.
 DECODER_GRAD_REL_TOL = 0.03
 # Decoder parameters whose gradient is zero analytically (see mesh_train).
+# Phase 9 at world size 1: DDP and FSDP against the plain trainer, where
+# not bit for bit, relative to the largest gradient (and loss).
+DP_GRAD_REL_TOL = 1e-6
 KEY_BIASES = ("wk.bias", "normk.mlp_beta.weight", "normk.mlp_beta.bias")
 # Phase 8: the demo as ``python -m pmce_tpu_torch.main.run_demo`` runs it
 # at full width (ViTPose-Huge, ResNet-50, PMCE bf16 on its kernels).
@@ -1708,33 +1726,9 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
     print(f"{tag} launches on the Stage-2 training path: {counts} "
           f"({time.time() - t0:.1f} s: {steps} steps, 2 evaluations of "
           f"{len(test_ds)} clips)", flush=True)
-    # The backward scan: one launch a direction, four a step.
-    expect = {"gru_layer_save": 4 * steps, "gru_layer_bwd": 4 * steps,
-              "gru_bwd_scan": 4 * steps, "gru_layer": 2 * evals,
-              "gru_layer_rev": 2 * evals, "gru_scan": 2 * evals}
+    expect = stage2_launches(steps, evals, fused)
     if fused:
-        # Per step: the lifter's 6 blocks forward and backward; per
-        # CoevoBlock (3) forward, the joint stream's fused_mhsa, the vertex
-        # stream's ada_block and two ca_block. Backward only where a
-        # gradient is owed: every block re-reads the lifted joints, so the
-        # joint streams of blocks 1 and 2 (their joint CA and fused_mhsa)
-        # reach no output and autograd skips them, as JAX's VJP computes
-        # nothing for them: 1 mhsa, 3 AdaLN and 4 CA backwards a step. Per
-        # evaluation batch the trunk and the chain; skinning belongs to
-        # phase 4's synthesis.
-        expect.update({"block_fwd": 6 * steps, "block_bwd": 6 * steps,
-                       "mhsa_fwd": 3 * steps, "mhsa_bwd": steps,
-                       "ada_block_fwd": 3 * steps,
-                       "ada_block_bwd": 3 * steps,
-                       "ca_block_fwd": 6 * steps, "ca_block_bwd": 4 * steps,
-                       **{name: 0 for name in DECODER_SEQ},
-                       "lifter_trunk": evals, "lifter_trunk_long": 0,
-                       "coevo_chain": evals, "skinning": 0})
-        wrong = {k: (v, counts[k]) for k, v in expect.items()
-                 if counts[k] != v}
-        if wrong or any(counts[k] == 0 for k in DECODER):
-            raise RuntimeError(f"fused Stage-2 path: launches (expected, "
-                               f"counted) {wrong}")
+        check_fused_launches(counts, expect, "fused Stage-2 path")
     else:
         for name in MESH_TRAINING:
             if counts[name] == 0 or counts[name] != expect[name]:
@@ -1882,6 +1876,237 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
     del trainer, state
     torch.cuda.empty_cache()
     return counts, ms
+
+
+def data_parallel(device, stage1: dict, fused_ms: float) -> dict:
+    """Phase 9: the fused Stage-2 step three ways from the same weights,
+    seed and batches, in a one-process NCCL world that ``initialize`` sets
+    up from torchrun's variables: (a) the plain ``Trainer``, (b) under DDP
+    (``replicate``), (c) under FSDP (``shard_fsdp``). For (b) and (c): the
+    launches of a first step and of an epoch with its evaluation exactly
+    phase 6's; the first step's loss and every gradient after the
+    reduction equal to (a)'s (bit for bit, or the largest difference
+    printed within ``DP_GRAD_REL_TOL`` of the largest gradient); the fixed
+    batch's loss falling. A checkpoint (c) writes loads into a plain
+    ``Trainer``, whose next loss is (a)'s. Each way's step time and peak
+    memory beside phase 6's step."""
+    import os
+    import shutil
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pmce_tpu_torch.core.losses import build_face_losses
+    from pmce_tpu_torch.core.trainer import Trainer, pmce_loss
+    from pmce_tpu_torch.data.clip_dataset import ClipDataset, MultiDataset
+    from pmce_tpu_torch.models.pmce import (
+        create_pmce,
+        load_lifter_checkpoint,
+        resolve_compute_dtype,
+    )
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.parallel import distributed as dist_lib
+    from pmce_tpu_torch.parallel import mesh as mesh_lib
+    from pmce_tpu_torch.parallel.prefetch import to_device
+    from pmce_tpu_torch.smpl.mesh import ensure_cached_coarsening
+
+    tag = "[dp]"
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    if not dist_lib.initialize(device="cuda"):
+        raise RuntimeError("phase 9: initialize() joined no process group")
+    mesh = mesh_lib.create_mesh(1, "cuda")
+    print(f"{tag} {dist.get_backend()} world of {dist.get_world_size()}, "
+          f"mesh {mesh}", flush=True)
+
+    cfg = mesh_h36m_config(str(stage1["ckpt"]), True)
+    art, jr = stage1["art"], stage1["jr"]
+    coarse = ensure_cached_coarsening()
+    train_ds, test_ds = (ClipDataset(sq, seqlen=T, stride=1,
+                                     chunk_mode="mesh")
+                         for sq in stage1["seqs"])
+    dev = torch.device(device)
+    J_reg = torch.as_tensor(jr, device=dev)
+    faces = torch.as_tensor(art.faces, dtype=torch.long, device=dev)
+    face_fn = build_face_losses(art.faces, art.num_verts, dev)
+    weights = (cfg.MODEL.normal_loss_weight, cfg.MODEL.edge_loss_weight,
+               cfg.MODEL.joint_loss_weight)
+    evals = -(-len(test_ds) // cfg.TEST.batch_size)
+    ckpt_dir = REPO / "pmce_tpu_torch" / "_build" / "chip_smoke_dp"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def trainer_of(mode: str) -> Trainer:
+        cfg.TRAIN.fsdp = mode == "fsdp"
+        model, _ = create_pmce(
+            num_joint=JT, art=art, coarsening=coarse,
+            joint_regressor_h36m=jr, embed_dim=cfg.MODEL.hpe_dim,
+            depth=cfg.MODEL.hpe_dep, seqlen=cfg.DATASET.seqlen,
+            dtype=resolve_compute_dtype(cfg.MODEL.compute_dtype),
+            fused=cfg.MODEL.fused_attn, device=device, seed=cfg.TRAIN.seed)
+        load_lifter_checkpoint(model, cfg.MODEL.posenet_path)
+        return Trainer(cfg=cfg, model=model,
+                       train_data=MultiDataset([train_ds], seed=0),
+                       test_data=test_ds, faces=art.faces, J_reg_target=jr,
+                       ckpt_dir=str(ckpt_dir / mode), device=device,
+                       log_fn=lambda s: print(f"{tag} {mode}: {s}",
+                                              flush=True),
+                       mesh=None if mode == "plain" else mesh)
+
+    def full(t):
+        if t is None:
+            return None
+        t = t.detach()
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def fixed_loss(trainer) -> float:
+        model = trainer.model
+        with torch.no_grad(), mesh_lib.gathered(model):
+            return float(pmce_loss(model.eval(), batch, faces, J_reg,
+                                   weights, 1.0, face_fn)[0])
+
+    def step(trainer, state, epoch: int) -> float:
+        loss, _ = trainer.train_step(state, batch,
+                                     trainer.draw_generator(epoch), 1.0)
+        return loss.item()
+
+    def run(mode: str) -> dict:
+        trainer = trainer_of(mode)
+        state = trainer.init_state()
+        before = fixed_loss(trainer)
+        _cuda.reset_launch_counts()
+        first = step(trainer, state, 0)
+        torch.cuda.synchronize()
+        counts = _cuda.launch_counts()
+        grads = {n: full(p.grad) for n, p in
+                 trainer.model.named_parameters()}
+        grads = {n: None if g is None else g.clone()
+                 for n, g in grads.items()}
+        _cuda.reset_launch_counts()
+        trainer.train_epoch(state, 1)
+        trainer.evaluate()
+        torch.cuda.synchronize()
+        epoch = _cuda.launch_counts()
+        after = fixed_loss(trainer)
+        if mode == "fsdp":
+            trainer.save(state, 1, False)
+        nxt = step(trainer, state, 2)
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(13):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(trainer, state, 3)
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del trainer, state
+        torch.cuda.empty_cache()
+        return {"before": before, "first": first, "counts": counts,
+                "grads": grads, "epoch": epoch, "after": after, "next": nxt,
+                "ms": statistics.median(times), "peak": peak}
+
+    batch = to_device(train_ds.get_batch(np.arange(BM)), dev,
+                      bf16_features=True)
+    ways = {}
+    for mode in ("plain", "ddp", "fsdp"):
+        ways[mode] = run(mode)
+    ref = ways["plain"]
+    largest = max(float(g.abs().max()) for g in ref["grads"].values()
+                  if g is not None)
+    for mode in ("ddp", "fsdp"):
+        got, what = ways[mode], f"{tag} {mode}"
+        check_fused_launches(got["counts"], stage2_launches(1, 0, True),
+                             f"{what} first step")
+        check_fused_launches(got["epoch"],
+                             stage2_launches(TRAIN_STEPS, evals, True),
+                             f"{what} epoch and evaluation")
+        if {n for n, g in got["grads"].items() if g is None} != {
+                n for n, g in ref["grads"].items() if g is None}:
+            raise RuntimeError(f"{what}: other parameters got gradients")
+        differ = {n: max_err(g, ref["grads"][n])
+                  for n, g in got["grads"].items()
+                  if g is not None and not torch.equal(g, ref["grads"][n])}
+        worst = max(differ.values(), default=0.0)
+        print(f"{what}: first loss {got['first']!r} vs plain "
+              f"{ref['first']!r}; {len(differ)} of "
+              f"{sum(g is not None for g in ref['grads'].values())} "
+              f"gradients differ from the plain step's, largest difference "
+              f"{worst:.3g} (bound {DP_GRAD_REL_TOL} x largest gradient "
+              f"{largest:.4g}); launches a step as phase 6's, epoch of "
+              f"{TRAIN_STEPS} steps + {evals} evaluation batches exact; "
+              f"fixed batch loss {got['before']:.6g} -> {got['after']:.6g}",
+              flush=True)
+        if (abs(got["first"] - ref["first"])
+                > DP_GRAD_REL_TOL * abs(ref["first"])
+                or worst > DP_GRAD_REL_TOL * largest):
+            raise RuntimeError(f"{what}: the first step differs from the "
+                               f"plain trainer's")
+        if not got["after"] < got["before"]:
+            raise RuntimeError(f"{what}: the fixed batch's loss did not "
+                               f"fall")
+
+    # (c)'s checkpoint into a plain trainer: its next loss is (a)'s.
+    resumed = trainer_of("plain")
+    state, epoch = resumed.restore(str(ckpt_dir / "fsdp"))
+    nxt = step(resumed, state, 2)
+    del resumed, state
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"{tag} FSDP checkpoint (epoch {epoch}) in a plain trainer: next "
+          f"loss {nxt!r}; plain {ways['plain']['next']!r}, FSDP "
+          f"{ways['fsdp']['next']!r}", flush=True)
+    for mode in ("plain", "fsdp"):
+        if abs(nxt - ways[mode]["next"]) > DP_GRAD_REL_TOL * abs(nxt):
+            raise RuntimeError(f"{tag} the resumed FSDP checkpoint's next "
+                               f"loss is not {mode}'s")
+    card = card_line()
+    print(f"{tag} fused Stage-2 train step, batch {BM}: " + ", ".join(
+        f"{mode} {w['ms']:.3f} ms (peak {w['peak']:.2f} GiB)"
+        for mode, w in ways.items())
+        + f"; phase 6's step {fused_ms:.3f} ms; on {card}", flush=True)
+    dist.destroy_process_group()
+    return {mode: (w["ms"], w["peak"]) for mode, w in ways.items()}
+
+
+def stage2_launches(steps: int, evals: int, fused: bool) -> dict:
+    """The launches of ``steps`` Stage-2 train steps and ``evals``
+    evaluation batches (phases 5, 6 and 9). The backward scan: one launch
+    a direction, four a step."""
+    expect = {"gru_layer_save": 4 * steps, "gru_layer_bwd": 4 * steps,
+              "gru_bwd_scan": 4 * steps, "gru_layer": 2 * evals,
+              "gru_layer_rev": 2 * evals, "gru_scan": 2 * evals}
+    if fused:
+        # Per step: the lifter's 6 blocks forward and backward; per
+        # CoevoBlock (3) forward, the joint stream's fused_mhsa, the vertex
+        # stream's ada_block and two ca_block. Backward only where a
+        # gradient is owed: every block re-reads the lifted joints, so the
+        # joint streams of blocks 1 and 2 (their joint CA and fused_mhsa)
+        # reach no output and autograd skips them, as JAX's VJP computes
+        # nothing for them: 1 mhsa, 3 AdaLN and 4 CA backwards a step. Per
+        # evaluation batch the trunk and the chain; skinning belongs to
+        # phase 4's synthesis.
+        expect.update({"block_fwd": 6 * steps, "block_bwd": 6 * steps,
+                       "mhsa_fwd": 3 * steps, "mhsa_bwd": steps,
+                       "ada_block_fwd": 3 * steps,
+                       "ada_block_bwd": 3 * steps,
+                       "ca_block_fwd": 6 * steps, "ca_block_bwd": 4 * steps,
+                       **{name: 0 for name in DECODER_SEQ},
+                       "lifter_trunk": evals, "lifter_trunk_long": 0,
+                       "coevo_chain": evals, "skinning": 0})
+    return expect
+
+
+def check_fused_launches(counts: dict, expect: dict, what: str) -> None:
+    """Raise unless every counter is as expected and every decoder kernel
+    launched."""
+    wrong = {k: (v, counts[k]) for k, v in expect.items() if counts[k] != v}
+    if wrong or any(counts[k] == 0 for k in DECODER):
+        raise RuntimeError(f"{what}: launches (expected, counted) {wrong}")
 
 
 def plain_path(fa, fused: bool):
@@ -2485,6 +2710,7 @@ def main() -> int:
                                         mesh_ms)
     cli = entry_points(device, fps)
     dm = demo(device)
+    dp = data_parallel(device, stage1, fused_ms)
     # Each kernel's launches on the path it belongs to.
     counts = {**{k: mesh_counts[k] for k in REPLACES},
               **{k: fused_counts[k] for k in DECODER},
@@ -2509,7 +2735,9 @@ def main() -> int:
           f"{cli['test_s']:.1f} s, phase 7 {cli['phase_s']:.1f} s; demo "
           f"{dm['fps']:.1f} frames/s end to end (stage table "
           f"{dm['stage_fps']:.1f}), detector training {dm['train_s']:.1f} s,"
-          f" phase 8 {dm['phase_s']:.1f} s", flush=True)
+          f" phase 8 {dm['phase_s']:.1f} s; phase 9 fused Stage-2 step "
+          f"plain {dp['plain'][0]:.3f} ms, DDP {dp['ddp'][0]:.3f} ms, FSDP "
+          f"{dp['fsdp'][0]:.3f} ms", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,8 +76,8 @@ class TrainConfig:
     seed: int = 123
     steps_per_epoch: int = 0         # 0 = full dataset
     data_axis: str = "data"          # mesh axis for batch sharding
-    # Shard params + optimizer state over data-parallel devices (the JAX
-    # package's FSDP; not ported yet: the port trains on one card).
+    # Shard params + optimizer state over the data-parallel ranks (FSDP2,
+    # parallel.mesh.shard_fsdp); off: DDP replicas.
     fsdp: bool = False
 
 

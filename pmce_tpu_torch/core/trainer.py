@@ -21,8 +21,19 @@ Parameters stay f32; under the bf16 policy the model's products run in
 bf16. On that policy the BiGRU's recurrences run the GRU kernels forward
 and backward on the card; with ``fused`` the lifter's blocks run the block
 kernels (Stages 1 and 2), the decoder's attention blocks theirs (Stage 2),
-and evaluation in eval mode runs the trunk and chain kernels. Several
-devices and sharded parameters are not ported yet.
+and evaluation in eval mode runs the trunk and chain kernels.
+
+Under a ``mesh`` (:mod:`pmce_tpu_torch.parallel`, one rank a device, the
+mesh spanning the process group) the model is replicated with DDP, or
+sharded with FSDP under ``TRAIN.fsdp``, before the optimizer is built.
+Every rank draws the same global batch and keeps its rows; stochastic
+depth draws the global batch's masks and keeps the rank's rows
+(:class:`~pmce_tpu_torch.models.layers.RankDraw`), so that N ranks compute
+what one device computes on the global batch. The epoch's loss and the
+evaluation's sums are reduced over the ranks at their one host read; the
+per-sample results of a collecting evaluation gather to rank 0, which
+alone runs the protocol and writes checkpoints, as full state dicts in
+the single-device format.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pmce_tpu_torch.core import checkpoint as ckpt_lib
 from pmce_tpu_torch.core.config import Config
@@ -44,6 +56,14 @@ from pmce_tpu_torch.core.losses import (
     pmce_total_loss,
 )
 from pmce_tpu_torch.core.optim import build_optimizer
+from pmce_tpu_torch.models.layers import RankDraw
+from pmce_tpu_torch.parallel import mesh as mesh_lib
+from pmce_tpu_torch.parallel.distributed import (
+    local_rows,
+    process_count,
+    process_index,
+)
+from pmce_tpu_torch.parallel.prefetch import prefetch_to_device, to_device
 from pmce_tpu_torch.utils.obj_io import save_obj
 
 # H36M protocol eval joints (reference data/Human36M/dataset.py:62).
@@ -195,10 +215,14 @@ def make_lift_eval_step(model, root_idx: int = 0,
 
 @dataclasses.dataclass
 class Trainer:
-    """Epoch loop of PMCE (mesh) or PoseEst (lift) training on one device.
+    """Epoch loop of PMCE (mesh) or PoseEst (lift) training on one device,
+    or on a ``mesh`` of data-parallel ranks (``device`` is then this
+    rank's).
 
     PMCE needs ``faces`` [F, 3] and ``J_reg_target`` [17, V], the target
-    joint set's regressor (numpy)."""
+    joint set's regressor (numpy). Under a mesh every rank passes a
+    ``metric_logger`` or none (the logged losses are reduced over the
+    ranks)."""
 
     cfg: Config
     model: Any
@@ -212,6 +236,7 @@ class Trainer:
     eval_root_idx: int = 0
     eval_joints: tuple | None = H36M_EVAL_JOINTS
     metric_logger: Any = None     # optional utils.logging.MetricLogger
+    mesh: Any = None              # a parallel.create_mesh; None = 1 device
 
     def __post_init__(self):
         if self.cfg.MODEL.name not in ("PMCE", "PoseEst"):
@@ -225,65 +250,94 @@ class Trainer:
             or max(1, len(self.train_data) // tcfg.batch_size))
         self.loss_history: list = []
         self.error_history: dict = {"surface": [], "joint": []}
+        self._placed = False
         if self.is_mesh_model:
             if self.faces is None or self.J_reg_target is None:
                 raise ValueError("PMCE training needs faces and J_reg_target")
-            self.train_step = make_pmce_train_step(
-                self.model, self.faces, self.J_reg_target,
-                mcfg.normal_loss_weight, mcfg.edge_loss_weight,
-                mcfg.joint_loss_weight)
             self.eval_step = make_pmce_eval_step(
                 self.model, self.J_reg_target,
                 self.eval_joints or H36M_EVAL_JOINTS)
         else:
-            self.train_step = make_lift_train_step(self.model)
             self.eval_step = make_lift_eval_step(
                 self.model, self.eval_root_idx, self.eval_joints)
+        self._build_train_step(self.model)
+
+    def _build_train_step(self, net) -> None:
+        """The train step over ``net``: the model, or its DDP wrapper."""
+        mcfg = self.cfg.MODEL
+        if self.is_mesh_model:
+            self.train_step = make_pmce_train_step(
+                net, self.faces, self.J_reg_target, mcfg.normal_loss_weight,
+                mcfg.edge_loss_weight, mcfg.joint_loss_weight)
+        else:
+            self.train_step = make_lift_train_step(net)
 
     # ---------------------------------------------------------------- init
     def init_state(self) -> TrainState:
-        """Fresh optimizer and schedule over the model's parameters."""
+        """Fresh optimizer and schedule over the model's parameters. Under
+        a mesh the model is first placed, once: replicated (DDP; the train
+        step then runs through the wrapper) or, under ``TRAIN.fsdp``,
+        sharded in place (FSDP2), the optimizer then over the shards."""
+        if self.mesh is not None and not self._placed:
+            if self.cfg.TRAIN.fsdp:
+                mesh_lib.shard_fsdp(self.model, self.mesh)
+            else:
+                self._build_train_step(
+                    mesh_lib.replicate(self.model, self.mesh))
+            self._placed = True
         opt, sched = build_optimizer(self.cfg.TRAIN, self.steps_per_epoch,
                                      self.model.parameters())
         return TrainState(optimizer=opt, scheduler=sched)
 
     # --------------------------------------------------------------- train
+    @property
+    def _bf16_features(self) -> bool:
+        return getattr(self.model, "dtype", None) == torch.bfloat16
+
     def _wire_cast(self, batch: dict) -> dict:
-        """A numpy batch as tensors on the trainer's device. Under the bf16
-        policy the image features travel in bf16: the model's first dense
-        layer casts them to bf16 anyway, so the compute is the same for
-        half the bytes of the batch's largest tensor. Coordinates stay
-        f32."""
-        bf16 = getattr(self.model, "dtype", None) == torch.bfloat16
-        pinned = self.device.type == "cuda"
-        out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if bf16 and k == "img_feature":
-                t = t.to(torch.bfloat16)
-            if pinned:
-                # A copy from pinned memory lets the host go on while the
-                # card still runs the previous step; one from pageable
-                # memory would wait for it.
-                t = t.pin_memory()
-            out[k] = t.to(self.device, non_blocking=pinned)
-        return out
+        """A numpy batch as tensors on the trainer's device, in the wire
+        format of :func:`~pmce_tpu_torch.parallel.prefetch.to_device`."""
+        return to_device(batch, self.device, self._bf16_features)
+
+    def _device_batches(self, batches):
+        """This rank's rows of each global batch, on the device, prefetched
+        two ahead."""
+        if self.mesh is not None:
+            batches = map(local_rows, batches)
+        return prefetch_to_device(batches, device=self.device,
+                                  bf16_features=self._bf16_features)
+
+    def draw_generator(self, epoch: int):
+        """The stochastic-depth stream of ``epoch`` (one per seed and
+        epoch, on the trainer's device: the masks are made where they are
+        used); under a mesh each rank keeps its rows of the global draws."""
+        gen = torch.Generator(self.device).manual_seed(
+            self.cfg.TRAIN.seed * 100_003 + epoch)
+        if self.mesh is None:
+            return gen
+        return RankDraw(gen, process_index(), process_count())
+
+    def _rank_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks (itself on one device)."""
+        if self.mesh is None:
+            return t
+        t = t.clone()
+        dist.all_reduce(t)
+        return t
 
     def train_epoch(self, state: TrainState, epoch: int) -> TrainState:
         tcfg = self.cfg.TRAIN
-        # Stochastic depth draws from one stream per (seed, epoch), on the
-        # trainer's device: the masks are made where they are used.
-        gen = torch.Generator(self.device).manual_seed(
-            tcfg.seed * 100_003 + epoch)
+        gen = self.draw_generator(epoch)
         # The loss is summed on the device; reading it is a host sync, so
         # that happens at the logging cadence and once at the epoch's end.
         edge_gate = 1.0 if epoch > tcfg.edge_loss_start else 0.0
+        ranks = process_count() if self.mesh is not None else 1
         running = None
         n = 0
         t0 = time.time()
-        for _ in range(self.steps_per_epoch):
-            batch = self._wire_cast(
-                self.train_data.sample_batch(tcfg.batch_size))
+        batches = (self.train_data.sample_batch(tcfg.batch_size)
+                   for _ in range(self.steps_per_epoch))
+        for batch in self._device_batches(batches):
             terms = {}
             if self.is_mesh_model:
                 loss, terms = self.train_step(state, batch, gen, edge_gate)
@@ -293,11 +347,14 @@ class Trainer:
             n += 1
             if (self.metric_logger is not None
                     and n % max(tcfg.print_freq, 1) == 0):
-                rec = {"train/loss": float(loss)}
-                rec.update({f"train/{k}_loss": float(v)
+                rec = {"train/loss": float(self._rank_sum(loss)) / ranks}
+                rec.update({f"train/{k}_loss":
+                            float(self._rank_sum(v)) / ranks
                             for k, v in terms.items()})
                 self.metric_logger.log(rec, step=state.step)
-        avg = float(running) / n if n else 0.0   # the one sync, timed
+        # The one sync, timed: each rank's loss is its rows' mean, and the
+        # ranks' rows are equal in number.
+        avg = float(self._rank_sum(running)) / (n * ranks) if n else 0.0
         dt = time.time() - t0
         self.loss_history.append(avg)
         self.log_fn(f"Epoch {epoch}: loss {avg:.4f} ({n} steps, "
@@ -313,31 +370,23 @@ class Trainer:
         from pmce_tpu_torch.data.clip_dataset import epoch_iterator
 
         sums = None
-        results = []
+        per_batch = []
         keys = ("joint_err_sum", "n") + (
             ("mesh_err_sum",) if self.is_mesh_model else ())
-        for batch in epoch_iterator(self.test_data, self.cfg.TEST.batch_size,
-                                    shuffle=False, seed=0, drop_last=False):
-            out = self.eval_step(self._wire_cast(batch))
-            sums = ({k: out[k] for k in keys} if sums is None
-                    else {k: sums[k] + out[k] for k in keys})
-            if collect:
-                pred = out["pred_joint"].float().cpu().numpy()
-                mesh = (out["pred_mesh"].float().cpu().numpy()
-                        if self.is_mesh_model else None)
-                for j in range(len(pred)):
-                    if self.is_mesh_model:
-                        results.append({
-                            "joint_coord": pred[j], "mesh_coord": mesh[j],
-                            "mesh_coord_target": batch["mesh"][j] * 1000.0,
-                            "joint_coord_target": batch["reg_pose3d"][j]})
-                    else:
-                        results.append({"joint_coord": pred[j],
-                                        "joint_coord_target":
-                                            batch["lift_pose3d"][j]})
+        batches = epoch_iterator(self.test_data, self.cfg.TEST.batch_size,
+                                 shuffle=False, seed=0, drop_last=False)
+        with mesh_lib.gathered(self.model):
+            for batch in self._device_batches(batches):
+                out = self.eval_step(batch)
+                sums = ({k: out[k] for k in keys} if sums is None
+                        else {k: sums[k] + out[k] for k in keys})
+                if collect:
+                    per_batch.append(self._results(out, batch))
         # The one host read of the evaluation.
-        sums = (dict(zip(keys, torch.stack([sums[k] for k in keys]).tolist()))
-                if sums is not None else {})
+        sums = (dict(zip(keys, self._rank_sum(
+            torch.stack([sums[k] for k in keys])).tolist()))
+            if sums is not None else {})
+        results = self._gather_results(per_batch) if collect else []
         denom = max(sums.get("n", 0.0), 1.0)
         joint_err = sums.get("joint_err_sum", 0.0) / denom
         surface_err = sums.get("mesh_err_sum", 0.0) / denom
@@ -351,6 +400,32 @@ class Trainer:
                        if self.is_mesh_model else ""))
         return joint_err, surface_err, results
 
+    def _results(self, out: dict, batch: dict) -> list:
+        """The per-sample records of one evaluated batch (host numpy)."""
+        host = lambda t: t.float().cpu().numpy()  # noqa: E731
+        pred = host(out["pred_joint"])
+        if not self.is_mesh_model:
+            gt = host(batch["lift_pose3d"])
+            return [{"joint_coord": p, "joint_coord_target": g}
+                    for p, g in zip(pred, gt)]
+        mesh, gt_mesh = host(out["pred_mesh"]), host(batch["mesh"])
+        gt = host(batch["reg_pose3d"])
+        return [{"joint_coord": pred[j], "mesh_coord": mesh[j],
+                 "mesh_coord_target": gt_mesh[j] * 1000.0,
+                 "joint_coord_target": gt[j]} for j in range(len(pred))]
+
+    def _gather_results(self, per_batch: list) -> list:
+        """The records in the global batch order (each batch's rank 0 rows,
+        then rank 1's, ...): on rank 0 under a mesh, gathered from every
+        rank; [] on the other ranks."""
+        if self.mesh is None:
+            return [r for b in per_batch for r in b]
+        ranks = [None] * process_count() if process_index() == 0 else None
+        dist.gather_object(per_batch, ranks, dst=0)
+        if ranks is None:
+            return []
+        return [r for b in zip(*ranks) for rank in b for r in rank]
+
     def full_evaluate(self, verbose: bool = True, vis_dir: str = "",
                       vis_every: int = 500):
         """The test dataset's own protocol evaluation (the reference's
@@ -359,8 +434,12 @@ class Trainer:
         the lifter. With ``vis_dir`` (the reference's ``cfg.TEST.vis``),
         every ``vis_every``-th predicted mesh is written there as an OBJ
         (reference ``Human36M/dataset.py:818-822``). As :meth:`evaluate`,
-        it reads the parameters from the model, so it takes no state."""
+        it reads the parameters from the model, so it takes no state.
+        Under a mesh every rank evaluates its rows, and rank 0 alone runs
+        the protocol (the other ranks return None)."""
         _, _, results = self.evaluate(collect=True)
+        if self.mesh is not None and process_index() != 0:
+            return None
         results = results[:len(self.test_data)]
         if vis_dir and self.is_mesh_model:
             os.makedirs(vis_dir, exist_ok=True)
@@ -375,11 +454,17 @@ class Trainer:
     def restore(self, path: str) -> tuple[TrainState, int]:
         """Resume from a checkpoint file or directory (the latest epoch):
         parameters, optimizer and schedule state, and the loss and error
-        histories. Returns (state, last completed epoch)."""
+        histories. Returns (state, last completed epoch). Under a mesh
+        every rank loads the full dicts into the placed model (a
+        checkpoint of one device, or of any number of ranks)."""
         state = self.init_state()
         loaded = ckpt_lib.load_checkpoint(path, prefer="latest")
-        self.model.load_state_dict(loaded["params"])
-        state.optimizer.load_state_dict(loaded["opt_state"])
+        if self.mesh is None:
+            self.model.load_state_dict(loaded["params"])
+            state.optimizer.load_state_dict(loaded["opt_state"])
+        else:
+            mesh_lib.load_full_state(self.model, state.optimizer,
+                                     loaded["params"], loaded["opt_state"])
         state.scheduler.load_state_dict(loaded["scheduler"])
         state.step = int(loaded["step"])
         self.loss_history = list(loaded.get("train_log", []))
@@ -403,13 +488,26 @@ class Trainer:
             if self.ckpt_dir:
                 is_best = joint_err < best
                 best = min(best, joint_err)
-                ckpt_lib.save_checkpoint(
-                    self.ckpt_dir, epoch, tcfg.end_epoch,
-                    {"params": self.model.state_dict(),
-                     "opt_state": state.optimizer.state_dict(),
-                     "scheduler": state.scheduler.state_dict(),
-                     "step": state.step,
-                     "train_log": self.loss_history,
-                     "test_log": self.error_history},
-                    is_best=is_best)
+                self.save(state, epoch, is_best)
         return state
+
+    def save(self, state: TrainState, epoch: int, is_best: bool) -> None:
+        """Write ``epoch``'s checkpoint under ``ckpt_dir``: under a mesh
+        every rank gathers the full state dicts, rank 0 writes, and the
+        ranks wait for the file."""
+        if self.mesh is None:
+            params = self.model.state_dict()
+            opt_state = state.optimizer.state_dict()
+        else:
+            params, opt_state = mesh_lib.full_state(self.model,
+                                                    state.optimizer)
+        if self.mesh is None or process_index() == 0:
+            ckpt_lib.save_checkpoint(
+                self.ckpt_dir, epoch, self.cfg.TRAIN.end_epoch,
+                {"params": params, "opt_state": opt_state,
+                 "scheduler": state.scheduler.state_dict(),
+                 "step": state.step, "train_log": self.loss_history,
+                 "test_log": self.error_history},
+                is_best=is_best)
+        if self.mesh is not None:
+            dist.barrier()

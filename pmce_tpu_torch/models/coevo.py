@@ -93,6 +93,11 @@ class CoevoBlock(nn.Module):
         each of them. With ``fused`` and ``whole_block_kernel`` in eval mode
         (and equal stream widths) the block is one
         :func:`~pmce_tpu_torch.ops.fused_coevo_chain.coevo_block` call."""
+        # One node for this block's uses of cond: their gradients are
+        # summed here before they join the other blocks' and the heads',
+        # the order an FSDP unit boundary imposes, so that one device and
+        # FSDP sum them alike (bit for bit under bf16).
+        cond = cond.view_as(cond)
         joint_feat = dense(joint, self.joint_proj, dt)
         vertx_feat = dense(vertx, self.vertx_proj, dt)
         if (fused and self.whole_block_kernel and not self.training

@@ -11,10 +11,11 @@ Every forward takes the compute dtype ``dt``: ``None`` runs in f32; a
 LayerNorm statistics in f32. GELU is the exact (erf) variant.
 
 Training: stochastic depth (:class:`DropPath`) draws per-clip branch masks
-from an explicit ``torch.Generator`` while the module is in training mode
-and is the identity in eval mode. ``fused`` takes the JAX package's kernel
-gates (kernels forward and backward on the card, the masks entering as
-branch scales): a :class:`Block` is one
+from an explicit ``torch.Generator`` (under data parallelism a
+:class:`RankDraw`: the rank's rows of the global batch's masks) while the
+module is in training mode and is the identity in eval mode. ``fused``
+takes the JAX package's kernel gates (kernels forward and backward on the
+card, the masks entering as branch scales): a :class:`Block` is one
 :func:`~pmce_tpu_torch.ops.fused_attention.transformer_block` call; an
 :class:`AdaBlock` over more than 64 tokens one ``ada_block`` call, over
 fewer its AdaLNs and MLP as modules around ``fused_mhsa``; a
@@ -26,6 +27,7 @@ the JAX gates' "no active dropout" clause always holds.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -79,14 +81,29 @@ def init_like_jax(p: torch.Tensor, name: str, generator) -> None:
     p.copy_(v)
 
 
+@dataclasses.dataclass(frozen=True)
+class RankDraw:
+    """Stochastic depth of rank ``index`` of ``count`` data-parallel ranks:
+    each mask is drawn for the global batch from ``generator`` and the rank
+    keeps its rows, so that N ranks compute what one process computes on
+    the global batch (as JAX draws once and shards). A mask's leading
+    dimension is the clips, or clips × frames or joints, clip-major; a
+    rank's clips are the contiguous ``[index·b, (index+1)·b)``, and so are
+    its rows of each mask."""
+
+    generator: torch.Generator | None
+    index: int
+    count: int
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth of one residual branch.
 
     In training mode with a nonzero rate, :meth:`mask` draws a [B, 1, 1]
     scale per sample of the leading dimension: 1/keep with probability
     keep, else 0, drawn on ``device`` from ``generator`` (a generator on
-    that device, or None for the device's default one). In eval mode or at
-    rate 0 there is no mask."""
+    that device, or None for the device's default one; or a
+    :class:`RankDraw`). In eval mode or at rate 0 there is no mask."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -96,7 +113,12 @@ class DropPath(nn.Module):
         if not self.training or self.rate == 0.0:
             return None
         keep = 1.0 - self.rate
-        u = torch.rand(batch, 1, 1, device=device, generator=generator)
+        if isinstance(generator, RankDraw):
+            lo = generator.index * batch
+            u = torch.rand(batch * generator.count, 1, 1, device=device,
+                           generator=generator.generator)[lo:lo + batch]
+        else:
+            u = torch.rand(batch, 1, 1, device=device, generator=generator)
         return (u < keep).float() / keep
 
     def forward(self, x, generator=None):

@@ -283,9 +283,19 @@ def ptr_table(*tensors) -> P:
     return ctypes.cast(arr, P)
 
 
+def _refuse_sharded(t, name: str) -> None:
+    """Raise on an FSDP shard: a kernel reads whole tensors by pointer, and
+    a ``DTensor``'s pointer is one rank's slice (FSDP gathers a unit's
+    parameters only inside the unit's forward and backward)."""
+    if type(t).__name__ == "DTensor":
+        raise ValueError(f"{name}: a sharded DTensor reached a kernel; "
+                         "read parameters inside their FSDP unit")
+
+
 def to_kernel(a, device, dtype, shape: tuple, name: str):
     """``a`` as a contiguous ``dtype`` tensor on ``device`` (a cast copy
     when needed), raising unless its shape is ``shape``."""
+    _refuse_sharded(a, name)
     t = a.detach().to(device=device, dtype=dtype).contiguous()
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
@@ -295,6 +305,7 @@ def to_kernel(a, device, dtype, shape: tuple, name: str):
 
 def check_cuda(t, name: str, dtype, shape: tuple | None = None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of this dtype/shape."""
+    _refuse_sharded(t, name)
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

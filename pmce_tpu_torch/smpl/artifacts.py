@@ -203,3 +203,15 @@ def ensure_cached_artifacts(gender: str = "neutral", seed: int = 0
     os.makedirs(os.path.dirname(path), exist_ok=True)
     art.save(path)
     return art
+
+
+def load_or_synthetic(gender: str = "neutral", seed: int = 0
+                      ) -> SMPLArtifacts:
+    """Load converted real artifacts if present, else the synthetic stand-in
+    at seed + {neutral 0, female 1, male 2} (so that gendered paths are
+    distinguishable), writing no cache."""
+    path = default_artifact_path(gender)
+    if os.path.isfile(path):
+        return SMPLArtifacts.load(path)
+    gender_seed = {"neutral": 0, "female": 1, "male": 2}.get(gender, 0)
+    return synthetic_artifacts(seed=seed + gender_seed)

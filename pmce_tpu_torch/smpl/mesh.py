@@ -96,6 +96,15 @@ def default_coarsening_path() -> str:
     return os.path.join(base, "mesh_coarsening.npz")
 
 
+def load_or_synthetic(seed: int = 0) -> MeshCoarsening:
+    """Load the cached operators, or generate the stand-in without caching
+    it."""
+    path = default_coarsening_path()
+    if os.path.isfile(path):
+        return MeshCoarsening.load(path)
+    return synthetic_coarsening(seed=seed)
+
+
 def ensure_cached_coarsening(seed: int = 0) -> MeshCoarsening:
     """Load the cached operators, or generate the stand-in and cache it."""
     path = default_coarsening_path()
@@ -118,6 +127,17 @@ def downsample(mesh: MeshCoarsening, x, n1: int = 0, n2: int = 1):
             x = (mesh.D[i] @ x).astype(x.dtype)
         else:
             x = torch.as_tensor(mesh.D[i], device=x.device, dtype=x.dtype) @ x
+    return x
+
+
+def upsample(mesh: MeshCoarsening, x, n1: int = 1, n2: int = 0):
+    """Upsample vertices [..., sizes[n1], 3] back to [..., sizes[n2], 3]
+    (n2 < n1), an f32 sum as :func:`downsample`."""
+    for i in reversed(range(n2, n1)):
+        if isinstance(x, np.ndarray):
+            x = (mesh.U[i] @ x).astype(x.dtype)
+        else:
+            x = torch.as_tensor(mesh.U[i], device=x.device, dtype=x.dtype) @ x
     return x
 
 

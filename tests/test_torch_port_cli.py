@@ -14,7 +14,8 @@ the JAX package's, the train and test CLIs, and ``bench_torch``.
   it; the checkpoints are written; the test CLI reloads the final one and
   gives the training run's final evaluation back, prints the summary, and
   writes OBJ meshes under ``--vis``; ``--resume`` restores and evaluates;
-  an unknown ``MODEL.name``, ``TRAIN.fsdp`` and the card's absence raise;
+  an unknown ``MODEL.name``, a batch that does not divide over the ranks
+  and the card's absence raise;
 - ``bench_torch.serving_rate`` at a small width on the CPU gives
   ``bench.py``'s JSON keys; its ``main`` exits nonzero without a card.
 """
@@ -241,9 +242,13 @@ def test_clis_refuse_what_they_cannot_run(small_body, monkeypatch):
             with pytest.raises(RuntimeError, match="no CUDA card"):
                 cli.main(["--cfg", good])
     assert not (tmp / "experiment").exists()
+    # Over 3 ranks a batch of 8 cannot be split: the train CLI raises in
+    # the JAX package's words before it builds a mesh or a model.
     fsdp = _yml(tmp, "fsdp", TRAIN={"fsdp": True})
-    with pytest.raises(NotImplementedError, match="A12"):
-        train_cli.main(["--cfg", fsdp, "--device", "cpu"])
+    with monkeypatch.context() as m:
+        m.setattr(train_cli.dist_lib, "process_count", lambda: 3)
+        with pytest.raises(ValueError, match="must divide by the data-mesh"):
+            train_cli.main(["--cfg", fsdp, "--device", "cpu", "--smoke"])
     bad = _yml(tmp, "bad", MODEL={"name": "PoseEstimator"})
     for cli in (train_cli, test_cli):
         with pytest.raises(ValueError, match="unknown MODEL.name"):

@@ -2,7 +2,8 @@
 
 A fresh interpreter with ``jax`` and ``flax`` made unimportable imports
 every module of ``pmce_tpu_torch`` (the CLIs of ``pmce_tpu_torch.main``
-among them, whose import runs nothing) and ``bench_torch.py``, runs a tiny
+among them, whose import runs nothing; ``parallel``, ``dryrun`` and
+``utils.profiler`` by name too) and ``bench_torch.py``, runs a tiny
 f32 forward on the CPU, and runs the decoder's attention-block wrappers
 (``fused_mhsa``, ``ada_block``, ``ca_block``) forward and backward, and
 runs the demo's pieces: the native renderer and tracker (built with g++),
@@ -29,6 +30,12 @@ SCRIPT = textwrap.dedent("""
     for m in pkgutil.walk_packages(pmce_tpu_torch.__path__, "pmce_tpu_torch."):
         importlib.import_module(m.name)
     import bench_torch
+    from pmce_tpu_torch import dryrun, parallel
+    from pmce_tpu_torch.utils import profiler
+    assert callable(dryrun.dryrun_multichip) and callable(parallel.initialize)
+    assert callable(profiler.trace)
+    assert {"pmce_tpu_torch.parallel.mesh", "pmce_tpu_torch.parallel.prefetch",
+            "pmce_tpu_torch.parallel.distributed"} <= set(sys.modules)
     from pmce_tpu_torch.main import test, train
     assert callable(train.main) and callable(test.main)
     assert callable(bench_torch.serving_rate)
