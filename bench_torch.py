@@ -23,13 +23,17 @@ kernels' times over 5 profiled forwards (``torch.profiler``), divided by 5.
 
 ``vs_baseline`` is against ``bench.py``'s ``REFERENCE_BASELINE_FPS``: 3500
 mid-frames/s, an estimate of the reference's PyTorch forward on its RTX
-3090 (the reference publishes no numbers). This script writes no file;
-``PERF.json`` and the README block made from it belong to the JAX package.
-Without a CUDA card it exits nonzero and prints no result.
+3090 (the reference publishes no numbers). ``--record-perf [--perf-path
+P]`` records the result under ``serving`` in the port's perf file
+(``pmce_tpu_torch/utils/perf.py``: ``PERF_TORCH.json`` by default, stamped
+with the card); otherwise the script writes no file. ``PERF.json`` and the
+README block made from it belong to the JAX package. Without a CUDA card it
+exits nonzero and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -137,9 +141,26 @@ def result_line(res: dict, card: str) -> dict:
     }
 
 
-def main() -> int:
+def perf_payload(res: dict) -> dict:
+    """``bench.py``'s ``serving`` fields that apply to the port (no
+    ``vs_baseline``, a TPU-era ratio; no ``tflops_implied``: the port
+    counts no FLOPs here), with the device time of one forward."""
+    return {"mid_frames_per_s": round(res["median"], 1),
+            "batch": res["batch"], "device_ms": res["device_ms"],
+            "source": "bench_torch.py"}
+
+
+def main(argv: list | None = None) -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--record-perf", action="store_true",
+                    help="record the result under 'serving' in the port's "
+                         "perf file")
+    ap.add_argument("--perf-path", default=None,
+                    help="perf file of --record-perf (default "
+                         "PERF_TORCH.json at the repository root)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_torch: no CUDA device", file=sys.stderr)
         return 2
@@ -154,6 +175,12 @@ def main() -> int:
     print(f"[bench_torch] device time of one forward: "
           f"{res['device_ms']:.3f} ms (torch.profiler, kernels summed)",
           flush=True)
+    if args.record_perf:
+        sys.path.insert(0, str(REPO))
+        from pmce_tpu_torch.utils import perf
+
+        perf.record("serving", perf_payload(res), path=args.perf_path,
+                    device="cuda")
     print(json.dumps(result_line(res, card)), flush=True)
     return 0
 

@@ -133,6 +133,25 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    into a plain ``Trainer`` whose next loss is (a)'s and (c)'s. Each way's
    step time and peak memory beside phase 6's step.
 
+10. the data pipeline on the card: mock source trees in the reference's
+   formats (``tests/torch_port_etl_fixtures.py``: COCO-format JSONs,
+   joblib-format feature DBs, fits, detections) for the five datasets at
+   full width (6890 vertices, [17, 6890] regressors, 2048-d features;
+   H36M's five protocol-2 train subjects give 5,118 fitted bodies, 10
+   chunks of the ETL's 512), each converter CLI (``python -m
+   pmce_tpu_torch.tools.convert_*``) run in this process twice: on the
+   skinning kernel, then with the plain skinning (``smpl_verts_joints``'s
+   ``fused=False``). The counters, zeroed before and read after each run:
+   the skinning exactly once a chunk, nothing else, nothing on the plain
+   run. Every packed field of the two runs agrees (names, indices and masks
+   exactly, COCO's masks outside ``ETL_GATE_MARGIN_PX`` of its gate;
+   geometry within ``ETL_GEOM_MM``, 2D within ``ETL_PX``); the kernel run
+   agrees with the mock's world-frame truth (``ETL_TRUTH_MM``), and both
+   files load through ``data/factory.py`` into their dataset class with
+   the same windows. Each ETL's frames/s both ways, row 15 at B = 512
+   against its bound, and the H36M run's ``--record-perf`` entry (into a
+   temporary file) checked.
+
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
 each train step's device time by kernel and, before phase 2, the stage
 split of the trunk (K1), the GRU scan (K2), the decoder chain (K3), the
@@ -154,7 +173,9 @@ result and exits nonzero.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -307,6 +328,24 @@ DEMO_MIN_IOU = 0.3
 # output's largest magnitude (the orders of the sums differ). First
 # measured: ResNet-50 1.85e-7, ViTPose-Huge 1.32e-6.
 BACKBONE_REL_TOL = 1e-4
+# Phase 10: the mock trees (tests/torch_port_etl_fixtures.py) at full
+# width: 6890 vertices, [17, 6890] regressors, 2048-d features. H36M:
+# protocol 2's five train subjects × 2 cameras × 1,024 frames, every second
+# one kept (5,118 fitted bodies: 10 chunks of the ETL's 512); the others
+# one full chunk and a part: 3DPW 2 × 520 (one SMPL call a gender),
+# MPI-INF-3DHP 2 cameras × 300, COCO and MPII 600 images (and MPII3D val,
+# no SMPL).
+ETL_H36M_FRAMES, ETL_H36M_SUBJECTS = 1024, (1, 5, 6, 7, 8)
+ETL_PW3D_FRAMES, ETL_MPII3D_FRAMES, ETL_IMAGES = 520, 300, 600
+ETL_BATCH = 512
+# Kernel vs plain skinning through the whole ETL: geometry (mm) and 2D
+# (px); the skinning alone differs by up to SKIN_TOL_M, and f32 at ~5 m
+# rounds at 5e-4 mm. COCO's masks are compared where the fit error lies
+# more than ETL_GATE_MARGIN_PX from its 3 px threshold.
+ETL_GEOM_MM, ETL_PX, ETL_GATE_MARGIN_PX = 2e-3, 1e-3, 0.01
+# The converters' mesh against the mock's world-frame SMPL turned into the
+# camera frame (tests/test_etl.py's bound).
+ETL_TRUTH_MM = 0.1
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 on
 # the tensor cores, f32 on the CUDA cores, and the HBM rate.
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -2473,6 +2512,393 @@ def demo(device) -> dict:
             "phase_s": phase_s, "bands": bands, **errs}
 
 
+@contextlib.contextmanager
+def etl_timed(fused: bool, seconds: dict):
+    """The ETL's SMPL synthesis (``data/etl/common.smpl_verts_joints``,
+    where the ETL modules look it up) with ``fused`` (False: the plain
+    skinning on the card), and the converters' ``save_packed``; each
+    call's seconds appended under ``synthesis`` / ``save`` in
+    ``seconds``."""
+    from unittest import mock
+
+    from pmce_tpu_torch.data.etl import coco, common, mpii, pw3d
+    from pmce_tpu_torch.tools import etl_cli
+
+    def timed(key, fn, **fixed):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **fixed, **kwargs)
+            seconds.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    synthesis = timed("synthesis", common.smpl_verts_joints, fused=fused)
+    with contextlib.ExitStack() as stack:
+        for mod in (common, coco, mpii, pw3d):
+            stack.enter_context(mock.patch.object(mod, "smpl_verts_joints",
+                                                  synthesis))
+        stack.enter_context(mock.patch.object(
+            etl_cli, "save_packed", timed("save", etl_cli.save_packed)))
+        yield
+
+
+def etl_trees(root: str, art, jr_h36m, jr_coco, device) -> dict:
+    """Phase 10's mock source trees (``tests/torch_port_etl_fixtures.py``
+    at the sizes above), their truth computed on ``device``: name → (the
+    CLI's flags, the truth)."""
+    import torch_port_etl_fixtures as fix
+
+    def at(name):
+        return os.path.join(root, name)
+
+    return {
+        "h36m": (["--data-dir", at("h36m"), "--split", "train"],
+                 fix.build_h36m_mock(at("h36m"), art, jr_h36m,
+                                     n_frames=ETL_H36M_FRAMES,
+                                     subjects=ETL_H36M_SUBJECTS,
+                                     device=device)),
+        "pw3d": (["--data-dir", at("pw3d"), "--split", "test"],
+                 fix.build_pw3d_mock(at("pw3d"), art, jr_h36m, jr_coco,
+                                     n_frames=ETL_PW3D_FRAMES,
+                                     device=device)),
+        "mpii3d": (["--data-dir", at("mpii3d"), "--split", "train"],
+                   fix.build_mpii3d_train_mock(
+                       at("mpii3d"), art, jr_h36m, jr_coco,
+                       n_frames=ETL_MPII3D_FRAMES, device=device)),
+        "mpii3d_val": (["--data-dir", at("mpii3d_val"), "--split", "val"],
+                       fix.build_mpii3d_val_mock(at("mpii3d_val"),
+                                                 n=ETL_IMAGES)),
+        "coco": (["--annot-dir", at("coco")],
+                 fix.build_coco_mock(at("coco"), art, jr_h36m, jr_coco,
+                                     n=ETL_IMAGES, device=device)),
+        "mpii": (["--annot-dir", at("mpii")],
+                 fix.build_mpii_mock(at("mpii"), art, jr_h36m, jr_coco,
+                                     n=ETL_IMAGES)),
+    }
+
+
+def etl_chunks(name: str, data) -> int:
+    """The skinning launches a conversion owes: one a chunk of
+    ``ETL_BATCH`` bodies of each SMPL call (PW3D: one call a gender, the
+    mock's seq_a male and seq_b female; MPII3D val: no SMPL)."""
+    def chunks(n):
+        return -(-int(n) // ETL_BATCH)
+
+    if name == "h36m":
+        return chunks(data.has_smpl.sum())
+    if name == "pw3d":
+        seqs = [str(p).split("/")[1] for p in data.img_names]
+        return sum(chunks(seqs.count(s)) for s in set(seqs))
+    if name == "mpii3d_val":
+        return 0
+    return chunks(len(data))
+
+
+def etl_against_truth(name: str, data, truth, tree_root: str) -> float:
+    """The kernel path's output against the mock's independently computed
+    truth (world-frame SMPL, then the camera): the largest geometry
+    difference in mm (H36M, PW3D, MPII3D), the features equal, H36M's CPN
+    detections, COCO's planted good and bad fits; raises on a
+    disagreement."""
+    import numpy as np
+
+    worst = 0.0
+
+    def close(got, want, tol, what) -> float:
+        err = float(np.abs(got - want).max())
+        if not err <= tol:
+            raise RuntimeError(f"phase 10 {name}: {what} {err:.4g} from "
+                               f"the mock's truth (bound {tol})")
+        return err
+
+    if name == "h36m":
+        frames = truth["frames"]
+        if list(data.img_names) != [f["img_name"] for f in frames]:
+            raise RuntimeError("phase 10 h36m: frames differ from the mock")
+        for i, fr in enumerate(frames):
+            root = fr["jcam_h36m"][:1]
+            close(data.joint_cam_h36m[i], fr["jcam_h36m"] - root, 1e-2,
+                  "joints (mm)")
+            close(data.pose2d_det[i], fr["jimg"] + 1.5, 1e-3, "CPN (px)")
+            if fr["has_smpl"] != bool(data.has_smpl[i]):
+                raise RuntimeError("phase 10 h36m: has_smpl differs")
+            if fr["has_smpl"]:
+                worst = max(worst, close(data.mesh_cam[i],
+                                         fr["mesh_cam"] - root,
+                                         ETL_TRUTH_MM, "mesh (mm)"))
+            if not np.array_equal(data.features[i],
+                                  truth["feat"][fr["img_name"]]):
+                raise RuntimeError("phase 10 h36m: features misaligned")
+    elif name in ("pw3d", "mpii3d"):
+        if name == "pw3d":
+            by = {f["path"]: f for f in truth["frames"]}
+            mesh_key = "mesh_mm"
+        else:
+            by = {(f"{tree_root}/MPI_INF_3DHP/S1/Seq1/imageFrames/video_"
+                   f"{f['vid']}/{str(f['frame']).zfill(6)}.jpg"): f
+                  for f in truth["frames"]}
+            mesh_key = "mesh_cam"
+        if sorted(by) != sorted(str(p) for p in data.img_names):
+            raise RuntimeError(f"phase 10 {name}: frames differ")
+        for i, p in enumerate(data.img_names):
+            fr = by[str(p)]
+            root = fr["jcam_h36m"][:1]
+            worst = max(worst, close(data.mesh_cam[i], fr[mesh_key] - root,
+                                     ETL_TRUTH_MM, "mesh (mm)"))
+            if not np.array_equal(data.features[i], fr["feat"]):
+                raise RuntimeError(f"phase 10 {name}: features misaligned")
+    elif name in ("coco", "mpii"):
+        frames = truth["frames"]
+        if len(frames) != len(data):
+            raise RuntimeError(f"phase 10 {name}: {len(data)} frames, the "
+                               f"mock {len(frames)}")
+        for i, fr in enumerate(frames):
+            if not np.array_equal(data.features[i], fr["feat"]):
+                raise RuntimeError(f"phase 10 {name}: features misaligned")
+        if name == "coco":
+            good = np.array([fr["good"] for fr in frames], np.float32)
+            if not np.array_equal(data.mesh_valid, good):
+                raise RuntimeError("phase 10 coco: the fitting gate missed "
+                                   "the planted fits")
+        if not np.abs(data.pose2d_det[:, :17]
+                      - data.joint_img[:, :17]).max() > 0:
+            raise RuntimeError(f"phase 10 {name}: no detector noise")
+    elif len(data) != len(truth["names"]):
+        raise RuntimeError("phase 10 mpii3d_val: frames differ")
+    return worst
+
+
+def etl_gate_margin(tree_root: str, data) -> tuple:
+    """COCO's fit error of each frame (the kernel path's projected joints
+    against the annotated keypoints): the mask of frames more than
+    ``ETL_GATE_MARGIN_PX`` from the threshold."""
+    import numpy as np
+
+    from pmce_tpu_torch.data.etl.coco import FITTING_THR_PX
+    from pmce_tpu_torch.data.etl.common import crop64_fit_error
+    from pmce_tpu_torch.ops.coords import get_bbox
+
+    with open(os.path.join(tree_root,
+                           "person_keypoints_train2014.json")) as f:
+        anns = [a for a in json.load(f)["annotations"] if not a["iscrowd"]]
+    with open(os.path.join(tree_root, "coco_smplify_train.json")) as f:
+        fitted = json.load(f)
+    anns = [a for a in anns if str(a["id"]) in fitted]
+    err = []
+    for a, jimg in zip(anns, data.joint_img):
+        kp = np.asarray(a["keypoints"], np.float32).reshape(-1, 3)
+        err.append(crop64_fit_error(get_bbox(jimg), kp[:, :2], jimg[:17],
+                                    (kp[:, 2] > 0).astype(np.float32)))
+    return np.abs(np.asarray(err) - FITTING_THR_PX) > ETL_GATE_MARGIN_PX
+
+
+def etl_compare(name: str, kern, plain, outside) -> tuple[float, float]:
+    """The kernel path's packed fields against the plain path's: names,
+    features, SMPL parameters, flags, sizes and camera ids equal; geometry
+    within ``ETL_GEOM_MM``; 2D within ``ETL_PX``; masks equal (COCO's
+    outside the gate's margin). Returns the largest geometry (mm) and 2D
+    (px) differences."""
+    import numpy as np
+
+    if list(kern.img_names) != list(plain.img_names):
+        raise RuntimeError(f"phase 10 {name}: names differ")
+    geo = px = 0.0
+    for field in ("joint_cam", "joint_cam_h36m", "mesh_cam", "joint_img",
+                  "pose2d_det", "features", "smpl_pose", "smpl_shape",
+                  "has_smpl", "img_hw", "cam_idx", "mesh_valid",
+                  "lift_valid", "reg_valid"):
+        a, b = getattr(kern, field), getattr(plain, field)
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                raise RuntimeError(f"phase 10 {name}: {field} missing")
+            continue
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise RuntimeError(f"phase 10 {name}: {field} {a.shape} "
+                               f"{a.dtype} vs {b.shape} {b.dtype}")
+        if field in ("mesh_valid", "lift_valid", "reg_valid"):
+            a, b = a[outside], b[outside]
+        if field in ("joint_cam", "joint_cam_h36m", "mesh_cam"):
+            geo = max(geo, float(np.abs(a - b).max()) if a.size else 0.0)
+        elif field in ("joint_img", "pose2d_det"):
+            px = max(px, float(np.abs(a - b).max()) if a.size else 0.0)
+        elif not np.array_equal(a, b):
+            raise RuntimeError(f"phase 10 {name}: {field} differs")
+    if not (geo <= ETL_GEOM_MM and px <= ETL_PX):
+        raise RuntimeError(f"phase 10 {name}: kernel vs plain geometry "
+                           f"{geo:.4g} mm (bound {ETL_GEOM_MM}), 2D "
+                           f"{px:.4g} px (bound {ETL_PX})")
+    return geo, px
+
+
+def etl_skinning(device, art, data) -> dict:
+    """Row 15 at the ETL's chunk: the first ``ETL_BATCH`` fitted bodies of
+    the H36M conversion, kernel against plain, timed, beside the bound of
+    the same work (not counted as launches of the path)."""
+    import torch
+
+    from pmce_tpu_torch.smpl import kernels as sk
+    from pmce_tpu_torch.smpl.layer import (
+        SMPLModel,
+        apply_skinning,
+        skinning_transforms,
+    )
+
+    model = SMPLModel.from_artifacts(art, device=device)
+    sel = data.has_smpl.nonzero()[0][:ETL_BATCH]
+    pose = torch.from_numpy(data.smpl_pose[sel]).to(device)
+    betas = torch.from_numpy(data.smpl_shape[sel]).to(device)
+    with torch.no_grad():
+        args = skinning_transforms(model, pose, betas)[:2] + (
+            model.lbs_weights,)
+        got, want = sk.fused_skinning(*args), apply_skinning(*args)
+        err = max_err(got, want)
+        ms = median_ms(lambda: sk.fused_skinning(*args), iters=20)
+        plain_ms = median_ms(lambda: apply_skinning(*args), iters=10)
+    flops = count_flops(lambda: apply_skinning(*args))
+    bound_ms, by = bound(flops, tensor_bytes(args, got), "f32")
+    if not err <= SKIN_TOL_M:
+        raise RuntimeError(f"phase 10: skinning at B={len(sel)} "
+                           f"disagrees with its plain version ({err} m)")
+    print(f"[etl] skinning B={len(sel)} V={art.num_verts}: kernel "
+          f"{ms:.4f} ms at {bound_ms / ms:.1%} of its bound {bound_ms:.4f}"
+          f" ms (by {by}, {flops / 1e9:.3f} GFLOP), plain {plain_ms:.4f} "
+          f"ms, max_abs_err {err:.3g} m (tol {SKIN_TOL_M} m); the phase-2 "
+          f"row keeps B={B}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "max_abs_err": err}
+
+
+def data_pipeline(device) -> dict:
+    """Phase 10: the five converter CLIs on the card, on mock trees at
+    full width, each twice (the skinning kernel, then the plain skinning);
+    the counters exact, the outputs against each other, the mock's truth
+    and the factory; ``--record-perf`` once. Returns the launches and the
+    numbers the summary prints."""
+    import tempfile
+
+    import numpy as np
+
+    import torch_port_etl_fixtures as fix
+    from pmce_tpu_torch.core.config import Config
+    from pmce_tpu_torch.data import factory
+    from pmce_tpu_torch.data.packed import load_packed
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.smpl.artifacts import ensure_cached_artifacts
+    from pmce_tpu_torch.tools import (
+        convert_coco,
+        convert_h36m,
+        convert_mpii,
+        convert_mpii3d,
+        convert_pw3d,
+    )
+    from pmce_tpu_torch.utils import perf
+
+    card = card_line()
+    t_phase = time.time()
+    art = ensure_cached_artifacts()
+    V = art.num_verts
+    clis = {"h36m": (convert_h36m, "Human36M", "train"),
+            "pw3d": (convert_pw3d, "PW3D", "test"),
+            "mpii3d": (convert_mpii3d, "MPII3D", "train"),
+            "mpii3d_val": (convert_mpii3d, "MPII3D", "val"),
+            "coco": (convert_coco, "COCO", "train"),
+            "mpii": (convert_mpii, "MPII", "train")}
+    out = {"skinning": 0, "rates": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_etl_") as tmp:
+        art.save(os.path.join(tmp, "smpl.npz"))
+        jr_h36m, jr_coco = fix.small_regressors(V,
+                                                np.random.default_rng(42))
+        for i, jr in enumerate((jr_h36m, jr_coco)):
+            np.save(os.path.join(tmp, f"jr{i}.npy"), jr)
+        t0 = time.time()
+        trees = etl_trees(os.path.join(tmp, "src"), art, jr_h36m, jr_coco,
+                          device)
+        print(f"[etl] mock trees at V={V}, [17, {V}] regressors, 2048-d "
+              f"features written in {time.time() - t0:.1f} s", flush=True)
+        smpl = os.path.join(tmp, "smpl.npz")
+        body = ["--smpl-npz", smpl, "--jr-h36m", os.path.join(tmp, "jr0.npy"),
+                "--jr-coco", os.path.join(tmp, "jr1.npy"),
+                "--device", device.type]
+        perf_path = os.path.join(tmp, "perf.json")
+        cfg = Config()
+        for name, (flags, truth) in trees.items():
+            cli, dataset, split = clis[name]
+            extra = (["--smpl-male", smpl, "--smpl-female", smpl]
+                     if name == "pw3d" else [])
+            if name == "h36m":
+                extra = ["--record-perf", "--perf-path", perf_path]
+            packed = f"{dataset}_{split}_packed.npz"
+            timing = {}
+            for way, fused in (("kernel", True), ("plain", False)):
+                os.makedirs(os.path.join(tmp, way), exist_ok=True)
+                argv = flags + body + (extra if fused else []) + [
+                    "--out", os.path.join(tmp, way, packed)]
+                seconds = {}
+                with etl_timed(fused, seconds):
+                    _cuda.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    cli.main(argv)
+                    wall = time.perf_counter() - t0
+                    counts = _cuda.launch_counts()
+                timing[way] = (wall, sum(seconds.get("synthesis", [])),
+                               sum(seconds["save"]), dict(counts))
+            kern, _ = load_packed(os.path.join(tmp, "kernel", packed))
+            plain, _ = load_packed(os.path.join(tmp, "plain", packed))
+            chunks = etl_chunks(name, kern)
+            launched = {k: v for k, v in timing["kernel"][3].items() if v}
+            if launched != ({"skinning": chunks} if chunks else {}):
+                raise RuntimeError(f"phase 10 {name}: launches {launched}, "
+                                   f"owed skinning {chunks}")
+            if any(timing["plain"][3].values()):
+                raise RuntimeError(f"phase 10 {name}: the plain run "
+                                   f"launched {timing['plain'][3]}")
+            out["skinning"] += chunks
+            outside = (etl_gate_margin(os.path.join(tmp, "src", "coco"),
+                                       kern)
+                       if name == "coco" else np.ones(len(kern), bool))
+            geo, px = etl_compare(name, kern, plain, outside)
+            truth_mm = etl_against_truth(
+                name, kern, truth, os.path.join(tmp, "src", name))
+            windows = []
+            for way in ("kernel", "plain"):
+                cfg.data_dir = os.path.join(tmp, way)
+                cfg.DATASET.seqlen = 16
+                ds = factory.build_dataset(dataset, cfg, art, split,
+                                           device=device)
+                windows.append(len(ds))
+            if not windows[0] == windows[1] > 0:
+                raise RuntimeError(f"phase 10 {name}: windows {windows}")
+            n = len(kern)
+            (kw, ks, ksave, _), (pw, ps, psave, _) = (timing["kernel"],
+                                                       timing["plain"])
+            out["rates"][name] = (n / kw, n / pw)
+            if name == "h36m":
+                h36m = kern
+            print(f"[etl] {name} {split}: {n} frames, {chunks} skinning "
+                  f"launches (= chunks of {ETL_BATCH}), {windows[0]} "
+                  f"windows both ways; kernels {kw:.2f} s = {n / kw:.1f} "
+                  f"frames/s (synthesis {ks:.3f} s, npz {ksave:.2f} s), "
+                  f"plain skinning {pw:.2f} s = {n / pw:.1f} frames/s "
+                  f"(synthesis {ps:.3f} s, npz {psave:.2f} s); kernel vs "
+                  f"plain {geo:.3g} mm, {px:.3g} px"
+                  + (f", {int((~outside).sum())} frames within "
+                     f"{ETL_GATE_MARGIN_PX} px of the gate"
+                     if name == "coco" else "")
+                  + f"; vs the mock's truth {truth_mm:.3g} mm on {card}",
+                  flush=True)
+        entry = perf.load(perf_path)["etl"]["h36m_train"]
+        if entry["device"] != card or entry["frames"] != len(h36m):
+            raise RuntimeError(f"phase 10: --record-perf wrote {entry}")
+        row = perf.render_table({"etl": {"h36m_train": entry}})
+        print(f"[etl] --record-perf wrote: {row.splitlines()[-1]}",
+              flush=True)
+        out["skin"] = etl_skinning(device, art, h36m)
+    out["phase_s"] = time.time() - t_phase
+    print(f"[etl] phase 10 took {out['phase_s']:.1f} s, {out['skinning']} "
+          f"skinning launches on {card}", flush=True)
+    return out
+
+
 def profile_step(step, what: str = "train step", n: int = 5) -> None:
     """Device time of ``n`` calls of ``step`` (a ``what``) by kernel
     (torch.profiler)."""
@@ -2711,12 +3137,15 @@ def main() -> int:
     cli = entry_points(device, fps)
     dm = demo(device)
     dp = data_parallel(device, stage1, fused_ms)
-    # Each kernel's launches on the path it belongs to.
+    etl = data_pipeline(device)
+    # Each kernel's launches on the path it belongs to; skinning's: phase
+    # 4's synthesis and phase 10's conversions.
     counts = {**{k: mesh_counts[k] for k in REPLACES},
               **{k: fused_counts[k] for k in DECODER},
               **{k: train_counts[k] for k in TRAINING},
               **{k: serve_counts[k] for k in SERVING},
               "coevo_block": wb_counts["coevo_block"]}
+    counts["skinning"] += etl["skinning"]
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],
@@ -2737,7 +3166,11 @@ def main() -> int:
           f"{dm['stage_fps']:.1f}), detector training {dm['train_s']:.1f} s,"
           f" phase 8 {dm['phase_s']:.1f} s; phase 9 fused Stage-2 step "
           f"plain {dp['plain'][0]:.3f} ms, DDP {dp['ddp'][0]:.3f} ms, FSDP "
-          f"{dp['fsdp'][0]:.3f} ms", flush=True)
+          f"{dp['fsdp'][0]:.3f} ms; phase 10 ETL frames/s kernels / "
+          f"plain skinning " + ", ".join(
+              f"{k} {a:.1f} / {b:.1f}" for k, (a, b) in etl["rates"].items())
+          + f", skinning at B={ETL_BATCH} {etl['skin']['ms']:.4f} ms "
+          f"(bound {etl['skin']['bound_ms']:.4f})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

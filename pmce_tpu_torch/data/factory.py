@@ -6,8 +6,10 @@ reference's ``eval(f'{name}.dataset')(...)`` (``lib/core/base.py:23``).
 Resolution order per dataset:
 
 1. a packed real-data npz ``{cfg.data_dir}/{Name}_{split}_packed.npz``
-   (written by the JAX package's offline ETL, ``tools/convert_*``) when it
-   exists and ``DATASET.synthetic`` is off;
+   (written by the offline ETL, ``python -m
+   pmce_tpu_torch.tools.convert_*`` or the JAX package's
+   ``tools/convert_*``: the same format) when it exists and
+   ``DATASET.synthetic`` is off;
 2. otherwise the deterministic synthetic fixtures (the SMPL forward of the
    synthesis on ``device``).
 
@@ -36,7 +38,7 @@ _REGISTRY = {
 
 
 def packed_path(cfg: Config, name: str, split: str) -> str:
-    """Canonical location of a converted split (tools/convert_* output)."""
+    """Canonical location of a converted split (the converters' output)."""
     return osp.join(cfg.data_dir, f"{name}_{split}_packed.npz")
 
 
@@ -84,7 +86,7 @@ def build_dataset(name: str, cfg: Config, art: SMPLArtifacts, split: str,
         raise FileNotFoundError(
             f"dataset {name}/{split}: no packed npz at {path} although "
             f"data_dir={cfg.data_dir!r} is explicitly configured. Run the "
-            f"offline ETL (tools/convert_{name.lower()}.py) or set "
+            f"offline ETL (python -m pmce_tpu_torch.tools.convert_*) or set "
             f"DATASET.synthetic: true to request fixture data.")
 
     reason = ("DATASET.synthetic: true" if cfg.DATASET.synthetic

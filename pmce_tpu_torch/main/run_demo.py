@@ -28,8 +28,13 @@ card unless ``--device cpu`` is given. The flags are the JAX CLI's, with
 
 It writes ``demo_meta.json`` (the stage table when telemetry is on),
 ``demo_frames.npy`` and, where ffmpeg is installed, ``demo_output.mp4``
-under ``--output``. ``PERF.json`` recording (``--record-perf``) is not
-ported.
+under ``--output``. ``--record-perf [--perf-path P]`` records the stage
+table in the port's perf file (``pmce_tpu_torch/utils/perf.py``,
+``PERF_TORCH.json`` by default): ``demo_full_stack`` for ``--synthetic
+--full-stack``, ``demo_real_footage`` for ``--vid_file``. Recording is
+opt-in in both modes; JAX's CLI records the synthetic full-stack run
+unconditionally, but here that would make every run (``chip_smoke.py``'s
+among them) rewrite a file in the tree.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from pmce_tpu_torch.smpl.artifacts import ensure_cached_artifacts
 from pmce_tpu_torch.smpl.joints import coco17_regressor
 from pmce_tpu_torch.smpl.layer import SMPLModel, smpl_forward
 from pmce_tpu_torch.smpl.mesh import ensure_cached_coarsening
+from pmce_tpu_torch.utils import perf
 
 
 def _synthetic_video(art, T=48, H=240, W=320):
@@ -105,6 +111,30 @@ def _load_torch_weights(module: torch.nn.Module, path: str) -> None:
     module.load_state_dict({k: sd[k] for k in own})
 
 
+def perf_entry(args, frames_shape, stage_rep: dict) -> tuple:
+    """(key, payload) of ``--record-perf`` for a run on frames of
+    ``frames_shape`` [T, H, W, 3]: JAX's keys and fields, or (None, None)
+    for a run JAX does not record (synthetic without the full stack)."""
+    T, H, W = frames_shape[:3]
+    if args.synthetic and args.full_stack:
+        key = "demo_full_stack"
+        config = (f"--synthetic --full-stack, {T} frames {H}x{W}, "
+                  f"ViTPose-{args.vitpose}")
+    elif args.vid_file:
+        key = "demo_real_footage"
+        config = (f"--vid_file {os.path.basename(args.vid_file)} ({T} "
+                  f"frames {H}x{W}), ViTPose-{args.vitpose}")
+    else:
+        return None, None
+    return key, {
+        "config": config, "n_frames": int(T),
+        "fps_measured": round(stage_rep["fps_measured"], 2),
+        "stage_seconds": {k: round(v, 4) for k, v in
+                          stage_rep["stage_seconds"].items()},
+        "source": "python -m pmce_tpu_torch.main.run_demo --record-perf",
+    }
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="pmce-tpu video demo (PyTorch)")
     p.add_argument("--vid_file", type=str, default="",
@@ -147,6 +177,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bf16: PMCE served in bf16 on its kernels, the "
                         "backbones' products in bf16, the heatmap head "
                         "f32; f32: everything f32 on the plain path")
+    p.add_argument("--record-perf", action="store_true",
+                   help="record the stage table in the port's perf file "
+                        "(demo_full_stack / demo_real_footage)")
+    p.add_argument("--perf-path", type=str, default=None,
+                   help="perf file of --record-perf (default "
+                        "PERF_TORCH.json at the repository root)")
     return p
 
 
@@ -278,6 +314,10 @@ def main(argv: list | None = None) -> dict:
           f"frames/s end to end ({len(results)} tracked people)")
     stage_rep = (pipe.print_stage_table(len(frames))
                  if telemetry and results else None)
+    if stage_rep and args.record_perf:
+        key, payload = perf_entry(args, frames.shape, stage_rep)
+        if key:
+            perf.record(key, payload, path=args.perf_path, device=device)
 
     os.makedirs(args.output, exist_ok=True)
     meta = {str(pid): {"frames": r["frames"].tolist()}

@@ -600,6 +600,38 @@ def test_skinning_kernel_matches_plain(B, V):
     assert float((got - want).abs().max()) < 1e-6
 
 
+def test_etl_synthesis_on_the_card_matches_plain_and_the_cpu():
+    """The ETL's SMPL synthesis (``data/etl/common.smpl_verts_joints``) at
+    B = 1,100 bodies of the 6890-vertex stand-in: two full chunks of 512
+    and one of 76, so exactly 3 skinning launches; the plain skinning on
+    the card launches none and agrees within 1e-6 m (the kernel's bound;
+    joints, which skinning does not touch, bit for bit); the CPU within
+    1e-5 m (the blend shapes' f32 sums in another order at ~4 m)."""
+    from pmce_tpu_torch.data.etl.common import smpl_verts_joints
+    from pmce_tpu_torch.smpl.artifacts import synthetic_artifacts
+
+    _card()
+    art = synthetic_artifacts(seed=0)
+    rng = np.random.default_rng(17)
+    n = 1100
+    pose = rng.normal(scale=0.3, size=(n, 72)).astype(np.float32)
+    shape = rng.normal(scale=0.5, size=(n, 10)).astype(np.float32)
+    trans = (rng.normal(scale=0.5, size=(n, 3))
+             + [0.0, 0.0, 4.0]).astype(np.float32)
+    _cuda.reset_launch_counts()
+    verts, joints = smpl_verts_joints(art, pose, shape, trans)
+    assert _cuda.launch_counts()["skinning"] == 3
+    assert verts.shape == (n, 6890, 3) and verts.dtype == np.float32
+    plain_v, plain_j = smpl_verts_joints(art, pose, shape, trans,
+                                         fused=False)
+    assert _cuda.launch_counts()["skinning"] == 3
+    assert np.abs(verts - plain_v).max() <= 1e-6
+    np.testing.assert_array_equal(joints, plain_j)
+    cpu_v, cpu_j = smpl_verts_joints(art, pose, shape, trans, device="cpu")
+    assert np.abs(verts - cpu_v).max() <= 1e-5
+    assert np.abs(joints - cpu_j).max() <= 1e-5
+
+
 # ----------------------------------------------- decoder attention blocks
 def _dec_case(rng, dev, kind, shape):
     """Leaves (tensors that get gradients), the call on them, and the
