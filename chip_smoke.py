@@ -152,6 +152,28 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    against its bound, and the H36M run's ``--record-perf`` entry (into a
    temporary file) checked.
 
+11. the f32 serving forward (TF32 off throughout, ``smpl.layer.full_f32``):
+   (a) the three f32 kernels (row 6's non-saving program at the lifter's
+   spatial [4096, 19, 256] and temporal [4864, 16, 256] shapes with the
+   post-norm, the chain and the whole block at B = 256) against their
+   plain versions within ``F32_KERNEL_REL_TOL``, reruns bit for bit, timed
+   beside their bounds at the f32 CUDA-core peak, row 6's beside
+   ``nn.TransformerEncoder`` in f32 on its no-grad path; (b)
+   ``create_pmce(num_joint=19, dtype=None, fused=True)`` at full width,
+   phase 3's weights and inputs, the counters zeroed just before and read
+   just after a forward: exactly ``block_fwd_f32`` 6 and
+   ``coevo_chain_f32`` 1, nothing else; then the same with
+   ``whole_block_kernel`` (``coevo_block_f32`` 3); both against the plain
+   route (the block, chain and whole block through their plain versions:
+   nothing launches) within ``F32_SERVE_REL_TOL`` of each output's largest
+   magnitude, and mid-frames/s on each route; (c) the test CLI on
+   ``CLI_CFG`` with ``MODEL.compute_dtype: 'float32'`` (written into a
+   temporary directory; ``fused_attn: true`` as the file has it), from its
+   seeded initial weights, on the kernels (``block_fwd_f32`` 6 a batch,
+   ``coevo_chain_f32`` 1, the synthesis' skinning, nothing else) and under
+   ``plain_everything`` (nothing launches): the four metrics within
+   ``F32_SERVE_REL_TOL``.
+
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
 each train step's device time by kernel and, before phase 2, the stage
 split of the trunk (K1), the GRU scan (K2), the decoder chain (K3), the
@@ -212,6 +234,9 @@ REPLACES = {
     "ca_block_fwd": "pmce_tpu/ops/fused_attention.py:1823",
     "ca_block_bwd": "pmce_tpu/ops/fused_attention.py:1853",
     "coevo_block": "pmce_tpu/ops/fused_attention.py:2714",
+    "block_fwd_f32": "pmce_tpu/ops/fused_attention.py:464",
+    "coevo_chain_f32": "pmce_tpu/ops/fused_coevo_chain.py:118",
+    "coevo_block_f32": "pmce_tpu/ops/fused_attention.py:2714",
 }
 SOURCES = {
     "lifter_trunk": "pmce_tpu_torch/csrc/lifter_trunk.cu",
@@ -231,6 +256,9 @@ SOURCES = {
     "ca_block_fwd": "pmce_tpu_torch/csrc/ca_block.cu",
     "ca_block_bwd": "pmce_tpu_torch/csrc/ca_block.cu",
     "coevo_block": "pmce_tpu_torch/csrc/coevo_block.cu",
+    "block_fwd_f32": "pmce_tpu_torch/csrc/block_f32.cu",
+    "coevo_chain_f32": "pmce_tpu_torch/csrc/coevo_f32.cu",
+    "coevo_block_f32": "pmce_tpu_torch/csrc/coevo_f32.cu",
 }
 # gru_layer / gru_layer_rev count direction scans, gru_scan launches of the
 # scan kernel: one runs both directions of a BiGRU layer.
@@ -346,6 +374,19 @@ ETL_GEOM_MM, ETL_PX, ETL_GATE_MARGIN_PX = 2e-3, 1e-3, 0.01
 # The converters' mesh against the mock's world-frame SMPL turned into the
 # camera frame (tests/test_etl.py's bound).
 ETL_TRUTH_MM = 0.1
+# Phase 11, the f32 serving forward: every counter's launches a forward
+# (the rest 0), the chain route and the whole-block route.
+F32_CHAIN = {"block_fwd_f32": 6, "coevo_chain_f32": 1}
+F32_WHOLE = {"block_fwd_f32": 6, "coevo_block_f32": 3}
+# The f32 kernels against their plain versions with TF32 off, relative to
+# the plain output's largest magnitude: f32 on both sides, sums in another
+# order (FFMA against cuBLAS), exp / erf of another library. First measured
+# on an H100 (700 W): 2.7e-7 to 5.6e-7.
+F32_KERNEL_REL_TOL = 1e-5
+# The f32 serving outputs, kernels against plain, relative to each output's
+# largest magnitude, and the test CLI's metrics relative to the plain
+# route's: the f32 model's bound (tests/test_torch_port_model.py).
+F32_SERVE_REL_TOL = 1e-4
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 on
 # the tensor cores, f32 on the CUDA cores, and the HBM rate.
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -785,18 +826,11 @@ def block_case(rng, device, clips: int, N: int, rate: float):
     return x, params, masks, g
 
 
-def block_library_ms(x, params, y_plain, masks, g) -> tuple:
-    """Rows 6 and 7's yardstick: one PyTorch call computing the same
-    block, ``nn.TransformerEncoder`` of one pre-norm
+def library_encoder(x, params):
+    """Rows 6 and 7's yardstick on the block's weights, in x's dtype on x's
+    device: ``nn.TransformerEncoder`` of one pre-norm
     ``TransformerEncoderLayer`` (exact-erf GELU, eps 1e-6) with the
-    post-norm as its ``norm``, in bf16 on the same weights (timed only; the
-    port never calls it): the forward with grad (training mode, as the
-    kernel's saving forward runs), the no-grad fast path (eval mode) and
-    the autograd backward of the forward with grad for the cotangent g (the
-    gradients of the tokens and every parameter). No branch masks (it has
-    none): where the case has masks, its error against the plain version
-    is not printed (NaN). Returns (ms with grad, ms no-grad, max|library -
-    plain|, backward ms)."""
+    post-norm as its ``norm`` (timed only; the port never calls it)."""
     import torch
     from torch import nn
 
@@ -821,7 +855,21 @@ def block_library_ms(x, params, y_plain, masks, g) -> tuple:
                          (lay.linear2.weight, w2.t()), (lay.linear2.bias, bb2),
                          (enc.norm.weight, gp), (enc.norm.bias, bp)):
             dst.copy_(src)
-    enc = enc.to(x.device, torch.bfloat16)
+    return enc.to(x.device, x.dtype)
+
+
+def block_library_ms(x, params, y_plain, masks, g) -> tuple:
+    """Rows 6 and 7's yardstick (:func:`library_encoder`) in bf16 on the
+    same weights: the forward with grad (training mode, as the kernel's
+    saving forward runs), the no-grad fast path (eval mode) and the
+    autograd backward of the forward with grad for the cotangent g (the
+    gradients of the tokens and every parameter). No branch masks (it has
+    none): where the case has masks, its error against the plain version
+    is not printed (NaN). Returns (ms with grad, ms no-grad, max|library -
+    plain|, backward ms)."""
+    import torch
+
+    enc = library_encoder(x, params)
     xin = x.detach().requires_grad_(True)
     enc.train()
     with torch.enable_grad():
@@ -2899,6 +2947,251 @@ def data_pipeline(device) -> dict:
     return out
 
 
+def f32_kernel_rows(device, rows) -> None:
+    """Phase 11a: each f32 kernel against its plain version at the f32
+    serving forward's shapes (TF32 off), a rerun bit for bit, timed beside
+    its bound at the f32 CUDA-core peak; row 6's beside
+    ``nn.TransformerEncoder`` in f32 on its no-grad path."""
+    import numpy as np
+    import torch
+
+    from pmce_tpu_torch.ops import fused_attention as fa
+    from pmce_tpu_torch.ops import fused_coevo_chain as fc
+
+    card = card_line()
+
+    def check(name, kernel, plain, args, label):
+        with torch.no_grad():
+            out_k, out_p = kernel(*args), plain(*args)
+            again = kernel(*args)
+            torch.cuda.synchronize()
+            outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
+            outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
+            outs_2 = again if isinstance(again, tuple) else (again,)
+            for a in outs_k:
+                if a.dtype != torch.float32 or not bool(
+                        torch.isfinite(a).all()):
+                    raise RuntimeError(f"{name} {label}: {a.dtype}, or "
+                                       "non-finite output")
+            if not all(torch.equal(a, b) for a, b in zip(outs_k, outs_2)):
+                raise RuntimeError(f"{name} {label}: two runs differ")
+            err = max(max_err(a, b) for a, b in zip(outs_k, outs_p))
+            rel = max(max_err(a, b) / float(b.abs().max())
+                      for a, b in zip(outs_k, outs_p))
+            ms = median_ms(lambda: kernel(*args))
+            plain_ms = median_ms(lambda: plain(*args), iters=5)
+            flops = count_flops(lambda: plain(*args))
+        ok = rel <= F32_KERNEL_REL_TOL
+        print(f"[f32] {name} {label}: max_abs_err={err:.4g} max relative to "
+              f"max|plain| {rel:.3g} (tol {F32_KERNEL_REL_TOL}); a rerun "
+              f"bit for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(TF32 off) on {card}{'' if ok else '  FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"{name} {label}: kernel disagrees with its "
+                               f"plain version ({rel})")
+        record(rows, name, err, ms, plain_ms, flops,
+               tensor_bytes(args, outs_k), "f32")
+        return outs_p[0]
+
+    rng = np.random.default_rng(12)
+    for label, clips, N in (("spatial", B * T, J), ("temporal", B * J, T)):
+        x, params, _, _ = block_case(rng, device, clips, N, 0.0)
+        x = x.detach().float()
+        params = tuple(t.detach() for t in params)
+        y = check("block_fwd_f32", fa.transformer_block,
+                  fa.transformer_block_plain, (x, params, 8),
+                  f"{label} [{clips}, {N}, {C}] with the post-norm")
+        enc = library_encoder(x, params).eval()
+        with torch.no_grad():
+            lib_ms = median_ms(lambda: enc(x))
+            lib_err = max_err(enc(x), y)
+        if rows["block_fwd_f32"]["library_ms"] is None:
+            rows["block_fwd_f32"]["library_ms"] = lib_ms
+        print(f"[f32] library: nn.TransformerEncoder (pre-norm, erf GELU, "
+              f"post-norm) {label} [{clips}, {N}, {C}], f32, TF32 off, "
+              f"no-grad: {lib_ms:.4f} ms; max|library - plain| "
+              f"{lib_err:.4g}", flush=True)
+        del x, params, y, enc
+    r = Inputs(13, device)
+    joints, vertx, g, b, blocks, hj, hv = chain_case(r, B)
+    blocks = tuple((blk[0].float(), blk[1], blk[2].float(), *blk[3:])
+                   for blk in blocks)
+    check("coevo_chain_f32", fc.coevo_chain, fc.coevo_chain_plain,
+          (joints, vertx, g, b, blocks, hj, hv), f"B={B} J={J} V=431 C=64")
+    jf0, vf0, g, b, kp, hj, hv = coevo_block_case(r, B)
+    check("coevo_block_f32", fc.coevo_block, fc.coevo_block_plain,
+          (jf0.float(), vf0.float(), g, b, kp, hj, hv),
+          f"B={B} J={J} V=431 C=64")
+    torch.cuda.empty_cache()
+
+
+def f32_serving(device, rows) -> dict:
+    """Phase 11: the f32 serving forward (TF32 off throughout). Returns the
+    launch counts of a chain forward and a whole-block forward, both
+    routes' mid-frames/s and the test CLI's wall seconds."""
+    import contextlib
+    import math
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pmce_tpu_torch.main import test as test_cli
+    from pmce_tpu_torch.models.pmce import create_pmce
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+    from pmce_tpu_torch.ops import fused_coevo_chain as fc
+    from pmce_tpu_torch.smpl.artifacts import ensure_cached_artifacts
+    from pmce_tpu_torch.smpl.layer import full_f32
+    from pmce_tpu_torch.smpl.mesh import ensure_cached_coarsening
+    from torch_port_init import perturbed_init
+
+    t_phase = time.time()
+    card = card_line()
+    out = {}
+    with full_f32():
+        f32_kernel_rows(device, rows)
+        art = ensure_cached_artifacts()
+        coarse = ensure_cached_coarsening()
+        models = {}
+        for whole in (False, True):
+            m, _ = create_pmce(num_joint=J, art=art, coarsening=coarse,
+                               dtype=None, fused=True,
+                               whole_block_kernel=whole, device=device,
+                               seed=0)
+            models[whole] = m
+        # Phase 3's perturbed weights and inputs, in f32.
+        perturbed_init(models[False], torch.Generator().manual_seed(0))
+        models[True].load_state_dict(models[False].state_dict())
+        rng = np.random.default_rng(0)
+        pose2d = torch.from_numpy(
+            rng.standard_normal((B, T, J, 2), dtype=np.float32)).to(device)
+        img_feat = torch.from_numpy(
+            rng.standard_normal((B, T, 2048), dtype=np.float32)).to(device)
+        names = ("mesh", "evo_pose", "pose3d")
+        expect = {"mesh": (B, art.num_verts, 3), "evo_pose": (B, J, 3),
+                  "pose3d": (B, J, 3)}
+
+        def plain_route():
+            stack = contextlib.ExitStack()
+            for mod, name, plain in (
+                    (fa, "transformer_block", fa.transformer_block_plain),
+                    (fc, "coevo_chain", fc.coevo_chain_plain),
+                    (fc, "coevo_block", fc.coevo_block_plain)):
+                stack.enter_context(mock.patch.object(mod, name, plain))
+            return stack
+
+        def counted(m, route, want):
+            ctx = plain_route() if route == "plain" else \
+                contextlib.nullcontext()
+            with ctx, torch.no_grad():
+                _cuda.reset_launch_counts()
+                outs = dict(zip(names, m(pose2d, img_feat)))
+                torch.cuda.synchronize()
+                counts = _cuda.launch_counts()
+            launched = {k: v for k, v in counts.items() if v}
+            if launched != want:
+                raise RuntimeError(f"f32 serving ({route}): launches "
+                                   f"{launched}, expected {want}")
+            for name, t in outs.items():
+                if tuple(t.shape) != expect[name] or \
+                        t.dtype != torch.float32 or \
+                        not bool(torch.isfinite(t).all()):
+                    raise RuntimeError(f"f32 {name}: {tuple(t.shape)} "
+                                       f"{t.dtype} or non-finite")
+            return outs, counts
+
+        def agree(tag, outs, ref, what):
+            for name, t in outs.items():
+                scale = float(ref[name].abs().max())
+                rel = max_err(t, ref[name]) / scale
+                print(f"{tag} {name} vs {what}: max abs difference / max "
+                      f"|{what}| = {rel:.3g} (max |x| {scale:.4g}, tol "
+                      f"{F32_SERVE_REL_TOL})", flush=True)
+                if not rel <= F32_SERVE_REL_TOL:
+                    raise RuntimeError(f"{tag} {name}: disagrees with {what}")
+
+        chain_outs = None
+        for whole, tag, want in ((False, "[f32]", F32_CHAIN),
+                                 (True, "[f32-wb]", F32_WHOLE)):
+            m = models[whole]
+            outs, counts = counted(m, "kernels", want)
+            print(f"{tag} launches on the f32 serving forward: "
+                  f"{ {k: v for k, v in counts.items() if v} } (exact)",
+                  flush=True)
+            plain, _ = counted(m, "plain", {})
+            agree(tag, outs, plain, "the plain route")
+            if whole:
+                agree(tag, outs, chain_outs, "the chain route")
+            else:
+                chain_outs = outs
+            ms, fps = serve_rate(m, pose2d, img_feat)
+            with plain_route():
+                pms, pfps = serve_rate(m, pose2d, img_feat)
+            what = "whole-block" if whole else "chain"
+            print(f"{tag} f32 fused forward ({what}), B={B}: kernels "
+                  f"{ms:.3f} ms per batch = {fps:.1f} mid-frames/s; plain "
+                  f"route {pms:.3f} ms = {pfps:.1f} mid-frames/s "
+                  f"({fps / pfps:.3f}x); TF32 off; on {card}", flush=True)
+            out["wb" if whole else "chain"] = (counts, fps, pfps)
+        del models, m, chain_outs, outs, plain
+        torch.cuda.empty_cache()
+
+        # 11c: the test CLI on CLI_CFG in f32.
+        text = CLI_CFG.read_text()
+        if "compute_dtype: 'bfloat16'" not in text or \
+                "fused_attn: true" not in text:
+            raise RuntimeError(f"{CLI_CFG}: not the bf16 fused config")
+        readings = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = Path(tmp) / "test_mesh_h36m_f32.yml"
+            cfg.write_text(text.replace("compute_dtype: 'bfloat16'",
+                                        "compute_dtype: 'float32'"))
+            for route in ("kernels", "plain"):
+                ctx = (plain_everything(fa, fc) if route == "plain"
+                       else contextlib.nullcontext())
+                t0 = time.time()
+                _cuda.reset_launch_counts()
+                with ctx:
+                    got = test_cli.main(["--cfg", str(cfg)])
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                launched = {k: v for k, v in _cuda.launch_counts().items()
+                            if v}
+                if route == "plain":
+                    ok = not launched
+                else:
+                    batches = launched.get("coevo_chain_f32", 0)
+                    ok = (set(launched) == {"block_fwd_f32",
+                                            "coevo_chain_f32", "skinning"}
+                          and batches > 0
+                          and launched["block_fwd_f32"] == 6 * batches)
+                if not ok:
+                    raise RuntimeError(f"f32 test CLI ({route}) launched "
+                                       f"{launched}")
+                readings[route] = got
+                print(f"[f32-cli] test CLI, compute_dtype float32, "
+                      f"fused_attn true, seeded initial weights ({route}): "
+                      f"{wall:.1f} s; " + ", ".join(
+                          f"{k} {getattr(got, k):.6f}" for k in
+                          ("mpjpe", "pa_mpjpe", "mpvpe", "accel"))
+                      + f"; launches {launched}", flush=True)
+                out[f"cli_{route}_s"] = wall
+        for k in ("mpjpe", "pa_mpjpe", "mpvpe", "accel"):
+            a, b = getattr(readings["kernels"], k), \
+                getattr(readings["plain"], k)
+            if not (math.isfinite(a) and
+                    abs(a - b) <= F32_SERVE_REL_TOL * abs(b)):
+                raise RuntimeError(f"f32 test CLI {k}: kernels {a} vs plain "
+                                   f"{b} (tol {F32_SERVE_REL_TOL} relative)")
+    out["phase_s"] = time.time() - t_phase
+    print(f"[f32] test CLI metrics, kernels vs plain within "
+          f"{F32_SERVE_REL_TOL}; phase 11 took {out['phase_s']:.1f} s on "
+          f"{card}", flush=True)
+    return out
+
+
 def profile_step(step, what: str = "train step", n: int = 5) -> None:
     """Device time of ``n`` calls of ``step`` (a ``what``) by kernel
     (torch.profiler)."""
@@ -3138,13 +3431,17 @@ def main() -> int:
     dm = demo(device)
     dp = data_parallel(device, stage1, fused_ms)
     etl = data_pipeline(device)
+    f32 = f32_serving(device, rows)
     # Each kernel's launches on the path it belongs to; skinning's: phase
-    # 4's synthesis and phase 10's conversions.
+    # 4's synthesis and phase 10's conversions; the f32 forms': phase 11's
+    # forwards.
     counts = {**{k: mesh_counts[k] for k in REPLACES},
               **{k: fused_counts[k] for k in DECODER},
               **{k: train_counts[k] for k in TRAINING},
               **{k: serve_counts[k] for k in SERVING},
-              "coevo_block": wb_counts["coevo_block"]}
+              "coevo_block": wb_counts["coevo_block"],
+              **{k: f32["chain"][0][k] for k in F32_CHAIN},
+              "coevo_block_f32": f32["wb"][0]["coevo_block_f32"]}
     counts["skinning"] += etl["skinning"]
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
@@ -3170,7 +3467,10 @@ def main() -> int:
           f"plain skinning " + ", ".join(
               f"{k} {a:.1f} / {b:.1f}" for k, (a, b) in etl["rates"].items())
           + f", skinning at B={ETL_BATCH} {etl['skin']['ms']:.4f} ms "
-          f"(bound {etl['skin']['bound_ms']:.4f})", flush=True)
+          f"(bound {etl['skin']['bound_ms']:.4f}); phase 11 f32 serving "
+          f"{f32['chain'][1]:.1f} mid-frames/s (plain route "
+          f"{f32['chain'][2]:.1f}), whole-block {f32['wb'][1]:.1f} (plain "
+          f"{f32['wb'][2]:.1f}), phase 11 {f32['phase_s']:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

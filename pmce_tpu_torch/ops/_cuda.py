@@ -254,7 +254,21 @@ CA = CudaLibrary("ca_block", "pmce_ca_block_error_string", {
     "pmce_ca_bwd_tile": (I, (P, I, I, I, I, I, F, P)),
     "pmce_ca_wgrad": (I, (P, I, I, I, I, I, P)),
 })
-LIBRARIES = (TRUNK, GRU, CHAIN, COEVO_BLOCK, BLOCK, SKIN, MHSA, ADA, CA)
+# The f32 serving forwards: row 6's non-saving program (a table of its 16
+# pointers, clips, N, hid, eps, post_eps, qscale, stream), and the chain and
+# the whole block in f32 (the bf16 entry points' arguments; the workspace
+# takes J and V).
+BLOCK_F32 = CudaLibrary("block_f32", "pmce_block_f32_error_string", {
+    "pmce_block_fwd_f32": (I, (P, I, I, I, F, F, F, P)),
+})
+COEVO_F32 = CudaLibrary("coevo_f32", "pmce_coevo_f32_error_string", {
+    "pmce_coevo_f32_workspace_bytes": (ctypes.c_longlong, (I, I)),
+    "pmce_coevo_f32_smem_bytes": (ctypes.c_longlong, (I,)),
+    "pmce_coevo_chain_f32": (I, (P, P, P, P, P, P, P, I, I, I, I, F, F, F, P)),
+    "pmce_coevo_block_f32": (I, (P,) * 8 + (I, I, I, F, F, F, P)),
+})
+LIBRARIES = (TRUNK, GRU, CHAIN, COEVO_BLOCK, BLOCK, SKIN, MHSA, ADA, CA,
+             BLOCK_F32, COEVO_F32)
 
 
 def build_all() -> None:

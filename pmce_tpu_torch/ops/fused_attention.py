@@ -19,8 +19,9 @@ the decoder's attention blocks with their backwards: ``fused_mhsa``,
   (``pmce_tpu/ops/fused_attention.py:984-989`` sends it to its oracle); a
   shape that JAX's kernel takes but this kernel is not built for
   (``*_kernel_fits`` is false) raises ``NotImplementedError`` naming the
-  widening queued in ROADMAP.md, as f32 compute does. Nothing is caught,
-  nothing falls back.
+  widening queued in ROADMAP.md, as f32 compute does outside the f32
+  serving forward (row 6's non-saving program, ``csrc/block_f32.cu``).
+  Nothing is caught, nothing falls back.
 
 The numerics follow the JAX oracles rather than the TPU kernels' bf16
 workarounds, and are shared with ``ops/fused_coevo_chain.py``: f32 LayerNorm
@@ -55,6 +56,8 @@ GRU_SCAN_LAUNCHES = _cuda.launch_counter("gru_scan")
 GRU_BWD_SCAN_LAUNCHES = _cuda.launch_counter("gru_bwd_scan")
 BLOCK_FWD_LAUNCHES = _cuda.launch_counter("block_fwd")
 BLOCK_BWD_LAUNCHES = _cuda.launch_counter("block_bwd")
+# Row 6's f32 serving forward (csrc/block_f32.cu).
+BLOCK_FWD_F32_LAUNCHES = _cuda.launch_counter("block_fwd_f32")
 
 
 # ---------------------------------------------------------------------------
@@ -535,13 +538,19 @@ def block_kernel_fits(C: int, num_heads: int, hid: int) -> bool:
 
 def _block_checks(x, params, num_heads):
     B, N, C = x.shape
-    if x.dtype != torch.bfloat16:
+    if x.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
-            "the block kernels take bf16 tokens; the f32 variant is queued "
-            "in ROADMAP (B6/B7 f32)")
+            f"the block kernels take bf16 or f32 tokens, not {x.dtype}")
     hid = params[8].shape[1]
-    _cuda.check_cuda(x, "x", torch.bfloat16, (B, N, C))
+    _cuda.check_cuda(x, "x", x.dtype, (B, N, C))
     return B, N, C, hid
+
+
+def _refuse_f32_training(name: str) -> None:
+    raise NotImplementedError(
+        f"{name}: the f32 block kernel is the serving forward (no gradient, "
+        "no branch masks); f32 training on the card is queued in ROADMAP.md "
+        "B2b")
 
 
 def _mask_rows(m, B, dev):
@@ -551,16 +560,25 @@ def _mask_rows(m, B, dev):
 
 class _BlockWeights:
     """A block's parameters as the kernels take them (f32 vectors, bf16
-    [in, out] matrices)."""
+    [in, out] matrices; with ``f32``, the f32 kernel's, every parameter
+    f32 as given: another dtype raises)."""
 
-    def __init__(self, params, C, hid, dev):
+    def __init__(self, params, C, hid, dev, f32_route: bool = False):
         f32, bf16 = torch.float32, torch.bfloat16
 
         def vec(a, n, name):
             return _cuda.to_kernel(a, dev, f32, (n,), name)
 
         def mat(a, rows, cols, name):
-            return _cuda.to_kernel(a, dev, bf16, (rows, cols), name)
+            return _cuda.to_kernel(a, dev, f32 if f32_route else bf16,
+                                   (rows, cols), name)
+
+        if f32_route:
+            for t in params:
+                if t is not None and t.dtype != f32:
+                    raise ValueError(f"transformer_block: f32 tokens take f32 "
+                                     f"parameters, got {t.dtype} "
+                                     f"{tuple(t.shape)}")
 
         (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2,
          gp, bp) = params
@@ -593,6 +611,11 @@ def _block_fwd_cuda(x, params, m1, m2, num_heads, eps, post_eps,
     B, N, C, hid = _block_checks(x, params, num_heads)
     bf16, f32 = torch.bfloat16, torch.float32
     dev = x.device
+    if x.dtype == f32:
+        if for_grad or keep_branches or m1 is not None or m2 is not None \
+                or stamps is not None:
+            _refuse_f32_training("transformer_block")
+        return _block_fwd_f32_cuda(x, params, num_heads, eps, post_eps, w)
     M = B * N
     w = w or _BlockWeights(params, C, hid, dev)
     rows1, rows2 = _mask_rows(m1, B, dev), _mask_rows(m2, B, dev)
@@ -619,6 +642,21 @@ def _block_fwd_cuda(x, params, m1, m2, num_heads, eps, post_eps,
         BLOCK_FWD_LAUNCHES.count += 1
     saved = (h1, qkv, o, x1, h2, hh, ge, y, a, mo)
     return out, saved
+
+
+def _block_fwd_f32_cuda(x, params, num_heads, eps, post_eps, w=None):
+    """The f32 serving forward in one launch of ``csrc/block_f32.cu``'s
+    non-saving program: writes only the output; returns (out, None)."""
+    B, N, C, hid = _block_checks(x, params, num_heads)
+    w = w or _BlockWeights(params, C, hid, x.device, True)
+    out = torch.empty_like(x)
+    _cuda.BLOCK_F32.call("pmce_block_fwd_f32", _cuda.ptr_table(
+        x, out, w.wqkv, w.wproj, w.w1, w.w2, w.g1, w.b1, w.bqkv, w.bproj,
+        w.g2, w.b2, w.bb1, w.bb2, w.gp if w.post else None,
+        w.bp if w.post else None), B, N, hid, eps, post_eps,
+        1.0 / math.sqrt(C // num_heads), _cuda.stream_ptr(x.device))
+    BLOCK_FWD_F32_LAUNCHES.count += 1
+    return out, None
 
 
 def block_fwd_stage_split(x, params, num_heads: int, branch_masks=None,
@@ -794,14 +832,22 @@ def transformer_block(x, params, num_heads: int, eps: float = 1e-6,
 
     CPU tensors, and clips of more than :data:`BLOCK_MAX_TOKENS` tokens
     (where the JAX package runs its oracle), run the plain version. CUDA
-    tensors run the kernels of ``csrc/block.cu`` forward and backward
-    (bf16; widths :func:`block_kernel_fits` refuses raise)."""
+    tensors run the kernels of ``csrc/block.cu`` forward and backward in
+    bf16, and ``csrc/block_f32.cu``'s serving forward in f32, where a
+    gradient or branch masks raise (queued); widths
+    :func:`block_kernel_fits` refuses raise."""
     if not _on_card(x, "transformer_block") or x.shape[1] > BLOCK_MAX_TOKENS:
         return transformer_block_plain(x, params, num_heads, eps, post_eps,
                                        branch_masks)
     C, hid = x.shape[-1], params[8].shape[1]
     require_kernel(block_kernel_fits(C, num_heads, hid),
                    "transformer_block", f"C={C}, {num_heads} heads, hid={hid}")
+    if x.dtype == torch.float32:
+        if branch_masks is not None or (torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, *params))):
+            _refuse_f32_training("transformer_block")
+        return _block_fwd_cuda(x, params, None, None, num_heads, eps,
+                               post_eps, False, False)[0]
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
     return _BlockKernel.apply(x, m1, m2, num_heads, eps, post_eps,
                               torch.is_grad_enabled(), *params)

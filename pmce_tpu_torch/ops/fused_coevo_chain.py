@@ -15,14 +15,16 @@ residuals.
 :func:`coevo_chain_plain` that of ``coevo_chain_reference`` (its embeds, one
 block each, its heads), with the kernels' cast points: f32 sums of bf16
 products, one rounding each, f32 streams between the residual adds (the
-chain's heads read the f32 streams). :func:`coevo_block` and
-:func:`coevo_chain` run them for CPU tensors and, for bf16 CUDA tensors,
-the kernels of ``csrc/coevo_block.cu`` and ``csrc/coevo_chain.cu`` (both
-over ``csrc/coevo_ops.cuh``); on the card a shape those kernels are not
-built for (:func:`coevo_kernel_fits`, or a vertex stream over shared
-memory) raises, as JAX's kernels take every shape. The gradient of either
-kernel is the plain version's autograd on the saved inputs, as JAX
-recomputes through its oracles. The decoder
+chain's heads read the f32 streams); in f32 compute every tensor is f32
+and nothing rounds. :func:`coevo_block` and :func:`coevo_chain` run them
+for CPU tensors and, for CUDA tensors, the kernels of
+``csrc/coevo_block.cu`` and ``csrc/coevo_chain.cu`` (both over
+``csrc/coevo_ops.cuh``) in bf16 compute and those of ``csrc/coevo_f32.cu``
+in f32 compute; on the card a shape those kernels are not built for
+(:func:`coevo_kernel_fits`, or a vertex stream over shared memory), and
+any other compute dtype, raise, as JAX's kernels take every shape. The
+gradient of either kernel is the plain version's autograd on the saved
+inputs, as JAX recomputes through its oracles. The decoder
 calls :func:`coevo_block` per block under ``whole_block_kernel`` in eval
 mode, :func:`coevo_chain` otherwise in eval mode under ``fused``.
 """
@@ -47,6 +49,8 @@ from pmce_tpu_torch.ops.fused_attention import (
 
 CHAIN_LAUNCHES = _cuda.launch_counter("coevo_chain")
 BLOCK_LAUNCHES = _cuda.launch_counter("coevo_block")
+CHAIN_F32_LAUNCHES = _cuda.launch_counter("coevo_chain_f32")
+BLOCK_F32_LAUNCHES = _cuda.launch_counter("coevo_block_f32")
 
 # Order of the per-block AdaLN γ/β slots ([B, NB, 12, C]), as the JAX
 # package's ``_COEVO_SLOTS``.
@@ -192,23 +196,40 @@ def _require_fits(name, C, hid, num_heads_j, num_heads_v, V, lib, smem_fn):
                    name, f"C={C}, hid={hid}, heads {num_heads_j}/"
                    f"{num_heads_v}, V={V}")
     smem = int(lib.query(smem_fn, V))
-    require_kernel(smem <= _SMEM_LIMIT, name,
-                   f"V={V} ({smem} bytes of shared memory)")
-
-
-def _require_bf16(dt, name):
-    if dt != torch.bfloat16:
+    if smem > _SMEM_LIMIT:
         raise NotImplementedError(
-            f"{name} on CUDA takes bf16 compute; f32 with fused=True on the "
-            "card is queued in ROADMAP.md (section B, f32 coevo kernels)")
+            f"{name}: the CUDA kernel's plan for V={V} needs {smem} bytes of "
+            f"shared memory, over sm_90's {_SMEM_LIMIT} (the JAX kernel takes "
+            "it); widening it is queued in ROADMAP.md B3")
+
+
+def _f32_route(dt, name) -> bool:
+    """Whether compute dtype ``dt`` runs the f32 kernels (else the bf16
+    ones); any other dtype raises."""
+    if dt in (torch.bfloat16, torch.float32):
+        return dt == torch.float32
+    raise NotImplementedError(
+        f"{name} on CUDA takes bf16 or f32 compute, not {dt} (JAX runs "
+        "neither f16 nor f64 through its kernel)")
+
+
+def _require_f32(tree, name):
+    """The f32 kernels read every input as f32: a tensor of another dtype
+    (bf16 weights beside f32 features, say) raises."""
+    for t in _tensors(tree):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: f32 compute takes f32 inputs "
+                             f"throughout, got a {t.dtype} tensor of shape "
+                             f"{tuple(t.shape)}")
 
 
 class _Table:
     """Device copies of a kernel's weights and the list of their pointers
-    (the tensors stay referenced until the launch is enqueued)."""
+    (the tensors stay referenced until the launch is enqueued); ``f32``:
+    the f32 kernels' table."""
 
-    def __init__(self, dev, C: int, hid: int):
-        self.dev, self.C, self.hid = dev, C, hid
+    def __init__(self, dev, C: int, hid: int, f32: bool = False):
+        self.dev, self.C, self.hid, self.f32 = dev, C, hid, f32
         self.keep, self.ptrs = [], []
 
     def put(self, a, dtype, shape):
@@ -217,9 +238,14 @@ class _Table:
         self.ptrs.append(t.data_ptr())
 
     def mat(self, a, rows, cols):
-        """A product [rows, cols], stored transposed: W^T [cols, rows] is
-        the layout of the kernels' B fragments (csrc/coevo_ops.cuh)."""
-        self.put(a.detach().t(), torch.bfloat16, (cols, rows))
+        """A product [rows, cols]. bf16: stored transposed, W^T [cols,
+        rows] is the layout of the kernels' B fragments
+        (csrc/coevo_ops.cuh). f32: as given, [rows, cols], whose rows the
+        f32 kernels read across a warp's lanes (csrc/coevo_f32.cu)."""
+        if self.f32:
+            self.put(a, torch.float32, (rows, cols))
+        else:
+            self.put(a.detach().t(), torch.bfloat16, (cols, rows))
 
     def vec(self, a, *shape):
         self.put(a, torch.float32, shape)
@@ -234,7 +260,8 @@ class _Table:
     def embed(self, w, b, cols):
         """A 3 -> cols projection, as given (the chain's embed3 reads it
         [3, cols]), and its bias."""
-        self.put(w, torch.bfloat16, (3, cols))
+        self.put(w, torch.float32 if self.f32 else torch.bfloat16,
+                 (3, cols))
         self.vec(b, cols)
 
     def block(self, kp, J, V):
@@ -269,20 +296,24 @@ class _Table:
 def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
                       num_heads_v, eps, stamps=None):
     f32 = torch.float32
-    _require_bf16(blocks[0][0].dtype, "coevo_chain")
+    use_f32 = _f32_route(blocks[0][0].dtype, "coevo_chain")
+    if use_f32:
+        _require_f32(blocks, "coevo_chain")
     B, J, _ = joints.shape
     V = vertx.shape[1]
     NB = len(blocks)
     C = gammas.shape[-1]
     hid = blocks[0][4][10][8].shape[1]
-    _require_fits("coevo_chain", C, hid, num_heads_j, num_heads_v, V,
-                  _cuda.CHAIN, "pmce_chain_smem_bytes")
+    lib, smem_fn = ((_cuda.COEVO_F32, "pmce_coevo_f32_smem_bytes") if use_f32
+                    else (_cuda.CHAIN, "pmce_chain_smem_bytes"))
+    _require_fits("coevo_chain", C, hid, num_heads_j, num_heads_v, V, lib,
+                  smem_fn)
     _cuda.check_cuda(joints, "joints", f32, (B, J, 3))
     _cuda.check_cuda(vertx, "vertx", f32, (B, V, 3))
     _cuda.check_cuda(gammas, "gammas", f32, (B, NB, 12, C))
     _cuda.check_cuda(betas, "betas", f32, (B, NB, 12, C))
     dev = joints.device
-    tab = _Table(dev, C, hid)
+    tab = _Table(dev, C, hid, use_f32)
     for (wjp, bjp, wvp, bvp, kp, whj, bhj, whv, bhv) in blocks:
         tab.embed(wjp, bjp, C)
         tab.embed(wvp, bvp, C)
@@ -295,12 +326,20 @@ def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
 
     jout = torch.empty(B, J, 3, device=dev, dtype=f32)
     vout = vertx.clone()  # the kernel moves the vertices in place
-    ws_bytes = _cuda.CHAIN.query("pmce_chain_workspace_bytes", J)
+    ws_bytes = (lib.query("pmce_coevo_f32_workspace_bytes", J, V) if use_f32
+                else lib.query("pmce_chain_workspace_bytes", J))
     ws = torch.empty(B * ws_bytes, device=dev, dtype=torch.uint8)
     p = _cuda.ptr
     args = (p(joints), p(jout), p(vout), p(gammas), p(betas), p(ptrs), p(ws),
             B, J, V, NB, eps, 1.0 / math.sqrt(C // num_heads_j),
             1.0 / math.sqrt(C // num_heads_v))
+    if use_f32:
+        if stamps is not None:
+            raise NotImplementedError("the f32 chain has no stamped "
+                                      "instantiation")
+        lib.call("pmce_coevo_chain_f32", *args, _cuda.stream_ptr(dev))
+        CHAIN_F32_LAUNCHES.count += 1
+        return jout, vout
     if stamps is not None:
         _cuda.CHAIN.call("pmce_coevo_chain_prof", *args, p(stamps),
                          _cuda.stream_ptr(dev))
@@ -312,30 +351,42 @@ def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
 
 def _coevo_block_cuda(jf0, vf0, gammas, betas, params, num_heads_j,
                       num_heads_v, eps, stamps=None):
-    bf16, f32 = torch.bfloat16, torch.float32
-    _require_bf16(jf0.dtype, "coevo_block")
+    f32 = torch.float32
+    use_f32 = _f32_route(jf0.dtype, "coevo_block")
+    if use_f32:
+        _require_f32((jf0, vf0, params), "coevo_block")
     B, J, C = jf0.shape
     V = vf0.shape[1]
     hid = params[10][8].shape[1]
-    _require_fits("coevo_block", C, hid, num_heads_j, num_heads_v, V,
-                  _cuda.COEVO_BLOCK, "pmce_coevo_block_smem_bytes")
-    _cuda.check_cuda(jf0, "jf0", bf16, (B, J, C))
-    _cuda.check_cuda(vf0, "vf0", bf16, (B, V, C))
+    lib, smem_fn = ((_cuda.COEVO_F32, "pmce_coevo_f32_smem_bytes") if use_f32
+                    else (_cuda.COEVO_BLOCK, "pmce_coevo_block_smem_bytes"))
+    _require_fits("coevo_block", C, hid, num_heads_j, num_heads_v, V, lib,
+                  smem_fn)
+    _cuda.check_cuda(jf0, "jf0", jf0.dtype, (B, J, C))
+    _cuda.check_cuda(vf0, "vf0", jf0.dtype, (B, V, C))
     _cuda.check_cuda(gammas, "gammas", f32, (B, 12, C))
     _cuda.check_cuda(betas, "betas", f32, (B, 12, C))
     dev = jf0.device
-    tab = _Table(dev, C, hid)
+    tab = _Table(dev, C, hid, use_f32)
     tab.block(params, J, V)
     ptrs = tab.device()
 
     jout = torch.empty_like(jf0)
     vout = torch.empty_like(vf0)
-    ws_bytes = _cuda.COEVO_BLOCK.query("pmce_coevo_block_workspace_bytes", J)
+    ws_bytes = (lib.query("pmce_coevo_f32_workspace_bytes", J, V) if use_f32
+                else lib.query("pmce_coevo_block_workspace_bytes", J))
     ws = torch.empty(B * ws_bytes, device=dev, dtype=torch.uint8)
     p = _cuda.ptr
     args = (p(jf0), p(vf0), p(jout), p(vout), p(gammas), p(betas), p(ptrs),
             p(ws), B, J, V, eps, 1.0 / math.sqrt(C // num_heads_j),
             1.0 / math.sqrt(C // num_heads_v))
+    if use_f32:
+        if stamps is not None:
+            raise NotImplementedError("the f32 whole block has no stamped "
+                                      "instantiation")
+        lib.call("pmce_coevo_block_f32", *args, _cuda.stream_ptr(dev))
+        BLOCK_F32_LAUNCHES.count += 1
+        return jout, vout
     if stamps is not None:
         _cuda.COEVO_BLOCK.call("pmce_coevo_block_prof", *args, p(stamps),
                                _cuda.stream_ptr(dev))
@@ -386,9 +437,9 @@ def coevo_chain(joints, vertx, gammas, betas, blocks, num_heads_j: int = 8,
                 num_heads_v: int = 2, eps: float = 1e-6):
     """All CoevoBlocks + coordinate heads (args as
     :func:`coevo_chain_plain`). CPU tensors run the plain version; CUDA
-    tensors the kernel, with the plain version's recompute as its backward
-    (f32 compute, and shapes the kernel is not built for, raise on the
-    card: queued)."""
+    tensors the kernel of the compute dtype (bf16 or f32), with the plain
+    version's recompute as its backward (shapes the kernel is not built
+    for raise on the card: queued)."""
     if not _on_card(joints, "coevo_chain"):
         return coevo_chain_plain(joints, vertx, gammas, betas, blocks,
                                  num_heads_j, num_heads_v, eps)
@@ -402,9 +453,9 @@ def coevo_block(jf0, vf0, gammas, betas, params, num_heads_j: int = 8,
                 num_heads_v: int = 2, eps: float = 1e-6):
     """One whole CoevoBlock (args as :func:`coevo_block_plain`). CPU
     tensors run the plain version; CUDA tensors the kernel of
-    ``csrc/coevo_block.cu``, with the plain version's recompute as its
-    backward (f32 compute, and shapes the kernel is not built for, raise on
-    the card: queued)."""
+    ``csrc/coevo_block.cu`` (bf16) or ``csrc/coevo_f32.cu`` (f32), with the
+    plain version's recompute as its backward (shapes the kernel is not
+    built for raise on the card: queued)."""
     if not _on_card(jf0, "coevo_block"):
         return coevo_block_plain(jf0, vf0, gammas, betas, params,
                                  num_heads_j, num_heads_v, eps)

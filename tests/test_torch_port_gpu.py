@@ -317,9 +317,10 @@ def test_trunk_kernel_gradient_matches_plain():
         assert _rel(a, b) <= 0.03
 
 
-def _chain_args(rng, dev, B, grad=False):
-    J, V, C, NB = 19, 61, 64, 2
-    bf = torch.bfloat16
+def _chain_args(rng, dev, B, grad=False, V=61, NB=2, bf=torch.bfloat16):
+    """The chain's inputs; ``bf``: the compute dtype, which rides on the
+    3 -> C projections."""
+    J, C = 19, 64
 
     def t(*s, scale=0.05, dtype=torch.float32):
         return _rand(rng, dev, *s, scale=scale, dtype=dtype) \
@@ -394,13 +395,44 @@ def test_chain_kernel_matches_plain():
         assert _rel(b, a) < 0.02
 
 
-def test_chain_kernel_refuses_f32_on_card():
+# f32 (the serving forward's kernels, csrc/block_f32.cu, csrc/coevo_f32.cu)
+# against the plain versions with TF32 off, at the serving shapes, relative
+# to each output's largest magnitude. Both sides are f32 throughout and
+# differ in the order of their sums (FFMA vs cuBLAS) and in exp / erf.
+# chip_smoke.py measured 2.7e-7 to 5.6e-7 at these shapes on an H100.
+F32_REL_TOL = 1e-5
+
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def test_chain_kernel_refuses_f32_on_card(no_tf32):
+    """Once refused, f32 now runs the f32 chain kernel: at the serving
+    shapes (B = 256, J = 19, V = 431, 3 blocks) one ``coevo_chain_f32``
+    launch a call and no bf16 one, within ``F32_REL_TOL`` of the plain
+    version, a rerun bit for bit."""
     dev = _card()
-    joints = torch.zeros(1, 19, 3, device=dev)
-    f32_blocks = ((torch.zeros(3, 64, device=dev),),)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fc.coevo_chain(joints, torch.zeros(1, 61, 3, device=dev), None, None,
-                       f32_blocks)
+    args = _chain_args(np.random.default_rng(11), dev, 256, V=431, NB=3,
+                       bf=torch.float32)
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = fc.coevo_chain(*args, 8, 2)
+        again = fc.coevo_chain(*args, 8, 2)
+        want = fc.coevo_chain_plain(*args, 8, 2)
+    counts = _cuda.launch_counts()
+    assert counts["coevo_chain_f32"] == 2 and counts["coevo_chain"] == 0
+    for a, a2, b in zip(got, again, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert torch.equal(a, a2)
+        assert _rel(b, a) < F32_REL_TOL
 
 
 def _block_params(rng, dev, post: bool, C=256, hid=512):
@@ -569,12 +601,47 @@ def test_block_forward_saves_what_the_backward_reads():
         assert _rel(ref, got) < 0.02, (name, _rel(ref, got))
 
 
-def test_block_kernel_refuses_f32_on_card():
+@pytest.mark.parametrize("clips,N", [(4096, 19), (4864, 16)])
+def test_block_kernel_refuses_f32_on_card(no_tf32, clips, N):
+    """Once refused, f32 tokens now run row 6's f32 serving program: at
+    the serving forward's spatial and temporal shapes, with the lifter's
+    post-norm, one ``block_fwd_f32`` launch and no bf16 one, within
+    ``F32_REL_TOL`` of the plain version, a rerun bit for bit."""
     dev = _card()
-    params = _block_params(np.random.default_rng(0), dev, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.transformer_block(torch.zeros(2, 16, 256, device=dev),
-                             tuple(params), 8)
+    rng = np.random.default_rng(clips + N)
+    params = tuple(p.detach() for p in _block_params(rng, dev, True))
+    x = _rand(rng, dev, clips, N, 256)
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = fa.transformer_block(x, params, 8)
+        assert _cuda.launch_counts()["block_fwd_f32"] == 1
+        assert _cuda.launch_counts()["block_fwd"] == 0
+        again = fa.transformer_block(x, params, 8)
+        want = fa.transformer_block_plain(x, params, 8)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert torch.equal(got, again)
+    assert _rel(want, got) < F32_REL_TOL
+
+
+@pytest.mark.parametrize("why", ["grad", "masks"])
+def test_block_f32_training_raises_on_card(why):
+    """f32 with a gradient or with branch masks is row 6's saving program
+    and row 7 in f32, queued in ROADMAP.md B2b: it raises, no kernel and no
+    plain version runs."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    params = _block_params(rng, dev, True)
+    x = _rand(rng, dev, 2, 16, 256)
+    masks = None
+    if why == "masks":
+        params = [p.detach() for p in params]
+        masks = (torch.ones(2, 1, 1, device=dev),) * 2
+    _cuda.reset_launch_counts()
+    with mock.patch.object(fa, "transformer_block_plain",
+                           side_effect=AssertionError("plain ran")), \
+            pytest.raises(NotImplementedError, match="ROADMAP.md B2b"):
+        fa.transformer_block(x, tuple(params), 8, branch_masks=masks)
+    assert not any(_cuda.launch_counts().values())
 
 
 @pytest.mark.parametrize("V", [6890, 6889])
@@ -1088,12 +1155,50 @@ def test_coevo_block_backward_is_the_plain_recompute():
         assert torch.allclose(a.float(), b.float(), rtol=1e-5, atol=1e-6)
 
 
-def test_coevo_block_kernel_refuses_f32_on_card():
+def test_coevo_block_kernel_refuses_f32_on_card(no_tf32):
+    """Once refused, f32 features now run the f32 whole block: at the
+    whole-block serving forward's shapes (B = 256, V = 431) one
+    ``coevo_block_f32`` launch a call, within ``F32_REL_TOL`` of the plain
+    version, a rerun bit for bit; a bf16 weight beside f32 features raises
+    ``ValueError``."""
     dev = _card()
     jf0, vf0, g, b, params = _coevo_block_args(np.random.default_rng(4),
-                                               dev, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                                               dev, 256)
+    args = (jf0.float(), vf0.float(), g, b, params)
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = fc.coevo_block(*args, 8, 2)
+        again = fc.coevo_block(*args, 8, 2)
+        want = fc.coevo_block_plain(*args, 8, 2)
+    counts = _cuda.launch_counts()
+    assert counts["coevo_block_f32"] == 2 and counts["coevo_block"] == 0
+    for a, a2, ref in zip(got, again, want):
+        assert a.dtype == torch.float32 and a.shape == ref.shape
+        assert torch.equal(a, a2)
+        assert _rel(ref, a) < F32_REL_TOL
+    mixed = params[:6] + (params[6].bfloat16(),) + params[7:]
+    with torch.no_grad(), pytest.raises(ValueError, match="f32 compute"):
+        fc.coevo_block(*args[:4], mixed, 8, 2)
+
+
+def test_coevo_f32_plan_refuses_a_vertex_stream_over_it():
+    """The f32 plan keeps two f32 [V, C] buffers in shared memory (V C 8
+    bytes: 220,672 at V = 431, V <= 454); 460 vertices raise naming
+    ROADMAP.md B3 (JAX's kernel takes them), the chain's too."""
+    dev = _card()
+    for V in (48, 431, 460):
+        assert _cuda.COEVO_F32.query("pmce_coevo_f32_smem_bytes", V) \
+            == V * 64 * 8
+    jf0, vf0, g, b, params = _coevo_block_args(np.random.default_rng(8),
+                                               dev, 1, V=460)
+    with torch.no_grad(), pytest.raises(NotImplementedError,
+                                        match="ROADMAP.md B3"):
         fc.coevo_block(jf0.float(), vf0.float(), g, b, params, 8, 2)
+    args = _chain_args(np.random.default_rng(9), dev, 1, V=460,
+                       bf=torch.float32)
+    with torch.no_grad(), pytest.raises(NotImplementedError,
+                                        match="ROADMAP.md B3"):
+        fc.coevo_chain(*args, 8, 2)
 
 
 def test_coevo_kernels_refuse_a_vertex_stream_over_shared_memory():

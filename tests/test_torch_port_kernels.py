@@ -17,6 +17,8 @@ points (e.g. the GRU oracle's bf16 ``h @ Whh`` output).
 
 from __future__ import annotations
 
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -216,10 +218,26 @@ def test_wrappers_reject_devices_without_a_kernel():
 
 
 def test_kernel_paths_refuse_f32_compute():
-    """The kernels take bf16; f32 is never quietly run another way."""
+    """The GRU scan and the trunk take bf16 (JAX's kernels are bf16-only
+    too); f32 is never quietly run another way. The chain takes f32 since
+    its f32 kernel (csrc/coevo_f32.cu): f32 weights pass its dtype gate
+    and reach the shape gate, a bf16 weight beside them raises
+    ``ValueError``, and f16 compute still raises."""
     inputs, blocks = _chain_case(2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    gate = mock.Mock(side_effect=RuntimeError("dtype gate passed"))
+    with mock.patch.object(fc, "_require_fits", gate), \
+            pytest.raises(RuntimeError, match="dtype gate passed"):
         fc._coevo_chain_cuda(*_t(inputs), _t(blocks), 8, 2, 1e-6)
+    assert gate.call_args.args[-2] is _cuda.COEVO_F32
+    kp = _t(blocks[0][4])
+    mixed = ((_t(blocks[0][:4]) + (kp[:6] + (kp[6].bfloat16(),) + kp[7:],)
+              + _t(blocks[0][5:])),) + _t(blocks[1:])
+    with mock.patch.object(fc, "_require_fits", gate), \
+            pytest.raises(ValueError, match="f32 compute"):
+        fc._coevo_chain_cuda(*_t(inputs), mixed, 8, 2, 1e-6)
+    with pytest.raises(NotImplementedError, match="bf16 or f32"):
+        fc._coevo_chain_cuda(*_t(inputs), _cast_block_proj(
+            _t(blocks), lambda a: a.half()), 8, 2, 1e-6)
     gi, whh, bhh = _gru_case(5)
     with pytest.raises(NotImplementedError):
         fa._gru_layer_cuda(_t(gi), _t(whh), _t(bhh), False)
