@@ -172,7 +172,29 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    seeded initial weights, on the kernels (``block_fwd_f32`` 6 a batch,
    ``coevo_chain_f32`` 1, the synthesis' skinning, nothing else) and under
    ``plain_everything`` (nothing launches): the four metrics within
-   ``F32_SERVE_REL_TOL``.
+   ``F32_SERVE_REL_TOL``;
+12. f32 training (TF32 off throughout): (a) rows 6f (the forward, with
+   per-clip branch masks at rate 0.2) and 7f (the backward) at both
+   Stage-1 shapes ([1024, 17, 256], [1088, 16, 256]; masks without and
+   with a gradient) and (b) rows 4f / 5f at the f32 joint stream's [32, 17,
+   64] and [32, 19, 64] against the plain versions' autograd (outputs
+   within ``F32_KERNEL_REL_TOL``, every gradient within
+   ``F32_GRAD_REL_TOL`` of its own largest magnitude), reruns bit for bit,
+   timed beside their f32 bounds and ``nn.TransformerEncoder`` /
+   ``F.multi_head_attention_forward`` in f32 with their backwards; (c)
+   phase 4's cell in f32 (``compute_dtype`` float32, ``fused_attn`` on):
+   synthesis, ``Trainer.fit`` 2 x 25 steps counted (exactly
+   ``block_fwd_f32`` 6 and ``block_bwd_f32`` 6 a step, ``block_fwd_f32`` 6
+   an evaluation batch, the synthesis' skinning, nothing else), losses
+   finite and falling, the first step against the plain path within
+   ``F32_STEP_LOSS_REL_TOL`` / ``F32_STEP_GRAD_REL_TOL``, the step's ms,
+   clips/s and peak memory beside phase 4's; (d) the train CLI with
+   ``--smoke`` on ``configs/train_pose_h36m.yml`` rewritten to float32 +
+   ``fused_attn`` in a temporary directory, counted, a finite protocol
+   summary; (e) an f32 Stage-2 training step still raises naming
+   ROADMAP.md B2b at the decoder's AdaLN / CA blocks (rows 8f-11f queued),
+   no plain version runs, and the joint stream's AdaBlock in f32 training
+   mode runs its attention on rows 4f / 5f (counted).
 
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
 each train step's device time by kernel and, before phase 2, the stage
@@ -237,6 +259,9 @@ REPLACES = {
     "block_fwd_f32": "pmce_tpu/ops/fused_attention.py:464",
     "coevo_chain_f32": "pmce_tpu/ops/fused_coevo_chain.py:118",
     "coevo_block_f32": "pmce_tpu/ops/fused_attention.py:2714",
+    "block_bwd_f32": "pmce_tpu/ops/fused_attention.py:1108",
+    "mhsa_fwd_f32": "pmce_tpu/ops/fused_attention.py:369",
+    "mhsa_bwd_f32": "pmce_tpu/ops/fused_attention.py:800",
 }
 SOURCES = {
     "lifter_trunk": "pmce_tpu_torch/csrc/lifter_trunk.cu",
@@ -259,6 +284,9 @@ SOURCES = {
     "block_fwd_f32": "pmce_tpu_torch/csrc/block_f32.cu",
     "coevo_chain_f32": "pmce_tpu_torch/csrc/coevo_f32.cu",
     "coevo_block_f32": "pmce_tpu_torch/csrc/coevo_f32.cu",
+    "block_bwd_f32": "pmce_tpu_torch/csrc/block_f32.cu",
+    "mhsa_fwd_f32": "pmce_tpu_torch/csrc/mhsa_f32.cu",
+    "mhsa_bwd_f32": "pmce_tpu_torch/csrc/mhsa_f32.cu",
 }
 # gru_layer / gru_layer_rev count direction scans, gru_scan launches of the
 # scan kernel: one runs both directions of a BiGRU layer.
@@ -387,6 +415,21 @@ F32_KERNEL_REL_TOL = 1e-5
 # largest magnitude, and the test CLI's metrics relative to the plain
 # route's: the f32 model's bound (tests/test_torch_port_model.py).
 F32_SERVE_REL_TOL = 1e-4
+# Phase 12, f32 training (TF32 off throughout): the launches of a Stage-1
+# train step (the six lifter blocks forward and backward) and of an
+# evaluation batch (the blocks forward: the trunk is bf16-only, as JAX's);
+# rows 6f / 7f and 4f / 5f against their plain versions' autograd, each
+# gradient (mask gradients included) relative to its own largest
+# magnitude (outputs: F32_KERNEL_REL_TOL); the first f32 train step,
+# kernel path vs plain path, the loss relative and each parameter's
+# gradient relative to its largest magnitude. f32 on both sides, sums in
+# another order.
+F32_STEP = {"block_fwd_f32": 6, "block_bwd_f32": 6}
+F32_GRAD_REL_TOL = 1e-4
+F32_STEP_LOSS_REL_TOL = 1e-5
+F32_STEP_GRAD_REL_TOL = 1e-4
+# The Stage-1 config the f32 train CLI runs (rewritten to f32 + fused).
+STAGE1_CFG = REPO / "configs" / "train_pose_h36m.yml"
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 on
 # the tensor cores, f32 on the CUDA cores, and the HBM rate.
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -1097,18 +1140,20 @@ def ada_mask_gradients(*args) -> None:
     mask_gradients("ada_block_bwd", (), *args)
 
 
-def mha_library_ms(leaves, heads: int) -> tuple[float, float]:
-    """The yardstick of rows 4 / 5: one PyTorch call computing the same
-    function, ``F.multi_head_attention_forward`` in bf16 on the same
+def mha_library_ms(leaves, heads: int, dtype=None) -> tuple[float, float]:
+    """The yardstick of rows 4 / 5 (4f / 5f with ``dtype`` f32): one
+    PyTorch call computing the same function,
+    ``F.multi_head_attention_forward`` in bf16 (or ``dtype``) on the same
     tokens and weights, and its autograd backward (timed here only; the
     port never calls it)."""
     import torch
     import torch.nn.functional as F
 
     x, wqkv, bqkv, wproj, bproj = (t.detach() for t in leaves)
-    bf = torch.bfloat16
-    args = [x.transpose(0, 1).contiguous(), wqkv.t().to(bf).contiguous(),
-            bqkv.to(bf), wproj.t().to(bf).contiguous(), bproj.to(bf)]
+    bf = dtype or torch.bfloat16
+    args = [x.transpose(0, 1).to(bf).contiguous(),
+            wqkv.t().to(bf).contiguous(), bqkv.to(bf),
+            wproj.t().to(bf).contiguous(), bproj.to(bf)]
     args = [a.requires_grad_(True) for a in args]
     C = x.shape[-1]
 
@@ -1547,22 +1592,79 @@ def standin_h36m_regressor(num_verts: int, seed: int = 7):
     return jr
 
 
+def stage1_lifter(cfg, device):
+    """The Stage-1 lifter ``cfg`` trains (phases 4 and 12c): drop path 0.2,
+    JAX's initial values from the config's seed."""
+    from pmce_tpu_torch.models.pmce import resolve_compute_dtype
+    from pmce_tpu_torch.models.pose_lifter import create_pose_lifter
+
+    return create_pose_lifter(
+        num_joints=JT, num_frames=cfg.DATASET.seqlen,
+        embed_dim=cfg.MODEL.hpe_dim, depth=cfg.MODEL.hpe_dep,
+        drop_path_rate=0.2,
+        dtype=resolve_compute_dtype(cfg.MODEL.compute_dtype),
+        fused=cfg.MODEL.fused_attn, device=device, seed=cfg.TRAIN.seed)
+
+
+def stage1_first_step(cfg, device, batch) -> tuple[tuple, tuple]:
+    """A first Stage-1 train step from fresh weights, with its masks drawn
+    from one seeded generator, on the kernel path and under ``plain_path``:
+    ((loss, gradients) on the kernels, the same on the plain versions)."""
+    import torch
+
+    from pmce_tpu_torch.core.losses import coord_l1
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    def step(plain: bool):
+        model = stage1_lifter(cfg, device).train()
+        ctx = plain_path(fa, True) if plain else contextlib.nullcontext()
+        with ctx:
+            pred = model(batch["pose2d"], batch["img_feature"],
+                         generator=torch.Generator(device).manual_seed(7))
+            loss = coord_l1(pred, batch["lift_pose3d"],
+                            batch["lift_pose3d_valid"])
+            loss.backward()
+        return float(loss), {n: p.grad for n, p in model.named_parameters()}
+
+    return step(False), step(True)
+
+
+def worst_grad(grads_k: dict, grads_p: dict) -> tuple[float, str]:
+    """The largest max|kernel - plain| / max|plain| over the gradients,
+    and its parameter."""
+    return max((max_err(grads_k[n], g) / max(max_err(g, 0 * g), 1e-30), n)
+               for n, g in grads_p.items())
+
+
+def median_step_ms(step, iters: int, warmup: int = 3) -> float:
+    """Host ms of ``step()`` ending in a synchronize, median of ``iters``
+    after ``warmup``."""
+    import torch
+
+    times = []
+    for i in range(warmup + iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
 def train(device, profile: bool) -> tuple[dict, float, dict]:
     """Phase 4: Stage-1 lifter training on the kernel path. Returns the
     counts, the step's ms and what phase 5 starts from (the sequences, the
     H36M regressor and the best checkpoint)."""
-    import contextlib
     import shutil
     from unittest import mock
 
     import numpy as np
     import torch
 
-    from pmce_tpu_torch.core.losses import coord_l1
     from pmce_tpu_torch.core.trainer import Trainer
     from pmce_tpu_torch.data.clip_dataset import ClipDataset, MultiDataset
     from pmce_tpu_torch.data.synthetic import generate_sequences
-    from pmce_tpu_torch.models.pmce import resolve_compute_dtype
     from pmce_tpu_torch.models.pose_lifter import create_pose_lifter
     from pmce_tpu_torch.ops import _cuda
     from pmce_tpu_torch.ops import fused_attention as fa
@@ -1573,14 +1675,6 @@ def train(device, profile: bool) -> tuple[dict, float, dict]:
     jr = standin_h36m_regressor(art.num_verts)
     ckpt_dir = REPO / "pmce_tpu_torch" / "_build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-
-    def lifter():
-        return create_pose_lifter(
-            num_joints=JT, num_frames=cfg.DATASET.seqlen,
-            embed_dim=cfg.MODEL.hpe_dim, depth=cfg.MODEL.hpe_dep,
-            drop_path_rate=0.2,
-            dtype=resolve_compute_dtype(cfg.MODEL.compute_dtype),
-            fused=cfg.MODEL.fused_attn, device=device, seed=cfg.TRAIN.seed)
 
     def trainer_for(model, ckpt=""):
         return Trainer(cfg=cfg, model=model,
@@ -1597,7 +1691,7 @@ def train(device, profile: bool) -> tuple[dict, float, dict]:
                                seed=s, device=device) for s in (0, 100)]
     train_ds = ClipDataset(seqs[0], seqlen=T, stride=1, chunk_mode="pose")
     test_ds = ClipDataset(seqs[1], seqlen=T, stride=1, chunk_mode="pose")
-    trainer = trainer_for(lifter(), str(ckpt_dir))
+    trainer = trainer_for(stage1_lifter(cfg, device), str(ckpt_dir))
     state = trainer.fit()
     torch.cuda.synchronize()
     counts = _cuda.launch_counts()
@@ -1638,24 +1732,9 @@ def train(device, profile: bool) -> tuple[dict, float, dict]:
 
     # First step: kernel path vs plain path, same weights, batch, masks.
     batch = trainer._wire_cast(train_ds.get_batch(np.arange(BT)))
-
-    def first_step(plain: bool):
-        model = lifter().train()
-        ctx = (mock.patch.object(fa, "transformer_block",
-                                 fa.transformer_block_plain)
-               if plain else contextlib.nullcontext())
-        with ctx:
-            pred = model(batch["pose2d"], batch["img_feature"],
-                         generator=torch.Generator(device).manual_seed(7))
-            loss = coord_l1(pred, batch["lift_pose3d"],
-                            batch["lift_pose3d_valid"])
-            loss.backward()
-        return float(loss), {n: p.grad for n, p in model.named_parameters()}
-
-    loss_k, grads_k = first_step(False)
-    loss_p, grads_p = first_step(True)
-    worst = max((max_err(grads_k[n], g) / max(max_err(g, 0 * g), 1e-30), n)
-                for n, g in grads_p.items())
+    (loss_k, grads_k), (loss_p, grads_p) = stage1_first_step(cfg, device,
+                                                             batch)
+    worst = worst_grad(grads_k, grads_p)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     print(f"[train] first step, kernel vs plain path: loss {loss_k:.6g} vs "
           f"{loss_p:.6g} (relative {loss_rel:.3g}, tol {STEP_LOSS_REL_TOL});"
@@ -1668,23 +1747,15 @@ def train(device, profile: bool) -> tuple[dict, float, dict]:
     # Step time: host clock around one step ending in a synchronize.
     gen = torch.Generator(device).manual_seed(1)
 
-    def step_ms(iters: int, warmup: int = 3) -> float:
-        times = []
-        for i in range(warmup + iters):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            trainer.train_step(state, batch, gen)
-            torch.cuda.synchronize()
-            if i >= warmup:
-                times.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(times)
+    def step():
+        trainer.train_step(state, batch, gen)
 
     torch.cuda.reset_peak_memory_stats()
-    ms = step_ms(10)
+    ms = median_step_ms(step, 10)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with mock.patch.object(fa, "transformer_block",
                            fa.transformer_block_plain):
-        plain = step_ms(5, warmup=2)
+        plain = median_step_ms(step, 5, warmup=2)
     print(f"[train] bf16 fused train step, batch {BT}: {ms:.3f} ms "
           f"(median of 10), {BT / ms * 1e3:.1f} clips/s; plain path "
           f"{plain:.3f} ms; peak device memory {peak:.2f} GiB; on "
@@ -1936,22 +2007,14 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
 
     gen = torch.Generator(dev).manual_seed(1)
 
-    def step_ms(iters: int, warmup: int = 3) -> float:
-        times = []
-        for i in range(warmup + iters):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            trainer.train_step(state, batch, gen, 1.0)
-            torch.cuda.synchronize()
-            if i >= warmup:
-                times.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(times)
+    def step():
+        trainer.train_step(state, batch, gen, 1.0)
 
     torch.cuda.reset_peak_memory_stats()
-    ms = step_ms(10)
+    ms = median_step_ms(step, 10)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with plain_path(fa, fused):
-        plain = step_ms(5, warmup=2)
+        plain = median_step_ms(step, 5, warmup=2)
     beside = (f"; phase 5's step (fused_attn off) {unfused_ms:.3f} ms"
               if unfused_ms is not None else "")
     print(f"{tag} bf16 Stage-2 train step (fused_attn {fused}), batch {BM}: "
@@ -3192,6 +3255,411 @@ def f32_serving(device, rows) -> dict:
     return out
 
 
+def f32_grad_check(name, label, outs_k, outs_p, names, rtol) -> float:
+    """Each of ``outs_k`` against ``outs_p`` relative to the plain one's
+    largest magnitude, finite and within ``rtol``; prints the largest and
+    returns the largest absolute difference."""
+    import torch
+
+    worst, err = (0.0, ""), 0.0
+    for n, a, b in zip(names, outs_k, outs_p):
+        if a.dtype != torch.float32 or not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"{name} {label} {n}: {a.dtype} or non-finite")
+        e = max_err(a, b)
+        err = max(err, e)
+        worst = max(worst, (e / float(b.abs().max()), n))
+    ok = worst[0] <= rtol
+    print(f"[f32-train] {name} {label}: max_abs_err={err:.4g}, largest "
+          f"relative to max|plain| {worst[0]:.3g} in {worst[1]} (tol {rtol})"
+          f"{'' if ok else '  FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"{name} {label}: kernel disagrees with its "
+                           f"plain version's autograd ({worst})")
+    return err
+
+
+def f32_training_kernels(device, rows) -> None:
+    """Phase 12a / 12b: rows 6f (the forward with branch masks) and 7f at
+    both Stage-1 shapes, and rows 4f / 5f at the f32 joint stream's, against
+    the plain versions and their autograd (TF32 off), reruns bit for bit,
+    timed with CUDA events beside the f32 bound; the library yardsticks
+    ``nn.TransformerEncoder`` in f32 with grad and its autograd backward,
+    and ``F.multi_head_attention_forward`` in f32 and its backward."""
+    import numpy as np
+    import torch
+
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    card = card_line()
+    rng = np.random.default_rng(19)
+    names = ["dx", "ln1 scale", "ln1 bias", "wqkv", "bqkv", "wproj", "bproj",
+             "ln2 scale", "ln2 bias", "w_fc1", "b_fc1", "w_fc2", "b_fc2",
+             "post scale", "post bias", "dm1", "dm2"]
+    for label, clips, N, rate, mask_grad in (
+            ("block 0 spatial", BT * T, JT, 0.0, False),
+            ("block 2 spatial", BT * T, JT, 0.2, False),
+            ("block 2 temporal", BT * JT, T, 0.2, True)):
+        x, params, masks, g = block_case(rng, device, clips, N, rate)
+        x = x.detach().float().requires_grad_(True)
+        g = g.float()
+        if mask_grad:
+            masks = tuple(m.requires_grad_(True) for m in masks)
+        leaves = [x, *params, *(masks if mask_grad else ())]
+        where = f"{label} [{clips}, {N}, {C}]" + (
+            f" masks rate {rate}" + (" requiring grad" if mask_grad else "")
+            if masks else "")
+
+        def fwd(fn):
+            return fn(x, params, 8, 1e-6, 1e-6, masks)
+
+        def bwd(y):
+            return torch.autograd.grad(y, leaves, g, retain_graph=True)
+
+        yk, yp = fwd(fa.transformer_block), fwd(fa.transformer_block_plain)
+        gk, gp = bwd(yk), bwd(yp)
+        torch.cuda.synchronize()
+        err_f = f32_grad_check("block_fwd_f32", where, (yk,), (yp,), ["y"],
+                               F32_KERNEL_REL_TOL)
+        err_b = f32_grad_check("block_bwd_f32", where, gk, gp, names,
+                               F32_GRAD_REL_TOL)
+        y2 = fwd(fa.transformer_block)
+        if not torch.equal(yk, y2) or not all(
+                torch.equal(a, b) for a, b in zip(gk, bwd(y2))):
+            raise RuntimeError(f"block f32 {where}: two runs differ")
+        fwd_ms = median_ms(lambda: fwd(fa.transformer_block))
+        bwd_ms = median_ms(lambda: bwd(yk))
+        pf_ms = median_ms(lambda: fwd(fa.transformer_block_plain), iters=5)
+        pb_ms = median_ms(lambda: bwd(yp), iters=5)
+        print(f"[f32-train] block f32 {where}: reruns bit for bit; forward "
+              f"{fwd_ms:.4f} ms (plain {pf_ms:.4f}), backward {bwd_ms:.4f} "
+              f"ms (plain {pb_ms:.4f}), TF32 off, on {card}", flush=True)
+        record(rows, "block_fwd_f32", err_f, fwd_ms, pf_ms,
+               count_flops(lambda: fwd(fa.transformer_block_plain)),
+               tensor_bytes(x, params, masks, yk), "f32")
+        record(rows, "block_bwd_f32", err_b, bwd_ms, pb_ms,
+               count_flops(lambda: bwd(yp)),
+               tensor_bytes(g, x, params, masks, gk), "f32")
+        enc = library_encoder(x, params).train()
+        xin = x.detach().requires_grad_(True)
+        lib_f = median_ms(lambda: enc(xin))
+        y = enc(xin)
+        lib_leaves = [xin, *enc.parameters()]
+        lib_b = median_ms(lambda: torch.autograd.grad(y, lib_leaves, g,
+                                                      retain_graph=True))
+        if rows["block_bwd_f32"]["library_ms"] is None:
+            rows["block_bwd_f32"]["library_ms"] = lib_b
+        print(f"[f32-train] library: nn.TransformerEncoder (pre-norm, erf "
+              f"GELU, post-norm, no masks) {where}, f32, TF32 off: "
+              f"{lib_f:.4f} ms with grad, autograd backward {lib_b:.4f} ms "
+              f"(kernels {fwd_ms:.4f} / {bwd_ms:.4f} ms)", flush=True)
+        del x, params, masks, g, yk, yp, gk, gp, y2, enc, y, xin, lib_leaves
+        torch.cuda.empty_cache()
+
+    mnames = ["dx", "wqkv", "bqkv", "wproj", "bproj"]
+    for N in (JT, J):
+        def r(*s, scale=1.0):
+            a = rng.normal(size=s) * scale
+            return torch.from_numpy(a.astype("float32")).to(
+                device).requires_grad_(True)
+
+        leaves = [r(BM, N, 64), r(64, 192, scale=0.125), r(192, scale=0.05),
+                  r(64, 64, scale=0.125), r(64, scale=0.05)]
+        g = torch.from_numpy(rng.normal(size=(BM, N, 64)).astype(
+            "float32")).to(device)
+        where = f"[{BM}, {N}, 64] 8 heads"
+
+        def bwd(y):
+            return torch.autograd.grad(y, leaves, g, retain_graph=True)
+
+        yk, yp = fa.fused_mhsa(*leaves, 8), fa.mhsa_plain(*leaves, 8)
+        gk, gp = bwd(yk), bwd(yp)
+        torch.cuda.synchronize()
+        err_f = f32_grad_check("mhsa_fwd_f32", where, (yk,), (yp,), ["y"],
+                               F32_KERNEL_REL_TOL)
+        err_b = f32_grad_check("mhsa_bwd_f32", where, gk, gp, mnames,
+                               F32_GRAD_REL_TOL)
+        y2 = fa.fused_mhsa(*leaves, 8)
+        if not torch.equal(yk, y2) or not all(
+                torch.equal(a, b) for a, b in zip(gk, bwd(y2))):
+            raise RuntimeError(f"mhsa f32 {where}: two runs differ")
+        fwd_ms = median_ms(lambda: fa.fused_mhsa(*leaves, 8))
+        bwd_ms = median_ms(lambda: bwd(yk))
+        pf_ms = median_ms(lambda: fa.mhsa_plain(*leaves, 8), iters=5)
+        pb_ms = median_ms(lambda: bwd(yp), iters=5)
+        lib_f, lib_b = mha_library_ms(leaves, 8, torch.float32)
+        print(f"[f32-train] mhsa f32 {where}: reruns bit for bit; forward "
+              f"{fwd_ms:.4f} ms (plain {pf_ms:.4f}, "
+              f"F.multi_head_attention_forward {lib_f:.4f}), backward "
+              f"{bwd_ms:.4f} ms (plain {pb_ms:.4f}, library {lib_b:.4f}), "
+              f"TF32 off, on {card}", flush=True)
+        record(rows, "mhsa_fwd_f32", err_f, fwd_ms, pf_ms,
+               count_flops(lambda: fa.mhsa_plain(*leaves, 8)),
+               tensor_bytes(leaves, yk), "f32")
+        record(rows, "mhsa_bwd_f32", err_b, bwd_ms, pb_ms,
+               count_flops(lambda: bwd(yp)), tensor_bytes(g, leaves, gk),
+               "f32")
+        for name, ms in (("mhsa_fwd_f32", lib_f), ("mhsa_bwd_f32", lib_b)):
+            if rows[name]["library_ms"] is None:
+                rows[name]["library_ms"] = ms
+
+
+def f32_stage1(device, bf16_step_ms: float) -> tuple[dict, float]:
+    """Phase 12c: phase 4's cell in f32 (``compute_dtype`` float32,
+    ``fused_attn`` on, the same cuts): synthesis on the card, then
+    ``Trainer.fit`` 2 x 25 steps with evaluation, counted; losses finite
+    and falling; the first step against the plain path; the step's ms,
+    clips/s and peak memory beside phase 4's bf16 step. Returns the counts
+    and the step's ms."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pmce_tpu_torch.core.trainer import Trainer
+    from pmce_tpu_torch.data.clip_dataset import ClipDataset, MultiDataset
+    from pmce_tpu_torch.data.synthetic import generate_sequences
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+    from pmce_tpu_torch.smpl.artifacts import ensure_cached_artifacts
+
+    cfg = pose_h36m_config()
+    cfg.MODEL.compute_dtype = "float32"
+    art = ensure_cached_artifacts()
+    jr = standin_h36m_regressor(art.num_verts)
+
+    t0 = time.time()
+    _cuda.reset_launch_counts()
+    seqs = [generate_sequences(art, jr, num_videos=2, frames_per_video=128,
+                               seed=s, device=device) for s in (0, 100)]
+    train_ds = ClipDataset(seqs[0], seqlen=T, stride=1, chunk_mode="pose")
+    test_ds = ClipDataset(seqs[1], seqlen=T, stride=1, chunk_mode="pose")
+    trainer = Trainer(cfg=cfg, model=stage1_lifter(cfg, device),
+                      train_data=MultiDataset([train_ds], seed=0),
+                      test_data=test_ds, device=device,
+                      log_fn=lambda s: print(f"[f32-train] {s}", flush=True))
+    state = trainer.fit()
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    launched = {k: v for k, v in counts.items() if v}
+    steps = 2 * TRAIN_STEPS
+    evals = 2 * -(-len(test_ds) // BT)
+    expect = {"block_fwd_f32": 6 * (steps + evals),
+              "block_bwd_f32": 6 * steps, "skinning": 4}
+    print(f"[f32-train] launches on the f32 Stage-1 path: {launched} "
+          f"({time.time() - t0:.1f} s: synthesis, {steps} steps, 2 "
+          f"evaluations of {len(test_ds)} clips)", flush=True)
+    if launched != expect:
+        raise RuntimeError(f"f32 Stage-1 training: launches {launched}, "
+                           f"expected exactly {expect}")
+    losses, errs = trainer.loss_history, trainer.error_history["joint"]
+    if not all(np.isfinite(losses + errs)) or not losses[1] < losses[0]:
+        raise RuntimeError(f"f32 Stage-1 training: losses {losses}, "
+                           f"errors {errs}")
+    print(f"[f32-train] epoch losses {losses}, MPJPE {errs} mm", flush=True)
+
+    batch = trainer._wire_cast(train_ds.get_batch(np.arange(BT)))
+    _cuda.reset_launch_counts()
+    (loss_k, grads_k), (loss_p, grads_p) = stage1_first_step(cfg, device,
+                                                             batch)
+    # The kernel step's launches; the plain step's are none.
+    if {k: v for k, v in _cuda.launch_counts().items() if v} != F32_STEP:
+        raise RuntimeError(f"f32 first step: launches {_cuda.launch_counts()}")
+    worst = worst_grad(grads_k, grads_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = loss_rel <= F32_STEP_LOSS_REL_TOL and worst[0] <= F32_STEP_GRAD_REL_TOL
+    print(f"[f32-train] first step, kernel vs plain path: loss {loss_k:.8g} "
+          f"vs {loss_p:.8g} (relative {loss_rel:.3g}, tol "
+          f"{F32_STEP_LOSS_REL_TOL}); largest gradient difference "
+          f"{worst[0]:.4g} of max|grad| in {worst[1]} (tol "
+          f"{F32_STEP_GRAD_REL_TOL}){'' if ok else '  FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError("f32 first train step: kernel and plain paths "
+                           "disagree")
+
+    gen = torch.Generator(device).manual_seed(1)
+
+    def step():
+        trainer.train_step(state, batch, gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_step_ms(step, 10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with mock.patch.object(fa, "transformer_block",
+                           fa.transformer_block_plain):
+        plain = median_step_ms(step, 5, warmup=2)
+    print(f"[f32-train] f32 fused train step, batch {BT}: {ms:.3f} ms "
+          f"(median of 10), {BT / ms * 1e3:.1f} clips/s; plain path "
+          f"{plain:.3f} ms; peak device memory {peak:.2f} GiB; phase 4's "
+          f"bf16 step {bf16_step_ms:.3f} ms ({ms / bf16_step_ms:.2f}x); TF32 "
+          f"off; on {card_line()}", flush=True)
+    return counts, ms
+
+
+def f32_train_cli() -> float:
+    """Phase 12d: ``python -m pmce_tpu_torch.main.train --smoke`` on
+    ``STAGE1_CFG`` rewritten to ``compute_dtype: 'float32'`` and
+    ``fused_attn: true`` in a temporary directory, in process: phase 12c's
+    launches a step (2 epochs x 4 steps), the blocks' forward a
+    evaluation batch, the synthesis' skinning, nothing else; a finite
+    protocol summary. Returns its wall seconds."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pmce_tpu_torch.main import train as train_cli
+    from pmce_tpu_torch.ops import _cuda
+
+    text = STAGE1_CFG.read_text()
+    if "  hpe_dep: 3\n" not in text or "compute_dtype" in text:
+        raise RuntimeError(f"{STAGE1_CFG}: not the Stage-1 recipe")
+    tag = "chip_smoke_f32_cli"
+    out_dir = Path("experiment") / tag
+    shutil.rmtree(out_dir, ignore_errors=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Path(tmp) / "train_pose_h36m_f32.yml"
+        cfg.write_text(text.replace(
+            "  hpe_dep: 3\n", "  hpe_dep: 3\n  compute_dtype: 'float32'\n"
+            "  fused_attn: true\n"))
+        t0 = time.time()
+        tee = Tee(sys.stdout)
+        _cuda.reset_launch_counts()
+        with contextlib.redirect_stdout(tee):
+            result = train_cli.main(["--cfg", str(cfg), "--smoke", "--tag",
+                                     tag])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launched = {k: v for k, v in _cuda.launch_counts().items() if v}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps = 2 * 4
+    evals = (launched.get("block_fwd_f32", 0) - 6 * steps) // 6
+    expect = {"block_fwd_f32": 6 * (steps + evals),
+              "block_bwd_f32": 6 * steps,
+              "skinning": launched.get("skinning", 0)}
+    print(f"[f32-cli] train CLI --smoke, {STAGE1_CFG.name} in f32 + fused: "
+          f"{wall:.1f} s; launches {launched} ({steps} steps, {evals} "
+          f"evaluation batches)", flush=True)
+    if launched != expect or evals <= 0 or not launched["skinning"]:
+        raise RuntimeError(f"f32 train CLI: launches {launched}")
+    if not all(math.isfinite(getattr(result, k))
+               for k in ("mpjpe", "pa_mpjpe", "accel")):
+        raise RuntimeError(f"f32 train CLI: protocol summary {result}")
+    print(f"[f32-cli] protocol summary {result}", flush=True)
+    return wall
+
+
+def f32_stage2_refuses(device) -> dict:
+    """Phase 12e: one f32 Stage-2 training step of the full-width PMCE
+    (``dtype=None, fused=True``) stops with ``NotImplementedError`` naming
+    ROADMAP.md B2b at the decoder's first AdaLN cross-attention block, the
+    lifter's six blocks having run on row 6f; ``ada_block`` alone raises
+    too; no plain version runs. Then the joint stream's AdaBlock of a
+    CoevoBlock, the module that f32 Stage-2 step runs over 17 tokens, in
+    training mode forward and backward: its attention is rows 4f / 5f,
+    counted. Returns those counts."""
+    import traceback
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pmce_tpu_torch.models.pmce import create_pmce
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+    from pmce_tpu_torch.smpl.artifacts import ensure_cached_artifacts
+    from pmce_tpu_torch.smpl.mesh import ensure_cached_coarsening
+
+    model, _ = create_pmce(num_joint=JT, art=ensure_cached_artifacts(),
+                           coarsening=ensure_cached_coarsening(), dtype=None,
+                           fused=True, device=device, seed=0)
+    model.train()
+    rng = np.random.default_rng(3)
+    pose2d = torch.from_numpy(rng.standard_normal(
+        (BM, T, JT, 2), dtype=np.float32)).to(device)
+    feat = torch.from_numpy(rng.standard_normal(
+        (BM, T, 2048), dtype=np.float32)).to(device)
+    gen = torch.Generator(device).manual_seed(5)
+    plains = [mock.patch.object(fa, n, side_effect=AssertionError(f"{n} ran"))
+              for n in ("transformer_block_plain", "mhsa_plain",
+                        "ada_block_plain", "ca_block_plain")]
+    _cuda.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        for p in plains:
+            stack.enter_context(p)
+        try:
+            model(pose2d, feat, generator=gen)[0].sum().backward()
+            raise RuntimeError("f32 Stage-2 training step ran")
+        except NotImplementedError as e:
+            where = [f.name for f in traceback.extract_tb(e.__traceback__)
+                     if f.name in ("ada_block", "ca_block")]
+            msg = str(e)
+            if "ROADMAP.md B2b" not in msg or not where:
+                raise
+        launched = {k: v for k, v in _cuda.launch_counts().items() if v}
+        if launched != {"block_fwd_f32": 6}:
+            raise RuntimeError(f"f32 Stage-2 step: launches {launched}")
+        print(f"[f32-train] f32 Stage-2 training step: NotImplementedError "
+              f"from {where[0]}: {msg}; launched before it {launched}",
+              flush=True)
+        ada = next(m for m in model.modules()
+                   if type(m).__name__ == "AdaBlock")
+        x = torch.randn(BM, 4, ada.norm1.mlp_gamma.out_features,
+                        device=device)
+        # The decoder's conditioning feature (the BiGRU's output width).
+        cond = torch.randn(BM, ada.norm1.mlp_gamma.in_features,
+                           device=device)
+        try:
+            fa.ada_block(x, *ada.norm1.gamma_beta(cond),
+                         *ada.norm2.gamma_beta(cond), ada.params(),
+                         ada.attn.num_heads)
+            raise RuntimeError("f32 ada_block ran")
+        except NotImplementedError as e:
+            if "ROADMAP.md B2b" not in str(e):
+                raise
+            print(f"[f32-train] ada_block in f32 raises: {e}", flush=True)
+        # The joint stream's AdaBlock (17 tokens) in training mode.
+        joint = model.pose_mesh_coevo
+        sa = next(m for n, m in joint.named_modules()
+                  if n.endswith("joint_SA_FFN"))
+        x = torch.randn(BM, JT, sa.norm1.mlp_gamma.out_features,
+                        device=device, requires_grad=True)
+        _cuda.reset_launch_counts()
+        y = sa(x, cond, None, gen, True)
+        y.square().sum().backward()
+        torch.cuda.synchronize()
+        counts = _cuda.launch_counts()
+    launched = {k: v for k, v in counts.items() if v}
+    if launched != {"mhsa_fwd_f32": 1, "mhsa_bwd_f32": 1} or not bool(
+            torch.isfinite(x.grad).all()):
+        raise RuntimeError(f"f32 joint-stream AdaBlock: launches {launched}")
+    print(f"[f32-train] the joint stream's AdaBlock [{BM}, {JT}, "
+          f"{x.shape[-1]}] in f32 training mode: launches {launched}, "
+          f"finite gradients", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def f32_training(device, rows, bf16_step_ms: float) -> dict:
+    """Phase 12: f32 training (TF32 off throughout). Returns the f32
+    Stage-1 path's counts, the joint-stream AdaBlock's, the step's ms and
+    the phase's seconds."""
+    from pmce_tpu_torch.smpl.layer import full_f32
+
+    t_phase = time.time()
+    with full_f32():
+        f32_training_kernels(device, rows)
+        counts, ms = f32_stage1(device, bf16_step_ms)
+        cli_s = f32_train_cli()
+        attn = f32_stage2_refuses(device)
+    phase_s = time.time() - t_phase
+    print(f"[f32-train] phase 12 took {phase_s:.1f} s on {card_line()}",
+          flush=True)
+    return {"counts": counts, "attn": attn, "ms": ms, "cli_s": cli_s,
+            "phase_s": phase_s}
+
+
 def profile_step(step, what: str = "train step", n: int = 5) -> None:
     """Device time of ``n`` calls of ``step`` (a ``what``) by kernel
     (torch.profiler)."""
@@ -3432,17 +3900,23 @@ def main() -> int:
     dp = data_parallel(device, stage1, fused_ms)
     etl = data_pipeline(device)
     f32 = f32_serving(device, rows)
+    f32t = f32_training(device, rows, step_ms)
     # Each kernel's launches on the path it belongs to; skinning's: phase
     # 4's synthesis and phase 10's conversions; the f32 forms': phase 11's
-    # forwards.
+    # forwards and phase 12c's f32 Stage-1 fit (row 6f: both), rows 4f /
+    # 5f: phase 12e's joint-stream AdaBlock.
     counts = {**{k: mesh_counts[k] for k in REPLACES},
               **{k: fused_counts[k] for k in DECODER},
               **{k: train_counts[k] for k in TRAINING},
               **{k: serve_counts[k] for k in SERVING},
               "coevo_block": wb_counts["coevo_block"],
               **{k: f32["chain"][0][k] for k in F32_CHAIN},
-              "coevo_block_f32": f32["wb"][0]["coevo_block_f32"]}
+              "coevo_block_f32": f32["wb"][0]["coevo_block_f32"],
+              "block_bwd_f32": f32t["counts"]["block_bwd_f32"],
+              **{k: f32t["attn"][k] for k in ("mhsa_fwd_f32",
+                                              "mhsa_bwd_f32")}}
     counts["skinning"] += etl["skinning"]
+    counts["block_fwd_f32"] += f32t["counts"]["block_fwd_f32"]
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],
@@ -3470,7 +3944,11 @@ def main() -> int:
           f"(bound {etl['skin']['bound_ms']:.4f}); phase 11 f32 serving "
           f"{f32['chain'][1]:.1f} mid-frames/s (plain route "
           f"{f32['chain'][2]:.1f}), whole-block {f32['wb'][1]:.1f} (plain "
-          f"{f32['wb'][2]:.1f}), phase 11 {f32['phase_s']:.1f} s", flush=True)
+          f"{f32['wb'][2]:.1f}), phase 11 {f32['phase_s']:.1f} s; phase 12 "
+          f"f32 Stage-1 train step {f32t['ms']:.3f} ms = "
+          f"{BT / f32t['ms'] * 1e3:.1f} clips/s, f32 train CLI "
+          f"{f32t['cli_s']:.1f} s, phase 12 {f32t['phase_s']:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

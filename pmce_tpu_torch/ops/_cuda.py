@@ -254,12 +254,21 @@ CA = CudaLibrary("ca_block", "pmce_ca_block_error_string", {
     "pmce_ca_bwd_tile": (I, (P, I, I, I, I, I, F, P)),
     "pmce_ca_wgrad": (I, (P, I, I, I, I, I, P)),
 })
-# The f32 serving forwards: row 6's non-saving program (a table of its 16
-# pointers, clips, N, hid, eps, post_eps, qscale, stream), and the chain and
-# the whole block in f32 (the bf16 entry points' arguments; the workspace
-# takes J and V).
+# The f32 block: row 6f's forward (a table of its 18 pointers, clips, N,
+# hid, eps, post_eps, qscale, stream) and row 7f's backward (a table of its
+# 44 pointers, the same integers and floats, the weight gradients' row
+# ranges, stream); the chain and the whole block in f32 (the bf16 entry
+# points' arguments; the workspace takes J and V).
 BLOCK_F32 = CudaLibrary("block_f32", "pmce_block_f32_error_string", {
     "pmce_block_fwd_f32": (I, (P, I, I, I, F, F, F, P)),
+    "pmce_block_bwd_f32": (I, (P, I, I, I, F, F, F, I, P)),
+})
+# Rows 4f / 5f, the self-attention in f32: the forward (a table of its 8
+# pointers, clips, N, C, heads, qscale, stream) and the backward (a table of
+# its 15 pointers, the same, the weight gradients' row ranges, stream).
+MHSA_F32 = CudaLibrary("mhsa_f32", "pmce_mhsa_f32_error_string", {
+    "pmce_mhsa_fwd_f32": (I, (P, I, I, I, I, F, P)),
+    "pmce_mhsa_bwd_f32": (I, (P, I, I, I, I, F, I, P)),
 })
 COEVO_F32 = CudaLibrary("coevo_f32", "pmce_coevo_f32_error_string", {
     "pmce_coevo_f32_workspace_bytes": (ctypes.c_longlong, (I, I)),
@@ -268,7 +277,7 @@ COEVO_F32 = CudaLibrary("coevo_f32", "pmce_coevo_f32_error_string", {
     "pmce_coevo_block_f32": (I, (P,) * 8 + (I, I, I, F, F, F, P)),
 })
 LIBRARIES = (TRUNK, GRU, CHAIN, COEVO_BLOCK, BLOCK, SKIN, MHSA, ADA, CA,
-             BLOCK_F32, COEVO_F32)
+             BLOCK_F32, COEVO_F32, MHSA_F32)
 
 
 def build_all() -> None:

@@ -9,7 +9,10 @@ with JAX's recompute for its gradient), ``fused_gru_layer`` /
 ``fused_transformer_block`` with its backward (one lifter block in
 training, with stochastic-depth branch masks and the shared post-norm), and
 the decoder's attention blocks with their backwards: ``fused_mhsa``,
-``fused_ada_block`` and ``fused_ca_block``. Each comes as
+``fused_ada_block`` and ``fused_ca_block``; in f32 (JAX's compute dtype
+f32) the block forward and backward (rows 6f / 7f, ``csrc/block_f32.cu``)
+and ``fused_mhsa`` forward and backward (rows 4f / 5f,
+``csrc/mhsa_f32.cu``). Each comes as
 
 - a plain PyTorch version (``*_plain``) with the math of the JAX kernel;
 - a wrapper that picks by the device of its input: a CPU tensor goes to
@@ -19,9 +22,9 @@ the decoder's attention blocks with their backwards: ``fused_mhsa``,
   (``pmce_tpu/ops/fused_attention.py:984-989`` sends it to its oracle); a
   shape that JAX's kernel takes but this kernel is not built for
   (``*_kernel_fits`` is false) raises ``NotImplementedError`` naming the
-  widening queued in ROADMAP.md, as f32 compute does outside the f32
-  serving forward (row 6's non-saving program, ``csrc/block_f32.cu``).
-  Nothing is caught, nothing falls back.
+  widening queued in ROADMAP.md, as f32 compute does where its kernels
+  are still queued (the AdaLN and CA blocks, ROADMAP.md B2b). Nothing is
+  caught, nothing falls back.
 
 The numerics follow the JAX oracles rather than the TPU kernels' bf16
 workarounds, and are shared with ``ops/fused_coevo_chain.py``: f32 LayerNorm
@@ -56,8 +59,10 @@ GRU_SCAN_LAUNCHES = _cuda.launch_counter("gru_scan")
 GRU_BWD_SCAN_LAUNCHES = _cuda.launch_counter("gru_bwd_scan")
 BLOCK_FWD_LAUNCHES = _cuda.launch_counter("block_fwd")
 BLOCK_BWD_LAUNCHES = _cuda.launch_counter("block_bwd")
-# Row 6's f32 serving forward (csrc/block_f32.cu).
+# Row 6's f32 forward (with or without branch masks) and row 7's f32
+# backward (csrc/block_f32.cu).
 BLOCK_FWD_F32_LAUNCHES = _cuda.launch_counter("block_fwd_f32")
+BLOCK_BWD_F32_LAUNCHES = _cuda.launch_counter("block_bwd_f32")
 
 
 # ---------------------------------------------------------------------------
@@ -546,13 +551,6 @@ def _block_checks(x, params, num_heads):
     return B, N, C, hid
 
 
-def _refuse_f32_training(name: str) -> None:
-    raise NotImplementedError(
-        f"{name}: the f32 block kernel is the serving forward (no gradient, "
-        "no branch masks); f32 training on the card is queued in ROADMAP.md "
-        "B2b")
-
-
 def _mask_rows(m, B, dev):
     return None if m is None else _cuda.to_kernel(
         m.reshape(B), dev, torch.float32, (B,), "branch mask")
@@ -574,11 +572,8 @@ class _BlockWeights:
                                    (rows, cols), name)
 
         if f32_route:
-            for t in params:
-                if t is not None and t.dtype != f32:
-                    raise ValueError(f"transformer_block: f32 tokens take f32 "
-                                     f"parameters, got {t.dtype} "
-                                     f"{tuple(t.shape)}")
+            _f32_params("transformer_block",
+                        *(t for t in params if t is not None))
 
         (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2,
          gp, bp) = params
@@ -612,10 +607,8 @@ def _block_fwd_cuda(x, params, m1, m2, num_heads, eps, post_eps,
     bf16, f32 = torch.bfloat16, torch.float32
     dev = x.device
     if x.dtype == f32:
-        if for_grad or keep_branches or m1 is not None or m2 is not None \
-                or stamps is not None:
-            _refuse_f32_training("transformer_block")
-        return _block_fwd_f32_cuda(x, params, num_heads, eps, post_eps, w)
+        raise ValueError("_block_fwd_cuda: the bf16 tile program; f32 "
+                         "tokens take _block_fwd_f32_cuda")
     M = B * N
     w = w or _BlockWeights(params, C, hid, dev)
     rows1, rows2 = _mask_rows(m1, B, dev), _mask_rows(m2, B, dev)
@@ -644,19 +637,25 @@ def _block_fwd_cuda(x, params, m1, m2, num_heads, eps, post_eps,
     return out, saved
 
 
-def _block_fwd_f32_cuda(x, params, num_heads, eps, post_eps, w=None):
-    """The f32 serving forward in one launch of ``csrc/block_f32.cu``'s
-    non-saving program: writes only the output; returns (out, None)."""
+def _block_fwd_f32_cuda(x, params, m1, m2, num_heads, eps, post_eps,
+                        w=None):
+    """The f32 forward in one launch of ``csrc/block_f32.cu``'s program
+    (row 6f), with the per-clip branch masks m1 / m2 or without (None):
+    writes only the output, nothing for the gradient (row 7f recomputes
+    it from x). ``w``: the parameters as :class:`_BlockWeights` already
+    made, or None."""
     B, N, C, hid = _block_checks(x, params, num_heads)
-    w = w or _BlockWeights(params, C, hid, x.device, True)
+    dev = x.device
+    w = w or _BlockWeights(params, C, hid, dev, True)
     out = torch.empty_like(x)
     _cuda.BLOCK_F32.call("pmce_block_fwd_f32", _cuda.ptr_table(
         x, out, w.wqkv, w.wproj, w.w1, w.w2, w.g1, w.b1, w.bqkv, w.bproj,
         w.g2, w.b2, w.bb1, w.bb2, w.gp if w.post else None,
-        w.bp if w.post else None), B, N, hid, eps, post_eps,
-        1.0 / math.sqrt(C // num_heads), _cuda.stream_ptr(x.device))
+        w.bp if w.post else None, _mask_rows(m1, B, dev),
+        _mask_rows(m2, B, dev)), B, N, hid, eps, post_eps,
+        1.0 / math.sqrt(C // num_heads), _cuda.stream_ptr(dev))
     BLOCK_FWD_F32_LAUNCHES.count += 1
-    return out, None
+    return out
 
 
 def block_fwd_stage_split(x, params, num_heads: int, branch_masks=None,
@@ -782,6 +781,76 @@ def block_bwd_stage_split(x, params, num_heads: int, branch_masks=None,
     return {**dict(zip(BLOCK_BWD_STAGES, total)), "tiles": tiles}
 
 
+# Row 7f's tiles (csrc/block_f32.cu, bf32::TR: whole clips up to 64 rows)
+# and the f32 weight gradients' fixed row ranges: one for every
+# _F32_WGRAD_ROWS rows, at most _F32_WGRAD_SPLITS (16 at Stage 1's 17,408
+# rows: 2,048 CTAs over the 128 tiles of 64 x 64; 8 at row 5f's 544: 32
+# CTAs over its 4 tiles).
+_F32_TILE_ROWS = 64
+_F32_WGRAD_ROWS = 64
+_F32_WGRAD_SPLITS = 16
+
+
+def f32_wgrad_splits(M: int) -> int:
+    """The row ranges of the f32 weight-gradient launch over M rows."""
+    return max(1, min(_F32_WGRAD_SPLITS, M // _F32_WGRAD_ROWS))
+
+
+def _block_bwd_f32_cuda(gout, x, params, m1, m2, num_heads, eps, post_eps,
+                        need_masks: bool, w=None):
+    """Row 7f: the f32 backward of ``csrc/block_f32.cu`` in one call
+    (``pmce_block_bwd_f32``: the weights' transposes, the tile program that
+    recomputes the forward from x and runs the gradient chain, the weight
+    gradients with the vector gradients' fixed-order sums). The workspace
+    (the recomputed activations and the weight products' operands, ~17 KB
+    a row at C 256, hid 512) lives for the call. Returns dx, the 14
+    parameter gradients (f32) and the per-clip mask gradients (None, None
+    unless ``need_masks``)."""
+    B, N, C, hid = _block_checks(x, params, num_heads)
+    f32 = torch.float32
+    dev = x.device
+    M = B * N
+    w = w or _BlockWeights(params, C, hid, dev, True)
+    gout = gout.to(f32).contiguous()
+    _cuda.check_cuda(gout, "grad of the block output", f32, (B, N, C))
+    voff, L = _block_vec_layout(C, hid)
+    tiles = -(-B // (_F32_TILE_ROWS // N))
+    splits = f32_wgrad_splits(M)
+    mats = ((C, 3 * C), (C, C), (C, hid), (hid, C))
+
+    def buf(*shape):
+        return torch.empty(*shape, device=dev, dtype=f32)
+
+    wt = tuple(buf(c, r) for r, c in mats)
+    acts = (buf(M, C), buf(M, 3 * C), buf(M, C), buf(M, C), buf(M, hid),
+            buf(M, hid))
+    branches = (buf(M, C), buf(M, C)) if need_masks else (None, None)
+    dys = (buf(M, 3 * C), buf(M, C), buf(M, hid), buf(M, C))
+    dx = torch.empty_like(x)
+    part = buf(tiles, L)
+    dm1, dm2 = (buf(B), buf(B)) if need_masks else (None, None)
+    wpart = buf(splits, sum(r * c for r, c in mats) // 4096, 4096)
+    dw = tuple(buf(r, c) for r, c in mats)
+    vec = buf(L)
+    _cuda.BLOCK_F32.call("pmce_block_bwd_f32", _cuda.ptr_table(
+        x, gout, w.wqkv, w.wproj, w.w1, w.w2, w.g1, w.b1, w.bqkv, w.bproj,
+        w.g2, w.b2, w.bb1, w.bb2, w.gp if w.post else None,
+        w.bp if w.post else None, _mask_rows(m1, B, dev),
+        _mask_rows(m2, B, dev), *wt, *acts, *branches, *dys, dx, part, dm1,
+        dm2, wpart, *dw, vec), B, N, hid, eps, post_eps,
+        1.0 / math.sqrt(C // num_heads), splits, _cuda.stream_ptr(dev))
+    BLOCK_BWD_F32_LAUNCHES.count += 1
+
+    def v(name, n):
+        return vec[voff[name]:voff[name] + n]
+
+    grads = (v("g1", C), v("b1", C), dw[0], v("bqkv", 3 * C), dw[1],
+             v("bproj", C), v("g2", C), v("b2", C), dw[2], v("bb1", hid),
+             dw[3], v("bb2", C), v("gp", C) if w.post else None,
+             v("bp", C) if w.post else None)
+    return dx, grads, (dm1, dm2)
+
+
 def _owed(ctx, grad_enabled: bool, *inputs: int) -> bool:
     """Whether autograd will ask a kernel Function for the gradient of its
     inputs ``inputs`` (of any input where none is named). Autograd runs
@@ -826,6 +895,41 @@ class _BlockKernel(torch.autograd.Function):
         return (dx, dm1, dm2, None, None, None, None, *grads)
 
 
+class _BlockF32Kernel(torch.autograd.Function):
+    """The f32 block on the card: forward row 6f's program (with the branch
+    masks), backward row 7f (:func:`_block_bwd_f32_cuda`), both in
+    ``csrc/block_f32.cu``. The forward keeps nothing but its inputs: the
+    backward recomputes the rest from x, as JAX's ``_block_bwd_kernel``
+    does."""
+
+    @staticmethod
+    def forward(ctx, x, m1, m2, num_heads, eps, post_eps, grad_enabled,
+                *params):
+        # The kernels' view of the parameters, kept for the backward.
+        w = _BlockWeights(params, x.shape[-1], params[8].shape[1], x.device,
+                          True)
+        out = _block_fwd_f32_cuda(x, params, m1, m2, num_heads, eps,
+                                  post_eps, w)
+        ctx.weights = w if _owed(ctx, grad_enabled) else None
+        ctx.cfg = (num_heads, eps, post_eps)
+        ctx.save_for_backward(x, m1, m2, *params)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        num_heads, eps, post_eps = ctx.cfg
+        x, m1, m2, *params = ctx.saved_tensors
+        need_masks = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dx, grads, (dm1, dm2) = _block_bwd_f32_cuda(
+            gout, x, params, m1, m2, num_heads, eps, post_eps, need_masks,
+            w=ctx.weights)
+        if need_masks:
+            dm1, dm2 = dm1.reshape(m1.shape), dm2.reshape(m2.shape)
+        grads = tuple(None if g is None else g.reshape(t.shape)
+                      for g, t in zip(grads, params))
+        return (dx, dm1, dm2, None, None, None, None, *grads)
+
+
 def transformer_block(x, params, num_heads: int, eps: float = 1e-6,
                       post_eps: float = 1e-6, branch_masks=None):
     """The block with its gradient (see :func:`transformer_block_plain`).
@@ -833,22 +937,24 @@ def transformer_block(x, params, num_heads: int, eps: float = 1e-6,
     CPU tensors, and clips of more than :data:`BLOCK_MAX_TOKENS` tokens
     (where the JAX package runs its oracle), run the plain version. CUDA
     tensors run the kernels of ``csrc/block.cu`` forward and backward in
-    bf16, and ``csrc/block_f32.cu``'s serving forward in f32, where a
-    gradient or branch masks raise (queued); widths
-    :func:`block_kernel_fits` refuses raise."""
+    bf16, and those of ``csrc/block_f32.cu`` in f32: with no gradient owed
+    and no masks one launch of the forward, otherwise
+    :class:`_BlockF32Kernel` (the masked forward, the recompute-and-
+    backward). Widths :func:`block_kernel_fits` refuses raise."""
     if not _on_card(x, "transformer_block") or x.shape[1] > BLOCK_MAX_TOKENS:
         return transformer_block_plain(x, params, num_heads, eps, post_eps,
                                        branch_masks)
     C, hid = x.shape[-1], params[8].shape[1]
     require_kernel(block_kernel_fits(C, num_heads, hid),
                    "transformer_block", f"C={C}, {num_heads} heads, hid={hid}")
-    if x.dtype == torch.float32:
-        if branch_masks is not None or (torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (x, *params))):
-            _refuse_f32_training("transformer_block")
-        return _block_fwd_cuda(x, params, None, None, num_heads, eps,
-                               post_eps, False, False)[0]
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
+    if x.dtype == torch.float32:
+        if branch_masks is None and not (torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, *params))):
+            return _block_fwd_f32_cuda(x, params, None, None, num_heads, eps,
+                                       post_eps)
+        return _BlockF32Kernel.apply(x, m1, m2, num_heads, eps, post_eps,
+                                     torch.is_grad_enabled(), *params)
     return _BlockKernel.apply(x, m1, m2, num_heads, eps, post_eps,
                               torch.is_grad_enabled(), *params)
 
@@ -1464,6 +1570,10 @@ def ca_block_plain(xq, xk, xv, gammas, betas, params, num_heads: int,
 
 MHSA_FWD_LAUNCHES = _cuda.launch_counter("mhsa_fwd")
 MHSA_BWD_LAUNCHES = _cuda.launch_counter("mhsa_bwd")
+# Rows 4f and 5f: the self-attention's f32 forward and backward
+# (csrc/mhsa_f32.cu).
+MHSA_FWD_F32_LAUNCHES = _cuda.launch_counter("mhsa_fwd_f32")
+MHSA_BWD_F32_LAUNCHES = _cuda.launch_counter("mhsa_bwd_f32")
 ADA_FWD_LAUNCHES = _cuda.launch_counter("ada_block_fwd")
 ADA_BWD_LAUNCHES = _cuda.launch_counter("ada_block_bwd")
 CA_FWD_LAUNCHES = _cuda.launch_counter("ca_block_fwd")
@@ -1497,10 +1607,17 @@ def _attention_require(name: str, C: int, num_heads: int, hid: int = 64):
 
 
 def _attn_checks(name, x):
+    """The bf16 decoder kernels' dtype gate: f32 tokens raise naming the
+    queue of their f32 forms (the AdaLN and CA blocks: rows 8f-11f,
+    ROADMAP.md B2b; fused_mhsa routes f32 to rows 4f / 5f before this),
+    any other dtype raises."""
+    if x.dtype == torch.float32:
+        raise NotImplementedError(
+            f"{name}: the f32 kernels of the AdaLN and CA blocks (rows "
+            "8f-11f, forward and backward) are queued in ROADMAP.md B2b")
     if x.dtype != torch.bfloat16:
         raise NotImplementedError(
-            f"the {name} kernels take bf16 tokens; the f32 variant is queued "
-            "in ROADMAP (f32 fused=True on CUDA)")
+            f"the {name} kernels take bf16 or f32 tokens, not {x.dtype}")
 
 
 def _workspace(lib, fn, dev, *shape):
@@ -1750,16 +1867,119 @@ class _MhsaKernel(torch.autograd.Function):
                 None)
 
 
+def mhsa_f32_kernel_fits(N: int, C: int, num_heads: int) -> bool:
+    """The static shape test of rows 4f / 5f (csrc/mhsa_f32.cu, a CTA a
+    clip): up to 64 tokens, C a multiple of 64 up to 256, head width in
+    :data:`_HEAD_DIMS`."""
+    return (N <= _MHSA_MAX_TOKENS and C % 64 == 0 and C <= 256
+            and C % num_heads == 0 and C // num_heads in _HEAD_DIMS)
+
+
+def _f32_params(name, *params):
+    for t in params:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: f32 tokens take f32 parameters, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def _mhsa_fwd_f32_cuda(x, wqkv, bqkv, wproj, bproj, num_heads,
+                       for_grad: bool):
+    """Row 4f: one launch of ``pmce_mhsa_fwd_f32``. Returns (out, saved):
+    the scaled q, k, v [M, 3C] and, with ``for_grad``, o [M, C] (the
+    backward's state; without it qkv is scratch and o None)."""
+    clips, N, C = x.shape
+    dev, f32 = x.device, torch.float32
+    _cuda.check_cuda(x, "x", f32, (clips, N, C))
+    _f32_params("fused_mhsa", wqkv, bqkv, wproj, bproj)
+    w = (_cuda.to_kernel(wqkv, dev, f32, (C, 3 * C), "wqkv"),
+         _f32_vec(bqkv, dev, 3 * C, "bqkv"),
+         _cuda.to_kernel(wproj, dev, f32, (C, C), "wproj"),
+         _f32_vec(bproj, dev, C, "bproj"))
+    M = clips * N
+    qkv = torch.empty(M, 3 * C, device=dev, dtype=f32)
+    o = torch.empty(M, C, device=dev, dtype=f32) if for_grad else None
+    out = torch.empty_like(x)
+    _cuda.MHSA_F32.call("pmce_mhsa_fwd_f32", _cuda.ptr_table(
+        x, *w, out, qkv, o), clips, N, C, num_heads,
+        1.0 / math.sqrt(C // num_heads), _cuda.stream_ptr(dev))
+    MHSA_FWD_F32_LAUNCHES.count += 1
+    return out, (qkv, o)
+
+
+def _mhsa_bwd_f32_cuda(g, x, wqkv, wproj, saved, num_heads):
+    """Row 5f: one call of ``pmce_mhsa_bwd_f32`` (the weights' transposes,
+    the tile program a CTA a clip, the weight gradients with the bias
+    gradients' fixed-order sums) from the forward's saved qkv and o.
+    Returns dx and (dwqkv, dbqkv, dwproj, dbproj)."""
+    clips, N, C = x.shape
+    dev, f32 = x.device, torch.float32
+    g = g.to(f32).contiguous()
+    _cuda.check_cuda(g, "grad of the attention output", f32, (clips, N, C))
+    qkv, o = saved
+    M = clips * N
+    splits = f32_wgrad_splits(M)
+
+    def buf(*shape):
+        return torch.empty(*shape, device=dev, dtype=f32)
+
+    wqkv_k = _cuda.to_kernel(wqkv, dev, f32, (C, 3 * C), "wqkv")
+    wproj_k = _cuda.to_kernel(wproj, dev, f32, (C, C), "wproj")
+    # The workspace: the weights' transposes, dqkv, the clips' bias
+    # partials and the weight gradients' range partials.
+    ws = (buf(3 * C, C), buf(C, C), buf(M, 3 * C), buf(clips, 4 * C),
+          buf(splits, 4 * C * C // 4096, 4096))
+    dx = torch.empty_like(x)
+    dwqkv, dwproj, dbias = buf(C, 3 * C), buf(C, C), buf(4 * C)
+    _cuda.MHSA_F32.call("pmce_mhsa_bwd_f32", _cuda.ptr_table(
+        g, x, wqkv_k, wproj_k, qkv, o, *ws, dx, dwqkv, dwproj, dbias),
+        clips, N, C, num_heads, 1.0 / math.sqrt(C // num_heads), splits,
+        _cuda.stream_ptr(dev))
+    MHSA_BWD_F32_LAUNCHES.count += 1
+    return dx, (dwqkv, dbias[:3 * C], dwproj, dbias[3 * C:])
+
+
+class _MhsaF32Kernel(torch.autograd.Function):
+    """fused_mhsa in f32 on the card: rows 4f / 5f of ``csrc/mhsa_f32.cu``
+    (the forward saves qkv and o only when a gradient is owed)."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, num_heads, grad_enabled):
+        out, saved = _mhsa_fwd_f32_cuda(x, wqkv, bqkv, wproj, bproj,
+                                        num_heads, _owed(ctx, grad_enabled))
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, wqkv, wproj, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wqkv, wproj, *saved = ctx.saved_tensors
+        dx, grads = _mhsa_bwd_f32_cuda(g, x, wqkv, wproj, saved,
+                                       ctx.num_heads)
+        return (dx, *grads, None, None)
+
+
 def fused_mhsa(x, wqkv, bqkv, wproj, bproj, num_heads: int):
     """Multi-head self-attention with its projections (see
     :func:`mhsa_plain`), with its gradient. CPU tensors run the plain
     version; CUDA tensors the kernels of ``csrc/mhsa.cu`` forward and
-    backward (bf16, any token count: the forward's and the backward's tile
-    programs inside :func:`mhsa_fwd_kernel_fits`, their launch sequences
-    outside; widths :func:`attention_kernel_fits` refuses raise)."""
+    backward in bf16 (any token count: the forward's and the backward's
+    tile programs inside :func:`mhsa_fwd_kernel_fits`, their launch
+    sequences outside; widths :func:`attention_kernel_fits` refuses raise)
+    and those of ``csrc/mhsa_f32.cu`` in f32 (rows 4f / 5f; shapes outside
+    :func:`mhsa_f32_kernel_fits` raise naming ROADMAP.md B3)."""
     if not _on_card(x, "fused_mhsa"):
         return mhsa_plain(x, wqkv, bqkv, wproj, bproj, num_heads)
-    _attention_require("fused_mhsa", x.shape[-1], num_heads)
+    N, C = x.shape[1:]
+    _attention_require("fused_mhsa", C, num_heads)
+    if x.dtype == torch.float32:
+        if not mhsa_f32_kernel_fits(N, C, num_heads):
+            raise NotImplementedError(
+                f"fused_mhsa: the f32 kernel (csrc/mhsa_f32.cu) is built for "
+                f"up to {_MHSA_MAX_TOKENS} tokens and C <= 256, not N={N}, "
+                f"C={C}, {num_heads} heads (the JAX kernel takes it); "
+                "widening it is queued in ROADMAP.md B3")
+        return _MhsaF32Kernel.apply(x.contiguous(), wqkv, bqkv, wproj,
+                                    bproj, num_heads, torch.is_grad_enabled())
     return _MhsaKernel.apply(x.contiguous(), wqkv, bqkv, wproj, bproj,
                              num_heads, torch.is_grad_enabled())
 
@@ -2066,6 +2286,7 @@ def ada_block(x, gamma1, beta1, gamma2, beta2, params, num_heads: int,
     if not _on_card(x, "ada_block"):
         return ada_block_plain(x, gamma1, beta1, gamma2, beta2, params,
                                num_heads, eps, branch_masks)
+    _attn_checks("ada_block", x)
     _attention_require("ada_block", x.shape[-1], num_heads,
                        params[4].shape[1])
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
@@ -2339,6 +2560,7 @@ def ca_block(xq, xk, xv, gammas, betas, params, num_heads: int,
         return ca_block_plain(xq, xk, xv, gammas, betas, params, num_heads,
                               eps, branch_masks)
     C, hid = xq.shape[-1], params[8].shape[1]
+    _attn_checks("ca_block", xq)
     _attention_require("ca_block", C, num_heads, hid)
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
     if torch.is_grad_enabled() and any(

@@ -1,0 +1,81 @@
+// A CPU stand-in for csrc/common.cuh, so that a CUDA source of the port
+// can be compiled by g++ and run on the host (tests/test_torch_port_f32_cpu_build.py):
+// a launch runs its thread blocks one after the other, each as blockDim.x
+// OS threads sharing one buffer as the block's shared memory (filled with
+// NaN bytes, so a read of what nothing wrote shows), std::barrier for
+// __syncthreads / __syncwarp, a per-warp exchange for the shuffles. Only
+// what the f32 sources use is here: 1-D blocks of whole warps, full-mask
+// shuffles reached by all 32 lanes, dynamic shared memory.
+#pragma once
+#include <math.h>
+#include <stdint.h>
+#include <stddef.h>
+#include <algorithm>
+#include <barrier>
+#include <thread>
+#include <vector>
+#include <memory>
+#include <cstring>
+#include <cstdlib>
+using std::min; using std::max;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __align__(n) alignas(n)
+struct dim3 { unsigned x = 1, y = 1, z = 1; dim3() {} dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "shim error"; }
+namespace shim {
+struct Warp { std::barrier<> bar{32}; float buf[32]; };
+struct Block { std::barrier<>* bar; Warp* warps; unsigned char* smem; };
+inline thread_local dim3 tIdx, bIdx;
+inline thread_local Block* blk = nullptr;
+template <class K, class... A>
+void launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
+  const int nt = block.x;
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      unsigned char* mem = static_cast<unsigned char*>(aligned_alloc(64, (smem + 64) / 64 * 64));
+      memset(mem, 0xFF, smem);  // NaN: a read of what nothing wrote shows
+      std::barrier<> bar(nt);
+      std::vector<Warp> warps(nt / 32);
+      Block b{&bar, warps.data(), mem};
+      std::vector<std::thread> ts;
+      ts.reserve(nt);
+      for (int t = 0; t < nt; ++t)
+        ts.emplace_back([&, t] { tIdx = dim3(t); bIdx = dim3(bx, by); blk = &b; kernel(args...); });
+      for (auto& t : ts) t.join();
+      free(mem);
+    }
+}
+}  // namespace shim
+#define threadIdx (shim::tIdx)
+#define blockIdx (shim::bIdx)
+inline void __syncthreads() { shim::blk->bar->arrive_and_wait(); }
+inline void __syncwarp() { shim::blk->warps[threadIdx.x / 32].bar.arrive_and_wait(); }
+inline float __shfl_sync(unsigned, float v, int src) {
+  auto& w = shim::blk->warps[threadIdx.x / 32];
+  w.buf[threadIdx.x & 31] = v;
+  w.bar.arrive_and_wait();
+  const float r = w.buf[src & 31];
+  w.bar.arrive_and_wait();
+  return r;
+}
+inline float __shfl_xor_sync(unsigned m, float v, int o) { return __shfl_sync(m, v, (threadIdx.x & 31) ^ o); }
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+inline float gelu_erf(float v) { return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f)); }
+#define PMCE_EXPORT_ERROR_STRING(name) \
+  extern "C" const char* name(int code) { return "shim error"; }

@@ -5,7 +5,8 @@
 ``fused_transformer_block`` and its custom VJP — the Pallas kernels
 ``_block_kernel`` / ``_block_bwd_kernel``, interpreted on the CPU. Width 32,
 4 heads, hidden 64; masks on and off, post-norm on and off, N = 16 and 17
-tokens a clip. Inputs, weights, masks and the output cotangent come from
+tokens a clip; in f32 also the width the card's f32 kernels are built for
+(C 256 in heads of 32, hidden 512, 2 clips, masks that require grad). Inputs, weights, masks and the output cotangent come from
 numpy with a seed and go to both sides.
 
 Bounds are max|port - jax| / max|jax| for y, dx, each of the 14 parameter
@@ -40,7 +41,7 @@ F32_BOUND = 1e-4
 BF16_BOUND = {"y": 0.015, "grad": 0.016}
 
 
-def _case(seed: int, N: int, post: bool, masks: bool):
+def _case(seed: int, N: int, post: bool, masks: bool, C=C, HID=HID, B=B):
     rng = np.random.default_rng(seed)
 
     def w(*shape, scale=0.2, offset=0.0):
@@ -61,6 +62,10 @@ def _case(seed: int, N: int, post: bool, masks: bool):
         # rest draw, so both values of each mask occur.
         u = rng.random((2, B, 1, 1))
         u[0, 0], u[1, 1] = 1.0, 1.0
+        if B == 2:
+            # Two clips: each keeps its other branch, so that no branch
+            # is dropped for every clip (its gradients would all be 0).
+            u[0, 1], u[1, 0] = 0.0, 0.0
         bm = tuple(((u[i] < keep) / keep).astype(np.float32)
                    for i in range(2))
     x = w(B, N, C, scale=1.0)
@@ -68,7 +73,7 @@ def _case(seed: int, N: int, post: bool, masks: bool):
     return x, params, bm, g
 
 
-def _jax(x, params, bm, g, dtype):
+def _jax(x, params, bm, g, dtype, H=H):
     def f(x, p, m):
         return fused_transformer_block(x.astype(dtype), p, H, 1e-6, 1e-6, m)
 
@@ -83,7 +88,7 @@ def _jax(x, params, bm, g, dtype):
     return {k: np.asarray(v, np.float32) for k, v in out.items()}
 
 
-def _port(x, params, bm, g, dtype):
+def _port(x, params, bm, g, dtype, H=H):
     tp = [None if p is None else torch.from_numpy(p).requires_grad_(True)
           for p in params]
     tx = torch.from_numpy(x).requires_grad_(True)
@@ -104,15 +109,23 @@ def _port(x, params, bm, g, dtype):
 
 CASES = [(16, True, True), (17, True, False), (17, False, True),
          (16, False, False)]
+# The f32 kernels' own width (csrc/block_f32.cu): C 256, heads of 32 (8),
+# hidden 512, 2 clips.
+WIDE = {"C": 256, "HID": 512, "B": 2}
+F32_CASES = [(*case, False) for case in CASES] + [
+    (16, True, True, True), (17, True, True, True), (17, False, True, True)]
 
 
-@pytest.mark.parametrize("N,post,masks", CASES,
+@pytest.mark.parametrize("N,post,masks,wide", F32_CASES,
                          ids=[f"N{n}-post{int(p)}-masks{int(m)}"
-                              for n, p, m in CASES])
-def test_block_plain_matches_jax_fused_block_f32(N, post, masks):
-    case = _case(N + 2 * post + 4 * masks, N, post, masks)
-    want = _jax(*case, jnp.float32)
-    got = _port(*case, torch.float32)
+                              + ("-C256" if w else "")
+                              for n, p, m, w in F32_CASES])
+def test_block_plain_matches_jax_fused_block_f32(N, post, masks, wide):
+    size, heads = (WIDE, 8) if wide else ({}, H)
+    case = _case(N + 2 * post + 4 * masks + 8 * wide, N, post, masks,
+                 **size)
+    want = _jax(*case, jnp.float32, heads)
+    got = _port(*case, torch.float32, heads)
     assert set(got) == set(want)
     assert len(want) == 2 + (14 if post else 12) + (2 if masks else 0)
     for name in want:

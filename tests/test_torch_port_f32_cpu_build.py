@@ -1,0 +1,154 @@
+"""The f32 training kernels' CUDA sources, built for the CPU, against the
+plain versions.
+
+``csrc/block_f32.cu`` (rows 6f / 7f) and ``csrc/mhsa_f32.cu`` (rows 4f /
+5f), with ``csrc/f32_ops.cuh``, are compiled by g++ over
+``tests/cuda_cpu/shim_common.cuh`` (a thread block as OS threads; the
+sources' launches ``k<<<...>>>(...)`` rewritten as calls of the shim's
+launcher, ``extern __shared__`` as the block's buffer) and loaded in place
+of the card's libraries; the wrappers of ``ops/fused_attention.py`` run on
+CPU tensors as on the card (``_on_card`` answering yes), so the host entry
+points, the pointer tables and the kernels' arithmetic are all exercised.
+Forward and every gradient (mask gradients included) within 1e-5 of the
+plain version's autograd, relative to each one's largest magnitude (f32 on
+both sides, sums in another order; measured ≤ 1.1e-6). It checks a source
+before its first call on the card; ``slow`` (~1 min: the build, 512
+threads a block).
+"""
+
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from pmce_tpu_torch.ops import _cuda
+from pmce_tpu_torch.ops import fused_attention as fa
+
+pytestmark = pytest.mark.slow
+
+SHIM = Path(__file__).parent / "cuda_cpu" / "shim_common.cuh"
+TOL = 1e-5
+
+
+class _CpuLibrary(_cuda.CudaLibrary):
+    def __init__(self, lib, so: Path):
+        super().__init__(lib.source, lib.error_fn, lib.signatures)
+        self.so = so
+
+    @property
+    def path(self) -> Path:
+        return self.so
+
+
+@pytest.fixture(scope="module")
+def cpu_libs(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    out = tmp_path_factory.mktemp("cuda_cpu")
+    shutil.copy(SHIM, out / "common.cuh")
+    for name in ("block_f32.cu", "mhsa_f32.cu", "f32_ops.cuh"):
+        text = (_cuda.CSRC / name).read_text()
+        text = text.replace(
+            "extern __shared__ __align__(16) unsigned char smem[];",
+            "unsigned char* smem = shim::blk->smem;")
+        text = re.sub(r"(\w+)\s*<<<(.*?)>>>\(", r"shim::launch(\1, \2, ",
+                      text, flags=re.S)
+        (out / name).write_text(text.replace("__restrict__", ""))
+    procs = {name: subprocess.Popen(
+        ["g++", "-x", "c++", "-O2", "-std=c++20", "-fPIC", "-shared",
+         "-pthread", "-w", "-o", str(out / f"lib{name}.so"),
+         str(out / f"{name}.cu")], stderr=subprocess.PIPE, text=True)
+        for name in ("block_f32", "mhsa_f32")}
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        assert proc.returncode == 0, f"{name}.cu:\n{err}"
+    return {"BLOCK_F32": _CpuLibrary(_cuda.BLOCK_F32,
+                                     out / "libblock_f32.so"),
+            "MHSA_F32": _CpuLibrary(_cuda.MHSA_F32, out / "libmhsa_f32.so")}
+
+
+def _as_card(libs, fn):
+    def check(t, name, dtype, shape=None):
+        assert t.dtype == dtype and t.is_contiguous(), name
+        assert shape is None or tuple(t.shape) == tuple(shape), name
+
+    patches = [mock.patch.object(fa, "_on_card", return_value=True),
+               mock.patch.object(_cuda, "check_cuda", check),
+               mock.patch.object(_cuda, "stream_ptr",
+                                 return_value=_cuda.P(None)),
+               *(mock.patch.object(_cuda, k, v) for k, v in libs.items())]
+    for p in patches:
+        p.start()
+    try:
+        _cuda.reset_launch_counts()
+        return fn(), {k: v for k, v in _cuda.launch_counts().items() if v}
+    finally:
+        for p in reversed(patches):
+            p.stop()
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _t(rng, *shape, scale=1.0, offset=0.0, grad=True):
+    a = (rng.normal(size=shape) * scale + offset).astype(np.float32)
+    return torch.from_numpy(a).requires_grad_(grad)
+
+
+def test_block_f32_sources_match_plain_on_the_cpu(cpu_libs):
+    """Rows 6f / 7f: 4 clips of 17 (two tiles: 3 clips, then one and
+    padding rows), C 256, heads of 32, hid 128, the post-norm, masks that
+    require grad (each branch dropped for one clip)."""
+    rng = np.random.default_rng(0)
+    C, hid, clips, N = 256, 128, 4, 17
+    params = (_t(rng, C, scale=0.1, offset=1.0), _t(rng, C, scale=0.1),
+              _t(rng, C, 3 * C, scale=C ** -0.5), _t(rng, 3 * C, scale=0.05),
+              _t(rng, C, C, scale=C ** -0.5), _t(rng, C, scale=0.05),
+              _t(rng, C, scale=0.1, offset=1.0), _t(rng, C, scale=0.1),
+              _t(rng, C, hid, scale=C ** -0.5), _t(rng, hid, scale=0.05),
+              _t(rng, hid, C, scale=hid ** -0.5), _t(rng, C, scale=0.05),
+              _t(rng, C, scale=0.1, offset=1.0), _t(rng, C, scale=0.1))
+    x = _t(rng, clips, N, C)
+    masks = tuple(torch.tensor([[[0.0]], [[1.25]], [[1.25]], [[1.25]]])
+                  [perm].requires_grad_(True) for perm in ([0, 1, 2, 3],
+                                                           [1, 0, 2, 3]))
+    g = _t(rng, clips, N, C, grad=False)
+    leaves = [x, *params, *masks]
+
+    def step(block):
+        y = block(x, params, 8, branch_masks=masks)
+        return (y, *torch.autograd.grad(y, leaves, g))
+
+    got, counts = _as_card(cpu_libs, lambda: step(fa.transformer_block))
+    want = step(fa.transformer_block_plain)
+    assert counts == {"block_fwd_f32": 1, "block_bwd_f32": 1}
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and _rel(a, b) <= TOL, (i, _rel(a, b))
+
+
+@pytest.mark.parametrize("N,C,heads", [(17, 64, 8), (19, 128, 4)])
+def test_mhsa_f32_sources_match_plain_on_the_cpu(cpu_libs, N, C, heads):
+    """Rows 4f / 5f: 3 clips, forward and the four parameter gradients."""
+    rng = np.random.default_rng(N)
+    leaves = [_t(rng, 3, N, C), _t(rng, C, 3 * C, scale=C ** -0.5),
+              _t(rng, 3 * C, scale=0.05), _t(rng, C, C, scale=C ** -0.5),
+              _t(rng, C, scale=0.05)]
+    g = _t(rng, 3, N, C, grad=False)
+
+    def step(mhsa):
+        y = mhsa(*leaves, heads)
+        return (y, *torch.autograd.grad(y, leaves, g))
+
+    got, counts = _as_card(cpu_libs, lambda: step(fa.fused_mhsa))
+    want = step(fa.mhsa_plain)
+    assert counts == {"mhsa_fwd_f32": 1, "mhsa_bwd_f32": 1}
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and _rel(a, b) <= TOL, (i, _rel(a, b))

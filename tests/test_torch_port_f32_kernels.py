@@ -19,8 +19,10 @@ kernels of ``csrc/block_f32.cu`` and ``csrc/coevo_f32.cu``):
 
 Then the f32 routes on the card, with ``_on_card`` answering "card" and
 every launch stubbed: one launch of each f32 program on the parameters' own
-f32 pointers; f32 with a gradient or branch masks, mixed dtypes, other
-dtypes and a vertex stream over the f32 plan's shared memory raise.
+f32 pointers; f32 with a gradient or branch masks runs the block's f32
+training Function (rows 6f / 7f; its routes in detail in
+``test_torch_port_f32_training.py``); mixed dtypes, other dtypes and a
+vertex stream over the f32 plan's shared memory raise.
 
 Bound: 1e-4 of each output's largest magnitude, the f32 model's. The
 kernels use erf through a 1.5e-7 polynomial, E[x²]−E[x]² LayerNorm
@@ -254,7 +256,7 @@ def test_block_f32_route_is_one_launch_on_the_parameters(post):
     seen = []
 
     def call(name, table, *rest):
-        seen.append((name, _table(table, 16), rest[:3]))
+        seen.append((name, _table(table, 18), rest[:3]))
 
     _cuda.reset_launch_counts()
     with torch.no_grad():
@@ -269,28 +271,51 @@ def test_block_f32_route_is_one_launch_on_the_parameters(post):
     g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bb1, w2, bb2, gp, bp = tp
     want = [tx, out, wqkv, wproj, w1, w2, g1, b1, bqkv, bproj, g2, b2, bb1,
             bb2, gp, bp]
-    assert ptrs == [None if t is None else t.data_ptr() for t in want]
+    # No branch masks: the two mask-row pointers are null.
+    assert ptrs == [None if t is None else t.data_ptr() for t in want] + [
+        None, None]
     counts = _cuda.launch_counts()
     assert counts["block_fwd_f32"] == 1 and counts["block_fwd"] == 0
 
 
 @pytest.mark.parametrize("why", ["grad", "masks"])
 def test_block_f32_training_raises_naming_b2b(why):
-    """f32 with a gradient owed or with branch masks is row 6's saving
-    program and row 7 (queued, B2b): it raises, never runs a plain
-    version."""
+    """Once refused (queued in ROADMAP.md B2b), f32 with a gradient owed or
+    with branch masks now runs the f32 training Function: its forward is
+    one ``pmce_block_fwd_f32`` launch (with the mask rows where masks are
+    given) and, with a gradient owed, its backward one
+    ``pmce_block_bwd_f32`` call; no plain version and no bf16 program
+    runs."""
     x, params = _block_case(6, 16, True, c=256, hid=512, clips=2)
     tx = _t(x).requires_grad_(why == "grad")
     masks = (torch.ones(2, 1, 1), torch.ones(2, 1, 1)) if why == "masks" \
         else None
-    launch = mock.Mock()
+    seen = []
+
+    def launch(name, table, *rest):
+        seen.append((name, _table(table, 18)[16:]))
+
+    def step():
+        y = fa.transformer_block(tx, _t(params), 8, branch_masks=masks)
+        if why == "grad":
+            y.sum().backward()
+        return y
+
     with mock.patch.object(fa, "transformer_block_plain",
-                           side_effect=AssertionError("plain ran")), \
-            pytest.raises(NotImplementedError, match="ROADMAP.md B2b"):
-        _run(_card_stubs(mock.patch.object(_cuda.BLOCK_F32, "call", launch)),
-             lambda: fa.transformer_block(tx, _t(params), 8,
-                                          branch_masks=masks))
-    assert launch.call_count == 0
+                           side_effect=AssertionError("plain ran")):
+        y = _run(_card_stubs(
+            mock.patch.object(_cuda.BLOCK_F32, "call", launch),
+            mock.patch.object(_cuda.BLOCK, "call",
+                              side_effect=AssertionError("bf16 ran"))), step)
+    assert y.dtype == torch.float32 and y.shape == tx.shape
+    if why == "grad":
+        assert [n for n, _ in seen] == ["pmce_block_fwd_f32",
+                                        "pmce_block_bwd_f32"]
+        assert seen[0][1] == [None, None] and tx.grad is not None
+    else:
+        (name, rows), = seen
+        assert name == "pmce_block_fwd_f32"
+        assert rows == [m.data_ptr() for m in masks]
 
 
 def test_block_f32_tokens_with_bf16_weights_raise():

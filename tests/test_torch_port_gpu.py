@@ -623,24 +623,89 @@ def test_block_kernel_refuses_f32_on_card(no_tf32, clips, N):
     assert _rel(want, got) < F32_REL_TOL
 
 
+# f32 training (rows 6f with masks, 7f, 4f, 5f) against the plain
+# versions' autograd, TF32 off: outputs within F32_REL_TOL of their largest
+# magnitude, every gradient (mask gradients included) within
+# F32_GRAD_REL_TOL of its own; reruns bit for bit (chip_smoke.py's phase
+# 12 holds them at the Stage-1 shapes).
+F32_GRAD_REL_TOL = 1e-4
+
+
+def _f32_check(fn, plain, leaves, g, counters):
+    _cuda.reset_launch_counts()
+    y = fn()
+    grads = torch.autograd.grad(y, leaves, g)
+    assert {k: v for k, v in _cuda.launch_counts().items() if v} == counters
+    y2 = fn()
+    again = torch.autograd.grad(y2, leaves, g)
+    yp = plain()
+    want = torch.autograd.grad(yp, leaves, g)
+    assert y.dtype == torch.float32 and torch.equal(y, y2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert _rel(yp, y) < F32_REL_TOL
+    for i, (a, b) in enumerate(zip(grads, want)):
+        assert a.shape == b.shape and _rel(b, a) < F32_GRAD_REL_TOL, i
+
+
 @pytest.mark.parametrize("why", ["grad", "masks"])
-def test_block_f32_training_raises_on_card(why):
-    """f32 with a gradient or with branch masks is row 6's saving program
-    and row 7 in f32, queued in ROADMAP.md B2b: it raises, no kernel and no
-    plain version runs."""
+def test_block_f32_training_raises_on_card(no_tf32, why):
+    """Once refused (queued in ROADMAP.md B2b), f32 with a gradient or with
+    branch masks that require grad now runs rows 6f / 7f: one
+    ``block_fwd_f32`` launch and one ``block_bwd_f32`` call a pass, no bf16
+    launch, against the plain version's autograd (dx, the 14 parameter
+    gradients and, with masks, dm1 / dm2)."""
     dev = _card()
     rng = np.random.default_rng(5)
     params = _block_params(rng, dev, True)
-    x = _rand(rng, dev, 2, 16, 256)
+    x = _rand(rng, dev, 5, 17, 256).requires_grad_(True)
     masks = None
     if why == "masks":
-        params = [p.detach() for p in params]
-        masks = (torch.ones(2, 1, 1, device=dev),) * 2
+        masks = tuple(torch.from_numpy(
+            ((rng.random((5, 1, 1)) < 0.8) / 0.8).astype(np.float32))
+            .to(dev).requires_grad_(True) for _ in range(2))
+    leaves = [x, *params, *(masks or ())]
+    g = _rand(rng, dev, 5, 17, 256)
+    _f32_check(lambda: fa.transformer_block(x, tuple(params), 8,
+                                            branch_masks=masks),
+               lambda: fa.transformer_block_plain(x, tuple(params), 8,
+                                                  branch_masks=masks),
+               leaves, g, {"block_fwd_f32": 1, "block_bwd_f32": 1})
+
+
+@pytest.mark.parametrize("N", [17, 19])
+def test_mhsa_f32_kernels_match_plain(no_tf32, N):
+    """Rows 4f / 5f at the f32 joint stream's shapes ([32, N, 64], 8
+    heads): one ``mhsa_fwd_f32`` and one ``mhsa_bwd_f32`` against
+    ``mhsa_plain``'s autograd."""
+    dev = _card()
+    rng = np.random.default_rng(N)
+
+    def r(*s, scale=1.0):
+        return _rand(rng, dev, *s, scale=scale).requires_grad_(True)
+
+    leaves = [r(32, N, 64), r(64, 192, scale=0.125), r(192, scale=0.05),
+              r(64, 64, scale=0.125), r(64, scale=0.05)]
+    g = _rand(rng, dev, 32, N, 64)
+    _f32_check(lambda: fa.fused_mhsa(*leaves, 8),
+               lambda: fa.mhsa_plain(*leaves, 8), leaves, g,
+               {"mhsa_fwd_f32": 1, "mhsa_bwd_f32": 1})
+
+
+def test_f32_stage2_training_still_refuses_at_the_decoder_blocks(no_tf32):
+    """f32 Stage-2 training reaches the decoder's AdaLN and CA blocks,
+    whose f32 kernels (rows 8f-11f) are queued: ``ada_block`` in f32 with a
+    gradient raises naming ROADMAP.md B2b, nothing launches and no plain
+    version runs."""
+    dev = _card()
+    rng = np.random.default_rng(9)
+    leaves, call, (kernel, _) = _dec_case(rng, dev, "ada", (2, 72, 64, 2))
+    f32 = [t.detach().float().requires_grad_(True) for t in leaves]
     _cuda.reset_launch_counts()
-    with mock.patch.object(fa, "transformer_block_plain",
+    with mock.patch.object(fa, "ada_block_plain",
                            side_effect=AssertionError("plain ran")), \
-            pytest.raises(NotImplementedError, match="ROADMAP.md B2b"):
-        fa.transformer_block(x, tuple(params), 8, branch_masks=masks)
+            pytest.raises(NotImplementedError,
+                          match=r"rows 8f-11f.*ROADMAP\.md B2b"):
+        call(kernel, *f32)
     assert not any(_cuda.launch_counts().values())
 
 
