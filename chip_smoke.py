@@ -191,10 +191,25 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    clips/s and peak memory beside phase 4's; (d) the train CLI with
    ``--smoke`` on ``configs/train_pose_h36m.yml`` rewritten to float32 +
    ``fused_attn`` in a temporary directory, counted, a finite protocol
-   summary; (e) an f32 Stage-2 training step still raises naming
-   ROADMAP.md B2b at the decoder's AdaLN / CA blocks (rows 8f-11f queued),
-   no plain version runs, and the joint stream's AdaBlock in f32 training
-   mode runs its attention on rows 4f / 5f (counted).
+   summary;
+13. f32 Stage-2 training (TF32 off throughout): (a) rows 8f / 9f (the
+   AdaLN block at the vertex stream's [32, 431, 64], 2 heads of 32) and
+   10f / 11f (the CA block, joints over vertices in 8 heads of 8 and
+   vertices over joints in 2 heads of 32), hid 256, against the plain
+   versions' autograd with branch masks at rate 0.2, without and with
+   their gradient (outputs within ``F32_KERNEL_REL_TOL``, every gradient
+   within ``F32_GRAD_REL_TOL`` of its own largest magnitude), reruns bit
+   for bit, timed beside their f32 bounds; (b) phase 6's cell in f32
+   (``compute_dtype`` float32, ``fused_attn`` on, phase 6's cuts and warm
+   start): ``Trainer.fit`` 2 x 25 steps counted (exactly
+   ``F32_STAGE2_STEP`` a step, ``F32_STAGE2_EVAL`` an evaluation batch,
+   nothing else), the fixed batch's loss falling, two first steps bit for
+   bit, the first step against the plain path within
+   ``F32_STEP_LOSS_REL_TOL`` / ``F32_STEP_GRAD_REL_TOL`` for every
+   parameter (the last block's joint stream included), the step's ms,
+   clips/s and peak memory beside phase 6's bf16 step; (c) the train CLI
+   with ``--smoke`` on ``CLI_CFG`` rewritten to float32 in a temporary
+   directory, counted, a finite protocol summary.
 
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
 each train step's device time by kernel and, before phase 2, the stage
@@ -262,6 +277,10 @@ REPLACES = {
     "block_bwd_f32": "pmce_tpu/ops/fused_attention.py:1108",
     "mhsa_fwd_f32": "pmce_tpu/ops/fused_attention.py:369",
     "mhsa_bwd_f32": "pmce_tpu/ops/fused_attention.py:800",
+    "ada_fwd_f32": "pmce_tpu/ops/fused_attention.py:1366",
+    "ada_bwd_f32": "pmce_tpu/ops/fused_attention.py:1534",
+    "ca_fwd_f32": "pmce_tpu/ops/fused_attention.py:1823",
+    "ca_bwd_f32": "pmce_tpu/ops/fused_attention.py:1853",
 }
 SOURCES = {
     "lifter_trunk": "pmce_tpu_torch/csrc/lifter_trunk.cu",
@@ -287,6 +306,10 @@ SOURCES = {
     "block_bwd_f32": "pmce_tpu_torch/csrc/block_f32.cu",
     "mhsa_fwd_f32": "pmce_tpu_torch/csrc/mhsa_f32.cu",
     "mhsa_bwd_f32": "pmce_tpu_torch/csrc/mhsa_f32.cu",
+    "ada_fwd_f32": "pmce_tpu_torch/csrc/ada_f32.cu",
+    "ada_bwd_f32": "pmce_tpu_torch/csrc/ada_f32.cu",
+    "ca_fwd_f32": "pmce_tpu_torch/csrc/ca_f32.cu",
+    "ca_bwd_f32": "pmce_tpu_torch/csrc/ca_f32.cu",
 }
 # gru_layer / gru_layer_rev count direction scans, gru_scan launches of the
 # scan kernel: one runs both directions of a BiGRU layer.
@@ -428,6 +451,17 @@ F32_STEP = {"block_fwd_f32": 6, "block_bwd_f32": 6}
 F32_GRAD_REL_TOL = 1e-4
 F32_STEP_LOSS_REL_TOL = 1e-5
 F32_STEP_GRAD_REL_TOL = 1e-4
+# Phase 13, f32 Stage-2 training (TF32 off throughout): the launches of a
+# train step of phase 6's cell in f32 (the lifter's 6 blocks forward and
+# backward; per CoevoBlock (3) forward the joint stream's fused_mhsa, the
+# vertex stream's ada_block and two ca_block; backward only where a
+# gradient is owed, as phase 6's: 1 mhsa, 3 AdaLN and 4 CA backwards; the
+# f32 GRU is plain, as JAX's) and of an evaluation batch (the lifter's
+# blocks and the f32 chain).
+F32_STAGE2_STEP = {"block_fwd_f32": 6, "block_bwd_f32": 6,
+                   "mhsa_fwd_f32": 3, "mhsa_bwd_f32": 1, "ada_fwd_f32": 3,
+                   "ada_bwd_f32": 3, "ca_fwd_f32": 6, "ca_bwd_f32": 4}
+F32_STAGE2_EVAL = {"block_fwd_f32": 6, "coevo_chain_f32": 1}
 # The Stage-1 config the f32 train CLI runs (rewritten to f32 + fused).
 STAGE1_CFG = REPO / "configs" / "train_pose_h36m.yml"
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 on
@@ -1798,14 +1832,13 @@ def mesh_h36m_config(posenet_path: str, fused: bool = True):
     return cfg
 
 
-def mesh_train(device, stage1: dict, profile: bool, fused: bool,
-               unfused_ms: float | None = None) -> tuple[dict, float]:
-    """Stage-2 mesh training of the full-width PMCE: phase 5 without
-    ``fused_attn``, phase 6 with it (``unfused_ms``: phase 5's step, printed
-    beside phase 6's)."""
-    import contextlib
-    from unittest import mock
-
+def stage2_parts(device, stage1: dict, cfg, tag: str):
+    """What phases 5, 6 and 13b share: a builder of ``cfg``'s full-width
+    PMCE warm-started from phase 4's checkpoint, the trainer on phase 4's
+    sequences in ``mesh`` chunking, a fixed batch, its six-term loss in
+    eval mode (edge term on), and one first train step of a fresh model
+    under a context (the loss and the gradients by name). Returns
+    (trainer, batch, fixed_loss, first_step, (train_ds, test_ds))."""
     import numpy as np
     import torch
 
@@ -1817,12 +1850,8 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
         load_lifter_checkpoint,
         resolve_compute_dtype,
     )
-    from pmce_tpu_torch.ops import _cuda
-    from pmce_tpu_torch.ops import fused_attention as fa
     from pmce_tpu_torch.smpl.mesh import ensure_cached_coarsening
 
-    tag = "[fused]" if fused else "[mesh]"
-    cfg = mesh_h36m_config(str(stage1["ckpt"]), fused)
     art, jr = stage1["art"], stage1["jr"]
     coarse = ensure_cached_coarsening()
 
@@ -1845,16 +1874,6 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
                       test_data=test_ds, faces=art.faces, J_reg_target=jr,
                       device=device,
                       log_fn=lambda s: print(f"{tag} {s}", flush=True))
-    nparams = sum(p.numel() for p in trainer.model.parameters())
-    print(f"{tag} PMCE {nparams / 1e6:.1f} M params, fused_attn "
-          f"{cfg.MODEL.fused_attn}, lifter from "
-          f"{Path(cfg.MODEL.posenet_path).name}; {len(train_ds)} train / "
-          f"{len(test_ds)} test clips", flush=True)
-
-    # No checkpoints: phase 4 and the CPU tests cover them, and each of
-    # this model's would be ~1.2 GB with its Adam state.
-    # A fixed batch: the six-term loss (edge term on) in eval mode before
-    # and after the fit, and the step timings below.
     batch = trainer._wire_cast(train_ds.get_batch(np.arange(BM)))
     dev = torch.device(device)
     J_reg = torch.as_tensor(jr, device=dev)
@@ -1867,6 +1886,46 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
         with torch.no_grad():
             return float(pmce_loss(model.eval(), batch, faces, J_reg,
                                    weights, 1.0, face_fn)[0])
+
+    def first_step(ctx):
+        model = pmce().train()
+        with ctx:
+            loss, _ = pmce_loss(model, batch, faces, J_reg, weights, 1.0,
+                                face_fn, torch.Generator(dev).manual_seed(7))
+            loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    return trainer, batch, fixed_loss, first_step, (train_ds, test_ds)
+
+
+def mesh_train(device, stage1: dict, profile: bool, fused: bool,
+               unfused_ms: float | None = None) -> tuple[dict, float]:
+    """Stage-2 mesh training of the full-width PMCE: phase 5 without
+    ``fused_attn``, phase 6 with it (``unfused_ms``: phase 5's step, printed
+    beside phase 6's)."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    tag = "[fused]" if fused else "[mesh]"
+    cfg = mesh_h36m_config(str(stage1["ckpt"]), fused)
+    trainer, batch, fixed_loss, first_step, (train_ds, test_ds) = \
+        stage2_parts(device, stage1, cfg, tag)
+    nparams = sum(p.numel() for p in trainer.model.parameters())
+    print(f"{tag} PMCE {nparams / 1e6:.1f} M params, fused_attn "
+          f"{cfg.MODEL.fused_attn}, lifter from "
+          f"{Path(cfg.MODEL.posenet_path).name}; {len(train_ds)} train / "
+          f"{len(test_ds)} test clips", flush=True)
+    # No checkpoints: phase 4 and the CPU tests cover them, and each of
+    # this model's would be ~1.2 GB with its Adam state. The fixed batch:
+    # the six-term loss before and after the fit, and the step timings.
+    dev = torch.device(device)
 
     if fused and torch.device(device).type == "cuda":
         sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -1917,15 +1976,6 @@ def mesh_train(device, stage1: dict, profile: bool, fused: bool,
     # that isolates this phase's kernels (phase 5: the plain GRU forward
     # with the backward kernel; phase 6: the decoder's attention blocks on
     # their kernels, everything else plain).
-    def first_step(ctx):
-        model = pmce().train()
-        with ctx:
-            loss, _ = pmce_loss(model, batch, faces, J_reg, weights, 1.0,
-                                face_fn, torch.Generator(dev).manual_seed(7))
-            loss.backward()
-        return loss.item(), {n: p.grad for n, p in model.named_parameters()
-                             if p.grad is not None}
-
     loss_k, grads_k = first_step(contextlib.nullcontext())
     # Two runs of the kernel path: the same gradients bit for bit.
     loss_k2, grads_k2 = first_step(contextlib.nullcontext())
@@ -3549,102 +3599,95 @@ def f32_train_cli() -> float:
     return wall
 
 
-def f32_stage2_refuses(device) -> dict:
-    """Phase 12e: one f32 Stage-2 training step of the full-width PMCE
-    (``dtype=None, fused=True``) stops with ``NotImplementedError`` naming
-    ROADMAP.md B2b at the decoder's first AdaLN cross-attention block, the
-    lifter's six blocks having run on row 6f; ``ada_block`` alone raises
-    too; no plain version runs. Then the joint stream's AdaBlock of a
-    CoevoBlock, the module that f32 Stage-2 step runs over 17 tokens, in
-    training mode forward and backward: its attention is rows 4f / 5f,
-    counted. Returns those counts."""
-    import traceback
-    from unittest import mock
-
+def f32_decoder_kernels(device, rows) -> None:
+    """Phase 13a: rows 8f / 9f (the AdaLN block at the vertex stream's
+    [32, 431, 64], 2 heads of 32) and 10f / 11f (the CA block at joints
+    [32, 17, 64] over vertices [32, 431, 64] in 8 heads of 8, and vertices
+    over joints in 2 heads of 32), hid 256, against the plain versions and
+    their autograd (TF32 off): branch masks at rate 0.2 without their
+    gradient, then requiring it (dm1, dm2); outputs within
+    ``F32_KERNEL_REL_TOL``, every gradient within ``F32_GRAD_REL_TOL`` of
+    its own largest magnitude (the CA block's key bias and key AdaLN beta,
+    zero analytically, of the largest gradient), reruns bit for bit, timed
+    with CUDA events beside the f32 bound and the plain version."""
     import numpy as np
     import torch
 
-    from pmce_tpu_torch.models.pmce import create_pmce
-    from pmce_tpu_torch.ops import _cuda
-    from pmce_tpu_torch.ops import fused_attention as fa
-    from pmce_tpu_torch.smpl.artifacts import ensure_cached_artifacts
-    from pmce_tpu_torch.smpl.mesh import ensure_cached_coarsening
+    card = card_line()
+    rng = np.random.default_rng(20)
+    cases = (("ada", BM, 431, 2, 0, "vertex stream"),
+             ("ca", BM, JT, 8, 431, "joints over vertices"),
+             ("ca", BM, 431, 2, JT, "vertices over joints"))
+    for kind, clips, N, heads, Nk, label in cases:
+        leaves, call, (kernel, plain) = decoder_case(
+            rng, device, kind, clips, N, 64, heads, Nk)
+        leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+        g = torch.from_numpy(rng.normal(size=leaves[0].shape).astype(
+            "float32")).to(device)
+        shape = (f"[{clips}, {N}, 64]" if kind == "ada" else
+                 f"[{clips}, {N}, 64] over [{clips}, {Nk}, 64]")
+        zero = (6, 14) if kind == "ca" else ()
+        names = [f"leaf {i}" for i in range(len(leaves))] + ["dm1", "dm2"]
+        for mask_grad in (False, True):
+            masks = call.masks
+            if mask_grad:
+                call.masks = tuple(m.detach().requires_grad_(True)
+                                   for m in masks)
+            every = [*leaves, *(call.masks if mask_grad else ())]
+            where = (f"{label} {shape} {heads} heads, masks rate 0.2"
+                     + (" requiring grad" if mask_grad else ""))
 
-    model, _ = create_pmce(num_joint=JT, art=ensure_cached_artifacts(),
-                           coarsening=ensure_cached_coarsening(), dtype=None,
-                           fused=True, device=device, seed=0)
-    model.train()
-    rng = np.random.default_rng(3)
-    pose2d = torch.from_numpy(rng.standard_normal(
-        (BM, T, JT, 2), dtype=np.float32)).to(device)
-    feat = torch.from_numpy(rng.standard_normal(
-        (BM, T, 2048), dtype=np.float32)).to(device)
-    gen = torch.Generator(device).manual_seed(5)
-    plains = [mock.patch.object(fa, n, side_effect=AssertionError(f"{n} ran"))
-              for n in ("transformer_block_plain", "mhsa_plain",
-                        "ada_block_plain", "ca_block_plain")]
-    _cuda.reset_launch_counts()
-    with contextlib.ExitStack() as stack:
-        for p in plains:
-            stack.enter_context(p)
-        try:
-            model(pose2d, feat, generator=gen)[0].sum().backward()
-            raise RuntimeError("f32 Stage-2 training step ran")
-        except NotImplementedError as e:
-            where = [f.name for f in traceback.extract_tb(e.__traceback__)
-                     if f.name in ("ada_block", "ca_block")]
-            msg = str(e)
-            if "ROADMAP.md B2b" not in msg or not where:
-                raise
-        launched = {k: v for k, v in _cuda.launch_counts().items() if v}
-        if launched != {"block_fwd_f32": 6}:
-            raise RuntimeError(f"f32 Stage-2 step: launches {launched}")
-        print(f"[f32-train] f32 Stage-2 training step: NotImplementedError "
-              f"from {where[0]}: {msg}; launched before it {launched}",
-              flush=True)
-        ada = next(m for m in model.modules()
-                   if type(m).__name__ == "AdaBlock")
-        x = torch.randn(BM, 4, ada.norm1.mlp_gamma.out_features,
-                        device=device)
-        # The decoder's conditioning feature (the BiGRU's output width).
-        cond = torch.randn(BM, ada.norm1.mlp_gamma.in_features,
-                           device=device)
-        try:
-            fa.ada_block(x, *ada.norm1.gamma_beta(cond),
-                         *ada.norm2.gamma_beta(cond), ada.params(),
-                         ada.attn.num_heads)
-            raise RuntimeError("f32 ada_block ran")
-        except NotImplementedError as e:
-            if "ROADMAP.md B2b" not in str(e):
-                raise
-            print(f"[f32-train] ada_block in f32 raises: {e}", flush=True)
-        # The joint stream's AdaBlock (17 tokens) in training mode.
-        joint = model.pose_mesh_coevo
-        sa = next(m for n, m in joint.named_modules()
-                  if n.endswith("joint_SA_FFN"))
-        x = torch.randn(BM, JT, sa.norm1.mlp_gamma.out_features,
-                        device=device, requires_grad=True)
-        _cuda.reset_launch_counts()
-        y = sa(x, cond, None, gen, True)
-        y.square().sum().backward()
-        torch.cuda.synchronize()
-        counts = _cuda.launch_counts()
-    launched = {k: v for k, v in counts.items() if v}
-    if launched != {"mhsa_fwd_f32": 1, "mhsa_bwd_f32": 1} or not bool(
-            torch.isfinite(x.grad).all()):
-        raise RuntimeError(f"f32 joint-stream AdaBlock: launches {launched}")
-    print(f"[f32-train] the joint stream's AdaBlock [{BM}, {JT}, "
-          f"{x.shape[-1]}] in f32 training mode: launches {launched}, "
-          f"finite gradients", flush=True)
-    del model
-    torch.cuda.empty_cache()
-    return counts
+            def bwd(y):
+                return torch.autograd.grad(y, every, g, retain_graph=True)
+
+            yk, yp = call(kernel, *leaves), call(plain, *leaves)
+            gk, gp = bwd(yk), bwd(yp)
+            torch.cuda.synchronize()
+            err_f = f32_grad_check(f"{kind}_fwd_f32", where, (yk,), (yp,),
+                                   ["y"], F32_KERNEL_REL_TOL)
+            largest = max(float(t.abs().max()) for t in gp)
+            own = [(i, a, b) for i, (a, b) in enumerate(zip(gk, gp))
+                   if i not in zero]
+            err_b = f32_grad_check(f"{kind}_bwd_f32", where,
+                                   [a for _, a, _ in own],
+                                   [b for _, _, b in own],
+                                   [names[i] for i, _, _ in own],
+                                   F32_GRAD_REL_TOL)
+            for i in zero:
+                rel = max_err(gk[i], gp[i]) / largest
+                err_b = max(err_b, max_err(gk[i], gp[i]))
+                print(f"[f32-train] {kind}_bwd_f32 {where}: {names[i]} (zero "
+                      f"analytically) {rel:.3g} of the largest gradient "
+                      f"(tol {F32_GRAD_REL_TOL})", flush=True)
+                if rel > F32_GRAD_REL_TOL:
+                    raise RuntimeError(f"{kind}_bwd_f32 {where}: {names[i]}")
+            y2 = call(kernel, *leaves)
+            if not torch.equal(yk, y2) or not all(
+                    torch.equal(a, b) for a, b in zip(gk, bwd(y2))):
+                raise RuntimeError(f"{kind} f32 {where}: two runs differ")
+            fwd_ms = median_ms(lambda: call(kernel, *leaves))
+            bwd_ms = median_ms(lambda: bwd(yk))
+            pf_ms = median_ms(lambda: call(plain, *leaves), iters=5)
+            pb_ms = median_ms(lambda: bwd(yp), iters=5)
+            print(f"[f32-train] {kind} f32 {where}: reruns bit for bit; "
+                  f"forward {fwd_ms:.4f} ms (plain {pf_ms:.4f}), backward "
+                  f"{bwd_ms:.4f} ms (plain {pb_ms:.4f}), TF32 off, on {card}",
+                  flush=True)
+            record(rows, f"{kind}_fwd_f32", err_f, fwd_ms, pf_ms,
+                   count_flops(lambda: call(plain, *leaves)),
+                   tensor_bytes(leaves, call.masks, yk), "f32")
+            record(rows, f"{kind}_bwd_f32", err_b, bwd_ms, pb_ms,
+                   count_flops(lambda: bwd(yp)),
+                   tensor_bytes(g, leaves, call.masks, gk), "f32")
+            call.masks = masks
+            del yk, yp, gk, gp, y2
+        del leaves, g
+        torch.cuda.empty_cache()
 
 
 def f32_training(device, rows, bf16_step_ms: float) -> dict:
-    """Phase 12: f32 training (TF32 off throughout). Returns the f32
-    Stage-1 path's counts, the joint-stream AdaBlock's, the step's ms and
-    the phase's seconds."""
+    """Phase 12: f32 Stage-1 training (TF32 off throughout). Returns the
+    f32 Stage-1 path's counts, the step's ms and the phase's seconds."""
     from pmce_tpu_torch.smpl.layer import full_f32
 
     t_phase = time.time()
@@ -3652,12 +3695,211 @@ def f32_training(device, rows, bf16_step_ms: float) -> dict:
         f32_training_kernels(device, rows)
         counts, ms = f32_stage1(device, bf16_step_ms)
         cli_s = f32_train_cli()
-        attn = f32_stage2_refuses(device)
     phase_s = time.time() - t_phase
     print(f"[f32-train] phase 12 took {phase_s:.1f} s on {card_line()}",
           flush=True)
-    return {"counts": counts, "attn": attn, "ms": ms, "cli_s": cli_s,
-            "phase_s": phase_s}
+    return {"counts": counts, "ms": ms, "cli_s": cli_s, "phase_s": phase_s}
+
+
+def f32_stage2(device, stage1: dict, bf16_ms: float,
+               profile: bool = False) -> tuple[dict, float]:
+    """Phase 13b: phase 6's cell in f32 (``mesh_train``'s config with
+    ``compute_dtype`` float32 and ``fused_attn`` on, phase 6's cuts and
+    warm start from phase 4's checkpoint): ``Trainer.fit`` 2 x 25 steps
+    with evaluation, counted (exactly ``F32_STAGE2_STEP`` a step and
+    ``F32_STAGE2_EVAL`` an evaluation batch, nothing else); the fixed
+    batch's loss falls; two first steps bit for bit; the first step
+    against the plain path (every kernel's plain version) within
+    ``F32_STEP_LOSS_REL_TOL`` / ``F32_STEP_GRAD_REL_TOL``, every parameter,
+    the last block's joint stream included (the key biases, zero
+    analytically, held to the largest gradient); the step's ms, clips/s
+    and peak memory beside phase 6's bf16 step (``profile``: the step's
+    device time by kernel). Returns the counts and the step's ms."""
+    import numpy as np
+    import torch
+
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    tag = "[f32-stage2]"
+    cfg = mesh_h36m_config(str(stage1["ckpt"]), True)
+    cfg.MODEL.compute_dtype = "float32"
+    trainer, batch, fixed_loss, first_step, (_, test_ds) = stage2_parts(
+        device, stage1, cfg, tag)
+    dev = torch.device(device)
+
+    before = fixed_loss(trainer.model)
+    t0 = time.time()
+    _cuda.reset_launch_counts()
+    state = trainer.fit()
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    launched = {k: v for k, v in counts.items() if v}
+    steps = 2 * TRAIN_STEPS
+    evals = 2 * -(-len(test_ds) // cfg.TEST.batch_size)
+    expect = {k: steps * F32_STAGE2_STEP.get(k, 0)
+              + evals * F32_STAGE2_EVAL.get(k, 0)
+              for k in {**F32_STAGE2_STEP, **F32_STAGE2_EVAL}}
+    print(f"{tag} launches on the f32 Stage-2 path: {launched} "
+          f"({time.time() - t0:.1f} s: {steps} steps, 2 evaluations of "
+          f"{len(test_ds)} clips)", flush=True)
+    if launched != expect:
+        raise RuntimeError(f"f32 Stage-2 training: launches {launched}, "
+                           f"expected exactly {expect}")
+    after = fixed_loss(trainer.model)
+    losses, errs = trainer.loss_history, trainer.error_history
+    if not all(np.isfinite(losses + errs["joint"] + errs["surface"])):
+        raise RuntimeError(f"f32 Stage-2: non-finite losses {losses} or "
+                           f"errors {errs}")
+    if not after < before:
+        raise RuntimeError(f"f32 Stage-2: the fixed batch's loss did not "
+                           f"fall: {before} -> {after}")
+    print(f"{tag} epoch losses {losses} (edge term on in epoch 2); fixed "
+          f"batch loss, edge term on, {before:.6g} -> {after:.6g}; MPJPE "
+          f"{errs['joint']} mm, MPVPE {errs['surface']} mm", flush=True)
+
+    _cuda.reset_launch_counts()
+    loss_k, grads_k = first_step(contextlib.nullcontext())
+    step_counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+    if step_counts != F32_STAGE2_STEP:
+        raise RuntimeError(f"f32 Stage-2 first step: launches {step_counts}")
+    loss_k2, grads_k2 = first_step(contextlib.nullcontext())
+    differ = [n for n, g in grads_k.items() if not torch.equal(g, grads_k2[n])]
+    print(f"{tag} first step twice on the kernel path: losses {loss_k!r} and "
+          f"{loss_k2!r}; {len(differ)} of {len(grads_k)} gradients differ",
+          flush=True)
+    if differ or loss_k != loss_k2:
+        raise RuntimeError(f"f32 Stage-2 first step: two runs differ "
+                           f"({differ[:5]})")
+    del grads_k2
+    _cuda.reset_launch_counts()
+    loss_p, grads_p = first_step(plain_path(fa, True))
+    if any(_cuda.launch_counts().values()):
+        raise RuntimeError("f32 Stage-2 plain path launched a kernel")
+    if set(grads_k) != set(grads_p):
+        raise RuntimeError("f32 Stage-2 first step: the paths reach "
+                           "different parameters")
+    largest = max(max_err(g, 0 * g) for g in grads_p.values())
+
+    def rel(n):
+        return max_err(grads_k[n], grads_p[n]) / (
+            largest if n.endswith(KEY_BIASES)
+            else max(max_err(grads_p[n], 0 * grads_p[n]), 1e-30))
+
+    ranked = sorted(((rel(n), n) for n in grads_p), reverse=True)
+    last = f"coevoblock{len(trainer.model.pose_mesh_coevo.blocks())}."
+    joint = max((e, n) for e, n in ranked if last in n and ".joint_" in n)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = (loss_rel <= F32_STEP_LOSS_REL_TOL
+          and ranked[0][0] <= F32_STEP_GRAD_REL_TOL)
+    print(f"{tag} first step, kernel vs plain path: loss {loss_k:.8g} vs "
+          f"{loss_p:.8g} (relative {loss_rel:.3g}, tol "
+          f"{F32_STEP_LOSS_REL_TOL}); every gradient, no exclusion: largest "
+          f"difference {ranked[0][0]:.4g} of max|grad| in {ranked[0][1]} "
+          f"(tol {F32_STEP_GRAD_REL_TOL}); the last block's joint stream "
+          f"{joint[0]:.4g} in {joint[1]}; next: " + ", ".join(
+              f"{n.split('pose_mesh_coevo.')[-1]} {e:.3g}"
+              for e, n in ranked[1:5]) + ("" if ok else "  FAIL"),
+          flush=True)
+    if not ok:
+        raise RuntimeError("f32 Stage-2 first step: kernel and plain paths "
+                           "disagree")
+    del grads_k, grads_p
+
+    gen = torch.Generator(dev).manual_seed(1)
+
+    def step():
+        trainer.train_step(state, batch, gen, 1.0)
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_step_ms(step, 10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with plain_path(fa, True):
+        plain = median_step_ms(step, 5, warmup=2)
+    print(f"{tag} f32 Stage-2 train step (fused_attn on), batch {BM}: "
+          f"{ms:.3f} ms (median of 10), {BM / ms * 1e3:.1f} clips/s; plain "
+          f"path {plain:.3f} ms; peak device memory {peak:.2f} GiB; phase "
+          f"6's bf16 step {bf16_ms:.3f} ms ({ms / bf16_ms:.2f}x); TF32 off; "
+          f"on {card_line()}", flush=True)
+    if profile:
+        profile_step(step, "f32 Stage-2 train step")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def f32_stage2_cli() -> float:
+    """Phase 13c: ``python -m pmce_tpu_torch.main.train --smoke`` on
+    ``CLI_CFG`` rewritten to ``compute_dtype: 'float32'`` (``fused_attn``
+    on, as the file has it) in a temporary directory, in process: exactly
+    ``F32_STAGE2_STEP`` a step (2 epochs x 4 steps), ``F32_STAGE2_EVAL`` an
+    evaluation batch (three evaluations), the synthesis' skinning, nothing
+    else; a finite protocol summary. Returns its wall seconds."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pmce_tpu_torch.main import train as train_cli
+    from pmce_tpu_torch.ops import _cuda
+
+    text = CLI_CFG.read_text()
+    if "  compute_dtype: 'bfloat16'\n" not in text:
+        raise RuntimeError(f"{CLI_CFG}: not the bf16 Stage-2 recipe")
+    tag = "chip_smoke_f32_stage2_cli"
+    out_dir = Path("experiment") / tag
+    shutil.rmtree(out_dir, ignore_errors=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Path(tmp) / "train_mesh_h36m_f32.yml"
+        cfg.write_text(text.replace("  compute_dtype: 'bfloat16'\n",
+                                    "  compute_dtype: 'float32'\n"))
+        t0 = time.time()
+        tee = Tee(sys.stdout)
+        _cuda.reset_launch_counts()
+        with contextlib.redirect_stdout(tee):
+            result = train_cli.main(["--cfg", str(cfg), "--smoke", "--tag",
+                                     tag])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launched = {k: v for k, v in _cuda.launch_counts().items() if v}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps = 2 * 4
+    evals = launched.get("coevo_chain_f32", 0)
+    expect = {k: steps * F32_STAGE2_STEP.get(k, 0)
+              + evals * F32_STAGE2_EVAL.get(k, 0)
+              for k in {**F32_STAGE2_STEP, **F32_STAGE2_EVAL}}
+    expect["skinning"] = launched.get("skinning", 0)
+    print(f"[f32-stage2-cli] train CLI --smoke, {CLI_CFG.name} in f32: "
+          f"{wall:.1f} s; launches {launched} ({steps} steps, {evals} "
+          f"evaluation batches)", flush=True)
+    if (launched != expect or evals <= 0 or evals % 3
+            or not launched.get("skinning")):
+        raise RuntimeError(f"f32 Stage-2 train CLI: launches {launched}")
+    metrics = ("mpjpe", "pa_mpjpe", "mpvpe", "accel")
+    if not all(math.isfinite(getattr(result, k)) for k in metrics):
+        raise RuntimeError(f"f32 Stage-2 train CLI: protocol summary "
+                           f"{result}")
+    print(f"[f32-stage2-cli] protocol summary {result}", flush=True)
+    return wall
+
+
+def f32_stage2_training(device, rows, stage1: dict, bf16_ms: float,
+                        profile: bool = False) -> dict:
+    """Phase 13: f32 Stage-2 training (TF32 off throughout). Returns the
+    f32 Stage-2 path's counts, the step's ms, the CLI's and the phase's
+    seconds."""
+    from pmce_tpu_torch.smpl.layer import full_f32
+
+    t_phase = time.time()
+    with full_f32():
+        f32_decoder_kernels(device, rows)
+        counts, ms = f32_stage2(device, stage1, bf16_ms, profile)
+        cli_s = f32_stage2_cli()
+    phase_s = time.time() - t_phase
+    print(f"[f32-stage2] phase 13 took {phase_s:.1f} s on {card_line()}",
+          flush=True)
+    return {"counts": counts, "ms": ms, "cli_s": cli_s, "phase_s": phase_s}
 
 
 def profile_step(step, what: str = "train step", n: int = 5) -> None:
@@ -3901,10 +4143,11 @@ def main() -> int:
     etl = data_pipeline(device)
     f32 = f32_serving(device, rows)
     f32t = f32_training(device, rows, step_ms)
+    f32s = f32_stage2_training(device, rows, stage1, fused_ms, profile)
     # Each kernel's launches on the path it belongs to; skinning's: phase
     # 4's synthesis and phase 10's conversions; the f32 forms': phase 11's
     # forwards and phase 12c's f32 Stage-1 fit (row 6f: both), rows 4f /
-    # 5f: phase 12e's joint-stream AdaBlock.
+    # 5f and 8f-11f: phase 13b's f32 Stage-2 fit.
     counts = {**{k: mesh_counts[k] for k in REPLACES},
               **{k: fused_counts[k] for k in DECODER},
               **{k: train_counts[k] for k in TRAINING},
@@ -3913,8 +4156,9 @@ def main() -> int:
               **{k: f32["chain"][0][k] for k in F32_CHAIN},
               "coevo_block_f32": f32["wb"][0]["coevo_block_f32"],
               "block_bwd_f32": f32t["counts"]["block_bwd_f32"],
-              **{k: f32t["attn"][k] for k in ("mhsa_fwd_f32",
-                                              "mhsa_bwd_f32")}}
+              **{k: f32s["counts"][k] for k in (
+                  "mhsa_fwd_f32", "mhsa_bwd_f32", "ada_fwd_f32",
+                  "ada_bwd_f32", "ca_fwd_f32", "ca_bwd_f32")}}
     counts["skinning"] += etl["skinning"]
     counts["block_fwd_f32"] += f32t["counts"]["block_fwd_f32"]
 
@@ -3947,7 +4191,10 @@ def main() -> int:
           f"{f32['wb'][2]:.1f}), phase 11 {f32['phase_s']:.1f} s; phase 12 "
           f"f32 Stage-1 train step {f32t['ms']:.3f} ms = "
           f"{BT / f32t['ms'] * 1e3:.1f} clips/s, f32 train CLI "
-          f"{f32t['cli_s']:.1f} s, phase 12 {f32t['phase_s']:.1f} s",
+          f"{f32t['cli_s']:.1f} s, phase 12 {f32t['phase_s']:.1f} s; phase 13 "
+          f"f32 Stage-2 train step {f32s['ms']:.3f} ms = "
+          f"{BM / f32s['ms'] * 1e3:.1f} clips/s, f32 Stage-2 train CLI "
+          f"{f32s['cli_s']:.1f} s, phase 13 {f32s['phase_s']:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

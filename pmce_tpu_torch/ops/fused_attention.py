@@ -10,9 +10,10 @@ with JAX's recompute for its gradient), ``fused_gru_layer`` /
 training, with stochastic-depth branch masks and the shared post-norm), and
 the decoder's attention blocks with their backwards: ``fused_mhsa``,
 ``fused_ada_block`` and ``fused_ca_block``; in f32 (JAX's compute dtype
-f32) the block forward and backward (rows 6f / 7f, ``csrc/block_f32.cu``)
-and ``fused_mhsa`` forward and backward (rows 4f / 5f,
-``csrc/mhsa_f32.cu``). Each comes as
+f32) the block forward and backward (rows 6f / 7f, ``csrc/block_f32.cu``),
+``fused_mhsa`` forward and backward (rows 4f / 5f, ``csrc/mhsa_f32.cu``)
+and the AdaLN and CA blocks forward and backward (rows 8f / 9f,
+``csrc/ada_f32.cu``; rows 10f / 11f, ``csrc/ca_f32.cu``). Each comes as
 
 - a plain PyTorch version (``*_plain``) with the math of the JAX kernel;
 - a wrapper that picks by the device of its input: a CPU tensor goes to
@@ -22,9 +23,8 @@ and ``fused_mhsa`` forward and backward (rows 4f / 5f,
   (``pmce_tpu/ops/fused_attention.py:984-989`` sends it to its oracle); a
   shape that JAX's kernel takes but this kernel is not built for
   (``*_kernel_fits`` is false) raises ``NotImplementedError`` naming the
-  widening queued in ROADMAP.md, as f32 compute does where its kernels
-  are still queued (the AdaLN and CA blocks, ROADMAP.md B2b). Nothing is
-  caught, nothing falls back.
+  widening queued in ROADMAP.md (section B; B3 for the f32 kernels'
+  gates). Nothing is caught, nothing falls back.
 
 The numerics follow the JAX oracles rather than the TPU kernels' bf16
 workarounds, and are shared with ``ops/fused_coevo_chain.py``: f32 LayerNorm
@@ -851,6 +851,13 @@ def _block_bwd_f32_cuda(gout, x, params, m1, m2, num_heads, eps, post_eps,
     return dx, grads, (dm1, dm2)
 
 
+def _needs_grad(*tensors) -> bool:
+    """Whether autograd will ask for a gradient of any of ``tensors`` (None
+    entries skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _owed(ctx, grad_enabled: bool, *inputs: int) -> bool:
     """Whether autograd will ask a kernel Function for the gradient of its
     inputs ``inputs`` (of any input where none is named). Autograd runs
@@ -949,8 +956,7 @@ def transformer_block(x, params, num_heads: int, eps: float = 1e-6,
                    "transformer_block", f"C={C}, {num_heads} heads, hid={hid}")
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
     if x.dtype == torch.float32:
-        if branch_masks is None and not (torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (x, *params))):
+        if branch_masks is None and not _needs_grad(x, *params):
             return _block_fwd_f32_cuda(x, params, None, None, num_heads, eps,
                                        post_eps)
         return _BlockF32Kernel.apply(x, m1, m2, num_heads, eps, post_eps,
@@ -1379,12 +1385,8 @@ class _GRULayer(torch.autograd.Function):
                 None)
 
 
-def _gru_needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
 def _gru_dispatch(gi, whh, bhh, reverse: bool, counter) -> torch.Tensor:
-    if _gru_needs_grad(gi, whh, bhh):
+    if _needs_grad(gi, whh, bhh):
         return _GRULayer.apply(gi, whh, bhh, reverse)
     if not _on_card(gi, "gru_layer"):
         return gru_layer_plain(gi, whh, bhh, reverse)
@@ -1416,7 +1418,7 @@ def gru_bidir(gi_f, gi_b, whh_f, bhh_f, whh_b, bhh_b):
     each direction's counter, ``gru_layer`` and ``gru_layer_rev``), on CPU
     tensors the plain version. With one: :func:`gru_layer` and
     :func:`gru_layer_rev`, a :class:`_GRULayer` each."""
-    if _gru_needs_grad(gi_f, gi_b, whh_f, bhh_f, whh_b, bhh_b):
+    if _needs_grad(gi_f, gi_b, whh_f, bhh_f, whh_b, bhh_b):
         return gru_layer(gi_f, whh_f, bhh_f), gru_layer_rev(gi_b, whh_b,
                                                             bhh_b)
     if not _on_card(gi_f, "gru_bidir"):
@@ -1587,6 +1589,12 @@ MHSA_BWD_SEQ_LAUNCHES = _cuda.launch_counter("mhsa_bwd_seq")
 ADA_FWD_SEQ_LAUNCHES = _cuda.launch_counter("ada_block_fwd_seq")
 ADA_BWD_SEQ_LAUNCHES = _cuda.launch_counter("ada_block_bwd_seq")
 CA_FWD_SEQ_LAUNCHES = _cuda.launch_counter("ca_block_fwd_seq")
+# Rows 8f-11f: the AdaLN and CA blocks' f32 forwards and backwards
+# (csrc/ada_f32.cu, csrc/ca_f32.cu).
+ADA_FWD_F32_LAUNCHES = _cuda.launch_counter("ada_fwd_f32")
+ADA_BWD_F32_LAUNCHES = _cuda.launch_counter("ada_bwd_f32")
+CA_FWD_F32_LAUNCHES = _cuda.launch_counter("ca_fwd_f32")
+CA_BWD_F32_LAUNCHES = _cuda.launch_counter("ca_bwd_f32")
 
 # Head widths the attention kernel is built for (attention_ops.cuh).
 _HEAD_DIMS = (8, 16, 32)
@@ -1606,18 +1614,15 @@ def _attention_require(name: str, C: int, num_heads: int, hid: int = 64):
                    f"C={C}, {num_heads} heads, hid={hid}")
 
 
-def _attn_checks(name, x):
-    """The bf16 decoder kernels' dtype gate: f32 tokens raise naming the
-    queue of their f32 forms (the AdaLN and CA blocks: rows 8f-11f,
-    ROADMAP.md B2b; fused_mhsa routes f32 to rows 4f / 5f before this),
-    any other dtype raises."""
-    if x.dtype == torch.float32:
-        raise NotImplementedError(
-            f"{name}: the f32 kernels of the AdaLN and CA blocks (rows "
-            "8f-11f, forward and backward) are queued in ROADMAP.md B2b")
-    if x.dtype != torch.bfloat16:
+def _attn_checks(name, x) -> bool:
+    """The decoder kernels' dtype gate: True for f32 tokens (their f32
+    kernels: rows 4f / 5f, 8f-11f), False for bf16 (``csrc/mhsa.cu``,
+    ``ada_block.cu``, ``ca_block.cu``); any other dtype raises."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"the {name} kernels take bf16 or f32 tokens, not {x.dtype}")
+    return x.dtype == torch.float32
+
 
 
 def _workspace(lib, fn, dev, *shape):
@@ -2277,19 +2282,37 @@ def ada_block(x, gamma1, beta1, gamma2, beta2, params, num_heads: int,
               eps: float = 1e-6, branch_masks=None):
     """The AdaLN self-attention block with its gradient (see
     :func:`ada_block_plain`). CPU tensors run the plain version; CUDA
-    tensors the kernels of ``csrc/ada_block.cu`` forward and backward
-    (bf16, any token count: the forward's two tile programs and the
+    tensors the kernels of ``csrc/ada_block.cu`` forward and backward in
+    bf16 (any token count: the forward's two tile programs and the
     backward's tile program inside :func:`ada_fwd_kernel_fits` /
     :func:`ada_bwd_kernel_fits`, their launch sequences outside; widths
-    :func:`attention_kernel_fits` refuses raise). Branch masks that require
-    grad get their gradients."""
+    :func:`attention_kernel_fits` refuses raise) and those of
+    ``csrc/ada_f32.cu`` in f32 (rows 8f / 9f: with no gradient owed one
+    forward call, otherwise :class:`_AdaF32Kernel`; shapes outside
+    :func:`ada_f32_kernel_fits` raise naming ROADMAP.md B3). Branch masks
+    that require grad get their gradients."""
     if not _on_card(x, "ada_block"):
         return ada_block_plain(x, gamma1, beta1, gamma2, beta2, params,
                                num_heads, eps, branch_masks)
-    _attn_checks("ada_block", x)
-    _attention_require("ada_block", x.shape[-1], num_heads,
-                       params[4].shape[1])
+    f32 = _attn_checks("ada_block", x)
+    B, N, C = x.shape
+    hid = params[4].shape[1]
+    _attention_require("ada_block", C, num_heads, hid)
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
+    if f32:
+        if not ada_f32_kernel_fits(N, C, num_heads, hid):
+            raise NotImplementedError(
+                f"ada_block: the f32 kernel (csrc/ada_f32.cu) is built for C "
+                f"= 64, heads of 8, 16 or 32, hid up to 256 and up to "
+                f"{_F32_DEC_LONG} tokens, not N={N}, C={C}, {num_heads} "
+                f"heads, hid={hid} (the JAX kernel takes it); widening it is "
+                "queued in ROADMAP.md B3")
+        gb = (gamma1, beta1, gamma2, beta2)
+        if not _needs_grad(x, *gb, m1, m2, *params):
+            return _ada_fwd_f32_cuda(x.contiguous(), gb, (m1, m2), params,
+                                     num_heads, eps)
+        return _AdaF32Kernel.apply(x.contiguous(), *gb, m1, m2, num_heads,
+                                   eps, *params)
     return _AdaBlockKernel.apply(x.contiguous(), gamma1, beta1, gamma2,
                                  beta2, m1, m2, num_heads, eps,
                                  torch.is_grad_enabled(), *params)
@@ -2551,21 +2574,39 @@ def ca_block(xq, xk, xv, gammas, betas, params, num_heads: int,
              eps: float = 1e-6, branch_masks=None):
     """The AdaLN cross-attention block with its gradient (see
     :func:`ca_block_plain`). CPU tensors run the plain version; CUDA
-    tensors the kernels of ``csrc/ca_block.cu`` (bf16; widths
+    tensors the kernels of ``csrc/ca_block.cu`` in bf16 (widths
     :func:`attention_kernel_fits` refuses raise): the forward's tile
     program inside :func:`ca_bwd_kernel_fits`, its launch sequence for any
     other Nq and Nk; the backward's tile program, whose gate a gradient
-    must meet."""
+    must meet. In f32 those of ``csrc/ca_f32.cu`` (rows 10f / 11f: with no
+    gradient owed one forward call, otherwise :class:`_CaF32Kernel`;
+    shapes outside :func:`ca_f32_kernel_fits` raise naming ROADMAP.md
+    B3)."""
     if not _on_card(xq, "ca_block"):
         return ca_block_plain(xq, xk, xv, gammas, betas, params, num_heads,
                               eps, branch_masks)
     C, hid = xq.shape[-1], params[8].shape[1]
-    _attn_checks("ca_block", xq)
+    f32 = _attn_checks("ca_block", xq)
     _attention_require("ca_block", C, num_heads, hid)
     m1, m2 = branch_masks if branch_masks is not None else (None, None)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (xq, xk, xv, m1, m2, *gammas, *betas, *params)):
+    grad = _needs_grad(xq, xk, xv, m1, m2, *gammas, *betas, *params)
+    if f32:
+        Nq, Nk = xq.shape[1], xk.shape[1]
+        if not ca_f32_kernel_fits(Nq, Nk, C, num_heads, hid):
+            raise NotImplementedError(
+                f"ca_block: the f32 kernel (csrc/ca_f32.cu) is built for C = "
+                f"64, heads of 8, 16 or 32, hid up to 256, up to "
+                f"{_F32_DEC_SHORT} rows on the short side and "
+                f"{_F32_DEC_LONG} on the long, not Nq={Nq}, Nk={Nk}, C={C}, "
+                f"{num_heads} heads, hid={hid} (the JAX kernel takes it); "
+                "widening it is queued in ROADMAP.md B3")
+        xs = (xq.contiguous(), xk.contiguous(), xv.contiguous())
+        if not grad:
+            return _ca_fwd_f32_cuda(xs, gammas, betas, (m1, m2), params,
+                                    num_heads, eps)
+        return _CaF32Kernel.apply(*xs, m1, m2, num_heads, eps, *gammas,
+                                  *betas, *params)
+    if grad:
         require_kernel(ca_bwd_kernel_fits(xq.shape[1], xk.shape[1], C, hid),
                        "ca_block backward",
                        f"Nq={xq.shape[1]}, Nk={xk.shape[1]}, C={C}, "
@@ -2574,3 +2615,287 @@ def ca_block(xq, xk, xv, gammas, betas, params, num_heads: int,
                                 xv.contiguous(), m1, m2, num_heads, eps,
                                 torch.is_grad_enabled(), *gammas, *betas,
                                 *params)
+
+
+# ---------------------------------------------------------------------------
+# The AdaLN and CA blocks in f32 (rows 8f-11f: csrc/ada_f32.cu,
+# csrc/ca_f32.cu)
+# ---------------------------------------------------------------------------
+
+# The f32 kernels' gates: C = 64 in heads of 8, 16 or 32, hid a multiple of
+# 64 up to 256, up to _F32_DEC_LONG tokens (a CA block: the long side) and
+# _F32_DEC_SHORT on a CA block's short side (Stage 2: 431 and 17 / 19).
+_F32_DEC_LONG, _F32_DEC_SHORT, _F32_DEC_HID = 512, 64, 256
+
+
+def _f32_dec_width(C: int, num_heads: int, hid: int) -> bool:
+    return (C == 64 and C % num_heads == 0 and C // num_heads in _HEAD_DIMS
+            and hid % 64 == 0 and 0 < hid <= _F32_DEC_HID)
+
+
+def ada_f32_kernel_fits(N: int, C: int, num_heads: int, hid: int) -> bool:
+    """The static shape test of rows 8f / 9f (``csrc/ada_f32.cu``): C = 64
+    in heads of 8, 16 or 32, hid a multiple of 64 up to 256, up to 512
+    tokens."""
+    return _f32_dec_width(C, num_heads, hid) and 0 < N <= _F32_DEC_LONG
+
+
+def ca_f32_kernel_fits(Nq: int, Nk: int, C: int, num_heads: int,
+                       hid: int) -> bool:
+    """The static shape test of rows 10f / 11f (``csrc/ca_f32.cu``): the
+    widths of :func:`ada_f32_kernel_fits`, up to 64 rows on the short side
+    (the smaller of Nq, Nk) and 512 on the long."""
+    return (_f32_dec_width(C, num_heads, hid) and min(Nq, Nk) > 0
+            and min(Nq, Nk) <= _F32_DEC_SHORT
+            and max(Nq, Nk) <= _F32_DEC_LONG)
+
+
+def _f32_rows_of(name, dev, B, C, vecs, names):
+    _f32_params(name, *vecs)
+    return [_f32_rows(t, dev, B, C, n) for t, n in zip(vecs, names)]
+
+
+def _ada_f32_inputs(x, gb, masks, params):
+    """The forward's 15 inputs as ``csrc/ada_f32.cu`` takes them: x, the
+    four [B, C] AdaLN vectors, the mask rows and the eight parameters, f32
+    on their own storage (another dtype raises ``ValueError``)."""
+    B, N, C = x.shape
+    dev, f32 = x.device, torch.float32
+    _cuda.check_cuda(x, "x", f32, (B, N, C))
+    wqkv, bqkv, wproj, bproj, w1, bb1, w2, bb2 = params
+    hid = w1.shape[1]
+    rows = _f32_rows_of("ada_block", dev, B, C, gb,
+                        ("gamma1", "beta1", "gamma2", "beta2"))
+    _f32_params("ada_block", *params)
+    return (x, *rows, *(_mask_rows(m, B, dev) for m in masks),
+            _cuda.to_kernel(wqkv, dev, f32, (C, 3 * C), "wqkv"),
+            _f32_vec(bqkv, dev, 3 * C, "bqkv"),
+            _cuda.to_kernel(wproj, dev, f32, (C, C), "wproj"),
+            _f32_vec(bproj, dev, C, "bproj"),
+            _cuda.to_kernel(w1, dev, f32, (C, hid), "w_fc1"),
+            _f32_vec(bb1, dev, hid, "b_fc1"),
+            _cuda.to_kernel(w2, dev, f32, (hid, C), "w_fc2"),
+            _f32_vec(bb2, dev, C, "b_fc2"))
+
+
+def _ada_fwd_f32_cuda(x, gb, masks, params, num_heads, eps):
+    """Row 8f: one call of ``pmce_ada_fwd_f32`` (two launches: AdaLN1 and
+    qkv a chunk of rows, then the attention and the tail a chunk of each
+    clip's queries); it keeps nothing for the gradient (row 9f recomputes
+    from x)."""
+    B, N, C = x.shape
+    hid = params[4].shape[1]
+    ins = _ada_f32_inputs(x, gb, masks, params)
+    out = torch.empty_like(x)
+    qkv = torch.empty(B * N, 3 * C, device=x.device, dtype=torch.float32)
+    _cuda.ADA_F32.call("pmce_ada_fwd_f32", _cuda.ptr_table(*ins, out, qkv),
+                       B, N, hid, num_heads, eps,
+                       1.0 / math.sqrt(C // num_heads),
+                       _cuda.stream_ptr(x.device))
+    ADA_FWD_F32_LAUNCHES.count += 1
+    return out
+
+
+def _ada_bwd_f32_cuda(gout, x, gb, masks, params, num_heads, eps,
+                      need_masks: bool):
+    """Row 9f: one call of ``pmce_ada_bwd_f32`` (the weights' transposes,
+    the forward recomputed from x, the gradient chain, dk / dv over the
+    queries, AdaLN1's backward, the weight gradients and the per-clip sums,
+    every sum in a fixed order). Returns dx, the four [B, C] AdaLN vectors'
+    gradients, the eight parameter gradients and (dm1, dm2) (None, None
+    unless ``need_masks``)."""
+    B, N, C = x.shape
+    hid = params[4].shape[1]
+    dev, f32 = x.device, torch.float32
+    ins = _ada_f32_inputs(x, gb, masks, params)
+    g = gout.to(f32).contiguous()
+    _cuda.check_cuda(g, "grad of the block output", f32, (B, N, C))
+    splits = f32_wgrad_splits(B * N)
+    ws = torch.empty(int(_cuda.ADA_F32.query(
+        "pmce_ada_f32_workspace", B, N, hid, num_heads, splits)),
+        device=dev, dtype=f32)
+    dx = torch.empty_like(x)
+    sums = torch.empty(B, 4 * C + 2, device=dev, dtype=f32)
+    dw = [torch.empty(r, c, device=dev, dtype=f32)
+          for r, c in ((C, 3 * C), (C, C), (C, hid), (hid, C))]
+    db = torch.empty(5 * C + hid, device=dev, dtype=f32)
+    _cuda.ADA_F32.call("pmce_ada_bwd_f32", _cuda.ptr_table(
+        *ins, g, ws, dx, sums, *dw, db), B, N, hid, num_heads, eps,
+        1.0 / math.sqrt(C // num_heads), splits, int(need_masks),
+        _cuda.stream_ptr(dev))
+    ADA_BWD_F32_LAUNCHES.count += 1
+    dgb = tuple(sums[:, i * C:(i + 1) * C] for i in range(4))
+    dms = ((sums[:, 4 * C], sums[:, 4 * C + 1]) if need_masks
+           else (None, None))
+    grads = (dw[0], db[:3 * C], dw[1], db[3 * C:4 * C], dw[2],
+             db[4 * C:4 * C + hid], dw[3], db[4 * C + hid:])
+    return dx, dgb, grads, dms
+
+
+def _mask_grads(masks, dms):
+    return [None if m is None or d is None else d.reshape(m.shape).to(m.dtype)
+            for m, d in zip(masks, dms)]
+
+
+class _AdaF32Kernel(torch.autograd.Function):
+    """The f32 AdaLN block on the card: forward row 8f, backward row 9f
+    (``csrc/ada_f32.cu``). The forward keeps only its inputs; the backward
+    recomputes the rest from x, as JAX's ``_ada_block_bwd_kernel`` does,
+    and sums the mask gradients (per clip) only where autograd asks for
+    them."""
+
+    @staticmethod
+    def forward(ctx, x, gamma1, beta1, gamma2, beta2, m1, m2, num_heads, eps,
+                *params):
+        gb = (gamma1, beta1, gamma2, beta2)
+        out = _ada_fwd_f32_cuda(x, gb, (m1, m2), params, num_heads, eps)
+        ctx.cfg = (num_heads, eps)
+        ctx.save_for_backward(x, *gb, m1, m2, *params)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        num_heads, eps = ctx.cfg
+        x, g1, b1, g2, b2, m1, m2, *params = ctx.saved_tensors
+        need_masks = ctx.needs_input_grad[5] or ctx.needs_input_grad[6]
+        dx, dgb, grads, dms = _ada_bwd_f32_cuda(
+            gout, x, (g1, b1, g2, b2), (m1, m2), params, num_heads, eps,
+            need_masks)
+        return (dx, *(d.reshape(t.shape) for d, t in zip(dgb, (g1, b1, g2,
+                                                                b2))),
+                *_mask_grads((m1, m2), dms), None, None,
+                *(d.reshape(t.shape) for d, t in zip(grads, params)))
+
+
+def _ca_f32_inputs(xs, gammas, betas, masks, params):
+    """The forward's 25 inputs as ``csrc/ca_f32.cu`` takes them: xq, xk,
+    xv, the eight [B, C] AdaLN vectors (q, k, v, 2; each gamma then beta),
+    the mask rows and the twelve parameters, f32 on their own storage
+    (another dtype raises ``ValueError``)."""
+    xq, xk, xv = xs
+    B, Nq, C = xq.shape
+    Nk = xk.shape[1]
+    dev, f32 = xq.device, torch.float32
+    _f32_params("ca_block", xk, xv, *params)
+    _cuda.check_cuda(xq, "xq", f32, (B, Nq, C))
+    _cuda.check_cuda(xk, "xk", f32, (B, Nk, C))
+    _cuda.check_cuda(xv, "xv", f32, (B, Nk, C))
+    (wq, bq, wk, bk, wv, bv, wproj, bproj, w1, bb1, w2, bb2) = params
+    hid = w1.shape[1]
+    conds = _f32_rows_of(
+        "ca_block", dev, B, C,
+        [t for pair in zip(gammas, betas) for t in pair],
+        [f"{k} {n}" for n in ("q", "k", "v", "2") for k in ("gamma",
+                                                            "beta")])
+
+    def mat(w, r, c, name):
+        return _cuda.to_kernel(w, dev, f32, (r, c), name)
+
+    return (*xs, *conds, *(_mask_rows(m, B, dev) for m in masks),
+            mat(wq, C, C, "wq"), _f32_vec(bq, dev, C, "bq"),
+            mat(wk, C, C, "wk"), _f32_vec(bk, dev, C, "bk"),
+            mat(wv, C, C, "wv"), _f32_vec(bv, dev, C, "bv"),
+            mat(wproj, C, C, "wproj"), _f32_vec(bproj, dev, C, "bproj"),
+            mat(w1, C, hid, "w_fc1"), _f32_vec(bb1, dev, hid, "b_fc1"),
+            mat(w2, hid, C, "w_fc2"), _f32_vec(bb2, dev, C, "b_fc2"))
+
+
+def _ca_fwd_f32_cuda(xs, gammas, betas, masks, params, num_heads, eps):
+    """Row 10f: one call of ``pmce_ca_fwd_f32`` (two launches: k and v a
+    chunk of each clip's keys, then q, the attention and the tail a chunk
+    of its queries); it keeps nothing for the gradient (row 11f
+    recomputes)."""
+    xq, xk, _ = xs
+    B, Nq, C = xq.shape
+    Nk = xk.shape[1]
+    hid = params[8].shape[1]
+    ins = _ca_f32_inputs(xs, gammas, betas, masks, params)
+    out = torch.empty_like(xq)
+    kv = torch.empty(2, B * Nk, C, device=xq.device, dtype=torch.float32)
+    _cuda.CA_F32.call("pmce_ca_fwd_f32", _cuda.ptr_table(*ins, out, kv),
+                      B, Nq, Nk, hid, num_heads, eps,
+                      1.0 / math.sqrt(C // num_heads),
+                      _cuda.stream_ptr(xq.device))
+    CA_FWD_F32_LAUNCHES.count += 1
+    return out
+
+
+def _ca_bwd_f32_cuda(gout, xs, gammas, betas, masks, params, num_heads, eps,
+                     need_masks: bool):
+    """Row 11f: one call of ``pmce_ca_bwd_f32`` (the weights' transposes,
+    the forward recomputed from xq, xk, xv, the gradient chain, dk / dv
+    over the queries with dxk / dxv, the weight gradients of each side and
+    the per-clip sums, every sum in a fixed order). Returns (dxq, dxk,
+    dxv), the eight [B, C] AdaLN vectors' gradients in the order gq, bq',
+    gk, bk', gv, bv', g2, b2, the twelve parameter gradients and (dm1,
+    dm2) (None, None unless ``need_masks``)."""
+    xq, xk, _ = xs
+    B, Nq, C = xq.shape
+    Nk = xk.shape[1]
+    hid = params[8].shape[1]
+    dev, f32 = xq.device, torch.float32
+    ins = _ca_f32_inputs(xs, gammas, betas, masks, params)
+    g = gout.to(f32).contiguous()
+    _cuda.check_cuda(g, "grad of the block output", f32, (B, Nq, C))
+    sq, sk = f32_wgrad_splits(B * Nq), f32_wgrad_splits(B * Nk)
+    ws = torch.empty(int(_cuda.CA_F32.query(
+        "pmce_ca_f32_workspace", B, Nq, Nk, hid, num_heads, max(sq, sk))),
+        device=dev, dtype=f32)
+    dxs = [torch.empty_like(t) for t in xs]
+    sums_q = torch.empty(B, 4 * C + 2, device=dev, dtype=f32)
+    sums_k = torch.empty(B, 4 * C, device=dev, dtype=f32)
+    dw = [torch.empty(r, c, device=dev, dtype=f32)
+          for r, c in ((C, C),) * 4 + ((C, hid), (hid, C))]
+    db_q = torch.empty(3 * C + hid, device=dev, dtype=f32)
+    db_k = torch.empty(2 * C, device=dev, dtype=f32)
+    _cuda.CA_F32.call("pmce_ca_bwd_f32", _cuda.ptr_table(
+        *ins, g, ws, *dxs, sums_q, sums_k, *dw, db_q, db_k), B, Nq, Nk, hid,
+        num_heads, eps, 1.0 / math.sqrt(C // num_heads), sq, sk,
+        int(need_masks), _cuda.stream_ptr(dev))
+    CA_BWD_F32_LAUNCHES.count += 1
+
+    def q(i):
+        return sums_q[:, i * C:(i + 1) * C]
+
+    def k(i):
+        return sums_k[:, i * C:(i + 1) * C]
+
+    dgb = (q(0), q(1), k(0), k(1), k(2), k(3), q(2), q(3))
+    dms = ((sums_q[:, 4 * C], sums_q[:, 4 * C + 1]) if need_masks
+           else (None, None))
+    grads = (dw[0], db_q[:C], dw[1], db_k[:C], dw[2], db_k[C:], dw[3],
+             db_q[C:2 * C], dw[4], db_q[2 * C:2 * C + hid], dw[5],
+             db_q[2 * C + hid:])
+    return tuple(dxs), dgb, grads, dms
+
+
+class _CaF32Kernel(torch.autograd.Function):
+    """The f32 CA block on the card: forward row 10f, backward row 11f
+    (``csrc/ca_f32.cu``). The forward keeps only its inputs; the backward
+    recomputes the rest, as JAX's ``_ca_block_bwd_kernel`` does, and sums
+    the mask gradients only where autograd asks for them."""
+
+    @staticmethod
+    def forward(ctx, xq, xk, xv, m1, m2, num_heads, eps, *rest):
+        gammas, betas, params = rest[:4], rest[4:8], rest[8:]
+        out = _ca_fwd_f32_cuda((xq, xk, xv), gammas, betas, (m1, m2), params,
+                               num_heads, eps)
+        ctx.cfg = (num_heads, eps)
+        ctx.save_for_backward(xq, xk, xv, m1, m2, *rest)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        num_heads, eps = ctx.cfg
+        xq, xk, xv, m1, m2, *rest = ctx.saved_tensors
+        gammas, betas, params = rest[:4], rest[4:8], rest[8:]
+        need_masks = ctx.needs_input_grad[3] or ctx.needs_input_grad[4]
+        dxs, dgb, grads, dms = _ca_bwd_f32_cuda(
+            gout, (xq, xk, xv), gammas, betas, (m1, m2), params, num_heads,
+            eps, need_masks)
+        # Back to the inputs' order: gammas (q, k, v, 2), then betas.
+        conds = [t for pair in zip(gammas, betas) for t in pair]
+        d = [a.reshape(t.shape) for a, t in zip(dgb, conds)]
+        return (*dxs, *_mask_grads((m1, m2), dms), None, None,
+                *d[0::2], *d[1::2],
+                *(a.reshape(t.shape) for a, t in zip(grads, params)))

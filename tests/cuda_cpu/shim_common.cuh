@@ -37,7 +37,7 @@ inline const char* cudaGetErrorString(cudaError_t) { return "shim error"; }
 namespace shim {
 struct Warp { std::barrier<> bar{32}; float buf[32]; };
 struct Block { std::barrier<>* bar; Warp* warps; unsigned char* smem; };
-inline thread_local dim3 tIdx, bIdx;
+inline thread_local dim3 tIdx, bIdx, gDim;
 inline thread_local Block* blk = nullptr;
 template <class K, class... A>
 void launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
@@ -52,7 +52,7 @@ void launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... arg
       std::vector<std::thread> ts;
       ts.reserve(nt);
       for (int t = 0; t < nt; ++t)
-        ts.emplace_back([&, t] { tIdx = dim3(t); bIdx = dim3(bx, by); blk = &b; kernel(args...); });
+        ts.emplace_back([&, t] { tIdx = dim3(t); bIdx = dim3(bx, by); gDim = grid; blk = &b; kernel(args...); });
       for (auto& t : ts) t.join();
       free(mem);
     }
@@ -60,6 +60,7 @@ void launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... arg
 }  // namespace shim
 #define threadIdx (shim::tIdx)
 #define blockIdx (shim::bIdx)
+#define gridDim (shim::gDim)
 inline void __syncthreads() { shim::blk->bar->arrive_and_wait(); }
 inline void __syncwarp() { shim::blk->warps[threadIdx.x / 32].bar.arrive_and_wait(); }
 inline float __shfl_sync(unsigned, float v, int src) {

@@ -1,8 +1,9 @@
 """The f32 training kernels' CUDA sources, built for the CPU, against the
 plain versions.
 
-``csrc/block_f32.cu`` (rows 6f / 7f) and ``csrc/mhsa_f32.cu`` (rows 4f /
-5f), with ``csrc/f32_ops.cuh``, are compiled by g++ over
+``csrc/block_f32.cu`` (rows 6f / 7f), ``csrc/mhsa_f32.cu`` (rows 4f / 5f),
+``csrc/ada_f32.cu`` (rows 8f / 9f) and ``csrc/ca_f32.cu`` (rows 10f /
+11f), with ``csrc/f32_ops.cuh``, are compiled by g++ over
 ``tests/cuda_cpu/shim_common.cuh`` (a thread block as OS threads; the
 sources' launches ``k<<<...>>>(...)`` rewritten as calls of the shim's
 launcher, ``extern __shared__`` as the block's buffer) and loaded in place
@@ -11,9 +12,10 @@ CPU tensors as on the card (``_on_card`` answering yes), so the host entry
 points, the pointer tables and the kernels' arithmetic are all exercised.
 Forward and every gradient (mask gradients included) within 1e-5 of the
 plain version's autograd, relative to each one's largest magnitude (f32 on
-both sides, sums in another order; measured ≤ 1.1e-6). It checks a source
-before its first call on the card; ``slow`` (~1 min: the build, 512
-threads a block).
+both sides, sums in another order; measured ≤ 1.1e-6; the CA block's key
+bias and key AdaLN beta, zero analytically, relative to the largest
+gradient). It checks a source before its first call on the card; ``slow``
+(~2 min: the builds, 256 or 512 threads a block).
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ def cpu_libs(tmp_path_factory):
         pytest.skip("needs g++")
     out = tmp_path_factory.mktemp("cuda_cpu")
     shutil.copy(SHIM, out / "common.cuh")
-    for name in ("block_f32.cu", "mhsa_f32.cu", "f32_ops.cuh"):
+    sources = ("block_f32", "mhsa_f32", "ada_f32", "ca_f32")
+    for name in (*(f"{n}.cu" for n in sources), "f32_ops.cuh"):
         text = (_cuda.CSRC / name).read_text()
         text = text.replace(
             "extern __shared__ __align__(16) unsigned char smem[];",
@@ -65,13 +68,13 @@ def cpu_libs(tmp_path_factory):
         ["g++", "-x", "c++", "-O2", "-std=c++20", "-fPIC", "-shared",
          "-pthread", "-w", "-o", str(out / f"lib{name}.so"),
          str(out / f"{name}.cu")], stderr=subprocess.PIPE, text=True)
-        for name in ("block_f32", "mhsa_f32")}
+        for name in sources}
     for name, proc in procs.items():
         _, err = proc.communicate()
         assert proc.returncode == 0, f"{name}.cu:\n{err}"
-    return {"BLOCK_F32": _CpuLibrary(_cuda.BLOCK_F32,
-                                     out / "libblock_f32.so"),
-            "MHSA_F32": _CpuLibrary(_cuda.MHSA_F32, out / "libmhsa_f32.so")}
+    return {name.upper(): _CpuLibrary(getattr(_cuda, name.upper()),
+                                      out / f"lib{name}.so")
+            for name in sources}
 
 
 def _as_card(libs, fn):
@@ -152,3 +155,74 @@ def test_mhsa_f32_sources_match_plain_on_the_cpu(cpu_libs, N, C, heads):
     assert counts == {"mhsa_fwd_f32": 1, "mhsa_bwd_f32": 1}
     for i, (a, b) in enumerate(zip(got, want)):
         assert a.shape == b.shape and _rel(a, b) <= TOL, (i, _rel(a, b))
+
+
+def _dec_masks(clips):
+    return tuple(torch.tensor([[[0.0]]] + [[[1.25]]] * (clips - 1))[perm]
+                 .requires_grad_(True) for perm in (
+                     list(range(clips)), [1, 0, *range(2, clips)]))
+
+
+def _check(got, want, counts, expect, zero=()):
+    assert counts == expect
+    largest = max(float(b.abs().max()) for b in want[1:])
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = (float((a - b).abs().max()) / largest if i - 1 in zero
+               else _rel(a, b))
+        assert a.shape == b.shape and err <= TOL, (i, err)
+
+
+@pytest.mark.parametrize("clips,N,heads,hid", [(2, 72, 2, 128),
+                                               (3, 70, 8, 64)])
+def test_ada_f32_source_matches_plain_on_the_cpu(cpu_libs, clips, N, heads,
+                                                 hid):
+    """Rows 8f / 9f: two chunks of each clip (64 rows, then the rest),
+    masks that require grad (each branch dropped for one clip)."""
+    rng = np.random.default_rng(N)
+    C = 64
+    x = _t(rng, clips, N, C)
+    gb = [_t(rng, clips, C, scale=0.1, offset=1.0 - i % 2) for i in range(4)]
+    params = [_t(rng, C, 3 * C, scale=C ** -0.5), _t(rng, 3 * C, scale=0.05),
+              _t(rng, C, C, scale=C ** -0.5), _t(rng, C, scale=0.05),
+              _t(rng, C, hid, scale=C ** -0.5), _t(rng, hid, scale=0.05),
+              _t(rng, hid, C, scale=hid ** -0.5), _t(rng, C, scale=0.05)]
+    masks = _dec_masks(clips)
+    g = _t(rng, clips, N, C, grad=False)
+    leaves = [x, *gb, *params, *masks]
+
+    def step(block):
+        y = block(x, *gb, params, heads, 1e-6, masks)
+        return (y, *torch.autograd.grad(y, leaves, g))
+
+    got, counts = _as_card(cpu_libs, lambda: step(fa.ada_block))
+    _check(got, step(fa.ada_block_plain), counts,
+           {"ada_fwd_f32": 1, "ada_bwd_f32": 1})
+
+
+@pytest.mark.parametrize("Nq,Nk,heads,hid", [(17, 72, 8, 128),
+                                             (72, 17, 2, 64)])
+def test_ca_f32_source_matches_plain_on_the_cpu(cpu_libs, Nq, Nk, heads,
+                                                hid):
+    """Rows 10f / 11f in both orientations (the long side in two chunks),
+    masks that require grad."""
+    rng = np.random.default_rng(Nq + 2 * Nk)
+    C, clips = 64, 2
+    xs = [_t(rng, clips, n, C) for n in (Nq, Nk, Nk)]
+    conds = [_t(rng, clips, C, scale=0.1, offset=1.0 - i % 2)
+             for i in range(8)]
+    params = [t for _ in range(4) for t in (
+        _t(rng, C, C, scale=C ** -0.5), _t(rng, C, scale=0.05))]
+    params += [_t(rng, C, hid, scale=C ** -0.5), _t(rng, hid, scale=0.05),
+               _t(rng, hid, C, scale=hid ** -0.5), _t(rng, C, scale=0.05)]
+    masks = _dec_masks(clips)
+    g = _t(rng, clips, Nq, C, grad=False)
+    leaves = [*xs, *conds, *params, *masks]
+
+    def step(block):
+        y = block(*xs, conds[0::2], conds[1::2], params, heads, 1e-6, masks)
+        return (y, *torch.autograd.grad(y, leaves, g))
+
+    got, counts = _as_card(cpu_libs, lambda: step(fa.ca_block))
+    # Leaves 6 and 14: the keys' AdaLN beta and bias.
+    _check(got, step(fa.ca_block_plain), counts,
+           {"ca_fwd_f32": 1, "ca_bwd_f32": 1}, zero=(6, 14))

@@ -12,8 +12,9 @@ The kernels themselves run only on the card; here:
   mask gradients only when owed); ``fused_mhsa`` in f32 with and without a
   gradient reaches rows 4f / 5f; no plain version runs on the card but
   JAX's own one (the block over 64 tokens); f32 shapes outside the kernels'
-  gates raise naming ROADMAP.md B3, the AdaLN and CA blocks in f32 naming
-  B2b, mixed and other dtypes raise;
+  gates raise naming ROADMAP.md B3, mixed and other dtypes raise (the
+  AdaLN and CA blocks' f32 routes, rows 8f-11f:
+  ``test_torch_port_f32_decoder.py``);
 - the f32 lifter in training mode with drop path 0.2: the fused route (the
   whole block one ``transformer_block`` call, masks as branch scales) and
   the modular route give the same loss and gradients from the same
@@ -293,46 +294,6 @@ def test_mhsa_f32_with_bf16_weights_raises():
     with torch.no_grad(), pytest.raises(ValueError, match="f32 parameters"):
         _run(_on_card(mock.patch.object(_cuda.MHSA_F32, "call")),
              lambda: fa.fused_mhsa(x, wqkv.bfloat16(), bqkv, wproj, bproj, 8))
-
-
-def _ada_args(B, N, c, hid, grad):
-    rng = np.random.default_rng(B + N)
-
-    def t(*shape, scale=0.1, offset=0.0):
-        a = (rng.normal(size=shape) * scale + offset).astype(np.float32)
-        return torch.from_numpy(a).requires_grad_(grad)
-
-    gb = (t(B, c, offset=1.0), t(B, c), t(B, c, offset=1.0), t(B, c))
-    params = (t(c, 3 * c), t(3 * c), t(c, c), t(c), t(c, hid), t(hid),
-              t(hid, c), t(c))
-    return t(B, N, c, scale=1.0), gb, params
-
-
-@pytest.mark.parametrize("kind", ["ada", "ca"])
-def test_decoder_blocks_in_f32_raise_naming_b2b(kind):
-    """The AdaLN and CA blocks' f32 kernels (rows 8f-11f) are queued: f32
-    tokens raise naming ROADMAP.md B2b, with and without a gradient; no
-    kernel and no plain version runs."""
-    launch = mock.Mock()
-    stubs = _on_card(mock.patch.object(_cuda.ADA, "call", launch),
-                     mock.patch.object(_cuda.CA, "call", launch),
-                     *_no_plain())
-    for grad in (False, True):
-        x, gb, params = _ada_args(2, 72, 64, 256, grad)
-        if kind == "ada":
-            def fn():
-                return fa.ada_block(x, *gb, params, 2)
-        else:
-            xk, gbk, kp = _ada_args(2, 431, 64, 256, grad)
-            ca_params = (kp[2], kp[3], kp[2], kp[3], kp[2], kp[3], *kp[2:])
-
-            def fn():
-                return fa.ca_block(x, xk, xk, (*gb, gb[0]), (*gbk, gbk[1]),
-                                   ca_params, 2)
-        with pytest.raises(NotImplementedError,
-                           match=r"rows 8f-11f.*ROADMAP\.md B2b"):
-            _run(stubs, fn)
-    assert launch.call_count == 0
 
 
 # ------------------------------------------------ the lifter in training

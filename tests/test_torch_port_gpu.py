@@ -691,22 +691,59 @@ def test_mhsa_f32_kernels_match_plain(no_tf32, N):
                {"mhsa_fwd_f32": 1, "mhsa_bwd_f32": 1})
 
 
-def test_f32_stage2_training_still_refuses_at_the_decoder_blocks(no_tf32):
-    """f32 Stage-2 training reaches the decoder's AdaLN and CA blocks,
-    whose f32 kernels (rows 8f-11f) are queued: ``ada_block`` in f32 with a
-    gradient raises naming ROADMAP.md B2b, nothing launches and no plain
-    version runs."""
+def _f32_dec_call(kind, heads, masks):
+    if kind == "ada":
+        return lambda fn, x, g1, b1, g2, b2, *p: fn(
+            x, g1, b1, g2, b2, p, heads, 1e-6, masks)
+    return lambda fn, xq, xk, xv, *rest: fn(
+        xq, xk, xv, rest[0:8:2], rest[1:8:2], rest[8:], heads, 1e-6, masks)
+
+
+@pytest.mark.parametrize("mask_grad", [False, True],
+                         ids=["masks", "mask-grad"])
+@pytest.mark.parametrize("kind,shape", [
+    ("ada", (32, 431, 64, 2)), ("ca", (32, 17, 64, 8, 431)),
+    ("ca", (32, 431, 64, 2, 17))], ids=str)
+def test_decoder_f32_kernels_match_plain(no_tf32, kind, shape, mask_grad):
+    """Rows 8f-11f at the f32 Stage-2 shapes (the vertex stream's AdaLN
+    block; the CA block in both orientations), hid 256, per-clip branch
+    masks at rate 0.2, without and with their gradient: one
+    ``{ada,ca}_fwd_f32`` and one ``{ada,ca}_bwd_f32`` call against the plain
+    version's autograd (output within ``F32_REL_TOL``, every gradient
+    within ``F32_GRAD_REL_TOL`` of its own largest magnitude; the CA block's
+    key bias and key AdaLN beta, zero analytically, of the largest
+    gradient), a rerun bit for bit."""
     dev = _card()
-    rng = np.random.default_rng(9)
-    leaves, call, (kernel, _) = _dec_case(rng, dev, "ada", (2, 72, 64, 2))
-    f32 = [t.detach().float().requires_grad_(True) for t in leaves]
+    rng = np.random.default_rng([len(kind), *shape, mask_grad])
+    leaves, _, _ = _dec_case(rng, dev, kind, shape)
+    leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    masks = tuple(torch.from_numpy(((rng.random((shape[0], 1, 1)) < 0.8)
+                                    / 0.8).astype(np.float32)).to(dev)
+                  .requires_grad_(mask_grad) for _ in range(2))
+    call = _f32_dec_call(kind, shape[3], masks)
+    kernel, plain = ((fa.ada_block, fa.ada_block_plain) if kind == "ada"
+                     else (fa.ca_block, fa.ca_block_plain))
+    every = leaves + (list(masks) if mask_grad else [])
+    g = _rand(rng, dev, *leaves[0].shape)
     _cuda.reset_launch_counts()
-    with mock.patch.object(fa, "ada_block_plain",
-                           side_effect=AssertionError("plain ran")), \
-            pytest.raises(NotImplementedError,
-                          match=r"rows 8f-11f.*ROADMAP\.md B2b"):
-        call(kernel, *f32)
-    assert not any(_cuda.launch_counts().values())
+    y = call(kernel, *leaves)
+    grads = torch.autograd.grad(y, every, g)
+    assert {k: v for k, v in _cuda.launch_counts().items() if v} == {
+        f"{kind}_fwd_f32": 1, f"{kind}_bwd_f32": 1}
+    y2 = call(kernel, *leaves)
+    again = torch.autograd.grad(y2, every, g)
+    yp = call(plain, *leaves)
+    want = torch.autograd.grad(yp, every, g)
+    assert y.dtype == torch.float32 and torch.equal(y, y2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert _rel(yp, y) < F32_REL_TOL
+    largest = max(float(t.abs().max()) for t in want)
+    zero = (6, 14) if kind == "ca" else ()
+    for i, (a, b) in enumerate(zip(grads, want)):
+        assert a.shape == b.shape
+        err = (float((a - b).abs().max()) / largest if i in zero
+               else _rel(b, a))
+        assert err < F32_GRAD_REL_TOL, (i, err)
 
 
 @pytest.mark.parametrize("V", [6890, 6889])
@@ -1138,11 +1175,16 @@ def test_ada_forward_grid_fits_the_card_in_one_wave():
 
 
 def test_decoder_attention_kernels_refuse_f32_on_card():
+    """f32 tokens now run the f32 kernels (rows 8f-11f), which take f32
+    AdaLN vectors: f32 tokens with the bf16 case's AdaLN vectors raise
+    ``ValueError`` and launch nothing."""
     dev = _card()
     rng = np.random.default_rng(9)
     leaves, call, (kernel, _) = _dec_case(rng, dev, "ada", (2, 72, 64, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    _cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="f32"):
         call(kernel, leaves[0].float(), *leaves[1:])
+    assert not any(_cuda.launch_counts().values())
 
 
 # ------------------------------------------------- the whole-block kernel
