@@ -157,7 +157,9 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    spatial [4096, 19, 256] and temporal [4864, 16, 256] shapes with the
    post-norm, the chain and the whole block at B = 256) against their
    plain versions within ``F32_KERNEL_REL_TOL``, reruns bit for bit, timed
-   beside their bounds at the f32 CUDA-core peak, row 6's beside
+   beside their bounds at the f32 CUDA-core peak (row 6f's products are
+   3xTF32: its bound at that rate on the tensor cores, its FFMA bound
+   printed beside it), row 6's beside
    ``nn.TransformerEncoder`` in f32 on its no-grad path; (b)
    ``create_pmce(num_joint=19, dtype=None, fused=True)`` at full width,
    phase 3's weights and inputs, the counters zeroed just before and read
@@ -180,7 +182,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    64] and [32, 19, 64] against the plain versions' autograd (outputs
    within ``F32_KERNEL_REL_TOL``, every gradient within
    ``F32_GRAD_REL_TOL`` of its own largest magnitude), reruns bit for bit,
-   timed beside their f32 bounds and ``nn.TransformerEncoder`` /
+   timed beside their f32 bounds (rows 6f / 7f: 3xTF32's, with the FFMA
+   bound beside) and ``nn.TransformerEncoder`` /
    ``F.multi_head_attention_forward`` in f32 with their backwards; (c)
    phase 4's cell in f32 (``compute_dtype`` float32, ``fused_attn`` on):
    synthesis, ``Trainer.fit`` 2 x 25 steps counted (exactly
@@ -465,8 +468,13 @@ F32_STAGE2_EVAL = {"block_fwd_f32": 6, "coevo_chain_f32": 1}
 # The Stage-1 config the f32 train CLI runs (rewritten to f32 + fused).
 STAGE1_CFG = REPO / "configs" / "train_pose_h36m.yml"
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 on
-# the tensor cores, f32 on the CUDA cores, and the HBM rate.
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# the tensor cores, f32 on the CUDA cores, f32 work as three TF32 products
+# on the tensor cores (495 TFLOP/s TF32 / 3: rows 6f / 7f, whose products
+# are 3xTF32), and the HBM rate.
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 495e12 / 3}
+# The f32 kernels whose products run as 3xTF32 on the tensor cores: their
+# bound is at that rate, their f32 FFMA bound printed beside it.
+TF32X3_KERNELS = ("block_fwd_f32", "block_bwd_f32")
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -552,6 +560,10 @@ def record(rows, name, err, ms, plain_ms, flops, nbytes, peak) -> None:
     print(f"[kernels] {name}: bound {bound_ms:.4f} ms by {by} "
           f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
           f"{bound_ms / ms:.1%} of it", flush=True)
+    if peak == "tf32x3":
+        ffma_ms, _ = bound(flops, nbytes, "f32")
+        print(f"[kernels] {name}: f32 FFMA bound {ffma_ms:.4f} ms (the bound "
+              f"above is 3xTF32's on the tensor cores)", flush=True)
     row = rows.setdefault(name, {"max_abs_err": 0.0})
     row["max_abs_err"] = max(row["max_abs_err"], err)
     for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
@@ -3103,7 +3115,8 @@ def f32_kernel_rows(device, rows) -> None:
             raise RuntimeError(f"{name} {label}: kernel disagrees with its "
                                f"plain version ({rel})")
         record(rows, name, err, ms, plain_ms, flops,
-               tensor_bytes(args, outs_k), "f32")
+               tensor_bytes(args, outs_k),
+               "tf32x3" if name in TF32X3_KERNELS else "f32")
         return outs_p[0]
 
     rng = np.random.default_rng(12)
@@ -3385,10 +3398,10 @@ def f32_training_kernels(device, rows) -> None:
               f"ms (plain {pb_ms:.4f}), TF32 off, on {card}", flush=True)
         record(rows, "block_fwd_f32", err_f, fwd_ms, pf_ms,
                count_flops(lambda: fwd(fa.transformer_block_plain)),
-               tensor_bytes(x, params, masks, yk), "f32")
+               tensor_bytes(x, params, masks, yk), "tf32x3")
         record(rows, "block_bwd_f32", err_b, bwd_ms, pb_ms,
                count_flops(lambda: bwd(yp)),
-               tensor_bytes(g, x, params, masks, gk), "f32")
+               tensor_bytes(g, x, params, masks, gk), "tf32x3")
         enc = library_encoder(x, params).train()
         xin = x.detach().requires_grad_(True)
         lib_f = median_ms(lambda: enc(xin))

@@ -85,6 +85,57 @@ __device__ __forceinline__ unsigned pack_bf2(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
+// ---------------------------------------------------------------------------
+// 3xTF32 products (mma.sync m16n8k8, tf32 operands, f32 sums). An f32 value
+// v is split as hi = tf32(v), rounded to nearest with ties away from zero
+// (cvt.rna's rounding, done as an integer add and mask: finite v), and lo =
+// v - hi, exact in f32, of which the tensor cores read the top 19 bits; a
+// product sums a_lo b_hi + a_hi b_lo + a_hi b_hi. Fragments of the 16 x 8 A
+// tile (row): a[0] at (lane / 4, lane % 4), a[1] 8 rows down, a[2] and a[3]
+// 4 columns right of those; of the 8 x 8 B tile (col): b0 at (k = lane % 4,
+// n = lane / 4), b1 4 rows down; the accumulator as the bf16 product's
+// above.
+// (Namespace tc32: the bf16 sources' pmce:: has cp.async helpers of the
+// same names.)
+// ---------------------------------------------------------------------------
+namespace tc32 {
+
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi,
+                                           unsigned& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d += a (16 x 8, row) * b (8 x 8, col), one tf32 product.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from device memory to shared memory, asynchronously (cp.async,
+// cached in L2 only); a thread's copies since its last commit form a group,
+// and cp_async_wait_all waits for all of its groups (then a block barrier
+// makes every thread's copies visible). The source goes as a global-space
+// address and the copy is a compiler memory barrier: without both, a
+// precomputed-offset copy loop faulted on the H100.
+__device__ __forceinline__ void cp_async16(void* smem, const void* global) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :
+               : "r"(smem_addr(smem)), "l"(__cvta_generic_to_global(global))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+}  // namespace tc32
+
 #define PMCE_EXPORT_ERROR_STRING(name)                       \
   extern "C" const char* name(int code) {                    \
     return cudaGetErrorString(static_cast<cudaError_t>(code)); \

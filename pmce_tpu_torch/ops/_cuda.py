@@ -255,13 +255,14 @@ CA = CudaLibrary("ca_block", "pmce_ca_block_error_string", {
     "pmce_ca_wgrad": (I, (P, I, I, I, I, I, P)),
 })
 # The f32 block: row 6f's forward (a table of its 18 pointers, clips, N,
-# hid, eps, post_eps, qscale, stream) and row 7f's backward (a table of its
-# 44 pointers, the same integers and floats, the weight gradients' row
-# ranges, stream); the chain and the whole block in f32 (the bf16 entry
-# points' arguments; the workspace takes J and V).
+# hid, eps, post_eps, qscale, the persistent CTAs, stream) and row 7f's
+# backward (a table of its 44 pointers, the same integers and floats, the
+# weight gradients' row ranges, the persistent CTAs, stream); the chain and
+# the whole block in f32 (the bf16 entry points' arguments; the workspace
+# takes J and V).
 BLOCK_F32 = CudaLibrary("block_f32", "pmce_block_f32_error_string", {
-    "pmce_block_fwd_f32": (I, (P, I, I, I, F, F, F, P)),
-    "pmce_block_bwd_f32": (I, (P, I, I, I, F, F, F, I, P)),
+    "pmce_block_fwd_f32": (I, (P, I, I, I, F, F, F, I, P)),
+    "pmce_block_bwd_f32": (I, (P, I, I, I, F, F, F, I, I, P)),
 })
 # Rows 4f / 5f, the self-attention in f32: the forward (a table of its 8
 # pointers, clips, N, C, heads, qscale, stream) and the backward (a table of

@@ -37,6 +37,7 @@ rounding (``fused_attention.py:195-206`` of the JAX package).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -640,20 +641,21 @@ def _block_fwd_cuda(x, params, m1, m2, num_heads, eps, post_eps,
 def _block_fwd_f32_cuda(x, params, m1, m2, num_heads, eps, post_eps,
                         w=None):
     """The f32 forward in one launch of ``csrc/block_f32.cu``'s program
-    (row 6f), with the per-clip branch masks m1 / m2 or without (None):
-    writes only the output, nothing for the gradient (row 7f recomputes
-    it from x). ``w``: the parameters as :class:`_BlockWeights` already
-    made, or None."""
+    (row 6f) on :func:`f32_block_plan`'s persistent CTAs, with the
+    per-clip branch masks m1 / m2 or without (None): writes only the
+    output, nothing for the gradient (row 7f recomputes it from x). ``w``:
+    the parameters as :class:`_BlockWeights` already made, or None."""
     B, N, C, hid = _block_checks(x, params, num_heads)
     dev = x.device
     w = w or _BlockWeights(params, C, hid, dev, True)
     out = torch.empty_like(x)
+    plan = f32_block_plan(B, N, _block_f32_resident(dev))
     _cuda.BLOCK_F32.call("pmce_block_fwd_f32", _cuda.ptr_table(
         x, out, w.wqkv, w.wproj, w.w1, w.w2, w.g1, w.b1, w.bqkv, w.bproj,
         w.g2, w.b2, w.bb1, w.bb2, w.gp if w.post else None,
         w.bp if w.post else None, _mask_rows(m1, B, dev),
         _mask_rows(m2, B, dev)), B, N, hid, eps, post_eps,
-        1.0 / math.sqrt(C // num_heads), _cuda.stream_ptr(dev))
+        1.0 / math.sqrt(C // num_heads), plan.ctas, _cuda.stream_ptr(dev))
     BLOCK_FWD_F32_LAUNCHES.count += 1
     return out
 
@@ -781,8 +783,8 @@ def block_bwd_stage_split(x, params, num_heads: int, branch_masks=None,
     return {**dict(zip(BLOCK_BWD_STAGES, total)), "tiles": tiles}
 
 
-# Row 7f's tiles (csrc/block_f32.cu, bf32::TR: whole clips up to 64 rows)
-# and the f32 weight gradients' fixed row ranges: one for every
+# Rows 6f / 7f's tiles (csrc/block_f32.cu, bf32::TR: whole clips up to 64
+# rows) and the f32 weight gradients' fixed row ranges: one for every
 # _F32_WGRAD_ROWS rows, at most _F32_WGRAD_SPLITS (16 at Stage 1's 17,408
 # rows: 2,048 CTAs over the 128 tiles of 64 x 64; 8 at row 5f's 544: 32
 # CTAs over its 4 tiles).
@@ -796,12 +798,53 @@ def f32_wgrad_splits(M: int) -> int:
     return max(1, min(_F32_WGRAD_SPLITS, M // _F32_WGRAD_ROWS))
 
 
+class BlockF32Plan(NamedTuple):
+    """Rows 6f / 7f's persistent grid: ``ctas`` CTAs, CTA i owning the
+    tiles ``tiles[i]`` ((first clip, clips) each: whole clips, at most 64
+    rows), ``rounds`` the most tiles a CTA takes."""
+    ctas: int
+    tiles: tuple
+    rounds: int
+
+
+@functools.lru_cache(maxsize=64)
+def f32_block_plan(clips: int, N: int, resident: int | None) -> BlockF32Plan:
+    """Spread ``clips`` clips of N tokens over whole waves, as
+    ``csrc/block_f32.cu``'s ``Tiles`` does: min(tiles of whole clips,
+    ``resident`` co-resident CTAs) CTAs (``resident`` None: a CTA a tile),
+    CTA i taking the clips [floor(clips i / G), floor(clips (i + 1) / G))
+    in tiles of 64 // N clips, the last of them shorter. The CTAs' shares
+    differ by one clip at most."""
+    if clips < 1 or not 1 <= N <= _F32_TILE_ROWS:
+        raise ValueError(f"f32_block_plan: {clips} clips of {N} tokens")
+    per = _F32_TILE_ROWS // N
+    tiles = -(-clips // per)
+    ctas = tiles if resident is None else max(1, min(tiles, resident))
+    owned = []
+    for i in range(ctas):
+        begin, end = clips * i // ctas, clips * (i + 1) // ctas
+        owned.append(tuple((c, min(per, end - c))
+                           for c in range(begin, end, per)))
+    return BlockF32Plan(ctas, tuple(owned), max(len(t) for t in owned))
+
+
+def _block_f32_resident(device) -> int | None:
+    """The CTAs of rows 6f / 7f the card holds at once: one an SM (each
+    takes 226-227 KB of shared memory). A CPU tensor reaches the launch
+    only through a build of the source for the host, whose CTAs run one
+    after another: None, a CTA a tile."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _block_bwd_f32_cuda(gout, x, params, m1, m2, num_heads, eps, post_eps,
                         need_masks: bool, w=None):
     """Row 7f: the f32 backward of ``csrc/block_f32.cu`` in one call
-    (``pmce_block_bwd_f32``: the weights' transposes, the tile program that
-    recomputes the forward from x and runs the gradient chain, the weight
-    gradients with the vector gradients' fixed-order sums). The workspace
+    (``pmce_block_bwd_f32``: the weights' transposes, the tile program on
+    :func:`f32_block_plan`'s persistent CTAs, which recomputes the forward
+    from x and runs the gradient chain, the weight gradients with the
+    vector gradients' fixed-order sums over the CTAs). The workspace
     (the recomputed activations and the weight products' operands, ~17 KB
     a row at C 256, hid 512) lives for the call. Returns dx, the 14
     parameter gradients (f32) and the per-clip mask gradients (None, None
@@ -814,7 +857,7 @@ def _block_bwd_f32_cuda(gout, x, params, m1, m2, num_heads, eps, post_eps,
     gout = gout.to(f32).contiguous()
     _cuda.check_cuda(gout, "grad of the block output", f32, (B, N, C))
     voff, L = _block_vec_layout(C, hid)
-    tiles = -(-B // (_F32_TILE_ROWS // N))
+    ctas = f32_block_plan(B, N, _block_f32_resident(dev)).ctas
     splits = f32_wgrad_splits(M)
     mats = ((C, 3 * C), (C, C), (C, hid), (hid, C))
 
@@ -827,7 +870,7 @@ def _block_bwd_f32_cuda(gout, x, params, m1, m2, num_heads, eps, post_eps,
     branches = (buf(M, C), buf(M, C)) if need_masks else (None, None)
     dys = (buf(M, 3 * C), buf(M, C), buf(M, hid), buf(M, C))
     dx = torch.empty_like(x)
-    part = buf(tiles, L)
+    part = buf(ctas, L)
     dm1, dm2 = (buf(B), buf(B)) if need_masks else (None, None)
     wpart = buf(splits, sum(r * c for r, c in mats) // 4096, 4096)
     dw = tuple(buf(r, c) for r, c in mats)
@@ -838,7 +881,7 @@ def _block_bwd_f32_cuda(gout, x, params, m1, m2, num_heads, eps, post_eps,
         w.bp if w.post else None, _mask_rows(m1, B, dev),
         _mask_rows(m2, B, dev), *wt, *acts, *branches, *dys, dx, part, dm1,
         dm2, wpart, *dw, vec), B, N, hid, eps, post_eps,
-        1.0 / math.sqrt(C // num_heads), splits, _cuda.stream_ptr(dev))
+        1.0 / math.sqrt(C // num_heads), splits, ctas, _cuda.stream_ptr(dev))
     BLOCK_BWD_F32_LAUNCHES.count += 1
 
     def v(name, n):

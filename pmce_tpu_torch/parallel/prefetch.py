@@ -41,7 +41,7 @@ def to_device(batch: dict, device, bf16_features: bool = False,
     return out
 
 
-def prefetch_to_device(iterator: Iterable, size: int = 2, device="cpu",
+def prefetch_to_device(iterator: Iterable, size: int = 2, device="cuda",
                        bf16_features: bool = False) -> Iterator[dict]:
     """Yield the batches of ``iterator`` on ``device``, ``size`` ahead.
 

@@ -27,6 +27,8 @@ using std::min; using std::max;
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3() {} dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return float2{a, b}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -35,7 +37,7 @@ template <class F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute,
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "shim error"; }
 namespace shim {
-struct Warp { std::barrier<> bar{32}; float buf[32]; };
+struct Warp { std::barrier<> bar{32}; float buf[32]; unsigned fa[32][4], fb[32][2]; };
 struct Block { std::barrier<>* bar; Warp* warps; unsigned char* smem; };
 inline thread_local dim3 tIdx, bIdx, gDim;
 inline thread_local Block* blk = nullptr;
@@ -78,5 +80,43 @@ inline float warp_sum(float v) {
   return v;
 }
 inline float gelu_erf(float v) { return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f)); }
+inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
+namespace tc32 {
+// The kernels' 3xTF32 split (csrc/common.cuh): hi to nearest TF32, ties
+// away from zero, lo = v - hi with all its bits (the mma reads the top 19).
+inline void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+// mma.sync m16n8k8 tf32 as a scalar loop over the documented fragment
+// layout: the warp's 32 fragments gathered, each lane's four sums from the
+// 16 x 8 A and 8 x 8 B tiles (operands' low 13 bits ignored, as the tensor
+// cores do), f32 products added in k order.
+inline void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  auto& w = shim::blk->warps[threadIdx.x / 32];
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) w.fa[lane][i] = a[i];
+  w.fb[lane][0] = b0;
+  w.fb[lane][1] = b1;
+  w.bar.arrive_and_wait();
+  auto tf = [](unsigned u) { return __uint_as_float(u & ~0x1fffu); };
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + (i >> 1) * 8, col = 2 * t + (i & 1);
+    float s = d[i];
+    for (int k = 0; k < 8; ++k) {
+      const float av = tf(w.fa[(row & 7) * 4 + (k & 3)][(row >> 3) + (k >> 2) * 2]);
+      const float bv = tf(w.fb[col * 4 + (k & 3)][k >> 2]);
+      s += av * bv;
+    }
+    d[i] = s;
+  }
+  w.bar.arrive_and_wait();
+}
+// cp.async as a plain copy: the wait is then the block barrier after it.
+inline void cp_async16(void* smem, const void* global) { memcpy(smem, global, 16); }
+inline void cp_async_commit() {}
+inline void cp_async_wait_all() {}
+}  // namespace tc32
 #define PMCE_EXPORT_ERROR_STRING(name) \
   extern "C" const char* name(int code) { return "shim error"; }
