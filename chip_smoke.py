@@ -202,7 +202,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    versions' autograd with branch masks at rate 0.2, without and with
    their gradient (outputs within ``F32_KERNEL_REL_TOL``, every gradient
    within ``F32_GRAD_REL_TOL`` of its own largest magnitude), reruns bit
-   for bit, timed beside their f32 bounds; (b) phase 6's cell in f32
+   for bit, timed beside their f32 bounds (rows 9f / 11f: 3xTF32's, with
+   the FFMA bound beside); (b) phase 6's cell in f32
    (``compute_dtype`` float32, ``fused_attn`` on, phase 6's cuts and warm
    start): ``Trainer.fit`` 2 x 25 steps counted (exactly
    ``F32_STAGE2_STEP`` a step, ``F32_STAGE2_EVAL`` an evaluation batch,
@@ -469,12 +470,13 @@ F32_STAGE2_EVAL = {"block_fwd_f32": 6, "coevo_chain_f32": 1}
 STAGE1_CFG = REPO / "configs" / "train_pose_h36m.yml"
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 on
 # the tensor cores, f32 on the CUDA cores, f32 work as three TF32 products
-# on the tensor cores (495 TFLOP/s TF32 / 3: rows 6f / 7f, whose products
-# are 3xTF32), and the HBM rate.
+# on the tensor cores (495 TFLOP/s TF32 / 3: rows 6f / 7f, 9f and 11f,
+# whose products are 3xTF32), and the HBM rate.
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 # The f32 kernels whose products run as 3xTF32 on the tensor cores: their
 # bound is at that rate, their f32 FFMA bound printed beside it.
-TF32X3_KERNELS = ("block_fwd_f32", "block_bwd_f32")
+TF32X3_KERNELS = ("block_fwd_f32", "block_bwd_f32", "ada_bwd_f32",
+                  "ca_bwd_f32")
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -3622,7 +3624,8 @@ def f32_decoder_kernels(device, rows) -> None:
     ``F32_KERNEL_REL_TOL``, every gradient within ``F32_GRAD_REL_TOL`` of
     its own largest magnitude (the CA block's key bias and key AdaLN beta,
     zero analytically, of the largest gradient), reruns bit for bit, timed
-    with CUDA events beside the f32 bound and the plain version."""
+    with CUDA events beside the f32 bound (the backwards: 3xTF32's, the
+    FFMA bound printed beside it) and the plain version."""
     import numpy as np
     import torch
 
@@ -3689,9 +3692,11 @@ def f32_decoder_kernels(device, rows) -> None:
             record(rows, f"{kind}_fwd_f32", err_f, fwd_ms, pf_ms,
                    count_flops(lambda: call(plain, *leaves)),
                    tensor_bytes(leaves, call.masks, yk), "f32")
-            record(rows, f"{kind}_bwd_f32", err_b, bwd_ms, pb_ms,
+            name = f"{kind}_bwd_f32"
+            record(rows, name, err_b, bwd_ms, pb_ms,
                    count_flops(lambda: bwd(yp)),
-                   tensor_bytes(g, leaves, call.masks, gk), "f32")
+                   tensor_bytes(g, leaves, call.masks, gk),
+                   "tf32x3" if name in TF32X3_KERNELS else "f32")
             call.masks = masks
             del yk, yp, gk, gp, y2
         del leaves, g

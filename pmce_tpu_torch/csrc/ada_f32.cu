@@ -15,46 +15,51 @@
 // MLP of up to 256 hidden units. Its path is f32 Stage-2 training:
 // [32, 431, 64] in 2 heads of 32.
 //
-// Products in true f32 (FFMA on the CUDA cores, no TF32; see
-// csrc/block_f32.cu): the kernels differ from the plain version only in the
-// order of their sums.
+// Products: the forward (pmce_ada_fwd_f32) in true f32, FFMA on the CUDA
+// cores (csrc/f32_ops.cuh, namespace dec); the backward (pmce_ada_bwd_f32)
+// in 3xTF32 on the tensor cores (csrc/dec_tc32.cuh) but for its first rows
+// launch (the forward's) and the weight gradients (FFMA). Both differ from
+// the plain version only in the order of their sums and, in the backward,
+// the tensor cores' products (<= 1.1e-6 of the gradients in the CPU
+// model).
 //
-// Plan (csrc/f32_ops.cuh, namespace dec): one f32 [431, 64] buffer is 110
-// KB, so a clip's x, K and V (~331 KB) do not fit in one SM's shared
-// memory. Every launch is a grid of chunks of 64 rows of one clip
-// (ceil(N / 64) chunks a clip, 224 CTAs at [32, 431]); the clip's keys and
-// values stream from device memory (L2-resident: 10.6 MB at [32, 431])
-// in chunks of 64 rows.
-//
-// Forward (pmce_ada_fwd_f32), two launches:
+// Forward (pmce_ada_fwd_f32), two launches, a grid of chunks of 64 rows of
+// one clip (one f32 [431, 64] buffer is 110 KB, so a clip's x, K and V do
+// not fit one SM's shared memory; the clip's keys and values stream from
+// device memory, L2-resident, in chunks of 64 rows):
 // - rows: AdaLN1 and qkv = h1 Wqkv + bqkv (q scaled) into the workspace;
 // - chunks: the chunk's queries against the clip's keys (an online
 //   softmax, a warp a row), then the tail (proj, x1, AdaLN2, MLP, y).
 // It saves nothing for the gradient: the backward recomputes the forward
 // from x, as JAX's `_ada_block_bwd_kernel` does ("recompute in VMEM").
 //
-// Backward (pmce_ada_bwd_f32), seven launches, no atomics (a rerun gives
-// the same bits):
+// Backward (pmce_ada_bwd_f32), ten launches, no atomics (a rerun gives the
+// same bits); the five programs are persistent grids of min(items, ctas)
+// CTAs over tiles of 128 rows of a clip (4 a clip at 431 rows: 128 CTAs,
+// one wave on 132 SMs; csrc/dec_tc32.cuh):
 // 1. the four weights transposed (f32_ops.cuh);
-// 2. rows: the forward's first launch, keeping h1;
-// 3. chunks: the forward's attention and tail, keeping o, the softmax max
-//    and sum, h2, hh, ge; then the gradient chain down to the attention
-//    (m2g, the MLP's and AdaLN2's backwards, dx1, da, dO, D) and the
-//    chunk's dq over every key of the clip;
-// 4. key chunks: dk and dv of the chunk's keys over every query of the
-//    clip (P and dS recomputed from the saved max, sum and D);
-// 5. rows: dh1 = dqkv Wqkv^T, AdaLN1's backward, dx = dx1 + AdaLN1^T(dh1);
-// 6. the weight gradients dW = A^T dY (f32_ops.cuh, fixed-order partial
-//    sums) with the bias gradients from the chunks' partials;
-// 7. the per-clip sums of the chunks' partials: dgamma1, dbeta1, dgamma2,
-//    dbeta2, and dm1, dm2 when owed.
+// 2. rows: the forward's first launch, keeping h1 and qkv;
+// 3. the attention recomputed: o, the softmax's max and sum;
+// 4. the tail and the gradient chain down to the attention: h2, hh,
+//    gelu(hh), m2g, dhh, dx1, da, dO, D;
+// 5. dq over the clip's keys;
+// 6. dk and dv of the tile's keys over the clip's queries (P and dS
+//    recomputed from the saved max, sum and D);
+// 7. dh1 = dqkv Wqkv^T, dx = dx1 + AdaLN1^T(dh1);
+// 8-9. the weight gradients dW = A^T dY (f32_ops.cuh, fixed-order partial
+//    sums, FFMA);
+// 10. the programs' per-tile partials summed in order: the bias gradients
+//    and per clip dgamma1, dbeta1, dgamma2, dbeta2, and dm1, dm2 when owed.
+// Registers and shared memory: csrc/dec_tc32.cuh.
 
 #include "common.cuh"
 #include "f32_ops.cuh"
+#include "dec_tc32.cuh"
 
 namespace ada32 {
 
 using namespace f32ops::dec;
+namespace dtc = f32ops::dtc;
 
 struct Args {
   const float *x, *g1, *b1, *g2, *b2, *m1, *m2;
@@ -62,18 +67,10 @@ struct Args {
   float *out, *qkv, *h1;
   int clips, N, hid;
   float eps, qscale;
-  // The backward's.
-  const float* gout;
-  const float *wqkvT, *wprojT, *w1T, *w2T;
-  float *o, *h2, *hh, *ge, *m2g, *dhh, *da, *dO, *Ms, *Ls, *Ds, *dqkv;
-  float *bpart, *cpart, *dx;
-  bool dm;
 };
 
-// The bias partials' layout (dbqkv, dbproj, dbb1, dbb2) and the clip
-// partials' (dg1, db1, dg2, db2, dm1, dm2).
-__host__ __device__ constexpr int bias_len(int hid) { return 5 * C + hid; }
-constexpr int CLIP_LEN = 4 * C + 2;
+// The finishing program's partial row: dbqkv [3C], dgamma1, dbeta1.
+constexpr int FLEN = 5 * C;
 
 // Rows: h1 = AdaLN1(x), qkv = h1 Wqkv + bqkv (q scaled); h1 kept when
 // p.h1 is not null. A warp's rows need no CTA barrier.
@@ -103,15 +100,13 @@ __global__ void __launch_bounds__(NT) ada_rows_kernel(Args p) {
   }
 }
 
-// Chunks: the chunk's attention over the clip's keys and the tail; in the
-// backward also the gradient chain down to dq.
-template <int H, bool BWD>
+// Chunks: the chunk's attention over the clip's keys and the tail.
+template <int H>
 __global__ void __launch_bounds__(NT, 1) ada_chunk_kernel(Args p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const ChunkSmem s = chunk_smem(smem);
   const int clip = blockIdx.y, r0 = blockIdx.x * TR;
   const int n = min(TR, p.N - r0);
-  const int cta = clip * gridDim.x + blockIdx.x;
   const size_t g0 = (size_t)clip * p.N + r0;
   const float* qkv = p.qkv + (size_t)clip * p.N * 3 * C;
   load_rows(qkv + (size_t)r0 * 3 * C, 3 * C, n, s.R1);
@@ -126,104 +121,31 @@ __global__ void __launch_bounds__(NT, 1) ada_chunk_kernel(Args p) {
   t.w1 = p.w1; t.bb1 = p.bb1; t.w2 = p.w2; t.bb2 = p.bb2;
   t.hid = p.hid;
   t.eps = p.eps;
-  if constexpr (!BWD) {
-    t.out = p.out + g0 * C;
-  } else {
-    save_attn<H>(s, n, p.o + g0 * C, p.Ms + g0 * H, p.Ls + g0 * H);
-    t.gout = p.gout + g0 * C;
-    t.wprojT = p.wprojT; t.w1T = p.w1T; t.w2T = p.w2T;
-    t.h2 = p.h2 + g0 * C;
-    t.hh = p.hh + g0 * p.hid;
-    t.ge = p.ge + g0 * p.hid;
-    t.m2g = p.m2g + g0 * C;
-    t.dhh = p.dhh + g0 * p.hid;
-    t.da = p.da + g0 * C;
-    t.dO = p.dO + g0 * C;
-    t.dx1 = p.dx + g0 * C;
-    t.D = p.Ds + g0 * H;
-    t.bpart = p.bpart + (size_t)cta * bias_len(p.hid) + 3 * C;
-    t.cpart = p.cpart + (size_t)cta * CLIP_LEN + 2 * C;
-    t.dm = p.dm;
-  }
-  tail_rows<H, BWD>(t, n, s);
-  if constexpr (BWD) {
-    attn_bwd_q<H>(s.R1, s.R3, qkv + C, 3 * C, qkv + 2 * C, 3 * C, p.N, n,
-                  p.qscale, s.R0, s.a);
-    for (int e = threadIdx.x; e < n * C; e += NT)
-      p.dqkv[(g0 + e / C) * 3 * C + e % C] = s.R0[e];
-  }
-}
-
-// Key chunks: dk, dv of the chunk's keys over every query of the clip.
-template <int H>
-__global__ void __launch_bounds__(NT, 1) ada_keys_kernel(Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const ChunkSmem s = chunk_smem(smem);
-  const int clip = blockIdx.y, r0 = blockIdx.x * TR;
-  const int n = min(TR, p.N - r0);
-  const size_t c0 = (size_t)clip * p.N;  // the clip's first row
-  const float* qkv = p.qkv + c0 * 3 * C;
-  load_rows(qkv + (size_t)r0 * 3 * C + C, 3 * C, n, s.R0);
-  load_rows(qkv + (size_t)r0 * 3 * C + 2 * C, 3 * C, n, s.R1);
-  attn_bwd_kv<H>(s.R0, s.R1, n, qkv, 3 * C, p.dO + c0 * C, p.Ms + c0 * H,
-                 p.Ls + c0 * H, p.Ds + c0 * H, p.N, s.R2, s.R3, s.a);
-  for (int e = threadIdx.x; e < n * C; e += NT) {
-    float* row = p.dqkv + (c0 + r0 + e / C) * 3 * C;
-    row[C + e % C] = s.R2[e];
-    row[2 * C + e % C] = s.R3[e];
-  }
-}
-
-// Rows: dh1 = dqkv Wqkv^T, dx += AdaLN1^T(dh1) (dx holds dx1); the
-// chunk's partials of dgamma1, dbeta1 and dbqkv.
-__global__ void __launch_bounds__(NT) ada_dx_kernel(Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* scr = reinterpret_cast<float*>(smem);  // [NW][C]
-  const int clip = blockIdx.y, r0 = blockIdx.x * TR;
-  const int cta = clip * gridDim.x + blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp * RW;
-  const int nv = max(0, min(RW, p.N - r0 - wr));
-  const size_t g = (size_t)clip * p.N + r0 + wr;
-  const float* dq = p.dqkv + g * 3 * C;
-  float acc[RW][2] = {};
-  if (nv > 0) mac<2>(dq, 3 * C, nv, 3 * C, p.wqkvT, C, 0, acc);
-  float pg[2] = {0.f, 0.f}, pb[2] = {0.f, 0.f};
-  adaln_bwd_rows(p.x + g * C, nv, acc, p.g1 + clip * C, p.eps, p.dx + g * C,
-                 p.dx + g * C, pg, pb);
-  float* cpart = p.cpart + (size_t)cta * CLIP_LEN;
-  cta_colsum(pg[0], pg[1], scr, cpart);
-  cta_colsum(pb[0], pb[1], scr, cpart + C);
-  float* bpart = p.bpart + (size_t)cta * bias_len(p.hid);
-  for (int j = 0; j < 3; ++j) {
-    float v0 = 0.f, v1 = 0.f;
-    for (int i = 0; i < nv; ++i) {
-      v0 += dq[(size_t)i * 3 * C + j * C + lane];
-      v1 += dq[(size_t)i * 3 * C + j * C + lane + 32];
-    }
-    cta_colsum(v0, v1, scr, bpart + j * C);
-  }
+  t.out = p.out + g0 * C;
+  tail_rows<H>(t, n, s);
 }
 
 constexpr int ROWS_SMEM = TR * C * 4;
 
 bool shape_ok(int clips, int N, int hid, int heads) {
-  return clips > 0 && N > 0 && hid > 0 && hid % HC == 0 &&
+  return clips > 0 && N > 0 && hid > 0 && hid % HC == 0 && hid <= 256 &&
          (heads == 2 || heads == 4 || heads == 8);
 }
 
 // The backward's workspace, carved from one f32 buffer (null: only count).
 struct Ws {
   float *wqkvT, *wprojT, *w1T, *w2T, *h1, *qkv, *o, *h2, *hh, *ge, *m2g,
-      *dhh, *da, *dO, *Ms, *Ls, *Ds, *dqkv, *bpart, *cpart, *wpart;
+      *dhh, *da, *dO, *Ms, *Ls, *Ds, *dqkv, *qpart, *fpart, *wpart;
+  int qtiles, ftiles;
   size_t floats;
 };
 
 Ws carve(float* base, int clips, int N, int hid, int heads, int splits) {
   const size_t M = (size_t)clips * N;
-  const int ctas = clips * ((N + TR - 1) / TR);
   const size_t wtiles = (size_t)(3 * C * C + C * C + 2 * C * hid) / 4096;
   Ws w;
+  w.qtiles = dtc::cdiv(N, dtc::TRT);
+  w.ftiles = dtc::cdiv(N, dtc::RB * dtc::f_warps(N));
   size_t at = 0;
   auto take = [&](size_t n) {
     float* q = base != nullptr ? base + at : nullptr;
@@ -237,8 +159,8 @@ Ws carve(float* base, int clips, int N, int hid, int heads, int splits) {
   w.m2g = take(M * C); w.dhh = take(M * hid); w.da = take(M * C);
   w.dO = take(M * C); w.Ms = take(M * heads); w.Ls = take(M * heads);
   w.Ds = take(M * heads); w.dqkv = take(M * 3 * C);
-  w.bpart = take((size_t)ctas * bias_len(hid));
-  w.cpart = take((size_t)ctas * CLIP_LEN);
+  w.qpart = take((size_t)clips * w.qtiles * dtc::qpart_len(hid));
+  w.fpart = take((size_t)clips * w.ftiles * FLEN);
   w.wpart = take((size_t)splits * wtiles * 4096);
   w.floats = at;
   return w;
@@ -255,15 +177,6 @@ void fill(Args& a, void* const* ptrs, int clips, int N, int hid, float eps,
   a.clips = clips; a.N = N; a.hid = hid; a.eps = eps; a.qscale = qscale;
 }
 
-template <bool BWD>
-cudaError_t launch_chunks(const Args& a, int heads, dim3 grid,
-                          cudaStream_t st) {
-  return launch_chunk(heads == 2   ? ada_chunk_kernel<2, BWD>
-                      : heads == 4 ? ada_chunk_kernel<4, BWD>
-                                   : ada_chunk_kernel<8, BWD>,
-                      grid, a, st);
-}
-
 }  // namespace ada32
 
 // Host entry points.
@@ -275,7 +188,7 @@ extern "C" long long pmce_ada_f32_workspace(int clips, int N, int hid,
       ada32::carve(nullptr, clips, N, hid, heads, splits).floats);
 }
 
-// Shared memory of the chunk programs (bytes).
+// Shared memory of the forward's chunk program (bytes).
 extern "C" int pmce_ada_f32_smem_bytes() {
   return f32ops::dec::CHUNK_SMEM_FLOATS * 4;
 }
@@ -301,21 +214,25 @@ extern "C" int pmce_ada_fwd_f32(void* const* ptrs, int clips, int N, int hid,
   ada_rows_kernel<<<grid, NT, ROWS_SMEM, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_chunks<false>(a, heads, grid, st));
+  return static_cast<int>(launch_chunk(heads == 2   ? ada_chunk_kernel<2>
+                                       : heads == 4 ? ada_chunk_kernel<4>
+                                                    : ada_chunk_kernel<8>,
+                                       grid, a, st));
 }
 
 // The f32 backward: dx, the per-clip sums, the four weight gradients and
-// the bias gradients, in seven launches (see the header). ptrs: 0-14 as the
+// the bias gradients, in ten launches (see the header). ptrs: 0-14 as the
 // forward's, 15 gout (the output's gradient), 16 the workspace
 // (pmce_ada_f32_workspace floats), 17 dx, 18 the per-clip sums [clips, 258]
 // (dg1, db1, dg2, db2 [64] each, dm1, dm2), 19 dwqkv, 20 dwproj, 21 dw1, 22
 // dw2, 23 the bias gradients [5 * 64 + hid] (dbqkv, dbproj, dbb1, dbb2).
-// dm: the mask gradients are owed (masks given).
+// dm: the mask gradients are owed (masks given). ctas: the most CTAs a
+// program launches (the card's co-resident CTAs, one an SM).
 extern "C" int pmce_ada_bwd_f32(void* const* ptrs, int clips, int N, int hid,
                                 int heads, float eps, float qscale,
-                                int splits, int dm, void* stream) {
+                                int splits, int dm, int ctas, void* stream) {
   using namespace ada32;
-  if (!shape_ok(clips, N, hid, heads) || splits <= 0 ||
+  if (!shape_ok(clips, N, hid, heads) || splits <= 0 || ctas <= 0 ||
       (ptrs[5] == nullptr) != (ptrs[6] == nullptr) ||
       (dm && ptrs[5] == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -323,13 +240,8 @@ extern "C" int pmce_ada_bwd_f32(void* const* ptrs, int clips, int N, int hid,
   Args a;
   fill(a, ptrs, clips, N, hid, eps, qscale);
   const Ws w = carve(f(16), clips, N, hid, heads, splits);
-  a.gout = f(15);
-  a.wqkvT = w.wqkvT; a.wprojT = w.wprojT; a.w1T = w.w1T; a.w2T = w.w2T;
-  a.qkv = w.qkv; a.h1 = w.h1; a.o = w.o; a.h2 = w.h2; a.hh = w.hh;
-  a.ge = w.ge; a.m2g = w.m2g; a.dhh = w.dhh; a.da = w.da; a.dO = w.dO;
-  a.Ms = w.Ms; a.Ls = w.Ls; a.Ds = w.Ds; a.dqkv = w.dqkv;
-  a.bpart = w.bpart; a.cpart = w.cpart; a.dx = f(17);
-  a.dm = dm != 0;
+  a.qkv = w.qkv;
+  a.h1 = w.h1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   f32ops::Transposes T;
@@ -345,20 +257,45 @@ extern "C" int pmce_ada_bwd_f32(void* const* ptrs, int clips, int N, int hid,
   T.n = 4;
   cudaError_t e = f32ops::launch_transposes(T, st);
   if (e != cudaSuccess) return static_cast<int>(e);
+  ada_rows_kernel<<<dim3((N + TR - 1) / TR, clips), NT, ROWS_SMEM, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
 
-  const int chunks = (N + TR - 1) / TR;
-  const dim3 grid(chunks, clips);
-  ada_rows_kernel<<<grid, NT, ROWS_SMEM, st>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  if ((e = launch_chunks<true>(a, heads, grid, st)) != cudaSuccess)
+  dtc::QArgs q = {};
+  q.clips = clips; q.Nq = N; q.Nk = N; q.hid = hid; q.S = 1;
+  q.tiles = w.qtiles; q.eps = eps; q.qscale = qscale;
+  q.x = a.x; q.qin = w.qkv; q.ldqin = 3 * C;
+  q.k = w.qkv + C; q.v = w.qkv + 2 * C; q.ldkv = 3 * C;
+  q.g2 = a.g2; q.b2 = a.b2; q.m1 = a.m1; q.m2 = a.m2;
+  q.wproj = a.wproj; q.bproj = a.bproj; q.w1 = a.w1; q.bb1 = a.bb1;
+  q.bb2 = a.bb2;
+  q.wprojT = w.wprojT; q.w1T = w.w1T; q.w2T = w.w2T; q.gout = f(15);
+  q.o = w.o; q.hh = w.hh; q.h2 = w.h2; q.ge = w.ge; q.m2g = w.m2g;
+  q.dhh = w.dhh; q.da = w.da; q.dO = w.dO; q.dx1 = f(17);
+  q.Ms = w.Ms; q.Ls = w.Ls; q.Ds = w.Ds;
+  q.dq = w.dqkv; q.lddq = 3 * C;
+  q.part = w.qpart; q.dm = dm != 0;
+  if ((e = dtc::launch_q<false>(q, heads, ctas, st)) != cudaSuccess)
     return static_cast<int>(e);
-  e = launch_chunk(heads == 2   ? ada_keys_kernel<2>
-                   : heads == 4 ? ada_keys_kernel<4>
-                                : ada_keys_kernel<8>,
-                   grid, a, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ada_dx_kernel<<<grid, NT, NW * C * 4, st>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+
+  dtc::KArgs k = {};
+  k.clips = clips; k.Nq = N; k.Nk = N; k.S = 1; k.tiles = w.qtiles;
+  k.heads = heads;
+  k.k = w.qkv + C; k.v = w.qkv + 2 * C; k.ldkv = 3 * C;
+  k.q = w.qkv; k.ldq = 3 * C;
+  k.dO = w.dO; k.Ms = w.Ms; k.Ls = w.Ls; k.Ds = w.Ds;
+  k.dk = w.dqkv + C; k.dv = w.dqkv + 2 * C; k.ldd = 3 * C;
+  if ((e = dtc::launch_k(k, ctas, st)) != cudaSuccess)
+    return static_cast<int>(e);
+
+  dtc::FArgs fa = {};
+  fa.clips = clips; fa.N = N; fa.S = 1; fa.nsides = 1; fa.plen = FLEN;
+  fa.eps = eps; fa.part = w.fpart;
+  dtc::FSide& sd = fa.side[0];
+  sd.G = w.dqkv; sd.ldG = 3 * C; sd.parts = 3; sd.WT = w.wqkvT;
+  sd.x = a.x; sd.g = a.g1; sd.add = f(17); sd.dx = f(17);
+  sd.boff = 0; sd.coff = 3 * C;
+  if ((e = dtc::launch_f(fa, ctas, st)) != cudaSuccess)
+    return static_cast<int>(e);
 
   f32ops::Jobs J;
   J.job[0] = {w.h1, w.dqkv, f(19), C, 3 * C};
@@ -369,14 +306,24 @@ extern "C" int pmce_ada_bwd_f32(void* const* ptrs, int clips, int N, int hid,
   J.M = clips * N;
   J.splits = splits;
   J.ws = w.wpart;
-  J.vpart = w.bpart;
-  J.vout = f(23);
-  J.vtiles = clips * chunks;
-  J.vlen = bias_len(hid);
+  J.vpart = nullptr;
+  J.vout = nullptr;
+  J.vtiles = 0;
+  J.vlen = 0;
   if ((e = f32ops::launch_wgrad(J, st)) != cudaSuccess)
     return static_cast<int>(e);
-  return static_cast<int>(
-      launch_clip_sum(w.cpart, chunks, CLIP_LEN, clips, f(18), st));
+
+  const int qlen = dtc::qpart_len(hid);
+  dtc::Sums S;
+  S.n = 4;
+  S.job[0] = {w.qpart, qlen, 0, 2 * C + hid, w.qtiles, clips, false,
+              f(23) + 3 * C, 0};
+  S.job[1] = {w.qpart, qlen, 2 * C + hid, 2 * C + 2, w.qtiles, clips, true,
+              f(18) + 2 * C, 4 * C + 2};
+  S.job[2] = {w.fpart, FLEN, 0, 3 * C, w.ftiles, clips, false, f(23), 0};
+  S.job[3] = {w.fpart, FLEN, 3 * C, 2 * C, w.ftiles, clips, true, f(18),
+              4 * C + 2};
+  return static_cast<int>(dtc::launch_sums(S, st));
 }
 
 PMCE_EXPORT_ERROR_STRING(pmce_ada_f32_error_string)

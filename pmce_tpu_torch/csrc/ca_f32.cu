@@ -17,11 +17,12 @@
 // training in both orientations: joints [32, 17, 64] over vertices [32,
 // 431, 64] in 8 heads of 8, and vertices over joints in 2 heads of 32.
 //
-// Products in true f32 (FFMA on the CUDA cores, no TF32), as csrc/
-// ada_f32.cu, whose plan this is (csrc/f32_ops.cuh, namespace dec): grids
-// of chunks of 64 rows of one clip on each side (the query side's Nq rows,
-// the key side's Nk), the other side's rows streamed from device memory in
-// chunks of 64.
+// Products: the forward (pmce_ca_fwd_f32) in true f32, FFMA on the CUDA
+// cores (csrc/f32_ops.cuh, namespace dec, the plan of csrc/ada_f32.cu:
+// grids of chunks of 64 rows of one clip on each side, the other side's
+// rows streamed from device memory in chunks of 64); the backward
+// (pmce_ca_bwd_f32) in 3xTF32 on the tensor cores (csrc/dec_tc32.cuh) but
+// for its k, v launch (the forward's) and the weight gradients (FFMA).
 //
 // Forward (pmce_ca_fwd_f32), two launches:
 // - key chunks: k and v (AdaLN, product) into the workspace;
@@ -30,52 +31,56 @@
 // It saves nothing for the gradient: the backward recomputes the forward
 // from xq, xk and xv, as JAX's `_ca_block_bwd_kernel` does.
 //
-// Backward (pmce_ca_bwd_f32), no atomics (a rerun gives the same bits):
+// Backward (pmce_ca_bwd_f32), no atomics (a rerun gives the same bits).
+// Its programs are persistent grids of min(items, ctas) CTAs. A long side
+// (431 vertices) is cut into tiles of 128 rows (4 a clip: 128 CTAs at 32
+// clips). The short side (17 joints: one tile) would be one CTA a clip, 32
+// CTAs on 132 SMs, so its program is split over the long side instead:
+// `splits` CTAs a clip (min(ctas / clips, the long side's 64-row chunks):
+// 4 on 132 SMs), split s taking the chunks [n s / S, n (s + 1) / S), its
+// partials merged in order of s.
 // 1. the six weights transposed (f32_ops.cuh, two launches);
 // 2. key chunks: the forward's first launch, keeping nk, nv;
-// 3. query chunks: the forward's second, keeping nq, q, o, the softmax max
-//    and sum, h2, hh, ge; the gradient chain down to the attention (dx1,
-//    da, dO, D), dq over every key of the clip, then dnq = dq Wq^T and dxq
-//    = dx1 + AdaLN_q^T(dnq);
-// 4. key chunks: dk and dv over every query of the clip, then dxk =
-//    AdaLN_k^T(dk Wk^T) and dxv = AdaLN_v^T(dv Wv^T);
-// 5. the weight gradients (f32_ops.cuh), one launch pair a side: Wq,
-//    Wproj, W1, W2 over the query rows, Wk, Wv over the key rows, with the
-//    bias gradients from the chunks' partials;
-// 6. the per-clip sums of the chunks' partials a side: the eight AdaLN
-//    vectors' gradients, and dm1, dm2 when owed.
+// 3. the query side's three programs (dec_tc32.cuh): AdaLN_q and q (nq,
+//    q kept) and the attention recomputed; the tail and the gradient chain
+//    down to the attention (dx1, da, dO, D); dq over the clip's keys.
+//    Split (joints over vertices): the splits' attention partials (o, the
+//    softmax's max and sum); each split merges them in order and runs the
+//    tail (its own copy; split 0's kept); each its keys' dq partial;
+// 4. the key program: dk and dv over the clip's queries (split, vertices
+//    over joints: each split its queries' partials);
+// 5. the finishing program a side: the split partials merged in order (dq;
+//    dk, dv), dnq = dq Wq^T, dxq = dx1 + AdaLN_q^T(dnq); dxk = AdaLN_k^T(dk
+//    Wk^T), dxv = AdaLN_v^T(dv Wv^T);
+// 6. the weight gradients (f32_ops.cuh, FFMA), one launch pair a side: Wq,
+//    Wproj, W1, W2 over the query rows, Wk, Wv over the key rows;
+// 7. the programs' partials summed in order: the bias gradients, and per
+//    clip the eight AdaLN vectors' gradients and dm1, dm2 when owed.
+// Registers and shared memory: csrc/dec_tc32.cuh.
 
 #include "common.cuh"
 #include "f32_ops.cuh"
+#include "dec_tc32.cuh"
 
 namespace ca32 {
 
 using namespace f32ops::dec;
+namespace dtc = f32ops::dtc;
 
 struct Args {
   const float *xq, *xk, *xv;
   const float *gq, *bq_, *gk, *bk_, *gv, *bv_, *g2, *b2, *m1, *m2;
   const float *wq, *bq, *wk, *bk, *wv, *bv, *wproj, *bproj, *w1, *bb1, *w2,
       *bb2;
-  float *out, *k, *v, *nq, *nk, *nv, *q;
+  float *out, *k, *v, *nk, *nv;
   int clips, Nq, Nk, hid;
   float eps, qscale;
-  // The backward's.
-  const float* gout;
-  const float *wqT, *wkT, *wvT, *wprojT, *w1T, *w2T;
-  float *o, *h2, *hh, *ge, *m2g, *dhh, *da, *dO, *Ms, *Ls, *Ds, *dq, *dk,
-      *dv;
-  float *bpart_q, *cpart_q, *bpart_k, *cpart_k, *dxq, *dxk, *dxv;
-  bool dm;
 };
 
-// The query side's bias partials (dbq, dbproj, dbb1, dbb2) and clip
-// partials (dgq, dbq', dg2, db2, dm1, dm2); the key side's (dbk, dbv) and
-// (dgk, dbk', dgv, dbv').
-__host__ __device__ constexpr int qbias_len(int hid) { return 3 * C + hid; }
-constexpr int QCLIP_LEN = 4 * C + 2;
-constexpr int KBIAS_LEN = 2 * C;
-constexpr int KCLIP_LEN = 4 * C;
+// The finishing programs' partial rows: the query side's dbq, dgq, dbq';
+// the key side's dbk, dbv, dgk, dbk', dgv, dbv'.
+constexpr int FQLEN = 3 * C;
+constexpr int FKLEN = 6 * C;
 
 // Key chunks: k = AdaLN_k(xk) Wk + bk, v = AdaLN_v(xv) Wv + bv; nk, nv kept
 // when p.nk is not null. A warp's rows need no CTA barrier.
@@ -113,15 +118,13 @@ __global__ void __launch_bounds__(NT) ca_keys_fwd_kernel(Args p) {
   }
 }
 
-// Query chunks: q, the attention over the clip's keys and the tail; in the
-// backward also the gradient chain down to dq, then dxq.
-template <int H, bool BWD>
+// Query chunks: q, the attention over the clip's keys and the tail.
+template <int H>
 __global__ void __launch_bounds__(NT, 1) ca_query_kernel(Args p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const ChunkSmem s = chunk_smem(smem);
   const int clip = blockIdx.y, r0 = blockIdx.x * TR;
   const int n = min(TR, p.Nq - r0);
-  const int cta = clip * gridDim.x + blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wr = warp * RW;
   const int nv = max(0, min(RW, n - wr));
@@ -132,8 +135,7 @@ __global__ void __launch_bounds__(NT, 1) ca_query_kernel(Args p) {
   {
     float* NS = s.R2 + wr * C;
     adaln_rows(p.xq + (g0 + wr) * C, C, nv, p.gq + clip * C,
-               p.bq_ + clip * C, p.eps, NS,
-               BWD ? p.nq + (g0 + wr) * C : nullptr);
+               p.bq_ + clip * C, p.eps, NS, nullptr);
     __syncwarp();
     float acc[RW][2] = {};
     if (nv > 0) mac<2>(NS, C, nv, C, p.wq, C, 0, acc);
@@ -144,7 +146,6 @@ __global__ void __launch_bounds__(NT, 1) ca_query_kernel(Args p) {
         const int c = lane + 32 * j;
         const float q = i < nv ? (acc[i][j] + p.bq[c]) * p.qscale : 0.f;
         s.R1[(wr + i) * C + c] = q;
-        if (BWD && i < nv) p.q[(g0 + wr + i) * C + c] = q;
       }
   }
   attn_fwd<H>(s.R1, p.k + k0 * C, C, p.v + k0 * C, C, p.Nk, n, s.R2, s.a);
@@ -157,118 +158,54 @@ __global__ void __launch_bounds__(NT, 1) ca_query_kernel(Args p) {
   t.w1 = p.w1; t.bb1 = p.bb1; t.w2 = p.w2; t.bb2 = p.bb2;
   t.hid = p.hid;
   t.eps = p.eps;
-  float *bpart = nullptr, *cpart = nullptr;
-  if constexpr (!BWD) {
-    t.out = p.out + g0 * C;
-  } else {
-    save_attn<H>(s, n, p.o + g0 * C, p.Ms + g0 * H, p.Ls + g0 * H);
-    bpart = p.bpart_q + (size_t)cta * qbias_len(p.hid);
-    cpart = p.cpart_q + (size_t)cta * QCLIP_LEN;
-    t.gout = p.gout + g0 * C;
-    t.wprojT = p.wprojT; t.w1T = p.w1T; t.w2T = p.w2T;
-    t.h2 = p.h2 + g0 * C;
-    t.hh = p.hh + g0 * p.hid;
-    t.ge = p.ge + g0 * p.hid;
-    t.m2g = p.m2g + g0 * C;
-    t.dhh = p.dhh + g0 * p.hid;
-    t.da = p.da + g0 * C;
-    t.dO = p.dO + g0 * C;
-    t.dx1 = p.dxq + g0 * C;
-    t.D = p.Ds + g0 * H;
-    t.bpart = bpart + C;
-    t.cpart = cpart + 2 * C;
-    t.dm = p.dm;
-  }
-  tail_rows<H, BWD>(t, n, s);
-  if constexpr (BWD) {
-    attn_bwd_q<H>(s.R1, s.R3, p.k + k0 * C, C, p.v + k0 * C, C, p.Nk, n,
-                  p.qscale, s.R0, s.a);
-    // dq out; dnq = dq Wq^T; dxq = dx1 + AdaLN_q^T(dnq); the partials.
-    const float* DQ = s.R0 + wr * C;
-    float v0, v1;
-    warp_colsum(DQ, nv, v0, v1);
-    for (int i = 0; i < nv; ++i) {
-      p.dq[(g0 + wr + i) * C + lane] = DQ[i * C + lane];
-      p.dq[(g0 + wr + i) * C + lane + 32] = DQ[i * C + lane + 32];
-    }
-    float acc[RW][2] = {};
-    if (nv > 0) mac<2>(DQ, C, nv, C, p.wqT, C, 0, acc);
-    float pg[2] = {0.f, 0.f}, pb[2] = {0.f, 0.f};
-    float* dx = p.dxq + (g0 + wr) * C;
-    adaln_bwd_rows(p.xq + (g0 + wr) * C, nv, acc, p.gq + clip * C, p.eps, dx,
-                   dx, pg, pb);
-    float* scr = s.a.P2;
-    cta_colsum(v0, v1, scr, bpart);
-    cta_colsum(pg[0], pg[1], scr, cpart);
-    cta_colsum(pb[0], pb[1], scr, cpart + C);
-  }
-}
-
-// Key chunks: dk, dv over every query of the clip, then dxk, dxv and the
-// partials.
-template <int H>
-__global__ void __launch_bounds__(NT, 1) ca_keys_bwd_kernel(Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const ChunkSmem s = chunk_smem(smem);
-  const int clip = blockIdx.y, r0 = blockIdx.x * TR;
-  const int n = min(TR, p.Nk - r0);
-  const int cta = clip * gridDim.x + blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp * RW;
-  const int nv = max(0, min(RW, n - wr));
-  const size_t g0 = (size_t)clip * p.Nk + r0;
-  const size_t q0 = (size_t)clip * p.Nq;
-  load_rows(p.k + g0 * C, C, n, s.R0);
-  load_rows(p.v + g0 * C, C, n, s.R1);
-  attn_bwd_kv<H>(s.R0, s.R1, n, p.q + q0 * C, C, p.dO + q0 * C,
-                 p.Ms + q0 * H, p.Ls + q0 * H, p.Ds + q0 * H, p.Nq, s.R2,
-                 s.R3, s.a);
-  float* bpart = p.bpart_k + (size_t)cta * KBIAS_LEN;
-  float* cpart = p.cpart_k + (size_t)cta * KCLIP_LEN;
-  float* scr = s.a.P2;
-  for (int side = 0; side < 2; ++side) {
-    const float* G = (side == 0 ? s.R2 : s.R3) + wr * C;
-    float* keep = (side == 0 ? p.dk : p.dv) + (g0 + wr) * C;
-    float v0, v1;
-    warp_colsum(G, nv, v0, v1);
-    const int lane = threadIdx.x & 31;
-    for (int i = 0; i < nv; ++i) {
-      keep[i * C + lane] = G[i * C + lane];
-      keep[i * C + lane + 32] = G[i * C + lane + 32];
-    }
-    float acc[RW][2] = {};
-    if (nv > 0)
-      mac<2>(G, C, nv, C, side == 0 ? p.wkT : p.wvT, C, 0, acc);
-    float pg[2] = {0.f, 0.f}, pb[2] = {0.f, 0.f};
-    adaln_bwd_rows((side == 0 ? p.xk : p.xv) + (g0 + wr) * C, nv, acc,
-                   (side == 0 ? p.gk : p.gv) + clip * C, p.eps, nullptr,
-                   (side == 0 ? p.dxk : p.dxv) + (g0 + wr) * C, pg, pb);
-    cta_colsum(v0, v1, scr, bpart + side * C);
-    cta_colsum(pg[0], pg[1], scr, cpart + 2 * side * C);
-    cta_colsum(pb[0], pb[1], scr, cpart + (2 * side + 1) * C);
-  }
+  t.out = p.out + g0 * C;
+  tail_rows<H>(t, n, s);
 }
 
 constexpr int ROWS_SMEM = TR * C * 4;
 
 bool shape_ok(int clips, int Nq, int Nk, int hid, int heads) {
   return clips > 0 && Nq > 0 && Nk > 0 && hid > 0 && hid % HC == 0 &&
-         (heads == 2 || heads == 4 || heads == 8);
+         hid <= 256 && (heads == 2 || heads == 4 || heads == 8);
+}
+
+// The backward's grids (the wrappers' f32_dec_plan): the splits of each
+// side's program (1: tiles of 128 rows) and the tiles of each program.
+struct Plan {
+  int Sq, Sk, qtiles, ktiles, qper, fqtiles, fktiles;
+};
+
+Plan plan(int clips, int Nq, int Nk, int ctas) {
+  auto splits = [&](int shortN, int longN) {
+    if (shortN >= longN || shortN > dtc::TRT) return 1;
+    const int s = ctas / clips, n = dtc::cdiv(longN, dtc::KC);
+    return s < 1 ? 1 : s > n ? n : s;
+  };
+  Plan p;
+  p.Sq = splits(Nq, Nk);
+  p.Sk = splits(Nk, Nq);
+  p.qtiles = dtc::cdiv(Nq, dtc::TRT);
+  p.ktiles = dtc::cdiv(Nk, dtc::TRT);
+  p.qper = p.Sq > 1 ? p.Sq : p.qtiles;
+  p.fqtiles = dtc::cdiv(Nq, dtc::RB * dtc::f_warps(Nq));
+  p.fktiles = dtc::cdiv(Nk, dtc::RB * dtc::f_warps(Nk));
+  return p;
 }
 
 struct Ws {
   float *wqT, *wkT, *wvT, *wprojT, *w1T, *w2T, *nq, *q, *o, *h2, *hh, *ge,
       *m2g, *dhh, *da, *dO, *Ms, *Ls, *Ds, *dq, *k, *v, *nk, *nv, *dk, *dv,
-      *bpart_q, *cpart_q, *bpart_k, *cpart_k, *wpart;
+      *opart, *mpart, *lpart, *gq, *gk, *gv, *qpart, *fqpart, *fkpart,
+      *wpart;
   size_t floats;
 };
 
 Ws carve(float* base, int clips, int Nq, int Nk, int hid, int heads,
-         int splits) {
+         int splits, const Plan& pl) {
   const size_t Mq = (size_t)clips * Nq, Mk = (size_t)clips * Nk;
-  const int qctas = clips * ((Nq + TR - 1) / TR);
-  const int kctas = clips * ((Nk + TR - 1) / TR);
   const size_t wtiles = (size_t)(2 * C * C + 2 * C * hid) / 4096;
+  const size_t Sq = pl.Sq, Sk = pl.Sk;
+  const size_t sq = Sq > 1 ? Sq : 0, sk = Sk > 1 ? Sk : 0;
   Ws w;
   size_t at = 0;
   auto take = [&](size_t n) {
@@ -279,17 +216,19 @@ Ws carve(float* base, int clips, int Nq, int Nk, int hid, int heads,
   w.wqT = take(C * C); w.wkT = take(C * C); w.wvT = take(C * C);
   w.wprojT = take(C * C); w.w1T = take((size_t)hid * C);
   w.w2T = take((size_t)C * hid);
-  w.nq = take(Mq * C); w.q = take(Mq * C); w.o = take(Mq * C);
-  w.h2 = take(Mq * C); w.hh = take(Mq * hid); w.ge = take(Mq * hid);
+  w.nq = take(Mq * C); w.q = take(Mq * C); w.o = take(Sq * Mq * C);
+  w.h2 = take(Mq * C); w.hh = take(Sq * Mq * hid); w.ge = take(Mq * hid);
   w.m2g = take(Mq * C); w.dhh = take(Mq * hid); w.da = take(Mq * C);
   w.dO = take(Mq * C); w.Ms = take(Mq * heads); w.Ls = take(Mq * heads);
   w.Ds = take(Mq * heads); w.dq = take(Mq * C);
   w.k = take(Mk * C); w.v = take(Mk * C); w.nk = take(Mk * C);
   w.nv = take(Mk * C); w.dk = take(Mk * C); w.dv = take(Mk * C);
-  w.bpart_q = take((size_t)qctas * qbias_len(hid));
-  w.cpart_q = take((size_t)qctas * QCLIP_LEN);
-  w.bpart_k = take((size_t)kctas * KBIAS_LEN);
-  w.cpart_k = take((size_t)kctas * KCLIP_LEN);
+  w.opart = take(sq * Mq * C); w.mpart = take(sq * Mq * heads);
+  w.lpart = take(sq * Mq * heads); w.gq = take(sq * Mq * C);
+  w.gk = take(sk * Mk * C); w.gv = take(sk * Mk * C);
+  w.qpart = take((size_t)clips * pl.qper * dtc::qpart_len(hid));
+  w.fqpart = take((size_t)clips * pl.fqtiles * FQLEN);
+  w.fkpart = take((size_t)clips * pl.fktiles * FKLEN);
   w.wpart = take((size_t)splits * wtiles * 4096);
   w.floats = at;
   return w;
@@ -310,27 +249,20 @@ void fill(Args& a, void* const* ptrs, int clips, int Nq, int Nk, int hid,
   a.eps = eps; a.qscale = qscale;
 }
 
-template <bool BWD>
-cudaError_t launch_queries(const Args& a, int heads, dim3 grid,
-                           cudaStream_t st) {
-  return launch_chunk(heads == 2   ? ca_query_kernel<2, BWD>
-                      : heads == 4 ? ca_query_kernel<4, BWD>
-                                   : ca_query_kernel<8, BWD>,
-                      grid, a, st);
-}
-
 }  // namespace ca32
 
 // Host entry points.
 
 // Floats of the backward's workspace (pmce_ca_bwd_f32's pointer 26).
 extern "C" long long pmce_ca_f32_workspace(int clips, int Nq, int Nk,
-                                           int hid, int heads, int splits) {
+                                           int hid, int heads, int splits,
+                                           int ctas) {
+  const ca32::Plan pl = ca32::plan(clips, Nq, Nk, ctas);
   return static_cast<long long>(
-      ca32::carve(nullptr, clips, Nq, Nk, hid, heads, splits).floats);
+      ca32::carve(nullptr, clips, Nq, Nk, hid, heads, splits, pl).floats);
 }
 
-// Shared memory of the chunk programs (bytes).
+// Shared memory of the forward's chunk programs (bytes).
 extern "C" int pmce_ca_f32_smem_bytes() {
   return f32ops::dec::CHUNK_SMEM_FLOATS * 4;
 }
@@ -358,8 +290,11 @@ extern "C" int pmce_ca_fwd_f32(void* const* ptrs, int clips, int Nq, int Nk,
       a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(
-      launch_queries<false>(a, heads, dim3((Nq + TR - 1) / TR, clips), st));
+  return static_cast<int>(launch_chunk(heads == 2   ? ca_query_kernel<2>
+                                       : heads == 4 ? ca_query_kernel<4>
+                                                    : ca_query_kernel<8>,
+                                       dim3((Nq + TR - 1) / TR, clips), a,
+                                       st));
 }
 
 // The f32 backward (see the header). ptrs: 0-24 as the forward's, 25 gout
@@ -369,31 +304,26 @@ extern "C" int pmce_ca_fwd_f32(void* const* ptrs, int clips, int Nq, int Nk,
 // 256] (dgk, dbk', dgv, dbv'), 32-37 dwq, dwk, dwv, dwproj, dw1, dw2, 38
 // the query side's bias gradients [3 * 64 + hid] (dbq, dbproj, dbb1, dbb2),
 // 39 the key side's [128] (dbk, dbv). dm: the mask gradients are owed.
+// ctas: the most CTAs a program launches (the card's co-resident CTAs, one
+// an SM); it also sets the short side's splits.
 extern "C" int pmce_ca_bwd_f32(void* const* ptrs, int clips, int Nq, int Nk,
                                int hid, int heads, float eps, float qscale,
-                               int splits_q, int splits_k, int dm,
+                               int splits_q, int splits_k, int dm, int ctas,
                                void* stream) {
   using namespace ca32;
   if (!shape_ok(clips, Nq, Nk, hid, heads) || splits_q <= 0 ||
-      splits_k <= 0 || (ptrs[11] == nullptr) != (ptrs[12] == nullptr) ||
+      splits_k <= 0 || ctas <= 0 ||
+      (ptrs[11] == nullptr) != (ptrs[12] == nullptr) ||
       (dm && ptrs[11] == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [&](int i) { return static_cast<float*>(ptrs[i]); };
   Args a;
   fill(a, ptrs, clips, Nq, Nk, hid, eps, qscale);
+  const Plan pl = plan(clips, Nq, Nk, ctas);
   const int splits = splits_q > splits_k ? splits_q : splits_k;
-  const Ws w = carve(f(26), clips, Nq, Nk, hid, heads, splits);
-  a.gout = f(25);
-  a.wqT = w.wqT; a.wkT = w.wkT; a.wvT = w.wvT; a.wprojT = w.wprojT;
-  a.w1T = w.w1T; a.w2T = w.w2T;
-  a.nq = w.nq; a.q = w.q; a.o = w.o; a.h2 = w.h2; a.hh = w.hh; a.ge = w.ge;
-  a.m2g = w.m2g; a.dhh = w.dhh; a.da = w.da; a.dO = w.dO; a.Ms = w.Ms;
-  a.Ls = w.Ls; a.Ds = w.Ds; a.dq = w.dq; a.k = w.k; a.v = w.v; a.nk = w.nk;
-  a.nv = w.nv; a.dk = w.dk; a.dv = w.dv;
-  a.bpart_q = w.bpart_q; a.cpart_q = w.cpart_q;
-  a.bpart_k = w.bpart_k; a.cpart_k = w.cpart_k;
-  a.dxq = f(27); a.dxk = f(28); a.dxv = f(29);
-  a.dm = dm != 0;
+  const Ws w = carve(f(26), clips, Nq, Nk, hid, heads, splits, pl);
+  const size_t Mq = (size_t)clips * Nq, Mk = (size_t)clips * Nk;
+  a.k = w.k; a.v = w.v; a.nk = w.nk; a.nv = w.nv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   const float* src[6] = {a.wq, a.wk, a.wv, a.wproj, a.w1, a.w2};
@@ -413,18 +343,56 @@ extern "C" int pmce_ca_bwd_f32(void* const* ptrs, int clips, int Nq, int Nk,
     if ((e = f32ops::launch_transposes(T, st)) != cudaSuccess)
       return static_cast<int>(e);
   }
-
-  const int qchunks = (Nq + TR - 1) / TR, kchunks = (Nk + TR - 1) / TR;
-  const dim3 qgrid(qchunks, clips), kgrid(kchunks, clips);
-  ca_keys_fwd_kernel<<<kgrid, NT, ROWS_SMEM, st>>>(a);
+  ca_keys_fwd_kernel<<<dim3((Nk + TR - 1) / TR, clips), NT, ROWS_SMEM, st>>>(
+      a);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  if ((e = launch_queries<true>(a, heads, qgrid, st)) != cudaSuccess)
+
+  dtc::QArgs q = {};
+  q.clips = clips; q.Nq = Nq; q.Nk = Nk; q.hid = hid; q.S = pl.Sq;
+  q.tiles = pl.qtiles; q.eps = eps; q.qscale = qscale;
+  q.x = a.xq; q.qin = w.q; q.ldqin = C;
+  q.gq = a.gq; q.bqa = a.bq_; q.wq = a.wq; q.bq = a.bq;
+  q.nq = w.nq; q.qout = w.q;
+  q.k = w.k; q.v = w.v; q.ldkv = C;
+  q.g2 = a.g2; q.b2 = a.b2; q.m1 = a.m1; q.m2 = a.m2;
+  q.wproj = a.wproj; q.bproj = a.bproj; q.w1 = a.w1; q.bb1 = a.bb1;
+  q.bb2 = a.bb2;
+  q.wprojT = w.wprojT; q.w1T = w.w1T; q.w2T = w.w2T; q.gout = f(25);
+  q.o = w.o; q.hh = w.hh; q.h2 = w.h2; q.ge = w.ge; q.m2g = w.m2g;
+  q.dhh = w.dhh; q.da = w.da; q.dO = w.dO; q.dx1 = f(27);
+  q.Ms = w.Ms; q.Ls = w.Ls; q.Ds = w.Ds;
+  q.dq = pl.Sq > 1 ? w.gq : w.dq; q.lddq = C; q.dq_split = Mq * C;
+  q.opart = w.opart; q.mpart = w.mpart; q.lpart = w.lpart;
+  q.part = w.qpart; q.dm = dm != 0;
+  if ((e = dtc::launch_q<true>(q, heads, ctas, st)) != cudaSuccess)
     return static_cast<int>(e);
-  e = launch_chunk(heads == 2   ? ca_keys_bwd_kernel<2>
-                   : heads == 4 ? ca_keys_bwd_kernel<4>
-                                : ca_keys_bwd_kernel<8>,
-                   kgrid, a, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
+
+  dtc::KArgs k = {};
+  k.clips = clips; k.Nq = Nq; k.Nk = Nk; k.S = pl.Sk; k.tiles = pl.ktiles;
+  k.heads = heads;
+  k.k = w.k; k.v = w.v; k.ldkv = C; k.q = w.q; k.ldq = C;
+  k.dO = w.dO; k.Ms = w.Ms; k.Ls = w.Ls; k.Ds = w.Ds;
+  k.dk = pl.Sk > 1 ? w.gk : w.dk; k.dv = pl.Sk > 1 ? w.gv : w.dv;
+  k.ldd = C; k.split = Mk * C;
+  if ((e = dtc::launch_k(k, ctas, st)) != cudaSuccess)
+    return static_cast<int>(e);
+
+  dtc::FArgs fq = {};
+  fq.clips = clips; fq.N = Nq; fq.S = pl.Sq; fq.nsides = 1;
+  fq.plen = FQLEN; fq.eps = eps; fq.part = w.fqpart;
+  fq.side[0] = {w.dq, C, 1, w.gq, Mq * C, w.dq, w.wqT, a.xq, a.gq, f(27),
+                f(27), 0, C};
+  if ((e = dtc::launch_f(fq, ctas, st)) != cudaSuccess)
+    return static_cast<int>(e);
+  dtc::FArgs fk = {};
+  fk.clips = clips; fk.N = Nk; fk.S = pl.Sk; fk.nsides = 2;
+  fk.plen = FKLEN; fk.eps = eps; fk.part = w.fkpart;
+  fk.side[0] = {w.dk, C, 1, w.gk, Mk * C, w.dk, w.wkT, a.xk, a.gk, nullptr,
+                f(28), 0, 2 * C};
+  fk.side[1] = {w.dv, C, 1, w.gv, Mk * C, w.dv, w.wvT, a.xv, a.gv, nullptr,
+                f(29), C, 4 * C};
+  if ((e = dtc::launch_f(fk, ctas, st)) != cudaSuccess)
+    return static_cast<int>(e);
 
   f32ops::Jobs J;
   J.job[0] = {w.nq, w.dq, f(32), C, C};
@@ -435,10 +403,10 @@ extern "C" int pmce_ca_bwd_f32(void* const* ptrs, int clips, int Nq, int Nk,
   J.M = clips * Nq;
   J.splits = splits_q;
   J.ws = w.wpart;
-  J.vpart = w.bpart_q;
-  J.vout = f(38);
-  J.vtiles = clips * qchunks;
-  J.vlen = qbias_len(hid);
+  J.vpart = nullptr;
+  J.vout = nullptr;
+  J.vtiles = 0;
+  J.vlen = 0;
   if ((e = f32ops::launch_wgrad(J, st)) != cudaSuccess)
     return static_cast<int>(e);
   f32ops::Jobs K;
@@ -448,17 +416,27 @@ extern "C" int pmce_ca_bwd_f32(void* const* ptrs, int clips, int Nq, int Nk,
   K.M = clips * Nk;
   K.splits = splits_k;
   K.ws = w.wpart;
-  K.vpart = w.bpart_k;
-  K.vout = f(39);
-  K.vtiles = clips * kchunks;
-  K.vlen = KBIAS_LEN;
+  K.vpart = nullptr;
+  K.vout = nullptr;
+  K.vtiles = 0;
+  K.vlen = 0;
   if ((e = f32ops::launch_wgrad(K, st)) != cudaSuccess)
     return static_cast<int>(e);
-  if ((e = launch_clip_sum(w.cpart_q, qchunks, QCLIP_LEN, clips, f(30),
-                           st)) != cudaSuccess)
-    return static_cast<int>(e);
-  return static_cast<int>(
-      launch_clip_sum(w.cpart_k, kchunks, KCLIP_LEN, clips, f(31), st));
+
+  const int qlen = dtc::qpart_len(hid);
+  dtc::Sums S;
+  S.n = 6;
+  S.job[0] = {w.qpart, qlen, 0, 2 * C + hid, pl.qper, clips, false,
+              f(38) + C, 0};
+  S.job[1] = {w.qpart, qlen, 2 * C + hid, 2 * C + 2, pl.qper, clips, true,
+              f(30) + 2 * C, 4 * C + 2};
+  S.job[2] = {w.fqpart, FQLEN, 0, C, pl.fqtiles, clips, false, f(38), 0};
+  S.job[3] = {w.fqpart, FQLEN, C, 2 * C, pl.fqtiles, clips, true, f(30),
+              4 * C + 2};
+  S.job[4] = {w.fkpart, FKLEN, 0, 2 * C, pl.fktiles, clips, false, f(39), 0};
+  S.job[5] = {w.fkpart, FKLEN, 2 * C, 4 * C, pl.fktiles, clips, true, f(31),
+              4 * C};
+  return static_cast<int>(dtc::launch_sums(S, st));
 }
 
 PMCE_EXPORT_ERROR_STRING(pmce_ca_f32_error_string)

@@ -127,6 +127,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* global) {
                : "r"(smem_addr(smem)), "l"(__cvta_generic_to_global(global))
                : "memory");
 }
+// 4 bytes the same way (cached in L1 and L2), for rows too short for 16.
+__device__ __forceinline__ void cp_async4(void* smem, const void* global) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :
+               : "r"(smem_addr(smem)), "l"(__cvta_generic_to_global(global))
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

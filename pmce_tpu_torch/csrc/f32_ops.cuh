@@ -1,8 +1,10 @@
 // f32 pieces shared by the f32 training kernels (csrc/block_f32.cu,
-// csrc/mhsa_f32.cu): the weight products' transposes and the weight
-// gradients dW = A^T dY with the vector gradients' sums over tiles, all in
-// true f32 (FFMA on the CUDA cores, no TF32) and in a fixed order of sums:
-// no atomics, so a rerun gives the same bits.
+// csrc/mhsa_f32.cu, csrc/ada_f32.cu, csrc/ca_f32.cu): the weight products'
+// transposes and the weight gradients dW = A^T dY with the vector
+// gradients' sums over tiles, in true f32 (FFMA on the CUDA cores, no
+// TF32), and the decoder blocks' forward programs (namespace dec, FFMA);
+// every sum in a fixed order: no atomics, so a rerun gives the same bits.
+// The decoder blocks' backwards run on the tensor cores (csrc/dec_tc32.cuh).
 //
 // Weight gradients: one launch of 64 x 64 output tiles of every job (a
 // job is one dW = A^T dY over M rows), each tile's M rows cut into
@@ -185,17 +187,20 @@ inline cudaError_t launch_wgrad(Jobs J, cudaStream_t stream) {
 
 
 // ---------------------------------------------------------------------------
-// The decoder's AdaLN blocks in f32 (csrc/ada_f32.cu, rows 8f / 9f;
-// csrc/ca_f32.cu, rows 10f / 11f): C = 64 channels. A CTA of NT threads
-// owns a chunk of up to TR rows of one clip; a warp owns RW of them, and a
-// lane the columns lane and lane + 32 of each, so that a row's sums (the
-// AdaLN statistics, a branch's dot product with its gradient) are one warp
-// reduction and the row-local stages need no CTA barrier. Attention runs
+// The decoder's AdaLN blocks' f32 forwards (csrc/ada_f32.cu, row 8f;
+// csrc/ca_f32.cu, row 10f; and the rows launches of qkv and of k, v that
+// the backwards share), FFMA on the CUDA cores: C = 64 channels. A CTA of
+// NT threads owns a chunk of up to TR rows of one clip; a warp owns RW of
+// them, and a lane the columns lane and lane + 32 of each, so that a row's
+// sums (the AdaLN statistics) are one warp reduction and the row-local
+// stages need no CTA barrier. Attention runs
 // over a clip's keys streamed through shared memory in chunks of KC rows,
 // staged transposed ([C][LD]: a lane's key or channel reads fall on
 // distinct banks), a warp a row (scores a lane a key, all heads at once;
 // the products over keys a lane a channel), with an online softmax. Every
-// sum is taken in a fixed order: a rerun gives the same bits.
+// sum is taken in a fixed order: a rerun gives the same bits. (The chunk
+// programs' shared memory keeps the layout it had when the backwards ran
+// here too: P2 and D are spare.)
 // ---------------------------------------------------------------------------
 namespace dec {
 
@@ -261,23 +266,6 @@ __device__ __forceinline__ void adaln_stats(float v0, float v1, float eps,
   inv = 1.f / (sigma + eps);
 }
 
-// AdaLN's backward for one row from its gradient dy, u = x - mean, the
-// scale g and the statistics: du = g dy inv - u inv^2 sum(g dy u) /
-// ((C - 1) sigma); dx = du - mean(du) (sigma clamped away from 0, as JAX's
-// _adaln_bwd_from_stats).
-__device__ __forceinline__ void adaln_bwd(float dy0, float dy1, float u0,
-                                          float u1, float g0, float g1,
-                                          float sigma, float inv, float& dx0,
-                                          float& dx1) {
-  const float a0 = dy0 * g0, a1 = dy1 * g1;
-  const float sp = warp_sum(a0 * u0 + a1 * u1);
-  const float k = inv * inv * sp * (1.f / (C - 1)) / fmaxf(sigma, 1e-20f);
-  const float du0 = a0 * inv - u0 * k, du1 = a1 * inv - u1 * k;
-  const float m = warp_sum(du0 + du1) * (1.f / C);
-  dx0 = du0 - m;
-  dx1 = du1 - m;
-}
-
 // AdaLN of the warp's rows of `in` (row stride ldin, rows past `valid`
 // written as zeros) into `out` (row stride C) with the clip's g, b, and
 // into `keep` (device memory, row stride C) when not null.
@@ -304,83 +292,6 @@ __device__ __forceinline__ void adaln_rows(const float* in, int ldin,
     }
     out[i * C + lane] = y0;
     out[i * C + lane + 32] = y1;
-  }
-}
-
-// AdaLN's backward over the warp's rows: x (device memory, row stride C),
-// dy in registers; dx (+ add, when not null) into dx (row stride C); the
-// clip's scale g; the warp's partial sums of dgamma (dy u inv) and dbeta
-// (dy) for the lane's two columns, rows in order.
-__device__ __forceinline__ void adaln_bwd_rows(
-    const float* x, int valid, const float (&dy)[RW][2], const float* g,
-    float eps, const float* add, float* dx, float (&pg)[2], float (&pb)[2]) {
-  const int lane = threadIdx.x & 31;
-  const float g0 = g[lane], g1 = g[lane + 32];
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    if (i >= valid) break;
-    float mean, sigma, inv, d0, d1;
-    const float v0 = x[(size_t)i * C + lane], v1 = x[(size_t)i * C + lane + 32];
-    adaln_stats(v0, v1, eps, mean, sigma, inv);
-    const float u0 = v0 - mean, u1 = v1 - mean;
-    adaln_bwd(dy[i][0], dy[i][1], u0, u1, g0, g1, sigma, inv, d0, d1);
-    if (add != nullptr) {
-      d0 += add[(size_t)i * C + lane];
-      d1 += add[(size_t)i * C + lane + 32];
-    }
-    dx[(size_t)i * C + lane] = d0;
-    dx[(size_t)i * C + lane + 32] = d1;
-    pg[0] += dy[i][0] * (u0 * inv);
-    pg[1] += dy[i][1] * (u1 * inv);
-    pb[0] += dy[i][0];
-    pb[1] += dy[i][1];
-  }
-}
-
-// d gelu(v) / dv for the exact (erf) GELU.
-__device__ __forceinline__ float gelu_erf_grad(float v) {
-  const float cdf = 0.5f * (1.0f + erff(v * 0.70710678118654752f));
-  const float pdf = expf(-0.5f * v * v) * 0.39894228040143268f;
-  return cdf + v * pdf;
-}
-
-// out[c] (c < C) = the CTA's column sums: each warp's partial (v0 for
-// column lane, v1 for lane + 32), the warps added in order. scr: [NW][C]
-// of shared memory. Every thread calls it.
-__device__ __forceinline__ void cta_colsum(float v0, float v1, float* scr,
-                                           float* out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  scr[warp * C + lane] = v0;
-  scr[warp * C + lane + 32] = v1;
-  __syncthreads();
-  if (threadIdx.x < C) {
-    float s = 0.f;
-    for (int w = 0; w < NW; ++w) s += scr[w * C + threadIdx.x];
-    out[threadIdx.x] = s;
-  }
-}
-
-// The warp's column sums of its rows of a [*, C] buffer (row stride C).
-__device__ __forceinline__ void warp_colsum(const float* a, int valid,
-                                            float& v0, float& v1) {
-  const int lane = threadIdx.x & 31;
-  v0 = v1 = 0.f;
-  for (int i = 0; i < valid; ++i) {
-    v0 += a[(size_t)i * C + lane];
-    v1 += a[(size_t)i * C + lane + 32];
-  }
-}
-
-// out[0] = the CTA's sum of one value a warp (lane 0's), warps in order.
-__device__ __forceinline__ void cta_sum(float v, float* scr, float* out) {
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scr[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int w = 0; w < NW; ++w) s += scr[w];
-    out[0] = s;
   }
 }
 
@@ -504,161 +415,6 @@ __device__ void attn_fwd(const float* Q, const float* K, int ldk,
   __syncthreads();
 }
 
-// The attention's backward on the query side: DQ [TR][C] (shared) =
-// qscale * sum_j dS_ij k_j for the chunk's n rows, dS = P (dP - D), P
-// recomputed from Q (scaled, shared) and the rows' sm.M / sm.L, dP = dO
-// V^T (DO shared), D in sm.D; keys and values as attn_fwd's. Every thread
-// calls it.
-template <int H>
-__device__ void attn_bwd_q(const float* Q, const float* DO, const float* K,
-                           int ldk, const float* V, int ldv, int Nk, int n,
-                           float qscale, float* DQ, const AttnSmem& sm) {
-  constexpr int DH = C / H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h0 = lane / DH, h1 = (lane + 32) / DH;
-  float* P = sm.P + warp * HMAX * LD;
-  __syncthreads();
-  for (int e = threadIdx.x; e < TR * C; e += NT) DQ[e] = 0.f;
-  for (int j0 = 0; j0 < Nk; j0 += KC) {
-    const int kc = min(KC, Nk - j0);
-    __syncthreads();
-    stage_t(K + (size_t)j0 * ldk, ldk, kc, sm.T0);
-    stage_t(V + (size_t)j0 * ldv, ldv, kc, sm.T1);
-    __syncthreads();
-    const bool has0 = lane < kc, has1 = lane + 32 < kc;
-    for (int i = 0; i < RW; ++i) {
-      const int r = warp * RW + i;
-      if (r >= n) break;
-      float s[H][2], dp[H][2];
-      head_dots<H>(Q + r * C, sm.T0, s);
-      head_dots<H>(DO + r * C, sm.T1, dp);
-#pragma unroll
-      for (int h = 0; h < H; ++h) {
-        const float m = sm.M[h * LD + r], l = sm.L[h * LD + r];
-        const float D = sm.D[h * LD + r];
-        const float p0 = has0 ? expf(s[h][0] - m) / l : 0.f;
-        const float p1 = has1 ? expf(s[h][1] - m) / l : 0.f;
-        P[h * LD + lane] = p0 * (dp[h][0] - D);
-        P[h * LD + lane + 32] = p1 * (dp[h][1] - D);
-      }
-      __syncwarp();
-      const float* d0r = P + h0 * LD;
-      const float* d1r = P + h1 * LD;
-      const float* k0 = sm.T0 + lane * LD;
-      const float* k1 = sm.T0 + (lane + 32) * LD;
-      float q0 = DQ[r * C + lane], q1 = DQ[r * C + lane + 32];
-      for (int j = 0; j < kc; ++j) {
-        q0 = fmaf(d0r[j], k0[j], q0);
-        q1 = fmaf(d1r[j], k1[j], q1);
-      }
-      DQ[r * C + lane] = q0;
-      DQ[r * C + lane + 32] = q1;
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < TR * C; e += NT) DQ[e] *= qscale;
-  __syncthreads();
-}
-
-// The attention's backward on the key side: DK, DV [TR][C] (shared) for
-// the chunk's nk keys (their k and v rows in KS, VS [TR][C] shared) over
-// the clip's Nq queries: dk_j = sum_i dS_ij q_i (q scaled), dv_j = sum_i
-// P_ij dO_i. Queries, dO (rows of stride ldq / C) and the per-head max,
-// sum and D ([Nq][H]) in device memory, staged in chunks. Every thread
-// calls it.
-template <int H>
-__device__ void attn_bwd_kv(const float* KS, const float* VS, int nk,
-                            const float* Q, int ldq, const float* DO,
-                            const float* Mg, const float* Lg, const float* Dg,
-                            int Nq, float* DK, float* DV,
-                            const AttnSmem& sm) {
-  constexpr int DH = C / H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h0 = lane / DH, h1 = (lane + 32) / DH;
-  float* P = sm.P + warp * HMAX * LD;
-  float* S = sm.P2 + warp * HMAX * LD;
-  __syncthreads();
-  for (int e = threadIdx.x; e < TR * C; e += NT) DK[e] = DV[e] = 0.f;
-  for (int i0 = 0; i0 < Nq; i0 += KC) {
-    const int qc = min(KC, Nq - i0);
-    __syncthreads();
-    stage_t(Q + (size_t)i0 * ldq, ldq, qc, sm.T0);
-    stage_t(DO + (size_t)i0 * C, C, qc, sm.T1);
-    for (int e = threadIdx.x; e < H * KC; e += NT) {
-      const int h = e / KC, ii = e % KC;
-      const bool ok = ii < qc;
-      const size_t at = (size_t)(i0 + ii) * H + h;
-      sm.M[h * LD + ii] = ok ? Mg[at] : 0.f;
-      sm.L[h * LD + ii] = ok ? Lg[at] : 1.f;
-      sm.D[h * LD + ii] = ok ? Dg[at] : 0.f;
-    }
-    __syncthreads();
-    const bool has0 = lane < qc, has1 = lane + 32 < qc;
-    for (int i = 0; i < RW; ++i) {
-      const int r = warp * RW + i;
-      if (r >= nk) break;
-      float s[H][2], dp[H][2];
-      head_dots<H>(KS + r * C, sm.T0, s);
-      head_dots<H>(VS + r * C, sm.T1, dp);
-#pragma unroll
-      for (int h = 0; h < H; ++h) {
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int ii = lane + 32 * t;
-          const bool has = t == 0 ? has0 : has1;
-          const float p = has ? expf(s[h][t] - sm.M[h * LD + ii]) /
-                                    sm.L[h * LD + ii]
-                              : 0.f;
-          P[h * LD + ii] = p;
-          S[h * LD + ii] = p * (dp[h][t] - sm.D[h * LD + ii]);
-        }
-      }
-      __syncwarp();
-      const float* q0 = sm.T0 + lane * LD;
-      const float* q1 = sm.T0 + (lane + 32) * LD;
-      const float* g0 = sm.T1 + lane * LD;
-      const float* g1 = sm.T1 + (lane + 32) * LD;
-      float k0 = DK[r * C + lane], k1 = DK[r * C + lane + 32];
-      float v0 = DV[r * C + lane], v1 = DV[r * C + lane + 32];
-      for (int j = 0; j < qc; ++j) {
-        k0 = fmaf(S[h0 * LD + j], q0[j], k0);
-        k1 = fmaf(S[h1 * LD + j], q1[j], k1);
-        v0 = fmaf(P[h0 * LD + j], g0[j], v0);
-        v1 = fmaf(P[h1 * LD + j], g1[j], v1);
-      }
-      DK[r * C + lane] = k0;
-      DK[r * C + lane + 32] = k1;
-      DV[r * C + lane] = v0;
-      DV[r * C + lane + 32] = v1;
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-}
-
-// The per-clip sums of the chunks' partials: out[b, e] = sum over the
-// clip's chunks t in order of part[b * chunks + t, e], e < len.
-__global__ void __launch_bounds__(NT) clip_sum_kernel(const float* part,
-                                                      int chunks, int len,
-                                                      int clips, float* out) {
-  const int idx = blockIdx.x * NT + threadIdx.x;
-  if (idx >= clips * len) return;
-  const int b = idx / len, e = idx % len;
-  float s = 0.f;
-  for (int t = 0; t < chunks; ++t)
-    s += part[((size_t)b * chunks + t) * len + e];
-  out[idx] = s;
-}
-
-inline cudaError_t launch_clip_sum(const float* part, int chunks, int len,
-                                   int clips, float* out,
-                                   cudaStream_t stream) {
-  clip_sum_kernel<<<(clips * len + NT - 1) / NT, NT, 0, stream>>>(
-      part, chunks, len, clips, out);
-  return cudaGetLastError();
-}
-
 // The shared memory of the chunk programs: four [TR][C] row buffers and the
 // attention's stages. The query-side programs hold x (then x1, then dq), q,
 // o and dO in them; the key-side ones k, v, dk and dv.
@@ -710,16 +466,11 @@ __device__ __forceinline__ void load_rows(const float* src, int ld, int n,
   }
 }
 
-// The blocks' common tail over a chunk of query rows, after the attention:
-// a = o Wproj + bproj, x1 = x + m1 a, h2 = AdaLN2(x1), y = x1 + m2 (gelu(h2
-// W1 + bb1) W2 + bb2) (the MLP in hidden chunks of HC, fc2's sums in
-// registers). The backward's recompute also writes o's product operands
-// and runs the gradient chain down to the attention: m2g = m2 gy, the
-// MLP's backward (gelu'(hh)), AdaLN2's, dx1 = gy + AdaLN2^T(dh2), da = m1
-// dx1, dO = da Wproj^T and D = dO . o per head, with the CTA's partial
-// sums of the bias gradients (bproj at bpart[0], bb1 at [C], bb2 at [C +
-// hid]) and of the clip's (dgamma2 at cpart[0], dbeta2 at [C], dm1 and dm2
-// at [2C], [2C + 1]). Pointers are the chunk's first rows.
+// The blocks' common tail over a chunk of query rows, after the attention
+// (the forwards, rows 8f / 10f): a = o Wproj + bproj, x1 = x + m1 a, h2 =
+// AdaLN2(x1), y = x1 + m2 (gelu(h2 W1 + bb1) W2 + bb2) (the MLP in hidden
+// chunks of HC, fc2's sums in registers). Pointers are the chunk's first
+// rows.
 struct Tail {
   const float *g2, *b2;  // the clip's AdaLN2 vectors
   float m1, m2;          // the clip's branch scales
@@ -727,28 +478,18 @@ struct Tail {
   int hid;
   float eps;
   float* out;  // the forward's output
-  // The backward's.
-  const float* gout;
-  const float *wprojT, *w1T, *w2T;
-  float *h2, *hh, *ge, *m2g, *dhh, *da, *dO, *dx1, *D;
-  float *bpart, *cpart;
-  bool dm;  // the mask gradients are owed
 };
 
-// s.R0 holds the chunk's x rows (zeros past n), s.R2 the attention's
-// output; on return (backward) s.R3 holds dO, s.a.D the rows' D.
-template <int H, bool BWD>
+template <int H>
 __device__ void tail_rows(const Tail& t, int n, const ChunkSmem& s) {
-  constexpr int DH = C / H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wr = warp * RW;
   const int nv = max(0, min(RW, n - wr));
   float* XS = s.R0 + wr * C;    // x, then x1
   float* OS = s.R2 + wr * C;    // o
-  float* AS = s.a.P + wr * C;   // a, then da
-  float* HS = s.a.T0 + wr * C;  // h2, then dhh chunks
-  float* GS = s.a.T1 + wr * C;  // ge chunks, then m2g
-  float* scr = s.a.P2;
+  float* AS = s.a.P + wr * C;   // a
+  float* HS = s.a.T0 + wr * C;  // h2
+  float* GS = s.a.T1 + wr * C;  // ge chunks
 
   {
     float acc[RW][2] = {};
@@ -764,8 +505,7 @@ __device__ void tail_rows(const Tail& t, int n, const ChunkSmem& s) {
       }
   }
   __syncwarp();
-  adaln_rows(XS, C, nv, t.g2, t.b2, t.eps, HS,
-             BWD ? t.h2 + (size_t)wr * C : nullptr);
+  adaln_rows(XS, C, nv, t.g2, t.b2, t.eps, HS, nullptr);
   __syncwarp();
   float acc2[RW][2] = {};
   for (int ch = 0; ch < t.hid; ch += HC) {
@@ -780,11 +520,6 @@ __device__ void tail_rows(const Tail& t, int n, const ChunkSmem& s) {
         if (i < nv) {
           const float hh = ah[i][j] + t.bb1[ch + c];
           ge = gelu_erf(hh);
-          if (BWD) {
-            const size_t at = (size_t)(wr + i) * t.hid + ch + c;
-            t.hh[at] = hh;
-            t.ge[at] = ge;
-          }
         }
         GS[i * C + c] = ge;
       }
@@ -792,146 +527,15 @@ __device__ void tail_rows(const Tail& t, int n, const ChunkSmem& s) {
     if (nv > 0) mac<2>(GS, C, nv, HC, t.w2 + (size_t)ch * C, C, 0, acc2);
     __syncwarp();
   }
-  if constexpr (!BWD) {
 #pragma unroll
-    for (int i = 0; i < RW; ++i)
-      if (i < nv)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c = lane + 32 * j;
-          t.out[(size_t)(wr + i) * C + c] =
-              XS[i * C + c] + t.m2 * (acc2[i][j] + t.bb2[c]);
-        }
-    return;
-  } else {
-    // gy, m2g = m2 gy; the rows' sums of gy mo (dm2).
-    float gy[RW][2];
-    float dm2w = 0.f, dm1w = 0.f, v0, v1;
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      float e = 0.f;
+  for (int i = 0; i < RW; ++i)
+    if (i < nv)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int c = lane + 32 * j;
-        const float g = i < nv ? t.gout[(size_t)(wr + i) * C + c] : 0.f;
-        gy[i][j] = g;
-        GS[i * C + c] = g * t.m2;
-        if (i < nv) t.m2g[(size_t)(wr + i) * C + c] = g * t.m2;
-        e += g * (acc2[i][j] + t.bb2[c]);
+        t.out[(size_t)(wr + i) * C + c] =
+            XS[i * C + c] + t.m2 * (acc2[i][j] + t.bb2[c]);
       }
-      if (t.dm) dm2w += warp_sum(e);
-    }
-    __syncwarp();
-    warp_colsum(GS, nv, v0, v1);
-    cta_colsum(v0, v1, scr, t.bpart + C + t.hid);
-    // The MLP's backward: dhh = (m2g W2^T) gelu'(hh) a hidden chunk at a
-    // time, dh2 += dhh W1^T in registers.
-    float dh2[RW][2] = {};
-    for (int ch = 0; ch < t.hid; ch += HC) {
-      float ag[RW][2] = {};
-      if (nv > 0) mac<2>(GS, C, nv, C, t.w2T, t.hid, ch, ag);
-#pragma unroll
-      for (int i = 0; i < RW; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c = lane + 32 * j;
-          float d = 0.f;
-          if (i < nv) {
-            const size_t at = (size_t)(wr + i) * t.hid + ch + c;
-            d = ag[i][j] * gelu_erf_grad(t.hh[at]);
-            t.dhh[at] = d;
-          }
-          HS[i * C + c] = d;
-        }
-      __syncwarp();
-      warp_colsum(HS, nv, v0, v1);
-      cta_colsum(v0, v1, scr, t.bpart + C + ch);
-      if (nv > 0)
-        mac<2>(HS, C, nv, HC, t.w1T + (size_t)ch * C, C, 0, dh2);
-      __syncwarp();
-    }
-    // AdaLN2's backward: dx1 = gy + AdaLN2^T(dh2); the rows' sums of dx1 a
-    // (dm1); da = m1 dx1.
-    float pg[2] = {0.f, 0.f}, pb[2] = {0.f, 0.f};
-    const float g20 = t.g2[lane], g21 = t.g2[lane + 32];
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      if (i >= nv) break;
-      float mean, sigma, inv, d0, d1;
-      const float x0 = XS[i * C + lane], x1 = XS[i * C + lane + 32];
-      adaln_stats(x0, x1, t.eps, mean, sigma, inv);
-      const float u0 = x0 - mean, u1 = x1 - mean;
-      adaln_bwd(dh2[i][0], dh2[i][1], u0, u1, g20, g21, sigma, inv, d0, d1);
-      pg[0] += dh2[i][0] * (u0 * inv);
-      pg[1] += dh2[i][1] * (u1 * inv);
-      pb[0] += dh2[i][0];
-      pb[1] += dh2[i][1];
-      d0 += gy[i][0];
-      d1 += gy[i][1];
-      if (t.dm)
-        dm1w += warp_sum(d0 * AS[i * C + lane] + d1 * AS[i * C + lane + 32]);
-      const size_t at = (size_t)(wr + i) * C;
-      t.dx1[at + lane] = d0;
-      t.dx1[at + lane + 32] = d1;
-      AS[i * C + lane] = d0 * t.m1;
-      AS[i * C + lane + 32] = d1 * t.m1;
-      t.da[at + lane] = d0 * t.m1;
-      t.da[at + lane + 32] = d1 * t.m1;
-    }
-    __syncwarp();
-    cta_colsum(pg[0], pg[1], scr, t.cpart);
-    cta_colsum(pb[0], pb[1], scr, t.cpart + C);
-    warp_colsum(AS, nv, v0, v1);
-    cta_colsum(v0, v1, scr, t.bpart);
-    if (t.dm) {
-      cta_sum(dm1w, scr, t.cpart + 2 * C);
-      cta_sum(dm2w, scr, t.cpart + 2 * C + 1);
-    } else if (threadIdx.x == 0) {
-      t.cpart[2 * C] = t.cpart[2 * C + 1] = 0.f;
-    }
-    // dO = da Wproj^T; D = dO . o per head.
-    float ad[RW][2] = {};
-    if (nv > 0) mac<2>(AS, C, nv, C, t.wprojT, C, 0, ad);
-    float* DOS = s.R3 + wr * C;
-    const int h0 = lane / DH, h1 = (lane + 32) / DH;
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const bool ok = i < nv;
-      DOS[i * C + lane] = ok ? ad[i][0] : 0.f;
-      DOS[i * C + lane + 32] = ok ? ad[i][1] : 0.f;
-      if (!ok) continue;
-      const size_t at = (size_t)(wr + i) * C;
-      t.dO[at + lane] = ad[i][0];
-      t.dO[at + lane + 32] = ad[i][1];
-      float e0 = ad[i][0] * OS[i * C + lane];
-      float e1 = ad[i][1] * OS[i * C + lane + 32];
-#pragma unroll
-      for (int o = DH / 2; o > 0; o >>= 1) {
-        e0 += __shfl_xor_sync(0xffffffffu, e0, o);
-        e1 += __shfl_xor_sync(0xffffffffu, e1, o);
-      }
-      if (lane % DH == 0) {
-        s.a.D[h0 * LD + wr + i] = e0;
-        s.a.D[h1 * LD + wr + i] = e1;
-        t.D[(size_t)(wr + i) * H + h0] = e0;
-        t.D[(size_t)(wr + i) * H + h1] = e1;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// The rows' per-head softmax max and sum (sm.M, sm.L) into [n, H] rows of
-// device memory, and the chunk's o (s.R2) into [n, C].
-template <int H>
-__device__ __forceinline__ void save_attn(const ChunkSmem& s, int n, float* o,
-                                          float* Ms, float* Ls) {
-  for (int e = threadIdx.x; e < n * C; e += NT) o[e] = s.R2[e];
-  for (int e = threadIdx.x; e < n * H; e += NT) {
-    const int r = e / H, h = e % H;
-    Ms[e] = s.a.M[h * LD + r];
-    Ls[e] = s.a.L[h * LD + r];
-  }
 }
 
 }  // namespace dec

@@ -280,24 +280,26 @@ COEVO_F32 = CudaLibrary("coevo_f32", "pmce_coevo_f32_error_string", {
 # Rows 8f / 9f, the AdaLN block in f32: the forward (a table of its 17
 # pointers, clips, N, hid, heads, eps, qscale, stream) and the backward (a
 # table of its 24 pointers, the same, the weight gradients' row ranges, the
-# mask gradients owed, stream); the backward's workspace in floats (clips,
-# N, hid, heads, row ranges) and the chunk programs' shared memory.
+# mask gradients owed, the most CTAs a program launches, stream); the
+# backward's workspace in floats (clips, N, hid, heads, row ranges) and the
+# forward's chunk program's shared memory.
 ADA_F32 = CudaLibrary("ada_f32", "pmce_ada_f32_error_string", {
     "pmce_ada_f32_workspace": (L, (I, I, I, I, I)),
     "pmce_ada_f32_smem_bytes": (I, ()),
     "pmce_ada_fwd_f32": (I, (P, I, I, I, I, F, F, P)),
-    "pmce_ada_bwd_f32": (I, (P, I, I, I, I, F, F, I, I, P)),
+    "pmce_ada_bwd_f32": (I, (P, I, I, I, I, F, F, I, I, I, P)),
 })
 # Rows 10f / 11f, the CA block in f32: the forward (a table of its 27
 # pointers, clips, Nq, Nk, hid, heads, eps, qscale, stream) and the
 # backward (a table of its 40 pointers, the same, the row ranges of the
 # query side's and the key side's weight gradients, the mask gradients
-# owed, stream); the workspace (clips, Nq, Nk, hid, heads, row ranges).
+# owed, the most CTAs a program launches, stream); the workspace (clips, Nq,
+# Nk, hid, heads, row ranges, the most CTAs a program launches).
 CA_F32 = CudaLibrary("ca_f32", "pmce_ca_f32_error_string", {
-    "pmce_ca_f32_workspace": (L, (I, I, I, I, I, I)),
+    "pmce_ca_f32_workspace": (L, (I, I, I, I, I, I, I)),
     "pmce_ca_f32_smem_bytes": (I, ()),
     "pmce_ca_fwd_f32": (I, (P, I, I, I, I, I, F, F, P)),
-    "pmce_ca_bwd_f32": (I, (P, I, I, I, I, I, F, F, I, I, I, P)),
+    "pmce_ca_bwd_f32": (I, (P, I, I, I, I, I, F, F, I, I, I, I, P)),
 })
 LIBRARIES = (TRUNK, GRU, CHAIN, COEVO_BLOCK, BLOCK, SKIN, MHSA, ADA, CA,
              BLOCK_F32, COEVO_F32, MHSA_F32, ADA_F32, CA_F32)

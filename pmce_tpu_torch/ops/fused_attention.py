@@ -838,6 +838,114 @@ def _block_f32_resident(device) -> int | None:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+# Rows 9f / 11f's backward programs (csrc/dec_tc32.cuh): a long side in
+# tiles of 128 rows (8 warps of 16), the streamed side in chunks of 64
+# rows, the finishing program 16 rows a warp, one warp a CTA on a side of
+# up to 64 rows, else 8.
+_DEC_TILE_ROWS, _DEC_CHUNK_ROWS, _DEC_WARP_ROWS = 128, 64, 16
+
+
+class DecF32Program(NamedTuple):
+    """One program of a decoder block's f32 backward. ``items``: its work
+    in the order the CTAs share it, (clip, tile) or, on a split short side,
+    (clip, split); ``rows``: a tile's rows [r0, r1) of ``side``;
+    ``ranges``: a split's 64-row chunks [c0, c1) of the other side (empty
+    unsplit), merged in this order; ``ctas`` CTAs, CTA i taking
+    ``owned[i]`` (a contiguous share); ``waves``: the most items a CTA
+    takes."""
+    name: str
+    side: str
+    items: tuple
+    rows: tuple
+    ranges: tuple
+    ctas: int
+    owned: tuple
+    waves: int
+
+
+class DecF32Plan(NamedTuple):
+    """Rows 9f / 11f's grids: ``ctas`` (the entry points' argument: the
+    most CTAs a program launches), the query and key programs' splits (1:
+    tiles of 128 rows) and the programs in launch order."""
+    ctas: int
+    splits_q: int
+    splits_k: int
+    programs: tuple
+
+
+@functools.lru_cache(maxsize=64)
+def f32_dec_plan(kind: str, clips: int, Nq: int, Nk: int,
+                 resident: int | None) -> DecF32Plan:
+    """The f32 decoder blocks' backward programs over the card's
+    ``resident`` co-resident CTAs (one an SM; None: a CPU build, a CTA an
+    item), as ``csrc/ada_f32.cu`` (``kind`` "ada", Nq = Nk = N) and
+    ``csrc/ca_f32.cu``'s ``plan`` (``kind`` "ca") launch them. A side
+    shorter than the other (a CA block's, one tile) is split over the
+    other's chunks: min(resident // clips, chunks) CTAs a clip (all of them
+    without a card); every program is a persistent grid of min(items,
+    ctas) CTAs."""
+    if kind not in ("ada", "ca") or clips < 1 or Nq < 1 or Nk < 1 or (
+            kind == "ada" and Nq != Nk):
+        raise ValueError(f"f32_dec_plan: {kind} {clips} x {Nq} / {Nk}")
+
+    def chunks(n):
+        return -(-n // _DEC_CHUNK_ROWS)
+
+    def tiles(n, rows=_DEC_TILE_ROWS):
+        return tuple((r, min(n, r + rows)) for r in range(0, n, rows))
+
+    def splits(short, long):
+        if kind == "ada" or short >= long or short > _DEC_TILE_ROWS:
+            return 1
+        if resident is None:
+            return chunks(long)
+        return max(1, min(resident // clips, chunks(long)))
+
+    sq, sk = splits(Nq, Nk), splits(Nk, Nq)
+    progs = []
+
+    def side_program(name, side, n, s, other):
+        if s > 1:
+            ranges = tuple((chunks(other) * i // s,
+                            chunks(other) * (i + 1) // s) for i in range(s))
+            return (name, side, tuple((c, i) for c in range(clips)
+                                      for i in range(s)), ((0, n),), ranges)
+        rows = tiles(n)
+        return (name, side, tuple((c, i) for c in range(clips)
+                                  for i in range(len(rows))), rows, ())
+
+    if sq > 1:
+        progs.append(side_program("query attention", "queries", Nq, sq, Nk))
+        progs.append(side_program("query tail", "queries", Nq, sq, Nk))
+    else:
+        progs.append(side_program("queries", "queries", Nq, 1, Nk))
+    progs.append(side_program("keys", "keys", Nk, sk, Nq))
+    for side, n in (("queries", Nq),) + ((("keys", Nk),) if kind == "ca"
+                                         else ()):
+        rows = tiles(n, _DEC_WARP_ROWS * (1 if n <= 64 else 8))
+        progs.append((f"finish {side}", side, tuple(
+            (c, i) for c in range(clips) for i in range(len(rows))), rows,
+            ()))
+    ctas = resident if resident is not None else max(len(p[2])
+                                                      for p in progs)
+    programs = []
+    for name, side, items, rows, ranges in progs:
+        grid = min(len(items), ctas)
+        owned = tuple(items[len(items) * i // grid:
+                            len(items) * (i + 1) // grid]
+                      for i in range(grid))
+        programs.append(DecF32Program(name, side, items, rows, ranges, grid,
+                                      owned, max(len(o) for o in owned)))
+    return DecF32Plan(ctas, sq, sk, tuple(programs))
+
+
+def _dec_f32_resident(device) -> int | None:
+    """The CTAs of rows 9f / 11f's programs the card holds at once: one an
+    SM (up to 255 registers a thread at 256 threads), as
+    :func:`_block_f32_resident`."""
+    return _block_f32_resident(device)
+
+
 def _block_bwd_f32_cuda(gout, x, params, m1, m2, num_heads, eps, post_eps,
                         need_masks: bool, w=None):
     """Row 7f: the f32 backward of ``csrc/block_f32.cu`` in one call
@@ -2742,9 +2850,11 @@ def _ada_fwd_f32_cuda(x, gb, masks, params, num_heads, eps):
 def _ada_bwd_f32_cuda(gout, x, gb, masks, params, num_heads, eps,
                       need_masks: bool):
     """Row 9f: one call of ``pmce_ada_bwd_f32`` (the weights' transposes,
-    the forward recomputed from x, the gradient chain, dk / dv over the
-    queries, AdaLN1's backward, the weight gradients and the per-clip sums,
-    every sum in a fixed order). Returns dx, the four [B, C] AdaLN vectors'
+    qkv recomputed from x, then on :func:`f32_dec_plan`'s persistent grids
+    the attention recomputed with the tail and the gradient chain down to
+    dq, dk / dv over the queries, AdaLN1's backward; the weight gradients
+    and the sums of the programs' partials, every sum in a fixed order).
+    Returns dx, the four [B, C] AdaLN vectors'
     gradients, the eight parameter gradients and (dm1, dm2) (None, None
     unless ``need_masks``)."""
     B, N, C = x.shape
@@ -2754,6 +2864,7 @@ def _ada_bwd_f32_cuda(gout, x, gb, masks, params, num_heads, eps,
     g = gout.to(f32).contiguous()
     _cuda.check_cuda(g, "grad of the block output", f32, (B, N, C))
     splits = f32_wgrad_splits(B * N)
+    ctas = f32_dec_plan("ada", B, N, N, _dec_f32_resident(dev)).ctas
     ws = torch.empty(int(_cuda.ADA_F32.query(
         "pmce_ada_f32_workspace", B, N, hid, num_heads, splits)),
         device=dev, dtype=f32)
@@ -2764,7 +2875,7 @@ def _ada_bwd_f32_cuda(gout, x, gb, masks, params, num_heads, eps,
     db = torch.empty(5 * C + hid, device=dev, dtype=f32)
     _cuda.ADA_F32.call("pmce_ada_bwd_f32", _cuda.ptr_table(
         *ins, g, ws, dx, sums, *dw, db), B, N, hid, num_heads, eps,
-        1.0 / math.sqrt(C // num_heads), splits, int(need_masks),
+        1.0 / math.sqrt(C // num_heads), splits, int(need_masks), ctas,
         _cuda.stream_ptr(dev))
     ADA_BWD_F32_LAUNCHES.count += 1
     dgb = tuple(sums[:, i * C:(i + 1) * C] for i in range(4))
@@ -2866,9 +2977,11 @@ def _ca_fwd_f32_cuda(xs, gammas, betas, masks, params, num_heads, eps):
 def _ca_bwd_f32_cuda(gout, xs, gammas, betas, masks, params, num_heads, eps,
                      need_masks: bool):
     """Row 11f: one call of ``pmce_ca_bwd_f32`` (the weights' transposes,
-    the forward recomputed from xq, xk, xv, the gradient chain, dk / dv
-    over the queries with dxk / dxv, the weight gradients of each side and
-    the per-clip sums, every sum in a fixed order). Returns (dxq, dxk,
+    k and v recomputed, then on :func:`f32_dec_plan`'s persistent grids
+    (the short side split over the long) the query side's recompute and
+    gradient chain down to dq, dk / dv over the queries, each side's AdaLN
+    backward; the weight gradients of each side and the sums of the
+    programs' partials, every sum in a fixed order). Returns (dxq, dxk,
     dxv), the eight [B, C] AdaLN vectors' gradients in the order gq, bq',
     gk, bk', gv, bv', g2, b2, the twelve parameter gradients and (dm1,
     dm2) (None, None unless ``need_masks``)."""
@@ -2881,9 +2994,10 @@ def _ca_bwd_f32_cuda(gout, xs, gammas, betas, masks, params, num_heads, eps,
     g = gout.to(f32).contiguous()
     _cuda.check_cuda(g, "grad of the block output", f32, (B, Nq, C))
     sq, sk = f32_wgrad_splits(B * Nq), f32_wgrad_splits(B * Nk)
+    ctas = f32_dec_plan("ca", B, Nq, Nk, _dec_f32_resident(dev)).ctas
     ws = torch.empty(int(_cuda.CA_F32.query(
-        "pmce_ca_f32_workspace", B, Nq, Nk, hid, num_heads, max(sq, sk))),
-        device=dev, dtype=f32)
+        "pmce_ca_f32_workspace", B, Nq, Nk, hid, num_heads, max(sq, sk),
+        ctas)), device=dev, dtype=f32)
     dxs = [torch.empty_like(t) for t in xs]
     sums_q = torch.empty(B, 4 * C + 2, device=dev, dtype=f32)
     sums_k = torch.empty(B, 4 * C, device=dev, dtype=f32)
@@ -2894,7 +3008,7 @@ def _ca_bwd_f32_cuda(gout, xs, gammas, betas, masks, params, num_heads, eps,
     _cuda.CA_F32.call("pmce_ca_bwd_f32", _cuda.ptr_table(
         *ins, g, ws, *dxs, sums_q, sums_k, *dw, db_q, db_k), B, Nq, Nk, hid,
         num_heads, eps, 1.0 / math.sqrt(C // num_heads), sq, sk,
-        int(need_masks), _cuda.stream_ptr(dev))
+        int(need_masks), ctas, _cuda.stream_ptr(dev))
     CA_BWD_F32_LAUNCHES.count += 1
 
     def q(i):

@@ -39,7 +39,7 @@ inline const char* cudaGetErrorString(cudaError_t) { return "shim error"; }
 namespace shim {
 struct Warp { std::barrier<> bar{32}; float buf[32]; unsigned fa[32][4], fb[32][2]; };
 struct Block { std::barrier<>* bar; Warp* warps; unsigned char* smem; };
-inline thread_local dim3 tIdx, bIdx, gDim;
+inline thread_local dim3 tIdx, bIdx, gDim, bDim;
 inline thread_local Block* blk = nullptr;
 template <class K, class... A>
 void launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
@@ -54,7 +54,7 @@ void launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... arg
       std::vector<std::thread> ts;
       ts.reserve(nt);
       for (int t = 0; t < nt; ++t)
-        ts.emplace_back([&, t] { tIdx = dim3(t); bIdx = dim3(bx, by); gDim = grid; blk = &b; kernel(args...); });
+        ts.emplace_back([&, t] { tIdx = dim3(t); bIdx = dim3(bx, by); gDim = grid; bDim = block; blk = &b; kernel(args...); });
       for (auto& t : ts) t.join();
       free(mem);
     }
@@ -63,6 +63,7 @@ void launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... arg
 #define threadIdx (shim::tIdx)
 #define blockIdx (shim::bIdx)
 #define gridDim (shim::gDim)
+#define blockDim (shim::bDim)
 inline void __syncthreads() { shim::blk->bar->arrive_and_wait(); }
 inline void __syncwarp() { shim::blk->warps[threadIdx.x / 32].bar.arrive_and_wait(); }
 inline float __shfl_sync(unsigned, float v, int src) {
@@ -115,6 +116,7 @@ inline void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigne
 }
 // cp.async as a plain copy: the wait is then the block barrier after it.
 inline void cp_async16(void* smem, const void* global) { memcpy(smem, global, 16); }
+inline void cp_async4(void* smem, const void* global) { memcpy(smem, global, 4); }
 inline void cp_async_commit() {}
 inline void cp_async_wait_all() {}
 }  // namespace tc32

@@ -3,7 +3,9 @@ plain versions.
 
 ``csrc/block_f32.cu`` (rows 6f / 7f), ``csrc/mhsa_f32.cu`` (rows 4f / 5f),
 ``csrc/ada_f32.cu`` (rows 8f / 9f) and ``csrc/ca_f32.cu`` (rows 10f /
-11f), with ``csrc/f32_ops.cuh``, are compiled by g++ over
+11f), with ``csrc/f32_ops.cuh`` and ``csrc/dec_tc32.cuh`` (the shim's
+stand-ins for mma.sync, cp.async and cvt.rna check the 3xTF32 fragments'
+indexing), are compiled by g++ over
 ``tests/cuda_cpu/shim_common.cuh`` (a thread block as OS threads; the
 sources' launches ``k<<<...>>>(...)`` rewritten as calls of the shim's
 launcher, ``extern __shared__`` as the block's buffer) and loaded in place
@@ -56,7 +58,8 @@ def cpu_libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("cuda_cpu")
     shutil.copy(SHIM, out / "common.cuh")
     sources = ("block_f32", "mhsa_f32", "ada_f32", "ca_f32")
-    for name in (*(f"{n}.cu" for n in sources), "f32_ops.cuh"):
+    for name in (*(f"{n}.cu" for n in sources), "f32_ops.cuh",
+                 "dec_tc32.cuh"):
         text = (_cuda.CSRC / name).read_text()
         text = text.replace(
             "extern __shared__ __align__(16) unsigned char smem[];",
@@ -173,7 +176,8 @@ def _check(got, want, counts, expect, zero=()):
 
 
 @pytest.mark.parametrize("clips,N,heads,hid", [(2, 72, 2, 128),
-                                               (3, 70, 8, 64)])
+                                               (3, 70, 8, 64),
+                                               (2, 72, 4, 64)])
 def test_ada_f32_source_matches_plain_on_the_cpu(cpu_libs, clips, N, heads,
                                                  hid):
     """Rows 8f / 9f: two chunks of each clip (64 rows, then the rest),
@@ -200,7 +204,8 @@ def test_ada_f32_source_matches_plain_on_the_cpu(cpu_libs, clips, N, heads,
 
 
 @pytest.mark.parametrize("Nq,Nk,heads,hid", [(17, 72, 8, 128),
-                                             (72, 17, 2, 64)])
+                                             (72, 17, 2, 64),
+                                             (20, 72, 4, 64)])
 def test_ca_f32_source_matches_plain_on_the_cpu(cpu_libs, Nq, Nk, heads,
                                                 hid):
     """Rows 10f / 11f in both orientations (the long side in two chunks),
@@ -224,5 +229,39 @@ def test_ca_f32_source_matches_plain_on_the_cpu(cpu_libs, Nq, Nk, heads,
 
     got, counts = _as_card(cpu_libs, lambda: step(fa.ca_block))
     # Leaves 6 and 14: the keys' AdaLN beta and bias.
+    _check(got, step(fa.ca_block_plain), counts,
+           {"ca_fwd_f32": 1, "ca_bwd_f32": 1}, zero=(6, 14))
+
+
+@pytest.mark.parametrize("Nq,Nk,heads", [(17, 431, 8), (431, 17, 2)])
+def test_ca_f32_split_short_side_matches_plain_on_the_cpu(cpu_libs, Nq, Nk,
+                                                          heads):
+    """Row 11f at a short side of 17 over a long side of 431 (Stage 2's
+    joints and vertices) both ways, under the split plan: 4 CTAs of the
+    short side's program over the long side's 7 chunks (the card's
+    co-resident count stood in for), their partials merged in order; one
+    clip, masks that require grad."""
+    rng = np.random.default_rng(Nq + 2 * Nk)
+    C, clips, hid = 64, 1, 64
+    xs = [_t(rng, clips, n, C) for n in (Nq, Nk, Nk)]
+    conds = [_t(rng, clips, C, scale=0.1, offset=1.0 - i % 2)
+             for i in range(8)]
+    params = [t for _ in range(4) for t in (
+        _t(rng, C, C, scale=C ** -0.5), _t(rng, C, scale=0.05))]
+    params += [_t(rng, C, hid, scale=C ** -0.5), _t(rng, hid, scale=0.05),
+               _t(rng, hid, C, scale=hid ** -0.5), _t(rng, C, scale=0.05)]
+    masks = tuple(torch.tensor([[[1.25]]]).requires_grad_(True)
+                  for _ in range(2))
+    g = _t(rng, clips, Nq, C, grad=False)
+    leaves = [*xs, *conds, *params, *masks]
+
+    def step(block):
+        y = block(*xs, conds[0::2], conds[1::2], params, heads, 1e-6, masks)
+        return (y, *torch.autograd.grad(y, leaves, g))
+
+    plan = fa.f32_dec_plan("ca", clips, Nq, Nk, 4)
+    assert max(plan.splits_q, plan.splits_k) == 4
+    with mock.patch.object(fa, "_dec_f32_resident", return_value=4):
+        got, counts = _as_card(cpu_libs, lambda: step(fa.ca_block))
     _check(got, step(fa.ca_block_plain), counts,
            {"ca_fwd_f32": 1, "ca_bwd_f32": 1}, zero=(6, 14))
