@@ -15,28 +15,26 @@
 // MLP of up to 256 hidden units. Its path is f32 Stage-2 training:
 // [32, 431, 64] in 2 heads of 32.
 //
-// Products: the forward (pmce_ada_fwd_f32) in true f32, FFMA on the CUDA
-// cores (csrc/f32_ops.cuh, namespace dec); the backward (pmce_ada_bwd_f32)
-// in 3xTF32 on the tensor cores (csrc/dec_tc32.cuh) but for its first rows
-// launch (the forward's) and the weight gradients (FFMA). Both differ from
-// the plain version only in the order of their sums and, in the backward,
-// the tensor cores' products (<= 1.1e-6 of the gradients in the CPU
-// model).
+// Products: every row product and the attention in 3xTF32 on the tensor
+// cores (csrc/dec_tc32.cuh), but for the backward's weight gradients
+// (FFMA, f32_ops.cuh). Both differ from the plain version only in the
+// order of their sums and the tensor cores' products (<= 7.5e-7 of the
+// output, <= 1.1e-6 of the gradients in the CPU model).
 //
-// Forward (pmce_ada_fwd_f32), two launches, a grid of chunks of 64 rows of
-// one clip (one f32 [431, 64] buffer is 110 KB, so a clip's x, K and V do
-// not fit one SM's shared memory; the clip's keys and values stream from
-// device memory, L2-resident, in chunks of 64 rows):
-// - rows: AdaLN1 and qkv = h1 Wqkv + bqkv (q scaled) into the workspace;
-// - chunks: the chunk's queries against the clip's keys (an online
-//   softmax, a warp a row), then the tail (proj, x1, AdaLN2, MLP, y).
+// Forward (pmce_ada_fwd_f32), three launches, persistent grids of min(items,
+// ctas) CTAs over tiles of 128 rows of a clip (4 a clip at 431 rows: 128
+// CTAs, one wave on 132 SMs; the wrappers' f32_dec_fwd_plan):
+// 1. rows: AdaLN1 and qkv = h1 Wqkv + bqkv (q scaled) into the workspace;
+// 2. the attention: the tile's queries over the clip's keys, streamed in
+//    64-row chunks (a clip's x, K and V, ~331 KB at 431 rows, never sit on
+//    one SM), an online softmax: o into the workspace;
+// 3. the tail: proj, x1, AdaLN2, MLP, y.
 // It saves nothing for the gradient: the backward recomputes the forward
 // from x, as JAX's `_ada_block_bwd_kernel` does ("recompute in VMEM").
 //
 // Backward (pmce_ada_bwd_f32), ten launches, no atomics (a rerun gives the
-// same bits); the five programs are persistent grids of min(items, ctas)
-// CTAs over tiles of 128 rows of a clip (4 a clip at 431 rows: 128 CTAs,
-// one wave on 132 SMs; csrc/dec_tc32.cuh):
+// same bits); the programs are persistent grids as the forward's
+// (csrc/dec_tc32.cuh):
 // 1. the four weights transposed (f32_ops.cuh);
 // 2. rows: the forward's first launch, keeping h1 and qkv;
 // 3. the attention recomputed: o, the softmax's max and sum;
@@ -50,7 +48,7 @@
 //    sums, FFMA);
 // 10. the programs' per-tile partials summed in order: the bias gradients
 //    and per clip dgamma1, dbeta1, dgamma2, dbeta2, and dm1, dm2 when owed.
-// Registers and shared memory: csrc/dec_tc32.cuh.
+// Registers and shared memory: csrc/dec_tc32.cuh, PERF.md section 3.
 
 #include "common.cuh"
 #include "f32_ops.cuh"
@@ -58,13 +56,12 @@
 
 namespace ada32 {
 
-using namespace f32ops::dec;
 namespace dtc = f32ops::dtc;
+using dtc::C;
 
 struct Args {
   const float *x, *g1, *b1, *g2, *b2, *m1, *m2;
   const float *wqkv, *bqkv, *wproj, *bproj, *w1, *bb1, *w2, *bb2;
-  float *out, *qkv, *h1;
   int clips, N, hid;
   float eps, qscale;
 };
@@ -72,64 +69,32 @@ struct Args {
 // The finishing program's partial row: dbqkv [3C], dgamma1, dbeta1.
 constexpr int FLEN = 5 * C;
 
-// Rows: h1 = AdaLN1(x), qkv = h1 Wqkv + bqkv (q scaled); h1 kept when
-// p.h1 is not null. A warp's rows need no CTA barrier.
-__global__ void __launch_bounds__(NT) ada_rows_kernel(Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int clip = blockIdx.y, r0 = blockIdx.x * TR;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp * RW;
-  const int nv = max(0, min(RW, p.N - r0 - wr));
-  if (nv == 0) return;
-  const size_t g = (size_t)clip * p.N + r0 + wr;  // the warp's first row
-  float* HS = reinterpret_cast<float*>(smem) + wr * C;
-  adaln_rows(p.x + g * C, C, nv, p.g1 + clip * C, p.b1 + clip * C, p.eps, HS,
-             p.h1 != nullptr ? p.h1 + g * C : nullptr);
-  __syncwarp();
-  float acc[RW][6] = {};
-  mac<6>(HS, C, nv, C, p.wqkv, 3 * C, 0, acc);
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    if (i >= nv) break;
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      const int c = lane + 32 * j;
-      const float v = acc[i][j] + p.bqkv[c];
-      p.qkv[(g + i) * 3 * C + c] = c < C ? v * p.qscale : v;
-    }
-  }
-}
-
-// Chunks: the chunk's attention over the clip's keys and the tail.
-template <int H>
-__global__ void __launch_bounds__(NT, 1) ada_chunk_kernel(Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const ChunkSmem s = chunk_smem(smem);
-  const int clip = blockIdx.y, r0 = blockIdx.x * TR;
-  const int n = min(TR, p.N - r0);
-  const size_t g0 = (size_t)clip * p.N + r0;
-  const float* qkv = p.qkv + (size_t)clip * p.N * 3 * C;
-  load_rows(qkv + (size_t)r0 * 3 * C, 3 * C, n, s.R1);
-  load_rows(p.x + g0 * C, C, n, s.R0);
-  attn_fwd<H>(s.R1, qkv + C, 3 * C, qkv + 2 * C, 3 * C, p.N, n, s.R2, s.a);
-  Tail t;
-  t.g2 = p.g2 + clip * C;
-  t.b2 = p.b2 + clip * C;
-  t.m1 = clip_scale(p.m1, clip);
-  t.m2 = clip_scale(p.m2, clip);
-  t.wproj = p.wproj; t.bproj = p.bproj;
-  t.w1 = p.w1; t.bb1 = p.bb1; t.w2 = p.w2; t.bb2 = p.bb2;
-  t.hid = p.hid;
-  t.eps = p.eps;
-  t.out = p.out + g0 * C;
-  tail_rows<H>(t, n, s);
-}
-
-constexpr int ROWS_SMEM = TR * C * 4;
-
 bool shape_ok(int clips, int N, int hid, int heads) {
-  return clips > 0 && N > 0 && hid > 0 && hid % HC == 0 && hid <= 256 &&
+  return clips > 0 && N > 0 && hid > 0 && hid % C == 0 && hid <= 256 &&
          (heads == 2 || heads == 4 || heads == 8);
+}
+
+// The rows program's arguments: h1 = AdaLN1(x) (kept where h1 is not null),
+// qkv = h1 Wqkv + bqkv, q scaled.
+dtc::RArgs rows_args(const Args& a, float* qkv, float* h1) {
+  dtc::RArgs r = {};
+  r.clips = a.clips; r.N = a.N; r.tiles = dtc::cdiv(a.N, dtc::TRT);
+  r.nsides = 1; r.eps = a.eps; r.scale0 = a.qscale;
+  r.side[0] = {a.x, a.g1, a.b1, h1, a.wqkv, a.bqkv, qkv, 3};
+  return r;
+}
+
+// The query side's arguments common to the forward and the backward.
+dtc::QArgs query_args(const Args& a, const float* qkv) {
+  dtc::QArgs q = {};
+  q.clips = a.clips; q.Nq = a.N; q.Nk = a.N; q.hid = a.hid; q.S = 1;
+  q.tiles = dtc::cdiv(a.N, dtc::TRT); q.eps = a.eps; q.qscale = a.qscale;
+  q.x = a.x; q.qin = qkv; q.ldqin = 3 * C;
+  q.k = qkv + C; q.v = qkv + 2 * C; q.ldkv = 3 * C;
+  q.g2 = a.g2; q.b2 = a.b2; q.m1 = a.m1; q.m2 = a.m2;
+  q.wproj = a.wproj; q.bproj = a.bproj; q.w1 = a.w1; q.bb1 = a.bb1;
+  q.w2 = a.w2; q.bb2 = a.bb2;
+  return q;
 }
 
 // The backward's workspace, carved from one f32 buffer (null: only count).
@@ -188,36 +153,29 @@ extern "C" long long pmce_ada_f32_workspace(int clips, int N, int hid,
       ada32::carve(nullptr, clips, N, hid, heads, splits).floats);
 }
 
-// Shared memory of the forward's chunk program (bytes).
-extern "C" int pmce_ada_f32_smem_bytes() {
-  return f32ops::dec::CHUNK_SMEM_FLOATS * 4;
-}
-
 // The f32 forward over [clips, N, 64] tokens. ptrs: 0 x, 1-4 g1, b1, g2, b2
 // ([clips, 64] each), 5-6 m1, m2 ([clips]; both null without masks), 7
 // wqkv [64, 192], 8 bqkv, 9 wproj [64, 64], 10 bproj, 11 w1 [64, hid], 12
 // bb1, 13 w2 [hid, 64], 14 bb2 (f32, [in, out] as the parameters are), 15
-// out, 16 scratch [clips * N, 192] (q, k, v).
+// out, 16 the workspace [clips * N, 256] (q, k, v, o). ctas: the most CTAs
+// a program launches (the card's co-resident CTAs, one an SM).
 extern "C" int pmce_ada_fwd_f32(void* const* ptrs, int clips, int N, int hid,
-                                int heads, float eps, float qscale,
+                                int heads, float eps, float qscale, int ctas,
                                 void* stream) {
   using namespace ada32;
-  if (!shape_ok(clips, N, hid, heads) ||
+  if (!shape_ok(clips, N, hid, heads) || ctas <= 0 ||
       (ptrs[5] == nullptr) != (ptrs[6] == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   fill(a, ptrs, clips, N, hid, eps, qscale);
-  a.out = static_cast<float*>(ptrs[15]);
-  a.qkv = static_cast<float*>(ptrs[16]);
+  float* qkv = static_cast<float*>(ptrs[16]);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + TR - 1) / TR, clips);
-  ada_rows_kernel<<<grid, NT, ROWS_SMEM, st>>>(a);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = dtc::launch_rows(rows_args(a, qkv, nullptr), ctas, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_chunk(heads == 2   ? ada_chunk_kernel<2>
-                                       : heads == 4 ? ada_chunk_kernel<4>
-                                                    : ada_chunk_kernel<8>,
-                                       grid, a, st));
+  dtc::QArgs q = query_args(a, qkv);
+  q.o = qkv + (size_t)clips * N * 3 * C;
+  q.out = static_cast<float*>(ptrs[15]);
+  return static_cast<int>(dtc::launch_fwd<false>(q, heads, ctas, st));
 }
 
 // The f32 backward: dx, the per-clip sums, the four weight gradients and
@@ -240,8 +198,6 @@ extern "C" int pmce_ada_bwd_f32(void* const* ptrs, int clips, int N, int hid,
   Args a;
   fill(a, ptrs, clips, N, hid, eps, qscale);
   const Ws w = carve(f(16), clips, N, hid, heads, splits);
-  a.qkv = w.qkv;
-  a.h1 = w.h1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   f32ops::Transposes T;
@@ -257,17 +213,11 @@ extern "C" int pmce_ada_bwd_f32(void* const* ptrs, int clips, int N, int hid,
   T.n = 4;
   cudaError_t e = f32ops::launch_transposes(T, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ada_rows_kernel<<<dim3((N + TR - 1) / TR, clips), NT, ROWS_SMEM, st>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  if ((e = dtc::launch_rows(rows_args(a, w.qkv, w.h1), ctas, st)) !=
+      cudaSuccess)
+    return static_cast<int>(e);
 
-  dtc::QArgs q = {};
-  q.clips = clips; q.Nq = N; q.Nk = N; q.hid = hid; q.S = 1;
-  q.tiles = w.qtiles; q.eps = eps; q.qscale = qscale;
-  q.x = a.x; q.qin = w.qkv; q.ldqin = 3 * C;
-  q.k = w.qkv + C; q.v = w.qkv + 2 * C; q.ldkv = 3 * C;
-  q.g2 = a.g2; q.b2 = a.b2; q.m1 = a.m1; q.m2 = a.m2;
-  q.wproj = a.wproj; q.bproj = a.bproj; q.w1 = a.w1; q.bb1 = a.bb1;
-  q.bb2 = a.bb2;
+  dtc::QArgs q = query_args(a, w.qkv);
   q.wprojT = w.wprojT; q.w1T = w.w1T; q.w2T = w.w2T; q.gout = f(15);
   q.o = w.o; q.hh = w.hh; q.h2 = w.h2; q.ge = w.ge; q.m2g = w.m2g;
   q.dhh = w.dhh; q.da = w.da; q.dO = w.dO; q.dx1 = f(17);

@@ -17,17 +17,22 @@
 // training in both orientations: joints [32, 17, 64] over vertices [32,
 // 431, 64] in 8 heads of 8, and vertices over joints in 2 heads of 32.
 //
-// Products: the forward (pmce_ca_fwd_f32) in true f32, FFMA on the CUDA
-// cores (csrc/f32_ops.cuh, namespace dec, the plan of csrc/ada_f32.cu:
-// grids of chunks of 64 rows of one clip on each side, the other side's
-// rows streamed from device memory in chunks of 64); the backward
-// (pmce_ca_bwd_f32) in 3xTF32 on the tensor cores (csrc/dec_tc32.cuh) but
-// for its k, v launch (the forward's) and the weight gradients (FFMA).
+// Products: every row product and the attention in 3xTF32 on the tensor
+// cores (csrc/dec_tc32.cuh), but for the backward's weight gradients
+// (FFMA, f32_ops.cuh).
 //
-// Forward (pmce_ca_fwd_f32), two launches:
-// - key chunks: k and v (AdaLN, product) into the workspace;
-// - query chunks: AdaLN_q and q (scaled), the attention over the clip's
-//   keys, the tail (proj, x1, AdaLN2, MLP, y).
+// Forward (pmce_ca_fwd_f32), three launches on the persistent grids of the
+// wrappers' f32_dec_fwd_plan (min(items, ctas) CTAs):
+// 1. key rows: k and v (AdaLN, product) into the workspace, tiles of 128
+//    rows of a clip's keys;
+// 2. the attention: AdaLN_q and q (scaled), the tile's queries over the
+//    clip's keys streamed in 64-row chunks, an online softmax: o into the
+//    workspace. A long query side (431 vertices) is cut into tiles of 128
+//    rows (4 a clip: 128 CTAs at 32 clips); the short one (17 joints: one
+//    tile, 32 CTAs on 132 SMs) is split over the long side's chunks as the
+//    backward's (below), each split's partial o, max and sum kept;
+// 3. the tail (a CTA a tile of the query side; split: the partials merged
+//    in order of s first): proj, x1, AdaLN2, MLP, y.
 // It saves nothing for the gradient: the backward recomputes the forward
 // from xq, xk and xv, as JAX's `_ca_block_bwd_kernel` does.
 //
@@ -40,7 +45,7 @@
 // 4 on 132 SMs), split s taking the chunks [n s / S, n (s + 1) / S), its
 // partials merged in order of s.
 // 1. the six weights transposed (f32_ops.cuh, two launches);
-// 2. key chunks: the forward's first launch, keeping nk, nv;
+// 2. key rows: the forward's first launch, keeping nk, nv;
 // 3. the query side's three programs (dec_tc32.cuh): AdaLN_q and q (nq,
 //    q kept) and the attention recomputed; the tail and the gradient chain
 //    down to the attention (dx1, da, dO, D); dq over the clip's keys.
@@ -56,7 +61,7 @@
 //    Wproj, W1, W2 over the query rows, Wk, Wv over the key rows;
 // 7. the programs' partials summed in order: the bias gradients, and per
 //    clip the eight AdaLN vectors' gradients and dm1, dm2 when owed.
-// Registers and shared memory: csrc/dec_tc32.cuh.
+// Registers and shared memory: csrc/dec_tc32.cuh, PERF.md section 3.
 
 #include "common.cuh"
 #include "f32_ops.cuh"
@@ -64,15 +69,14 @@
 
 namespace ca32 {
 
-using namespace f32ops::dec;
 namespace dtc = f32ops::dtc;
+using dtc::C;
 
 struct Args {
   const float *xq, *xk, *xv;
   const float *gq, *bq_, *gk, *bk_, *gv, *bv_, *g2, *b2, *m1, *m2;
   const float *wq, *bq, *wk, *bk, *wv, *bv, *wproj, *bproj, *w1, *bb1, *w2,
       *bb2;
-  float *out, *k, *v, *nk, *nv;
   int clips, Nq, Nk, hid;
   float eps, qscale;
 };
@@ -82,91 +86,21 @@ struct Args {
 constexpr int FQLEN = 3 * C;
 constexpr int FKLEN = 6 * C;
 
-// Key chunks: k = AdaLN_k(xk) Wk + bk, v = AdaLN_v(xv) Wv + bv; nk, nv kept
-// when p.nk is not null. A warp's rows need no CTA barrier.
-__global__ void __launch_bounds__(NT) ca_keys_fwd_kernel(Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int clip = blockIdx.y, r0 = blockIdx.x * TR;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp * RW;
-  const int nv = max(0, min(RW, p.Nk - r0 - wr));
-  if (nv == 0) return;
-  const size_t g = (size_t)clip * p.Nk + r0 + wr;
-  float* HS = reinterpret_cast<float*>(smem) + wr * C;
-  for (int side = 0; side < 2; ++side) {
-    const float* x = side == 0 ? p.xk : p.xv;
-    const float* gm = side == 0 ? p.gk : p.gv;
-    const float* bt = side == 0 ? p.bk_ : p.bv_;
-    float* keep = side == 0 ? p.nk : p.nv;
-    adaln_rows(x + g * C, C, nv, gm + clip * C, bt + clip * C, p.eps, HS,
-               keep != nullptr ? keep + g * C : nullptr);
-    __syncwarp();
-    float acc[RW][2] = {};
-    mac<2>(HS, C, nv, C, side == 0 ? p.wk : p.wv, C, 0, acc);
-    const float* b = side == 0 ? p.bk : p.bv;
-    float* out = side == 0 ? p.k : p.v;
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      if (i >= nv) break;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        out[(g + i) * C + c] = acc[i][j] + b[c];
-      }
-    }
-    __syncwarp();
-  }
-}
-
-// Query chunks: q, the attention over the clip's keys and the tail.
-template <int H>
-__global__ void __launch_bounds__(NT, 1) ca_query_kernel(Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const ChunkSmem s = chunk_smem(smem);
-  const int clip = blockIdx.y, r0 = blockIdx.x * TR;
-  const int n = min(TR, p.Nq - r0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp * RW;
-  const int nv = max(0, min(RW, n - wr));
-  const size_t g0 = (size_t)clip * p.Nq + r0;
-  const size_t k0 = (size_t)clip * p.Nk;
-  load_rows(p.xq + g0 * C, C, n, s.R0);
-  // nq = AdaLN_q(xq) in R2's rows (o's place), q = (nq Wq + bq) / sqrt(dh).
-  {
-    float* NS = s.R2 + wr * C;
-    adaln_rows(p.xq + (g0 + wr) * C, C, nv, p.gq + clip * C,
-               p.bq_ + clip * C, p.eps, NS, nullptr);
-    __syncwarp();
-    float acc[RW][2] = {};
-    if (nv > 0) mac<2>(NS, C, nv, C, p.wq, C, 0, acc);
-#pragma unroll
-    for (int i = 0; i < RW; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        const float q = i < nv ? (acc[i][j] + p.bq[c]) * p.qscale : 0.f;
-        s.R1[(wr + i) * C + c] = q;
-      }
-  }
-  attn_fwd<H>(s.R1, p.k + k0 * C, C, p.v + k0 * C, C, p.Nk, n, s.R2, s.a);
-  Tail t;
-  t.g2 = p.g2 + clip * C;
-  t.b2 = p.b2 + clip * C;
-  t.m1 = clip_scale(p.m1, clip);
-  t.m2 = clip_scale(p.m2, clip);
-  t.wproj = p.wproj; t.bproj = p.bproj;
-  t.w1 = p.w1; t.bb1 = p.bb1; t.w2 = p.w2; t.bb2 = p.bb2;
-  t.hid = p.hid;
-  t.eps = p.eps;
-  t.out = p.out + g0 * C;
-  tail_rows<H>(t, n, s);
-}
-
-constexpr int ROWS_SMEM = TR * C * 4;
-
 bool shape_ok(int clips, int Nq, int Nk, int hid, int heads) {
-  return clips > 0 && Nq > 0 && Nk > 0 && hid > 0 && hid % HC == 0 &&
+  return clips > 0 && Nq > 0 && Nk > 0 && hid > 0 && hid % C == 0 &&
          hid <= 256 && (heads == 2 || heads == 4 || heads == 8);
+}
+
+// The rows program's arguments over the keys: k = AdaLN_k(xk) Wk + bk, v =
+// AdaLN_v(xv) Wv + bv; nk, nv kept where not null.
+dtc::RArgs key_rows(const Args& a, float* k, float* v, float* nk,
+                    float* nv) {
+  dtc::RArgs r = {};
+  r.clips = a.clips; r.N = a.Nk; r.tiles = dtc::cdiv(a.Nk, dtc::TRT);
+  r.nsides = 2; r.eps = a.eps; r.scale0 = 1.f;
+  r.side[0] = {a.xk, a.gk, a.bk_, nk, a.wk, a.bk, k, 1};
+  r.side[1] = {a.xv, a.gv, a.bv_, nv, a.wv, a.bv, v, 1};
+  return r;
 }
 
 // The backward's grids (the wrappers' f32_dec_plan): the splits of each
@@ -174,6 +108,20 @@ bool shape_ok(int clips, int Nq, int Nk, int hid, int heads) {
 struct Plan {
   int Sq, Sk, qtiles, ktiles, qper, fqtiles, fktiles;
 };
+
+// The query side's arguments common to the forward and the backward: q
+// computed from xq in the attention; k, v [clips * Nk, 64].
+dtc::QArgs query_args(const Args& a, int S, const float* k, const float* v) {
+  dtc::QArgs q = {};
+  q.clips = a.clips; q.Nq = a.Nq; q.Nk = a.Nk; q.hid = a.hid; q.S = S;
+  q.tiles = dtc::cdiv(a.Nq, dtc::TRT); q.eps = a.eps; q.qscale = a.qscale;
+  q.x = a.xq; q.gq = a.gq; q.bqa = a.bq_; q.wq = a.wq; q.bq = a.bq;
+  q.k = k; q.v = v; q.ldkv = C;
+  q.g2 = a.g2; q.b2 = a.b2; q.m1 = a.m1; q.m2 = a.m2;
+  q.wproj = a.wproj; q.bproj = a.bproj; q.w1 = a.w1; q.bb1 = a.bb1;
+  q.w2 = a.w2; q.bb2 = a.bb2;
+  return q;
+}
 
 Plan plan(int clips, int Nq, int Nk, int ctas) {
   auto splits = [&](int shortN, int longN) {
@@ -262,39 +210,44 @@ extern "C" long long pmce_ca_f32_workspace(int clips, int Nq, int Nk,
       ca32::carve(nullptr, clips, Nq, Nk, hid, heads, splits, pl).floats);
 }
 
-// Shared memory of the forward's chunk programs (bytes).
-extern "C" int pmce_ca_f32_smem_bytes() {
-  return f32ops::dec::CHUNK_SMEM_FLOATS * 4;
-}
-
 // The f32 forward: [clips, Nq, 64] queries over [clips, Nk, 64] keys and
 // values. ptrs: 0-2 xq, xk, xv, 3-10 the AdaLN vectors gq, bq', gk, bk',
 // gv, bv', g2, b2 ([clips, 64] each), 11-12 m1, m2 ([clips]; both null
 // without masks), 13-24 wq, bq, wk, bk, wv, bv, wproj, bproj ([64, 64]
 // matrices), w1 [64, hid], bb1, w2 [hid, 64], bb2 (f32, [in, out] as the
-// parameters are), 25 out, 26 scratch [2, clips * Nk, 64] (k, v).
+// parameters are), 25 out, 26 the workspace: k, v [2, clips * Nk, 64], o
+// [S, clips * Nq, 64], the attention's max and sum [2, S, clips * Nq,
+// heads] (S: the query side's splits, 1 unsplit: 2 * clips * Nk * 64 + S *
+// clips * Nq * (64 + 2 * heads) floats). ctas: the most CTAs a program
+// launches (the card's co-resident CTAs, one an SM); it also sets S.
 extern "C" int pmce_ca_fwd_f32(void* const* ptrs, int clips, int Nq, int Nk,
                                int hid, int heads, float eps, float qscale,
-                               void* stream) {
+                               int ctas, void* stream) {
   using namespace ca32;
-  if (!shape_ok(clips, Nq, Nk, hid, heads) ||
+  if (!shape_ok(clips, Nq, Nk, hid, heads) || ctas <= 0 ||
       (ptrs[11] == nullptr) != (ptrs[12] == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   fill(a, ptrs, clips, Nq, Nk, hid, eps, qscale);
-  a.out = static_cast<float*>(ptrs[25]);
-  a.k = static_cast<float*>(ptrs[26]);
-  a.v = a.k + (size_t)clips * Nk * C;
+  const Plan pl = plan(clips, Nq, Nk, ctas);
+  const size_t Mq = (size_t)clips * Nq, Mk = (size_t)clips * Nk;
+  float* k = static_cast<float*>(ptrs[26]);
+  float* v = k + Mk * C;
+  float* o = v + Mk * C;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ca_keys_fwd_kernel<<<dim3((Nk + TR - 1) / TR, clips), NT, ROWS_SMEM, st>>>(
-      a);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e =
+      dtc::launch_rows(key_rows(a, k, v, nullptr, nullptr), ctas, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_chunk(heads == 2   ? ca_query_kernel<2>
-                                       : heads == 4 ? ca_query_kernel<4>
-                                                    : ca_query_kernel<8>,
-                                       dim3((Nq + TR - 1) / TR, clips), a,
-                                       st));
+  dtc::QArgs q = query_args(a, pl.Sq, k, v);
+  if (pl.Sq > 1) {
+    q.opart = o;
+    q.mpart = o + pl.Sq * Mq * C;
+    q.lpart = q.mpart + pl.Sq * Mq * heads;
+  } else {
+    q.o = o;
+  }
+  q.out = static_cast<float*>(ptrs[25]);
+  return static_cast<int>(dtc::launch_fwd<true>(q, heads, ctas, st));
 }
 
 // The f32 backward (see the header). ptrs: 0-24 as the forward's, 25 gout
@@ -323,7 +276,6 @@ extern "C" int pmce_ca_bwd_f32(void* const* ptrs, int clips, int Nq, int Nk,
   const int splits = splits_q > splits_k ? splits_q : splits_k;
   const Ws w = carve(f(26), clips, Nq, Nk, hid, heads, splits, pl);
   const size_t Mq = (size_t)clips * Nq, Mk = (size_t)clips * Nk;
-  a.k = w.k; a.v = w.v; a.nk = w.nk; a.nv = w.nv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   const float* src[6] = {a.wq, a.wk, a.wv, a.wproj, a.w1, a.w2};
@@ -343,20 +295,13 @@ extern "C" int pmce_ca_bwd_f32(void* const* ptrs, int clips, int Nq, int Nk,
     if ((e = f32ops::launch_transposes(T, st)) != cudaSuccess)
       return static_cast<int>(e);
   }
-  ca_keys_fwd_kernel<<<dim3((Nk + TR - 1) / TR, clips), NT, ROWS_SMEM, st>>>(
-      a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  if ((e = dtc::launch_rows(key_rows(a, w.k, w.v, w.nk, w.nv), ctas, st)) !=
+      cudaSuccess)
+    return static_cast<int>(e);
 
-  dtc::QArgs q = {};
-  q.clips = clips; q.Nq = Nq; q.Nk = Nk; q.hid = hid; q.S = pl.Sq;
-  q.tiles = pl.qtiles; q.eps = eps; q.qscale = qscale;
-  q.x = a.xq; q.qin = w.q; q.ldqin = C;
-  q.gq = a.gq; q.bqa = a.bq_; q.wq = a.wq; q.bq = a.bq;
+  dtc::QArgs q = query_args(a, pl.Sq, w.k, w.v);
+  q.qin = w.q; q.ldqin = C;
   q.nq = w.nq; q.qout = w.q;
-  q.k = w.k; q.v = w.v; q.ldkv = C;
-  q.g2 = a.g2; q.b2 = a.b2; q.m1 = a.m1; q.m2 = a.m2;
-  q.wproj = a.wproj; q.bproj = a.bproj; q.w1 = a.w1; q.bb1 = a.bb1;
-  q.bb2 = a.bb2;
   q.wprojT = w.wprojT; q.w1T = w.w1T; q.w2T = w.w2T; q.gout = f(25);
   q.o = w.o; q.hh = w.hh; q.h2 = w.h2; q.ge = w.ge; q.m2g = w.m2g;
   q.dhh = w.dhh; q.da = w.da; q.dO = w.dO; q.dx1 = f(27);

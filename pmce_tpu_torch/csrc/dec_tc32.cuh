@@ -1,7 +1,9 @@
-// The decoder blocks' f32 backwards on the tensor cores (rows 9f and 11f:
-// csrc/ada_f32.cu, csrc/ca_f32.cu): the attention's three passes (the
-// forward recomputed, the query side's dq, the key side's dk and dv) and
-// every row product in 3xTF32 (mma.sync m16n8k8; common.cuh's tc32), from
+// The decoder blocks' f32 programs on the tensor cores (rows 8f-11f:
+// csrc/ada_f32.cu, csrc/ca_f32.cu), forwards and backwards: the rows
+// program (AdaLN, then the q, k, v products), the attention's three passes
+// (the forward, the query side's dq, the key side's dk and dv), the
+// forward's tail and the backward's tail with its gradient chain, and every
+// row product in 3xTF32 (mma.sync m16n8k8; common.cuh's tc32), from
 // operands staged once a CTA.
 //
 // Numerics. An f32 operand is split as hi = tf32(v) (to nearest, ties
@@ -10,14 +12,13 @@
 // the f32 accumulator by an ordinary rounded add: the tensor cores add with
 // truncation, and summing a whole K in them biased csrc/block_f32.cu's
 // outputs past the f32 Stage-2 step's gate. The CPU model of these products
-// over the plain blocks (tests/test_torch_port_dec_f32_redesign.py: the
-// AdaLN block at [4, 431, 64] in 2 heads of 32, the CA block both ways, hid
-// 256, masks) errs <= 7.5e-7 (outputs) and <= 1.1e-6 (gradients) of the
-// plain blocks' f32, inside the card's 1e-5 / 1e-4; one TF32 pass errs
-// 2.8e-4 / 6.7e-4. The weight gradients stay on FFMA (f32_ops.cuh's
-// launch_wgrad, shared with rows 5f / 7f), and so do the forwards' programs
-// (rows 8f / 10f) and the rows launches the backwards share with them (qkv;
-// k and v).
+// over the plain blocks (tests/test_torch_port_dec_f32_redesign.py,
+// tests/test_torch_port_dec_f32_fwd_redesign.py: the AdaLN block at [4,
+// 431, 64] in 2 heads of 32, the CA block both ways, hid 256, masks) errs
+// <= 7.5e-7 (outputs) and <= 1.1e-6 (gradients) of the plain blocks' f32,
+// inside the card's 1e-5 / 1e-4; one TF32 pass errs 2.8e-4 / 6.7e-4. Only
+// the weight gradients stay on FFMA (f32_ops.cuh's launch_wgrad, shared
+// with rows 5f / 7f).
 //
 // The warp's tile. A warp owns 16 rows of its side and all C = 64 columns,
 // held in registers in the accumulator layout of mma.sync (a Tile, float
@@ -42,38 +43,52 @@
 // 2 t + {0, 1}) as one 8-byte load and (rows 8 k + 2 t + {0, 1}, column 8 n
 // + g), fall on 32 distinct banks.
 //
-// The query side runs as three programs over the same tiles, so that each
-// holds only its own tiles in registers (one program spilled): the
-// attention, the tail with the gradient chain, dq. The tail holds no tile
-// over a product: its A operands (o, h2, gy, dhh, da) are stashed in
+// The forward (rows 8f / 10f) is three programs: rows (AdaLN and the
+// products of qkv, or of k and v; the backward's recompute launches the
+// same program, so both see the same q, k, v bits), the attention (CA: q
+// computed in it), the tail (proj, x1, AdaLN2, the MLP, y). The attention
+// and the tail stay two programs over the same tiles, o handed over through
+// the workspace, for two reasons: a split short side's tail merges every
+// split's partials, which only a launch boundary orders, and the attention
+// alone holds 206-254 registers (below), so the tail's tiles on top of it
+// would spill. The forward keeps nothing for the gradient.
+//
+// The backward's query side runs as three programs over the same tiles, so
+// that each holds only its own tiles in registers (one program spilled):
+// the attention, the tail with the gradient chain, dq. The tail holds no
+// tile over a product: its A operands (o, h2, gy, dhh, da) are stashed in
 // shared memory a warp's 16 rows at a time and read a k-step at a time.
 //
 // Shared memory (bytes; each program's list of staged items 1,024): the
-// attention 66,560 (the ring 2 x 32,768: two blocks a stage); the tail
-// 181,376 (the ring; three stashes 8 x 4,096 each: a, kept for dm1 and x1's
-// recompute, gy, the current product's A; the warps' column partials 8 x
-// 2,064); dq 78,848 (the ring; the rows' max, sum and D 8 x 1,536); the key
-// program 78,848 (the ring 2 x 38,912: q and dO chunks and their rows'
-// statistics); the finishing program 46,080 at 8 warps (the ring 2 x
-// 16,384, the column partials 8 x 1,536), 35,328 at one. One CTA an SM
-// (the wrappers' plan assumes no more).
+// rows program 66,560 (the ring 2 x 16,384: one block a stage; the stash of
+// h 8 x 4,096); the attention 66,560 (the ring 2 x 32,768: two blocks a
+// stage); the forward's tail 132,096 (the ring; three stashes 8 x 4,096
+// each: x1, o then h2, gelu(hh)); the
+// backward's tail 181,376 (the ring; three stashes 8 x 4,096 each: a, kept
+// for dm1 and x1's recompute, gy, the current product's A; the warps'
+// column partials 8 x 2,064); dq 78,848 (the ring; the rows' max, sum and D
+// 8 x 1,536); the key program 78,848 (the ring 2 x 38,912: q and dO chunks
+// and their rows' statistics); the finishing program 46,080 at 8 warps (the
+// ring 2 x 16,384, the column partials 8 x 1,536), 35,328 at one. One CTA
+// an SM (the wrappers' plan assumes no more).
 //
 // Registers (ptxas -v, sm_90a; 256 threads a CTA, so up to 255; heads of
-// 32 / 8): the attention 206 / 238 (ada_f32.cu), 254 / 254 (ca_f32.cu,
-// which recomputes q); the tail 170 / 171; dq 254 / 222; the key program
-// 246 / 196; the finishing program 180; every program 0 bytes of stack,
-// spill stores and loads (builds of row 7f that spilled faulted on the
-// card).
+// 32 / 8): the rows program 125; the attention 206 / 238 (ada_f32.cu), 254
+// / 254 (ca_f32.cu, which computes q); the forward's tail 155 / 158; the
+// backward's tail 170 / 171; dq 254 / 222; the key program 246 / 196; the
+// finishing program 180; every program 0 bytes of stack, spill stores and
+// loads (builds of row 7f that spilled faulted on the card).
 //
 // Grids: every program is persistent, min(work items, ctas) CTAs, CTA i
 // taking the items [n i / G, n (i + 1) / G) of the clip-major list (the
-// wrappers' f32_dec_plan, ctas = the card's SMs). A long side's items are
-// tiles of 128 rows (8 warps x 16); a CA block's short side (the smaller,
-// one tile) is split over the long side instead: `splits` CTAs a clip,
-// split s taking the long side's 64-row chunks [n s / S, n (s + 1) / S),
-// their partials merged in order of s by a later launch (the tail, in every
-// split, its own copy of o and hh; split 0's kept). No atomics: a rerun
-// gives the same bits.
+// wrappers' f32_dec_plan and f32_dec_fwd_plan, ctas = the card's SMs). A
+// long side's items are tiles of 128 rows (8 warps x 16); a CA block's
+// short side (the smaller, one tile) is split over the long side instead in
+// the attention programs: `splits` CTAs a clip, split s taking the long
+// side's 64-row chunks [n s / S, n (s + 1) / S), their partials merged in
+// order of s by a later launch (the forward's tail, a CTA a clip; the
+// backward's tail, in every split, its own copy of o and hh; split 0's
+// kept). No atomics: a rerun gives the same bits.
 #pragma once
 
 namespace f32ops {
@@ -112,6 +127,10 @@ constexpr int QA_SMEM = 2 * QSLOT * 4 + QTAB_BYTES;
 constexpr int QT_SMEM = QT_TAB * 4 + QTAB_BYTES;
 constexpr int QD_SMEM = QD_TAB * 4 + QTAB_BYTES;
 constexpr int K_SMEM = 2 * KSLOT * 4 + QTAB_BYTES;
+constexpr int R_TAB = 2 * FSLOT + NW * RB * C;
+constexpr int R_SMEM = R_TAB * 4 + QTAB_BYTES;
+constexpr int QF_TAB = 2 * FSLOT + 3 * NW * RB * C;
+constexpr int QF_SMEM = QF_TAB * 4 + QTAB_BYTES;
 __host__ __device__ constexpr int f_smem(int warps) {
   return (2 * FSLOT + warps * FPART_MAX) * 4 + QTAB_BYTES;
 }
@@ -284,8 +303,8 @@ __device__ __forceinline__ void col_sums(const float (&v)[8][4], float* cs) {
     }
 }
 
-// A row's AdaLN statistics (unbiased sigma, eps outside the sqrt), as
-// f32_ops.cuh's adaln_stats.
+// A row's AdaLN statistics: the mean, sigma (the unbiased standard
+// deviation, centred) and inv = 1 / (sigma + eps), eps outside the sqrt.
 __device__ __forceinline__ void row_stats(const float (&v)[8][4], float eps,
                                           float (&mean)[2], float (&sigma)[2],
                                           float (&inv)[2]) {
@@ -329,8 +348,7 @@ __device__ __forceinline__ void adaln_tile(const float (&x)[8][4],
 
 // AdaLN's backward from dy with x's statistics: du = g dy inv - u inv^2
 // sum(g dy u) / ((C - 1) sigma), dx = du - mean(du) (sigma clamped away
-// from 0), as f32_ops.cuh's adaln_bwd; pg = dy u inv (dgamma's terms; pg
-// may be dy itself).
+// from 0); pg = dy u inv (dgamma's terms; pg may be dy itself).
 __device__ __forceinline__ void adaln_bwd_tile(const float (&x)[8][4],
                                                const float (&dy)[8][4],
                                                const float* gm, float eps,
@@ -812,14 +830,16 @@ struct QArgs {
   const float* x;          // the residual input [clips * Nq, C]
   const float* qin;        // the scaled q rows (stride ldqin)
   int ldqin;
-  // The CA block's q: AdaLN_q(x) wq + bq, scaled; nq and q (at qin) kept.
+  // The CA block's q: AdaLN_q(x) wq + bq, scaled; nq and q (at qin) kept
+  // where not null.
   const float *gq, *bqa, *wq, *bq;
   float *nq, *qout;
   const float *k, *v;      // the keys and values [clips * Nk, *]
   int ldkv;
-  const float *g2, *b2, *m1, *m2, *wproj, *bproj, *w1, *bb1, *bb2, *wprojT,
-      *w1T, *w2T, *gout;
+  const float *g2, *b2, *m1, *m2, *wproj, *bproj, *w1, *bb1, *w2, *bb2,
+      *wprojT, *w1T, *w2T, *gout;
   float *o, *hh;           // [S][clips * Nq][C], [S][clips * Nq][hid]
+  // The softmax's max and sum (null in the forward), the backward's state.
   float *h2, *ge, *m2g, *dhh, *da, *dO, *dx1, *Ms, *Ls, *Ds;
   float* dq;               // [S] x (clips * Nq rows of stride lddq)
   int lddq;
@@ -827,6 +847,7 @@ struct QArgs {
   float *opart, *mpart, *lpart;  // the attention's partials [S][clips * Nq]
   float* part;             // [items][qpart_len(hid)]
   bool dm;
+  float* out;              // the forward's output [clips * Nq, C]
 };
 
 // A tile of the query side: its clip, split (0 unsplit), the keys' chunks
@@ -955,8 +976,88 @@ struct Ring {
   }
 };
 
+// ---------------------------------------------------------------------------
+// The rows program: per tile of a side's rows (128, 16 a warp) and each of
+// its one or two inputs, h = AdaLN(x) (kept where asked) and out = h W +
+// bias a 64-column block of W at a time (the first block scaled: q). h is
+// stashed and read a k-step at a time (held in registers over the
+// unrolled product, it spilled).
+// ---------------------------------------------------------------------------
+
+struct RSide {
+  const float *x, *g, *b;  // rows [clips * N, C]; AdaLN's vectors [clips, C]
+  float* keep;             // h [clips * N, C], or null
+  const float *w, *bias;   // [C, blocks * C] ([in, out]), [blocks * C]
+  float* out;              // [clips * N, blocks * C]
+  int blocks;
+};
+
+struct RArgs {
+  int clips, N, tiles, nsides;
+  float eps, scale0;  // side 0's first block scaled by scale0
+  RSide side[2];
+};
+
+__device__ void rprog(const RArgs& p, float* smem) {
+  int begin, end;
+  share(p.clips * p.tiles, begin, end);
+  if (begin >= end) return;
+  const int warp = threadIdx.x >> 5;
+  float* hs = smem + 2 * FSLOT + warp * RB * C;
+  const auto get = [&](int, int i, Item& it) {
+#pragma unroll
+    for (int sd = 0; sd < 2; ++sd) {
+      if (sd >= p.nsides) break;
+      const RSide& f = p.side[sd];
+      if (i < f.blocks) {
+        it = block_item(f.w + i * C, f.blocks * C);
+        return true;
+      }
+      i -= f.blocks;
+    }
+    return false;
+  };
+  Ring<FSLOT> ring(get, smem, smem + R_TAB, begin, end);
+  for (; ring.item < end; ring.next_tile(get)) {
+    const int clip = ring.item / p.tiles, r0 = ring.item % p.tiles * TRT;
+    const int nv = max(0, min(RB, min(TRT, p.N - r0) - warp * RB));
+    const bool active = nv > 0;
+    const size_t gr = (size_t)clip * p.N + r0 + warp * RB;
+#pragma unroll
+    for (int sd = 0; sd < 2; ++sd) {
+      if (sd >= p.nsides) break;
+      const RSide& f = p.side[sd];
+      if (active) {
+        float x[8][4], h[8][4];
+        load_tile(f.x + gr * C, C, nv, x);
+        adaln_tile(x, f.g + clip * C, f.b + clip * C, p.eps, h);
+        mask_rows(h, nv);
+        if (f.keep != nullptr) store_tile(f.keep + gr * C, C, nv, h);
+        stash(hs, h);
+      }
+      const int ld = f.blocks * C;
+#pragma unroll 1
+      for (int j = 0; j < f.blocks; ++j) {
+        const float* W = ring.next();
+        if (!active) continue;
+        float o[8][4];
+        zero(o);
+        mm_stashed(hs, W, o);
+        add_cols(o, f.bias + j * C);
+        const float sc = sd == 0 && j == 0 ? p.scale0 : 1.f;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nb][e] *= sc;
+        mask_rows(o, nv);
+        store_tile(f.out + gr * ld + j * C, ld, nv, o);
+      }
+    }
+  }
+}
+
 // The attention: per tile o (normalised; split: unnormalised partials)
-// and the softmax's max and sum.
+// and the softmax's max and sum (unsplit: where p.Ms is not null).
 template <int H, bool CA>
 __device__ void q_attn(const QArgs& p, float* smem) {
   int begin, end;
@@ -980,7 +1081,8 @@ __device__ void q_attn(const QArgs& p, float* smem) {
         load_tile(p.x + tl.gr * C, C, nv, xt);
         adaln_tile(xt, p.gq + tl.clip * C, p.bqa + tl.clip * C, p.eps, nq);
         mask_rows(nq, nv);
-        if (tl.keep) store_tile(p.nq + tl.gr * C, C, nv, nq);
+        if (tl.keep && p.nq != nullptr)
+          store_tile(p.nq + tl.gr * C, C, nv, nq);
       }
       const float* W = ring.next();
       if (tl.active) {
@@ -992,7 +1094,8 @@ __device__ void q_attn(const QArgs& p, float* smem) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) Q[nb][e] *= p.qscale;
         mask_rows(Q, nv);
-        if (tl.keep) store_tile(p.qout + tl.gr * C, C, nv, Q);
+        if (tl.keep && p.qout != nullptr)
+          store_tile(p.qout + tl.gr * C, C, nv, Q);
       }
     } else {
       load_tile(p.qin + tl.gr * p.ldqin, p.ldqin, nv, Q);
@@ -1026,7 +1129,7 @@ __device__ void q_attn(const QArgs& p, float* smem) {
     store_tile((split ? p.opart : p.o) + at * C, C, nv, O);
     float* Mo = split ? p.mpart : p.Ms;
     float* Lo = split ? p.lpart : p.Ls;
-    if (t == 0)
+    if (t == 0 && Mo != nullptr)
 #pragma unroll
       for (int h = 0; h < H; ++h)
 #pragma unroll
@@ -1036,6 +1139,67 @@ __device__ void q_attn(const QArgs& p, float* smem) {
             Lo[(at + g + 8 * hf) * H + h] = l[h][hf];
           }
   }
+}
+
+// The o of the warp's rows (the first at gr; nv of them): the S splits'
+// partials merged in order of s, normalised; m, l: the merged softmax's max
+// and sum.
+template <int H>
+__device__ __forceinline__ void merge_o(const QArgs& p, size_t gr, int nv,
+                                        float (&O)[8][4], float (&m)[H][2],
+                                        float (&l)[H][2]) {
+  constexpr int KB = C / H / 8;
+  const int g = (threadIdx.x & 31) >> 2;
+  const size_t Mq = (size_t)p.clips * p.Nq;
+  zero(O);
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      m[h][hf] = g + 8 * hf < nv ? -INFINITY : 0.f;
+      l[h][hf] = 0.f;
+    }
+#pragma unroll 1
+  for (int sp = 0; sp < p.S; ++sp)
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (g + 8 * hf < nv)
+          m[h][hf] = fmaxf(m[h][hf],
+                           p.mpart[((size_t)sp * Mq + gr + g + 8 * hf) * H +
+                                   h]);
+#pragma unroll 1
+  for (int sp = 0; sp < p.S; ++sp) {
+    const size_t at = (size_t)sp * Mq + gr;
+    float Os[8][4];
+    load_tile(p.opart + at * C, C, nv, Os);
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      float f[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        f[hf] = 0.f;
+        if (g + 8 * hf < nv) {
+          const size_t r = (at + g + 8 * hf) * H + h;
+          f[hf] = expf(p.mpart[r] - m[h][hf]);
+          l[h][hf] += p.lpart[r] * f[hf];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          O[h * KB + j][e] += Os[h * KB + j][e] * f[e >> 1];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < KB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (g + 8 * (e >> 1) < nv) O[h * KB + j][e] /= l[h][e >> 1];
 }
 
 // The tail and the gradient chain down to the attention.
@@ -1073,56 +1237,7 @@ __device__ void q_tail(const QArgs& p, float* smem) {
       zero(O);
       if (active) {
         float m[H][2], l[H][2];
-#pragma unroll
-        for (int h = 0; h < H; ++h)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            m[h][hf] = g + 8 * hf < nv ? -INFINITY : 0.f;
-            l[h][hf] = 0.f;
-          }
-#pragma unroll 1
-        for (int sp = 0; sp < p.S; ++sp)
-#pragma unroll
-          for (int h = 0; h < H; ++h)
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf)
-              if (g + 8 * hf < nv)
-                m[h][hf] = fmaxf(m[h][hf],
-                                 p.mpart[((size_t)sp * Mq + gr + g + 8 * hf) *
-                                             H + h]);
-#pragma unroll 1
-        for (int sp = 0; sp < p.S; ++sp) {
-          const size_t at = (size_t)sp * Mq + gr;
-          float Os[8][4];
-          load_tile(p.opart + at * C, C, nv, Os);
-#pragma unroll
-          for (int h = 0; h < H; ++h) {
-            float f[2];
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              f[hf] = 0.f;
-              if (g + 8 * hf < nv) {
-                const size_t r = (at + g + 8 * hf) * H + h;
-                f[hf] = expf(p.mpart[r] - m[h][hf]);
-                l[h][hf] += p.lpart[r] * f[hf];
-              }
-            }
-            constexpr int KB = C / H / 8;
-#pragma unroll
-            for (int j = 0; j < KB; ++j)
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                O[h * KB + j][e] += Os[h * KB + j][e] * f[e >> 1];
-          }
-        }
-        constexpr int KB = C / H / 8;
-#pragma unroll
-        for (int h = 0; h < H; ++h)
-#pragma unroll
-          for (int j = 0; j < KB; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (g + 8 * (e >> 1) < nv) O[h * KB + j][e] /= l[h][e >> 1];
+        merge_o<H>(p, gr, nv, O, m, l);
         store_tile(o_own, C, nv, O);
         if (keep && t == 0)
 #pragma unroll
@@ -1366,6 +1481,110 @@ __device__ void q_dq(const QArgs& p, float* smem) {
 }
 
 // ---------------------------------------------------------------------------
+// The forward's tail: per tile of the query side's rows (a split short
+// side: its one tile, the splits' partials merged in order of s), a = o
+// Wproj + bproj, x1 = x + m1 a, h2 = AdaLN2(x1), y = x1 + m2 (gelu(h2 W1 +
+// bb1) W2 + bb2), the MLP a hidden chunk of 64 at a time (W1's column
+// block, then W2's row block). It writes y and keeps nothing. Every
+// product's A operand (o, h2, gelu(hh)) is stashed and read a k-step at a
+// time, as the backward's tail does (held in registers, it spilled).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bool qf_item(const QArgs& p, int i, Item& it) {
+  const int nh = p.hid / C;
+  if (i == 0) {
+    it = block_item(p.wproj, C);
+  } else if (--i < 2 * nh) {
+    const int ch = i >> 1;
+    it = i & 1 ? block_item(p.w2 + (size_t)ch * C * C, C)
+               : block_item(p.w1 + ch * C, p.hid);
+  } else {
+    return false;
+  }
+  return true;
+}
+
+template <int H>
+__device__ void qf_tail(const QArgs& p, float* smem) {
+  int begin, end;
+  share(p.clips * p.tiles, begin, end);
+  if (begin >= end) return;
+  const int warp = threadIdx.x >> 5;
+  float* xstash = smem + 2 * FSLOT + warp * RB * C;  // x1
+  float* hstash = xstash + NW * RB * C;              // o, then h2
+  float* gstash = hstash + NW * RB * C;              // gelu(hh)
+  const auto get = [&](int, int i, Item& it) { return qf_item(p, i, it); };
+  Ring<FSLOT> ring(get, smem, smem + QF_TAB, begin, end);
+  for (; ring.item < end; ring.next_tile(get)) {
+    const int clip = ring.item / p.tiles, r0 = ring.item % p.tiles * TRT;
+    const int nv = max(0, min(RB, min(TRT, p.Nq - r0) - warp * RB));
+    const bool active = nv > 0;
+    const size_t gr = (size_t)clip * p.Nq + r0 + warp * RB;
+    const float m1 = p.m1 != nullptr ? p.m1[clip] : 1.f;
+    const float m2 = p.m2 != nullptr ? p.m2[clip] : 1.f;
+    if (active) {
+      float O[8][4];
+      if (p.S > 1) {
+        float m[H][2], l[H][2];
+        merge_o<H>(p, gr, nv, O, m, l);
+      } else {
+        load_tile(p.o + gr * C, C, nv, O);
+      }
+      stash(hstash, O);
+    }
+    {
+      const float* W = ring.next();
+      if (active) {
+        float a[8][4];
+        zero(a);
+        mm_stashed(hstash, W, a);
+        add_cols(a, p.bproj);
+        float x1[8][4];
+        load_tile(p.x + gr * C, C, nv, x1);
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x1[nb][e] += m1 * a[nb][e];
+        stash(xstash, x1);
+        float h2[8][4];
+        adaln_tile(x1, p.g2 + clip * C, p.b2 + clip * C, p.eps, h2);
+        mask_rows(h2, nv);
+        stash(hstash, h2);
+      }
+    }
+    float y[8][4];
+    zero(y);
+#pragma unroll 1
+    for (int ch = 0; ch < p.hid; ch += C) {
+      const float* W = ring.next();
+      if (active) {
+        float ge[8][4];
+        zero(ge);
+        mm_stashed(hstash, W, ge);
+        add_cols(ge, p.bb1 + ch);
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ge[nb][e] = gelu_erf(ge[nb][e]);
+        stash(gstash, ge);
+      }
+      W = ring.next();
+      if (active) mm_stashed(gstash, W, y);
+    }
+    if (active) {
+      add_cols(y, p.bb2);
+      const int lane = threadIdx.x & 31;
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y[nb][e] = xstash[(nb * 4 + e) * 32 + lane] + m2 * y[nb][e];
+      store_tile(p.out + gr * C, C, nv, y);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The key program: per tile (a long side's 128 keys, or a split short
 // side's keys and its range of the queries) dk and dv over the queries.
 // ---------------------------------------------------------------------------
@@ -1602,6 +1821,25 @@ inline cudaError_t launch_sums(Sums S, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(NT, 1) rows_kernel(RArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  rprog(p, reinterpret_cast<float*>(smem));
+}
+
+// The forward's attention: q_attn as the backward's qa_kernel runs it,
+// under its own name (a profile tells the two apart).
+template <int H, bool CA>
+__global__ void __launch_bounds__(NT, 1) fwd_attn_kernel(QArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  q_attn<H, CA>(p, reinterpret_cast<float*>(smem));
+}
+
+template <int H>
+__global__ void __launch_bounds__(NT, 1) fwd_tail_kernel(QArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  qf_tail<H>(p, reinterpret_cast<float*>(smem));
+}
+
 template <int H, bool CA>
 __global__ void __launch_bounds__(NT, 1) qa_kernel(QArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1662,6 +1900,32 @@ inline cudaError_t launch_q(const QArgs& p, int heads, int ctas,
   return heads == 2   ? launch_q_heads<2, CA>(p, ctas, st)
          : heads == 4 ? launch_q_heads<4, CA>(p, ctas, st)
                       : launch_q_heads<8, CA>(p, ctas, st);
+}
+
+// The rows program (the forward's first launch; the backward's recompute).
+inline cudaError_t launch_rows(const RArgs& p, int ctas, cudaStream_t st) {
+  return launch(rows_kernel, p.clips * p.tiles, ctas, NT, R_SMEM, st, p);
+}
+
+// The forward's attention, then its tail (a CTA a tile of the query side).
+template <int H, bool CA>
+inline cudaError_t launch_fwd_heads(const QArgs& p, int ctas,
+                                    cudaStream_t st) {
+  const int items = p.clips * (p.S > 1 ? p.S : p.tiles);
+  cudaError_t e =
+      launch(fwd_attn_kernel<H, CA>, items, ctas, NT, QA_SMEM, st, p);
+  if (e == cudaSuccess)
+    e = launch(fwd_tail_kernel<H>, p.clips * p.tiles, ctas, NT, QF_SMEM, st,
+               p);
+  return e;
+}
+
+template <bool CA>
+inline cudaError_t launch_fwd(const QArgs& p, int heads, int ctas,
+                              cudaStream_t st) {
+  return heads == 2   ? launch_fwd_heads<2, CA>(p, ctas, st)
+         : heads == 4 ? launch_fwd_heads<4, CA>(p, ctas, st)
+                      : launch_fwd_heads<8, CA>(p, ctas, st);
 }
 
 inline cudaError_t launch_k(const KArgs& p, int ctas, cudaStream_t st) {

@@ -838,19 +838,19 @@ def _block_f32_resident(device) -> int | None:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-# Rows 9f / 11f's backward programs (csrc/dec_tc32.cuh): a long side in
-# tiles of 128 rows (8 warps of 16), the streamed side in chunks of 64
-# rows, the finishing program 16 rows a warp, one warp a CTA on a side of
+# Rows 8f-11f's programs (csrc/dec_tc32.cuh): a long side in tiles of 128
+# rows (8 warps of 16), the streamed side in chunks of 64 rows, the
+# backward's finishing program 16 rows a warp, one warp a CTA on a side of
 # up to 64 rows, else 8.
 _DEC_TILE_ROWS, _DEC_CHUNK_ROWS, _DEC_WARP_ROWS = 128, 64, 16
 
 
 class DecF32Program(NamedTuple):
-    """One program of a decoder block's f32 backward. ``items``: its work
-    in the order the CTAs share it, (clip, tile) or, on a split short side,
-    (clip, split); ``rows``: a tile's rows [r0, r1) of ``side``;
-    ``ranges``: a split's 64-row chunks [c0, c1) of the other side (empty
-    unsplit), merged in this order; ``ctas`` CTAs, CTA i taking
+    """One program of a decoder block's f32 forward or backward. ``items``:
+    its work in the order the CTAs share it, (clip, tile) or, on a split
+    short side, (clip, split); ``rows``: a tile's rows [r0, r1) of
+    ``side``; ``ranges``: a split's 64-row chunks [c0, c1) of the other
+    side (empty unsplit), merged in this order; ``ctas`` CTAs, CTA i taking
     ``owned[i]`` (a contiguous share); ``waves``: the most items a CTA
     takes."""
     name: str
@@ -873,59 +873,59 @@ class DecF32Plan(NamedTuple):
     programs: tuple
 
 
-@functools.lru_cache(maxsize=64)
-def f32_dec_plan(kind: str, clips: int, Nq: int, Nk: int,
-                 resident: int | None) -> DecF32Plan:
-    """The f32 decoder blocks' backward programs over the card's
-    ``resident`` co-resident CTAs (one an SM; None: a CPU build, a CTA an
-    item), as ``csrc/ada_f32.cu`` (``kind`` "ada", Nq = Nk = N) and
-    ``csrc/ca_f32.cu``'s ``plan`` (``kind`` "ca") launch them. A side
-    shorter than the other (a CA block's, one tile) is split over the
-    other's chunks: min(resident // clips, chunks) CTAs a clip (all of them
-    without a card); every program is a persistent grid of min(items,
-    ctas) CTAs."""
+class DecF32FwdPlan(NamedTuple):
+    """Rows 8f / 10f's grids: ``ctas`` (the entry points' argument), the
+    query side's splits in the attention (1: tiles of 128 rows) and the
+    programs in launch order: rows (AdaLN and the qkv, or k and v,
+    products; the backward's recompute launches the same program), the
+    attention, the tail (a CTA a tile of the query side: a split short
+    side's partials merged in order of s)."""
+    ctas: int
+    splits_q: int
+    programs: tuple
+
+
+def _dec_check(kind, clips, Nq, Nk, what):
     if kind not in ("ada", "ca") or clips < 1 or Nq < 1 or Nk < 1 or (
             kind == "ada" and Nq != Nk):
-        raise ValueError(f"f32_dec_plan: {kind} {clips} x {Nq} / {Nk}")
+        raise ValueError(f"{what}: {kind} {clips} x {Nq} / {Nk}")
 
-    def chunks(n):
-        return -(-n // _DEC_CHUNK_ROWS)
 
-    def tiles(n, rows=_DEC_TILE_ROWS):
-        return tuple((r, min(n, r + rows)) for r in range(0, n, rows))
+def _dec_chunks(n):
+    return -(-n // _DEC_CHUNK_ROWS)
 
-    def splits(short, long):
-        if kind == "ada" or short >= long or short > _DEC_TILE_ROWS:
-            return 1
-        if resident is None:
-            return chunks(long)
-        return max(1, min(resident // clips, chunks(long)))
 
-    sq, sk = splits(Nq, Nk), splits(Nk, Nq)
-    progs = []
+def _dec_tiles(n, rows=_DEC_TILE_ROWS):
+    return tuple((r, min(n, r + rows)) for r in range(0, n, rows))
 
-    def side_program(name, side, n, s, other):
-        if s > 1:
-            ranges = tuple((chunks(other) * i // s,
-                            chunks(other) * (i + 1) // s) for i in range(s))
-            return (name, side, tuple((c, i) for c in range(clips)
-                                      for i in range(s)), ((0, n),), ranges)
-        rows = tiles(n)
+
+def _dec_splits(kind, clips, short, long, resident):
+    """A side shorter than the other (a CA block's, one tile) split over
+    the other's chunks: min(resident // clips, chunks) CTAs a clip (all of
+    them without a card)."""
+    if kind == "ada" or short >= long or short > _DEC_TILE_ROWS:
+        return 1
+    if resident is None:
+        return _dec_chunks(long)
+    return max(1, min(resident // clips, _dec_chunks(long)))
+
+
+def _dec_side(name, side, clips, n, s, other):
+    """(name, side, items, rows, ranges) of a program over ``side``'s n
+    rows: s > 1 splits over ``other``'s chunks, else 128-row tiles."""
+    if s > 1:
+        ranges = tuple((_dec_chunks(other) * i // s,
+                        _dec_chunks(other) * (i + 1) // s) for i in range(s))
         return (name, side, tuple((c, i) for c in range(clips)
-                                  for i in range(len(rows))), rows, ())
+                                  for i in range(s)), ((0, n),), ranges)
+    rows = _dec_tiles(n)
+    return (name, side, tuple((c, i) for c in range(clips)
+                              for i in range(len(rows))), rows, ())
 
-    if sq > 1:
-        progs.append(side_program("query attention", "queries", Nq, sq, Nk))
-        progs.append(side_program("query tail", "queries", Nq, sq, Nk))
-    else:
-        progs.append(side_program("queries", "queries", Nq, 1, Nk))
-    progs.append(side_program("keys", "keys", Nk, sk, Nq))
-    for side, n in (("queries", Nq),) + ((("keys", Nk),) if kind == "ca"
-                                         else ()):
-        rows = tiles(n, _DEC_WARP_ROWS * (1 if n <= 64 else 8))
-        progs.append((f"finish {side}", side, tuple(
-            (c, i) for c in range(clips) for i in range(len(rows))), rows,
-            ()))
+
+def _dec_grids(progs, resident):
+    """(ctas, the programs): every program a persistent grid of min(items,
+    ctas) CTAs, ctas the card's ``resident`` CTAs (None: the most items)."""
     ctas = resident if resident is not None else max(len(p[2])
                                                       for p in progs)
     programs = []
@@ -936,7 +936,71 @@ def f32_dec_plan(kind: str, clips: int, Nq: int, Nk: int,
                       for i in range(grid))
         programs.append(DecF32Program(name, side, items, rows, ranges, grid,
                                       owned, max(len(o) for o in owned)))
-    return DecF32Plan(ctas, sq, sk, tuple(programs))
+    return ctas, tuple(programs)
+
+
+@functools.lru_cache(maxsize=64)
+def f32_dec_plan(kind: str, clips: int, Nq: int, Nk: int,
+                 resident: int | None) -> DecF32Plan:
+    """The f32 decoder blocks' backward programs over the card's
+    ``resident`` co-resident CTAs (one an SM; None: a CPU build, a CTA an
+    item), as ``csrc/ada_f32.cu`` (``kind`` "ada", Nq = Nk = N) and
+    ``csrc/ca_f32.cu``'s ``plan`` (``kind`` "ca") launch them after the
+    rows program (:func:`f32_dec_fwd_plan`'s first). A side shorter than
+    the other (a CA block's, one tile) is split over the other's chunks:
+    min(resident // clips, chunks) CTAs a clip (all of them without a
+    card); every program is a persistent grid of min(items, ctas) CTAs."""
+    _dec_check(kind, clips, Nq, Nk, "f32_dec_plan")
+    sq = _dec_splits(kind, clips, Nq, Nk, resident)
+    sk = _dec_splits(kind, clips, Nk, Nq, resident)
+    progs = []
+    if sq > 1:
+        progs.append(_dec_side("query attention", "queries", clips, Nq, sq,
+                               Nk))
+        progs.append(_dec_side("query tail", "queries", clips, Nq, sq, Nk))
+    else:
+        progs.append(_dec_side("queries", "queries", clips, Nq, 1, Nk))
+    progs.append(_dec_side("keys", "keys", clips, Nk, sk, Nq))
+    for side, n in (("queries", Nq),) + ((("keys", Nk),) if kind == "ca"
+                                         else ()):
+        rows = _dec_tiles(n, _DEC_WARP_ROWS * (1 if n <= 64 else 8))
+        progs.append((f"finish {side}", side, tuple(
+            (c, i) for c in range(clips) for i in range(len(rows))), rows,
+            ()))
+    ctas, programs = _dec_grids(progs, resident)
+    return DecF32Plan(ctas, sq, sk, programs)
+
+
+@functools.lru_cache(maxsize=64)
+def f32_dec_fwd_plan(kind: str, clips: int, Nq: int, Nk: int,
+                     resident: int | None) -> DecF32FwdPlan:
+    """The f32 decoder blocks' forward programs (rows 8f / 10f) over the
+    card's ``resident`` co-resident CTAs, as ``pmce_ada_fwd_f32`` /
+    ``pmce_ca_fwd_f32`` launch them: the rows program over the keys' (an
+    AdaLN block's tokens') 128-row tiles; the attention over the query
+    side's tiles or, on a short side, split over the long side's chunks as
+    the backward's (:func:`f32_dec_plan`); the tail over the query side's
+    tiles."""
+    _dec_check(kind, clips, Nq, Nk, "f32_dec_fwd_plan")
+    sq = _dec_splits(kind, clips, Nq, Nk, resident)
+    progs = [_dec_side("rows" if kind == "ada" else "key rows",
+                       "queries" if kind == "ada" else "keys", clips, Nk, 1,
+                       Nq),
+             _dec_side("query attention", "queries", clips, Nq, sq, Nk),
+             _dec_side("query tail", "queries", clips, Nq, 1, Nk)]
+    ctas, programs = _dec_grids(progs, resident)
+    return DecF32FwdPlan(ctas, sq, programs)
+
+
+def f32_dec_fwd_workspace(kind: str, clips: int, Nq: int, Nk: int,
+                          heads: int, splits_q: int) -> int:
+    """Floats of the forward's workspace (the entry points' last pointer):
+    an AdaLN block's q, k, v and o [clips * N, 256]; a CA block's k and v
+    [2, clips * Nk, 64], o [S, clips * Nq, 64] and the split attention's
+    max and sum [2, S, clips * Nq, heads] (S = ``splits_q``)."""
+    if kind == "ada":
+        return clips * Nq * 4 * 64
+    return 2 * clips * Nk * 64 + splits_q * clips * Nq * (64 + 2 * heads)
 
 
 def _dec_f32_resident(device) -> int | None:
@@ -2830,18 +2894,21 @@ def _ada_f32_inputs(x, gb, masks, params):
 
 
 def _ada_fwd_f32_cuda(x, gb, masks, params, num_heads, eps):
-    """Row 8f: one call of ``pmce_ada_fwd_f32`` (two launches: AdaLN1 and
-    qkv a chunk of rows, then the attention and the tail a chunk of each
-    clip's queries); it keeps nothing for the gradient (row 9f recomputes
-    from x)."""
+    """Row 8f: one call of ``pmce_ada_fwd_f32`` (three launches on
+    :func:`f32_dec_fwd_plan`'s persistent grids: AdaLN1 and qkv, the
+    attention, the tail, over 128-row tiles of each clip); it keeps nothing
+    for the gradient (row 9f recomputes from x)."""
     B, N, C = x.shape
     hid = params[4].shape[1]
     ins = _ada_f32_inputs(x, gb, masks, params)
+    plan = f32_dec_fwd_plan("ada", B, N, N, _dec_f32_resident(x.device))
     out = torch.empty_like(x)
-    qkv = torch.empty(B * N, 3 * C, device=x.device, dtype=torch.float32)
-    _cuda.ADA_F32.call("pmce_ada_fwd_f32", _cuda.ptr_table(*ins, out, qkv),
+    ws = torch.empty(f32_dec_fwd_workspace("ada", B, N, N, num_heads,
+                                           plan.splits_q),
+                     device=x.device, dtype=torch.float32)
+    _cuda.ADA_F32.call("pmce_ada_fwd_f32", _cuda.ptr_table(*ins, out, ws),
                        B, N, hid, num_heads, eps,
-                       1.0 / math.sqrt(C // num_heads),
+                       1.0 / math.sqrt(C // num_heads), plan.ctas,
                        _cuda.stream_ptr(x.device))
     ADA_FWD_F32_LAUNCHES.count += 1
     return out
@@ -2850,7 +2917,8 @@ def _ada_fwd_f32_cuda(x, gb, masks, params, num_heads, eps):
 def _ada_bwd_f32_cuda(gout, x, gb, masks, params, num_heads, eps,
                       need_masks: bool):
     """Row 9f: one call of ``pmce_ada_bwd_f32`` (the weights' transposes,
-    qkv recomputed from x, then on :func:`f32_dec_plan`'s persistent grids
+    qkv recomputed from x by the forward's rows program, then on
+    :func:`f32_dec_plan`'s persistent grids
     the attention recomputed with the tail and the gradient chain down to
     dq, dk / dv over the queries, AdaLN1's backward; the weight gradients
     and the sums of the programs' partials, every sum in a fixed order).
@@ -2955,20 +3023,24 @@ def _ca_f32_inputs(xs, gammas, betas, masks, params):
 
 
 def _ca_fwd_f32_cuda(xs, gammas, betas, masks, params, num_heads, eps):
-    """Row 10f: one call of ``pmce_ca_fwd_f32`` (two launches: k and v a
-    chunk of each clip's keys, then q, the attention and the tail a chunk
-    of its queries); it keeps nothing for the gradient (row 11f
-    recomputes)."""
+    """Row 10f: one call of ``pmce_ca_fwd_f32`` (three launches on
+    :func:`f32_dec_fwd_plan`'s persistent grids: k and v over the keys'
+    tiles; q and the attention over the queries' tiles, a short query side
+    split over the keys' chunks; the tail); it keeps nothing for the
+    gradient (row 11f recomputes)."""
     xq, xk, _ = xs
     B, Nq, C = xq.shape
     Nk = xk.shape[1]
     hid = params[8].shape[1]
     ins = _ca_f32_inputs(xs, gammas, betas, masks, params)
+    plan = f32_dec_fwd_plan("ca", B, Nq, Nk, _dec_f32_resident(xq.device))
     out = torch.empty_like(xq)
-    kv = torch.empty(2, B * Nk, C, device=xq.device, dtype=torch.float32)
-    _cuda.CA_F32.call("pmce_ca_fwd_f32", _cuda.ptr_table(*ins, out, kv),
+    ws = torch.empty(f32_dec_fwd_workspace("ca", B, Nq, Nk, num_heads,
+                                           plan.splits_q),
+                     device=xq.device, dtype=torch.float32)
+    _cuda.CA_F32.call("pmce_ca_fwd_f32", _cuda.ptr_table(*ins, out, ws),
                       B, Nq, Nk, hid, num_heads, eps,
-                      1.0 / math.sqrt(C // num_heads),
+                      1.0 / math.sqrt(C // num_heads), plan.ctas,
                       _cuda.stream_ptr(xq.device))
     CA_FWD_F32_LAUNCHES.count += 1
     return out
@@ -2977,7 +3049,8 @@ def _ca_fwd_f32_cuda(xs, gammas, betas, masks, params, num_heads, eps):
 def _ca_bwd_f32_cuda(gout, xs, gammas, betas, masks, params, num_heads, eps,
                      need_masks: bool):
     """Row 11f: one call of ``pmce_ca_bwd_f32`` (the weights' transposes,
-    k and v recomputed, then on :func:`f32_dec_plan`'s persistent grids
+    k and v recomputed by the forward's rows program, then on
+    :func:`f32_dec_plan`'s persistent grids
     (the short side split over the long) the query side's recompute and
     gradient chain down to dq, dk / dv over the queries, each side's AdaLN
     backward; the weight gradients of each side and the sums of the

@@ -1,35 +1,44 @@
-"""Time rows 9f / 11f (the f32 decoder blocks' backwards) of this tree
-against variant sources of ``csrc/ada_f32.cu``, ``csrc/ca_f32.cu`` and
-``csrc/f32_ops.cuh`` (an earlier version, say) in one process on the card.
+"""Time rows 8f-11f (the f32 decoder blocks' forwards and backwards) of
+this tree against variant sources of ``csrc/ada_f32.cu``, ``csrc/ca_f32.cu``,
+``csrc/f32_ops.cuh`` and ``csrc/dec_tc32.cuh`` (an earlier version, say) in
+one process on the card.
 
     python3 pmce_tpu_torch/tools/compare_dec_f32.py VARIANT_DIR [--step]
 
-VARIANT_DIR holds the variant's ``ada_f32.cu``, ``ca_f32.cu`` and
-``f32_ops.cuh`` (e.g. ``git show HEAD~1:pmce_tpu_torch/csrc/ada_f32.cu``
-into a git-ignored directory); each is built with the port's nvcc flags
-and VARIANT_DIR before ``csrc/`` on the include path into its own library
-under ``pmce_tpu_torch/_build/``, and the wrappers look the library up at
-call time, so a timing swaps one in. A variant whose backwards take no CTA
-count (the grids of 64-row chunks) is called without it. TF32 off
-throughout. At phase 13a's three shapes (the AdaLN block at [32, 431, 64]
-in 2 heads of 32; the CA block with joints [32, 17, 64] over vertices [32,
-431, 64] in 8 heads of 8, and vertices over joints in 2 heads of 32; hid
-256; branch masks at rate 0.2 requiring their gradient) it prints
+VARIANT_DIR holds the variant's ``ada_f32.cu``, ``ca_f32.cu``,
+``f32_ops.cuh`` and ``dec_tc32.cuh`` (e.g. ``git show
+HEAD~1:pmce_tpu_torch/csrc/ada_f32.cu`` into a git-ignored directory);
+each is built with the port's nvcc flags and VARIANT_DIR before ``csrc/``
+on the include path into its own library under ``pmce_tpu_torch/_build/``,
+and the wrappers look the library up at call time, so a timing swaps one
+in. A variant whose forwards or backwards take no CTA count (the grids of
+64-row chunks) is called without it. TF32 off throughout. At phase 13a's
+three shapes (the AdaLN block at [32, 431, 64] in 2 heads of 32; the CA
+block with joints [32, 17, 64] over vertices [32, 431, 64] in 8 heads of
+8, and vertices over joints in 2 heads of 32; hid 256; branch masks at rate
+0.2, requiring their gradient in the backward) it prints
 
-- the tree's plan on this card (``f32_dec_plan``: each program's CTAs,
-  items and waves, the splits);
-- over 3 rounds in turns (variant, tree, tree, variant): the backward's
-  autograd call (``torch.autograd.grad`` over the block's output, the
-  median of 20 CUDA-event-timed calls after 5 warm-ups) and its kernels'
-  device time a call (``torch.profiler`` over 5 calls), each build's
-  median, and the plain version's autograd call beside them;
-- each build's device time by kernel;
-- each build's largest difference from the plain version (the output and
-  every gradient, each relative to its own largest magnitude; the CA
-  block's key bias and key AdaLN beta, zero analytically, to the largest
-  gradient), and whether the tree reruns bit for bit;
-- the per-step sum a f32 Stage-2 step launches (3 AdaLN backwards, 3 CA
-  backwards of vertices over joints, 1 of joints over vertices) by build.
+- the tree's plans on this card (``f32_dec_fwd_plan`` and
+  ``f32_dec_plan``: each program's CTAs, items and waves, the splits);
+- over 3 rounds in turns (variant, tree, tree, variant): the forward's
+  kernels' device time a call (``torch.profiler`` over 5 calls of the
+  block without a gradient: every launch of the forward, the rows
+  launch included), the backward's autograd call (``torch.autograd.grad``
+  over the block's output, the median of 20 CUDA-event-timed calls after 5
+  warm-ups) and its kernels' device time a call, each build's median, and
+  the plain version's forward and autograd call beside them;
+- each build's device time by kernel, forward and backward (the forward's
+  programs under their own names: ``rows_kernel``, ``fwd_attn_kernel``,
+  ``fwd_tail_kernel``);
+- each build's largest difference from the plain version (the forward's
+  output; the output and every gradient, each relative to its own largest
+  magnitude; the CA block's key bias and key AdaLN beta, zero
+  analytically, to the largest gradient), and whether the tree reruns bit
+  for bit;
+- the per-step sums a f32 Stage-2 step launches by build: the forwards (3
+  AdaLN, 3 CA of joints over vertices, 3 of vertices over joints) and the
+  backwards (3 AdaLN, 1 CA of joints over vertices, 3 of vertices over
+  joints).
 
 With ``--step``: phase 4's Stage-1 training (``chip_smoke.train``) for
 the warm start, then phase 13b's f32 Stage-2 train step (batch 32) timed
@@ -66,26 +75,30 @@ SHAPES = (("ada", 431, 2, 0, "AdaLN block [32, 431, 64], 2 heads"),
           ("ca", 431, 2, cs.JT, "CA vertices [32, 431] over joints [32, 17], "
                                 "2 heads"))
 # How many of each a f32 Stage-2 step launches (chip_smoke's
-# F32_STAGE2_STEP: ada_bwd_f32 3, ca_bwd_f32 4, of which one joint-query).
-PER_STEP = (3, 1, 3)
+# F32_STAGE2_STEP: ada_fwd_f32 3, ca_fwd_f32 6, three each way;
+# ada_bwd_f32 3, ca_bwd_f32 4, of which one joint-query).
+PER_STEP = {"forward": (3, 3, 3), "backward": (3, 1, 3)}
 
 
 class VariantLibrary(_cuda.CudaLibrary):
-    """A variant source built beside the tree's; ``legacy``: its backward
-    entry points take no CTA count."""
+    """A variant source built beside the tree's; ``legacy``: which of its
+    entry points ("fwd", "bwd") take no CTA count."""
 
     def __init__(self, tree: _cuda.CudaLibrary, src: Path):
-        self.legacy = re.search(r"_bwd_f32\([^)]*\bctas\b",
-                                src.read_text()) is None
+        text = src.read_text()
+        self.legacy = {d for d in ("fwd", "bwd") if re.search(
+            rf"_{d}_f32\([^)]*\bctas\b", text) is None}
         sigs = dict(tree.signatures)
-        if self.legacy:
-            for name, (rt, args) in tree.signatures.items():
-                if name.endswith("_bwd_f32"):
-                    sigs[name] = (rt, args[:-2] + args[-1:])
-                elif name == "pmce_ca_f32_workspace":
-                    sigs[name] = (rt, args[:-1])
+        for name, (rt, args) in tree.signatures.items():
+            if self._legacy(name):
+                sigs[name] = (rt, args[:-2] + args[-1:])
+            elif name == "pmce_ca_f32_workspace" and "bwd" in self.legacy:
+                sigs[name] = (rt, args[:-1])
         super().__init__(tree.source, tree.error_fn, sigs)
         self.src = src
+
+    def _legacy(self, name: str) -> bool:
+        return any(name.endswith(f"_{d}_f32") for d in self.legacy)
 
     @property
     def path(self) -> Path:
@@ -103,12 +116,12 @@ class VariantLibrary(_cuda.CudaLibrary):
                 out)
 
     def call(self, name: str, *args):
-        if self.legacy and name.endswith("_bwd_f32"):
+        if self._legacy(name):
             args = args[:-2] + args[-1:]
         super().call(name, *args)
 
     def query(self, name: str, *args):
-        if self.legacy and name == "pmce_ca_f32_workspace":
+        if "bwd" in self.legacy and name == "pmce_ca_f32_workspace":
             args = args[:-1]
         return super().query(name, *args)
 
@@ -150,18 +163,22 @@ def in_turns(builds: Builds, timers: dict) -> dict:
 def print_plan(dev) -> None:
     resident = fa._dec_f32_resident(dev)
     for kind, Nq, _, Nk, label in SHAPES:
-        plan = fa.f32_dec_plan(kind, cs.BM, Nq, Nk or Nq, resident)
-        print(f"plan, {label}, {resident} SMs: ctas {plan.ctas}, splits "
-              f"(queries, keys) {plan.splits_q}, {plan.splits_k}; " + "; ".join(
-                  f"{p.name} {p.ctas} CTAs over {len(p.items)} items, "
-                  f"{p.waves} wave(s)" + (f", ranges {list(p.ranges)}"
-                                          if p.ranges else "")
-                  for p in plan.programs), flush=True)
+        for way, plan in (
+                ("forward", fa.f32_dec_fwd_plan(kind, cs.BM, Nq, Nk or Nq,
+                                                resident)),
+                ("backward", fa.f32_dec_plan(kind, cs.BM, Nq, Nk or Nq,
+                                             resident))):
+            print(f"{way} plan, {label}, {resident} SMs: ctas {plan.ctas}, "
+                  f"query splits {plan.splits_q}; " + "; ".join(
+                      f"{p.name} {p.ctas} CTAs over {len(p.items)} items, "
+                      f"{p.waves} wave(s)" + (f", ranges {list(p.ranges)}"
+                                              if p.ranges else "")
+                      for p in plan.programs), flush=True)
 
 
 def block_case(builds: Builds, dev, rng, kind, Nq, heads, Nk, label):
     """One shape: errors, bits, the timings in turns. Returns the per-call
-    device ms by build."""
+    device ms by build, {"forward": {tag: ms}, "backward": {tag: ms}}."""
     leaves, call, (kernel, plain) = cs.decoder_case(rng, dev, kind, cs.BM, Nq,
                                                     64, heads, Nk)
     leaves = [t.detach().float().requires_grad_(True) for t in leaves]
@@ -183,50 +200,66 @@ def block_case(builds: Builds, dev, rng, kind, Nq, heads, Nk, label):
             largest if i - 1 in zero else float(b.abs().max()))
             for i, (a, b) in enumerate(zip(got, want)))
 
-    errs, ys = {}, {}
+    def fwd():
+        with torch.no_grad():
+            return call(kernel, *leaves)
+
+    with torch.no_grad():
+        y_plain = call(plain, *leaves)
+    errs, fwd_errs, ys = {}, {}, {}
     for tag in builds.libs:
         builds.use(tag)
         got = grads(kernel)
         errs[tag] = err(got)
+        y = fwd()
+        fwd_errs[tag] = float((y - y_plain).abs().max()
+                              / y_plain.abs().max())
         ys[tag] = call(kernel, *leaves)
     builds.use("tree")
     same = all(torch.equal(a, b) for a, b in zip(grads(kernel),
                                                     grads(kernel)))
+    same_fwd = torch.equal(fwd(), fwd())
 
     def bwd():
         return torch.autograd.grad(ys[builds.current], every, g,
                                    retain_graph=True)
 
-    def card():
-        return sum(device_ms(bwd).values())
-
-    times = in_turns(builds, {"autograd call": lambda: cs.median_ms(bwd, 20,
-                                                                     5),
-                              "on the card": card})
+    times = in_turns(builds, {
+        "forward on the card": lambda: sum(device_ms(fwd).values()),
+        "backward autograd call": lambda: cs.median_ms(bwd, 20, 5),
+        "backward on the card": lambda: sum(device_ms(bwd).values())})
     kernels = {}
     for tag in builds.libs:
         builds.use(tag)
-        kernels[tag] = device_ms(bwd)
+        kernels[tag] = {"forward": device_ms(fwd), "backward": device_ms(bwd)}
     builds.use("tree")
+    with torch.no_grad():
+        plain_fwd_ms = cs.median_ms(lambda: call(plain, *leaves), 5, 2)
     yp = call(plain, *leaves)
     plain_ms = cs.median_ms(lambda: torch.autograd.grad(
         yp, every, g, retain_graph=True), 5, 2)
     for name, per_tag in times.items():
-        print(f"{label}: backward {name}: " + "; ".join(
+        print(f"{label}: {name}: " + "; ".join(
             f"{tag} {fmt(ts)}" for tag, ts in per_tag.items()) + " ms",
             flush=True)
-    for tag, ks in kernels.items():
-        print(f"{label}: {tag} kernels: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in sorted(ks.items(),
-                                               key=lambda kv: -kv[1]))
-            + " ms", flush=True)
-    print(f"{label}: plain autograd call {plain_ms:.4f} ms; vs plain: "
+    for tag, ways in kernels.items():
+        for way, ks in ways.items():
+            print(f"{label}: {tag} {way} kernels: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(ks.items(),
+                                                   key=lambda kv: -kv[1]))
+                + " ms", flush=True)
+    print(f"{label}: plain forward {plain_fwd_ms:.4f} ms, plain autograd "
+          f"call {plain_ms:.4f} ms; forward vs plain: "
+          + ", ".join(f"{tag} {e:.3g}" for tag, e in fwd_errs.items())
+          + "; backward vs plain: "
           + ", ".join(f"{tag} {e:.3g}" for tag, e in errs.items())
-          + f"; the tree's rerun gives the same bits: {same}", flush=True)
-    del leaves, every, g, want, ys, yp
+          + f"; the tree's reruns give the same bits: forward {same_fwd}, "
+          f"backward {same}", flush=True)
+    del leaves, every, g, want, ys, yp, y_plain
     torch.cuda.empty_cache()
-    return {tag: statistics.median(ts)
-            for tag, ts in times["on the card"].items()}
+    return {way: {tag: statistics.median(ts)
+                  for tag, ts in times[f"{way} on the card"].items()}
+            for way in ("forward", "backward")}
 
 
 def stage2_step(builds: Builds, dev) -> None:
@@ -270,18 +303,20 @@ def main() -> None:
     print(cs.card_line(), flush=True)
     builds = Builds(args.variant_dir.resolve())
     _cuda._build([lib for libs in builds.libs.values() for lib in libs])
-    print("variant backwards: " + ("without a CTA count (grids of 64-row "
-                                   "chunks)" if builds.libs["variant"][0]
-                                   .legacy else "with a CTA count"),
-          flush=True)
+    legacy = builds.libs["variant"][0].legacy
+    print("variant entry points without a CTA count (grids of 64-row "
+          f"chunks): {sorted(legacy) or 'none'}", flush=True)
     dev = torch.device("cuda", 0)
     print_plan(dev)
     rng = np.random.default_rng(22)
     per_call = [block_case(builds, dev, rng, *shape) for shape in SHAPES]
-    print("the decoder backwards' device time a f32 Stage-2 step (3 AdaLN, "
-          "1 CA joints over vertices, 3 CA vertices over joints): " + "; ".join(
-              f"{tag} {sum(n * c[tag] for n, c in zip(PER_STEP, per_call)):.4f}"
-              " ms" for tag in builds.libs), flush=True)
+    for way, per_step in PER_STEP.items():
+        print(f"the decoder {way}s' device time a f32 Stage-2 step ("
+              + ", ".join(f"{n} {label.split(' [')[0]}" for n, (*_, label)
+                          in zip(per_step, SHAPES)) + "): " + "; ".join(
+                  f"{tag} "
+                  f"{sum(n * c[way][tag] for n, c in zip(per_step, per_call)):.4f}"
+                  " ms" for tag in builds.libs), flush=True)
     if args.step:
         stage2_step(builds, dev)
 

@@ -2,6 +2,7 @@
 4f / 5f against a variant source of ``csrc/mhsa_f32.cu``.
 
     python3 pmce_tpu_torch/tools/profile_f32.py [--variant VARIANT.cu]
+    python3 pmce_tpu_torch/tools/profile_f32.py --chain
 
 At the main paths' shapes (rows 6f / 7f: the Stage-1 spatial [1024, 17,
 256] and temporal [1088, 16, 256] blocks, hid 512, the post-norm, branch
@@ -14,7 +15,11 @@ from ``torch.profiler`` over 5 calls. With ``--variant``, the variant
 its own library under ``pmce_tpu_torch/_build/``; it must export the
 entry points of ``csrc/mhsa_f32.cu``) and the tree's rows 4f / 5f are
 timed in turns (variant, tree, tree, variant, 3 rounds) in one process,
-and the two builds' bits compared.
+and the two builds' bits compared. ``--chain`` times row 3f alone (the f32
+decoder chain, ``csrc/coevo_f32.cu``, no gradient) the same way at the
+f32 Stage-2 evaluation batch (64 clips of 17 joints and 431 vertices:
+``chip_smoke.py`` phase 13b's ``TEST.batch_size``) and at the f32 serving
+batch (256 clips of 19 joints), beside its plain version.
 """
 
 from __future__ import annotations
@@ -95,9 +100,35 @@ def mhsa_case(rng, dev, N: int):
     return leaves, g
 
 
+def chain(dev) -> None:
+    """Row 3f at the Stage-2 evaluation batch and the serving batch."""
+    from pmce_tpu_torch.ops import fused_coevo_chain as fc
+
+    _cuda._build([_cuda.COEVO_F32])
+    for batch, joints in ((64, cs.JT), (cs.B, cs.J)):
+        cs.J = joints  # chain_case's joint count
+        r = cs.Inputs(13, dev)
+        jt, vx, g, b, blocks, hj, hv = cs.chain_case(r, batch)
+        blocks = tuple((blk[0].float(), blk[1], blk[2].float(), *blk[3:])
+                       for blk in blocks)
+        args = (jt, vx, g, b, blocks, hj, hv)
+        with torch.no_grad():
+            outs = [o if isinstance(o, tuple) else (o,) for o in (
+                fc.coevo_chain(*args), fc.coevo_chain_plain(*args))]
+            err = max(float((a - p).abs().max() / p.abs().max())
+                      for a, p in zip(*outs))
+            show(f"row 3f B={batch} J={joints} V=431 (vs plain {err:.3g}; "
+                 f"plain {cs.median_ms(lambda: fc.coevo_chain_plain(*args), 5, 2):.4f} ms)",
+                 cs.median_ms(lambda: fc.coevo_chain(*args), 20, 5),
+                 device_ms(lambda: fc.coevo_chain(*args)))
+        del jt, vx, g, b, blocks, args
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", type=Path, default=None)
+    ap.add_argument("--chain", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_f32: no CUDA device")
@@ -110,6 +141,9 @@ def main() -> None:
     _cuda._build([_cuda.BLOCK_F32, *builds.values()])
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(4)
+    if args.chain:
+        chain(dev)
+        return
 
     for clips, N in ((cs.BT * cs.T, cs.JT), (cs.BT * cs.JT, cs.T)):
         x, params, masks, g = cs.block_case(rng, dev, clips, N, 0.2)

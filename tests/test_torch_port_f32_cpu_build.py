@@ -180,8 +180,9 @@ def _check(got, want, counts, expect, zero=()):
                                                (2, 72, 4, 64)])
 def test_ada_f32_source_matches_plain_on_the_cpu(cpu_libs, clips, N, heads,
                                                  hid):
-    """Rows 8f / 9f: two chunks of each clip (64 rows, then the rest),
-    masks that require grad (each branch dropped for one clip)."""
+    """Rows 8f / 9f: one 128-row tile a clip (its last warps partly or not
+    at all filled), the key side in two 64-row chunks, masks that require
+    grad (each branch dropped for one clip)."""
     rng = np.random.default_rng(N)
     C = 64
     x = _t(rng, clips, N, C)
@@ -208,8 +209,8 @@ def test_ada_f32_source_matches_plain_on_the_cpu(cpu_libs, clips, N, heads,
                                              (20, 72, 4, 64)])
 def test_ca_f32_source_matches_plain_on_the_cpu(cpu_libs, Nq, Nk, heads,
                                                 hid):
-    """Rows 10f / 11f in both orientations (the long side in two chunks),
-    masks that require grad."""
+    """Rows 10f / 11f in both orientations (the long side in two 64-row
+    chunks), masks that require grad."""
     rng = np.random.default_rng(Nq + 2 * Nk)
     C, clips = 64, 2
     xs = [_t(rng, clips, n, C) for n in (Nq, Nk, Nk)]
@@ -265,3 +266,58 @@ def test_ca_f32_split_short_side_matches_plain_on_the_cpu(cpu_libs, Nq, Nk,
         got, counts = _as_card(cpu_libs, lambda: step(fa.ca_block))
     _check(got, step(fa.ca_block_plain), counts,
            {"ca_fwd_f32": 1, "ca_bwd_f32": 1}, zero=(6, 14))
+
+
+@pytest.mark.parametrize("kind,clips,Nq,Nk,heads,resident", [
+    ("ada", 3, 200, 200, 4, 2), ("ada", 2, 72, 72, 2, 1),
+    ("ca", 2, 17, 200, 8, 6), ("ca", 3, 200, 17, 4, 3)],
+    ids=["ada-16wide-2ctas", "ada-1cta", "ca-joints-split3",
+         "ca-vertices-16wide-3ctas"])
+def test_dec_f32_forwards_match_plain_with_few_ctas(cpu_libs, kind, clips,
+                                                    Nq, Nk, heads,
+                                                    resident):
+    """Rows 8f / 10f alone (no gradient owed, masks given) on
+    ``f32_dec_fwd_plan``'s grids cut to a few CTAs (the card's co-resident
+    count stood in for): several tiles a CTA in every program; joints over
+    vertices split 3 ways over the long side's 4 chunks, the partials
+    merged by the tail; heads of 16 and 32 and 8."""
+    rng = np.random.default_rng(Nq + 5 * Nk + heads)
+    C, hid = 64, 128
+    masks = _dec_masks(clips)
+    if kind == "ada":
+        x = _t(rng, clips, Nq, C, grad=False)
+        gb = [_t(rng, clips, C, scale=0.1, offset=1.0 - i % 2, grad=False)
+              for i in range(4)]
+        params = [_t(rng, C, 3 * C, scale=C ** -0.5, grad=False),
+                  _t(rng, 3 * C, scale=0.05, grad=False)]
+    else:
+        xs = [_t(rng, clips, n, C, grad=False) for n in (Nq, Nk, Nk)]
+        conds = [_t(rng, clips, C, scale=0.1, offset=1.0 - i % 2,
+                    grad=False) for i in range(8)]
+        params = [t for _ in range(3) for t in (
+            _t(rng, C, C, scale=C ** -0.5, grad=False),
+            _t(rng, C, scale=0.05, grad=False))]
+    params += [_t(rng, C, C, scale=C ** -0.5, grad=False),
+               _t(rng, C, scale=0.05, grad=False),
+               _t(rng, C, hid, scale=C ** -0.5, grad=False),
+               _t(rng, hid, scale=0.05, grad=False),
+               _t(rng, hid, C, scale=hid ** -0.5, grad=False),
+               _t(rng, C, scale=0.05, grad=False)]
+    masks = tuple(m.detach() for m in masks)
+
+    def run(fn):
+        with torch.no_grad():
+            if kind == "ada":
+                return fn(x, *gb, params, heads, 1e-6, masks)
+            return fn(*xs, conds[0::2], conds[1::2], params, heads, 1e-6,
+                      masks)
+
+    plan = fa.f32_dec_fwd_plan(kind, clips, Nq, Nk, resident)
+    assert max(p.waves for p in plan.programs) >= 2 or plan.splits_q > 1
+    with mock.patch.object(fa, "_dec_f32_resident", return_value=resident):
+        got, counts = _as_card(cpu_libs, lambda: run(
+            fa.ada_block if kind == "ada" else fa.ca_block))
+    assert counts == {f"{kind}_fwd_f32": 1}
+    want = run(fa.ada_block_plain if kind == "ada" else fa.ca_block_plain)
+    assert got.shape == want.shape and _rel(got, want) <= TOL, _rel(got,
+                                                                    want)
