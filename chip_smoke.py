@@ -157,9 +157,9 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    spatial [4096, 19, 256] and temporal [4864, 16, 256] shapes with the
    post-norm, the chain and the whole block at B = 256) against their
    plain versions within ``F32_KERNEL_REL_TOL``, reruns bit for bit, timed
-   beside their bounds at the f32 CUDA-core peak (row 6f's products are
-   3xTF32: its bound at that rate on the tensor cores, its FFMA bound
-   printed beside it), row 6's beside
+   beside their bounds (the products of rows 6f, 3f and 14f are 3xTF32:
+   the bound at that rate on the tensor cores, the f32 CUDA-core FFMA
+   bound printed beside it), row 6's beside
    ``nn.TransformerEncoder`` in f32 on its no-grad path; (b)
    ``create_pmce(num_joint=19, dtype=None, fused=True)`` at full width,
    phase 3's weights and inputs, the counters zeroed just before and read
@@ -470,13 +470,14 @@ F32_STAGE2_EVAL = {"block_fwd_f32": 6, "coevo_chain_f32": 1}
 STAGE1_CFG = REPO / "configs" / "train_pose_h36m.yml"
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 on
 # the tensor cores, f32 on the CUDA cores, f32 work as three TF32 products
-# on the tensor cores (495 TFLOP/s TF32 / 3: rows 6f / 7f and 8f-11f,
-# whose products are 3xTF32), and the HBM rate.
+# on the tensor cores (495 TFLOP/s TF32 / 3: rows 6f / 7f, 8f-11f and 3f
+# / 14f, whose products are 3xTF32), and the HBM rate.
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 # The f32 kernels whose products run as 3xTF32 on the tensor cores: their
 # bound is at that rate, their f32 FFMA bound printed beside it.
 TF32X3_KERNELS = ("block_fwd_f32", "block_bwd_f32", "ada_fwd_f32",
-                  "ada_bwd_f32", "ca_fwd_f32", "ca_bwd_f32")
+                  "ada_bwd_f32", "ca_fwd_f32", "ca_bwd_f32",
+                  "coevo_chain_f32", "coevo_block_f32")
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -3077,8 +3078,8 @@ def data_pipeline(device) -> dict:
 def f32_kernel_rows(device, rows) -> None:
     """Phase 11a: each f32 kernel against its plain version at the f32
     serving forward's shapes (TF32 off), a rerun bit for bit, timed beside
-    its bound at the f32 CUDA-core peak; row 6's beside
-    ``nn.TransformerEncoder`` in f32 on its no-grad path."""
+    its bound (3xTF32's, the f32 FFMA bound printed beside it); row 6's
+    beside ``nn.TransformerEncoder`` in f32 on its no-grad path."""
     import numpy as np
     import torch
 

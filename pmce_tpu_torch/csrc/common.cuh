@@ -143,6 +143,39 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 }  // namespace tc32
 
+// ---------------------------------------------------------------------------
+// Thread block clusters (sm_90): the CTA's rank in its cluster, a barrier of
+// every thread of the cluster (arrive with release, wait with acquire: what
+// any of them wrote before it, in shared or device memory, is seen by what
+// any of them reads after it), and the generic address of the same
+// shared-memory location in the CTA of rank r (distributed shared memory,
+// read with ordinary loads). Every thread of the cluster reaches each sync.
+// ---------------------------------------------------------------------------
+namespace clu {
+
+__device__ __forceinline__ int rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ void sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <class T>
+__device__ __forceinline__ T* peer(T* p, int r) {
+  unsigned long long a;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(a)
+               : "l"(reinterpret_cast<unsigned long long>(p)), "r"(r));
+  return reinterpret_cast<T*>(a);
+}
+
+}  // namespace clu
+
 #define PMCE_EXPORT_ERROR_STRING(name)                       \
   extern "C" const char* name(int code) {                    \
     return cudaGetErrorString(static_cast<cudaError_t>(code)); \

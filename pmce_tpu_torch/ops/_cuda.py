@@ -257,9 +257,7 @@ CA = CudaLibrary("ca_block", "pmce_ca_block_error_string", {
 # The f32 block: row 6f's forward (a table of its 18 pointers, clips, N,
 # hid, eps, post_eps, qscale, the persistent CTAs, stream) and row 7f's
 # backward (a table of its 44 pointers, the same integers and floats, the
-# weight gradients' row ranges, the persistent CTAs, stream); the chain and
-# the whole block in f32 (the bf16 entry points' arguments; the workspace
-# takes J and V).
+# weight gradients' row ranges, the persistent CTAs, stream).
 BLOCK_F32 = CudaLibrary("block_f32", "pmce_block_f32_error_string", {
     "pmce_block_fwd_f32": (I, (P, I, I, I, F, F, F, I, P)),
     "pmce_block_bwd_f32": (I, (P, I, I, I, F, F, F, I, I, P)),
@@ -271,11 +269,17 @@ MHSA_F32 = CudaLibrary("mhsa_f32", "pmce_mhsa_f32_error_string", {
     "pmce_mhsa_fwd_f32": (I, (P, I, I, I, I, F, P)),
     "pmce_mhsa_bwd_f32": (I, (P, I, I, I, I, F, I, P)),
 })
+# Rows 3f / 14f, the chain and the whole block in f32: a cluster of S CTAs
+# a clip (the chain: joints, jout, vout, gammas, betas, the pointer table,
+# B, J, V, NB, S, eps, the two attention scales, stream; the whole block:
+# jf0, vf0, jout, vout, gammas, betas, the table, B, J, V, S, the same
+# floats, stream); a CTA's shared memory at (V, S) (-1: the plan does not
+# take V) and the clusters of S CTAs the card holds at once.
 COEVO_F32 = CudaLibrary("coevo_f32", "pmce_coevo_f32_error_string", {
-    "pmce_coevo_f32_workspace_bytes": (ctypes.c_longlong, (I, I)),
-    "pmce_coevo_f32_smem_bytes": (ctypes.c_longlong, (I,)),
-    "pmce_coevo_chain_f32": (I, (P, P, P, P, P, P, P, I, I, I, I, F, F, F, P)),
-    "pmce_coevo_block_f32": (I, (P,) * 8 + (I, I, I, F, F, F, P)),
+    "pmce_coevo_f32_smem_bytes": (L, (I, I)),
+    "pmce_coevo_f32_clusters": (I, (I,)),
+    "pmce_coevo_chain_f32": (I, (P,) * 6 + (I, I, I, I, I, F, F, F, P)),
+    "pmce_coevo_block_f32": (I, (P,) * 7 + (I, I, I, I, F, F, F, P)),
 })
 # Rows 8f / 9f, the AdaLN block in f32: the forward (a table of its 17
 # pointers, clips, N, hid, heads, eps, qscale, the most CTAs a program

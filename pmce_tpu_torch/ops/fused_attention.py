@@ -1003,6 +1003,74 @@ def f32_dec_fwd_workspace(kind: str, clips: int, Nq: int, Nk: int,
     return 2 * clips * Nk * 64 + splits_q * clips * Nq * (64 + 2 * heads)
 
 
+# Rows 3f / 14f (csrc/coevo_f32.cu): a cluster of S CTAs a clip, the
+# vertex rows in tiles of 16 split into S contiguous ranges of at most 8
+# tiles (a tile a warp of the CTA's 8), S the fewest of 1, 2, 4, 8 that
+# does (the portable cluster sizes); the joints in at most two tiles.
+_COEVO_TILE, _COEVO_RANK_TILES, _COEVO_SPLITS = 16, 8, (1, 2, 4, 8)
+_COEVO_MAX_V = _COEVO_TILE * _COEVO_RANK_TILES * _COEVO_SPLITS[-1]
+_COEVO_MAX_J = 2 * _COEVO_TILE
+# The clusters of S CTAs a card holds at once, where read on one
+# (``pmce_coevo_f32_clusters``, cudaOccupancyMaxActiveClusters, through
+# ``tools/profile_f32.py --chain``): {(SMs, S): clusters}. NVIDIA H100 80GB
+# HBM3 (132 SMs): its GPCs leave 30 clusters of 4, not 33.
+_COEVO_F32_CLUSTERS = {(132, 1): 132, (132, 2): 66, (132, 4): 30,
+                       (132, 8): 15}
+
+
+class CoevoF32Plan(NamedTuple):
+    """Rows 3f / 14f's launch: ``splits`` CTAs a clip (a cluster; the
+    entry points' S), each rank's vertex rows [r0, r1) in rank order,
+    ``ctas`` = B S, the ``clusters`` the card holds at once (read on the
+    card where known, else its SMs // S, one CTA an SM; None without a
+    card) and the ``waves`` of clusters."""
+    splits: int
+    rows: tuple
+    ctas: int
+    clusters: int | None
+    waves: int | None
+
+
+def coevo_f32_splits(V: int) -> int:
+    """S of :func:`coevo_f32_plan` at V vertices; a V over the plan's
+    limit raises ``NotImplementedError`` naming it."""
+    tiles = -(-V // _COEVO_TILE)
+    for s in _COEVO_SPLITS:
+        if -(-tiles // s) <= _COEVO_RANK_TILES:
+            return s
+    raise NotImplementedError(
+        f"the f32 CoevoBlock kernel's plan takes V <= {_COEVO_MAX_V} "
+        f"vertices (clusters of up to {_COEVO_SPLITS[-1]} CTAs of "
+        f"{_COEVO_TILE * _COEVO_RANK_TILES} rows), not V={V} (the JAX "
+        "kernel takes it); widening it is queued in ROADMAP.md B3")
+
+
+@functools.lru_cache(maxsize=64)
+def coevo_f32_plan(B: int, J: int, V: int, sms: int | None) -> CoevoF32Plan:
+    """The cluster launch of ``csrc/coevo_f32.cu`` (the f32 chain and
+    whole block) for B clips of J joints and V vertices on a card of
+    ``sms`` SMs (None: no card). J over two tiles (32) or V over
+    :func:`coevo_f32_splits`' limit raise ``NotImplementedError``."""
+    if B < 1 or J < 1 or V < 1:
+        raise ValueError(f"coevo_f32_plan: {B} x {J} / {V}")
+    if J > _COEVO_MAX_J:
+        raise NotImplementedError(
+            f"the f32 CoevoBlock kernel's plan takes J <= {_COEVO_MAX_J} "
+            f"joints (two warp tiles), not J={J} (the JAX kernel takes "
+            "it); widening it is queued in ROADMAP.md B3")
+    s = coevo_f32_splits(V)
+    tiles = -(-V // _COEVO_TILE)
+    rows = tuple((_COEVO_TILE * (tiles * r // s),
+                  min(V, _COEVO_TILE * (tiles * (r + 1) // s)))
+                 for r in range(s))
+    if sms is None:
+        clusters = waves = None
+    else:
+        clusters = _COEVO_F32_CLUSTERS.get((sms, s), sms // s)
+        waves = -(-B // clusters)
+    return CoevoF32Plan(s, rows, B * s, clusters, waves)
+
+
 def _dec_f32_resident(device) -> int | None:
     """The CTAs of rows 9f / 11f's programs the card holds at once: one an
     SM (up to 255 registers a thread at 256 threads), as

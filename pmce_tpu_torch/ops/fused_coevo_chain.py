@@ -20,9 +20,11 @@ and nothing rounds. :func:`coevo_block` and :func:`coevo_chain` run them
 for CPU tensors and, for CUDA tensors, the kernels of
 ``csrc/coevo_block.cu`` and ``csrc/coevo_chain.cu`` (both over
 ``csrc/coevo_ops.cuh``) in bf16 compute and those of ``csrc/coevo_f32.cu``
-in f32 compute; on the card a shape those kernels are not built for
-(:func:`coevo_kernel_fits`, or a vertex stream over shared memory), and
-any other compute dtype, raise, as JAX's kernels take every shape. The
+in f32 compute (a cluster of CTAs a clip, :func:`coevo_f32_plan`); on the
+card a shape those kernels are not built for (:func:`coevo_kernel_fits`,
+a bf16 vertex stream over shared memory, an f32 one over the f32 plan's
+V <= 1024 or J <= 32), and any other compute dtype, raise, as JAX's
+kernels take every shape. The
 gradient of either kernel is the plain version's autograd on the saved
 inputs, as JAX recomputes through its oracles. The decoder
 calls :func:`coevo_block` per block under ``whole_block_kernel`` in eval
@@ -38,11 +40,14 @@ import torch.nn.functional as F
 
 from pmce_tpu_torch.ops import _cuda
 from pmce_tpu_torch.ops.fused_attention import (
+    _block_f32_resident,
     _on_card,
     _tensors,
     require_kernel,
     adaln_f32,
     attend,
+    coevo_f32_plan,
+    coevo_f32_splits,
     mm,
     split_scaled_qkv,
 )
@@ -192,15 +197,33 @@ def coevo_kernel_fits(C: int, hid: int, num_heads_j: int, num_heads_v: int,
 
 
 def _require_fits(name, C, hid, num_heads_j, num_heads_v, V, lib, smem_fn):
+    """The shape gate, then the library's shared memory for V: the bf16
+    kernels' stream, or the f32 plan's CTA at its S (past the plan's V
+    limit :func:`coevo_f32_splits` raises, naming it)."""
     require_kernel(coevo_kernel_fits(C, hid, num_heads_j, num_heads_v, V),
                    name, f"C={C}, hid={hid}, heads {num_heads_j}/"
                    f"{num_heads_v}, V={V}")
-    smem = int(lib.query(smem_fn, V))
-    if smem > _SMEM_LIMIT:
+    if lib is _cuda.COEVO_F32:
+        try:
+            smem = int(lib.query(smem_fn, V, coevo_f32_splits(V)))
+        except NotImplementedError as e:
+            raise NotImplementedError(f"{name}: {e}") from None
+    else:
+        smem = int(lib.query(smem_fn, V))
+    if smem < 0 or smem > _SMEM_LIMIT:
         raise NotImplementedError(
             f"{name}: the CUDA kernel's plan for V={V} needs {smem} bytes of "
             f"shared memory, over sm_90's {_SMEM_LIMIT} (the JAX kernel takes "
             "it); widening it is queued in ROADMAP.md B3")
+
+
+def _f32_plan(name, B, J, V, dev):
+    """The f32 kernels' cluster launch (:func:`coevo_f32_plan` on the
+    card's SMs); a shape it does not take raises, naming its limit."""
+    try:
+        return coevo_f32_plan(B, J, V, _block_f32_resident(dev))
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{name}: {e}") from None
 
 
 def _f32_route(dt, name) -> bool:
@@ -240,8 +263,8 @@ class _Table:
     def mat(self, a, rows, cols):
         """A product [rows, cols]. bf16: stored transposed, W^T [cols,
         rows] is the layout of the kernels' B fragments
-        (csrc/coevo_ops.cuh). f32: as given, [rows, cols], whose rows the
-        f32 kernels read across a warp's lanes (csrc/coevo_f32.cu)."""
+        (csrc/coevo_ops.cuh). f32: as given, [rows, cols], whose 64 x 64
+        blocks the f32 kernels stage as they are (csrc/coevo_f32.cu)."""
         if self.f32:
             self.put(a, torch.float32, (rows, cols))
         else:
@@ -293,6 +316,21 @@ class _Table:
         return host.to(self.dev, non_blocking=True)
 
 
+def _chain_table(blocks, dev, C, hid, J, V, f32):
+    """The chain's pointer table: per block its 3 -> C projections, its
+    K_* table and its coordinate heads."""
+    tab = _Table(dev, C, hid, f32)
+    for (wjp, bjp, wvp, bvp, kp, whj, bhj, whv, bhv) in blocks:
+        tab.embed(wjp, bjp, C)
+        tab.embed(wvp, bvp, C)
+        tab.block(kp, J, V)
+        for w, b in ((whj, bhj), (whv, bhv)):
+            tab.vec(w, C, 3)
+            tab.vec(b, 3)
+    assert len(tab.ptrs) == len(blocks) * _CHAIN_TABLE_LEN
+    return tab
+
+
 def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
                       num_heads_v, eps, stamps=None):
     f32 = torch.float32
@@ -313,33 +351,29 @@ def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
     _cuda.check_cuda(gammas, "gammas", f32, (B, NB, 12, C))
     _cuda.check_cuda(betas, "betas", f32, (B, NB, 12, C))
     dev = joints.device
-    tab = _Table(dev, C, hid, use_f32)
-    for (wjp, bjp, wvp, bvp, kp, whj, bhj, whv, bhv) in blocks:
-        tab.embed(wjp, bjp, C)
-        tab.embed(wvp, bvp, C)
-        tab.block(kp, J, V)
-        for w, b in ((whj, bhj), (whv, bhv)):
-            tab.vec(w, C, 3)
-            tab.vec(b, 3)
-    assert len(tab.ptrs) == NB * _CHAIN_TABLE_LEN
+    if use_f32:
+        plan = _f32_plan("coevo_chain", B, J, V, dev)
+    tab = _chain_table(blocks, dev, C, hid, J, V, use_f32)
     ptrs = tab.device()
 
     jout = torch.empty(B, J, 3, device=dev, dtype=f32)
     vout = vertx.clone()  # the kernel moves the vertices in place
-    ws_bytes = (lib.query("pmce_coevo_f32_workspace_bytes", J, V) if use_f32
-                else lib.query("pmce_chain_workspace_bytes", J))
-    ws = torch.empty(B * ws_bytes, device=dev, dtype=torch.uint8)
     p = _cuda.ptr
-    args = (p(joints), p(jout), p(vout), p(gammas), p(betas), p(ptrs), p(ws),
-            B, J, V, NB, eps, 1.0 / math.sqrt(C // num_heads_j),
-            1.0 / math.sqrt(C // num_heads_v))
+    scales = (1.0 / math.sqrt(C // num_heads_j),
+              1.0 / math.sqrt(C // num_heads_v))
     if use_f32:
         if stamps is not None:
             raise NotImplementedError("the f32 chain has no stamped "
                                       "instantiation")
-        lib.call("pmce_coevo_chain_f32", *args, _cuda.stream_ptr(dev))
+        lib.call("pmce_coevo_chain_f32", p(joints), p(jout), p(vout),
+                 p(gammas), p(betas), p(ptrs), B, J, V, NB, plan.splits, eps,
+                 *scales, _cuda.stream_ptr(dev))
         CHAIN_F32_LAUNCHES.count += 1
         return jout, vout
+    ws = torch.empty(B * lib.query("pmce_chain_workspace_bytes", J),
+                     device=dev, dtype=torch.uint8)
+    args = (p(joints), p(jout), p(vout), p(gammas), p(betas), p(ptrs), p(ws),
+            B, J, V, NB, eps, *scales)
     if stamps is not None:
         _cuda.CHAIN.call("pmce_coevo_chain_prof", *args, p(stamps),
                          _cuda.stream_ptr(dev))
@@ -367,26 +401,30 @@ def _coevo_block_cuda(jf0, vf0, gammas, betas, params, num_heads_j,
     _cuda.check_cuda(gammas, "gammas", f32, (B, 12, C))
     _cuda.check_cuda(betas, "betas", f32, (B, 12, C))
     dev = jf0.device
+    if use_f32:
+        plan = _f32_plan("coevo_block", B, J, V, dev)
     tab = _Table(dev, C, hid, use_f32)
     tab.block(params, J, V)
     ptrs = tab.device()
 
     jout = torch.empty_like(jf0)
     vout = torch.empty_like(vf0)
-    ws_bytes = (lib.query("pmce_coevo_f32_workspace_bytes", J, V) if use_f32
-                else lib.query("pmce_coevo_block_workspace_bytes", J))
-    ws = torch.empty(B * ws_bytes, device=dev, dtype=torch.uint8)
     p = _cuda.ptr
-    args = (p(jf0), p(vf0), p(jout), p(vout), p(gammas), p(betas), p(ptrs),
-            p(ws), B, J, V, eps, 1.0 / math.sqrt(C // num_heads_j),
-            1.0 / math.sqrt(C // num_heads_v))
+    scales = (1.0 / math.sqrt(C // num_heads_j),
+              1.0 / math.sqrt(C // num_heads_v))
     if use_f32:
         if stamps is not None:
             raise NotImplementedError("the f32 whole block has no stamped "
                                       "instantiation")
-        lib.call("pmce_coevo_block_f32", *args, _cuda.stream_ptr(dev))
+        lib.call("pmce_coevo_block_f32", p(jf0), p(vf0), p(jout), p(vout),
+                 p(gammas), p(betas), p(ptrs), B, J, V, plan.splits, eps,
+                 *scales, _cuda.stream_ptr(dev))
         BLOCK_F32_LAUNCHES.count += 1
         return jout, vout
+    ws = torch.empty(B * lib.query("pmce_coevo_block_workspace_bytes", J),
+                     device=dev, dtype=torch.uint8)
+    args = (p(jf0), p(vf0), p(jout), p(vout), p(gammas), p(betas), p(ptrs),
+            p(ws), B, J, V, eps, *scales)
     if stamps is not None:
         _cuda.COEVO_BLOCK.call("pmce_coevo_block_prof", *args, p(stamps),
                                _cuda.stream_ptr(dev))

@@ -3,9 +3,13 @@
 // a launch runs its thread blocks one after the other, each as blockDim.x
 // OS threads sharing one buffer as the block's shared memory (filled with
 // NaN bytes, so a read of what nothing wrote shows), std::barrier for
-// __syncthreads / __syncwarp, a per-warp exchange for the shuffles. Only
-// what the f32 sources use is here: 1-D blocks of whole warps, full-mask
-// shuffles reached by all 32 lanes, dynamic shared memory.
+// __syncthreads / __syncwarp, a per-warp exchange for the shuffles. A
+// launch with a cluster dimension (cudaLaunchKernelEx) runs the S blocks of
+// a cluster at once as one group of threads: the cluster barrier is a
+// barrier of all of them, a peer's shared-memory address the same offset
+// into that block's buffer. Only what the f32 sources use is here: 1-D
+// blocks of whole warps and 1-D clusters, full-mask shuffles reached by all
+// 32 lanes, dynamic shared memory.
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -36,11 +40,57 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "shim error"; }
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue { struct { unsigned x, y, z; } clusterDim; };
+struct cudaLaunchAttribute { cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, const void*, const cudaLaunchConfig_t*) { *n = 1; return 0; }
+// The grid's and block's sizes as variables (the launch configuration's
+// members have the same names).
+inline thread_local dim3 gridDim, blockDim;
 namespace shim {
 struct Warp { std::barrier<> bar{32}; float buf[32]; unsigned fa[32][4], fb[32][2]; };
 struct Block { std::barrier<>* bar; Warp* warps; unsigned char* smem; };
-inline thread_local dim3 tIdx, bIdx, gDim, bDim;
+struct Cluster { int size; std::barrier<>* bar; Block* blocks; };
+inline thread_local dim3 tIdx, bIdx;
 inline thread_local Block* blk = nullptr;
+inline thread_local Cluster* clu = nullptr;
+// The grid's clusters one after another, the S blocks of each at once.
+template <class K, class... A>
+void launch_clusters(K kernel, dim3 grid, dim3 block, size_t smem, int S, A... args) {
+  const int nt = block.x;
+  for (unsigned c = 0; c < grid.x / S; ++c) {
+    std::barrier<> cbar(S * nt);
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    std::vector<std::vector<Warp>> warps(S);
+    std::vector<Block> blocks(S);
+    for (int r = 0; r < S; ++r) {
+      unsigned char* mem = static_cast<unsigned char*>(aligned_alloc(64, (smem + 64) / 64 * 64));
+      memset(mem, 0xFF, smem);  // NaN: a read of what nothing wrote shows
+      bars.emplace_back(new std::barrier<>(nt));
+      warps[r] = std::vector<Warp>(nt / 32);
+      blocks[r] = Block{bars.back().get(), warps[r].data(), mem};
+    }
+    Cluster cl{S, &cbar, blocks.data()};
+    std::vector<std::thread> ts;
+    ts.reserve(S * nt);
+    for (int r = 0; r < S; ++r)
+      for (int t = 0; t < nt; ++t)
+        ts.emplace_back([&, r, t] {
+          tIdx = dim3(t); bIdx = dim3(c * S + r); ::gridDim = grid; ::blockDim = block;
+          blk = &blocks[r]; clu = &cl;
+          kernel(args...);
+        });
+    for (auto& t : ts) t.join();
+    for (auto& b : blocks) free(b.smem);
+  }
+}
 template <class K, class... A>
 void launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
   const int nt = block.x;
@@ -54,16 +104,22 @@ void launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... arg
       std::vector<std::thread> ts;
       ts.reserve(nt);
       for (int t = 0; t < nt; ++t)
-        ts.emplace_back([&, t] { tIdx = dim3(t); bIdx = dim3(bx, by); gDim = grid; bDim = block; blk = &b; kernel(args...); });
+        ts.emplace_back([&, t] { tIdx = dim3(t); bIdx = dim3(bx, by); ::gridDim = grid; ::blockDim = block; blk = &b; kernel(args...); });
       for (auto& t : ts) t.join();
       free(mem);
     }
 }
 }  // namespace shim
+template <class... E, class... A>
+inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(E...), A&&... args) {
+  int S = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) S = cfg->attrs[i].val.clusterDim.x;
+  shim::launch_clusters(kernel, cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes, S, static_cast<E>(args)...);
+  return 0;
+}
 #define threadIdx (shim::tIdx)
 #define blockIdx (shim::bIdx)
-#define gridDim (shim::gDim)
-#define blockDim (shim::bDim)
 inline void __syncthreads() { shim::blk->bar->arrive_and_wait(); }
 inline void __syncwarp() { shim::blk->warps[threadIdx.x / 32].bar.arrive_and_wait(); }
 inline float __shfl_sync(unsigned, float v, int src) {
@@ -120,5 +176,13 @@ inline void cp_async4(void* smem, const void* global) { memcpy(smem, global, 4);
 inline void cp_async_commit() {}
 inline void cp_async_wait_all() {}
 }  // namespace tc32
+namespace clu {
+inline int rank() { return blockIdx.x % shim::clu->size; }
+inline void sync() { shim::clu->bar->arrive_and_wait(); }
+template <class T> inline T* peer(T* p, int r) {
+  const auto* b = reinterpret_cast<const unsigned char*>(p);
+  return reinterpret_cast<T*>(shim::clu->blocks[r].smem + (b - shim::blk->smem));
+}
+}  // namespace clu
 #define PMCE_EXPORT_ERROR_STRING(name) \
   extern "C" const char* name(int code) { return "shim error"; }

@@ -1,16 +1,17 @@
-"""The f32 training kernels' CUDA sources, built for the CPU, against the
-plain versions.
+"""The f32 kernels' CUDA sources, built for the CPU, against the plain
+versions.
 
 ``csrc/block_f32.cu`` (rows 6f / 7f), ``csrc/mhsa_f32.cu`` (rows 4f / 5f),
-``csrc/ada_f32.cu`` (rows 8f / 9f) and ``csrc/ca_f32.cu`` (rows 10f /
-11f), with ``csrc/f32_ops.cuh`` and ``csrc/dec_tc32.cuh`` (the shim's
-stand-ins for mma.sync, cp.async and cvt.rna check the 3xTF32 fragments'
-indexing), are compiled by g++ over
-``tests/cuda_cpu/shim_common.cuh`` (a thread block as OS threads; the
-sources' launches ``k<<<...>>>(...)`` rewritten as calls of the shim's
-launcher, ``extern __shared__`` as the block's buffer) and loaded in place
-of the card's libraries; the wrappers of ``ops/fused_attention.py`` run on
-CPU tensors as on the card (``_on_card`` answering yes), so the host entry
+``csrc/ada_f32.cu`` (rows 8f / 9f), ``csrc/ca_f32.cu`` (rows 10f / 11f)
+and ``csrc/coevo_f32.cu`` (rows 3f / 14f), with ``csrc/f32_ops.cuh`` and
+``csrc/dec_tc32.cuh`` (the shim's stand-ins for mma.sync, cp.async and
+cvt.rna check the 3xTF32 fragments' indexing), are compiled by g++ over
+``tests/cuda_cpu/shim_common.cuh`` (a thread block as OS threads, a
+cluster's blocks at once; the sources' launches ``k<<<...>>>(...)``
+rewritten as calls of the shim's launcher, ``extern __shared__`` as the
+block's buffer) and loaded in place of the card's libraries; the wrappers
+of ``ops/fused_attention.py`` and ``ops/fused_coevo_chain.py`` run on CPU
+tensors as on the card (``_on_card`` answering yes), so the host entry
 points, the pointer tables and the kernels' arithmetic are all exercised.
 Forward and every gradient (mask gradients included) within 1e-5 of the
 plain version's autograd, relative to each one's largest magnitude (f32 on
@@ -34,6 +35,7 @@ import torch
 
 from pmce_tpu_torch.ops import _cuda
 from pmce_tpu_torch.ops import fused_attention as fa
+from pmce_tpu_torch.ops import fused_coevo_chain as fc
 
 pytestmark = pytest.mark.slow
 
@@ -57,7 +59,7 @@ def cpu_libs(tmp_path_factory):
         pytest.skip("needs g++")
     out = tmp_path_factory.mktemp("cuda_cpu")
     shutil.copy(SHIM, out / "common.cuh")
-    sources = ("block_f32", "mhsa_f32", "ada_f32", "ca_f32")
+    sources = ("block_f32", "mhsa_f32", "ada_f32", "ca_f32", "coevo_f32")
     for name in (*(f"{n}.cu" for n in sources), "f32_ops.cuh",
                  "dec_tc32.cuh"):
         text = (_cuda.CSRC / name).read_text()
@@ -86,6 +88,9 @@ def _as_card(libs, fn):
         assert shape is None or tuple(t.shape) == tuple(shape), name
 
     patches = [mock.patch.object(fa, "_on_card", return_value=True),
+               mock.patch.object(fc, "_on_card", return_value=True),
+               mock.patch.object(fc._Table, "device", lambda self:
+                                 torch.tensor(self.ptrs, dtype=torch.int64)),
                mock.patch.object(_cuda, "check_cuda", check),
                mock.patch.object(_cuda, "stream_ptr",
                                  return_value=_cuda.P(None)),
@@ -321,3 +326,73 @@ def test_dec_f32_forwards_match_plain_with_few_ctas(cpu_libs, kind, clips,
     want = run(fa.ada_block_plain if kind == "ada" else fa.ca_block_plain)
     assert got.shape == want.shape and _rel(got, want) <= TOL, _rel(got,
                                                                     want)
+
+
+def _coevo_params(rng, J, V, C=64, hid=256):
+    def w(i, o):
+        return _t(rng, i, o, scale=i ** -0.5, grad=False)
+
+    def v(*shape, scale=0.05):
+        return _t(rng, *shape, scale=scale, grad=False)
+
+    def ca():
+        return (w(C, C), v(C), w(C, C), v(C), w(C, C), v(C), w(C, C), v(C),
+                w(C, hid), v(hid), w(hid, C), v(C))
+
+    def sa():
+        return (w(C, 3 * C), v(3 * C), w(C, C), v(C), w(C, hid), v(hid),
+                w(hid, C), v(C))
+
+    return (v(J, C, scale=1.0), v(V, C, scale=1.0), v(J, C, scale=1.0),
+            v(V, C, scale=1.0), v(V, C, scale=1.0), v(J, C, scale=1.0),
+            w(C, C), v(C), w(C, C), v(C), ca(), ca(), sa(), sa())
+
+
+@pytest.mark.parametrize("kind,clips,J,V,S", [
+    ("chain", 2, 17, 72, 2), ("chain", 1, 19, 200, 2),
+    ("block", 2, 19, 72, 3), ("block", 1, 17, 100, 1)],
+    ids=["chain-2x2", "chain-2chunks-a-rank", "block-3x2", "block-1"])
+def test_coevo_f32_source_matches_plain_with_few_clusters(cpu_libs, kind,
+                                                          clips, J, V, S):
+    """Rows 3f / 14f: the chain (3 blocks, the coordinate heads) and the
+    whole block on clusters of S CTAs (the plan's S stood in for: the
+    shipped V = 431 takes 4), a few clusters: ranks of one and of two
+    64-row chunks (V = 200 in two ranks of 96 and 104 rows), a rank's last
+    warps without rows, joints of one and two tiles."""
+    rng = np.random.default_rng(V + 3 * J + S)
+    C = 64
+    if kind == "chain":
+        blocks = tuple(
+            (_t(rng, 3, C, scale=3 ** -0.5, grad=False),
+             _t(rng, C, scale=0.05, grad=False),
+             _t(rng, 3, C, scale=3 ** -0.5, grad=False),
+             _t(rng, C, scale=0.05, grad=False), _coevo_params(rng, J, V),
+             _t(rng, C, 3, scale=C ** -0.5, grad=False),
+             _t(rng, 3, scale=0.05, grad=False),
+             _t(rng, C, 3, scale=C ** -0.5, grad=False),
+             _t(rng, 3, scale=0.05, grad=False)) for _ in range(3))
+        args = (_t(rng, clips, J, 3, scale=0.3, grad=False),
+                _t(rng, clips, V, 3, scale=0.3, grad=False),
+                _t(rng, clips, 3, 12, C, scale=0.1, offset=1.0, grad=False),
+                _t(rng, clips, 3, 12, C, scale=0.1, grad=False), blocks)
+        fn, plain = fc.coevo_chain, fc.coevo_chain_plain
+    else:
+        args = (_t(rng, clips, J, C, grad=False),
+                _t(rng, clips, V, C, grad=False),
+                _t(rng, clips, 12, C, scale=0.1, offset=1.0, grad=False),
+                _t(rng, clips, 12, C, scale=0.1, grad=False),
+                _coevo_params(rng, J, V))
+        fn, plain = fc.coevo_block, fc.coevo_block_plain
+    plan = fa.coevo_f32_plan(clips, J, V, None)
+    tiles = -(-V // 16)
+    rows = tuple((16 * (tiles * r // S), min(V, 16 * (tiles * (r + 1) // S)))
+                 for r in range(S))
+    with torch.no_grad(), mock.patch.object(
+            fc, "coevo_f32_plan", return_value=plan._replace(
+                splits=S, rows=rows, ctas=clips * S)):
+        got, counts = _as_card(cpu_libs, lambda: fn(*args, 8, 2))
+        want = plain(*args, 8, 2)
+    assert counts == {f"coevo_{kind}_f32": 1}
+    for a, b in zip(got, want):
+        print(f"{kind} S={S}: {_rel(a, b):.3g}")
+        assert a.shape == b.shape and _rel(a, b) <= TOL, _rel(a, b)

@@ -326,10 +326,17 @@ def test_block_f32_tokens_with_bf16_weights_raise():
              lambda: fa.transformer_block(_t(x), tp, 8))
 
 
+# A CTA's shared memory under the f32 plan (csrc/coevo_f32.cu's SMEM).
+COEVO_F32_SMEM = 207744
+
+
 def _coevo_stubs(seen):
     def query(name, *args):
-        if name == "pmce_coevo_f32_smem_bytes":
-            return 2 * args[0] * CC * 4   # the library's plan
+        if name == "pmce_coevo_f32_smem_bytes":  # the library's plan
+            V, S = args
+            tiles = -(-V // 16)
+            rows = 16 * -(-tiles // S)  # a rank's vertex rows
+            return COEVO_F32_SMEM if rows <= 128 and S <= 8 else -1
         return 1024
 
     def call(name, *args):
@@ -384,12 +391,13 @@ def test_coevo_f32_route_is_one_launch(kind):
 
 
 def test_coevo_f32_vertex_stream_over_the_plan_raises_naming_b3():
-    """The f32 plan's shared memory (two f32 [V, C] buffers) holds V ≤ 454;
-    460 vertices raise naming ROADMAP.md B3 (JAX's kernel takes them)."""
-    case = _coevo_block_case(4, batch=1, V=460)
+    """The f32 plan (clusters of up to 8 CTAs, each a tile of 16 vertex
+    rows a warp: 128 rows a CTA) takes V ≤ 1024; 1040 vertices raise
+    naming the limit and ROADMAP.md B3 (JAX's kernel takes them)."""
+    case = _coevo_block_case(4, batch=1, V=1040)
     seen = []
     with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="shared memory.*ROADMAP.md B3"):
+                                        match="V <= 1024.*ROADMAP.md B3"):
         _run(_coevo_stubs(seen), lambda: fc.coevo_block(*_t(case), 8, 2))
     assert seen == []
 

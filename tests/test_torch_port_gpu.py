@@ -1289,19 +1289,25 @@ def test_coevo_block_kernel_refuses_f32_on_card(no_tf32):
 
 
 def test_coevo_f32_plan_refuses_a_vertex_stream_over_it():
-    """The f32 plan keeps two f32 [V, C] buffers in shared memory (V C 8
-    bytes: 220,672 at V = 431, V <= 454); 460 vertices raise naming
-    ROADMAP.md B3 (JAX's kernel takes them), the chain's too."""
+    """The f32 plan runs a cluster of S CTAs a clip, each a tile of 16
+    vertex rows a warp (128 rows a CTA, S up to 8): every admitted shape
+    takes the same shared memory, V <= 1024; a rank over 128 rows is
+    refused (-1), and 1040 vertices raise naming ROADMAP.md B3 (JAX's
+    kernel takes them), the chain's too."""
     dev = _card()
-    for V in (48, 431, 460):
-        assert _cuda.COEVO_F32.query("pmce_coevo_f32_smem_bytes", V) \
-            == V * 64 * 8
+    smem = _cuda.COEVO_F32.query("pmce_coevo_f32_smem_bytes", 431, 4)
+    assert 0 < smem <= 232448
+    for V, S in ((48, 1), (431, 4), (1024, 8)):
+        assert _cuda.COEVO_F32.query("pmce_coevo_f32_smem_bytes", V, S) \
+            == smem
+    for V, S in ((431, 2), (1040, 8)):
+        assert _cuda.COEVO_F32.query("pmce_coevo_f32_smem_bytes", V, S) == -1
     jf0, vf0, g, b, params = _coevo_block_args(np.random.default_rng(8),
-                                               dev, 1, V=460)
+                                               dev, 1, V=1040)
     with torch.no_grad(), pytest.raises(NotImplementedError,
                                         match="ROADMAP.md B3"):
         fc.coevo_block(jf0.float(), vf0.float(), g, b, params, 8, 2)
-    args = _chain_args(np.random.default_rng(9), dev, 1, V=460,
+    args = _chain_args(np.random.default_rng(9), dev, 1, V=1040,
                        bf=torch.float32)
     with torch.no_grad(), pytest.raises(NotImplementedError,
                                         match="ROADMAP.md B3"):
