@@ -182,8 +182,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    64] and [32, 19, 64] against the plain versions' autograd (outputs
    within ``F32_KERNEL_REL_TOL``, every gradient within
    ``F32_GRAD_REL_TOL`` of its own largest magnitude), reruns bit for bit,
-   timed beside their f32 bounds (rows 6f / 7f: 3xTF32's, with the FFMA
-   bound beside) and ``nn.TransformerEncoder`` /
+   timed beside their f32 bounds (3xTF32's, with the FFMA bound beside)
+   and ``nn.TransformerEncoder`` /
    ``F.multi_head_attention_forward`` in f32 with their backwards; (c)
    phase 4's cell in f32 (``compute_dtype`` float32, ``fused_attn`` on):
    synthesis, ``Trainer.fit`` 2 x 25 steps counted (exactly
@@ -470,14 +470,14 @@ F32_STAGE2_EVAL = {"block_fwd_f32": 6, "coevo_chain_f32": 1}
 STAGE1_CFG = REPO / "configs" / "train_pose_h36m.yml"
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16 on
 # the tensor cores, f32 on the CUDA cores, f32 work as three TF32 products
-# on the tensor cores (495 TFLOP/s TF32 / 3: rows 6f / 7f, 8f-11f and 3f
-# / 14f, whose products are 3xTF32), and the HBM rate.
+# on the tensor cores (495 TFLOP/s TF32 / 3: rows 4f-11f and 3f / 14f,
+# whose products are 3xTF32), and the HBM rate.
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 # The f32 kernels whose products run as 3xTF32 on the tensor cores: their
 # bound is at that rate, their f32 FFMA bound printed beside it.
-TF32X3_KERNELS = ("block_fwd_f32", "block_bwd_f32", "ada_fwd_f32",
-                  "ada_bwd_f32", "ca_fwd_f32", "ca_bwd_f32",
-                  "coevo_chain_f32", "coevo_block_f32")
+TF32X3_KERNELS = ("block_fwd_f32", "block_bwd_f32", "mhsa_fwd_f32",
+                  "mhsa_bwd_f32", "ada_fwd_f32", "ada_bwd_f32", "ca_fwd_f32",
+                  "ca_bwd_f32", "coevo_chain_f32", "coevo_block_f32")
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -3460,10 +3460,10 @@ def f32_training_kernels(device, rows) -> None:
               f"TF32 off, on {card}", flush=True)
         record(rows, "mhsa_fwd_f32", err_f, fwd_ms, pf_ms,
                count_flops(lambda: fa.mhsa_plain(*leaves, 8)),
-               tensor_bytes(leaves, yk), "f32")
+               tensor_bytes(leaves, yk), "tf32x3")
         record(rows, "mhsa_bwd_f32", err_b, bwd_ms, pb_ms,
                count_flops(lambda: bwd(yp)), tensor_bytes(g, leaves, gk),
-               "f32")
+               "tf32x3")
         for name, ms in (("mhsa_fwd_f32", lib_f), ("mhsa_bwd_f32", lib_b)):
             if rows[name]["library_ms"] is None:
                 rows[name]["library_ms"] = ms

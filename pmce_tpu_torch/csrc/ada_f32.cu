@@ -16,9 +16,9 @@
 // [32, 431, 64] in 2 heads of 32.
 //
 // Products: every row product and the attention in 3xTF32 on the tensor
-// cores (csrc/dec_tc32.cuh), but for the backward's weight gradients
-// (FFMA, f32_ops.cuh). Both differ from the plain version only in the
-// order of their sums and the tensor cores' products (<= 7.5e-7 of the
+// cores (csrc/dec_tc32.cuh), the backward's weight gradients too
+// (f32_ops.cuh). Both differ from the plain version only in the order of
+// their sums and the tensor cores' products (<= 7.5e-7 of the
 // output, <= 1.1e-6 of the gradients in the CPU model).
 //
 // Forward (pmce_ada_fwd_f32), three launches, persistent grids of min(items,
@@ -45,7 +45,7 @@
 //    recomputed from the saved max, sum and D);
 // 7. dh1 = dqkv Wqkv^T, dx = dx1 + AdaLN1^T(dh1);
 // 8-9. the weight gradients dW = A^T dY (f32_ops.cuh, fixed-order partial
-//    sums, FFMA);
+//    sums, 3xTF32);
 // 10. the programs' per-tile partials summed in order: the bias gradients
 //    and per clip dgamma1, dbeta1, dgamma2, dbeta2, and dm1, dm2 when owed.
 // Registers and shared memory: csrc/dec_tc32.cuh, PERF.md section 3.

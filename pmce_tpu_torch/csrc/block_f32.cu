@@ -108,8 +108,8 @@
 //    writes the weight products' operands (dqkv, da, dhh and m2 gy) and
 //    each CTA's partial sums of the vector gradients (LayerNorm scales and
 //    shifts, biases), its tiles' sums added in order;
-// 3. the weight gradients dW = A^T dY and the CTAs' vector partials
-//    summed in a fixed order (csrc/f32_ops.cuh).
+// 3. the weight gradients dW = A^T dY (3xTF32) and the CTAs' vector
+//    partials summed in a fixed order (csrc/f32_ops.cuh).
 // No atomics: a rerun gives the same bits.
 
 #include "common.cuh"

@@ -18,8 +18,8 @@
 // 431, 64] in 8 heads of 8, and vertices over joints in 2 heads of 32.
 //
 // Products: every row product and the attention in 3xTF32 on the tensor
-// cores (csrc/dec_tc32.cuh), but for the backward's weight gradients
-// (FFMA, f32_ops.cuh).
+// cores (csrc/dec_tc32.cuh), the backward's weight gradients too
+// (f32_ops.cuh).
 //
 // Forward (pmce_ca_fwd_f32), three launches on the persistent grids of the
 // wrappers' f32_dec_fwd_plan (min(items, ctas) CTAs):
@@ -57,7 +57,7 @@
 // 5. the finishing program a side: the split partials merged in order (dq;
 //    dk, dv), dnq = dq Wq^T, dxq = dx1 + AdaLN_q^T(dnq); dxk = AdaLN_k^T(dk
 //    Wk^T), dxv = AdaLN_v^T(dv Wv^T);
-// 6. the weight gradients (f32_ops.cuh, FFMA), one launch pair a side: Wq,
+// 6. the weight gradients (f32_ops.cuh, 3xTF32), one launch pair a side: Wq,
 //    Wproj, W1, W2 over the query rows, Wk, Wv over the key rows;
 // 7. the programs' partials summed in order: the bias gradients, and per
 //    clip the eight AdaLN vectors' gradients and dm1, dm2 when owed.

@@ -214,7 +214,7 @@ __device__ __forceinline__ void scale_tile(float (&v)[8][4], float s) {
 
 // d[nb] += A B[nb] for the n-blocks nb < N with 8 nb < n (one k-step, its
 // B fragments split): each n-block's three products summed from zero, then
-// one rounded add (dec_tc32.cuh's mma3), issued a product at a time across
+// one rounded add (f32_ops.cuh's mma3), issued a product at a time across
 // the n-blocks, so that N independent products stand between a result and
 // its use (the same sums, the same bits as mma3 an n-block at a time).
 template <int N>
@@ -337,7 +337,7 @@ __device__ __forceinline__ void stash_cols(float* s, int cb0,
 // staged layout (their rows past kc up to the next multiple of 8 finite:
 // they are read, with weight 0; local or a peer's): the online softmax's
 // max m and sum l (rows g, g + 8) and the head's o (unnormalised, rescaled
-// as the max grows). The products are 3xTF32 (dec_tc32.cuh's mma3), the
+// as the max grows). The products are 3xTF32 (f32_ops.cuh's mma3), the
 // chunk's keys at most 8 NKB.
 template <int KB, int NKB>
 __device__ __forceinline__ void head_chunk(const float (&Q)[KB][4], int cb0,

@@ -16,9 +16,10 @@
 // tests/test_torch_port_dec_f32_fwd_redesign.py: the AdaLN block at [4,
 // 431, 64] in 2 heads of 32, the CA block both ways, hid 256, masks) errs
 // <= 7.5e-7 (outputs) and <= 1.1e-6 (gradients) of the plain blocks' f32,
-// inside the card's 1e-5 / 1e-4; one TF32 pass errs 2.8e-4 / 6.7e-4. Only
-// the weight gradients stay on FFMA (f32_ops.cuh's launch_wgrad, shared
-// with rows 5f / 7f).
+// inside the card's 1e-5 / 1e-4; one TF32 pass errs 2.8e-4 / 6.7e-4. The
+// weight gradients (f32_ops.cuh's launch_wgrad, shared with rows 5f / 7f)
+// and mma3 are f32_ops.cuh's, in the same 3xTF32; row 4f / 5f's programs
+// (csrc/mhsa_f32.cu) run on these tiles and fragments too.
 //
 // The warp's tile. A warp owns 16 rows of its side and all C = 64 columns,
 // held in registers in the accumulator layout of mma.sync (a Tile, float
@@ -90,6 +91,8 @@
 // backward's tail, in every split, its own copy of o and hh; split 0's
 // kept). No atomics: a rerun gives the same bits.
 #pragma once
+
+#include "f32_ops.cuh"
 
 namespace f32ops {
 namespace dtc {
@@ -405,20 +408,8 @@ __device__ __forceinline__ void a_frag(float f0, float f1, float f2, float f3,
   split_tf32(f3, hi[3], lo[3]);
 }
 
-// d += the k-step's three products, summed from zero, then one rounded add.
-__device__ __forceinline__ void mma3(float (&d)[4], const unsigned (&ah)[4],
-                                     const unsigned (&al)[4], float b0,
-                                     float b1) {
-  unsigned bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  float k8[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(k8, al, bh0, bh1);
-  mma_tf32(k8, ah, bl0, bl1);
-  mma_tf32(k8, ah, bh0, bh1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += k8[i];
-}
+// mma3 (d += a k-step's three products, summed from zero, then one
+// rounded add): f32_ops.cuh's.
 
 // B of k-step kb, n-block nb from a staged block read as W[k][n] (rows 8 kb
 // + 2 t, + 1; column 8 nb + g). The swizzle of rows 8 kb + 2 t (+ 1)

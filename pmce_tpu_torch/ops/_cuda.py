@@ -263,11 +263,12 @@ BLOCK_F32 = CudaLibrary("block_f32", "pmce_block_f32_error_string", {
     "pmce_block_bwd_f32": (I, (P, I, I, I, F, F, F, I, I, P)),
 })
 # Rows 4f / 5f, the self-attention in f32: the forward (a table of its 8
-# pointers, clips, N, C, heads, qscale, stream) and the backward (a table of
-# its 15 pointers, the same, the weight gradients' row ranges, stream).
+# pointers, clips, N, C, heads, qscale, the persistent CTAs, stream) and
+# the backward (a table of its 13 pointers, the same integers and float,
+# the weight gradients' row ranges, the persistent CTAs, stream).
 MHSA_F32 = CudaLibrary("mhsa_f32", "pmce_mhsa_f32_error_string", {
-    "pmce_mhsa_fwd_f32": (I, (P, I, I, I, I, F, P)),
-    "pmce_mhsa_bwd_f32": (I, (P, I, I, I, I, F, I, P)),
+    "pmce_mhsa_fwd_f32": (I, (P, I, I, I, I, F, I, P)),
+    "pmce_mhsa_bwd_f32": (I, (P, I, I, I, I, F, I, I, P)),
 })
 # Rows 3f / 14f, the chain and the whole block in f32: a cluster of S CTAs
 # a clip (the chain: joints, jout, vout, gammas, betas, the pointer table,

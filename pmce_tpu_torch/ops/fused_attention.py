@@ -784,18 +784,62 @@ def block_bwd_stage_split(x, params, num_heads: int, branch_masks=None,
 
 
 # Rows 6f / 7f's tiles (csrc/block_f32.cu, bf32::TR: whole clips up to 64
-# rows) and the f32 weight gradients' fixed row ranges: one for every
-# _F32_WGRAD_ROWS rows, at most _F32_WGRAD_SPLITS (16 at Stage 1's 17,408
-# rows: 2,048 CTAs over the 128 tiles of 64 x 64; 8 at row 5f's 544: 32
-# CTAs over its 4 tiles).
+# rows).
 _F32_TILE_ROWS = 64
+# The f32 weight-gradient launch (csrc/f32_ops.cuh, rows 5f, 7f, 9f, 11f):
+# a CTA a (dW tile, row range), one an SM, _F32_WGRAD_WAVES waves of them
+# where the rows allow; a range at least _F32_WGRAD_ROWS rows, at most
+# _F32_WGRAD_SPLITS ranges (the sum of a dW element's partials is a chain
+# of that many loads).
 _F32_WGRAD_ROWS = 64
-_F32_WGRAD_SPLITS = 16
+_F32_WGRAD_SPLITS = 32
+_F32_WGRAD_WAVES = 2
 
 
-def f32_wgrad_splits(M: int) -> int:
-    """The row ranges of the f32 weight-gradient launch over M rows."""
-    return max(1, min(_F32_WGRAD_SPLITS, M // _F32_WGRAD_ROWS))
+def _wgrad_tile(K: int, N: int) -> tuple[int, int]:
+    """(rows, columns) of a CTA's tile of a [K, N] dW (``f32_ops.cuh``'s
+    ``tile_shape``: 8 warps of 32 x 64 outputs)."""
+    return (128 if K % 128 == 0 else 64, 128 if N % 128 == 0 else 64)
+
+
+class F32WgradPlan(NamedTuple):
+    """One f32 weight-gradient launch: ``tiles`` dW tiles over its jobs,
+    each tile's M rows cut into ``splits`` ranges (``ranges``, summed in
+    this order), ``ctas`` = tiles x splits CTAs, ``waves`` of them on the
+    card at one an SM (None without one)."""
+    tiles: int
+    splits: int
+    ranges: tuple
+    ctas: int
+    waves: int | None
+
+
+@functools.lru_cache(maxsize=64)
+def f32_wgrad_plan(M: int, jobs: tuple, sms: int | None) -> F32WgradPlan:
+    """The row ranges of the f32 weight-gradient launch over M rows and the
+    [K, N] dW ``jobs`` on a card of ``sms`` SMs: as many ranges as fill
+    the card twice at one CTA an SM (at least one; at most 32, and one a
+    64 rows); without a card (a build for the host) two. The wrappers
+    size the range partials' workspace [splits, K N / 4096, 4096] by it."""
+    if M < 1 or not jobs or any(k % 64 or n % 64 for k, n in jobs):
+        raise ValueError(f"f32_wgrad_plan: {M} rows, jobs {jobs}")
+    tiles = sum(k // tk * (n // tn) for k, n in jobs
+                for tk, tn in (_wgrad_tile(k, n),))
+    cap = max(1, min(_F32_WGRAD_SPLITS, M // _F32_WGRAD_ROWS))
+    if sms is None:
+        splits, waves = min(cap, 2), None
+    else:
+        splits = max(1, min(cap, sms * _F32_WGRAD_WAVES // tiles))
+        waves = -(-tiles * splits // sms)
+    ranges = tuple((M * s // splits, M * (s + 1) // splits)
+                   for s in range(splits))
+    return F32WgradPlan(tiles, splits, ranges, tiles * splits, waves)
+
+
+def f32_wgrad_splits(M: int, jobs, device) -> int:
+    """The row ranges of one f32 weight-gradient launch on ``device``'s
+    card (:func:`f32_wgrad_plan`)."""
+    return f32_wgrad_plan(M, tuple(jobs), _block_f32_resident(device)).splits
 
 
 class BlockF32Plan(NamedTuple):
@@ -1098,8 +1142,8 @@ def _block_bwd_f32_cuda(gout, x, params, m1, m2, num_heads, eps, post_eps,
     _cuda.check_cuda(gout, "grad of the block output", f32, (B, N, C))
     voff, L = _block_vec_layout(C, hid)
     ctas = f32_block_plan(B, N, _block_f32_resident(dev)).ctas
-    splits = f32_wgrad_splits(M)
     mats = ((C, 3 * C), (C, C), (C, hid), (hid, C))
+    splits = f32_wgrad_splits(M, mats, dev)
 
     def buf(*shape):
         return torch.empty(*shape, device=dev, dtype=f32)
@@ -2156,9 +2200,9 @@ class _MhsaKernel(torch.autograd.Function):
 
 
 def mhsa_f32_kernel_fits(N: int, C: int, num_heads: int) -> bool:
-    """The static shape test of rows 4f / 5f (csrc/mhsa_f32.cu, a CTA a
-    clip): up to 64 tokens, C a multiple of 64 up to 256, head width in
-    :data:`_HEAD_DIMS`."""
+    """The static shape test of rows 4f / 5f (csrc/mhsa_f32.cu, items of a
+    clip's 16 rows on :func:`mhsa_f32_plan`'s CTAs): up to 64 tokens, C a
+    multiple of 64 up to 256, head width in :data:`_HEAD_DIMS`."""
     return (N <= _MHSA_MAX_TOKENS and C % 64 == 0 and C <= 256
             and C % num_heads == 0 and C // num_heads in _HEAD_DIMS)
 
@@ -2170,11 +2214,51 @@ def _f32_params(name, *params):
                              f"{t.dtype} {tuple(t.shape)}")
 
 
+# Rows 4f / 5f (csrc/mhsa_f32.cu): an item is a clip's 16-row block (a
+# warp's tile), on a persistent grid of min(items, the card's SMs) CTAs.
+_MHSA_F32_ROWS = 16
+
+
+class MhsaF32Plan(NamedTuple):
+    """Rows 4f / 5f's grid (both launches): ``items`` (clip, first row) in
+    the order the CTAs share them, ``ctas`` CTAs (the entry points'
+    argument), CTA i taking ``owned[i]`` (a contiguous share), ``waves``
+    the most items a CTA takes."""
+    ctas: int
+    items: tuple
+    owned: tuple
+    waves: int
+
+
+@functools.lru_cache(maxsize=64)
+def mhsa_f32_plan(clips: int, N: int, sms: int | None) -> MhsaF32Plan:
+    """The items of ``clips`` clips of N tokens (each clip's ceil(N / 16)
+    row blocks, clip-major) over min(items, ``sms``) CTAs (``sms`` None, a
+    build for the host: a CTA an item), CTA i taking the items [n i / G,
+    n (i + 1) / G), as ``csrc/mhsa_f32.cu``'s kernels do."""
+    if clips < 1 or not 1 <= N <= _MHSA_MAX_TOKENS:
+        raise ValueError(f"mhsa_f32_plan: {clips} clips of {N} tokens")
+    items = tuple((c, r) for c in range(clips)
+                  for r in range(0, N, _MHSA_F32_ROWS))
+    n = len(items)
+    ctas = n if sms is None else max(1, min(n, sms))
+    owned = tuple(items[n * i // ctas:n * (i + 1) // ctas]
+                  for i in range(ctas))
+    return MhsaF32Plan(ctas, items, owned, max(len(o) for o in owned))
+
+
+def _mhsa_f32_resident(device) -> int | None:
+    """The CTAs of rows 4f / 5f the card holds at once: one an SM (172 and
+    199 KB of shared memory), as :func:`_block_f32_resident`."""
+    return _block_f32_resident(device)
+
+
 def _mhsa_fwd_f32_cuda(x, wqkv, bqkv, wproj, bproj, num_heads,
                        for_grad: bool):
-    """Row 4f: one launch of ``pmce_mhsa_fwd_f32``. Returns (out, saved):
-    the scaled q, k, v [M, 3C] and, with ``for_grad``, o [M, C] (the
-    backward's state; without it qkv is scratch and o None)."""
+    """Row 4f: one launch of ``pmce_mhsa_fwd_f32`` on
+    :func:`mhsa_f32_plan`'s CTAs. Returns (out, saved): with ``for_grad``
+    the scaled q, k, v [M, 3C] and o [M, C] (the backward's state), else
+    (None, None): nothing is saved."""
     clips, N, C = x.shape
     dev, f32 = x.device, torch.float32
     _cuda.check_cuda(x, "x", f32, (clips, N, C))
@@ -2184,44 +2268,47 @@ def _mhsa_fwd_f32_cuda(x, wqkv, bqkv, wproj, bproj, num_heads,
          _cuda.to_kernel(wproj, dev, f32, (C, C), "wproj"),
          _f32_vec(bproj, dev, C, "bproj"))
     M = clips * N
-    qkv = torch.empty(M, 3 * C, device=dev, dtype=f32)
-    o = torch.empty(M, C, device=dev, dtype=f32) if for_grad else None
+    qkv, o = ((torch.empty(M, 3 * C, device=dev, dtype=f32),
+               torch.empty(M, C, device=dev, dtype=f32)) if for_grad
+              else (None, None))
     out = torch.empty_like(x)
+    ctas = mhsa_f32_plan(clips, N, _mhsa_f32_resident(dev)).ctas
     _cuda.MHSA_F32.call("pmce_mhsa_fwd_f32", _cuda.ptr_table(
         x, *w, out, qkv, o), clips, N, C, num_heads,
-        1.0 / math.sqrt(C // num_heads), _cuda.stream_ptr(dev))
+        1.0 / math.sqrt(C // num_heads), ctas, _cuda.stream_ptr(dev))
     MHSA_FWD_F32_LAUNCHES.count += 1
     return out, (qkv, o)
 
 
 def _mhsa_bwd_f32_cuda(g, x, wqkv, wproj, saved, num_heads):
-    """Row 5f: one call of ``pmce_mhsa_bwd_f32`` (the weights' transposes,
-    the tile program a CTA a clip, the weight gradients with the bias
-    gradients' fixed-order sums) from the forward's saved qkv and o.
-    Returns dx and (dwqkv, dbqkv, dwproj, dbproj)."""
+    """Row 5f: one call of ``pmce_mhsa_bwd_f32`` (the tile program on
+    :func:`mhsa_f32_plan`'s CTAs, then the weight gradients with the bias
+    gradients' fixed-order sums over the items) from the forward's saved
+    qkv and o. Returns dx and (dwqkv, dbqkv, dwproj, dbproj)."""
     clips, N, C = x.shape
     dev, f32 = x.device, torch.float32
     g = g.to(f32).contiguous()
     _cuda.check_cuda(g, "grad of the attention output", f32, (clips, N, C))
     qkv, o = saved
     M = clips * N
-    splits = f32_wgrad_splits(M)
+    splits = f32_wgrad_splits(M, ((C, 3 * C), (C, C)), dev)
+    plan = mhsa_f32_plan(clips, N, _mhsa_f32_resident(dev))
 
     def buf(*shape):
         return torch.empty(*shape, device=dev, dtype=f32)
 
     wqkv_k = _cuda.to_kernel(wqkv, dev, f32, (C, 3 * C), "wqkv")
     wproj_k = _cuda.to_kernel(wproj, dev, f32, (C, C), "wproj")
-    # The workspace: the weights' transposes, dqkv, the clips' bias
-    # partials and the weight gradients' range partials.
-    ws = (buf(3 * C, C), buf(C, C), buf(M, 3 * C), buf(clips, 4 * C),
+    # The workspace: dqkv, the items' bias partials and the weight
+    # gradients' range partials.
+    ws = (buf(M, 3 * C), buf(len(plan.items), 4 * C),
           buf(splits, 4 * C * C // 4096, 4096))
     dx = torch.empty_like(x)
     dwqkv, dwproj, dbias = buf(C, 3 * C), buf(C, C), buf(4 * C)
     _cuda.MHSA_F32.call("pmce_mhsa_bwd_f32", _cuda.ptr_table(
         g, x, wqkv_k, wproj_k, qkv, o, *ws, dx, dwqkv, dwproj, dbias),
         clips, N, C, num_heads, 1.0 / math.sqrt(C // num_heads), splits,
-        _cuda.stream_ptr(dev))
+        plan.ctas, _cuda.stream_ptr(dev))
     MHSA_BWD_F32_LAUNCHES.count += 1
     return dx, (dwqkv, dbias[:3 * C], dwproj, dbias[3 * C:])
 
@@ -2999,7 +3086,8 @@ def _ada_bwd_f32_cuda(gout, x, gb, masks, params, num_heads, eps,
     ins = _ada_f32_inputs(x, gb, masks, params)
     g = gout.to(f32).contiguous()
     _cuda.check_cuda(g, "grad of the block output", f32, (B, N, C))
-    splits = f32_wgrad_splits(B * N)
+    splits = f32_wgrad_splits(
+        B * N, ((C, 3 * C), (C, C), (C, hid), (hid, C)), dev)
     ctas = f32_dec_plan("ada", B, N, N, _dec_f32_resident(dev)).ctas
     ws = torch.empty(int(_cuda.ADA_F32.query(
         "pmce_ada_f32_workspace", B, N, hid, num_heads, splits)),
@@ -3134,7 +3222,8 @@ def _ca_bwd_f32_cuda(gout, xs, gammas, betas, masks, params, num_heads, eps,
     ins = _ca_f32_inputs(xs, gammas, betas, masks, params)
     g = gout.to(f32).contiguous()
     _cuda.check_cuda(g, "grad of the block output", f32, (B, Nq, C))
-    sq, sk = f32_wgrad_splits(B * Nq), f32_wgrad_splits(B * Nk)
+    sq = f32_wgrad_splits(B * Nq, ((C, C), (C, C), (C, hid), (hid, C)), dev)
+    sk = f32_wgrad_splits(B * Nk, ((C, C), (C, C)), dev)
     ctas = f32_dec_plan("ca", B, Nq, Nk, _dec_f32_resident(dev)).ctas
     ws = torch.empty(int(_cuda.CA_F32.query(
         "pmce_ca_f32_workspace", B, Nq, Nk, hid, num_heads, max(sq, sk),

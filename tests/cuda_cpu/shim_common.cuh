@@ -175,6 +175,7 @@ inline void cp_async16(void* smem, const void* global) { memcpy(smem, global, 16
 inline void cp_async4(void* smem, const void* global) { memcpy(smem, global, 4); }
 inline void cp_async_commit() {}
 inline void cp_async_wait_all() {}
+template <int N> inline void cp_async_wait_group() {}
 }  // namespace tc32
 namespace clu {
 inline int rank() { return blockIdx.x % shim::clu->size; }

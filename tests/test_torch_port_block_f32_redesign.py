@@ -265,7 +265,9 @@ def test_wrappers_pass_the_plans_ctas():
     fwd, bwd = seen[0][1], seen[1][1]
     assert fwd[:3] == bwd[:3] == (clips, N, HID)
     assert fwd[6] == 2 and isinstance(fwd[7], ctypes.c_void_p)
-    assert bwd[6] == fa.f32_wgrad_splits(clips * N) and bwd[7] == 2
+    assert bwd[6] == fa.f32_wgrad_splits(
+        clips * N, ((C, 3 * C), (C, C), (C, HID), (HID, C)), x.device)
+    assert bwd[7] == 2
 
 
 def test_prefetch_defaults_to_the_card():

@@ -165,6 +165,36 @@ def test_mhsa_f32_sources_match_plain_on_the_cpu(cpu_libs, N, C, heads):
         assert a.shape == b.shape and _rel(a, b) <= TOL, (i, _rel(a, b))
 
 
+@pytest.mark.parametrize("clips,N,C,heads,resident", [(3, 17, 64, 8, 1),
+                                                       (2, 40, 128, 16, 2),
+                                                       (2, 19, 256, 8, 3)])
+def test_mhsa_f32_sources_match_plain_with_few_ctas(cpu_libs, clips, N, C,
+                                                    heads, resident):
+    """Rows 4f / 5f (items of a clip's 16 rows on a persistent grid) with ``mhsa_f32_plan`` cut to 1-3 CTAs, so that a CTA
+    runs items of several clips and column blocks (C 128 and 256: two and
+    four); the weight launch on its host plan's two row ranges. Forward and
+    every gradient within 1e-5 of the plain version, a rerun bit for bit."""
+    rng = np.random.default_rng(N + C)
+    leaves = [_t(rng, clips, N, C), _t(rng, C, 3 * C, scale=C ** -0.5),
+              _t(rng, 3 * C, scale=0.05), _t(rng, C, C, scale=C ** -0.5),
+              _t(rng, C, scale=0.05)]
+    g = _t(rng, clips, N, C, grad=False)
+
+    def step(mhsa):
+        y = mhsa(*leaves, heads)
+        return (y, *torch.autograd.grad(y, leaves, g))
+
+    assert fa.mhsa_f32_plan(clips, N, resident).waves > 1
+    with mock.patch.object(fa, "_mhsa_f32_resident", return_value=resident):
+        got, counts = _as_card(cpu_libs, lambda: step(fa.fused_mhsa))
+        again, _ = _as_card(cpu_libs, lambda: step(fa.fused_mhsa))
+    want = step(fa.mhsa_plain)
+    assert counts == {"mhsa_fwd_f32": 1, "mhsa_bwd_f32": 1}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and _rel(a, b) <= TOL, (i, _rel(a, b))
+
+
 def _dec_masks(clips):
     return tuple(torch.tensor([[[0.0]]] + [[[1.25]]] * (clips - 1))[perm]
                  .requires_grad_(True) for perm in (

@@ -174,7 +174,8 @@ def test_ada_f32_route_reaches_rows_8f_9f(case):
         return
     _, bwd, ints = seen[1]
     assert ints[:4] == (B, N, 256, 2)
-    assert ints[6] == fa.f32_wgrad_splits(B * N)
+    assert ints[6] == fa.f32_wgrad_splits(
+        B * N, ((C, 3 * C), (C, C), (C, 256), (256, C)), torch.device("cpu"))
     assert ints[7] == int(masks == "grad")
     assert bwd[:15] == fwd[:15] and bwd[15] == g.data_ptr()
     assert all(p is not None for p in bwd[16:])
@@ -237,8 +238,11 @@ def test_ca_f32_route_reaches_rows_10f_11f(case, Nq, Nk, heads):
         return
     _, bwd, ints = seen[1]
     assert ints[:5] == (B, Nq, Nk, 256, heads)
-    assert ints[7:10] == (fa.f32_wgrad_splits(B * Nq),
-                          fa.f32_wgrad_splits(B * Nk), int(masks == "grad"))
+    cpu = torch.device("cpu")
+    assert ints[7:10] == (
+        fa.f32_wgrad_splits(B * Nq, ((C, C), (C, C), (C, 256), (256, C)), cpu),
+        fa.f32_wgrad_splits(B * Nk, ((C, C), (C, C)), cpu),
+        int(masks == "grad"))
     assert bwd[:25] == fwd[:25] and bwd[25] == g.data_ptr()
     assert all(p is not None for p in bwd[26:])
     assert len(set(bwd[25:])) == 15

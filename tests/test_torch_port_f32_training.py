@@ -167,7 +167,8 @@ def test_block_f32_training_route_reaches_the_kernels(case):
         return
     _, bwd, ints = seen[1]
     assert ints[:3] == (clips, N, HID)
-    assert ints[6] == fa.f32_wgrad_splits(clips * N)
+    assert ints[6] == fa.f32_wgrad_splits(
+        clips * N, ((C, 3 * C), (C, C), (C, HID), (HID, C)), x.device)
     assert bwd[0] == x.data_ptr() and bwd[1] == g.data_ptr()
     assert bwd[2:18] == fwd[2:18]
     owed = masks == "grad"
@@ -230,14 +231,15 @@ def _mhsa_case(seed, clips, N, c, grad):
 def test_mhsa_f32_route_reaches_rows_4f_5f(N, grad):
     """f32 ``fused_mhsa`` at the f32 joint stream's shapes ([32, N, 64], 8
     heads): one ``pmce_mhsa_fwd_f32`` launch on the tokens and the
-    parameters, saving o only with a gradient owed; with one, one
+    parameters, saving qkv and o only with a gradient owed; with one, one
     ``pmce_mhsa_bwd_f32`` call on the forward's saved qkv and o and the
-    weights; the bf16 library and the plain version never run."""
+    weights; both on the plan's CTAs (here no card: a CTA an item, two
+    items a clip); the bf16 library and the plain version never run."""
     leaves = _mhsa_case(N, 32, N, 64, grad)
     seen = []
 
     def call(name, table, *rest):
-        seen.append((name, _table(table, 15 if "bwd" in name else 8), rest))
+        seen.append((name, _table(table, 13 if "bwd" in name else 8), rest))
 
     _cuda.reset_launch_counts()
     g = torch.randn(32, N, 64)
@@ -254,9 +256,12 @@ def test_mhsa_f32_route_reaches_rows_4f_5f(N, grad):
     assert y.dtype == torch.float32 and y.shape == (32, N, 64)
     x, wqkv, bqkv, wproj, bproj = leaves
     name, fwd, ints = seen[0]
+    ctas = fa.mhsa_f32_plan(32, N, None).ctas
+    assert ctas == 64
     assert name == "pmce_mhsa_fwd_f32" and ints[:4] == (32, N, 64, 8)
+    assert ints[5] == ctas and isinstance(ints[6], ctypes.c_void_p)
     assert fwd[:6] == [_ptr(t) for t in (x, wqkv, bqkv, wproj, bproj, y)]
-    assert fwd[6] is not None and (fwd[7] is not None) == grad
+    assert (fwd[6] is not None) == grad and (fwd[7] is not None) == grad
     counts = _cuda.launch_counts()
     assert counts["mhsa_fwd_f32"] == 1 and counts["mhsa_fwd"] == 0
     assert counts["mhsa_bwd_f32"] == int(grad) and counts["mhsa_bwd"] == 0
@@ -264,7 +269,9 @@ def test_mhsa_f32_route_reaches_rows_4f_5f(N, grad):
         name, bwd, ints = seen[1]
         assert name == "pmce_mhsa_bwd_f32" and len(seen) == 2
         assert ints[:4] == (32, N, 64, 8)
-        assert ints[5] == fa.f32_wgrad_splits(32 * N)
+        assert ints[5] == fa.f32_wgrad_splits(
+            32 * N, ((64, 192), (64, 64)), x.device)
+        assert ints[6] == ctas
         assert bwd[0] == g.data_ptr() and bwd[1] == x.data_ptr()
         assert bwd[2:6] == [wqkv.data_ptr(), wproj.data_ptr(), fwd[6],
                             fwd[7]]
