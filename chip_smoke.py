@@ -23,7 +23,10 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    rerun bit for bit); the CTAs of row 8's forward the card holds at once
    and the waves a batch of 32 takes; row 5's backward in exactly its two
    launches (the tile program and the weight launch, no transposed weight
-   copy). Library yardsticks, timed only:
+   copy); the decoder blocks also at phase 14's 1723 vertex tokens (the
+   AdaLN block's launch sequences, the CA block's tile programs both ways,
+   kernels-line rows ``*_v1723``), each case's launches exact (a tile
+   program or its sequence, never both). Library yardsticks, timed only:
    ``nn.GRU`` in bf16 for the GRU rows (with the backend that ran),
    ``F.multi_head_attention_forward`` for rows 4 / 5 (row 4 against it
    three more times in turn at both of its shapes), ``nn.TransformerEncoder``
@@ -112,7 +115,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    at least ``min_track_frames`` frames, every tracked box overlapping the
    rendered body's (IoU at least ``DEMO_MIN_IOU``), meshes and cameras
    finite; its frames/s and stage table printed; (b) the same under
-   ``plain_everything`` (nothing launches): meshes and cameras within
+   ``plain_everything`` (nothing launches): meshes and cameras (by the
+   fitted joints' projections, ``demo_cam_projections``) within
    ``DEMO_REL_TOL`` of (a); (c) ResNet-50 features and ViTPose-Huge
    heatmaps at full width in f32 (TF32 off) on the card against the CPU
    within ``BACKBONE_REL_TOL``, and the heatmaps decoded equally on both
@@ -213,7 +217,22 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    parameter (the last block's joint stream included), the step's ms,
    clips/s and peak memory beside phase 6's bf16 step; (c) the train CLI
    with ``--smoke`` on ``CLI_CFG`` rewritten to float32 in a temporary
-   directory, counted, a finite protocol summary.
+   directory, counted, a finite protocol summary. 13a also runs rows 8f-11f
+   at phase 14's 1723 vertex tokens (kernels-line rows ``*_v1723``).
+
+14. Stage 2 at the 1723-vertex coarse mesh: phase 6's config and warm
+   start on the two-level coarsening ``synthetic_coarsening(sizes=(6890,
+   1723))`` (``pmce_tpu/smpl/mesh.py``'s second level; the decoder's vertex
+   stream 1723 tokens), in bf16 fused and in f32 fused (TF32 off), train
+   steps only (evaluation and serving at 1723 run the chain, which refuses
+   V over 450 / 1024: ROADMAP.md B3). Each dtype: the first step counted
+   (exactly ``COARSE_STEP[dtype]``: the CA blocks on their tile programs,
+   the bf16 AdaLN blocks on their launch sequences, nothing else), twice
+   bit for bit, against the plain path (bf16 ``STEP_LOSS_REL_TOL`` /
+   ``MESH_GRAD_REL_TOL``, f32 ``F32_STEP_LOSS_REL_TOL`` /
+   ``F32_STEP_GRAD_REL_TOL``, every gradient, the key biases to the
+   largest); then ``COARSE_TIMED`` train steps (loss, backward, Adam)
+   counted and timed, their ms a step and the peak device memory.
 
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
 each train step's device time by kernel and, before phase 2, the stage
@@ -252,6 +271,10 @@ BT, JT, TRAIN_STEPS = 64, 17, 25
 # Stage-2 training: batch (train_mesh_h36m_bf16.yml) and GRU width; the
 # BiGRU's input width (both layers: the image features, then 2H).
 BM, GRU_H, GRU_IN = 32, 1024, 2048
+# Phase 14: the two-level coarsening's vertex tokens (the mesh hierarchy's
+# second level, pmce_tpu/smpl/mesh.py LEVEL_SIZES) and its sizes.
+V_COARSE = 1723
+COARSE_SIZES = (6890, V_COARSE)
 # Phase 7: the config the entry points run (the shipped config that runs
 # the fused kernels).
 CLI_CFG = REPO / "configs" / "train_mesh_h36m_bf16.yml"
@@ -285,6 +308,16 @@ REPLACES = {
     "ada_bwd_f32": "pmce_tpu/ops/fused_attention.py:1534",
     "ca_fwd_f32": "pmce_tpu/ops/fused_attention.py:1823",
     "ca_bwd_f32": "pmce_tpu/ops/fused_attention.py:1853",
+    # Phase 14's shapes (1723 vertex tokens): the bf16 AdaLN block's
+    # launch sequences, the widened CA tile programs and f32 programs.
+    "ada_block_fwd_v1723": "pmce_tpu/ops/fused_attention.py:1366",
+    "ada_block_bwd_v1723": "pmce_tpu/ops/fused_attention.py:1534",
+    "ca_block_fwd_v1723": "pmce_tpu/ops/fused_attention.py:1823",
+    "ca_block_bwd_v1723": "pmce_tpu/ops/fused_attention.py:1853",
+    "ada_fwd_f32_v1723": "pmce_tpu/ops/fused_attention.py:1366",
+    "ada_bwd_f32_v1723": "pmce_tpu/ops/fused_attention.py:1534",
+    "ca_fwd_f32_v1723": "pmce_tpu/ops/fused_attention.py:1823",
+    "ca_bwd_f32_v1723": "pmce_tpu/ops/fused_attention.py:1853",
 }
 SOURCES = {
     "lifter_trunk": "pmce_tpu_torch/csrc/lifter_trunk.cu",
@@ -314,7 +347,25 @@ SOURCES = {
     "ada_bwd_f32": "pmce_tpu_torch/csrc/ada_f32.cu",
     "ca_fwd_f32": "pmce_tpu_torch/csrc/ca_f32.cu",
     "ca_bwd_f32": "pmce_tpu_torch/csrc/ca_f32.cu",
+    "ada_block_fwd_v1723": "pmce_tpu_torch/csrc/ada_block.cu",
+    "ada_block_bwd_v1723": "pmce_tpu_torch/csrc/ada_block.cu",
+    "ca_block_fwd_v1723": "pmce_tpu_torch/csrc/ca_block.cu",
+    "ca_block_bwd_v1723": "pmce_tpu_torch/csrc/ca_block.cu",
+    "ada_fwd_f32_v1723": "pmce_tpu_torch/csrc/ada_f32.cu",
+    "ada_bwd_f32_v1723": "pmce_tpu_torch/csrc/ada_f32.cu",
+    "ca_fwd_f32_v1723": "pmce_tpu_torch/csrc/ca_f32.cu",
+    "ca_bwd_f32_v1723": "pmce_tpu_torch/csrc/ca_f32.cu",
 }
+# The kernels-line rows of phase 14's shapes: the counter each one's
+# launches are read from on phase 14's path (bf16, f32).
+COARSE_ROWS = {"ada_block_fwd_v1723": ("bf16", "ada_block_fwd_seq"),
+               "ada_block_bwd_v1723": ("bf16", "ada_block_bwd_seq"),
+               "ca_block_fwd_v1723": ("bf16", "ca_block_fwd"),
+               "ca_block_bwd_v1723": ("bf16", "ca_block_bwd"),
+               "ada_fwd_f32_v1723": ("f32", "ada_fwd_f32"),
+               "ada_bwd_f32_v1723": ("f32", "ada_bwd_f32"),
+               "ca_fwd_f32_v1723": ("f32", "ca_fwd_f32"),
+               "ca_bwd_f32_v1723": ("f32", "ca_bwd_f32")}
 # gru_layer / gru_layer_rev count direction scans, gru_scan launches of the
 # scan kernel: one runs both directions of a BiGRU layer.
 SERVING = ("lifter_trunk", "gru_layer", "gru_layer_rev", "gru_scan",
@@ -400,10 +451,11 @@ KEY_BIASES = ("wk.bias", "normk.mlp_beta.weight", "normk.mlp_beta.bias")
 # at full width (ViTPose-Huge, ResNet-50, PMCE bf16 on its kernels).
 DEMO_ARGV = ["--synthetic", "--full-stack", "--vitpose", "huge",
              "--frames", "48"]
-# Kernels vs plain (phase 8b), relative to each output's largest
-# magnitude: the meshes in phase 3's serving band; the cameras are fitted
-# in closed form to the meshes' joints. First measured on an H100 (700 W):
-# meshes 0.80 %, cameras 0.019 %.
+# Kernels vs plain (phase 8b): the meshes relative to their largest
+# magnitude, in phase 3's serving band; the cameras, fitted in closed form
+# to the meshes' joints, by the joints' projections in half crops
+# (``demo_cam_projections``): 0.02 is 5 pixels of the 500-pixel crop.
+# First measured on an H100 (700 W): meshes 0.80 %.
 DEMO_REL_TOL = {"mesh": SERVE_REL_TOL, "cam": SERVE_REL_TOL}
 # Every tracked box must overlap the rendered body's tight box this much.
 DEMO_MIN_IOU = 0.3
@@ -1265,17 +1317,46 @@ def ada_fwd_waves(device, tag: str) -> int:
     return waves
 
 
+def decoder_case_launches(device, kind: str, N: int, where: str) -> None:
+    """One forward and backward of a decoder block case launched exactly
+    its kernels: row 4 / 5's tile programs, the AdaLN block's (its launch
+    sequences over ``ada_bwd_kernel_fits``' 512 tokens), the CA block's
+    tile programs at any long side (never its forward sequence)."""
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    if device.type != "cuda":
+        return
+    if kind == "mhsa":
+        expect = {"mhsa_fwd": 1, "mhsa_bwd": 1}
+    elif kind == "ada":
+        tile = fa.ada_bwd_kernel_fits(N, 64, 256)
+        expect = ({"ada_block_fwd": 1, "ada_block_bwd": 1} if tile else
+                  {"ada_block_fwd_seq": 1, "ada_block_bwd_seq": 1})
+    else:
+        expect = {"ca_block_fwd": 1, "ca_block_bwd": 1}
+    launched = {k: v for k, v in _cuda.launch_counts().items() if v}
+    if launched != expect:
+        raise RuntimeError(f"{kind} {where}: launches {launched}, expected "
+                           f"exactly {expect}")
+    print(f"[kernels] {kind} {where}: forward and backward launched exactly "
+          f"{launched}", flush=True)
+
+
 def check_decoder_blocks(device, rows) -> None:
     """Rows 4, 5, 8-11 at the Stage-2 step's shapes (batch 32, C = 64,
     drop-path masks at rate 0.2): the joint stream's self-attention
     [32, 17, 64] with 8 heads, the vertex stream's AdaLN block [32, 431, 64]
     with 2 heads, both cross-attentions (17 joints over 431 vertices, 8
     heads; 431 over 17, 2 heads), and row 4 at the trunk backward's spatial
-    shape [32 * 16, 17, 256]. Forward against the plain version; backward
-    against the plain version's autograd, each gradient relative to its
-    largest magnitude (the keys' bias and AdaLN β, zero analytically,
-    relative to the largest gradient); a second backward must give the
-    same gradients bit for bit."""
+    shape [32 * 16, 17, 256]; the AdaLN block and both cross-attentions
+    again at phase 14's 1723 vertex tokens (rows ``*_v1723``). Forward
+    against the plain version; backward against the plain version's
+    autograd, each gradient relative to its largest magnitude (the keys'
+    bias and AdaLN β, zero analytically, relative to the largest
+    gradient); a second backward must give the same gradients bit for bit.
+    Each case's forward and backward launch exactly its tile programs (the
+    AdaLN block over 512 tokens: its launch sequences), nothing else."""
     import numpy as np
     import torch
 
@@ -1294,9 +1375,14 @@ def check_decoder_blocks(device, rows) -> None:
              ("ada_block", "vertex AdaLN block", BM, 431, 64, 2, 0),
              ("ca_block", "joint cross-attention", BM, JT, 64, 8, 431),
              ("ca_block", "vertex cross-attention", BM, 431, 64, 2, JT),
-             ("mhsa", "trunk backward, spatial", BM * T, JT, C, 8, 0))
+             ("mhsa", "trunk backward, spatial", BM * T, JT, C, 8, 0),
+             ("ada_block", "vertex AdaLN block", BM, V_COARSE, 64, 2, 0),
+             ("ca_block", "joint cross-attention", BM, JT, 64, 8, V_COARSE),
+             ("ca_block", "vertex cross-attention", BM, V_COARSE, 64, 2,
+              JT))
     for name, label, clips, N, c, heads, Nk in cases:
         kind = {"mhsa": "mhsa", "ada_block": "ada", "ca_block": "ca"}[name]
+        suffix = "_v1723" if V_COARSE in (N, Nk) else ""
         leaves, call, (kernel, plain) = decoder_case(
             rng, device, kind, clips, N, c, heads, Nk)
         g = torch.from_numpy(rng.normal(size=tuple(leaves[0].shape)).astype(
@@ -1306,12 +1392,15 @@ def check_decoder_blocks(device, rows) -> None:
         def bwd(y):
             return torch.autograd.grad(y, leaves, g, retain_graph=True)
 
-        yk, yp = call(kernel, *leaves), call(plain, *leaves)
         where = (f"{label} [{clips}, {N}, {c}]" + (f" over {Nk} keys"
                                                     if Nk else "")
                  + f", {heads} heads")
+        _cuda.reset_launch_counts()
+        yk = call(kernel, *leaves)
         gk = (mhsa_backward_launches(bwd, yk, where) if kind == "mhsa"
               else bwd(yk))
+        decoder_case_launches(device, kind, N, where)
+        yp = call(plain, *leaves)
         gp = bwd(yp)
         torch.cuda.synchronize()
         largest = max(float(t.float().abs().max()) for t in gp)
@@ -1344,8 +1433,8 @@ def check_decoder_blocks(device, rows) -> None:
             if not ok:
                 raise RuntimeError(f"{key} {where}: kernel disagrees with "
                                    f"its plain version ({rel})")
-            record(rows, key, err, ms, plain_ms, count_flops(flop_fn),
-                   nbytes, "bf16")
+            record(rows, key + suffix, err, ms, plain_ms,
+                   count_flops(flop_fn), nbytes, "bf16")
         repeat = bwd(yk)
         if not all(torch.equal(a, b) for a, b in zip(gk, repeat)):
             raise RuntimeError(f"{name}_bwd {where}: two runs differ")
@@ -1847,12 +1936,14 @@ def mesh_h36m_config(posenet_path: str, fused: bool = True):
     return cfg
 
 
-def stage2_parts(device, stage1: dict, cfg, tag: str):
-    """What phases 5, 6 and 13b share: a builder of ``cfg``'s full-width
-    PMCE warm-started from phase 4's checkpoint, the trainer on phase 4's
-    sequences in ``mesh`` chunking, a fixed batch, its six-term loss in
-    eval mode (edge term on), and one first train step of a fresh model
-    under a context (the loss and the gradients by name). Returns
+def stage2_parts(device, stage1: dict, cfg, tag: str, coarse=None):
+    """What phases 5, 6, 13b and 14 share: a builder of ``cfg``'s
+    full-width PMCE (on ``coarse``, or the cached coarsening of the mesh
+    hierarchy's three levels) warm-started from phase 4's checkpoint, the
+    trainer on phase 4's sequences in ``mesh`` chunking, a fixed batch, its
+    six-term loss in eval mode (edge term on), and one first train step of
+    a fresh model under a context (the loss and the gradients by name).
+    Returns
     (trainer, batch, fixed_loss, first_step, (train_ds, test_ds))."""
     import numpy as np
     import torch
@@ -1868,7 +1959,7 @@ def stage2_parts(device, stage1: dict, cfg, tag: str):
     from pmce_tpu_torch.smpl.mesh import ensure_cached_coarsening
 
     art, jr = stage1["art"], stage1["jr"]
-    coarse = ensure_cached_coarsening()
+    coarse = coarse or ensure_cached_coarsening()
 
     def pmce():
         model, _ = create_pmce(
@@ -2519,6 +2610,73 @@ def demo_launches(counts: dict, expect: dict, tag: str) -> None:
         raise RuntimeError(f"{tag}: launches (expected, counted) {wrong}")
 
 
+@contextlib.contextmanager
+def demo_cam_fits(fits: list):
+    """The demo's camera fits, each appended to ``fits`` as its joints,
+    its camera and the half crop size, projected
+    (``demo_cam_projections``)."""
+    from unittest import mock
+
+    from pmce_tpu_torch.demo import pipeline
+
+    fit = pipeline.fit_cam_closed_form
+
+    def kept(pose3d, target2d, img_res):
+        cam = fit(pose3d, target2d, img_res)
+        fits.append((pose3d.clone(), cam.clone(), img_res))
+        return cam
+
+    with mock.patch.object(pipeline, "fit_cam_closed_form", kept):
+        yield fits
+
+
+def demo_cam_projections(pose3d, cam, img_res):
+    """A camera fit's joints projected into the virtual crop, from its
+    centre in half crops (the crop spans -1 to 1): what the fit matches to
+    the 2D joints. The synthetic demo's joint regressor weighs every
+    vertex (``run_demo``), so its 17 joints lie within ~2 cm of each other
+    and the fitted scale s, and tx, ty = (offset) / s, swing with
+    sub-millimetre changes of the joints (s 1.35 against 1.39; at the
+    clamp s = 1e-3, tx ~250); their projections do not."""
+    from pmce_tpu_torch.ops.coords import weak_perspective_project
+
+    return ((weak_perspective_project(pose3d, cam, img_res) - img_res)
+            / img_res).numpy()
+
+
+def demo_cam_conditioning(fit_a, fit_b) -> dict:
+    """How far the camera parameters of two fits of the same targets (the
+    kernels' and the plain path's) move against their joints, printed:
+    the joints' RMS distance from their mean, the largest distance between
+    the two paths' joints, the scales s and the clamped windows, and the
+    cameras' differences relative to their largest magnitude as (s, tx,
+    ty) and as (s, s·tx, s·ty)."""
+    import numpy as np
+
+    (ja, ca, _), (jb, cb, _) = ((j.numpy()[..., :2], c.numpy(), r)
+                                for j, c, r in (fit_a, fit_b))
+    spread = np.sqrt(((jb - jb.mean(-2, keepdims=True)) ** 2)
+                     .sum((-2, -1)) / jb.shape[-2])
+    moved = float(np.sqrt(((ja - jb) ** 2).sum(-1)).max())
+    s = cb[:, 0]
+    out = {"spread_m": (float(spread.min()), float(spread.max())),
+           "moved_m": moved, "s": (float(s.min()), float(s.max())),
+           "s_clamped": (int((s <= 1e-3).sum()), int((s >= 4.0).sum()))}
+    for name, f in (("s_tx_ty", lambda c: c),
+                    ("s_stx_sty", lambda c: np.concatenate(
+                        [c[:, :1], c[:, :1] * c[:, 1:]], 1))):
+        out[name] = float(np.abs(f(ca) - f(cb)).max()
+                          / np.abs(f(cb)).max())
+    print(f"[demo] camera fit's conditioning: the joints' RMS distance from "
+          f"their mean {out['spread_m'][0]:.4g}-{out['spread_m'][1]:.4g} m, "
+          f"the kernels' joints at most {moved:.4g} m from the plain's; s "
+          f"{out['s'][0]:.4g}-{out['s'][1]:.4g} ({out['s_clamped'][0]} "
+          f"windows at 1e-3, {out['s_clamped'][1]} at 4); the cameras differ"
+          f" {out['s_tx_ty']:.4g} of their largest as (s, tx, ty), "
+          f"{out['s_stx_sty']:.4g} as (s, s*tx, s*ty)", flush=True)
+    return out
+
+
 def demo_iou(a, b) -> float:
     """IoU of two xywh boxes."""
     ix = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
@@ -2619,13 +2777,13 @@ def demo(device) -> dict:
 
     out_dir = build / "chip_smoke_demo"
     argv = DEMO_ARGV + ["--output", str(out_dir)]
-    runs = {}
+    runs, fits = {}, {}
     for path in ("kernels", "plain"):
         ctx = (plain_everything(fa, fc) if path == "plain"
                else contextlib.nullcontext())
         t0 = time.time()
         _cuda.reset_launch_counts()
-        with ctx:
+        with ctx, demo_cam_fits(fits.setdefault(path, [])):
             out = run_demo.main(argv)
         torch.cuda.synchronize()
         counts = _cuda.launch_counts()
@@ -2665,14 +2823,23 @@ def demo(device) -> dict:
     if not np.array_equal(a["frames"], b["frames"]):
         raise RuntimeError("demo: the plain pass tracked other frames")
     bands = {}
-    for k in ("mesh", "cam"):
-        scale = float(np.abs(b[k]).max())
-        err = float(np.abs(a[k] - b[k]).max())
+    # The measured pass's fits: the last of each path's two passes. The
+    # meshes relative to their largest magnitude, the projections to the
+    # half crop.
+    proj_a, proj_b = (demo_cam_projections(*fits[p][-1]) for p in runs)
+    for k, got, want, scale in (
+            ("mesh", a["mesh"], b["mesh"], float(np.abs(b["mesh"]).max())),
+            ("cam", proj_a, proj_b, 1.0)):
+        err = float(np.abs(got - want).max())
         bands[k] = err / scale
-        print(f"[demo] {k}, kernels vs plain: max_abs_err={err:.6g} (max |x| "
-              f"{scale:.4g}, tol {DEMO_REL_TOL[k]} x max)", flush=True)
+        name = ("cam (the fitted joints' projections, half crops)"
+                if k == "cam" else k)
+        print(f"[demo] {name}, kernels vs plain: max_abs_err={err:.6g} "
+              f"(max |x| {float(np.abs(want).max()):.4g}, tol "
+              f"{DEMO_REL_TOL[k]} x {scale:.4g})", flush=True)
         if err > DEMO_REL_TOL[k] * scale:
             raise RuntimeError(f"demo {k}: kernels and plain disagree")
+    cam_fit = demo_cam_conditioning(fits["kernels"][-1], fits["plain"][-1])
     stages = runs["kernels"]["stages"]
     print("[demo] stage split (kernels, measured pass): " + ", ".join(
         f"{k} {v * 1e3:.2f} ms" for k, v in sorted(
@@ -2685,7 +2852,7 @@ def demo(device) -> dict:
     print(f"[demo] phase 8 took {phase_s:.1f} s on {card}", flush=True)
     return {"fps": runs["kernels"]["fps"],
             "stage_fps": stages["fps_measured"], "train_s": train_s,
-            "phase_s": phase_s, "bands": bands, **errs}
+            "phase_s": phase_s, "bands": bands, "cam_fit": cam_fit, **errs}
 
 
 @contextlib.contextmanager
@@ -3626,16 +3793,24 @@ def f32_decoder_kernels(device, rows) -> None:
     its own largest magnitude (the CA block's key bias and key AdaLN beta,
     zero analytically, of the largest gradient), reruns bit for bit, timed
     with CUDA events beside the f32 bound (3xTF32's, the FFMA bound printed
-    beside it) and the plain version."""
+    beside it) and the plain version. The same at phase 14's 1723 vertex
+    tokens (rows ``*_v1723``); each case's first forward and backward
+    launch exactly one forward and one backward call."""
     import numpy as np
     import torch
+
+    from pmce_tpu_torch.ops import _cuda
 
     card = card_line()
     rng = np.random.default_rng(20)
     cases = (("ada", BM, 431, 2, 0, "vertex stream"),
              ("ca", BM, JT, 8, 431, "joints over vertices"),
-             ("ca", BM, 431, 2, JT, "vertices over joints"))
+             ("ca", BM, 431, 2, JT, "vertices over joints"),
+             ("ada", BM, V_COARSE, 2, 0, "vertex stream"),
+             ("ca", BM, JT, 8, V_COARSE, "joints over vertices"),
+             ("ca", BM, V_COARSE, 2, JT, "vertices over joints"))
     for kind, clips, N, heads, Nk, label in cases:
+        suffix = "_v1723" if V_COARSE in (N, Nk) else ""
         leaves, call, (kernel, plain) = decoder_case(
             rng, device, kind, clips, N, 64, heads, Nk)
         leaves = [t.detach().float().requires_grad_(True) for t in leaves]
@@ -3657,8 +3832,16 @@ def f32_decoder_kernels(device, rows) -> None:
             def bwd(y):
                 return torch.autograd.grad(y, every, g, retain_graph=True)
 
-            yk, yp = call(kernel, *leaves), call(plain, *leaves)
-            gk, gp = bwd(yk), bwd(yp)
+            _cuda.reset_launch_counts()
+            yk = call(kernel, *leaves)
+            gk = bwd(yk)
+            launched = {k: v for k, v in _cuda.launch_counts().items() if v}
+            expect = {f"{kind}_fwd_f32": 1, f"{kind}_bwd_f32": 1}
+            if device.type == "cuda" and launched != expect:
+                raise RuntimeError(f"{kind} f32 {where}: launches "
+                                   f"{launched}, expected {expect}")
+            yp = call(plain, *leaves)
+            gp = bwd(yp)
             torch.cuda.synchronize()
             err_f = f32_grad_check(f"{kind}_fwd_f32", where, (yk,), (yp,),
                                    ["y"], F32_KERNEL_REL_TOL)
@@ -3697,7 +3880,7 @@ def f32_decoder_kernels(device, rows) -> None:
                     (f"{kind}_bwd_f32", err_b, bwd_ms, pb_ms,
                      count_flops(lambda: bwd(yp)),
                      tensor_bytes(g, leaves, call.masks, gk))):
-                record(rows, name, err, ms, p_ms, flops, nbytes,
+                record(rows, name + suffix, err, ms, p_ms, flops, nbytes,
                        "tf32x3" if name in TF32X3_KERNELS else "f32")
             call.masks = masks
             del yk, yp, gk, gp, y2
@@ -3719,6 +3902,68 @@ def f32_training(device, rows, bf16_step_ms: float) -> dict:
     print(f"[f32-train] phase 12 took {phase_s:.1f} s on {card_line()}",
           flush=True)
     return {"counts": counts, "ms": ms, "cli_s": cli_s, "phase_s": phase_s}
+
+
+def first_step_checks(tag: str, first_step, expect: dict, loss_tol: float,
+                      grad_tol: float, last: str = "") -> None:
+    """Phases 13b and 14: ``first_step`` (``stage2_parts``') on the kernel
+    path launching exactly ``expect`` (on the card), twice bit for bit,
+    then on ``plain_path`` (nothing launched): the loss within
+    ``loss_tol`` relative, every gradient within ``grad_tol`` of its own
+    largest magnitude (the key biases, zero analytically, of the largest
+    gradient); ``last``: a block whose joint stream's largest difference
+    is printed apart."""
+    import torch
+
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+
+    _cuda.reset_launch_counts()
+    loss_k, grads_k = first_step(contextlib.nullcontext())
+    launched = {k: v for k, v in _cuda.launch_counts().items() if v}
+    if torch.cuda.is_available() and launched != expect:
+        raise RuntimeError(f"{tag} first step: launches {launched}, "
+                           f"expected exactly {expect}")
+    loss_k2, grads_k2 = first_step(contextlib.nullcontext())
+    differ = [n for n, g in grads_k.items() if not torch.equal(g, grads_k2[n])]
+    print(f"{tag} first step: launches {launched}; twice on the kernel path: "
+          f"losses {loss_k!r} and {loss_k2!r}; {len(differ)} of "
+          f"{len(grads_k)} gradients differ", flush=True)
+    if differ or loss_k != loss_k2:
+        raise RuntimeError(f"{tag} first step: two runs differ "
+                           f"({differ[:5]})")
+    del grads_k2
+    _cuda.reset_launch_counts()
+    loss_p, grads_p = first_step(plain_path(fa, True))
+    if any(_cuda.launch_counts().values()):
+        raise RuntimeError(f"{tag} the plain path launched a kernel")
+    if set(grads_k) != set(grads_p):
+        raise RuntimeError(f"{tag} first step: the paths reach different "
+                           "parameters")
+    largest = max(max_err(g, 0 * g) for g in grads_p.values())
+
+    def rel(n):
+        return max_err(grads_k[n], grads_p[n]) / (
+            largest if n.endswith(KEY_BIASES)
+            else max(max_err(grads_p[n], 0 * grads_p[n]), 1e-30))
+
+    ranked = sorted(((rel(n), n) for n in grads_p), reverse=True)
+    joint = ""
+    if last:
+        e, n = max((e, n) for e, n in ranked if last in n and ".joint_" in n)
+        joint = f"; the last block's joint stream {e:.4g} in {n}"
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = loss_rel <= loss_tol and ranked[0][0] <= grad_tol
+    print(f"{tag} first step, kernel vs plain path: loss {loss_k:.8g} vs "
+          f"{loss_p:.8g} (relative {loss_rel:.3g}, tol {loss_tol}); every "
+          f"gradient, no exclusion: largest difference {ranked[0][0]:.4g} "
+          f"of max|grad| in {ranked[0][1]} (tol {grad_tol}){joint}; next: "
+          + ", ".join(f"{n.split('pose_mesh_coevo.')[-1]} {e:.3g}"
+                      for e, n in ranked[1:5]) + ("" if ok else "  FAIL"),
+          flush=True)
+    if not ok:
+        raise RuntimeError(f"{tag} first step: kernel and plain paths "
+                           "disagree")
 
 
 def f32_stage2(device, stage1: dict, bf16_ms: float,
@@ -3778,53 +4023,9 @@ def f32_stage2(device, stage1: dict, bf16_ms: float,
           f"batch loss, edge term on, {before:.6g} -> {after:.6g}; MPJPE "
           f"{errs['joint']} mm, MPVPE {errs['surface']} mm", flush=True)
 
-    _cuda.reset_launch_counts()
-    loss_k, grads_k = first_step(contextlib.nullcontext())
-    step_counts = {k: v for k, v in _cuda.launch_counts().items() if v}
-    if step_counts != F32_STAGE2_STEP:
-        raise RuntimeError(f"f32 Stage-2 first step: launches {step_counts}")
-    loss_k2, grads_k2 = first_step(contextlib.nullcontext())
-    differ = [n for n, g in grads_k.items() if not torch.equal(g, grads_k2[n])]
-    print(f"{tag} first step twice on the kernel path: losses {loss_k!r} and "
-          f"{loss_k2!r}; {len(differ)} of {len(grads_k)} gradients differ",
-          flush=True)
-    if differ or loss_k != loss_k2:
-        raise RuntimeError(f"f32 Stage-2 first step: two runs differ "
-                           f"({differ[:5]})")
-    del grads_k2
-    _cuda.reset_launch_counts()
-    loss_p, grads_p = first_step(plain_path(fa, True))
-    if any(_cuda.launch_counts().values()):
-        raise RuntimeError("f32 Stage-2 plain path launched a kernel")
-    if set(grads_k) != set(grads_p):
-        raise RuntimeError("f32 Stage-2 first step: the paths reach "
-                           "different parameters")
-    largest = max(max_err(g, 0 * g) for g in grads_p.values())
-
-    def rel(n):
-        return max_err(grads_k[n], grads_p[n]) / (
-            largest if n.endswith(KEY_BIASES)
-            else max(max_err(grads_p[n], 0 * grads_p[n]), 1e-30))
-
-    ranked = sorted(((rel(n), n) for n in grads_p), reverse=True)
     last = f"coevoblock{len(trainer.model.pose_mesh_coevo.blocks())}."
-    joint = max((e, n) for e, n in ranked if last in n and ".joint_" in n)
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    ok = (loss_rel <= F32_STEP_LOSS_REL_TOL
-          and ranked[0][0] <= F32_STEP_GRAD_REL_TOL)
-    print(f"{tag} first step, kernel vs plain path: loss {loss_k:.8g} vs "
-          f"{loss_p:.8g} (relative {loss_rel:.3g}, tol "
-          f"{F32_STEP_LOSS_REL_TOL}); every gradient, no exclusion: largest "
-          f"difference {ranked[0][0]:.4g} of max|grad| in {ranked[0][1]} "
-          f"(tol {F32_STEP_GRAD_REL_TOL}); the last block's joint stream "
-          f"{joint[0]:.4g} in {joint[1]}; next: " + ", ".join(
-              f"{n.split('pose_mesh_coevo.')[-1]} {e:.3g}"
-              for e, n in ranked[1:5]) + ("" if ok else "  FAIL"),
-          flush=True)
-    if not ok:
-        raise RuntimeError("f32 Stage-2 first step: kernel and plain paths "
-                           "disagree")
-    del grads_k, grads_p
+    first_step_checks(tag, first_step, F32_STAGE2_STEP,
+                      F32_STEP_LOSS_REL_TOL, F32_STEP_GRAD_REL_TOL, last)
 
     gen = torch.Generator(dev).manual_seed(1)
 
@@ -3846,6 +4047,96 @@ def f32_stage2(device, stage1: dict, bf16_ms: float,
     del trainer, state
     torch.cuda.empty_cache()
     return counts, ms
+
+
+# Phase 14: a train step's launches on the 1723-vertex model (the lifter's
+# 6 blocks forward and backward, phase 6's decoder calls; bf16: the AdaLN
+# blocks on their launch sequences over 512 tokens, the CA blocks on their
+# tile programs, the GRU pair 4 a step; f32: F32_STAGE2_STEP, the GRU
+# plain as JAX's f32), and the timed steps a dtype (after 2 warm-up steps).
+COARSE_STEP = {
+    "bf16": {"block_fwd": 6, "block_bwd": 6, "mhsa_fwd": 3, "mhsa_bwd": 1,
+             "ada_block_fwd_seq": 3, "ada_block_bwd_seq": 3,
+             "ca_block_fwd": 6, "ca_block_bwd": 4, "gru_layer_save": 4,
+             "gru_layer_bwd": 4, "gru_bwd_scan": 4},
+    "f32": F32_STAGE2_STEP}
+COARSE_TIMED = 5
+
+
+def coarse_stage2(device, stage1: dict, profile: bool = False) -> dict:
+    """Phase 14: Stage 2 at the 1723-vertex coarse mesh (see the module's
+    docstring), bf16 then f32 (TF32 off). Returns {dtype: {"counts": the
+    train steps' launches, "ms": a step's ms, "peak": GiB}} and the phase's
+    seconds under "phase_s"."""
+    import math
+
+    import torch
+
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.smpl.layer import full_f32
+    from pmce_tpu_torch.smpl.mesh import synthetic_coarsening
+
+    t_phase = time.time()
+    coarse = synthetic_coarsening(sizes=COARSE_SIZES)
+    card = device.type == "cuda"
+    out = {}
+    for dt, ctx, loss_tol, grad_tol in (
+            ("bf16", contextlib.nullcontext(), STEP_LOSS_REL_TOL,
+             MESH_GRAD_REL_TOL),
+            ("f32", full_f32(), F32_STEP_LOSS_REL_TOL,
+             F32_STEP_GRAD_REL_TOL)):
+        tag = f"[coarse-{dt}]"
+        cfg = mesh_h36m_config(str(stage1["ckpt"]), True)
+        if dt == "f32":
+            cfg.MODEL.compute_dtype = "float32"
+        with ctx:
+            trainer, batch, _, first_step, _ = stage2_parts(
+                device, stage1, cfg, tag, coarse)
+            nparams = sum(p.numel() for p in trainer.model.parameters())
+            print(f"{tag} PMCE {nparams / 1e6:.1f} M params on the "
+                  f"coarsening {coarse.sizes} ({coarse.sizes[-1]} vertex "
+                  f"tokens), {cfg.MODEL.compute_dtype}, fused_attn on, "
+                  f"lifter from {Path(cfg.MODEL.posenet_path).name}",
+                  flush=True)
+            first_step_checks(tag, first_step, COARSE_STEP[dt], loss_tol,
+                              grad_tol)
+            state = trainer.init_state()
+            gen = torch.Generator(torch.device(device)).manual_seed(1)
+            losses = []
+
+            def step():
+                losses.append(trainer.train_step(state, batch, gen, 1.0)[0])
+
+            torch.cuda.reset_peak_memory_stats()
+            _cuda.reset_launch_counts()
+            ms = median_step_ms(step, COARSE_TIMED, warmup=2)
+            torch.cuda.synchronize()
+            counts = _cuda.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            n = COARSE_TIMED + 2
+            launched = {k: v for k, v in counts.items() if v}
+            want = {k: n * v for k, v in COARSE_STEP[dt].items()}
+            if card and launched != want:
+                raise RuntimeError(f"{tag} {n} train steps: launches "
+                                   f"{launched}, expected {want}")
+            losses = [float(v) for v in losses]
+            if not all(math.isfinite(v) for v in losses):
+                raise RuntimeError(f"{tag} train step losses {losses}")
+            print(f"{tag} {n} train steps (loss, backward, Adam), batch "
+                  f"{BM}: losses {[round(v, 5) for v in losses]}; launches "
+                  f"{launched}; {ms:.3f} ms a step (median of "
+                  f"{COARSE_TIMED}), {BM / ms * 1e3:.1f} clips/s; peak "
+                  f"device memory {peak:.2f} GiB; on {card_line()}",
+                  flush=True)
+            if profile:
+                profile_step(step, f"{dt} train step at 1723 vertices")
+            out[dt] = {"counts": counts, "ms": ms, "peak": peak}
+            del trainer, state, batch
+            torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_phase
+    print(f"[coarse] phase 14 took {out['phase_s']:.1f} s on {card_line()}",
+          flush=True)
+    return out
 
 
 def f32_stage2_cli() -> float:
@@ -4164,11 +4455,15 @@ def main() -> int:
     f32 = f32_serving(device, rows)
     f32t = f32_training(device, rows, step_ms)
     f32s = f32_stage2_training(device, rows, stage1, fused_ms, profile)
+    coarse = coarse_stage2(device, stage1, profile)
     # Each kernel's launches on the path it belongs to; skinning's: phase
     # 4's synthesis and phase 10's conversions; the f32 forms': phase 11's
     # forwards and phase 12c's f32 Stage-1 fit (row 6f: both), rows 4f /
     # 5f and 8f-11f: phase 13b's f32 Stage-2 fit.
-    counts = {**{k: mesh_counts[k] for k in REPLACES},
+    # Rows ``*_v1723``: phase 14's train steps, bf16 or f32.
+    counts = {**{k: mesh_counts[k] for k in REPLACES if k in mesh_counts},
+              **{k: coarse[dt]["counts"][c]
+                 for k, (dt, c) in COARSE_ROWS.items()},
               **{k: fused_counts[k] for k in DECODER},
               **{k: train_counts[k] for k in TRAINING},
               **{k: serve_counts[k] for k in SERVING},
@@ -4214,8 +4509,11 @@ def main() -> int:
           f"{f32t['cli_s']:.1f} s, phase 12 {f32t['phase_s']:.1f} s; phase 13 "
           f"f32 Stage-2 train step {f32s['ms']:.3f} ms = "
           f"{BM / f32s['ms'] * 1e3:.1f} clips/s, f32 Stage-2 train CLI "
-          f"{f32s['cli_s']:.1f} s, phase 13 {f32s['phase_s']:.1f} s",
-          flush=True)
+          f"{f32s['cli_s']:.1f} s, phase 13 {f32s['phase_s']:.1f} s; phase 14 "
+          f"(1723 vertices) train step bf16 {coarse['bf16']['ms']:.3f} ms "
+          f"({coarse['bf16']['peak']:.2f} GiB), f32 "
+          f"{coarse['f32']['ms']:.3f} ms ({coarse['f32']['peak']:.2f} GiB), "
+          f"phase 14 {coarse['phase_s']:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

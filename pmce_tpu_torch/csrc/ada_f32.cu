@@ -13,7 +13,9 @@
 // of 8, 16 or 32 with a max-stabilised softmax over every token of the
 // clip, q scaled by 1/sqrt(head width) before the scores, and an erf-GELU
 // MLP of up to 256 hidden units. Its path is f32 Stage-2 training:
-// [32, 431, 64] in 2 heads of 32.
+// [32, 431, 64] in 2 heads of 32 ([32, 1723, 64] on the two-level mesh;
+// any token count: a tile's 64-row chunks are streamed whatever their
+// number).
 //
 // Products: every row product and the attention in 3xTF32 on the tensor
 // cores (csrc/dec_tc32.cuh), the backward's weight gradients too

@@ -30,7 +30,7 @@ constexpr int NTH = 256;       // 8 warps
 constexpr int NW = NTH / 32;
 constexpr int CW = 64;         // C
 constexpr int LD = CW + 8;     // bf16 row stride of the [rows, 64] tiles
-constexpr int RT = 128;        // long-side rows of a CTA (a warp's 16 each)
+constexpr int RT = 128;        // long-side rows of a CTA's pass (16 a warp)
 constexpr int ST = 64;         // short-side rows
 constexpr int MAX_HID = 256;
 constexpr int MAXH = 8;        // heads (head width 8)

@@ -15,7 +15,9 @@
 // per-clip branch scales m1, m2 (null: 1), C = 64, heads of 8, 16 or 32
 // and an erf-GELU MLP of up to 256 hidden units. Its path is f32 Stage-2
 // training in both orientations: joints [32, 17, 64] over vertices [32,
-// 431, 64] in 8 heads of 8, and vertices over joints in 2 heads of 32.
+// 431, 64] in 8 heads of 8, and vertices over joints in 2 heads of 32
+// (1723 vertices on the two-level mesh: the long side of any length, the
+// short side up to 64 rows).
 //
 // Products: every row product and the attention in 3xTF32 on the tensor
 // cores (csrc/dec_tc32.cuh), the backward's weight gradients too

@@ -125,7 +125,13 @@ constexpr int FPART_MAX = 6 * C;
 // items (Ring), then in bytes.
 constexpr int QT_TAB = 2 * QSLOT + 3 * NW * RB * C + NW * QPART_MAX;
 constexpr int QD_TAB = 2 * QSLOT + NW * 3 * HMAX * RB;
-constexpr int QTAB_BYTES = 16 * 64;  // QTAB Items
+// The items a ring's window lists (Ring); a CPU build of the sources may
+// set a smaller window to run its refills at small shapes.
+#ifndef PMCE_DEC_QTAB
+#define PMCE_DEC_QTAB 16
+#endif
+constexpr int QTAB = PMCE_DEC_QTAB;
+constexpr int QTAB_BYTES = QTAB * 64;  // QTAB Items
 constexpr int QA_SMEM = 2 * QSLOT * 4 + QTAB_BYTES;
 constexpr int QT_SMEM = QT_TAB * 4 + QTAB_BYTES;
 constexpr int QD_SMEM = QD_TAB * 4 + QTAB_BYTES;
@@ -921,48 +927,58 @@ __device__ bool q_item(const QArgs& p, int item, int i, Item& it) {
 }
 
 // A program's ring over the CTA's items. A tile's staged items are listed
-// once in shared memory (by one thread, at the tile's start, from
-// get(item, i, Item&): false past the tile's last), followed by the next
-// tile's first; next() waits for the current item and stages the one
-// after it.
-constexpr int QTAB = 16;  // the most items a tile stages, and one more
+// in shared memory (by one thread) a window of QTAB at a time: at the
+// tile's start, then whenever the ring has issued a window's last; the
+// window that holds the tile's last item is followed by the next tile's
+// first. next(get) waits for the current item and stages the one after it.
+// A tile may stage any number of items (a streamed side's 64-row chunks:
+// 27 at 1723 tokens).
 static_assert(QTAB * sizeof(Item) == QTAB_BYTES, "the lists' bytes");
 
 template <int SLOT>
 struct Ring {
   Pipe<SLOT> pipe;
   Item* tab;
-  int item, end, step;
+  int item, end, step, base;
 
   template <class Get>
   __device__ Ring(const Get& get, float* buf, float* table, int begin,
                   int end_)
       : tab(reinterpret_cast<Item*>(table)), item(begin), end(end_),
-        step(0) {
+        step(0), base(0) {
     pipe.buf = buf;
     fill(get);
     pipe.start(tab[0]);
   }
+  // The tile's items [base, base + QTAB), then (the tile's last listed) the
+  // next tile's first or an empty item.
   template <class Get>
   __device__ void fill(const Get& get) {
     __syncthreads();
     if (threadIdx.x == 0) {
       int i = 0;
-      while (get(item, i, tab[i])) ++i;
-      Item nx = {};
-      if (item + 1 < end) get(item + 1, 0, nx);
-      tab[i] = nx;
+      while (i < QTAB && get(item, base + i, tab[i])) ++i;
+      if (i < QTAB) {
+        Item nx = {};
+        if (item + 1 < end) get(item + 1, 0, nx);
+        tab[i] = nx;
+      }
     }
     __syncthreads();
   }
-  __device__ const float* next() {
-    ++step;
-    return pipe.next(tab[step].a != nullptr ? &tab[step] : nullptr);
+  template <class Get>
+  __device__ const float* next(const Get& get) {
+    if (++step - base == QTAB) {
+      base = step;
+      fill(get);
+    }
+    const Item& nx = tab[step - base];
+    return pipe.next(nx.a != nullptr ? &nx : nullptr);
   }
   template <class Get>
   __device__ void next_tile(const Get& get) {
     ++item;
-    step = 0;
+    step = base = 0;
     if (item < end) fill(get);
   }
 };
@@ -1029,7 +1045,7 @@ __device__ void rprog(const RArgs& p, float* smem) {
       const int ld = f.blocks * C;
 #pragma unroll 1
       for (int j = 0; j < f.blocks; ++j) {
-        const float* W = ring.next();
+        const float* W = ring.next(get);
         if (!active) continue;
         float o[8][4];
         zero(o);
@@ -1075,7 +1091,7 @@ __device__ void q_attn(const QArgs& p, float* smem) {
         if (tl.keep && p.nq != nullptr)
           store_tile(p.nq + tl.gr * C, C, nv, nq);
       }
-      const float* W = ring.next();
+      const float* W = ring.next(get);
       if (tl.active) {
         zero(Q);
         mm_tile(nq, W, Q);
@@ -1098,7 +1114,7 @@ __device__ void q_attn(const QArgs& p, float* smem) {
       m[h][0] = m[h][1] = -INFINITY, l[h][0] = l[h][1] = 0.f;
 #pragma unroll 1
     for (int c = tl.c0; c < tl.c1; ++c) {
-      const float* kv = ring.next();
+      const float* kv = ring.next(get);
       if (tl.active)
         attn_fwd_chunk<H>(Q, kv, min(KC, p.Nk - c * KC), O, m, l);
     }
@@ -1250,7 +1266,7 @@ __device__ void q_tail(const QArgs& p, float* smem) {
     const float m2 = p.m2 != nullptr ? p.m2[clip] : 1.f;
     const float* g2 = p.g2 + clip * C;
     {
-      const float* W = ring.next();
+      const float* W = ring.next(get);
       if (active) {
         stash(astash, O);
         float a[8][4];
@@ -1279,7 +1295,7 @@ __device__ void q_tail(const QArgs& p, float* smem) {
     float* hh_own = p.hh + (size_t)tl.s * Mq * hid + gr * hid;
 #pragma unroll 1
     for (int ch = 0; ch < hid; ch += C) {
-      const float* W = ring.next();
+      const float* W = ring.next(get);
       if (active) {
         float hh[8][4];
         zero(hh);
@@ -1325,7 +1341,7 @@ __device__ void q_tail(const QArgs& p, float* smem) {
 #pragma unroll 1
     for (int ch = 0; ch < hid; ch += C) {
       float d[8][4];
-      const float* W = ring.next();
+      const float* W = ring.next(get);
       if (active) {
         zero(d);
         mm_stashed(gstash, W, d);
@@ -1351,14 +1367,14 @@ __device__ void q_tail(const QArgs& p, float* smem) {
         col_sums(d, cs + C + ch);
         stash(astash, d);
       }
-      W = ring.next();
+      W = ring.next(get);
       if (active) mm_stashed(astash, W, dh2);
     }
     // AdaLN2's backward: dx1 = gy + AdaLN2^T(dh2) (dgamma2, dbeta2), dm1's
     // row sums of dx1 a, da = m1 dx1 (dbproj); then dO = da Wproj^T (its
     // block staged first: no tile is held over the ring's barrier) and D =
     // dO . o per head.
-    const float* W = ring.next();
+    const float* W = ring.next(get);
     if (active) {
       if (p.dm) {
         dm2[0] = quad_sum(dm2[0]);
@@ -1457,7 +1473,7 @@ __device__ void q_dq(const QArgs& p, float* smem) {
     zero(dQ);
 #pragma unroll 1
     for (int c = tl.c0; c < tl.c1; ++c) {
-      const float* kv = ring.next();
+      const float* kv = ring.next(get);
       if (tl.active)
         attn_dq_chunk<H>(Q, dO, st, kv, min(KC, p.Nk - c * KC), dQ);
     }
@@ -1524,7 +1540,7 @@ __device__ void qf_tail(const QArgs& p, float* smem) {
       stash(hstash, O);
     }
     {
-      const float* W = ring.next();
+      const float* W = ring.next(get);
       if (active) {
         float a[8][4];
         zero(a);
@@ -1547,7 +1563,7 @@ __device__ void qf_tail(const QArgs& p, float* smem) {
     zero(y);
 #pragma unroll 1
     for (int ch = 0; ch < p.hid; ch += C) {
-      const float* W = ring.next();
+      const float* W = ring.next(get);
       if (active) {
         float ge[8][4];
         zero(ge);
@@ -1559,7 +1575,7 @@ __device__ void qf_tail(const QArgs& p, float* smem) {
           for (int e = 0; e < 4; ++e) ge[nb][e] = gelu_erf(ge[nb][e]);
         stash(gstash, ge);
       }
-      W = ring.next();
+      W = ring.next(get);
       if (active) mm_stashed(gstash, W, y);
     }
     if (active) {
@@ -1656,7 +1672,7 @@ __device__ void kprog(const KArgs& p, float* smem) {
     zero(dV);
 #pragma unroll 1
     for (int c = c0; c < c1; ++c) {
-      const float* qs = ring.next();
+      const float* qs = ring.next(get);
       if (active) attn_kv_chunk<H>(K, V, qs, min(KC, p.Nq - c * KC), dK, dV);
     }
     if (active) {
@@ -1749,7 +1765,7 @@ __device__ void fprog(const FArgs& p, float* smem) {
           }
           col_sums(G, cs + f.boff + part * C);
         }
-        const float* W = ring.next();
+        const float* W = ring.next(get);
         if (active) mm_tile(G, W, dn);
       }
       if (active) {

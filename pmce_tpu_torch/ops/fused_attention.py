@@ -2673,10 +2673,10 @@ def ada_block(x, gamma1, beta1, gamma2, beta2, params, num_heads: int,
         if not ada_f32_kernel_fits(N, C, num_heads, hid):
             raise NotImplementedError(
                 f"ada_block: the f32 kernel (csrc/ada_f32.cu) is built for C "
-                f"= 64, heads of 8, 16 or 32, hid up to 256 and up to "
-                f"{_F32_DEC_LONG} tokens, not N={N}, C={C}, {num_heads} "
-                f"heads, hid={hid} (the JAX kernel takes it); widening it is "
-                "queued in ROADMAP.md B3")
+                f"= 64, heads of 8, 16 or 32 and hid a multiple of 64 up to "
+                f"{_F32_DEC_HID} (any number of tokens), not N={N}, C={C}, "
+                f"{num_heads} heads, hid={hid} (the JAX kernel takes it); "
+                "widening it is queued in ROADMAP.md B3")
         gb = (gamma1, beta1, gamma2, beta2)
         if not _needs_grad(x, *gb, m1, m2, *params):
             return _ada_fwd_f32_cuda(x.contiguous(), gb, (m1, m2), params,
@@ -2711,11 +2711,12 @@ def _ca_weights(params, dev) -> _CaWeights:
 
 
 # The CA block's tile programs (csrc/ca_block.cu), forward and backward: a
-# cluster of 4 CTAs a clip, the long side split in quarters of at most 128
-# rows, the short side whole in each (at most 64 rows), hid up to 256; the
-# backward's weight launch's K splits, and the programs' stamped stages.
+# cluster of 4 CTAs a clip, the long side split in quarters, each walked in
+# passes of up to 128 rows (a long side of any length), the short side
+# whole in each (at most 64 rows), hid up to 256; the backward's weight
+# launch's K splits, and the programs' stamped stages.
 CA_BWD_CLUSTER = 4
-_CA_BWD_SHORT, _CA_BWD_LONG, _CA_BWD_HID = 64, 4 * 128, 256
+_CA_BWD_SHORT, _CA_BWD_HID, _CA_PASS_ROWS = 64, 256, 128
 _CA_WGRAD_SPLITS = 8
 CA_BWD_STAGES = ("loads", "MLPᵀ", "norm2", "projᵀ", "attention dq",
                  "attention dk dv", "q/k/v projᵀ + norms", "cluster sums")
@@ -2813,25 +2814,47 @@ def ca_fwd_stage_split(xs, gammas, betas, params, num_heads: int,
 def ca_bwd_kernel_fits(Nq: int, Nk: int, C: int, hid: int) -> bool:
     """The static shape test of the CA block's tile programs, forward and
     backward, on top of :func:`attention_kernel_fits`: C = 64, hid up to
-    256, the short side (the smaller of Nq, Nk) up to 64 rows and the long
-    side up to 512 (four CTAs of 128 rows). The forward takes other shapes
+    256 and the short side (the smaller of Nq, Nk) up to 64 rows; the long
+    side of any length (a CTA's quarter of it in passes of 128 rows: one up
+    to 512, four at the 1723-vertex mesh). The forward takes other shapes
     through its launch sequence; the backward refuses them."""
     return (C == 64 and hid <= _CA_BWD_HID
-            and min(Nq, Nk) <= _CA_BWD_SHORT and max(Nq, Nk) <= _CA_BWD_LONG)
+            and min(Nq, Nk) <= _CA_BWD_SHORT)
+
+
+def ca_bwd_passes(Nq: int, Nk: int) -> int:
+    """The passes of up to 128 long-side rows a CTA of the CA tile programs
+    walks (``csrc/adaln_tile.cuh``'s ``rank_rows``: a cluster rank's quarter
+    of the long side in whole 16-row blocks)."""
+    quarter = -(-max(Nq, Nk) // CA_BWD_CLUSTER)
+    per = -(-quarter // 16) * 16
+    return max(1, -(-per // _CA_PASS_ROWS))
+
+
+def ca_bwd_workspace(B: int, Nq: int, Nk: int) -> int:
+    """Floats of the backward tile program's workspace (``csrc/ca_block.cu``'s
+    ``ca_bwd_acc_floats``): with the queries split over more than one pass
+    a CTA (Nq over 512, Nq >= Nk), each CTA's dk | dv sums between its
+    passes, [B * 4, 64, 128]; else 0 (no workspace)."""
+    if Nq >= Nk and ca_bwd_passes(Nq, Nk) > 1:
+        return B * CA_BWD_CLUSTER * _CA_BWD_SHORT * 2 * 64
+    return 0
 
 
 def _ca_bwd_cuda(gout, xs, params, saved, num_heads, eps,
                  need_masks: bool = False, stamps=None, w=None):
     """The backward in two launches of ``csrc/ca_block.cu``: the tile
-    program (a cluster of 4 CTAs a clip: the activation-gradient chain, dxq,
-    dxk, dxv, the per-clip AdaLN vectors' gradients, the mask gradients when
-    ``need_masks``, and the weight products' bf16 operands), then the six
-    weight gradients and the six bias gradients in one launch. The weights
-    are read in their [in, out] layout: no transposed copies. Returns (dxq,
-    dxk, dxv), dgb [8, B, C], the flat parameter gradients and (dm1, dm2)
-    (None without ``need_masks``). ``stamps`` (int64 [B * 4, 8] on the
-    card): run only the stamped tile program (not counted) and return None.
-    ``w``: the forward's :class:`_CaWeights` (not cast again), or None."""
+    program (a cluster of 4 CTAs a clip, :func:`ca_bwd_passes` passes a CTA
+    with :func:`ca_bwd_workspace`'s floats: the activation-gradient chain,
+    dxq, dxk, dxv, the per-clip AdaLN vectors' gradients, the mask
+    gradients when ``need_masks``, and the weight products' bf16 operands),
+    then the six weight gradients and the six bias gradients in one
+    launch. The weights are read in their [in, out] layout: no transposed
+    copies. Returns (dxq, dxk, dxv), dgb [8, B, C], the flat parameter
+    gradients and (dm1, dm2) (None without ``need_masks``). ``stamps``
+    (int64 [B * 4, 8] on the card): run only the stamped tile program (not
+    counted) and return None. ``w``: the forward's :class:`_CaWeights` (not
+    cast again), or None."""
     xq, xk, xv = xs
     B, Nq, C = xq.shape
     Nk = xk.shape[1]
@@ -2860,11 +2883,13 @@ def _ca_bwd_cuda(gout, xs, params, saved, num_heads, eps,
     tiles = 4 + 2 * (hid // 64)   # cab::wgrad_tiles: 64 x 64 output tiles
     counters = torch.empty(tiles, device=dev, dtype=torch.int32)
     stream = _cuda.stream_ptr(dev)
+    n_acc = ca_bwd_workspace(B, Nq, Nk)
+    acc = torch.empty(n_acc, device=dev, dtype=f32) if n_acc else None
     _cuda.CA.call("pmce_ca_bwd_tile", _cuda.ptr_table(
         xq, xk, xv, g, gq, gk, gv, g2, m1, m2, w.wq, w.wk, w.wv, w.wproj,
         w.w1, w.w2, q, k, v, o, stats[0], stats[1], x1, hh,
         a if need_masks else None, mo if need_masks else None, dxq, dxk, dxv,
-        m2g, dhh, da, dq, dk, dv, dgb, dm1, dm2, counters, stamps),
+        m2g, dhh, da, dq, dk, dv, dgb, dm1, dm2, counters, stamps, acc),
         B, Nq, Nk, hid, num_heads, eps, stream)
     if stamps is not None:
         return None
@@ -2965,11 +2990,11 @@ def ca_block(xq, xk, xv, gammas, betas, params, num_heads: int,
         if not ca_f32_kernel_fits(Nq, Nk, C, num_heads, hid):
             raise NotImplementedError(
                 f"ca_block: the f32 kernel (csrc/ca_f32.cu) is built for C = "
-                f"64, heads of 8, 16 or 32, hid up to 256, up to "
-                f"{_F32_DEC_SHORT} rows on the short side and "
-                f"{_F32_DEC_LONG} on the long, not Nq={Nq}, Nk={Nk}, C={C}, "
-                f"{num_heads} heads, hid={hid} (the JAX kernel takes it); "
-                "widening it is queued in ROADMAP.md B3")
+                f"64, heads of 8, 16 or 32, hid a multiple of 64 up to "
+                f"{_F32_DEC_HID} and up to {_F32_DEC_SHORT} rows on the "
+                f"short side (the long side of any length), not Nq={Nq}, "
+                f"Nk={Nk}, C={C}, {num_heads} heads, hid={hid} (the JAX "
+                "kernel takes it); widening it is queued in ROADMAP.md B3")
         xs = (xq.contiguous(), xk.contiguous(), xv.contiguous())
         if not grad:
             return _ca_fwd_f32_cuda(xs, gammas, betas, (m1, m2), params,
@@ -2980,7 +3005,9 @@ def ca_block(xq, xk, xv, gammas, betas, params, num_heads: int,
         require_kernel(ca_bwd_kernel_fits(xq.shape[1], xk.shape[1], C, hid),
                        "ca_block backward",
                        f"Nq={xq.shape[1]}, Nk={xk.shape[1]}, C={C}, "
-                       f"hid={hid}")
+                       f"hid={hid} (it takes C = 64, hid up to "
+                       f"{_CA_BWD_HID} and a short side of up to "
+                       f"{_CA_BWD_SHORT} rows)")
     return _CaBlockKernel.apply(xq.contiguous(), xk.contiguous(),
                                 xv.contiguous(), m1, m2, num_heads, eps,
                                 torch.is_grad_enabled(), *gammas, *betas,
@@ -2993,9 +3020,11 @@ def ca_block(xq, xk, xv, gammas, betas, params, num_heads: int,
 # ---------------------------------------------------------------------------
 
 # The f32 kernels' gates: C = 64 in heads of 8, 16 or 32, hid a multiple of
-# 64 up to 256, up to _F32_DEC_LONG tokens (a CA block: the long side) and
-# _F32_DEC_SHORT on a CA block's short side (Stage 2: 431 and 17 / 19).
-_F32_DEC_LONG, _F32_DEC_SHORT, _F32_DEC_HID = 512, 64, 256
+# 64 up to 256, any number of tokens (a CA block: on the long side; the
+# programs stream it in 64-row chunks, a ring's window of items at a time)
+# and up to _F32_DEC_SHORT on a CA block's short side (Stage 2: 431 or 1723
+# and 17 / 19).
+_F32_DEC_SHORT, _F32_DEC_HID = 64, 256
 
 
 def _f32_dec_width(C: int, num_heads: int, hid: int) -> bool:
@@ -3005,19 +3034,18 @@ def _f32_dec_width(C: int, num_heads: int, hid: int) -> bool:
 
 def ada_f32_kernel_fits(N: int, C: int, num_heads: int, hid: int) -> bool:
     """The static shape test of rows 8f / 9f (``csrc/ada_f32.cu``): C = 64
-    in heads of 8, 16 or 32, hid a multiple of 64 up to 256, up to 512
+    in heads of 8, 16 or 32, hid a multiple of 64 up to 256, any number of
     tokens."""
-    return _f32_dec_width(C, num_heads, hid) and 0 < N <= _F32_DEC_LONG
+    return _f32_dec_width(C, num_heads, hid) and N > 0
 
 
 def ca_f32_kernel_fits(Nq: int, Nk: int, C: int, num_heads: int,
                        hid: int) -> bool:
     """The static shape test of rows 10f / 11f (``csrc/ca_f32.cu``): the
     widths of :func:`ada_f32_kernel_fits`, up to 64 rows on the short side
-    (the smaller of Nq, Nk) and 512 on the long."""
-    return (_f32_dec_width(C, num_heads, hid) and min(Nq, Nk) > 0
-            and min(Nq, Nk) <= _F32_DEC_SHORT
-            and max(Nq, Nk) <= _F32_DEC_LONG)
+    (the smaller of Nq, Nk), the long side of any length."""
+    return (_f32_dec_width(C, num_heads, hid)
+            and 0 < min(Nq, Nk) <= _F32_DEC_SHORT)
 
 
 def _f32_rows_of(name, dev, B, C, vecs, names):

@@ -4,6 +4,7 @@ this tree against variant sources of ``csrc/ada_f32.cu``, ``csrc/ca_f32.cu``,
 one process on the card.
 
     python3 pmce_tpu_torch/tools/compare_dec_f32.py VARIANT_DIR [--step]
+        [--vertices V]
 
 VARIANT_DIR holds the variant's ``ada_f32.cu``, ``ca_f32.cu``,
 ``f32_ops.cuh`` and ``dec_tc32.cuh`` (e.g. ``git show
@@ -16,7 +17,10 @@ in. A variant whose forwards or backwards take no CTA count (the grids of
 three shapes (the AdaLN block at [32, 431, 64] in 2 heads of 32; the CA
 block with joints [32, 17, 64] over vertices [32, 431, 64] in 8 heads of
 8, and vertices over joints in 2 heads of 32; hid 256; branch masks at rate
-0.2, requiring their gradient in the backward) it prints
+0.2, requiring their gradient in the backward; ``--vertices 1723``: the
+two-level mesh's vertex stream in place of 431, which sources before PR 26
+do not take: there pass the tree's own ``pmce_tpu_torch/csrc`` as
+VARIANT_DIR) it prints
 
 - the tree's plans on this card (``f32_dec_fwd_plan`` and
   ``f32_dec_plan``: each program's CTAs, items and waves, the splits);
@@ -68,12 +72,15 @@ from pmce_tpu_torch.tools.profile_f32 import device_ms  # noqa: E402
 
 ROUNDS = 3
 TURNS = ("variant", "tree", "tree", "variant")
-# (kind, Nq, heads, Nk, label): phase 13a's shapes.
-SHAPES = (("ada", 431, 2, 0, "AdaLN block [32, 431, 64], 2 heads"),
-          ("ca", cs.JT, 8, 431, "CA joints [32, 17] over vertices [32, 431], "
-                                "8 heads"),
-          ("ca", 431, 2, cs.JT, "CA vertices [32, 431] over joints [32, 17], "
-                                "2 heads"))
+
+
+def shapes(V: int) -> tuple:
+    """(kind, Nq, heads, Nk, label): phase 13a's shapes at V vertices."""
+    return (("ada", V, 2, 0, f"AdaLN block [32, {V}, 64], 2 heads"),
+            ("ca", cs.JT, 8, V, f"CA joints [32, 17] over vertices [32, {V}]"
+                                ", 8 heads"),
+            ("ca", V, 2, cs.JT, f"CA vertices [32, {V}] over joints [32, 17]"
+                                ", 2 heads"))
 # How many of each a f32 Stage-2 step launches (chip_smoke's
 # F32_STAGE2_STEP: ada_fwd_f32 3, ca_fwd_f32 6, three each way;
 # ada_bwd_f32 3, ca_bwd_f32 4, of which one joint-query).
@@ -160,9 +167,9 @@ def in_turns(builds: Builds, timers: dict) -> dict:
     return times
 
 
-def print_plan(dev) -> None:
+def print_plan(dev, cases) -> None:
     resident = fa._dec_f32_resident(dev)
-    for kind, Nq, _, Nk, label in SHAPES:
+    for kind, Nq, _, Nk, label in cases:
         for way, plan in (
                 ("forward", fa.f32_dec_fwd_plan(kind, cs.BM, Nq, Nk or Nq,
                                                 resident)),
@@ -295,6 +302,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("variant_dir", type=Path)
     ap.add_argument("--step", action="store_true")
+    ap.add_argument("--vertices", type=int, default=431)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("compare_dec_f32: no CUDA device")
@@ -307,13 +315,14 @@ def main() -> None:
     print("variant entry points without a CTA count (grids of 64-row "
           f"chunks): {sorted(legacy) or 'none'}", flush=True)
     dev = torch.device("cuda", 0)
-    print_plan(dev)
+    cases = shapes(args.vertices)
+    print_plan(dev, cases)
     rng = np.random.default_rng(22)
-    per_call = [block_case(builds, dev, rng, *shape) for shape in SHAPES]
+    per_call = [block_case(builds, dev, rng, *shape) for shape in cases]
     for way, per_step in PER_STEP.items():
         print(f"the decoder {way}s' device time a f32 Stage-2 step ("
               + ", ".join(f"{n} {label.split(' [')[0]}" for n, (*_, label)
-                          in zip(per_step, SHAPES)) + "): " + "; ".join(
+                          in zip(per_step, cases)) + "): " + "; ".join(
                   f"{tag} "
                   f"{sum(n * c[way][tag] for n, c in zip(per_step, per_call)):.4f}"
                   " ms" for tag in builds.libs), flush=True)

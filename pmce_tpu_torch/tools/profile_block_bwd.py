@@ -3,7 +3,7 @@ cross-attention blocks (rows 8-11), the self-attention forward and
 backward (rows 4 and 5) and skinning (row 15) spend their time on the card.
 
     python3 pmce_tpu_torch/tools/profile_block_bwd.py [--root DIR] [--tag T]
-        [--rows block,ca,ada,mhsa,skin]
+        [--rows block,ca,ada,mhsa,skin] [--vertices V]
 
 Imports ``pmce_tpu_torch`` from ``DIR`` (default: the tree this script is
 in; an unpacked earlier commit, say) and builds its libraries. At the
@@ -32,7 +32,8 @@ first, so that two trees' runs in one call can be told apart.
 ``--rows ca`` adds the cross-attention block (rows 10 and 11) at the
 Stage-2 step's two orientations, batch 32, C = 64, hid = 256, drop-path
 masks at rate 0.2: joints over vertices (17 queries, 431 keys, 8 heads)
-and vertices over joints (431 over 17, 2 heads): the forward wrapper
+and vertices over joints (431 over 17, 2 heads; ``--vertices 1723``: the
+two-level mesh's 1723, which a tree before PR 26 refuses): the forward wrapper
 ``_ca_fwd_cuda`` (saving, as for a gradient) and the backward wrapper
 ``_ca_bwd_cuda`` with the same four readings, and ``autograd ms``: CUDA
 events around 20 calls of what the training step runs, ``ca_block`` with
@@ -84,6 +85,8 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--rows", default="block,ca,ada,mhsa,skin")
+    ap.add_argument("--vertices", type=int, default=431,
+                    help="the CA block's vertex rows (--rows ca)")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import numpy as np
@@ -169,7 +172,7 @@ def main() -> int:
 
     if "ca" in rows_wanted:
         _cuda.CA.load()
-        profile_ca(tag, dev, rng, report, tile_ms)
+        profile_ca(tag, dev, rng, report, tile_ms, args.vertices)
     if "ada" in rows_wanted:
         _cuda.ADA.load()
         profile_ada(tag, dev, rng, report, tile_ms)
@@ -263,9 +266,9 @@ def _masks(rng, dev, B):
                  for _ in range(2))
 
 
-def profile_ca(tag, dev, rng, report, tile_ms) -> None:
-    """Rows 10 and 11 at the Stage-2 step's two orientations (see the
-    module docstring)."""
+def profile_ca(tag, dev, rng, report, tile_ms, V: int = 431) -> None:
+    """Rows 10 and 11 at the Stage-2 step's two orientations, V vertex
+    rows (see the module docstring)."""
     import torch
 
     from pmce_tpu_torch.ops import _cuda
@@ -277,8 +280,8 @@ def profile_ca(tag, dev, rng, report, tile_ms) -> None:
         a = rng.normal(size=shape) * scale + offset
         return torch.from_numpy(a.astype("float32")).to(dev, dtype)
 
-    for label, Nq, Nk, heads in (("joints over vertices", 17, 431, 8),
-                                 ("vertices over joints", 431, 17, 2)):
+    for label, Nq, Nk, heads in (("joints over vertices", 17, V, 8),
+                                 ("vertices over joints", V, 17, 2)):
         masks = _masks(rng, dev, B)
         xs = (r(B, Nq, c, scale=1.0, dtype=torch.bfloat16),
               r(B, Nk, c, scale=1.0, dtype=torch.bfloat16),

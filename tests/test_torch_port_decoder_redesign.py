@@ -103,22 +103,23 @@ def test_ca_forward_is_one_tile_launch(Nq, Nk, H, grad, mask_grad):
     assert counts["ca_block_fwd"] == 1 and counts["ca_block_fwd_seq"] == 0
 
 
-@pytest.mark.parametrize("Nq,Nk,H", [(72, 80, 2), (17, 600, 8)],
-                         ids=["short-side-over-64", "long-side-over-512"])
-def test_ca_forward_outside_the_gate_takes_the_launch_sequence(Nq, Nk, H):
+@pytest.mark.parametrize("Nq,Nk,H,hid", [(72, 80, 2, 256), (17, 600, 8, 512)],
+                         ids=["short-side-over-64", "hid-over-256"])
+def test_ca_forward_outside_the_gate_takes_the_launch_sequence(Nq, Nk, H,
+                                                               hid):
     """Shapes the tile program is not built for (a short side over 64 rows,
-    a long side over 512) run the launch sequence without a gradient,
-    counted by ``ca_block_fwd_seq`` alone; it writes the intermediates it
-    chains through whatever the grad mode."""
-    xs, conds, params, masks = _bf16_ca(2, Nq, Nk, H)
-    assert not fa.ca_bwd_kernel_fits(Nq, Nk, 64, 256)
+    hid over 256; a long side of any length it takes) run the launch
+    sequence without a gradient, counted by ``ca_block_fwd_seq`` alone; it
+    writes the intermediates it chains through whatever the grad mode."""
+    xs, conds, params, masks = _bf16_ca(2, Nq, Nk, H, hid=hid)
+    assert not fa.ca_bwd_kernel_fits(Nq, Nk, 64, hid)
     launches = _Launches(_CA_PTRS)
     _cuda.reset_launch_counts()
     with _enter(_stubs(launches, _cuda.CA)), torch.no_grad():
         _ca_call(xs, conds, params, H, masks)
     assert launches.names == ["pmce_ca_block_fwd"]
     (_, ptrs, ints), = launches.calls
-    assert tuple(ints[:6]) == (2, Nq, Nk, 64, 256, H)
+    assert tuple(ints[:6]) == (2, Nq, Nk, 64, hid, H)
     assert all(ptrs[25:38]) and ptrs[38] != 0                 # saved, out
     assert ptrs[39] == ptrs[40] == 0
     counts = _cuda.launch_counts()

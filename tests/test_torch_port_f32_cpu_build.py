@@ -53,13 +53,8 @@ class _CpuLibrary(_cuda.CudaLibrary):
         return self.so
 
 
-@pytest.fixture(scope="module")
-def cpu_libs(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++")
-    out = tmp_path_factory.mktemp("cuda_cpu")
+def _build_cpu_libs(out: Path, sources, defines=()):
     shutil.copy(SHIM, out / "common.cuh")
-    sources = ("block_f32", "mhsa_f32", "ada_f32", "ca_f32", "coevo_f32")
     for name in (*(f"{n}.cu" for n in sources), "f32_ops.cuh",
                  "dec_tc32.cuh"):
         text = (_cuda.CSRC / name).read_text()
@@ -71,7 +66,7 @@ def cpu_libs(tmp_path_factory):
         (out / name).write_text(text.replace("__restrict__", ""))
     procs = {name: subprocess.Popen(
         ["g++", "-x", "c++", "-O2", "-std=c++20", "-fPIC", "-shared",
-         "-pthread", "-w", "-o", str(out / f"lib{name}.so"),
+         "-pthread", "-w", *defines, "-o", str(out / f"lib{name}.so"),
          str(out / f"{name}.cu")], stderr=subprocess.PIPE, text=True)
         for name in sources}
     for name, proc in procs.items():
@@ -80,6 +75,26 @@ def cpu_libs(tmp_path_factory):
     return {name.upper(): _CpuLibrary(getattr(_cuda, name.upper()),
                                       out / f"lib{name}.so")
             for name in sources}
+
+
+@pytest.fixture(scope="module")
+def cpu_libs(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    return _build_cpu_libs(tmp_path_factory.mktemp("cuda_cpu"), (
+        "block_f32", "mhsa_f32", "ada_f32", "ca_f32", "coevo_f32"))
+
+
+@pytest.fixture(scope="module")
+def window_libs(tmp_path_factory):
+    """The decoder sources with a ring window of 3 items
+    (``PMCE_DEC_QTAB``): every program's list of a tile's staged items
+    refilled, at 600 tokens a streamed side's 10 chunks and the tails'
+    weights several times a tile."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    return _build_cpu_libs(tmp_path_factory.mktemp("cuda_cpu_window"),
+                           ("ada_f32", "ca_f32"), ("-DPMCE_DEC_QTAB=3",))
 
 
 def _as_card(libs, fn):
@@ -301,6 +316,62 @@ def test_ca_f32_split_short_side_matches_plain_on_the_cpu(cpu_libs, Nq, Nk,
         got, counts = _as_card(cpu_libs, lambda: step(fa.ca_block))
     _check(got, step(fa.ca_block_plain), counts,
            {"ca_fwd_f32": 1, "ca_bwd_f32": 1}, zero=(6, 14))
+
+
+@pytest.mark.parametrize("window", ["window-16", "window-3"])
+@pytest.mark.parametrize("kind,Nq,Nk,heads,resident", [
+    ("ada", 600, 600, 2, None), ("ca", 17, 600, 8, 4),
+    ("ca", 600, 17, 2, 4)],
+    ids=["ada-600", "ca-17-over-600-split4", "ca-600-over-17-split4"])
+def test_dec_f32_sources_at_600_tokens_match_plain(request, window, kind,
+                                                   Nq, Nk, heads, resident):
+    """Rows 8f-11f past 512 tokens (the gates' old limit): one clip at a
+    long side of 600 (5 tiles of 128 rows, 10 chunks of 64 streamed), the
+    CA block's short side split 4 ways over the long side's chunks (the
+    card's co-resident count stood in for), masks that require grad;
+    forward and every gradient within 1e-5 of the plain version's
+    autograd. Built as shipped (a window of 16 staged items: the
+    attention's 10 chunks in one) and with a window of 3 (every list
+    refilled)."""
+    libs = request.getfixturevalue("cpu_libs" if window == "window-16"
+                                   else "window_libs")
+    rng = np.random.default_rng(Nq + 3 * Nk + heads)
+    C, clips, hid = 64, 1, 64
+    masks = tuple(torch.tensor([[[1.25]]]).requires_grad_(True)
+                  for _ in range(2))
+    if kind == "ada":
+        xs = [_t(rng, clips, Nq, C)]
+        conds = [_t(rng, clips, C, scale=0.1, offset=1.0 - i % 2)
+                 for i in range(4)]
+        params = [_t(rng, C, 3 * C, scale=C ** -0.5),
+                  _t(rng, 3 * C, scale=0.05)]
+    else:
+        xs = [_t(rng, clips, n, C) for n in (Nq, Nk, Nk)]
+        conds = [_t(rng, clips, C, scale=0.1, offset=1.0 - i % 2)
+                 for i in range(8)]
+        params = [t for _ in range(3) for t in (
+            _t(rng, C, C, scale=C ** -0.5), _t(rng, C, scale=0.05))]
+    params += [_t(rng, C, C, scale=C ** -0.5), _t(rng, C, scale=0.05),
+               _t(rng, C, hid, scale=C ** -0.5), _t(rng, hid, scale=0.05),
+               _t(rng, hid, C, scale=hid ** -0.5), _t(rng, C, scale=0.05)]
+    g = _t(rng, clips, Nq, C, grad=False)
+    leaves = [*xs, *conds, *params, *masks]
+
+    def step(block):
+        if kind == "ada":
+            y = block(*xs, *conds, params, heads, 1e-6, masks)
+        else:
+            y = block(*xs, conds[0::2], conds[1::2], params, heads, 1e-6,
+                      masks)
+        return (y, *torch.autograd.grad(y, leaves, g))
+
+    fn, plain = ((fa.ada_block, fa.ada_block_plain) if kind == "ada"
+                 else (fa.ca_block, fa.ca_block_plain))
+    with mock.patch.object(fa, "_dec_f32_resident", return_value=resident):
+        got, counts = _as_card(libs, lambda: step(fn))
+    _check(got, step(plain), counts,
+           {f"{kind}_fwd_f32": 1, f"{kind}_bwd_f32": 1},
+           zero=(6, 14) if kind == "ca" else ())
 
 
 @pytest.mark.parametrize("kind,clips,Nq,Nk,heads,resident", [

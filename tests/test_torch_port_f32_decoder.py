@@ -13,8 +13,9 @@ for (``_on_card`` true, every launch recorded instead of run):
   parameters on their own f32 storage, and the backward's asks for the
   mask gradients only when they are owed; the bf16 programs and the plain
   versions never run;
-- outside the f32 gates (over 512 tokens, C 128, hid 512, a CA block's
-  short side over 64) the call raises naming ROADMAP.md B3; mixed dtypes
+- outside the f32 gates (C 128, hid 512, a CA block's short side over
+  64; the token count is not gated) the call raises naming ROADMAP.md B3;
+  mixed dtypes
   raise ``ValueError``, f16 ``NotImplementedError``; nothing launches.
 
 The kernels' arithmetic against the plain versions: ``slow``
@@ -250,14 +251,15 @@ def test_ca_f32_route_reaches_rows_10f_11f(case, Nq, Nk, heads):
 
 
 @pytest.mark.parametrize("kind,shape", [
-    ("ada", (2, 600, 64, 2, 256)), ("ada", (2, 72, 128, 4, 256)),
+    ("ada", (2, 1723, 64, 2, 512)), ("ada", (2, 72, 128, 4, 256)),
     ("ada", (2, 72, 64, 2, 512)), ("ca", (2, 80, 431, 8, 256)),
-    ("ca", (2, 17, 600, 8, 256)), ("ca", (2, 431, 17, 2, 320))], ids=str)
+    ("ca", (2, 72, 1723, 8, 256)), ("ca", (2, 431, 17, 2, 320))], ids=str)
 def test_decoder_f32_outside_the_gates_raises_naming_b3(kind, shape):
-    """Over 512 tokens, C 128, hid 512 or 320 (not a multiple of 64: the
-    bf16 gate refuses it first), a CA block's short side over 64: f32
-    raises naming ROADMAP.md B3 (JAX's kernels take them), with a gradient
-    owed; no kernel and no plain version runs."""
+    """C 128, hid 512 (also at 1723 tokens, which the gates take) or 320
+    (not a multiple of 64: the bf16 gate refuses it first), a CA block's
+    short side over 64 (also over a long side of 1723): f32 raises naming
+    ROADMAP.md B3 (JAX's kernels take them), with a gradient owed; no
+    kernel and no plain version runs."""
     launch = mock.Mock()
     stubs = [mock.patch.object(lib, "call", launch)
              for lib in (_cuda.ADA_F32, _cuda.CA_F32, _cuda.ADA, _cuda.CA)]

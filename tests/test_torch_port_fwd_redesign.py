@@ -226,7 +226,9 @@ def test_ca_backward_refuses_what_its_tile_program_is_not_built_for():
     assert launches.names == ["pmce_ca_block_fwd"]
     assert fa.ca_bwd_kernel_fits(17, 431, 64, 256)
     assert fa.ca_bwd_kernel_fits(431, 17, 64, 256)
-    assert not fa.ca_bwd_kernel_fits(17, 513, 64, 256)
+    assert fa.ca_bwd_kernel_fits(17, 1723, 64, 256)
+    assert fa.ca_bwd_kernel_fits(1723, 17, 64, 256)
+    assert not fa.ca_bwd_kernel_fits(72, 1723, 64, 256)
     assert not fa.ca_bwd_kernel_fits(17, 431, 64, 320)
 
 

@@ -703,10 +703,12 @@ def _f32_dec_call(kind, heads, masks):
                          ids=["masks", "mask-grad"])
 @pytest.mark.parametrize("kind,shape", [
     ("ada", (32, 431, 64, 2)), ("ca", (32, 17, 64, 8, 431)),
-    ("ca", (32, 431, 64, 2, 17))], ids=str)
+    ("ca", (32, 431, 64, 2, 17)), ("ada", (32, 1723, 64, 2)),
+    ("ca", (32, 17, 64, 8, 1723)), ("ca", (32, 1723, 64, 2, 17))], ids=str)
 def test_decoder_f32_kernels_match_plain(no_tf32, kind, shape, mask_grad):
     """Rows 8f-11f at the f32 Stage-2 shapes (the vertex stream's AdaLN
-    block; the CA block in both orientations), hid 256, per-clip branch
+    block; the CA block in both orientations; 431 and the 1723-vertex
+    mesh's vertex tokens), hid 256, per-clip branch
     masks at rate 0.2, without and with their gradient: one
     ``{ada,ca}_fwd_f32`` and one ``{ada,ca}_bwd_f32`` call against the plain
     version's autograd (output within ``F32_REL_TOL``, every gradient
@@ -850,7 +852,8 @@ def _dec_case(rng, dev, kind, shape):
     ("mhsa", (4, 100, 64, 2)), ("ada", (4, 431, 64, 2)),
     ("ada", (32, 431, 64, 2)),
     ("ada", (5, 17, 64, 8)), ("ca", (4, 17, 64, 8, 431)),
-    ("ca", (4, 431, 64, 2, 17))], ids=str)
+    ("ca", (4, 431, 64, 2, 17)), ("ada", (32, 1723, 64, 2)),
+    ("ca", (32, 17, 64, 8, 1723)), ("ca", (32, 1723, 64, 2, 17))], ids=str)
 def test_decoder_attention_kernels_match_plain(kind, shape):
     """Each block kernel, forward and backward, against its plain version
     and the plain version's autograd (bf16 tokens and AdaLN vectors, f32
@@ -878,10 +881,15 @@ def test_decoder_attention_kernels_match_plain(kind, shape):
 
 
 @pytest.mark.parametrize("shape", [(32, 17, 64, 8, 431),
-                                   (32, 431, 64, 2, 17), (3, 40, 64, 4, 9)],
+                                   (32, 431, 64, 2, 17), (3, 40, 64, 4, 9),
+                                   (32, 17, 64, 8, 1723),
+                                   (32, 1723, 64, 2, 17),
+                                   (3, 600, 64, 4, 40), (3, 40, 64, 4, 600)],
                          ids=str)
 def test_ca_block_backward_with_mask_gradients(shape):
-    """Row 11 at the Stage-2 step's two orientations (and head width 16),
+    """Row 11 at the Stage-2 step's two orientations (and head width 16;
+    431 and 1723 vertices: one pass of 128 long-side rows a CTA, four; 600:
+    ranks of two passes and of one),
     with branch masks that require grad: the tile program and the
     weight-gradient launch (one counted backward) against the plain
     version's autograd, dm1 and dm2 included, within 2 % of each gradient's
@@ -920,11 +928,14 @@ def test_ca_block_backward_with_mask_gradients(shape):
 
 @pytest.mark.parametrize("shape", [(32, 17, 64, 8, 431),
                                    (32, 431, 64, 2, 17), (3, 40, 64, 4, 9),
-                                   (3, 5, 64, 8, 72)], ids=str)
+                                   (3, 5, 64, 8, 72), (32, 17, 64, 8, 1723),
+                                   (32, 1723, 64, 2, 17),
+                                   (3, 5, 64, 4, 600)], ids=str)
 def test_ca_forward_tile_program_matches_plain_and_the_sequence(shape):
     """Row 10's tile program (one counted launch) against the plain version
     within 2 % and bit for bit on a rerun, at the Stage-2 step's two
-    orientations, head width 16, and keys split so that one CTA holds none;
+    orientations (431 and 1723 vertices), head width 16, keys split so that
+    one CTA holds none, and ranks of two passes and of one (600 keys);
     every tensor it saves for row 11 (nq, nk, nv, q, k, v, o, the softmax
     max and sum, x1, h2, hh, ge, a, mo) against what the launch sequence
     saves on the same inputs, within 2 % of its largest magnitude."""
