@@ -26,7 +26,13 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    copy); the decoder blocks also at phase 14's 1723 vertex tokens (the
    AdaLN block's launch sequences, the CA block's tile programs both ways,
    kernels-line rows ``*_v1723``), each case's launches exact (a tile
-   program or its sequence, never both). Library yardsticks, timed only:
+   program or its sequence, never both); the chain and the whole block at
+   1723 vertex tokens too (``check_coarse_coevo``: bf16 on clusters of 8
+   CTAs a clip, f32 on clusters of 16; the chain at B = 256 and 64, the
+   whole block at 256; rows ``chain_v1723``, ``coevo_block_v1723``,
+   ``chain_f32_v1723``, ``coevo_block_f32_v1723``), each with its plan,
+   launches exact, a rerun bit for bit, within its row's 431 band of the
+   plain version (over chunks of 32 clips). Library yardsticks, timed only:
    ``nn.GRU`` in bf16 for the GRU rows (with the backend that ran),
    ``F.multi_head_attention_forward`` for rows 4 / 5 (row 4 against it
    three more times in turn at both of its shapes), ``nn.TransformerEncoder``
@@ -223,16 +229,24 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 14. Stage 2 at the 1723-vertex coarse mesh: phase 6's config and warm
    start on the two-level coarsening ``synthetic_coarsening(sizes=(6890,
    1723))`` (``pmce_tpu/smpl/mesh.py``'s second level; the decoder's vertex
-   stream 1723 tokens), in bf16 fused and in f32 fused (TF32 off), train
-   steps only (evaluation and serving at 1723 run the chain, which refuses
-   V over 450 / 1024: ROADMAP.md B3). Each dtype: the first step counted
-   (exactly ``COARSE_STEP[dtype]``: the CA blocks on their tile programs,
-   the bf16 AdaLN blocks on their launch sequences, nothing else), twice
-   bit for bit, against the plain path (bf16 ``STEP_LOSS_REL_TOL`` /
-   ``MESH_GRAD_REL_TOL``, f32 ``F32_STEP_LOSS_REL_TOL`` /
-   ``F32_STEP_GRAD_REL_TOL``, every gradient, the key biases to the
-   largest); then ``COARSE_TIMED`` train steps (loss, backward, Adam)
-   counted and timed, their ms a step and the peak device memory.
+   stream 1723 tokens), in bf16 fused and in f32 fused (TF32 off). Each
+   dtype: the first step counted (exactly ``COARSE_STEP[dtype]``: the CA
+   blocks on their tile programs, the bf16 AdaLN blocks on their launch
+   sequences, nothing else), twice bit for bit, against the plain path
+   (bf16 ``STEP_LOSS_REL_TOL`` / ``MESH_GRAD_REL_TOL``, f32
+   ``F32_STEP_LOSS_REL_TOL`` / ``F32_STEP_GRAD_REL_TOL``, every gradient,
+   the key biases to the largest); then ``COARSE_TIMED`` train steps (loss,
+   backward, Adam) counted and timed, their ms a step and the peak device
+   memory. Then the trained model evaluated and served: ``Trainer.evaluate``
+   over the test split at batch 64, counted (``COARSE_EVAL``: the chain, or
+   the f32 chain, once a batch; nothing refused), its MPJPE, PA-MPJPE and
+   MPVPE within ``COARSE_METRIC_REL_TOL`` (bf16; f32
+   ``F32_SERVE_REL_TOL``) of the same evaluation through every kernel's
+   plain version; the serving forward at B = 256 on the
+   chain route and, on a ``whole_block_kernel`` twin with the same weights,
+   the whole-block route, counted (``COARSE_SERVE``), within the serving
+   band of the plain path, its mid-frames/s beside phases 3 / 3b and 11's
+   at 431 vertices. The phase's seconds.
 
 ``--profile`` adds a torch.profiler breakdown of each serving forward's and
 each train step's device time by kernel and, before phase 2, the stage
@@ -318,6 +332,12 @@ REPLACES = {
     "ada_bwd_f32_v1723": "pmce_tpu/ops/fused_attention.py:1534",
     "ca_fwd_f32_v1723": "pmce_tpu/ops/fused_attention.py:1823",
     "ca_bwd_f32_v1723": "pmce_tpu/ops/fused_attention.py:1853",
+    # Phase 14's evaluation and serving at 1723 vertex tokens: the chain
+    # and the whole block, bf16 (a cluster of 8 CTAs a clip) and f32 (16).
+    "chain_v1723": "pmce_tpu/ops/fused_coevo_chain.py:118",
+    "coevo_block_v1723": "pmce_tpu/ops/fused_attention.py:2714",
+    "chain_f32_v1723": "pmce_tpu/ops/fused_coevo_chain.py:118",
+    "coevo_block_f32_v1723": "pmce_tpu/ops/fused_attention.py:2714",
 }
 SOURCES = {
     "lifter_trunk": "pmce_tpu_torch/csrc/lifter_trunk.cu",
@@ -355,6 +375,10 @@ SOURCES = {
     "ada_bwd_f32_v1723": "pmce_tpu_torch/csrc/ada_f32.cu",
     "ca_fwd_f32_v1723": "pmce_tpu_torch/csrc/ca_f32.cu",
     "ca_bwd_f32_v1723": "pmce_tpu_torch/csrc/ca_f32.cu",
+    "chain_v1723": "pmce_tpu_torch/csrc/coevo_chain.cu",
+    "coevo_block_v1723": "pmce_tpu_torch/csrc/coevo_block.cu",
+    "chain_f32_v1723": "pmce_tpu_torch/csrc/coevo_f32.cu",
+    "coevo_block_f32_v1723": "pmce_tpu_torch/csrc/coevo_f32.cu",
 }
 # The kernels-line rows of phase 14's shapes: the counter each one's
 # launches are read from on phase 14's path (bf16, f32).
@@ -366,6 +390,14 @@ COARSE_ROWS = {"ada_block_fwd_v1723": ("bf16", "ada_block_fwd_seq"),
                "ada_bwd_f32_v1723": ("f32", "ada_bwd_f32"),
                "ca_fwd_f32_v1723": ("f32", "ca_fwd_f32"),
                "ca_bwd_f32_v1723": ("f32", "ca_bwd_f32")}
+# The kernels-line rows of phase 14's evaluation and serving: the counter
+# each one's launches are read from there (its evaluation on the kernels
+# and its counted serving forwards), the kernel the phase-2 case calls,
+# and its compute dtype.
+COARSE_SERVE_ROWS = {"chain_v1723": ("bf16", "coevo_chain"),
+                     "coevo_block_v1723": ("bf16", "coevo_block"),
+                     "chain_f32_v1723": ("f32", "coevo_chain_f32"),
+                     "coevo_block_f32_v1723": ("f32", "coevo_block_f32")}
 # gru_layer / gru_layer_rev count direction scans, gru_scan launches of the
 # scan kernel: one runs both directions of a BiGRU layer.
 SERVING = ("lifter_trunk", "gru_layer", "gru_layer_rev", "gru_scan",
@@ -563,6 +595,22 @@ def max_err(a, b) -> float:
     return float((a.detach().float() - b.detach().float()).abs().max())
 
 
+def plain_by_clips(plain, args, chunk: int = 32):
+    """The chain's or the whole block's plain version (its first four
+    arguments batched over clips) on ``args``; past 450 vertices over
+    chunks of ``chunk`` clips, concatenated (at 1723 vertices the plain
+    attention's [clips, heads, V, V] scores of 256 clips at once would
+    take 12 GB in f32; each clip's outputs are its own)."""
+    import torch
+
+    B = args[0].shape[0]
+    if args[1].shape[1] <= 450 or B <= chunk:
+        return plain(*args)
+    parts = [plain(*(a[i:i + chunk] for a in args[:4]), *args[4:])
+             for i in range(0, B, chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def tensor_bytes(*objs) -> int:
     """Bytes of every distinct tensor in (nested tuples / lists / dicts of)
     ``objs``, each counted once."""
@@ -680,7 +728,7 @@ def gru_case(r, steps: int, batch: int, H: int = 1024):
             r(3 * H, H, scale=H ** -0.5).t(), r(3 * H, scale=0.1))
 
 
-def coevo_params(r, V: int = 431, c: int = 64) -> tuple:
+def coevo_params(r, V: int = 431, c: int = 64, joints: int = J) -> tuple:
     """One CoevoBlock's 14-tuple (embeds, projections across, both CA and
     both SA weight sets), f32, nonzero biases."""
     def w(i, o):
@@ -697,36 +745,38 @@ def coevo_params(r, V: int = 431, c: int = 64) -> tuple:
                 w(c, 4 * c), r(4 * c, scale=0.02), w(4 * c, c),
                 r(c, scale=0.02))
 
-    return (r(J, c), r(V, c), r(J, c), r(V, c), r(V, c), r(J, c),
-            w(c, c), r(c, scale=0.02), w(c, c), r(c, scale=0.02),
-            ca(), ca(), sa(), sa())
+    return (r(joints, c), r(V, c), r(joints, c), r(V, c), r(V, c),
+            r(joints, c), w(c, c), r(c, scale=0.02), w(c, c),
+            r(c, scale=0.02), ca(), ca(), sa(), sa())
 
 
-def chain_case(r, batch: int, V: int = 431, NB: int = 3, c: int = 64):
+def chain_case(r, batch: int, V: int = 431, NB: int = 3, c: int = 64,
+               joints: int = J):
     import torch
 
     bf = torch.bfloat16
     blocks = []
     for _ in range(NB):
-        kp = coevo_params(r, V, c)
+        kp = coevo_params(r, V, c, joints)
         blocks.append((r(3, c, scale=3 ** -0.5).to(bf), r(c, scale=0.02),
                        r(3, c, scale=3 ** -0.5).to(bf), r(c, scale=0.02), kp,
                        r(c, 3, scale=c ** -0.5), r(3, scale=0.02),
                        r(c, 3, scale=c ** -0.5), r(3, scale=0.02)))
-    return (r(batch, J, 3, scale=0.3), r(batch, V, 3, scale=0.3),
+    return (r(batch, joints, 3, scale=0.3), r(batch, V, 3, scale=0.3),
             r(batch, NB, 12, c, scale=0.1, offset=1.0),
             r(batch, NB, 12, c, scale=0.1), tuple(blocks), 8, 2)
 
 
-def coevo_block_case(r, batch: int, V: int = 431, c: int = 64):
+def coevo_block_case(r, batch: int, V: int = 431, c: int = 64,
+                     joints: int = J):
     """The whole-block kernel at the whole-block serving forward's shapes:
     bf16 projected features, f32 AdaLN stacks and one block's weights."""
     import torch
 
     bf = torch.bfloat16
-    return (r(batch, J, c, dtype=bf), r(batch, V, c, dtype=bf),
+    return (r(batch, joints, c, dtype=bf), r(batch, V, c, dtype=bf),
             r(batch, 12, c, scale=0.1, offset=1.0),
-            r(batch, 12, c, scale=0.1), coevo_params(r, V, c), 8, 2)
+            r(batch, 12, c, scale=0.1), coevo_params(r, V, c, joints), 8, 2)
 
 
 def gru_library(r, steps: int, batch: int, bidirectional: bool = False,
@@ -928,6 +978,7 @@ def check_kernels(device) -> dict:
     check_blocks(device, rows)
     check_decoder_blocks(device, rows)
     check_skinning(device, rows)
+    check_coarse_coevo(device, rows)
     # The trunk's long-group route (temporal groups of 130 frames, over the
     # block kernel's 128-row tile): its own kernels and counter, not on a
     # main path, so not in the kernels line.
@@ -937,6 +988,104 @@ def check_kernels(device) -> dict:
     if _cuda.launch_counts()["lifter_trunk"]:
         raise RuntimeError("T=130: the block route ran a 130-token group")
     return rows
+
+
+def check_coarse_coevo(device, rows) -> None:
+    """Phase 2 at the two-level coarsening's 1723 vertex tokens (phase
+    14's evaluation and serving): the chain (B = 256, J = 19, the serving
+    batch; B = 64, J = 17, the Stage-2 evaluation batch) and the whole
+    block (B = 256, J = 19) in bf16 (rows ``chain_v1723``,
+    ``coevo_block_v1723``: a cluster of 8 CTAs a clip) and in f32 with
+    TF32 off (``chain_f32_v1723``, ``coevo_block_f32_v1723``: 16). Each
+    case prints its plan (S, each rank's rows, the clusters the card holds,
+    the waves), launches its kernel exactly once a call under its own
+    counter (nothing else), reruns bit for bit and holds its plain version
+    (over chunks of 32 clips, ``plain_by_clips``) within its row's 431
+    band: bf16 the chain's ``TOL`` of the largest plain magnitude, f32
+    ``F32_KERNEL_REL_TOL`` of each output's; timed beside its bound."""
+    import torch
+
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+    from pmce_tpu_torch.ops import fused_coevo_chain as fc
+    from pmce_tpu_torch.smpl.layer import full_f32
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    card = card_line()
+    cases = (("chain", B, J), ("chain", 64, JT), ("block", B, J))
+    for dt in ("bf16", "f32"):
+        f32 = dt == "f32"
+        for kind, batch, joints in cases:
+            ctx = full_f32() if f32 else contextlib.nullcontext()
+            name = (f"{'chain' if kind == 'chain' else 'coevo_block'}"
+                    f"{'_f32' if f32 else ''}_v{V_COARSE}")
+            counter = COARSE_SERVE_ROWS[name][1]
+            r = Inputs(14, device)
+            if kind == "chain":
+                jt, vx, g, b, blocks, hj, hv = chain_case(
+                    r, batch, V=V_COARSE, joints=joints)
+                if f32:
+                    blocks = tuple((blk[0].float(), blk[1], blk[2].float(),
+                                    *blk[3:]) for blk in blocks)
+                args = (jt, vx, g, b, blocks, hj, hv)
+                kernel, plain = fc.coevo_chain, fc.coevo_chain_plain
+            else:
+                jf0, vf0, g, b, kp, hj, hv = coevo_block_case(
+                    r, batch, V=V_COARSE, joints=joints)
+                if f32:
+                    jf0, vf0 = jf0.float(), vf0.float()
+                args = (jf0, vf0, g, b, kp, hj, hv)
+                kernel, plain = fc.coevo_block, fc.coevo_block_plain
+            plan = (fa.coevo_f32_plan(batch, joints, V_COARSE, sms) if f32
+                    else fc.coevo_plan(batch, joints, V_COARSE, sms))
+            label = f"B={batch} J={joints} V={V_COARSE} C=64 {dt}"
+            with ctx, torch.no_grad():
+                _cuda.reset_launch_counts()
+                got = kernel(*args)
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in _cuda.launch_counts().items()
+                            if v}
+                if launched != {counter: 1}:
+                    raise RuntimeError(f"{name} {label}: launches "
+                                       f"{launched}, expected {counter} 1")
+                again = kernel(*args)
+                want = plain_by_clips(plain, args)
+                torch.cuda.synchronize()
+                for a in got:
+                    if not bool(torch.isfinite(a).all()):
+                        raise RuntimeError(f"{name} {label}: non-finite")
+                if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                    raise RuntimeError(f"{name} {label}: two runs differ")
+                err = max(max_err(a, w) for a, w in zip(got, want))
+                if f32:
+                    rel = max(max_err(a, w) / float(w.abs().max())
+                              for a, w in zip(got, want))
+                    ok, tol = rel <= F32_KERNEL_REL_TOL, (
+                        f"{rel:.3g} of each output's max (tol "
+                        f"{F32_KERNEL_REL_TOL})")
+                else:
+                    scale = max(float(w.float().abs().max()) for w in want)
+                    ok, tol = err <= TOL[f"coevo_{kind}"] * scale, (
+                        f"{err / scale:.3g} of max|plain| {scale:.4g} (tol "
+                        f"{TOL[f'coevo_{kind}']})")
+                ms = median_ms(lambda: kernel(*args))
+                plain_ms = median_ms(lambda: plain_by_clips(plain, args),
+                                     iters=3, warmup=1)
+                flops = count_flops(lambda: plain_by_clips(plain, args))
+            print(f"[kernels] {name} {label}: S={plan.splits} CTAs a clip, "
+                  f"ranks' rows {list(plan.rows)}, {plan.ctas} CTAs, "
+                  f"{plan.clusters} clusters at once, {plan.waves} waves; "
+                  f"launches exact ({counter} 1 a call), a rerun bit for "
+                  f"bit; max_abs_err={err:.6g}, {tol}; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms on {card}"
+                  f"{'' if ok else '  FAIL'}", flush=True)
+            if not ok:
+                raise RuntimeError(f"{name} {label}: kernel disagrees with "
+                                   f"its plain version")
+            record(rows, name, err, ms, plain_ms, flops,
+                   tensor_bytes(args, got), "tf32x3" if f32 else "bf16")
+            del args, got, again, want
+            torch.cuda.empty_cache()
 
 
 def block_case(rng, device, clips: int, N: int, rate: float):
@@ -4061,13 +4210,177 @@ COARSE_STEP = {
              "gru_layer_bwd": 4, "gru_bwd_scan": 4},
     "f32": F32_STAGE2_STEP}
 COARSE_TIMED = 5
+# Phase 14's evaluation batches and serving forwards, exactly: bf16 the
+# trunk, both BiGRU layers' scans and the chain (or the whole block once a
+# CoevoBlock); f32 row 6f's program ×6 and the f32 chain (or whole block).
+COARSE_EVAL = {"bf16": {"lifter_trunk": 1, "gru_layer": 2,
+                        "gru_layer_rev": 2, "gru_scan": 2, "coevo_chain": 1},
+               "f32": F32_STAGE2_EVAL}
+COARSE_SERVE = {("bf16", False): COARSE_EVAL["bf16"],
+                ("bf16", True): {"lifter_trunk": 1, "gru_layer": 2,
+                                 "gru_layer_rev": 2, "gru_scan": 2,
+                                 "coevo_block": 3},
+                ("f32", False): F32_CHAIN, ("f32", True): F32_WHOLE}
+# bf16 evaluation metrics, kernels against every kernel's plain version,
+# relative: phase 7's bar (f32 is held to F32_SERVE_REL_TOL).
+COARSE_METRIC_REL_TOL = 0.02
 
 
-def coarse_stage2(device, stage1: dict, profile: bool = False) -> dict:
+def pa_mpjpe(results, device) -> float:
+    """PA-MPJPE (mm) of ``Trainer.evaluate(collect=True)``'s records: the
+    joints root-aligned, then Procrustes-aligned to the target."""
+    import numpy as np
+
+    from pmce_tpu_torch.data.evaluation import _pa_per_joint_errors
+
+    pred = np.stack([r["joint_coord"] for r in results])
+    gt = np.stack([r["joint_coord_target"] for r in results])
+    pred, gt = pred - pred[:, :1], gt - gt[:, :1]
+    return float(np.mean(_pa_per_joint_errors(pred, gt, device)))
+
+
+def coarse_evaluate(trainer, tag: str, dt: str, n_test: int,
+                    device) -> dict:
+    """Phase 14's evaluation of the trained 1723-vertex model over the test
+    split at its batch: counted (``COARSE_EVAL[dt]`` a batch, nothing
+    else, nothing refused), then the same through every kernel's plain
+    version (nothing launches); MPJPE, PA-MPJPE and MPVPE within
+    ``COARSE_METRIC_REL_TOL`` in bf16, ``F32_SERVE_REL_TOL`` in f32.
+    Returns the kernels' launches."""
+    import torch
+
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+    from pmce_tpu_torch.ops import fused_coevo_chain as fc
+
+    batches = -(-n_test // trainer.cfg.TEST.batch_size)
+    card = torch.device(device).type == "cuda"
+    readings, counts = {}, None
+    for route in ("kernels", "plain"):
+        ctx = (plain_everything(fa, fc) if route == "plain"
+               else contextlib.nullcontext())
+        t0 = time.time()
+        with ctx:
+            _cuda.reset_launch_counts()
+            mpjpe, mpvpe, results = trainer.evaluate(collect=True)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in _cuda.launch_counts().items() if v}
+        want = ({k: v * batches for k, v in COARSE_EVAL[dt].items()}
+                if route == "kernels" else {})
+        if card and launched != want:
+            raise RuntimeError(f"{tag} evaluation ({route}): launches "
+                               f"{launched}, expected {want}")
+        if route == "kernels":
+            counts = _cuda.launch_counts()
+        readings[route] = {"mpjpe": mpjpe, "pa_mpjpe": pa_mpjpe(results,
+                                                                device),
+                           "mpvpe": mpvpe}
+        print(f"{tag} evaluation at {V_COARSE} vertices, {route}: "
+              f"{n_test} clips in {batches} batches of "
+              f"{trainer.cfg.TEST.batch_size}, {time.time() - t0:.1f} s; "
+              + ", ".join(f"{k} {v:.4f} mm" for k, v in
+                          readings[route].items())
+              + (f"; launches {launched} (exact)" if launched else
+                 "; nothing launched"), flush=True)
+    tol = F32_SERVE_REL_TOL if dt == "f32" else COARSE_METRIC_REL_TOL
+    for k, v in readings["kernels"].items():
+        ref = readings["plain"][k]
+        rel = abs(v - ref) / abs(ref)
+        if not rel <= tol:
+            raise RuntimeError(f"{tag} evaluation {k}: kernels {v}, plain "
+                               f"{ref} ({rel:.3g} > {tol})")
+    print(f"{tag} evaluation metrics, kernels vs plain: " + ", ".join(
+        f"{k} {abs(v - readings['plain'][k]) / abs(readings['plain'][k]):.3g}"
+        for k, v in readings["kernels"].items())
+        + f" (tol {tol})", flush=True)
+    return counts
+
+
+def coarse_serve(trainer, stage1: dict, cfg, coarse, tag: str, dt: str,
+                 device, ref_fps: dict) -> tuple[dict, dict]:
+    """Phase 14's serving forward of the trained 1723-vertex model at B =
+    256 clips (17 joints): the chain route and, on a twin built by
+    ``create_pmce(..., whole_block_kernel=True)`` with the same weights,
+    the whole-block route. Each counted (``COARSE_SERVE``, exactly), its
+    outputs finite and within the serving band of the plain path (every
+    kernel's plain version, over chunks of 64 clips), its mid-frames/s
+    beside ``ref_fps`` (phases 3 / 3b or 11 at 431 vertices). Returns the
+    kernels' launches summed over both counted forwards and {route:
+    mid-frames/s}."""
+    import numpy as np
+    import torch
+
+    from pmce_tpu_torch.models.pmce import create_pmce, resolve_compute_dtype
+    from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
+    from pmce_tpu_torch.ops import fused_coevo_chain as fc
+
+    model = trainer.model.eval()
+    twin, _ = create_pmce(
+        num_joint=JT, art=stage1["art"], coarsening=coarse,
+        joint_regressor_h36m=stage1["jr"], embed_dim=cfg.MODEL.hpe_dim,
+        depth=cfg.MODEL.hpe_dep, seqlen=cfg.DATASET.seqlen,
+        dtype=resolve_compute_dtype(cfg.MODEL.compute_dtype), fused=True,
+        whole_block_kernel=True, device=device, seed=cfg.TRAIN.seed)
+    twin.load_state_dict(model.state_dict())
+    twin.eval()
+    rng = np.random.default_rng(14)
+    pose2d = torch.from_numpy(
+        rng.standard_normal((B, T, JT, 2), dtype=np.float32)).to(device)
+    img_feat = torch.from_numpy(
+        rng.standard_normal((B, T, 2048), dtype=np.float32)).to(device)
+    names = ("mesh", "evo_pose", "pose3d")
+    tol = F32_SERVE_REL_TOL if dt == "f32" else SERVE_REL_TOL
+    card = torch.device(device).type == "cuda"
+    total, fps = {}, {}
+    for whole, m in ((False, model), (True, twin)):
+        route = "whole-block" if whole else "chain"
+        with torch.no_grad():
+            _cuda.reset_launch_counts()
+            outs = m(pose2d, img_feat)
+            torch.cuda.synchronize()
+            counts = _cuda.launch_counts()
+            launched = {k: v for k, v in counts.items() if v}
+            if card and launched != COARSE_SERVE[dt, whole]:
+                raise RuntimeError(f"{tag} serving ({route}): launches "
+                                   f"{launched}, expected "
+                                   f"{COARSE_SERVE[dt, whole]}")
+            with plain_everything(fa, fc):
+                ref = [torch.cat(p) for p in zip(*(
+                    m(pose2d[i:i + 64], img_feat[i:i + 64])
+                    for i in range(0, B, 64)))]
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        for name, a, w in zip(names, outs, ref):
+            if a.shape != w.shape or not bool(torch.isfinite(a).all()):
+                raise RuntimeError(f"{tag} serving ({route}) {name}: "
+                                   f"{tuple(a.shape)} or non-finite")
+            rel = max_err(a, w) / float(w.abs().max())
+            print(f"{tag} serving ({route}) {name} vs the plain path: "
+                  f"{rel:.3g} of max|plain| (tol {tol})", flush=True)
+            if not rel <= tol:
+                raise RuntimeError(f"{tag} serving ({route}) {name}: "
+                                   f"disagrees with the plain path")
+        ms, fps[route] = serve_rate(m, pose2d, img_feat)
+        print(f"{tag} serving ({route}), B={B}, {V_COARSE} vertex tokens: "
+              f"launches {launched} (exact); {ms:.3f} ms per batch, "
+              f"{fps[route]:.1f} mid-frames/s (at 431 vertices "
+              f"{ref_fps[route]:.1f}, {fps[route] / ref_fps[route]:.3f}x); "
+              f"on {card_line()}", flush=True)
+    del twin
+    return total, fps
+
+
+def coarse_stage2(device, stage1: dict, ref_fps: dict,
+                  profile: bool = False) -> dict:
     """Phase 14: Stage 2 at the 1723-vertex coarse mesh (see the module's
-    docstring), bf16 then f32 (TF32 off). Returns {dtype: {"counts": the
-    train steps' launches, "ms": a step's ms, "peak": GiB}} and the phase's
-    seconds under "phase_s"."""
+    docstring), bf16 then f32 (TF32 off): train steps, then the trained
+    model's evaluation and serving (``ref_fps``: {dtype: {route:
+    mid-frames/s}} at 431 vertices, phases 3 / 3b and 11). Returns {dtype:
+    {"counts": the train steps' launches, "ms": a step's ms, "peak": GiB,
+    "serve_counts": the evaluation's and the counted serving forwards'
+    launches, "fps": {route: mid-frames/s}}} and the phase's seconds under
+    "phase_s"."""
     import math
 
     import torch
@@ -4090,7 +4403,7 @@ def coarse_stage2(device, stage1: dict, profile: bool = False) -> dict:
         if dt == "f32":
             cfg.MODEL.compute_dtype = "float32"
         with ctx:
-            trainer, batch, _, first_step, _ = stage2_parts(
+            trainer, batch, _, first_step, (_, test_ds) = stage2_parts(
                 device, stage1, cfg, tag, coarse)
             nparams = sum(p.numel() for p in trainer.model.parameters())
             print(f"{tag} PMCE {nparams / 1e6:.1f} M params on the "
@@ -4130,7 +4443,16 @@ def coarse_stage2(device, stage1: dict, profile: bool = False) -> dict:
                   flush=True)
             if profile:
                 profile_step(step, f"{dt} train step at 1723 vertices")
-            out[dt] = {"counts": counts, "ms": ms, "peak": peak}
+            t_serve = time.time()
+            served = coarse_evaluate(trainer, tag, dt, len(test_ds), device)
+            total, fps = coarse_serve(trainer, stage1, cfg, coarse, tag, dt,
+                                      device, ref_fps[dt])
+            for k, v in total.items():
+                served[k] += v
+            print(f"{tag} evaluation and serving took "
+                  f"{time.time() - t_serve:.1f} s", flush=True)
+            out[dt] = {"counts": counts, "ms": ms, "peak": peak,
+                       "serve_counts": served, "fps": fps}
             del trainer, state, batch
             torch.cuda.empty_cache()
     out["phase_s"] = time.time() - t_phase
@@ -4455,15 +4777,22 @@ def main() -> int:
     f32 = f32_serving(device, rows)
     f32t = f32_training(device, rows, step_ms)
     f32s = f32_stage2_training(device, rows, stage1, fused_ms, profile)
-    coarse = coarse_stage2(device, stage1, profile)
+    coarse = coarse_stage2(device, stage1, {
+        "bf16": {"chain": fps, "whole-block": wb_fps},
+        "f32": {"chain": f32["chain"][1], "whole-block": f32["wb"][1]}},
+        profile)
     # Each kernel's launches on the path it belongs to; skinning's: phase
     # 4's synthesis and phase 10's conversions; the f32 forms': phase 11's
     # forwards and phase 12c's f32 Stage-1 fit (row 6f: both), rows 4f /
     # 5f and 8f-11f: phase 13b's f32 Stage-2 fit.
-    # Rows ``*_v1723``: phase 14's train steps, bf16 or f32.
+    # Rows ``*_v1723``: phase 14's train steps (the decoder blocks) or its
+    # evaluation and counted serving forwards (the chain and the whole
+    # block), bf16 or f32.
     counts = {**{k: mesh_counts[k] for k in REPLACES if k in mesh_counts},
               **{k: coarse[dt]["counts"][c]
                  for k, (dt, c) in COARSE_ROWS.items()},
+              **{k: coarse[dt]["serve_counts"][c]
+                 for k, (dt, c) in COARSE_SERVE_ROWS.items()},
               **{k: fused_counts[k] for k in DECODER},
               **{k: train_counts[k] for k in TRAINING},
               **{k: serve_counts[k] for k in SERVING},
@@ -4513,6 +4842,11 @@ def main() -> int:
           f"(1723 vertices) train step bf16 {coarse['bf16']['ms']:.3f} ms "
           f"({coarse['bf16']['peak']:.2f} GiB), f32 "
           f"{coarse['f32']['ms']:.3f} ms ({coarse['f32']['peak']:.2f} GiB), "
+          f"serving (chain / whole block) bf16 "
+          f"{coarse['bf16']['fps']['chain']:.1f} / "
+          f"{coarse['bf16']['fps']['whole-block']:.1f} mid-frames/s, f32 "
+          f"{coarse['f32']['fps']['chain']:.1f} / "
+          f"{coarse['f32']['fps']['whole-block']:.1f}, "
           f"phase 14 {coarse['phase_s']:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

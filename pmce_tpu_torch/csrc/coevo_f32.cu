@@ -37,16 +37,20 @@
 // A cluster of S CTAs a clip (one launch a call, cudaLaunchKernelEx with a
 // cluster dimension; grid B S). The clip's vertex rows, in tiles of 16, are
 // split into S contiguous ranges, rank r taking the tiles [T r / S,
-// T (r + 1) / S) of T = ceil(V / 16); S is the fewest of 1, 2, 4, 8 that
+// T (r + 1) / S) of T = ceil(V / 16); S is the fewest of 1, 2, 4, 8, 16 that
 // leaves a rank at most 8 tiles (128 rows), so that each of a CTA's 8 warps
-// (256 threads) owns one vertex tile: V <= 1024. At V = 431, S = 4 (27
-// tiles: 6, 7, 7, 7). S = 2 would put two tiles on a warp and 224 rows on a
-// rank, whose three f32 [224, 64] buffers (the stream, k, v) alone take
-// 172 KB of the 227: the weight ring, the warps' stashes and the joint side
-// do not fit beside them. The wrappers' plan (coevo_f32_plan) reads S from
-// the same rule; pmce_coevo_f32_clusters gives the clusters the card holds
-// at once (cudaOccupancyMaxActiveClusters; on the H100 SXM 30 of 4, so B =
-// 64 takes 3 waves and B = 256 takes 9; 66 of 2).
+// (256 threads) owns one vertex tile: V <= 2048. At V = 431, S = 4 (27
+// tiles: 6, 7, 7, 7); at the two-level coarsening's V = 1723, S = 16 (108
+// tiles: 6 or 7 a rank). S = 2 at 431 would put two tiles on a warp and 224
+// rows on a rank, whose three f32 [224, 64] buffers (the stream, k, v)
+// alone take 172 KB of the 227: the weight ring, the warps' stashes and the
+// joint side do not fit beside them. Clusters of 16 are past the portable
+// 8: the kernels allow the non-portable size
+// (cudaFuncAttributeNonPortableClusterSizeAllowed), which the H100 takes.
+// The wrappers' plan (coevo_f32_plan) reads S from the same rule;
+// pmce_coevo_f32_clusters gives the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters; on the H100 SXM 30 of 4, so B = 64
+// takes 3 waves and B = 256 takes 9; 66 of 2).
 //
 // Each rank keeps its own range in its own shared memory: the vertex stream
 // as each warp's stashed tile (its A operands and residuals read a k-step at
@@ -60,8 +64,16 @@
 // for none of it).
 // - The vertex SA: every rank writes its rows' k and v, a cluster barrier,
 //   then each warp's queries stream every rank's 64-row chunks in rank
-//   order (the peers' read through distributed shared memory), one online
-//   softmax; a second cluster barrier before any rank overwrites its k, v.
+//   order (the peers' copied through distributed shared memory), one
+//   online softmax; a second cluster barrier before any rank overwrites
+//   its k, v.
+//   A peer's chunk is first copied once for the CTA's warps, 16 bytes a
+//   thread, into two [64][64] blocks free during the attention (the
+//   weight ring's stage of the q product, the keys and values over the
+//   joints), then read from there. The warps' eightfold reads of it
+//   through distributed shared memory made the whole kernel 1.6-1.8x as
+//   slow at V = 1723 (S = 16) and 1.09-1.16x at V = 431 (S = 4), the same
+//   bits (NVIDIA H100 80GB HBM3, 700.00 W; tools/profile_coevo.py).
 // - The joint CA (J queries over the V vertex keys): every rank runs the
 //   queries over its own keys (its k, v in the same blocks), keeps the
 //   partial o, max and sum; after a cluster barrier rank 0 merges the S
@@ -83,8 +95,8 @@
 // the joint CA's q, then its partial o, max and sum), the ring's list of
 // items 896: 207,744 a CTA, one CTA an SM.
 //
-// Registers (ptxas -v, sm_90a, 256 threads a CTA): both kernels 255, 0
-// bytes of stack, spill stores and spill loads.
+// Registers (ptxas -v, sm_90a, 256 threads a CTA): the chain 255, the whole
+// block 223, 0 bytes of stack, spill stores and spill loads.
 
 #include "common.cuh"
 #include "dec_tc32.cuh"
@@ -96,7 +108,7 @@ using namespace f32ops::dtc;
 constexpr int HID = 256;       // MLP hidden width (4C)
 constexpr int HJ = 8;          // joint-stream heads
 constexpr int HV = 2;          // vertex-stream heads
-constexpr int MAX_S = 8;       // CTAs of a cluster (the portable most)
+constexpr int MAX_S = 16;      // CTAs of a cluster (non-portable)
 constexpr int RMAX = NW * RB;  // vertex rows of a rank: a tile a warp
 constexpr int JMAX = 2 * RB;   // joint rows: two tiles (warps 0 and 1)
 constexpr int JKB = JMAX / 8;  // key blocks of a chunk of joints
@@ -639,6 +651,20 @@ __device__ __forceinline__ void merge_joint(int S) {
   stash(tile_at(OFF_JP), O);
 }
 
+// A peer's staged [64][64] block (k or v of a chunk, through distributed
+// shared memory) copied as it is into this CTA's block at dst: 16 bytes a
+// thread at a time, every load of a thread issued before its stores.
+__device__ __forceinline__ void stage_block(const float* src, float* dst) {
+  constexpr int PER = BLK / 4 / NT;
+  float4 v[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    v[i] = reinterpret_cast<const float4*>(src)[threadIdx.x + i * NT];
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    reinterpret_cast<float4*>(dst)[threadIdx.x + i * NT] = v[i];
+}
+
 // One CoevoBlock from its pos-embedded features to its post-SA streams.
 // On entry each vertex warp's stash of the stream holds vf = vf0 +
 // vertx_pos, each joint warp's jf = jf0 + joint_pos; P is the block's K_*
@@ -798,28 +824,43 @@ __device__ __forceinline__ void block_body(const Geo& q, Weights& wr,
     stash(AS, x);
   }
   clu::sync();  // every rank's k and v
-  if (va) {
-    constexpr int KB = C / HV / 8;
+  // Each peer's chunk copied once for the CTA's warps: its k block into
+  // the ring's free stage (the q product's, reissued after the next
+  // barrier of the ring), its v block over the keys and values over the
+  // joints (free until rank 0's joint SA stores them again).
+  float* ks = const_cast<float*>(W);
+  float* vs = JK;
+  constexpr int KB = C / HV / 8;
 #pragma unroll 1
-    for (int h = 0; h < HV; ++h) {
-      float Q[KB][4], O[KB][4], m[2] = {-INFINITY, -INFINITY},
-                                l[2] = {0.f, 0.f};
-      unstash_cols<KB>(AS, h * KB, Q);
+  for (int h = 0; h < HV; ++h) {
+    float Q[KB][4], O[KB][4], m[2] = {-INFINITY, -INFINITY},
+                              l[2] = {0.f, 0.f};
+    if (va) unstash_cols<KB>(AS, h * KB, Q);
 #pragma unroll
-      for (int j = 0; j < KB; ++j)
+    for (int j = 0; j < KB; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) O[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) O[j][e] = 0.f;
 #pragma unroll 1
-      for (int r = 0; r < q.S; ++r) {
-        int r0, n;
-        rank_rows(q.V, q.S, r, r0, n);
-        const float* kb = r == q.rank ? Km : clu::peer(Km, r);
+    for (int r = 0; r < q.S; ++r) {
+      int r0, n;
+      rank_rows(q.V, q.S, r, r0, n);
 #pragma unroll 1
-        for (int c = 0; c * KC < n; ++c)
-          head_chunk<KB, KC / 8>(Q, h * KB, kb + c * 2 * BLK,
-                                 kb + c * 2 * BLK + BLK, min(KC, n - c * KC),
-                                 O, m, l);
+      for (int c = 0; c * KC < n; ++c) {
+        const float *kc = Km + c * 2 * BLK, *vc = kc + BLK;
+        if (r != q.rank) {
+          __syncthreads();  // every warp done with the staged chunk
+          stage_block(clu::peer(kc, r), ks);
+          stage_block(clu::peer(vc, r), vs);
+          __syncthreads();
+          kc = ks;
+          vc = vs;
+        }
+        if (va)
+          head_chunk<KB, KC / 8>(Q, h * KB, kc, vc, min(KC, n - c * KC), O,
+                                 m, l);
       }
+    }
+    if (va) {
 #pragma unroll
       for (int j = 0; j < KB; ++j)
 #pragma unroll
@@ -1007,18 +1048,27 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-// Whether the plan takes the shape: J <= 32 joints, S in 1..8 CTAs a clip
+// Whether the plan takes the shape: J <= 32 joints, S in 1..16 CTAs a clip
 // of at most RMAX vertex rows each.
 __host__ __device__ inline bool admits(int J, int V, int S) {
   return J > 0 && J <= JMAX && V > 0 && S >= 1 && S <= MAX_S &&
          S <= cdiv(V, RB) && rank_rows_max(V, S) <= RMAX;
 }
 
+// The kernel's shared memory, and clusters past the portable 8 CTAs.
+template <class K>
+cudaError_t allow_clusters(K kernel) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
 template <class K, class... A>
 cudaError_t launch_clusters(K kernel, int clips, int S, cudaStream_t stream,
                             A... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  cudaError_t e = allow_clusters(kernel);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clips * S);
@@ -1042,7 +1092,7 @@ cudaError_t launch_clusters(K kernel, int clips, int S, cudaStream_t stream,
 
 // The dynamic shared memory a CTA of the plan takes at V vertices in
 // clusters of S (the same at every admitted shape), or -1 where the plan
-// does not take V (a rank over RMAX rows, S outside 1..8).
+// does not take V (a rank over RMAX rows, S outside 1..16).
 extern "C" long long pmce_coevo_f32_smem_bytes(int V, int S) {
   return cf32::admits(1, V, S) ? cf32::SMEM : -1;
 }
@@ -1051,8 +1101,8 @@ extern "C" long long pmce_coevo_f32_smem_bytes(int V, int S) {
 // (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
 extern "C" int pmce_coevo_f32_clusters(int S) {
   using namespace cf32;
-  cudaError_t e = cudaFuncSetAttribute(
-      chain_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  const auto kernel = chain_f32_kernel;
+  cudaError_t e = allow_clusters(kernel);
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S * 256);
@@ -1067,7 +1117,7 @@ extern "C" int pmce_coevo_f32_clusters(int S) {
   cfg.numAttrs = 1;
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(
-      &n, reinterpret_cast<const void*>(chain_f32_kernel), &cfg);
+      &n, reinterpret_cast<const void*>(kernel), &cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
@@ -1084,8 +1134,8 @@ extern "C" int pmce_coevo_chain_f32(const float* joints, float* jout,
   if (B <= 0 || NB <= 0 || !admits(J, V, S))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_clusters(
-      chain_f32_kernel, B, S, static_cast<cudaStream_t>(stream), joints, jout,
-      vout, gammas, betas, static_cast<const void* const*>(params), J, V, NB,
+      chain_f32_kernel, B, S, static_cast<cudaStream_t>(stream), joints,
+      jout, vout, gammas, betas, static_cast<const void* const*>(params), J, V, NB,
       S, eps, scale_j, scale_v));
 }
 

@@ -2,14 +2,29 @@
 // kernel (coevo_chain.cu, all blocks plus their coordinate heads) and the
 // whole-block kernel (coevo_block.cu, one block, features in and out).
 //
-// Both run one thread block of NT threads per clip. The vertex stream and
-// its temporaries live in dynamic shared memory: an f32 [V, C] stream
-// buffer and two bf16 [V, C] buffers, 512 * V bytes in all (220,672 B at
-// V = 431), plus 16 padding rows. Each stage reuses whichever buffer is
-// dead at that point (the plan is spelled out in coevo_block_body), so no
-// [V, C] intermediate leaves the SM. The joint stream ([J, C], 19 rows) and
-// its temporaries live in a per-clip workspace in global memory, which L1
-// and L2 hold, as do the weights.
+// Both run a clip on one thread block of NT threads while its vertex
+// stream fits there (V <= 450), else on a cluster of S CTAs (2, 4 or 8).
+// One CTA a clip: the vertex stream and its temporaries live in dynamic
+// shared memory, an f32 [V, C] stream buffer and two bf16 [V, C] buffers,
+// 512 * V bytes in all (220,672 B at V = 431), plus 16 padding rows. Each
+// stage reuses whichever buffer is dead at that point (the plan is spelled
+// out in coevo_block_body), so no [V, C] intermediate leaves the SM. The
+// joint stream ([J, C], 19 rows) and its temporaries live in a per-clip
+// workspace in global memory, which L1 and L2 hold, as do the weights.
+//
+// A cluster of S CTAs a clip (the two-level coarsening's V = 1723: S = 8,
+// 208-224 rows a rank): the vertex rows, in tiles of 16, split into S
+// contiguous ranges (rank_rows), each rank keeping the same three buffers
+// over its own rows (at most RMAX_CL = 256), the swizzle by its local row
+// (a range starts at a multiple of 16); beside them the vertex
+// self-attention's staging area, the joint workspace (each rank's own, in
+// its shared memory) and the joint CA's partials (cluster_smem_bytes:
+// 215,040 B at V = 1723, J <= 32). coevo_block_body's CL form says which
+// rank computes what and where the cluster barriers stand: the vertex
+// self-attention walks every rank's keys in rank order through distributed
+// shared memory (attn_cluster), the joint CA merges the ranks' partials in
+// rank order (merge_partials). Nothing is summed with atomics, and every
+// sum has a fixed order: a rerun gives the same bits.
 //
 // The bf16 shared-memory buffers are swizzled: the 16-byte chunk c of row
 // r sits at chunk c ^ (r % 8), so the eight rows an ldmatrix phase reads
@@ -315,10 +330,13 @@ __device__ void attn_rows(Mat q, Mat k, Mat v, Mat out, int nq, int nk,
 // one (query, head)'s keys in thirds, each runs an online softmax in f32,
 // and the first lane merges the three states, pulled by shuffles in a
 // fixed order; ten (query, head) pairs a warp. q is pre-scaled; out may
-// alias q.
-template <int DH>
-__device__ void attn_split3(Mat q, Mat k, Mat v, Mat out, int nq, int nk,
-                            int heads) {
+// alias q. PART (a cluster rank's share, over this CTA's nk keys): the
+// merged state is not normalised but kept, o in f32 ([nq, heads * DH]
+// row-major at po, row stride CC), its max and sum ([nq, heads] at pm, pl);
+// out is unused.
+template <int DH, bool PART>
+__device__ void attn_split3(Mat q, Mat k, Mat v, Mat out, float* po,
+                            float* pm, float* pl, int nq, int nk, int heads) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int part = lane % 3, per = (nk + 2) / 3;
   for (int base = warp * 10; base < nq * heads; base += NT / 32 * 10) {
@@ -362,7 +380,8 @@ __device__ void attn_split3(Mat q, Mat k, Mat v, Mat out, int nq, int nk,
     const float w0 = m == -INFINITY ? 0.f : expf(m - mm);
     const float w1 = m1 == -INFINITY ? 0.f : expf(m1 - mm);
     const float w2 = m2 == -INFINITY ? 0.f : expf(m2 - mm);
-    const float inv = 1.0f / ((l * w0 + l1 * w1) + l2 * w2);
+    const float L = (l * w0 + l1 * w1) + l2 * w2;
+    const float inv = PART ? 1.f : 1.0f / L;
 #pragma unroll
     for (int d = 0; d < DH; ++d) {
       const float o1 = __shfl_down_sync(0xffffffffu, o[d], 1);
@@ -370,9 +389,43 @@ __device__ void attn_split3(Mat q, Mat k, Mat v, Mat out, int nq, int nk,
       o[d] = ((o[d] * w0 + o1 * w1) + o2 * w2) * inv;
     }
     if (act && part == 0) {
+      if constexpr (PART) {
 #pragma unroll
-      for (int d = 0; d < DH; ++d) *out.at(i, h * DH + d) = f2bf(o[d]);
+        for (int d = 0; d < DH; ++d) po[i * CC + h * DH + d] = o[d];
+        pm[i * heads + h] = mm;
+        pl[i * heads + h] = L;
+      } else {
+#pragma unroll
+        for (int d = 0; d < DH; ++d) *out.at(i, h * DH + d) = f2bf(o[d]);
+      }
     }
+  }
+}
+
+// Rank 0's joint CA output: the S ranks' partials of attn_split3 (at
+// the same offsets in each rank's shared memory) merged in rank order and
+// normalised, one thread a (query, head), into out (bf16).
+template <int DH>
+__device__ void merge_partials(const float* po, const float* pm,
+                               const float* pl, Mat out, int nq, int heads,
+                               int S) {
+  for (int t = threadIdx.x; t < nq * heads; t += NT) {
+    const int i = t / heads, h = t % heads;
+    float M = -INFINITY;
+    for (int r = 0; r < S; ++r) M = fmaxf(M, clu::peer(pm, r)[t]);
+    float L = 0.f, o[DH];
+#pragma unroll
+    for (int d = 0; d < DH; ++d) o[d] = 0.f;
+    for (int r = 0; r < S; ++r) {
+      const float f = expf(clu::peer(pm, r)[t] - M);
+      L += clu::peer(pl, r)[t] * f;
+      const float* pr = clu::peer(po, r) + i * CC + h * DH;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) o[d] += pr[d] * f;
+    }
+    const float inv = 1.0f / L;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) *out.at(i, h * DH + d) = f2bf(o[d] * inv);
   }
 }
 
@@ -383,124 +436,264 @@ __device__ void attn_split3(Mat q, Mat k, Mat v, Mat out, int nq, int nk,
 // 16 queries of one head and walks the keys in blocks of 16 (rows past nk
 // read as row nk - 1 and masked). out may alias q (a task writes only the
 // rows and head it read).
+//
+// One key block: the scores of the warp's 16 queries (qa) of the head at
+// column hc over keys kb .. kb + 15 of k, the online softmax's max (m0, m1:
+// rows g, g + 8) and sum (l0, l1, this lane's share) and o (unnormalised,
+// rescaled as the max grows) updated.
+template <bool KVS>
+__device__ __forceinline__ void attn_kblock(const unsigned (&qa)[2][4], Mat k,
+                                            Mat v, int kb, int nk, int hc,
+                                            float& m0, float& m1, float& l0,
+                                            float& l1, float (&o)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  float sc[2][4];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[t][e] = 0.f;
+    unsigned kf[4];
+    if constexpr (KVS) {
+      ldsm_x4(kf, k.at(min(kb + t * 8 + (lane & 7), nk - 1),
+                       hc + (lane >> 3) * 8));
+    } else {
+      const bf16* kr = k.at(min(kb + t * 8 + g, nk - 1), hc + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        kf[e] = *reinterpret_cast<const unsigned*>(kr + 8 * e);
+    }
+    mma_bf16(sc[t], qa[0], kf[0], kf[1]);
+    mma_bf16(sc[t], qa[1], kf[2], kf[3]);
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (kb + t * 8 + 2 * tq + e >= nk) {
+        sc[t][e] = -INFINITY;
+        sc[t][2 + e] = -INFINITY;
+      }
+      mx0 = fmaxf(mx0, sc[t][e]);
+      mx1 = fmaxf(mx1, sc[t][2 + e]);
+    }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // Every block holds a valid key for every query, so the maxima are
+  // finite from the first block on.
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[t][e] = expf(sc[t][e] - mn0);
+      sc[t][2 + e] = expf(sc[t][2 + e] - mn1);
+    }
+  l0 = l0 * c0 + ((sc[0][0] + sc[0][1]) + (sc[1][0] + sc[1][1]));
+  l1 = l1 * c1 + ((sc[0][2] + sc[0][3]) + (sc[1][2] + sc[1][3]));
+  m0 = mn0;
+  m1 = mn1;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    o[d][0] *= c0;
+    o[d][1] *= c0;
+    o[d][2] *= c1;
+    o[d][3] *= c1;
+  }
+  const unsigned pa[4] = {pack_bf2(sc[0][0], sc[0][1]),
+                          pack_bf2(sc[0][2], sc[0][3]),
+                          pack_bf2(sc[1][0], sc[1][1]),
+                          pack_bf2(sc[1][2], sc[1][3])};
+#pragma unroll
+  for (int dp = 0; dp < 2; ++dp) {
+    unsigned vf[4];
+    if constexpr (KVS) {
+      ldsm_x4_t(vf, v.at(min(kb + (lane & 15), nk - 1),
+                         hc + dp * 16 + (lane >> 4) * 8));
+    } else {
+      // vf[2 * j + h]: keys kb + 8h + 2 tq + {0, 1} at column
+      // hc + dp * 16 + 8 j + g.
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kb + (e & 1) * 8 + 2 * tq;
+        const int col = hc + dp * 16 + (e >> 1) * 8 + g;
+        const bf16 lo = *v.at(min(key, nk - 1), col);
+        const bf16 hi = *v.at(min(key + 1, nk - 1), col);
+        vf[e] = static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
+                static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16;
+      }
+    }
+    mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
+    mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+  }
+}
+
+// The warp's 16 queries from q0 (of nq) of the head at column hc: their
+// sums (l0, l1) gathered over the quad, o normalised and stored.
+__device__ __forceinline__ void attn_store(Mat out, int q0, int nq, int hc,
+                                           float l0, float l1,
+                                           const float (&o)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float i0 = 1.0f / l0, i1 = 1.0f / l1;
+  const int r0 = q0 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const int c = hc + d * 8 + 2 * tq;
+    if (r0 < nq)
+      *reinterpret_cast<unsigned*>(out.at(r0, c)) =
+          pack_bf2(o[d][0] * i0, o[d][1] * i0);
+    if (r1 < nq)
+      *reinterpret_cast<unsigned*>(out.at(r1, c)) =
+          pack_bf2(o[d][2] * i1, o[d][3] * i1);
+  }
+}
+
+// The warp's task's q fragments: 16 queries from q0 of the head at hc.
+__device__ __forceinline__ void attn_q(Mat q, int q0, int nq, int hc,
+                                       unsigned (&qa)[2][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+    ldsm_x4(qa[ks], q.at(min(q0 + (lane & 15), nq - 1),
+                         hc + ks * 16 + (lane >> 4) * 8));
+}
+
 template <bool KVS>
 __device__ void attn_tc(Mat q, Mat k, Mat v, Mat out, int nq, int nk) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
+  const int warp = threadIdx.x >> 5;
   const int tasks = (nq + 15) / 16 * HV;
   for (int task = warp; task < tasks; task += NT / 32) {
     const int q0 = task / HV * 16, hc = task % HV * DHV;
     unsigned qa[2][4];
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-      ldsm_x4(qa[ks], q.at(min(q0 + (lane & 15), nq - 1),
-                           hc + ks * 16 + (lane >> 4) * 8));
+    attn_q(q, q0, nq, hc, qa);
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
     float o[4][4];
 #pragma unroll
     for (int d = 0; d < 4; ++d)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
-    for (int kb = 0; kb < nk; kb += 16) {
-      float sc[2][4];
+    for (int kb = 0; kb < nk; kb += 16)
+      attn_kblock<KVS>(qa, k, v, kb, nk, hc, m0, m1, l0, l1, o);
+    attn_store(out, q0, nq, hc, l0, l1, o);
+  }
+}
+
+// A cluster of S CTAs a clip (S > 1): the vertex rows in tiles of 16 split
+// into S contiguous ranges, rank r taking the tiles [T r / S, T (r + 1) / S)
+// of T = ceil(V / 16), each with buffers of RMAX_CL rows at most.
+constexpr int KC = 64;         // key rows a staged chunk
+constexpr int MAX_S = 8;       // CTAs of a cluster (the portable most)
+constexpr int RMAX_CL = 256;   // vertex rows of a rank: two tasks a warp
+constexpr int TPW = RMAX_CL / 16 * HV / (NT / 32);  // attention tasks a warp
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Rank r's vertex rows [row0, row0 + n) of V.
+__host__ __device__ inline void rank_rows(int V, int S, int r, int& row0,
+                                          int& n) {
+  const int T = cdiv(V, 16);
+  row0 = 16 * (T * r / S);
+  const int end = 16 * (T * (r + 1) / S);
+  n = (end < V ? end : V) - row0;
+}
+
+// The rows of each rank's buffers (the most any rank takes).
+__host__ __device__ inline int rank_rows_max(int V, int S) {
+  return 16 * cdiv(cdiv(V, 16), S);
+}
+
+// The attention's staging area: two stages of a chunk's k and v rows.
+constexpr int STAGE_BYTES = 2 * 2 * KC * CC * 2;
+
+// The vertex self-attention of a cluster's rank: the queries of this CTA's
+// nq rows (q swizzled in shared memory, pre-scaled) over the keys of every
+// rank in rank order, V in all (k / v: this CTA's buffers, the same offsets
+// in each rank's), each rank's rows in chunks of KC staged through `stage`
+// (two stages: the next chunk's loads, through distributed shared memory,
+// in flight behind the current chunk's products). A warp keeps the softmax
+// state of its TPW tasks across the chunks; the key blocks of 16 and their
+// order are those of attn_tc over all V keys, so each query's sums are the
+// same bits. out may alias q.
+__device__ void attn_cluster(Mat q, Mat k, Mat v, Mat out, int nq, int V,
+                             int S, bf16* stage) {
+  const int warp = threadIdx.x >> 5;
+  const int tasks = (nq + 15) / 16 * HV;
+  unsigned qa[TPW][2][4];
+  float m[TPW][2], l[TPW][2], o[TPW][4][4];
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
+  for (int i = 0; i < TPW; ++i) {
+    const int task = warp + i * (NT / 32);
+    if (task < tasks) attn_q(q, task / HV * 16, nq, task % HV * DHV, qa[i]);
+    m[i][0] = m[i][1] = -INFINITY;
+    l[i][0] = l[i][1] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sc[t][e] = 0.f;
-        unsigned kf[4];
-        if constexpr (KVS) {
-          ldsm_x4(kf, k.at(min(kb + t * 8 + (lane & 7), nk - 1),
-                           hc + (lane >> 3) * 8));
-        } else {
-          const bf16* kr = k.at(min(kb + t * 8 + g, nk - 1), hc + 2 * tq);
+    for (int d = 0; d < 4; ++d)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            kf[e] = *reinterpret_cast<const unsigned*>(kr + 8 * e);
-        }
-        mma_bf16(sc[t], qa[0], kf[0], kf[1]);
-        mma_bf16(sc[t], qa[1], kf[2], kf[3]);
-      }
-      float mx0 = -INFINITY, mx1 = -INFINITY;
+      for (int e = 0; e < 4; ++e) o[i][d][e] = 0.f;
+  }
+  // Thread t copies the 16-byte units t and t + NT of a chunk: units
+  // [0, 8 KC) are its k rows, [8 KC, 16 KC) its v rows (8 units a row; a
+  // chunk starts at a multiple of 64 rows, so a row keeps its swizzle).
+  constexpr int ROW_UNITS = CC / 8;
+  uint4 pre[2];
+  const auto fetch = [&](int r, int c0, int kc) {
 #pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (kb + t * 8 + 2 * tq + e >= nk) {
-            sc[t][e] = -INFINITY;
-            sc[t][2 + e] = -INFINITY;
-          }
-          mx0 = fmaxf(mx0, sc[t][e]);
-          mx1 = fmaxf(mx1, sc[t][2 + e]);
-        }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      // Every block holds a valid key for every query, so the maxima are
-      // finite from the first block on.
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          sc[t][e] = expf(sc[t][e] - mn0);
-          sc[t][2 + e] = expf(sc[t][2 + e] - mn1);
-        }
-      l0 = l0 * c0 + ((sc[0][0] + sc[0][1]) + (sc[1][0] + sc[1][1]));
-      l1 = l1 * c1 + ((sc[0][2] + sc[0][3]) + (sc[1][2] + sc[1][3]));
-      m0 = mn0;
-      m1 = mn1;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        o[d][0] *= c0;
-        o[d][1] *= c0;
-        o[d][2] *= c1;
-        o[d][3] *= c1;
-      }
-      const unsigned pa[4] = {pack_bf2(sc[0][0], sc[0][1]),
-                              pack_bf2(sc[0][2], sc[0][3]),
-                              pack_bf2(sc[1][0], sc[1][1]),
-                              pack_bf2(sc[1][2], sc[1][3])};
-#pragma unroll
-      for (int dp = 0; dp < 2; ++dp) {
-        unsigned vf[4];
-        if constexpr (KVS) {
-          ldsm_x4_t(vf, v.at(min(kb + (lane & 15), nk - 1),
-                             hc + dp * 16 + (lane >> 4) * 8));
-        } else {
-          // vf[2 * j + h]: keys kb + 8h + 2 tq + {0, 1} at column
-          // hc + dp * 16 + 8 j + g.
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = kb + (e & 1) * 8 + 2 * tq;
-            const int col = hc + dp * 16 + (e >> 1) * 8 + g;
-            const bf16 lo = *v.at(min(key, nk - 1), col);
-            const bf16 hi = *v.at(min(key + 1, nk - 1), col);
-            vf[e] = static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
-                    static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16;
-          }
-        }
-        mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+    for (int u = 0; u < 2; ++u) {
+      const int unit = threadIdx.x + u * NT;
+      const int side = unit / (KC * ROW_UNITS);
+      const int row = unit % (KC * ROW_UNITS) / ROW_UNITS;
+      const int col = unit % ROW_UNITS * 8;
+      if (row < kc) {
+        const bf16* src = (side ? v : k).p + (size_t)(c0 + row) * CC + col;
+        pre[u] = *clu::peer(reinterpret_cast<const uint4*>(src), r);
       }
     }
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float i0 = 1.0f / l0, i1 = 1.0f / l1;
-    const int r0 = q0 + g, r1 = r0 + 8;
+  };
+  int r = 0, c0 = 0, n_r, r0_unused;
+  rank_rows(V, S, 0, r0_unused, n_r);
+  fetch(0, 0, min(KC, n_r));
+  for (int ci = 0; r < S; ++ci) {
+    const int kc = min(KC, n_r - c0);
+    bf16* st = stage + (ci & 1) * 2 * KC * CC;
 #pragma unroll
-    for (int d = 0; d < 4; ++d) {
-      const int c = hc + d * 8 + 2 * tq;
-      if (r0 < nq)
-        *reinterpret_cast<unsigned*>(out.at(r0, c)) =
-            pack_bf2(o[d][0] * i0, o[d][1] * i0);
-      if (r1 < nq)
-        *reinterpret_cast<unsigned*>(out.at(r1, c)) =
-            pack_bf2(o[d][2] * i1, o[d][3] * i1);
+    for (int u = 0; u < 2; ++u) {
+      const int unit = threadIdx.x + u * NT;
+      if (unit % (KC * ROW_UNITS) / ROW_UNITS < kc)
+        reinterpret_cast<uint4*>(st)[unit] = pre[u];
     }
+    __syncthreads();
+    // The next chunk: this rank's next rows, else the next rank's first.
+    c0 += KC;
+    if (c0 >= n_r) {
+      c0 = 0;
+      if (++r < S) rank_rows(V, S, r, r0_unused, n_r);
+    }
+    if (r < S) fetch(r, c0, min(KC, n_r - c0));
+    const Mat ks{st, CC, true}, vs{st + KC * CC, CC, true};
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      const int task = warp + i * (NT / 32);
+      if (task >= tasks) continue;
+      for (int kb = 0; kb < kc; kb += 16)
+        attn_kblock<true>(qa[i], ks, vs, kb, kc, task % HV * DHV, m[i][0],
+                          m[i][1], l[i][0], l[i][1], o[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TPW; ++i) {
+    const int task = warp + i * (NT / 32);
+    if (task < tasks)
+      attn_store(out, task / HV * 16, nq, task % HV * DHV, l[i][0], l[i][1],
+                 o[i]);
   }
 }
 
@@ -572,8 +765,78 @@ __host__ __device__ inline long long clip_workspace_bytes(int J) {
   return (bytes + 255) / 256 * 256;
 }
 
+// A cluster rank's shared memory (S > 1): the three [R, C] buffers of its
+// R = rank_rows_max(V, S) rows, the attention's staging area (also the
+// MLP's hidden rows past the third buffer), the joint workspace, the joint
+// CA's partial o, max and sum and its merged output.
+__host__ __device__ inline long long cluster_smem_bytes(int J, int V, int S) {
+  const long long Jp = (J + 15) / 16 * 16;
+  return (long long)rank_rows_max(V, S) * CC * 8 + STAGE_BYTES +
+         clip_workspace_bytes(J) + Jp * CC * 4 + 2 * Jp * HJ * 4 +
+         Jp * CC * 2;
+}
+
+// Whether the cluster program takes the shape: S of 2..MAX_S CTAs, each a
+// range of whole tiles, at most RMAX_CL rows, its buffers in sm_90's
+// opt-in shared memory.
+__host__ __device__ inline bool cluster_admits(int J, int V, int S) {
+  return J > 0 && V >= 48 && S >= 2 && S <= MAX_S && S <= cdiv(V, 16) &&
+         rank_rows_max(V, S) <= RMAX_CL &&
+         cluster_smem_bytes(J, V, S) <= 232448;
+}
+
+// The cluster program's launch: grid B S, S CTAs a cluster
+// (cudaLaunchKernelEx with a cluster dimension), smem bytes of dynamic
+// shared memory a CTA.
+template <class K, class... A>
+cudaError_t launch_cluster(K kernel, int smem, int B, int S,
+                           cudaStream_t stream, A... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * S);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// The clusters of S CTAs of `kernel` (smem bytes each) the card holds at
+// once (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+template <class K>
+int occupancy_clusters(K kernel, int smem, int S) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S * 256);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(
+      &n, reinterpret_cast<const void*>(kernel), &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
 // Where one clip's buffers live: the vertex stream in shared memory
-// (bf16 buffers swizzled), the joint stream in the clip's workspace.
+// (bf16 buffers swizzled), the joint stream in the clip's workspace (in
+// global memory, or in a cluster rank's shared memory).
 struct ClipBuffers {
   float* XV;    // f32 [V, C] stream, or
   Mat XVa;      // two bf16 [V, C] buffers over the same bytes
@@ -585,7 +848,28 @@ struct ClipBuffers {
   Mat jf, jq, jav, jn, jt, kvk, kvv, jh;  // joint stream, bf16
   float* jx;                              // f32 [J, C] joint stream
   int Jp;
+  // A cluster rank's (S > 1): the staging area, the joint CA's partials
+  // (o f32 [Jp, C], max and sum [Jp, HJ]) and rank 0's merged output.
+  bf16* stage;
+  float *po, *pm, *pl;
+  Mat jca;
 };
+
+__device__ __forceinline__ void joint_buffers(ClipBuffers& s,
+                                              unsigned char* ws, int J) {
+  s.Jp = (J + 15) / 16 * 16;
+  const size_t jc = (size_t)s.Jp * CC;
+  bf16* w = reinterpret_cast<bf16*>(ws);
+  s.jf = Mat{w, CC, false};
+  s.jq = Mat{w + jc, CC, false};
+  s.jav = Mat{w + 2 * jc, CC, false};
+  s.jn = Mat{w + 3 * jc, CC, false};
+  s.jt = Mat{w + 4 * jc, CC, false};
+  s.kvk = Mat{w + 5 * jc, CC, false};
+  s.kvv = Mat{w + 6 * jc, CC, false};
+  s.jh = Mat{w + 7 * jc, HID, false};
+  s.jx = reinterpret_cast<float*>(w + 7 * jc + (size_t)s.Jp * HID);
+}
 
 __device__ __forceinline__ ClipBuffers clip_buffers(unsigned char* smem,
                                                     unsigned char* ws,
@@ -600,42 +884,135 @@ __device__ __forceinline__ ClipBuffers clip_buffers(unsigned char* smem,
   s.B2 = Mat{sb + 3 * vc, CC, true};
   s.hidv = Mat{sb + 3 * vc, HID, true};
   s.hid_elems = static_cast<int>(vc) + 16 * CC;
-  s.Jp = (J + 15) / 16 * 16;
-  const size_t jc = (size_t)s.Jp * CC;
-  bf16* w = reinterpret_cast<bf16*>(ws);
-  s.jf = Mat{w, CC, false};
-  s.jq = Mat{w + jc, CC, false};
-  s.jav = Mat{w + 2 * jc, CC, false};
-  s.jn = Mat{w + 3 * jc, CC, false};
-  s.jt = Mat{w + 4 * jc, CC, false};
-  s.kvk = Mat{w + 5 * jc, CC, false};
-  s.kvv = Mat{w + 6 * jc, CC, false};
-  s.jh = Mat{w + 7 * jc, HID, false};
-  s.jx = reinterpret_cast<float*>(w + 7 * jc + (size_t)s.Jp * HID);
+  joint_buffers(s, ws, J);
+  return s;
+}
+
+// A cluster rank's buffers over R rows (cluster_smem_bytes' layout).
+__device__ __forceinline__ ClipBuffers cluster_buffers(unsigned char* smem,
+                                                       int J, int R) {
+  ClipBuffers s;
+  const size_t vc = (size_t)R * CC;
+  bf16* sb = reinterpret_cast<bf16*>(smem);
+  s.XV = reinterpret_cast<float*>(smem);
+  s.XVa = Mat{sb, CC, true};
+  s.XVb = Mat{sb + vc, CC, true};
+  s.B1 = Mat{sb + 2 * vc, CC, true};
+  s.B2 = Mat{sb + 3 * vc, CC, true};
+  s.hidv = Mat{sb + 3 * vc, HID, true};
+  s.stage = sb + 4 * vc;
+  s.hid_elems = static_cast<int>(vc) + STAGE_BYTES / 2;
+  unsigned char* ws = smem + vc * 8 + STAGE_BYTES;
+  joint_buffers(s, ws, J);
+  s.po = reinterpret_cast<float*>(ws + clip_workspace_bytes(J));
+  s.pm = s.po + (size_t)s.Jp * CC;
+  s.pl = s.pm + (size_t)s.Jp * HJ;
+  s.jca = Mat{reinterpret_cast<bf16*>(s.pl + (size_t)s.Jp * HJ), CC, false};
   return s;
 }
 
 #define COEVO_WB(tab, i) static_cast<const bf16*>((tab)[i])
 #define COEVO_WF(tab, i) static_cast<const float*>((tab)[i])
 
+#define GAM(k) (gm + (k) * CC)
+#define BET(k) (bt + (k) * CC)
+
+// The joint CA's tail: joint1 = jq + (o Wproj + bproj) into s.jx, then its
+// FFN (o: the attention output, bf16 [J, C]).
+template <bool PROF>
+__device__ __forceinline__ void joint_ca_tail(const ClipBuffers& s,
+                                              const void* const* CJ,
+                                              const float* gm,
+                                              const float* bt, int J,
+                                              float eps, Mat o,
+                                              Stamps<PROF>& mark) {
+  const Mat none{};
+  gemm_j<E_RES>(o, J, COEVO_WB(CJ, 6), COEVO_WF(CJ, 7), none, s.jx, nullptr,
+                s.jq, 0.f);
+  __syncthreads();
+  mark(ST_JCA, KD_GEMM);
+  adaln_rows(s.jx, false, s.jn, J, GAM(3), BET(3), eps);
+  __syncthreads();
+  mark(ST_JCA, KD_ADALN);
+  mlp_rows<false>(s.jn, J, CJ + 8, s.jx, s.jh, s.Jp * HID, mark, ST_JCA);
+}
+
+// The joint SA + FFN on bf16(joint1): residual in jt, k / v in kvk / kvv,
+// q and then the attention output in jq (dead since the joint CA's tail;
+// a joint product's tasks are 16 columns wide, so none runs in place).
+template <bool PROF>
+__device__ __forceinline__ void joint_sa(const ClipBuffers& s,
+                                         const void* const* SJ,
+                                         const float* gm, const float* bt,
+                                         int J, float eps, float scale_j,
+                                         Stamps<PROF>& mark) {
+  const Mat none{};
+  round_rows(s.jx, s.jt, J);
+  __syncthreads();
+  adaln_rows(s.jt.p, false, s.jn, J, GAM(8), BET(8), eps);
+  __syncthreads();
+  mark(ST_JSA, KD_ADALN);
+  gemm_j<E_BIAS>(s.jn, J, COEVO_WB(SJ, 0) + CC * CC, COEVO_WF(SJ, 1) + CC,
+                 s.kvk, nullptr, nullptr, none, 0.f);
+  gemm_j<E_BIAS>(s.jn, J, COEVO_WB(SJ, 0) + 2 * CC * CC,
+                 COEVO_WF(SJ, 1) + 2 * CC, s.kvv, nullptr, nullptr, none,
+                 0.f);
+  __syncthreads();
+  gemm_j<E_SCALE>(s.jn, J, COEVO_WB(SJ, 0), COEVO_WF(SJ, 1), s.jq, nullptr,
+                  nullptr, none, scale_j);
+  __syncthreads();
+  mark(ST_JSA, KD_GEMM);
+  attn_rows<DHJ>(s.jq, s.kvk, s.kvv, s.jq, J, J, HJ);
+  __syncthreads();
+  mark(ST_JSA, KD_ATTN);
+  gemm_j<E_RES>(s.jq, J, COEVO_WB(SJ, 2), COEVO_WF(SJ, 3), none, s.jx,
+                nullptr, s.jt, 0.f);
+  __syncthreads();
+  mark(ST_JSA, KD_GEMM);
+  adaln_rows(s.jx, false, s.jn, J, GAM(9), BET(9), eps);
+  __syncthreads();
+  mark(ST_JSA, KD_ADALN);
+  mlp_rows<false>(s.jn, J, SJ + 4, s.jx, s.jh, s.Jp * HID, mark, ST_JSA);
+}
+
+// A clip's place in its cluster: S CTAs (1: the one-CTA program), this
+// CTA's rank, the clip's V vertices, this CTA's vertex rows [row0, row0 +
+// n) (all V when S = 1).
+struct Clip {
+  int S, rank, V, row0, n;
+};
+
 // One CoevoBlock from its pos-embedded features to its post-SA streams.
 // On entry (after a __syncthreads) s.jf holds jf = bf16(jf0 + joint_pos)
-// and s.B1 holds vf = bf16(vf0 + vertx_pos); P is the block's K_* table,
-// gm / bt its 12 AdaLN gamma / beta rows (COEVO_SLOTS order). On return
-// (after a __syncthreads) s.XV holds vertx2 and, with joint_live, s.jx
+// and s.B1 holds vf = bf16(vf0 + vertx_pos) of the CTA's vertex rows; P is
+// the block's K_* table, gm / bt its 12 AdaLN gamma / beta rows
+// (COEVO_SLOTS order). On return (after a __syncthreads) s.XV holds vertx2
+// of the CTA's rows and, with joint_live (on rank 0 of a cluster), s.jx
 // holds joint2, both f32. Without joint_live (the chain's blocks before
 // its last, whose joint outputs the next block overwrites: every block
 // re-reads the original joints) the joint stream's CA+FFN and SA+FFN and
 // the v->j projection they alone read are skipped; the vertex stream is
 // the same bits either way.
-template <bool PROF>
+//
+// CL (a cluster of c.S > 1 CTAs a clip): every rank computes the joint
+// rows its vertex side reads (jf, jq, j_as_v and the vertex CA's keys and
+// values over the joints); the joint CA runs the joint queries over each
+// rank's own vertex keys (attn_split3's partials), and after a cluster barrier
+// rank 0 merges the partials in rank order (merge_partials) into s.jca;
+// the vertex SA's queries walk every rank's keys (attn_cluster) between two
+// cluster barriers (every rank's k and v written; every rank done reading
+// them before its k, v are overwritten). Rank 0 alone runs the joint CA's
+// tail and the joint SA + FFN, after its vertex side: the other ranks wait
+// for none of it.
+template <bool PROF, bool CL>
 __device__ __forceinline__ void coevo_block_body(
     const ClipBuffers& s, const void* const* P, const float* gm,
-    const float* bt, int J, int V, float eps, float scale_j, float scale_v,
-    bool joint_live, Stamps<PROF>& mark) {
-#define GAM(k) (gm + (k) * CC)
-#define BET(k) (bt + (k) * CC)
+    const float* bt, int J, const Clip& c, float eps, float scale_j,
+    float scale_v, bool joint_live, Stamps<PROF>& mark) {
   const Mat none{};
+  const int V = c.n;  // this CTA's vertex rows
+  const size_t vo = (size_t)c.row0 * CC;
+  const bool owner = !CL || c.rank == 0;
   // 1. The Q embed and the projections across: jq and j_as_v in the
   //    workspace; B2 = v_as_j.
   gemm_j<E_ADDMAT>(s.jf, J, COEVO_WB(P, K_WJ2V), COEVO_WF(P, K_BJ2V), s.jav,
@@ -643,7 +1020,7 @@ __device__ __forceinline__ void coevo_block_body(
   if (joint_live) {
     add_rows(s.jf.p, false, COEVO_WF(P, K_JQ), s.jq, J);
     gemm_v<E_ADDMAT>(s.B1, V, COEVO_WB(P, K_WV2J), COEVO_WF(P, K_BV2J), s.B2,
-                     nullptr, COEVO_WF(P, K_V2JK), none, 0.f);
+                     nullptr, COEVO_WF(P, K_V2JK) + vo, none, 0.f);
   }
   __syncthreads();
   mark(ST_S1, KD_GEMM);
@@ -665,23 +1042,24 @@ __device__ __forceinline__ void coevo_block_body(
                     nullptr, none, scale_j);
     __syncthreads();
     mark(ST_JCA, KD_GEMM);
-    attn_split3<DHJ>(s.jt, s.B2, s.XVb, s.jt, J, V, HJ);
-    __syncthreads();
-    mark(ST_JCA, KD_ATTN);
-    gemm_j<E_RES>(s.jt, J, COEVO_WB(CJ, 6), COEVO_WF(CJ, 7), none, s.jx,
-                  nullptr, s.jq, 0.f);
-    __syncthreads();
-    mark(ST_JCA, KD_GEMM);
-    adaln_rows(s.jx, false, s.jn, J, GAM(3), BET(3), eps);
-    __syncthreads();
-    mark(ST_JCA, KD_ADALN);
-    mlp_rows<false>(s.jn, J, CJ + 8, s.jx, s.jh, s.Jp * HID, mark, ST_JCA);
+    if constexpr (CL) {
+      attn_split3<DHJ, true>(s.jt, s.B2, s.XVb, Mat{}, s.po, s.pm, s.pl, J,
+                             V, HJ);
+      clu::sync();  // every rank's partials
+      if (owner) merge_partials<DHJ>(s.po, s.pm, s.pl, s.jca, J, HJ, c.S);
+    } else {
+      attn_split3<DHJ, false>(s.jt, s.B2, s.XVb, s.jt, nullptr, nullptr,
+                              nullptr, J, V, HJ);
+      __syncthreads();
+      mark(ST_JCA, KD_ATTN);
+      joint_ca_tail(s, CJ, gm, bt, J, eps, s.jt, mark);
+    }
   }
 
   // 3. Vertex CA + FFN: queries vq (B2), keys j_as_v, values jf.
   //    q overwrites B1 (vf is dead once vq exists); x1 goes to XV.
   const void* const* CV = P + K_CAV;
-  add_rows(s.B1.p, true, COEVO_WF(P, K_VQ), s.B2, V);
+  add_rows(s.B1.p, true, COEVO_WF(P, K_VQ) + vo, s.B2, V);
   __syncthreads();
   adaln_rows(s.B2.p, true, s.B1, V, GAM(4), BET(4), eps);
   adaln_rows(s.jav.p, false, s.jn, J, GAM(5), BET(5), eps);
@@ -708,38 +1086,9 @@ __device__ __forceinline__ void coevo_block_body(
   mark(ST_VCA, KD_ADALN);
   mlp_rows<true>(s.B1, V, CV + 8, s.XV, s.hidv, s.hid_elems, mark, ST_VCA);
 
-  // 4. Joint SA + FFN on bf16(joint1): residual in jt, k / v in kvk / kvv,
-  //    q and then the attention output in jq (dead since joint CA; a joint
-  //    product's tasks are 16 columns wide, so none runs in place).
+  // 4. Joint SA + FFN (one CTA a clip: here; a cluster: rank 0, below).
   const void* const* SJ = P + K_SAJ;
-  if (joint_live) {
-    round_rows(s.jx, s.jt, J);
-    __syncthreads();
-    adaln_rows(s.jt.p, false, s.jn, J, GAM(8), BET(8), eps);
-    __syncthreads();
-    mark(ST_JSA, KD_ADALN);
-    gemm_j<E_BIAS>(s.jn, J, COEVO_WB(SJ, 0) + CC * CC, COEVO_WF(SJ, 1) + CC,
-                   s.kvk, nullptr, nullptr, none, 0.f);
-    gemm_j<E_BIAS>(s.jn, J, COEVO_WB(SJ, 0) + 2 * CC * CC,
-                   COEVO_WF(SJ, 1) + 2 * CC, s.kvv, nullptr, nullptr, none,
-                   0.f);
-    __syncthreads();
-    gemm_j<E_SCALE>(s.jn, J, COEVO_WB(SJ, 0), COEVO_WF(SJ, 1), s.jq, nullptr,
-                    nullptr, none, scale_j);
-    __syncthreads();
-    mark(ST_JSA, KD_GEMM);
-    attn_rows<DHJ>(s.jq, s.kvk, s.kvv, s.jq, J, J, HJ);
-    __syncthreads();
-    mark(ST_JSA, KD_ATTN);
-    gemm_j<E_RES>(s.jq, J, COEVO_WB(SJ, 2), COEVO_WF(SJ, 3), none, s.jx,
-                  nullptr, s.jt, 0.f);
-    __syncthreads();
-    mark(ST_JSA, KD_GEMM);
-    adaln_rows(s.jx, false, s.jn, J, GAM(9), BET(9), eps);
-    __syncthreads();
-    mark(ST_JSA, KD_ADALN);
-    mlp_rows<false>(s.jn, J, SJ + 4, s.jx, s.jh, s.Jp * HID, mark, ST_JSA);
-  }
+  if (!CL && joint_live) joint_sa(s, SJ, gm, bt, J, eps, scale_j, mark);
 
   // 5. Vertex SA + FFN on bf16(vertx1): residual in B2, normalised input
   //    in B1, k/v in XVa/XVb, q and then the attention output in B1.
@@ -759,8 +1108,14 @@ __device__ __forceinline__ void coevo_block_body(
                   nullptr, none, scale_v);
   __syncthreads();
   mark(ST_VSA, KD_GEMM);
-  attn_tc<true>(s.B1, s.XVa, s.XVb, s.B1, V, V);
-  __syncthreads();
+  if constexpr (CL) {
+    clu::sync();  // every rank's k and v
+    attn_cluster(s.B1, s.XVa, s.XVb, s.B1, V, c.V, c.S, s.stage);
+    clu::sync();  // every rank done with every rank's k and v
+  } else {
+    attn_tc<true>(s.B1, s.XVa, s.XVb, s.B1, V, V);
+    __syncthreads();
+  }
   mark(ST_VSA, KD_ATTN);
   gemm_v<E_RES>(s.B1, V, COEVO_WB(SV, 2), COEVO_WF(SV, 3), none, s.XV,
                 nullptr, s.B2, 0.f);
@@ -770,8 +1125,15 @@ __device__ __forceinline__ void coevo_block_body(
   __syncthreads();
   mark(ST_VSA, KD_ADALN);
   mlp_rows<true>(s.B1, V, SV + 4, s.XV, s.hidv, s.hid_elems, mark, ST_VSA);
+
+  // A cluster's joint stream: rank 0, from the merged CA output.
+  if (CL && joint_live && owner) {
+    joint_ca_tail(s, CJ, gm, bt, J, eps, s.jca, mark);
+    joint_sa(s, SJ, gm, bt, J, eps, scale_j, mark);
+  }
+}
+
 #undef GAM
 #undef BET
-}
 
 }  // namespace coevo

@@ -184,18 +184,31 @@ GRU = CudaLibrary("gru_scan", "pmce_gru_error_string", {
                                    ctypes.POINTER(I))),
     "pmce_gru_bwd_scan": (I, (P, I, I, I, I, I, I, I, I, L, P, P, P)),
 })
+# Rows 3 / 14, the chain and the whole block in bf16: one CTA a clip (S =
+# 1, the joint workspace at ws) or a cluster of S CTAs a clip (ws unused):
+# the chain's joints, jout, vout, gammas, betas, the pointer table, ws, B,
+# J, V, NB, S, eps, the two attention scales, stream; the whole block's
+# jf0, vf0, jout, vout, gammas, betas, the table, ws, B, J, V, S, the same
+# floats, stream. The one-CTA program's workspace (J) and shared memory
+# (V); a cluster rank's shared memory at (J, V, S) (-1: the cluster program
+# does not take it) and the clusters the card holds at once (the same names
+# in both libraries).
 CHAIN = CudaLibrary("coevo_chain", "pmce_chain_error_string", {
-    "pmce_chain_workspace_bytes": (ctypes.c_longlong, (I,)),
-    "pmce_chain_smem_bytes": (ctypes.c_longlong, (I,)),
-    "pmce_coevo_chain": (I, (P, P, P, P, P, P, P, I, I, I, I, F, F, F, P)),
+    "pmce_chain_workspace_bytes": (L, (I,)),
+    "pmce_chain_smem_bytes": (L, (I,)),
+    "pmce_coevo_cluster_smem_bytes": (L, (I, I, I)),
+    "pmce_coevo_clusters": (I, (I, I, I)),
+    "pmce_coevo_chain": (I, (P,) * 7 + (I, I, I, I, I, F, F, F, P)),
     "pmce_coevo_chain_prof": (I, (P, P, P, P, P, P, P, I, I, I, I, F, F, F,
                                   P, P)),
     "pmce_max_stamps": (I, ()),
 })
 COEVO_BLOCK = CudaLibrary("coevo_block", "pmce_coevo_block_error_string", {
-    "pmce_coevo_block_workspace_bytes": (ctypes.c_longlong, (I,)),
-    "pmce_coevo_block_smem_bytes": (ctypes.c_longlong, (I,)),
-    "pmce_coevo_block": (I, (P,) * 8 + (I, I, I, F, F, F, P)),
+    "pmce_coevo_block_workspace_bytes": (L, (I,)),
+    "pmce_coevo_block_smem_bytes": (L, (I,)),
+    "pmce_coevo_cluster_smem_bytes": (L, (I, I, I)),
+    "pmce_coevo_clusters": (I, (I, I, I)),
+    "pmce_coevo_block": (I, (P,) * 8 + (I, I, I, I, F, F, F, P)),
     "pmce_coevo_block_prof": (I, (P,) * 8 + (I, I, I, F, F, F, P, P)),
 })
 # The block: the forward's tile program (a table of its 29 pointers, clips,

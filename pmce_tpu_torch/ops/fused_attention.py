@@ -1049,17 +1049,19 @@ def f32_dec_fwd_workspace(kind: str, clips: int, Nq: int, Nk: int,
 
 # Rows 3f / 14f (csrc/coevo_f32.cu): a cluster of S CTAs a clip, the
 # vertex rows in tiles of 16 split into S contiguous ranges of at most 8
-# tiles (a tile a warp of the CTA's 8), S the fewest of 1, 2, 4, 8 that
-# does (the portable cluster sizes); the joints in at most two tiles.
-_COEVO_TILE, _COEVO_RANK_TILES, _COEVO_SPLITS = 16, 8, (1, 2, 4, 8)
+# tiles (a tile a warp of the CTA's 8), S the fewest of 1, 2, 4, 8, 16
+# that does (16: the non-portable cluster size the H100 allows); the joints
+# in at most two tiles.
+_COEVO_TILE, _COEVO_RANK_TILES, _COEVO_SPLITS = 16, 8, (1, 2, 4, 8, 16)
 _COEVO_MAX_V = _COEVO_TILE * _COEVO_RANK_TILES * _COEVO_SPLITS[-1]
 _COEVO_MAX_J = 2 * _COEVO_TILE
 # The clusters of S CTAs a card holds at once, where read on one
 # (``pmce_coevo_f32_clusters``, cudaOccupancyMaxActiveClusters, through
-# ``tools/profile_f32.py --chain``): {(SMs, S): clusters}. NVIDIA H100 80GB
-# HBM3 (132 SMs): its GPCs leave 30 clusters of 4, not 33.
+# ``tools/profile_coevo.py``): {(SMs, S): clusters}. NVIDIA H100 80GB
+# HBM3 (132 SMs): its GPCs leave 30 clusters of 4, not 33, and 7 of 16
+# (112 SMs).
 _COEVO_F32_CLUSTERS = {(132, 1): 132, (132, 2): 66, (132, 4): 30,
-                       (132, 8): 15}
+                       (132, 8): 15, (132, 16): 7}
 
 
 class CoevoF32Plan(NamedTuple):

@@ -19,12 +19,14 @@ chain's heads read the f32 streams); in f32 compute every tensor is f32
 and nothing rounds. :func:`coevo_block` and :func:`coevo_chain` run them
 for CPU tensors and, for CUDA tensors, the kernels of
 ``csrc/coevo_block.cu`` and ``csrc/coevo_chain.cu`` (both over
-``csrc/coevo_ops.cuh``) in bf16 compute and those of ``csrc/coevo_f32.cu``
-in f32 compute (a cluster of CTAs a clip, :func:`coevo_f32_plan`); on the
-card a shape those kernels are not built for (:func:`coevo_kernel_fits`,
-a bf16 vertex stream over shared memory, an f32 one over the f32 plan's
-V <= 1024 or J <= 32), and any other compute dtype, raise, as JAX's
-kernels take every shape. The
+``csrc/coevo_ops.cuh``: one CTA a clip while its vertex stream fits in
+shared memory, V <= 450, else a cluster of 2, 4 or 8 CTAs a clip,
+:func:`coevo_plan`) in bf16 compute and those of ``csrc/coevo_f32.cu``
+in f32 compute (a cluster of up to 16 CTAs a clip,
+:func:`coevo_f32_plan`); on the card a shape those kernels are not built
+for (:func:`coevo_kernel_fits`, a vertex stream over either plan's limit:
+V <= 2048 at J <= 32 in both dtypes, J <= 32 in f32), and any other
+compute dtype, raise, as JAX's kernels take every shape. The
 gradient of either kernel is the plain version's autograd on the saved
 inputs, as JAX recomputes through its oracles. The decoder
 calls :func:`coevo_block` per block under ``whole_block_kernel`` in eval
@@ -33,7 +35,9 @@ mode, :func:`coevo_chain` otherwise in eval mode under ``fused``.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -184,37 +188,146 @@ _BLOCK_TABLE_LEN = 50
 _CHAIN_TABLE_LEN = 4 + _BLOCK_TABLE_LEN + 4
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
+# Rows 3 / 14 in bf16 (csrc/coevo_ops.cuh): one CTA a clip while its three
+# [V, C] vertex buffers fit in shared memory (V <= 450), else a cluster of S
+# CTAs a clip, the vertex rows in tiles of 16 split into S contiguous
+# ranges, each rank's buffers of the most rows any rank takes (at most 256:
+# two attention tasks a warp), beside them the attention's staging area,
+# the joint workspace and the joint CA's partials; S the fewest of 2, 4, 8
+# (the portable cluster sizes) whose rank fits in shared memory.
+_BF16_SPLITS, _BF16_RANK_ROWS = (2, 4, 8), 256
+_BF16_STAGE = 2 * 2 * 64 * 64 * 2  # two stages of a chunk's bf16 k and v
+# The clusters of S CTAs a card holds at once, where read on one
+# (either library's ``pmce_coevo_clusters`` at J = 17 and 19, V = 431
+# and 1723, through ``tools/profile_coevo.py``): {(SMs, S):
+# clusters}. NVIDIA H100 80GB HBM3 (132 SMs): one CTA an SM, as rows 3f /
+# 14f's, its GPCs leave 30 clusters of 4 and 15 of 8.
+_COEVO_CLUSTERS = {(132, 2): 66, (132, 4): 30, (132, 8): 15}
+
+
+def clip_smem_bytes(V: int) -> int:
+    """The one-CTA program's shared memory (``clip_smem_bytes``)."""
+    return V * 64 * 8 + 16 * 64 * 2
+
+
+def clip_workspace_bytes(J: int) -> int:
+    """The joint workspace of a clip (``clip_workspace_bytes``)."""
+    Jp = -(-J // 16) * 16
+    return -(-Jp * (18 * 64 + 2 * 256) // 256) * 256
+
+
+def _rank_rows_max(V: int, S: int) -> int:
+    tiles = -(-V // 16)
+    return 16 * -(-tiles // S)
+
+
+def cluster_smem_bytes(J: int, V: int, S: int) -> int:
+    """A cluster rank's shared memory (``cluster_smem_bytes``): three [R,
+    C] buffers, the staging area, the joint workspace, the joint CA's
+    partial o, max and sum and its merged output."""
+    Jp = -(-J // 16) * 16
+    return (_rank_rows_max(V, S) * 64 * 8 + _BF16_STAGE
+            + clip_workspace_bytes(J) + Jp * 64 * 4 + 2 * Jp * 8 * 4
+            + Jp * 64 * 2)
+
+
+def _bf16_admits(J: int, V: int, S: int) -> bool:
+    return (S <= -(-V // 16) and _rank_rows_max(V, S) <= _BF16_RANK_ROWS
+            and cluster_smem_bytes(J, V, S) <= _SMEM_LIMIT)
+
+
+def coevo_splits(J: int, V: int) -> int:
+    """S of :func:`coevo_plan` at J joints and V vertices (1: one CTA a
+    clip); past the plan's limit ``NotImplementedError`` names it."""
+    if clip_smem_bytes(V) <= _SMEM_LIMIT:
+        return 1
+    for s in _BF16_SPLITS:
+        if _bf16_admits(J, V, s):
+            return s
+    S = _BF16_SPLITS[-1]
+    rows = max((r for r in range(16, _BF16_RANK_ROWS + 1, 16)
+                if _bf16_admits(J, r * S, S)), default=0)
+    raise NotImplementedError(
+        f"the bf16 CoevoBlock kernels' plan takes V <= {rows * S} vertices "
+        f"at J={J} (clusters of up to {S} CTAs of at most {rows} vertex "
+        f"rows in sm_90's {_SMEM_LIMIT} bytes of shared memory), not V={V} "
+        "(the JAX kernel takes it); widening it is queued in ROADMAP.md B3")
+
+
+class CoevoPlan(NamedTuple):
+    """Rows 3 / 14's launch in bf16: ``splits`` CTAs a clip (1: one CTA a
+    clip; else a cluster, the entry points' S), each rank's vertex rows
+    [r0, r1) in rank order, ``ctas`` = B S, a CTA's shared memory
+    (``smem``), the ``clusters`` the card holds at once (S = 1: one CTA an
+    SM; else read on the card where known, else its SMs // S; None without
+    a card) and the ``waves`` of them."""
+    splits: int
+    rows: tuple
+    ctas: int
+    smem: int
+    clusters: int | None
+    waves: int | None
+
+
+@functools.lru_cache(maxsize=64)
+def coevo_plan(B: int, J: int, V: int, sms: int | None) -> CoevoPlan:
+    """The launch of ``csrc/coevo_chain.cu`` / ``csrc/coevo_block.cu``
+    (bf16) for B clips of J joints and V vertices on a card of ``sms`` SMs
+    (None: no card). V over :func:`coevo_splits`' limit raises."""
+    if B < 1 or J < 1 or V < 1:
+        raise ValueError(f"coevo_plan: {B} x {J} / {V}")
+    s = coevo_splits(J, V)
+    tiles = -(-V // 16)
+    rows = tuple((16 * (tiles * r // s), min(V, 16 * (tiles * (r + 1) // s)))
+                 for r in range(s))
+    smem = clip_smem_bytes(V) if s == 1 else cluster_smem_bytes(J, V, s)
+    if sms is None:
+        clusters = waves = None
+    else:
+        clusters = sms if s == 1 else _COEVO_CLUSTERS.get((sms, s), sms // s)
+        waves = -(-B // clusters)
+    return CoevoPlan(s, rows, B * s, smem, clusters, waves)
+
 
 def coevo_kernel_fits(C: int, hid: int, num_heads_j: int, num_heads_v: int,
                       V: int) -> bool:
     """The static shape test of both kernels (whole block, whole chain):
     the widths csrc/coevo_ops.cuh is built for (C = 64, hid = 4C, joint
     heads of width 8 and vertex heads of width 32) and at least 48 vertices
-    (MLP tiles of 16 rows or more). The launch also asks the library
-    whether the vertex stream fits in shared memory."""
+    (MLP tiles of 16 rows or more). The launch then asks the plan
+    (:func:`coevo_plan`, :func:`coevo_f32_plan`) and the library for the
+    vertex stream's shared memory."""
     return (C == 64 and hid == 4 * C and num_heads_j * 8 == C
             and num_heads_v * 32 == C and V >= 48)
 
 
-def _require_fits(name, C, hid, num_heads_j, num_heads_v, V, lib, smem_fn):
-    """The shape gate, then the library's shared memory for V: the bf16
-    kernels' stream, or the f32 plan's CTA at its S (past the plan's V
-    limit :func:`coevo_f32_splits` raises, naming it)."""
+def _require_fits(name, C, hid, num_heads_j, num_heads_v, J, V, lib,
+                  smem_fn):
+    """The shape gate, then the plan's S (past its V limit
+    :func:`coevo_splits` / :func:`coevo_f32_splits` raise, naming it) and
+    the library's shared memory at it: the one-CTA program's (``smem_fn``
+    at V), a bf16 cluster rank's (at J, V, S) or the f32 plan's CTA (at V,
+    S). Returns S."""
     require_kernel(coevo_kernel_fits(C, hid, num_heads_j, num_heads_v, V),
                    name, f"C={C}, hid={hid}, heads {num_heads_j}/"
                    f"{num_heads_v}, V={V}")
-    if lib is _cuda.COEVO_F32:
-        try:
-            smem = int(lib.query(smem_fn, V, coevo_f32_splits(V)))
-        except NotImplementedError as e:
-            raise NotImplementedError(f"{name}: {e}") from None
-    else:
+    f32 = lib is _cuda.COEVO_F32
+    try:
+        S = coevo_f32_splits(V) if f32 else coevo_splits(J, V)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{name}: {e}") from None
+    if f32:
+        smem = int(lib.query(smem_fn, V, S))
+    elif S == 1:
         smem = int(lib.query(smem_fn, V))
+    else:
+        smem = int(lib.query("pmce_coevo_cluster_smem_bytes", J, V, S))
     if smem < 0 or smem > _SMEM_LIMIT:
         raise NotImplementedError(
             f"{name}: the CUDA kernel's plan for V={V} needs {smem} bytes of "
             f"shared memory, over sm_90's {_SMEM_LIMIT} (the JAX kernel takes "
             "it); widening it is queued in ROADMAP.md B3")
+    return S
 
 
 def _f32_plan(name, B, J, V, dev):
@@ -331,6 +444,22 @@ def _chain_table(blocks, dev, C, hid, J, V, f32):
     return tab
 
 
+def _workspace(lib, fn, B, J, S, dev):
+    """The bf16 kernels' joint workspace: B clips' in device memory for one
+    CTA a clip; none for a cluster (each rank keeps its joint rows in
+    shared memory). Returns (the tensor or None, its pointer)."""
+    if S > 1:
+        return None, _cuda.P(None)
+    ws = torch.empty(B * lib.query(fn, J), device=dev, dtype=torch.uint8)
+    return ws, _cuda.ptr(ws)
+
+
+def _require_one_cta(S, what):
+    if S > 1:
+        raise NotImplementedError(f"the stamped bf16 {what} runs one CTA a "
+                                  f"clip (V <= 450), not clusters of {S}")
+
+
 def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
                       num_heads_v, eps, stamps=None):
     f32 = torch.float32
@@ -344,8 +473,8 @@ def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
     hid = blocks[0][4][10][8].shape[1]
     lib, smem_fn = ((_cuda.COEVO_F32, "pmce_coevo_f32_smem_bytes") if use_f32
                     else (_cuda.CHAIN, "pmce_chain_smem_bytes"))
-    _require_fits("coevo_chain", C, hid, num_heads_j, num_heads_v, V, lib,
-                  smem_fn)
+    S = _require_fits("coevo_chain", C, hid, num_heads_j, num_heads_v, J, V,
+                      lib, smem_fn)
     _cuda.check_cuda(joints, "joints", f32, (B, J, 3))
     _cuda.check_cuda(vertx, "vertx", f32, (B, V, 3))
     _cuda.check_cuda(gammas, "gammas", f32, (B, NB, 12, C))
@@ -370,15 +499,16 @@ def _coevo_chain_cuda(joints, vertx, gammas, betas, blocks, num_heads_j,
                  *scales, _cuda.stream_ptr(dev))
         CHAIN_F32_LAUNCHES.count += 1
         return jout, vout
-    ws = torch.empty(B * lib.query("pmce_chain_workspace_bytes", J),
-                     device=dev, dtype=torch.uint8)
-    args = (p(joints), p(jout), p(vout), p(gammas), p(betas), p(ptrs), p(ws),
-            B, J, V, NB, eps, *scales)
+    ws, ws_ptr = _workspace(lib, "pmce_chain_workspace_bytes", B, J, S, dev)
+    args = (p(joints), p(jout), p(vout), p(gammas), p(betas), p(ptrs), ws_ptr,
+            B, J, V, NB)
     if stamps is not None:
-        _cuda.CHAIN.call("pmce_coevo_chain_prof", *args, p(stamps),
-                         _cuda.stream_ptr(dev))
+        _require_one_cta(S, "chain")
+        _cuda.CHAIN.call("pmce_coevo_chain_prof", *args, eps, *scales,
+                         p(stamps), _cuda.stream_ptr(dev))
         return jout, vout
-    _cuda.CHAIN.call("pmce_coevo_chain", *args, _cuda.stream_ptr(dev))
+    _cuda.CHAIN.call("pmce_coevo_chain", *args, S, eps, *scales,
+                     _cuda.stream_ptr(dev))
     CHAIN_LAUNCHES.count += 1
     return jout, vout
 
@@ -394,8 +524,8 @@ def _coevo_block_cuda(jf0, vf0, gammas, betas, params, num_heads_j,
     hid = params[10][8].shape[1]
     lib, smem_fn = ((_cuda.COEVO_F32, "pmce_coevo_f32_smem_bytes") if use_f32
                     else (_cuda.COEVO_BLOCK, "pmce_coevo_block_smem_bytes"))
-    _require_fits("coevo_block", C, hid, num_heads_j, num_heads_v, V, lib,
-                  smem_fn)
+    S = _require_fits("coevo_block", C, hid, num_heads_j, num_heads_v, J, V,
+                      lib, smem_fn)
     _cuda.check_cuda(jf0, "jf0", jf0.dtype, (B, J, C))
     _cuda.check_cuda(vf0, "vf0", jf0.dtype, (B, V, C))
     _cuda.check_cuda(gammas, "gammas", f32, (B, 12, C))
@@ -421,15 +551,17 @@ def _coevo_block_cuda(jf0, vf0, gammas, betas, params, num_heads_j,
                  *scales, _cuda.stream_ptr(dev))
         BLOCK_F32_LAUNCHES.count += 1
         return jout, vout
-    ws = torch.empty(B * lib.query("pmce_coevo_block_workspace_bytes", J),
-                     device=dev, dtype=torch.uint8)
+    ws, ws_ptr = _workspace(lib, "pmce_coevo_block_workspace_bytes", B, J, S,
+                            dev)
     args = (p(jf0), p(vf0), p(jout), p(vout), p(gammas), p(betas), p(ptrs),
-            p(ws), B, J, V, eps, *scales)
+            ws_ptr, B, J, V)
     if stamps is not None:
-        _cuda.COEVO_BLOCK.call("pmce_coevo_block_prof", *args, p(stamps),
-                               _cuda.stream_ptr(dev))
+        _require_one_cta(S, "whole block")
+        _cuda.COEVO_BLOCK.call("pmce_coevo_block_prof", *args, eps, *scales,
+                               p(stamps), _cuda.stream_ptr(dev))
         return jout, vout
-    _cuda.COEVO_BLOCK.call("pmce_coevo_block", *args, _cuda.stream_ptr(dev))
+    _cuda.COEVO_BLOCK.call("pmce_coevo_block", *args, S, eps, *scales,
+                           _cuda.stream_ptr(dev))
     BLOCK_LAUNCHES.count += 1
     return jout, vout
 

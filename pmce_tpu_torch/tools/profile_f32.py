@@ -2,7 +2,6 @@
 4f / 5f and the f32 weight-gradient launch against a variant's sources.
 
     python3 pmce_tpu_torch/tools/profile_f32.py [--variant VARIANT_DIR]
-    python3 pmce_tpu_torch/tools/profile_f32.py --chain [--variant VARIANT.cu]
 
 At the main paths' shapes (rows 6f / 7f: the Stage-1 spatial [1024, 17,
 256] and temporal [1088, 16, 256] blocks, hid 512, the post-norm, branch
@@ -29,23 +28,9 @@ the include path) both are timed in turns with the tree (variant, tree,
 tree, variant; 3 rounds) in one process; a variant whose entry points take
 no CTA count (the FFMA bodies, a CTA a clip, transposed weight copies in
 their workspace) is called as their wrappers did. The builds' ptxas
-reports (registers, stack, spills) are printed first. ``--chain`` times
-rows 3f and 14f alone (the f32 decoder chain and whole block,
-``csrc/coevo_f32.cu``, no gradient): the chain at the f32 Stage-2
-evaluation batch (64 clips of 17 joints and 431 vertices: ``chip_smoke.py``
-phase 13b's ``TEST.batch_size``) and at the f32 serving batch (256 clips
-of 19 joints), the whole block at 256 clips of 19 joints. It prints the
-wrappers' plan (``coevo_f32_plan``, the clusters the card holds at once),
-the build's ptxas report (registers, stack, spills), each case's bound at
-the 3xTF32 and the f32 FFMA rates, and per build the median wrapper time,
-the device time by kernel and the largest difference from the plain
-version relative to its largest magnitude. With ``--variant`` (an earlier
-``coevo_f32.cu``, for example ``git show HEAD~1:pmce_tpu_torch/csrc/
-coevo_f32.cu`` into a git-ignored directory; built with ``csrc/`` on its
-include path; a source with the FFMA body's workspace entry points is
-called as that body was) the variant and the tree are timed in turns
-(variant, tree, tree, variant; 3 rounds) in one process; ``--variant``
-given more than once times each in the same turns.
+reports (registers, stack, spills) are printed first. Rows 3f and 14f
+(the f32 decoder chain and whole block) are timed by
+``tools/profile_coevo.py``.
 """
 
 from __future__ import annotations
@@ -218,170 +203,9 @@ def mhsa_case(rng, dev, N: int):
     return leaves, g
 
 
-class CoevoVariant(_cuda.CudaLibrary):
-    """A coevo_f32 source outside ``csrc/``, built beside the tree's; a
-    source with the FFMA body's workspace entry points (``ffma``) keeps
-    that body's signatures."""
-
-    def __init__(self, src: Path):
-        self.src = src
-        self.ffma = "pmce_coevo_f32_workspace_bytes" in src.read_text()
-        sigs = dict(_cuda.COEVO_F32.signatures)
-        if self.ffma:
-            P, I, F = _cuda.P, _cuda.I, _cuda.F
-            sigs = {"pmce_coevo_f32_workspace_bytes": (_cuda.L, (I, I)),
-                    "pmce_coevo_chain_f32": (I, (P,) * 7 + (I,) * 4
-                                             + (F,) * 3 + (P,)),
-                    "pmce_coevo_block_f32": (I, (P,) * 8 + (I,) * 3
-                                             + (F,) * 3 + (P,))}
-        super().__init__("coevo_f32", "pmce_coevo_f32_error_string", sigs)
-
-    @property
-    def path(self) -> Path:
-        # Headers beside the variant come before csrc/'s on its include
-        # path: both are part of its build.
-        digest = hashlib.sha1(self.src.read_bytes())
-        for f in (sorted(self.src.parent.glob("*.cuh"))
-                  + sorted(_cuda.CSRC.glob("*.cuh"))):
-            digest.update(f.read_bytes())
-        name = f"coevo_f32_variant-{digest.hexdigest()[:12]}.so"
-        return _cuda.BUILD_DIR / name
-
-    def build_command(self):
-        out = self.path
-        tmp = out.with_suffix(".tmp")
-        return ([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC),
-                 "-o", str(tmp), str(self.src)], tmp, out)
-
-
-def ffma_call(lib, kind, args):
-    """The FFMA body's entry points, called as its wrappers did: the
-    pointer table, a per-clip workspace, one CTA a clip."""
-    from pmce_tpu_torch.ops import fused_coevo_chain as fc
-
-    p = _cuda.ptr
-    scales = (1.0 / 8 ** 0.5, 1.0 / 32 ** 0.5)  # heads of 8 and of 32
-    if kind == "chain":
-        joints, vertx, g, b, blocks = args[:5]
-        B, J, _ = joints.shape
-        V = vertx.shape[1]
-        tab = fc._chain_table(blocks, vertx.device, 64, 256, J, V, True)
-        ptrs = tab.device()
-        jout = torch.empty(B, J, 3, device=vertx.device)
-        vout = vertx.clone()
-        ws = torch.empty(B * lib.query("pmce_coevo_f32_workspace_bytes", J, V),
-                         device=vertx.device, dtype=torch.uint8)
-        lib.call("pmce_coevo_chain_f32", p(joints), p(jout), p(vout), p(g),
-                 p(b), p(ptrs), p(ws), B, J, V, len(blocks), 1e-6, *scales,
-                 _cuda.stream_ptr(vertx.device))
-        return jout, vout
-    jf0, vf0, g, b, kp = args[:5]
-    B, J, _ = jf0.shape
-    V = vf0.shape[1]
-    tab = fc._Table(vf0.device, 64, 256, True)
-    tab.block(kp, J, V)
-    ptrs = tab.device()
-    jout, vout = torch.empty_like(jf0), torch.empty_like(vf0)
-    ws = torch.empty(B * lib.query("pmce_coevo_f32_workspace_bytes", J, V),
-                     device=vf0.device, dtype=torch.uint8)
-    lib.call("pmce_coevo_block_f32", p(jf0), p(vf0), p(jout), p(vout), p(g),
-             p(b), p(ptrs), p(ws), B, J, V, 1e-6, *scales,
-             _cuda.stream_ptr(vf0.device))
-    return jout, vout
-
-
-def chain(dev, variants) -> None:
-    """Rows 3f (the Stage-2 evaluation batch and the serving batch) and 14f
-    (the serving batch), the tree's build and the variants' in turns."""
-    from pmce_tpu_torch.ops import fused_coevo_chain as fc
-
-    builds = {"tree": _cuda.COEVO_F32}
-    for v in variants:
-        tag = f"variant {v.parent.name}/{v.stem}"
-        builds[tag] = CoevoVariant(v.resolve())
-    _cuda._build(list(builds.values()))
-    for tag, lib in builds.items():
-        lib.load()
-        log = lib.path.with_suffix(".log")
-        report = [ln.strip() for ln in log.read_text().splitlines()
-                  if "cf32" in ln or "Used" in ln or "spill" in ln]
-        print(f"ptxas ({tag}, {lib.path.name}):\n  " + "\n  ".join(report),
-              flush=True)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for s in (1, 2, 4, 8):
-        print(f"clusters of {s} CTAs the card holds at once: "
-              f"{_cuda.COEVO_F32.query('pmce_coevo_f32_clusters', s)}",
-              flush=True)
-
-    def run(tag, kind, args):
-        if tag != "tree" and builds[tag].ffma:
-            return ffma_call(builds[tag], kind, args)
-        saved = _cuda.COEVO_F32
-        _cuda.COEVO_F32 = builds[tag]
-        try:
-            return (fc.coevo_chain if kind == "chain" else fc.coevo_block)(
-                *args)
-        finally:
-            _cuda.COEVO_F32 = saved
-
-    cases = (("chain", 64, cs.JT), ("chain", cs.B, cs.J),
-             ("block", cs.B, cs.J))
-    for kind, batch, joints in cases:
-        cs.J = joints  # chain_case's and coevo_block_case's joint count
-        r = cs.Inputs(13, dev)
-        if kind == "chain":
-            jt, vx, g, b, blocks, hj, hv = cs.chain_case(r, batch)
-            blocks = tuple((blk[0].float(), blk[1], blk[2].float(), *blk[3:])
-                           for blk in blocks)
-            args = (jt, vx, g, b, blocks, hj, hv)
-            plain = fc.coevo_chain_plain
-        else:
-            jf0, vf0, g, b, kp, hj, hv = cs.coevo_block_case(r, batch)
-            args = (jf0.float(), vf0.float(), g, b, kp, hj, hv)
-            plain = fc.coevo_block_plain
-        plan = fa.coevo_f32_plan(batch, joints, 431, sms)
-        row = "3f" if kind == "chain" else "14f"
-        with torch.no_grad():
-            want = plain(*args)
-            flops = cs.count_flops(lambda: plain(*args))
-            nbytes = cs.tensor_bytes(args, want)
-            tf32_ms, _ = cs.bound(flops, nbytes, "tf32x3")
-            ffma_ms, _ = cs.bound(flops, nbytes, "f32")
-            print(f"row {row} B={batch} J={joints} V=431: {plan}; bound "
-                  f"{tf32_ms:.4f} ms at 3xTF32, {ffma_ms:.4f} ms at the f32 "
-                  f"FFMA peak ({flops / 1e9:.2f} GFLOP); plain "
-                  f"{cs.median_ms(lambda: plain(*args), 5, 2):.4f} ms",
-                  flush=True)
-            times = {tag: [] for tag in builds}
-            kernels, errs, outs = {}, {}, {}
-            others = [tag for tag in builds if tag != "tree"]
-            order = (others + ["tree", "tree"] + others[::-1]) * 3
-            for tag in order:
-                got = run(tag, kind, args)
-                again = run(tag, kind, args)
-                torch.cuda.synchronize()
-                errs[tag] = (max(float((a - w).abs().max() / w.abs().max())
-                                 for a, w in zip(got, want)),
-                             all(torch.equal(a, c)
-                                 for a, c in zip(got, again)))
-                outs[tag] = got
-                times[tag].append(cs.median_ms(lambda: run(tag, kind, args),
-                                               20, 5))
-                kernels[tag] = device_ms(lambda: run(tag, kind, args))
-            for tag in builds:
-                show(f"row {row} B={batch} J={joints} {tag} (vs plain "
-                     f"{errs[tag][0]:.3g}, a rerun bit for bit: "
-                     f"{errs[tag][1]}; median of {len(times[tag])} rounds: "
-                     + ", ".join(f"{t:.4f}" for t in times[tag]) + ")",
-                     statistics.median(times[tag]), kernels[tag])
-        del args, want, outs
-        torch.cuda.empty_cache()
-
-
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--variant", type=Path, action="append", default=[])
-    ap.add_argument("--chain", action="store_true")
+    ap.add_argument("--variant", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_f32: no CUDA device")
@@ -389,10 +213,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print(cs.card_line(), flush=True)
     dev = torch.device("cuda", 0)
-    if args.chain:
-        chain(dev, args.variant)
-        return
-    vdir = args.variant[0].resolve() if args.variant else None
+    vdir = args.variant.resolve() if args.variant else None
     builds = {"tree": _cuda.MHSA_F32}
     probes = {"tree": WgradProbe(None)}
     if vdir is not None:

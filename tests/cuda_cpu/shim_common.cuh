@@ -7,9 +7,12 @@
 // launch with a cluster dimension (cudaLaunchKernelEx) runs the S blocks of
 // a cluster at once as one group of threads: the cluster barrier is a
 // barrier of all of them, a peer's shared-memory address the same offset
-// into that block's buffer. Only what the f32 sources use is here: 1-D
-// blocks of whole warps and 1-D clusters, full-mask shuffles reached by all
-// 32 lanes, dynamic shared memory.
+// into that block's buffer. The bf16 sources' types and tensor-core
+// fragments are here too: bf16 rounded to nearest even, ldmatrix (plain
+// and transposed) and mma.sync m16n8k16 as scalar loops over the
+// documented fragment layouts, the products' sums in f32. Only what the
+// sources use is here: 1-D blocks of whole warps and 1-D clusters,
+// full-mask shuffles reached by all 32 lanes, dynamic shared memory.
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -36,7 +39,8 @@ inline float2 make_float2(float a, float b) { return float2{a, b}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed };
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "shim error"; }
@@ -55,7 +59,7 @@ inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, const void*, const cud
 // members have the same names).
 inline thread_local dim3 gridDim, blockDim;
 namespace shim {
-struct Warp { std::barrier<> bar{32}; float buf[32]; unsigned fa[32][4], fb[32][2]; };
+struct Warp { std::barrier<> bar{32}; float buf[32]; unsigned fa[32][4], fb[32][2]; const void* ptr[32]; };
 struct Block { std::barrier<>* bar; Warp* warps; unsigned char* smem; };
 struct Cluster { int size; std::barrier<>* bar; Block* blocks; };
 inline thread_local dim3 tIdx, bIdx;
@@ -131,6 +135,11 @@ inline float __shfl_sync(unsigned, float v, int src) {
   return r;
 }
 inline float __shfl_xor_sync(unsigned m, float v, int o) { return __shfl_sync(m, v, (threadIdx.x & 31) ^ o); }
+inline float __shfl_down_sync(unsigned m, float v, int d) {
+  const int lane = threadIdx.x & 31;
+  return __shfl_sync(m, v, lane + d < 32 ? lane + d : lane);
+}
+inline long long clock64() { return 0; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -139,6 +148,79 @@ inline float warp_sum(float v) {
 inline float gelu_erf(float v) { return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f)); }
 inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
+
+// bf16 (the bf16 sources: csrc/common.cuh's helpers, over cuda_bf16.h).
+struct alignas(2) __nv_bfloat16 { unsigned short x; };
+typedef __nv_bfloat16 bf16;
+struct alignas(4) __nv_bfloat162 { __nv_bfloat16 x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return uint4{a, b, c, d}; }
+inline float __bfloat162float(bf16 v) { return __uint_as_float(static_cast<unsigned>(v.x) << 16); }
+inline bf16 __float2bfloat16(float f) {
+  const unsigned u = __float_as_uint(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return bf16{static_cast<unsigned short>((u >> 16) | 0x40)};
+  return bf16{static_cast<unsigned short>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16)};
+}
+inline unsigned short __bfloat16_as_ushort(bf16 v) { return v.x; }
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return __nv_bfloat162{__float2bfloat16(a), __float2bfloat16(b)}; }
+inline float2 __bfloat1622float2(__nv_bfloat162 v) { return make_float2(__bfloat162float(v.x), __bfloat162float(v.y)); }
+inline float bf2f(bf16 v) { return __bfloat162float(v); }
+inline bf16 f2bf(float v) { return __float2bfloat16(v); }
+inline float rbf(float v) { return bf2f(f2bf(v)); }
+inline float ldf(const float* p) { return *p; }
+inline float ldf(const bf16* p) { return bf2f(*p); }
+inline void load8(const bf16* p, float* dst) { for (int i = 0; i < 8; ++i) dst[i] = bf2f(p[i]); }
+inline unsigned pack_bf2(float lo, float hi) {
+  return static_cast<unsigned>(f2bf(lo).x) | static_cast<unsigned>(f2bf(hi).x) << 16;
+}
+// ldmatrix .x4: matrix i's rows at the addresses of lanes 8i .. 8i + 7;
+// lane l gets row l / 4, columns 2 (l % 4) and + 1 of each (.trans: rows
+// 2 (l % 4) and + 1 of column l / 4).
+inline void ldsm_any(unsigned (&r)[4], const void* p, bool trans) {
+  auto& w = shim::blk->warps[threadIdx.x / 32];
+  const int lane = threadIdx.x & 31;
+  w.ptr[lane] = p;
+  w.bar.arrive_and_wait();
+  for (int i = 0; i < 4; ++i) {
+    unsigned short lo, hi;
+    if (!trans) {
+      const auto* row = static_cast<const unsigned short*>(w.ptr[8 * i + lane / 4]);
+      lo = row[2 * (lane % 4)];
+      hi = row[2 * (lane % 4) + 1];
+    } else {
+      lo = static_cast<const unsigned short*>(w.ptr[8 * i + 2 * (lane % 4)])[lane / 4];
+      hi = static_cast<const unsigned short*>(w.ptr[8 * i + 2 * (lane % 4) + 1])[lane / 4];
+    }
+    r[i] = static_cast<unsigned>(lo) | static_cast<unsigned>(hi) << 16;
+  }
+  w.bar.arrive_and_wait();
+}
+inline void ldsm_x4(unsigned (&r)[4], const void* p) { ldsm_any(r, p, false); }
+inline void ldsm_x4_t(unsigned (&r)[4], const void* p) { ldsm_any(r, p, true); }
+// mma.sync m16n8k16 bf16 (row, col), f32 sums: A's a[0] at (g, 2t .. 2t +
+// 1), a[1] 8 rows down, a[2], a[3] 8 columns right of those; B's b0 at (k =
+// 2t .. 2t + 1, n = g), b1 8 rows down; the products summed in k order.
+inline void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  auto& w = shim::blk->warps[threadIdx.x / 32];
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) w.fa[lane][i] = a[i];
+  w.fb[lane][0] = b0;
+  w.fb[lane][1] = b1;
+  w.bar.arrive_and_wait();
+  auto half = [](unsigned u, int k) { return __uint_as_float((k & 1 ? u >> 16 : u & 0xffffu) << 16); };
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + (i >> 1) * 8, col = 2 * t + (i & 1);
+    float s = d[i];
+    for (int k = 0; k < 16; ++k) {
+      const int kk = k & 7;  // within the 8-column half
+      const float av = half(w.fa[(row & 7) * 4 + kk / 2][(row >> 3) + (k >> 3) * 2], kk);
+      const float bv = half(w.fb[col * 4 + kk / 2][k >> 3], kk);
+      s += av * bv;
+    }
+    d[i] = s;
+  }
+  w.bar.arrive_and_wait();
+}
 namespace tc32 {
 // The kernels' 3xTF32 split (csrc/common.cuh): hi to nearest TF32, ties
 // away from zero, lo = v - hi with all its bits (the mma reads the top 19).

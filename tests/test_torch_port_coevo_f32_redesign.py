@@ -19,8 +19,8 @@ and numerics, on the CPU.
   and against ``fused_coevo_block`` and ``coevo_block_reference`` at the
   same shapes: within 2e-6 of each output's largest magnitude (measured
   ≤ 5.1e-7; the plain f32 versions alone ≤ 4.4e-7);
-- ``coevo_f32_plan`` at 132 and 114 SMs and without a card: S, each rank's
-  rows, the CTAs, the clusters and the waves;
+- ``coevo_f32_plan`` at 132 and 114 SMs and without a card: S (up to 16
+  at V <= 2048), each rank's rows, the CTAs, the clusters and the waves;
 - the S the wrappers pass to ``pmce_coevo_chain_f32`` /
   ``pmce_coevo_block_f32`` (the card stood in for) and their gate's V and J
   limits (past them ``NotImplementedError`` naming ROADMAP.md B3).
@@ -183,10 +183,10 @@ def test_the_model_differs_from_plain_f32():
 # The plan
 # ---------------------------------------------------------------------------
 
-# (V, S): the fewest of 1, 2, 4, 8 CTAs a clip that leave a rank at most 8
-# tiles of 16 vertex rows.
+# (V, S): the fewest of 1, 2, 4, 8, 16 CTAs a clip that leave a rank at
+# most 8 tiles of 16 vertex rows.
 SPLITS = [(48, 1), (128, 1), (129, 2), (256, 2), (257, 4), (431, 4),
-          (512, 4), (513, 8), (1024, 8)]
+          (512, 4), (513, 8), (1024, 8), (1025, 16), (1723, 16), (2048, 16)]
 
 
 @pytest.mark.parametrize("V_,S", SPLITS, ids=[f"V{v}" for v, _ in SPLITS])
@@ -253,11 +253,13 @@ def test_wrappers_pass_the_plans_splits(kind, V_):
     assert S == (4 if V_ == 431 else 2 if V_ == 200 else 1)
 
 
-@pytest.mark.parametrize("J,V_,ok", [(19, 1024, True), (19, 1040, False),
+@pytest.mark.parametrize("J,V_,ok", [(19, 1024, True), (19, 1040, True),
+                                     (19, 2048, True), (19, 2064, False),
                                      (32, 431, True), (33, 431, False)],
-                         ids=["V1024", "V1040", "J32", "J33"])
+                         ids=["V1024", "V1040", "V2048", "V2064", "J32",
+                              "J33"])
 def test_gate_takes_what_the_plan_admits(J, V_, ok):
-    """V ≤ 1024 (8 CTAs of 128 rows) and J ≤ 32 (two warp tiles) launch;
+    """V ≤ 2048 (16 CTAs of 128 rows) and J ≤ 32 (two warp tiles) launch;
     past them ``NotImplementedError`` names the limit and ROADMAP.md B3,
     and nothing launches."""
     seen = []
@@ -267,7 +269,7 @@ def test_gate_takes_what_the_plan_admits(J, V_, ok):
             _run(_coevo_stubs(seen), lambda: fc.coevo_block(*_t(case), 8, 2))
             assert seen == ["pmce_coevo_block_f32"]
             return
-        limit = "V <= 1024" if V_ > 1024 else "J <= 32"
+        limit = "V <= 2048" if V_ > 2048 else "J <= 32"
         with pytest.raises(NotImplementedError,
                            match=f"{limit}.*ROADMAP.md B3"):
             _run(_coevo_stubs(seen), lambda: fc.coevo_block(*_t(case), 8, 2))

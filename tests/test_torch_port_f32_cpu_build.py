@@ -1,5 +1,5 @@
-"""The f32 kernels' CUDA sources, built for the CPU, against the plain
-versions.
+"""The f32 kernels' CUDA sources, and the bf16 chain and whole block,
+built for the CPU, against the plain versions.
 
 ``csrc/block_f32.cu`` (rows 6f / 7f), ``csrc/mhsa_f32.cu`` (rows 4f / 5f),
 ``csrc/ada_f32.cu`` (rows 8f / 9f), ``csrc/ca_f32.cu`` (rows 10f / 11f)
@@ -17,8 +17,14 @@ Forward and every gradient (mask gradients included) within 1e-5 of the
 plain version's autograd, relative to each one's largest magnitude (f32 on
 both sides, sums in another order; measured ≤ 1.1e-6; the CA block's key
 bias and key AdaLN beta, zero analytically, relative to the largest
-gradient). It checks a source before its first call on the card; ``slow``
-(~2 min: the builds, 256 or 512 threads a block).
+gradient). ``csrc/coevo_chain.cu`` and ``csrc/coevo_block.cu`` (rows K3 /
+14, over ``csrc/coevo_ops.cuh``; the shim stands in for bf16, ldmatrix and
+mma.sync m16n8k16) run the same way at 431 vertices (one CTA a clip) and
+on clusters of 4 and 8 CTAs at 600 and 1723, within 2 % of the plain
+versions; ``csrc/coevo_f32.cu`` at 600 and 1723 on its plan's clusters of
+8 and 16. It checks a source before its first call on the card; ``slow``
+(~2 min: the builds, 256 or 512 threads a block; the 1723-vertex cases
+~5 min more).
 """
 
 from __future__ import annotations
@@ -53,16 +59,20 @@ class _CpuLibrary(_cuda.CudaLibrary):
         return self.so
 
 
+# The port's library of each source (``_cuda``'s name).
+_LIB_NAMES = {"coevo_chain": "CHAIN", "coevo_block": "COEVO_BLOCK"}
+
+
 def _build_cpu_libs(out: Path, sources, defines=()):
     shutil.copy(SHIM, out / "common.cuh")
     for name in (*(f"{n}.cu" for n in sources), "f32_ops.cuh",
-                 "dec_tc32.cuh"):
+                 "dec_tc32.cuh", "coevo_ops.cuh"):
         text = (_cuda.CSRC / name).read_text()
         text = text.replace(
             "extern __shared__ __align__(16) unsigned char smem[];",
             "unsigned char* smem = shim::blk->smem;")
-        text = re.sub(r"(\w+)\s*<<<(.*?)>>>\(", r"shim::launch(\1, \2, ",
-                      text, flags=re.S)
+        text = re.sub(r"(\w+(?:<[^<>]*>)?)\s*<<<(.*?)>>>\(",
+                      r"shim::launch(\1, \2, ", text, flags=re.S)
         (out / name).write_text(text.replace("__restrict__", ""))
     procs = {name: subprocess.Popen(
         ["g++", "-x", "c++", "-O2", "-std=c++20", "-fPIC", "-shared",
@@ -72,9 +82,11 @@ def _build_cpu_libs(out: Path, sources, defines=()):
     for name, proc in procs.items():
         _, err = proc.communicate()
         assert proc.returncode == 0, f"{name}.cu:\n{err}"
-    return {name.upper(): _CpuLibrary(getattr(_cuda, name.upper()),
-                                      out / f"lib{name}.so")
-            for name in sources}
+    libs = {}
+    for name in sources:
+        attr = _LIB_NAMES.get(name, name.upper())
+        libs[attr] = _CpuLibrary(getattr(_cuda, attr), out / f"lib{name}.so")
+    return libs
 
 
 @pytest.fixture(scope="module")
@@ -497,3 +509,92 @@ def test_coevo_f32_source_matches_plain_with_few_clusters(cpu_libs, kind,
     for a, b in zip(got, want):
         print(f"{kind} S={S}: {_rel(a, b):.3g}")
         assert a.shape == b.shape and _rel(a, b) <= TOL, _rel(a, b)
+
+
+@pytest.fixture(scope="module")
+def bf16_libs(tmp_path_factory):
+    """The bf16 chain and whole block (``csrc/coevo_chain.cu``,
+    ``csrc/coevo_block.cu`` over ``csrc/coevo_ops.cuh``), the shim standing
+    in for bf16, ldmatrix and mma.sync m16n8k16."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    return _build_cpu_libs(tmp_path_factory.mktemp("cuda_cpu_bf16"),
+                           ("coevo_chain", "coevo_block"))
+
+
+def _coevo_case(kind, clips, J, V, bf16):
+    rng = np.random.default_rng(V + J + clips)
+    C = 64
+    dt = torch.bfloat16 if bf16 else torch.float32
+    if kind == "chain":
+        blocks = tuple(
+            (_t(rng, 3, C, scale=3 ** -0.5, grad=False).to(dt),
+             _t(rng, C, scale=0.05, grad=False),
+             _t(rng, 3, C, scale=3 ** -0.5, grad=False).to(dt),
+             _t(rng, C, scale=0.05, grad=False), _coevo_params(rng, J, V),
+             _t(rng, C, 3, scale=C ** -0.5, grad=False),
+             _t(rng, 3, scale=0.05, grad=False),
+             _t(rng, C, 3, scale=C ** -0.5, grad=False),
+             _t(rng, 3, scale=0.05, grad=False)) for _ in range(3))
+        args = (_t(rng, clips, J, 3, scale=0.3, grad=False),
+                _t(rng, clips, V, 3, scale=0.3, grad=False),
+                _t(rng, clips, 3, 12, C, scale=0.1, offset=1.0, grad=False),
+                _t(rng, clips, 3, 12, C, scale=0.1, grad=False), blocks)
+        return args, fc.coevo_chain, fc.coevo_chain_plain
+    args = (_t(rng, clips, J, C, grad=False).to(dt),
+            _t(rng, clips, V, C, grad=False).to(dt),
+            _t(rng, clips, 12, C, scale=0.1, offset=1.0, grad=False),
+            _t(rng, clips, 12, C, scale=0.1, grad=False),
+            _coevo_params(rng, J, V))
+    return args, fc.coevo_block, fc.coevo_block_plain
+
+
+# (kind, clips, J, V): the two-level coarsening's 1723 vertices and 600,
+# on the plans' own clusters (f32: 8 CTAs at 600, 16 at 1723; bf16: 4 and
+# 8), the grid cut to one or two clusters.
+PAST_450 = [("chain", 1, 17, 600), ("block", 2, 19, 600),
+            ("chain", 1, 19, 1723), ("block", 1, 17, 1723)]
+
+
+@pytest.mark.parametrize("kind,clips,J,V", PAST_450,
+                         ids=[f"{k}-{c}x-V{v}" for k, c, _, v in PAST_450])
+def test_coevo_f32_source_past_1024_vertices_matches_plain(cpu_libs, kind,
+                                                           clips, J, V):
+    """Rows 3f / 14f at the plan's S (16 at 1723: the non-portable
+    cluster, ranks of 6 or 7 tiles): within ``TOL`` of the plain
+    version."""
+    args, fn, plain = _coevo_case(kind, clips, J, V, False)
+    with torch.no_grad():
+        got, counts = _as_card(cpu_libs, lambda: fn(*args, 8, 2))
+        want = plain(*args, 8, 2)
+    assert counts == {f"coevo_{kind}_f32": 1}
+    for a, b in zip(got, want):
+        print(f"f32 {kind} V={V}: {_rel(a, b):.3g}")
+        assert a.shape == b.shape and _rel(a, b) <= TOL, _rel(a, b)
+
+
+# The bf16 kernels against their plain versions: chip_smoke.py's band
+# (TOL["coevo_chain"], relative to each output's largest magnitude here).
+BF16_TOL = 0.02
+
+
+@pytest.mark.parametrize("kind,clips,J,V", PAST_450 + [("chain", 1, 19,
+                                                        431)],
+                         ids=[f"{k}-{c}x-V{v}" for k, c, _, v in PAST_450]
+                         + ["chain-1x-V431"])
+def test_coevo_bf16_sources_on_clusters_match_plain(bf16_libs, kind, clips,
+                                                    J, V):
+    """Rows K3 / 14: one CTA a clip at 431, else the cluster program at the
+    plan's S (4 at 600, 8 at 1723): the partials of the joint CA merged
+    across the ranks, the vertex self-attention over every rank's keys
+    staged through distributed shared memory (the shim: the peer's
+    buffer), within ``BF16_TOL`` of the plain version."""
+    args, fn, plain = _coevo_case(kind, clips, J, V, True)
+    with torch.no_grad():
+        got, counts = _as_card(bf16_libs, lambda: fn(*args, 8, 2))
+        want = plain(*args, 8, 2)
+    assert counts == {f"coevo_{kind}": 1}
+    for a, b in zip(got, want):
+        err = _rel(a.float(), b.float())
+        print(f"bf16 {kind} V={V} S={fc.coevo_splits(J, V)}: {err:.3g}")
+        assert a.shape == b.shape and err <= BF16_TOL, err

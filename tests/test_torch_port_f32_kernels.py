@@ -336,7 +336,7 @@ def _coevo_stubs(seen):
             V, S = args
             tiles = -(-V // 16)
             rows = 16 * -(-tiles // S)  # a rank's vertex rows
-            return COEVO_F32_SMEM if rows <= 128 and S <= 8 else -1
+            return COEVO_F32_SMEM if rows <= 128 and S <= 16 else -1
         return 1024
 
     def call(name, *args):
@@ -391,13 +391,13 @@ def test_coevo_f32_route_is_one_launch(kind):
 
 
 def test_coevo_f32_vertex_stream_over_the_plan_raises_naming_b3():
-    """The f32 plan (clusters of up to 8 CTAs, each a tile of 16 vertex
-    rows a warp: 128 rows a CTA) takes V ≤ 1024; 1040 vertices raise
+    """The f32 plan (clusters of up to 16 CTAs, each a tile of 16 vertex
+    rows a warp: 128 rows a CTA) takes V ≤ 2048; 2064 vertices raise
     naming the limit and ROADMAP.md B3 (JAX's kernel takes them)."""
-    case = _coevo_block_case(4, batch=1, V=1040)
+    case = _coevo_block_case(4, batch=1, V=2064)
     seen = []
     with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="V <= 1024.*ROADMAP.md B3"):
+                                        match="V <= 2048.*ROADMAP.md B3"):
         _run(_coevo_stubs(seen), lambda: fc.coevo_block(*_t(case), 8, 2))
     assert seen == []
 

@@ -1301,42 +1301,98 @@ def test_coevo_block_kernel_refuses_f32_on_card(no_tf32):
 
 def test_coevo_f32_plan_refuses_a_vertex_stream_over_it():
     """The f32 plan runs a cluster of S CTAs a clip, each a tile of 16
-    vertex rows a warp (128 rows a CTA, S up to 8): every admitted shape
-    takes the same shared memory, V <= 1024; a rank over 128 rows is
-    refused (-1), and 1040 vertices raise naming ROADMAP.md B3 (JAX's
+    vertex rows a warp (128 rows a CTA, S up to 16): every admitted shape
+    takes the same shared memory, V <= 2048; a rank over 128 rows is
+    refused (-1), and 2064 vertices raise naming ROADMAP.md B3 (JAX's
     kernel takes them), the chain's too."""
     dev = _card()
     smem = _cuda.COEVO_F32.query("pmce_coevo_f32_smem_bytes", 431, 4)
     assert 0 < smem <= 232448
-    for V, S in ((48, 1), (431, 4), (1024, 8)):
+    for V, S in ((48, 1), (431, 4), (1024, 8), (1723, 16), (2048, 16)):
         assert _cuda.COEVO_F32.query("pmce_coevo_f32_smem_bytes", V, S) \
             == smem
-    for V, S in ((431, 2), (1040, 8)):
+    for V, S in ((431, 2), (1040, 8), (2064, 16)):
         assert _cuda.COEVO_F32.query("pmce_coevo_f32_smem_bytes", V, S) == -1
+    assert _cuda.COEVO_F32.query("pmce_coevo_f32_clusters", 16) > 0
     jf0, vf0, g, b, params = _coevo_block_args(np.random.default_rng(8),
-                                               dev, 1, V=1040)
+                                               dev, 1, V=2064)
     with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="ROADMAP.md B3"):
+                                        match="V <= 2048.*ROADMAP.md B3"):
         fc.coevo_block(jf0.float(), vf0.float(), g, b, params, 8, 2)
-    args = _chain_args(np.random.default_rng(9), dev, 1, V=1040,
+    args = _chain_args(np.random.default_rng(9), dev, 1, V=2064,
                        bf=torch.float32)
     with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="ROADMAP.md B3"):
+                                        match="V <= 2048.*ROADMAP.md B3"):
         fc.coevo_chain(*args, 8, 2)
 
 
 def test_coevo_kernels_refuse_a_vertex_stream_over_shared_memory():
-    """Both coevo libraries plan the same shared memory; 460 vertices are
-    over sm_90's limit, and the whole block raises naming ROADMAP (JAX's
-    kernel takes them) instead of running its plain version."""
+    """Both bf16 libraries plan the same shared memory: one CTA a clip up
+    to 450 vertices, a cluster rank's (the plan's) past it; 2064 vertices
+    are over the cluster plan's limit, and the whole block and the chain
+    raise naming it and ROADMAP (JAX's kernel takes them) instead of
+    running their plain versions."""
     dev = _card()
     for V in (48, 431, 460):
         assert _cuda.COEVO_BLOCK.query("pmce_coevo_block_smem_bytes", V) \
             == _cuda.CHAIN.query("pmce_chain_smem_bytes", V)
+    for V in (451, 600, 1723, 2048):
+        S = fc.coevo_splits(19, V)
+        smem = fc.cluster_smem_bytes(19, V, S)
+        assert 0 < smem <= fc._SMEM_LIMIT
+        assert _cuda.COEVO_BLOCK.query(
+            "pmce_coevo_cluster_smem_bytes", 19, V, S) == smem
+        assert _cuda.CHAIN.query("pmce_coevo_cluster_smem_bytes", 19, V,
+                                 S) == smem
+        assert _cuda.CHAIN.query("pmce_coevo_clusters", 19, V, S) > 0
+    assert _cuda.CHAIN.query("pmce_coevo_cluster_smem_bytes", 19, 2064,
+                             8) == -1
     jf0, vf0, g, b, params = _coevo_block_args(np.random.default_rng(5),
-                                               dev, 1, V=460)
-    with pytest.raises(NotImplementedError, match="shared memory"):
+                                               dev, 1, V=2064)
+    with pytest.raises(NotImplementedError, match="V <= 2048.*ROADMAP"):
         fc.coevo_block(jf0, vf0, g, b, params, 8, 2)
+    args = _chain_args(np.random.default_rng(6), dev, 1, V=2064)
+    with torch.no_grad(), pytest.raises(NotImplementedError,
+                                        match="V <= 2048.*ROADMAP"):
+        fc.coevo_chain(*args, 8, 2)
+
+
+# The two-level coarsening's vertex stream (1723 tokens): rows K3 / 14 on
+# clusters of 8 CTAs, 3f / 14f on clusters of 16, and a cluster of 2 and 4
+# (bf16) at 460 / 600. bf16 within the chain's 2 % band, f32 within
+# F32_REL_TOL; each output relative to its own largest magnitude.
+@pytest.mark.parametrize("V,B", [(1723, 5), (1723, 64), (600, 3),
+                                 (460, 3)])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("kind", ["chain", "block"])
+def test_coevo_kernels_past_450_vertices_match_plain(no_tf32, kind, dtype,
+                                                     V, B):
+    dev = _card()
+    f32 = dtype == "f32"
+    rng = np.random.default_rng(V + B)
+    if kind == "chain":
+        args = _chain_args(rng, dev, B, V=V, NB=3,
+                           bf=torch.float32 if f32 else torch.bfloat16)
+        fn, plain = fc.coevo_chain, fc.coevo_chain_plain
+    else:
+        jf0, vf0, g, b, params = _coevo_block_args(rng, dev, B, V=V)
+        if f32:
+            jf0, vf0 = jf0.float(), vf0.float()
+        args = (jf0, vf0, g, b, params)
+        fn, plain = fc.coevo_block, fc.coevo_block_plain
+    name = f"coevo_{kind}{'_f32' if f32 else ''}"
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        got = fn(*args, 8, 2)
+        again = fn(*args, 8, 2)
+        want = plain(*args, 8, 2)
+    counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+    assert counts == {name: 2}
+    for a, a2, ref in zip(got, again, want):
+        assert a.dtype == ref.dtype and a.shape == ref.shape
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, a2)
+        assert _rel(ref, a) < (F32_REL_TOL if f32 else 0.02)
 
 
 # ------------------------------------- reproducible Stage-2 gradients (C2)
