@@ -24,9 +24,14 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    and the waves a batch of 32 takes; row 5's backward in exactly its two
    launches (the tile program and the weight launch, no transposed weight
    copy); the decoder blocks also at phase 14's 1723 vertex tokens (the
-   AdaLN block's launch sequences, the CA block's tile programs both ways,
-   kernels-line rows ``*_v1723``), each case's launches exact (a tile
-   program or its sequence, never both); the chain and the whole block at
+   AdaLN block's and the CA block's tile programs, each CTA's quarter of a
+   clip in passes of 128 rows, the passes and waves printed; kernels-line
+   rows ``*_v1723``), and the AdaLN block's launch sequences at a shape
+   outside its tile programs' gate, [32, 431, 64] with hid 512 (rows
+   ``ada_block_fwd_seq``, ``ada_block_bwd_seq``: no shape of the model
+   reaches them; their launches the case's own), each case's launches
+   exact (a tile program or its sequence, never both); the chain and the
+   whole block at
    1723 vertex tokens too (``check_coarse_coevo``: bf16 on clusters of 8
    CTAs a clip, f32 on clusters of 16; the chain at B = 256 and 64, the
    whole block at 256; rows ``chain_v1723``, ``coevo_block_v1723``,
@@ -231,8 +236,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    1723))`` (``pmce_tpu/smpl/mesh.py``'s second level; the decoder's vertex
    stream 1723 tokens), in bf16 fused and in f32 fused (TF32 off). Each
    dtype: the first step counted (exactly ``COARSE_STEP[dtype]``: the CA
-   blocks on their tile programs, the bf16 AdaLN blocks on their launch
-   sequences, nothing else), twice bit for bit, against the plain path
+   and AdaLN blocks on their tile programs, nothing else), twice bit for
+   bit, against the plain path
    (bf16 ``STEP_LOSS_REL_TOL`` / ``MESH_GRAD_REL_TOL``, f32
    ``F32_STEP_LOSS_REL_TOL`` / ``F32_STEP_GRAD_REL_TOL``, every gradient,
    the key biases to the largest); then ``COARSE_TIMED`` train steps (loss,
@@ -322,8 +327,8 @@ REPLACES = {
     "ada_bwd_f32": "pmce_tpu/ops/fused_attention.py:1534",
     "ca_fwd_f32": "pmce_tpu/ops/fused_attention.py:1823",
     "ca_bwd_f32": "pmce_tpu/ops/fused_attention.py:1853",
-    # Phase 14's shapes (1723 vertex tokens): the bf16 AdaLN block's
-    # launch sequences, the widened CA tile programs and f32 programs.
+    # Phase 14's shapes (1723 vertex tokens): the widened AdaLN and CA
+    # tile programs and f32 programs.
     "ada_block_fwd_v1723": "pmce_tpu/ops/fused_attention.py:1366",
     "ada_block_bwd_v1723": "pmce_tpu/ops/fused_attention.py:1534",
     "ca_block_fwd_v1723": "pmce_tpu/ops/fused_attention.py:1823",
@@ -338,6 +343,10 @@ REPLACES = {
     "coevo_block_v1723": "pmce_tpu/ops/fused_attention.py:2714",
     "chain_f32_v1723": "pmce_tpu/ops/fused_coevo_chain.py:118",
     "coevo_block_f32_v1723": "pmce_tpu/ops/fused_attention.py:2714",
+    # The AdaLN block's launch sequences, outside its tile programs' gate
+    # (hid over 256, C other than 64): no shape of the model reaches them.
+    "ada_block_fwd_seq": "pmce_tpu/ops/fused_attention.py:1366",
+    "ada_block_bwd_seq": "pmce_tpu/ops/fused_attention.py:1534",
 }
 SOURCES = {
     "lifter_trunk": "pmce_tpu_torch/csrc/lifter_trunk.cu",
@@ -379,11 +388,13 @@ SOURCES = {
     "coevo_block_v1723": "pmce_tpu_torch/csrc/coevo_block.cu",
     "chain_f32_v1723": "pmce_tpu_torch/csrc/coevo_f32.cu",
     "coevo_block_f32_v1723": "pmce_tpu_torch/csrc/coevo_f32.cu",
+    "ada_block_fwd_seq": "pmce_tpu_torch/csrc/ada_block.cu",
+    "ada_block_bwd_seq": "pmce_tpu_torch/csrc/ada_block.cu",
 }
 # The kernels-line rows of phase 14's shapes: the counter each one's
 # launches are read from on phase 14's path (bf16, f32).
-COARSE_ROWS = {"ada_block_fwd_v1723": ("bf16", "ada_block_fwd_seq"),
-               "ada_block_bwd_v1723": ("bf16", "ada_block_bwd_seq"),
+COARSE_ROWS = {"ada_block_fwd_v1723": ("bf16", "ada_block_fwd"),
+               "ada_block_bwd_v1723": ("bf16", "ada_block_bwd"),
                "ca_block_fwd_v1723": ("bf16", "ca_block_fwd"),
                "ca_block_bwd_v1723": ("bf16", "ca_block_bwd"),
                "ada_fwd_f32_v1723": ("f32", "ada_fwd_f32"),
@@ -416,6 +427,11 @@ MESH_TRAINING = ("gru_layer_save", "gru_layer_bwd", "gru_bwd_scan",
 # The decoder's attention blocks (phase 6; idle in phase 5).
 DECODER = ("mhsa_fwd", "mhsa_bwd", "ada_block_fwd", "ada_block_bwd",
            "ca_block_fwd", "ca_block_bwd")
+# The kernels line's rows of rows 8 / 9's launch sequences (phase 2's
+# case outside their tile programs' gate: hid ADA_SEQ_HID), whose launches
+# are that case's.
+SEQ_ROWS = ("ada_block_fwd_seq", "ada_block_bwd_seq")
+ADA_SEQ_HID = 512
 # The launch sequences of rows 4, 5, 8, 9 and 10 outside their tile
 # programs' gates: no shape of the Stage-2 step reaches them.
 DECODER_SEQ = ("mhsa_fwd_seq", "mhsa_bwd_seq", "ada_block_fwd_seq",
@@ -1284,13 +1300,14 @@ def check_blocks(device, rows) -> None:
 
 
 def decoder_case(rng, device, kind: str, clips: int, N: int, c: int,
-                 heads: int, Nk: int = 0, rate: float = 0.2):
+                 heads: int, Nk: int = 0, rate: float = 0.2,
+                 hid: int | None = None):
     """One decoder attention block at the training shapes, made with numpy
     from a seed: bf16 tokens and AdaLN vectors (the dense layers' dtype),
     f32 weights, per-clip branch masks at drop-path ``rate`` (the AdaLN and
     CA blocks' on ``call.masks``, so that a case can ask for their
     gradients), the output's cotangent. Returns (leaves, call(fn, *leaves),
-    (kernel, plain))."""
+    (kernel, plain)). ``hid``: the MLP's width (default 4 C)."""
     import torch
 
     from pmce_tpu_torch.ops import fused_attention as fa
@@ -1301,7 +1318,7 @@ def decoder_case(rng, device, kind: str, clips: int, N: int, c: int,
             device, dtype).requires_grad_(True)
 
     bf = torch.bfloat16
-    hid = 4 * c
+    hid = hid or 4 * c
     keep = 1.0 - rate
     masks = tuple(torch.from_numpy(((rng.random((clips, 1, 1)) < keep) / keep)
                                    .astype("float32")).to(device)
@@ -1466,20 +1483,22 @@ def ada_fwd_waves(device, tag: str) -> int:
     return waves
 
 
-def decoder_case_launches(device, kind: str, N: int, where: str) -> None:
+def decoder_case_launches(device, kind: str, N: int, where: str,
+                          hid: int = 256) -> dict:
     """One forward and backward of a decoder block case launched exactly
-    its kernels: row 4 / 5's tile programs, the AdaLN block's (its launch
-    sequences over ``ada_bwd_kernel_fits``' 512 tokens), the CA block's
-    tile programs at any long side (never its forward sequence)."""
+    its kernels: row 4 / 5's tile programs, the AdaLN block's at any token
+    count (its launch sequences outside ``ada_bwd_kernel_fits``: hid over
+    256), the CA block's tile programs at any long side (never its forward
+    sequence). Returns the launches."""
     from pmce_tpu_torch.ops import _cuda
     from pmce_tpu_torch.ops import fused_attention as fa
 
     if device.type != "cuda":
-        return
+        return {}
     if kind == "mhsa":
         expect = {"mhsa_fwd": 1, "mhsa_bwd": 1}
     elif kind == "ada":
-        tile = fa.ada_bwd_kernel_fits(N, 64, 256)
+        tile = fa.ada_bwd_kernel_fits(N, 64, hid)
         expect = ({"ada_block_fwd": 1, "ada_block_bwd": 1} if tile else
                   {"ada_block_fwd_seq": 1, "ada_block_bwd_seq": 1})
     else:
@@ -1490,6 +1509,7 @@ def decoder_case_launches(device, kind: str, N: int, where: str) -> None:
                            f"exactly {expect}")
     print(f"[kernels] {kind} {where}: forward and backward launched exactly "
           f"{launched}", flush=True)
+    return launched
 
 
 def check_decoder_blocks(device, rows) -> None:
@@ -1499,18 +1519,24 @@ def check_decoder_blocks(device, rows) -> None:
     with 2 heads, both cross-attentions (17 joints over 431 vertices, 8
     heads; 431 over 17, 2 heads), and row 4 at the trunk backward's spatial
     shape [32 * 16, 17, 256]; the AdaLN block and both cross-attentions
-    again at phase 14's 1723 vertex tokens (rows ``*_v1723``). Forward
-    against the plain version; backward against the plain version's
-    autograd, each gradient relative to its largest magnitude (the keys'
-    bias and AdaLN β, zero analytically, relative to the largest
-    gradient); a second backward must give the same gradients bit for bit.
-    Each case's forward and backward launch exactly its tile programs (the
-    AdaLN block over 512 tokens: its launch sequences), nothing else."""
+    again at phase 14's 1723 vertex tokens (rows ``*_v1723``; the AdaLN
+    block's passes a CTA and waves printed), and the AdaLN block at [32,
+    431, 64] with hid 512, outside its tile programs' gate: its launch
+    sequences (rows ``ada_block_fwd_seq``, ``ada_block_bwd_seq``, their
+    launches this case's). Forward against the plain version; backward
+    against the plain version's autograd, each gradient relative to its
+    largest magnitude (the keys' bias and AdaLN β, zero analytically,
+    relative to the largest gradient); a second backward must give the
+    same gradients bit for bit. Each case's forward and backward launch
+    exactly its tile programs (or, outside the gate, its sequences),
+    nothing else."""
     import numpy as np
     import torch
 
     from pmce_tpu_torch.ops import _cuda
+    from pmce_tpu_torch.ops import fused_attention as fa
 
+    held = {}
     if device.type == "cuda":
         held = {"ca_block_fwd": _cuda.CA.query("pmce_ca_tile_clusters", 1),
                 "ca_block_bwd": _cuda.CA.query("pmce_ca_tile_clusters", 0),
@@ -1520,20 +1546,26 @@ def check_decoder_blocks(device, rows) -> None:
               f"{-(-BM // min(held.values()))} wave(s)", flush=True)
         ada_fwd_waves(device, "[kernels]")
     rng = np.random.default_rng(5)
-    cases = (("mhsa", "joint self-attention", BM, JT, 64, 8, 0),
-             ("ada_block", "vertex AdaLN block", BM, 431, 64, 2, 0),
-             ("ca_block", "joint cross-attention", BM, JT, 64, 8, 431),
-             ("ca_block", "vertex cross-attention", BM, 431, 64, 2, JT),
-             ("mhsa", "trunk backward, spatial", BM * T, JT, C, 8, 0),
-             ("ada_block", "vertex AdaLN block", BM, V_COARSE, 64, 2, 0),
-             ("ca_block", "joint cross-attention", BM, JT, 64, 8, V_COARSE),
-             ("ca_block", "vertex cross-attention", BM, V_COARSE, 64, 2,
-              JT))
-    for name, label, clips, N, c, heads, Nk in cases:
+    cases = (("mhsa", "joint self-attention", BM, JT, 64, 8, 0, None),
+             ("ada_block", "vertex AdaLN block", BM, 431, 64, 2, 0, None),
+             ("ca_block", "joint cross-attention", BM, JT, 64, 8, 431, None),
+             ("ca_block", "vertex cross-attention", BM, 431, 64, 2, JT,
+              None),
+             ("mhsa", "trunk backward, spatial", BM * T, JT, C, 8, 0, None),
+             ("ada_block", "vertex AdaLN block", BM, V_COARSE, 64, 2, 0,
+              None),
+             ("ca_block", "joint cross-attention", BM, JT, 64, 8, V_COARSE,
+              None),
+             ("ca_block", "vertex cross-attention", BM, V_COARSE, 64, 2, JT,
+              None),
+             ("ada_block", "vertex AdaLN block outside the gate", BM, 431,
+              64, 2, 0, ADA_SEQ_HID))
+    for name, label, clips, N, c, heads, Nk, hid in cases:
         kind = {"mhsa": "mhsa", "ada_block": "ada", "ca_block": "ca"}[name]
-        suffix = "_v1723" if V_COARSE in (N, Nk) else ""
+        suffix = ("_seq" if hid else
+                  "_v1723" if V_COARSE in (N, Nk) else "")
         leaves, call, (kernel, plain) = decoder_case(
-            rng, device, kind, clips, N, c, heads, Nk)
+            rng, device, kind, clips, N, c, heads, Nk, hid=hid)
         g = torch.from_numpy(rng.normal(size=tuple(leaves[0].shape)).astype(
             "float32")).to(device, torch.bfloat16)
         zero = (6, 14) if kind == "ca" else ()
@@ -1543,12 +1575,21 @@ def check_decoder_blocks(device, rows) -> None:
 
         where = (f"{label} [{clips}, {N}, {c}]" + (f" over {Nk} keys"
                                                     if Nk else "")
-                 + f", {heads} heads")
+                 + f", {heads} heads" + (f", hid {hid}" if hid else ""))
+        if kind == "ada" and held and not hid:
+            print(f"[kernels] ada_block {where}: {fa.ada_bwd_passes(N)} "
+                  f"pass(es) of up to 128 rows a CTA (forward and backward), "
+                  f"the backward's workspace "
+                  f"{fa.ada_bwd_workspace(clips, N) * 4 / 1e6:.1f} MB; "
+                  f"{clips} clips take {-(-clips // held['ada_block_bwd'])} "
+                  f"backward wave(s) of {held['ada_block_bwd']} clusters",
+                  flush=True)
         _cuda.reset_launch_counts()
         yk = call(kernel, *leaves)
         gk = (mhsa_backward_launches(bwd, yk, where) if kind == "mhsa"
               else bwd(yk))
-        decoder_case_launches(device, kind, N, where)
+        launched = decoder_case_launches(device, kind, N, where,
+                                         hid or 4 * c)
         yp = call(plain, *leaves)
         gp = bwd(yp)
         torch.cuda.synchronize()
@@ -1584,6 +1625,9 @@ def check_decoder_blocks(device, rows) -> None:
                                    f"its plain version ({rel})")
             record(rows, key + suffix, err, ms, plain_ms,
                    count_flops(flop_fn), nbytes, "bf16")
+            if suffix == "_seq":
+                rows[key + suffix]["case_launches"] = launched.get(
+                    key + suffix, 0)
         repeat = bwd(yk)
         if not all(torch.equal(a, b) for a, b in zip(gk, repeat)):
             raise RuntimeError(f"{name}_bwd {where}: two runs differ")
@@ -4200,12 +4244,12 @@ def f32_stage2(device, stage1: dict, bf16_ms: float,
 
 # Phase 14: a train step's launches on the 1723-vertex model (the lifter's
 # 6 blocks forward and backward, phase 6's decoder calls; bf16: the AdaLN
-# blocks on their launch sequences over 512 tokens, the CA blocks on their
-# tile programs, the GRU pair 4 a step; f32: F32_STAGE2_STEP, the GRU
+# and CA blocks on their tile programs, each CTA's quarter of a clip in 4
+# passes, the GRU pair 4 a step; f32: F32_STAGE2_STEP, the GRU
 # plain as JAX's f32), and the timed steps a dtype (after 2 warm-up steps).
 COARSE_STEP = {
     "bf16": {"block_fwd": 6, "block_bwd": 6, "mhsa_fwd": 3, "mhsa_bwd": 1,
-             "ada_block_fwd_seq": 3, "ada_block_bwd_seq": 3,
+             "ada_block_fwd": 3, "ada_block_bwd": 3,
              "ca_block_fwd": 6, "ca_block_bwd": 4, "gru_layer_save": 4,
              "gru_layer_bwd": 4, "gru_bwd_scan": 4},
     "f32": F32_STAGE2_STEP}
@@ -4804,6 +4848,7 @@ def main() -> int:
                   "mhsa_fwd_f32", "mhsa_bwd_f32", "ada_fwd_f32",
                   "ada_bwd_f32", "ca_fwd_f32", "ca_bwd_f32")}}
     counts["skinning"] += etl["skinning"]
+    counts.update({k: rows[k]["case_launches"] for k in SEQ_ROWS})
     counts["block_fwd_f32"] += f32t["counts"]["block_fwd_f32"]
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],

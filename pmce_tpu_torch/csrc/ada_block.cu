@@ -17,25 +17,32 @@
 // forward, 1.5 of them the 431 x 431 attention, and twice that backward;
 // the activations are ~3.5 MB. Hopper's tensor cores would take ~2 us and
 // its memory ~1 us: the bound is far below what launches and latency cost,
-// so the forward is two launches that fill the card in one wave.
+// so the forward is two launches that fill the card in one wave. At the
+// 1723-vertex mesh the attention is 16x that, still far below latency.
 //
-// Forward, two launches where the tile programs' gate holds (C = 64, hid up
-// to 256, N up to 512), four ordinary CTAs a clip (a quarter of its rows,
-// at most 128, a warp's 16 each: 128 CTAs at batch 32, one an SM, one wave
-// on 132 SMs; no cluster, no cooperative launch, no spin: the kernel
-// boundary is the only barrier):
+// Both tile programs take any token count where their gate holds (C = 64,
+// hid up to 256): a clip's four CTAs each own a quarter of its rows (whole
+// 16-row blocks) and walk them in passes of up to RT = 128 rows, a warp's
+// 16 each (one pass up to 512 tokens, two at 600, four at 1723); each pass
+// streams the clip's keys (and, backward, its queries) through the ring
+// again, from L2.
+//
+// Forward, two launches, four ordinary CTAs a clip (128 CTAs at batch 32,
+// one an SM, one wave on 132 SMs; no cluster, no cooperative launch, no
+// spin: the kernel boundary is the only barrier):
 // - launch A (adf::ada_fwd_rows_kernel), row-local: AdaLN1 (f32 statistics,
 //   unbiased sigma, eps outside the sqrt) from the accumulator layout, then
 //   h1 @ Wqkv + bqkv on the tensor cores (mma.sync m16n8k16, W's own [in,
 //   out] rows by ldmatrix .trans), q scaled in f32 before its one bf16
 //   rounding. It writes qkv (the clip's keys and values for launch B, 5.3
 //   MB at batch 32: L2-resident) and h1 when a gradient is owed.
-// - launch B (adf::ada_fwd_attn_kernel), a CTA's query rows: the clip's K
-//   (then K and V) stream from qkv through a two-stage cp.async ring of
-//   64-row chunks, as row 9's program streams them. Pass 1: each row's max
-//   and sum of exp(q k^T - max) over all N keys (per lane, merged over the
-//   quad); pass 2: S again, P = bf16(exp(s - m) / l) (the plain version's
-//   cast point after normalising), O += P V. Then the projection, x1 = x +
+// - launch B (adf::ada_fwd_attn_kernel), a pass of a CTA's query rows at a
+//   time (the weights loaded once): the clip's K (then K and V) stream
+//   from qkv through a two-stage cp.async ring of 64-row chunks, as row
+//   9's program streams them. Sweep 1: each row's max and sum of exp(q k^T
+//   - max) over all N keys (per lane, merged over the quad); sweep 2: S
+//   again, P = bf16(exp(s - m) / l) (the plain version's cast point after
+//   normalising), O += P V. Then the projection, x1 = x +
 //   m1 * a, AdaLN2, fc1 + exact GELU and fc2 in hidden blocks of 64 with
 //   their sums in f32 registers, y = x1 + m2 * mo (adaln_tile.cuh's
 //   ada_tail, shared with row 10). The weights are read in their [in, out]
@@ -47,29 +54,32 @@
 // sum [clips, H, N], x1 f32, h2, hh f32, ge; the branches a, mo f32 only for
 // the mask gradients) in the launch sequence's layout, only when a
 // gradient is owed, evict-first (only the backward reads it).
-// Outside the gate, the launch sequence (simple first): one launch per stage
-// over all rows: AdaLN (a warp per row), WMMA GEMMs with fused epilogues (q
+// Outside the gate (hid over 256, C other than 64), the launch sequence
+// (simple first): one launch per stage over all rows: AdaLN (a warp per
+// row), WMMA GEMMs with fused epilogues (q
 // scale, exact GELU keeping its input, masked residual adds keeping the
 // branches a and mo where the mask gradients are owed), and
 // attention_ops.cuh's attention on the CUDA cores, whose keys stream through
 // shared memory in tiles of 64; it always keeps what the backward reads.
 //
-// Backward, two launches where the tile program's gate holds (C = 64, hid
-// up to 256, N up to 512):
+// Backward, two launches where the tile program's gate holds:
 // - the tile program (adb::ada_bwd_tile_kernel), a cluster of CL = 4 CTAs a
-//   clip (128 CTAs at batch 32), each owning a quarter
-//   of the clip's rows (at most 128, a warp's 16 each). Row-local first, on
-//   the tensor cores (mma.sync m16n8k16, W^T's fragments from W's own rows):
+//   clip (128 CTAs at batch 32; cudaLaunchKernelEx with the cluster
+//   dimension), each owning a quarter of the clip's rows, a pass of up to
+//   128 at a time in each of two phases (see the kernel). Row-local first,
+//   on the tensor cores (mma.sync m16n8k16, W^T's fragments from W's own
+//   rows):
 //   m2 * g, the MLP's backward (fc2^T, gelu'(hh), fc1^T in blocks of 64
 //   hidden units), the AdaLN2 backward plus the residual (dx1, kept in
-//   shared memory), da = m1 * dx1, dO = da @ Wproj^T and D = dO . O per
-//   head. Then the attention backward over the whole clip, P recomputed
-//   from the forward's saved max and sum: dq of the CTA's query rows over
+//   shared memory, or past one pass in device memory), da = m1 * dx1, dO =
+//   da @ Wproj^T and D = dO . O per head. Then the attention backward over
+//   the whole clip, P recomputed from the forward's saved max and sum: dq
+//   of the CTA's query rows over
 //   every key, then (after a cluster barrier) dk and dv of its key rows
 //   over every query (adaln_tile.cuh's attn_bwd_dq / attn_bwd_dkdv, shared
 //   with the self-attention backward, mhsa.cu). The clip's keys, values,
-//   queries and dO stream
-//   through a two-stage cp.async ring in chunks of 64 rows from device
+//   queries and dO stream through a two-stage cp.async ring in chunks of
+//   64 rows from device
 //   memory: q, k, v from the forward's saved qkv, dO and D from scratch that
 //   each CTA writes for its own rows before the barrier (55 KB of dO a
 //   clip, read from L2; distributed shared memory would serve only the
@@ -83,8 +93,9 @@
 // - the weight gradients (wgrad.cuh, shared with block.cu and ca_block.cu):
 //   h1^T dqkv, o^T da, h2^T dhh, ge^T m2g and the four bias gradients, over
 //   64 x 64 output tiles cut into fixed K ranges.
-// Outside the gate, the launch sequence: the MLP half, the AdaLN backward (a
-// block per clip), the CUDA-core attention backward (a query pass, then a
+// Outside the gate (hid over 256, C other than 64), the launch sequence:
+// the MLP half, the AdaLN backward (a block per clip), the CUDA-core
+// attention backward (a query pass, then a
 // key pass), split-K weight partials added in a fixed order, and the mask
 // gradients as a block per clip.
 
@@ -221,20 +232,23 @@ struct Args {
                                         // B's [clips * CL, NSTAMP_B]; or null
 };
 
-// A CTA's quarter of its clip's rows (whole 16-row blocks, as row 9's).
+// A CTA's quarter of its clip's rows (whole 16-row blocks, as row 9's),
+// walked in passes of up to RT rows (a warp's 16 each): one pass up to 512
+// tokens, four at the 1723-vertex mesh.
 struct Rows {
-  int b, r0, nr;
+  int b, r0, nr, passes;
   size_t row0;
   __device__ Rows(int N) {
     b = blockIdx.x / CL;
     const int rank = blockIdx.x % CL;
     r0 = min(N, rank * rank_rows(N));
     nr = min(N, r0 + rank_rows(N)) - r0;
+    passes = max(1, (nr + RT - 1) / RT);
     row0 = (size_t)b * N + r0;
   }
 };
 
-// Launch A: AdaLN1 and the qkv product of a warp's 16 rows.
+// Launch A: AdaLN1 and the qkv product of a warp's 16 rows of each pass.
 template <bool PROF>
 __global__ void __launch_bounds__(NTH) ada_fwd_rows_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -247,46 +261,53 @@ __global__ void __launch_bounds__(NTH) ada_fwd_rows_kernel(const Args a) {
     cp_async16(Wqkv + r * LDQKV + cc, a.wqkv + r * L3 + cc, true);
   }
   cp_async_commit();
-  // The warp's rows and their AdaLN while the weights are in flight.
   const Rows rw(a.N);
-  const int qr = warp * 16;
-  const bool on = qr < rw.nr;
-  const bool v0 = qr + g < rw.nr, v1 = qr + g + 8 < rw.nr;
-  const size_t r0 = rw.row0 + qr, cb = (size_t)rw.b * CW;
-  unsigned af[4][4];
-  if (on) {
-    float h[8][4];
-    load_frag(h, a.x, r0, v0, v1);
-    adaln_fwd_frag(h, a.g1 + cb, a.b1 + cb, a.eps);
-    if (a.h1) store_bf<true>(h, nullptr, a.h1, r0, v0, v1);
-    frag_a(af, h);
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-  clk(0);
-  if (on) {
-#pragma unroll 1
-    for (int j = 0; j < 3; ++j) {
-      float acc[8][4];
-      zero(acc);
-      mma_aw(acc, af, Wqkv + j * CW, LDQKV);
-      add_cols(acc, a.bqkv + j * CW);
-      if (j == 0) {
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[jj][e] *= a.qscale;
-      }
-      // Launch B reads qkv from L2: written normally, not evict-first.
-      store_bf(acc, nullptr, a.qkv, r0, v0, v1, L3, j * CW);
+  const size_t cb = (size_t)rw.b * CW;
+  for (int p = 0; p < rw.passes; ++p) {
+    // The warp's rows and their AdaLN (the first pass's while the weights
+    // are in flight).
+    const int qr = p * RT + warp * 16;
+    const bool on = qr < rw.nr;
+    const bool v0 = qr + g < rw.nr, v1 = qr + g + 8 < rw.nr;
+    const size_t r0 = rw.row0 + qr;
+    unsigned af[4][4];
+    if (on) {
+      float h[8][4];
+      load_frag(h, a.x, r0, v0, v1);
+      adaln_fwd_frag(h, a.g1 + cb, a.b1 + cb, a.eps);
+      if (a.h1) store_bf<true>(h, nullptr, a.h1, r0, v0, v1);
+      frag_a(af, h);
     }
+    if (p == 0) {
+      cp_async_wait_none();
+      __syncthreads();
+    }
+    clk(0);
+    if (on) {
+#pragma unroll 1
+      for (int j = 0; j < 3; ++j) {
+        float acc[8][4];
+        zero(acc);
+        mma_aw(acc, af, Wqkv + j * CW, LDQKV);
+        add_cols(acc, a.bqkv + j * CW);
+        if (j == 0) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[jj][e] *= a.qscale;
+        }
+        // Launch B reads qkv from L2: written normally, not evict-first.
+        store_bf(acc, nullptr, a.qkv, r0, v0, v1, L3, j * CW);
+      }
+    }
+    clk(1);
   }
-  clk(1);
   clk.write(a.stamps);
 }
 
 // Launch B: the attention of a CTA's query rows over the clip's keys, then
-// the block's tail.
+// the block's tail, a pass of up to RT query rows at a time (the weights
+// loaded once; each pass streams the clip's keys again, from L2).
 template <bool PROF, int D>
 __global__ void __launch_bounds__(NTH, 1) ada_fwd_attn_kernel(const Args a) {
   constexpr int H = CW / D;
@@ -304,22 +325,6 @@ __global__ void __launch_bounds__(NTH, 1) ada_fwd_attn_kernel(const Args a) {
   const int N = a.N, hid = a.hid, ldw1 = hid + 8;
   const size_t crow0 = (size_t)rw.b * N;  // the clip's first row
   const size_t cb = (size_t)rw.b * CW;
-
-  // ---- loads: the three weights and the CTA's q rows; the first K chunk --
-  for (int c = tid; c < CW * 8; c += NTH) {
-    const int r = c / 8, cc = c % 8 * 8;
-    cp_async16(Wp + r * LD + cc, a.wproj + r * CW + cc, true);
-  }
-  for (int c = tid; c < CW * (hid / 8); c += NTH) {
-    const int r = c / (hid / 8), cc = c % (hid / 8) * 8;
-    cp_async16(W1 + r * ldw1 + cc, a.w1 + (size_t)r * hid + cc, true);
-  }
-  for (int c = tid; c < hid * 8; c += NTH) {
-    const int r = c / 8, cc = c % 8 * 8;
-    cp_async16(W2 + r * LD + cc, a.w2 + (size_t)r * CW + cc, true);
-  }
-  load_rows(Qt, a.qkv, rw.row0, rw.nr, L3, 0);
-  cp_async_commit();
   const int nch = (N + CH - 1) / CH;
   auto stage_of = [&](int c) {
     return reinterpret_cast<bf16*>(ring + (c & 1) * 2 * CTILE);
@@ -336,115 +341,139 @@ __global__ void __launch_bounds__(NTH, 1) ada_fwd_attn_kernel(const Args a) {
     }
     cp_async_commit();
   };
-  issue(0, false);
-  asm volatile("cp.async.wait_group 1;\n" ::);
-  __syncthreads();
-  clk(0);
 
-  const int qr = warp * 16;
-  const bool on = qr < rw.nr;
-  // The warp's q fragments of every head, kept for both passes.
-  QFrag<D> qf[H];
-  if (on) {
-#pragma unroll
-    for (int h = 0; h < H; ++h) load_q(qf[h], Qt + qr * LD + h * D, LD);
-  }
-
-  // ---- pass 1: each row's max and sum over the clip's keys ----------------
-  float m[H][2], l[H][2];
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    m[h][0] = m[h][1] = -INFINITY;
-    l[h][0] = l[h][1] = 0.f;
-  }
-  for (int c = 0; c < nch; ++c) {
-    issue(c + 1, false);
-    cp_async_wait_one();
-    __syncthreads();
-    if (on) {
-      const bf16* Kc = stage_of(c);
-      const int n = min(CH, N - c * CH);
-      // The chunk's key blocks unrolled: their products are independent.
-#pragma unroll
-      for (int kb = 0; kb < CH; kb += 16) {
-        if (kb >= n) break;
-        const auto in = [&](int, int col) { return kb + col < n; };
-#pragma unroll
-        for (int h = 0; h < H; ++h) {
-          float sc[2][4] = {};
-          dot_q<D>(sc, qf[h], Kc + kb * LD + h * D, LD);
-          softmax_fold(sc, in, m[h], l[h]);
-        }
+  for (int p = 0; p < rw.passes; ++p) {
+    const int pr = p * RT;                 // the pass's first row of the CTA's
+    const int pn = min(RT, rw.nr - pr);    // and its rows
+    // ---- loads: the three weights (once), the pass's q rows; the first K
+    // chunk (the pass before is done with Qt and the ring: its last chunk
+    // ended in a block barrier) -----------------------------------------------
+    if (p == 0) {
+      for (int c = tid; c < CW * 8; c += NTH) {
+        const int r = c / 8, cc = c % 8 * 8;
+        cp_async16(Wp + r * LD + cc, a.wproj + r * CW + cc, true);
+      }
+      for (int c = tid; c < CW * (hid / 8); c += NTH) {
+        const int r = c / (hid / 8), cc = c % (hid / 8) * 8;
+        cp_async16(W1 + r * ldw1 + cc, a.w1 + (size_t)r * hid + cc, true);
+      }
+      for (int c = tid; c < hid * 8; c += NTH) {
+        const int r = c / 8, cc = c % 8 * 8;
+        cp_async16(W2 + r * LD + cc, a.w2 + (size_t)r * CW + cc, true);
       }
     }
-    __syncthreads();
-  }
-  float li[H][2];
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    softmax_merge(m[h], l[h]);
-    li[h][0] = 1.0f / l[h][0];
-    li[h][1] = 1.0f / l[h][1];
-  }
-  clk(1);
-
-  // ---- pass 2: O = P V, P = bf16(exp(s - m) / l) --------------------------
-  float o[8][4];
-  zero(o);
-  issue(0, true);
-  for (int c = 0; c < nch; ++c) {
-    issue(c + 1, true);
+    load_rows(Qt, a.qkv, rw.row0 + pr, pn, L3, 0);
+    cp_async_commit();
+    issue(0, false);
     cp_async_wait_one();
     __syncthreads();
-    if (on) {
-      const bf16* Kc = stage_of(c);
-      const bf16* Vc = Kc + CH * LD;
-      const int n = min(CH, N - c * CH);
-#pragma unroll
-      for (int kb = 0; kb < CH; kb += 16) {
-        if (kb >= n) break;
-        const auto in = [&](int, int col) { return kb + col < n; };
-#pragma unroll
-        for (int h = 0; h < H; ++h) {
-          float sc[2][4] = {};
-          dot_q<D>(sc, qf[h], Kc + kb * LD + h * D, LD);
-          softmax_probs(sc, in, m[h], li[h]);
-          unsigned pa[4];
-          pack_a(pa, sc);
-          dot_pn<D>(o, h * (D / 8), pa, Vc + kb * LD + h * D, LD);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  clk(2);
+    clk(0);
 
-  // ---- the saved o and statistics, then the tail in registers --------------
-  if (on) {
-    const bool v0 = qr + g < rw.nr, v1 = qr + g + 8 < rw.nr;
-    const size_t r0 = rw.row0 + qr;
-    if (a.o) store_bf<true>(o, nullptr, a.o, r0, v0, v1);
-    if (a.sm && tq == 0) {
+    const int qr = warp * 16;
+    const bool on = qr < pn;
+    // The warp's q fragments of every head, kept for both sweeps.
+    QFrag<D> qf[H];
+    if (on) {
 #pragma unroll
-      for (int h = 0; h < H; ++h)
+      for (int h = 0; h < H; ++h) load_q(qf[h], Qt + qr * LD + h * D, LD);
+    }
+
+    // ---- sweep 1: each row's max and sum over the clip's keys ------------
+    float m[H][2], l[H][2];
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-          if (hf ? v1 : v0) {
-            const size_t si =
-                ((size_t)rw.b * H + h) * N + rw.r0 + qr + g + 8 * hf;
-            __stcs(a.sm + si, m[h][hf]);
-            __stcs(a.sl + si, l[h][hf]);
+    for (int h = 0; h < H; ++h) {
+      m[h][0] = m[h][1] = -INFINITY;
+      l[h][0] = l[h][1] = 0.f;
+    }
+    for (int c = 0; c < nch; ++c) {
+      issue(c + 1, false);
+      cp_async_wait_one();
+      __syncthreads();
+      if (on) {
+        const bf16* Kc = stage_of(c);
+        const int n = min(CH, N - c * CH);
+        // The chunk's key blocks unrolled: their products are independent.
+#pragma unroll
+        for (int kb = 0; kb < CH; kb += 16) {
+          if (kb >= n) break;
+          const auto in = [&](int, int col) { return kb + col < n; };
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            float sc[2][4] = {};
+            dot_q<D>(sc, qf[h], Kc + kb * LD + h * D, LD);
+            softmax_fold(sc, in, m[h], l[h]);
           }
+        }
+      }
+      __syncthreads();
     }
-    unsigned of[4][4];
-    frag_a(of, o);
-    const Tail t{a.x, a.out, Wp, W1, W2, a.bproj, a.bb1, a.bb2,
-                 a.g2 + cb, a.b2 + cb, a.a, a.x1, a.hh, a.mo, a.h2, a.ge,
-                 hid, a.eps};
-    ada_tail(t, of, r0, v0, v1, a.m1 ? a.m1[rw.b] : 1.f,
-             a.m2 ? a.m2[rw.b] : 1.f);
+    float li[H][2];
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      softmax_merge(m[h], l[h]);
+      li[h][0] = 1.0f / l[h][0];
+      li[h][1] = 1.0f / l[h][1];
+    }
+    clk(1);
+
+    // ---- sweep 2: O = P V, P = bf16(exp(s - m) / l) ----------------------
+    float o[8][4];
+    zero(o);
+    issue(0, true);
+    for (int c = 0; c < nch; ++c) {
+      issue(c + 1, true);
+      cp_async_wait_one();
+      __syncthreads();
+      if (on) {
+        const bf16* Kc = stage_of(c);
+        const bf16* Vc = Kc + CH * LD;
+        const int n = min(CH, N - c * CH);
+#pragma unroll
+        for (int kb = 0; kb < CH; kb += 16) {
+          if (kb >= n) break;
+          const auto in = [&](int, int col) { return kb + col < n; };
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            float sc[2][4] = {};
+            dot_q<D>(sc, qf[h], Kc + kb * LD + h * D, LD);
+            softmax_probs(sc, in, m[h], li[h]);
+            unsigned pa[4];
+            pack_a(pa, sc);
+            dot_pn<D>(o, h * (D / 8), pa, Vc + kb * LD + h * D, LD);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    clk(2);
+
+    // ---- the saved o and statistics, then the tail in registers ----------
+    if (on) {
+      const bool v0 = qr + g < pn, v1 = qr + g + 8 < pn;
+      const size_t r0 = rw.row0 + pr + qr;
+      if (a.o) store_bf<true>(o, nullptr, a.o, r0, v0, v1);
+      if (a.sm && tq == 0) {
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            if (hf ? v1 : v0) {
+              const size_t si = ((size_t)rw.b * H + h) * N + rw.r0 + pr +
+                                qr + g + 8 * hf;
+              __stcs(a.sm + si, m[h][hf]);
+              __stcs(a.sl + si, l[h][hf]);
+            }
+      }
+      unsigned of[4][4];
+      frag_a(of, o);
+      const Tail t{a.x, a.out, Wp, W1, W2, a.bproj, a.bb1, a.bb2,
+                   a.g2 + cb, a.b2 + cb, a.a, a.x1, a.hh, a.mo, a.h2, a.ge,
+                   hid, a.eps};
+      ada_tail(t, of, r0, v0, v1, a.m1 ? a.m1[rw.b] : 1.f,
+               a.m2 ? a.m2[rw.b] : 1.f);
+    }
+    clk(3);
   }
-  clk(3);
   clk.write(a.stamps ? a.stamps + (size_t)gridDim.x * NSTAMP_A : nullptr);
 }
 
@@ -473,8 +502,8 @@ int launch(const Args& a, cudaStream_t s) {
 extern "C" int pmce_ada_fwd_tile(void* const* ptrs, int clips, int N, int hid,
                                  int H, float eps, void* stream) {
   using namespace adf;
-  if (clips <= 0 || N <= 0 || N > CL * RT || hid <= 0 || hid % CW ||
-      hid > MAX_HID || (H != 2 && H != 4 && H != 8))
+  if (clips <= 0 || N <= 0 || hid <= 0 || hid % CW || hid > MAX_HID ||
+      (H != 2 && H != 4 && H != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   auto cb = [&](int i) { return static_cast<const bf16*>(ptrs[i]); };
@@ -581,10 +610,10 @@ constexpr int CH = 64;     // rows of a streamed chunk
 constexpr int L3 = 3 * CW; // qkv's row stride
 
 // Shared-memory plan, bytes. Region M holds W2 and W1 for the MLP's
-// backward; after it (a block-wide barrier) dx1 f32 and the ring's two
-// stages (k | v chunks for dq, then q | dO chunks for dk, dv). The four
-// [128, 72] bf16 tiles, a warp's 16 rows each, by stage: RA m2g, da, dq;
-// RB dhh, dO, dk; RC q, v; RD k, dv.
+// backward; after it (a block-wide barrier) dx1 f32 (one pass only) and the
+// ring's two stages (k | v chunks for dq, then q | dO chunks for dk, dv). The
+// four [128, 72] bf16 tiles, a warp's 16 rows each, by stage: RA m2g, da,
+// dq; RB dhh, dO, dk; RC q, v; RD k, dv.
 constexpr int TILE = RT * LD * 2;
 constexpr int CTILE = CH * LD * 2;
 constexpr int LDQKV = L3 + 8;
@@ -625,6 +654,8 @@ struct Args {
   bf16 *m2g, *dhh, *da, *dqkv;          // the weight products' dY
   bf16* dout;                           // scratch [M, 64]: dO
   float* dsum;                          // scratch [clips, H, N]: dO . O
+  float* dx1;                           // scratch [M, 64] f32: dx1 between
+                                        // the phases (more than one pass)
   float* dgb;                           // [4, clips, 64]
   float *dm1, *dm2;                     // [clips] or null
   int* counters;                        // the weight launch's, zeroed here
@@ -633,13 +664,23 @@ struct Args {
   long long* stamps;                    // [clips * CL, NSTAMP] or null
 };
 
+// A CTA owns a quarter of its clip's rows (whole 16-row blocks) and walks
+// them in passes of up to RT rows, a warp's 16 each: one pass up to 512
+// tokens, four at the 1723-vertex mesh. Phase 1, a pass at a time: the
+// row-local chain down to dO and D (written to device memory for the
+// cluster's key rows) and dq over every key. The cluster barrier: every
+// row's dO and D are written. Phase 2, a pass at a time: dk and dv over
+// every query, then qkv^T and the AdaLN1 backward. dx1 stays in region M
+// with one pass; with more it goes to device memory between the phases
+// (a.dx1), and dq, whose bf16 rounding phase 2's product reads, comes back
+// from dqkv. W2 and W1 are read again (from L2) for each pass of phase 1:
+// the ring takes their region. The per-clip vectors add up in vp over the
+// passes in pass order.
 template <bool PROF, int D>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
-    ada_bwd_tile_kernel(const Args a) {
+__global__ void __launch_bounds__(NTH, 1) ada_bwd_tile_kernel(const Args a) {
   constexpr int H = CW / D;
   extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
+  const int rank = clu::rank();
   const int b = blockIdx.x / CL;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -666,269 +707,289 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
   const int N = a.N;
   const int r0 = min(N, rank * rank_rows(N));
   const int nr = min(N, r0 + rank_rows(N)) - r0;
+  const int passes = max(1, (nr + RT - 1) / RT);
+  const bool one = passes == 1;
   const size_t crow0 = (size_t)b * N;  // the clip's first row
-  const size_t row0 = crow0 + r0;      // the CTA's
   const bool masks = a.dm1 != nullptr;
   const int hid = a.hid, ldw1 = hid + 8;
   const size_t cb = (size_t)b * CW;
 
   if (blockIdx.x == 0 && tid < a.ncounters) a.counters[tid] = 0;
+  for (int i = tid; i < VP_LEN; i += NTH) vp[i] = 0.f;
 
-  // ---- loads: the four weights, the CTA's q and k rows -------------------
-  {
-    for (int c = tid; c < CW * 8; c += NTH) {
-      const int r = c / 8, cc = c % 8 * 8;
-      cp_async16(Wp + r * LD + cc, a.wproj + r * CW + cc, true);
-    }
-    for (int c = tid; c < CW * (L3 / 8); c += NTH) {
-      const int r = c / (L3 / 8), cc = c % (L3 / 8) * 8;
-      cp_async16(Wqkv + r * LDQKV + cc, a.wqkv + r * L3 + cc, true);
-    }
-    for (int c = tid; c < hid * 8; c += NTH) {
-      const int r = c / 8, cc = c % 8 * 8;
-      cp_async16(W2 + r * LD + cc, a.w2 + (size_t)r * CW + cc, true);
-    }
-    for (int c = tid; c < CW * (hid / 8); c += NTH) {
-      const int r = c / (hid / 8), cc = c % (hid / 8) * 8;
-      cp_async16(W1 + r * ldw1 + cc, a.w1 + (size_t)r * hid + cc, true);
-    }
-    load_rows(RC, a.qkv, row0, nr, L3, 0);
-    load_rows(RD, a.qkv, row0, nr, L3, CW);
-    for (int i = tid; i < VP_LEN; i += NTH) vp[i] = 0.f;
-    cp_async_commit();
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-  }
-  clk(0);
-
-  // ---- row-local, a warp per 16 rows: m2 * g, the MLP's backward (dh2 in
-  // registers) ---------------------------------------------------------------
+  // A warp's 16 rows of a pass, and its tiles.
   const int qr = warp * 16;
-  const bool on = qr < nr;
-  const bool v0 = qr + g < nr, v1 = qr + g + 8 < nr;
-  const size_t wrow0 = row0 + qr;
   bf16* T1w = RA + qr * LD;
   bf16* T2w = RB + qr * LD;
   const float s2 = a.m2 ? a.m2[b] : 1.f, s1 = a.m1 ? a.m1[b] : 1.f;
-  float dh2[8][4];
-  zero(dh2);
-  float dm_part[2] = {0.f, 0.f};
-  if (on) {
-    for (int e = lane; e < 16 * 8; e += 32) {
-      const int r = e / 8, c8 = e % 8 * 8;
-      float gv[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) gv[i] = 0.f;
-      if (qr + r < nr) load8(a.g + (wrow0 + r) * CW + c8, gv);
-      unsigned pk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pk[i] = pack_bf2(gv[2 * i] * s2, gv[2 * i + 1] * s2);
-      const uint4 w4 = make_uint4(pk[0], pk[1], pk[2], pk[3]);
-      *reinterpret_cast<uint4*>(T1w + r * LD + c8) = w4;
-      if (qr + r < nr) {
-        *reinterpret_cast<uint4*>(a.m2g + (wrow0 + r) * CW + c8) = w4;
-        if (a.mo) {
-          const float* mp = a.mo + (wrow0 + r) * CW + c8;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) dm_part[1] += gv[i] * mp[i];
-        }
-      }
-    }
-    __syncwarp();
-    for (int blk = 0; blk < hid / CW; ++blk) {
-      float acc[8][4];
-      zero(acc);
-      gemm16x64(acc, T1w, LD, W2 + blk * CW * LD, LD);
-      // The block's hh values, all loaded before the dhh stores (which
-      // may alias them as far as the compiler knows).
-      float2 hv[2][8];
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          hv[hf][j] = (hf ? v1 : v0)
-                          ? *reinterpret_cast<const float2*>(
-                                a.hh + (wrow0 + g + 8 * hf) * hid +
-                                blk * CW + j * 8 + 2 * tq)
-                          : make_float2(0.f, 0.f);
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const bool ok = hf ? v1 : v0;
-        const int r = g + 8 * hf;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = j * 8 + 2 * tq;
-          const float2 h = hv[hf][j];
-          const unsigned pk =
-              pack_bf2(acc[j][2 * hf] * gelu_erf_grad(h.x),
-                       acc[j][2 * hf + 1] * gelu_erf_grad(h.y));
-          *reinterpret_cast<unsigned*>(T2w + r * LD + c) = pk;
-          if (ok)
-            *reinterpret_cast<unsigned*>(a.dhh + (wrow0 + r) * hid +
-                                         blk * CW + c) = pk;
-        }
-      }
-      __syncwarp();
-      gemm16x64(dh2, T2w, LD, W1 + blk * CW, ldw1);
-      __syncwarp();
-    }
-  }
-  clk(1);
-  __syncthreads();  // every warp is past W1, W2: region M is free
-
-  // ---- the AdaLN2 backward plus the residual: dx1 (kept), da = m1 * dx1,
-  // the mask gradients' terms -----------------------------------------------
-  {
-    float cg2[8][2], cb2[8][2];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      cg2[j][0] = cg2[j][1] = cb2[j][0] = cb2[j][1] = 0.f;
-    if (on) {
-      float xv[8][4], gm[8][2], gy[8][4];
-      load_frag(xv, a.x1, wrow0, v0, v1);
-      load_gamma(gm, a.g2 + cb);
-      adaln_bwd_frag(dh2, xv, gm, a.eps, v0, v1, cg2, cb2);
-      load_frag(gy, a.g, wrow0, v0, v1);
-      float av[8][4];
-      if (a.a) load_frag(av, a.a, wrow0, v0, v1);
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float d = dh2[j][2 * hf + e] + gy[j][2 * hf + e];  // dx1
-            dx1s[(qr + g + 8 * hf) * CW + j * 8 + 2 * tq + e] = d;
-            if (a.a) dm_part[0] += d * av[j][2 * hf + e];
-            dh2[j][2 * hf + e] = d * s1;  // da
-          }
-      store_bf(dh2, T1w, a.da, wrow0, v0, v1);
-    }
-    warp_cols(cg2, wpt + warp * 2 * CW);
-    warp_cols(cb2, wpt + warp * 2 * CW + CW);
-    const float dm1w = warp_sum(dm_part[0]), dm2w = warp_sum(dm_part[1]);
-    if (lane == 0) {
-      wpm[warp * 2] = dm1w;
-      wpm[warp * 2 + 1] = dm2w;
-    }
-    fold(vp, wpt, wpm, V_2, masks, 4 * CW);
-  }
-  clk(2);
-
-  // ---- dO = da @ Wproj^T (into RB and the cluster's scratch), D = dO . O
-  // per head, the rows' softmax statistics -----------------------------------
-  if (on) {
-    __syncwarp();
-    float acc[8][4];
-    zero(acc);
-    gemm16x64(acc, T1w, LD, Wp, LD);
-    float ov[8][4];
-    load_frag(ov, a.o, wrow0, v0, v1);
-    float dpart[2][MAXH];
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int h = 0; h < MAXH; ++h) dpart[hf][h] = 0.f;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = g + 8 * hf, c = j * 8 + 2 * tq;
-        const unsigned pk = pack_bf2(acc[j][2 * hf], acc[j][2 * hf + 1]);
-        *reinterpret_cast<unsigned*>(T2w + r * LD + c) = pk;
-        if (hf ? v1 : v0)
-          *reinterpret_cast<unsigned*>(a.dout + (wrow0 + r) * CW + c) = pk;
-        const float2 d2 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&pk));
-        dpart[hf][j * 8 / D] +=
-            d2.x * ov[j][2 * hf] + d2.y * ov[j][2 * hf + 1];
-      }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int h = 0; h < H; ++h) {
-        const float dsum = quad_sum(dpart[hf][h]);
-        const int r = qr + g + 8 * hf;
-        if (tq == 0) {
-          Ds[r * MAXH + h] = dsum;
-          if (r < nr) a.dsum[((size_t)b * H + h) * N + r0 + r] = dsum;
-        }
-      }
-    for (int e = lane; e < 16 * H; e += 32) {
-      const int r = qr + e / H, h = e % H;
-      const bool ok = r < nr;
-      const size_t si = ((size_t)b * H + h) * N + r0 + r;
-      Ms[r * MAXH + h] = ok ? a.sm[si] : 0.f;
-      Ls[r * MAXH + h] = ok ? 1.0f / a.sl[si] : 0.f;
-    }
-  }
-  __threadfence();  // dO and D: the cluster's other CTAs read them
-  __syncthreads();
-  clk(3);
-
-  // ---- attention, dq of the CTA's query rows over the clip's keys, which
-  // stream through the ring in chunks of CH rows ------------------------------
   const int nch = (N + CH - 1) / CH;
   auto stage_of = [&](int c) {
     return reinterpret_cast<bf16*>(ring + (c & 1) * 2 * CTILE);
   };
-  auto issue_kv = [&](int c) {
-    if (c < nch) {
-      const int n = min(CH, N - c * CH);
-      load_rows(stage_of(c), a.qkv, crow0 + c * CH, n, L3, CW);
-      load_rows(stage_of(c) + CH * LD, a.qkv, crow0 + c * CH, n, L3, 2 * CW);
-    }
-    cp_async_commit();
-  };
-  {
-    float dq[8][4];
-    zero(dq);
-    issue_kv(0);
-    for (int c = 0; c < nch; ++c) {
-      issue_kv(c + 1);
-      cp_async_wait_one();
-      __syncthreads();
-      const bf16* Kc = stage_of(c);
-      const bf16* Vc = Kc + CH * LD;
-      const int n = min(CH, N - c * CH);
-      if (on) {
-        const auto in = [&](int, int key) { return key < n; };
-#pragma unroll
-        for (int h = 0; h < H; ++h) {
-          const int ra = (qr + g) * MAXH + h, rb = ra + 8 * MAXH;
-          const float m[2] = {Ms[ra], Ms[rb]}, li[2] = {Ls[ra], Ls[rb]};
-          const float Dq[2] = {Ds[ra], Ds[rb]};
-          QFrag<D> qf, df;
-          load_q(qf, RC + qr * LD + h * D, LD);
-          load_q(df, T2w + h * D, LD);
-          attn_bwd_dq<D>(dq, h * (D / 8), qf, df, Kc + h * D, Vc + h * D, LD,
-                         0, n, in, m, li, Dq);
+
+  // ================= phase 1: a pass of the CTA's rows at a time ==========
+  for (int p = 0; p < passes; ++p) {
+    const int pr = r0 + p * RT;            // the pass's first row in the clip
+    const int pn = min(RT, nr - p * RT);   // and its rows
+    const size_t row0 = crow0 + pr;
+    const bool on = qr < pn;
+    const bool v0 = qr + g < pn, v1 = qr + g + 8 < pn;
+    const size_t wrow0 = row0 + qr;
+    // dx1 of the pass's valid rows (row stride 64): region M or device
+    // memory.
+    float* d1 = one ? dx1s : a.dx1 + row0 * CW;
+
+    // ---- loads: Wproj and Wqkv once, W2 and W1 (again for each pass: the
+    // pass before streamed its chunks through their region, and ended in a
+    // block barrier), the pass's q rows (and k rows: one pass) -------------
+    {
+      if (p == 0) {
+        for (int c = tid; c < CW * 8; c += NTH) {
+          const int r = c / 8, cc = c % 8 * 8;
+          cp_async16(Wp + r * LD + cc, a.wproj + r * CW + cc, true);
+        }
+        for (int c = tid; c < CW * (L3 / 8); c += NTH) {
+          const int r = c / (L3 / 8), cc = c % (L3 / 8) * 8;
+          cp_async16(Wqkv + r * LDQKV + cc, a.wqkv + r * L3 + cc, true);
         }
       }
+      for (int c = tid; c < hid * 8; c += NTH) {
+        const int r = c / 8, cc = c % 8 * 8;
+        cp_async16(W2 + r * LD + cc, a.w2 + (size_t)r * CW + cc, true);
+      }
+      for (int c = tid; c < CW * (hid / 8); c += NTH) {
+        const int r = c / (hid / 8), cc = c % (hid / 8) * 8;
+        cp_async16(W1 + r * ldw1 + cc, a.w1 + (size_t)r * hid + cc, true);
+      }
+      load_rows(RC, a.qkv, row0, pn, L3, 0);
+      if (one) load_rows(RD, a.qkv, row0, pn, L3, CW);
+      cp_async_commit();
+      cp_async_wait_none();
       __syncthreads();
     }
+    clk(0);
+
+    // ---- row-local, a warp per 16 rows: m2 * g, the MLP's backward (dh2
+    // in registers) -----------------------------------------------------------
+    float dh2[8][4];
+    zero(dh2);
+    float dm_part[2] = {0.f, 0.f};
     if (on) {
-      // dq (x qscale) into RA (da's rows, spent) and the operand; the
-      // warp's v rows into RC (its q rows, spent).
+      for (int e = lane; e < 16 * 8; e += 32) {
+        const int r = e / 8, c8 = e % 8 * 8;
+        float gv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) gv[i] = 0.f;
+        if (qr + r < pn) load8(a.g + (wrow0 + r) * CW + c8, gv);
+        unsigned pk[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pk[i] = pack_bf2(gv[2 * i] * s2, gv[2 * i + 1] * s2);
+        const uint4 w4 = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+        *reinterpret_cast<uint4*>(T1w + r * LD + c8) = w4;
+        if (qr + r < pn) {
+          *reinterpret_cast<uint4*>(a.m2g + (wrow0 + r) * CW + c8) = w4;
+          if (a.mo) {
+            const float* mp = a.mo + (wrow0 + r) * CW + c8;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) dm_part[1] += gv[i] * mp[i];
+          }
+        }
+      }
+      __syncwarp();
+      for (int blk = 0; blk < hid / CW; ++blk) {
+        float acc[8][4];
+        zero(acc);
+        gemm16x64(acc, T1w, LD, W2 + blk * CW * LD, LD);
+        // The block's hh values, all loaded before the dhh stores (which
+        // may alias them as far as the compiler knows).
+        float2 hv[2][8];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            hv[hf][j] = (hf ? v1 : v0)
+                            ? *reinterpret_cast<const float2*>(
+                                  a.hh + (wrow0 + g + 8 * hf) * hid +
+                                  blk * CW + j * 8 + 2 * tq)
+                            : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const bool ok = hf ? v1 : v0;
+          const int r = g + 8 * hf;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = j * 8 + 2 * tq;
+            const float2 h = hv[hf][j];
+            const unsigned pk =
+                pack_bf2(acc[j][2 * hf] * gelu_erf_grad(h.x),
+                         acc[j][2 * hf + 1] * gelu_erf_grad(h.y));
+            *reinterpret_cast<unsigned*>(T2w + r * LD + c) = pk;
+            if (ok)
+              *reinterpret_cast<unsigned*>(a.dhh + (wrow0 + r) * hid +
+                                           blk * CW + c) = pk;
+          }
+        }
+        __syncwarp();
+        gemm16x64(dh2, T2w, LD, W1 + blk * CW, ldw1);
+        __syncwarp();
+      }
+    }
+    clk(1);
+    __syncthreads();  // every warp is past W1, W2: region M is free
+
+    // ---- the AdaLN2 backward plus the residual: dx1 (kept), da = m1 *
+    // dx1, the mask gradients' terms ----------------------------------------
+    {
+      float cg2[8][2], cb2[8][2];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
+        cg2[j][0] = cg2[j][1] = cb2[j][0] = cb2[j][1] = 0.f;
+      if (on) {
+        float xv[8][4], gm[8][2], gy[8][4];
+        load_frag(xv, a.x1, wrow0, v0, v1);
+        load_gamma(gm, a.g2 + cb);
+        adaln_bwd_frag(dh2, xv, gm, a.eps, v0, v1, cg2, cb2);
+        load_frag(gy, a.g, wrow0, v0, v1);
+        float av[8][4];
+        if (a.a) load_frag(av, a.a, wrow0, v0, v1);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dq[j][e] *= a.qscale;
-      store_bf(dq, T1w, a.dqkv, wrow0, v0, v1, L3, 0);
-      load_rows(RC + qr * LD, a.qkv, wrow0, min(16, nr - qr), L3, 2 * CW,
-                warp * 32, 32);
-      cp_async_commit();
-      asm volatile("cp.async.wait_group 0;\n" ::);
-      __syncwarp();
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float d = dh2[j][2 * hf + e] + gy[j][2 * hf + e];  // dx1
+              if (hf ? v1 : v0)
+                d1[(qr + g + 8 * hf) * CW + j * 8 + 2 * tq + e] = d;
+              if (a.a) dm_part[0] += d * av[j][2 * hf + e];
+              dh2[j][2 * hf + e] = d * s1;  // da
+            }
+        store_bf(dh2, T1w, a.da, wrow0, v0, v1);
+      }
+      warp_cols(cg2, wpt + warp * 2 * CW);
+      warp_cols(cb2, wpt + warp * 2 * CW + CW);
+      const float dm1w = warp_sum(dm_part[0]), dm2w = warp_sum(dm_part[1]);
+      if (lane == 0) {
+        wpm[warp * 2] = dm1w;
+        wpm[warp * 2 + 1] = dm2w;
+      }
+      fold(vp, wpt, wpm, V_2, masks, 4 * CW);
     }
+    clk(2);
+
+    // ---- dO = da @ Wproj^T (into RB and the cluster's scratch), D = dO .
+    // O per head, the rows' softmax statistics ----------------------------
+    if (on) {
+      __syncwarp();
+      float acc[8][4];
+      zero(acc);
+      gemm16x64(acc, T1w, LD, Wp, LD);
+      float ov[8][4];
+      load_frag(ov, a.o, wrow0, v0, v1);
+      float dpart[2][MAXH];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int h = 0; h < MAXH; ++h) dpart[hf][h] = 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int r = g + 8 * hf, c = j * 8 + 2 * tq;
+          const unsigned pk = pack_bf2(acc[j][2 * hf], acc[j][2 * hf + 1]);
+          *reinterpret_cast<unsigned*>(T2w + r * LD + c) = pk;
+          if (hf ? v1 : v0)
+            *reinterpret_cast<unsigned*>(a.dout + (wrow0 + r) * CW + c) = pk;
+          const float2 d2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&pk));
+          dpart[hf][j * 8 / D] +=
+              d2.x * ov[j][2 * hf] + d2.y * ov[j][2 * hf + 1];
+        }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const float dsum = quad_sum(dpart[hf][h]);
+          const int r = qr + g + 8 * hf;
+          if (tq == 0) {
+            Ds[r * MAXH + h] = dsum;
+            if (r < pn) a.dsum[((size_t)b * H + h) * N + pr + r] = dsum;
+          }
+        }
+      for (int e = lane; e < 16 * H; e += 32) {
+        const int r = qr + e / H, h = e % H;
+        const bool ok = r < pn;
+        const size_t si = ((size_t)b * H + h) * N + pr + r;
+        Ms[r * MAXH + h] = ok ? a.sm[si] : 0.f;
+        Ls[r * MAXH + h] = ok ? 1.0f / a.sl[si] : 0.f;
+      }
+    }
+    __threadfence();  // dO and D: the cluster's other CTAs read them
+    __syncthreads();
+    clk(3);
+
+    // ---- attention, dq of the pass's query rows over the clip's keys,
+    // which stream through the ring in chunks of CH rows -------------------
+    auto issue_kv = [&](int c) {
+      if (c < nch) {
+        const int n = min(CH, N - c * CH);
+        load_rows(stage_of(c), a.qkv, crow0 + c * CH, n, L3, CW);
+        load_rows(stage_of(c) + CH * LD, a.qkv, crow0 + c * CH, n, L3,
+                  2 * CW);
+      }
+      cp_async_commit();
+    };
+    {
+      float dq[8][4];
+      zero(dq);
+      issue_kv(0);
+      for (int c = 0; c < nch; ++c) {
+        issue_kv(c + 1);
+        cp_async_wait_one();
+        __syncthreads();
+        const bf16* Kc = stage_of(c);
+        const bf16* Vc = Kc + CH * LD;
+        const int n = min(CH, N - c * CH);
+        if (on) {
+          const auto in = [&](int, int key) { return key < n; };
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            const int ra = (qr + g) * MAXH + h, rb = ra + 8 * MAXH;
+            const float m[2] = {Ms[ra], Ms[rb]}, li[2] = {Ls[ra], Ls[rb]};
+            const float Dq[2] = {Ds[ra], Ds[rb]};
+            QFrag<D> qf, df;
+            load_q(qf, RC + qr * LD + h * D, LD);
+            load_q(df, T2w + h * D, LD);
+            attn_bwd_dq<D>(dq, h * (D / 8), qf, df, Kc + h * D, Vc + h * D,
+                           LD, 0, n, in, m, li, Dq);
+          }
+        }
+        __syncthreads();
+      }
+      if (on) {
+        // dq (x qscale) into RA (da's rows, spent) and the operand; with
+        // one pass the warp's v rows into RC (its q rows, spent).
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dq[j][e] *= a.qscale;
+        store_bf(dq, T1w, a.dqkv, wrow0, v0, v1, L3, 0);
+        if (one) {
+          load_rows(RC + qr * LD, a.qkv, wrow0, min(16, pn - qr), L3, 2 * CW,
+                    warp * 32, 32);
+          cp_async_commit();
+          cp_async_wait_none();
+          __syncwarp();
+        }
+      }
+    }
+    clk(4);
   }
-  clk(4);
-  cluster.sync();  // every CTA's dO and D rows are in device memory
+  clu::sync();  // every CTA's dO and D rows are in device memory
   clk(5);
 
-  // ---- attention, dk and dv of the CTA's key rows over the clip's queries
-  // (q, dO and their statistics through the ring) -----------------------------
+  // ================= phase 2: a pass of the CTA's rows at a time ==========
   auto issue_q = [&](int c) {
     if (c < nch) {
       const int n = min(CH, N - c * CH);
@@ -946,84 +1007,108 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
     }
     cp_async_commit();
   };
-  {
-    float dk[8][4], dv[8][4];
-    zero(dk);
-    zero(dv);
-    issue_q(0);
-    for (int c = 0; c < nch; ++c) {
-      issue_q(c + 1);
-      cp_async_wait_one();
+  for (int p = 0; p < passes; ++p) {
+    const int pr = r0 + p * RT;
+    const int pn = min(RT, nr - p * RT);
+    const size_t row0 = crow0 + pr;
+    const bool on = qr < pn;
+    const bool v0 = qr + g < pn, v1 = qr + g + 8 < pn;
+    const size_t wrow0 = row0 + qr;
+    const float* d1 = one ? dx1s : a.dx1 + row0 * CW;
+    if (!one) {
+      // The pass's k, v and dq rows (the pass before ended in a block
+      // barrier: its tiles and the ring are free).
+      load_rows(RD, a.qkv, row0, pn, L3, CW);
+      load_rows(RC, a.qkv, row0, pn, L3, 2 * CW);
+      load_rows(RA, a.dqkv, row0, pn, L3, 0);
+      cp_async_commit();
+      cp_async_wait_none();
       __syncthreads();
-      const bf16* Qc = stage_of(c);
-      const bf16* DOc = Qc + CH * LD;
-      const float* srm = SR + (c & 1) * SR_STAGE;
-      const float* srl = srm + CH * MAXH;
-      const float* srd = srl + CH * MAXH;
-      const int n = min(CH, N - c * CH);
-      if (on) {
-        // A query past the chunk's n rows has the statistics 0, 0: P = 0.
-        const auto in = [&](int hf, int) { return hf ? v1 : v0; };
-#pragma unroll
-        for (int h = 0; h < H; ++h) {
-          QFrag<D> kf, vf;
-          load_q(kf, RD + qr * LD + h * D, LD);
-          load_q(vf, RC + qr * LD + h * D, LD);
-          attn_bwd_dkdv<D>(dk, dv, h * (D / 8), kf, vf, Qc + h * D, LD,
-                           DOc + h * D, LD, 0, n, in, srm + h, srl + h,
-                           srd + h, MAXH);
-        }
-      }
-      __syncthreads();
+      clk(0);
     }
-    if (on) {
-      // dk into RB (the warp's dO rows, spent), dv into RD (its k rows).
-      __syncwarp();
-      store_bf(dk, T2w, a.dqkv, wrow0, v0, v1, L3, CW);
-      store_bf(dv, RD + qr * LD, a.dqkv, wrow0, v0, v1, L3, 2 * CW);
-    }
-  }
-  clk(6);
 
-  // ---- qkv^T, the AdaLN1 backward, dx = dx1 + dx_ln -------------------------
-  {
-    float cg1[8][2], cb1[8][2];
+    // ---- attention, dk and dv of the pass's key rows over the clip's
+    // queries (q, dO and their statistics through the ring) ----------------
+    {
+      float dk[8][4], dv[8][4];
+      zero(dk);
+      zero(dv);
+      issue_q(0);
+      for (int c = 0; c < nch; ++c) {
+        issue_q(c + 1);
+        cp_async_wait_one();
+        __syncthreads();
+        const bf16* Qc = stage_of(c);
+        const bf16* DOc = Qc + CH * LD;
+        const float* srm = SR + (c & 1) * SR_STAGE;
+        const float* srl = srm + CH * MAXH;
+        const float* srd = srl + CH * MAXH;
+        const int n = min(CH, N - c * CH);
+        if (on) {
+          // A query past the chunk's n rows has the statistics 0, 0: P = 0.
+          const auto in = [&](int hf, int) { return hf ? v1 : v0; };
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      cg1[j][0] = cg1[j][1] = cb1[j][0] = cb1[j][1] = 0.f;
-    if (on) {
-      __syncwarp();
-      float dh[8][4];
-      zero(dh);
-      gemm16x64(dh, T1w, LD, Wqkv, LDQKV);
-      gemm16x64(dh, T2w, LD, Wqkv + CW, LDQKV);
-      gemm16x64(dh, RD + qr * LD, LD, Wqkv + 2 * CW, LDQKV);
-      float xv[8][4], gm[8][2];
-      load_frag(xv, a.x, wrow0, v0, v1);
-      load_gamma(gm, a.g1 + cb);
-      adaln_bwd_frag(dh, xv, gm, a.eps, v0, v1, cg1, cb1);
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            dh[j][2 * hf + e] +=
-                dx1s[(qr + g + 8 * hf) * CW + j * 8 + 2 * tq + e];
-      store_bf(dh, nullptr, a.dx, wrow0, v0, v1);
+          for (int h = 0; h < H; ++h) {
+            QFrag<D> kf, vf;
+            load_q(kf, RD + qr * LD + h * D, LD);
+            load_q(vf, RC + qr * LD + h * D, LD);
+            attn_bwd_dkdv<D>(dk, dv, h * (D / 8), kf, vf, Qc + h * D, LD,
+                             DOc + h * D, LD, 0, n, in, srm + h, srl + h,
+                             srd + h, MAXH);
+          }
+        }
+        __syncthreads();
+      }
+      if (on) {
+        // dk into RB (the warp's dO rows, spent), dv into RD (its k rows).
+        __syncwarp();
+        store_bf(dk, T2w, a.dqkv, wrow0, v0, v1, L3, CW);
+        store_bf(dv, RD + qr * LD, a.dqkv, wrow0, v0, v1, L3, 2 * CW);
+      }
     }
-    warp_cols(cg1, wpt + warp * 2 * CW);
-    warp_cols(cb1, wpt + warp * 2 * CW + CW);
-    fold(vp, wpt, wpm, V_1, false, 0);
+    clk(6);
+
+    // ---- qkv^T, the AdaLN1 backward, dx = dx1 + dx_ln ---------------------
+    {
+      float cg1[8][2], cb1[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        cg1[j][0] = cg1[j][1] = cb1[j][0] = cb1[j][1] = 0.f;
+      if (on) {
+        __syncwarp();
+        float dh[8][4];
+        zero(dh);
+        gemm16x64(dh, T1w, LD, Wqkv, LDQKV);
+        gemm16x64(dh, T2w, LD, Wqkv + CW, LDQKV);
+        gemm16x64(dh, RD + qr * LD, LD, Wqkv + 2 * CW, LDQKV);
+        float xv[8][4], gm[8][2];
+        load_frag(xv, a.x, wrow0, v0, v1);
+        load_gamma(gm, a.g1 + cb);
+        adaln_bwd_frag(dh, xv, gm, a.eps, v0, v1, cg1, cb1);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (hf ? v1 : v0)
+                dh[j][2 * hf + e] +=
+                    d1[(qr + g + 8 * hf) * CW + j * 8 + 2 * tq + e];
+        store_bf(dh, nullptr, a.dx, wrow0, v0, v1);
+      }
+      warp_cols(cg1, wpt + warp * 2 * CW);
+      warp_cols(cb1, wpt + warp * 2 * CW + CW);
+      fold(vp, wpt, wpm, V_1, false, 0);
+    }
+    clk(7);
   }
-  clk(7);
 
   // ---- the per-clip vectors over the cluster, by rank 0 in rank order -----
-  cluster.sync();
+  clu::sync();
   if (rank == 0) {
     const size_t bc = (size_t)a.clips * CW;
     const float* rvp[CL];
-    for (int r = 0; r < CL; ++r) rvp[r] = cluster.map_shared_rank(vp, r);
+    for (int r = 0; r < CL; ++r) rvp[r] = clu::peer(vp, r);
     for (int e = tid; e < VP_LEN; e += NTH) {
       float s = 0.f;
 #pragma unroll
@@ -1034,7 +1119,7 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTH, 1)
         (e == 4 * CW ? a.dm1 : a.dm2)[b] = s;
     }
   }
-  cluster.sync();  // the other CTAs' shared memory stays until rank 0 is done
+  clu::sync();  // the other CTAs' shared memory stays until rank 0 is done
   clk(8);
   clk.write(a.stamps);
 }
@@ -1050,12 +1135,13 @@ constexpr int WG = 64;  // the weight launch's output tiles, WG x WG
 // scratch dout [M, 64] bf16 and dsum [clips, H, N] f32; dgb [4, clips, 64]
 // (dg1, db1, dg2, db2); dm1, dm2 (null without mask gradients); the weight
 // launch's counters (zeroed here); stamps (null, or [clips * 4, 9] int64 for
-// the stamped instantiation).
+// the stamped instantiation); dx1 (f32 [M, 64] scratch when a CTA's rows
+// take more than one pass, pmce_ada_bwd_passes(N) > 1; else null).
 extern "C" int pmce_ada_bwd_tile(void* const* ptrs, int clips, int N, int hid,
                                  int H, float eps, void* stream) {
   using namespace adb;
-  if (clips <= 0 || N <= 0 || N > CL * RT || hid <= 0 || hid % CW ||
-      hid > MAX_HID || (H != 2 && H != 4 && H != 8))
+  if (clips <= 0 || N <= 0 || hid <= 0 || hid % CW || hid > MAX_HID ||
+      (H != 2 && H != 4 && H != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   auto cb = [&](int i) { return static_cast<const bf16*>(ptrs[i]); };
@@ -1072,33 +1158,29 @@ extern "C" int pmce_ada_bwd_tile(void* const* ptrs, int clips, int N, int hid,
   a.dm1 = f(26); a.dm2 = f(27);
   a.counters = static_cast<int*>(ptrs[28]);
   a.stamps = static_cast<long long*>(ptrs[29]);
+  a.dx1 = f(30);
   a.ncounters = 4 + 2 * (hid / WG);
   a.clips = clips; a.N = N; a.hid = hid;
   a.eps = eps;
   a.qscale = 1.0f / sqrtf(static_cast<float>(CW / H));
   if ((a.dm1 == nullptr) != (a.dm2 == nullptr) ||
-      (a.dm1 && (a.a == nullptr || a.mo == nullptr)))
+      (a.dm1 && (a.a == nullptr || a.mo == nullptr)) ||
+      (a.dx1 == nullptr && std::min(N, rank_rows(N)) > RT))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PMCE_ADA_TILE(PROF, D)                                              \
-  {                                                                         \
-    const auto kernel = ada_bwd_tile_kernel<PROF, D>;                       \
-    cudaError_t e = cudaFuncSetAttribute(                                   \
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);         \
-    if (e != cudaSuccess) return static_cast<int>(e);                       \
-    kernel<<<clips * CL, NTH, SMEM, s>>>(a);                                \
-    return static_cast<int>(cudaGetLastError());                            \
-  }
-  const int D = CW / H;
+  const int ctas = clips * CL, D = CW / H;
   if (a.stamps) {
-    if (D == 8) PMCE_ADA_TILE(true, 8)
-    if (D == 16) PMCE_ADA_TILE(true, 16)
-    PMCE_ADA_TILE(true, 32)
+    if (D == 8)
+      return launch_clusters(ada_bwd_tile_kernel<true, 8>, ctas, SMEM, s, a);
+    if (D == 16)
+      return launch_clusters(ada_bwd_tile_kernel<true, 16>, ctas, SMEM, s, a);
+    return launch_clusters(ada_bwd_tile_kernel<true, 32>, ctas, SMEM, s, a);
   }
-  if (D == 8) PMCE_ADA_TILE(false, 8)
-  if (D == 16) PMCE_ADA_TILE(false, 16)
-  PMCE_ADA_TILE(false, 32)
-#undef PMCE_ADA_TILE
+  if (D == 8)
+    return launch_clusters(ada_bwd_tile_kernel<false, 8>, ctas, SMEM, s, a);
+  if (D == 16)
+    return launch_clusters(ada_bwd_tile_kernel<false, 16>, ctas, SMEM, s, a);
+  return launch_clusters(ada_bwd_tile_kernel<false, 32>, ctas, SMEM, s, a);
 }
 
 // The four weight gradients and four bias gradients in one launch, after

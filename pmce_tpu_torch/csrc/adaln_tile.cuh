@@ -6,7 +6,9 @@
 // whole clips, and its backward, which row 9 shares).
 //
 // Clusters of CL = 4 CTAs a clip (rows 9-11), or 4 ordinary CTAs a clip
-// (row 8); 8 warps a CTA, C = 64 channels. A warp
+// (row 8), each walking its quarter of the clip's rows (rows 10 / 11: of
+// its long side) in passes of up to RT rows, as many as it takes; 8 warps
+// a CTA, C = 64 channels. A warp
 // owns 16 rows and keeps them in the mma.sync m16n8k16 accumulator layout
 // ([8][4] floats a lane: n8 tile j, rows g = lane / 4 (e < 2) and g + 8,
 // columns 8 j + 2 (lane % 4) + (e & 1)) from one product to the next; the
@@ -16,14 +18,11 @@
 // transposed copy is ever made.
 #pragma once
 
-#include <cooperative_groups.h>
-
 #include "transformer_ops.cuh"
 
 namespace tile {
 
 using namespace pmce;
-namespace cg = cooperative_groups;
 
 constexpr int CL = 4;          // CTAs of a clip's cluster
 constexpr int NTH = 256;       // 8 warps
@@ -68,27 +67,6 @@ struct StageClock {
     }
   }
 };
-
-__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
-// d += a (16 x 8, row) * b (8 x 8, col): the head width 8's products.
-__device__ __forceinline__ void mma_k8(float (&d)[4], const unsigned (&a)[2],
-                                       unsigned b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b0));
-}
 
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -800,6 +778,26 @@ __device__ __forceinline__ void load_rows(bf16* t, const bf16* src, size_t r0,
   }
 }
 
+// The configuration of a launch of `ctas` CTAs of NTH threads and `smem`
+// bytes on clusters of CL (the dimension as the launch's attribute, in the
+// caller's `attr`, which a kernel built with __cluster_dims__(CL) admits
+// too).
+inline cudaLaunchConfig_t cluster_config(int ctas, int smem, cudaStream_t s,
+                                         cudaLaunchAttribute (&attr)[1]) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(NTH);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 // Clusters of CL CTAs of `kernel` (NTH threads, `smem` bytes each) the card
 // holds at once (cudaOccupancyMaxActiveClusters), or minus the error code.
 template <typename K>
@@ -807,14 +805,25 @@ inline int max_active_clusters(K kernel, int smem) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(32 * CL);
-  cfg.blockDim = dim3(NTH);
-  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(32 * CL, smem, 0, attr);
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(
       &n, reinterpret_cast<const void*>(kernel), &cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// One launch of `kernel(args)` on clusters of CL CTAs (cudaLaunchKernelEx).
+template <typename K, typename A>
+inline int launch_clusters(K kernel, int ctas, int smem, cudaStream_t s,
+                           const A& args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(ctas, smem, s, attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, args);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace tile

@@ -77,11 +77,14 @@
 //   program) adds the ranges' partials and column sums (the six bias
 //   gradients) in range order.
 
+#include <cooperative_groups.h>
+
 #include "adaln_tile.cuh"
 #include "attention_ops.cuh"
 #include "wgrad.cuh"
 
 using namespace pmce;
+namespace cg = cooperative_groups;
 
 // P: xq [Mq,C], xk, xv [Mk,C] bf16; gq, bq, gk, bk, gv, bv, g2, b2 [clips,C]
 // f32; m1, m2 [clips] or null; wq, bq, wk, bk, wv, bv, wproj, bproj, w1,

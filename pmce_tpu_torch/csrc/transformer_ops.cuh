@@ -112,22 +112,6 @@ __device__ __forceinline__ float gelu_erf_grad(float h) {
 
 constexpr int BM = 128, BK = 32, PAD = 8, GEMM_THREADS = 256;
 
-// 16-byte global -> shared copy that does not hold up the thread (cp.async);
-// with pred false it writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
 // 128 x BN_ tiles (BN_ = 128 or 64), 8 warps of 32 x BN_/2, two k-tiles in
 // flight: tile kt+1 is copied (cp.async) while the tensor cores work on
 // tile kt.

@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(NTH, 1) wgrad_kernel(const Args<NPROD> a) {
         }
     }
   }
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  cp_async_wait_none();
   // This range's partial tile, row-major WT x WT.
   float* mine = a.partial + (size_t)blockIdx.x * WT * WT;
 #pragma unroll

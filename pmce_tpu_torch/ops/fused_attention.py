@@ -2392,9 +2392,9 @@ _ADA_FWD_A_STAGES = 2
 def ada_fwd_kernel_fits(N: int, C: int, hid: int) -> bool:
     """The static shape test of the AdaLN block's forward tile programs, on
     top of :func:`attention_kernel_fits`: the backward's
-    (:func:`ada_bwd_kernel_fits`: C = 64, hid up to 256, up to 512 tokens,
-    four CTAs of at most 128 rows a clip). Other shapes take the launch
-    sequence (``pmce_ada_block_fwd``)."""
+    (:func:`ada_bwd_kernel_fits`: C = 64, hid up to 256, any token count,
+    four CTAs a clip, each walking its quarter in passes of 128 rows).
+    Other shapes take the launch sequence (``pmce_ada_block_fwd``)."""
     return ada_bwd_kernel_fits(N, C, hid)
 
 
@@ -2486,10 +2486,11 @@ def ada_fwd_waves(B: int) -> tuple[int, int]:
 
 
 # The backward's tile program (csrc/ada_block.cu): a cluster of 4 CTAs a
-# clip, each owning a quarter of its rows (at most 128), hid up to 256; the
-# weight launch's K splits, and the tile program's stamped stages.
+# clip, each owning a quarter of its rows, walked in passes of up to 128
+# rows (any token count), hid up to 256; the weight launch's K splits, and
+# the tile program's stamped stages.
 ADA_BWD_CLUSTER = 4
-_ADA_BWD_ROWS, _ADA_BWD_HID = 4 * 128, 256
+_ADA_BWD_HID, _ADA_PASS_ROWS = 256, 128
 _ADA_WGRAD_SPLITS = 8
 ADA_BWD_STAGES = ("loads", "MLPᵀ", "norm2", "projᵀ + D", "attention dq",
                   "cluster barrier", "attention dk dv", "qkvᵀ + norm1",
@@ -2498,10 +2499,27 @@ ADA_BWD_STAGES = ("loads", "MLPᵀ", "norm2", "projᵀ + D", "attention dq",
 
 def ada_bwd_kernel_fits(N: int, C: int, hid: int) -> bool:
     """The static shape test of the AdaLN block's backward tile program, on
-    top of :func:`attention_kernel_fits`: C = 64, hid up to 256, up to 512
-    tokens (four CTAs of 128 rows). Other shapes take the launch sequence
+    top of :func:`attention_kernel_fits`: C = 64 and hid up to 256, at any
+    token count (four CTAs a clip, :func:`ada_bwd_passes` passes each).
+    Other shapes (hid over 256, C other than 64) take the launch sequence
     (``pmce_ada_block_bwd``)."""
-    return C == 64 and hid <= _ADA_BWD_HID and N <= _ADA_BWD_ROWS
+    return C == 64 and hid <= _ADA_BWD_HID
+
+
+def ada_bwd_passes(N: int) -> int:
+    """The passes of up to 128 rows a CTA of the AdaLN tile programs walks,
+    forward and backward (``csrc/adaln_tile.cuh``'s ``rank_rows``: a cluster
+    rank's quarter of the clip's rows in whole 16-row blocks): one up to 512
+    tokens, two at 600, four at the 1723-vertex mesh."""
+    per = -(-(-(-N // ADA_BWD_CLUSTER)) // 16) * 16
+    return max(1, -(-min(N, per) // _ADA_PASS_ROWS))
+
+
+def ada_bwd_workspace(B: int, N: int) -> int:
+    """Floats of the backward tile program's workspace: with more than one
+    pass a CTA (over 512 tokens), dx1 f32 [B * N, 64] between the program's
+    two phases; else 0 (no workspace)."""
+    return B * N * 64 if ada_bwd_passes(N) > 1 else 0
 
 
 def _ada_bwd_seq(g, x, params, saved, num_heads, eps, need_masks):
@@ -2538,7 +2556,9 @@ def _ada_bwd_cuda(gout, x, params, saved, num_heads, eps,
                   need_masks: bool = False, stamps=None, w=None):
     """The backward of ``csrc/ada_block.cu``. Inside
     :func:`ada_bwd_kernel_fits`, two launches: the tile program (a cluster
-    of 4 CTAs a clip: the activation-gradient chain, dx, the per-clip AdaLN
+    of 4 CTAs a clip, :func:`ada_bwd_passes` passes a CTA with
+    :func:`ada_bwd_workspace`'s floats: the activation-gradient chain, dx,
+    the per-clip AdaLN
     vectors' gradients, the mask gradients when ``need_masks``, and the
     weight products' bf16 operands), then the four weight gradients and
     the four bias gradients in one launch; the weights are read in their
@@ -2576,11 +2596,13 @@ def _ada_bwd_cuda(gout, x, params, saved, num_heads, eps,
     tiles = 4 + 2 * (hid // 64)   # the weight launch's 64 x 64 tiles
     counters = torch.empty(tiles, device=dev, dtype=torch.int32)
     stream = _cuda.stream_ptr(dev)
+    n_dx1 = ada_bwd_workspace(B, N)
+    dx1 = torch.empty(n_dx1, device=dev, dtype=f32) if n_dx1 else None
     _cuda.ADA.call("pmce_ada_bwd_tile", _cuda.ptr_table(
         x, g, g1, g2, m1, m2, w.wqkv, w.wproj, w.w1, w.w2, qkv, o, stats[0],
         stats[1], x1, hh, a if need_masks else None,
         mo if need_masks else None, dx, m2g, dhh, da, dqkv, dout, dsum, dgb,
-        dm1, dm2, counters, stamps), B, N, hid, num_heads, eps, stream)
+        dm1, dm2, counters, stamps, dx1), B, N, hid, num_heads, eps, stream)
     if stamps is not None:
         return None
     grads = torch.empty(sum(t.numel() for t in params), device=dev,
@@ -2657,7 +2679,8 @@ def ada_block(x, gamma1, beta1, gamma2, beta2, params, num_heads: int,
     tensors the kernels of ``csrc/ada_block.cu`` forward and backward in
     bf16 (any token count: the forward's two tile programs and the
     backward's tile program inside :func:`ada_fwd_kernel_fits` /
-    :func:`ada_bwd_kernel_fits`, their launch sequences outside; widths
+    :func:`ada_bwd_kernel_fits`, their launch sequences outside (hid over
+    256, C other than 64); widths
     :func:`attention_kernel_fits` refuses raise) and those of
     ``csrc/ada_f32.cu`` in f32 (rows 8f / 9f: with no gradient owed one
     forward call, otherwise :class:`_AdaF32Kernel`; shapes outside

@@ -3,7 +3,7 @@ cross-attention blocks (rows 8-11), the self-attention forward and
 backward (rows 4 and 5) and skinning (row 15) spend their time on the card.
 
     python3 pmce_tpu_torch/tools/profile_block_bwd.py [--root DIR] [--tag T]
-        [--rows block,ca,ada,mhsa,skin] [--vertices V]
+        [--rows block,ca,ada,mhsa,skin] [--vertices V] [--dump FILE]
 
 Imports ``pmce_tpu_torch`` from ``DIR`` (default: the tree this script is
 in; an unpacked earlier commit, say) and builds its libraries. At the
@@ -44,7 +44,15 @@ tree has them, the tile programs' stage splits (``ca_fwd_stage_split``,
 (``_ada_fwd_cuda``, ``_ada_bwd_cuda``, ``ada_block``,
 ``ada_bwd_stage_split``; where the tree has them, the forward's two tile
 programs' stage split, ``ada_fwd_stage_split``, and the CTAs of its launch
-B the card holds at once). Where the tree has the tile programs, each
+B the card holds at once; ``--vertices V``: ``[32, V, 64]``, and where the
+tree's tile programs take V (it has ``ada_bwd_passes``), the launch
+sequences they replace there on the same inputs, in turns with them:
+``pmce_ada_block_fwd`` (the forward's gate patched shut) and
+``_ada_bwd_seq`` on the tile forward's saved state, each one's kernels'
+device time; ``--dump FILE``: the forward's output and saved state and
+the backward's results at that shape into FILE, or, where FILE is there
+already (another tree's), whether they match it bit for bit). Where the
+tree has the tile programs, each
 one's device time at 24 clips and at 32 beside the clusters of 4 CTAs the
 card holds at once (``pmce_ca_tile_clusters``, ``pmce_ada_tile_clusters``):
 whether the batch runs in one wave. ``--rows mhsa``: row 4's forward
@@ -86,7 +94,11 @@ def main() -> int:
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--rows", default="block,ca,ada,mhsa,skin")
     ap.add_argument("--vertices", type=int, default=431,
-                    help="the CA block's vertex rows (--rows ca)")
+                    help="the CA and AdaLN blocks' vertex rows (--rows ca, "
+                    "--rows ada)")
+    ap.add_argument("--dump", default=None,
+                    help="--rows ada: save its results here, or compare "
+                    "them with the file there")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import numpy as np
@@ -175,7 +187,8 @@ def main() -> int:
         profile_ca(tag, dev, rng, report, tile_ms, args.vertices)
     if "ada" in rows_wanted:
         _cuda.ADA.load()
-        profile_ada(tag, dev, rng, report, tile_ms)
+        profile_ada(tag, dev, rng, report, tile_ms, kernels, args.vertices,
+                    args.dump)
     if "mhsa" in rows_wanted:
         _cuda.MHSA.load()
         profile_mhsa(tag, dev, rng, report, events_ms, kernels)
@@ -344,15 +357,18 @@ def profile_ca(tag, dev, rng, report, tile_ms, V: int = 431) -> None:
         torch.cuda.empty_cache()
 
 
-def profile_ada(tag, dev, rng, report, tile_ms) -> None:
-    """Rows 8 and 9 at the vertex stream's [32, 431, 64], 2 heads (see the
+def profile_ada(tag, dev, rng, report, tile_ms, kernels, V: int = 431,
+                dump=None) -> None:
+    """Rows 8 and 9 at the vertex stream's [32, V, 64], 2 heads (see the
     module docstring)."""
+    from unittest import mock
+
     import torch
 
     from pmce_tpu_torch.ops import _cuda
     from pmce_tpu_torch.ops import fused_attention as fa
 
-    B, N, c, hid, heads = 32, 431, 64, 256, 2
+    B, N, c, hid, heads = 32, V, 64, 256, 2
 
     def r(*shape, scale=0.2, offset=0.0, dtype=torch.float32):
         a = rng.normal(size=shape) * scale + offset
@@ -379,14 +395,41 @@ def profile_ada(tag, dev, rng, report, tile_ms) -> None:
         def fwd():
             return fa._ada_fwd_cuda(x, conds, masks, params, heads, 1e-6)
 
-        _, saved = fwd()
+        out, saved = fwd()
+
+        def bwd():
+            return fa._ada_bwd_cuda(g, x, params, saved, heads, 1e-6)
+
+        if dump:
+            _dump_or_compare(where, dump, [out, *(
+                t for t in saved if t is not None), *_flat(bwd())])
         report(where, "fwd", fwd, call)
         if "for_grad" in inspect.signature(fa._ada_fwd_cuda).parameters:
             report(where, "fwd, no gradient owed", lambda: fa._ada_fwd_cuda(
                 x, conds, masks, params, heads, 1e-6, for_grad=False))
-        report(where, "bwd", lambda: fa._ada_bwd_cuda(
-            g, x, params, saved, heads, 1e-6),
-            lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
+        report(where, "bwd", bwd,
+               lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
+        if N > 512 and hasattr(fa, "ada_bwd_passes"):
+            # The launch sequences the tile programs replace at this shape,
+            # on the same inputs, in turns: program, sequence, sequence,
+            # program.
+            def fwd_seq():
+                with mock.patch.object(fa, "ada_fwd_kernel_fits",
+                                       lambda *a: False):
+                    return fwd()
+
+            def bwd_seq():
+                return fa._ada_bwd_seq(g, x, params, saved, heads, 1e-6,
+                                       False)
+
+            for name, prog, seq in (("fwd", fwd, fwd_seq),
+                                    ("bwd", bwd, bwd_seq)):
+                times = [sum(t for t, _, _ in kernels(fn))
+                         for fn in (prog, seq, seq, prog)]
+                print(f"{where} {name} in turns (device ms): tile program "
+                      f"{times[0]:.4f}, {times[3]:.4f}; launch sequence "
+                      f"{times[1]:.4f}, {times[2]:.4f} "
+                      f"({fa.ada_bwd_passes(N)} passes a CTA)", flush=True)
         if hasattr(fa, "ada_fwd_stage_split"):
             _split_line(where, "forward tile programs A and B",
                         fa.ada_fwd_stage_split(x, conds, params, heads, 1e-6,
@@ -395,7 +438,8 @@ def profile_ada(tag, dev, rng, report, tile_ms) -> None:
             print(f"{where} forward launch B: {resident} CTAs co-resident, "
                   f"{B} clips {B * fa.ADA_FWD_CTAS} CTAs: {waves} wave(s)",
                   flush=True)
-        if hasattr(fa, "ada_bwd_stage_split"):
+        if hasattr(fa, "ada_bwd_stage_split") and fa.ada_bwd_kernel_fits(
+                N, c, hid):
             _split_line(where, "tile program",
                         fa.ada_bwd_stage_split(g, x, params, saved, heads,
                                                1e-6), fa.ADA_BWD_STAGES)
@@ -406,11 +450,42 @@ def profile_ada(tag, dev, rng, report, tile_ms) -> None:
             _waves(where, _cuda.ADA.query("pmce_ada_tile_clusters"),
                    "backward", n, tile_ms(lambda: fa._ada_bwd_cuda(
                        g[:n], x[:n], params, s24, heads, 1e-6),
-                       "ada_bwd_tile"), B, tile_ms(lambda: fa._ada_bwd_cuda(
-                           g, x, params, saved, heads, 1e-6),
-                           "ada_bwd_tile"))
+                       "ada_bwd_tile"), B, tile_ms(bwd, "ada_bwd_tile"))
     del saved, x, g, params, leaves, y
     torch.cuda.empty_cache()
+
+
+def _flat(tree):
+    for t in tree:
+        if isinstance(t, (tuple, list)):
+            yield from _flat(t)
+        elif t is not None:
+            yield t
+
+
+def _dump_or_compare(where, path, tensors) -> None:
+    """Save ``tensors`` to ``path``, or, where another tree saved them
+    there, say whether they match it bit for bit."""
+    import torch
+
+    tensors = [t.detach().cpu() for t in tensors]
+    path = Path(path)
+    if not path.is_file():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(tensors, path)
+        print(f"{where} results ({len(tensors)} tensors) saved to {path}",
+              flush=True)
+        return
+    other = torch.load(path)
+    same = len(other) == len(tensors) and all(
+        a.shape == b.shape and torch.equal(a, b)
+        for a, b in zip(other, tensors))
+    worst = max((float((a.float() - b.float()).abs().max())
+                 for a, b in zip(other, tensors) if a.shape == b.shape),
+                default=float("nan"))
+    print(f"{where} results ({len(tensors)} tensors) against {path}: "
+          + ("the same bits" if same else f"DIFFER (max |diff| {worst:.3g})"),
+          flush=True)
 
 
 def profile_mhsa(tag, dev, rng, report, events_ms, kernels) -> None:

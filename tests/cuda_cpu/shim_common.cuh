@@ -12,7 +12,11 @@
 // and transposed) and mma.sync m16n8k16 as scalar loops over the
 // documented fragment layouts, the products' sums in f32. Only what the
 // sources use is here: 1-D blocks of whole warps and 1-D clusters,
-// full-mask shuffles reached by all 32 lanes, dynamic shared memory.
+// full-mask shuffles reached by all 32 lanes, dynamic shared memory, and
+// (csrc/ada_block.cu's launch sequences, over transformer_ops.cuh)
+// statically sized __shared__ arrays as static storage, which holds for
+// launches whose blocks run one after the other, and WMMA's 16 x 16 x 16
+// fragments as whole tiles in every lane.
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -24,13 +28,15 @@
 #include <memory>
 #include <cstring>
 #include <cstdlib>
+#include <type_traits>
 using std::min; using std::max;
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
-#define __align__(n) alignas(n)
+#define __align__(n) __attribute__((aligned(n)))
+#define __shared__ static
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3() {} dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
@@ -55,6 +61,10 @@ struct cudaLaunchConfig_t {
   unsigned numAttrs;
 };
 inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, const void*, const cudaLaunchConfig_t*) { *n = 1; return 0; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+template <class K> inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) { *n = 1; return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 1; return 0; }
 // The grid's and block's sizes as variables (the launch configuration's
 // members have the same names).
 inline thread_local dim3 gridDim, blockDim;
@@ -140,6 +150,11 @@ inline float __shfl_down_sync(unsigned m, float v, int d) {
   return __shfl_sync(m, v, lane + d < 32 ? lane + d : lane);
 }
 inline long long clock64() { return 0; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline float rsqrtf(float v) { return 1.0f / sqrtf(v); }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -173,15 +188,16 @@ inline void load8(const bf16* p, float* dst) { for (int i = 0; i < 8; ++i) dst[i
 inline unsigned pack_bf2(float lo, float hi) {
   return static_cast<unsigned>(f2bf(lo).x) | static_cast<unsigned>(f2bf(hi).x) << 16;
 }
-// ldmatrix .x4: matrix i's rows at the addresses of lanes 8i .. 8i + 7;
-// lane l gets row l / 4, columns 2 (l % 4) and + 1 of each (.trans: rows
-// 2 (l % 4) and + 1 of column l / 4).
-inline void ldsm_any(unsigned (&r)[4], const void* p, bool trans) {
+// ldmatrix .x4 (.x2: the first two matrices): matrix i's rows at the
+// addresses of lanes 8i .. 8i + 7; lane l gets row l / 4, columns 2 (l % 4)
+// and + 1 of each (.trans: rows 2 (l % 4) and + 1 of column l / 4).
+template <int NM>
+inline void ldsm_any(unsigned (&r)[NM], const void* p, bool trans) {
   auto& w = shim::blk->warps[threadIdx.x / 32];
   const int lane = threadIdx.x & 31;
   w.ptr[lane] = p;
   w.bar.arrive_and_wait();
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < NM; ++i) {
     unsigned short lo, hi;
     if (!trans) {
       const auto* row = static_cast<const unsigned short*>(w.ptr[8 * i + lane / 4]);
@@ -197,6 +213,8 @@ inline void ldsm_any(unsigned (&r)[4], const void* p, bool trans) {
 }
 inline void ldsm_x4(unsigned (&r)[4], const void* p) { ldsm_any(r, p, false); }
 inline void ldsm_x4_t(unsigned (&r)[4], const void* p) { ldsm_any(r, p, true); }
+inline void ldsm_x2(unsigned (&r)[2], const void* p) { ldsm_any(r, p, false); }
+inline void ldsm_x2_t(unsigned (&r)[2], const void* p) { ldsm_any(r, p, true); }
 // mma.sync m16n8k16 bf16 (row, col), f32 sums: A's a[0] at (g, 2t .. 2t +
 // 1), a[1] 8 rows down, a[2], a[3] 8 columns right of those; B's b0 at (k =
 // 2t .. 2t + 1, n = g), b1 8 rows down; the products summed in k order.
@@ -221,6 +239,76 @@ inline void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigne
   }
   w.bar.arrive_and_wait();
 }
+// mma.sync m16n8k8 bf16 (row, col), f32 sums: A's a[0] at (g, 2t .. 2t +
+// 1), a[1] 8 rows down; B's b0 at (k = 2t .. 2t + 1, n = g).
+inline void mma_k8(float (&d)[4], const unsigned (&a)[2], unsigned b0) {
+  auto& w = shim::blk->warps[threadIdx.x / 32];
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 2; ++i) w.fa[lane][i] = a[i];
+  w.fb[lane][0] = b0;
+  w.bar.arrive_and_wait();
+  auto half = [](unsigned u, int k) { return __uint_as_float((k & 1 ? u >> 16 : u & 0xffffu) << 16); };
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + (i >> 1) * 8, col = 2 * t + (i & 1);
+    float s = d[i];
+    for (int k = 0; k < 8; ++k) {
+      const float av = half(w.fa[(row & 7) * 4 + k / 2][row >> 3], k);
+      const float bv = half(w.fb[col * 4 + k / 2][0], k);
+      s += av * bv;
+    }
+    d[i] = s;
+  }
+  w.bar.arrive_and_wait();
+}
+// cp.async as the bf16 sources use it (csrc/common.cuh's pmce::): a plain
+// copy (zeros with pred false); the waits are then the barriers after them.
+namespace pmce {
+inline void cp_async16(void* smem, const void* gmem, bool pred) {
+  if (pred) memcpy(smem, gmem, 16); else memset(smem, 0, 16);
+}
+inline void cp_async_commit() {}
+inline void cp_async_wait_one() {}
+inline void cp_async_wait_none() {}
+}  // namespace pmce
+// WMMA's bf16 16 x 16 x 16 products (transformer_ops.cuh's GEMMs): every
+// lane holds the whole tile, loads read all of it, a product sums in k
+// order, a store writes the elements e with e % 32 == lane.
+namespace nvcuda {
+namespace wmma {
+struct row_major {};
+struct col_major {};
+struct matrix_a {};
+struct matrix_b {};
+struct accumulator {};
+enum layout_t { mem_row_major, mem_col_major };
+template <class Use, int M, int N, int K, class T, class Layout = void>
+struct fragment { float v[256]; };
+template <class F> inline void fill_fragment(F& f, float x) { for (auto& e : f.v) e = x; }
+inline float wval(float v) { return v; }
+inline float wval(bf16 v) { return bf2f(v); }
+template <class Use, class T, class L>
+inline void load_matrix_sync(fragment<Use, 16, 16, 16, T, L>& f, const T* p, unsigned ld) {
+  for (int r = 0; r < 16; ++r)
+    for (int c = 0; c < 16; ++c)
+      f.v[r * 16 + c] = wval(std::is_same<L, col_major>::value ? p[c * ld + r] : p[r * ld + c]);
+}
+template <class A, class B, class C, class D>
+inline void mma_sync(D& d, const A& a, const B& b, const C& c) {
+  float out[256];
+  for (int r = 0; r < 16; ++r)
+    for (int n = 0; n < 16; ++n) {
+      float s = c.v[r * 16 + n];
+      for (int k = 0; k < 16; ++k) s += a.v[r * 16 + k] * b.v[k * 16 + n];
+      out[r * 16 + n] = s;
+    }
+  memcpy(d.v, out, sizeof out);
+}
+template <class F>
+inline void store_matrix_sync(float* p, const F& f, unsigned ld, layout_t) {
+  for (int e = threadIdx.x & 31; e < 256; e += 32) p[(e / 16) * ld + e % 16] = f.v[e];
+}
+}  // namespace wmma
+}  // namespace nvcuda
 namespace tc32 {
 // The kernels' 3xTF32 split (csrc/common.cuh): hi to nearest TF32, ties
 // away from zero, lo = v - hi with all its bits (the mma reads the top 19).

@@ -9,8 +9,9 @@ and the pointer tables it hands them:
   (launch A, then launch B, 4 CTAs a clip) on the parameters' own bf16
   weights, writing qkv always (launch B's keys), the rest of the saved
   state only when a gradient is owed and the branches a, mo only when a
-  mask's is; other shapes take the launch sequence ``pmce_ada_block_fwd``
-  (counter ``ada_block_fwd_seq``);
+  mask's is, at any token count; other shapes (hid over 256, C other
+  than 64) take the launch sequence ``pmce_ada_block_fwd`` (counter
+  ``ada_block_fwd_seq``);
 - row 4 inside ``mhsa_fwd_kernel_fits`` is one ``pmce_mhsa_fwd_tile``
   launch at C = 64 / heads of 8 and C = 256 / heads of 32, whole clips a
   CTA by ``mhsa_fwd_plan``; other shapes take ``pmce_mhsa_fwd`` (counter
@@ -39,7 +40,7 @@ from tests.test_torch_port_fwd_redesign import _Launches
 # bproj, w1, bb1, w2, bb2, h1, qkv, o, stat_m, stat_l, x1, h2, hh, ge, out,
 # a, mo.
 _ADA_PTRS = {"pmce_ada_fwd_tile": 28, "pmce_ada_block_fwd": 27,
-             "pmce_ada_bwd_tile": 30, "pmce_ada_wgrad": 12}
+             "pmce_ada_bwd_tile": 31, "pmce_ada_wgrad": 12}
 _ADA_SAVED = range(17, 25)
 # pmce_mhsa_fwd_tile's: x, wqkv, bqkv, wproj, bproj, out, qkv, o, stat_m,
 # stat_l, stamps. pmce_mhsa_fwd's: x, wqkv, bqkv, wproj, bproj, qkv, o,
@@ -70,8 +71,8 @@ def _mhsa(clips, N, C, H, grad=False):
 # --------------------------------------------------------------- the gates
 def test_forward_gates():
     """Row 4's: up to 64 tokens, (C, head width) in (64, 8 | 16 | 32) or
-    (256, 32). Row 8's: the backward's (C = 64, hid up to 256, up to 512
-    tokens)."""
+    (256, 32). Row 8's: the backward's (C = 64, hid up to 256, any token
+    count: 513 too)."""
     assert fa.mhsa_fwd_kernel_fits(17, 64, 8)
     assert fa.mhsa_fwd_kernel_fits(17, 256, 8)
     assert fa.mhsa_fwd_kernel_fits(16, 256, 8)
@@ -82,7 +83,7 @@ def test_forward_gates():
     assert not fa.mhsa_fwd_kernel_fits(17, 256, 16)    # heads of 16 at 256
     assert fa.ada_fwd_kernel_fits(431, 64, 256)
     assert fa.ada_fwd_kernel_fits(512, 64, 128)
-    assert not fa.ada_fwd_kernel_fits(513, 64, 256)
+    assert fa.ada_fwd_kernel_fits(513, 64, 256)
     assert not fa.ada_fwd_kernel_fits(431, 64, 512)
     assert not fa.ada_fwd_kernel_fits(431, 128, 256)
 
@@ -175,15 +176,15 @@ def test_ada_forward_saves_only_what_is_owed(grad, mask_grad):
 
 
 @pytest.mark.parametrize("B,N,C,H,hid", [(2, 431, 64, 2, 512),
-                                         (2, 600, 64, 2, 256),
+                                         (2, 600, 64, 2, 320),
                                          (2, 40, 128, 4, 256)],
                          ids=["hid-512", "N-600", "C-128"])
 def test_ada_forward_outside_the_gate_takes_the_launch_sequence(B, N, C, H,
                                                                 hid):
-    """Shapes the tile programs are not built for (hid 512, 600 tokens, C
-    = 128) run the launch sequence ``pmce_ada_block_fwd``, counted by
-    ``ada_block_fwd_seq`` alone; it writes every intermediate it chains
-    through whatever the grad mode."""
+    """Shapes the tile programs are not built for (hid 512; 600 tokens at
+    hid 320; C = 128) run the launch sequence ``pmce_ada_block_fwd``,
+    counted by ``ada_block_fwd_seq`` alone; it writes every intermediate
+    it chains through whatever the grad mode."""
     assert not fa.ada_fwd_kernel_fits(N, C, hid)
     x, gb, params, masks = _bf16_ada(B, N, H, C=C, hid=hid)
     launches = _Launches(_ADA_PTRS)

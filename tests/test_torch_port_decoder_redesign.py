@@ -12,10 +12,11 @@ and the pointer tables it hands them:
   sequence ``pmce_ca_block_fwd``;
 - row 9 is ``pmce_ada_bwd_tile`` then ``pmce_ada_wgrad``, reading the
   forward's bf16 weights (no transposed copy), with dm1, dm2 only when
-  owed; shapes outside ``ada_bwd_kernel_fits`` take the launch sequence
-  ``pmce_ada_block_bwd``, which gives the mask gradients too;
+  owed; shapes outside ``ada_bwd_kernel_fits`` (hid over 256, C other
+  than 64) take the launch sequence ``pmce_ada_block_bwd``, which gives
+  the mask gradients too;
 - row 8 (its two tile programs, ``pmce_ada_fwd_tile``, inside the gate;
-  the launch sequence ``pmce_ada_block_fwd`` over 512 tokens) saves a, mo
+  the launch sequence ``pmce_ada_block_fwd`` outside it) saves a, mo
   only when a mask's gradient is owed under grad mode.
 """
 
@@ -38,14 +39,14 @@ from tests.test_torch_port_fwd_redesign import _CA_PTRS, _Launches, _bf16_ca
 _CA_SAVED = range(26, 39)
 # pmce_ada_fwd_tile's (row 8 inside its gate): x, 4 conds, m1, m2, wqkv,
 # wproj, w1, w2, bqkv, bproj, bb1, bb2, out, qkv, h1, o, stat_m, stat_l,
-# x1, h2, hh, ge, a, mo, stamps. pmce_ada_block_fwd's (the sequence over
-# 512 tokens): x, 4 conds, m1, m2, wqkv, bqkv, wproj, bproj, w1, bb1, w2,
+# x1, h2, hh, ge, a, mo, stamps. pmce_ada_block_fwd's (the sequence outside
+# the gate): x, 4 conds, m1, m2, wqkv, bqkv, wproj, bproj, w1, bb1, w2,
 # bb2, h1, qkv, o, stat_m, stat_l, x1, h2, hh, ge, out, a, mo.
 # pmce_ada_bwd_tile's: x, g, g1, g2, m1, m2, wqkv, wproj, w1, w2, qkv, o,
 # stat_m, stat_l, x1, hh, a, mo, dx, m2g, dhh, da, dqkv, dout, dsum, dgb,
-# dm1, dm2, counters, stamps.
+# dm1, dm2, counters, stamps, dx1 (the workspace past one pass a CTA).
 _ADA_PTRS = {"pmce_ada_fwd_tile": 28, "pmce_ada_block_fwd": 27,
-             "pmce_ada_bwd_tile": 30,
+             "pmce_ada_bwd_tile": 31,
              "pmce_ada_wgrad": 12, "pmce_ada_block_bwd": 27}
 _ORIENT = pytest.mark.parametrize("Nq,Nk,H", [(17, 431, 8), (431, 17, 2)],
                                   ids=["joints-query", "vertices-query"])
@@ -182,6 +183,7 @@ def test_ada_backward_is_the_tile_program_and_one_weight_launch(N, H,
     assert bool(tile[26]) == bool(tile[27]) == mask_grad     # dm1, dm2
     assert tile[28] == wg[10] != 0                            # counters
     assert tile[29] == 0                                      # not stamped
+    assert tile[30] == 0                          # one pass: no workspace
     assert wg[0] == fwd[17] and wg[4] == tile[22]             # h1, dqkv
     assert tuple(ints[:4]) == (B, N, 256, H)
     assert tuple(wints[:3]) == (B * N, 256, fa._ADA_WGRAD_SPLITS)
@@ -222,13 +224,14 @@ def test_ada_forward_saves_branches_only_when_owed(grad, mask_grad):
 @pytest.mark.parametrize("mask_grad", [False, True],
                          ids=["masks", "mask-grads"])
 def test_ada_backward_outside_the_gate_takes_the_launch_sequence(mask_grad):
-    """Over 512 tokens the backward runs the launch sequence (its
-    transposed weight copies and workspace), counted by
-    ``ada_block_bwd_seq`` alone; it gives the mask gradients too: a, mo and
-    the dm1, dm2 outputs at the table's end only when owed."""
-    B, N, H = 2, 520, 2
-    assert not fa.ada_bwd_kernel_fits(N, 64, 256)
-    x, gb, params, masks = _bf16_ada(B, N, H, mask_grad=mask_grad)
+    """Outside the tile program's gate (here hid 320, over its 256) the
+    backward runs the launch sequence (its transposed weight copies and
+    workspace), counted by ``ada_block_bwd_seq`` alone; it gives the mask
+    gradients too: a, mo and the dm1, dm2 outputs at the table's end only
+    when owed."""
+    B, N, H, hid = 2, 520, 2, 320
+    assert not fa.ada_bwd_kernel_fits(N, 64, hid)
+    x, gb, params, masks = _bf16_ada(B, N, H, hid=hid, mask_grad=mask_grad)
     launches = _Launches(_ADA_PTRS)
     _cuda.reset_launch_counts()
     with _enter(_stubs(launches, _cuda.ADA)), \
@@ -238,7 +241,7 @@ def test_ada_backward_outside_the_gate_takes_the_launch_sequence(mask_grad):
         y.backward(torch.zeros_like(y))
     assert launches.names == ["pmce_ada_block_fwd", "pmce_ada_block_bwd"]
     (_, fwd, _), (_, seq, ints) = launches.calls
-    assert tuple(ints[:5]) == (B, N, 64, 256, H)
+    assert tuple(ints[:5]) == (B, N, 64, hid, H)
     assert seq[23:25] == fwd[25:27]
     assert [bool(p) for p in seq[23:27]] == [mask_grad] * 4
     counts = _cuda.launch_counts()
@@ -266,9 +269,9 @@ def test_ada_backward_stage_split_is_one_stamped_launch():
 
 
 def test_ada_backward_gate():
-    """The tile program's gate: C = 64, hid up to 256, up to 512 tokens."""
+    """The tile program's gate: C = 64, hid up to 256, any token count."""
     assert fa.ada_bwd_kernel_fits(431, 64, 256)
     assert fa.ada_bwd_kernel_fits(512, 64, 128)
-    assert not fa.ada_bwd_kernel_fits(513, 64, 256)
+    assert fa.ada_bwd_kernel_fits(513, 64, 256)
     assert not fa.ada_bwd_kernel_fits(431, 64, 320)
     assert not fa.ada_bwd_kernel_fits(431, 128, 256)

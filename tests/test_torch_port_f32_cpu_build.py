@@ -60,13 +60,17 @@ class _CpuLibrary(_cuda.CudaLibrary):
 
 
 # The port's library of each source (``_cuda``'s name).
-_LIB_NAMES = {"coevo_chain": "CHAIN", "coevo_block": "COEVO_BLOCK"}
+_LIB_NAMES = {"coevo_chain": "CHAIN", "coevo_block": "COEVO_BLOCK",
+              "ada_block": "ADA"}
 
 
 def _build_cpu_libs(out: Path, sources, defines=()):
     shutil.copy(SHIM, out / "common.cuh")
-    for name in (*(f"{n}.cu" for n in sources), "f32_ops.cuh",
-                 "dec_tc32.cuh", "coevo_ops.cuh"):
+    # <mma.h>: the shim holds WMMA's stand-in (nvcuda::wmma).
+    (out / "mma.h").write_text("#include \"common.cuh\"\n")
+    headers = [h.name for h in sorted(_cuda.CSRC.glob("*.cuh"))
+               if h.name != "common.cuh"]
+    for name in (*(f"{n}.cu" for n in sources), *headers):
         text = (_cuda.CSRC / name).read_text()
         text = text.replace(
             "extern __shared__ __align__(16) unsigned char smem[];",
@@ -76,7 +80,8 @@ def _build_cpu_libs(out: Path, sources, defines=()):
         (out / name).write_text(text.replace("__restrict__", ""))
     procs = {name: subprocess.Popen(
         ["g++", "-x", "c++", "-O2", "-std=c++20", "-fPIC", "-shared",
-         "-pthread", "-w", *defines, "-o", str(out / f"lib{name}.so"),
+         "-pthread", "-w", "-I", str(out), *defines,
+         "-o", str(out / f"lib{name}.so"),
          str(out / f"{name}.cu")], stderr=subprocess.PIPE, text=True)
         for name in sources}
     for name, proc in procs.items():
@@ -598,3 +603,67 @@ def test_coevo_bf16_sources_on_clusters_match_plain(bf16_libs, kind, clips,
         err = _rel(a.float(), b.float())
         print(f"bf16 {kind} V={V} S={fc.coevo_splits(J, V)}: {err:.3g}")
         assert a.shape == b.shape and err <= BF16_TOL, err
+
+
+@pytest.fixture(scope="module")
+def ada_libs(tmp_path_factory):
+    """The bf16 AdaLN block (``csrc/ada_block.cu`` over
+    ``csrc/adaln_tile.cuh``, ``attention_ops.cuh``, ``transformer_ops.cuh``
+    and ``wgrad.cuh``): the shim stands in for bf16, ldmatrix (x4 and x2),
+    mma.sync m16n8k16 and m16n8k8, cp.async, clusters and WMMA."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    return _build_cpu_libs(tmp_path_factory.mktemp("cuda_cpu_ada"),
+                           ("ada_block",))
+
+
+# (clips, N, heads): one pass a CTA at 431, two at 600 (the last rank's
+# rows one), four at the 1723-vertex mesh.
+ADA_CASES = [(2, 431, 2), (2, 600, 2), (1, 1723, 2)]
+
+
+@pytest.mark.parametrize("clips,N,heads", ADA_CASES,
+                         ids=[f"{c}x-N{n}" for c, n, _ in ADA_CASES])
+def test_ada_bf16_source_in_passes_matches_plain(ada_libs, clips, N, heads):
+    """Rows 8 / 9, the tile programs a CTA walking its quarter of the clip
+    in ``fa.ada_bwd_passes(N)`` passes of 128 rows (the backward's dx1
+    through its workspace past one pass), hid 256, branch masks that
+    require grad (with two clips, one's first branch dropped): the output
+    and every
+    gradient, dm1 and dm2 included, within ``BF16_TOL`` of the plain
+    version's autograd, relative to each one's largest magnitude; a second
+    backward gives the same bits."""
+    rng = np.random.default_rng([clips, N])
+    C, hid = 64, 256
+    bf = torch.bfloat16
+    x = _t(rng, clips, N, C, grad=False).to(bf).requires_grad_(True)
+    gb = [_t(rng, clips, C, scale=0.1, offset=1.0 - i % 2) for i in range(4)]
+    params = (_t(rng, C, 3 * C, scale=C ** -0.5), _t(rng, 3 * C, scale=0.02),
+              _t(rng, C, C, scale=C ** -0.5), _t(rng, C, scale=0.02),
+              _t(rng, C, hid, scale=C ** -0.5), _t(rng, hid, scale=0.02),
+              _t(rng, hid, C, scale=hid ** -0.5), _t(rng, C, scale=0.02))
+    keep = np.ones((2, clips, 1, 1), np.float32) / 0.8
+    keep[0, 0] = 0.0 if clips > 1 else 1.0
+    masks = tuple(torch.from_numpy(k).requires_grad_(True) for k in keep)
+    g = _t(rng, clips, N, C, grad=False).to(bf)
+    leaves = [x, *gb, *params, *masks]
+
+    def step(block):
+        y = block(x, *gb, params, heads, 1e-6, masks)
+        return (y, *torch.autograd.grad(y, leaves, g, retain_graph=True)), y
+
+    def twice():
+        first, y = step(fa.ada_block)
+        again = torch.autograd.grad(y, leaves, g)
+        return first, again
+
+    (got, again), counts = _as_card(ada_libs, twice)
+    want, _ = step(fa.ada_block_plain)
+    assert counts == {"ada_block_fwd": 1, "ada_block_bwd": 2}
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], again))
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = _rel(a.float(), b.float())
+        print(f"ada_block N={N} ({fa.ada_bwd_passes(N)} passes) output "
+              f"{i}: {err:.3g}")
+        assert a.shape == b.shape and err <= BF16_TOL, (i, err)
+

@@ -18,6 +18,7 @@ max|kernel - plain| / max|plain|, as in chip_smoke.py.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from pathlib import Path
 from unittest import mock
@@ -975,14 +976,27 @@ def test_ca_forward_tile_program_matches_plain_and_the_sequence(shape):
         assert _rel(a, b) <= 0.02, name
 
 
-@pytest.mark.parametrize("shape", [(32, 431, 64, 2), (3, 45, 64, 4),
-                                   (2, 17, 64, 8), (2, 520, 64, 2)], ids=str)
-def test_ada_block_backward_with_mask_gradients(shape):
+@pytest.mark.parametrize("shape,route", [
+    ((32, 431, 64, 2), "tile"), ((3, 45, 64, 4), "tile"),
+    ((2, 17, 64, 8), "tile"), ((2, 1723, 64, 2), "tile"),
+    ((2, 520, 64, 2), "sequence")], ids=str)
+def test_ada_block_backward_with_mask_gradients(shape, route):
     """Row 9 with branch masks that require grad: the tile program and the
     weight-gradient launch (one counted backward) at the Stage-2 step's
-    [32, 431, 64] and two small shapes, the launch sequence over 512 tokens,
-    against the plain version's autograd, dm1 and dm2 included, within 2 %
-    of each gradient's largest magnitude; a rerun gives the same bits."""
+    [32, 431, 64], two small shapes and the 1723-vertex mesh (four passes
+    a CTA, dx1 through the workspace); the launch sequences (the gates
+    patched shut: no shape of the model reaches them), against the plain
+    version's autograd, dm1 and dm2 included, within 2 % of each
+    gradient's largest magnitude; a rerun gives the same bits."""
+    with contextlib.ExitStack() as stack:
+        if route == "sequence":
+            for gate in ("ada_fwd_kernel_fits", "ada_bwd_kernel_fits"):
+                stack.enter_context(
+                    mock.patch.object(fa, gate, lambda *a: False))
+        _ada_backward_with_mask_gradients(shape, route == "tile")
+
+
+def _ada_backward_with_mask_gradients(shape, tile: bool):
     dev = _card()
     rng = np.random.default_rng(list(shape))
     leaves, _, (kernel, plain) = _dec_case(rng, dev, "ada", shape)
@@ -1001,7 +1015,6 @@ def test_ada_block_backward_with_mask_gradients(shape):
     y = run(kernel)
     _cuda.reset_launch_counts()
     gk = torch.autograd.grad(y, every, g, retain_graph=True)
-    tile = fa.ada_bwd_kernel_fits(N, 64, 256)
     counts = _cuda.launch_counts()
     assert counts["ada_block_bwd"] == int(tile)
     assert counts["ada_block_bwd_seq"] == int(not tile)
